@@ -1,0 +1,406 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (robo_vln_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py [--profile]
+
+Phases, one or more lines each; any failure ends the run with a non-zero
+exit code and no result line:
+
+1. Device: CUDA must be present; prints nvidia-smi's name and power limit.
+2. Build: compiles every CUDA kernel of the port from csrc/ for sm_90a, one
+   nvcc per source, all in parallel, into build/kernels/.
+3. Kernels against their plain versions, float32 with TF32 off, at the
+   shapes of the serving path: the LSTM kernel and the cross-modal attention
+   kernel (also in bfloat16, the serving dtype).  Prints the largest error
+   against the stated tolerance, and every rep's time of the kernel, the plain
+   version and one PyTorch library call computing the same function.
+4. Main path at full published width (BERT-base, TV-ResNet50 at 224 px, DDPPO
+   GN-ResNet50 at 256 px, VisualLingAttn d_model 256 / 4 heads, LSTM(512)),
+   random weights from seed 0, bfloat16 compute: three teacher-forced windows
+   (B=4, T=50, 200 instruction tokens), then 10 closed-loop ticks at B=8 with
+   the BERT embedding cached.  The launch counts are zeroed just before and
+   read just after; every output must be finite.  Then the float32 window is
+   compared with the same agent whose kernels are swapped for their plain
+   versions.  With --profile, torch.profiler traces one window and five
+   ticks first and prints the device's busy share and top kernels.
+5. One JSON line {"kernels": [...]}, then the card's name and power limit,
+   then the last line {"ok": true, "device": {...}}.
+"""
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores, which both kernels use
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+LSTM_TOL = 1e-4  # float32; the T sequential steps sum in another order
+ATTN_TOL = 1e-4  # float32; another summation order over d_k and S
+ATTN_BF16_TOL = 2e-2  # one bfloat16 rounding of outputs of magnitude < 4
+WINDOW_TOL = 2e-3  # float32 agent, kernels against plain, through 50 steps
+
+
+def fail(msg):
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps=10, inner=10, warmup=3):
+    """Per-call ms of fn over ``reps`` CUDA-event windows of ``inner`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return times
+
+
+def report_times(label, times):
+    print(f"  {label}: median {statistics.median(times):.4f} ms, reps "
+          + " ".join(f"{t:.4f}" for t in times))
+    return statistics.median(times)
+
+
+def lstm_inputs(gen, T, B, H, device):
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    masks = torch.ones(T, B)
+    masks[0] = 0.0
+    if T > 2:
+        masks[T // 2, B - 1] = 0.0  # a reset inside the window
+    return (randn(T, B, 4 * H), masks.to(device), randn(B, H), randn(B, H),
+            randn(H, 4 * H, scale=H ** -0.5))
+
+
+def lstm_bound_ms(T, B, H):
+    bytes_moved = 4 * (T * B * 4 * H + T * B + 2 * B * H + 4 * H * H
+                       + T * B * H + 2 * B * H)
+    flops = 2 * T * B * H * 4 * H
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+
+
+def attn_bound_ms(N, Lq, S, heads, d, itemsize):
+    bytes_moved = itemsize * (N * Lq * heads * d * 2 + N * S * heads * d * 2)
+    flops = 2 * N * heads * Lq * S * (d + d)
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+
+
+def check_lstm(gen, device):
+    from robo_vln_tpu_torch.ops import fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
+
+    print("phase 3a: lstm_seq kernel against ops/rnn.lstm_recurrence, float32")
+    worst = 0.0
+    timed = {}
+    # the serving shapes, then several batch tiles and small hidden sizes
+    for T, B, H in ((50, 4, 512), (1, 1, 512), (1, 8, 512), (5, 20, 512),
+                    (7, 11, 64), (3, 2, 32)):
+        args = lstm_inputs(gen, T, B, H, device)
+        got = fused_lstm.lstm_seq_cuda(*args)
+        ref = lstm_recurrence(*args)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        worst = max(worst, err)
+        print(f"  T={T} B={B} H={H}: max_abs_err {err:.3e} (tolerance {LSTM_TOL})")
+        if not err <= LSTM_TOL:
+            fail(f"lstm_seq disagrees with its plain version at T={T} B={B} H={H}")
+        if (T, B) == (50, 4):
+            kernel = report_times("kernel", time_ms(lambda: fused_lstm.lstm_seq_cuda(*args)))
+            plain = report_times("plain", time_ms(lambda: lstm_recurrence(*args), inner=2))
+            lstm = torch.nn.LSTM(896, H).to(device)
+            x = torch.randn(T, B, 896, generator=gen).to(device)
+            hc = (args[2][None], args[3][None])
+            library = report_times("library nn.LSTM (cuDNN, input 896, masks all 1)",
+                                   time_ms(lambda: lstm(x, hc)))
+            timed = {"ms": kernel, "plain_ms": plain, "library_ms": library}
+    by_bytes, by_ops = lstm_bound_ms(50, 4, 512)
+    print(f"  bound at T=50 B=4 H=512: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
+    # one window forward launches it twice at these shapes (high and low level)
+    return {
+        "name": "lstm_seq", "route": "cuda",
+        "source": "robo_vln_tpu_torch/csrc/lstm_seq.cu",
+        "replaces": "robo_vln_tpu/ops/pallas_lstm.py:40",
+        "max_abs_err": worst,
+        "ms": 2 * timed["ms"], "plain_ms": 2 * timed["plain_ms"],
+        "bound_ms": 2 * max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes > by_ops else "operations",
+        "library_ms": 2 * timed["library_ms"],
+        "work": "2 calls at T=50, B=4, H=512, float32 (one window forward)",
+        "library": "torch.nn.LSTM (cuDNN) over x (T, B, 896), input projection included",
+    }
+
+
+def check_attention(gen, device):
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    print("phase 3b: cross_modal_attn kernel against ops/fused_attention.attention_plain")
+    N, Lq, heads, d = 200, 200, 4, 64
+    worst = 0.0
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    by_bytes_total = by_ops_total = 0.0
+    for n in (N, 8):
+        for S in (16, 64):
+            for dtype, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
+                q = torch.randn(n, Lq, heads * d, generator=gen).to(device, dtype)
+                k = torch.randn(n, S, heads * d, generator=gen).to(device, dtype)
+                v = torch.randn(n, S, heads * d, generator=gen).to(device, dtype)
+                got = fused_attention.cross_modal_attn_cuda(q, k, v, heads)
+                ref = fused_attention.attention_plain(q, k, v, heads)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                tag = f"N={n} Lq={Lq} S={S} h={heads} d={d} {str(dtype)[6:]}"
+                print(f"  {tag}: max_abs_err {err:.3e} (tolerance {tol})")
+                if not err <= tol:
+                    fail(f"cross_modal_attn disagrees with its plain version at {tag}")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                if n != N:
+                    continue
+                kernel = report_times(f"{tag} kernel", time_ms(
+                    lambda: fused_attention.cross_modal_attn_cuda(q, k, v, heads)))
+                plain = report_times(f"{tag} plain", time_ms(
+                    lambda: fused_attention.attention_plain(q, k, v, heads)))
+                qh = q.view(n, Lq, heads, d).transpose(1, 2)
+                kh = k.view(n, S, heads, d).transpose(1, 2)
+                vh = v.view(n, S, heads, d).transpose(1, 2)
+                library = report_times(f"{tag} library scaled_dot_product_attention", time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)))
+                by_bytes, by_ops = attn_bound_ms(n, Lq, S, heads, d, q.element_size())
+                print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
+                if dtype == torch.float32:
+                    sums["ms"] += kernel
+                    sums["plain_ms"] += plain
+                    sums["library_ms"] += library
+                    by_bytes_total += by_bytes
+                    by_ops_total += by_ops
+    # ragged shapes: a partial query tile, S below a warp, d_v != d_k
+    for n, lq, S, h, dk, dv in ((3, 13, 5, 2, 8, 16), (2, 40, 33, 3, 32, 32)):
+        q = torch.randn(n, lq, h * dk, generator=gen).to(device)
+        k = torch.randn(n, S, h * dk, generator=gen).to(device)
+        v = torch.randn(n, S, h * dv, generator=gen).to(device)
+        err = (fused_attention.cross_modal_attn_cuda(q, k, v, h)
+               - fused_attention.attention_plain(q, k, v, h)).abs().max().item()
+        print(f"  N={n} Lq={lq} S={S} h={h} d_k={dk} d_v={dv} float32: "
+              f"max_abs_err {err:.3e} (tolerance {ATTN_TOL})")
+        if not err <= ATTN_TOL:
+            fail(f"cross_modal_attn disagrees with its plain version at N={n} S={S}")
+    # one window forward launches it twice: S=16 (rgb) and S=64 (depth)
+    return {
+        "name": "cross_modal_attn", "route": "cuda",
+        "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
+        "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
+        "max_abs_err": worst, **sums,
+        "bound_ms": max(by_bytes_total, by_ops_total),
+        "bound_by": "bytes" if by_bytes_total > by_ops_total else "operations",
+        "work": "2 calls, N=200 Lq=200 h=4 d=64 at S=16 and S=64, float32 (one window forward)",
+        "library": "torch.nn.functional.scaled_dot_product_attention on head views",
+    }
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap both kernels for their plain versions, for the comparison only."""
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
+
+    saved = fused_lstm.lstm_seq_cuda, fused_attention.cross_modal_attn_cuda
+    fused_lstm.lstm_seq_cuda = lstm_recurrence
+    fused_attention.cross_modal_attn_cuda = fused_attention.attention_plain
+    try:
+        yield
+    finally:
+        fused_lstm.lstm_seq_cuda, fused_attention.cross_modal_attn_cuda = saved
+
+
+def window_inputs(gen, B, T, L, device):
+    obs = {
+        "rgb": torch.randint(0, 256, (B, T, 224, 224, 3), generator=gen, dtype=torch.uint8),
+        "depth": torch.rand(B, T, 256, 256, 1, generator=gen).half(),
+        "instruction": torch.randint(1, 30522, (B, L), generator=gen),
+    }
+    masks = torch.ones(B, T)
+    masks[:, 0] = 0.0
+    return {k: v.to(device) for k, v in obs.items()}, masks.to(device)
+
+
+def check_finite(name, *tensors):
+    for t in tensors:
+        if not torch.isfinite(t.float()).all():
+            fail(f"{name}: non-finite output")
+
+
+def _device_us(event):
+    return getattr(event, "self_device_time_total", None) or event.self_cuda_time_total
+
+
+def profile_section(label, fn, top=12):
+    """torch.profiler over fn: wall ms, summed kernel time, busy share and
+    the kernels taking the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    print(f"  profile {label}: wall {wall_ms:.3f} ms, kernel time {device_ms:.3f} ms, "
+          f"device busy {device_ms / wall_ms:.3f}, {sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
+        print(f"    {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
+
+
+def profile_main_path(agent, obs, masks, tick_obs, tick_masks):
+    print("phase 4c: torch.profiler over one window and five ticks")
+    B = masks.shape[0]
+    profile_section("window B=4 T=50", lambda: agent.forward_window(
+        obs, masks, None, *agent.initial_state(B)))
+
+    def ticks():
+        state = agent.initial_state(8)
+        for t in range(5):
+            tick = {"rgb": tick_obs["rgb"][:, t], "depth": tick_obs["depth"][:, t],
+                    "instruction": tick_obs["instruction"]}
+            state = agent.act(tick, state, None, tick_masks[:, t])[2]
+
+    profile_section("5 ticks B=8", ticks)
+
+
+def main_path(device, profile=False):
+    from robo_vln_tpu_torch import build_hcm_agent
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+
+    cfg = get_config()
+    mc = cfg.MODEL
+    print("phase 4: HCM agent at full width: BERT-base 12x768, TV-ResNet50 224 px, "
+          "GN-ResNet50 256 px, VisualLingAttn 256/4h, LSTM(512); bfloat16")
+    t0 = time.perf_counter()
+    agent = build_hcm_agent(mc, device=device, compute_dtype=cfg.TPU.PRECISION, seed=0,
+                            share_frozen_trunks=cfg.TPU.SHARE_FROZEN_TRUNKS)
+    torch.cuda.synchronize()
+    print(f"  build: {time.perf_counter() - t0:.2f} s, shared trunks: {agent.trunk_fn is not None}")
+    if agent.trunk_fn is None:
+        fail("the synced trunks did not take the shared-trunk path")
+
+    gen = torch.Generator().manual_seed(1)
+    B, T, L = 4, 50, 200
+    obs, masks = window_inputs(gen, B, T, L, device)
+    tick_obs, tick_masks = window_inputs(gen, 8, 10, L, device)
+    torch.cuda.reset_peak_memory_stats()
+
+    fused_lstm.reset_launches()
+    fused_attention.reset_launches()
+    for rep in range(3):
+        t0 = time.perf_counter()
+        hh, lh = agent.initial_state(B)
+        actions, stop, logits, hh, lh = agent.forward_window(obs, masks, None, hh, lh)
+        torch.cuda.synchronize()
+        print(f"  window B={B} T={T} rep {rep}: {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    check_finite("forward_window", actions, stop, logits, hh, lh)
+    if (actions.shape, stop.shape, logits.shape, hh.shape) != (
+            (B, T, 2), (B, T, 1), (B, T, 4), (2, B, 512)):
+        fail("forward_window output shapes")
+    state = agent.initial_state(8)
+    for t in range(10):
+        tick = {"rgb": tick_obs["rgb"][:, t], "depth": tick_obs["depth"][:, t],
+                "instruction": tick_obs["instruction"]}
+        t0 = time.perf_counter()
+        a, s, state = agent.act(tick, state, None, tick_masks[:, t])
+        torch.cuda.synchronize()
+        print(f"  act tick {t} B=8: {(time.perf_counter() - t0) * 1e3:.3f} ms")
+        check_finite("act", a, s, *state)
+    launches = {"lstm_seq": fused_lstm.launches, "cross_modal_attn": fused_attention.launches}
+    print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"  launches on the main path: {launches}")
+    expected = 2 * (3 + 10)  # high + low LSTM, rgb + depth attention, per forward
+    for name, count in launches.items():
+        if count != expected:
+            fail(f"{name} launched {count} times on the main path, expected {expected}")
+
+    if profile:
+        profile_main_path(agent, obs, masks, tick_obs, tick_masks)
+
+    print("phase 4b: float32 window, kernels against plain versions (TF32 off)")
+    agent32 = build_hcm_agent(mc, device=device, compute_dtype="float32", seed=0)
+    got = agent32.forward_window(obs, masks, None, *agent32.initial_state(B))
+    with plain_kernels():
+        ref = agent32.forward_window(obs, masks, None, *agent32.initial_state(B))
+    top2 = ref[2].topk(2, dim=-1).values
+    print(f"  smallest top-2 logit gap: {(top2[..., 0] - top2[..., 1]).min().item():.3e}")
+    names = ("actions", "stop", "logits", "high hidden", "low hidden")
+    for name, g, r in zip(names, got, ref):
+        check_finite(f"float32 {name}", g)
+        err = (g - r).abs().max().item()
+        print(f"  {name}: max_abs_err {err:.3e} (tolerance {WINDOW_TOL})")
+        if not err <= WINDOW_TOL:
+            fail(f"float32 window {name} disagrees with the plain-kernel agent")
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from robo_vln_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable ({e})", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s)")
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"phase 2: built {sorted(logs) or 'nothing (up to date)'} in "
+          f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    gen = torch.Generator().manual_seed(0)
+    kernels = [check_lstm(gen, device), check_attention(gen, device)]
+    launches = main_path(device, profile="--profile" in sys.argv[1:])
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

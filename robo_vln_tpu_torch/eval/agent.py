@@ -1,0 +1,106 @@
+"""The HCM agent's serving entry point (counterpart of the hierarchical eval
+tick, robo_vln_tpu/eval/evaluator.py:769-827, and of the teacher-forced
+forward of __graft_entry__.entry() / bench.py:111-118).
+
+:class:`HCMAgent` holds both policies on one device.  Each closed-loop tick
+(:meth:`HCMAgent.act`) runs the frozen trunks once for both policies (when
+their trunk weights are identical, the production path), the high level, the
+argmax over its sub-goal logits, then the low level, at T=1, carrying both
+LSTM states.  Frozen BERT runs once per episode: :meth:`embed_instruction`
+caches the embedding of the last token ids it saw.  Everything runs under
+``torch.no_grad()``; there is no dropout.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..models import (
+    build_hierarchical_policies,
+    frozen_trunks_identical,
+    make_shared_trunk_fn,
+    sync_frozen_trunks,
+)
+from ..utils.device import resolve_device, resolve_dtype
+
+Obs = Dict[str, torch.Tensor]
+
+
+class HCMAgent:
+    def __init__(self, high, low, share_frozen_trunks: bool = True):
+        self.high, self.low = high.eval(), low.eval()
+        self.trunk_fn = None
+        if share_frozen_trunks and frozen_trunks_identical(high, low):
+            self.trunk_fn = make_shared_trunk_fn(high)
+        self._emb_ids: Optional[torch.Tensor] = None
+        self._emb: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.high.parameters()).device
+
+    def initial_state(self, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self.high.initial_hidden(batch_size, self.device),
+                self.low.initial_hidden(batch_size, self.device))
+
+    @torch.no_grad()
+    def embed_instruction(self, ids: torch.Tensor) -> torch.Tensor:
+        """Frozen BERT over (B, L) token ids, cached while the ids stay the
+        same (one episode per env-batch composition)."""
+        cached = self._emb_ids
+        if cached is None or cached.shape != ids.shape or not torch.equal(cached, ids):
+            self._emb_ids = ids.clone()
+            self._emb = self.high.embed_instruction(ids)
+        return self._emb
+
+    def _with_trunk_features(self, obs: Obs) -> Obs:
+        return {**obs, **self.trunk_fn(obs)} if self.trunk_fn is not None else obs
+
+    @torch.no_grad()
+    def act(self, obs: Obs, state, prev: Optional[torch.Tensor], mask: torch.Tensor):
+        """One closed-loop tick.  obs: rgb (B, H, W, 3) uint8, depth
+        (B, H, W, 1), instruction (B, L); state (hh, lh), each (2, B, H);
+        mask (B,).  Returns (actions (B, 2), stop (B, 1), (hh, lh))."""
+        hh, lh = state
+        obs = {**obs, "instruction_embedding": self.embed_instruction(obs["instruction"])}
+        obs = self._with_trunk_features(obs)
+        logits, hh = self.high(obs, hh, prev, mask)
+        pred = logits.argmax(dim=-1)
+        actions, stop, lh = self.low(obs, lh, prev, mask, pred)
+        return actions, stop, (hh, lh)
+
+    @torch.no_grad()
+    def forward_window(self, obs: Obs, masks: torch.Tensor, prev: Optional[torch.Tensor],
+                       hh: torch.Tensor, lh: torch.Tensor):
+        """The teacher-forced window: obs (B, T, ...) with instruction (B, L),
+        masks (B, T).  Returns (actions (B, T, 2), stop (B, T, 1),
+        logits (B, T, 4), hh, lh)."""
+        obs = self._with_trunk_features(obs)
+        logits, hh = self.high(obs, hh, prev, masks)
+        pred = logits.argmax(dim=-1)
+        actions, stop, lh = self.low(obs, lh, prev, masks, pred)
+        return actions, stop, logits, hh, lh
+
+
+def build_hcm_agent(model_config, device="cuda", compute_dtype="bfloat16",
+                    seed: int = 0, weights=None,
+                    share_frozen_trunks: bool = True) -> HCMAgent:
+    """The HCM agent on ``device`` (CUDA unless the caller asks for the CPU;
+    an absent CUDA device raises).  ``weights`` = (high_vars, low_vars), the
+    JAX package's variables as numpy trees, carried over by
+    utils/weight_port.py; without it the weights are random from ``seed``
+    and the low level's frozen trunks are synced to the high level's."""
+    dev = resolve_device(device)
+    high, low = build_hierarchical_policies(
+        model_config, compute_dtype=resolve_dtype(compute_dtype),
+        generator=torch.Generator().manual_seed(seed),
+    )
+    if weights is None:
+        sync_frozen_trunks(high, low)
+    else:
+        from ..utils.weight_port import load_hierarchical_weights
+
+        load_hierarchical_weights(high, low, *weights)
+    return HCMAgent(high.to(dev), low.to(dev), share_frozen_trunks)

@@ -1,0 +1,124 @@
+"""Policy factory and frozen-trunk sharing (counterpart of
+robo_vln_tpu/models/__init__.py:40-186).
+
+The reference's high and low policies each own a frozen DDPPO depth ResNet50
+and a frozen torchvision ResNet50, loaded from the same weight files.  When
+the two copies are bitwise identical (:func:`frozen_trunks_identical`), the
+production path (``TPU.SHARE_FROZEN_TRUNKS``) runs each trunk once per step
+(:func:`make_shared_trunk_fn`) and feeds both policies the features.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .encoders.bert import BertEncoder
+from .hierarchical import HighLevelPolicy, LowLevelPolicy
+from .rnn_state_encoder import RNNStateEncoder, _LSTMWeights
+
+_TRUNK_PATHS = ("rgb_encoder.cnn", "depth_encoder.visual_encoder")
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights drawn from ``generator``, in module order: flax's
+    defaults (lecun-normal linears and convs, zero biases, N(0, 1) embedding
+    tables, orthogonal LSTM weights, N(0, 0.02) BERT embeddings)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, _LSTMWeights):
+            nn.init.orthogonal_(m.weight_ih_l0, generator=generator)
+            nn.init.orthogonal_(m.weight_hh_l0, generator=generator)
+            m.bias_ih_l0.zero_()
+            m.bias_hh_l0.zero_()
+    for m in module.modules():
+        if isinstance(m, BertEncoder):
+            for emb in m.embeddings.children():
+                if isinstance(emb, nn.Embedding):
+                    emb.weight.normal_(0.0, 0.02, generator=generator)
+
+
+def build_hierarchical_policies(model_config, num_sub_tasks: int = 4,
+                                compute_dtype=torch.float32,
+                                generator: torch.Generator = None):
+    """(HighLevelPolicy, LowLevelPolicy) on the CPU, in eval mode, with
+    random weights from ``generator`` (a fresh one seeded 0 if None)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    high = HighLevelPolicy(model_config, num_actions=num_sub_tasks,
+                           compute_dtype=compute_dtype)
+    low = LowLevelPolicy(model_config, num_actions=2, num_sub_tasks=num_sub_tasks,
+                         compute_dtype=compute_dtype)
+    init_weights(high, generator)
+    init_weights(low, generator)
+    return high.eval(), low.eval()
+
+
+def _trunk_state(policy: nn.Module, path: str):
+    return policy.get_submodule(path).state_dict()
+
+
+def frozen_trunks_identical(high: nn.Module, low: nn.Module) -> bool:
+    """True iff both policies hold bitwise-identical frozen trunks (weights
+    and BatchNorm statistics): the precondition for sharing the trunk pass."""
+    for path in _TRUNK_PATHS:
+        a, b = _trunk_state(high, path), _trunk_state(low, path)
+        if a.keys() != b.keys():
+            return False
+        if not all(a[k].shape == b[k].shape and torch.equal(a[k], b[k]) for k in a):
+            return False
+    return True
+
+
+@torch.no_grad()
+def sync_frozen_trunks(high: nn.Module, low: nn.Module) -> None:
+    """Copy the high level's frozen trunks into the low level's (copies, not
+    aliases): the production invariant, for randomly initialised policies."""
+    for path in _TRUNK_PATHS:
+        low.get_submodule(path).load_state_dict(_trunk_state(high, path))
+
+
+def make_shared_trunk_fn(high: HighLevelPolicy):
+    """observations -> {"rgb_features", "depth_features"}, each trunk run
+    once with the high level's weights; both policies then take the features
+    through their encoders' ``*_features`` path.  Accepts (B, T, H, W, C) or
+    (B, H, W, C) frames and returns features with the same leading shape,
+    laid out (…, h, w, C)."""
+    tv = high.rgb_encoder.cnn
+    gn = high.depth_encoder.visual_encoder
+    dt = high.compute_dtype
+
+    def trunk_fn(observations):
+        rgb, depth = observations["rgb"], observations["depth"]
+        lead = rgb.shape[:-3]
+        rgb = rgb.reshape((-1,) + tuple(rgb.shape[-3:]))
+        depth = depth.reshape((-1,) + tuple(depth.shape[-3:]))
+        rgb_map = tv((rgb.to(dt) / 255.0).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        depth_map = gn(depth.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return {
+            "rgb_features": rgb_map.reshape(lead + rgb_map.shape[1:]).detach(),
+            "depth_features": depth_map.reshape(lead + depth_map.shape[1:]).detach(),
+        }
+
+    return trunk_fn
+
+
+__all__ = [
+    "HighLevelPolicy",
+    "LowLevelPolicy",
+    "RNNStateEncoder",
+    "build_hierarchical_policies",
+    "frozen_trunks_identical",
+    "init_weights",
+    "make_shared_trunk_fn",
+    "sync_frozen_trunks",
+]

@@ -1,0 +1,113 @@
+"""Fused cross-modal attention: the CUDA kernel ``csrc/cross_modal_attn.cu``,
+its wrapper, its plain version and its launch counter.
+
+Counterpart of robo_vln_tpu/ops/pallas_attention.py: per (example, head),
+``softmax(q·kᵀ/√d_k)·v`` with no mask, computed in float32 whatever the input
+dtype (float32 or bfloat16), the output in q's dtype.  q (N, Lq, h·d_k),
+k (N, S, h·d_k), v (N, S, h·d_v) -> (N, Lq, h·d_v); the kernel addresses the
+heads by stride, so there are no transposes around the call.
+
+On a CPU tensor the plain version (:func:`attention_plain`) runs; on a CUDA
+tensor the kernel launches, or the wrapper raises.  The backward pass replays
+the plain version, as the JAX custom VJP does (pallas_attention.py:133-136).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, cm_attention
+
+launches = 0  # kernel launches since the last reset
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
+WARPS = 8  # kWarps of csrc/cross_modal_attn.cu
+
+
+def smem_bytes(S: int, dk: int, dv: int) -> int:
+    """Shared memory of one block: K (padded rows), V, a q row and S
+    probabilities per warp, all float32."""
+    return 4 * (S * (dk + 1) + S * dv + WARPS * (dk + S))
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def attention_plain(q, k, v, num_heads: int):
+    """The kernel's function in plain PyTorch, output in q's dtype."""
+    out = cm_attention.mha_attention(q.float(), k.float(), v.float(), num_heads)
+    return out.to(q.dtype)
+
+
+def cross_modal_attn_cuda(q, k, v, num_heads: int):
+    """Launch the kernel on CUDA tensors of one dtype (float32 or bfloat16)."""
+    global launches
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"cross_modal_attn: expected CUDA tensors, got {device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"cross_modal_attn: unsupported dtype {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != device or t.dtype != q.dtype:
+            raise ValueError(f"cross_modal_attn: {name} must be {q.dtype} on "
+                             f"{device}, got {t.dtype} on {t.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"cross_modal_attn: {name} must be a contiguous "
+                             f"(N, L, h*d) tensor, got {tuple(t.shape)}")
+    N, Lq, Dq = q.shape
+    S = k.shape[1]
+    Dv = v.shape[-1]
+    if (k.shape[0] != N or v.shape[:2] != k.shape[:2] or k.shape[-1] != Dq
+            or Dq % num_heads or Dv % num_heads or S < 1):
+        raise ValueError(
+            f"cross_modal_attn: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} do not fit {num_heads} heads")
+    dk, dv = Dq // num_heads, Dv // num_heads
+    if smem_bytes(S, dk, dv) > SMEM_LIMIT:
+        raise ValueError(f"cross_modal_attn: S={S}, d_k={dk}, d_v={dv} need "
+                         f"{smem_bytes(S, dk, dv)} bytes of shared memory a block")
+
+    lib = _build.load("cross_modal_attn")
+    fn = lib.cross_modal_attn
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    out = torch.empty((N, Lq, Dv), device=device, dtype=q.dtype)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N,
+                 Lq, S, num_heads, dk, dv,
+                 _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"cross_modal_attn: CUDA error {err} at launch")
+    launches += 1
+    return out
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return cross_modal_attn_cuda(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_plain(q, k, v, ctx.num_heads)
+        return (*torch.autograd.grad(out, (q, k, v), g), None)
+
+
+def fused_cross_modal_attention(q, k, v, num_heads: int):
+    """No-mask MHA core: the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, num_heads)
+    return _FusedAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), num_heads)

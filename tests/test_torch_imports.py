@@ -1,0 +1,64 @@
+"""The port stands alone: importing robo_vln_tpu_torch and every submodule
+loads neither JAX, flax, optax nor anything of robo_vln_tpu, and no source
+of the port or chip_smoke.py names them in an import, not even one inside a
+function."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "robo_vln_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "robo_vln_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import robo_vln_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'robo_vln_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(len(names))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LOADED', bad)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                          capture_output=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    count, loaded = proc.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 15  # every module of the slice was imported
+    assert loaded == "LOADED []"
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_source_imports_jax(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_modules_are_all_checked():
+    names = {m.name for m in pkgutil.walk_packages([str(PORT)])}
+    assert {"ops", "models", "config", "utils", "eval"} <= names

@@ -1,0 +1,176 @@
+"""Port ops against the JAX package: the plain masked LSTM and the plain
+cross-modal attention, each held against the JAX XLA path and the
+interpret-mode Pallas kernel on the same numpy inputs (f32, atol 1e-5), the
+dispatch of attention_core.  The CUDA kernels have no CPU mode: chip_smoke.py
+holds them against these plain versions on the card."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from robo_vln_tpu.ops import cm_attention as jax_cm
+from robo_vln_tpu.ops import pallas_lstm as jax_lstm
+from robo_vln_tpu.ops.pallas_attention import _pallas_attention
+from robo_vln_tpu_torch.ops import _build, cm_attention, fused_attention, fused_lstm
+from robo_vln_tpu_torch.ops.rnn import lstm_recurrence, lstm_sequence
+
+ATOL = 1e-5
+
+
+def _lstm_inputs(rng, T, B, H):
+    masks = np.ones((T, B), np.float32)
+    masks[0] = 0.0
+    if T > 2:
+        masks[T // 2, B - 1] = 0.0  # a reset in the middle of the window
+    return (
+        rng.standard_normal((T, B, 4 * H)).astype(np.float32),
+        masks,
+        rng.standard_normal((B, H)).astype(np.float32),
+        rng.standard_normal((B, H)).astype(np.float32),
+        (rng.standard_normal((H, 4 * H)) * 0.1).astype(np.float32),
+    )
+
+
+def _close(a, b, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("T,B,H", [(6, 3, 32), (4, 1, 16), (1, 1, 32), (1, 4, 8)])
+def test_lstm_recurrence_matches_scan_and_pallas(rng, T, B, H):
+    args = _lstm_inputs(rng, T, B, H)
+    ours = lstm_recurrence(*map(torch.from_numpy, args))
+    scan = jax_lstm._scan_impl(*map(jnp.asarray, args))
+    pallas = jax_lstm._pallas_lstm_call(*map(jnp.asarray, args), interpret=True)
+    for o, s, p in zip(ours, scan, pallas):
+        _close(o, s)
+        _close(o, p)
+
+
+def test_lstm_sequence_fused_matches_jax(rng):
+    """The fused wrapper's API, input projection included; on CPU tensors it
+    runs the plain version and launches nothing."""
+    T, B, D, H = 5, 2, 12, 16
+    gates_x, masks, h0, c0, w_hh = _lstm_inputs(rng, T, B, H)
+    x = rng.standard_normal((T, B, D)).astype(np.float32)
+    w_ih = (rng.standard_normal((D, 4 * H)) * 0.3).astype(np.float32)
+    b = rng.standard_normal(4 * H).astype(np.float32)
+    np_args = (x, h0, c0, masks, w_ih, w_hh, b)
+    fused_lstm.reset_launches()
+    outs, (hT, cT) = fused_lstm.lstm_sequence_fused(*map(torch.from_numpy, np_args))
+    assert fused_lstm.launches == 0
+    ref_outs, (ref_h, ref_c) = jax_lstm.lstm_sequence_fused(*map(jnp.asarray, np_args))
+    for o, r in ((outs, ref_outs), (hT, ref_h), (cT, ref_c)):
+        _close(o, r)
+    plain_outs, _ = lstm_sequence(*map(torch.from_numpy, np_args))
+    _close(outs, plain_outs, atol=0.0)
+
+
+@pytest.mark.parametrize("H,n_sm,units", [(512, 132, 4), (512, 100, 8), (32, 132, 1), (48, 16, 3)])
+def test_lstm_units_per_block(H, n_sm, units):
+    assert fused_lstm._units_per_block(H, n_sm) == units
+
+
+def _qkv(rng, N, Lq, S, D, Dv):
+    return (rng.standard_normal((N, Lq, D)).astype(np.float32),
+            rng.standard_normal((N, S, D)).astype(np.float32),
+            rng.standard_normal((N, S, Dv)).astype(np.float32))
+
+
+ATTN_SHAPES = [  # N, Lq, S, D, Dv, heads
+    (2, 16, 16, 256, 256, 4),  # rgb tokens, HCM head layout (d_k = 64)
+    (2, 16, 64, 256, 256, 4),  # depth tokens
+    (3, 8, 8, 16, 16, 2),  # tiny
+    (2, 8, 64, 256, 128, 2),  # rectangular d_v
+]
+
+
+@pytest.mark.parametrize("N,Lq,S,D,Dv,heads", ATTN_SHAPES)
+def test_attention_plain_matches_xla_and_pallas(rng, N, Lq, S, D, Dv, heads):
+    q, k, v = _qkv(rng, N, Lq, S, D, Dv)
+    ours = fused_attention.attention_plain(*map(torch.from_numpy, (q, k, v)), heads)
+    _close(ours, jax_cm.mha_attention(*map(jnp.asarray, (q, k, v)), heads))
+    _close(ours, _pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True))
+    fused_attention.reset_launches()
+    core = cm_attention.attention_core(*map(torch.from_numpy, (q, k, v)), heads)
+    assert fused_attention.launches == 0  # CPU tensors take the plain version
+    _close(core, ours, atol=0.0)
+
+
+def test_masked_attention_takes_plain_path(rng, monkeypatch):
+    """A masked call, or one that asks for the weights, never reaches the
+    kernel's wrapper; -1e30 fill before the softmax and zero after it, so a
+    fully masked row gives zeros, as in JAX."""
+    q, k, v = _qkv(rng, 2, 8, 8, 64, 64)
+    mask = np.zeros((2, 1, 8, 8), bool)
+    mask[:, :, :, 6:] = True
+    mask[1, :, 3, :] = True  # a fully masked row
+
+    def refuse(*a, **kw):
+        raise AssertionError("masked call reached the kernel wrapper")
+
+    monkeypatch.setattr(fused_attention, "fused_cross_modal_attention", refuse)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out = cm_attention.attention_core(tq, tk, tv, 2, torch.from_numpy(mask))
+    ref = jax_cm.mha_attention(*map(jnp.asarray, (q, k, v)), 2, jnp.asarray(mask))
+    _close(out, ref)
+    assert np.all(out.numpy()[1, 3] == 0.0)
+    out_w, weights = cm_attention.attention_core(tq, tk, tv, 2, return_weights=True)
+    ref_w, ref_weights = jax_cm.mha_attention(
+        *map(jnp.asarray, (q, k, v)), 2, return_weights=True)
+    _close(out_w, ref_w)
+    _close(weights, ref_weights)
+
+
+def test_wrappers_refuse_non_cuda_tensors(rng):
+    """The launch functions take CUDA tensors only: they never run the plain
+    version in place of the kernel."""
+    q, k, v = map(torch.from_numpy, _qkv(rng, 1, 4, 4, 8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_attention.cross_modal_attn_cuda(q, k, v, 2)
+    args = map(torch.from_numpy, _lstm_inputs(rng, 2, 1, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_lstm.lstm_seq_cuda(*args)
+
+
+def test_kernel_library_names_follow_sources():
+    for name in _build.KERNELS:
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+        assert (_build.CSRC / f"{name}.cu").is_file()
+
+
+def test_kernel_functions_backward_replays_plain(rng, monkeypatch):
+    """The autograd.Functions around the kernels give the plain versions'
+    gradients (their backward replays the plain version, as the JAX custom
+    VJPs do).  The launch functions are stood in for by the plain versions,
+    since the kernels run only on the card."""
+    monkeypatch.setattr(fused_lstm, "lstm_seq_cuda", lstm_recurrence)
+    monkeypatch.setattr(fused_attention, "cross_modal_attn_cuda", fused_attention.attention_plain)
+    cases = [
+        (fused_lstm._FusedLSTM.apply, lstm_recurrence, _lstm_inputs(rng, 4, 2, 8), ()),
+        (fused_attention._FusedAttention.apply, fused_attention.attention_plain,
+         _qkv(rng, 2, 6, 5, 16, 16), (2,)),
+    ]
+    for fn, plain, arrays, extra in cases:
+        grads = []
+        for f in (fn, plain):
+            inputs = [torch.tensor(a, requires_grad=True) for a in arrays]
+            out = f(*inputs, *extra)
+            outs = out if isinstance(out, tuple) else (out,)
+            sum((o * o).sum() for o in outs).backward()
+            grads.append([t.grad for t in inputs])
+        for g, r in zip(*grads):
+            torch.testing.assert_close(g, r, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("H,units,fits", [(512, 4, True), (512, 8, True), (2048, 16, False)])
+def test_lstm_smem_bound(H, units, fits):
+    assert (fused_lstm.smem_bytes(H, units) <= fused_lstm.SMEM_LIMIT) == fits
+
+
+@pytest.mark.parametrize("S,d,fits", [(16, 64, True), (64, 64, True), (512, 128, False)])
+def test_attention_smem_bound(S, d, fits):
+    assert (fused_attention.smem_bytes(S, d, d) <= fused_attention.SMEM_LIMIT) == fits

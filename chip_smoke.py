@@ -11,9 +11,15 @@ exit code and no result line:
    nvcc per source, all in parallel, into build/kernels/.
 3. Kernels against their plain versions, float32 with TF32 off, at the
    shapes of the serving path: the LSTM kernel and the cross-modal attention
-   kernel (also in bfloat16, the serving dtype).  Prints the largest error
-   against the stated tolerance, and every rep's time of the kernel, the plain
-   version and one PyTorch library call computing the same function.
+   kernel, whose bfloat16 route (the serving dtype, a tensor-core kernel of
+   its own) is held at the same shapes and at ragged ones.  Prints the largest
+   error against the stated tolerance, and every rep's time of the kernel,
+   the plain version and one PyTorch library call computing the same
+   function, each rep's calls queued on the device behind a sleep so that a
+   call shorter than its host cost is timed on the device.  bfloat16
+   attention is timed with its inputs rotated over several sets, so that no
+   call finds them in the L2 cache; at the tick's shape its wrapper is also
+   timed unqueued, at the host's dispatch rate.
 4. Main path at full published width (BERT-base, TV-ResNet50 at 224 px, DDPPO
    GN-ResNet50 at 256 px, VisualLingAttn d_model 256 / 4 heads, LSTM(512)),
    random weights from seed 0, bfloat16 compute: three teacher-forced windows
@@ -28,6 +34,7 @@ exit code and no result line:
 """
 
 import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -36,10 +43,14 @@ import time
 
 import torch
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores, which both kernels use
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32
+# FLOP/s outside the tensor cores (the LSTM and the float32 attention route)
+# and dense bf16 FLOP/s of the tensor cores (the bfloat16 attention route)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+QUEUE_SLEEP_CYCLES = 10_000_000  # about 5 ms at the H100's clock
+L2_ROTATION = 3  # input sets a timed bf16 call cycles over (>= 44 MB each; L2 50 MB)
 
 LSTM_TOL = 1e-4  # float32; the T sequential steps sum in another order
 ATTN_TOL = 1e-4  # float32; another summation order over d_k and S
@@ -59,8 +70,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=10, inner=10, warmup=3):
-    """Per-call ms of fn over ``reps`` CUDA-event windows of ``inner`` calls."""
+def time_ms(fn, reps=10, inner=10, warmup=3, queued=True):
+    """Per-call ms of fn over ``reps`` CUDA-event windows of ``inner`` calls.
+    ``queued``: each window waits on the device behind a sleep of a few ms
+    while the host dispatches its calls, so a call shorter than its host
+    cost is timed on the device, not at the host's dispatch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -68,6 +82,8 @@ def time_ms(fn, reps=10, inner=10, warmup=3):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -102,10 +118,17 @@ def lstm_bound_ms(T, B, H):
     return bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
 
 
-def attn_bound_ms(N, Lq, S, heads, d, itemsize):
+def attn_bound_ms(N, Lq, S, heads, d, itemsize, flop_per_s):
     bytes_moved = itemsize * (N * Lq * heads * d * 2 + N * S * heads * d * 2)
     flops = 2 * N * heads * Lq * S * (d + d)
-    return bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
+
+
+def rotated(fn, arg_sets):
+    """fn over the argument sets in turn: each call's inputs were last touched
+    len(arg_sets) - 1 calls ago, with the other sets' bytes through L2 since."""
+    turns = itertools.cycle(arg_sets)
+    return lambda: fn(*next(turns))
 
 
 def check_lstm(gen, device):
@@ -158,15 +181,24 @@ def check_attention(gen, device):
 
     print("phase 3b: cross_modal_attn kernel against ops/fused_attention.attention_plain")
     N, Lq, heads, d = 200, 200, 4, 64
-    worst = 0.0
-    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    by_bytes_total = by_ops_total = 0.0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bf16_ms": 0.0, "bf16_plain_ms": 0.0, "bf16_library_ms": 0.0}
+    bounds = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+
+    def inputs(n, lq, S, h, dk, dv, dtype):
+        return (torch.randn(n, lq, h * dk, generator=gen).to(device, dtype),
+                torch.randn(n, S, h * dk, generator=gen).to(device, dtype),
+                torch.randn(n, S, h * dv, generator=gen).to(device, dtype))
+
+    def heads_view(q, k, v):
+        return [t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v)]
+
     for n in (N, 8):
         for S in (16, 64):
             for dtype, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
-                q = torch.randn(n, Lq, heads * d, generator=gen).to(device, dtype)
-                k = torch.randn(n, S, heads * d, generator=gen).to(device, dtype)
-                v = torch.randn(n, S, heads * d, generator=gen).to(device, dtype)
+                q, k, v = inputs(n, Lq, S, heads, d, d, dtype)
                 got = fused_attention.cross_modal_attn_cuda(q, k, v, heads)
                 ref = fused_attention.attention_plain(q, k, v, heads)
                 torch.cuda.synchronize()
@@ -175,47 +207,78 @@ def check_attention(gen, device):
                 print(f"  {tag}: max_abs_err {err:.3e} (tolerance {tol})")
                 if not err <= tol:
                     fail(f"cross_modal_attn disagrees with its plain version at {tag}")
-                if dtype == torch.float32:
-                    worst = max(worst, err)
+                worst[dtype] = max(worst[dtype], err)
                 if n != N:
+                    if dtype == torch.bfloat16:  # the tick's shape
+                        call = lambda: fused_attention.cross_modal_attn_cuda(q, k, v, heads)
+                        report_times(f"{tag} kernel", time_ms(call))
+                        report_times(f"{tag} kernel, not queued (the host's dispatch rate)",
+                                     time_ms(call, queued=False))
                     continue
-                kernel = report_times(f"{tag} kernel", time_ms(
-                    lambda: fused_attention.cross_modal_attn_cuda(q, k, v, heads)))
-                plain = report_times(f"{tag} plain", time_ms(
-                    lambda: fused_attention.attention_plain(q, k, v, heads)))
-                qh = q.view(n, Lq, heads, d).transpose(1, 2)
-                kh = k.view(n, S, heads, d).transpose(1, 2)
-                vh = v.view(n, S, heads, d).transpose(1, 2)
-                library = report_times(f"{tag} library scaled_dot_product_attention", time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)))
-                by_bytes, by_ops = attn_bound_ms(n, Lq, S, heads, d, q.element_size())
-                print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
                 if dtype == torch.float32:
-                    sums["ms"] += kernel
-                    sums["plain_ms"] += plain
-                    sums["library_ms"] += library
-                    by_bytes_total += by_bytes
-                    by_ops_total += by_ops
-    # ragged shapes: a partial query tile, S below a warp, d_v != d_k
-    for n, lq, S, h, dk, dv in ((3, 13, 5, 2, 8, 16), (2, 40, 33, 3, 32, 32)):
-        q = torch.randn(n, lq, h * dk, generator=gen).to(device)
-        k = torch.randn(n, S, h * dk, generator=gen).to(device)
-        v = torch.randn(n, S, h * dv, generator=gen).to(device)
-        err = (fused_attention.cross_modal_attn_cuda(q, k, v, h)
-               - fused_attention.attention_plain(q, k, v, h)).abs().max().item()
-        print(f"  N={n} Lq={lq} S={S} h={h} d_k={dk} d_v={dv} float32: "
-              f"max_abs_err {err:.3e} (tolerance {ATTN_TOL})")
-        if not err <= ATTN_TOL:
-            fail(f"cross_modal_attn disagrees with its plain version at N={n} S={S}")
+                    kernel = report_times(f"{tag} kernel", time_ms(
+                        lambda: fused_attention.cross_modal_attn_cuda(q, k, v, heads)))
+                    plain = report_times(f"{tag} plain", time_ms(
+                        lambda: fused_attention.attention_plain(q, k, v, heads)))
+                    library = report_times(f"{tag} library scaled_dot_product_attention",
+                                           time_ms(lambda: sdpa(*heads_view(q, k, v))))
+                    by_bytes, by_ops = attn_bound_ms(n, Lq, S, heads, d, 4, F32_FLOP_PER_S)
+                    prefix = ""
+                else:
+                    # one bf16 call moves 44-54 MB against a 50 MB L2: time it
+                    # over several input sets in turn, so no call finds its
+                    # inputs in L2
+                    sets = [(q, k, v)] + [inputs(n, Lq, S, heads, d, d, dtype)
+                                          for _ in range(L2_ROTATION - 1)]
+                    note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
+                    kernel = report_times(f"{tag} kernel ({note})", time_ms(rotated(
+                        lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads), sets)))
+                    plain = report_times(f"{tag} plain ({note})", time_ms(rotated(
+                        lambda *t: fused_attention.attention_plain(*t, heads), sets)))
+                    library = report_times(
+                        f"{tag} library scaled_dot_product_attention ({note})",
+                        time_ms(rotated(sdpa, [heads_view(*t) for t in sets])))
+                    by_bytes, by_ops = attn_bound_ms(n, Lq, S, heads, d, 2, BF16_TC_FLOP_PER_S)
+                    prefix = "bf16_"
+                print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
+                sums[prefix + "ms"] += kernel
+                sums[prefix + "plain_ms"] += plain
+                sums[prefix + "library_ms"] += library
+                bounds[dtype][0] += by_bytes
+                bounds[dtype][1] += by_ops
+    # ragged shapes: a partial query tile, S below a warp or off a multiple
+    # of 16, other head sizes (d_v != d_k in float32 only); in bfloat16 also
+    # S = 1 and S = d = 128, whose tiles need more than 48 KB of shared memory
+    ragged = [(torch.float32, ATTN_TOL, (3, 13, 5, 2, 8, 16)),
+              (torch.float32, ATTN_TOL, (2, 40, 33, 3, 32, 32)),
+              (torch.bfloat16, ATTN_BF16_TOL, (3, 13, 5, 2, 16, 16)),
+              (torch.bfloat16, ATTN_BF16_TOL, (2, 40, 33, 3, 32, 32)),
+              (torch.bfloat16, ATTN_BF16_TOL, (4, 65, 1, 4, 48, 48)),
+              (torch.bfloat16, ATTN_BF16_TOL, (2, 130, 128, 1, 128, 128))]
+    for dtype, tol, (n, lq, S, h, dk, dv) in ragged:
+        q, k, v = inputs(n, lq, S, h, dk, dv, dtype)
+        err = (fused_attention.cross_modal_attn_cuda(q, k, v, h).float()
+               - fused_attention.attention_plain(q, k, v, h).float()).abs().max().item()
+        tag = f"N={n} Lq={lq} S={S} h={h} d_k={dk} d_v={dv} {str(dtype)[6:]}"
+        print(f"  {tag}: max_abs_err {err:.3e} (tolerance {tol})")
+        if not err <= tol:
+            fail(f"cross_modal_attn disagrees with its plain version at {tag}")
+        worst[dtype] = max(worst[dtype], err)
     # one window forward launches it twice: S=16 (rgb) and S=64 (depth)
+    (f32_bytes, f32_ops), (bf16_bytes, bf16_ops) = bounds[torch.float32], bounds[torch.bfloat16]
     return {
         "name": "cross_modal_attn", "route": "cuda",
         "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
         "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
-        "max_abs_err": worst, **sums,
-        "bound_ms": max(by_bytes_total, by_ops_total),
-        "bound_by": "bytes" if by_bytes_total > by_ops_total else "operations",
-        "work": "2 calls, N=200 Lq=200 h=4 d=64 at S=16 and S=64, float32 (one window forward)",
+        "max_abs_err": worst[torch.float32], "bf16_max_abs_err": worst[torch.bfloat16],
+        **sums,
+        "bound_ms": max(f32_bytes, f32_ops),
+        "bound_by": "bytes" if f32_bytes > f32_ops else "operations",
+        "bf16_bound_ms": max(bf16_bytes, bf16_ops),
+        "bf16_bound_by": "bytes" if bf16_bytes > bf16_ops else "operations",
+        "work": "2 calls, N=200 Lq=200 h=4 d=64 at S=16 and S=64 (one window forward); "
+                "the unprefixed fields float32, bf16_* bfloat16 with inputs rotated "
+                f"over {L2_ROTATION} sets so that none is in L2",
         "library": "torch.nn.functional.scaled_dot_product_attention on head views",
     }
 

@@ -4,53 +4,87 @@
 // (launched by _pallas_attention), the core of VisualLingAttn's
 // MultiHeadAttention: Lq = 200 instruction queries over S = 16 (rgb) or 64
 // (depth) visual tokens, h = 4 heads of d_k = d_v = 64, N = B·T examples.
+// Heads are addressed by stride in the (N, L, h·d) layout, so the caller needs
+// no transposes.  Two routes, chosen by the dtype of q, k, v and out:
 //
-// What bounds it on the H100.  Each (example, head) is a tiny product:
-// 2·Lq·S·(d_k + d_v) FLOP against Lq·(d_k + d_v) + S·(d_k + d_v) values
-// read or written.  At S = 64 in float32 the call moves about 108 MB and does
-// 2.6 GFLOP on the CUDA cores, so it sits near the ridge: the bytes of q and
-// the output and the float32 FMAs both matter, and the logits must never
-// round-trip device memory.
+// bfloat16 (the serving dtype).  What bounds it on the H100: bytes.  At
+// N = 200 the call moves 44 MB (S = 16) or 54 MB (S = 64) and does 0.7 or
+// 2.6 GFLOP, about 48 FLOP a byte at S = 64 against a bf16 ridge of about 295,
+// so 13.2 and 16.1 µs at 3.35 TB/s are its least times.  What the design does
+// about it: one block of 4 warps per (example, head, 64-query tile), tile
+// fastest, so the tiles of one head run side by side and find its K and V in
+// L2; each warp takes 16 query rows.  The block copies its Q tile and its
+// head's K and V into shared memory with 16-byte cp.async (zero-filling rows
+// past Lq, and past S up to a multiple of 16), in rows padded by 16 bytes so
+// that ldmatrix is free of bank conflicts.  q·kᵀ runs on the tensor cores
+// (mma.sync m16n8k16, bf16 in, float32 out; products of bf16 values are exact
+// in float32, as in the TPU kernel, which upcasts to float32).  The scale, the
+// -inf of padded keys and the softmax stay in float32 in the accumulator
+// registers (S ≤ 128 fits whole, so no online rescaling; row max and sum by
+// quad shuffles; exp2 of logits scaled by log2 e).  p·v runs on the tensor
+// cores too, with the accumulator reused as the A fragment: p is split into
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi), two products against the same V
+// fragment (ldmatrix.trans), which keeps about 16 bits of the float32
+// probabilities; the only rounding left is that of the bf16 output.  The
+// output goes through the warp's own rows of shared memory and leaves in
+// coalesced 16-byte stores.  A block does not overlap its own copies with its
+// arithmetic; the several blocks on each SM do, so the register budget is set
+// (min_blocks) to keep 6 blocks of 4 warps on an SM at S = 64 and 8 at S = 16.
+// Takes d_k = d_v, a multiple of 16 up to 128, and 1 ≤ S ≤ 128; the wrapper
+// raises outside that range.
 //
-// What the design does about it.  Grid (example, head, tile of 32 queries),
-// 8 warps a block.  The block stages K and V of its (example, head) in shared
-// memory as float32 (at most 64 × 64 × 4 B × 2 = 32 KB), with K's rows padded
-// by one float so the lanes of a warp, one key each, hit 32 different banks.
-// Each warp takes one query row at a time: its S logits (one key per lane),
-// max and sum by warp shuffle, the softmax in registers and shared memory,
-// then the d_v outputs (one dimension per lane).  q, k, v and the output are
-// read and written once, in the caller's dtype (float32 or bfloat16), and all
-// arithmetic is float32.  Heads are addressed by stride in the (N, L, h·d)
-// layout, so the caller needs no transposes.
+// float32.  Grid (example, head, tile of 32 queries), 8 warps a block, all on
+// the CUDA cores.  The block stages K and V of its (example, head) in shared
+// memory as float32 (K's rows padded by one float so the lanes of a warp, one
+// key each, hit 32 different banks).  Each warp takes one query row at a time:
+// its S logits (one key per lane), max and sum by warp shuffle, the softmax in
+// registers and shared memory, then the d_v outputs (one dimension per lane).
+//
+// The dynamic shared-memory limit of a kernel is raised at most once per
+// device, and only for a launch that needs more than the default 48 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <mutex>
 
 namespace {
+
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 232448;  // bytes of shared memory one H100 block can use
+constexpr int kMaxDevices = 64;
+
+// Raises one kernel's dynamic shared-memory limit to kMaxSmem, once per device.
+struct SmemOptIn {
+  std::once_flag once[kMaxDevices];
+  cudaError_t status[kMaxDevices] = {};
+
+  cudaError_t ensure(const void* kernel, size_t smem) {
+    if (smem <= kDefaultSmem) return cudaSuccess;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::call_once(once[dev], [&] {
+      status[dev] = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    });
+    return status[dev];
+  }
+};
+
+// ---------------------------------------------------------------- float32
 
 constexpr int kWarps = 8;
 constexpr int kQueryTile = 32;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-cross_modal_attn_kernel(const T* __restrict__ q,  // (N, Lq, h*dk)
-                        const T* __restrict__ k,  // (N, S, h*dk)
-                        const T* __restrict__ v,  // (N, S, h*dv)
-                        T* __restrict__ out,      // (N, Lq, h*dv)
+cross_modal_attn_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
+                        const float* __restrict__ k,  // (N, S, h*dk)
+                        const float* __restrict__ v,  // (N, S, h*dv)
+                        float* __restrict__ out,      // (N, Lq, h*dv)
                         int Lq, int S, int heads, int dk, int dv, float scale) {
   extern __shared__ float smem[];
   const int n = blockIdx.x, head = blockIdx.y, q0 = blockIdx.z * kQueryTile;
@@ -61,15 +95,15 @@ cross_modal_attn_kernel(const T* __restrict__ q,  // (N, Lq, h*dk)
   float* p_s = q_s + kWarps * dk; // (kWarps, S)
   const int Dq = heads * dk, Dv = heads * dv;
 
-  const T* kb = k + (size_t)n * S * Dq + head * dk;
-  const T* vb = v + (size_t)n * S * Dv + head * dv;
+  const float* kb = k + (size_t)n * S * Dq + head * dk;
+  const float* vb = v + (size_t)n * S * Dv + head * dv;
   for (int idx = threadIdx.x; idx < S * dk; idx += blockDim.x) {
     const int s = idx / dk, d = idx - s * dk;
-    k_s[s * ldk + d] = to_float(kb[(size_t)s * Dq + d]);
+    k_s[s * ldk + d] = kb[(size_t)s * Dq + d];
   }
   for (int idx = threadIdx.x; idx < S * dv; idx += blockDim.x) {
     const int s = idx / dv, d = idx - s * dv;
-    v_s[idx] = to_float(vb[(size_t)s * Dv + d]);
+    v_s[idx] = vb[(size_t)s * Dv + d];
   }
   __syncthreads();
 
@@ -79,8 +113,8 @@ cross_modal_attn_kernel(const T* __restrict__ q,  // (N, Lq, h*dk)
   for (int r = warp; r < kQueryTile; r += kWarps) {
     const int qi = q0 + r;
     if (qi >= Lq) break;  // uniform across the warp
-    const T* qrow = q + ((size_t)n * Lq + qi) * Dq + head * dk;
-    for (int d = lane; d < dk; d += 32) qw[d] = to_float(qrow[d]);
+    const float* qrow = q + ((size_t)n * Lq + qi) * Dq + head * dk;
+    for (int d = lane; d < dk; d += 32) qw[d] = qrow[d];
     __syncwarp();
 
     float mx = -INFINITY;
@@ -107,43 +141,310 @@ cross_modal_attn_kernel(const T* __restrict__ q,  // (N, Lq, h*dk)
     const float inv = 1.0f / sum;
     __syncwarp();
 
-    T* orow = out + ((size_t)n * Lq + qi) * Dv + head * dv;
+    float* orow = out + ((size_t)n * Lq + qi) * Dv + head * dv;
     for (int d = lane; d < dv; d += 32) {
       float a = 0.0f;
       for (int s = 0; s < S; ++s) a = fmaf(pw[s] * inv, v_s[s * dv + d], a);
-      orow[d] = from_float<T>(a);
+      orow[d] = a;
     }
     __syncwarp();
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int N,
-           int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, int N,
+               int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
+  static SmemOptIn opt_in;
   const size_t smem =
       ((size_t)S * (dk + 1) + (size_t)S * dv + (size_t)kWarps * (dk + S)) *
       sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_modal_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t err =
+      opt_in.ensure((const void*)cross_modal_attn_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(N, heads, (Lq + kQueryTile - 1) / kQueryTile);
-  cross_modal_attn_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Lq, S, heads, dk, dv,
-      1.0f / sqrtf((float)dk));
+  cross_modal_attn_kernel<<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Lq, S, heads, dk,
+      dv, 1.0f / sqrtf((float)dk));
   return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- bfloat16
+
+constexpr int kMmaWarps = 4;  // 16 query rows each
+constexpr int kTileQ = 16 * kMmaWarps;
+constexpr int kPad = 8;  // bf16 values of padding per shared-memory row
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  // src-size 0 reads nothing and fills the 16 bytes with zeros
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a·b on one m16n8k16 tile: bf16 inputs, float32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// p = p_hi + p_lo to about 16 bits, for two probabilities x and y
+__device__ __forceinline__ void split_pack(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// Blocks a multiprocessor should hold at once: as many as the registers
+// allow once the accumulators (8·KC logits and D/2 outputs a thread) and
+// about 16 registers of addresses fit, at most 8.
+template <int D, int KC>
+constexpr int min_blocks() {
+  constexpr int regs = (8 * KC + D / 2 + 16 + 7) / 8 * 8;
+  return 65536 / (kMmaWarps * 32 * regs) < 8 ? 65536 / (kMmaWarps * 32 * regs) : 8;
+}
+
+// D: d_k = d_v; KC: the most 16-key chunks (S rounded up to 16, over 16).
+// One block per (example, head, 64-query tile), tile fastest.  The Q tile and
+// the head's K and V (S rounded up to 16 with zero rows) go to shared memory;
+// each warp takes 16 query rows, and its output goes back through its own
+// rows of the Q tile to leave in 16-byte stores.
+template <int D, int KC>
+__global__ void __launch_bounds__(kMmaWarps * 32, min_blocks<D, KC>())
+cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             __nv_bfloat16* __restrict__ out, int Lq, int S,
+                             int heads, int tiles, float scale) {
+  constexpr int P = D + kPad;  // row pitch of the shared tiles, in values
+  constexpr int kChunks = D / 8;  // 16-byte chunks in one head's row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int s_pad = (S + 15) & ~15;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (64, P)
+  __nv_bfloat16* k_s = q_s + kTileQ * P;                            // (s_pad, P)
+  __nv_bfloat16* v_s = k_s + s_pad * P;                             // (s_pad, P)
+
+  const int b = blockIdx.x;
+  const int nh = b / tiles;  // n * heads + head
+  const int q0 = (b - nh * tiles) * kTileQ;
+  const int n = nh / heads, head = nh - n * heads;
+  const int ld = heads * D;  // row stride of q, k, v and out
+  const __nv_bfloat16* qb = q + ((size_t)n * Lq + q0) * ld + head * D;
+  const size_t kv = (size_t)n * S * ld + head * D;
+  for (int i = threadIdx.x; i < kTileQ * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = q0 + r < Lq;
+    cp_async16(q_s + r * P + c, ok ? qb + (size_t)r * ld + c : q, ok);
+  }
+  for (int i = threadIdx.x; i < s_pad * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = r < S;
+    cp_async16(k_s + r * P + c, ok ? k + kv + (size_t)r * ld + c : k, ok);
+    cp_async16(v_s + r * P + c, ok ? v + kv + (size_t)r * ld + c : v, ok);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // each warp takes 16 query rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  const int rows = min(kTileQ, Lq - q0);
+  if (row0 >= rows) return;  // no valid rows for this warp; no barrier follows
+  const int chunks = s_pad / 16;
+
+  // logits: n-tile t holds keys 8t..8t+7; [0], [1] row lane/4, [2], [3] row
+  // lane/4 + 8, keys 8t + 2(lane%4) + {0, 1}
+  float s_acc[2 * KC][4];
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_acc[t][e] = 0.0f;
+#pragma unroll
+  for (int kd = 0; kd < D; kd += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, q_s + (row0 + (lane & 15)) * P + kd + (lane >> 4) * 8);
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      if (c < chunks) {
+        uint32_t bk[4];  // b0, b1 of keys 16c..+7, then of keys 16c+8..+15
+        ldmatrix_x4(bk, k_s + (16 * c + (lane & 7) + ((lane >> 4) << 3)) * P +
+                            kd + ((lane >> 3) & 1) * 8);
+        mma_bf16(s_acc[2 * c], a, bk[0], bk[1]);
+        mma_bf16(s_acc[2 * c + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+  // softmax over each row in float32, in base 2 (exp2 of logits·log2 e);
+  // a row lives in the 4 lanes of a quad
+  const float scale2 = scale * 1.4426950408889634f;
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_acc[t][e] *= scale2;
+  if (S < 16 * KC) {  // keys past S: -inf
+#pragma unroll
+    for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * t + 2 * (lane & 3) + (e & 1) >= S) s_acc[t][e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s_acc[t][e]);
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s_acc[t][e] - mx[e >> 1]);
+      s_acc[t][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+  }
+  const float inv[2] = {1.0f / sum[0], 1.0f / sum[1]};
+
+  // out = p_hi·v + p_lo·v; n-tile t of o_acc holds columns 8t..8t+7
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[t][e] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c < chunks) {
+      // the A fragment of keys 16c..16c+15 is n-tiles 2c and 2c + 1
+      uint32_t hi[4], lo[4];
+      split_pack(s_acc[2 * c][0] * inv[0], s_acc[2 * c][1] * inv[0], hi[0], lo[0]);
+      split_pack(s_acc[2 * c][2] * inv[1], s_acc[2 * c][3] * inv[1], hi[1], lo[1]);
+      split_pack(s_acc[2 * c + 1][0] * inv[0], s_acc[2 * c + 1][1] * inv[0], hi[2], lo[2]);
+      split_pack(s_acc[2 * c + 1][2] * inv[1], s_acc[2 * c + 1][3] * inv[1], hi[3], lo[3]);
+#pragma unroll
+      for (int dt = 0; dt < D / 16; ++dt) {
+        uint32_t bv[4];  // b0, b1 of columns 16dt..+7, then of 16dt+8..+15
+        ldmatrix_x4_trans(bv, v_s + (16 * c + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                  16 * dt + (lane >> 4) * 8);
+        mma_bf16(o_acc[2 * dt], lo, bv[0], bv[1]);
+        mma_bf16(o_acc[2 * dt], hi, bv[0], bv[1]);
+        mma_bf16(o_acc[2 * dt + 1], lo, bv[2], bv[3]);
+        mma_bf16(o_acc[2 * dt + 1], hi, bv[2], bv[3]);
+      }
+    }
+  }
+
+  __syncwarp();
+  __nv_bfloat16* o_s = q_s + row0 * P;
+  const int g = lane >> 2, cq = 2 * (lane & 3);
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    *reinterpret_cast<__nv_bfloat162*>(o_s + g * P + 8 * t + cq) =
+        __floats2bfloat162_rn(o_acc[t][0], o_acc[t][1]);
+    *reinterpret_cast<__nv_bfloat162*>(o_s + (g + 8) * P + 8 * t + cq) =
+        __floats2bfloat162_rn(o_acc[t][2], o_acc[t][3]);
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = out + ((size_t)n * Lq + q0 + row0) * ld + head * D;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    if (row0 + r < rows)
+      *reinterpret_cast<int4*>(ob + (size_t)r * ld + c) =
+          *reinterpret_cast<const int4*>(o_s + r * P + c);
+  }
+}
+
+template <int D, int KC>
+int launch_bf16_tiles(const void* q, const void* k, const void* v, void* out,
+                      int N, int Lq, int S, int heads, cudaStream_t stream) {
+  static SmemOptIn opt_in;
+  const size_t smem =
+      sizeof(__nv_bfloat16) * (D + kPad) * (kTileQ + 2 * ((S + 15) & ~15));
+  const cudaError_t err =
+      opt_in.ensure((const void*)cross_modal_attn_bf16_kernel<D, KC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (Lq + kTileQ - 1) / kTileQ;
+  const long long blocks = (long long)N * heads * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cross_modal_attn_bf16_kernel<D, KC><<<(unsigned)blocks, kMmaWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      Lq, S, heads, tiles, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int N,
+                int Lq, int S, int heads, cudaStream_t stream) {
+  if (S <= 16) return launch_bf16_tiles<D, 1>(q, k, v, out, N, Lq, S, heads, stream);
+  if (S <= 32) return launch_bf16_tiles<D, 2>(q, k, v, out, N, Lq, S, heads, stream);
+  if (S <= 64) return launch_bf16_tiles<D, 4>(q, k, v, out, N, Lq, S, heads, stream);
+  return launch_bf16_tiles<D, 8>(q, k, v, out, N, Lq, S, heads, stream);
+}
+
+int launch_bf16_any(const void* q, const void* k, const void* v, void* out,
+                    int N, int Lq, int S, int heads, int d, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_bf16<16>(q, k, v, out, N, Lq, S, heads, s);
+    case 32: return launch_bf16<32>(q, k, v, out, N, Lq, S, heads, s);
+    case 48: return launch_bf16<48>(q, k, v, out, N, Lq, S, heads, s);
+    case 64: return launch_bf16<64>(q, k, v, out, N, Lq, S, heads, s);
+    case 80: return launch_bf16<80>(q, k, v, out, N, Lq, S, heads, s);
+    case 96: return launch_bf16<96>(q, k, v, out, N, Lq, S, heads, s);
+    case 112: return launch_bf16<112>(q, k, v, out, N, Lq, S, heads, s);
+    case 128: return launch_bf16<128>(q, k, v, out, N, Lq, S, heads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  The bfloat16
+// route takes dk == dv, a multiple of 16 up to 128, and 1 <= S <= 128, and
+// q, k, v and out aligned to 16 bytes.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
                                 int dk, int dv, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (dtype == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (dtype == 1 && dk == dv && S >= 1 && S <= 128)
+    return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, s);
   return (int)cudaErrorInvalidValue;
 }

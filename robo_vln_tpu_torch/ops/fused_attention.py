@@ -2,10 +2,18 @@
 its wrapper, its plain version and its launch counter.
 
 Counterpart of robo_vln_tpu/ops/pallas_attention.py: per (example, head),
-``softmax(q·kᵀ/√d_k)·v`` with no mask, computed in float32 whatever the input
-dtype (float32 or bfloat16), the output in q's dtype.  q (N, Lq, h·d_k),
-k (N, S, h·d_k), v (N, S, h·d_v) -> (N, Lq, h·d_v); the kernel addresses the
-heads by stride, so there are no transposes around the call.
+``softmax(q·kᵀ/√d_k)·v`` with no mask, the output in q's dtype.  q (N, Lq,
+h·d_k), k (N, S, h·d_k), v (N, S, h·d_v) -> (N, Lq, h·d_v); the kernel
+addresses the heads by stride, so there are no transposes around the call.
+Two routes, by dtype:
+
+* float32: everything on the CUDA cores, in float32 (any S and head sizes
+  whose tiles fit in shared memory, :func:`smem_bytes`);
+* bfloat16: both products on the tensor cores, the softmax in float32, the
+  probabilities kept to about 16 bits (``p_hi + p_lo``), so the only rounding
+  left against the float32 function is that of the bf16 output.  It takes
+  d_k = d_v, a multiple of 16 up to 128, and 1 <= S <= 128
+  (:func:`check_bf16_route`).
 
 On a CPU tensor the plain version (:func:`attention_plain`) runs; on a CUDA
 tensor the kernel launches, or the wrapper raises.  The backward pass replays
@@ -15,6 +23,7 @@ the plain version, as the JAX custom VJP does (pallas_attention.py:133-136).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,13 +33,29 @@ launches = 0  # kernel launches since the last reset
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
-WARPS = 8  # kWarps of csrc/cross_modal_attn.cu
+WARPS = 8  # kWarps of csrc/cross_modal_attn.cu (float32 route)
+TILE_Q = 64  # kTileQ of csrc/cross_modal_attn.cu (bfloat16 route)
+BF16_MAX_S = 128
+BF16_MAX_D = 128
 
 
-def smem_bytes(S: int, dk: int, dv: int) -> int:
-    """Shared memory of one block: K (padded rows), V, a q row and S
-    probabilities per warp, all float32."""
+def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32) -> int:
+    """Shared memory of one block.  float32: K (padded rows), V, a q row and
+    S probabilities per warp.  bfloat16: the Q tile, K and V (S rounded up to
+    16), in rows padded by 8 values."""
+    if dtype == torch.bfloat16:
+        return 2 * (dk + 8) * (TILE_Q + 2 * (-(-S // 16) * 16))
     return 4 * (S * (dk + 1) + S * dv + WARPS * (dk + S))
+
+
+def check_bf16_route(S: int, dk: int, dv: int) -> None:
+    """Raise unless the bfloat16 kernel takes these sizes."""
+    if not (dk == dv and dk % 16 == 0 and 16 <= dk <= BF16_MAX_D
+            and 1 <= S <= BF16_MAX_S):
+        raise ValueError(
+            f"cross_modal_attn: the bfloat16 kernel takes d_k = d_v, a multiple "
+            f"of 16 up to {BF16_MAX_D}, and 1 <= S <= {BF16_MAX_S}; got S={S}, "
+            f"d_k={dk}, d_v={dv}")
 
 
 def reset_launches() -> None:
@@ -42,6 +67,15 @@ def attention_plain(q, k, v, num_heads: int):
     """The kernel's function in plain PyTorch, output in q's dtype."""
     out = cm_attention.mha_attention(q.float(), k.float(), v.float(), num_heads)
     return out.to(q.dtype)
+
+
+@functools.cache
+def _entry():
+    """The kernel's C entry, its argument types set once."""
+    fn = _build.load("cross_modal_attn").cross_modal_attn
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    return fn
 
 
 def cross_modal_attn_cuda(q, k, v, num_heads: int):
@@ -69,14 +103,17 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
             f"cross_modal_attn: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not fit {num_heads} heads")
     dk, dv = Dq // num_heads, Dv // num_heads
-    if smem_bytes(S, dk, dv) > SMEM_LIMIT:
+    if q.dtype == torch.bfloat16:
+        check_bf16_route(S, dk, dv)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"cross_modal_attn: {name} must be aligned to "
+                                 "16 bytes for the bfloat16 kernel")
+    elif smem_bytes(S, dk, dv) > SMEM_LIMIT:
         raise ValueError(f"cross_modal_attn: S={S}, d_k={dk}, d_v={dv} need "
                          f"{smem_bytes(S, dk, dv)} bytes of shared memory a block")
 
-    lib = _build.load("cross_modal_attn")
-    fn = lib.cross_modal_attn
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = _entry()
     out = torch.empty((N, Lq, Dv), device=device, dtype=q.dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -1,8 +1,12 @@
 """Port ops against the JAX package: the plain masked LSTM and the plain
 cross-modal attention, each held against the JAX XLA path and the
-interpret-mode Pallas kernel on the same numpy inputs (f32, atol 1e-5), the
-dispatch of attention_core.  The CUDA kernels have no CPU mode: chip_smoke.py
-holds them against these plain versions on the card."""
+interpret-mode Pallas kernel on the same numpy inputs (f32, atol 1e-5; bf16
+inputs to one bf16 ulp of the output), the dispatch of attention_core, and
+the arithmetic of the bf16 attention kernel emulated in plain torch.  The
+CUDA kernels have no CPU mode: chip_smoke.py holds them against these plain
+versions on the card."""
+
+import math
 
 import numpy as np
 import pytest
@@ -98,6 +102,61 @@ def test_attention_plain_matches_xla_and_pallas(rng, N, Lq, S, D, Dv, heads):
     _close(core, ours, atol=0.0)
 
 
+def _bf16_ulp(x):
+    """One bfloat16 ulp (8 significant bits) at the magnitude of x."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("N,Lq,S,D,Dv,heads", ATTN_SHAPES)
+def test_attention_plain_bf16_matches_pallas(rng, N, Lq, S, D, Dv, heads):
+    """The contract the bf16 kernel is held to on the card: bf16 inputs, the
+    function in float32, one rounding of the output to bf16.  The plain
+    version and the interpret-mode Pallas kernel agree to one bf16 ulp of the
+    output (they round float32 results that differ in summation order)."""
+    q, k, v = (a.astype(jnp.bfloat16) for a in _qkv(rng, N, Lq, S, D, Dv))
+    ours = fused_attention.attention_plain(
+        *(torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16) for a in (q, k, v)),
+        heads)
+    assert ours.dtype == torch.bfloat16
+    ours = ours.float().numpy()
+    ref = np.asarray(_pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True)
+                     .astype(jnp.float32))
+    assert np.all(np.abs(ours - ref) <= _bf16_ulp(np.maximum(np.abs(ours), np.abs(ref))))
+
+
+def _p_split_attention(q, k, v, heads, keep_lo=True):
+    """The bf16 kernel's arithmetic in plain torch: q·kᵀ of bf16 values in
+    float32, the softmax in float32, p = p_hi + p_lo with p_hi = bf16(p) and
+    p_lo = bf16(p - p_hi), then p_hi·v + p_lo·v, each product of bf16 values
+    summed in float32.  Returns the float32 result before the output's
+    rounding."""
+    N, Lq, D = q.shape
+    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
+    qh = q.float().view(N, Lq, heads, dk).transpose(1, 2)
+    kh = k.float().view(N, S, heads, dk).transpose(1, 2)
+    vh = v.float().view(N, S, heads, dv).transpose(1, 2)
+    p = torch.softmax(qh @ kh.transpose(-1, -2) * (1.0 / math.sqrt(dk)), dim=-1)
+    p_hi = p.to(torch.bfloat16).float()
+    p_lo = (p - p_hi).to(torch.bfloat16).float()
+    out = p_hi @ vh + (p_lo @ vh if keep_lo else 0.0)
+    return out.transpose(1, 2).reshape(N, Lq, heads * dv)
+
+
+@pytest.mark.parametrize("S", [16, 64])
+def test_attention_p_split_keeps_float32_probabilities(rng, S):
+    """At the HCM shapes (d = 64, S = 16 rgb or 64 depth tokens) the kernel's
+    p_hi + p_lo arithmetic stays within 1e-5 of the float32 function of the
+    same bf16 inputs, so the bf16 output's own rounding is the only one that
+    counts; p_hi alone would not be (it keeps 8 bits of p)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, 2, 32, S, 256, 256))
+    ref = fused_attention.attention_plain(q.float(), k.float(), v.float(), 4)
+    err = (_p_split_attention(q, k, v, 4) - ref).abs().max().item()
+    assert err <= 1e-5
+    assert (_p_split_attention(q, k, v, 4, keep_lo=False) - ref).abs().max().item() > 1e-4
+
+
 def test_masked_attention_takes_plain_path(rng, monkeypatch):
     """A masked call, or one that asks for the weights, never reaches the
     kernel's wrapper; -1e30 fill before the softmax and zero after it, so a
@@ -132,6 +191,37 @@ def test_wrappers_refuse_non_cuda_tensors(rng):
     args = map(torch.from_numpy, _lstm_inputs(rng, 2, 1, 8))
     with pytest.raises(ValueError, match="CUDA"):
         fused_lstm.lstm_seq_cuda(*args)
+
+
+def test_bf16_attention_route(rng):
+    """A bf16 call the kernel would not take (d = 24) still runs the plain
+    version on CPU tensors; the launch function refuses CPU tensors, and the
+    bf16 route's range check refuses d = 24 before any launch."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(rng, 2, 8, 6, 48, 48))
+    fused_attention.reset_launches()
+    out = fused_attention.fused_cross_modal_attention(q, k, v, 2)
+    assert fused_attention.launches == 0
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, fused_attention.attention_plain(q, k, v, 2), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_attention.cross_modal_attn_cuda(q, k, v, 2)
+    with pytest.raises(ValueError, match="bfloat16 kernel takes"):
+        fused_attention.check_bf16_route(6, 24, 24)
+
+
+@pytest.mark.parametrize("S,dk,dv,ok", [
+    (16, 64, 64, True), (64, 64, 64, True), (1, 16, 16, True), (128, 128, 128, True),
+    (33, 32, 32, True), (129, 64, 64, False), (16, 64, 32, False), (16, 144, 144, False),
+    (16, 8, 8, False),
+])
+def test_bf16_route_range(S, dk, dv, ok):
+    if ok:
+        fused_attention.check_bf16_route(S, dk, dv)
+        assert (fused_attention.smem_bytes(S, dk, dv, torch.bfloat16)
+                <= fused_attention.SMEM_LIMIT)
+    else:
+        with pytest.raises(ValueError):
+            fused_attention.check_bf16_route(S, dk, dv)
 
 
 def test_kernel_library_names_follow_sources():
@@ -173,4 +263,10 @@ def test_lstm_smem_bound(H, units, fits):
 
 @pytest.mark.parametrize("S,d,fits", [(16, 64, True), (64, 64, True), (512, 128, False)])
 def test_attention_smem_bound(S, d, fits):
-    assert (fused_attention.smem_bytes(S, d, d) <= fused_attention.SMEM_LIMIT) == fits
+    """Both routes' shared memory a block: float32 K, V, a q row and S
+    probabilities a warp; bfloat16 the 64-row Q tile, K and V with S rounded
+    up to 16, in rows of d + 8 values."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert (fused_attention.smem_bytes(S, d, d, dtype) <= fused_attention.SMEM_LIMIT) == fits
+    s_pad = -(-S // 16) * 16
+    assert fused_attention.smem_bytes(S, d, d, torch.bfloat16) == 2 * (d + 8) * (64 + 2 * s_pad)

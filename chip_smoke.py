@@ -10,7 +10,10 @@ exit code and no result line:
 2. Build: compiles every CUDA kernel of the port from csrc/ for sm_90a, one
    nvcc per source, all in parallel, into build/kernels/.
 3. Kernels against their plain versions, float32 with TF32 off, at the
-   shapes of the serving path: the LSTM kernel and the cross-modal attention
+   shapes of the serving path: the LSTM kernel (also at every H range of
+   its template and at batches beyond one launch; timed at the tick's
+   shape, and as its grid running nothing but the step-to-step exchange of
+   h, the floor under a step) and the cross-modal attention
    kernel, whose bfloat16 route (the serving dtype, a tensor-core kernel of
    its own) is held at the same shapes and at ragged ones.  Prints the largest
    error against the stated tolerance, and every rep's time of the kernel,
@@ -103,12 +106,16 @@ def lstm_inputs(gen, T, B, H, device):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
 
+    # odd rows reset at t=0, even rows go on from h0 and c0, so both count at
+    # every shape, T=1 included
     masks = torch.ones(T, B)
-    masks[0] = 0.0
+    masks[0, 1::2] = 0.0
     if T > 2:
         masks[T // 2, B - 1] = 0.0  # a reset inside the window
+    # w_hh (H, 4H) as the transposed view of a (4H, H) tensor, the layout
+    # the agent passes (weight_hh_l0.t()), so the wrapper copies nothing
     return (randn(T, B, 4 * H), masks.to(device), randn(B, H), randn(B, H),
-            randn(H, 4 * H, scale=H ** -0.5))
+            randn(4 * H, H, scale=H ** -0.5).t())
 
 
 def lstm_bound_ms(T, B, H):
@@ -138,27 +145,48 @@ def check_lstm(gen, device):
     print("phase 3a: lstm_seq kernel against ops/rnn.lstm_recurrence, float32")
     worst = 0.0
     timed = {}
-    # the serving shapes, then several batch tiles and small hidden sizes
-    for T, B, H in ((50, 4, 512), (1, 1, 512), (1, 8, 512), (5, 20, 512),
-                    (7, 11, 64), (3, 2, 32)):
+    # the window's and the tick's shapes, batches over several warps' tasks,
+    # small hidden sizes, every count of W_hh's 16-byte chunks a lane (KC =
+    # 1..8: H up to 128, 256, ..., 1024), the most rows one launch takes at
+    # H=512 and H=1024, and a batch run as two launches
+    for T, B, H in ((50, 4, 512), (1, 1, 512), (1, 8, 512), (2, 8, 512), (5, 20, 512),
+                    (7, 11, 64), (3, 2, 32), (3, 6, 256), (3, 5, 384), (2, 3, 640),
+                    (2, 3, 768), (2, 3, 896), (3, 28, 1024), (2, 56, 512), (3, 60, 512)):
         args = lstm_inputs(gen, T, B, H, device)
+        before = fused_lstm.launches
         got = fused_lstm.lstm_seq_cuda(*args)
+        launched = fused_lstm.launches - before
         ref = lstm_recurrence(*args)
         torch.cuda.synchronize()
         err = max((g - r).abs().max().item() for g, r in zip(got, ref))
         worst = max(worst, err)
-        print(f"  T={T} B={B} H={H}: max_abs_err {err:.3e} (tolerance {LSTM_TOL})")
+        print(f"  T={T} B={B} H={H}: max_abs_err {err:.3e} (tolerance {LSTM_TOL}), "
+              f"{launched} launch(es)")
+        if launched != (2 if B > 56 else 1):
+            fail(f"lstm_seq took {launched} launches at T={T} B={B} H={H}")
         if not err <= LSTM_TOL:
             fail(f"lstm_seq disagrees with its plain version at T={T} B={B} H={H}")
+        call = lambda: fused_lstm.lstm_seq_cuda(*args)
         if (T, B) == (50, 4):
-            kernel = report_times("kernel", time_ms(lambda: fused_lstm.lstm_seq_cuda(*args)))
+            kernel = report_times("kernel", time_ms(call))
             plain = report_times("plain", time_ms(lambda: lstm_recurrence(*args), inner=2))
             lstm = torch.nn.LSTM(896, H).to(device)
             x = torch.randn(T, B, 896, generator=gen).to(device)
             hc = (args[2][None], args[3][None])
             library = report_times("library nn.LSTM (cuDNN, input 896, masks all 1)",
                                    time_ms(lambda: lstm(x, hc)))
-            timed = {"ms": kernel, "plain_ms": plain, "library_ms": library}
+            # the same grid, T steps of nothing but the h exchange
+            floor = report_times("exchange only, same grid (the exchange's floor)", time_ms(
+                lambda: fused_lstm.exchange_floor_cuda(T, B, H, device)))
+            print(f"  per step: kernel {kernel / T * 1e3:.3f} us, exchange "
+                  f"{floor / (T - 1) * 1e3:.3f} us ({T - 1} exchanges a call)")
+            timed = {"ms": kernel, "plain_ms": plain, "library_ms": library,
+                     "exchange_ms": floor}
+        elif (T, B) == (1, 8):  # the tick's shape
+            timed["tick_ms"] = report_times("T=1 B=8 kernel", time_ms(call))
+            timed["tick_host_ms"] = report_times(
+                "T=1 B=8 kernel, not queued (the host's dispatch rate)",
+                time_ms(call, queued=False))
     by_bytes, by_ops = lstm_bound_ms(50, 4, 512)
     print(f"  bound at T=50 B=4 H=512: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
     # one window forward launches it twice at these shapes (high and low level)
@@ -171,7 +199,11 @@ def check_lstm(gen, device):
         "bound_ms": 2 * max(by_bytes, by_ops),
         "bound_by": "bytes" if by_bytes > by_ops else "operations",
         "library_ms": 2 * timed["library_ms"],
-        "work": "2 calls at T=50, B=4, H=512, float32 (one window forward)",
+        "exchange_floor_ms": 2 * timed["exchange_ms"],
+        "tick_call_ms": timed["tick_ms"], "tick_call_host_ms": timed["tick_host_ms"],
+        "work": "2 calls at T=50, B=4, H=512, float32 (one window forward); "
+                "exchange_floor_ms: the same grids running nothing but the h exchange; "
+                "tick_call_*: one call at T=1, B=8, queued and at the host's dispatch rate",
         "library": "torch.nn.LSTM (cuDNN) over x (T, B, 896), input projection included",
     }
 

@@ -22,6 +22,7 @@ JAX custom VJP does (pallas_lstm.py:164-167).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,7 +32,14 @@ from .rnn import lstm_recurrence
 launches = 0  # kernel launches since the last reset
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
-BATCH_TILE = 8  # kBatchTile of csrc/lstm_seq.cu
+WARPS = 8  # kWarps of csrc/lstm_seq.cu
+TASK_BATCH = 2  # kTaskBatch: batch rows of one warp task
+TASKS_PER_WARP = 16  # batch pairs a warp runs: one cell a lane, two a pair
+MAX_H = 1024  # 32 lanes x 8 chunks of 4 values of W_hh's rows in registers
+NOT_CO_RESIDENT = 1000  # kNotCoResident
+
+# device index -> (int64 workspace of the h exchange, the stream of its last launch)
+_workspaces: dict = {}
 
 
 def reset_launches() -> None:
@@ -48,9 +56,89 @@ def _units_per_block(H: int, n_sm: int) -> int:
     return H
 
 
-def smem_bytes(H: int, units: int) -> int:
-    """Shared memory of one block (lstm_seq_smem_bytes in the source)."""
-    return 4 * (4 * units * H + BATCH_TILE * H + BATCH_TILE * 4 * units)
+def smem_bytes(H: int, B: int) -> int:
+    """Shared memory of one block (lstm_seq_smem_bytes in the source): two
+    buffers of h, B rounded up to TASK_BATCH rows."""
+    b_pad = -(-B // TASK_BATCH) * TASK_BATCH
+    return 4 * 2 * b_pad * H
+
+
+def max_batch(H: int, units: int) -> int:
+    """The most batch rows one launch takes: 16 batch pairs a warp, and two
+    buffers of h within a block's shared memory."""
+    by_tasks = TASK_BATCH * TASKS_PER_WARP * (WARPS // units)
+    by_smem = SMEM_LIMIT // (4 * 2 * H) // TASK_BATCH * TASK_BATCH
+    return min(by_tasks, by_smem)
+
+
+def check_shape(B: int, H: int, units: int) -> None:
+    """Raise unless one launch takes batch B and hidden size H at this many
+    units a block."""
+    if H % 4 or H > MAX_H:
+        raise ValueError(f"lstm_seq: the kernel holds W_hh's rows in 16-byte "
+                         f"chunks, at most {MAX_H // 128} a lane, and takes H a "
+                         f"multiple of 4 up to {MAX_H}; got H={H}")
+    if units > WARPS:
+        raise ValueError(f"lstm_seq: H={H} needs {units} units a block, more "
+                         f"than its {WARPS} warps")
+    if B > max_batch(H, units):
+        raise ValueError(f"lstm_seq: one launch takes at most {max_batch(H, units)} "
+                         f"batch rows at H={H} and {units} units a block, got B={B}")
+
+
+def batch_slices(B: int, H: int, units: int) -> list:
+    """Rows [b0, b1) of each launch: the batch rows are independent, so a
+    batch larger than one launch takes runs as launches over equal slices."""
+    n = -(-B // max_batch(H, units))
+    size = -(-B // n)
+    return [(b0, min(b0 + size, B)) for b0 in range(0, B, size)]
+
+
+def by_rows(fn, slices, gates_x, masks, h0, c0, w_hh):
+    """fn's (outs, hT, cT) over each slice [b0, b1) of batch rows, joined."""
+    parts = [fn(gates_x[:, b0:b1].contiguous(), masks[:, b0:b1].contiguous(),
+                h0[b0:b1], c0[b0:b1], w_hh) for b0, b1 in slices]
+    return tuple(torch.cat(p, dim=p[0].dim() - 2) for p in zip(*parts))
+
+
+@functools.cache
+def _units(device_index: int, H: int):
+    """(units a block, SM count) on one device."""
+    n_sm = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return _units_per_block(H, n_sm), n_sm
+
+
+@functools.cache
+def _entry():
+    """The kernel's C entry, its argument types set once."""
+    fn = _build.load("lstm_seq").lstm_seq_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return fn
+
+
+@functools.cache
+def _exchange_entry():
+    fn = _build.load("lstm_seq").lstm_seq_exchange
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return fn
+
+
+def _workspace(device, stream, B: int, H: int) -> torch.Tensor:
+    """The h exchange's workspace of one device: [epoch, blocks done, two
+    buffers of B·H tagged words], grown to the largest B·H asked for.  Zeroed
+    when made, then kept: each launch leaves it ready for the next.  Launches
+    on one stream are ordered; one on another stream first waits for the
+    stream of the last."""
+    ws, last = _workspaces.get(device.index, (None, stream))
+    if last != stream:
+        stream.wait_stream(last)
+        ws.record_stream(stream)
+    if ws is None or ws.numel() < 2 + 2 * B * H:
+        ws = torch.zeros(2 + 2 * B * H, device=device, dtype=torch.int64)
+    _workspaces[device.index] = ws, stream
+    return ws
 
 
 def _check(name, t, shape, device):
@@ -62,6 +150,15 @@ def _check(name, t, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"lstm_seq: {name} must be contiguous")
+
+
+def _raise_on(err: int, H: int, units: int, n_sm: int) -> None:
+    if err == NOT_CO_RESIDENT:
+        raise RuntimeError(
+            f"lstm_seq: a grid of {H // units} blocks does not fit co-resident "
+            f"on {n_sm} SMs, which the cooperative launch needs")
+    if err != 0:
+        raise RuntimeError(f"lstm_seq: CUDA error {err} at launch")
 
 
 def lstm_seq_cuda(gates_x, masks, h0, c0, w_hh):
@@ -82,33 +179,44 @@ def lstm_seq_cuda(gates_x, masks, h0, c0, w_hh):
         ("h0", h0, (B, H)), ("c0", c0, (B, H)), ("w_hh^T", w_hh_t, (4 * H, H)),
     ):
         _check(name, t, shape, device)
+    units, n_sm = _units(device.index, H)
+    check_shape(1, H, units)
+    if w_hh_t.data_ptr() % 16:  # read in 16-byte chunks
+        raise ValueError("lstm_seq: w_hh must be aligned to 16 bytes")
 
-    lib = _build.load("lstm_seq")
-    fn = lib.lstm_seq_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    units = _units_per_block(H, n_sm)
-    if smem_bytes(H, units) > SMEM_LIMIT:
-        raise ValueError(f"lstm_seq: H={H} needs {smem_bytes(H, units)} bytes of "
-                         f"shared memory a block, more than {SMEM_LIMIT}")
+    slices = batch_slices(B, H, units)
+    if len(slices) > 1:
+        return by_rows(lstm_seq_cuda, slices, gates_x, masks, h0, c0, w_hh)
 
+    fn = _entry()
     outs = torch.empty((T, B, H), device=device, dtype=torch.float32)
     hT = torch.empty((B, H), device=device, dtype=torch.float32)
     cT = torch.empty((B, H), device=device, dtype=torch.float32)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(device)
+        ws = _workspace(device, stream, B, H)
         err = fn(gates_x.data_ptr(), masks.data_ptr(), h0.data_ptr(),
                  c0.data_ptr(), w_hh_t.data_ptr(), outs.data_ptr(),
-                 hT.data_ptr(), cT.data_ptr(), T, B, H, units, stream)
-    if err == 1000:
-        raise RuntimeError(
-            f"lstm_seq: a grid of {H // units} blocks does not fit co-resident "
-            f"on {n_sm} SMs, which the cooperative launch needs")
-    if err != 0:
-        raise RuntimeError(f"lstm_seq: CUDA error {err} at launch")
+                 hT.data_ptr(), cT.data_ptr(), ws.data_ptr(), T, B, H, units,
+                 device.index, stream.cuda_stream)
+    _raise_on(err, H, units, n_sm)
     launches += 1
     return outs, hT, cT
+
+
+def exchange_floor_cuda(T: int, B: int, H: int, device) -> None:
+    """Launch the kernel's grid for (B, H) running T steps of nothing but the
+    h exchange: the floor that the exchange puts under a step.  A measuring
+    aid; it computes nothing and is not counted in ``launches``."""
+    device = torch.device(device)
+    units, n_sm = _units(device.index, H)
+    check_shape(B, H, units)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        ws = _workspace(device, stream, B, H)
+        err = _exchange_entry()(ws.data_ptr(), T, B, H, units, device.index,
+                                stream.cuda_stream)
+    _raise_on(err, H, units, n_sm)
 
 
 class _FusedLSTM(torch.autograd.Function):

@@ -256,9 +256,145 @@ def test_kernel_functions_backward_replays_plain(rng, monkeypatch):
             torch.testing.assert_close(g, r, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("H,units,fits", [(512, 4, True), (512, 8, True), (2048, 16, False)])
-def test_lstm_smem_bound(H, units, fits):
-    assert (fused_lstm.smem_bytes(H, units) <= fused_lstm.SMEM_LIMIT) == fits
+@pytest.mark.parametrize("H,B,fits", [
+    (512, 4, True), (512, 20, True), (1024, 28, True), (1024, 29, False), (512, 57, False),
+])
+def test_lstm_smem_bound(H, B, fits):
+    """Two buffers of h with B rounded up to 2 rows, in float32
+    (lstm_seq_smem_bytes in csrc/lstm_seq.cu); W_hh's rows are in registers."""
+    assert (fused_lstm.smem_bytes(H, B) <= fused_lstm.SMEM_LIMIT) == fits
+    assert fused_lstm.smem_bytes(H, B) == 4 * 2 * (-(-B // 2) * 2) * H
+
+
+def _lstm_kernel_emulation(gates_x, masks, h0, c0, w_hh):
+    """csrc/lstm_seq.cu's arithmetic in plain float32 torch.  Per step, lane l
+    of a warp sums the 16-byte chunks l, l+32, ... of h · W_hh (the four
+    values of a chunk in turn), the 32 lanes' partial sums meet in an
+    xor-shuffle tree (offsets 16, 8, 4, 2, 1), the mask multiplies the
+    product and c, and the gates follow in torch's order, the activations
+    written through exp as the kernel writes them."""
+    T, B, four_h = gates_x.shape
+    H = four_h // 4
+    k_pad = -(-H // 128) * 128  # chunks past H are a lane's zeros
+    w = torch.zeros(k_pad, four_h)
+    w[:H] = w_hh
+    w = w.view(k_pad // 128, 32, 4, four_h)  # k = 128·j + 4·lane + i
+    lanes = torch.arange(32)
+
+    def sigmoid(x):
+        return 1.0 / (1.0 + torch.exp(-x))
+
+    def tanh(x):
+        return 1.0 - 2.0 / (torch.exp(2.0 * x) + 1.0)
+
+    h, c = h0, c0
+    outs = []
+    for t in range(T):
+        hp = torch.zeros(B, k_pad)
+        hp[:, :H] = h
+        hp = hp.view(B, k_pad // 128, 32, 4)
+        acc = torch.zeros(B, 32, four_h)
+        for j in range(k_pad // 128):
+            for i in range(4):
+                acc = acc + hp[:, j, :, i, None] * w[None, j, :, i]
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lanes ^ off]
+        m = masks[t][:, None]
+        g = gates_x[t] + m * acc[:, 0]
+        gi, gf, gg, go = g.chunk(4, dim=-1)
+        c = sigmoid(gf) * (c * m) + sigmoid(gi) * tanh(gg)
+        h = sigmoid(go) * tanh(c)
+        outs.append(h)
+    return torch.stack(outs), h, c
+
+
+@pytest.mark.parametrize("T,B,H", [(50, 4, 512), (7, 11, 64), (5, 20, 64), (3, 9, 32)])
+def test_lstm_kernel_summation_order_matches_jax(rng, T, B, H):
+    """The kernel's K-slicing and reduction tree, through a window with a
+    reset inside it (masks as chip_smoke.py makes them), against the JAX
+    scan and the interpret-mode Pallas kernel."""
+    args = _lstm_inputs(rng, T, B, H)
+    args[1][0] = 1.0
+    args[1][0, 1::2] = 0.0  # odd rows reset at t=0, even rows go on from h0, c0
+    ours = _lstm_kernel_emulation(*map(torch.from_numpy, args))
+    scan = jax_lstm._scan_impl(*map(jnp.asarray, args))
+    pallas = jax_lstm._pallas_lstm_call(*map(jnp.asarray, args), interpret=True)
+    for o, s, p in zip(ours, scan, pallas):
+        _close(o, s)
+        _close(o, p)
+
+
+@pytest.mark.parametrize("B,H,units,ok", [
+    (4, 512, 4, True), (8, 512, 4, True), (20, 512, 4, True), (1, 32, 1, True),
+    (11, 64, 1, True), (56, 512, 4, True), (65, 512, 4, False), (4, 30, 1, False),
+    (4, 66, 1, False), (4, 1024, 8, True), (33, 1024, 8, False), (4, 1028, 8, False),
+    (4, 996, 12, False), (256, 64, 1, True), (257, 64, 1, False), (4, 48, 3, True),
+    (65, 48, 3, False),
+])
+def test_lstm_shape_range(B, H, units, ok):
+    """The wrapper refuses before any launch what one launch of the kernel
+    does not take: H off a multiple of 4 or above 1024, more than 8 units a
+    block, more than 16 batch pairs a warp, or more shared memory than a
+    block has."""
+    if ok:
+        fused_lstm.check_shape(B, H, units)
+    else:
+        with pytest.raises(ValueError, match="lstm_seq"):
+            fused_lstm.check_shape(B, H, units)
+
+
+@pytest.mark.parametrize("B,H,units,slices", [
+    (4, 512, 4, [(0, 4)]), (56, 512, 4, [(0, 56)]), (60, 512, 4, [(0, 30), (30, 60)]),
+    (113, 512, 4, [(0, 38), (38, 76), (76, 113)]), (29, 1024, 8, [(0, 15), (15, 29)]),
+    (300, 64, 1, [(0, 150), (150, 300)]), (1, 32, 1, [(0, 1)]),
+])
+def test_lstm_batch_slices(B, H, units, slices):
+    """A batch beyond one launch runs as launches over equal slices of rows,
+    each of which one launch takes."""
+    assert fused_lstm.batch_slices(B, H, units) == slices
+    for b0, b1 in slices:
+        fused_lstm.check_shape(b1 - b0, H, units)
+
+
+def test_lstm_by_rows_matches_jax(rng):
+    """Rows run in slices and joined give the whole batch's outs, hT and cT
+    (to the matmul's summation order, which depends on the batch)."""
+    args = _lstm_inputs(rng, 6, 7, 16)
+    whole = lstm_recurrence(*map(torch.from_numpy, args))
+    sliced = fused_lstm.by_rows(lstm_recurrence, [(0, 3), (3, 6), (6, 7)],
+                                *map(torch.from_numpy, args))
+    scan = jax_lstm._scan_impl(*map(jnp.asarray, args))
+    for s, w, j in zip(sliced, whole, scan):
+        _close(s, w)
+        _close(s, j)
+
+
+def test_lstm_entry_set_up_once(monkeypatch):
+    """The kernel's library is loaded and its C entries' argument types set
+    once; later calls reuse them."""
+    loads = []
+
+    class Lib:
+        lstm_seq_f32 = type("Fn", (), {})()
+        lstm_seq_exchange = type("Fn", (), {})()
+
+    def load(name):
+        loads.append(name)
+        return Lib
+
+    monkeypatch.setattr(_build, "load", load)
+    fused_lstm._entry.cache_clear()
+    fused_lstm._exchange_entry.cache_clear()
+    try:
+        fns = [fused_lstm._entry() for _ in range(3)]
+        assert all(f is Lib.lstm_seq_f32 for f in fns)
+        assert fused_lstm._exchange_entry() is Lib.lstm_seq_exchange
+        assert loads == ["lstm_seq", "lstm_seq"]
+        assert len(Lib.lstm_seq_f32.argtypes) == 15
+        assert len(Lib.lstm_seq_exchange.argtypes) == 7
+    finally:
+        fused_lstm._entry.cache_clear()
+        fused_lstm._exchange_entry.cache_clear()
 
 
 @pytest.mark.parametrize("S,d,fits", [(16, 64, True), (64, 64, True), (512, 128, False)])

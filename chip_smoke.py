@@ -8,29 +8,35 @@ exit code and no result line:
 
 1. Device: CUDA must be present; prints nvidia-smi's name and power limit.
 2. Build: compiles every CUDA kernel of the port from csrc/ for sm_90a, one
-   nvcc per source, all in parallel, into build/kernels/.
+   nvcc per source, all in parallel, into build/kernels/; prints each
+   kernel instance's registers and spills, and fails if an instance of the
+   float32 tensor-core attention kernel spills.
 3. Kernels against their plain versions, float32 with TF32 off, at the
    shapes of the serving path: the LSTM kernel (also at every H range of
    its template and at batches beyond one launch; timed at the tick's
    shape, and as its grid running nothing but the step-to-step exchange of
    h, the floor under a step) and the cross-modal attention
-   kernel, whose bfloat16 route (the serving dtype, a tensor-core kernel of
-   its own) is held at the same shapes and at ragged ones.  Prints the largest
-   error against the stated tolerance, and every rep's time of the kernel,
-   the plain version and one PyTorch library call computing the same
-   function, each rep's calls queued on the device behind a sleep so that a
-   call shorter than its host cost is timed on the device.  bfloat16
-   attention is timed with its inputs rotated over several sets, so that no
-   call finds them in the L2 cache; at the tick's shape its wrapper is also
-   timed unqueued, at the host's dispatch rate.
+   kernel in its three routes: float32 on the tensor cores (3xTF32, the
+   route of every float32 call at these shapes), float32 on the CUDA cores
+   (the route of float32 shapes the first does not take) and
+   bfloat16 (the serving dtype), each held at the same shapes and at ragged
+   ones, where the route each shape takes is checked too.  Prints the
+   largest error against the stated tolerance, and every rep's time of the
+   kernel, the plain version and one PyTorch library call computing the
+   same function, each rep's calls queued on the device behind a sleep so
+   that a call shorter than its host cost is timed on the device.  Attention
+   is timed with its inputs rotated over several sets, so that no call
+   finds them in the L2 cache; at the tick's shape the bfloat16 wrapper is
+   also timed unqueued, at the host's dispatch rate.
 4. Main path at full published width (BERT-base, TV-ResNet50 at 224 px, DDPPO
    GN-ResNet50 at 256 px, VisualLingAttn d_model 256 / 4 heads, LSTM(512)),
    random weights from seed 0, bfloat16 compute: three teacher-forced windows
    (B=4, T=50, 200 instruction tokens), then 10 closed-loop ticks at B=8 with
    the BERT embedding cached.  The launch counts are zeroed just before and
-   read just after; every output must be finite.  Then the float32 window is
-   compared with the same agent whose kernels are swapped for their plain
-   versions.  With --profile, torch.profiler traces one window and five
+   read just after; every output must be finite.  Then the float32 agent's
+   window is timed (it must launch the float32 tensor-core attention only)
+   and compared with the same agent whose kernels are swapped for their
+   plain versions.  With --profile, torch.profiler traces one window and five
    ticks first and prints the device's busy share and top kernels.
 5. One JSON line {"kernels": [...]}, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
@@ -39,6 +45,7 @@ exit code and no result line:
 import contextlib
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -47,13 +54,16 @@ import time
 import torch
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32
-# FLOP/s outside the tensor cores (the LSTM and the float32 attention route)
-# and dense bf16 FLOP/s of the tensor cores (the bfloat16 attention route)
+# FLOP/s outside the tensor cores (the LSTM, and the float32 attention's
+# bound, kept so that its rows stay comparable), and dense bf16 and TF32
+# FLOP/s of the tensor cores (the bfloat16 attention route; the float32
+# route's three tf32 products, printed beside its bound)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+TF32_TC_FLOP_PER_S = 495e12
 QUEUE_SLEEP_CYCLES = 10_000_000  # about 5 ms at the H100's clock
-L2_ROTATION = 3  # input sets a timed bf16 call cycles over (>= 44 MB each; L2 50 MB)
+L2_ROTATION = 3  # input sets a timed attention call cycles over (>= 44 MB each; L2 50 MB)
 
 LSTM_TOL = 1e-4  # float32; the T sequential steps sum in another order
 ATTN_TOL = 1e-4  # float32; another summation order over d_k and S
@@ -71,6 +81,38 @@ def card_line():
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled):
+    """kernel<template args> from a mangled kernel name: the identifier
+    ending in _kernel that its length prefix delimits."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        start = m.start() + len(m.group(1))
+        word = mangled[start:start + int(m.group(1))]
+        if word.endswith("_kernel") and word.isidentifier():
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[start + len(word):])
+            if args is None:
+                return word
+            return word + "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return mangled
+
+
+def ptxas_usage(log):
+    """(kernel, registers, spill-store bytes) of each kernel instance in an
+    ``nvcc -Xptxas -v`` log."""
+    usage, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage.append((name, int(m.group(1)), spill))
+            name, spill = None, 0
+    return usage
 
 
 def time_ms(fn, reps=10, inner=10, warmup=3, queued=True):
@@ -214,10 +256,11 @@ def check_attention(gen, device):
     print("phase 3b: cross_modal_attn kernel against ops/fused_attention.attention_plain")
     N, Lq, heads, d = 200, 200, 4, 64
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = dict.fromkeys(fused_attention.ROUTES, 0.0)
+    sums = {"ms": 0.0, "f32_cuda_core_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
             "bf16_ms": 0.0, "bf16_plain_ms": 0.0, "bf16_library_ms": 0.0}
-    bounds = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    bounds = {f32: [0.0, 0.0], bf16: [0.0, 0.0]}
 
     def inputs(n, lq, S, h, dk, dv, dtype):
         return (torch.randn(n, lq, h * dk, generator=gen).to(device, dtype),
@@ -227,92 +270,127 @@ def check_attention(gen, device):
     def heads_view(q, k, v):
         return [t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v)]
 
+    def check(tag, q, k, v, h, tol, expected):
+        """One launch, which must take route ``expected``, held to the plain
+        version."""
+        before = dict(fused_attention.route_launches)
+        got = fused_attention.cross_modal_attn_cuda(q, k, v, h)
+        ref = fused_attention.attention_plain(q, k, v, h)
+        torch.cuda.synchronize()
+        took = [r for r, count in fused_attention.route_launches.items() if count != before[r]]
+        err = (got.float() - ref.float()).abs().max().item()
+        print(f"  {tag} [{','.join(took)}]: max_abs_err {err:.3e} (tolerance {tol})")
+        if took != [expected]:
+            fail(f"cross_modal_attn launched {took} at {tag}, expected {expected}")
+        if not err <= tol:
+            fail(f"cross_modal_attn ({expected}) disagrees with its plain version at {tag}")
+        worst[expected] = max(worst[expected], err)
+
     for n in (N, 8):
         for S in (16, 64):
-            for dtype, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
+            for dtype, tol in ((f32, ATTN_TOL), (bf16, ATTN_BF16_TOL)):
                 q, k, v = inputs(n, Lq, S, heads, d, d, dtype)
-                got = fused_attention.cross_modal_attn_cuda(q, k, v, heads)
-                ref = fused_attention.attention_plain(q, k, v, heads)
-                torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
                 tag = f"N={n} Lq={Lq} S={S} h={heads} d={d} {str(dtype)[6:]}"
-                print(f"  {tag}: max_abs_err {err:.3e} (tolerance {tol})")
-                if not err <= tol:
-                    fail(f"cross_modal_attn disagrees with its plain version at {tag}")
-                worst[dtype] = max(worst[dtype], err)
+                if dtype == f32:
+                    check(tag, q, k, v, heads, tol, "f32_tensor_core")
+                    with cuda_core_f32_attention():
+                        check(f"{tag}, CUDA-core kernel", q, k, v, heads, tol, "f32_cuda_core")
+                else:
+                    check(tag, q, k, v, heads, tol, "bf16")
                 if n != N:
-                    if dtype == torch.bfloat16:  # the tick's shape
+                    if dtype == bf16:  # the tick's shape
                         call = lambda: fused_attention.cross_modal_attn_cuda(q, k, v, heads)
                         report_times(f"{tag} kernel", time_ms(call))
                         report_times(f"{tag} kernel, not queued (the host's dispatch rate)",
                                      time_ms(call, queued=False))
                     continue
-                if dtype == torch.float32:
-                    kernel = report_times(f"{tag} kernel", time_ms(
-                        lambda: fused_attention.cross_modal_attn_cuda(q, k, v, heads)))
-                    plain = report_times(f"{tag} plain", time_ms(
-                        lambda: fused_attention.attention_plain(q, k, v, heads)))
-                    library = report_times(f"{tag} library scaled_dot_product_attention",
-                                           time_ms(lambda: sdpa(*heads_view(q, k, v))))
+                # one call moves 44-108 MB against a 50 MB L2: time it over
+                # several input sets in turn, so no call finds its inputs in L2
+                sets = [(q, k, v)] + [inputs(n, Lq, S, heads, d, d, dtype)
+                                      for _ in range(L2_ROTATION - 1)]
+                note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
+
+                def timed(label, fn, arg_sets=sets):
+                    return report_times(f"{tag} {label} ({note})",
+                                        time_ms(rotated(fn, arg_sets)))
+
+                prefix = "" if dtype == f32 else "bf16_"
+                kernel = lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads)
+                sums[prefix + "ms"] += timed("kernel", kernel)
+                if dtype == f32:
+                    with cuda_core_f32_attention():
+                        sums["f32_cuda_core_ms"] += timed("CUDA-core kernel", kernel)
+                sums[prefix + "plain_ms"] += timed("plain", lambda *t: (
+                    fused_attention.attention_plain(*t, heads)))
+                sums[prefix + "library_ms"] += timed("library scaled_dot_product_attention",
+                                                     sdpa, [heads_view(*t) for t in sets])
+                if dtype == f32:
                     by_bytes, by_ops = attn_bound_ms(n, Lq, S, heads, d, 4, F32_FLOP_PER_S)
-                    prefix = ""
+                    tc_ops = 3 * attn_bound_ms(n, Lq, S, heads, d, 4, TF32_TC_FLOP_PER_S)[1]
+                    print(f"  {tag} three tf32 products on the tensor cores: {tc_ops:.4f} ms")
                 else:
-                    # one bf16 call moves 44-54 MB against a 50 MB L2: time it
-                    # over several input sets in turn, so no call finds its
-                    # inputs in L2
-                    sets = [(q, k, v)] + [inputs(n, Lq, S, heads, d, d, dtype)
-                                          for _ in range(L2_ROTATION - 1)]
-                    note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
-                    kernel = report_times(f"{tag} kernel ({note})", time_ms(rotated(
-                        lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads), sets)))
-                    plain = report_times(f"{tag} plain ({note})", time_ms(rotated(
-                        lambda *t: fused_attention.attention_plain(*t, heads), sets)))
-                    library = report_times(
-                        f"{tag} library scaled_dot_product_attention ({note})",
-                        time_ms(rotated(sdpa, [heads_view(*t) for t in sets])))
                     by_bytes, by_ops = attn_bound_ms(n, Lq, S, heads, d, 2, BF16_TC_FLOP_PER_S)
-                    prefix = "bf16_"
                 print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
-                sums[prefix + "ms"] += kernel
-                sums[prefix + "plain_ms"] += plain
-                sums[prefix + "library_ms"] += library
                 bounds[dtype][0] += by_bytes
                 bounds[dtype][1] += by_ops
-    # ragged shapes: a partial query tile, S below a warp or off a multiple
-    # of 16, other head sizes (d_v != d_k in float32 only); in bfloat16 also
-    # S = 1 and S = d = 128, whose tiles need more than 48 KB of shared memory
-    ragged = [(torch.float32, ATTN_TOL, (3, 13, 5, 2, 8, 16)),
-              (torch.float32, ATTN_TOL, (2, 40, 33, 3, 32, 32)),
-              (torch.bfloat16, ATTN_BF16_TOL, (3, 13, 5, 2, 16, 16)),
-              (torch.bfloat16, ATTN_BF16_TOL, (2, 40, 33, 3, 32, 32)),
-              (torch.bfloat16, ATTN_BF16_TOL, (4, 65, 1, 4, 48, 48)),
-              (torch.bfloat16, ATTN_BF16_TOL, (2, 130, 128, 1, 128, 128))]
-    for dtype, tol, (n, lq, S, h, dk, dv) in ragged:
-        q, k, v = inputs(n, lq, S, h, dk, dv, dtype)
-        err = (fused_attention.cross_modal_attn_cuda(q, k, v, h).float()
-               - fused_attention.attention_plain(q, k, v, h).float()).abs().max().item()
+    # ragged shapes, each with the route it must take: a partial query tile,
+    # S below a warp, off a multiple of 8 or 16, and at the largest instance
+    # (whose tiles need more than 48 KB of shared memory), other head sizes
+    # (d_v != d_k in float32 only), and float32 shapes outside the
+    # tensor-core kernel's range, which the CUDA-core kernel takes
+    ragged = [((3, 13, 5, 2, 8, 16), f32, "f32_tensor_core"),
+              ((2, 40, 33, 3, 32, 32), f32, "f32_tensor_core"),
+              ((4, 65, 1, 4, 64, 64), f32, "f32_tensor_core"),
+              ((2, 130, 128, 1, 128, 128), f32, "f32_tensor_core"),
+              ((2, 70, 17, 2, 64, 32), f32, "f32_tensor_core"),
+              ((3, 100, 100, 2, 96, 40), f32, "f32_tensor_core"),
+              ((2, 40, 16, 2, 12, 12), f32, "f32_cuda_core"),
+              ((2, 20, 200, 2, 16, 16), f32, "f32_cuda_core"),
+              ((3, 13, 5, 2, 16, 16), bf16, "bf16"),
+              ((2, 40, 33, 3, 32, 32), bf16, "bf16"),
+              ((4, 65, 1, 4, 48, 48), bf16, "bf16"),
+              ((2, 130, 128, 1, 128, 128), bf16, "bf16")]
+    for (n, lq, S, h, dk, dv), dtype, route in ragged:
         tag = f"N={n} Lq={lq} S={S} h={h} d_k={dk} d_v={dv} {str(dtype)[6:]}"
-        print(f"  {tag}: max_abs_err {err:.3e} (tolerance {tol})")
-        if not err <= tol:
-            fail(f"cross_modal_attn disagrees with its plain version at {tag}")
-        worst[dtype] = max(worst[dtype], err)
+        check(tag, *inputs(n, lq, S, h, dk, dv, dtype), h,
+              ATTN_TOL if dtype == f32 else ATTN_BF16_TOL, route)
     # one window forward launches it twice: S=16 (rgb) and S=64 (depth)
-    (f32_bytes, f32_ops), (bf16_bytes, bf16_ops) = bounds[torch.float32], bounds[torch.bfloat16]
+    (f32_bytes, f32_ops), (bf16_bytes, bf16_ops) = bounds[f32], bounds[bf16]
     return {
         "name": "cross_modal_attn", "route": "cuda",
         "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
         "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
-        "max_abs_err": worst[torch.float32], "bf16_max_abs_err": worst[torch.bfloat16],
+        "max_abs_err": worst["f32_tensor_core"],
+        "f32_cuda_core_max_abs_err": worst["f32_cuda_core"],
+        "bf16_max_abs_err": worst["bf16"],
         **sums,
         "bound_ms": max(f32_bytes, f32_ops),
         "bound_by": "bytes" if f32_bytes > f32_ops else "operations",
         "bf16_bound_ms": max(bf16_bytes, bf16_ops),
         "bf16_bound_by": "bytes" if bf16_bytes > bf16_ops else "operations",
-        "work": "2 calls, N=200 Lq=200 h=4 d=64 at S=16 and S=64 (one window forward); "
-                "the unprefixed fields float32, bf16_* bfloat16 with inputs rotated "
-                f"over {L2_ROTATION} sets so that none is in L2",
+        "work": "2 calls, N=200 Lq=200 h=4 d=64 at S=16 and S=64 (one window forward), "
+                f"inputs rotated over {L2_ROTATION} sets so that none is in L2; the "
+                "unprefixed fields float32 on the tensor cores (3xTF32, the route every "
+                "float32 call at these shapes takes), f32_cuda_core_* the float32 "
+                "CUDA-core kernel at the same shapes, bf16_* bfloat16; bound_ms counts "
+                "float32 operations at the CUDA cores' peak",
         "library": "torch.nn.functional.scaled_dot_product_attention on head views",
     }
+
+
+@contextlib.contextmanager
+def cuda_core_f32_attention():
+    """Route float32 attention to the CUDA-core kernel, to check and time
+    it against the tensor-core kernel at the same shapes."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    saved = fused_attention.pick_route
+    fused_attention.pick_route = lambda dtype, *a, **kw: (
+        "f32_cuda_core" if dtype == torch.float32 else saved(dtype, *a, **kw))
+    try:
+        yield
+    finally:
+        fused_attention.pick_route = saved
 
 
 @contextlib.contextmanager
@@ -441,9 +519,27 @@ def main_path(device, profile=False):
     if profile:
         profile_main_path(agent, obs, masks, tick_obs, tick_masks)
 
-    print("phase 4b: float32 window, kernels against plain versions (TF32 off)")
+    print("phase 4b: float32 window, timed against the same window with the float32 "
+          "CUDA-core attention kernel, then kernels against plain versions (TF32 off)")
     agent32 = build_hcm_agent(mc, device=device, compute_dtype="float32", seed=0)
-    got = agent32.forward_window(obs, masks, None, *agent32.initial_state(B))
+    times = {"f32_tensor_core": [], "f32_cuda_core": []}
+    for rep in range(3):
+        for route, ms in times.items():
+            before = dict(fused_attention.route_launches)
+            forced = route == "f32_cuda_core"
+            with cuda_core_f32_attention() if forced else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                out = agent32.forward_window(obs, masks, None, *agent32.initial_state(B))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            took = {r: c - before[r] for r, c in fused_attention.route_launches.items()}
+            print(f"  float32 window B={B} T={T} rep {rep}, attention {route}: {ms[-1]:.3f} ms")
+            if took != {r: 2 if r == route else 0 for r in took}:
+                fail(f"the float32 window launched {took}, expected 2 of {route}")
+            if route == "f32_tensor_core":
+                got = out
+    print("  float32 window medians: " + ", ".join(
+        f"attention {route} {statistics.median(ms):.3f} ms" for route, ms in times.items()))
     with plain_kernels():
         ref = agent32.forward_window(obs, masks, None, *agent32.initial_state(B))
     top2 = ref[2].topk(2, dim=-1).values
@@ -479,9 +575,10 @@ def main():
     print(f"phase 2: built {sorted(logs) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_usage(log):
+            print(f"  {name}: {kernel}: {regs} registers, {spill} bytes spill stores")
+            if kernel.startswith("cross_modal_attn_f32tc_kernel") and spill:
+                fail(f"{kernel} spills {spill} bytes")
 
     gen = torch.Generator().manual_seed(0)
     kernels = [check_lstm(gen, device), check_attention(gen, device)]

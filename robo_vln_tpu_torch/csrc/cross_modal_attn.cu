@@ -5,7 +5,8 @@
 // MultiHeadAttention: Lq = 200 instruction queries over S = 16 (rgb) or 64
 // (depth) visual tokens, h = 4 heads of d_k = d_v = 64, N = B·T examples.
 // Heads are addressed by stride in the (N, L, h·d) layout, so the caller needs
-// no transposes.  Two routes, chosen by the dtype of q, k, v and out:
+// no transposes.  Three routes, chosen by the dtype of q, k, v and out and,
+// in float32, by shape:
 //
 // bfloat16 (the serving dtype).  What bounds it on the H100: bytes.  At
 // N = 200 the call moves 44 MB (S = 16) or 54 MB (S = 64) and does 0.7 or
@@ -33,12 +34,43 @@
 // Takes d_k = d_v, a multiple of 16 up to 128, and 1 ≤ S ≤ 128; the wrapper
 // raises outside that range.
 //
-// float32.  Grid (example, head, tile of 32 queries), 8 warps a block, all on
-// the CUDA cores.  The block stages K and V of its (example, head) in shared
-// memory as float32 (K's rows padded by one float so the lanes of a warp, one
-// key each, hit 32 different banks).  Each warp takes one query row at a time:
-// its S logits (one key per lane), max and sum by warp shuffle, the softmax in
-// registers and shared memory, then the d_v outputs (one dimension per lane).
+// float32 on the tensor cores (3xTF32), for d_k and d_v multiples of 8 up
+// to 128 (d_k != d_v allowed), 1 ≤ S ≤ 128 and pointers aligned to 16
+// bytes.  What bounds it: bytes, twice the bf16 route's (0.0587 ms for the
+// window's two calls at 3.35 TB/s), while on the CUDA cores its 3.3 GFLOP
+// would take almost as long (0.049 ms at 67 TFLOP/s) before any softmax or
+// address arithmetic.  So both products run on mma.sync m16n8k8 tf32, each
+// float32 operand split into hi = rna(x) and lo = rna(x - hi), rounded to
+// tf32 explicitly (the mma reads only the top 19 bits of a register, so raw
+// floats would be truncated and the split broken), and a·b = a_lo·b_hi +
+// a_hi·b_lo + a_hi·b_hi, the small products first (CUTLASS's 3xTF32
+// order): about 21 bits of each operand, so the result is float32-accurate;
+// one tf32 product alone would move logits by about 1e-3.  The plan is the
+// bf16 route's, with 8 warps a block: one block per (example, head,
+// 128-query tile), tile fastest, so a head's tiles find its K and V in L2;
+// each warp takes 16 query rows; the Q tile by 16-byte cp.async; the logits
+// whole in the accumulators, the softmax in them by quad shuffles and exp2;
+// the output through the warp's own rows of the Q tile in 16-byte stores.
+// What held it back on the chip was the instructions issued, not bytes: the
+// split of every K and V value in every warp, cvt.rna (which compiles to
+// several instructions; two integer operations round the same), address
+// arithmetic and guards.  So the block splits K and V once, its 8 warps
+// sharing the work, into tiles laid out so that each fragment is one
+// 64-bit load of an operand pair; sizes are compile-time (D and S rounded
+// up, tiles zero-filled), so offsets are constants and loops unguarded; and
+// neither product needs a shuffle: each contracts in an order that suits
+// the fragments (see the kernel).  At D = 128 with S > 64 the split tiles do
+// not fit in shared memory, and each warp splits the values it reads.
+//
+// float32 on the CUDA cores, for every other float32 shape
+// (d not a multiple of 8 or above 128, S > 128, or a pointer not aligned to
+// 16 bytes; the wrapper picks the kernel before the launch).  Grid (example,
+// head, tile of 32 queries), 8 warps a block.  The block stages K and V of
+// its (example, head) in shared memory as float32 (K's rows padded by one
+// float so the lanes of a warp, one key each, hit 32 different banks).  Each
+// warp takes one query row at a time: its S logits (one key per lane), max
+// and sum by warp shuffle, the softmax in registers and shared memory, then
+// the d_v outputs (one dimension per lane).
 //
 // The dynamic shared-memory limit of a kernel is raised at most once per
 // device, and only for a launch that needs more than the default 48 KB.
@@ -434,17 +466,394 @@ int launch_bf16_any(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// ------------------------------------------- float32 on the tensor cores
+
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds a finite value (10 mantissa
+// bits, to nearest, ties away from zero: the sign-magnitude bits round up
+// in magnitude), in the 32-bit register the tf32 mma reads.  Two integer
+// operations; cvt.rna itself compiles to several more.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 21 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a·b on one m16n8k8 tile: tf32 inputs, float32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a·b in 3xTF32: a_lo·b_hi and a_hi·b_lo first, then a_hi·b_hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(c, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(c, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(c, a_hi, b_hi[0], b_hi[1]);
+}
+
+constexpr int kF32Warps = 8;  // 16 query rows each
+constexpr int kF32Tile = 16 * kF32Warps;
+
+// Shared memory of one block of cross_modal_attn_f32tc_kernel<D, KC>: the
+// 128-row Q tile in rows of D + 8 floats, then K and V (8·KC keys) either
+// split once for the block (split) or as they are (raw).  Split: K's rows
+// as D hi then D lo values (2D + 8), V's pairs of rows (2j, 2j+1) as D
+// (hi, hi) pairs then D (lo, lo) pairs (4D + 8).  Raw: K in rows of D + 8,
+// V in rows of D + 4.
+__host__ __device__ constexpr size_t f32tc_smem_bytes(int D, int KC, bool split) {
+  return sizeof(float) *
+         ((size_t)kF32Tile * (D + 8) +
+          (split ? (size_t)8 * KC * (2 * D + 8) + (size_t)4 * KC * (4 * D + 8)
+                 : (size_t)8 * KC * (2 * D + 12)));
+}
+
+// K and V are split once for the block wherever the split tiles fit in
+// shared memory: every instance but D = 128 with S > 64, where each warp
+// splits the values it reads.
+__host__ __device__ constexpr bool f32tc_split_once(int D, int KC) {
+  return f32tc_smem_bytes(D, KC, true) <= (size_t)kMaxSmem;
+}
+
+// Blocks a multiprocessor should hold at once: as many as the registers
+// allow once the accumulators (4·KC logits and D/2 outputs a thread) and
+// about 40 registers of fragments and addresses fit, and as many as the
+// shared memory holds, at most 8.
+template <int D, int KC>
+constexpr int f32tc_min_blocks() {
+  constexpr int regs = (4 * KC + D / 2 + 40 + 7) / 8 * 8;
+  constexpr int by_regs = 65536 / (kF32Warps * 32 * regs);
+  constexpr int by_smem =
+      233472 / (int)(f32tc_smem_bytes(D, KC, f32tc_split_once(D, KC)) + 1024);
+  constexpr int m = by_regs < by_smem ? by_regs : by_smem;
+  return m < 1 ? 1 : (m > 8 ? 8 : m);
+}
+
+// D: d_k and d_v rounded up to 32, 64 or 128; KC: S rounded up to 16, 32,
+// 64 or 128, over 8 (8-key chunks).  The tiles are zero past Lq, S, d_k and
+// d_v up to these sizes, so every loop runs to a compile-time count, every
+// shared-memory offset is a constant, and the zeros add nothing.  One block
+// of 8 warps per (example, head, 128-query tile), tile fastest; each warp
+// takes 16 query rows.  Where K and V are split once for the block, the 8
+// warps share that work, and every fragment of K and V is a 64-bit load of
+// an operand pair; the Q fragments are split by the warp that owns them.
+template <int D, int KC>
+__global__ void __launch_bounds__(kF32Warps * 32, f32tc_min_blocks<D, KC>())
+cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
+                              const float* __restrict__ k,  // (N, S, h*dk)
+                              const float* __restrict__ v,  // (N, S, h*dv)
+                              float* __restrict__ out,      // (N, Lq, h*dv)
+                              int Lq, int S, int heads, int dk, int dv, int tiles,
+                              float scale) {
+  constexpr bool kSplit = f32tc_split_once(D, KC);
+  // row pitches in floats: P, and PK and PV of split tiles, ≡ 8 (mod 32),
+  // so that a quad-row fragment's 64-bit loads (8 rows × 4 pairs, or 4 row
+  // pairs × 8 columns) fall in 32 different banks in each half warp; raw
+  // V's PV ≡ 4 (mod 8), for its 32-bit loads of 4 row pairs × 8 columns
+  constexpr int P = D + 8;
+  constexpr int PK = kSplit ? 2 * D + 8 : D + 8;
+  constexpr int PV = kSplit ? 4 * D + 8 : D + 4;
+  constexpr int kRows = 8 * KC;
+  constexpr int kChunks = D / 4;  // 16-byte chunks in one row of a tile
+  constexpr int kThreads = kF32Warps * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // (128, P)
+  float* k_s = q_s + kF32Tile * P;                   // (kRows, PK)
+  float* v_s = k_s + kRows * PK;                     // (kRows / 2, PV) split, (kRows, PV) raw
+
+  const int b = blockIdx.x;
+  const int nh = b / tiles;  // n * heads + head
+  const int q0 = (b - nh * tiles) * kF32Tile;
+  const int n = nh / heads, head = nh - n * heads;
+  const int ldk = heads * dk, ldv = heads * dv;  // row strides
+  const float* qb = q + ((size_t)n * Lq + q0) * ldk + head * dk;
+  const float* kb = k + (size_t)n * S * ldk + head * dk;
+  const float* vb = v + (size_t)n * S * ldv + head * dv;
+#pragma unroll
+  for (int j = 0; j < kF32Tile * kChunks / kThreads; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = q0 + r < Lq && c < dk;
+    cp_async16(q_s + r * P + c, ok ? qb + (size_t)r * ldk + c : q, ok);
+  }
+  if constexpr (kSplit) {
+    // items: 4 dims of one key (K), 4 columns of a pair of keys (V); every
+    // load is issued before the first split
+    constexpr int kKItems = kRows * kChunks, kVItems = kRows / 2 * kChunks;
+    constexpr int kKPer = (kKItems + kThreads - 1) / kThreads;
+    constexpr int kVPer = (kVItems + kThreads - 1) / kThreads;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 kx[kKPer], vx[kVPer][2];
+#pragma unroll
+    for (int j = 0; j < kKPer; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      const bool ok = i < kKItems && r < S && c < dk;
+      kx[j] = ok ? __ldg(reinterpret_cast<const float4*>(kb + (size_t)r * ldk + c)) : zero;
+    }
+#pragma unroll
+    for (int j = 0; j < kVPer; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      const int r = 2 * (i / kChunks), c = (i % kChunks) * 4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool ok = i < kVItems && r + h < S && c < dv;
+        vx[j][h] = ok ? __ldg(reinterpret_cast<const float4*>(vb + (size_t)(r + h) * ldv + c))
+                      : zero;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kKPer; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      if (i < kKItems) {
+        const int r = i / kChunks, c = (i % kChunks) * 4;
+        uint32_t h[4], l[4];
+        split_tf32(kx[j].x, h[0], l[0]);
+        split_tf32(kx[j].y, h[1], l[1]);
+        split_tf32(kx[j].z, h[2], l[2]);
+        split_tf32(kx[j].w, h[3], l[3]);
+        *reinterpret_cast<uint4*>(k_s + r * PK + c) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(k_s + r * PK + D + c) = make_uint4(l[0], l[1], l[2], l[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kVPer; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      if (i < kVItems) {
+        const int rp = i / kChunks, c = (i % kChunks) * 4;
+        uint32_t h[8], l[8];  // (row 2rp, row 2rp + 1) of columns c..c+3
+        split_tf32(vx[j][0].x, h[0], l[0]);
+        split_tf32(vx[j][1].x, h[1], l[1]);
+        split_tf32(vx[j][0].y, h[2], l[2]);
+        split_tf32(vx[j][1].y, h[3], l[3]);
+        split_tf32(vx[j][0].z, h[4], l[4]);
+        split_tf32(vx[j][1].z, h[5], l[5]);
+        split_tf32(vx[j][0].w, h[6], l[6]);
+        split_tf32(vx[j][1].w, h[7], l[7]);
+        float* row = v_s + rp * PV + 2 * c;
+        *reinterpret_cast<uint4*>(row) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(row + 4) = make_uint4(h[4], h[5], h[6], h[7]);
+        *reinterpret_cast<uint4*>(row + 2 * D) = make_uint4(l[0], l[1], l[2], l[3]);
+        *reinterpret_cast<uint4*>(row + 2 * D + 4) = make_uint4(l[4], l[5], l[6], l[7]);
+      }
+    }
+  } else {
+    static_assert(kRows * kChunks % kThreads == 0, "whole rounds of 16-byte copies");
+#pragma unroll
+    for (int j = 0; j < kRows * kChunks / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      const bool kok = r < S && c < dk, vok = r < S && c < dv;
+      cp_async16(k_s + r * PK + c, kok ? kb + (size_t)r * ldk + c : k, kok);
+      cp_async16(v_s + r * PV + c, vok ? vb + (size_t)r * ldv + c : v, vok);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  const int rows = min(kF32Tile, Lq - q0);
+  if (row0 >= rows) return;  // no valid rows for this warp; no barrier follows
+  const int g = lane >> 2, t = lane & 3;
+
+  // logits: s_acc[c] holds keys 8c..8c+7: [0], [1] row g, [2], [3] row g + 8,
+  // keys 8c + 2t + {0, 1}.  q·kᵀ runs over groups of 8 dims, each contracted
+  // in another order: the mma's k-index j < 4 stands for dim 8kt + 2j and
+  // j + 4 for dim 8kt + 2j + 1, so that A's k-indices (t, t+4) and B's are
+  // adjacent floats, one 64-bit load each.  A: rows g and g+8 at dims 2t,
+  // 2t+1; B: key g.
+  float s_acc[KC][4];
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_acc[c][e] = 0.0f;
+  const float* qa = q_s + (row0 + g) * P + 2 * t;
+  const float* kr = k_s + g * PK + 2 * t;
+#pragma unroll
+  for (int kt = 0; kt < D / 8; ++kt) {
+    const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kt);
+    const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * P + 8 * kt);
+    uint32_t a_hi[4], a_lo[4];
+    split_tf32(x0.x, a_hi[0], a_lo[0]);
+    split_tf32(x1.x, a_hi[1], a_lo[1]);
+    split_tf32(x0.y, a_hi[2], a_lo[2]);
+    split_tf32(x1.y, a_hi[3], a_lo[3]);
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t b_hi[2], b_lo[2];
+      if constexpr (kSplit) {
+        const uint2 h = *reinterpret_cast<const uint2*>(kr + 8 * c * PK + 8 * kt);
+        const uint2 l = *reinterpret_cast<const uint2*>(kr + 8 * c * PK + D + 8 * kt);
+        b_hi[0] = h.x;
+        b_hi[1] = h.y;
+        b_lo[0] = l.x;
+        b_lo[1] = l.y;
+      } else {
+        const float2 y = *reinterpret_cast<const float2*>(kr + 8 * c * PK + 8 * kt);
+        split_tf32(y.x, b_hi[0], b_lo[0]);
+        split_tf32(y.y, b_hi[1], b_lo[1]);
+      }
+      mma_3xtf32(s_acc[c], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+
+  // softmax over each row in float32, in base 2 (exp2 of logits·log2 e);
+  // a row lives in the 4 lanes of a quad
+  const float scale2 = scale * 1.4426950408889634f;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // keys past S (zero rows of K): -inf
+      s_acc[c][e] = 8 * c + 2 * t + (e & 1) < S ? s_acc[c][e] * scale2 : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s_acc[c][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s_acc[c][e] - mx[e >> 1]);
+      s_acc[c][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+  }
+  const float inv[2] = {1.0f / sum[0], 1.0f / sum[1]};
+
+  // out = p·v over chunks of 8 keys.  The mma's k-index j < 4 stands for key
+  // 8c + 2j and k-index j + 4 for key 8c + 2j + 1, so the A fragment (rows
+  // g, g+8 at k-indices t, t+4) is the C fragment of the logits as it lies:
+  // a0 = c0 (g, key 2t), a1 = c2 (g+8, key 2t), a2 = c1 (g, key 2t+1),
+  // a3 = c3 (g+8, key 2t+1); the B fragment (k-indices t, t+4 at column g)
+  // is V's rows 2t and 2t+1, one pair of split V.  The sum over keys does not
+  // depend on their order, so nothing else changes.  o_acc[dt] holds columns
+  // 8dt..8dt+7.
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[dt][e] = 0.0f;
+  const float* vr = kSplit ? v_s + t * PV + 2 * g : v_s + 2 * t * PV + g;
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    uint32_t a_hi[4], a_lo[4];
+    split_tf32(s_acc[c][0] * inv[0], a_hi[0], a_lo[0]);
+    split_tf32(s_acc[c][2] * inv[1], a_hi[1], a_lo[1]);
+    split_tf32(s_acc[c][1] * inv[0], a_hi[2], a_lo[2]);
+    split_tf32(s_acc[c][3] * inv[1], a_hi[3], a_lo[3]);
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      uint32_t b_hi[2], b_lo[2];
+      if constexpr (kSplit) {
+        const uint2 h = *reinterpret_cast<const uint2*>(vr + 4 * c * PV + 16 * dt);
+        const uint2 l = *reinterpret_cast<const uint2*>(vr + 4 * c * PV + 2 * D + 16 * dt);
+        b_hi[0] = h.x;
+        b_hi[1] = h.y;
+        b_lo[0] = l.x;
+        b_lo[1] = l.y;
+      } else {
+        split_tf32(vr[8 * c * PV + 8 * dt], b_hi[0], b_lo[0]);
+        split_tf32(vr[(8 * c + 1) * PV + 8 * dt], b_hi[1], b_lo[1]);
+      }
+      mma_3xtf32(o_acc[dt], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+
+  __syncwarp();
+  float* o_s = q_s + row0 * P;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    *reinterpret_cast<float2*>(o_s + g * P + 8 * dt + 2 * t) =
+        make_float2(o_acc[dt][0], o_acc[dt][1]);
+    *reinterpret_cast<float2*>(o_s + (g + 8) * P + 8 * dt + 2 * t) =
+        make_float2(o_acc[dt][2], o_acc[dt][3]);
+  }
+  __syncwarp();
+  float* ob = out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv;
+#pragma unroll
+  for (int j = 0; j < 16 * kChunks / 32; ++j) {
+    const int i = j * 32 + lane;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    if (row0 + r < rows && c < dv)
+      *reinterpret_cast<float4*>(ob + (size_t)r * ldv + c) =
+          *reinterpret_cast<const float4*>(o_s + r * P + c);
+  }
+}
+
+template <int D, int KC>
+int launch_f32tc_tiles(const void* q, const void* k, const void* v, void* out,
+                       int N, int Lq, int S, int heads, int dk, int dv,
+                       cudaStream_t stream) {
+  static SmemOptIn opt_in;
+  constexpr size_t smem = f32tc_smem_bytes(D, KC, f32tc_split_once(D, KC));
+  static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
+  const cudaError_t err =
+      opt_in.ensure((const void*)cross_modal_attn_f32tc_kernel<D, KC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (Lq + kF32Tile - 1) / kF32Tile;
+  const long long blocks = (long long)N * heads * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cross_modal_attn_f32tc_kernel<D, KC><<<(unsigned)blocks, kF32Warps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Lq, S, heads, dk,
+      dv, tiles, 1.0f / sqrtf((float)dk));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32tc(const void* q, const void* k, const void* v, void* out, int N,
+                 int Lq, int S, int heads, int dk, int dv, cudaStream_t s) {
+  if (S <= 16) return launch_f32tc_tiles<D, 2>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (S <= 32) return launch_f32tc_tiles<D, 4>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (S <= 64) return launch_f32tc_tiles<D, 8>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  return launch_f32tc_tiles<D, 16>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+}
+
+int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
+                     int N, int Lq, int S, int heads, int dk, int dv,
+                     cudaStream_t s) {
+  const int d = dk > dv ? dk : dv;
+  if (d <= 32) return launch_f32tc<32>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (d <= 64) return launch_f32tc<64>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  return launch_f32tc<128>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  The bfloat16
-// route takes dk == dv, a multiple of 16 up to 128, and 1 <= S <= 128, and
-// q, k, v and out aligned to 16 bytes.
+// route: 0 = float32 on the CUDA cores, 1 = bfloat16, 2 = float32 on the
+// tensor cores (q, k, v and out share the dtype).  The bfloat16 route takes
+// dk == dv, a multiple of 16 up to 128; the tensor-core float32 route dk and
+// dv multiples of 8 up to 128; both 1 <= S <= 128, and q, k, v and out
+// aligned to 16 bytes.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
-                                int dk, int dv, int dtype, void* stream) {
+                                int dk, int dv, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (dtype == 1 && dk == dv && S >= 1 && S <= 128)
+  if (route == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (route == 1 && dk == dv && S >= 1 && S <= 128)
     return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, s);
+  if (route == 2 && dk % 8 == 0 && dv % 8 == 0 && dk >= 8 && dk <= 128 &&
+      dv >= 8 && dv <= 128 && S >= 1 && S <= 128)
+    return launch_f32tc_any(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,11 +5,17 @@ Counterpart of robo_vln_tpu/ops/pallas_attention.py: per (example, head),
 ``softmax(q·kᵀ/√d_k)·v`` with no mask, the output in q's dtype.  q (N, Lq,
 h·d_k), k (N, S, h·d_k), v (N, S, h·d_v) -> (N, Lq, h·d_v); the kernel
 addresses the heads by stride, so there are no transposes around the call.
-Two routes, by dtype:
+Three routes, picked before the launch by :func:`pick_route` from the dtype
+and, in float32, the sizes:
 
-* float32: everything on the CUDA cores, in float32 (any S and head sizes
-  whose tiles fit in shared memory, :func:`smem_bytes`);
-* bfloat16: both products on the tensor cores, the softmax in float32, the
+* ``f32_tensor_core``: float32, both products on the tensor cores in 3xTF32
+  (each operand split into two tf32 parts, three products), so the result
+  is float32-accurate.  It takes d_k and d_v multiples of 8 up to 128, and
+  1 <= S <= 128, with q, k and v aligned to 16 bytes: every float32 call of
+  the HCM agent.
+* ``f32_cuda_core``: float32, everything on the CUDA cores, for every other
+  float32 shape whose tiles fit in shared memory (:func:`smem_bytes`).
+* ``bf16``: both products on the tensor cores, the softmax in float32, the
   probabilities kept to about 16 bits (``p_hi + p_lo``), so the only rounding
   left against the float32 function is that of the bf16 output.  It takes
   d_k = d_v, a multiple of 16 up to 128, and 1 <= S <= 128
@@ -29,22 +35,52 @@ import torch
 
 from . import _build, cm_attention
 
+ROUTES = {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2}  # codes of the C entry
 launches = 0  # kernel launches since the last reset
+route_launches = dict.fromkeys(ROUTES, 0)  # the same, by route
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
-WARPS = 8  # kWarps of csrc/cross_modal_attn.cu (float32 route)
-TILE_Q = 64  # kTileQ of csrc/cross_modal_attn.cu (bfloat16 route)
+WARPS = 8  # kWarps of csrc/cross_modal_attn.cu (f32_cuda_core route)
+TILE_Q = 64  # kTileQ of csrc/cross_modal_attn.cu (bf16 route)
+F32_TILE_Q = 128  # kF32Tile of csrc/cross_modal_attn.cu (f32_tensor_core route)
 BF16_MAX_S = 128
 BF16_MAX_D = 128
 
 
-def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32) -> int:
-    """Shared memory of one block.  float32: K (padded rows), V, a q row and
-    S probabilities per warp.  bfloat16: the Q tile, K and V (S rounded up to
-    16), in rows padded by 8 values."""
+def tensor_core_f32_takes(S: int, dk: int, dv: int, aligned: bool = True) -> bool:
+    """Whether the float32 tensor-core kernel takes these sizes: d_k and d_v
+    multiples of 8 up to 128, 1 <= S <= 128, pointers aligned to 16 bytes."""
+    return (aligned and 1 <= S <= BF16_MAX_S
+            and all(d % 8 == 0 and 8 <= d <= BF16_MAX_D for d in (dk, dv)))
+
+
+def pick_route(dtype, S: int, dk: int, dv: int, aligned: bool = True) -> str:
+    """The kernel a call launches: bf16 for bfloat16; in float32 the
+    tensor-core kernel wherever it takes the sizes, else the CUDA-core
+    kernel.  Decided before the launch, never after a failure."""
     if dtype == torch.bfloat16:
+        return "bf16"
+    return "f32_tensor_core" if tensor_core_f32_takes(S, dk, dv, aligned) else "f32_cuda_core"
+
+
+def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int:
+    """Shared memory of one block of ``route`` (by default the one
+    :func:`pick_route` picks).  f32_cuda_core: K (padded rows), V, a q row
+    and S probabilities per warp.  bf16: the Q tile, K and V (S rounded up
+    to 16), in rows padded by 8 values.  f32_tensor_core: at the kernel
+    instance's sizes, max(d_k, d_v) rounded up to D = 32, 64 or 128 and S to
+    16, 32, 64 or 128 rows, the 128-row Q tile in rows of D + 8 floats, then
+    K and V split into tf32 hi and lo parts (K in rows of 2D + 8, V in pairs
+    of rows of 4D + 8) where those fit, else as they are (rows of D + 8 and
+    D + 4): f32tc_smem_bytes in csrc/cross_modal_attn.cu."""
+    route = route or pick_route(dtype, S, dk, dv)
+    if route == "bf16":
         return 2 * (dk + 8) * (TILE_Q + 2 * (-(-S // 16) * 16))
+    if route == "f32_tensor_core":
+        d = next(b for b in (32, 64, 128) if max(dk, dv) <= b)
+        rows = next(b for b in (16, 32, 64, 128) if S <= b)
+        split = 4 * (F32_TILE_Q * (d + 8) + rows * (2 * d + 8) + rows // 2 * (4 * d + 8))
+        return split if split <= SMEM_LIMIT else 4 * (F32_TILE_Q * (d + 8) + rows * (2 * d + 12))
     return 4 * (S * (dk + 1) + S * dv + WARPS * (dk + S))
 
 
@@ -61,6 +97,7 @@ def check_bf16_route(S: int, dk: int, dv: int) -> None:
 def reset_launches() -> None:
     global launches
     launches = 0
+    route_launches.update(dict.fromkeys(ROUTES, 0))
 
 
 def attention_plain(q, k, v, num_heads: int):
@@ -79,12 +116,13 @@ def _entry():
 
 
 def cross_modal_attn_cuda(q, k, v, num_heads: int):
-    """Launch the kernel on CUDA tensors of one dtype (float32 or bfloat16)."""
+    """Launch the kernel on CUDA tensors of one dtype (float32 or bfloat16),
+    by the route :func:`pick_route` picks."""
     global launches
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"cross_modal_attn: expected CUDA tensors, got {device}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cross_modal_attn: unsupported dtype {q.dtype}")
     for name, t in (("k", k), ("v", v)):
         if t.device != device or t.dtype != q.dtype:
@@ -103,26 +141,28 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
             f"cross_modal_attn: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not fit {num_heads} heads")
     dk, dv = Dq // num_heads, Dv // num_heads
-    if q.dtype == torch.bfloat16:
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    route = pick_route(q.dtype, S, dk, dv, aligned)
+    if route == "bf16":
         check_bf16_route(S, dk, dv)
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"cross_modal_attn: {name} must be aligned to "
-                                 "16 bytes for the bfloat16 kernel")
-    elif smem_bytes(S, dk, dv) > SMEM_LIMIT:
+        if not aligned:
+            raise ValueError("cross_modal_attn: q, k and v must be aligned to "
+                             "16 bytes for the bfloat16 kernel")
+    elif route == "f32_cuda_core" and smem_bytes(S, dk, dv, route=route) > SMEM_LIMIT:
         raise ValueError(f"cross_modal_attn: S={S}, d_k={dk}, d_v={dv} need "
-                         f"{smem_bytes(S, dk, dv)} bytes of shared memory a block")
+                         f"{smem_bytes(S, dk, dv, route=route)} bytes of shared "
+                         "memory a block")
 
     fn = _entry()
     out = torch.empty((N, Lq, Dv), device=device, dtype=q.dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N,
-                 Lq, S, num_heads, dk, dv,
-                 _DTYPE_CODES[q.dtype], stream)
+                 Lq, S, num_heads, dk, dv, ROUTES[route], stream)
     if err != 0:
-        raise RuntimeError(f"cross_modal_attn: CUDA error {err} at launch")
+        raise RuntimeError(f"cross_modal_attn: CUDA error {err} at launch ({route})")
     launches += 1
+    route_launches[route] += 1
     return out
 
 

@@ -157,6 +157,127 @@ def test_attention_p_split_keeps_float32_probabilities(rng, S):
     assert (_p_split_attention(q, k, v, 4, keep_lo=False) - ref).abs().max().item() > 1e-4
 
 
+def _tf32(x):
+    """x rounded to tf32 as cvt.rna.tf32.f32 rounds it: 10 mantissa bits, to
+    nearest at mantissa bit 13, ties away from zero (the sign-magnitude bits
+    round up in magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b, hi_only=False):
+    """a @ b as the tf32 mma computes it in 3xTF32: each float32 operand
+    split into hi = tf32(x) and lo = tf32(x - hi), then a_lo·b_hi + a_hi·b_lo
+    first and a_hi·b_hi last, every product of tf32 values exact in float32.
+    ``hi_only``: one tf32 product."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if hi_only:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _3xtf32_attention(q, k, v, heads, hi_only=False):
+    """The float32 tensor-core kernel's arithmetic in plain torch: q·kᵀ in
+    3xTF32, the softmax in base 2 on logits scaled by log2 e / √d_k, p
+    normalised, then p·v in 3xTF32."""
+    N, Lq, D = q.shape
+    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
+    qh = q.view(N, Lq, heads, dk).transpose(1, 2)
+    kh = k.view(N, S, heads, dk).transpose(1, 2)
+    vh = v.view(N, S, heads, dv).transpose(1, 2)
+    logits = _mm_3xtf32(qh, kh.transpose(-1, -2), hi_only)
+    logits = logits * np.float32(1.4426950408889634 / math.sqrt(dk))
+    e = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    out = _mm_3xtf32(p, vh, hi_only)
+    return out.transpose(1, 2).reshape(N, Lq, heads * dv)
+
+
+@pytest.mark.parametrize("dk,dv", [(8, 16), (32, 32), (64, 64)])
+@pytest.mark.parametrize("S", [1, 5, 16, 33, 64, 128])
+def test_attention_3xtf32_keeps_float32(rng, S, dk, dv):
+    """The float32 tensor-core kernel's 3xTF32 arithmetic stays within 1e-5
+    of the float32 function (the plain version and the interpret-mode Pallas
+    kernel on the same numpy inputs), at S off a multiple of 8 or 16 and at
+    d_k != d_v."""
+    heads = 2
+    q, k, v = _qkv(rng, 2, 24, S, heads * dk, heads * dv)
+    ours = _3xtf32_attention(*map(torch.from_numpy, (q, k, v)), heads)
+    plain = fused_attention.attention_plain(*map(torch.from_numpy, (q, k, v)), heads)
+    _close(ours, plain)
+    _close(ours, _pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True))
+
+
+def test_attention_1xtf32_is_not_float32(rng):
+    """One tf32 product (hi only) at the HCM's d = 64, S = 64 is off the
+    float32 function by more than the float32 route's 1e-4: the split is
+    what keeps the route float32."""
+    q, k, v = map(torch.from_numpy, _qkv(rng, 2, 32, 64, 256, 256))
+    ref = fused_attention.attention_plain(q, k, v, 4)
+    assert (_3xtf32_attention(q, k, v, 4) - ref).abs().max().item() <= 1e-5
+    assert (_3xtf32_attention(q, k, v, 4, hi_only=True) - ref).abs().max().item() > 1e-4
+
+
+def test_tf32_rounding_is_round_half_away():
+    """_tf32 keeps 10 mantissa bits, rounds to nearest, ties away from zero."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 3 * ulp / 2, 3.0], dtype=torch.float32)
+    torch.testing.assert_close(
+        _tf32(x), torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp, 3.0]),
+        atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("S,dk,dv,aligned,route", [
+    (16, 64, 64, True, "f32_tensor_core"), (64, 64, 64, True, "f32_tensor_core"),
+    (1, 8, 16, True, "f32_tensor_core"), (128, 128, 128, True, "f32_tensor_core"),
+    (33, 128, 8, True, "f32_tensor_core"), (16, 12, 12, True, "f32_cuda_core"),
+    (200, 64, 64, True, "f32_cuda_core"), (16, 64, 136, True, "f32_cuda_core"),
+    (16, 64, 64, False, "f32_cuda_core"),
+])
+def test_f32_attention_route(S, dk, dv, aligned, route):
+    """float32 calls take the tensor-core kernel wherever it takes the sizes
+    (the HCM's among them) and the CUDA-core kernel elsewhere, decided
+    before the launch; bfloat16 always takes its own route."""
+    assert fused_attention.pick_route(torch.float32, S, dk, dv, aligned) == route
+    assert fused_attention.pick_route(torch.bfloat16, S, dk, dv, aligned) == "bf16"
+    assert fused_attention.smem_bytes(S, dk, dv, route=route) <= fused_attention.SMEM_LIMIT
+
+
+def test_f32_tensor_core_smem_fits():
+    """Every shape the float32 tensor-core kernel takes fits one block's
+    shared memory (f32tc_smem_bytes in csrc/cross_modal_attn.cu):
+    max(d_k, d_v) rounded up to D = 32, 64 or 128 and S to 16, 32, 64 or
+    128 rows; the 128-row Q tile in rows of D + 8 floats; K and V split into
+    tf32 hi and lo parts (rows of 2D + 8, and pairs of rows of 4D + 8) at
+    every size but D = 128 with S > 64, where they stay as they are (rows of
+    D + 8 and D + 4)."""
+    admitted = [(S, dk, dv) for S in range(1, 130) for dk in range(4, 140, 4)
+                for dv in range(4, 140, 4)
+                if fused_attention.tensor_core_f32_takes(S, dk, dv)]
+    assert len(admitted) == 128 * 16 * 16
+    assert max(fused_attention.smem_bytes(*s, route="f32_tensor_core")
+               for s in admitted) <= fused_attention.SMEM_LIMIT
+    assert fused_attention.smem_bytes(64, 64, 64) == 4 * (128 * 72 + 64 * 136 + 32 * 264)
+    assert fused_attention.smem_bytes(5, 8, 16) == 4 * (128 * 40 + 16 * 72 + 8 * 136)
+    assert fused_attention.smem_bytes(128, 64, 96) == 4 * (128 * 136 + 128 * 268)
+    assert fused_attention.smem_bytes(65, 128, 8) == 4 * (128 * 136 + 128 * 268)
+
+
+def test_f32_attention_on_cpu_launches_nothing(rng):
+    """A float32 call on CPU tensors at the HCM's head layout runs the plain
+    version and launches no kernel of any route."""
+    q, k, v = map(torch.from_numpy, _qkv(rng, 2, 16, 16, 256, 256))
+    fused_attention.reset_launches()
+    out = fused_attention.fused_cross_modal_attention(q, k, v, 4)
+    assert fused_attention.launches == 0
+    assert not any(fused_attention.route_launches.values())
+    torch.testing.assert_close(out, fused_attention.attention_plain(q, k, v, 4),
+                               atol=0, rtol=0)
+
+
 def test_masked_attention_takes_plain_path(rng, monkeypatch):
     """A masked call, or one that asks for the weights, never reaches the
     kernel's wrapper; -1e30 fill before the softmax and zero after it, so a

@@ -11,9 +11,10 @@ exit code and no result line:
    nvcc per source, all in parallel, into build/kernels/; prints each
    kernel instance's registers and spills, and fails if an instance of the
    float32 tensor-core attention kernel spills.
-3. Kernels against their plain versions, float32 with TF32 off, at the
-   shapes of the serving path: the LSTM kernel (also at every H range of
-   its template and at batches beyond one launch; timed at the tick's
+3. Kernels against their plain versions, float32 with TF32 off (in a scope
+   around this phase only), at the shapes of the serving path: the LSTM
+   kernel (also at every H range of its template and at batches beyond one
+   launch; timed at the tick's
    shape, and as its grid running nothing but the step-to-step exchange of
    h, the floor under a step) and the cross-modal attention
    kernel in its three routes: float32 on the tensor cores (3xTF32, the
@@ -27,19 +28,41 @@ exit code and no result line:
    that a call shorter than its host cost is timed on the device.  Attention
    is timed with its inputs rotated over several sets, so that no call
    finds them in the L2 cache; at the tick's shape the bfloat16 wrapper is
-   also timed unqueued, at the host's dispatch rate.
-4. Main path at full published width (BERT-base, TV-ResNet50 at 224 px, DDPPO
-   GN-ResNet50 at 256 px, VisualLingAttn d_model 256 / 4 heads, LSTM(512)),
+   also timed unqueued, at the host's dispatch rate.  Phase 3c: shapes
+   past the kernels' former ranges (bfloat16 attention at S=144, the depth
+   tokens of a 384 px frame, and S=300 in key blocks; float32 attention at
+   S=500, K and V read in place; the LSTM at H=556, a ragged grid) must
+   launch their kernel once and match the plain version; S=144 is timed
+   at the window's size; shapes no kernel takes (an unaligned bfloat16
+   call, the LSTM at H=1028) must raise before any launch.
+4. Serving path at full published width (BERT-base, TV-ResNet50 at 224 px,
+   DDPPO GN-ResNet50 at 256 px, VisualLingAttn d_model 256 / 4 heads, LSTM(512)),
    random weights from seed 0, bfloat16 compute: three teacher-forced windows
    (B=4, T=50, 200 instruction tokens), then 10 closed-loop ticks at B=8 with
    the BERT embedding cached.  The launch counts are zeroed just before and
    read just after; every output must be finite.  Then the float32 agent's
    window is timed (it must launch the float32 tensor-core attention only)
    and compared with the same agent whose kernels are swapped for their
-   plain versions.  With --profile, torch.profiler traces one window and five
-   ticks first and prints the device's busy share and top kernels.
-5. One JSON line {"kernels": [...]}, then the card's name and power limit,
-   then the last line {"ok": true, "device": {...}}.
+   plain versions, with torch's global TF32 flags at their defaults.  With
+   --profile, torch.profiler traces one window and five ticks first and
+   prints the device's busy share and top kernels.
+5. Train path: the hierarchical train step (training/steps.py) at the same
+   width in bfloat16, random weights from seed 0, on the bench's batch
+   (B=4, T=50, 200 tokens; AdamW with weight decay 1e-5 on the high level,
+   Adam without on the low level, lr 1e-4): five steps, each timed with
+   CUDA events and the host clock, each launching each kernel exactly twice;
+   every loss finite, the frozen parameters bitwise unchanged, every
+   trainable one given a gradient and moved (but the progress monitors,
+   which nothing calls: no gradient, unchanged); the peak memory.  With
+   --profile, one step is
+   traced, split into forward, backward (and its LSTM and attention
+   replays) and optimizer.  Then one float32 step, against the same step
+   with both kernels swapped for their plain versions, from the same
+   weights and batch (lr 0, so the weights stay): losses within 1e-4
+   relative, each trainable leaf's gradient within 1e-3 of its norm.
+6. One JSON line {"kernels": [...]} (``launches``: the serving path's,
+   ``train_launches``: the train path's), then the card's name and power
+   limit, then the last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -69,6 +92,12 @@ LSTM_TOL = 1e-4  # float32; the T sequential steps sum in another order
 ATTN_TOL = 1e-4  # float32; another summation order over d_k and S
 ATTN_BF16_TOL = 2e-2  # one bfloat16 rounding of outputs of magnitude < 4
 WINDOW_TOL = 2e-3  # float32 agent, kernels against plain, through 50 steps
+TRAIN_LOSS_RTOL = 1e-4  # float32 train step, kernels against plain, relative
+TRAIN_GRAD_TOL = 1e-3  # the same, each leaf's gradient, of that leaf's norm
+TRAIN_STEPS = 5
+# a bias on the keys adds the same q·b to every logit of a query row, which
+# the softmax cancels: this leaf's exact gradient is 0
+ZERO_GRAD_LEAF = "enc_att.attention.fc_k.bias"
 
 
 def fail(msg):
@@ -90,10 +119,10 @@ def kernel_name(mangled):
         start = m.start() + len(m.group(1))
         word = mangled[start:start + int(m.group(1))]
         if word.endswith("_kernel") and word.isidentifier():
-            args = re.match(r"I((?:Li\d+E)+)E", mangled[start + len(word):])
+            args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start + len(word):])
             if args is None:
                 return word
-            return word + "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+            return word + "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
     return mangled
 
 
@@ -378,6 +407,93 @@ def check_attention(gen, device):
     }
 
 
+def check_wider_shapes(gen, device):
+    """Phase 3c: one call of each shape past a kernel's former range, which
+    must launch that kernel once (by the route it names) and match the
+    plain version; the bf16 kernel timed at the 384 px frame's S=144 over
+    the window's N; and the calls no kernel takes, which must raise before
+    any launch.  Returns the S=144 timing fields."""
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
+
+    print("phase 3c: shapes past the kernels' former ranges, and shapes no kernel takes")
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def held(tag, module, call, plain, tol, route=None):
+        routes = dict(getattr(module, "route_launches", {}))
+        before = module.launches
+        got, ref = call(), plain()
+        torch.cuda.synchronize()
+        took = [r for r, n in getattr(module, "route_launches", {}).items() if n != routes[r]]
+        pairs = zip(*(x if isinstance(x, tuple) else (x,) for x in (got, ref)))
+        err = max((g.float() - r.float()).abs().max().item() for g, r in pairs)
+        print(f"  {tag} [{','.join(took) or 'kernel'}]: max_abs_err {err:.3e} "
+              f"(tolerance {tol})")
+        if module.launches - before != 1 or (route is not None and took != [route]):
+            fail(f"{tag} launched {module.launches - before} kernels by {took}, "
+                 f"expected one by {route or 'the kernel'}")
+        if not err <= tol:
+            fail(f"{tag} disagrees with the plain version")
+
+    def refused(tag, module, call):
+        before = module.launches
+        try:
+            call()
+        except ValueError as e:
+            print(f"  {tag}: refused before any launch ({e})")
+        else:
+            fail(f"{tag} was not refused")
+        if module.launches != before:
+            fail(f"{tag} launched a kernel")
+
+    def qkv(n, lq, S, h, d, dtype):
+        return [torch.randn(n, L, h * d, generator=gen).to(device, dtype)
+                for L in (lq, S, S)]
+
+    for S, dtype, d, tol, route in ((144, bf16, 64, ATTN_BF16_TOL, "bf16"),
+                                    (300, bf16, 128, ATTN_BF16_TOL, "bf16"),
+                                    (500, f32, 64, ATTN_TOL, "f32_cuda_core")):
+        q, k, v = qkv(8, 200, S, 4, d, dtype)
+        held(f"cross_modal_attn N=8 Lq=200 S={S} h=4 d={d} {str(dtype)[6:]}", fused_attention,
+             lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4),
+             lambda: fused_attention.attention_plain(q, k, v, 4), tol, route)
+    for T, B in ((5, 4), (50, 4)):
+        args = lstm_inputs(gen, T, B, 556, device)
+        held(f"lstm_seq T={T} B={B} H=556", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args),
+             lambda: lstm_recurrence(*args), LSTM_TOL)
+
+    n = 8 * 200 * 256
+    q, k, v = (torch.randn(n + 8, generator=gen).to(device, bf16)[1:n + 1].view(8, 200, 256)
+               for _ in range(3))
+    refused("cross_modal_attn bfloat16 with pointers off a 16-byte boundary", fused_attention,
+            lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4))
+    args = lstm_inputs(gen, 2, 2, 1028, device)
+    refused("lstm_seq H=1028", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args))
+
+    # the depth attention of a 384 px frame at the window's size
+    N, Lq, S, heads, d = 200, 200, 144, 4, 64
+    sets = [qkv(N, Lq, S, heads, d, bf16) for _ in range(L2_ROTATION)]
+    note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
+    tag = f"N={N} Lq={Lq} S={S} h={heads} d={d} bfloat16"
+    timed = {
+        "bf16_s144_ms": report_times(f"{tag} kernel ({note})", time_ms(rotated(
+            lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads), sets))),
+        "bf16_s144_plain_ms": report_times(f"{tag} plain ({note})", time_ms(rotated(
+            lambda *t: fused_attention.attention_plain(*t, heads), sets))),
+        "bf16_s144_library_ms": report_times(
+            f"{tag} library scaled_dot_product_attention ({note})", time_ms(rotated(
+                torch.nn.functional.scaled_dot_product_attention,
+                [[t.view(N, t.shape[1], heads, d).transpose(1, 2) for t in ts]
+                 for ts in sets]))),
+    }
+    by_bytes, by_ops = attn_bound_ms(N, Lq, S, heads, d, 2, BF16_TC_FLOP_PER_S)
+    print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
+    timed["bf16_s144_bound_ms"] = max(by_bytes, by_ops)
+    timed["bf16_s144_work"] = (f"one call, {tag} (the depth attention of a 384 px frame), "
+                               f"{note}; bound by {'bytes' if by_bytes > by_ops else 'operations'}")
+    return timed
+
+
 @contextlib.contextmanager
 def cuda_core_f32_attention():
     """Route float32 attention to the CUDA-core kernel, to check and time
@@ -429,9 +545,10 @@ def _device_us(event):
     return getattr(event, "self_device_time_total", None) or event.self_cuda_time_total
 
 
-def profile_section(label, fn, top=12):
+def profile_section(label, fn, top=12, ranges=()):
     """torch.profiler over fn: wall ms, summed kernel time, busy share and
-    the kernels taking the most device time."""
+    the kernels taking the most device time; then, for each named profiler
+    range, its host time and the device time of the kernels launched in it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -440,12 +557,23 @@ def profile_section(label, fn, top=12):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    averages = prof.key_averages()
+    # profiler ranges are mirrored on the device's timeline as spans: not kernels
+    kernels = [e for e in averages if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
     print(f"  profile {label}: wall {wall_ms:.3f} ms, kernel time {device_ms:.3f} ms, "
           f"device busy {device_ms / wall_ms:.3f}, {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
         print(f"    {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
+    for name in ranges:
+        host = [e.cpu_time_total for e in averages
+                if e.key == name and e.device_type.name == "CPU"]
+        span = [_device_us(e) for e in averages
+                if e.key == name and e.device_type.name == "CUDA"]
+        count = sum(e.count for e in averages if e.key == name and e.device_type.name == "CPU")
+        print(f"    range {name}: {count}x, host {sum(host) / 1e3:.3f} ms, device span "
+              + (f"{sum(span) / 1e3:.3f} ms" if span else "none recorded"))
 
 
 def profile_main_path(agent, obs, masks, tick_obs, tick_masks):
@@ -520,7 +648,9 @@ def main_path(device, profile=False):
         profile_main_path(agent, obs, masks, tick_obs, tick_masks)
 
     print("phase 4b: float32 window, timed against the same window with the float32 "
-          "CUDA-core attention kernel, then kernels against plain versions (TF32 off)")
+          "CUDA-core attention kernel, then kernels against plain versions; global TF32 "
+          f"flags: cudnn {torch.backends.cudnn.allow_tf32}, matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32} (the agent turns both off for its calls)")
     agent32 = build_hcm_agent(mc, device=device, compute_dtype="float32", seed=0)
     times = {"f32_tensor_core": [], "f32_cuda_core": []}
     for rep in range(3):
@@ -554,6 +684,172 @@ def main_path(device, profile=False):
     return launches
 
 
+def train_batch(gen, B, T, L, device):
+    """The bench's batch (bench.py:226-240): oracle sub-goals in 1-4,
+    corrected actions uniform in [0, 1), stop targets (u > 0.7), masks with
+    column 0 at 0, every step valid."""
+    obs, masks = window_inputs(gen, B, T, L, device)
+    labels = {
+        "vln_oracle_action_sensor": torch.randint(1, 5, (B, T), generator=gen).float(),
+        "prev_actions": torch.zeros(B, T, 2),
+        "corrected_actions": torch.rand(B, T, 2, generator=gen),
+        "oracle_stop": (torch.rand(B, T, 1, generator=gen) > 0.7).float(),
+        "valid_mask": torch.ones(B, T),
+    }
+    return {**obs, **{k: v.to(device) for k, v in labels.items()}, "not_done_masks": masks}
+
+
+def make_train(cfg, dtype, device):
+    """(high, low, step, state): both policies at full width with random
+    weights from seed 0 and synced trunks, the step as the config sets it,
+    AdamW (weight decay 1e-5) and Adam (none) as bench.py:191-192 sets them."""
+    from robo_vln_tpu_torch.models import (
+        build_hierarchical_policies, make_shared_trunk_fn, sync_frozen_trunks)
+    from robo_vln_tpu_torch.training import (
+        HierTrainState, TrainState, adam, adamw, inflection_coef_from, make_hier_train_step)
+
+    high, low = build_hierarchical_policies(cfg.MODEL, compute_dtype=dtype,
+                                            generator=torch.Generator().manual_seed(0))
+    sync_frozen_trunks(high, low)
+    high, low = high.to(device), low.to(device)
+    step = make_hier_train_step(
+        high, low, trunk_fn=make_shared_trunk_fn(high), remat=cfg.TPU.REMAT,
+        inflection_coef=inflection_coef_from(cfg),
+        valid_velocity_mse=cfg.TPU.VALID_MASK_VELOCITY_MSE)
+    state = HierTrainState(TrainState(adamw(high, 1e-5), 0), TrainState(adam(low, 0.0), 0))
+    return high, low, step, state
+
+
+def train_path(device, profile=False):
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.training import trainable_mask
+
+    cfg = get_config()
+    B, T, L, lr = 4, 50, 200, 1e-4
+    print(f"phase 5: hierarchical train step at full width, bfloat16, B={B} T={T}, "
+          f"AdamW (wd 1e-5) high, Adam (wd 0) low, lr {lr}")
+    t0 = time.perf_counter()
+    high, low, step, state = make_train(cfg, torch.bfloat16, device)
+    torch.cuda.synchronize()
+    print(f"  build: {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator().manual_seed(2)
+    batch = train_batch(gen, B, T, L, device)
+    named = [(f"{level}.{n}", p, mask[n]) for level, pol in (("high", high), ("low", low))
+             for mask in (trainable_mask(pol),) for n, p in pol.named_parameters()]
+    before = {n: p.detach().clone() for n, p, _ in named}
+    hh, lh = high.initial_hidden(B, device), low.initial_hidden(B, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fused_lstm.reset_launches()
+    fused_attention.reset_launches()
+    for i in range(TRAIN_STEPS):
+        counts = (fused_lstm.launches, fused_attention.launches,
+                  fused_attention.route_launches["bf16"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, hh, lh, metrics = step(state, hh, lh, batch, lr, lr)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  train step {i}: {start.elapsed_time(end):.3f} ms (CUDA events), "
+              f"{host_ms:.3f} ms (host clock); " + ", ".join(
+                  f"{k} {v.item():.4f}" for k, v in metrics.items()))
+        check_finite("train step", *metrics.values(), hh, lh)
+        launched = tuple(n - c for n, c in zip(
+            (fused_lstm.launches, fused_attention.launches,
+             fused_attention.route_launches["bf16"]), counts))
+        if launched != (2, 2, 2):
+            fail(f"train step {i} launched (lstm_seq, cross_modal_attn, of it bf16) "
+                 f"{launched}, expected (2, 2, 2)")
+    launches = {"lstm_seq": fused_lstm.launches, "cross_modal_attn": fused_attention.launches}
+    print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"  launches on the train path: {launches}")
+    unused = []
+    for name, p, trainable in named:
+        same = torch.equal(p, before[name])
+        if not trainable and not same:
+            fail(f"frozen parameter {name} changed")
+        if not trainable:
+            continue
+        if p.grad is None:  # only the progress monitors, which nothing calls
+            if ".progress_monitor." not in name or not same:
+                fail(f"trainable parameter {name} got no gradient")
+            unused.append(name)
+        elif same:
+            fail(f"trainable parameter {name} did not move")
+    print(f"  {sum(not t for _, _, t in named)} frozen parameters unchanged, "
+          f"{sum(t for _, _, t in named) - len(unused)} trainable ones moved, "
+          f"{len(unused)} without a gradient, unchanged (the unused progress monitors)")
+    if profile:
+        profile_section(f"train step B={B} T={T}",
+                        lambda: step(state, hh, lh, batch, lr, lr), top=16,
+                        ranges=("hier_train_step.forward", "hier_train_step.backward",
+                                "lstm_seq.backward_replay", "cross_modal_attn.backward_replay",
+                                "hier_train_step.optimizer"))
+    del high, low, step, state, before, named
+
+    print("phase 5b: float32 train step against the same step with both kernels "
+          "swapped for their plain versions (lr 0, global TF32 flags at their defaults)")
+    high, low, step, state = make_train(cfg, torch.float32, device)
+    hh, lh = high.initial_hidden(B, device), low.initial_hidden(B, device)
+    params = [(f"{level}.{n}", p) for level, pol in (("high", high), ("low", low))
+              for n, p in pol.named_parameters()]
+    runs = {}
+    for label, scope in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
+        for rep in range(2):
+            routes = dict(fused_attention.route_launches)
+            with scope():
+                t0 = time.perf_counter()
+                _, _, _, metrics = step(state, hh, lh, batch, 0.0, 0.0)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            grads = {n: p.grad.clone() for n, p in params if p.grad is not None}
+            print(f"  float32 train step, {label}, rep {rep}: {ms:.3f} ms (host clock)")
+            took = {r: n - routes[r] for r, n in fused_attention.route_launches.items()
+                    if n != routes[r]}
+            if label == "kernels" and took != {"f32_tensor_core": 2}:
+                fail(f"the float32 train step took attention routes {took}")
+        runs[label] = metrics, grads
+    (got, got_grads), (ref, ref_grads) = runs["kernels"], runs["plain"]
+    for key in ("high_level_loss", "low_level_action_loss", "low_level_stop_loss"):
+        rel = abs(got[key].item() - ref[key].item()) / abs(ref[key].item())
+        print(f"  {key}: {got[key].item():.6f} against {ref[key].item():.6f}, relative "
+              f"{rel:.3e} (tolerance {TRAIN_LOSS_RTOL})")
+        if not rel <= TRAIN_LOSS_RTOL:
+            fail(f"float32 train step {key} disagrees with the plain-kernel step")
+    print(f"  high_level_accuracy: {got['high_level_accuracy'].item():.4f} against "
+          f"{ref['high_level_accuracy'].item():.4f}")
+    if got_grads.keys() != ref_grads.keys():
+        fail("the two runs gave gradients to different parameters")
+    worst = {"leaf": (0.0, None), "zero": (0.0, None)}
+    for name, g in got_grads.items():
+        r = ref_grads[name]
+        check_finite(f"float32 gradient of {name}", g)
+        if name.endswith(ZERO_GRAD_LEAF):
+            # exactly 0: what both runs compute is rounding noise, held far
+            # below the gradient of the same projection's weight
+            kind = "zero"
+            err = max(g.abs().max(), r.abs().max()).item() / ref_grads[
+                name[:-len("bias")] + "weight"].norm().item()
+        else:
+            kind = "leaf"
+            err = (g - r).abs().max().item() / max(r.norm().item(), 1e-30)
+        if err > worst[kind][0]:
+            worst[kind] = err, name
+    print(f"  gradients: largest error {worst['leaf'][0]:.3e} of its leaf's norm, at "
+          f"{worst['leaf'][1]} (tolerance {TRAIN_GRAD_TOL}), over {len(got_grads)} leaves; "
+          f"the key biases, whose exact gradient is 0: largest value {worst['zero'][0]:.3e} "
+          f"of the key weight's gradient norm, at {worst['zero'][1]} (tolerance {TRAIN_GRAD_TOL})")
+    for err, name in worst.values():
+        if not err <= TRAIN_GRAD_TOL:
+            fail(f"float32 train step gradient of {name} disagrees with the plain-kernel step")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -563,9 +859,9 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e})", file=sys.stderr)
         return 1
+    from robo_vln_tpu_torch.utils.device import float32_exact
+
     device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
@@ -581,10 +877,15 @@ def main():
                 fail(f"{kernel} spills {spill} bytes")
 
     gen = torch.Generator().manual_seed(0)
-    kernels = [check_lstm(gen, device), check_attention(gen, device)]
-    launches = main_path(device, profile="--profile" in sys.argv[1:])
+    with float32_exact(torch.float32):  # the float32 plain versions without TF32
+        kernels = [check_lstm(gen, device), check_attention(gen, device)]
+        kernels[1].update(check_wider_shapes(gen, device))
+    profile = "--profile" in sys.argv[1:]
+    launches = main_path(device, profile)
+    train_launches = train_path(device, profile)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["train_launches"] = train_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""Config tree of the PyTorch port: the subtree the HCM agent reads.
+"""Config tree of the PyTorch port: the subtree the HCM agent and its
+train step read.
 
 A copy of the keys of robo_vln_tpu/config/default.py that the serving path
-of the hierarchical (HCM) agent reads — ``TPU.PRECISION``,
-``TPU.SHARE_FROZEN_TRUNKS`` and the ``MODEL.*`` stanzas of the two policies —
-with the same names and defaults, so a config written for the JAX package
-sets the same model here.  Keys that only the port reads are marked
-"port-only".
+and the hierarchical train step of the HCM agent read — ``TPU.*`` switches,
+the ``DAGGER.*`` learning rates, the ``MODEL.*`` stanzas of the two policies
+and their weight decay — with the same names and defaults, so a config
+written for the JAX package sets the same model here.  Keys that only the
+port reads are marked "port-only".  ``TPU.DONATE`` is left out: eager
+PyTorch updates parameters in place, so there is no buffer to donate.
 """
 
 from typing import List, Optional, Union
@@ -21,8 +23,27 @@ _C.TPU.PRECISION = "bfloat16"
 # run the frozen conv trunks once per step and feed both policies; used only
 # when the two policies' trunk weights are bitwise identical
 _C.TPU.SHARE_FROZEN_TRUNKS = True
+# recompute the train step's forward in its backward
+# (torch.utils.checkpoint), trading compute for activation memory
+_C.TPU.REMAT = False
+# deviation from the reference (off): weight the high level's sub-goal CE by
+# MODEL.inflection_weight_coef at sub-goal changes; needs DAGGER.USE_IW too
+_C.TPU.APPLY_INFLECTION_WEIGHTS = False
+# deviation from the reference (off): mask the velocity MSE by step validity
+# instead of zeroing predictions where the target is exactly 0
+_C.TPU.VALID_MASK_VELOCITY_MSE = False
+
+_C.DAGGER = ConfigTree()
+_C.DAGGER.LR = 1e-4
+# the high level's triangular CyclicLR (training/optimizers.cyclic_triangular_lr)
+_C.DAGGER.CYCLIC_BASE_LR = 2e-6
+_C.DAGGER.CYCLIC_MAX_LR = 1e-4
+_C.DAGGER.CYCLIC_STEP_SIZE_UP = 1000
+_C.DAGGER.CYCLIC_STEP_SIZE_DOWN = 30000
+_C.DAGGER.USE_IW = True
 
 _C.MODEL = ConfigTree()
+_C.MODEL.inflection_weight_coef = 3.2
 _C.MODEL.ablate_depth = False
 _C.MODEL.ablate_rgb = False
 
@@ -58,6 +79,13 @@ _C.MODEL.BERT.num_heads = 12
 _C.MODEL.BERT.intermediate_size = 3072
 _C.MODEL.BERT.max_position_embeddings = 512
 _C.MODEL.BERT.type_vocab_size = 2
+# deviation from the reference (off): train BERT with the policy instead of
+# keeping it frozen
+_C.MODEL.BERT.trainable = False
+
+_C.MODEL.TRANSFORMER = ConfigTree()
+# weight decay of both policies' optimizers (AdamW high, Adam low)
+_C.MODEL.TRANSFORMER.weight_decay = 1e-3
 
 
 def get_config(

@@ -22,8 +22,12 @@
 // in float32, as in the TPU kernel, which upcasts to float32).  The scale, the
 // -inf of padded keys and the softmax stay in float32 in the accumulator
 // registers (S ≤ 128 fits whole, so no online rescaling; row max and sum by
-// quad shuffles; exp2 of logits scaled by log2 e).  p·v runs on the tensor
-// cores too, with the accumulator reused as the A fragment: p is split into
+// quad shuffles; exp2 of logits scaled by log2 e).  A longer S (the 144
+// depth tokens of a 384 px frame) runs its keys in blocks of 64 with an
+// online softmax: the running row max rescales the sum and the output
+// accumulators after each block, and the output is divided by the sum at
+// the end (blocks of 128 held 64 logits a thread and spilled).  p·v runs
+// on the tensor cores too, with the accumulator reused as the A fragment: p is split into
 // p_hi = bf16(p) and p_lo = bf16(p - p_hi), two products against the same V
 // fragment (ldmatrix.trans), which keeps about 16 bits of the float32
 // probabilities; the only rounding left is that of the bf16 output.  The
@@ -31,7 +35,8 @@
 // coalesced 16-byte stores.  A block does not overlap its own copies with its
 // arithmetic; the several blocks on each SM do, so the register budget is set
 // (min_blocks) to keep 6 blocks of 4 warps on an SM at S = 64 and 8 at S = 16.
-// Takes d_k = d_v, a multiple of 16 up to 128, and 1 ≤ S ≤ 128; the wrapper
+// Takes d_k = d_v, a multiple of 16 up to 128, and any S ≥ 1 whose K and V
+// fit in shared memory beside the Q tile (S ≤ 384 at d = 128); the wrapper
 // raises outside that range.
 //
 // float32 on the tensor cores (3xTF32), for d_k and d_v multiples of 8 up
@@ -67,10 +72,12 @@
 // 16 bytes; the wrapper picks the kernel before the launch).  Grid (example,
 // head, tile of 32 queries), 8 warps a block.  The block stages K and V of
 // its (example, head) in shared memory as float32 (K's rows padded by one
-// float so the lanes of a warp, one key each, hit 32 different banks).  Each
+// float so the lanes of a warp, one key each, hit 32 different banks); where
+// they do not fit, its lanes read them in place through the caches.  Each
 // warp takes one query row at a time: its S logits (one key per lane), max
 // and sum by warp shuffle, the softmax in registers and shared memory, then
-// the d_v outputs (one dimension per lane).
+// the d_v outputs (one dimension per lane).  It takes every shape whose q
+// rows and S probabilities a warp fit in shared memory (dk + S ≤ 7264).
 //
 // The dynamic shared-memory limit of a kernel is raised at most once per
 // device, and only for a launch that needs more than the default 48 KB.
@@ -112,6 +119,17 @@ struct SmemOptIn {
 constexpr int kWarps = 8;
 constexpr int kQueryTile = 32;
 
+// Shared memory of one block of cross_modal_attn_kernel<kStaged>: K (rows of
+// dk + 1) and V when staged, then a q row and S probabilities a warp.
+size_t f32_smem_bytes(int S, int dk, int dv, bool staged) {
+  return ((staged ? (size_t)S * (dk + 1) + (size_t)S * dv : 0) +
+          (size_t)kWarps * (dk + S)) * sizeof(float);
+}
+
+// kStaged: K and V of the (example, head) are copied to shared memory first;
+// without it (where they do not fit) the lanes read them where they lie in
+// global memory, through the caches.
+template <bool kStaged>
 __global__ void __launch_bounds__(kWarps * 32)
 cross_modal_attn_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
                         const float* __restrict__ k,  // (N, S, h*dk)
@@ -120,24 +138,33 @@ cross_modal_attn_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
                         int Lq, int S, int heads, int dk, int dv, float scale) {
   extern __shared__ float smem[];
   const int n = blockIdx.x, head = blockIdx.y, q0 = blockIdx.z * kQueryTile;
-  const int ldk = dk + 1;
-  float* k_s = smem;              // (S, dk + 1)
-  float* v_s = k_s + S * ldk;     // (S, dv)
-  float* q_s = v_s + S * dv;      // (kWarps, dk)
-  float* p_s = q_s + kWarps * dk; // (kWarps, S)
   const int Dq = heads * dk, Dv = heads * dv;
-
   const float* kb = k + (size_t)n * S * Dq + head * dk;
   const float* vb = v + (size_t)n * S * Dv + head * dv;
-  for (int idx = threadIdx.x; idx < S * dk; idx += blockDim.x) {
-    const int s = idx / dk, d = idx - s * dk;
-    k_s[s * ldk + d] = kb[(size_t)s * Dq + d];
+  // K's and V's rows: ldk and ldv floats apart, at k_r and v_r
+  const float* k_r = kb;
+  const float* v_r = vb;
+  int ldk = Dq, ldv = Dv;
+  float* q_s = smem;  // (kWarps, dk)
+  if (kStaged) {
+    float* k_s = smem;                 // (S, dk + 1)
+    float* v_s = k_s + S * (dk + 1);   // (S, dv)
+    for (int idx = threadIdx.x; idx < S * dk; idx += blockDim.x) {
+      const int s = idx / dk, d = idx - s * dk;
+      k_s[s * (dk + 1) + d] = kb[(size_t)s * Dq + d];
+    }
+    for (int idx = threadIdx.x; idx < S * dv; idx += blockDim.x) {
+      const int s = idx / dv, d = idx - s * dv;
+      v_s[idx] = vb[(size_t)s * Dv + d];
+    }
+    k_r = k_s;
+    v_r = v_s;
+    ldk = dk + 1;
+    ldv = dv;
+    q_s = v_s + S * dv;
+    __syncthreads();
   }
-  for (int idx = threadIdx.x; idx < S * dv; idx += blockDim.x) {
-    const int s = idx / dv, d = idx - s * dv;
-    v_s[idx] = vb[(size_t)s * Dv + d];
-  }
-  __syncthreads();
+  float* p_s = q_s + kWarps * dk;  // (kWarps, S)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* qw = q_s + warp * dk;
@@ -151,7 +178,7 @@ cross_modal_attn_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
 
     float mx = -INFINITY;
     for (int s = lane; s < S; s += 32) {
-      const float* kr = k_s + s * ldk;
+      const float* kr = k_r + (size_t)s * ldk;
       float a = 0.0f;
       for (int d = 0; d < dk; ++d) a = fmaf(qw[d], kr[d], a);
       a *= scale;
@@ -176,28 +203,37 @@ cross_modal_attn_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
     float* orow = out + ((size_t)n * Lq + qi) * Dv + head * dv;
     for (int d = lane; d < dv; d += 32) {
       float a = 0.0f;
-      for (int s = 0; s < S; ++s) a = fmaf(pw[s] * inv, v_s[s * dv + d], a);
+      for (int s = 0; s < S; ++s) a = fmaf(pw[s] * inv, v_r[(size_t)s * ldv + d], a);
       orow[d] = a;
     }
     __syncwarp();
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int N,
-               int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
+template <bool kStaged>
+int launch_f32_as(const void* q, const void* k, const void* v, void* out, int N,
+                  int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
   static SmemOptIn opt_in;
-  const size_t smem =
-      ((size_t)S * (dk + 1) + (size_t)S * dv + (size_t)kWarps * (dk + S)) *
-      sizeof(float);
+  const size_t smem = f32_smem_bytes(S, dk, dv, kStaged);
   const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_kernel, smem);
+      opt_in.ensure((const void*)cross_modal_attn_kernel<kStaged>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(N, heads, (Lq + kQueryTile - 1) / kQueryTile);
-  cross_modal_attn_kernel<<<grid, kWarps * 32, smem, stream>>>(
+  cross_modal_attn_kernel<kStaged><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Lq, S, heads, dk,
       dv, 1.0f / sqrtf((float)dk));
   return (int)cudaGetLastError();
+}
+
+// K and V staged in shared memory wherever they fit, else read in place
+int launch_f32(const void* q, const void* k, const void* v, void* out, int N,
+               int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
+  if (f32_smem_bytes(S, dk, dv, true) <= (size_t)kMaxSmem)
+    return launch_f32_as<true>(q, k, v, out, N, Lq, S, heads, dk, dv, stream);
+  if (f32_smem_bytes(S, dk, dv, false) <= (size_t)kMaxSmem)
+    return launch_f32_as<false>(q, k, v, out, N, Lq, S, heads, dk, dv, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // --------------------------------------------------------------- bfloat16
@@ -263,12 +299,22 @@ constexpr int min_blocks() {
   return 65536 / (kMmaWarps * 32 * regs) < 8 ? 65536 / (kMmaWarps * 32 * regs) : 8;
 }
 
-// D: d_k = d_v; KC: the most 16-key chunks (S rounded up to 16, over 16).
+// Shared memory of one block of cross_modal_attn_bf16_kernel: the 64-row Q
+// tile, K and V (S rounded up to 16), in rows of D + kPad values.
+__host__ __device__ constexpr size_t bf16_smem_bytes(int D, int S) {
+  return sizeof(__nv_bfloat16) * (D + kPad) * (kTileQ + 2 * ((S + 15) & ~15));
+}
+
+// D: d_k = d_v; KC: the most 16-key chunks of one key block (S rounded up
+// to 16, over 16, at most 8; 4 in key blocks).  kBlocks: S > 16·KC, so the keys run in blocks
+// of 16·KC with an online softmax (the running row max rescales the sum and
+// the output accumulators, and the output is divided by the sum at the end);
+// without it the one block's probabilities are normalised before p·v.
 // One block per (example, head, 64-query tile), tile fastest.  The Q tile and
 // the head's K and V (S rounded up to 16 with zero rows) go to shared memory;
 // each warp takes 16 query rows, and its output goes back through its own
 // rows of the Q tile to leave in 16-byte stores.
-template <int D, int KC>
+template <int D, int KC, bool kBlocks>
 __global__ void __launch_bounds__(kMmaWarps * 32, min_blocks<D, KC>())
 cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -310,69 +356,7 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int rows = min(kTileQ, Lq - q0);
   if (row0 >= rows) return;  // no valid rows for this warp; no barrier follows
   const int chunks = s_pad / 16;
-
-  // logits: n-tile t holds keys 8t..8t+7; [0], [1] row lane/4, [2], [3] row
-  // lane/4 + 8, keys 8t + 2(lane%4) + {0, 1}
-  float s_acc[2 * KC][4];
-#pragma unroll
-  for (int t = 0; t < 2 * KC; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s_acc[t][e] = 0.0f;
-#pragma unroll
-  for (int kd = 0; kd < D; kd += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, q_s + (row0 + (lane & 15)) * P + kd + (lane >> 4) * 8);
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      if (c < chunks) {
-        uint32_t bk[4];  // b0, b1 of keys 16c..+7, then of keys 16c+8..+15
-        ldmatrix_x4(bk, k_s + (16 * c + (lane & 7) + ((lane >> 4) << 3)) * P +
-                            kd + ((lane >> 3) & 1) * 8);
-        mma_bf16(s_acc[2 * c], a, bk[0], bk[1]);
-        mma_bf16(s_acc[2 * c + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-
-  // softmax over each row in float32, in base 2 (exp2 of logits·log2 e);
-  // a row lives in the 4 lanes of a quad
   const float scale2 = scale * 1.4426950408889634f;
-#pragma unroll
-  for (int t = 0; t < 2 * KC; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s_acc[t][e] *= scale2;
-  if (S < 16 * KC) {  // keys past S: -inf
-#pragma unroll
-    for (int t = 0; t < 2 * KC; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (8 * t + 2 * (lane & 3) + (e & 1) >= S) s_acc[t][e] = -INFINITY;
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int t = 0; t < 2 * KC; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s_acc[t][e]);
-  float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-  }
-#pragma unroll
-  for (int t = 0; t < 2 * KC; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(s_acc[t][e] - mx[e >> 1]);
-      s_acc[t][e] = p;
-      sum[e >> 1] += p;
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-  }
-  const float inv[2] = {1.0f / sum[0], 1.0f / sum[1]};
 
   // out = p_hi·v + p_lo·v; n-tile t of o_acc holds columns 8t..8t+7
   float o_acc[D / 8][4];
@@ -380,24 +364,125 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < D / 8; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o_acc[t][e] = 0.0f;
+  float mx[2] = {-INFINITY, -INFINITY};  // running row max (base 2)
+  float sum[2] = {0.0f, 0.0f};           // the lane's share of the row sum
+
+  // key blocks of chunks c0 .. c0 + KC - 1; without kBlocks the one block
+  // is a compile-time constant, so that instance's code is the one-pass
+  // softmax's alone
+  const int n_blocks = kBlocks ? (chunks + KC - 1) / KC : 1;
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int c0 = kBlocks ? blk * KC : 0;
+    // logits: n-tile t holds keys 16c0 + 8t..+7; [0], [1] row lane/4, [2],
+    // [3] row lane/4 + 8, keys 16c0 + 8t + 2(lane%4) + {0, 1}
+    float s_acc[2 * KC][4];
 #pragma unroll
-  for (int c = 0; c < KC; ++c) {
-    if (c < chunks) {
-      // the A fragment of keys 16c..16c+15 is n-tiles 2c and 2c + 1
-      uint32_t hi[4], lo[4];
-      split_pack(s_acc[2 * c][0] * inv[0], s_acc[2 * c][1] * inv[0], hi[0], lo[0]);
-      split_pack(s_acc[2 * c][2] * inv[1], s_acc[2 * c][3] * inv[1], hi[1], lo[1]);
-      split_pack(s_acc[2 * c + 1][0] * inv[0], s_acc[2 * c + 1][1] * inv[0], hi[2], lo[2]);
-      split_pack(s_acc[2 * c + 1][2] * inv[1], s_acc[2 * c + 1][3] * inv[1], hi[3], lo[3]);
+    for (int t = 0; t < 2 * KC; ++t)
 #pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
-        uint32_t bv[4];  // b0, b1 of columns 16dt..+7, then of 16dt+8..+15
-        ldmatrix_x4_trans(bv, v_s + (16 * c + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
-                                  16 * dt + (lane >> 4) * 8);
-        mma_bf16(o_acc[2 * dt], lo, bv[0], bv[1]);
-        mma_bf16(o_acc[2 * dt], hi, bv[0], bv[1]);
-        mma_bf16(o_acc[2 * dt + 1], lo, bv[2], bv[3]);
-        mma_bf16(o_acc[2 * dt + 1], hi, bv[2], bv[3]);
+      for (int e = 0; e < 4; ++e) s_acc[t][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < D; kd += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_s + (row0 + (lane & 15)) * P + kd + (lane >> 4) * 8);
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        if (c0 + c < chunks) {
+          uint32_t bk[4];  // b0, b1 of keys 16(c0+c)..+7, then of the next 8
+          ldmatrix_x4(bk, k_s + (16 * (c0 + c) + (lane & 7) + ((lane >> 4) << 3)) * P +
+                              kd + ((lane >> 3) & 1) * 8);
+          mma_bf16(s_acc[2 * c], a, bk[0], bk[1]);
+          mma_bf16(s_acc[2 * c + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+
+    // softmax over each row in float32, in base 2 (exp2 of logits·log2 e);
+    // a row lives in the 4 lanes of a quad
+#pragma unroll
+    for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[t][e] *= scale2;
+    if (kBlocks || S < 16 * KC) {  // keys past S (and past the last chunk): -inf
+#pragma unroll
+      for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (16 * c0 + 8 * t + 2 * (lane & 3) + (e & 1) >= S) s_acc[t][e] = -INFINITY;
+    }
+    float bm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bm[e >> 1] = fmaxf(bm[e >> 1], s_acc[t][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 1));
+      bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 2));
+      if (kBlocks) {  // every block holds a key below S, so bm is finite
+        const float m = fmaxf(mx[h], bm[h]);
+        const float alpha = exp2f(mx[h] - m);  // 0 at the first block
+        sum[h] *= alpha;
+#pragma unroll
+        for (int t = 0; t < D / 8; ++t) {
+          o_acc[t][2 * h] *= alpha;
+          o_acc[t][2 * h + 1] *= alpha;
+        }
+        mx[h] = m;
+      } else {
+        mx[h] = bm[h];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s_acc[t][e] - mx[e >> 1]);
+        s_acc[t][e] = p;
+        sum[e >> 1] += p;
+      }
+    // one block: p normalised before the split; key blocks: p as it is
+    float inv[2] = {1.0f, 1.0f};
+    if (!kBlocks) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        inv[h] = 1.0f / sum[h];
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      if (c0 + c < chunks) {
+        // the A fragment of keys 16(c0+c)..+15 is n-tiles 2c and 2c + 1
+        uint32_t hi[4], lo[4];
+        split_pack(s_acc[2 * c][0] * inv[0], s_acc[2 * c][1] * inv[0], hi[0], lo[0]);
+        split_pack(s_acc[2 * c][2] * inv[1], s_acc[2 * c][3] * inv[1], hi[1], lo[1]);
+        split_pack(s_acc[2 * c + 1][0] * inv[0], s_acc[2 * c + 1][1] * inv[0], hi[2], lo[2]);
+        split_pack(s_acc[2 * c + 1][2] * inv[1], s_acc[2 * c + 1][3] * inv[1], hi[3], lo[3]);
+#pragma unroll
+        for (int dt = 0; dt < D / 16; ++dt) {
+          uint32_t bv[4];  // b0, b1 of columns 16dt..+7, then of 16dt+8..+15
+          ldmatrix_x4_trans(bv, v_s + (16 * (c0 + c) + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                    16 * dt + (lane >> 4) * 8);
+          mma_bf16(o_acc[2 * dt], lo, bv[0], bv[1]);
+          mma_bf16(o_acc[2 * dt], hi, bv[0], bv[1]);
+          mma_bf16(o_acc[2 * dt + 1], lo, bv[2], bv[3]);
+          mma_bf16(o_acc[2 * dt + 1], hi, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  if (kBlocks) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      const float inv = 1.0f / sum[h];
+#pragma unroll
+      for (int t = 0; t < D / 8; ++t) {
+        o_acc[t][2 * h] *= inv;
+        o_acc[t][2 * h + 1] *= inv;
       }
     }
   }
@@ -423,32 +508,34 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, int KC>
+template <int D, int KC, bool kBlocks>
 int launch_bf16_tiles(const void* q, const void* k, const void* v, void* out,
                       int N, int Lq, int S, int heads, cudaStream_t stream) {
   static SmemOptIn opt_in;
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (D + kPad) * (kTileQ + 2 * ((S + 15) & ~15));
+  const size_t smem = bf16_smem_bytes(D, S);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_bf16_kernel<D, KC>, smem);
+      opt_in.ensure((const void*)cross_modal_attn_bf16_kernel<D, KC, kBlocks>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (Lq + kTileQ - 1) / kTileQ;
   const long long blocks = (long long)N * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cross_modal_attn_bf16_kernel<D, KC><<<(unsigned)blocks, kMmaWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Lq, S, heads, tiles, 1.0f / sqrtf((float)D));
+  cross_modal_attn_bf16_kernel<D, KC, kBlocks>
+      <<<(unsigned)blocks, kMmaWarps * 32, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+          Lq, S, heads, tiles, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int N,
                 int Lq, int S, int heads, cudaStream_t stream) {
-  if (S <= 16) return launch_bf16_tiles<D, 1>(q, k, v, out, N, Lq, S, heads, stream);
-  if (S <= 32) return launch_bf16_tiles<D, 2>(q, k, v, out, N, Lq, S, heads, stream);
-  if (S <= 64) return launch_bf16_tiles<D, 4>(q, k, v, out, N, Lq, S, heads, stream);
-  return launch_bf16_tiles<D, 8>(q, k, v, out, N, Lq, S, heads, stream);
+  if (S <= 16) return launch_bf16_tiles<D, 1, false>(q, k, v, out, N, Lq, S, heads, stream);
+  if (S <= 32) return launch_bf16_tiles<D, 2, false>(q, k, v, out, N, Lq, S, heads, stream);
+  if (S <= 64) return launch_bf16_tiles<D, 4, false>(q, k, v, out, N, Lq, S, heads, stream);
+  if (S <= 128) return launch_bf16_tiles<D, 8, false>(q, k, v, out, N, Lq, S, heads, stream);
+  return launch_bf16_tiles<D, 4, true>(q, k, v, out, N, Lq, S, heads, stream);
 }
 
 int launch_bf16_any(const void* q, const void* k, const void* v, void* out,
@@ -842,15 +929,17 @@ int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
 
 // route: 0 = float32 on the CUDA cores, 1 = bfloat16, 2 = float32 on the
 // tensor cores (q, k, v and out share the dtype).  The bfloat16 route takes
-// dk == dv, a multiple of 16 up to 128; the tensor-core float32 route dk and
-// dv multiples of 8 up to 128; both 1 <= S <= 128, and q, k, v and out
-// aligned to 16 bytes.
+// dk == dv, a multiple of 16 up to 128, and any S >= 1 whose K and V fit in
+// shared memory beside the Q tile; the tensor-core float32 route dk and dv
+// multiples of 8 up to 128 and 1 <= S <= 128; both need q, k, v and out
+// aligned to 16 bytes.  The CUDA-core float32 route takes any sizes whose
+// q rows and probabilities fit in shared memory.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
                                 int dk, int dv, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (route == 1 && dk == dv && S >= 1 && S <= 128)
+  if (route == 1 && dk == dv && S >= 1)
     return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, s);
   if (route == 2 && dk % 8 == 0 && dv % 8 == 0 && dk >= 8 && dk <= 128 &&
       dv >= 8 && dv <= 128 && S >= 1 && S <= 128)

@@ -12,7 +12,8 @@
 // the latency of one step, not bytes or FLOPs.
 //
 // What the design does about it.  One persistent cooperative grid (one block
-// an SM) runs all T steps.  Block j owns U <= 8 consecutive hidden units and
+// an SM) runs all T steps.  Block j owns U <= 8 consecutive hidden units (U =
+// ceil(H / SMs), so the last block may own fewer: its warps past H idle) and
 // keeps the rows of W_hh of all four gates of those units (4U rows, 32 KB at
 // H=512, U=4) in registers for the whole window: warp w works on unit
 // w mod U, and its lanes hold that unit's four rows, lane l the 16-byte
@@ -107,13 +108,14 @@ lstm_seq_kernel(const float* __restrict__ gates_x,  // (T, B, 4H)
   u64* xbuf = ws + 2;
 
   // warp w: unit u = w mod U, batch pairs q, q + Q, ... with q = w / U and
-  // Q = kWarps / U warps a unit (warps from Q·U on have no unit); its lane
-  // 2k+i owns the cell (batch row 2(q + Q·k) + i, unit u), so a warp runs
-  // at most 16 batch pairs
+  // Q = kWarps / U warps a unit (warps from Q·U on, and the last block's
+  // warps whose unit lies past H, are idle); its lane 2k+i owns the cell
+  // (batch row 2(q + Q·k) + i, unit u), so a warp runs at most 16 batch pairs
   const int Q = kWarps / U, u = warp % U, q = warp / U;
+  const bool active = q < Q && unit0 + u < H;  // uniform across the warp
   const int pairs = b_pad / kTaskBatch;
   const int cell_b = (q + Q * (lane >> 1)) * kTaskBatch + (lane & 1);
-  const bool owner = q < Q && cell_b < B;
+  const bool owner = active && cell_b < B;
   const size_t cell = (size_t)cell_b * H + unit0 + u;
 
   float4 w[4][KC];  // rows gate·H + unit0 + u of W_hh^T, chunks lane + 32·j
@@ -125,7 +127,7 @@ lstm_seq_kernel(const float* __restrict__ gates_x,  // (T, B, 4H)
 #pragma unroll
       for (int j = 0; j < KC; ++j) {
         const int c = lane + 32 * j;
-        w[gate][j] = q < Q && c < chunks ? __ldg(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        w[gate][j] = active && c < chunks ? __ldg(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
     for (int i = tid; i < 2 * b_pad * H; i += kThreads)
@@ -181,7 +183,7 @@ lstm_seq_kernel(const float* __restrict__ gates_x,  // (T, B, 4H)
 
     // product: lane 2k+i keeps the four gate sums of its cell in g
     float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (!kExchangeOnly && q < Q) {
+    if (!kExchangeOnly && active) {
       for (int k = 0, p = q; p < pairs; ++k, p += Q) {
         const float4* hr = reinterpret_cast<const float4*>(hb_s + p * kTaskBatch * H);
         float acc[4 * kTaskBatch];  // acc[gate * 2 + i]
@@ -307,7 +309,7 @@ int launch(const void* gates_x, const void* masks, const void* h0, const void* c
   // the exchange-only grid takes the same shared memory, so it lands on the
   // same SMs, one block each
   const size_t smem = smem_bytes(B, H);
-  const int blocks = H / U;
+  const int blocks = (H + U - 1) / U;
   if (cap.blocks < blocks) return kNotCoResident;
   void* args[] = {&gates_x, &masks, &h0, &c0, &w_hh_t, &outs, &hT, &cT, &ws,
                   &T,       &B,     &H,  &U};
@@ -321,8 +323,8 @@ int launch(const void* gates_x, const void* masks, const void* h0, const void* c
 
 extern "C" size_t lstm_seq_smem_bytes(int B, int H) { return smem_bytes(B, H); }
 
-// H a multiple of 4 up to 1024 (KC = 1..8), U <= 8 units a block, at most 16
-// batch pairs a warp (the wrapper checks)
+// H a multiple of 4 up to 1024 (KC = 1..8), U <= 8 units a block (ceil(H / U)
+// blocks), at most 16 batch pairs a warp (the wrapper checks)
 extern "C" int lstm_seq_f32(const void* gates_x, const void* masks, const void* h0,
                             const void* c0, const void* w_hh_t, void* outs, void* hT,
                             void* cT, void* ws, int T, int B, int H, int U, int dev,

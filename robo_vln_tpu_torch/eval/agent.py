@@ -8,7 +8,8 @@ their trunk weights are identical, the production path), the high level, the
 argmax over its sub-goal logits, then the low level, at T=1, carrying both
 LSTM states.  Frozen BERT runs once per episode: :meth:`embed_instruction`
 caches the embedding of the last token ids it saw.  Everything runs under
-``torch.no_grad()``; there is no dropout.
+``torch.no_grad()`` with the policies in eval mode, so there is no dropout;
+a float32 agent runs with TF32 off for the call (utils/device.float32_exact).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ..models import (
     make_shared_trunk_fn,
     sync_frozen_trunks,
 )
-from ..utils.device import resolve_device, resolve_dtype
+from ..utils.device import float32_exact, resolve_device, resolve_dtype
 
 Obs = Dict[str, torch.Tensor]
 
@@ -64,11 +65,12 @@ class HCMAgent:
         (B, H, W, 1), instruction (B, L); state (hh, lh), each (2, B, H);
         mask (B,).  Returns (actions (B, 2), stop (B, 1), (hh, lh))."""
         hh, lh = state
-        obs = {**obs, "instruction_embedding": self.embed_instruction(obs["instruction"])}
-        obs = self._with_trunk_features(obs)
-        logits, hh = self.high(obs, hh, prev, mask)
-        pred = logits.argmax(dim=-1)
-        actions, stop, lh = self.low(obs, lh, prev, mask, pred)
+        with float32_exact(self.high.compute_dtype):
+            obs = {**obs, "instruction_embedding": self.embed_instruction(obs["instruction"])}
+            obs = self._with_trunk_features(obs)
+            logits, hh = self.high(obs, hh, prev, mask)
+            pred = logits.argmax(dim=-1)
+            actions, stop, lh = self.low(obs, lh, prev, mask, pred)
         return actions, stop, (hh, lh)
 
     @torch.no_grad()
@@ -77,10 +79,11 @@ class HCMAgent:
         """The teacher-forced window: obs (B, T, ...) with instruction (B, L),
         masks (B, T).  Returns (actions (B, T, 2), stop (B, T, 1),
         logits (B, T, 4), hh, lh)."""
-        obs = self._with_trunk_features(obs)
-        logits, hh = self.high(obs, hh, prev, masks)
-        pred = logits.argmax(dim=-1)
-        actions, stop, lh = self.low(obs, lh, prev, masks, pred)
+        with float32_exact(self.high.compute_dtype):
+            obs = self._with_trunk_features(obs)
+            logits, hh = self.high(obs, hh, prev, masks)
+            pred = logits.argmax(dim=-1)
+            actions, stop, lh = self.low(obs, lh, prev, masks, pred)
         return actions, stop, logits, hh, lh
 
 

@@ -5,7 +5,9 @@ The reference's high and low policies each own a frozen DDPPO depth ResNet50
 and a frozen torchvision ResNet50, loaded from the same weight files.  When
 the two copies are bitwise identical (:func:`frozen_trunks_identical`), the
 production path (``TPU.SHARE_FROZEN_TRUNKS``) runs each trunk once per step
-(:func:`make_shared_trunk_fn`) and feeds both policies the features.
+(:func:`make_shared_trunk_fn`) and feeds both policies the features.  The
+trunks run under ``no_grad``: they are frozen, so no graph is recorded
+through them (JAX's ``stop_gradient`` lets XLA drop those chains).
 """
 
 from __future__ import annotations
@@ -92,11 +94,12 @@ def make_shared_trunk_fn(high: HighLevelPolicy):
     once with the high level's weights; both policies then take the features
     through their encoders' ``*_features`` path.  Accepts (B, T, H, W, C) or
     (B, H, W, C) frames and returns features with the same leading shape,
-    laid out (…, h, w, C)."""
+    laid out (…, h, w, C), computed under ``no_grad``."""
     tv = high.rgb_encoder.cnn
     gn = high.depth_encoder.visual_encoder
     dt = high.compute_dtype
 
+    @torch.no_grad()
     def trunk_fn(observations):
         rgb, depth = observations["rgb"], observations["depth"]
         lead = rgb.shape[:-3]
@@ -105,8 +108,8 @@ def make_shared_trunk_fn(high: HighLevelPolicy):
         rgb_map = tv((rgb.to(dt) / 255.0).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         depth_map = gn(depth.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return {
-            "rgb_features": rgb_map.reshape(lead + rgb_map.shape[1:]).detach(),
-            "depth_features": depth_map.reshape(lead + depth_map.shape[1:]).detach(),
+            "rgb_features": rgb_map.reshape(lead + rgb_map.shape[1:]),
+            "depth_features": depth_map.reshape(lead + depth_map.shape[1:]),
         }
 
     return trunk_fn

@@ -13,7 +13,8 @@ robo_vln_tpu/models/encoders/visual.py:35-155).
 Observations keep the JAX package's layouts: frames (N, H, W, C); trunk
 features ``rgb_features`` / ``depth_features`` (N, h, w, C) when a shared
 trunk pass (models.make_shared_trunk_fn) has computed them, in which case the
-encoder skips its own trunk.  Spatial outputs are (N, S, C) token-major.
+encoder skips its own trunk.  An encoder's own (frozen) trunk runs under
+``no_grad``.  Spatial outputs are (N, S, C) token-major.
 
 The spatial tables keep the reference's (S, 64) ``nn.Embedding`` weight, and
 the forward reproduces its row-major ``.view(1, -1, h, w)``: channel k of
@@ -72,8 +73,9 @@ class DepthEncoder(nn.Module):
         if "depth_features" in observations:
             x = observations["depth_features"]
         else:
-            depth = observations["depth"].permute(0, 3, 1, 2)
-            x = self.visual_encoder(depth).permute(0, 2, 3, 1).detach()
+            with torch.no_grad():
+                depth = observations["depth"].permute(0, 3, 1, 2)
+                x = self.visual_encoder(depth).permute(0, 2, 3, 1)
         b, h, w, c = x.shape
         if self.spatial_output:
             tokens = x.reshape(b, h * w, c)
@@ -99,8 +101,9 @@ class RGBEncoder(nn.Module):
         if "rgb_features" in observations:
             feat = observations["rgb_features"]  # (N, h, w, C) or (N, S, C)
         else:
-            rgb = observations["rgb"].to(self.compute_dtype) / 255.0
-            feat = self.cnn(rgb.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).detach()
+            with torch.no_grad():
+                rgb = observations["rgb"].to(self.compute_dtype) / 255.0
+                feat = self.cnn(rgb.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         b = feat.shape[0]
         if self.spatial_output:
             if feat.dim() == 4:

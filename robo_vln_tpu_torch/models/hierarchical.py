@@ -1,16 +1,18 @@
 """The hierarchical cross-modal (HCM) agent's two policies (counterpart of
 robo_vln_tpu/models/hierarchical.py).
 
-High level (:class:`HighLevelPolicy`): frozen BERT instruction embedding;
+High level (:class:`HighLevelPolicy`): BERT instruction embedding (frozen
+unless ``MODEL.BERT.trainable``);
 spatial rgb (16 tokens × 2112) and depth (64 tokens × 96) features; rgb_kv /
 depth_kv 1×1 convs feed ONE VisualLingAttn, applied to the rgb tokens and then
 to the depth tokens with the same weights, each output mean-pooled over the
 instruction tokens; ∥ rgb_linear ∥ depth_linear -> LSTM(512) -> 4 sub-goal
-logits.
+logits.  In training mode, given a dropout generator, VisualLingAttn drops
+at ``VISUAL_LING_ATTN.dropout``.
 
 Low level (:class:`LowLevelPolicy`): depth ∥ rgb vector embeddings ∥ a
 sub-task embedding (5 × 32; id 4 is padding and embeds to zero) ->
-LSTM(512) -> velocity (2) and stop (1).
+LSTM(512) -> velocity (2) and stop (1); no dropout.
 
 Inputs keep the JAX layouts: observations (B, T, H, W, C) or, for one tick,
 (B, H, W, C); masks (B, T) or (B,); hidden (2, B, H).  The heads outside the
@@ -80,6 +82,7 @@ class HighLevelPolicy(nn.Module):
             d_model=va.d_model, h=va.h, d_ff=va.d_ff, n_layers=va.N,
             vis_in_features=va.vis_in_features,
             ins_in_features=va.ins_in_features, compute_dtype=compute_dtype,
+            dropout=va.dropout,
         )
         # the reference's Sequentials: the Linear is index 2 and 1
         self.rgb_linear = nn.Sequential(
@@ -102,14 +105,20 @@ class HighLevelPolicy(nn.Module):
         return self.state_encoder.initial_hidden(batch_size, device)
 
     def embed_instruction(self, instruction: torch.Tensor) -> torch.Tensor:
-        """Frozen BERT over the token ids -> (B, L, hidden), float32.  The
+        """BERT over the token ids -> (B, L, hidden), float32.  The
         instruction is constant over an episode, so the serving loop runs
         this once per episode and passes it back as
-        ``observations["instruction_embedding"]``."""
-        return self.embedding_layer(instruction).detach()
+        ``observations["instruction_embedding"]``.  Frozen BERT (the
+        reference's) runs under ``no_grad``; ``MODEL.BERT.trainable`` keeps
+        its graph, so the instruction pathway trains end to end."""
+        if self.model_config.BERT.trainable:
+            return self.embedding_layer(instruction)
+        with torch.no_grad():
+            return self.embedding_layer(instruction)
 
     def forward(self, observations: Dict[str, torch.Tensor], hidden: torch.Tensor,
-                prev_actions: Optional[torch.Tensor], masks: torch.Tensor):
+                prev_actions: Optional[torch.Tensor], masks: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None):
         mc = self.model_config
         single = visual_ref(observations).dim() == 4
         if single:
@@ -134,8 +143,9 @@ class HighLevelPolicy(nn.Module):
 
         rgb_spatial = _conv1x1(rgb_tokens, self.rgb_kv)  # (N, 16, 256)
         depth_spatial = _conv1x1(depth_tokens, self.depth_kv)  # (N, 64, 256)
-        ins_rgb_att = self.image_cm_encoder(embedded, rgb_spatial).mean(1)
-        ins_depth_att = self.image_cm_encoder(embedded, depth_spatial).mean(1)
+        gen = dropout_generator
+        ins_rgb_att = self.image_cm_encoder(embedded, rgb_spatial, generator=gen).mean(1)
+        ins_depth_att = self.image_cm_encoder(embedded, depth_spatial, generator=gen).mean(1)
 
         rgb_in = F.relu(_f32(rgb_tokens.mean(1), self.rgb_linear[2]))
         depth_flat = depth_tokens.transpose(1, 2).reshape(n, -1)  # channel-major

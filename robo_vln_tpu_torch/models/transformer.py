@@ -10,9 +10,17 @@ robo_vln_tpu/models/transformer.py:35-177).
   position table is added to the queries only.
 
 The linears run in the compute dtype (bfloat16 by default); LayerNorms run in
-float32 with flax's eps=1e-6 (torch's default is 1e-5).  Dropout is off: the
-port serves.  Parameter names follow the reference's torch modules
-(``enc_att.attention.fc_q``, ``pwff.fc1``, ...).
+float32 with flax's eps=1e-6 (torch's default is 1e-5).  Parameter names
+follow the reference's torch modules (``enc_att.attention.fc_q``,
+``pwff.fc1``, ...).
+
+Dropout sits where the JAX blocks put it: after ``fc_o`` before the residual,
+after the feed-forward's ReLU and after its ``fc2``, and after each input
+stage's ReLU in :class:`VisualLingAttn`, at the rate VisualLingAttn passes
+down.  It is live only in training mode (``module.train()``) and when the
+forward is given a ``torch.Generator`` to draw the masks from (on the
+tensors' device); otherwise it is the identity, so eval and serving compute
+exactly what they computed without it.
 """
 
 from __future__ import annotations
@@ -44,6 +52,17 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def dropout(x: torch.Tensor, rate: float, generator, training: bool) -> torch.Tensor:
+    """flax's Dropout: each element kept with probability 1 - rate and then
+    scaled by 1 / (1 - rate), else zeroed; the keep mask drawn from
+    ``generator`` (``F.dropout`` takes none).  The identity outside training,
+    without a generator, or at rate 0."""
+    if not training or generator is None or rate == 0.0:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
+
+
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
 
@@ -61,45 +80,52 @@ class _ScaledDotProductAttention(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, h: int, compute_dtype=torch.float32):
+    def __init__(self, d_model: int, h: int, compute_dtype=torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         self.h = h
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.attention = _ScaledDotProductAttention(d_model, h)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, queries, keys, values, attention_mask=None):
+    def forward(self, queries, keys, values, attention_mask=None, generator=None):
         a, dt = self.attention, self.compute_dtype
         q = linear(queries, a.fc_q, dt)
         k = linear(keys, a.fc_k, dt)
         v = linear(values, a.fc_v, dt)
         out = attention_core(q, k, v, self.h, attention_mask)
-        out = linear(out, a.fc_o, dt)
+        out = dropout(linear(out, a.fc_o, dt), self.dropout, generator, self.training)
         return layer_norm(queries.float() + out.float(), self.layer_norm)
 
 
 class PositionWiseFeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, compute_dtype=torch.float32):
+    def __init__(self, d_model: int, d_ff: int, compute_dtype=torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.fc1 = nn.Linear(d_model, d_ff)
         self.fc2 = nn.Linear(d_ff, d_model)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x):
-        dt = self.compute_dtype
-        y = linear(F.relu(linear(x, self.fc1, dt)), self.fc2, dt)
+    def forward(self, x, generator=None):
+        dt, rate, live = self.compute_dtype, self.dropout, self.training
+        y = dropout(F.relu(linear(x, self.fc1, dt)), rate, generator, live)
+        y = dropout(linear(y, self.fc2, dt), rate, generator, live)
         return layer_norm(x.float() + y.float(), self.layer_norm)
 
 
 class InterModuleAttnLayer(nn.Module):
-    def __init__(self, d_model: int, h: int, d_ff: int, compute_dtype=torch.float32):
+    def __init__(self, d_model: int, h: int, d_ff: int, compute_dtype=torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
-        self.enc_att = MultiHeadAttention(d_model, h, compute_dtype)
-        self.pwff = PositionWiseFeedForward(d_model, d_ff, compute_dtype)
+        self.enc_att = MultiHeadAttention(d_model, h, compute_dtype, dropout)
+        self.pwff = PositionWiseFeedForward(d_model, d_ff, compute_dtype, dropout)
 
-    def forward(self, input_1, input_2, enc_att_mask=None):
-        return self.pwff(self.enc_att(input_1, input_2, input_2, enc_att_mask))
+    def forward(self, input_1, input_2, enc_att_mask=None, generator=None):
+        att = self.enc_att(input_1, input_2, input_2, enc_att_mask, generator)
+        return self.pwff(att, generator)
 
 
 class VisualLingAttn(nn.Module):
@@ -108,23 +134,26 @@ class VisualLingAttn(nn.Module):
 
     def __init__(self, d_model: int, h: int, d_ff: int, n_layers: int,
                  vis_in_features: int, ins_in_features: int,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, dropout: float = 0.25):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.layers = nn.ModuleList(
-            InterModuleAttnLayer(d_model, h, d_ff, compute_dtype)
+            InterModuleAttnLayer(d_model, h, d_ff, compute_dtype, dropout)
             for _ in range(n_layers)
         )
         self.vis_fc = nn.Linear(vis_in_features, d_model)
         self.ins_fc = nn.Linear(ins_in_features, d_model)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, instruction, visual, enc_att_mask=None):
-        dt = self.compute_dtype
-        vis = layer_norm(F.relu(linear(visual, self.vis_fc, dt)), self.layer_norm)
-        ins = layer_norm(F.relu(linear(instruction, self.ins_fc, dt)), self.layer_norm)
+    def forward(self, instruction, visual, enc_att_mask=None, generator=None):
+        dt, rate, live = self.compute_dtype, self.dropout, self.training
+        vis = dropout(F.relu(linear(visual, self.vis_fc, dt)), rate, generator, live)
+        vis = layer_norm(vis, self.layer_norm)
+        ins = dropout(F.relu(linear(instruction, self.ins_fc, dt)), rate, generator, live)
+        ins = layer_norm(ins, self.layer_norm)
         ins = ins + sinusoid_encoding_table(ins.shape[1], ins.shape[2], ins.device)
         out = vis
         for layer in self.layers:
-            out = layer(ins, out, enc_att_mask)
+            out = layer(ins, out, enc_att_mask, generator)
         return out

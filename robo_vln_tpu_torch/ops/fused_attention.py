@@ -6,7 +6,7 @@ Counterpart of robo_vln_tpu/ops/pallas_attention.py: per (example, head),
 h·d_k), k (N, S, h·d_k), v (N, S, h·d_v) -> (N, Lq, h·d_v); the kernel
 addresses the heads by stride, so there are no transposes around the call.
 Three routes, picked before the launch by :func:`pick_route` from the dtype
-and, in float32, the sizes:
+and the sizes; a call that no route takes raises there, before any launch:
 
 * ``f32_tensor_core``: float32, both products on the tensor cores in 3xTF32
   (each operand split into two tf32 parts, three products), so the result
@@ -14,16 +14,20 @@ and, in float32, the sizes:
   1 <= S <= 128, with q, k and v aligned to 16 bytes: every float32 call of
   the HCM agent.
 * ``f32_cuda_core``: float32, everything on the CUDA cores, for every other
-  float32 shape whose tiles fit in shared memory (:func:`smem_bytes`).
+  float32 shape: K and V staged in shared memory where they fit, else read
+  in place (:func:`smem_bytes`).  It refuses only d_k + S > 7264.
 * ``bf16``: both products on the tensor cores, the softmax in float32, the
   probabilities kept to about 16 bits (``p_hi + p_lo``), so the only rounding
   left against the float32 function is that of the bf16 output.  It takes
-  d_k = d_v, a multiple of 16 up to 128, and 1 <= S <= 128
+  d_k = d_v, a multiple of 16 up to 128, any S whose K and V fit in shared
+  memory (S <= 384 at d = 128; past S = 128 the keys run in blocks of 64
+  with an online softmax), and pointers aligned to 16 bytes
   (:func:`check_bf16_route`).
 
 On a CPU tensor the plain version (:func:`attention_plain`) runs; on a CUDA
 tensor the kernel launches, or the wrapper raises.  The backward pass replays
-the plain version, as the JAX custom VJP does (pallas_attention.py:133-136).
+the plain version, as the JAX custom VJP does (pallas_attention.py:133-136),
+in the profiler range ``cross_modal_attn.backward_replay``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from . import _build, cm_attention
 
@@ -43,37 +48,50 @@ SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 WARPS = 8  # kWarps of csrc/cross_modal_attn.cu (f32_cuda_core route)
 TILE_Q = 64  # kTileQ of csrc/cross_modal_attn.cu (bf16 route)
 F32_TILE_Q = 128  # kF32Tile of csrc/cross_modal_attn.cu (f32_tensor_core route)
-BF16_MAX_S = 128
-BF16_MAX_D = 128
+TC_MAX_S = 128  # the most keys of the float32 tensor-core kernel
+MAX_D = 128  # the largest head size of both tensor-core kernels
 
 
 def tensor_core_f32_takes(S: int, dk: int, dv: int, aligned: bool = True) -> bool:
     """Whether the float32 tensor-core kernel takes these sizes: d_k and d_v
     multiples of 8 up to 128, 1 <= S <= 128, pointers aligned to 16 bytes."""
-    return (aligned and 1 <= S <= BF16_MAX_S
-            and all(d % 8 == 0 and 8 <= d <= BF16_MAX_D for d in (dk, dv)))
+    return (aligned and 1 <= S <= TC_MAX_S
+            and all(d % 8 == 0 and 8 <= d <= MAX_D for d in (dk, dv)))
 
 
 def pick_route(dtype, S: int, dk: int, dv: int, aligned: bool = True) -> str:
-    """The kernel a call launches: bf16 for bfloat16; in float32 the
-    tensor-core kernel wherever it takes the sizes, else the CUDA-core
-    kernel.  Decided before the launch, never after a failure."""
+    """The kernel a call launches, decided before the launch, never after a
+    failure: bf16 for bfloat16 (:func:`check_bf16_route` raises where it
+    does not take the sizes); in float32 the tensor-core kernel wherever it
+    takes the sizes, else the CUDA-core kernel, which raises where even its
+    q rows and probabilities do not fit in shared memory."""
     if dtype == torch.bfloat16:
+        check_bf16_route(S, dk, dv, aligned)
         return "bf16"
-    return "f32_tensor_core" if tensor_core_f32_takes(S, dk, dv, aligned) else "f32_cuda_core"
+    if tensor_core_f32_takes(S, dk, dv, aligned):
+        return "f32_tensor_core"
+    need = smem_bytes(S, dk, dv, route="f32_cuda_core")
+    if need > SMEM_LIMIT:
+        raise ValueError(f"cross_modal_attn: S={S}, d_k={dk}, d_v={dv} need {need} "
+                         "bytes of shared memory a block")
+    return "f32_cuda_core"
 
 
 def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int:
-    """Shared memory of one block of ``route`` (by default the one
-    :func:`pick_route` picks).  f32_cuda_core: K (padded rows), V, a q row
-    and S probabilities per warp.  bf16: the Q tile, K and V (S rounded up
-    to 16), in rows padded by 8 values.  f32_tensor_core: at the kernel
-    instance's sizes, max(d_k, d_v) rounded up to D = 32, 64 or 128 and S to
-    16, 32, 64 or 128 rows, the 128-row Q tile in rows of D + 8 floats, then
-    K and V split into tf32 hi and lo parts (K in rows of 2D + 8, V in pairs
-    of rows of 4D + 8) where those fit, else as they are (rows of D + 8 and
-    D + 4): f32tc_smem_bytes in csrc/cross_modal_attn.cu."""
-    route = route or pick_route(dtype, S, dk, dv)
+    """Shared memory of one block of ``route`` (by default bf16 for
+    bfloat16, else the float32 kernel that takes the sizes).
+    f32_cuda_core: K (padded rows) and V where they fit (f32_smem_bytes in
+    csrc/cross_modal_attn.cu), then a q row and S probabilities per warp.
+    bf16: the Q tile, K and V (S rounded up to 16), in rows padded by 8
+    values.  f32_tensor_core: at the kernel instance's sizes, max(d_k, d_v)
+    rounded up to D = 32, 64 or 128 and S to 16, 32, 64 or 128 rows, the
+    128-row Q tile in rows of D + 8 floats, then K and V split into tf32 hi
+    and lo parts (K in rows of 2D + 8, V in pairs of rows of 4D + 8) where
+    those fit, else as they are (rows of D + 8 and D + 4): f32tc_smem_bytes
+    in csrc/cross_modal_attn.cu."""
+    if route is None:
+        route = ("bf16" if dtype == torch.bfloat16 else "f32_tensor_core"
+                 if tensor_core_f32_takes(S, dk, dv) else "f32_cuda_core")
     if route == "bf16":
         return 2 * (dk + 8) * (TILE_Q + 2 * (-(-S // 16) * 16))
     if route == "f32_tensor_core":
@@ -81,17 +99,21 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
         rows = next(b for b in (16, 32, 64, 128) if S <= b)
         split = 4 * (F32_TILE_Q * (d + 8) + rows * (2 * d + 8) + rows // 2 * (4 * d + 8))
         return split if split <= SMEM_LIMIT else 4 * (F32_TILE_Q * (d + 8) + rows * (2 * d + 12))
-    return 4 * (S * (dk + 1) + S * dv + WARPS * (dk + S))
+    staged = 4 * (S * (dk + 1) + S * dv + WARPS * (dk + S))
+    return staged if staged <= SMEM_LIMIT else 4 * WARPS * (dk + S)
 
 
-def check_bf16_route(S: int, dk: int, dv: int) -> None:
-    """Raise unless the bfloat16 kernel takes these sizes."""
-    if not (dk == dv and dk % 16 == 0 and 16 <= dk <= BF16_MAX_D
-            and 1 <= S <= BF16_MAX_S):
+def check_bf16_route(S: int, dk: int, dv: int, aligned: bool = True) -> None:
+    """Raise unless the bfloat16 kernel takes these sizes and pointers."""
+    if not (dk == dv and dk % 16 == 0 and 16 <= dk <= MAX_D and S >= 1
+            and smem_bytes(S, dk, dv, route="bf16") <= SMEM_LIMIT):
         raise ValueError(
             f"cross_modal_attn: the bfloat16 kernel takes d_k = d_v, a multiple "
-            f"of 16 up to {BF16_MAX_D}, and 1 <= S <= {BF16_MAX_S}; got S={S}, "
-            f"d_k={dk}, d_v={dv}")
+            f"of 16 up to {MAX_D}, and S >= 1 whose K and V fit in shared memory "
+            f"beside the Q tile; got S={S}, d_k={dk}, d_v={dv}")
+    if not aligned:
+        raise ValueError("cross_modal_attn: q, k and v must be aligned to "
+                         "16 bytes for the bfloat16 kernel")
 
 
 def reset_launches() -> None:
@@ -143,15 +165,6 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
     dk, dv = Dq // num_heads, Dv // num_heads
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     route = pick_route(q.dtype, S, dk, dv, aligned)
-    if route == "bf16":
-        check_bf16_route(S, dk, dv)
-        if not aligned:
-            raise ValueError("cross_modal_attn: q, k and v must be aligned to "
-                             "16 bytes for the bfloat16 kernel")
-    elif route == "f32_cuda_core" and smem_bytes(S, dk, dv, route=route) > SMEM_LIMIT:
-        raise ValueError(f"cross_modal_attn: S={S}, d_k={dk}, d_v={dv} need "
-                         f"{smem_bytes(S, dk, dv, route=route)} bytes of shared "
-                         "memory a block")
 
     fn = _entry()
     out = torch.empty((N, Lq, Dv), device=device, dtype=q.dtype)
@@ -176,9 +189,9 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        with torch.enable_grad(), record_function("cross_modal_attn.backward_replay"):
             out = attention_plain(q, k, v, ctx.num_heads)
-        return (*torch.autograd.grad(out, (q, k, v), g), None)
+            return (*torch.autograd.grad(out, (q, k, v), g), None)
 
 
 def fused_cross_modal_attention(q, k, v, num_heads: int):

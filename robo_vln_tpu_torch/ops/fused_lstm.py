@@ -15,8 +15,12 @@ same function.
 
 Dispatch is by where the tensors lie: on the CPU the plain version
 (:func:`ops.rnn.lstm_recurrence`) runs; on a CUDA device the kernel launches,
-or the wrapper raises.  The backward pass replays the plain version, as the
-JAX custom VJP does (pallas_lstm.py:164-167).
+or the wrapper raises (:func:`check_shape`, before any launch: H off a
+multiple of 4 or above 1024, or more than 8 hidden units a block to keep the
+grid within one block an SM).  The grid has ceil(H / units) blocks, so H
+need not divide evenly.  The backward pass replays the plain version, as
+the JAX custom VJP does (pallas_lstm.py:164-167), in the profiler range
+``lstm_seq.backward_replay``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from . import _build
 from .rnn import lstm_recurrence
@@ -48,12 +53,10 @@ def reset_launches() -> None:
 
 
 def _units_per_block(H: int, n_sm: int) -> int:
-    """Hidden units per block: the fewest that keep the grid within one block
-    per SM (the cooperative launch needs the whole grid co-resident)."""
-    for units in range(1, H + 1):
-        if H % units == 0 and H // units <= n_sm:
-            return units
-    return H
+    """Hidden units per block: the fewest that keep the grid of
+    ceil(H / units) blocks within one block per SM (the cooperative launch
+    needs the whole grid co-resident)."""
+    return -(-H // n_sm)
 
 
 def smem_bytes(H: int, B: int) -> int:
@@ -155,7 +158,7 @@ def _check(name, t, shape, device):
 def _raise_on(err: int, H: int, units: int, n_sm: int) -> None:
     if err == NOT_CO_RESIDENT:
         raise RuntimeError(
-            f"lstm_seq: a grid of {H // units} blocks does not fit co-resident "
+            f"lstm_seq: a grid of {-(-H // units)} blocks does not fit co-resident "
             f"on {n_sm} SMs, which the cooperative launch needs")
     if err != 0:
         raise RuntimeError(f"lstm_seq: CUDA error {err} at launch")
@@ -229,11 +232,11 @@ class _FusedLSTM(torch.autograd.Function):
     def backward(ctx, g_outs, g_hT, g_cT):
         inputs = [t.detach().requires_grad_(t.dtype.is_floating_point)
                   for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        with torch.enable_grad(), record_function("lstm_seq.backward_replay"):
             outs = lstm_recurrence(*inputs)
-        want = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(outs, want, (g_outs, g_hT, g_cT),
-                                         allow_unused=True))
+            want = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(outs, want, (g_outs, g_hT, g_cT),
+                                             allow_unused=True))
         return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 

@@ -182,6 +182,34 @@ def test_closed_loop_ticks_match_jax_single_step():
     _close(embeddings[0], emb)
 
 
+@pytest.mark.parametrize("dtype,inside", [("float32", False), ("bfloat16", True)])
+def test_agent_scopes_tf32(monkeypatch, dtype, inside):
+    """A float32 agent's window and tick run the policies with cuDNN's and
+    the matmuls' TF32 off, and both flags are restored after the call; a
+    bfloat16 agent leaves them alone.  The flags are read inside the high
+    level's state encoder."""
+    _, port_mc = tiny_configs()
+    agent = build_hcm_agent(port_mc, device="cpu", compute_dtype=dtype)
+    seen = []
+    forward = agent.high.state_encoder.forward
+
+    def recording(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return forward(*args, **kwargs)
+
+    monkeypatch.setattr(agent.high.state_encoder, "forward", recording)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    obs, masks = make_inputs(np.random.default_rng(5))
+    obs, masks = _to_torch(obs), torch.from_numpy(masks)
+    agent.forward_window(obs, masks, None, *agent.initial_state(B))
+    tick = {"rgb": obs["rgb"][:, 0], "depth": obs["depth"][:, 0],
+            "instruction": obs["instruction"]}
+    agent.act(tick, agent.initial_state(B), None, masks[:, 0])
+    assert seen == [(inside, inside)] * 2
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
 def test_build_hcm_agent_defaults_to_cuda():
     """Without device= the agent goes to the card; with no card it raises
     instead of falling back to the CPU."""

@@ -71,8 +71,11 @@ def test_lstm_sequence_fused_matches_jax(rng):
     _close(outs, plain_outs, atol=0.0)
 
 
-@pytest.mark.parametrize("H,n_sm,units", [(512, 132, 4), (512, 100, 8), (32, 132, 1), (48, 16, 3)])
+@pytest.mark.parametrize("H,n_sm,units", [(512, 132, 4), (512, 100, 6), (32, 132, 1), (48, 16, 3),
+                                          (556, 132, 5)])
 def test_lstm_units_per_block(H, n_sm, units):
+    """The fewest units a block that keep ceil(H / units) blocks within the
+    SMs; the last block may own fewer (H = 556: 111 blocks of 5, one of 1)."""
     assert fused_lstm._units_per_block(H, n_sm) == units
 
 
@@ -157,6 +160,49 @@ def test_attention_p_split_keeps_float32_probabilities(rng, S):
     assert (_p_split_attention(q, k, v, 4, keep_lo=False) - ref).abs().max().item() > 1e-4
 
 
+def _p_split_attention_blocks(q, k, v, heads, block=64):
+    """The bf16 kernel's arithmetic past S = 128 in plain torch: the keys in
+    blocks of ``block``, each block's logits of bf16 values in float32 and
+    in base 2; the running row max m rescales the row sum and the output by
+    exp2(m_old - m_new); the block's unnormalised p = exp2(s - m) split into
+    p_hi + p_lo against v; the output divided by the sum at the end."""
+    N, Lq, D = q.shape
+    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
+    qh = q.float().view(N, Lq, heads, dk).transpose(1, 2)
+    kh = k.float().view(N, S, heads, dk).transpose(1, 2)
+    vh = v.float().view(N, S, heads, dv).transpose(1, 2)
+    scale2 = np.float32(1.4426950408889634 / math.sqrt(dk))
+    m = torch.full((N, heads, Lq, 1), -math.inf)
+    total = torch.zeros(N, heads, Lq, 1)
+    out = torch.zeros(N, heads, Lq, dv)
+    for s0 in range(0, S, block):
+        logits = (qh @ kh[:, :, s0:s0 + block].transpose(-1, -2)) * scale2
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(logits - m_new)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        vb = vh[:, :, s0:s0 + block]
+        out = out * alpha + (p_lo @ vb + p_hi @ vb)
+        total = total * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    return (out / total).transpose(1, 2).reshape(N, Lq, heads * dv)
+
+
+@pytest.mark.parametrize("S", [129, 144, 300])
+def test_attention_key_blocks_keep_float32(rng, S):
+    """Past S = 128 (the 144 depth tokens of a 384 px frame), the bf16
+    kernel's key blocks with an online softmax stay within 1e-5 of the
+    float32 function of the same bf16 inputs (the plain version and JAX's
+    XLA attention), as the one-block arithmetic does at S <= 128."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, 2, 24, S, 128, 128))
+    ref = fused_attention.attention_plain(q.float(), k.float(), v.float(), 2)
+    ours = _p_split_attention_blocks(q, k, v, 2)
+    assert (ours - ref).abs().max().item() <= 1e-5
+    _close(ours, jax_cm.mha_attention(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)), 2))
+
+
 def _tf32(x):
     """x rounded to tf32 as cvt.rna.tf32.f32 rounds it: 10 mantissa bits, to
     nearest at mantissa bit 13, ties away from zero (the sign-magnitude bits
@@ -230,20 +276,68 @@ def test_tf32_rounding_is_round_half_away():
         atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("S,dk,dv,aligned,route", [
-    (16, 64, 64, True, "f32_tensor_core"), (64, 64, 64, True, "f32_tensor_core"),
-    (1, 8, 16, True, "f32_tensor_core"), (128, 128, 128, True, "f32_tensor_core"),
-    (33, 128, 8, True, "f32_tensor_core"), (16, 12, 12, True, "f32_cuda_core"),
-    (200, 64, 64, True, "f32_cuda_core"), (16, 64, 136, True, "f32_cuda_core"),
-    (16, 64, 64, False, "f32_cuda_core"),
+@pytest.mark.parametrize("S,dk,dv,aligned,route,bf16_route", [
+    (16, 64, 64, True, "f32_tensor_core", "bf16"), (64, 64, 64, True, "f32_tensor_core", "bf16"),
+    (1, 8, 16, True, "f32_tensor_core", None), (128, 128, 128, True, "f32_tensor_core", "bf16"),
+    (33, 128, 8, True, "f32_tensor_core", None), (16, 12, 12, True, "f32_cuda_core", None),
+    (200, 64, 64, True, "f32_cuda_core", "bf16"), (16, 64, 136, True, "f32_cuda_core", None),
+    (16, 64, 64, False, "f32_cuda_core", None),
 ])
-def test_f32_attention_route(S, dk, dv, aligned, route):
+def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
     """float32 calls take the tensor-core kernel wherever it takes the sizes
     (the HCM's among them) and the CUDA-core kernel elsewhere, decided
-    before the launch; bfloat16 always takes its own route."""
+    before the launch; bfloat16 calls take the bf16 kernel where it takes
+    the sizes (d_k = d_v, a multiple of 16 up to 128, K and V within shared
+    memory, aligned pointers) and raise before any launch elsewhere
+    (``None``)."""
     assert fused_attention.pick_route(torch.float32, S, dk, dv, aligned) == route
-    assert fused_attention.pick_route(torch.bfloat16, S, dk, dv, aligned) == "bf16"
+    if bf16_route is None:
+        with pytest.raises(ValueError, match="bfloat16 kernel"):
+            fused_attention.pick_route(torch.bfloat16, S, dk, dv, aligned)
+    else:
+        assert fused_attention.pick_route(torch.bfloat16, S, dk, dv, aligned) == bf16_route
     assert fused_attention.smem_bytes(S, dk, dv, route=route) <= fused_attention.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype,S,d,route", [
+    (torch.bfloat16, 144, 64, "bf16"),  # the depth tokens of a 384 px frame
+    (torch.bfloat16, 200, 64, "bf16"), (torch.bfloat16, 384, 128, "bf16"),
+    (torch.bfloat16, 385, 128, None), (torch.bfloat16, 16, 256, None),
+    (torch.float32, 420, 64, "f32_cuda_core"),  # K and V staged in shared memory
+    (torch.float32, 500, 64, "f32_cuda_core"),  # K and V read in place
+    (torch.float32, 7200, 64, "f32_cuda_core"), (torch.float32, 7201, 64, None),
+    (torch.bfloat16, 16, 64, "bf16"), (torch.bfloat16, 64, 64, "bf16"),  # the HCM's
+    (torch.float32, 16, 64, "f32_tensor_core"), (torch.float32, 64, 64, "f32_tensor_core"),
+])
+def test_attention_route_past_128_keys(dtype, S, d, route):
+    """Past S = 128 the bf16 kernel runs its keys in blocks and the float32
+    CUDA-core kernel reads K and V in place where they do not fit in shared
+    memory, so both take every S up to their shared-memory limits; past
+    those the call raises (``None``) before any launch.  The HCM's shapes
+    take the tensor-core kernels."""
+    if route is None:
+        with pytest.raises(ValueError, match="cross_modal_attn"):
+            fused_attention.pick_route(dtype, S, d, d)
+        return
+    assert fused_attention.pick_route(dtype, S, d, d) == route
+    assert fused_attention.smem_bytes(S, d, d, route=route) <= fused_attention.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("H,n_sm,ok", [
+    (512, 132, True), (32, 132, True), (1024, 132, True),
+    (556, 132, True),  # 4 x 139: 111 blocks of 5 units and one of 1
+    (1028, 132, False), (30, 132, False),
+    (512, 60, False),  # 9 units a block on a card of 60 SMs
+])
+def test_lstm_hidden_sizes(H, n_sm, ok):
+    """The LSTM kernel takes every H a multiple of 4 up to 1024 that needs at
+    most 8 units a block on the card's SMs, and the wrapper raises before
+    any launch for the rest."""
+    if ok:
+        fused_lstm.check_shape(1, H, fused_lstm._units_per_block(H, n_sm))
+    else:
+        with pytest.raises(ValueError, match="lstm_seq"):
+            fused_lstm.check_shape(1, H, fused_lstm._units_per_block(H, n_sm))
 
 
 def test_f32_tensor_core_smem_fits():
@@ -332,8 +426,8 @@ def test_bf16_attention_route(rng):
 
 @pytest.mark.parametrize("S,dk,dv,ok", [
     (16, 64, 64, True), (64, 64, 64, True), (1, 16, 16, True), (128, 128, 128, True),
-    (33, 32, 32, True), (129, 64, 64, False), (16, 64, 32, False), (16, 144, 144, False),
-    (16, 8, 8, False),
+    (33, 32, 32, True), (129, 64, 64, True), (16, 64, 32, False), (16, 144, 144, False),
+    (16, 8, 8, False), (384, 128, 128, True), (385, 128, 128, False),
 ])
 def test_bf16_route_range(S, dk, dv, ok):
     if ok:
@@ -375,6 +469,22 @@ def test_kernel_functions_backward_replays_plain(rng, monkeypatch):
             grads.append([t.grad for t in inputs])
         for g, r in zip(*grads):
             torch.testing.assert_close(g, r, atol=1e-6, rtol=0)
+
+
+def test_attention_function_grads_keep_input_dtype(rng, monkeypatch):
+    """A bfloat16 forward's backward replays the plain version, which
+    computes in float32; the gradients of q, k and v come back in bfloat16,
+    their inputs' dtype, and equal the plain version's own."""
+    monkeypatch.setattr(fused_attention, "cross_modal_attn_cuda", fused_attention.attention_plain)
+    arrays = _qkv(rng, 2, 6, 5, 32, 32)
+    grads = []
+    for fn in (fused_attention._FusedAttention.apply, fused_attention.attention_plain):
+        inputs = [torch.tensor(a).to(torch.bfloat16).requires_grad_() for a in arrays]
+        fn(*inputs, 2).float().square().sum().backward()
+        assert all(t.grad.dtype == torch.bfloat16 for t in inputs)
+        grads.append([t.grad for t in inputs])
+    for g, r in zip(*grads):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("H,B,fits", [
@@ -429,11 +539,13 @@ def _lstm_kernel_emulation(gates_x, masks, h0, c0, w_hh):
     return torch.stack(outs), h, c
 
 
-@pytest.mark.parametrize("T,B,H", [(50, 4, 512), (7, 11, 64), (5, 20, 64), (3, 9, 32)])
+@pytest.mark.parametrize("T,B,H", [(50, 4, 512), (7, 11, 64), (5, 20, 64), (3, 9, 32),
+                                   (4, 3, 556)])
 def test_lstm_kernel_summation_order_matches_jax(rng, T, B, H):
     """The kernel's K-slicing and reduction tree, through a window with a
     reset inside it (masks as chip_smoke.py makes them), against the JAX
-    scan and the interpret-mode Pallas kernel."""
+    scan and the interpret-mode Pallas kernel (H = 556: a partial last
+    chunk of lanes, at the size whose grid has a ragged last block)."""
     args = _lstm_inputs(rng, T, B, H)
     args[1][0] = 1.0
     args[1][0, 1::2] = 0.0  # odd rows reset at t=0, even rows go on from h0, c0
@@ -520,10 +632,14 @@ def test_lstm_entry_set_up_once(monkeypatch):
 
 @pytest.mark.parametrize("S,d,fits", [(16, 64, True), (64, 64, True), (512, 128, False)])
 def test_attention_smem_bound(S, d, fits):
-    """Both routes' shared memory a block: float32 K, V, a q row and S
-    probabilities a warp; bfloat16 the 64-row Q tile, K and V with S rounded
-    up to 16, in rows of d + 8 values."""
-    for dtype in (torch.float32, torch.bfloat16):
-        assert (fused_attention.smem_bytes(S, d, d, dtype) <= fused_attention.SMEM_LIMIT) == fits
+    """Both routes' shared memory a block: float32 K and V where they fit
+    (else read in place), a q row and S probabilities a warp; bfloat16 the
+    64-row Q tile, K and V with S rounded up to 16, in rows of d + 8
+    values.  ``fits``: whether K and V fit."""
+    staged = 4 * (S * (d + 1) + S * d + 8 * (d + S))
+    assert fused_attention.smem_bytes(S, d, d, route="f32_cuda_core") == (
+        staged if fits else 4 * 8 * (d + S))
+    assert (fused_attention.smem_bytes(S, d, d, torch.bfloat16)
+            <= fused_attention.SMEM_LIMIT) == fits
     s_pad = -(-S // 16) * 16
     assert fused_attention.smem_bytes(S, d, d, torch.bfloat16) == 2 * (d + 8) * (64 + 2 * s_pad)

@@ -60,14 +60,34 @@ exit code and no result line:
    with both kernels swapped for their plain versions, from the same
    weights and batch (lr 0, so the weights stay): losses within 1e-4
    relative, each trainable leaf's gradient within 1e-3 of its norm.
-6. One JSON line {"kernels": [...]} (``launches``: the serving path's,
-   ``train_launches``: the train path's), then the card's name and power
-   limit, then the last line {"ok": true, "device": {...}}.
+6. Trainer path: ``python -m robo_vln_tpu_torch.run``'s ``run_exp``, twice,
+   at the same width in bfloat16 (config from options, no yaml: B=4,
+   tbptt 50, one bucket of 100, EPOCHS 2, one epoch a run, RESUME, synced
+   trunks), over synthetic buffers the port's writer puts in a temporary
+   directory under build/ (8 train episodes of 60-100 steps in the msgpack
+   format, 4 eval episodes in the flat format, about 270 MB; removed at the
+   end, with the checkpoints).  Run 1 trains epoch 0 (4 steps), validates
+   (2 windows) and writes ``ckpt.2``; run 2 resumes from it and writes
+   ``ckpt.3`` with 8 train steps.  Checked: the trunks shared, each train
+   step and val window launching each kernel exactly twice, every logged
+   loss finite, the frozen parameters bitwise unchanged, ``ckpt.2`` loaded
+   into a fresh trainer bitwise equal to the first trainer's parameters,
+   Adam state and counters, run 2 starting at step 4.  Printed: each step's
+   host time (a wrapper around ``trainer.train_step``, set from outside the
+   trainer) beside phase 5's bare step, the gaps between steps, the
+   epochs, the validation, checkpoint save and load times and size, peak
+   memory.  With --profile, run 2 is traced.
+7. One JSON line {"kernels": [...]} (``launches``: the serving path's,
+   ``train_launches``: the train path's, ``trainer_launches``: the trainer
+   path's), then the card's name and power limit, then the last line
+   {"ok": true, "device": {...}}.
 """
 
 import contextlib
 import itertools
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -95,6 +115,8 @@ WINDOW_TOL = 2e-3  # float32 agent, kernels against plain, through 50 steps
 TRAIN_LOSS_RTOL = 1e-4  # float32 train step, kernels against plain, relative
 TRAIN_GRAD_TOL = 1e-3  # the same, each leaf's gradient, of that leaf's norm
 TRAIN_STEPS = 5
+TRAINER_EPISODES = 8  # phase 6: 2 batches of 4, 2 windows of 50 each: 4 steps an epoch
+TRAINER_EVAL_EPISODES = 4  # one batch, 2 val windows
 # a bias on the keys adds the same q·b to every logit of a query row, which
 # the softmax cancels: this leaf's exact gradient is 0
 ZERO_GRAD_LEAF = "enc_att.attention.fc_k.bias"
@@ -744,6 +766,7 @@ def train_path(device, profile=False):
 
     fused_lstm.reset_launches()
     fused_attention.reset_launches()
+    step_ms = []
     for i in range(TRAIN_STEPS):
         counts = (fused_lstm.launches, fused_attention.launches,
                   fused_attention.route_launches["bf16"])
@@ -755,6 +778,7 @@ def train_path(device, profile=False):
         end.record()
         end.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
+        step_ms.append(host_ms)
         print(f"  train step {i}: {start.elapsed_time(end):.3f} ms (CUDA events), "
               f"{host_ms:.3f} ms (host clock); " + ", ".join(
                   f"{k} {v.item():.4f}" for k, v in metrics.items()))
@@ -847,7 +871,281 @@ def train_path(device, profile=False):
     for err, name in worst.values():
         if not err <= TRAIN_GRAD_TOL:
             fail(f"float32 train step gradient of {name} disagrees with the plain-kernel step")
-    return launches
+    return launches, step_ms
+
+
+def write_trainer_buffers(root):
+    """The synthetic expert buffers of phase 6, written with the port's own
+    writer: 8 train episodes of 60-100 steps in the msgpack format and 4
+    eval episodes in the flat format; rgb 224 px uint8, depth 256 px
+    float16, 200 BERT ids, float64 actions.  Returns their bytes on disk."""
+    import numpy as np
+
+    from robo_vln_tpu_torch.data.loader import write_episode
+    from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
+
+    rng = np.random.default_rng(3)
+    for name, episodes, flat in (("train", TRAINER_EPISODES, False),
+                                 ("eval", TRAINER_EVAL_EPISODES, True)):
+        with TrajectoryStore(os.path.join(root, name), writable=True) as store:
+            for key in range(episodes):
+                t = int(rng.integers(60, 101))
+                obs = {
+                    "rgb": rng.integers(0, 256, (t, 224, 224, 3), dtype=np.uint8),
+                    "depth": rng.random((t, 256, 256, 1), dtype=np.float32).astype(np.float16),
+                    "vln_oracle_action_sensor": rng.integers(1, 5, (t, 1)).astype(np.float64),
+                    "instruction": np.tile(rng.integers(1, 30522, (1, 200)), (t, 1)).astype(
+                        np.int32),
+                }
+                stop = t - int(rng.integers(1, 10))
+                write_episode(store, key, obs, rng.standard_normal((t, 2)),
+                              rng.random((t, 2)), [stop] * t, flat=flat)
+    return dir_bytes(root)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+@contextlib.contextmanager
+def instrumented_trainer(record):
+    """Time and count what the hierarchical trainer does, from outside it:
+    after ``_setup_policy`` each new trainer's ``train_step`` and ``val_step``
+    are wrapped (host time to the end of the device's work, the gap since
+    the last step, the launches of each kernel), and ``train_epoch``,
+    ``val_epoch`` and ``save_checkpoint`` are timed."""
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.training import trainable_mask
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer as HT
+
+    def counts():
+        return fused_lstm.launches, fused_attention.launches
+
+    def timed_call(kind, fn):
+        def call(*args):
+            before, t0 = counts(), time.perf_counter()
+            if kind == "train" and record["last_end"] is not None:
+                record["gaps_ms"].append((t0 - record["last_end"]) * 1e3)
+            if kind == "train":
+                record["first_steps"].append(args[0].high.step)
+            out = fn(*args)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            record[f"{kind}_ms"].append((end - t0) * 1e3)
+            launched = tuple(n - c for n, c in zip(counts(), before))
+            if launched != (2, 2):
+                fail(f"a {kind} call of the trainer launched (lstm_seq, cross_modal_attn) "
+                     f"{launched}, expected (2, 2)")
+            if kind == "train":
+                record["last_end"] = end
+            return out
+        return call
+
+    def timed_method(name, key):
+        original = getattr(HT, name)
+
+        def method(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = original(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            record[key].append((time.perf_counter() - t0) * 1e3)
+            if name == "train_epoch":
+                record["last_end"] = None
+            return out
+        return original, method
+
+    setup = HT._setup_policy
+
+    def setup_and_wrap(self, *args, **kwargs):
+        setup(self, *args, **kwargs)
+        if not record["wrap"]:
+            return
+        record["trainers"].append(self)
+        record["shared_trunks"].append(self.trunk_fn is not None)
+        if len(record["trainers"]) == 1:  # the first run's frozen weights, to hold
+            record["frozen"] = {
+                (level, n): p.detach().clone() for level, pol in (("high", self.high),
+                                                                  ("low", self.low))
+                for mask in (trainable_mask(pol),) for n, p in pol.named_parameters()
+                if not mask[n]}
+        self.train_step = timed_call("train", self.train_step)
+        self.val_step = timed_call("val", self.val_step)
+
+    saved = {name: timed_method(name, key) for name, key in (
+        ("train_epoch", "epoch_ms"), ("val_epoch", "val_epoch_ms"),
+        ("save_checkpoint", "save_ms"))}
+    try:
+        HT._setup_policy = setup_and_wrap
+        for name, (_, method) in saved.items():
+            setattr(HT, name, method)
+        yield
+    finally:
+        HT._setup_policy = setup
+        for name, (original, _) in saved.items():
+            setattr(HT, name, original)
+
+
+def check_round_trip(trainer, path, cfg):
+    """Load ``path`` into a fresh trainer of ``cfg`` and hold it bitwise to
+    ``trainer``'s state in memory: parameters and buffers, both optimizers'
+    state, both step counters.  Returns the load's ms."""
+    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+
+    fresh = HierarchicalTrainer(cfg)
+    fresh._setup_policy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.state = ckpt_lib.load_checkpoint(path, fresh.high, fresh.low, fresh.state)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    tensors = 0
+    for level in ("high", "low"):
+        got, want = getattr(fresh, level).state_dict(), getattr(trainer, level).state_dict()
+        if got.keys() != want.keys():
+            fail(f"the {level} level's reloaded state_dict has other keys")
+        for k, v in want.items():
+            if not torch.equal(got[k], v):
+                fail(f"{path}: {level} {k} differs from the saving trainer's")
+        got_opt = getattr(fresh.state, level).optimizer
+        want_opt = getattr(trainer.state, level).optimizer
+        for p_got, p_want in zip(
+                (p for g in got_opt.param_groups for p in g["params"]),
+                (p for g in want_opt.param_groups for p in g["params"])):
+            for k, v in want_opt.state[p_want].items():
+                if not torch.equal(got_opt.state[p_got][k], v):
+                    fail(f"{path}: the {level} level's optimizer state {k} differs")
+                tensors += 1
+        if getattr(fresh.state, level).step != getattr(trainer.state, level).step:
+            fail(f"{path}: the {level} level's step counter differs")
+        tensors += len(want)
+    del fresh
+    return load_ms, tensors
+
+
+def trainer_path(device, bare_step_ms, profile=False):
+    """Phase 6: python -m robo_vln_tpu_torch.run's train path, twice through
+    run_exp at full width on the card, the second run resuming the first."""
+    import shutil
+    import tempfile
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
+
+    print("phase 6: the hierarchical trainer at full width, bfloat16, B=4, tbptt 50: "
+          "python -m robo_vln_tpu_torch.run's run_exp twice (epoch 0, then a resumed epoch 1)")
+    from robo_vln_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # in the checkout, ignored by git
+    root = tempfile.mkdtemp(prefix="trainer_", dir=_build.BUILD_DIR.parent)
+    try:
+        t0 = time.perf_counter()
+        data_bytes = write_trainer_buffers(root)
+        print(f"  buffers: {TRAINER_EPISODES} train episodes (msgpack), "
+              f"{TRAINER_EVAL_EPISODES} eval episodes (flat), {data_bytes / 2**20:.1f} MiB, "
+              f"written in {time.perf_counter() - t0:.2f} s")
+        opts = ["DEVICE", str(device), "TRAINER_NAME", "hierarchical_trainer",
+                "DAGGER.BATCH_SIZE", 4, "DAGGER.tbptt_steps", 50,
+                "DAGGER.EPISODE_LEN_BUCKETS", [100], "DAGGER.EPOCHS", 2,
+                "DAGGER.MAX_EPOCHS_PER_RUN", 1, "DAGGER.RESUME", True,
+                "DAGGER.PRELOAD_LMDB_FEATURES", True,
+                "DAGGER.LMDB_FEATURES_DIR", os.path.join(root, "train"),
+                "DAGGER.LMDB_EVAL_DIR", os.path.join(root, "eval"),
+                "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"),
+                "TENSORBOARD_DIR", os.path.join(root, "tb"),
+                "LOG_FILE", os.path.join(root, "train.log"),
+                "MODEL.INSTRUCTION_ENCODER.is_bert", True,
+                "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True, "TPU.PRECISION", "bfloat16"]
+        cfg = get_config(opts=opts)
+        record = {k: [] for k in ("trainers", "shared_trunks", "train_ms", "val_ms", "gaps_ms",
+                                  "first_steps", "epoch_ms", "val_epoch_ms", "save_ms")}
+        record["last_end"], record["wrap"] = None, True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_lstm.reset_launches()
+        fused_attention.reset_launches()
+        with instrumented_trainer(record):
+            t0 = time.perf_counter()
+            run_exp(None, "train", opts)
+            run1_ms = (time.perf_counter() - t0) * 1e3
+            trainer = record["trainers"][0]
+            peak1 = torch.cuda.max_memory_allocated()
+            changed = [k for k, v in record.pop("frozen").items()
+                       if not torch.equal(getattr(trainer, k[0]).get_parameter(k[1]), v)]
+            if changed:
+                fail(f"frozen parameters changed in training: {changed[:5]}")
+            ckpt2 = os.path.join(cfg.CHECKPOINT_FOLDER, "ckpt.2")
+            if ckpt_lib.list_checkpoints(cfg.CHECKPOINT_FOLDER) != [ckpt2]:
+                fail(f"run 1 wrote {ckpt_lib.list_checkpoints(cfg.CHECKPOINT_FOLDER)}")
+            record["wrap"] = False  # the fresh trainer is not a run's
+            load_ms, tensors = check_round_trip(trainer, ckpt2, cfg)
+            record["wrap"] = True
+            del trainer
+            record["trainers"].clear()
+            t0 = time.perf_counter()
+            if profile:
+                profile_section("trainer run 2 (resume, one epoch and its validation)",
+                                lambda: run_exp(None, "train", opts), top=16,
+                                ranges=("hier_train_step.forward", "hier_train_step.backward",
+                                        "lstm_seq.backward_replay",
+                                        "hier_train_step.optimizer"))
+            else:
+                run_exp(None, "train", opts)
+            run2_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"lstm_seq": fused_lstm.launches, "cross_modal_attn": fused_attention.launches}
+        record["trainers"].clear()
+        ckpts = ckpt_lib.list_checkpoints(cfg.CHECKPOINT_FOLDER)
+        meta = ckpt_lib.load_metadata(ckpts[-1])
+        if [os.path.basename(c) for c in ckpts] != ["ckpt.2", "ckpt.3"] or \
+                meta["train_steps"] != 8:
+            fail(f"run 2 did not resume to ckpt.3 with 8 train steps: {ckpts}, {meta}")
+        if record["first_steps"][4] != 4:
+            fail(f"run 2's first step ran at step {record['first_steps'][4]}, not 4")
+        if record["shared_trunks"] != [True, True]:
+            fail(f"the trainers did not share their trunks: {record['shared_trunks']}")
+        with open(os.path.join(cfg.TENSORBOARD_DIR, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [m for m in logged if "Loss" in m["tag"]]
+        if len([m for m in losses if m["tag"].startswith("Train")]) != 4 * 8 or not all(
+                math.isfinite(m["value"]) for m in losses):
+            fail("the trainer's logged losses are not 4 finite values a step over 8 steps")
+        if (len(record["train_ms"]), len(record["val_ms"])) != (8, 4):
+            fail(f"{len(record['train_ms'])} train steps and {len(record['val_ms'])} val "
+                 "windows, expected 8 and 4")
+        if launches != {"lstm_seq": 24, "cross_modal_attn": 24}:
+            fail(f"the trainer path launched {launches}, expected 24 of each")
+        ckpt_bytes = dir_bytes(ckpt2)
+        peak = torch.cuda.max_memory_allocated()
+        steps = record["train_ms"]
+        print(f"  run 1 (build, epoch 0, validation): {run1_ms:.1f} ms; run 2 (resume from "
+              f"ckpt.2, epoch 1, validation): {run2_ms:.1f} ms; shared trunks: "
+              f"{record['shared_trunks']}")
+        print("  train steps, host ms to the end of the device's work: "
+              + " ".join(f"{t:.3f}" for t in steps))
+        print("  gaps between steps inside an epoch (loader wait, logging), ms: "
+              + " ".join(f"{t:.3f}" for t in record["gaps_ms"]))
+        print("  train epochs (checkpoint save included), ms: "
+              + " ".join(f"{t:.1f}" for t in record["epoch_ms"]))
+        print("  checkpoint saves, ms: " + " ".join(f"{t:.1f}" for t in record["save_ms"])
+              + f"; ckpt.2 on disk {ckpt_bytes / 2**20:.1f} MiB")
+        print(f"  checkpoint load into a fresh trainer: {load_ms:.1f} ms, {tensors} tensors "
+              "bitwise equal to the saving trainer's (parameters, buffers, Adam state)")
+        print("  val windows, ms: " + " ".join(f"{t:.3f}" for t in record["val_ms"])
+              + "; val epochs, ms: " + " ".join(f"{t:.1f}" for t in record["val_epoch_ms"]))
+        inner = [t for i, t in enumerate(steps) if i % 4]  # not the first step of a run
+        print(f"  steps 2-4 of each run: median {statistics.median(inner):.3f} ms against "
+              f"phase 5's bare step, steps 1-4: median {statistics.median(bare_step_ms[1:]):.3f} ms")
+        print(f"  peak device memory: run 1 {peak1 / 2**30:.3f} GiB, both runs "
+              f"{peak / 2**30:.3f} GiB")
+        print(f"  launches on the trainer path: {launches} (2 a train step and a val window)")
+        print(f"  run 2 started at step {record['first_steps'][4]} and wrote ckpt.3 with "
+              f"train_steps {meta['train_steps']}, scheduler_step {meta['scheduler_step']}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -882,10 +1180,12 @@ def main():
         kernels[1].update(check_wider_shapes(gen, device))
     profile = "--profile" in sys.argv[1:]
     launches = main_path(device, profile)
-    train_launches = train_path(device, profile)
+    train_launches, bare_step_ms = train_path(device, profile)
+    trainer_launches = trainer_path(device, bare_step_ms, profile)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
+        k["trainer_launches"] = trainer_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,41 @@
-"""Config tree of the PyTorch port: the subtree the HCM agent and its
-train step read.
+"""Config tree of the PyTorch port: the keys its HCM agent, train step and
+hierarchical trainer read, and the keys the shipped experiment yamls set.
 
-A copy of the keys of robo_vln_tpu/config/default.py that the serving path
-and the hierarchical train step of the HCM agent read — ``TPU.*`` switches,
-the ``DAGGER.*`` learning rates, the ``MODEL.*`` stanzas of the two policies
-and their weight decay — with the same names and defaults, so a config
-written for the JAX package sets the same model here.  Keys that only the
-port reads are marked "port-only".  ``TPU.DONATE`` is left out: eager
-PyTorch updates parameters in place, so there is no buffer to donate.
+A copy of the keys of robo_vln_tpu/config/default.py with the same names and
+defaults, so a config written for the JAX package sets the same model and
+the same training loop here: the top-level paths, ``TASK_CONFIG`` (built from
+``BASE_TASK_CONFIG_PATH`` as the JAX package builds it), the ``TPU.*``
+switches, the ``DAGGER`` loop, the ``MODEL.*`` stanzas of the two policies,
+the pretrained-file keys and the ``EVAL.*`` keys of
+``configs/hierarchical_cma.yaml``.  A key no port code reads yet names the
+ROADMAP item (§A) that will read it.  Keys that only the port reads are
+marked "port-only".  ``TPU.DONATE`` is left out: eager PyTorch updates
+parameters in place, so there is no buffer to donate.
 """
 
+import os
 from typing import List, Optional, Union
 
+from .task import get_task_config
 from .tree import ConfigTree
 
+_CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+# the shipped yamls name their task config under the JAX package's config
+# directory; the port reads its own byte-identical copy instead
+_JAX_CONFIGS = "robo_vln_tpu/config/configs/"
+
 _C = ConfigTree()
+_C.BASE_TASK_CONFIG_PATH = ""
+_C.TASK_CONFIG = ConfigTree()
+_C.CMD_TRAILING_OPTS = []
+_C.TRAINER_NAME = "robo_vln_trainer"
+# port-only: the device the entry point trains on; "cpu" only when asked for
+_C.DEVICE = "cuda"
+_C.NUM_PROCESSES = 1  # env processes of collection and eval (ROADMAP §A items 3, 5)
+_C.TENSORBOARD_DIR = "data/tensorboard_dirs/debug"
+_C.CHECKPOINT_FOLDER = "data/checkpoints"
+_C.LOG_FILE = "train.log"
+_C.EVAL_CKPT_PATH_DIR = "data/checkpoints"  # the eval slice (ROADMAP §A item 3)
 
 _C.TPU = ConfigTree()
 # compute dtype of the encoders and the attention ("bfloat16" or "float32");
@@ -23,6 +44,9 @@ _C.TPU.PRECISION = "bfloat16"
 # run the frozen conv trunks once per step and feed both policies; used only
 # when the two policies' trunk weights are bitwise identical
 _C.TPU.SHARE_FROZEN_TRUNKS = True
+# copy the high level's frozen trunks into the low level's when the trainer
+# sets up random weights (models.sync_frozen_trunks)
+_C.TPU.SYNC_FROZEN_TRUNKS_ON_INIT = False
 # recompute the train step's forward in its backward
 # (torch.utils.checkpoint), trading compute for activation memory
 _C.TPU.REMAT = False
@@ -33,6 +57,14 @@ _C.TPU.APPLY_INFLECTION_WEIGHTS = False
 # instead of zeroing predictions where the target is exactly 0
 _C.TPU.VALID_MASK_VELOCITY_MSE = False
 
+# the keys of the yaml's EVAL stanza; the eval slice reads them (ROADMAP §A
+# item 3)
+_C.EVAL = ConfigTree()
+_C.EVAL.SPLIT = "val_seen"
+_C.EVAL.USE_CKPT_CONFIG = True
+_C.EVAL.EPISODE_COUNT = 2
+_C.EVAL.VAL_LOG_DIR = "validation_logging"
+
 _C.DAGGER = ConfigTree()
 _C.DAGGER.LR = 1e-4
 # the high level's triangular CyclicLR (training/optimizers.cyclic_triangular_lr)
@@ -40,12 +72,76 @@ _C.DAGGER.CYCLIC_BASE_LR = 2e-6
 _C.DAGGER.CYCLIC_MAX_LR = 1e-4
 _C.DAGGER.CYCLIC_STEP_SIZE_UP = 1000
 _C.DAGGER.CYCLIC_STEP_SIZE_DOWN = 30000
+_C.DAGGER.ITERATIONS = 1
+_C.DAGGER.EPOCHS = 10
+# the batch of one step on the one device (the JAX trainer scales it by its
+# mesh's data axis)
+_C.DAGGER.BATCH_SIZE = 3
+_C.DAGGER.tbptt_steps = 100
 _C.DAGGER.USE_IW = True
+# DAgger collection (envs/, ROADMAP §A item 5)
+_C.DAGGER.UPDATE_SIZE = 5000
+_C.DAGGER.P = 1.0
+_C.DAGGER.time_step = 1.0 / 30
+_C.DAGGER.COLLECT_DATA_SPLIT = "train"
+_C.DAGGER.LMDB_COMMIT_FREQUENCY = 500
+_C.DAGGER.COLLECT_ACTION_NOISE = 0.0
+# inert in the reference and the JAX package too
+_C.DAGGER.LMDB_MAP_SIZE = 2.7e12
+_C.DAGGER.LMDB_EVAL_SIZE = 1e11
+_C.DAGGER.split_dim = 0
+_C.DAGGER.INTER_MODULE_ATTN = False
+_C.DAGGER.LMDB_STORE_FREQUENCY = 5
+# >1: the process-parallel loader (data/parallel_loader.py, ROADMAP §A
+# item 2), not ported: the trainer raises
+_C.DAGGER.LOADER_WORKERS = 0
+# False: collect inside the DAgger loop (envs/, ROADMAP §A item 5), not
+# ported: the trainer raises; likewise COLLECT_ONLY
+_C.DAGGER.PRELOAD_LMDB_FEATURES = False
+_C.DAGGER.COLLECT_ONLY = False
+_C.DAGGER.LMDB_FEATURES_DIR = "data/trajectories_dirs/debug/trajectories.lmdb"
+_C.DAGGER.LMDB_EVAL_DIR = "data/trajectories_dirs/debug/trajectories.lmdb"
+_C.DAGGER.LOAD_FROM_CKPT = False
+_C.DAGGER.CKPT_TO_LOAD = "data/checkpoints/ckpt.0"
+# continue from the newest ckpt.{EPOCHS+k} of CHECKPOINT_FOLDER: weights,
+# both optimizers' state, the step counters, the LR schedule's position and
+# the logging counters, so the resumed run repeats an uninterrupted one
+_C.DAGGER.RESUME = False
+# stop after this many epochs in this process (0: run to the end)
+_C.DAGGER.MAX_EPOCHS_PER_RUN = 0
+# train from cached trunk features (training/featurize.py, ROADMAP §A item
+# 4), not ported: the trainer raises
+_C.DAGGER.PRELOAD_TRUNK_FEATURES = False
+# static episode-length buckets the loader pads to
+_C.DAGGER.EPISODE_LEN_BUCKETS = [100, 200, 300, 400, 500, 700, 1000]
+_C.DAGGER.MAX_INSTRUCTION_LEN = 200
 
 _C.MODEL = ConfigTree()
 _C.MODEL.inflection_weight_coef = 3.2
 _C.MODEL.ablate_depth = False
 _C.MODEL.ablate_rgb = False
+
+# the loader reads is_bert (BERT ids or GloVe ids); the rest is the flat
+# family's GloVe instruction encoder (ROADMAP §A item 6)
+_C.MODEL.INSTRUCTION_ENCODER = ConfigTree()
+_C.MODEL.INSTRUCTION_ENCODER.num_layers = 1
+_C.MODEL.INSTRUCTION_ENCODER.vocab_size = 2504
+_C.MODEL.INSTRUCTION_ENCODER.max_length = 200
+_C.MODEL.INSTRUCTION_ENCODER.use_pretrained_embeddings = True
+_C.MODEL.INSTRUCTION_ENCODER.embedding_file = (
+    "data/datasets/robo_vln_v1/embeddings.json.gz"
+)
+_C.MODEL.INSTRUCTION_ENCODER.fine_tune_embeddings = False
+_C.MODEL.INSTRUCTION_ENCODER.dataset_vocab = (
+    "data/datasets/R2R_VLNCE_v1_preprocessed/train/train.json.gz"
+)
+_C.MODEL.INSTRUCTION_ENCODER.embedding_size = 50
+_C.MODEL.INSTRUCTION_ENCODER.hidden_size = 256
+_C.MODEL.INSTRUCTION_ENCODER.rnn_type = "LSTM"
+_C.MODEL.INSTRUCTION_ENCODER.final_state_only = True
+_C.MODEL.INSTRUCTION_ENCODER.bidirectional = False
+_C.MODEL.INSTRUCTION_ENCODER.dropout_ratio = 0.25
+_C.MODEL.INSTRUCTION_ENCODER.is_bert = False
 
 _C.MODEL.VISUAL_LING_ATTN = ConfigTree()
 _C.MODEL.VISUAL_LING_ATTN.N = 1
@@ -56,15 +152,20 @@ _C.MODEL.VISUAL_LING_ATTN.h = 4
 _C.MODEL.VISUAL_LING_ATTN.d_ff = 1024
 _C.MODEL.VISUAL_LING_ATTN.dropout = 0.25
 
+# pretrained backbone files: the trainer refuses one that exists, because the
+# port loads none yet (utils/pretrained.py, ROADMAP §A item 8)
 _C.MODEL.RGB_ENCODER = ConfigTree()
 _C.MODEL.RGB_ENCODER.output_size = 256
 _C.MODEL.RGB_ENCODER.blocks = [3, 4, 6, 3]  # ResNet50 stage depths
+_C.MODEL.RGB_ENCODER.pretrained_weights = "data/weights/resnet50_imagenet.npz"
 
 _C.MODEL.DEPTH_ENCODER = ConfigTree()
 _C.MODEL.DEPTH_ENCODER.output_size = 128
 _C.MODEL.DEPTH_ENCODER.blocks = [3, 4, 6, 3]
+_C.MODEL.DEPTH_ENCODER.ddppo_checkpoint = "data/ddppo-models/gibson-2plus-resnet50.pth"
 # port-only: side of the square depth frame.  It sizes the spatial-embedding
-# table and the flattened depth heads, which flax infers from the first input
+# table and the flattened depth heads, which flax infers from the first
+# input; get_config sets it from TASK_CONFIG.SIMULATOR.DEPTH_SENSOR
 _C.MODEL.DEPTH_ENCODER.input_size = 256
 
 _C.MODEL.STATE_ENCODER = ConfigTree()
@@ -79,6 +180,7 @@ _C.MODEL.BERT.num_heads = 12
 _C.MODEL.BERT.intermediate_size = 3072
 _C.MODEL.BERT.max_position_embeddings = 512
 _C.MODEL.BERT.type_vocab_size = 2
+_C.MODEL.BERT.pretrained_weights = "data/weights/bert_base_uncased.npz"
 # deviation from the reference (off): train BERT with the policy instead of
 # keeping it frozen
 _C.MODEL.BERT.trainable = False
@@ -88,17 +190,50 @@ _C.MODEL.TRANSFORMER = ConfigTree()
 _C.MODEL.TRANSFORMER.weight_decay = 1e-3
 
 
+def _task_config_path(path: str) -> str:
+    """Where the port reads a task config: its own copy of a yaml shipped
+    under the JAX package's config directory, any other path as given."""
+    if os.path.normpath(path).startswith(os.path.normpath(_JAX_CONFIGS)):
+        return os.path.join(_CONFIGS, os.path.relpath(path, _JAX_CONFIGS))
+    return path
+
+
+def depth_input_size(config: ConfigTree) -> int:
+    """The side of the square depth frame of TASK_CONFIG's depth sensor,
+    which MODEL.DEPTH_ENCODER.input_size must equal."""
+    sensor = config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR
+    if sensor.WIDTH != sensor.HEIGHT:
+        raise ValueError(f"the depth encoder takes a square frame, not "
+                         f"{sensor.HEIGHT}x{sensor.WIDTH} (TASK_CONFIG.SIMULATOR.DEPTH_SENSOR)")
+    size = config.MODEL.DEPTH_ENCODER.input_size
+    if size != sensor.WIDTH:
+        raise ValueError(f"MODEL.DEPTH_ENCODER.input_size {size} disagrees with the "
+                         f"{sensor.WIDTH} px depth sensor of TASK_CONFIG")
+    return size
+
+
 def get_config(
     config_paths: Optional[Union[List[str], str]] = None,
     opts: Optional[list] = None,
 ) -> ConfigTree:
-    """defaults <- yaml(s) <- opts, frozen."""
+    """defaults <- yaml(s) <- opts, frozen; TASK_CONFIG is built from
+    BASE_TASK_CONFIG_PATH as the JAX package's get_config builds it.
+    MODEL.DEPTH_ENCODER.input_size follows the task's depth sensor; set to
+    another size, it raises."""
     config = _C.clone()
     if isinstance(config_paths, str):
         config_paths = [config_paths]
     for p in config_paths or []:
         config.merge_from_file(p)
+    task_path = config.BASE_TASK_CONFIG_PATH
+    config.TASK_CONFIG = get_task_config(
+        _task_config_path(task_path) if task_path else None).clone().defrost()
     if opts:
+        config.CMD_TRAILING_OPTS = list(opts)
         config.merge_from_list(opts)
+    depth = config.MODEL.DEPTH_ENCODER
+    if depth.input_size == _C.MODEL.DEPTH_ENCODER.input_size:
+        depth.input_size = config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH
+    depth_input_size(config)
     config.freeze()
     return config

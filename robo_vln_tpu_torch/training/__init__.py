@@ -1,6 +1,10 @@
 """The hierarchical train step (counterpart of robo_vln_tpu/training/steps.py
 and optimizers.py): losses in ops/losses.py, AdamW / Adam over the trainable
-parameters, dropout, the non-finite guard and optional recompute."""
+parameters, dropout, the non-finite guard and optional recompute; and the
+hierarchical trainer with its checkpoints (hierarchical_trainer.py,
+checkpoint.py), registered as ``hierarchical_trainer``."""
+
+from . import hierarchical_trainer  # noqa: F401 (registers the trainer)
 
 from .optimizers import (
     FROZEN_MODULE_NAMES,

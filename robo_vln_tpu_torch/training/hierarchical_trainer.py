@@ -1,0 +1,308 @@
+"""The hierarchical (HCM) trainer (counterpart of
+robo_vln_tpu/training/hierarchical_trainer.py).
+
+Two policies with two optimizers (AdamW high with the triangular CyclicLR,
+Adam low), one optimizer step of each per TBPTT window
+(training/steps.make_hier_train_step), the CyclicLR stepped once per outer
+batch, a checkpoint per epoch (training/checkpoint.py) and a validation
+epoch over the eval buffer with the high level's accuracy.
+
+One device: the batch of a step is ``DAGGER.BATCH_SIZE`` (the JAX trainer
+scales it by its mesh's data axis), on ``DEVICE`` (CUDA unless the config
+asks for the CPU).  A worker thread decodes, collates and copies the
+windows one ahead of the step (envs/async_env.window_stream).  Each step's
+metrics reach the host in one transfer: the step already synchronises once
+for its non-finite guard.
+
+Weights are random from ``TASK_CONFIG.SEED`` (the port loads no pretrained
+backbone files yet, ROADMAP §A item 8); ``TPU.SYNC_FROZEN_TRUNKS_ON_INIT``
+copies the high level's frozen trunks into the low level's, so that the
+shared-trunk pass (``TPU.SHARE_FROZEN_TRUNKS``) can run: it runs only when
+the two policies' trunks are bitwise identical.
+
+Options the port does not have yet raise before any work
+(:meth:`HierarchicalTrainer._check_ported`).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config.default import depth_input_size
+from ..data.loader import split_tbptt
+from ..envs.async_env import device_transfer, window_stream
+from ..models import (
+    build_hierarchical_policies,
+    frozen_trunks_identical,
+    make_shared_trunk_fn,
+    sync_frozen_trunks,
+)
+from ..utils.device import resolve_device, resolve_dtype
+from ..utils.logging import MetricsWriter, logger
+from ..utils.registry import register_trainer
+from . import checkpoint as ckpt_lib
+from . import optimizers as opt_lib
+from . import steps as steps_lib
+from .trainer import BaseTrainer
+
+# (metrics key, tag) of each scalar logged per train step and val window,
+# under the JAX trainer's tags
+TRAIN_SCALARS = (
+    ("high_level_loss", "Train High Level Action Loss"),
+    ("low_level_action_loss", "Train Low Level Action Loss"),
+    ("low_level_stop_loss", "Train Low Level Stop Loss"),
+    ("low_level_total_loss", "Train Low_level Total Loss"),
+)
+VAL_KEYS = ("high_level_loss", "low_level_total_loss", "high_level_accuracy")
+
+
+def _host_values(metrics, keys):
+    """The metrics named by ``keys`` as floats, in one device-to-host copy."""
+    return torch.stack([metrics[k].float() for k in keys]).tolist()
+
+
+@register_trainer("hierarchical_trainer")
+class HierarchicalTrainer(BaseTrainer):
+    def __init__(self, config):
+        self.config = config
+        self.device = resolve_device(config.DEVICE)
+        self.dtype = resolve_dtype(config.TPU.PRECISION)
+        depth_input_size(config)
+        self.batch_size = config.DAGGER.BATCH_SIZE
+        self.features_dir = config.DAGGER.LMDB_FEATURES_DIR.format(
+            split=config.TASK_CONFIG.DATASET.SPLIT
+        )
+        self.eval_dir = config.DAGGER.LMDB_EVAL_DIR
+        self.high = None
+        self.low = None
+        self.state = None
+        self.trunk_fn = None
+        self._scheduler_step = 0
+        self._train_steps = 0
+        self._val_steps = 0
+
+    def _check_ported(self) -> None:
+        """Refuse, before any work, the options whose modules the port does
+        not have yet, each naming its ROADMAP item."""
+        d = self.config.DAGGER
+        if int(d.LOADER_WORKERS) > 1:
+            raise NotImplementedError(
+                "DAGGER.LOADER_WORKERS > 1: the process-parallel loader "
+                "(data/parallel_loader.py) is not ported yet (ROADMAP §A item 2)")
+        if d.PRELOAD_TRUNK_FEATURES:
+            raise NotImplementedError(
+                "DAGGER.PRELOAD_TRUNK_FEATURES: the trunk feature store "
+                "(training/featurize.py) is not ported yet (ROADMAP §A item 4)")
+        if not d.PRELOAD_LMDB_FEATURES or d.COLLECT_ONLY:
+            raise NotImplementedError(
+                "DAGGER.PRELOAD_LMDB_FEATURES false or DAGGER.COLLECT_ONLY: DAgger "
+                "collection (envs/) is not ported yet (ROADMAP §A item 5); train from "
+                "a collected buffer with DAGGER.PRELOAD_LMDB_FEATURES true")
+
+    def _check_pretrained_files(self) -> None:
+        """The port loads no pretrained backbone yet: a file that exists
+        would be ignored silently, so it raises; absent files leave the
+        backbones random, as in the JAX package."""
+        mc = self.config.MODEL
+        files = (("DEPTH_ENCODER.ddppo_checkpoint", mc.DEPTH_ENCODER.ddppo_checkpoint),
+                 ("RGB_ENCODER.pretrained_weights", mc.RGB_ENCODER.pretrained_weights),
+                 ("BERT.pretrained_weights", mc.BERT.pretrained_weights))
+        present = [f"MODEL.{key} = {path!r}" for key, path in files
+                   if path and os.path.exists(path)]
+        if present:
+            raise NotImplementedError(
+                f"pretrained backbone files exist ({'; '.join(present)}); the port "
+                "does not load them yet (utils/pretrained.py, ROADMAP §A item 8)")
+        for key, path in files:
+            logger.warning(f"pretrained weights MODEL.{key} not found at {path!r}; "
+                           "that backbone stays RANDOM")
+
+    def _setup_policy(self, load_from_ckpt: bool = False, ckpt_path: str = "") -> None:
+        cfg = self.config
+        self._check_pretrained_files()
+        self.high, self.low = build_hierarchical_policies(
+            cfg.MODEL, compute_dtype=self.dtype,
+            generator=torch.Generator().manual_seed(cfg.TASK_CONFIG.SEED),
+        )
+        if cfg.TPU.SYNC_FROZEN_TRUNKS_ON_INIT:
+            sync_frozen_trunks(self.high, self.low)
+        self.high.to(self.device)
+        self.low.to(self.device)
+        n_params = sum(p.numel() for m in (self.high, self.low) for p in m.parameters())
+        logger.info(f"agent number of parameters: {n_params}")
+
+        wd = cfg.MODEL.TRANSFORMER.weight_decay
+        unfrozen = self._unfrozen_names()
+        self.state = steps_lib.HierTrainState(
+            steps_lib.TrainState(opt_lib.adamw(self.high, wd, unfrozen), 0),
+            steps_lib.TrainState(opt_lib.adam(self.low, wd, unfrozen), 0),
+        )
+        if load_from_ckpt and ckpt_path:
+            self.state = ckpt_lib.load_checkpoint(ckpt_path, self.high, self.low, self.state)
+            logger.info(f"Loaded weights from checkpoint: {ckpt_path}")
+
+        self.trunk_fn = self._maybe_trunk_fn()
+        vvm = cfg.TPU.VALID_MASK_VELOCITY_MSE
+        self.train_step = steps_lib.make_hier_train_step(
+            self.high, self.low, trunk_fn=self.trunk_fn, remat=cfg.TPU.REMAT,
+            inflection_coef=steps_lib.inflection_coef_from(cfg),
+            valid_velocity_mse=vvm,
+        )
+        self.val_step = steps_lib.make_hier_val_step(
+            self.high, self.low, trunk_fn=self.trunk_fn, valid_velocity_mse=vvm,
+        )
+
+    def _maybe_trunk_fn(self):
+        """The shared frozen-trunk forward when enabled and safe (both
+        policies hold bitwise-identical trunks); checked after any weight
+        load."""
+        if not self.config.TPU.SHARE_FROZEN_TRUNKS:
+            return None
+        if not frozen_trunks_identical(self.high, self.low):
+            logger.info(
+                "frozen trunk weights differ between high/low policies; "
+                "trunk sharing disabled (two-pass forward)"
+            )
+            return None
+        logger.info(
+            "frozen trunks identical: sharing one ResNet pass per modality "
+            "across both policies (TPU.SHARE_FROZEN_TRUNKS)"
+        )
+        return make_shared_trunk_fn(self.high)
+
+    def _metadata(self):
+        return {
+            "config": self.config.to_dict(),
+            "scheduler_step": int(self._scheduler_step),
+            "train_steps": int(self._train_steps),
+            "val_steps": int(self._val_steps),
+        }
+
+    def _epoch_checkpoint(self, epoch: int) -> str:
+        """The per-epoch name, ckpt.{EPOCHS+epoch} (the reference's scheme)."""
+        return f"ckpt.{self.config.DAGGER.EPOCHS + epoch}"
+
+    def save_checkpoint(self, file_name: str) -> None:
+        path = os.path.join(self.config.CHECKPOINT_FOLDER, file_name)
+        ckpt_lib.save_checkpoint(path, self.high, self.low, self.state,
+                                 metadata=self._metadata())
+
+    def _initial_hidden(self):
+        b = self.batch_size
+        return (self.high.initial_hidden(b, self.device),
+                self.low.initial_hidden(b, self.device))
+
+    def train_epoch(self, batches, epoch, writer, train_steps):
+        cfg = self.config
+        lr_low = cfg.DAGGER.LR
+        scheduler_step = self._scheduler_step
+        cyc = dict(
+            base_lr=cfg.DAGGER.CYCLIC_BASE_LR, max_lr=cfg.DAGGER.CYCLIC_MAX_LR,
+            step_size_up=cfg.DAGGER.CYCLIC_STEP_SIZE_UP,
+            step_size_down=cfg.DAGGER.CYCLIC_STEP_SIZE_DOWN,
+        )
+        lr_high = opt_lib.cyclic_triangular_lr(scheduler_step, **cyc)
+        send, receive = device_transfer(self.device)
+        hh = lh = None
+        for is_first, window in window_stream(
+            batches, send, lambda b: split_tbptt(b, cfg.DAGGER.tbptt_steps), receive,
+        ):
+            if is_first:
+                if hh is not None:
+                    scheduler_step += 1  # per outer batch (ref :739)
+                    lr_high = opt_lib.cyclic_triangular_lr(scheduler_step, **cyc)
+                hh, lh = self._initial_hidden()
+            self.state, hh, lh, metrics = self.train_step(
+                self.state, hh, lh, window, lr_high, lr_low
+            )
+            values = _host_values(metrics, [k for k, _ in TRAIN_SCALARS])
+            for (_, tag), value in zip(TRAIN_SCALARS, values):
+                writer.add_scalar(tag, value, train_steps)
+            train_steps += 1
+        if hh is not None:
+            scheduler_step += 1  # the final batch
+        self._scheduler_step = scheduler_step
+        self._train_steps = train_steps
+        self.save_checkpoint(self._epoch_checkpoint(epoch))
+        return train_steps
+
+    def val_epoch(self, batches, epoch, writer, val_steps):
+        cfg = self.config
+        send, receive = device_transfer(self.device)
+        high_losses, low_losses, accs = [], [], []
+        for batch in batches:
+            hh, lh = self._initial_hidden()
+            for window in split_tbptt(batch, cfg.DAGGER.tbptt_steps):
+                window = send(window)
+                if receive is not None:
+                    window = receive(window)
+                hh, lh, metrics = self.val_step(hh, lh, window)
+                high, low, acc = _host_values(metrics, VAL_KEYS)
+                writer.add_scalar("Val High Level Loss", high, val_steps)
+                writer.add_scalar("Val Low Level Loss", low, val_steps)
+                val_steps += 1
+                high_losses.append(high)
+                low_losses.append(low)
+                accs.append(acc)
+        if high_losses:
+            writer.add_scalar(
+                "Val High Level Loss Epoch", float(np.mean(high_losses)), epoch
+            )
+            writer.add_scalar(
+                "Val Low Level Loss Epoch", float(np.mean(low_losses)), epoch
+            )
+            writer.add_scalar(
+                "Validation Accuracy", 100.0 * float(np.mean(accs)), epoch
+            )
+        self._val_steps = val_steps
+        return val_steps
+
+    def train(self) -> None:
+        cfg = self.config
+        self._check_ported()
+        start_epoch, resume_ckpt, resume_meta = (
+            self._find_resume() if cfg.DAGGER.RESUME else (0, "", {})
+        )
+        if resume_ckpt:
+            self._setup_policy(True, resume_ckpt)
+            self._scheduler_step = int(resume_meta.get("scheduler_step", 0))
+            logger.info(f"resuming at epoch {start_epoch} from {resume_ckpt}")
+        else:
+            self._setup_policy(cfg.DAGGER.LOAD_FROM_CKPT, cfg.DAGGER.CKPT_TO_LOAD)
+        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
+        with MetricsWriter(cfg.TENSORBOARD_DIR) as writer:
+            train_steps = int(resume_meta.get("train_steps", 0))
+            val_steps = int(resume_meta.get("val_steps", 0))
+            self._train_steps, self._val_steps = train_steps, val_steps
+            done_through = start_epoch
+            for _, epochs in self._iteration_plan(start_epoch):
+                for epoch in epochs:
+                    t0 = time.time()
+                    train_steps = self.train_epoch(
+                        self._batches(self.features_dir, seed=epoch),
+                        epoch, writer, train_steps,
+                    )
+                    if os.path.exists(self.eval_dir):
+                        val_steps = self.val_epoch(
+                            self._batches(self.eval_dir, seed=epoch),
+                            epoch, writer, val_steps,
+                        )
+                        # the epoch's checkpoint was saved before its
+                        # validation: record the validation's counter too,
+                        # so a resumed run logs where this one would have
+                        ckpt_lib.write_metadata(
+                            os.path.join(cfg.CHECKPOINT_FOLDER,
+                                         self._epoch_checkpoint(epoch)),
+                            self._metadata())
+                    logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
+                done_through = epochs.stop
+            if done_through < self._total_epochs:
+                logger.info(
+                    f"stopping after epoch {done_through - 1} "
+                    "(DAGGER.MAX_EPOCHS_PER_RUN); a DAGGER.RESUME run "
+                    f"continues at epoch {done_through}"
+                )

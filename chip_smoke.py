@@ -16,7 +16,14 @@ exit code and no result line:
    kernel (also at every H range of its template and at batches beyond one
    launch; timed at the tick's
    shape, and as its grid running nothing but the step-to-step exchange of
-   h, the floor under a step) and the cross-modal attention
+   h, the floor under a step), the LSTM's backward kernel at the same
+   shapes (held to ops/rnn.lstm_recurrence_backward and to the autograd
+   replay of lstm_recurrence, each gradient within 1e-4 of its norm, every
+   other shape with the masks' gradient, its launches one a slice of rows;
+   a forward, backward, forward, backward sequence on one workspace, the
+   second of each bitwise equal to the first; timed as a whole call and as
+   its launch alone against the plain backward, the replay and cuDNN's
+   backward), and the cross-modal attention
    kernel in its three routes: float32 on the tensor cores (3xTF32, the
    route of every float32 call at these shapes), float32 on the CUDA cores
    (the route of float32 shapes the first does not take) and
@@ -31,10 +38,11 @@ exit code and no result line:
    also timed unqueued, at the host's dispatch rate.  Phase 3c: shapes
    past the kernels' former ranges (bfloat16 attention at S=144, the depth
    tokens of a 384 px frame, and S=300 in key blocks; float32 attention at
-   S=500, K and V read in place; the LSTM at H=556, a ragged grid) must
-   launch their kernel once and match the plain version; S=144 is timed
-   at the window's size; shapes no kernel takes (an unaligned bfloat16
-   call, the LSTM at H=1028) must raise before any launch.
+   S=500, K and V read in place; the LSTM and its backward at H=556, a
+   ragged grid) must launch their kernel once and match the plain version;
+   S=144 is timed at the window's size; shapes no kernel takes (an
+   unaligned bfloat16 call, the LSTM and its backward at H=1028, the
+   backward's own predicate) must raise before any launch.
 4. Serving path at full published width (BERT-base, TV-ResNet50 at 224 px,
    DDPPO GN-ResNet50 at 256 px, VisualLingAttn d_model 256 / 4 heads, LSTM(512)),
    random weights from seed 0, bfloat16 compute: three teacher-forced windows
@@ -50,16 +58,19 @@ exit code and no result line:
    width in bfloat16, random weights from seed 0, on the bench's batch
    (B=4, T=50, 200 tokens; AdamW with weight decay 1e-5 on the high level,
    Adam without on the low level, lr 1e-4): five steps, each timed with
-   CUDA events and the host clock, each launching each kernel exactly twice;
+   CUDA events and the host clock, each launching each kernel exactly twice
+   (the LSTM's forward and its backward twice each);
    every loss finite, the frozen parameters bitwise unchanged, every
    trainable one given a gradient and moved (but the progress monitors,
    which nothing calls: no gradient, unchanged); the peak memory.  With
    --profile, one step is
-   traced, split into forward, backward (and its LSTM and attention
-   replays) and optimizer.  Then one float32 step, against the same step
-   with both kernels swapped for their plain versions, from the same
-   weights and batch (lr 0, so the weights stay): losses within 1e-4
-   relative, each trainable leaf's gradient within 1e-3 of its norm.
+   traced, split into forward, backward (and in it the LSTM's backward
+   kernel and attention's replay) and optimizer.  Then one float32 step,
+   against the same step with every kernel swapped for its plain version
+   (the LSTM's backward for the autograd replay), from the same weights and
+   batch (lr 0, so the weights stay): losses within 1e-4 relative, each
+   trainable leaf's gradient within 1e-3 of its norm; and the same for the
+   kernels' step with TPU.REMAT on (4 forward and 2 backward LSTM launches).
 6. Trainer path: ``python -m robo_vln_tpu_torch.run``'s ``run_exp``, twice,
    at the same width in bfloat16 (config from options, no yaml: B=4,
    tbptt 50, one bucket of 100, EPOCHS 2, one epoch a run, RESUME, synced
@@ -69,7 +80,8 @@ exit code and no result line:
    end, with the checkpoints).  Run 1 trains epoch 0 (4 steps), validates
    (2 windows) and writes ``ckpt.2``; run 2 resumes from it and writes
    ``ckpt.3`` with 8 train steps.  Checked: the trunks shared, each train
-   step and val window launching each kernel exactly twice, every logged
+   step and val window launching each forward kernel exactly twice (and
+   a train step the LSTM's backward twice, a val window never), every logged
    loss finite, the frozen parameters bitwise unchanged, ``ckpt.2`` loaded
    into a fresh trainer bitwise equal to the first trainer's parameters,
    Adam state and counters, run 2 starting at step 4.  Printed: each step's
@@ -78,8 +90,10 @@ exit code and no result line:
    epochs, the validation, checkpoint save and load times and size, peak
    memory.  With --profile, run 2 is traced.
 7. One JSON line {"kernels": [...]} (``launches``: the serving path's,
-   ``train_launches``: the train path's, ``trainer_launches``: the trainer
-   path's), then the card's name and power limit, then the last line
+   but the LSTM backward's, which the serving path never runs, is the
+   train path's; ``train_launches``: the train path's,
+   ``trainer_launches``: the trainer path's), then the card's name and
+   power limit, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -109,6 +123,9 @@ QUEUE_SLEEP_CYCLES = 10_000_000  # about 5 ms at the H100's clock
 L2_ROTATION = 3  # input sets a timed attention call cycles over (>= 44 MB each; L2 50 MB)
 
 LSTM_TOL = 1e-4  # float32; the T sequential steps sum in another order
+# float32, each gradient's largest error against that gradient's norm: the
+# reverse sums over T steps and over 4H run in another order
+LSTM_BACKWARD_TOL = 1e-4
 ATTN_TOL = 1e-4  # float32; another summation order over d_k and S
 ATTN_BF16_TOL = 2e-2  # one bfloat16 rounding of outputs of magnitude < 4
 WINDOW_TOL = 2e-3  # float32 agent, kernels against plain, through 50 steps
@@ -218,6 +235,22 @@ def lstm_bound_ms(T, B, H):
     return bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
 
 
+def lstm_backward_bound_ms(T, B, H):
+    """The backward call's least time: it reads gates_x, masks, h0, c0, w_hh,
+    outs and the three cotangents once and writes d_gates_x, d_h0, d_c0 and
+    d_w_hh once; its operations are three float32 products of 2·T·B·H·4H
+    (the gates recomputed, dh~ = dg·W_hh^T in the kernel, d_w_hh), on the
+    CUDA cores (TF32 off).  Also the kernel's own share: the dh~ product, and
+    the gates, W_hh, the cotangents and masks read and dg, d_h0, d_c0 written."""
+    reads = T * B * 4 * H + T * B + 2 * B * H + 4 * H * H + 2 * T * B * H + 2 * B * H
+    writes = T * B * 4 * H + 2 * B * H + 4 * H * H
+    flops = 2 * T * B * H * 4 * H
+    kernel_bytes = 4 * (T * B * 4 * H + T * B + B * H + 4 * H * H + T * B * H + 2 * B * H
+                        + T * B * 4 * H + 2 * B * H)
+    return ((4 * (reads + writes) / HBM_BYTES_PER_S * 1e3, 3 * flops / F32_FLOP_PER_S * 1e3),
+            (kernel_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3))
+
+
 def attn_bound_ms(N, Lq, S, heads, d, itemsize, flop_per_s):
     bytes_moved = itemsize * (N * Lq * heads * d * 2 + N * S * heads * d * 2)
     flops = 2 * N * heads * Lq * S * (d + d)
@@ -231,20 +264,81 @@ def rotated(fn, arg_sets):
     return lambda: fn(*next(turns))
 
 
-def check_lstm(gen, device):
-    from robo_vln_tpu_torch.ops import fused_lstm
+def lstm_cotangents(gen, T, B, H, device):
+    """Cotangents of (outs, hT, cT) for the backward."""
+    return tuple(torch.randn(*shape, generator=gen).to(device)
+                 for shape in ((T, B, H), (B, H), (B, H)))
+
+
+def replay_backward(gates_x, masks, h0, c0, w_hh, outs, g_outs, g_hT, g_cT, masks_grad=True):
+    """The LSTM's gradient by autograd: lstm_recurrence replayed and
+    differentiated, as the JAX custom VJP replays its scan.  The signature of
+    fused_lstm.lstm_seq_backward_cuda; ``outs`` is not used."""
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
 
-    print("phase 3a: lstm_seq kernel against ops/rnn.lstm_recurrence, float32")
+    inputs = [t.detach().requires_grad_(i != 1 or masks_grad)
+              for i, t in enumerate((gates_x, masks, h0, c0, w_hh))]
+    with torch.enable_grad():
+        res = lstm_recurrence(*inputs)
+        want = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(res, want, (g_outs, g_hT, g_cT)))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def check_lstm_backward(tag, args, outs, cots, masks_grad):
+    """One call of the backward kernel held to the plain backward and to the
+    autograd replay: (largest absolute error, largest error of a gradient's
+    norm, launches, the kernel's gradients)."""
+    from robo_vln_tpu_torch.ops import fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence_backward
+
+    before = fused_lstm.backward_launches
+    got = fused_lstm.lstm_seq_backward_cuda(*args, outs, *cots, masks_grad=masks_grad)
+    launched = fused_lstm.backward_launches - before
+    worst_abs = worst_rel = 0.0
+    for label, ref in (("plain", lstm_recurrence_backward(*args, outs, *cots,
+                                                          masks_grad=masks_grad)),
+                       ("autograd replay", replay_backward(*args, outs, *cots,
+                                                           masks_grad=masks_grad))):
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, r in zip(("gates_x", "masks", "h0", "c0", "w_hh"), got, ref):
+            if (g is None) != (r is None) or (g is not None and g.shape != r.shape):
+                fail(f"lstm_seq backward at {tag}: d_{name} is {g if g is None else g.shape}, "
+                     f"the {label} version's {r if r is None else r.shape}")
+            if g is None:
+                continue
+            err = (g - r).abs().max().item()
+            rel = err / max(r.norm().item(), 1e-30)
+            if not torch.isfinite(g).all():
+                fail(f"lstm_seq backward at {tag}: non-finite d_{name}")
+            errs.append(rel)
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        print(f"  backward {tag}, masks gradient {masks_grad}, against the {label} version: "
+              f"largest error {max(errs):.3e} of its gradient's norm "
+              f"(tolerance {LSTM_BACKWARD_TOL}), {launched} launch(es)")
+        if not max(errs) <= LSTM_BACKWARD_TOL:
+            fail(f"lstm_seq backward disagrees with the {label} version at {tag}")
+    return worst_abs, worst_rel, launched, got
+
+
+def check_lstm(gen, device):
+    from robo_vln_tpu_torch.ops import fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence, lstm_recurrence_backward
+
+    print("phase 3a: lstm_seq kernel against ops/rnn.lstm_recurrence, and its backward "
+          "against ops/rnn.lstm_recurrence_backward and the autograd replay, float32")
     worst = 0.0
+    bwd_worst = [0.0, 0.0]
     timed = {}
     # the window's and the tick's shapes, batches over several warps' tasks,
     # small hidden sizes, every count of W_hh's 16-byte chunks a lane (KC =
     # 1..8: H up to 128, 256, ..., 1024), the most rows one launch takes at
     # H=512 and H=1024, and a batch run as two launches
-    for T, B, H in ((50, 4, 512), (1, 1, 512), (1, 8, 512), (2, 8, 512), (5, 20, 512),
-                    (7, 11, 64), (3, 2, 32), (3, 6, 256), (3, 5, 384), (2, 3, 640),
-                    (2, 3, 768), (2, 3, 896), (3, 28, 1024), (2, 56, 512), (3, 60, 512)):
+    shapes = ((50, 4, 512), (1, 1, 512), (1, 8, 512), (2, 8, 512), (5, 20, 512),
+              (7, 11, 64), (3, 2, 32), (3, 6, 256), (3, 5, 384), (2, 3, 640),
+              (2, 3, 768), (2, 3, 896), (3, 28, 1024), (2, 56, 512), (3, 60, 512))
+    for n, (T, B, H) in enumerate(shapes):
         args = lstm_inputs(gen, T, B, H, device)
         before = fused_lstm.launches
         got = fused_lstm.lstm_seq_cuda(*args)
@@ -259,6 +353,20 @@ def check_lstm(gen, device):
             fail(f"lstm_seq took {launched} launches at T={T} B={B} H={H}")
         if not err <= LSTM_TOL:
             fail(f"lstm_seq disagrees with its plain version at T={T} B={B} H={H}")
+        # the backward from the kernel's outs; every other shape asks for the
+        # masks' gradient, and one cotangent is autograd's expanded zeros
+        cots = lstm_cotangents(gen, T, B, H, device)
+        if (T, B) == (7, 11):
+            cots = (cots[0], cots[1], torch.zeros(1, H, device=device).expand(B, H))
+        units = fused_lstm._units(device.index, H)[0]
+        for masks_grad in ((True, False) if n == 0 else (n % 2 == 0,)):
+            e_abs, e_rel, launched, _ = check_lstm_backward(
+                f"T={T} B={B} H={H}", args, got[0], cots, masks_grad)
+            bwd_worst = [max(bwd_worst[0], e_abs), max(bwd_worst[1], e_rel)]
+            want = len(fused_lstm.backward_batch_slices(B, H, units))
+            if launched != want:
+                fail(f"lstm_seq backward took {launched} launches at T={T} B={B} H={H}, "
+                     f"expected {want}")
         call = lambda: fused_lstm.lstm_seq_cuda(*args)
         if (T, B) == (50, 4):
             kernel = report_times("kernel", time_ms(call))
@@ -275,15 +383,20 @@ def check_lstm(gen, device):
                   f"{floor / (T - 1) * 1e3:.3f} us ({T - 1} exchanges a call)")
             timed = {"ms": kernel, "plain_ms": plain, "library_ms": library,
                      "exchange_ms": floor}
+            timed.update(time_lstm_backward(gen, args, got[0], cots, lstm, x, hc))
         elif (T, B) == (1, 8):  # the tick's shape
             timed["tick_ms"] = report_times("T=1 B=8 kernel", time_ms(call))
             timed["tick_host_ms"] = report_times(
                 "T=1 B=8 kernel, not queued (the host's dispatch rate)",
                 time_ms(call, queued=False))
+    check_lstm_sequence(gen, device)
     by_bytes, by_ops = lstm_bound_ms(50, 4, 512)
     print(f"  bound at T=50 B=4 H=512: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
+    (b_bytes, b_ops), (k_bytes, k_ops) = lstm_backward_bound_ms(50, 4, 512)
+    print(f"  backward bound at T=50 B=4 H=512: bytes {b_bytes:.4f} ms, operations "
+          f"{b_ops:.4f} ms; its kernel alone: bytes {k_bytes:.4f} ms, operations {k_ops:.4f} ms")
     # one window forward launches it twice at these shapes (high and low level)
-    return {
+    forward = {
         "name": "lstm_seq", "route": "cuda",
         "source": "robo_vln_tpu_torch/csrc/lstm_seq.cu",
         "replaces": "robo_vln_tpu/ops/pallas_lstm.py:40",
@@ -299,6 +412,104 @@ def check_lstm(gen, device):
                 "tick_call_*: one call at T=1, B=8, queued and at the host's dispatch rate",
         "library": "torch.nn.LSTM (cuDNN) over x (T, B, 896), input projection included",
     }
+    # one train step's backward runs it twice (high and low level)
+    backward = {
+        "name": "lstm_seq_backward", "route": "cuda",
+        "source": "robo_vln_tpu_torch/csrc/lstm_seq.cu",
+        "replaces": "robo_vln_tpu/ops/pallas_lstm.py:162",
+        "max_abs_err": bwd_worst[0], "max_rel_err": bwd_worst[1],
+        "ms": 2 * timed["bwd_ms"], "plain_ms": 2 * timed["bwd_plain_ms"],
+        "replay_ms": 2 * timed["bwd_replay_ms"],
+        "kernel_only_ms": 2 * timed["bwd_kernel_ms"],
+        "bound_ms": 2 * max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes > b_ops else "operations",
+        "kernel_only_bound_ms": 2 * max(k_bytes, k_ops),
+        "library_ms": 2 * timed["bwd_library_ms"],
+        "work": "2 backward calls at T=50, B=4, H=512, float32, no mask gradient (one train "
+                "step's): ms the whole call (the gates recomputed in one product, the "
+                "kernel, d_w_hh in one product), kernel_only_ms the launch alone; "
+                "replay_ms lstm_recurrence replayed under autograd and differentiated; "
+                "max_rel_err each gradient's largest error of its norm (tolerance "
+                f"{LSTM_BACKWARD_TOL}); replaces the custom VJP's _bwd around "
+                "pallas_lstm.py:40; launches: the train path's (the serving path runs no "
+                "backward)",
+        "library": "torch.nn.LSTM (cuDNN) forward and backward less its forward, x (T, B, "
+                   "896), input projection included",
+    }
+    return forward, backward
+
+
+def time_lstm_backward(gen, args, outs, cots, lstm, x, hc):
+    """Times of one backward call at the window's shape: the kernel's whole
+    call and its launch alone, the plain backward, the autograd replay, and
+    cuDNN's backward (its forward and backward less its forward)."""
+    from robo_vln_tpu_torch.ops import fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence_backward
+
+    call = lambda: fused_lstm.lstm_seq_backward_cuda(*args, outs, *cots, masks_grad=False)
+    gates_x, masks, h0, c0, w_hh = args
+    w_rows = w_hh.contiguous()
+    h_tilde = torch.cat([h0[None], outs[:-1]]) * masks[..., None]
+    gates = gates_x + h_tilde @ w_rows
+    launch = lambda: fused_lstm._backward_launch(gates, masks, c0, w_rows, *cots, False)
+    timed = {
+        "bwd_ms": report_times("backward, whole call", time_ms(call)),
+        "bwd_kernel_ms": report_times("backward, the kernel's launch alone", time_ms(launch)),
+    }
+    timed["bwd_plain_ms"] = report_times("backward, plain", time_ms(
+        lambda: lstm_recurrence_backward(*args, outs, *cots, masks_grad=False), inner=2))
+    timed["bwd_replay_ms"] = report_times("backward, autograd replay", time_ms(
+        lambda: replay_backward(*args, outs, *cots, masks_grad=False), inner=2))
+    xg = x.detach().requires_grad_()
+    params = list(lstm.parameters())
+    g_out = cots[0]
+
+    def cudnn_forward():
+        with torch.enable_grad():
+            return lstm(xg, hc)
+
+    def cudnn_both():
+        out, (h, c) = cudnn_forward()
+        torch.autograd.grad((out, h, c), [xg, *params], (g_out, cots[1][None], cots[2][None]))
+
+    forward = statistics.median(time_ms(cudnn_forward))
+    both = report_times("library nn.LSTM forward and backward", time_ms(cudnn_both))
+    timed["bwd_library_ms"] = both - forward
+    print(f"  library backward (forward and backward less forward {forward:.4f} ms): "
+          f"{timed['bwd_library_ms']:.4f} ms")
+    return timed
+
+
+def check_lstm_sequence(gen, device):
+    """Forward, backward, forward, backward on one workspace, made anew and
+    grown by the first backward: each call held to its plain version, and
+    the second of each bitwise equal to the first (no word of one launch
+    meets a tag another waits for)."""
+    from robo_vln_tpu_torch.ops import fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
+
+    T, B, H = 50, 4, 512
+    args = lstm_inputs(gen, T, B, H, device)
+    cots = lstm_cotangents(gen, T, B, H, device)
+    fused_lstm._workspaces.clear()
+    ref = lstm_recurrence(*args)
+    runs = []
+    for rep in range(2):
+        outs = fused_lstm.lstm_seq_cuda(*args)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(outs, ref))
+        print(f"  sequence, forward {rep}: max_abs_err {err:.3e} (tolerance {LSTM_TOL})")
+        if not err <= LSTM_TOL:
+            fail("lstm_seq disagrees with its plain version in the forward/backward sequence")
+        grads = check_lstm_backward(f"sequence, backward {rep}, T={T} B={B} H={H}",
+                                    args, outs[0], cots, True)[3]
+        runs.append((outs, grads))
+    (o1, g1), (o2, g2) = runs
+    if not all(torch.equal(a, b) for a, b in zip(o1 + g1, o2 + g2)):
+        fail("the forward/backward sequence gave other results the second time")
+    print(f"  sequence forward, backward, forward, backward: the second of each bitwise "
+          f"equal to the first; workspace {fused_lstm._workspaces[device.index][0].numel()} "
+          "words")
 
 
 def check_attention(gen, device):
@@ -457,15 +668,15 @@ def check_wider_shapes(gen, device):
         if not err <= tol:
             fail(f"{tag} disagrees with the plain version")
 
-    def refused(tag, module, call):
-        before = module.launches
+    def refused(tag, module, call, counter="launches"):
+        before = getattr(module, counter)
         try:
             call()
         except ValueError as e:
             print(f"  {tag}: refused before any launch ({e})")
         else:
             fail(f"{tag} was not refused")
-        if module.launches != before:
+        if getattr(module, counter) != before:
             fail(f"{tag} launched a kernel")
 
     def qkv(n, lq, S, h, d, dtype):
@@ -483,6 +694,10 @@ def check_wider_shapes(gen, device):
         args = lstm_inputs(gen, T, B, 556, device)
         held(f"lstm_seq T={T} B={B} H=556", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args),
              lambda: lstm_recurrence(*args), LSTM_TOL)
+        launched = check_lstm_backward(f"T={T} B={B} H=556", args, lstm_recurrence(*args)[0],
+                                       lstm_cotangents(gen, T, B, 556, device), T == 5)[2]
+        if launched != 1:
+            fail(f"lstm_seq backward took {launched} launches at T={T} B={B} H=556")
 
     n = 8 * 200 * 256
     q, k, v = (torch.randn(n + 8, generator=gen).to(device, bf16)[1:n + 1].view(8, 200, 256)
@@ -491,6 +706,12 @@ def check_wider_shapes(gen, device):
             lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4))
     args = lstm_inputs(gen, 2, 2, 1028, device)
     refused("lstm_seq H=1028", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args))
+    units = fused_lstm._units(device.index, 1028)[0]
+    refused(f"lstm_seq backward's predicate, H=1028 at {units} units a block", fused_lstm,
+            lambda: fused_lstm.check_backward_shape(2, 1028, units), "backward_launches")
+    outs = torch.zeros(2, 2, 1028, device=device)
+    refused("lstm_seq backward H=1028", fused_lstm, lambda: fused_lstm.lstm_seq_backward_cuda(
+        *args, outs, *lstm_cotangents(gen, 2, 2, 1028, device)), "backward_launches")
 
     # the depth attention of a 384 px frame at the window's size
     N, Lq, S, heads, d = 200, 200, 144, 4, 64
@@ -533,17 +754,22 @@ def cuda_core_f32_attention():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Swap both kernels for their plain versions, for the comparison only."""
+    """Swap every kernel for its plain version, for the comparison only: the
+    LSTM's forward for lstm_recurrence and its backward for the autograd
+    replay of it, attention for attention_plain (whose backward replays it)."""
     from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
 
-    saved = fused_lstm.lstm_seq_cuda, fused_attention.cross_modal_attn_cuda
+    saved = (fused_lstm.lstm_seq_cuda, fused_lstm.lstm_seq_backward_cuda,
+             fused_attention.cross_modal_attn_cuda)
     fused_lstm.lstm_seq_cuda = lstm_recurrence
+    fused_lstm.lstm_seq_backward_cuda = replay_backward
     fused_attention.cross_modal_attn_cuda = fused_attention.attention_plain
     try:
         yield
     finally:
-        fused_lstm.lstm_seq_cuda, fused_attention.cross_modal_attn_cuda = saved
+        (fused_lstm.lstm_seq_cuda, fused_lstm.lstm_seq_backward_cuda,
+         fused_attention.cross_modal_attn_cuda) = saved
 
 
 def window_inputs(gen, B, T, L, device):
@@ -635,6 +861,10 @@ def main_path(device, profile=False):
     B, T, L = 4, 50, 200
     obs, masks = window_inputs(gen, B, T, L, device)
     tick_obs, tick_masks = window_inputs(gen, 8, 10, L, device)
+    # the peak below counts what is held already: the agent, and what the
+    # phases before left allocated (such as each thread's cuBLAS workspace)
+    print(f"  device memory allocated before the windows: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     torch.cuda.reset_peak_memory_stats()
 
     fused_lstm.reset_launches()
@@ -658,13 +888,16 @@ def main_path(device, profile=False):
         torch.cuda.synchronize()
         print(f"  act tick {t} B=8: {(time.perf_counter() - t0) * 1e3:.3f} ms")
         check_finite("act", a, s, *state)
-    launches = {"lstm_seq": fused_lstm.launches, "cross_modal_attn": fused_attention.launches}
+    launches = {"lstm_seq": fused_lstm.launches,
+                "lstm_seq_backward": fused_lstm.backward_launches,
+                "cross_modal_attn": fused_attention.launches}
     print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"  launches on the main path: {launches}")
     expected = 2 * (3 + 10)  # high + low LSTM, rgb + depth attention, per forward
     for name, count in launches.items():
-        if count != expected:
-            fail(f"{name} launched {count} times on the main path, expected {expected}")
+        want = 0 if name == "lstm_seq_backward" else expected  # serving runs no backward
+        if count != want:
+            fail(f"{name} launched {count} times on the main path, expected {want}")
 
     if profile:
         profile_main_path(agent, obs, masks, tick_obs, tick_masks)
@@ -721,23 +954,28 @@ def train_batch(gen, B, T, L, device):
     return {**obs, **{k: v.to(device) for k, v in labels.items()}, "not_done_masks": masks}
 
 
+def make_step(cfg, high, low, remat):
+    from robo_vln_tpu_torch.models import make_shared_trunk_fn
+    from robo_vln_tpu_torch.training import inflection_coef_from, make_hier_train_step
+
+    return make_hier_train_step(
+        high, low, trunk_fn=make_shared_trunk_fn(high), remat=remat,
+        inflection_coef=inflection_coef_from(cfg),
+        valid_velocity_mse=cfg.TPU.VALID_MASK_VELOCITY_MSE)
+
+
 def make_train(cfg, dtype, device):
     """(high, low, step, state): both policies at full width with random
     weights from seed 0 and synced trunks, the step as the config sets it,
     AdamW (weight decay 1e-5) and Adam (none) as bench.py:191-192 sets them."""
-    from robo_vln_tpu_torch.models import (
-        build_hierarchical_policies, make_shared_trunk_fn, sync_frozen_trunks)
-    from robo_vln_tpu_torch.training import (
-        HierTrainState, TrainState, adam, adamw, inflection_coef_from, make_hier_train_step)
+    from robo_vln_tpu_torch.models import build_hierarchical_policies, sync_frozen_trunks
+    from robo_vln_tpu_torch.training import HierTrainState, TrainState, adam, adamw
 
     high, low = build_hierarchical_policies(cfg.MODEL, compute_dtype=dtype,
                                             generator=torch.Generator().manual_seed(0))
     sync_frozen_trunks(high, low)
     high, low = high.to(device), low.to(device)
-    step = make_hier_train_step(
-        high, low, trunk_fn=make_shared_trunk_fn(high), remat=cfg.TPU.REMAT,
-        inflection_coef=inflection_coef_from(cfg),
-        valid_velocity_mse=cfg.TPU.VALID_MASK_VELOCITY_MSE)
+    step = make_step(cfg, high, low, cfg.TPU.REMAT)
     state = HierTrainState(TrainState(adamw(high, 1e-5), 0), TrainState(adam(low, 0.0), 0))
     return high, low, step, state
 
@@ -767,9 +1005,12 @@ def train_path(device, profile=False):
     fused_lstm.reset_launches()
     fused_attention.reset_launches()
     step_ms = []
+    def counts():
+        return (fused_lstm.launches, fused_lstm.backward_launches, fused_attention.launches,
+                fused_attention.route_launches["bf16"])
+
     for i in range(TRAIN_STEPS):
-        counts = (fused_lstm.launches, fused_attention.launches,
-                  fused_attention.route_launches["bf16"])
+        counted = counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -783,13 +1024,13 @@ def train_path(device, profile=False):
               f"{host_ms:.3f} ms (host clock); " + ", ".join(
                   f"{k} {v.item():.4f}" for k, v in metrics.items()))
         check_finite("train step", *metrics.values(), hh, lh)
-        launched = tuple(n - c for n, c in zip(
-            (fused_lstm.launches, fused_attention.launches,
-             fused_attention.route_launches["bf16"]), counts))
-        if launched != (2, 2, 2):
-            fail(f"train step {i} launched (lstm_seq, cross_modal_attn, of it bf16) "
-                 f"{launched}, expected (2, 2, 2)")
-    launches = {"lstm_seq": fused_lstm.launches, "cross_modal_attn": fused_attention.launches}
+        launched = tuple(n - c for n, c in zip(counts(), counted))
+        if launched != (2, 2, 2, 2):
+            fail(f"train step {i} launched (lstm_seq, lstm_seq_backward, cross_modal_attn, "
+                 f"of it bf16) {launched}, expected (2, 2, 2, 2)")
+    launches = {"lstm_seq": fused_lstm.launches,
+                "lstm_seq_backward": fused_lstm.backward_launches,
+                "cross_modal_attn": fused_attention.launches}
     print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"  launches on the train path: {launches}")
     unused = []
@@ -812,65 +1053,82 @@ def train_path(device, profile=False):
         profile_section(f"train step B={B} T={T}",
                         lambda: step(state, hh, lh, batch, lr, lr), top=16,
                         ranges=("hier_train_step.forward", "hier_train_step.backward",
-                                "lstm_seq.backward_replay", "cross_modal_attn.backward_replay",
+                                "lstm_seq.backward", "cross_modal_attn.backward_replay",
                                 "hier_train_step.optimizer"))
     del high, low, step, state, before, named
 
-    print("phase 5b: float32 train step against the same step with both kernels "
-          "swapped for their plain versions (lr 0, global TF32 flags at their defaults)")
+    print("phase 5b: float32 train step against the same step with every kernel "
+          "swapped for its plain version, the LSTM's backward for the autograd replay "
+          "(lr 0, global TF32 flags at their defaults); then the kernels' step with "
+          "TPU.REMAT on (the forward recomputed in the backward)")
     high, low, step, state = make_train(cfg, torch.float32, device)
+    remat_step = make_step(cfg, high, low, True)
     hh, lh = high.initial_hidden(B, device), low.initial_hidden(B, device)
     params = [(f"{level}.{n}", p) for level, pol in (("high", high), ("low", low))
               for n, p in pol.named_parameters()]
     runs = {}
-    for label, scope in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
-        for rep in range(2):
+    for label, scope, fn, reps in (("kernels", contextlib.nullcontext, step, 2),
+                                   ("plain", plain_kernels, step, 2),
+                                   ("kernels, remat on", contextlib.nullcontext, remat_step, 1)):
+        for rep in range(reps):
             routes = dict(fused_attention.route_launches)
+            lstm_before = fused_lstm.launches, fused_lstm.backward_launches
             with scope():
                 t0 = time.perf_counter()
-                _, _, _, metrics = step(state, hh, lh, batch, 0.0, 0.0)
+                _, _, _, metrics = fn(state, hh, lh, batch, 0.0, 0.0)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
             grads = {n: p.grad.clone() for n, p in params if p.grad is not None}
             print(f"  float32 train step, {label}, rep {rep}: {ms:.3f} ms (host clock)")
             took = {r: n - routes[r] for r, n in fused_attention.route_launches.items()
                     if n != routes[r]}
-            if label == "kernels" and took != {"f32_tensor_core": 2}:
-                fail(f"the float32 train step took attention routes {took}")
+            lstm_took = (fused_lstm.launches - lstm_before[0],
+                         fused_lstm.backward_launches - lstm_before[1])
+            remat = fn is remat_step
+            if label != "plain" and took != {"f32_tensor_core": 4 if remat else 2}:
+                fail(f"the float32 train step ({label}) took attention routes {took}")
+            if lstm_took != ((4 if remat else 2, 2) if label != "plain" else (0, 0)):
+                fail(f"the float32 train step ({label}) launched (lstm_seq, "
+                     f"lstm_seq_backward) {lstm_took}")
         runs[label] = metrics, grads
-    (got, got_grads), (ref, ref_grads) = runs["kernels"], runs["plain"]
-    for key in ("high_level_loss", "low_level_action_loss", "low_level_stop_loss"):
-        rel = abs(got[key].item() - ref[key].item()) / abs(ref[key].item())
-        print(f"  {key}: {got[key].item():.6f} against {ref[key].item():.6f}, relative "
-              f"{rel:.3e} (tolerance {TRAIN_LOSS_RTOL})")
-        if not rel <= TRAIN_LOSS_RTOL:
-            fail(f"float32 train step {key} disagrees with the plain-kernel step")
-    print(f"  high_level_accuracy: {got['high_level_accuracy'].item():.4f} against "
-          f"{ref['high_level_accuracy'].item():.4f}")
-    if got_grads.keys() != ref_grads.keys():
-        fail("the two runs gave gradients to different parameters")
-    worst = {"leaf": (0.0, None), "zero": (0.0, None)}
-    for name, g in got_grads.items():
-        r = ref_grads[name]
-        check_finite(f"float32 gradient of {name}", g)
-        if name.endswith(ZERO_GRAD_LEAF):
-            # exactly 0: what both runs compute is rounding noise, held far
-            # below the gradient of the same projection's weight
-            kind = "zero"
-            err = max(g.abs().max(), r.abs().max()).item() / ref_grads[
-                name[:-len("bias")] + "weight"].norm().item()
-        else:
-            kind = "leaf"
-            err = (g - r).abs().max().item() / max(r.norm().item(), 1e-30)
-        if err > worst[kind][0]:
-            worst[kind] = err, name
-    print(f"  gradients: largest error {worst['leaf'][0]:.3e} of its leaf's norm, at "
-          f"{worst['leaf'][1]} (tolerance {TRAIN_GRAD_TOL}), over {len(got_grads)} leaves; "
-          f"the key biases, whose exact gradient is 0: largest value {worst['zero'][0]:.3e} "
-          f"of the key weight's gradient norm, at {worst['zero'][1]} (tolerance {TRAIN_GRAD_TOL})")
-    for err, name in worst.values():
-        if not err <= TRAIN_GRAD_TOL:
-            fail(f"float32 train step gradient of {name} disagrees with the plain-kernel step")
+    ref, ref_grads = runs["plain"]
+    for label in ("kernels", "kernels, remat on"):
+        got, got_grads = runs[label]
+        print(f"  {label} against plain:")
+        for key in ("high_level_loss", "low_level_action_loss", "low_level_stop_loss"):
+            rel = abs(got[key].item() - ref[key].item()) / abs(ref[key].item())
+            print(f"  {key}: {got[key].item():.6f} against {ref[key].item():.6f}, relative "
+                  f"{rel:.3e} (tolerance {TRAIN_LOSS_RTOL})")
+            if not rel <= TRAIN_LOSS_RTOL:
+                fail(f"float32 train step ({label}) {key} disagrees with the plain-kernel step")
+        print(f"  high_level_accuracy: {got['high_level_accuracy'].item():.4f} against "
+              f"{ref['high_level_accuracy'].item():.4f}")
+        if got_grads.keys() != ref_grads.keys():
+            fail(f"the runs ({label}, plain) gave gradients to different parameters")
+        worst = {"leaf": (0.0, None), "zero": (0.0, None)}
+        for name, g in got_grads.items():
+            r = ref_grads[name]
+            check_finite(f"float32 gradient of {name}", g)
+            if name.endswith(ZERO_GRAD_LEAF):
+                # exactly 0: what both runs compute is rounding noise, held far
+                # below the gradient of the same projection's weight
+                kind = "zero"
+                err = max(g.abs().max(), r.abs().max()).item() / ref_grads[
+                    name[:-len("bias")] + "weight"].norm().item()
+            else:
+                kind = "leaf"
+                err = (g - r).abs().max().item() / max(r.norm().item(), 1e-30)
+            if err > worst[kind][0]:
+                worst[kind] = err, name
+        print(f"  gradients: largest error {worst['leaf'][0]:.3e} of its leaf's norm, at "
+              f"{worst['leaf'][1]} (tolerance {TRAIN_GRAD_TOL}), over {len(got_grads)} "
+              f"leaves; the key biases, whose exact gradient is 0: largest value "
+              f"{worst['zero'][0]:.3e} of the key weight's gradient norm, at "
+              f"{worst['zero'][1]} (tolerance {TRAIN_GRAD_TOL})")
+        for err, name in worst.values():
+            if not err <= TRAIN_GRAD_TOL:
+                fail(f"float32 train step ({label}) gradient of {name} disagrees with the "
+                     "plain-kernel step")
     return launches, step_ms
 
 
@@ -920,7 +1178,7 @@ def instrumented_trainer(record):
     from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer as HT
 
     def counts():
-        return fused_lstm.launches, fused_attention.launches
+        return fused_lstm.launches, fused_lstm.backward_launches, fused_attention.launches
 
     def timed_call(kind, fn):
         def call(*args):
@@ -934,9 +1192,10 @@ def instrumented_trainer(record):
             end = time.perf_counter()
             record[f"{kind}_ms"].append((end - t0) * 1e3)
             launched = tuple(n - c for n, c in zip(counts(), before))
-            if launched != (2, 2):
-                fail(f"a {kind} call of the trainer launched (lstm_seq, cross_modal_attn) "
-                     f"{launched}, expected (2, 2)")
+            expected = (2, 2, 2) if kind == "train" else (2, 0, 2)
+            if launched != expected:
+                fail(f"a {kind} call of the trainer launched (lstm_seq, lstm_seq_backward, "
+                     f"cross_modal_attn) {launched}, expected {expected}")
             if kind == "train":
                 record["last_end"] = end
             return out
@@ -1090,12 +1349,14 @@ def trainer_path(device, bare_step_ms, profile=False):
                 profile_section("trainer run 2 (resume, one epoch and its validation)",
                                 lambda: run_exp(None, "train", opts), top=16,
                                 ranges=("hier_train_step.forward", "hier_train_step.backward",
-                                        "lstm_seq.backward_replay",
+                                        "lstm_seq.backward",
                                         "hier_train_step.optimizer"))
             else:
                 run_exp(None, "train", opts)
             run2_ms = (time.perf_counter() - t0) * 1e3
-        launches = {"lstm_seq": fused_lstm.launches, "cross_modal_attn": fused_attention.launches}
+        launches = {"lstm_seq": fused_lstm.launches,
+                    "lstm_seq_backward": fused_lstm.backward_launches,
+                    "cross_modal_attn": fused_attention.launches}
         record["trainers"].clear()
         ckpts = ckpt_lib.list_checkpoints(cfg.CHECKPOINT_FOLDER)
         meta = ckpt_lib.load_metadata(ckpts[-1])
@@ -1115,8 +1376,9 @@ def trainer_path(device, bare_step_ms, profile=False):
         if (len(record["train_ms"]), len(record["val_ms"])) != (8, 4):
             fail(f"{len(record['train_ms'])} train steps and {len(record['val_ms'])} val "
                  "windows, expected 8 and 4")
-        if launches != {"lstm_seq": 24, "cross_modal_attn": 24}:
-            fail(f"the trainer path launched {launches}, expected 24 of each")
+        if launches != {"lstm_seq": 24, "lstm_seq_backward": 16, "cross_modal_attn": 24}:
+            fail(f"the trainer path launched {launches}, expected 24 of each forward and 16 "
+                 "backward")
         ckpt_bytes = dir_bytes(ckpt2)
         peak = torch.cuda.max_memory_allocated()
         steps = record["train_ms"]
@@ -1140,7 +1402,8 @@ def trainer_path(device, bare_step_ms, profile=False):
               f"phase 5's bare step, steps 1-4: median {statistics.median(bare_step_ms[1:]):.3f} ms")
         print(f"  peak device memory: run 1 {peak1 / 2**30:.3f} GiB, both runs "
               f"{peak / 2**30:.3f} GiB")
-        print(f"  launches on the trainer path: {launches} (2 a train step and a val window)")
+        print(f"  launches on the trainer path: {launches} (each forward 2 a train step and a "
+              "val window, the backward 2 a train step)")
         print(f"  run 2 started at step {record['first_steps'][4]} and wrote ckpt.3 with "
               f"train_steps {meta['train_steps']}, scheduler_step {meta['scheduler_step']}")
         return launches
@@ -1176,8 +1439,8 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     with float32_exact(torch.float32):  # the float32 plain versions without TF32
-        kernels = [check_lstm(gen, device), check_attention(gen, device)]
-        kernels[1].update(check_wider_shapes(gen, device))
+        kernels = [*check_lstm(gen, device), check_attention(gen, device)]
+        kernels[2].update(check_wider_shapes(gen, device))
     profile = "--profile" in sys.argv[1:]
     launches = main_path(device, profile)
     train_launches, bare_step_ms = train_path(device, profile)
@@ -1186,6 +1449,10 @@ def main():
         k["launches"] = launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
         k["trainer_launches"] = trainer_launches[k["name"]]
+    # the serving path runs no backward: the backward's launches are the train path's
+    backward = kernels[1]
+    backward["serving_launches"], backward["launches"] = (backward["launches"],
+                                                          backward["train_launches"])
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

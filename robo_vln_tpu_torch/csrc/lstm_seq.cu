@@ -45,6 +45,9 @@
 // of all earlier launches on it; the last block to finish advances it, so a
 // word left by an earlier launch never carries a tag this one waits for.
 //
+// The backward, lstm_seq_backward_kernel (below), is the same grid run in
+// reverse over the window; its note says what differs.
+//
 // The C entry points launch on the caller's stream and return a CUDA error
 // code (0 on success), or kNotCoResident when the grid cannot be co-resident,
 // which a cooperative launch needs.  The shared-memory limit and the
@@ -61,6 +64,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTaskBatch = 2;      // batch rows of one warp task (with 4 gate rows)
 constexpr int kInFlight = 8;       // h words a thread loads before it waits
+constexpr int kBwdInFlight = 16;   // the backward's dg words a thread loads before it waits
+constexpr int kSweep = 8;          // steps of the backward's c_t sweep loaded at a time
 constexpr int kNotCoResident = 1000;
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxDevices = 64;
@@ -271,9 +276,270 @@ lstm_seq_kernel(const float* __restrict__ gates_x,  // (T, B, 4H)
   }
 }
 
+// The backward: the VJP of the masked recurrence with respect to gates_x,
+// h0, c0 (and, through the wrapper, masks and W_hh), the function that the
+// JAX package's custom_vjp _bwd (pallas_lstm.py:162-165) gets by
+// differentiating its scan.  With h~_t = m_t h_{t-1}, c~_t = m_t c_{t-1},
+// g_t = gx_t + h~_t W_hh (recomputed by the wrapper for all T steps in one
+// product and passed as `gates`) and i, f, gg, o its activations, from
+// t = T-1 down to 0:
+//   dh = g_outs[t] + m_{t+1} dh~_{t+1},  dc = m_{t+1} dc~_{t+1} + dh o (1 - tanh^2 c_t)
+//   dg_t = (dc gg i(1-i), dc c~_t f(1-f), dc i (1-gg^2), dh tanh(c_t) o(1-o))
+//   dh~_t = dg_t · W_hh^T,  dc~_t = dc f
+// where m_T dh~_T and m_T dc~_T stand for g_hT and g_cT.  Outputs dg
+// (= d gates_x), d_h0 = m_0 dh~_0, d_c0 = m_0 dc~_0, c_t (T, B, H) and, when
+// the wrapper asks (non-null pointers), dh~ and dc~ (T, B, H), from which it
+// forms the masks' gradient; it forms d_W_hh = sum_t h~_t^T dg_t in one
+// product.
+//
+// What bounds it is what bounds the forward: T sequential steps, each of
+// which needs the whole dg of the step after (B·4H values, 4x the forward's
+// h) before it can form dh~.  The design is the forward's grid with W_hh's
+// roles transposed.  Block j owns the same U units v, and warp w's lanes
+// hold the row W_hh[v, :] of its unit (4H values: the four gate segments of
+// H, lane l the 16-byte chunks l, l+32, ... of each, the same registers as
+// the forward's four rows).  A step (a stage s = T-1-t of the loop) pays:
+//  * one exchange of dg: each block publishes its cells' four dg values as
+//    (float bits, step tag) words into one of two buffers of B·4H words by
+//    the stage's parity, and every block reads the whole dg back into shared
+//    memory, reloading every word not yet tagged, as the forward does with h;
+//  * one block barrier, then dh~ of the warp's unit for two batch rows (a
+//    task): each lane sums its chunks over the four gate segments, and one
+//    xor-shuffle tree (a reduce-scatter over the two rows at offset 16) sums
+//    the lanes;
+//  * the cell update in the lane that owns the cell (the forward's lane
+//    layout), whose dh and dc carries stay in registers.
+// c_t is not an output of the forward, so before the loop the owner of each
+// cell recomputes it by a forward sweep over t, elementwise from `gates`
+// (kSweep steps' loads at a time), into cs; the loop reads it back.  A
+// step's inputs (gates, g_outs, the mask, c_{t-1}) are loaded at the end of
+// the step before, while the exchange waits.  Tags and the epoch work as in
+// the forward: this launch's tags are epoch + 1 + s, and the last block to
+// finish advances the epoch by T, so the two kernels share one workspace.
+template <int KC>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_seq_backward_kernel(const float* __restrict__ gates,   // (T, B, 4H) pre-activations
+                         const float* __restrict__ masks,   // (T, B)
+                         const float* __restrict__ c0,      // (B, H)
+                         const float* __restrict__ w_hh,    // (H, 4H)
+                         const float* __restrict__ g_outs,  // (T, B, H)
+                         const float* __restrict__ g_hT,    // (B, H)
+                         const float* __restrict__ g_cT,    // (B, H)
+                         float* __restrict__ d_gates,       // (T, B, 4H)
+                         float* __restrict__ d_h0,          // (B, H)
+                         float* __restrict__ d_c0,          // (B, H)
+                         float* cs,                         // (T, B, H): c_t
+                         float* __restrict__ d_h_tilde,     // (T, B, H) or null
+                         float* __restrict__ d_c_tilde,     // (T, B, H) or null
+                         u64* ws, int T, int B, int H, int U) {
+  extern __shared__ float4 smem4[];
+  const int b_pad = (B + kTaskBatch - 1) / kTaskBatch * kTaskBatch;
+  const int G = 4 * H;  // a row of dg
+  float* dg_s = reinterpret_cast<float*>(smem4);  // 2 x (b_pad, 4H); row B stays 0
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int unit0 = blockIdx.x * U;
+  const int BH = B * H, BG = B * G, chunks = H / 4;
+  const unsigned tag0 = (unsigned)load_word(ws) + 1u;
+  u64* xbuf = ws + 2;
+
+  // the forward's layout: warp w on unit w mod U, lane 2k+i owning the cell
+  // (batch row 2(q + Q·k) + i, unit u) of its k-th task
+  const int Q = kWarps / U, u = warp % U, q = warp / U;
+  const bool active = q < Q && unit0 + u < H;  // uniform across the warp
+  const int pairs = b_pad / kTaskBatch;
+  const int cell_b = (q + Q * (lane >> 1)) * kTaskBatch + (lane & 1);
+  const bool owner = active && cell_b < B;
+  const size_t cell = (size_t)cell_b * H + unit0 + u;   // in a (B, H) slab
+  const size_t gcell = (size_t)cell_b * G + unit0 + u;  // its gate 0 in a (B, 4H) slab
+
+  for (int i = tid; i < 2 * b_pad * G; i += kThreads) dg_s[i] = 0.0f;
+
+  // c_t of the lane's cell, t = 0 .. T-1, into cs
+  float c = 0.0f;
+  if (owner) {
+    c = __ldg(c0 + cell);
+    for (int t0 = 0; t0 < T; t0 += kSweep) {
+      float gx[kSweep][3], m[kSweep];
+#pragma unroll
+      for (int k = 0; k < kSweep; ++k) {
+        const int t = min(t0 + k, T - 1);
+        const float* p = gates + (size_t)t * BG + gcell;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) gx[k][g] = __ldg(p + g * H);
+        m[k] = __ldg(masks + (size_t)t * B + cell_b);
+      }
+#pragma unroll
+      for (int k = 0; k < kSweep; ++k) {
+        if (t0 + k < T) {
+          c = sigmoid_fast(gx[k][1]) * (c * m[k]) + sigmoid_fast(gx[k][0]) * tanh_fast(gx[k][2]);
+          cs[(size_t)(t0 + k) * BH + cell] = c;
+        }
+      }
+    }
+  }
+
+  float4 w[4][KC];  // W_hh[unit0 + u, gate·H + 4c .. 4c + 3], c = lane + 32·j
+#pragma unroll
+  for (int gate = 0; gate < 4; ++gate) {
+    const float4* row =
+        reinterpret_cast<const float4*>(w_hh + (size_t)(unit0 + u) * G + gate * H);
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const int cc = lane + 32 * j;
+      w[gate][j] = active && cc < chunks ? __ldg(row + cc) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  // the owner's carries: m_{t+1} dh~_{t+1} and m_{t+1} dc~_{t+1} (g_hT and g_cT
+  // at t = T-1), dc~ and the mask of the step after, c_t
+  float dh_carry = 0.0f, dc_carry = 0.0f, dc_tilde = 0.0f, m_next = 0.0f, c_t = c;
+  if (owner) {
+    dh_carry = __ldg(g_hT + cell);
+    dc_carry = __ldg(g_cT + cell);
+  }
+  float pg[4], pgo = 0.0f, pm = 0.0f, pcp = 0.0f;  // step t's inputs, and c_{t-1}
+  auto prefetch = [&](int t) {
+    if (owner) {
+      const float* p = gates + (size_t)t * BG + gcell;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) pg[g] = __ldg(p + g * H);
+      pgo = __ldg(g_outs + (size_t)t * BH + cell);
+      pm = __ldg(masks + (size_t)t * B + cell_b);
+      pcp = t > 0 ? cs[(size_t)(t - 1) * BH + cell] : __ldg(c0 + cell);  // cs: this thread's stores
+    }
+  };
+  prefetch(T - 1);
+
+  for (int s = 0; s <= T; ++s) {
+    const int t = T - 1 - s;
+    const float* db_s = dg_s + (s & 1) * b_pad * G;
+    if (s > 0) {
+      // dg of step t+1 from every block, kBwdInFlight words at a time
+      const u64* src = xbuf + (size_t)((s - 1) & 1) * BG;
+      const unsigned want = tag0 + (unsigned)(s - 1);
+      float* dst_s = dg_s + (s & 1) * b_pad * G;
+      for (int base = tid; base < BG; base += kThreads * kBwdInFlight) {
+        u64 v[kBwdInFlight];
+#pragma unroll
+        for (int j = 0; j < kBwdInFlight; ++j) {
+          const int i = base + j * kThreads;
+          v[j] = i < BG ? load_word(src + i) : (u64)want << 32;
+        }
+        for (int spins = 0;; ++spins) {
+          bool ready = true;
+#pragma unroll
+          for (int j = 0; j < kBwdInFlight; ++j) ready &= (unsigned)(v[j] >> 32) == want;
+          if (ready) break;
+          if (spins > kMaxSpins) __trap();  // a lost word: fail, never hang
+#pragma unroll
+          for (int j = 0; j < kBwdInFlight; ++j)
+            if ((unsigned)(v[j] >> 32) != want) v[j] = load_word(src + base + j * kThreads);
+        }
+#pragma unroll
+        for (int j = 0; j < kBwdInFlight; ++j) {
+          const int i = base + j * kThreads;
+          if (i < BG) dst_s[i] = __uint_as_float((unsigned)v[j]);
+        }
+      }
+    }
+    __syncthreads();
+
+    if (s > 0) {
+      // dh~_{t+1} = dg_{t+1} · W_hh^T for the lane's cell
+      float dht = 0.0f;
+      if (active) {
+        for (int k = 0, p = q; p < pairs; ++k, p += Q) {
+          const float4* r0 = reinterpret_cast<const float4*>(db_s + (size_t)p * kTaskBatch * G);
+          const float4* r1 = r0 + H;  // the next batch row: 4H floats on
+          float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+          for (int j = 0; j < KC; ++j) {
+            const int cc = lane + 32 * j;
+            if (cc < chunks) {
+#pragma unroll
+              for (int gate = 0; gate < 4; ++gate) {
+                const float4 wv = w[gate][j];
+                const float4 x0 = r0[gate * chunks + cc], x1 = r1[gate * chunks + cc];
+                a0 = fmaf(wv.x, x0.x, a0);
+                a0 = fmaf(wv.y, x0.y, a0);
+                a0 = fmaf(wv.z, x0.z, a0);
+                a0 = fmaf(wv.w, x0.w, a0);
+                a1 = fmaf(wv.x, x1.x, a1);
+                a1 = fmaf(wv.y, x1.y, a1);
+                a1 = fmaf(wv.z, x1.z, a1);
+                a1 = fmaf(wv.w, x1.w, a1);
+              }
+            }
+          }
+          // xor tree as a reduce-scatter: at offset 16 each lane keeps one
+          // row's sum and sends the other; lanes 0-15 end with row 0's,
+          // 16-31 with row 1's (the additions of a full xor tree)
+          const bool upper = lane & 16;
+          float acc = (upper ? a1 : a0) + __shfl_xor_sync(0xffffffffu, upper ? a0 : a1, 16);
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+          const float v = __shfl_sync(0xffffffffu, acc, 16 * (lane & 1));
+          if ((lane >> 1) == k) dht = v;
+        }
+      }
+      if (owner) {
+        if (d_h_tilde) d_h_tilde[(size_t)(t + 1) * BH + cell] = dht;
+        dh_carry = m_next * dht;
+        dc_carry = m_next * dc_tilde;
+      }
+    }
+    if (s == T) break;
+
+    // step t of the lane's cell; publish its dg for the step before
+    if (owner) {
+      const float ig = sigmoid_fast(pg[0]), fg = sigmoid_fast(pg[1]);
+      const float gg = tanh_fast(pg[2]), og = sigmoid_fast(pg[3]);
+      const float tc = tanh_fast(c_t);
+      const float dh = pgo + dh_carry;
+      const float dc = dc_carry + dh * og * (1.0f - tc * tc);
+      const float dg[4] = {dc * gg * ig * (1.0f - ig), dc * (pcp * pm) * fg * (1.0f - fg),
+                           dc * ig * (1.0f - gg * gg), dh * tc * og * (1.0f - og)};
+      float* out = d_gates + (size_t)t * BG + gcell;
+      u64* dst = xbuf + (size_t)(s & 1) * BG + gcell;
+      const u64 tag = (u64)(tag0 + (unsigned)s) << 32;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        out[g * H] = dg[g];
+        store_word(dst + g * H, tag | __float_as_uint(dg[g]));
+      }
+      dc_tilde = dc * fg;
+      if (d_c_tilde) d_c_tilde[(size_t)t * BH + cell] = dc_tilde;
+      m_next = pm;
+      c_t = pcp;
+    }
+    if (t > 0) prefetch(t - 1);
+  }
+  if (owner) {
+    d_h0[cell] = dh_carry;
+    d_c0[cell] = dc_carry;
+  }
+
+  // the last block to finish advances the epoch past this launch's tags
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(ws + 1, 1ull) == (u64)(gridDim.x - 1)) {
+      ws[1] = 0;
+      ws[0] = (u64)(tag0 - 1u + (unsigned)T);
+      __threadfence();
+    }
+  }
+}
+
 size_t smem_bytes(int B, int H) {
   const size_t b_pad = (size_t)(B + kTaskBatch - 1) / kTaskBatch * kTaskBatch;
   return 2 * b_pad * H * sizeof(float);
+}
+
+// the backward's two buffers of dg: B rounded up to kTaskBatch rows of 4H
+size_t backward_smem_bytes(int B, int H) {
+  const size_t b_pad = (size_t)(B + kTaskBatch - 1) / kTaskBatch * kTaskBatch;
+  return 2 * b_pad * 4 * H * sizeof(float);
 }
 
 // Co-resident blocks of one kernel on one device, found on its first launch
@@ -286,13 +552,11 @@ struct Capacity {
   cudaError_t err = cudaSuccess;
 };
 
-template <int KC, bool kExchangeOnly>
-int launch(const void* gates_x, const void* masks, const void* h0, const void* c0,
-           const void* w_hh_t, void* outs, void* hT, void* cT, void* ws, int T,
-           int B, int H, int U, int dev, void* stream) {
-  static Capacity capacity[kMaxDevices];
+// One cooperative launch of ceil(H / U) blocks of `kernel`, whose
+// per-device capacity is kept in `capacity`.
+int cooperative_launch(const void* kernel, Capacity* capacity, int dev, int H, int U,
+                       size_t smem, void** args, void* stream) {
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  const void* kernel = (const void*)lstm_seq_kernel<KC, kExchangeOnly>;
   Capacity& cap = capacity[dev];
   std::call_once(cap.once, [&] {
     int n_sm = 0, per_sm = 0;
@@ -306,22 +570,47 @@ int launch(const void* gates_x, const void* masks, const void* h0, const void* c
     cap.blocks = n_sm * per_sm;
   });
   if (cap.err != cudaSuccess) return (int)cap.err;
-  // the exchange-only grid takes the same shared memory, so it lands on the
-  // same SMs, one block each
-  const size_t smem = smem_bytes(B, H);
   const int blocks = (H + U - 1) / U;
   if (cap.blocks < blocks) return kNotCoResident;
-  void* args[] = {&gates_x, &masks, &h0, &c0, &w_hh_t, &outs, &hT, &cT, &ws,
-                  &T,       &B,     &H,  &U};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       kernel, dim3(blocks), dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <int KC, bool kExchangeOnly>
+int launch(const void* gates_x, const void* masks, const void* h0, const void* c0,
+           const void* w_hh_t, void* outs, void* hT, void* cT, void* ws, int T,
+           int B, int H, int U, int dev, void* stream) {
+  static Capacity capacity[kMaxDevices];
+  void* args[] = {&gates_x, &masks, &h0, &c0, &w_hh_t, &outs, &hT, &cT, &ws,
+                  &T,       &B,     &H,  &U};
+  // the exchange-only grid takes the same shared memory, so it lands on the
+  // same SMs, one block each
+  return cooperative_launch((const void*)lstm_seq_kernel<KC, kExchangeOnly>, capacity, dev,
+                            H, U, smem_bytes(B, H), args, stream);
+}
+
+template <int KC>
+int launch_backward(const void* gates, const void* masks, const void* c0, const void* w_hh,
+                    const void* g_outs, const void* g_hT, const void* g_cT, void* d_gates,
+                    void* d_h0, void* d_c0, void* cs, void* d_h_tilde, void* d_c_tilde,
+                    void* ws, int T, int B, int H, int U, int dev, void* stream) {
+  static Capacity capacity[kMaxDevices];
+  void* args[] = {&gates, &masks, &c0,   &w_hh,      &g_outs,    &g_hT, &g_cT,
+                  &d_gates, &d_h0, &d_c0, &cs, &d_h_tilde, &d_c_tilde, &ws,
+                  &T,     &B,     &H,    &U};
+  return cooperative_launch((const void*)lstm_seq_backward_kernel<KC>, capacity, dev, H, U,
+                            backward_smem_bytes(B, H), args, stream);
+}
+
 }  // namespace
 
 extern "C" size_t lstm_seq_smem_bytes(int B, int H) { return smem_bytes(B, H); }
+
+extern "C" size_t lstm_seq_backward_smem_bytes(int B, int H) {
+  return backward_smem_bytes(B, H);
+}
 
 // H a multiple of 4 up to 1024 (KC = 1..8), U <= 8 units a block (ceil(H / U)
 // blocks), at most 16 batch pairs a warp (the wrapper checks)
@@ -353,4 +642,30 @@ extern "C" int lstm_seq_exchange(void* ws, int T, int B, int H, int U, int dev,
                                  void* stream) {
   return launch<1, true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                          nullptr, ws, T, B, H, U, dev, stream);
+}
+
+// The backward over the same grid: the shapes of lstm_seq_f32, with at most
+// as many batch rows as two buffers of dg leave room for (the wrapper
+// checks).  d_h_tilde and d_c_tilde may be null.
+extern "C" int lstm_seq_backward_f32(const void* gates, const void* masks, const void* c0,
+                                     const void* w_hh, const void* g_outs, const void* g_hT,
+                                     const void* g_cT, void* d_gates, void* d_h0, void* d_c0,
+                                     void* cs, void* d_h_tilde, void* d_c_tilde, void* ws,
+                                     int T, int B, int H, int U, int dev, void* stream) {
+#define LSTM_SEQ_BWD_KC(kc)                                                            \
+  case kc:                                                                             \
+    return launch_backward<kc>(gates, masks, c0, w_hh, g_outs, g_hT, g_cT, d_gates, d_h0, \
+                               d_c0, cs, d_h_tilde, d_c_tilde, ws, T, B, H, U, dev, stream);
+  switch ((H + 127) / 128) {
+    LSTM_SEQ_BWD_KC(1)
+    LSTM_SEQ_BWD_KC(2)
+    LSTM_SEQ_BWD_KC(3)
+    LSTM_SEQ_BWD_KC(4)
+    LSTM_SEQ_BWD_KC(5)
+    LSTM_SEQ_BWD_KC(6)
+    LSTM_SEQ_BWD_KC(7)
+    LSTM_SEQ_BWD_KC(8)
+  }
+#undef LSTM_SEQ_BWD_KC
+  return (int)cudaErrorInvalidValue;
 }

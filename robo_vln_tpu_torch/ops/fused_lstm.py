@@ -18,9 +18,18 @@ Dispatch is by where the tensors lie: on the CPU the plain version
 or the wrapper raises (:func:`check_shape`, before any launch: H off a
 multiple of 4 or above 1024, or more than 8 hidden units a block to keep the
 grid within one block an SM).  The grid has ceil(H / units) blocks, so H
-need not divide evenly.  The backward pass replays the plain version, as
-the JAX custom VJP does (pallas_lstm.py:164-167), in the profiler range
-``lstm_seq.backward_replay``.
+need not divide evenly.
+
+The backward pass is a kernel too, the second entry of the same source
+(:func:`lstm_seq_backward_cuda`, in the profiler range
+``lstm_seq.backward``): it computes what the JAX custom VJP gets by
+differentiating its scan (pallas_lstm.py:162-165), the gradient with
+respect to gates_x, masks, h0, c0 and w_hh.  Around the kernel, which runs
+the reverse recurrence, :func:`reverse_pass` recomputes the gates of all
+steps in one product before it and forms d_w_hh in one product after it;
+the masks' gradient is formed only when asked.  Its plain version is
+:func:`ops.rnn.lstm_recurrence_backward`.  It raises before any launch
+where :func:`check_backward_shape` refuses.
 """
 
 from __future__ import annotations
@@ -31,10 +40,12 @@ import functools
 import torch
 from torch.profiler import record_function
 
+from ..utils.device import float32_exact
 from . import _build
 from .rnn import lstm_recurrence
 
-launches = 0  # kernel launches since the last reset
+launches = 0  # forward kernel launches since the last reset
+backward_launches = 0  # backward kernel launches since the last reset
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 WARPS = 8  # kWarps of csrc/lstm_seq.cu
@@ -48,8 +59,8 @@ _workspaces: dict = {}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, backward_launches
+    launches = backward_launches = 0
 
 
 def _units_per_block(H: int, n_sm: int) -> int:
@@ -66,35 +77,75 @@ def smem_bytes(H: int, B: int) -> int:
     return 4 * 2 * b_pad * H
 
 
-def max_batch(H: int, units: int) -> int:
+def backward_smem_bytes(H: int, B: int) -> int:
+    """Shared memory of one block of the backward
+    (lstm_seq_backward_smem_bytes in the source): two buffers of dg, rows of
+    4H, B rounded up to TASK_BATCH rows."""
+    return smem_bytes(4 * H, B)
+
+
+def _most_rows(row: int, units: int) -> int:
     """The most batch rows one launch takes: 16 batch pairs a warp, and two
-    buffers of h within a block's shared memory."""
+    buffers of ``row`` floats a batch row within a block's shared memory."""
     by_tasks = TASK_BATCH * TASKS_PER_WARP * (WARPS // units)
-    by_smem = SMEM_LIMIT // (4 * 2 * H) // TASK_BATCH * TASK_BATCH
+    by_smem = SMEM_LIMIT // (4 * 2 * row) // TASK_BATCH * TASK_BATCH
     return min(by_tasks, by_smem)
+
+
+def max_batch(H: int, units: int) -> int:
+    """The most batch rows one forward launch takes (rows of h)."""
+    return _most_rows(H, units)
+
+
+def max_backward_batch(H: int, units: int) -> int:
+    """The most batch rows one backward launch takes (rows of dg, 4H)."""
+    return _most_rows(4 * H, units)
+
+
+def _check_grid(what: str, H: int, units: int) -> None:
+    if H % 4 or H > MAX_H:
+        raise ValueError(f"{what}: the kernel holds W_hh's rows in 16-byte "
+                         f"chunks, at most {MAX_H // 128} a lane, and takes H a "
+                         f"multiple of 4 up to {MAX_H}; got H={H}")
+    if units > WARPS:
+        raise ValueError(f"{what}: H={H} needs {units} units a block, more "
+                         f"than its {WARPS} warps")
 
 
 def check_shape(B: int, H: int, units: int) -> None:
     """Raise unless one launch takes batch B and hidden size H at this many
     units a block."""
-    if H % 4 or H > MAX_H:
-        raise ValueError(f"lstm_seq: the kernel holds W_hh's rows in 16-byte "
-                         f"chunks, at most {MAX_H // 128} a lane, and takes H a "
-                         f"multiple of 4 up to {MAX_H}; got H={H}")
-    if units > WARPS:
-        raise ValueError(f"lstm_seq: H={H} needs {units} units a block, more "
-                         f"than its {WARPS} warps")
+    _check_grid("lstm_seq", H, units)
     if B > max_batch(H, units):
         raise ValueError(f"lstm_seq: one launch takes at most {max_batch(H, units)} "
                          f"batch rows at H={H} and {units} units a block, got B={B}")
 
 
+def check_backward_shape(B: int, H: int, units: int) -> None:
+    """Raise unless one launch of the backward takes batch B and hidden
+    size H at this many units a block: the forward's grid, with fewer rows."""
+    _check_grid("lstm_seq backward", H, units)
+    if B > max_backward_batch(H, units):
+        raise ValueError(f"lstm_seq backward: one launch takes at most "
+                         f"{max_backward_batch(H, units)} batch rows at H={H} and "
+                         f"{units} units a block, got B={B}")
+
+
+def _equal_slices(B: int, most: int) -> list:
+    n = -(-B // most)
+    size = -(-B // n)
+    return [(b0, min(b0 + size, B)) for b0 in range(0, B, size)]
+
+
 def batch_slices(B: int, H: int, units: int) -> list:
     """Rows [b0, b1) of each launch: the batch rows are independent, so a
     batch larger than one launch takes runs as launches over equal slices."""
-    n = -(-B // max_batch(H, units))
-    size = -(-B // n)
-    return [(b0, min(b0 + size, B)) for b0 in range(0, B, size)]
+    return _equal_slices(B, max_batch(H, units))
+
+
+def backward_batch_slices(B: int, H: int, units: int) -> list:
+    """The same for the backward."""
+    return _equal_slices(B, max_backward_batch(H, units))
 
 
 def by_rows(fn, slices, gates_x, masks, h0, c0, w_hh):
@@ -121,6 +172,14 @@ def _entry():
 
 
 @functools.cache
+def _backward_entry():
+    fn = _build.load("lstm_seq").lstm_seq_backward_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return fn
+
+
+@functools.cache
 def _exchange_entry():
     fn = _build.load("lstm_seq").lstm_seq_exchange
     fn.restype = ctypes.c_int
@@ -129,11 +188,12 @@ def _exchange_entry():
 
 
 def _workspace(device, stream, B: int, H: int) -> torch.Tensor:
-    """The h exchange's workspace of one device: [epoch, blocks done, two
-    buffers of B·H tagged words], grown to the largest B·H asked for.  Zeroed
-    when made, then kept: each launch leaves it ready for the next.  Launches
-    on one stream are ordered; one on another stream first waits for the
-    stream of the last."""
+    """The exchange's workspace of one device: [epoch, blocks done, two
+    buffers of B·H tagged words], grown to the largest B·H asked for (the
+    backward asks for B·4H: it exchanges dg).  Both kernels use it and
+    advance its epoch by their steps.  Zeroed when made, then kept: each
+    launch leaves it ready for the next.  Launches on one stream are
+    ordered; one on another stream first waits for the stream of the last."""
     ws, last = _workspaces.get(device.index, (None, stream))
     if last != stream:
         stream.wait_stream(last)
@@ -222,22 +282,110 @@ def exchange_floor_cuda(T: int, B: int, H: int, device) -> None:
     _raise_on(err, H, units, n_sm)
 
 
+def reverse_pass(launch, slices, gates_x, masks, h0, c0, w_hh, outs, g_outs, g_hT,
+                 g_cT, masks_grad):
+    """The backward around its kernel, (d_gates_x, d_masks, d_h0, d_c0,
+    d_w_hh) as :func:`ops.rnn.lstm_recurrence_backward` gives them.  The
+    gates of all T steps, gx + h~·W_hh with h~_t = m_t h_{t-1} read from
+    ``outs``, come from one product; ``launch(gates, masks, c0, w_rows,
+    g_outs, g_hT, g_cT, masks_grad)`` runs the reverse recurrence over each
+    slice [b0, b1) of batch rows and returns (d_gates, d_h0, d_c0, c_t, dh~,
+    dc~) of those rows (the last two None unless ``masks_grad``); the slices
+    are joined, and d_w_hh = Σ h~ᵀ·d_gates comes from one product over the
+    joined rows, never from per-slice sums.  The masks' gradient is
+    Σ_H (h_{t-1} dh~ + c_{t-1} dc~).  Both products in float32, TF32 off."""
+    T, B, four_h = gates_x.shape
+    H = four_h // 4
+    h_prev = torch.cat([h0[None], outs[:-1]])
+    h_tilde = h_prev * masks[..., None]
+    w_rows = w_hh.contiguous()  # (H, 4H): W_hh's rows, which the kernel holds
+    with float32_exact(torch.float32):
+        gates = gates_x + h_tilde @ w_rows
+    parts = [launch(gates[:, b0:b1].contiguous(), masks[:, b0:b1].contiguous(), c0[b0:b1],
+                    w_rows, g_outs[:, b0:b1].contiguous(), g_hT[b0:b1], g_cT[b0:b1],
+                    masks_grad) for b0, b1 in slices]
+    d_gates, d_h0, d_c0, cs, d_h_tilde, d_c_tilde = parts[0] if len(parts) == 1 else (
+        None if p[0] is None else torch.cat(p, dim=p[0].dim() - 2) for p in zip(*parts))
+    with float32_exact(torch.float32):
+        d_w_hh = h_tilde.reshape(T * B, H).t() @ d_gates.reshape(T * B, four_h)
+    d_masks = None
+    if masks_grad:
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        d_masks = (h_prev * d_h_tilde + c_prev * d_c_tilde).sum(-1)
+    return d_gates, d_masks, d_h0, d_c0, d_w_hh
+
+
+def _backward_launch(gates, masks, c0, w_rows, g_outs, g_hT, g_cT, masks_grad):
+    """One launch of the backward kernel over these batch rows (see
+    :func:`reverse_pass`)."""
+    global backward_launches
+    T, B, four_h = gates.shape
+    H = four_h // 4
+    device = gates.device
+    units, n_sm = _units(device.index, H)
+    check_backward_shape(B, H, units)
+    if w_rows.data_ptr() % 16:  # read in 16-byte chunks
+        raise ValueError("lstm_seq backward: w_hh must be aligned to 16 bytes")
+
+    def empty(*shape):
+        return torch.empty(shape, device=device, dtype=torch.float32)
+
+    d_gates, d_h0, d_c0, cs = empty(T, B, four_h), empty(B, H), empty(B, H), empty(T, B, H)
+    d_h_tilde, d_c_tilde = (empty(T, B, H), empty(T, B, H)) if masks_grad else (None, None)
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        gates, masks, c0, w_rows, g_outs, g_hT, g_cT, d_gates, d_h0, d_c0, cs, d_h_tilde,
+        d_c_tilde)]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        ws = _workspace(device, stream, B, 4 * H)
+        err = _backward_entry()(*ptrs, ws.data_ptr(), T, B, H, units, device.index,
+                                stream.cuda_stream)
+    _raise_on(err, H, units, n_sm)
+    backward_launches += 1
+    return d_gates, d_h0, d_c0, cs, d_h_tilde, d_c_tilde
+
+
+def lstm_seq_backward_cuda(gates_x, masks, h0, c0, w_hh, outs, g_outs, g_hT, g_cT,
+                           masks_grad=True):
+    """Launch the backward kernel: the gradient of :func:`lstm_seq_cuda` at
+    the cotangents (g_outs, g_hT, g_cT), given its inputs and its ``outs``,
+    as :func:`ops.rnn.lstm_recurrence_backward` computes it.  All float32 on
+    one CUDA device; the cotangents may be strided or expanded (autograd's
+    zeros).  A batch beyond one launch runs as launches over row slices."""
+    T, B, four_h = gates_x.shape
+    H = four_h // 4
+    device = gates_x.device
+    if device.type != "cuda":
+        raise ValueError(f"lstm_seq backward: expected CUDA tensors, got {device}")
+    if T < 1 or B < 1 or four_h != 4 * H:
+        raise ValueError(f"lstm_seq backward: bad gates_x shape {tuple(gates_x.shape)}")
+    w_hh, g_outs, g_hT, g_cT = (t.contiguous() for t in (w_hh, g_outs, g_hT, g_cT))
+    for name, t, shape in (
+        ("gates_x", gates_x, (T, B, 4 * H)), ("masks", masks, (T, B)),
+        ("h0", h0, (B, H)), ("c0", c0, (B, H)), ("w_hh", w_hh, (H, 4 * H)),
+        ("outs", outs, (T, B, H)), ("g_outs", g_outs, (T, B, H)),
+        ("g_hT", g_hT, (B, H)), ("g_cT", g_cT, (B, H)),
+    ):
+        _check(name, t, shape, device)
+    units, _ = _units(device.index, H)
+    check_backward_shape(1, H, units)
+    return reverse_pass(_backward_launch, backward_batch_slices(B, H, units), gates_x,
+                        masks, h0, c0, w_hh, outs, g_outs, g_hT, g_cT, masks_grad)
+
+
 class _FusedLSTM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, gates_x, masks, h0, c0, w_hh):
-        ctx.save_for_backward(gates_x, masks, h0, c0, w_hh)
-        return lstm_seq_cuda(gates_x, masks, h0, c0, w_hh)
+        outs, hT, cT = lstm_seq_cuda(gates_x, masks, h0, c0, w_hh)
+        ctx.save_for_backward(gates_x, masks, h0, c0, w_hh, outs)
+        return outs, hT, cT
 
     @staticmethod
     def backward(ctx, g_outs, g_hT, g_cT):
-        inputs = [t.detach().requires_grad_(t.dtype.is_floating_point)
-                  for t in ctx.saved_tensors]
-        with torch.enable_grad(), record_function("lstm_seq.backward_replay"):
-            outs = lstm_recurrence(*inputs)
-            want = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(outs, want, (g_outs, g_hT, g_cT),
-                                             allow_unused=True))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        with record_function("lstm_seq.backward"):
+            grads = lstm_seq_backward_cuda(*ctx.saved_tensors, g_outs, g_hT, g_cT,
+                                           masks_grad=ctx.needs_input_grad[1])
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def fused_lstm_sequence(gates_x, masks, h0, c0, w_hh):

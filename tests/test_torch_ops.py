@@ -18,7 +18,8 @@ from robo_vln_tpu.ops import cm_attention as jax_cm
 from robo_vln_tpu.ops import pallas_lstm as jax_lstm
 from robo_vln_tpu.ops.pallas_attention import _pallas_attention
 from robo_vln_tpu_torch.ops import _build, cm_attention, fused_attention, fused_lstm
-from robo_vln_tpu_torch.ops.rnn import lstm_recurrence, lstm_sequence
+from robo_vln_tpu_torch.ops.rnn import (lstm_recurrence, lstm_recurrence_backward,
+                                        lstm_sequence)
 
 ATOL = 1e-5
 
@@ -406,6 +407,12 @@ def test_wrappers_refuse_non_cuda_tensors(rng):
     args = map(torch.from_numpy, _lstm_inputs(rng, 2, 1, 8))
     with pytest.raises(ValueError, match="CUDA"):
         fused_lstm.lstm_seq_cuda(*args)
+    args = list(map(torch.from_numpy, _lstm_inputs(rng, 2, 1, 8)))
+    outs = lstm_recurrence(*args)[0]
+    fused_lstm.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_lstm.lstm_seq_backward_cuda(*args, outs, outs, args[2], args[3])
+    assert fused_lstm.backward_launches == 0
 
 
 def test_bf16_attention_route(rng):
@@ -449,10 +456,14 @@ def test_kernel_library_names_follow_sources():
 
 def test_kernel_functions_backward_replays_plain(rng, monkeypatch):
     """The autograd.Functions around the kernels give the plain versions'
-    gradients (their backward replays the plain version, as the JAX custom
-    VJPs do).  The launch functions are stood in for by the plain versions,
-    since the kernels run only on the card."""
+    gradients: the LSTM's backward launches its own kernel, attention's
+    replays the plain version, as the JAX custom VJPs replay theirs.  The
+    launch functions, the LSTM's forward and backward both, are stood in
+    for by the plain versions, since the kernels run only on the card; the
+    LSTM's gradients (the masks' included) are held against autograd
+    through lstm_recurrence."""
     monkeypatch.setattr(fused_lstm, "lstm_seq_cuda", lstm_recurrence)
+    monkeypatch.setattr(fused_lstm, "lstm_seq_backward_cuda", lstm_recurrence_backward)
     monkeypatch.setattr(fused_attention, "cross_modal_attn_cuda", fused_attention.attention_plain)
     cases = [
         (fused_lstm._FusedLSTM.apply, lstm_recurrence, _lstm_inputs(rng, 4, 2, 8), ()),

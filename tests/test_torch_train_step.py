@@ -55,6 +55,8 @@ from robo_vln_tpu_torch.models import (
     sync_frozen_trunks,
 )
 from robo_vln_tpu_torch.models.transformer import VisualLingAttn, dropout
+from robo_vln_tpu_torch.ops import fused_lstm
+from robo_vln_tpu_torch.ops.rnn import lstm_recurrence, lstm_recurrence_backward
 from robo_vln_tpu_torch.training import optimizers, steps
 from robo_vln_tpu_torch.utils.weight_port import (
     high_level_state_dict,
@@ -203,6 +205,44 @@ def _close(got, want, atol, rtol=0.0, what=""):
 
 @pytest.mark.parametrize("windows,deviations", [(1, False), (3, False), (1, True)])
 def test_train_step_matches_jax(windows, deviations):
+    _check_train_step(windows, deviations)
+
+
+def test_train_step_through_fused_lstm_matches_jax(monkeypatch):
+    """One window with both LSTMs through ops/fused_lstm._FusedLSTM, the
+    Function that wraps the kernels on the card, its forward and backward
+    launches stood in for by their plain versions (lstm_recurrence,
+    lstm_recurrence_backward): the same checks as the plain step, at the
+    same tolerances.  Among them, each level's weight_hh_l0 receives JAX's
+    gradient through the transposed view ``weight_hh_l0.t()`` that the
+    state encoder passes."""
+    calls = []
+
+    def forward(*args):
+        calls.append("forward")
+        return lstm_recurrence(*args)
+
+    def backward(*args, masks_grad=True):
+        calls.append(("backward", masks_grad))
+        return lstm_recurrence_backward(*args, masks_grad=masks_grad)
+
+    def through_function(gates_x, masks, h0, c0, w_hh):
+        f32 = [t.float().contiguous() for t in (gates_x, masks, h0, c0)]
+        return fused_lstm._FusedLSTM.apply(*f32, w_hh.float())
+
+    monkeypatch.setattr(fused_lstm, "lstm_seq_cuda", forward)
+    monkeypatch.setattr(fused_lstm, "lstm_seq_backward_cuda", backward)
+    monkeypatch.setattr(fused_lstm, "fused_lstm_sequence", through_function)
+    checked = _check_train_step(1, False)
+    assert calls == ["forward"] * 2 + [("backward", False)] * 2
+    assert {("high", "state_encoder.rnn.weight_hh_l0"),
+            ("low", "state_encoder.rnn.weight_hh_l0")} <= checked
+
+
+def _check_train_step(windows, deviations):
+    """The port's step against the JAX step over ``windows`` windows; the
+    (level, name) of every parameter whose gradient was held to JAX's."""
+    checked = set()
     _, jhigh, jlow, high_vars, low_vars = jax_setup()
     jstep, jgrads, tx_h, tx_l = jax_programs(deviations)
     hp, lp = high_vars["params"], low_vars["params"]
@@ -258,6 +298,7 @@ def test_train_step_matches_jax(windows, deviations):
                     assert torch.equal(p, unused[key]), what
                     continue
                 _close(p.grad, ref_grads[name], TOL, what=f"grad {what}")
+                checked.add(key)
                 big = np.abs(np.asarray(ref_grads[name])) > GRAD_FLOOR
                 steady[key] = big & steady.get(key, True)
                 err = np.abs(p.detach().numpy() - ref_params[name])
@@ -272,6 +313,7 @@ def test_train_step_matches_jax(windows, deviations):
         assert torch.equal(pol.get_parameter(name), before), name
         assert pol.get_parameter(name).grad is None
     assert sum(s.sum() for s in steady.values()) > 0.5 * sum(s.size for s in steady.values())
+    return checked
 
 
 def test_val_step_matches_jax():

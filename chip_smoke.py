@@ -9,8 +9,9 @@ exit code and no result line:
 1. Device: CUDA must be present; prints nvidia-smi's name and power limit.
 2. Build: compiles every CUDA kernel of the port from csrc/ for sm_90a, one
    nvcc per source, all in parallel, into build/kernels/; prints each
-   kernel instance's registers and spills, and fails if an instance of the
-   float32 tensor-core attention kernel spills.
+   kernel instance's registers and spills, and fails if an instance of
+   either float32 tensor-core attention kernel (keys whole, or in key
+   blocks past S = 128) spills.
 3. Kernels against their plain versions, float32 with TF32 off (in a scope
    around this phase only), at the shapes of the serving path: the LSTM
    kernel (also at every H range of its template and at batches beyond one
@@ -25,10 +26,13 @@ exit code and no result line:
    its launch alone against the plain backward, the replay and cuDNN's
    backward), and the cross-modal attention
    kernel in its three routes: float32 on the tensor cores (3xTF32, the
-   route of every float32 call at these shapes), float32 on the CUDA cores
-   (the route of float32 shapes the first does not take) and
-   bfloat16 (the serving dtype), each held at the same shapes and at ragged
-   ones, where the route each shape takes is checked too.  Prints the
+   route of every float32 call with d_k and d_v multiples of 8 up to 128,
+   in key blocks past S = 128), float32 on the CUDA cores (the route of
+   float32 shapes the first does not take) and bfloat16 (the serving
+   dtype), each held at the same shapes and at ragged ones, where the route
+   each shape takes (and whether it took the key blocks) is checked too;
+   at the window's S = 16 and S = 64 the float32 key-block kernel is also
+   forced, held and timed beside the whole-key kernel.  Prints the
    largest error against the stated tolerance, and every rep's time of the
    kernel, the plain version and one PyTorch library call computing the
    same function, each rep's calls queued on the device behind a sleep so
@@ -37,10 +41,14 @@ exit code and no result line:
    finds them in the L2 cache; at the tick's shape the bfloat16 wrapper is
    also timed unqueued, at the host's dispatch rate.  Phase 3c: shapes
    past the kernels' former ranges (bfloat16 attention at S=144, the depth
-   tokens of a 384 px frame, and S=300 in key blocks; float32 attention at
-   S=500, K and V read in place; the LSTM and its backward at H=556, a
-   ragged grid) must launch their kernel once and match the plain version;
-   S=144 is timed at the window's size; shapes no kernel takes (an
+   tokens of a 384 px frame, and S=300 in key blocks; float32 attention in
+   key blocks at S=144 and at S=200, d=128, self-attention's, both at the
+   window's N, and at S=500; the float32 CUDA-core kernel at S=500, d=60, K and V
+   read in place; the LSTM and its backward at H=556, a ragged grid) must
+   launch their kernel once and match the plain version; float32 S=144
+   and S=200, d=128 are timed at the window's size against the CUDA-core kernel
+   forced, the plain version and SDPA, and bfloat16 S=144 against the
+   plain version and SDPA; shapes no kernel takes (an
    unaligned bfloat16 call, the LSTM and its backward at H=1028, the
    backward's own predicate) must raise before any launch.
 4. Serving path at full published width (BERT-base, TV-ResNet50 at 224 px,
@@ -89,6 +97,8 @@ exit code and no result line:
    trainer) beside phase 5's bare step, the gaps between steps, the
    epochs, the validation, checkpoint save and load times and size, peak
    memory.  With --profile, run 2 is traced.
+   After phases 4-6: the key-block kernel of the float32 tensor-core
+   attention must have launched on none of the three paths.
 7. One JSON line {"kernels": [...]} (``launches``: the serving path's,
    but the LSTM backward's, which the serving path never runs, is the
    train path's; ``train_launches``: the train path's,
@@ -520,7 +530,8 @@ def check_attention(gen, device):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     f32, bf16 = torch.float32, torch.bfloat16
     worst = dict.fromkeys(fused_attention.ROUTES, 0.0)
-    sums = {"ms": 0.0, "f32_cuda_core_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+    sums = {"ms": 0.0, "f32_key_blocks_ms": 0.0, "f32_cuda_core_ms": 0.0, "plain_ms": 0.0,
+            "library_ms": 0.0,
             "bf16_ms": 0.0, "bf16_plain_ms": 0.0, "bf16_library_ms": 0.0}
     bounds = {f32: [0.0, 0.0], bf16: [0.0, 0.0]}
 
@@ -533,17 +544,23 @@ def check_attention(gen, device):
         return [t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v)]
 
     def check(tag, q, k, v, h, tol, expected):
-        """One launch, which must take route ``expected``, held to the plain
+        """One launch, which must take route ``expected`` (in float32 on the
+        tensor cores past S = 128, its key blocks), held to the plain
         version."""
         before = dict(fused_attention.route_launches)
+        blocks_before = fused_attention.f32_key_block_launches
         got = fused_attention.cross_modal_attn_cuda(q, k, v, h)
         ref = fused_attention.attention_plain(q, k, v, h)
         torch.cuda.synchronize()
         took = [r for r, count in fused_attention.route_launches.items() if count != before[r]]
         err = (got.float() - ref.float()).abs().max().item()
-        print(f"  {tag} [{','.join(took)}]: max_abs_err {err:.3e} (tolerance {tol})")
+        blocks = fused_attention.f32_key_block_launches - blocks_before
+        print(f"  {tag} [{','.join(took)}{', key blocks' if blocks else ''}]: "
+              f"max_abs_err {err:.3e} (tolerance {tol})")
         if took != [expected]:
             fail(f"cross_modal_attn launched {took} at {tag}, expected {expected}")
+        if blocks != (expected == "f32_tensor_core" and k.shape[1] > fused_attention.F32_WHOLE_S):
+            fail(f"cross_modal_attn launched {blocks} key-block kernels at {tag}")
         if not err <= tol:
             fail(f"cross_modal_attn ({expected}) disagrees with its plain version at {tag}")
         worst[expected] = max(worst[expected], err)
@@ -555,6 +572,8 @@ def check_attention(gen, device):
                 tag = f"N={n} Lq={Lq} S={S} h={heads} d={d} {str(dtype)[6:]}"
                 if dtype == f32:
                     check(tag, q, k, v, heads, tol, "f32_tensor_core")
+                    with f32_key_blocks_everywhere():
+                        check(f"{tag}, key-block kernel", q, k, v, heads, tol, "f32_tensor_core")
                     with cuda_core_f32_attention():
                         check(f"{tag}, CUDA-core kernel", q, k, v, heads, tol, "f32_cuda_core")
                 else:
@@ -580,6 +599,8 @@ def check_attention(gen, device):
                 kernel = lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads)
                 sums[prefix + "ms"] += timed("kernel", kernel)
                 if dtype == f32:
+                    with f32_key_blocks_everywhere():
+                        sums["f32_key_blocks_ms"] += timed("key-block kernel", kernel)
                     with cuda_core_f32_attention():
                         sums["f32_cuda_core_ms"] += timed("CUDA-core kernel", kernel)
                 sums[prefix + "plain_ms"] += timed("plain", lambda *t: (
@@ -598,16 +619,21 @@ def check_attention(gen, device):
     # ragged shapes, each with the route it must take: a partial query tile,
     # S below a warp, off a multiple of 8 or 16, and at the largest instance
     # (whose tiles need more than 48 KB of shared memory), other head sizes
-    # (d_v != d_k in float32 only), and float32 shapes outside the
-    # tensor-core kernel's range, which the CUDA-core kernel takes
+    # (d_v != d_k in float32 only), float32 past S = 128 in key blocks (one
+    # key past the whole instances, a partial last key block, d_v != d_k),
+    # and float32 shapes outside the tensor-core route's range, which the
+    # CUDA-core kernel takes
     ragged = [((3, 13, 5, 2, 8, 16), f32, "f32_tensor_core"),
               ((2, 40, 33, 3, 32, 32), f32, "f32_tensor_core"),
               ((4, 65, 1, 4, 64, 64), f32, "f32_tensor_core"),
               ((2, 130, 128, 1, 128, 128), f32, "f32_tensor_core"),
               ((2, 70, 17, 2, 64, 32), f32, "f32_tensor_core"),
               ((3, 100, 100, 2, 96, 40), f32, "f32_tensor_core"),
+              ((2, 20, 200, 2, 16, 16), f32, "f32_tensor_core"),
+              ((2, 50, 129, 2, 64, 64), f32, "f32_tensor_core"),
+              ((3, 140, 300, 2, 96, 40), f32, "f32_tensor_core"),
               ((2, 40, 16, 2, 12, 12), f32, "f32_cuda_core"),
-              ((2, 20, 200, 2, 16, 16), f32, "f32_cuda_core"),
+              ((2, 40, 200, 2, 20, 20), f32, "f32_cuda_core"),
               ((3, 13, 5, 2, 16, 16), bf16, "bf16"),
               ((2, 40, 33, 3, 32, 32), bf16, "bf16"),
               ((4, 65, 1, 4, 48, 48), bf16, "bf16"),
@@ -633,19 +659,63 @@ def check_attention(gen, device):
         "work": "2 calls, N=200 Lq=200 h=4 d=64 at S=16 and S=64 (one window forward), "
                 f"inputs rotated over {L2_ROTATION} sets so that none is in L2; the "
                 "unprefixed fields float32 on the tensor cores (3xTF32, the route every "
-                "float32 call at these shapes takes), f32_cuda_core_* the float32 "
-                "CUDA-core kernel at the same shapes, bf16_* bfloat16; bound_ms counts "
-                "float32 operations at the CUDA cores' peak",
+                "float32 call at these shapes takes, its keys whole), f32_key_blocks_ms "
+                "its key-block kernel (the route past S = 128) forced at the same shapes, "
+                "f32_cuda_core_* the float32 CUDA-core kernel at the same shapes, bf16_* "
+                "bfloat16; bound_ms counts float32 operations at the CUDA cores' peak",
         "library": "torch.nn.functional.scaled_dot_product_attention on head views",
     }
+
+
+def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what):
+    """One attention call at these sizes timed with its inputs rotated out
+    of L2: the kernel, in float32 also the CUDA-core kernel forced, the
+    plain version and SDPA on head views; and its bound.  Returns the
+    JSON fields ``{prefix}_*``."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    sets = [[torch.randn(N, L, heads * d, generator=gen).to(device, dtype) for L in (Lq, S, S)]
+            for _ in range(L2_ROTATION)]
+    note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
+    tag = f"N={N} Lq={Lq} S={S} h={heads} d={d} {str(dtype)[6:]}"
+
+    def timed(label, fn, arg_sets=sets):
+        return report_times(f"{tag} {label} ({note})", time_ms(rotated(fn, arg_sets)))
+
+    kernel = lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads)
+    fields = {f"{prefix}_ms": timed("kernel", kernel)}
+    if dtype == torch.float32:
+        with cuda_core_f32_attention():
+            fields[f"{prefix}_cuda_core_ms"] = timed("CUDA-core kernel", kernel)
+    fields[f"{prefix}_plain_ms"] = timed("plain", lambda *t: (
+        fused_attention.attention_plain(*t, heads)))
+    fields[f"{prefix}_library_ms"] = timed(
+        "library scaled_dot_product_attention", torch.nn.functional.scaled_dot_product_attention,
+        [[t.view(N, t.shape[1], heads, d).transpose(1, 2) for t in ts] for ts in sets])
+    if dtype == torch.float32:
+        # the route's work is three tf32 products on the tensor cores; the
+        # same operations on the CUDA cores are printed beside them
+        by_bytes, by_f32 = attn_bound_ms(N, Lq, S, heads, d, 4, F32_FLOP_PER_S)
+        by_ops = 3 * attn_bound_ms(N, Lq, S, heads, d, 4, TF32_TC_FLOP_PER_S)[1]
+        print(f"  {tag} bound: bytes {by_bytes:.4f} ms, three tf32 products {by_ops:.4f} ms; "
+              f"float32 operations on the CUDA cores {by_f32:.4f} ms")
+        fields[f"{prefix}_f32_operations_bound_ms"] = by_f32
+    else:
+        by_bytes, by_ops = attn_bound_ms(N, Lq, S, heads, d, 2, BF16_TC_FLOP_PER_S)
+        print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
+    fields[f"{prefix}_bound_ms"] = max(by_bytes, by_ops)
+    fields[f"{prefix}_bound_by"] = "bytes" if by_bytes > by_ops else "operations"
+    fields[f"{prefix}_work"] = f"one call, {tag} ({what}), {note}"
+    return fields
 
 
 def check_wider_shapes(gen, device):
     """Phase 3c: one call of each shape past a kernel's former range, which
     must launch that kernel once (by the route it names) and match the
-    plain version; the bf16 kernel timed at the 384 px frame's S=144 over
-    the window's N; and the calls no kernel takes, which must raise before
-    any launch.  Returns the S=144 timing fields."""
+    plain version; float32 at the 384 px frame's S=144 and at self-attention's
+    S=200, d=128 held and timed at the window's N (against the CUDA-core kernel
+    too), the bf16 kernel timed at S=144; and the calls no kernel takes,
+    which must raise before any launch.  Returns the timing fields."""
     from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
 
@@ -667,6 +737,7 @@ def check_wider_shapes(gen, device):
                  f"expected one by {route or 'the kernel'}")
         if not err <= tol:
             fail(f"{tag} disagrees with the plain version")
+        return err
 
     def refused(tag, module, call, counter="launches"):
         before = getattr(module, counter)
@@ -683,13 +754,28 @@ def check_wider_shapes(gen, device):
         return [torch.randn(n, L, h * d, generator=gen).to(device, dtype)
                 for L in (lq, S, S)]
 
-    for S, dtype, d, tol, route in ((144, bf16, 64, ATTN_BF16_TOL, "bf16"),
-                                    (300, bf16, 128, ATTN_BF16_TOL, "bf16"),
-                                    (500, f32, 64, ATTN_TOL, "f32_cuda_core")):
-        q, k, v = qkv(8, 200, S, 4, d, dtype)
-        held(f"cross_modal_attn N=8 Lq=200 S={S} h=4 d={d} {str(dtype)[6:]}", fused_attention,
-             lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4),
-             lambda: fused_attention.attention_plain(q, k, v, 4), tol, route)
+    # float32 past S = 128 in key blocks: the (a) depth attention of a 384 px
+    # frame and (b) self-attention over 200 tokens at d = 128, both at the
+    # window's N (their errors go into the JSON line under ``key``), then a
+    # long S; and the CUDA-core kernel at d = 60, K and V in place
+    errors = {}
+    for n, S, dtype, d, tol, route, key in (
+            (8, 144, bf16, 64, ATTN_BF16_TOL, "bf16", None),
+            (8, 300, bf16, 128, ATTN_BF16_TOL, "bf16", None),
+            (200, 144, f32, 64, ATTN_TOL, "f32_tensor_core", "f32_s144"),
+            (200, 200, f32, 128, ATTN_TOL, "f32_tensor_core", "f32_s200_d128"),
+            (8, 500, f32, 64, ATTN_TOL, "f32_tensor_core", None),
+            (8, 500, f32, 60, ATTN_TOL, "f32_cuda_core", None)):
+        q, k, v = qkv(n, 200, S, 4, d, dtype)
+        blocks = fused_attention.f32_key_block_launches
+        err = held(f"cross_modal_attn N={n} Lq=200 S={S} h=4 d={d} {str(dtype)[6:]}",
+                   fused_attention, lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4),
+                   lambda: fused_attention.attention_plain(q, k, v, 4), tol, route)
+        if key:
+            errors[f"{key}_max_abs_err"] = err
+        if fused_attention.f32_key_block_launches - blocks != (route == "f32_tensor_core"):
+            fail(f"N={n} S={S} d={d} {route}: {fused_attention.f32_key_block_launches - blocks} "
+                 "key-block launches")
     for T, B in ((5, 4), (50, 4)):
         args = lstm_inputs(gen, T, B, 556, device)
         held(f"lstm_seq T={T} B={B} H=556", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args),
@@ -713,28 +799,30 @@ def check_wider_shapes(gen, device):
     refused("lstm_seq backward H=1028", fused_lstm, lambda: fused_lstm.lstm_seq_backward_cuda(
         *args, outs, *lstm_cotangents(gen, 2, 2, 1028, device)), "backward_launches")
 
-    # the depth attention of a 384 px frame at the window's size
-    N, Lq, S, heads, d = 200, 200, 144, 4, 64
-    sets = [qkv(N, Lq, S, heads, d, bf16) for _ in range(L2_ROTATION)]
-    note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
-    tag = f"N={N} Lq={Lq} S={S} h={heads} d={d} bfloat16"
-    timed = {
-        "bf16_s144_ms": report_times(f"{tag} kernel ({note})", time_ms(rotated(
-            lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads), sets))),
-        "bf16_s144_plain_ms": report_times(f"{tag} plain ({note})", time_ms(rotated(
-            lambda *t: fused_attention.attention_plain(*t, heads), sets))),
-        "bf16_s144_library_ms": report_times(
-            f"{tag} library scaled_dot_product_attention ({note})", time_ms(rotated(
-                torch.nn.functional.scaled_dot_product_attention,
-                [[t.view(N, t.shape[1], heads, d).transpose(1, 2) for t in ts]
-                 for ts in sets]))),
-    }
-    by_bytes, by_ops = attn_bound_ms(N, Lq, S, heads, d, 2, BF16_TC_FLOP_PER_S)
-    print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
-    timed["bf16_s144_bound_ms"] = max(by_bytes, by_ops)
-    timed["bf16_s144_work"] = (f"one call, {tag} (the depth attention of a 384 px frame), "
-                               f"{note}; bound by {'bytes' if by_bytes > by_ops else 'operations'}")
-    return timed
+    # at the window's N: the depth attention of a 384 px frame (S=144) in
+    # both dtypes, self-attention over 200 tokens at d = 128 in float32
+    return {**errors,
+            **time_attention(gen, device, "f32_s144", 200, 200, 144, 4, 64, f32,
+                             "the float32 depth attention of a 384 px frame, key blocks"),
+            **time_attention(gen, device, "f32_s200_d128", 200, 200, 200, 4, 128, f32,
+                             "float32 self-attention over 200 tokens, d_model 512, key blocks"),
+            **time_attention(gen, device, "bf16_s144", 200, 200, 144, 4, 64, bf16,
+                             "the depth attention of a 384 px frame")}
+
+
+@contextlib.contextmanager
+def f32_key_blocks_everywhere():
+    """Send every float32 tensor-core attention call to the key-block kernel,
+    whatever S, to check and time it against the whole-key kernel at the
+    window's S = 16 and S = 64."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    saved = fused_attention.F32_WHOLE_S
+    fused_attention.F32_WHOLE_S = 0
+    try:
+        yield
+    finally:
+        fused_attention.F32_WHOLE_S = saved
 
 
 @contextlib.contextmanager
@@ -1416,7 +1504,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from robo_vln_tpu_torch.ops import _build
+        from robo_vln_tpu_torch.ops import _build, fused_attention
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e})", file=sys.stderr)
         return 1
@@ -1434,7 +1522,7 @@ def main():
     for name, log in logs.items():
         for kernel, regs, spill in ptxas_usage(log):
             print(f"  {name}: {kernel}: {regs} registers, {spill} bytes spill stores")
-            if kernel.startswith("cross_modal_attn_f32tc_kernel") and spill:
+            if kernel.startswith("cross_modal_attn_f32tc") and spill:
                 fail(f"{kernel} spills {spill} bytes")
 
     gen = torch.Generator().manual_seed(0)
@@ -1442,9 +1530,20 @@ def main():
         kernels = [*check_lstm(gen, device), check_attention(gen, device)]
         kernels[2].update(check_wider_shapes(gen, device))
     profile = "--profile" in sys.argv[1:]
+    # each path zeroes the launch counts before it runs; the float32
+    # tensor-core route's key blocks (S > 128) are read after each
+    key_blocks = {}
     launches = main_path(device, profile)
+    key_blocks["f32_key_block_launches"] = fused_attention.f32_key_block_launches
     train_launches, bare_step_ms = train_path(device, profile)
+    key_blocks["f32_key_block_train_launches"] = fused_attention.f32_key_block_launches
     trainer_launches = trainer_path(device, bare_step_ms, profile)
+    key_blocks["f32_key_block_trainer_launches"] = fused_attention.f32_key_block_launches
+    print(f"key-block launches of the float32 tensor-core attention (S > 128) on the serving, "
+          f"train and trainer paths: {key_blocks}")
+    if any(key_blocks.values()):
+        fail("an HCM path launched the float32 key-block attention kernel")
+    kernels[2].update(key_blocks)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]

@@ -40,8 +40,10 @@
 // raises outside that range.
 //
 // float32 on the tensor cores (3xTF32), for d_k and d_v multiples of 8 up
-// to 128 (d_k != d_v allowed), 1 ≤ S ≤ 128 and pointers aligned to 16
-// bytes.  What bounds it: bytes, twice the bf16 route's (0.0587 ms for the
+// to 128 (d_k != d_v allowed), any S ≥ 1 and pointers aligned to 16 bytes;
+// one kernel for S ≤ 128, which holds the keys whole, and one that streams
+// them in key blocks past S = 128 (below).  What bounds the first: bytes,
+// twice the bf16 route's (0.0587 ms for the
 // window's two calls at 3.35 TB/s), while on the CUDA cores its 3.3 GFLOP
 // would take almost as long (0.049 ms at 67 TFLOP/s) before any softmax or
 // address arithmetic.  So both products run on mma.sync m16n8k8 tf32, each
@@ -67,9 +69,43 @@
 // the fragments (see the kernel).  At D = 128 with S > 64 the split tiles do
 // not fit in shared memory, and each warp splits the values it reads.
 //
-// float32 on the CUDA cores, for every other float32 shape
-// (d not a multiple of 8 or above 128, S > 128, or a pointer not aligned to
-// 16 bytes; the wrapper picks the kernel before the launch).  Grid (example,
+// float32 on the tensor cores past S = 128: key blocks.  Holding a head's
+// K and V whole, split, makes shared memory grow with S (a block needs
+// 174,080 bytes at S = 128, d = 64).  What bounds it is again bytes at d = 64 (S =
+// 144 at the window's N: 0.042 ms at 3.35 TB/s against 0.036 ms for the
+// three tf32 products at 495 TFLOP/s; on the CUDA cores the float32
+// operations alone would take 0.088 ms), and bytes and the three products
+// alike at d = 128 (S = 200: 0.098 and 0.099 ms).  What the design does
+// about it: the same query tiles, warps, 3xTF32 products and split tile
+// layouts as above, but S is cut into key blocks of 32 keys (KC = 4
+// chunks of 8 at every D: on the card 16-key blocks were a little slower at
+// S = 144 and S = 200, and 64-key blocks, one block an SM at d = 64, much
+// slower), so shared memory no longer grows with S and the route takes
+// any S.  Per key block the block's 8 warps split K
+// and V once into the pair-load tiles; then the next key block's 16-byte
+// cp.async copies go out into a raw buffer (rows of D floats, zero past S,
+// d_k and d_v) and stay in flight while the warps multiply the current
+// one; two barriers a key block (the copy has landed and the split tiles
+// are free; the split tiles are written and the raw buffer is free).  The
+// logits stay in the accumulators with an online softmax, as the bf16 key
+// blocks do: the running row max rescales the row sum and the output
+// accumulators after each key block, p = exp2 of logits scaled by log2 e
+// goes unnormalised into p·v, keys past S are -inf in the last key block
+// only, and the output is divided by the sum at the end.  One raw buffer
+// and one split tile (87,552 bytes at d = 64) keep 2 blocks on an SM at D = 64,
+// so one block's copies, split and barriers overlap the other's products;
+// at D = 128 the Q tile alone is 69,632 bytes and a block needs 169,472: one block
+// an SM, and a second split tile (to drop a barrier) does not fit.  The Q
+// fragments are split again for every key block: holding them split would
+// take 4·D/8 registers more a thread, or a split Q tile of twice the size.
+// The whole-key kernel keeps S ≤ 128: on the H100, forced onto the window's calls (d =
+// 64), the key blocks took 1.43× its time at S = 16 (half the key block
+// zeros, the copy, barriers and rescale) and 0.985× at S = 64, so 1.13×
+// for the window's two calls (chip_smoke.py phase 3b times both).
+//
+// float32 on the CUDA cores, for every other float32 shape (d not a
+// multiple of 8 or above 128, or a pointer not aligned to 16 bytes; the
+// wrapper picks the kernel before the launch).  Grid (example,
 // head, tile of 32 queries), 8 warps a block.  The block stages K and V of
 // its (example, head) in shared memory as float32 (K's rows padded by one
 // float so the lanes of a warp, one key each, hit 32 different banks); where
@@ -591,6 +627,63 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)
 constexpr int kF32Warps = 8;  // 16 query rows each
 constexpr int kF32Tile = 16 * kF32Warps;
 
+// Four values of one key's row into its row of split K: hi at row[0..3],
+// lo at row[D..D+3]
+__device__ __forceinline__ void split_key4(float* row, int D, float4 x) {
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(row) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(row + D) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// Four columns of two keys 2j and 2j + 1 (x0, x1) into the row of split V
+// that pairs them: (hi, hi) pairs at row[0..7], (lo, lo) at row[2D..2D+7]
+__device__ __forceinline__ void split_key_pair4(float* row, int D, float4 x0, float4 x1) {
+  uint32_t h[8], l[8];
+  split_tf32(x0.x, h[0], l[0]);
+  split_tf32(x1.x, h[1], l[1]);
+  split_tf32(x0.y, h[2], l[2]);
+  split_tf32(x1.y, h[3], l[3]);
+  split_tf32(x0.z, h[4], l[4]);
+  split_tf32(x1.z, h[5], l[5]);
+  split_tf32(x0.w, h[6], l[6]);
+  split_tf32(x1.w, h[7], l[7]);
+  *reinterpret_cast<uint4*>(row) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(row + 4) = make_uint4(h[4], h[5], h[6], h[7]);
+  *reinterpret_cast<uint4*>(row + 2 * D) = make_uint4(l[0], l[1], l[2], l[3]);
+  *reinterpret_cast<uint4*>(row + 2 * D + 4) = make_uint4(l[4], l[5], l[6], l[7]);
+}
+
+// A warp's 16 output rows (o_acc[dt]: columns 8dt..8dt+7 of rows g and
+// g + 8) through o_s, its own rows of the Q tile (pitch P), to ob in
+// 16-byte stores: rows below ``rows``, columns below dv
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&o_acc)[D / 8][4], float* o_s, int P,
+                                           float* ob, int ldv, int rows, int dv, int lane) {
+  constexpr int kChunks = D / 4;
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    *reinterpret_cast<float2*>(o_s + g * P + 8 * dt + 2 * t) =
+        make_float2(o_acc[dt][0], o_acc[dt][1]);
+    *reinterpret_cast<float2*>(o_s + (g + 8) * P + 8 * dt + 2 * t) =
+        make_float2(o_acc[dt][2], o_acc[dt][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 16 * kChunks / 32; ++j) {
+    const int i = j * 32 + lane;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    if (r < rows && c < dv)
+      *reinterpret_cast<float4*>(ob + (size_t)r * ldv + c) =
+          *reinterpret_cast<const float4*>(o_s + r * P + c);
+  }
+}
+
 // Shared memory of one block of cross_modal_attn_f32tc_kernel<D, KC>: the
 // 128-row Q tile in rows of D + 8 floats, then K and V (8·KC keys) either
 // split once for the block (split) or as they are (raw).  Split: K's rows
@@ -613,16 +706,19 @@ __host__ __device__ constexpr bool f32tc_split_once(int D, int KC) {
 
 // Blocks a multiprocessor should hold at once: as many as the registers
 // allow once the accumulators (4·KC logits and D/2 outputs a thread) and
-// about 40 registers of fragments and addresses fit, and as many as the
-// shared memory holds, at most 8.
+// ``more`` registers of fragments and addresses fit, and as many as the
+// shared memory (smem bytes a block) holds, at most 8.
+constexpr int f32tc_blocks_an_sm(int D, int KC, int more, size_t smem) {
+  const int regs = (4 * KC + D / 2 + more + 7) / 8 * 8;
+  const int by_regs = 65536 / (kF32Warps * 32 * regs);
+  const int by_smem = 233472 / (int)(smem + 1024);
+  const int m = by_regs < by_smem ? by_regs : by_smem;
+  return m < 1 ? 1 : (m > 8 ? 8 : m);
+}
+
 template <int D, int KC>
 constexpr int f32tc_min_blocks() {
-  constexpr int regs = (4 * KC + D / 2 + 40 + 7) / 8 * 8;
-  constexpr int by_regs = 65536 / (kF32Warps * 32 * regs);
-  constexpr int by_smem =
-      233472 / (int)(f32tc_smem_bytes(D, KC, f32tc_split_once(D, KC)) + 1024);
-  constexpr int m = by_regs < by_smem ? by_regs : by_smem;
-  return m < 1 ? 1 : (m > 8 ? 8 : m);
+  return f32tc_blocks_an_sm(D, KC, 40, f32tc_smem_bytes(D, KC, f32tc_split_once(D, KC)));
 }
 
 // D: d_k and d_v rounded up to 32, 64 or 128; KC: S rounded up to 16, 32,
@@ -703,13 +799,7 @@ cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
       const int i = j * kThreads + threadIdx.x;
       if (i < kKItems) {
         const int r = i / kChunks, c = (i % kChunks) * 4;
-        uint32_t h[4], l[4];
-        split_tf32(kx[j].x, h[0], l[0]);
-        split_tf32(kx[j].y, h[1], l[1]);
-        split_tf32(kx[j].z, h[2], l[2]);
-        split_tf32(kx[j].w, h[3], l[3]);
-        *reinterpret_cast<uint4*>(k_s + r * PK + c) = make_uint4(h[0], h[1], h[2], h[3]);
-        *reinterpret_cast<uint4*>(k_s + r * PK + D + c) = make_uint4(l[0], l[1], l[2], l[3]);
+        split_key4(k_s + r * PK + c, D, kx[j]);
       }
     }
 #pragma unroll
@@ -717,20 +807,7 @@ cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
       const int i = j * kThreads + threadIdx.x;
       if (i < kVItems) {
         const int rp = i / kChunks, c = (i % kChunks) * 4;
-        uint32_t h[8], l[8];  // (row 2rp, row 2rp + 1) of columns c..c+3
-        split_tf32(vx[j][0].x, h[0], l[0]);
-        split_tf32(vx[j][1].x, h[1], l[1]);
-        split_tf32(vx[j][0].y, h[2], l[2]);
-        split_tf32(vx[j][1].y, h[3], l[3]);
-        split_tf32(vx[j][0].z, h[4], l[4]);
-        split_tf32(vx[j][1].z, h[5], l[5]);
-        split_tf32(vx[j][0].w, h[6], l[6]);
-        split_tf32(vx[j][1].w, h[7], l[7]);
-        float* row = v_s + rp * PV + 2 * c;
-        *reinterpret_cast<uint4*>(row) = make_uint4(h[0], h[1], h[2], h[3]);
-        *reinterpret_cast<uint4*>(row + 4) = make_uint4(h[4], h[5], h[6], h[7]);
-        *reinterpret_cast<uint4*>(row + 2 * D) = make_uint4(l[0], l[1], l[2], l[3]);
-        *reinterpret_cast<uint4*>(row + 2 * D + 4) = make_uint4(l[4], l[5], l[6], l[7]);
+        split_key_pair4(v_s + rp * PV + 2 * c, D, vx[j][0], vx[j][1]);
       }
     }
   } else {
@@ -866,25 +943,8 @@ cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
     }
   }
 
-  __syncwarp();
-  float* o_s = q_s + row0 * P;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    *reinterpret_cast<float2*>(o_s + g * P + 8 * dt + 2 * t) =
-        make_float2(o_acc[dt][0], o_acc[dt][1]);
-    *reinterpret_cast<float2*>(o_s + (g + 8) * P + 8 * dt + 2 * t) =
-        make_float2(o_acc[dt][2], o_acc[dt][3]);
-  }
-  __syncwarp();
-  float* ob = out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv;
-#pragma unroll
-  for (int j = 0; j < 16 * kChunks / 32; ++j) {
-    const int i = j * 32 + lane;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    if (row0 + r < rows && c < dv)
-      *reinterpret_cast<float4*>(ob + (size_t)r * ldv + c) =
-          *reinterpret_cast<const float4*>(o_s + r * P + c);
-  }
+  store_rows<D>(o_acc, q_s + row0 * P, P, out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv,
+                ldv, rows - row0, dv, lane);
 }
 
 template <int D, int KC>
@@ -907,33 +967,277 @@ int launch_f32tc_tiles(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// Shared memory of one block of cross_modal_attn_f32tc_blocks_kernel<D, KC>:
+// the 128-row Q tile in rows of D + 8 floats, one key block of 8·KC keys
+// split (K's rows of 2D + 8, V's pairs of rows of 4D + 8, as
+// f32tc_smem_bytes lays them out), then the next key block's K and V as
+// they are, in rows of D floats.
+__host__ __device__ constexpr size_t f32tc_blocks_smem_bytes(int D, int KC) {
+  return sizeof(float) * ((size_t)kF32Tile * (D + 8) + (size_t)8 * KC * (2 * D + 8) +
+                          (size_t)4 * KC * (4 * D + 8) + (size_t)16 * KC * D);
+}
+
+// S > 128: the keys streamed in key blocks of 8·KC with an online softmax.
+// D: d_k and d_v rounded up to 32, 64 or 128.  The query tiles, warps,
+// fragments and split layouts are those of cross_modal_attn_f32tc_kernel;
+// the tiles are zero past Lq, S, d_k and d_v.  Every warp copies and
+// splits, and meets the barriers, including a warp with no query rows in
+// a partial tile, which multiplies nothing.  Its register budget allows 16
+// more a thread than the kernel above (the running max and sums and the
+// copy's addresses live across the key-block loop; at 40, D = 32 spilled).
+template <int D, int KC>
+__global__ void __launch_bounds__(kF32Warps * 32,
+                                  f32tc_blocks_an_sm(D, KC, 56, f32tc_blocks_smem_bytes(D, KC)))
+cross_modal_attn_f32tc_blocks_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
+                                     const float* __restrict__ k,  // (N, S, h*dk)
+                                     const float* __restrict__ v,  // (N, S, h*dv)
+                                     float* __restrict__ out,      // (N, Lq, h*dv)
+                                     int Lq, int S, int heads, int dk, int dv, int tiles,
+                                     float scale) {
+  constexpr int P = D + 8, PK = 2 * D + 8, PV = 4 * D + 8;  // pitches, as above
+  constexpr int kRows = 8 * KC;   // keys of one key block
+  constexpr int kChunks = D / 4;  // 16-byte chunks in one row of a tile
+  constexpr int kThreads = kF32Warps * 32;
+  constexpr int kKItems = kRows * kChunks, kVItems = kRows / 2 * kChunks;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // (128, P)
+  float* k_s = q_s + kF32Tile * P;                   // (kRows, PK), split
+  float* v_s = k_s + kRows * PK;                     // (kRows / 2, PV), split
+  float* k_raw = v_s + kRows / 2 * PV;               // (kRows, D), the copy in flight
+  float* v_raw = k_raw + kRows * D;                  // (kRows, D)
+
+  const int b = blockIdx.x;
+  const int nh = b / tiles;  // n * heads + head
+  const int q0 = (b - nh * tiles) * kF32Tile;
+  const int n = nh / heads, head = nh - n * heads;
+  const int ldk = heads * dk, ldv = heads * dv;  // row strides
+  const float* qb = q + ((size_t)n * Lq + q0) * ldk + head * dk;
+  const float* kb = k + (size_t)n * S * ldk + head * dk;
+  const float* vb = v + (size_t)n * S * ldv + head * dv;
+#pragma unroll
+  for (int j = 0; j < kF32Tile * kChunks / kThreads; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = q0 + r < Lq && c < dk;
+    cp_async16(q_s + r * P + c, ok ? qb + (size_t)r * ldk + c : q, ok);
+  }
+  // keys s0 .. s0 + kRows - 1 into the raw buffers, zero past S, d_k and d_v
+  auto copy_block = [&](int s0) {
+#pragma unroll
+    for (int j = 0; j < (kKItems + kThreads - 1) / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      if (kKItems % kThreads == 0 || i < kKItems) {
+        const int r = i / kChunks, c = (i % kChunks) * 4;
+        const bool kok = s0 + r < S && c < dk, vok = s0 + r < S && c < dv;
+        cp_async16(k_raw + r * D + c, kok ? kb + (size_t)(s0 + r) * ldk + c : k, kok);
+        cp_async16(v_raw + r * D + c, vok ? vb + (size_t)(s0 + r) * ldv + c : v, vok);
+      }
+    }
+  };
+  copy_block(0);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  const int rows = min(kF32Tile, Lq - q0);
+  const bool has_rows = row0 < rows;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale2 = scale * 1.4426950408889634f;
+  const float* qa = q_s + (row0 + g) * P + 2 * t;
+  const float* kr = k_s + g * PK + 2 * t;
+  const float* vr = v_s + t * PV + 2 * g;
+  // o_acc[dt] holds columns 8dt..8dt+7 (rows g, g+8), as above
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[dt][e] = 0.0f;
+  float mx[2] = {-INFINITY, -INFINITY};  // running row max (base 2)
+  float sum[2] = {0.0f, 0.0f};           // the lane's share of the row sum
+
+  const int n_blocks = (S + kRows - 1) / kRows;
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // this key block has landed; no warp reads the split tiles
+    // split K (items: 4 dims of one key) and V (4 columns of a pair of keys)
+#pragma unroll
+    for (int j = 0; j < (kKItems + kThreads - 1) / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      if (kKItems % kThreads == 0 || i < kKItems) {
+        const int r = i / kChunks, c = (i % kChunks) * 4;
+        split_key4(k_s + r * PK + c, D, *reinterpret_cast<const float4*>(k_raw + r * D + c));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < (kVItems + kThreads - 1) / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      if (kVItems % kThreads == 0 || i < kVItems) {
+        const int rp = i / kChunks, c = (i % kChunks) * 4;
+        split_key_pair4(v_s + rp * PV + 2 * c, D,
+                        *reinterpret_cast<const float4*>(v_raw + 2 * rp * D + c),
+                        *reinterpret_cast<const float4*>(v_raw + (2 * rp + 1) * D + c));
+      }
+    }
+    __syncthreads();  // the split tiles are written; the raw buffers are free
+    if (blk + 1 < n_blocks) copy_block((blk + 1) * kRows);  // in flight while we multiply
+    if (!has_rows) continue;
+
+    // logits of the key block: s_acc[c] holds keys s0 + 8c..+7, q·kᵀ in the
+    // contraction order of cross_modal_attn_f32tc_kernel
+    float s_acc[KC][4];
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[c][e] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < D / 8; ++kt) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kt);
+      const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * P + 8 * kt);
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(x0.x, a_hi[0], a_lo[0]);
+      split_tf32(x1.x, a_hi[1], a_lo[1]);
+      split_tf32(x0.y, a_hi[2], a_lo[2]);
+      split_tf32(x1.y, a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const uint2 h = *reinterpret_cast<const uint2*>(kr + 8 * c * PK + 8 * kt);
+        const uint2 l = *reinterpret_cast<const uint2*>(kr + 8 * c * PK + D + 8 * kt);
+        const uint32_t b_hi[2] = {h.x, h.y}, b_lo[2] = {l.x, l.y};
+        mma_3xtf32(s_acc[c], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+
+    // online softmax in base 2; a row lives in the 4 lanes of a quad
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[c][e] *= scale2;
+    const int valid = S - blk * kRows;  // keys of this block below S
+    if (valid < kRows) {  // the last key block: keys past S (zero rows of K) are -inf
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * c + 2 * t + (e & 1) >= valid) s_acc[c][e] = -INFINITY;
+    }
+    float bm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bm[e >> 1] = fmaxf(bm[e >> 1], s_acc[c][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 1));
+      bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 2));
+      const float m = fmaxf(mx[h], bm[h]);  // finite: every key block holds a key below S
+      const float alpha = exp2f(mx[h] - m);  // 0 at the first key block
+      sum[h] *= alpha;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        o_acc[dt][2 * h] *= alpha;
+        o_acc[dt][2 * h + 1] *= alpha;
+      }
+      mx[h] = m;
+    }
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s_acc[c][e] - mx[e >> 1]);
+        s_acc[c][e] = p;
+        sum[e >> 1] += p;
+      }
+
+    // o += p·v, p unnormalised, in the fragment order of
+    // cross_modal_attn_f32tc_kernel (the logits' C fragment is p's A fragment)
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(s_acc[c][0], a_hi[0], a_lo[0]);
+      split_tf32(s_acc[c][2], a_hi[1], a_lo[1]);
+      split_tf32(s_acc[c][1], a_hi[2], a_lo[2]);
+      split_tf32(s_acc[c][3], a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const uint2 h = *reinterpret_cast<const uint2*>(vr + 4 * c * PV + 16 * dt);
+        const uint2 l = *reinterpret_cast<const uint2*>(vr + 4 * c * PV + 2 * D + 16 * dt);
+        const uint32_t b_hi[2] = {h.x, h.y}, b_lo[2] = {l.x, l.y};
+        mma_3xtf32(o_acc[dt], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+  }
+  if (!has_rows) return;  // no barrier follows
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    const float inv = 1.0f / sum[h];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o_acc[dt][2 * h] *= inv;
+      o_acc[dt][2 * h + 1] *= inv;
+    }
+  }
+  store_rows<D>(o_acc, q_s + row0 * P, P, out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv,
+                ldv, rows - row0, dv, lane);
+}
+
+template <int D>
+int launch_f32tc_blocks(const void* q, const void* k, const void* v, void* out, int N,
+                        int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
+  constexpr int KC = 4;  // 8-key chunks a key block: 32 keys (see the note at the top)
+  static SmemOptIn opt_in;
+  constexpr size_t smem = f32tc_blocks_smem_bytes(D, KC);
+  static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
+  const cudaError_t err =
+      opt_in.ensure((const void*)cross_modal_attn_f32tc_blocks_kernel<D, KC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (Lq + kF32Tile - 1) / kF32Tile;
+  const long long blocks = (long long)N * heads * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cross_modal_attn_f32tc_blocks_kernel<D, KC>
+      <<<(unsigned)blocks, kF32Warps * 32, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), Lq, S, heads, dk,
+          dv, tiles, 1.0f / sqrtf((float)dk));
+  return (int)cudaGetLastError();
+}
+
+// The keys whole (S <= 128) or, where key_blocks, streamed in key blocks
+// (any S).
 template <int D>
 int launch_f32tc(const void* q, const void* k, const void* v, void* out, int N,
-                 int Lq, int S, int heads, int dk, int dv, cudaStream_t s) {
+                 int Lq, int S, int heads, int dk, int dv, bool key_blocks,
+                 cudaStream_t s) {
+  if (key_blocks) return launch_f32tc_blocks<D>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if (S <= 16) return launch_f32tc_tiles<D, 2>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if (S <= 32) return launch_f32tc_tiles<D, 4>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if (S <= 64) return launch_f32tc_tiles<D, 8>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  return launch_f32tc_tiles<D, 16>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (S <= 128) return launch_f32tc_tiles<D, 16>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
-                     int N, int Lq, int S, int heads, int dk, int dv,
+                     int N, int Lq, int S, int heads, int dk, int dv, bool key_blocks,
                      cudaStream_t s) {
   const int d = dk > dv ? dk : dv;
-  if (d <= 32) return launch_f32tc<32>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (d <= 64) return launch_f32tc<64>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  return launch_f32tc<128>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (d <= 32) return launch_f32tc<32>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
+  if (d <= 64) return launch_f32tc<64>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
+  return launch_f32tc<128>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
 }
 
 }  // namespace
 
 // route: 0 = float32 on the CUDA cores, 1 = bfloat16, 2 = float32 on the
-// tensor cores (q, k, v and out share the dtype).  The bfloat16 route takes
-// dk == dv, a multiple of 16 up to 128, and any S >= 1 whose K and V fit in
-// shared memory beside the Q tile; the tensor-core float32 route dk and dv
-// multiples of 8 up to 128 and 1 <= S <= 128; both need q, k, v and out
-// aligned to 16 bytes.  The CUDA-core float32 route takes any sizes whose
-// q rows and probabilities fit in shared memory.
+// tensor cores with a head's keys whole, 3 = float32 on the tensor cores
+// with the keys streamed in key blocks (q, k, v and out share the dtype).
+// The bfloat16 route takes dk == dv, a multiple of 16 up to 128, and any
+// S >= 1 whose K and V fit in shared memory beside the Q tile; both
+// tensor-core float32 routes dk and dv multiples of 8 up to 128, route 2
+// S <= 128 and route 3 any S >= 1 (the wrapper sends S > 128 there; a
+// smaller S only to time it against route 2); all three need q, k, v and
+// out aligned to 16 bytes.  The CUDA-core float32 route takes any sizes
+// whose q rows and probabilities fit in shared memory.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
                                 int dk, int dv, int route, void* stream) {
@@ -941,8 +1245,8 @@ extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
   if (route == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if (route == 1 && dk == dv && S >= 1)
     return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, s);
-  if (route == 2 && dk % 8 == 0 && dv % 8 == 0 && dk >= 8 && dk <= 128 &&
-      dv >= 8 && dv <= 128 && S >= 1 && S <= 128)
-    return launch_f32tc_any(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if ((route == 2 || route == 3) && dk % 8 == 0 && dv % 8 == 0 && dk >= 8 &&
+      dk <= 128 && dv >= 8 && dv <= 128 && S >= 1)
+    return launch_f32tc_any(q, k, v, out, N, Lq, S, heads, dk, dv, route == 3, s);
   return (int)cudaErrorInvalidValue;
 }

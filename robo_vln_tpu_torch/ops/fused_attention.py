@@ -10,12 +10,17 @@ and the sizes; a call that no route takes raises there, before any launch:
 
 * ``f32_tensor_core``: float32, both products on the tensor cores in 3xTF32
   (each operand split into two tf32 parts, three products), so the result
-  is float32-accurate.  It takes d_k and d_v multiples of 8 up to 128, and
-  1 <= S <= 128, with q, k and v aligned to 16 bytes: every float32 call of
-  the HCM agent.
-* ``f32_cuda_core``: float32, everything on the CUDA cores, for every other
-  float32 shape: K and V staged in shared memory where they fit, else read
-  in place (:func:`smem_bytes`).  It refuses only d_k + S > 7264.
+  is float32-accurate.  It takes d_k and d_v multiples of 8 up to 128, any
+  S >= 1, with q, k and v aligned to 16 bytes: every float32 call of the HCM
+  agent, and longer S such as self-attention's.  Up to S = 128 one kernel holds a head's keys whole; past
+  it another streams them in key blocks of :data:`F32_KEY_CHUNKS` 8-key
+  chunks with an online softmax (the C entry's code :data:`F32_KEY_BLOCKS`,
+  counted apart in :data:`f32_key_block_launches`).
+* ``f32_cuda_core``: float32, everything on the CUDA cores, for the float32
+  calls the first does not take (d off a multiple of 8 or above 128, or a
+  pointer off a 16-byte boundary): K and V staged in shared memory where
+  they fit, else read in place (:func:`smem_bytes`).  It refuses d_k + S >
+  7264.
 * ``bf16``: both products on the tensor cores, the softmax in float32, the
   probabilities kept to about 16 bits (``p_hi + p_lo``), so the only rounding
   left against the float32 function is that of the bf16 output.  It takes
@@ -43,20 +48,31 @@ from . import _build, cm_attention
 ROUTES = {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2}  # codes of the C entry
 launches = 0  # kernel launches since the last reset
 route_launches = dict.fromkeys(ROUTES, 0)  # the same, by route
+f32_key_block_launches = 0  # of f32_tensor_core's, those past F32_WHOLE_S, in key blocks
+F32_KEY_BLOCKS = 3  # code of the C entry for f32_tensor_core's key blocks
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 WARPS = 8  # kWarps of csrc/cross_modal_attn.cu (f32_cuda_core route)
 TILE_Q = 64  # kTileQ of csrc/cross_modal_attn.cu (bf16 route)
 F32_TILE_Q = 128  # kF32Tile of csrc/cross_modal_attn.cu (f32_tensor_core route)
-TC_MAX_S = 128  # the most keys of the float32 tensor-core kernel
+F32_WHOLE_S = 128  # the most keys f32_tensor_core holds whole; past it, key blocks
+F32_KEY_CHUNKS = 4  # KC of launch_f32tc_blocks in csrc/cross_modal_attn.cu: 8-key chunks a key block
 MAX_D = 128  # the largest head size of both tensor-core kernels
 
 
 def tensor_core_f32_takes(S: int, dk: int, dv: int, aligned: bool = True) -> bool:
-    """Whether the float32 tensor-core kernel takes these sizes: d_k and d_v
-    multiples of 8 up to 128, 1 <= S <= 128, pointers aligned to 16 bytes."""
-    return (aligned and 1 <= S <= TC_MAX_S
+    """Whether the float32 tensor-core route takes these sizes: d_k and d_v
+    multiples of 8 up to 128, any S >= 1, pointers aligned to 16 bytes."""
+    return (aligned and S >= 1
             and all(d % 8 == 0 and 8 <= d <= MAX_D for d in (dk, dv)))
+
+
+def _f32_key_block_smem(d: int) -> int:
+    """f32tc_blocks_smem_bytes: the Q tile, one key block split, the next
+    one as it is."""
+    kc = F32_KEY_CHUNKS
+    return 4 * (F32_TILE_Q * (d + 8) + 8 * kc * (2 * d + 8) + 4 * kc * (4 * d + 8)
+                + 16 * kc * d)
 
 
 def pick_route(dtype, S: int, dk: int, dv: int, aligned: bool = True) -> str:
@@ -84,11 +100,13 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
     csrc/cross_modal_attn.cu), then a q row and S probabilities per warp.
     bf16: the Q tile, K and V (S rounded up to 16), in rows padded by 8
     values.  f32_tensor_core: at the kernel instance's sizes, max(d_k, d_v)
-    rounded up to D = 32, 64 or 128 and S to 16, 32, 64 or 128 rows, the
-    128-row Q tile in rows of D + 8 floats, then K and V split into tf32 hi
-    and lo parts (K in rows of 2D + 8, V in pairs of rows of 4D + 8) where
-    those fit, else as they are (rows of D + 8 and D + 4): f32tc_smem_bytes
-    in csrc/cross_modal_attn.cu."""
+    rounded up to D = 32, 64 or 128; up to S = 128, S rounded up to 16, 32,
+    64 or 128 rows, the 128-row Q tile in rows of D + 8 floats, then K and V
+    split into tf32 hi and lo parts (K in rows of 2D + 8, V in pairs of rows
+    of 4D + 8) where those fit, else as they are (rows of D + 8 and D + 4):
+    f32tc_smem_bytes in csrc/cross_modal_attn.cu; past S = 128, whatever S,
+    the Q tile, one key block split and the next as it is (rows of D):
+    f32tc_blocks_smem_bytes."""
     if route is None:
         route = ("bf16" if dtype == torch.bfloat16 else "f32_tensor_core"
                  if tensor_core_f32_takes(S, dk, dv) else "f32_cuda_core")
@@ -96,6 +114,8 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
         return 2 * (dk + 8) * (TILE_Q + 2 * (-(-S // 16) * 16))
     if route == "f32_tensor_core":
         d = next(b for b in (32, 64, 128) if max(dk, dv) <= b)
+        if S > F32_WHOLE_S:
+            return _f32_key_block_smem(d)
         rows = next(b for b in (16, 32, 64, 128) if S <= b)
         split = 4 * (F32_TILE_Q * (d + 8) + rows * (2 * d + 8) + rows // 2 * (4 * d + 8))
         return split if split <= SMEM_LIMIT else 4 * (F32_TILE_Q * (d + 8) + rows * (2 * d + 12))
@@ -117,8 +137,8 @@ def check_bf16_route(S: int, dk: int, dv: int, aligned: bool = True) -> None:
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, f32_key_block_launches
+    launches = f32_key_block_launches = 0
     route_launches.update(dict.fromkeys(ROUTES, 0))
 
 
@@ -140,7 +160,7 @@ def _entry():
 def cross_modal_attn_cuda(q, k, v, num_heads: int):
     """Launch the kernel on CUDA tensors of one dtype (float32 or bfloat16),
     by the route :func:`pick_route` picks."""
-    global launches
+    global launches, f32_key_block_launches
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"cross_modal_attn: expected CUDA tensors, got {device}")
@@ -165,17 +185,21 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
     dk, dv = Dq // num_heads, Dv // num_heads
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     route = pick_route(q.dtype, S, dk, dv, aligned)
+    key_blocks = route == "f32_tensor_core" and S > F32_WHOLE_S
 
     fn = _entry()
     out = torch.empty((N, Lq, Dv), device=device, dtype=q.dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N,
-                 Lq, S, num_heads, dk, dv, ROUTES[route], stream)
+                 Lq, S, num_heads, dk, dv, F32_KEY_BLOCKS if key_blocks else ROUTES[route],
+                 stream)
     if err != 0:
         raise RuntimeError(f"cross_modal_attn: CUDA error {err} at launch ({route})")
     launches += 1
     route_launches[route] += 1
+    if key_blocks:
+        f32_key_block_launches += 1
     return out
 
 

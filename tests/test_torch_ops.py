@@ -7,6 +7,7 @@ CUDA kernels have no CPU mode: chip_smoke.py holds them against these plain
 versions on the card."""
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import jax.numpy as jnp
 
 from robo_vln_tpu.ops import cm_attention as jax_cm
 from robo_vln_tpu.ops import pallas_lstm as jax_lstm
-from robo_vln_tpu.ops.pallas_attention import _pallas_attention
+from robo_vln_tpu.ops.pallas_attention import _pallas_attention, _xla_impl
 from robo_vln_tpu_torch.ops import _build, cm_attention, fused_attention, fused_lstm
 from robo_vln_tpu_torch.ops.rnn import (lstm_recurrence, lstm_recurrence_backward,
                                         lstm_sequence)
@@ -266,6 +267,52 @@ def test_attention_1xtf32_is_not_float32(rng):
     assert (_3xtf32_attention(q, k, v, 4, hi_only=True) - ref).abs().max().item() > 1e-4
 
 
+def _3xtf32_attention_blocks(q, k, v, heads, block):
+    """The streamed float32 tensor-core kernel's arithmetic (S > 128) in
+    plain torch: the keys in key blocks of ``block``; each block's logits in
+    3xTF32, scaled by log2 e / √d_k; the running row max m rescales the row
+    sum and the output by exp2(m_old - m_new); the block's unnormalised p =
+    exp2(s - m) goes into p·v in 3xTF32, added to the rescaled output; the
+    output divided by the sum at the end."""
+    N, Lq, D = q.shape
+    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
+    qh = q.view(N, Lq, heads, dk).transpose(1, 2)
+    kh = k.view(N, S, heads, dk).transpose(1, 2)
+    vh = v.view(N, S, heads, dv).transpose(1, 2)
+    scale2 = np.float32(1.4426950408889634 / math.sqrt(dk))
+    m = torch.full((N, heads, Lq, 1), -math.inf)
+    total = torch.zeros(N, heads, Lq, 1)
+    out = torch.zeros(N, heads, Lq, dv)
+    for s0 in range(0, S, block):
+        logits = _mm_3xtf32(qh, kh[:, :, s0:s0 + block].transpose(-1, -2)) * scale2
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(logits - m_new)
+        out = out * alpha + _mm_3xtf32(p, vh[:, :, s0:s0 + block])
+        total = total * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    return (out / total).transpose(1, 2).reshape(N, Lq, heads * dv)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (64, 32)])
+@pytest.mark.parametrize("S", [129, 144, 200, 500])
+def test_attention_3xtf32_key_blocks_keep_float32(rng, S, dk, dv):
+    """Past S = 128 (a 384 px frame's 144 depth tokens, self-attention over
+    200 tokens, longer S), the float32 tensor-core route's key blocks of 32
+    keys, with 3xTF32 products and the online rescale, stay within 1e-5 of
+    the float32 function: the plain
+    version, the JAX package's XLA path and its interpret-mode Pallas
+    kernel on the same numpy inputs."""
+    heads = 2
+    q, k, v = _qkv(rng, 2, 24, S, heads * dk, heads * dv)
+    block = 8 * fused_attention.F32_KEY_CHUNKS
+    assert block == 32 and S > fused_attention.F32_WHOLE_S
+    ours = _3xtf32_attention_blocks(*map(torch.from_numpy, (q, k, v)), heads, block)
+    _close(ours, fused_attention.attention_plain(*map(torch.from_numpy, (q, k, v)), heads))
+    _close(ours, _xla_impl(*map(jnp.asarray, (q, k, v)), heads))
+    _close(ours, _pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True))
+
+
 def test_tf32_rounding_is_round_half_away():
     """_tf32 keeps 10 mantissa bits, rounds to nearest, ties away from zero."""
     one = 1.0
@@ -281,12 +328,14 @@ def test_tf32_rounding_is_round_half_away():
     (16, 64, 64, True, "f32_tensor_core", "bf16"), (64, 64, 64, True, "f32_tensor_core", "bf16"),
     (1, 8, 16, True, "f32_tensor_core", None), (128, 128, 128, True, "f32_tensor_core", "bf16"),
     (33, 128, 8, True, "f32_tensor_core", None), (16, 12, 12, True, "f32_cuda_core", None),
-    (200, 64, 64, True, "f32_cuda_core", "bf16"), (16, 64, 136, True, "f32_cuda_core", None),
+    (200, 64, 64, True, "f32_tensor_core", "bf16"), (16, 64, 136, True, "f32_cuda_core", None),
     (16, 64, 64, False, "f32_cuda_core", None),
 ])
 def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
-    """float32 calls take the tensor-core kernel wherever it takes the sizes
-    (the HCM's among them) and the CUDA-core kernel elsewhere, decided
+    """float32 calls take the tensor-core route wherever it takes the sizes
+    (d_k and d_v multiples of 8 up to 128, any S, aligned pointers: the
+    HCM's among them, and S = 200 in key blocks) and the CUDA-core kernel
+    elsewhere (d off a multiple of 8 or above 128, unaligned), decided
     before the launch; bfloat16 calls take the bf16 kernel where it takes
     the sizes (d_k = d_v, a multiple of 16 up to 128, K and V within shared
     memory, aligned pointers) and raise before any launch elsewhere
@@ -304,18 +353,23 @@ def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
     (torch.bfloat16, 144, 64, "bf16"),  # the depth tokens of a 384 px frame
     (torch.bfloat16, 200, 64, "bf16"), (torch.bfloat16, 384, 128, "bf16"),
     (torch.bfloat16, 385, 128, None), (torch.bfloat16, 16, 256, None),
-    (torch.float32, 420, 64, "f32_cuda_core"),  # K and V staged in shared memory
-    (torch.float32, 500, 64, "f32_cuda_core"),  # K and V read in place
-    (torch.float32, 7200, 64, "f32_cuda_core"), (torch.float32, 7201, 64, None),
+    (torch.float32, 420, 64, "f32_tensor_core"),  # key blocks
+    (torch.float32, 500, 64, "f32_tensor_core"),
+    (torch.float32, 7200, 64, "f32_tensor_core"), (torch.float32, 7201, 64, "f32_tensor_core"),
     (torch.bfloat16, 16, 64, "bf16"), (torch.bfloat16, 64, 64, "bf16"),  # the HCM's
     (torch.float32, 16, 64, "f32_tensor_core"), (torch.float32, 64, 64, "f32_tensor_core"),
+    (torch.float32, 420, 60, "f32_cuda_core"),  # K and V staged in shared memory
+    (torch.float32, 500, 60, "f32_cuda_core"),  # K and V read in place
+    (torch.float32, 7252, 12, "f32_cuda_core"), (torch.float32, 7253, 12, None),
 ])
 def test_attention_route_past_128_keys(dtype, S, d, route):
-    """Past S = 128 the bf16 kernel runs its keys in blocks and the float32
-    CUDA-core kernel reads K and V in place where they do not fit in shared
-    memory, so both take every S up to their shared-memory limits; past
-    those the call raises (``None``) before any launch.  The HCM's shapes
-    take the tensor-core kernels."""
+    """Past S = 128 the bf16 kernel and the float32 tensor-core route run
+    their keys in blocks; the bf16 kernel takes every S up to its
+    shared-memory limit, the float32 tensor-core route every S.  The float32
+    CUDA-core kernel, for d off a multiple of 8, reads K and V in place
+    where they do not fit in shared memory and takes every S up to d + S =
+    7264; past those limits the call raises (``None``) before any launch.
+    The HCM's shapes take the tensor-core kernels."""
     if route is None:
         with pytest.raises(ValueError, match="cross_modal_attn"):
             fused_attention.pick_route(dtype, S, d, d)
@@ -342,23 +396,60 @@ def test_lstm_hidden_sizes(H, n_sm, ok):
 
 
 def test_f32_tensor_core_smem_fits():
-    """Every shape the float32 tensor-core kernel takes fits one block's
-    shared memory (f32tc_smem_bytes in csrc/cross_modal_attn.cu):
-    max(d_k, d_v) rounded up to D = 32, 64 or 128 and S to 16, 32, 64 or
-    128 rows; the 128-row Q tile in rows of D + 8 floats; K and V split into
-    tf32 hi and lo parts (rows of 2D + 8, and pairs of rows of 4D + 8) at
-    every size but D = 128 with S > 64, where they stay as they are (rows of
-    D + 8 and D + 4)."""
+    """Every shape the float32 tensor-core route takes fits one block's
+    shared memory.  Up to S = 128 (f32tc_smem_bytes in
+    csrc/cross_modal_attn.cu): max(d_k, d_v) rounded up to D = 32, 64 or
+    128 and S to 16, 32, 64 or 128 rows; the 128-row Q tile in rows of D + 8
+    floats; K and V split into tf32 hi and lo parts (rows of 2D + 8, and
+    pairs of rows of 4D + 8) at every size but D = 128 with S > 64, where
+    they stay as they are (rows of D + 8 and D + 4).  Past S = 128, at any S
+    (f32tc_blocks_smem_bytes, whose formula and key-block size are read
+    from the source): the Q tile, one key block of 32 keys split, and the
+    next key block as it is, in rows of D."""
     admitted = [(S, dk, dv) for S in range(1, 130) for dk in range(4, 140, 4)
                 for dv in range(4, 140, 4)
                 if fused_attention.tensor_core_f32_takes(S, dk, dv)]
-    assert len(admitted) == 128 * 16 * 16
+    assert len(admitted) == 129 * 16 * 16
     assert max(fused_attention.smem_bytes(*s, route="f32_tensor_core")
                for s in admitted) <= fused_attention.SMEM_LIMIT
     assert fused_attention.smem_bytes(64, 64, 64) == 4 * (128 * 72 + 64 * 136 + 32 * 264)
     assert fused_attention.smem_bytes(5, 8, 16) == 4 * (128 * 40 + 16 * 72 + 8 * 136)
     assert fused_attention.smem_bytes(128, 64, 96) == 4 * (128 * 136 + 128 * 268)
     assert fused_attention.smem_bytes(65, 128, 8) == 4 * (128 * 136 + 128 * 268)
+
+    src = (_build.CSRC / "cross_modal_attn.cu").read_text()
+    chunks = re.search(r"constexpr int KC = (\d+);", src)
+    assert int(chunks.group(1)) == fused_attention.F32_KEY_CHUNKS
+    body = re.search(r"size_t f32tc_blocks_smem_bytes\(int D, int KC\) \{(.*?)\n\}", src, re.S)
+    assert " ".join(body.group(1).split()) == (
+        "return sizeof(float) * ((size_t)kF32Tile * (D + 8) + (size_t)8 * KC * (2 * D + 8) + "
+        "(size_t)4 * KC * (4 * D + 8) + (size_t)16 * KC * D);")
+    kc = fused_attention.F32_KEY_CHUNKS
+    assert kc == 4
+    for d in (32, 64, 128):
+        want = 4 * (128 * (d + 8) + 8 * kc * (2 * d + 8) + 4 * kc * (4 * d + 8) + 16 * kc * d)
+        for S, dk, dv in ((129, d, d), (144, d, d // 2), (7201, d, d), (100_000, d // 2, d)):
+            assert fused_attention.smem_bytes(S, dk, dv) == want <= fused_attention.SMEM_LIMIT
+    assert fused_attention.smem_bytes(144, 64, 64) == 87_552  # 2 blocks an SM
+    assert fused_attention.smem_bytes(200, 128, 128) == 169_472
+
+
+def test_attention_route_codes_match_the_c_entry():
+    """The wrapper's route codes are the C entry's, F32_KEY_BLOCKS is the
+    code of the float32 key-block kernel, and the C entry's whole-key
+    float32 instances end at F32_WHOLE_S, past which the wrapper sends the
+    key blocks."""
+    src = (_build.CSRC / "cross_modal_attn.cu").read_text()
+    entry = src[src.index('extern "C" int cross_modal_attn('):]
+    assert fused_attention.ROUTES == {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2}
+    assert "if (route == 0) return launch_f32(" in entry
+    assert "if (route == 1 && dk == dv && S >= 1)" in entry
+    blocks = fused_attention.F32_KEY_BLOCKS
+    assert f"if ((route == 2 || route == {blocks}) && dk % 8 == 0" in entry
+    assert f"dk, dv, route == {blocks}, s);" in entry
+    whole = re.findall(r"if \(S <= (\d+)\) return launch_f32tc_tiles<D, (\d+)>", src)
+    assert [(int(S), int(kc)) for S, kc in whole] == [(16, 2), (32, 4), (64, 8), (128, 16)]
+    assert int(whole[-1][0]) == fused_attention.F32_WHOLE_S
 
 
 def test_f32_attention_on_cpu_launches_nothing(rng):

@@ -11,7 +11,7 @@ exit code and no result line:
    nvcc per source, all in parallel, into build/kernels/; prints each
    kernel instance's registers and spills, and fails if an instance of
    either float32 tensor-core attention kernel (keys whole, or in key
-   blocks past S = 128) spills.
+   blocks past S = 128) or of the bf16 key-block kernel spills.
 3. Kernels against their plain versions, float32 with TF32 off (in a scope
    around this phase only), at the shapes of the serving path: the LSTM
    kernel (also at every H range of its template and at batches beyond one
@@ -40,15 +40,17 @@ exit code and no result line:
    is timed with its inputs rotated over several sets, so that no call
    finds them in the L2 cache; at the tick's shape the bfloat16 wrapper is
    also timed unqueued, at the host's dispatch rate.  Phase 3c: shapes
-   past the kernels' former ranges (bfloat16 attention at S=144, the depth
-   tokens of a 384 px frame, and S=300 in key blocks; float32 attention in
-   key blocks at S=144 and at S=200, d=128, self-attention's, both at the
-   window's N, and at S=500; the float32 CUDA-core kernel at S=500, d=60, K and V
-   read in place; the LSTM and its backward at H=556, a ragged grid) must
-   launch their kernel once and match the plain version; float32 S=144
-   and S=200, d=128 are timed at the window's size against the CUDA-core kernel
-   forced, the plain version and SDPA, and bfloat16 S=144 against the
-   plain version and SDPA; shapes no kernel takes (an
+   past the kernels' former ranges (bfloat16 attention in key blocks at
+   S=144, the depth tokens of a 384 px frame, at S=300 and 512 with d=128
+   and at S=1000; float32 attention in key blocks at S=144 and at S=200,
+   d=128, self-attention's, both at the window's N, and at S=500; the
+   float32 CUDA-core kernel at S=500, d=60, K and V read in place; the LSTM
+   and its backward at H=556, a ragged grid) must launch their kernel once
+   (past S = 128 on the tensor cores, one key-block launch) and match the
+   plain version; S=144 and S=200, d=128 are timed at the window's size in
+   both dtypes against the plain version and SDPA (float32 also against the
+   CUDA-core kernel forced), and the CUDA-core kernel at its own S=500,
+   d=60; shapes no kernel takes (an
    unaligned bfloat16 call, the LSTM and its backward at H=1028, the
    backward's own predicate) must raise before any launch.
 4. Serving path at full published width (BERT-base, TV-ResNet50 at 224 px,
@@ -97,8 +99,9 @@ exit code and no result line:
    trainer) beside phase 5's bare step, the gaps between steps, the
    epochs, the validation, checkpoint save and load times and size, peak
    memory.  With --profile, run 2 is traced.
-   After phases 4-6: the key-block kernel of the float32 tensor-core
-   attention must have launched on none of the three paths.
+   After phases 4-6: the key-block kernels of the attention (float32 on
+   the tensor cores and bf16, S > 128) must have launched on none of the
+   three paths.
 7. One JSON line {"kernels": [...]} (``launches``: the serving path's,
    but the LSTM backward's, which the serving path never runs, is the
    train path's; ``train_launches``: the train path's,
@@ -544,23 +547,23 @@ def check_attention(gen, device):
         return [t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v)]
 
     def check(tag, q, k, v, h, tol, expected):
-        """One launch, which must take route ``expected`` (in float32 on the
-        tensor cores past S = 128, its key blocks), held to the plain
+        """One launch, which must take route ``expected`` (on the tensor
+        cores past S = 128, that route's key blocks), held to the plain
         version."""
         before = dict(fused_attention.route_launches)
-        blocks_before = fused_attention.f32_key_block_launches
+        blocks_before = key_block_launches()
         got = fused_attention.cross_modal_attn_cuda(q, k, v, h)
         ref = fused_attention.attention_plain(q, k, v, h)
         torch.cuda.synchronize()
         took = [r for r, count in fused_attention.route_launches.items() if count != before[r]]
         err = (got.float() - ref.float()).abs().max().item()
-        blocks = fused_attention.f32_key_block_launches - blocks_before
-        print(f"  {tag} [{','.join(took)}{', key blocks' if blocks else ''}]: "
+        blocks = [a - b for a, b in zip(key_block_launches(), blocks_before)]
+        print(f"  {tag} [{','.join(took)}{', key blocks' if any(blocks) else ''}]: "
               f"max_abs_err {err:.3e} (tolerance {tol})")
         if took != [expected]:
             fail(f"cross_modal_attn launched {took} at {tag}, expected {expected}")
-        if blocks != (expected == "f32_tensor_core" and k.shape[1] > fused_attention.F32_WHOLE_S):
-            fail(f"cross_modal_attn launched {blocks} key-block kernels at {tag}")
+        if blocks != expected_key_blocks(expected, k.shape[1]):
+            fail(f"cross_modal_attn launched {blocks} (float32, bf16) key-block kernels at {tag}")
         if not err <= tol:
             fail(f"cross_modal_attn ({expected}) disagrees with its plain version at {tag}")
         worst[expected] = max(worst[expected], err)
@@ -619,10 +622,10 @@ def check_attention(gen, device):
     # ragged shapes, each with the route it must take: a partial query tile,
     # S below a warp, off a multiple of 8 or 16, and at the largest instance
     # (whose tiles need more than 48 KB of shared memory), other head sizes
-    # (d_v != d_k in float32 only), float32 past S = 128 in key blocks (one
-    # key past the whole instances, a partial last key block, d_v != d_k),
-    # and float32 shapes outside the tensor-core route's range, which the
-    # CUDA-core kernel takes
+    # (d_v != d_k in float32 only), both dtypes past S = 128 in key blocks
+    # (one key past the whole instances, a partial last key block, a
+    # partial last query tile; in float32 d_v != d_k), and float32 shapes
+    # outside the tensor-core route's range, which the CUDA-core kernel takes
     ragged = [((3, 13, 5, 2, 8, 16), f32, "f32_tensor_core"),
               ((2, 40, 33, 3, 32, 32), f32, "f32_tensor_core"),
               ((4, 65, 1, 4, 64, 64), f32, "f32_tensor_core"),
@@ -637,7 +640,10 @@ def check_attention(gen, device):
               ((3, 13, 5, 2, 16, 16), bf16, "bf16"),
               ((2, 40, 33, 3, 32, 32), bf16, "bf16"),
               ((4, 65, 1, 4, 48, 48), bf16, "bf16"),
-              ((2, 130, 128, 1, 128, 128), bf16, "bf16")]
+              ((2, 130, 128, 1, 128, 128), bf16, "bf16"),
+              ((2, 130, 129, 1, 128, 128), bf16, "bf16"),
+              ((3, 13, 200, 2, 16, 16), bf16, "bf16"),
+              ((2, 70, 161, 3, 48, 48), bf16, "bf16")]
     for (n, lq, S, h, dk, dv), dtype, route in ragged:
         tag = f"N={n} Lq={lq} S={S} h={h} d_k={dk} d_v={dv} {str(dtype)[6:]}"
         check(tag, *inputs(n, lq, S, h, dk, dv, dtype), h,
@@ -669,22 +675,23 @@ def check_attention(gen, device):
 
 def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what):
     """One attention call at these sizes timed with its inputs rotated out
-    of L2: the kernel, in float32 also the CUDA-core kernel forced, the
-    plain version and SDPA on head views; and its bound.  Returns the
-    JSON fields ``{prefix}_*``."""
+    of L2: the kernel (by the route the sizes take; on the float32 tensor
+    cores also the CUDA-core kernel forced), the plain version and SDPA on
+    head views; and its bound.  Returns the JSON fields ``{prefix}_*``."""
     from robo_vln_tpu_torch.ops import fused_attention
 
     sets = [[torch.randn(N, L, heads * d, generator=gen).to(device, dtype) for L in (Lq, S, S)]
             for _ in range(L2_ROTATION)]
     note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
     tag = f"N={N} Lq={Lq} S={S} h={heads} d={d} {str(dtype)[6:]}"
+    route = fused_attention.pick_route(dtype, S, d, d)
 
     def timed(label, fn, arg_sets=sets):
         return report_times(f"{tag} {label} ({note})", time_ms(rotated(fn, arg_sets)))
 
     kernel = lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads)
-    fields = {f"{prefix}_ms": timed("kernel", kernel)}
-    if dtype == torch.float32:
+    fields = {f"{prefix}_ms": timed(f"kernel ({route})", kernel)}
+    if route == "f32_tensor_core":
         with cuda_core_f32_attention():
             fields[f"{prefix}_cuda_core_ms"] = timed("CUDA-core kernel", kernel)
     fields[f"{prefix}_plain_ms"] = timed("plain", lambda *t: (
@@ -692,30 +699,35 @@ def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what):
     fields[f"{prefix}_library_ms"] = timed(
         "library scaled_dot_product_attention", torch.nn.functional.scaled_dot_product_attention,
         [[t.view(N, t.shape[1], heads, d).transpose(1, 2) for t in ts] for ts in sets])
-    if dtype == torch.float32:
-        # the route's work is three tf32 products on the tensor cores; the
-        # same operations on the CUDA cores are printed beside them
-        by_bytes, by_f32 = attn_bound_ms(N, Lq, S, heads, d, 4, F32_FLOP_PER_S)
-        by_ops = 3 * attn_bound_ms(N, Lq, S, heads, d, 4, TF32_TC_FLOP_PER_S)[1]
-        print(f"  {tag} bound: bytes {by_bytes:.4f} ms, three tf32 products {by_ops:.4f} ms; "
-              f"float32 operations on the CUDA cores {by_f32:.4f} ms")
-        fields[f"{prefix}_f32_operations_bound_ms"] = by_f32
-    else:
+    if route == "bf16":
         by_bytes, by_ops = attn_bound_ms(N, Lq, S, heads, d, 2, BF16_TC_FLOP_PER_S)
         print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
+    else:
+        by_bytes, by_f32 = attn_bound_ms(N, Lq, S, heads, d, 4, F32_FLOP_PER_S)
+        by_ops = by_f32
+        if route == "f32_tensor_core":
+            # the route's work is three tf32 products on the tensor cores;
+            # the same operations on the CUDA cores are printed beside them
+            by_ops = 3 * attn_bound_ms(N, Lq, S, heads, d, 4, TF32_TC_FLOP_PER_S)[1]
+            fields[f"{prefix}_f32_operations_bound_ms"] = by_f32
+        print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms "
+              f"({'three tf32 products' if route == 'f32_tensor_core' else 'on the CUDA cores'}"
+              f"); float32 operations on the CUDA cores {by_f32:.4f} ms")
     fields[f"{prefix}_bound_ms"] = max(by_bytes, by_ops)
     fields[f"{prefix}_bound_by"] = "bytes" if by_bytes > by_ops else "operations"
-    fields[f"{prefix}_work"] = f"one call, {tag} ({what}), {note}"
+    fields[f"{prefix}_work"] = f"one call, {tag} ({what}), route {route}, {note}"
     return fields
 
 
 def check_wider_shapes(gen, device):
     """Phase 3c: one call of each shape past a kernel's former range, which
-    must launch that kernel once (by the route it names) and match the
-    plain version; float32 at the 384 px frame's S=144 and at self-attention's
-    S=200, d=128 held and timed at the window's N (against the CUDA-core kernel
-    too), the bf16 kernel timed at S=144; and the calls no kernel takes,
-    which must raise before any launch.  Returns the timing fields."""
+    must launch that kernel once (by the route it names, in key blocks
+    where S > 128 on the tensor cores) and match the plain version; float32
+    at the 384 px frame's S=144 and at self-attention's S=200, d=128 held
+    and timed at the window's N (against the CUDA-core kernel too), bf16
+    timed at the same two shapes, the float32 CUDA-core kernel timed at its
+    own S=500, d=60; and the calls no kernel takes, which must raise before
+    any launch.  Returns the timing fields."""
     from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
 
@@ -754,28 +766,33 @@ def check_wider_shapes(gen, device):
         return [torch.randn(n, L, h * d, generator=gen).to(device, dtype)
                 for L in (lq, S, S)]
 
-    # float32 past S = 128 in key blocks: the (a) depth attention of a 384 px
-    # frame and (b) self-attention over 200 tokens at d = 128, both at the
-    # window's N (their errors go into the JSON line under ``key``), then a
-    # long S; and the CUDA-core kernel at d = 60, K and V in place
+    # both dtypes past S = 128 in key blocks: bf16 at the depth attention of
+    # a 384 px frame, at S = 300 and 512 with d = 128 (past the shared
+    # memory of a kernel that holds a head's keys whole) and at S = 1000;
+    # float32 at (a) that depth attention and (b) self-attention over 200
+    # tokens at d = 128, both at the window's N (their errors go into the
+    # JSON line under ``key``), then a long S; and the CUDA-core kernel at
+    # d = 60, K and V in place
     errors = {}
     for n, S, dtype, d, tol, route, key in (
             (8, 144, bf16, 64, ATTN_BF16_TOL, "bf16", None),
             (8, 300, bf16, 128, ATTN_BF16_TOL, "bf16", None),
+            (8, 512, bf16, 128, ATTN_BF16_TOL, "bf16", "bf16_s512_d128"),
+            (8, 1000, bf16, 64, ATTN_BF16_TOL, "bf16", "bf16_s1000"),
             (200, 144, f32, 64, ATTN_TOL, "f32_tensor_core", "f32_s144"),
             (200, 200, f32, 128, ATTN_TOL, "f32_tensor_core", "f32_s200_d128"),
             (8, 500, f32, 64, ATTN_TOL, "f32_tensor_core", None),
             (8, 500, f32, 60, ATTN_TOL, "f32_cuda_core", None)):
         q, k, v = qkv(n, 200, S, 4, d, dtype)
-        blocks = fused_attention.f32_key_block_launches
-        err = held(f"cross_modal_attn N={n} Lq=200 S={S} h=4 d={d} {str(dtype)[6:]}",
-                   fused_attention, lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4),
+        blocks = key_block_launches()
+        tag = f"cross_modal_attn N={n} Lq=200 S={S} h=4 d={d} {str(dtype)[6:]}"
+        err = held(tag, fused_attention, lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4),
                    lambda: fused_attention.attention_plain(q, k, v, 4), tol, route)
         if key:
             errors[f"{key}_max_abs_err"] = err
-        if fused_attention.f32_key_block_launches - blocks != (route == "f32_tensor_core"):
-            fail(f"N={n} S={S} d={d} {route}: {fused_attention.f32_key_block_launches - blocks} "
-                 "key-block launches")
+        blocks = [a - b for a, b in zip(key_block_launches(), blocks)]
+        if blocks != expected_key_blocks(route, S):
+            fail(f"{tag}: {blocks} (float32, bf16) key-block launches")
     for T, B in ((5, 4), (50, 4)):
         args = lstm_inputs(gen, T, B, 556, device)
         held(f"lstm_seq T={T} B={B} H=556", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args),
@@ -799,15 +816,37 @@ def check_wider_shapes(gen, device):
     refused("lstm_seq backward H=1028", fused_lstm, lambda: fused_lstm.lstm_seq_backward_cuda(
         *args, outs, *lstm_cotangents(gen, 2, 2, 1028, device)), "backward_launches")
 
-    # at the window's N: the depth attention of a 384 px frame (S=144) in
-    # both dtypes, self-attention over 200 tokens at d = 128 in float32
+    # at the window's N: the depth attention of a 384 px frame (S=144) and
+    # self-attention over 200 tokens at d = 128, both in key blocks in both
+    # dtypes; the float32 CUDA-core kernel at a shape it takes
     return {**errors,
             **time_attention(gen, device, "f32_s144", 200, 200, 144, 4, 64, f32,
                              "the float32 depth attention of a 384 px frame, key blocks"),
             **time_attention(gen, device, "f32_s200_d128", 200, 200, 200, 4, 128, f32,
                              "float32 self-attention over 200 tokens, d_model 512, key blocks"),
             **time_attention(gen, device, "bf16_s144", 200, 200, 144, 4, 64, bf16,
-                             "the depth attention of a 384 px frame")}
+                             "the depth attention of a 384 px frame, key blocks"),
+            **time_attention(gen, device, "bf16_s200_d128", 200, 200, 200, 4, 128, bf16,
+                             "self-attention over 200 tokens, d_model 512, key blocks"),
+            **time_attention(gen, device, "f32_cuda_core_s500_d60", 200, 200, 500, 4, 60, f32,
+                             "the float32 CUDA-core kernel at d = 60, K and V read in place")}
+
+
+def key_block_launches():
+    """(float32, bf16) key-block launches of the attention kernel so far."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    return [fused_attention.f32_key_block_launches, fused_attention.bf16_key_block_launches]
+
+
+def expected_key_blocks(route, S):
+    """The (float32, bf16) key-block launches one call by ``route`` at S
+    keys makes: its tensor-core route's key blocks past that route's whole
+    keys."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    return [int(route == "f32_tensor_core" and S > fused_attention.F32_WHOLE_S),
+            int(route == "bf16" and S > fused_attention.BF16_WHOLE_S)]
 
 
 @contextlib.contextmanager
@@ -1504,7 +1543,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from robo_vln_tpu_torch.ops import _build, fused_attention
+        from robo_vln_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e})", file=sys.stderr)
         return 1
@@ -1522,7 +1561,8 @@ def main():
     for name, log in logs.items():
         for kernel, regs, spill in ptxas_usage(log):
             print(f"  {name}: {kernel}: {regs} registers, {spill} bytes spill stores")
-            if kernel.startswith("cross_modal_attn_f32tc") and spill:
+            if kernel.startswith(("cross_modal_attn_f32tc", "cross_modal_attn_bf16_blocks")) \
+                    and spill:
                 fail(f"{kernel} spills {spill} bytes")
 
     gen = torch.Generator().manual_seed(0)
@@ -1530,19 +1570,24 @@ def main():
         kernels = [*check_lstm(gen, device), check_attention(gen, device)]
         kernels[2].update(check_wider_shapes(gen, device))
     profile = "--profile" in sys.argv[1:]
-    # each path zeroes the launch counts before it runs; the float32
-    # tensor-core route's key blocks (S > 128) are read after each
+    # each path zeroes the launch counts before it runs; both tensor-core
+    # routes' key blocks (S > 128) are read after each
     key_blocks = {}
+
+    def read_key_blocks(suffix):
+        for dtype, count in zip(("f32", "bf16"), key_block_launches()):
+            key_blocks[f"{dtype}_key_block{suffix}_launches"] = count
+
     launches = main_path(device, profile)
-    key_blocks["f32_key_block_launches"] = fused_attention.f32_key_block_launches
+    read_key_blocks("")
     train_launches, bare_step_ms = train_path(device, profile)
-    key_blocks["f32_key_block_train_launches"] = fused_attention.f32_key_block_launches
+    read_key_blocks("_train")
     trainer_launches = trainer_path(device, bare_step_ms, profile)
-    key_blocks["f32_key_block_trainer_launches"] = fused_attention.f32_key_block_launches
-    print(f"key-block launches of the float32 tensor-core attention (S > 128) on the serving, "
-          f"train and trainer paths: {key_blocks}")
+    read_key_blocks("_trainer")
+    print(f"key-block launches of the attention kernel (S > 128, float32 and bf16) on the "
+          f"serving, train and trainer paths: {key_blocks}")
     if any(key_blocks.values()):
-        fail("an HCM path launched the float32 key-block attention kernel")
+        fail("an HCM path launched a key-block attention kernel")
     kernels[2].update(key_blocks)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -22,12 +22,8 @@
 // in float32, as in the TPU kernel, which upcasts to float32).  The scale, the
 // -inf of padded keys and the softmax stay in float32 in the accumulator
 // registers (S ≤ 128 fits whole, so no online rescaling; row max and sum by
-// quad shuffles; exp2 of logits scaled by log2 e).  A longer S (the 144
-// depth tokens of a 384 px frame) runs its keys in blocks of 64 with an
-// online softmax: the running row max rescales the sum and the output
-// accumulators after each block, and the output is divided by the sum at
-// the end (blocks of 128 held 64 logits a thread and spilled).  p·v runs
-// on the tensor cores too, with the accumulator reused as the A fragment: p is split into
+// quad shuffles; exp2 of logits scaled by log2 e).  p·v runs on the tensor
+// cores too, with the accumulator reused as the A fragment: p is split into
 // p_hi = bf16(p) and p_lo = bf16(p - p_hi), two products against the same V
 // fragment (ldmatrix.trans), which keeps about 16 bits of the float32
 // probabilities; the only rounding left is that of the bf16 output.  The
@@ -35,9 +31,35 @@
 // coalesced 16-byte stores.  A block does not overlap its own copies with its
 // arithmetic; the several blocks on each SM do, so the register budget is set
 // (min_blocks) to keep 6 blocks of 4 warps on an SM at S = 64 and 8 at S = 16.
-// Takes d_k = d_v, a multiple of 16 up to 128, and any S ≥ 1 whose K and V
-// fit in shared memory beside the Q tile (S ≤ 384 at d = 128); the wrapper
-// raises outside that range.
+// Takes d_k = d_v, a multiple of 16 up to 128, and S ≤ 128.
+//
+// bfloat16 past S = 128: key blocks (the kernel takes any S ≥ 1), for
+// d_k = d_v a multiple of 16 up to 128 and pointers aligned to 16 bytes.
+// Holding a head's K and V whole made shared memory grow with S (130,560
+// bytes a block at S = 200, d = 128: one block an SM; nothing past S = 384
+// at d = 128).  The bound is bytes (S = 144, d = 64 at N = 200: 70 MB,
+// 0.021 ms at 3.35 TB/s, against 0.006 ms for its operations at 989
+// TFLOP/s), but on the H100 the kernel is held by its arithmetic: with its
+// global loads removed it kept 89% of its time, and mma.sync peaks at about
+// 650 TFLOP/s there (scripts/attention_probe.py measures both).  Each key
+// is three bf16 products (q·kᵀ, p_hi·v, p_lo·v) and some ten float32
+// instructions of softmax a logit.  What the design does about it: K and V
+// stream through a ring of kBf16Stages key blocks of 16·kBf16KeyChunks
+// keys, the next ones' 16-byte cp.async copies in flight while the warps
+// multiply one, one barrier a key block; shared memory is a constant of D
+// (36,864 bytes at d = 64, 69,632 at d = 128).  Blocks of kBf16BlockWarps
+// warps on 64-row query tiles, with a register budget (kBf16MoreRegs) that
+// keeps 5 blocks on an SM at d = 64 and 3 at d = 128 without spilling.
+// Only the last key block has keys past S, so only its step carries the
+// -inf mask and the skip of chunks wholly past S, and every other step
+// runs without a branch; shared-memory addresses are a lane's base plus
+// constants.  The logit scale and the max subtraction are one FMA before
+// ex2.approx.  The running row max is lazy (kBf16MaxSlack): a row's
+// reference moves only when a key block's max passes it by more than 2^8,
+// so p <= 2^8, and the sum and the output, taken against the same
+// reference, are rescaled only then; the common step needs no shuffle.  The
+// products, the split of p and the float32 softmax in base 2 are otherwise
+// the whole-key kernel's; the output is divided by the sum at the end.
 //
 // float32 on the tensor cores (3xTF32), for d_k and d_v multiples of 8 up
 // to 128 (d_k != d_v allowed), any S ≥ 1 and pointers aligned to 16 bytes;
@@ -124,6 +146,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -286,21 +309,27 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+// ldmatrix at a shared-memory address
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  ldmatrix_x4(r, (uint32_t)__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  ldmatrix_x4_trans(r, (uint32_t)__cvta_generic_to_shared(p));
 }
 
 // c += a·b on one m16n8k16 tile: bf16 inputs, float32 accumulator
@@ -326,6 +355,33 @@ __device__ __forceinline__ void split_pack(float x, float y, uint32_t& hi,
   lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
+// A warp's 16 output rows (o_acc[t]: columns 8t..8t+7 of rows lane/4 and
+// lane/4 + 8) through o_s, its own rows of the Q tile, to ob in coalesced
+// 16-byte stores: rows below ``rows``
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(const float (&o_acc)[D / 8][4],
+                                                __nv_bfloat16* o_s, __nv_bfloat16* ob,
+                                                int ld, int rows, int lane) {
+  constexpr int P = D + kPad, kChunks = D / 8;
+  const int g = lane >> 2, cq = 2 * (lane & 3);
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    *reinterpret_cast<__nv_bfloat162*>(o_s + g * P + 8 * t + cq) =
+        __floats2bfloat162_rn(o_acc[t][0], o_acc[t][1]);
+    *reinterpret_cast<__nv_bfloat162*>(o_s + (g + 8) * P + 8 * t + cq) =
+        __floats2bfloat162_rn(o_acc[t][2], o_acc[t][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    if (r < rows)
+      *reinterpret_cast<int4*>(ob + (size_t)r * ld + c) =
+          *reinterpret_cast<const int4*>(o_s + r * P + c);
+  }
+}
+
 // Blocks a multiprocessor should hold at once: as many as the registers
 // allow once the accumulators (8·KC logits and D/2 outputs a thread) and
 // about 16 registers of addresses fit, at most 8.
@@ -341,16 +397,13 @@ __host__ __device__ constexpr size_t bf16_smem_bytes(int D, int S) {
   return sizeof(__nv_bfloat16) * (D + kPad) * (kTileQ + 2 * ((S + 15) & ~15));
 }
 
-// D: d_k = d_v; KC: the most 16-key chunks of one key block (S rounded up
-// to 16, over 16, at most 8; 4 in key blocks).  kBlocks: S > 16·KC, so the keys run in blocks
-// of 16·KC with an online softmax (the running row max rescales the sum and
-// the output accumulators, and the output is divided by the sum at the end);
-// without it the one block's probabilities are normalised before p·v.
-// One block per (example, head, 64-query tile), tile fastest.  The Q tile and
-// the head's K and V (S rounded up to 16 with zero rows) go to shared memory;
-// each warp takes 16 query rows, and its output goes back through its own
-// rows of the Q tile to leave in 16-byte stores.
-template <int D, int KC, bool kBlocks>
+// S ≤ 128.  D: d_k = d_v; KC: S rounded up to 16, over 16 (1, 2, 4 or 8).
+// One block per (example, head, 64-query tile), tile fastest.  The Q tile
+// and the head's K and V (S rounded up to 16 with zero rows) go to shared
+// memory; each warp takes 16 query rows, normalises its probabilities
+// before p·v, and its output goes back through its own rows of the Q tile
+// to leave in 16-byte stores.
+template <int D, int KC>
 __global__ void __launch_bounds__(kMmaWarps * 32, min_blocks<D, KC>())
 cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -394,23 +447,276 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int chunks = s_pad / 16;
   const float scale2 = scale * 1.4426950408889634f;
 
+  // logits: n-tile t holds keys 8t..8t+7; [0], [1] row lane/4, [2], [3] row
+  // lane/4 + 8, keys 8t + 2(lane%4) + {0, 1}
+  float s_acc[2 * KC][4];
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_acc[t][e] = 0.0f;
+#pragma unroll
+  for (int kd = 0; kd < D; kd += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, q_s + (row0 + (lane & 15)) * P + kd + (lane >> 4) * 8);
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      if (c < chunks) {
+        uint32_t bk[4];  // b0, b1 of keys 16c..+7, then of the next 8
+        ldmatrix_x4(bk, k_s + (16 * c + (lane & 7) + ((lane >> 4) << 3)) * P + kd +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s_acc[2 * c], a, bk[0], bk[1]);
+        mma_bf16(s_acc[2 * c + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+  // softmax over each row in float32, in base 2 (exp2 of logits·log2 e);
+  // a row lives in the 4 lanes of a quad
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_acc[t][e] *= scale2;
+  if (S < 16 * KC) {  // keys past S (and past the last chunk): -inf
+#pragma unroll
+    for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * t + 2 * (lane & 3) + (e & 1) >= S) s_acc[t][e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s_acc[t][e]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s_acc[t][e] - mx[e >> 1]);
+      s_acc[t][e] = p;
+      sum[e >> 1] += p;
+    }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    inv[h] = 1.0f / sum[h];
+  }
+
+  // out = p_hi·v + p_lo·v, p normalised before the split; n-tile t of
+  // o_acc holds columns 8t..8t+7
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[t][e] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c < chunks) {
+      // the A fragment of keys 16c..+15 is n-tiles 2c and 2c + 1
+      uint32_t hi[4], lo[4];
+      split_pack(s_acc[2 * c][0] * inv[0], s_acc[2 * c][1] * inv[0], hi[0], lo[0]);
+      split_pack(s_acc[2 * c][2] * inv[1], s_acc[2 * c][3] * inv[1], hi[1], lo[1]);
+      split_pack(s_acc[2 * c + 1][0] * inv[0], s_acc[2 * c + 1][1] * inv[0], hi[2], lo[2]);
+      split_pack(s_acc[2 * c + 1][2] * inv[1], s_acc[2 * c + 1][3] * inv[1], hi[3], lo[3]);
+#pragma unroll
+      for (int dt = 0; dt < D / 16; ++dt) {
+        uint32_t bv[4];  // b0, b1 of columns 16dt..+7, then of 16dt+8..+15
+        ldmatrix_x4_trans(bv, v_s + (16 * c + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                  16 * dt + (lane >> 4) * 8);
+        mma_bf16(o_acc[2 * dt], lo, bv[0], bv[1]);
+        mma_bf16(o_acc[2 * dt], hi, bv[0], bv[1]);
+        mma_bf16(o_acc[2 * dt + 1], lo, bv[2], bv[3]);
+        mma_bf16(o_acc[2 * dt + 1], hi, bv[2], bv[3]);
+      }
+    }
+  }
+  store_rows_bf16<D>(o_acc, q_s + row0 * P, out + ((size_t)n * Lq + q0 + row0) * ld + head * D,
+                     ld, rows - row0, lane);
+}
+
+template <int D, int KC>
+int launch_bf16_tiles(const void* q, const void* k, const void* v, void* out,
+                      int N, int Lq, int S, int heads, cudaStream_t stream) {
+  static SmemOptIn opt_in;
+  const size_t smem = bf16_smem_bytes(D, S);
+  const cudaError_t err =
+      opt_in.ensure((const void*)cross_modal_attn_bf16_kernel<D, KC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (Lq + kTileQ - 1) / kTileQ;
+  const long long blocks = (long long)N * heads * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cross_modal_attn_bf16_kernel<D, KC>
+      <<<(unsigned)blocks, kMmaWarps * 32, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+          Lq, S, heads, tiles, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ bfloat16 in key blocks
+
+constexpr int kBf16BlockWarps = 4;  // 16 query rows each: 64-row query tiles
+constexpr int kBf16KeyChunks = 2;   // 16-key chunks of one key block: 32 keys
+constexpr int kBf16Stages = 3;      // key blocks in the ring
+constexpr int kBf16MoreRegs = 48;   // registers a thread beyond the accumulators
+constexpr float kBf16MaxSlack = 8.0f;  // log2 of the largest p before a rescale
+
+// Shared memory of one block of cross_modal_attn_bf16_blocks_kernel<D>: the
+// Q tile (16 rows a warp) and the ring's stages, each the K and V of one
+// key block of 16·kBf16KeyChunks keys, all in rows of D + kPad values,
+// whatever S.
+__host__ __device__ constexpr size_t bf16_blocks_smem_bytes(int D) {
+  return sizeof(__nv_bfloat16) * (D + kPad) *
+         (16 * kBf16BlockWarps + 2 * kBf16Stages * 16 * kBf16KeyChunks);
+}
+
+// Blocks a multiprocessor should hold at once: as many as the registers
+// allow once the accumulators (8·kBf16KeyChunks logits and D/2 outputs a
+// thread) and kBf16MoreRegs registers of fragments, addresses and the
+// softmax's state fit, and as many as the shared memory holds, at most 8.
+constexpr int bf16_blocks_an_sm(int D) {
+  const int regs = (8 * kBf16KeyChunks + D / 2 + kBf16MoreRegs + 7) / 8 * 8;
+  const int by_regs = 65536 / (kBf16BlockWarps * 32 * regs);
+  const int by_smem = 233472 / (int)(bf16_blocks_smem_bytes(D) + 1024);
+  const int m = by_regs < by_smem ? by_regs : by_smem;
+  return m < 1 ? 1 : (m > 8 ? 8 : m);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of this thread's newest commit groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// 2^x in one instruction (the approximation exp2f rests on, with results
+// below 2^-126 flushed to 0: a probability that small adds nothing)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S > 128: the keys streamed through a ring of kStages key blocks of 16·KC
+// keys (the kBf16 constants above).  D: d_k = d_v; kWarps warps a block,
+// 16 query rows each.  One block per (example, head, 16·kWarps-query tile),
+// tile fastest, so the tiles of one head run side by side and find its K
+// and V in L2.  The Q tile and the first kStages - 1 key blocks go out as
+// 16-byte cp.async copies, one commit group each; each key block then
+// takes one barrier, after which the block issues the copy of key block
+// blk + kStages - 1 into the stage that key block blk - 1 used, and the
+// warps multiply key block blk while the copies of the next ones are in
+// flight.  Keys past S are zero rows (the copy's source size 0) and -inf
+// logits; only the last key block has them, and only its step carries the
+// mask and skips the 16-key chunks wholly past S, so every other step runs
+// without a branch.  The softmax is online, in float32 and base 2, against
+// a lazy reference max per row (of logits scaled by log2 e / √d; see the
+// step): p = 2^(logit·scale - max) (one FMA) goes unnormalised into
+// p_hi·v + p_lo·v, and the output is divided by the sum at the end.  Every
+// warp copies and meets the barriers, including a warp with no query rows
+// in a partial tile, which multiplies nothing.
+template <int D>
+__global__ void __launch_bounds__(kBf16BlockWarps * 32, bf16_blocks_an_sm(D))
+cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
+                                    const __nv_bfloat16* __restrict__ k,
+                                    const __nv_bfloat16* __restrict__ v,
+                                    __nv_bfloat16* __restrict__ out, int Lq, int S,
+                                    int heads, int tiles, float scale) {
+  constexpr int KC = kBf16KeyChunks, kWarps = kBf16BlockWarps, kStages = kBf16Stages;
+  constexpr int P = D + kPad;         // row pitch of the shared tiles, in values
+  constexpr int kChunks = D / 8;      // 16-byte chunks in one head's row
+  constexpr int kTile = 16 * kWarps;  // query rows of a block
+  constexpr int kKeys = 16 * KC;      // keys of a key block
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kItems = kKeys * kChunks;  // 16-byte copies of K (and of V) a key block
+  constexpr int kStageBytes = 2 * kKeys * P * 2;
+  static_assert(kTile * kChunks % kThreads == 0, "whole rounds of 16-byte copies");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (kTile, P)
+  __nv_bfloat16* ring = q_s + kTile * P;  // kStages × (K (kKeys, P), V (kKeys, P))
+
+  const int b = blockIdx.x;
+  const int nh = b / tiles;  // n * heads + head
+  const int q0 = (b - nh * tiles) * kTile;
+  const int n = nh / heads, head = nh - n * heads;
+  const int ld = heads * D;  // row stride of q, k, v and out
+  const __nv_bfloat16* qb = q + ((size_t)n * Lq + q0) * ld + head * D;
+  const __nv_bfloat16* kb = k + (size_t)n * S * ld + head * D;
+  const __nv_bfloat16* vb = v + (size_t)n * S * ld + head * D;
+#pragma unroll
+  for (int j = 0; j < kTile * kChunks / kThreads; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = q0 + r < Lq;
+    cp_async16(q_s + r * P + c, ok ? qb + (size_t)r * ld + c : q, ok);
+  }
+  // key block blk into its stage of the ring, zero past S
+  auto copy_block = [&](int blk) {
+    __nv_bfloat16* k_s = ring + (blk % kStages) * 2 * kKeys * P;
+    __nv_bfloat16* v_s = k_s + kKeys * P;
+    const int s0 = blk * kKeys;
+#pragma unroll
+    for (int j = 0; j < (kItems + kThreads - 1) / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      if (kItems % kThreads == 0 || i < kItems) {
+        const int r = i / kChunks, c = (i % kChunks) * 8;
+        const bool ok = s0 + r < S;
+        const size_t at = (size_t)(s0 + r) * ld + c;
+        cp_async16(k_s + r * P + c, ok ? kb + at : kb, ok);
+        cp_async16(v_s + r * P + c, ok ? vb + at : vb, ok);
+      }
+    }
+  };
+  const int n_blocks = (S + kKeys - 1) / kKeys;
+#pragma unroll
+  for (int blk = 0; blk < kStages - 1; ++blk) {  // the Q tile goes with key block 0
+    if (blk < n_blocks) copy_block(blk);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  const int rows = min(kTile, Lq - q0);
+  const bool has_rows = row0 < rows;
+  const float scale2 = scale * 1.4426950408889634f;
+  // shared-memory addresses of the lane's ldmatrix rows: its A rows of the
+  // Q tile; its B rows of K (keys (lane & 7) + 8(lane >> 4), dims 8((lane
+  // >> 3) & 1) on); its B rows of V, transposed (keys (lane & 7) + 8((lane
+  // >> 3) & 1), columns 8(lane >> 4) on).  Every other offset is a constant.
+  const uint32_t q_lane = (uint32_t)__cvta_generic_to_shared(q_s) +
+                          2 * ((row0 + (lane & 15)) * P + (lane >> 4) * 8);
+  const uint32_t k_lane = (uint32_t)__cvta_generic_to_shared(ring) +
+                          2 * (((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8);
+  const uint32_t v_lane = (uint32_t)__cvta_generic_to_shared(ring) + 2 * kKeys * P +
+                          2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8);
   // out = p_hi·v + p_lo·v; n-tile t of o_acc holds columns 8t..8t+7
   float o_acc[D / 8][4];
 #pragma unroll
   for (int t = 0; t < D / 8; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o_acc[t][e] = 0.0f;
-  float mx[2] = {-INFINITY, -INFINITY};  // running row max (base 2)
+  float mx[2] = {-INFINITY, -INFINITY};  // running row max (scaled, base 2)
   float sum[2] = {0.0f, 0.0f};           // the lane's share of the row sum
 
-  // key blocks of chunks c0 .. c0 + KC - 1; without kBlocks the one block
-  // is a compile-time constant, so that instance's code is the one-pass
-  // softmax's alone
-  const int n_blocks = kBlocks ? (chunks + KC - 1) / KC : 1;
-  for (int blk = 0; blk < n_blocks; ++blk) {
-    const int c0 = kBlocks ? blk * KC : 0;
-    // logits: n-tile t holds keys 16c0 + 8t..+7; [0], [1] row lane/4, [2],
-    // [3] row lane/4 + 8, keys 16c0 + 8t + 2(lane%4) + {0, 1}
+  // one key block in ring stage ``stage``; only the last key block (last:
+  // std::true_type) has keys past S, from ``valid`` on
+  auto step = [&](auto last, int stage, int valid) {
+    constexpr bool kLast = decltype(last)::value;
+    const uint32_t k_at = k_lane + stage * kStageBytes;
+    const uint32_t v_at = v_lane + stage * kStageBytes;
+    // logits: n-tile t holds the key block's keys 8t..8t+7; [0], [1] row
+    // lane/4, [2], [3] row lane/4 + 8, keys 8t + 2(lane%4) + {0, 1}
     float s_acc[2 * KC][4];
 #pragma unroll
     for (int t = 0; t < 2 * KC; ++t)
@@ -419,44 +725,48 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kd = 0; kd < D; kd += 16) {
       uint32_t a[4];
-      ldmatrix_x4(a, q_s + (row0 + (lane & 15)) * P + kd + (lane >> 4) * 8);
+      ldmatrix_x4(a, q_lane + 2 * kd);
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
-        if (c0 + c < chunks) {
-          uint32_t bk[4];  // b0, b1 of keys 16(c0+c)..+7, then of the next 8
-          ldmatrix_x4(bk, k_s + (16 * (c0 + c) + (lane & 7) + ((lane >> 4) << 3)) * P +
-                              kd + ((lane >> 3) & 1) * 8);
+        if (!kLast || 16 * c < valid) {  // a chunk wholly past S adds nothing
+          uint32_t bk[4];  // b0, b1 of keys 16c..+7, then of the next 8
+          ldmatrix_x4(bk, k_at + 2 * (16 * c * P + kd));
           mma_bf16(s_acc[2 * c], a, bk[0], bk[1]);
           mma_bf16(s_acc[2 * c + 1], a, bk[2], bk[3]);
         }
       }
     }
 
-    // softmax over each row in float32, in base 2 (exp2 of logits·log2 e);
-    // a row lives in the 4 lanes of a quad
-#pragma unroll
-    for (int t = 0; t < 2 * KC; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[t][e] *= scale2;
-    if (kBlocks || S < 16 * KC) {  // keys past S (and past the last chunk): -inf
+    // online softmax in float32, base 2; a row lives in the 4 lanes of a quad
+    if constexpr (kLast) {  // keys past S are -inf
 #pragma unroll
       for (int t = 0; t < 2 * KC; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (16 * c0 + 8 * t + 2 * (lane & 3) + (e & 1) >= S) s_acc[t][e] = -INFINITY;
+          if (8 * t + 2 * (lane & 3) + (e & 1) >= valid) s_acc[t][e] = -INFINITY;
     }
-    float bm[2] = {-INFINITY, -INFINITY};
+    // A row's reference max moves only when the key block's max passes it
+    // by more than kBf16MaxSlack (always at the first key block), so p <=
+    // 2^kBf16MaxSlack, and the sum and the output, both taken against the
+    // same reference, need no rescaling otherwise.  Each lane tests its
+    // own logits; only when a row of the warp moves does the warp reduce
+    // the rows' max across the quads' lanes and rescale.
+    float bm[2] = {-INFINITY, -INFINITY};  // the lane's max of each of its rows
 #pragma unroll
     for (int t = 0; t < 2 * KC; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) bm[e >> 1] = fmaxf(bm[e >> 1], s_acc[t][e]);
+    // the scale is positive, so the max of scaled logits is the scaled max
+    const bool raise = bm[0] * scale2 > mx[0] + kBf16MaxSlack ||
+                       bm[1] * scale2 > mx[1] + kBf16MaxSlack;
+    if (__any_sync(0xffffffffu, raise)) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 1));
-      bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 2));
-      if (kBlocks) {  // every block holds a key below S, so bm is finite
-        const float m = fmaxf(mx[h], bm[h]);
-        const float alpha = exp2f(mx[h] - m);  // 0 at the first block
+      for (int h = 0; h < 2; ++h) {
+        bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 1));
+        bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 2));
+        bm[h] *= scale2;  // finite: every key block holds a key below S
+        const float m = bm[h] > mx[h] + kBf16MaxSlack ? bm[h] : mx[h];
+        const float alpha = ex2(mx[h] - m);  // 0 at the first key block, 1 for a row that stays
         sum[h] *= alpha;
 #pragma unroll
         for (int t = 0; t < D / 8; ++t) {
@@ -464,43 +774,29 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           o_acc[t][2 * h + 1] *= alpha;
         }
         mx[h] = m;
-      } else {
-        mx[h] = bm[h];
       }
     }
 #pragma unroll
     for (int t = 0; t < 2 * KC; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s_acc[t][e] - mx[e >> 1]);
-        s_acc[t][e] = p;
-        sum[e >> 1] += p;
+        s_acc[t][e] = ex2(fmaf(s_acc[t][e], scale2, -mx[e >> 1]));
+        sum[e >> 1] += s_acc[t][e];
       }
-    // one block: p normalised before the split; key blocks: p as it is
-    float inv[2] = {1.0f, 1.0f};
-    if (!kBlocks) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        inv[h] = 1.0f / sum[h];
-      }
-    }
 
 #pragma unroll
     for (int c = 0; c < KC; ++c) {
-      if (c0 + c < chunks) {
-        // the A fragment of keys 16(c0+c)..+15 is n-tiles 2c and 2c + 1
+      if (!kLast || 16 * c < valid) {
+        // the A fragment of keys 16c..+15 is n-tiles 2c and 2c + 1, p as it is
         uint32_t hi[4], lo[4];
-        split_pack(s_acc[2 * c][0] * inv[0], s_acc[2 * c][1] * inv[0], hi[0], lo[0]);
-        split_pack(s_acc[2 * c][2] * inv[1], s_acc[2 * c][3] * inv[1], hi[1], lo[1]);
-        split_pack(s_acc[2 * c + 1][0] * inv[0], s_acc[2 * c + 1][1] * inv[0], hi[2], lo[2]);
-        split_pack(s_acc[2 * c + 1][2] * inv[1], s_acc[2 * c + 1][3] * inv[1], hi[3], lo[3]);
+        split_pack(s_acc[2 * c][0], s_acc[2 * c][1], hi[0], lo[0]);
+        split_pack(s_acc[2 * c][2], s_acc[2 * c][3], hi[1], lo[1]);
+        split_pack(s_acc[2 * c + 1][0], s_acc[2 * c + 1][1], hi[2], lo[2]);
+        split_pack(s_acc[2 * c + 1][2], s_acc[2 * c + 1][3], hi[3], lo[3]);
 #pragma unroll
         for (int dt = 0; dt < D / 16; ++dt) {
           uint32_t bv[4];  // b0, b1 of columns 16dt..+7, then of 16dt+8..+15
-          ldmatrix_x4_trans(bv, v_s + (16 * (c0 + c) + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
-                                    16 * dt + (lane >> 4) * 8);
+          ldmatrix_x4_trans(bv, v_at + 2 * (16 * c * P + 16 * dt));
           mma_bf16(o_acc[2 * dt], lo, bv[0], bv[1]);
           mma_bf16(o_acc[2 * dt], hi, bv[0], bv[1]);
           mma_bf16(o_acc[2 * dt + 1], lo, bv[2], bv[3]);
@@ -508,83 +804,81 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
+  };
+
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of key block blk have landed
+    __syncthreads();  // every thread's have; no warp reads the stage refilled next
+    if (blk + kStages - 1 < n_blocks) copy_block(blk + kStages - 1);
+    cp_async_commit();  // empty past the last key block, to keep the count
+    if (!has_rows) continue;
+    if (blk + 1 < n_blocks)
+      step(std::false_type{}, blk % kStages, kKeys);
+    else
+      step(std::true_type{}, blk % kStages, S - blk * kKeys);
   }
-  if (kBlocks) {
+  if (!has_rows) return;  // no barrier follows
+
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      const float inv = 1.0f / sum[h];
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    const float inv = 1.0f / sum[h];
 #pragma unroll
-      for (int t = 0; t < D / 8; ++t) {
-        o_acc[t][2 * h] *= inv;
-        o_acc[t][2 * h + 1] *= inv;
-      }
+    for (int t = 0; t < D / 8; ++t) {
+      o_acc[t][2 * h] *= inv;
+      o_acc[t][2 * h + 1] *= inv;
     }
   }
-
-  __syncwarp();
-  __nv_bfloat16* o_s = q_s + row0 * P;
-  const int g = lane >> 2, cq = 2 * (lane & 3);
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
-    *reinterpret_cast<__nv_bfloat162*>(o_s + g * P + 8 * t + cq) =
-        __floats2bfloat162_rn(o_acc[t][0], o_acc[t][1]);
-    *reinterpret_cast<__nv_bfloat162*>(o_s + (g + 8) * P + 8 * t + cq) =
-        __floats2bfloat162_rn(o_acc[t][2], o_acc[t][3]);
-  }
-  __syncwarp();
-  __nv_bfloat16* ob = out + ((size_t)n * Lq + q0 + row0) * ld + head * D;
-#pragma unroll
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    if (row0 + r < rows)
-      *reinterpret_cast<int4*>(ob + (size_t)r * ld + c) =
-          *reinterpret_cast<const int4*>(o_s + r * P + c);
-  }
+  store_rows_bf16<D>(o_acc, q_s + row0 * P, out + ((size_t)n * Lq + q0 + row0) * ld + head * D,
+                     ld, rows - row0, lane);
 }
 
-template <int D, int KC, bool kBlocks>
-int launch_bf16_tiles(const void* q, const void* k, const void* v, void* out,
-                      int N, int Lq, int S, int heads, cudaStream_t stream) {
+template <int D>
+int launch_bf16_blocks(const void* q, const void* k, const void* v, void* out, int N,
+                       int Lq, int S, int heads, cudaStream_t stream) {
   static SmemOptIn opt_in;
-  const size_t smem = bf16_smem_bytes(D, S);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = bf16_blocks_smem_bytes(D);
+  static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
   const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_bf16_kernel<D, KC, kBlocks>, smem);
+      opt_in.ensure((const void*)cross_modal_attn_bf16_blocks_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (Lq + kTileQ - 1) / kTileQ;
+  constexpr int kTile = 16 * kBf16BlockWarps;
+  const int tiles = (Lq + kTile - 1) / kTile;
   const long long blocks = (long long)N * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cross_modal_attn_bf16_kernel<D, KC, kBlocks>
-      <<<(unsigned)blocks, kMmaWarps * 32, smem, stream>>>(
+  cross_modal_attn_bf16_blocks_kernel<D>
+      <<<(unsigned)blocks, kBf16BlockWarps * 32, smem, stream>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
           Lq, S, heads, tiles, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
+// The keys whole (S <= 128) or, where key_blocks, streamed in key blocks
+// (any S).
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int N,
-                int Lq, int S, int heads, cudaStream_t stream) {
-  if (S <= 16) return launch_bf16_tiles<D, 1, false>(q, k, v, out, N, Lq, S, heads, stream);
-  if (S <= 32) return launch_bf16_tiles<D, 2, false>(q, k, v, out, N, Lq, S, heads, stream);
-  if (S <= 64) return launch_bf16_tiles<D, 4, false>(q, k, v, out, N, Lq, S, heads, stream);
-  if (S <= 128) return launch_bf16_tiles<D, 8, false>(q, k, v, out, N, Lq, S, heads, stream);
-  return launch_bf16_tiles<D, 4, true>(q, k, v, out, N, Lq, S, heads, stream);
+                int Lq, int S, int heads, bool key_blocks, cudaStream_t s) {
+  if (key_blocks) return launch_bf16_blocks<D>(q, k, v, out, N, Lq, S, heads, s);
+  if (S <= 16) return launch_bf16_tiles<D, 1>(q, k, v, out, N, Lq, S, heads, s);
+  if (S <= 32) return launch_bf16_tiles<D, 2>(q, k, v, out, N, Lq, S, heads, s);
+  if (S <= 64) return launch_bf16_tiles<D, 4>(q, k, v, out, N, Lq, S, heads, s);
+  if (S <= 128) return launch_bf16_tiles<D, 8>(q, k, v, out, N, Lq, S, heads, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-int launch_bf16_any(const void* q, const void* k, const void* v, void* out,
-                    int N, int Lq, int S, int heads, int d, cudaStream_t s) {
+int launch_bf16_any(const void* q, const void* k, const void* v, void* out, int N,
+                    int Lq, int S, int heads, int d, bool key_blocks, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_bf16<16>(q, k, v, out, N, Lq, S, heads, s);
-    case 32: return launch_bf16<32>(q, k, v, out, N, Lq, S, heads, s);
-    case 48: return launch_bf16<48>(q, k, v, out, N, Lq, S, heads, s);
-    case 64: return launch_bf16<64>(q, k, v, out, N, Lq, S, heads, s);
-    case 80: return launch_bf16<80>(q, k, v, out, N, Lq, S, heads, s);
-    case 96: return launch_bf16<96>(q, k, v, out, N, Lq, S, heads, s);
-    case 112: return launch_bf16<112>(q, k, v, out, N, Lq, S, heads, s);
-    case 128: return launch_bf16<128>(q, k, v, out, N, Lq, S, heads, s);
+    case 16: return launch_bf16<16>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 32: return launch_bf16<32>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 48: return launch_bf16<48>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 64: return launch_bf16<64>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 80: return launch_bf16<80>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 96: return launch_bf16<96>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 112: return launch_bf16<112>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 128: return launch_bf16<128>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1228,23 +1522,24 @@ int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// route: 0 = float32 on the CUDA cores, 1 = bfloat16, 2 = float32 on the
-// tensor cores with a head's keys whole, 3 = float32 on the tensor cores
-// with the keys streamed in key blocks (q, k, v and out share the dtype).
-// The bfloat16 route takes dk == dv, a multiple of 16 up to 128, and any
-// S >= 1 whose K and V fit in shared memory beside the Q tile; both
-// tensor-core float32 routes dk and dv multiples of 8 up to 128, route 2
-// S <= 128 and route 3 any S >= 1 (the wrapper sends S > 128 there; a
-// smaller S only to time it against route 2); all three need q, k, v and
-// out aligned to 16 bytes.  The CUDA-core float32 route takes any sizes
-// whose q rows and probabilities fit in shared memory.
+// route: 0 = float32 on the CUDA cores, 1 = bfloat16 with a head's keys
+// whole, 2 = float32 on the tensor cores with a head's keys whole, 3 =
+// float32 on the tensor cores with the keys streamed in key blocks, 4 =
+// bfloat16 with the keys streamed in key blocks (q, k, v and out share the
+// dtype).  Both bfloat16 routes take dk == dv, a multiple of 16 up to 128,
+// route 1 S <= 128 and route 4 any S >= 1; both tensor-core float32 routes
+// dk and dv multiples of 8 up to 128, route 2 S <= 128 and route 3 any S >=
+// 1 (the wrapper sends S > 128 to routes 3 and 4; a smaller S only to time
+// them against routes 1 and 2); all four need q, k, v and out aligned to 16
+// bytes.  The CUDA-core float32 route takes any sizes whose q rows and
+// probabilities fit in shared memory.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
                                 int dk, int dv, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (route == 1 && dk == dv && S >= 1)
-    return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, s);
+  if ((route == 1 || route == 4) && dk == dv && S >= 1)
+    return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == 4, s);
   if ((route == 2 || route == 3) && dk % 8 == 0 && dv % 8 == 0 && dk >= 8 &&
       dk <= 128 && dv >= 8 && dv <= 128 && S >= 1)
     return launch_f32tc_any(q, k, v, out, N, Lq, S, heads, dk, dv, route == 3, s);

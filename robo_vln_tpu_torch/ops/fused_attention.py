@@ -24,10 +24,12 @@ and the sizes; a call that no route takes raises there, before any launch:
 * ``bf16``: both products on the tensor cores, the softmax in float32, the
   probabilities kept to about 16 bits (``p_hi + p_lo``), so the only rounding
   left against the float32 function is that of the bf16 output.  It takes
-  d_k = d_v, a multiple of 16 up to 128, any S whose K and V fit in shared
-  memory (S <= 384 at d = 128; past S = 128 the keys run in blocks of 64
-  with an online softmax), and pointers aligned to 16 bytes
-  (:func:`check_bf16_route`).
+  d_k = d_v, a multiple of 16 up to 128, any S >= 1, and pointers aligned to
+  16 bytes (:func:`check_bf16_route`).  Up to S = 128 one kernel holds a
+  head's keys whole; past it another streams them through a ring of
+  :data:`BF16_STAGES` key blocks of :data:`BF16_KEY_CHUNKS` 16-key chunks
+  with an online softmax against a lazy row max (the C entry's code
+  :data:`BF16_KEY_BLOCKS`, counted apart in :data:`bf16_key_block_launches`).
 
 On a CPU tensor the plain version (:func:`attention_plain`) runs; on a CUDA
 tensor the kernel launches, or the wrapper raises.  The backward pass replays
@@ -50,10 +52,16 @@ launches = 0  # kernel launches since the last reset
 route_launches = dict.fromkeys(ROUTES, 0)  # the same, by route
 f32_key_block_launches = 0  # of f32_tensor_core's, those past F32_WHOLE_S, in key blocks
 F32_KEY_BLOCKS = 3  # code of the C entry for f32_tensor_core's key blocks
+bf16_key_block_launches = 0  # of bf16's, those past BF16_WHOLE_S, in key blocks
+BF16_KEY_BLOCKS = 4  # code of the C entry for bf16's key blocks
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 WARPS = 8  # kWarps of csrc/cross_modal_attn.cu (f32_cuda_core route)
-TILE_Q = 64  # kTileQ of csrc/cross_modal_attn.cu (bf16 route)
+TILE_Q = 64  # kTileQ of csrc/cross_modal_attn.cu (bf16 route, keys whole)
+BF16_WHOLE_S = 128  # the most keys bf16 holds whole; past it, key blocks
+BF16_BLOCK_WARPS = 4  # kBf16BlockWarps: 16 query rows each
+BF16_KEY_CHUNKS = 2  # kBf16KeyChunks: 16-key chunks a key block
+BF16_STAGES = 3  # kBf16Stages: key blocks in the ring
 F32_TILE_Q = 128  # kF32Tile of csrc/cross_modal_attn.cu (f32_tensor_core route)
 F32_WHOLE_S = 128  # the most keys f32_tensor_core holds whole; past it, key blocks
 F32_KEY_CHUNKS = 4  # KC of launch_f32tc_blocks in csrc/cross_modal_attn.cu: 8-key chunks a key block
@@ -73,6 +81,12 @@ def _f32_key_block_smem(d: int) -> int:
     kc = F32_KEY_CHUNKS
     return 4 * (F32_TILE_Q * (d + 8) + 8 * kc * (2 * d + 8) + 4 * kc * (4 * d + 8)
                 + 16 * kc * d)
+
+
+def _bf16_key_block_smem(d: int) -> int:
+    """bf16_blocks_smem_bytes: the Q tile and the ring's stages of K and V,
+    in rows of d + 8 values."""
+    return 2 * (d + 8) * (16 * BF16_BLOCK_WARPS + 2 * BF16_STAGES * 16 * BF16_KEY_CHUNKS)
 
 
 def pick_route(dtype, S: int, dk: int, dv: int, aligned: bool = True) -> str:
@@ -98,8 +112,10 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
     bfloat16, else the float32 kernel that takes the sizes).
     f32_cuda_core: K (padded rows) and V where they fit (f32_smem_bytes in
     csrc/cross_modal_attn.cu), then a q row and S probabilities per warp.
-    bf16: the Q tile, K and V (S rounded up to 16), in rows padded by 8
-    values.  f32_tensor_core: at the kernel instance's sizes, max(d_k, d_v)
+    bf16: up to S = 128, the 64-row Q tile, K and V (S rounded up to 16),
+    in rows padded by 8 values; past it, whatever S, the 64-row Q tile and
+    the ring's stages of K and V (bf16_blocks_smem_bytes).
+    f32_tensor_core: at the kernel instance's sizes, max(d_k, d_v)
     rounded up to D = 32, 64 or 128; up to S = 128, S rounded up to 16, 32,
     64 or 128 rows, the 128-row Q tile in rows of D + 8 floats, then K and V
     split into tf32 hi and lo parts (K in rows of 2D + 8, V in pairs of rows
@@ -111,6 +127,8 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
         route = ("bf16" if dtype == torch.bfloat16 else "f32_tensor_core"
                  if tensor_core_f32_takes(S, dk, dv) else "f32_cuda_core")
     if route == "bf16":
+        if S > BF16_WHOLE_S:
+            return _bf16_key_block_smem(dk)
         return 2 * (dk + 8) * (TILE_Q + 2 * (-(-S // 16) * 16))
     if route == "f32_tensor_core":
         d = next(b for b in (32, 64, 128) if max(dk, dv) <= b)
@@ -125,20 +143,18 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
 
 def check_bf16_route(S: int, dk: int, dv: int, aligned: bool = True) -> None:
     """Raise unless the bfloat16 kernel takes these sizes and pointers."""
-    if not (dk == dv and dk % 16 == 0 and 16 <= dk <= MAX_D and S >= 1
-            and smem_bytes(S, dk, dv, route="bf16") <= SMEM_LIMIT):
+    if not (dk == dv and dk % 16 == 0 and 16 <= dk <= MAX_D and S >= 1):
         raise ValueError(
             f"cross_modal_attn: the bfloat16 kernel takes d_k = d_v, a multiple "
-            f"of 16 up to {MAX_D}, and S >= 1 whose K and V fit in shared memory "
-            f"beside the Q tile; got S={S}, d_k={dk}, d_v={dv}")
+            f"of 16 up to {MAX_D}, and any S >= 1; got S={S}, d_k={dk}, d_v={dv}")
     if not aligned:
         raise ValueError("cross_modal_attn: q, k and v must be aligned to "
                          "16 bytes for the bfloat16 kernel")
 
 
 def reset_launches() -> None:
-    global launches, f32_key_block_launches
-    launches = f32_key_block_launches = 0
+    global launches, f32_key_block_launches, bf16_key_block_launches
+    launches = f32_key_block_launches = bf16_key_block_launches = 0
     route_launches.update(dict.fromkeys(ROUTES, 0))
 
 
@@ -160,7 +176,7 @@ def _entry():
 def cross_modal_attn_cuda(q, k, v, num_heads: int):
     """Launch the kernel on CUDA tensors of one dtype (float32 or bfloat16),
     by the route :func:`pick_route` picks."""
-    global launches, f32_key_block_launches
+    global launches, f32_key_block_launches, bf16_key_block_launches
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"cross_modal_attn: expected CUDA tensors, got {device}")
@@ -185,21 +201,26 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
     dk, dv = Dq // num_heads, Dv // num_heads
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     route = pick_route(q.dtype, S, dk, dv, aligned)
-    key_blocks = route == "f32_tensor_core" and S > F32_WHOLE_S
+    code = ROUTES[route]
+    if route == "f32_tensor_core" and S > F32_WHOLE_S:
+        code = F32_KEY_BLOCKS
+    elif route == "bf16" and S > BF16_WHOLE_S:
+        code = BF16_KEY_BLOCKS
 
     fn = _entry()
     out = torch.empty((N, Lq, Dv), device=device, dtype=q.dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N,
-                 Lq, S, num_heads, dk, dv, F32_KEY_BLOCKS if key_blocks else ROUTES[route],
-                 stream)
+                 Lq, S, num_heads, dk, dv, code, stream)
     if err != 0:
         raise RuntimeError(f"cross_modal_attn: CUDA error {err} at launch ({route})")
     launches += 1
     route_launches[route] += 1
-    if key_blocks:
+    if code == F32_KEY_BLOCKS:
         f32_key_block_launches += 1
+    elif code == BF16_KEY_BLOCKS:
+        bf16_key_block_launches += 1
     return out
 
 

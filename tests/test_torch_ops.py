@@ -162,12 +162,17 @@ def test_attention_p_split_keeps_float32_probabilities(rng, S):
     assert (_p_split_attention(q, k, v, 4, keep_lo=False) - ref).abs().max().item() > 1e-4
 
 
-def _p_split_attention_blocks(q, k, v, heads, block=64):
-    """The bf16 kernel's arithmetic past S = 128 in plain torch: the keys in
-    blocks of ``block``, each block's logits of bf16 values in float32 and
-    in base 2; the running row max m rescales the row sum and the output by
-    exp2(m_old - m_new); the block's unnormalised p = exp2(s - m) split into
-    p_hi + p_lo against v; the output divided by the sum at the end."""
+def _p_split_attention_blocks(q, k, v, heads, block=16 * fused_attention.BF16_KEY_CHUNKS,
+                              slack=8.0):
+    """The bf16 key-block kernel's arithmetic (S > 128) in plain torch: the
+    keys in key blocks of ``block`` (the ring's 32), the last one partial;
+    per key block, its logits of bf16 values in float32 and their row max,
+    scaled by log2 e / √d_k; a row's reference max m moves to the block's
+    max only where that passes m by more than ``slack`` (always at the first
+    key block), and the row sum and the output are then rescaled by
+    exp2(m_old - m_new); p = exp2(logit·scale - m), at most 2^slack, split
+    into p_hi + p_lo, p_lo·v then p_hi·v added to the output and p to the
+    row sum; the output divided by the sum at the end."""
     N, Lq, D = q.shape
     S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
     qh = q.float().view(N, Lq, heads, dk).transpose(1, 2)
@@ -178,10 +183,11 @@ def _p_split_attention_blocks(q, k, v, heads, block=64):
     total = torch.zeros(N, heads, Lq, 1)
     out = torch.zeros(N, heads, Lq, dv)
     for s0 in range(0, S, block):
-        logits = (qh @ kh[:, :, s0:s0 + block].transpose(-1, -2)) * scale2
-        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        logits = qh @ kh[:, :, s0:s0 + block].transpose(-1, -2)
+        block_max = logits.amax(dim=-1, keepdim=True) * scale2
+        m_new = torch.where(block_max > m + slack, block_max, m)
         alpha = torch.exp2(m - m_new)
-        p = torch.exp2(logits - m_new)
+        p = torch.exp2(logits * scale2 - m_new)
         p_hi = p.to(torch.bfloat16).float()
         p_lo = (p - p_hi).to(torch.bfloat16).float()
         vb = vh[:, :, s0:s0 + block]
@@ -191,18 +197,46 @@ def _p_split_attention_blocks(q, k, v, heads, block=64):
     return (out / total).transpose(1, 2).reshape(N, Lq, heads * dv)
 
 
-@pytest.mark.parametrize("S", [129, 144, 300])
-def test_attention_key_blocks_keep_float32(rng, S):
-    """Past S = 128 (the 144 depth tokens of a 384 px frame), the bf16
-    kernel's key blocks with an online softmax stay within 1e-5 of the
-    float32 function of the same bf16 inputs (the plain version and JAX's
-    XLA attention), as the one-block arithmetic does at S <= 128."""
+@pytest.mark.parametrize("S,d", [
+    pytest.param(129, 64, id="129"), pytest.param(144, 64, id="144"),
+    pytest.param(300, 64, id="300"),
+    pytest.param(512, 128, id="512-d128"),  # past the parent kernel's shared memory
+    pytest.param(1000, 64, id="1000"),
+])
+def test_attention_key_blocks_keep_float32(rng, S, d):
+    """Past S = 128 (the 144 depth tokens of a 384 px frame, and S the
+    kernel that held a head's keys whole could not fit, such as 512 at d =
+    128), the bf16 kernel's key blocks with an online softmax stay within
+    1e-5 of the float32 function of the same bf16 inputs (the plain version
+    and JAX's XLA attention), as the one-block arithmetic does at S <= 128."""
+    assert 16 * fused_attention.BF16_KEY_CHUNKS == 32 and S > fused_attention.BF16_WHOLE_S
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
-               for a in _qkv(rng, 2, 24, S, 128, 128))
+               for a in _qkv(rng, 2, 24, S, 2 * d, 2 * d))
     ref = fused_attention.attention_plain(q.float(), k.float(), v.float(), 2)
     ours = _p_split_attention_blocks(q, k, v, 2)
     assert (ours - ref).abs().max().item() <= 1e-5
     _close(ours, jax_cm.mha_attention(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)), 2))
+
+
+@pytest.mark.parametrize("S,jump_at", [(144, 64), (300, 200)])
+def test_attention_key_blocks_rescale_when_the_max_jumps(rng, S, jump_at):
+    """Keys past ``jump_at`` scaled up so that their logits pass the running
+    max by far more than the slack of 2^8: the key blocks there move the
+    reference max and rescale the sum and the output.  The result holds the
+    bound of the split: p - p_hi - p_lo is at most 2^-18 p, so the output
+    is off the float32 function of the same bf16 inputs by at most 2^-18
+    max|v|, plus float32 rounding (here, of peaked rows, the lazy reference
+    leaves even the largest p inexact, where an eager max makes it 1)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(rng, 2, 24, S, 128, 128))
+    k[:, jump_at:] *= 8
+    ref = fused_attention.attention_plain(q.float(), k.float(), v.float(), 2)
+    qh = q.float().view(2, 24, 2, 64).transpose(1, 2)
+    kh = k.float().view(2, S, 2, 64).transpose(1, 2)
+    logits = (qh @ kh.transpose(-1, -2)) * (1.4426950408889634 / 8)
+    assert (logits[..., jump_at:].amax(-1) - logits[..., :jump_at].amax(-1) > 8).float().mean() > 0.9
+    ours = _p_split_attention_blocks(q, k, v, 2)
+    bound = 2.0 ** -18 * v.float().abs().max().item() + 1e-6
+    assert (ours - ref).abs().max().item() <= bound
 
 
 def _tf32(x):
@@ -352,7 +386,9 @@ def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
 @pytest.mark.parametrize("dtype,S,d,route", [
     (torch.bfloat16, 144, 64, "bf16"),  # the depth tokens of a 384 px frame
     (torch.bfloat16, 200, 64, "bf16"), (torch.bfloat16, 384, 128, "bf16"),
-    (torch.bfloat16, 385, 128, None), (torch.bfloat16, 16, 256, None),
+    (torch.bfloat16, 385, 128, "bf16"), (torch.bfloat16, 16, 256, None),
+    (torch.bfloat16, 512, 128, "bf16"), (torch.bfloat16, 100_000, 128, "bf16"),
+    (torch.bfloat16, 385, (128, 64), None),  # d_k != d_v
     (torch.float32, 420, 64, "f32_tensor_core"),  # key blocks
     (torch.float32, 500, 64, "f32_tensor_core"),
     (torch.float32, 7200, 64, "f32_tensor_core"), (torch.float32, 7201, 64, "f32_tensor_core"),
@@ -363,19 +399,20 @@ def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
     (torch.float32, 7252, 12, "f32_cuda_core"), (torch.float32, 7253, 12, None),
 ])
 def test_attention_route_past_128_keys(dtype, S, d, route):
-    """Past S = 128 the bf16 kernel and the float32 tensor-core route run
-    their keys in blocks; the bf16 kernel takes every S up to its
-    shared-memory limit, the float32 tensor-core route every S.  The float32
-    CUDA-core kernel, for d off a multiple of 8, reads K and V in place
-    where they do not fit in shared memory and takes every S up to d + S =
-    7264; past those limits the call raises (``None``) before any launch.
-    The HCM's shapes take the tensor-core kernels."""
+    """Past S = 128 the bf16 kernel and the float32 tensor-core route stream
+    their keys in key blocks, and both take every S.  The float32 CUDA-core
+    kernel, for d off a multiple of 8, reads K and V in place where they do
+    not fit in shared memory and takes every S up to d + S = 7264; past that
+    limit, and for bf16 with d_k != d_v (``d`` a pair), the call raises
+    (``None``) before any launch.  The HCM's shapes take the tensor-core
+    kernels."""
+    dk, dv = d if isinstance(d, tuple) else (d, d)
     if route is None:
         with pytest.raises(ValueError, match="cross_modal_attn"):
-            fused_attention.pick_route(dtype, S, d, d)
+            fused_attention.pick_route(dtype, S, dk, dv)
         return
-    assert fused_attention.pick_route(dtype, S, d, d) == route
-    assert fused_attention.smem_bytes(S, d, d, route=route) <= fused_attention.SMEM_LIMIT
+    assert fused_attention.pick_route(dtype, S, dk, dv) == route
+    assert fused_attention.smem_bytes(S, dk, dv, route=route) <= fused_attention.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("H,n_sm,ok", [
@@ -434,6 +471,32 @@ def test_f32_tensor_core_smem_fits():
     assert fused_attention.smem_bytes(200, 128, 128) == 169_472
 
 
+def test_bf16_key_block_smem_fits():
+    """Past S = 128 the bf16 key blocks need the same shared memory at every
+    S (bf16_blocks_smem_bytes in csrc/cross_modal_attn.cu, its formula and
+    constants read from the source): the 64-row Q tile and the ring's 3
+    stages of K and V of 32 keys, in rows of d + 8 values, within one
+    block's limit at every head size the route takes."""
+    src = (_build.CSRC / "cross_modal_attn.cu").read_text()
+    consts = {name: int(value) for name, value in re.findall(
+        r"constexpr int (kBf16BlockWarps|kBf16KeyChunks|kBf16Stages) = (\d+);", src)}
+    assert consts == {"kBf16BlockWarps": fused_attention.BF16_BLOCK_WARPS,
+                      "kBf16KeyChunks": fused_attention.BF16_KEY_CHUNKS,
+                      "kBf16Stages": fused_attention.BF16_STAGES} == {
+        "kBf16BlockWarps": 4, "kBf16KeyChunks": 2, "kBf16Stages": 3}
+    body = re.search(r"size_t bf16_blocks_smem_bytes\(int D\) \{(.*?)\n\}", src, re.S)
+    assert " ".join(body.group(1).split()) == (
+        "return sizeof(__nv_bfloat16) * (D + kPad) * "
+        "(16 * kBf16BlockWarps + 2 * kBf16Stages * 16 * kBf16KeyChunks);")
+    for d in range(16, 129, 16):
+        want = 2 * (d + 8) * (16 * 4 + 2 * 3 * 16 * 2)
+        sizes = {fused_attention.smem_bytes(S, d, d, torch.bfloat16)
+                 for S in (129, 144, 200, 385, 512, 1000, 100_000)}
+        assert sizes == {want} and want <= fused_attention.SMEM_LIMIT
+    assert fused_attention.smem_bytes(144, 64, 64, torch.bfloat16) == 36_864
+    assert fused_attention.smem_bytes(200, 128, 128, torch.bfloat16) == 69_632
+
+
 def test_attention_route_codes_match_the_c_entry():
     """The wrapper's route codes are the C entry's, F32_KEY_BLOCKS is the
     code of the float32 key-block kernel, and the C entry's whole-key
@@ -443,13 +506,30 @@ def test_attention_route_codes_match_the_c_entry():
     entry = src[src.index('extern "C" int cross_modal_attn('):]
     assert fused_attention.ROUTES == {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2}
     assert "if (route == 0) return launch_f32(" in entry
-    assert "if (route == 1 && dk == dv && S >= 1)" in entry
+    assert f"if ((route == 1 || route == {fused_attention.BF16_KEY_BLOCKS}) && dk == dv" in entry
     blocks = fused_attention.F32_KEY_BLOCKS
     assert f"if ((route == 2 || route == {blocks}) && dk % 8 == 0" in entry
     assert f"dk, dv, route == {blocks}, s);" in entry
     whole = re.findall(r"if \(S <= (\d+)\) return launch_f32tc_tiles<D, (\d+)>", src)
     assert [(int(S), int(kc)) for S, kc in whole] == [(16, 2), (32, 4), (64, 8), (128, 16)]
     assert int(whole[-1][0]) == fused_attention.F32_WHOLE_S
+
+
+def test_bf16_route_codes_match_the_c_entry():
+    """BF16_KEY_BLOCKS is the C entry's code of the bf16 key-block kernel,
+    which the entry hands to launch_bf16_any as key_blocks, and the entry's
+    whole-key bf16 instances end at BF16_WHOLE_S, past which the wrapper
+    sends the key blocks."""
+    src = (_build.CSRC / "cross_modal_attn.cu").read_text()
+    entry = src[src.index('extern "C" int cross_modal_attn('):]
+    code = fused_attention.BF16_KEY_BLOCKS
+    assert code not in fused_attention.ROUTES.values()
+    assert code != fused_attention.F32_KEY_BLOCKS
+    assert f"if ((route == 1 || route == {code}) && dk == dv && S >= 1)" in entry
+    assert f"launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == {code}, s);" in entry
+    whole = re.findall(r"if \(S <= (\d+)\) return launch_bf16_tiles<D, (\d+)>", src)
+    assert [(int(S), int(kc)) for S, kc in whole] == [(16, 1), (32, 2), (64, 4), (128, 8)]
+    assert int(whole[-1][0]) == fused_attention.BF16_WHOLE_S
 
 
 def test_f32_attention_on_cpu_launches_nothing(rng):
@@ -525,7 +605,9 @@ def test_bf16_attention_route(rng):
 @pytest.mark.parametrize("S,dk,dv,ok", [
     (16, 64, 64, True), (64, 64, 64, True), (1, 16, 16, True), (128, 128, 128, True),
     (33, 32, 32, True), (129, 64, 64, True), (16, 64, 32, False), (16, 144, 144, False),
-    (16, 8, 8, False), (384, 128, 128, True), (385, 128, 128, False),
+    (16, 8, 8, False), (384, 128, 128, True), (385, 128, 128, True),
+    (385, 128, 64, False),  # d_k != d_v
+    (1000, 64, 64, True), (200, 128, 128, True), (200, 120, 120, False),
 ])
 def test_bf16_route_range(S, dk, dv, ok):
     if ok:
@@ -734,14 +816,16 @@ def test_lstm_entry_set_up_once(monkeypatch):
 
 @pytest.mark.parametrize("S,d,fits", [(16, 64, True), (64, 64, True), (512, 128, False)])
 def test_attention_smem_bound(S, d, fits):
-    """Both routes' shared memory a block: float32 K and V where they fit
-    (else read in place), a q row and S probabilities a warp; bfloat16 the
-    64-row Q tile, K and V with S rounded up to 16, in rows of d + 8
-    values.  ``fits``: whether K and V fit."""
+    """Both routes' shared memory a block: float32 on the CUDA cores K and V
+    where they fit (else read in place), a q row and S probabilities a
+    warp; bfloat16 up to S = 128 the 64-row Q tile, K and V with S rounded
+    up to 16, past it the 64-row Q tile and the ring's 3 stages of 32 keys,
+    in rows of d + 8 values, within the limit at every S.  ``fits``:
+    whether float32 K and V fit."""
     staged = 4 * (S * (d + 1) + S * d + 8 * (d + S))
     assert fused_attention.smem_bytes(S, d, d, route="f32_cuda_core") == (
         staged if fits else 4 * 8 * (d + S))
-    assert (fused_attention.smem_bytes(S, d, d, torch.bfloat16)
-            <= fused_attention.SMEM_LIMIT) == fits
-    s_pad = -(-S // 16) * 16
-    assert fused_attention.smem_bytes(S, d, d, torch.bfloat16) == 2 * (d + 8) * (64 + 2 * s_pad)
+    bf16 = fused_attention.smem_bytes(S, d, d, torch.bfloat16)
+    assert bf16 <= fused_attention.SMEM_LIMIT
+    rows = 64 + 2 * (-(-S // 16) * 16) if S <= 128 else 64 + 2 * 3 * 32
+    assert bf16 == 2 * (d + 8) * rows

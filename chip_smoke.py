@@ -26,11 +26,13 @@ exit code and no result line:
    its launch alone against the plain backward, the replay and cuDNN's
    backward), and the cross-modal attention
    kernel in its three routes: float32 on the tensor cores (3xTF32, the
-   route of every float32 call with d_k and d_v multiples of 8 up to 128,
-   in key blocks past S = 128), float32 on the CUDA cores (the route of
-   float32 shapes the first does not take) and bfloat16 (the serving
+   route of every float32 call with d_k and d_v up to 256, zero-filled to
+   the instance's D, in key blocks past S = 128 and at D = 256, copying one
+   float at a time for unaligned pointers or d off a multiple of 4),
+   float32 on the CUDA cores (d above 256) and bfloat16 (the serving
    dtype), each held at the same shapes and at ragged ones, where the route
-   each shape takes (and whether it took the key blocks) is checked too;
+   each shape takes (whether it took the key blocks, and the copy width)
+   is checked too;
    at the window's S = 16 and S = 64 the float32 key-block kernel is also
    forced, held and timed beside the whole-key kernel.  Prints the
    largest error against the stated tolerance, and every rep's time of the
@@ -43,14 +45,17 @@ exit code and no result line:
    past the kernels' former ranges (bfloat16 attention in key blocks at
    S=144, the depth tokens of a 384 px frame, at S=300 and 512 with d=128
    and at S=1000; float32 attention in key blocks at S=144 and at S=200,
-   d=128, self-attention's, both at the window's N, and at S=500; the
-   float32 CUDA-core kernel at S=500, d=60, K and V read in place; the LSTM
+   d=128, self-attention's, both at the window's N, and at S=500; float32
+   on the tensor cores at the shapes PR 1's CUDA-core kernel used to take:
+   S=500 and S=64 at d=60 and d=61, pointers one float off 16 bytes, d=256
+   over 2 heads; the CUDA-core kernel at d=260; the LSTM
    and its backward at H=556, a ragged grid) must launch their kernel once
-   (past S = 128 on the tensor cores, one key-block launch) and match the
-   plain version; S=144 and S=200, d=128 are timed at the window's size in
-   both dtypes against the plain version and SDPA (float32 also against the
-   CUDA-core kernel forced), and the CUDA-core kernel at its own S=500,
-   d=60; shapes no kernel takes (an
+   (by the route, key blocks and copy width the shape asks for) and match
+   the plain version; S=144 and S=200, d=128 are timed at the window's size
+   in both dtypes against the plain version and SDPA (float32 also against
+   the CUDA-core kernel forced), as are float32 S=500, d=60, S=64, d=60 and
+   S=200, d=256, h=2, and the CUDA-core kernel at d=260; shapes no kernel
+   takes (an
    unaligned bfloat16 call, the LSTM and its backward at H=1028, the
    backward's own predicate) must raise before any launch.
 4. Serving path at full published width (BERT-base, TV-ResNet50 at 224 px,
@@ -100,8 +105,8 @@ exit code and no result line:
    epochs, the validation, checkpoint save and load times and size, peak
    memory.  With --profile, run 2 is traced.
    After phases 4-6: the key-block kernels of the attention (float32 on
-   the tensor cores and bf16, S > 128) must have launched on none of the
-   three paths.
+   the tensor cores and bf16) and the float32 one-float copies must have
+   launched on none of the three paths.
 7. One JSON line {"kernels": [...]} (``launches``: the serving path's,
    but the LSTM backward's, which the serving path never runs, is the
    train path's; ``train_launches``: the train path's,
@@ -548,8 +553,9 @@ def check_attention(gen, device):
 
     def check(tag, q, k, v, h, tol, expected):
         """One launch, which must take route ``expected`` (on the tensor
-        cores past S = 128, that route's key blocks), held to the plain
-        version."""
+        cores past S = 128, and in float32 past d = 128, that route's key
+        blocks; in float32 the copy width the sizes and pointers ask for),
+        held to the plain version."""
         before = dict(fused_attention.route_launches)
         blocks_before = key_block_launches()
         got = fused_attention.cross_modal_attn_cuda(q, k, v, h)
@@ -558,12 +564,14 @@ def check_attention(gen, device):
         took = [r for r, count in fused_attention.route_launches.items() if count != before[r]]
         err = (got.float() - ref.float()).abs().max().item()
         blocks = [a - b for a, b in zip(key_block_launches(), blocks_before)]
-        print(f"  {tag} [{','.join(took)}{', key blocks' if any(blocks) else ''}]: "
+        print(f"  {tag} [{','.join(took)}{', key blocks' if any(blocks[:2]) else ''}"
+              f"{', narrow copies' if blocks[2] else ''}]: "
               f"max_abs_err {err:.3e} (tolerance {tol})")
         if took != [expected]:
             fail(f"cross_modal_attn launched {took} at {tag}, expected {expected}")
-        if blocks != expected_key_blocks(expected, k.shape[1]):
-            fail(f"cross_modal_attn launched {blocks} (float32, bf16) key-block kernels at {tag}")
+        if blocks != expected_key_blocks(expected, q, k, v, h):
+            fail(f"cross_modal_attn launched {blocks} (float32 key-block, bf16 key-block, "
+                 f"float32 narrow) kernels at {tag}")
         if not err <= tol:
             fail(f"cross_modal_attn ({expected}) disagrees with its plain version at {tag}")
         worst[expected] = max(worst[expected], err)
@@ -624,8 +632,11 @@ def check_attention(gen, device):
     # (whose tiles need more than 48 KB of shared memory), other head sizes
     # (d_v != d_k in float32 only), both dtypes past S = 128 in key blocks
     # (one key past the whole instances, a partial last key block, a
-    # partial last query tile; in float32 d_v != d_k), and float32 shapes
-    # outside the tensor-core route's range, which the CUDA-core kernel takes
+    # partial last query tile; in float32 d_v != d_k), float32 head sizes
+    # zero-filled to the instance's D (12, 20 and 60 by 16-byte copies; 1,
+    # 61, (61, 33) and (125, 127), K and V unsplit at D = 128, one float a
+    # copy; 200, (60, 136) and (256, 1) at D = 256, in key blocks at every
+    # S), and d = 260, which only the CUDA-core kernel takes
     ragged = [((3, 13, 5, 2, 8, 16), f32, "f32_tensor_core"),
               ((2, 40, 33, 3, 32, 32), f32, "f32_tensor_core"),
               ((4, 65, 1, 4, 64, 64), f32, "f32_tensor_core"),
@@ -635,8 +646,17 @@ def check_attention(gen, device):
               ((2, 20, 200, 2, 16, 16), f32, "f32_tensor_core"),
               ((2, 50, 129, 2, 64, 64), f32, "f32_tensor_core"),
               ((3, 140, 300, 2, 96, 40), f32, "f32_tensor_core"),
-              ((2, 40, 16, 2, 12, 12), f32, "f32_cuda_core"),
-              ((2, 40, 200, 2, 20, 20), f32, "f32_cuda_core"),
+              ((2, 40, 16, 2, 12, 12), f32, "f32_tensor_core"),
+              ((2, 40, 200, 2, 20, 20), f32, "f32_tensor_core"),
+              ((3, 70, 64, 2, 60, 60), f32, "f32_tensor_core"),
+              ((2, 40, 16, 3, 1, 1), f32, "f32_tensor_core"),
+              ((3, 70, 40, 2, 61, 61), f32, "f32_tensor_core"),
+              ((2, 130, 129, 2, 61, 33), f32, "f32_tensor_core"),
+              ((2, 40, 16, 2, 200, 200), f32, "f32_tensor_core"),
+              ((2, 30, 129, 2, 60, 136), f32, "f32_tensor_core"),
+              ((2, 130, 100, 2, 125, 127), f32, "f32_tensor_core"),
+              ((1, 1, 1, 2, 256, 1), f32, "f32_tensor_core"),
+              ((2, 40, 16, 1, 260, 260), f32, "f32_cuda_core"),
               ((3, 13, 5, 2, 16, 16), bf16, "bf16"),
               ((2, 40, 33, 3, 32, 32), bf16, "bf16"),
               ((4, 65, 1, 4, 48, 48), bf16, "bf16"),
@@ -673,18 +693,21 @@ def check_attention(gen, device):
     }
 
 
-def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what):
+def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what, offset=0):
     """One attention call at these sizes timed with its inputs rotated out
     of L2: the kernel (by the route the sizes take; on the float32 tensor
     cores also the CUDA-core kernel forced), the plain version and SDPA on
-    head views; and its bound.  Returns the JSON fields ``{prefix}_*``."""
+    head views; and its bound.  ``offset``: q, k and v start that many
+    elements into buffers of their own (SDPA gets aligned copies).  Returns
+    the JSON fields ``{prefix}_*``."""
     from robo_vln_tpu_torch.ops import fused_attention
 
-    sets = [[torch.randn(N, L, heads * d, generator=gen).to(device, dtype) for L in (Lq, S, S)]
-            for _ in range(L2_ROTATION)]
+    sets = [[torch.randn(offset + N * L * heads * d, generator=gen).to(device, dtype)[offset:]
+             .view(N, L, heads * d) for L in (Lq, S, S)] for _ in range(L2_ROTATION)]
     note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
-    tag = f"N={N} Lq={Lq} S={S} h={heads} d={d} {str(dtype)[6:]}"
-    route = fused_attention.pick_route(dtype, S, d, d)
+    tag = (f"N={N} Lq={Lq} S={S} h={heads} d={d} {str(dtype)[6:]}"
+           f"{', pointers one float off 16 bytes' if offset else ''}")
+    route = fused_attention.pick_route(dtype, S, d, d, offset == 0)
 
     def timed(label, fn, arg_sets=sets):
         return report_times(f"{tag} {label} ({note})", time_ms(rotated(fn, arg_sets)))
@@ -696,9 +719,14 @@ def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what):
             fields[f"{prefix}_cuda_core_ms"] = timed("CUDA-core kernel", kernel)
     fields[f"{prefix}_plain_ms"] = timed("plain", lambda *t: (
         fused_attention.attention_plain(*t, heads)))
+    # SDPA on views one float off 16 bytes fails with a misaligned address
+    # on the card, so past an offset it takes aligned copies
     fields[f"{prefix}_library_ms"] = timed(
-        "library scaled_dot_product_attention", torch.nn.functional.scaled_dot_product_attention,
-        [[t.view(N, t.shape[1], heads, d).transpose(1, 2) for t in ts] for ts in sets])
+        "library scaled_dot_product_attention"
+        f"{' (on aligned copies)' if offset else ''}",
+        torch.nn.functional.scaled_dot_product_attention,
+        [[(t.clone() if offset else t).view(N, t.shape[1], heads, d).transpose(1, 2) for t in ts]
+         for ts in sets])
     if route == "bf16":
         by_bytes, by_ops = attn_bound_ms(N, Lq, S, heads, d, 2, BF16_TC_FLOP_PER_S)
         print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
@@ -762,37 +790,53 @@ def check_wider_shapes(gen, device):
         if getattr(module, counter) != before:
             fail(f"{tag} launched a kernel")
 
-    def qkv(n, lq, S, h, d, dtype):
-        return [torch.randn(n, L, h * d, generator=gen).to(device, dtype)
-                for L in (lq, S, S)]
+    def qkv(n, lq, S, h, d, dtype, offset=0):
+        """q, k, v, each ``offset`` elements into a buffer of its own."""
+        return [torch.randn(offset + n * L * h * d, generator=gen).to(device, dtype)[offset:]
+                .view(n, L, h * d) for L in (lq, S, S)]
 
     # both dtypes past S = 128 in key blocks: bf16 at the depth attention of
     # a 384 px frame, at S = 300 and 512 with d = 128 (past the shared
     # memory of a kernel that holds a head's keys whole) and at S = 1000;
     # float32 at (a) that depth attention and (b) self-attention over 200
     # tokens at d = 128, both at the window's N (their errors go into the
-    # JSON line under ``key``), then a long S; and the CUDA-core kernel at
-    # d = 60, K and V in place
+    # JSON line under ``key``), then a long S.  Float32 shapes that PR 1's
+    # CUDA-core kernel took before the tensor-core kernels zero-filled the
+    # head dimension and copied one float at a time: d = 60 (16-byte
+    # copies, zero-filled to 64), d = 61 (one float a copy) with the keys
+    # whole and in key blocks, q, k and v taken from buffers one float off
+    # a 16-byte boundary, d = 256 over 2 heads (D = 256, in key blocks at
+    # every S); and d = 260, which PR 1's kernel still takes
+    tc = "f32_tensor_core"
     errors = {}
-    for n, S, dtype, d, tol, route, key in (
-            (8, 144, bf16, 64, ATTN_BF16_TOL, "bf16", None),
-            (8, 300, bf16, 128, ATTN_BF16_TOL, "bf16", None),
-            (8, 512, bf16, 128, ATTN_BF16_TOL, "bf16", "bf16_s512_d128"),
-            (8, 1000, bf16, 64, ATTN_BF16_TOL, "bf16", "bf16_s1000"),
-            (200, 144, f32, 64, ATTN_TOL, "f32_tensor_core", "f32_s144"),
-            (200, 200, f32, 128, ATTN_TOL, "f32_tensor_core", "f32_s200_d128"),
-            (8, 500, f32, 64, ATTN_TOL, "f32_tensor_core", None),
-            (8, 500, f32, 60, ATTN_TOL, "f32_cuda_core", None)):
-        q, k, v = qkv(n, 200, S, 4, d, dtype)
+    for n, S, h, dtype, d, offset, tol, route, key in (
+            (8, 144, 4, bf16, 64, 0, ATTN_BF16_TOL, "bf16", None),
+            (8, 300, 4, bf16, 128, 0, ATTN_BF16_TOL, "bf16", None),
+            (8, 512, 4, bf16, 128, 0, ATTN_BF16_TOL, "bf16", "bf16_s512_d128"),
+            (8, 1000, 4, bf16, 64, 0, ATTN_BF16_TOL, "bf16", "bf16_s1000"),
+            (200, 144, 4, f32, 64, 0, ATTN_TOL, tc, "f32_s144"),
+            (200, 200, 4, f32, 128, 0, ATTN_TOL, tc, "f32_s200_d128"),
+            (8, 500, 4, f32, 64, 0, ATTN_TOL, tc, None),
+            (8, 500, 4, f32, 60, 0, ATTN_TOL, tc, "f32_s500_d60"),
+            (8, 64, 4, f32, 61, 0, ATTN_TOL, tc, "f32_s64_d61"),
+            (8, 500, 4, f32, 61, 0, ATTN_TOL, tc, "f32_s500_d61"),
+            (8, 64, 4, f32, 64, 1, ATTN_TOL, tc, "f32_unaligned_s64"),
+            (8, 300, 4, f32, 64, 1, ATTN_TOL, tc, "f32_unaligned_s300"),
+            (200, 200, 2, f32, 256, 0, ATTN_TOL, tc, "f32_s200_d256_h2"),
+            (8, 16, 2, f32, 256, 1, ATTN_TOL, tc, None),
+            (8, 200, 2, f32, 260, 0, ATTN_TOL, "f32_cuda_core", "f32_cuda_core_d260")):
+        q, k, v = qkv(n, 200, S, h, d, dtype, offset)
         blocks = key_block_launches()
-        tag = f"cross_modal_attn N={n} Lq=200 S={S} h=4 d={d} {str(dtype)[6:]}"
-        err = held(tag, fused_attention, lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4),
-                   lambda: fused_attention.attention_plain(q, k, v, 4), tol, route)
+        tag = (f"cross_modal_attn N={n} Lq=200 S={S} h={h} d={d} {str(dtype)[6:]}"
+               f"{', pointers one float off 16 bytes' if offset else ''}")
+        err = held(tag, fused_attention, lambda: fused_attention.cross_modal_attn_cuda(q, k, v, h),
+                   lambda: fused_attention.attention_plain(q, k, v, h), tol, route)
         if key:
             errors[f"{key}_max_abs_err"] = err
         blocks = [a - b for a, b in zip(key_block_launches(), blocks)]
-        if blocks != expected_key_blocks(route, S):
-            fail(f"{tag}: {blocks} (float32, bf16) key-block launches")
+        if blocks != expected_key_blocks(route, q, k, v, h):
+            fail(f"{tag}: {blocks} (float32 key-block, bf16 key-block, float32 narrow) "
+                 "launches")
     for T, B in ((5, 4), (50, 4)):
         args = lstm_inputs(gen, T, B, 556, device)
         held(f"lstm_seq T={T} B={B} H=556", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args),
@@ -818,7 +862,10 @@ def check_wider_shapes(gen, device):
 
     # at the window's N: the depth attention of a 384 px frame (S=144) and
     # self-attention over 200 tokens at d = 128, both in key blocks in both
-    # dtypes; the float32 CUDA-core kernel at a shape it takes
+    # dtypes; float32 at d = 60 (PR 1's kernel's own shape, S=500, and the
+    # window's depth S=64 zero-filled to D = 64, there also from unaligned
+    # pointers) and at d = 256 over 2 heads, each against PR 1's kernel
+    # forced; PR 1's kernel at d = 260
     return {**errors,
             **time_attention(gen, device, "f32_s144", 200, 200, 144, 4, 64, f32,
                              "the float32 depth attention of a 384 px frame, key blocks"),
@@ -828,25 +875,42 @@ def check_wider_shapes(gen, device):
                              "the depth attention of a 384 px frame, key blocks"),
             **time_attention(gen, device, "bf16_s200_d128", 200, 200, 200, 4, 128, bf16,
                              "self-attention over 200 tokens, d_model 512, key blocks"),
-            **time_attention(gen, device, "f32_cuda_core_s500_d60", 200, 200, 500, 4, 60, f32,
-                             "the float32 CUDA-core kernel at d = 60, K and V read in place")}
+            **time_attention(gen, device, "f32_s500_d60", 200, 200, 500, 4, 60, f32,
+                             "d = 60 zero-filled to 64, key blocks; PR 1's kernel took it"),
+            **time_attention(gen, device, "f32_s64_d60", 200, 200, 64, 4, 60, f32,
+                             "the window's depth S at d = 60 zero-filled to 64, keys whole"),
+            **time_attention(gen, device, "f32_unaligned_s64_d60", 200, 200, 64, 4, 60, f32,
+                             "the same, pointers one float off 16 bytes: one float a copy",
+                             offset=1),
+            **time_attention(gen, device, "f32_s200_d256_h2", 200, 200, 200, 2, 256, f32,
+                             "self-attention over 200 tokens, d_model 512 over 2 heads, D = 256"),
+            **time_attention(gen, device, "f32_cuda_core_d260", 200, 200, 200, 2, 260, f32,
+                             "PR 1's CUDA-core kernel at d = 260, the head sizes it keeps")}
 
 
 def key_block_launches():
-    """(float32, bf16) key-block launches of the attention kernel so far."""
+    """(float32 key-block, bf16 key-block, float32 narrow-copy) launches
+    of the attention kernel so far."""
     from robo_vln_tpu_torch.ops import fused_attention
 
-    return [fused_attention.f32_key_block_launches, fused_attention.bf16_key_block_launches]
+    return [fused_attention.f32_key_block_launches, fused_attention.bf16_key_block_launches,
+            fused_attention.f32_narrow_launches]
 
 
-def expected_key_blocks(route, S):
-    """The (float32, bf16) key-block launches one call by ``route`` at S
-    keys makes: its tensor-core route's key blocks past that route's whole
-    keys."""
+def expected_key_blocks(route, q, k, v, heads):
+    """The (float32 key-block, bf16 key-block, float32 narrow-copy)
+    launches one call by ``route`` on q, k, v makes: its tensor-core
+    route's key blocks past that route's whole keys (in float32 also past
+    D = 128), and in float32 on the tensor cores one-float copies where the
+    pointers or head sizes ask for them."""
     from robo_vln_tpu_torch.ops import fused_attention
 
-    return [int(route == "f32_tensor_core" and S > fused_attention.F32_WHOLE_S),
-            int(route == "bf16" and S > fused_attention.BF16_WHOLE_S)]
+    S, dk, dv = k.shape[1], q.shape[-1] // heads, v.shape[-1] // heads
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    tc = route == "f32_tensor_core"
+    return [int(tc and fused_attention.f32_key_blocks(S, dk, dv)),
+            int(route == "bf16" and S > fused_attention.BF16_WHOLE_S),
+            int(tc and fused_attention.f32_narrow_copies(dk, dv, aligned))]
 
 
 @contextlib.contextmanager
@@ -1575,8 +1639,9 @@ def main():
     key_blocks = {}
 
     def read_key_blocks(suffix):
-        for dtype, count in zip(("f32", "bf16"), key_block_launches()):
-            key_blocks[f"{dtype}_key_block{suffix}_launches"] = count
+        for name, count in zip(("f32_key_block", "bf16_key_block", "f32_narrow"),
+                               key_block_launches()):
+            key_blocks[f"{name}{suffix}_launches"] = count
 
     launches = main_path(device, profile)
     read_key_blocks("")
@@ -1584,10 +1649,11 @@ def main():
     read_key_blocks("_train")
     trainer_launches = trainer_path(device, bare_step_ms, profile)
     read_key_blocks("_trainer")
-    print(f"key-block launches of the attention kernel (S > 128, float32 and bf16) on the "
-          f"serving, train and trainer paths: {key_blocks}")
+    print(f"key-block launches of the attention kernel (S > 128 or d > 128 in float32, S > "
+          f"128 in bf16) and float32 one-float-copy launches on the serving, train and "
+          f"trainer paths: {key_blocks}")
     if any(key_blocks.values()):
-        fail("an HCM path launched a key-block attention kernel")
+        fail("an HCM path launched a key-block or one-float-copy attention kernel")
     kernels[2].update(key_blocks)
     for k in kernels:
         k["launches"] = launches[k["name"]]

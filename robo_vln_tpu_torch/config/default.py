@@ -9,13 +9,18 @@ switches, the ``DAGGER`` loop, the ``MODEL.*`` stanzas of the two policies,
 the pretrained-file keys and the ``EVAL.*`` keys of
 ``configs/hierarchical_cma.yaml``.  A key no port code reads yet names the
 ROADMAP item (§A) that will read it.  Keys that only the port reads are
-marked "port-only".  ``TPU.DONATE`` is left out: eager PyTorch updates
-parameters in place, so there is no buffer to donate.
+marked "port-only".  The JAX package's other keys are not in this tree:
+``jax_only.py`` lists them with their JAX defaults, and ``get_config``
+refuses one set to another value where the port would drop it (such as
+``TPU.PALLAS_ATTENTION``), naming the ROADMAP item that would port it, and
+takes any value of those no value of which matters (such as ``TPU.DONATE``:
+eager PyTorch updates parameters in place, so there is no buffer to donate).
 """
 
 import os
 from typing import List, Optional, Union
 
+from .jax_only import check_jax_only_keys
 from .task import get_task_config
 from .tree import ConfigTree
 
@@ -219,7 +224,9 @@ def get_config(
     """defaults <- yaml(s) <- opts, frozen; TASK_CONFIG is built from
     BASE_TASK_CONFIG_PATH as the JAX package's get_config builds it.
     MODEL.DEPTH_ENCODER.input_size follows the task's depth sensor; set to
-    another size, it raises."""
+    another size, it raises.  A key of the JAX package that the port does
+    not read, set to another value than its JAX default, raises
+    NotImplementedError naming its ROADMAP item (jax_only.py)."""
     config = _C.clone()
     if isinstance(config_paths, str):
         config_paths = [config_paths]
@@ -235,5 +242,6 @@ def get_config(
     if depth.input_size == _C.MODEL.DEPTH_ENCODER.input_size:
         depth.input_size = config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH
     depth_input_size(config)
+    check_jax_only_keys(config)
     config.freeze()
     return config

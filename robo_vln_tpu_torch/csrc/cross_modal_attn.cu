@@ -61,10 +61,16 @@
 // products, the split of p and the float32 softmax in base 2 are otherwise
 // the whole-key kernel's; the output is divided by the sum at the end.
 //
-// float32 on the tensor cores (3xTF32), for d_k and d_v multiples of 8 up
-// to 128 (d_k != d_v allowed), any S ≥ 1 and pointers aligned to 16 bytes;
-// one kernel for S ≤ 128, which holds the keys whole, and one that streams
-// them in key blocks past S = 128 (below).  What bounds the first: bytes,
+// float32 on the tensor cores (3xTF32), for any d_k and d_v from 1 to 256
+// (d_k != d_v allowed), any S ≥ 1 and any float32 pointer; one kernel for
+// S ≤ 128 with d_k and d_v up to 128, which holds the keys whole, and one
+// that streams them in key blocks past S = 128, and at every S for d above
+// 128 (below).  The head dimension is zero-filled in shared memory up to
+// the instance's D (32, 64, 128 or 256), as the tiles are past S.  Copies
+// are 16 bytes where q, k and v are aligned to 16 bytes and d_k and d_v
+// are multiples of 4 (every HCM call), else one float each (4-byte
+// cp.async, zero-filled alike): the width is a template parameter of both
+// kernels, picked at launch.  What bounds the first: bytes,
 // twice the bf16 route's (0.0587 ms for the
 // window's two calls at 3.35 TB/s), while on the CUDA cores its 3.3 GFLOP
 // would take almost as long (0.049 ms at 67 TFLOP/s) before any softmax or
@@ -124,10 +130,16 @@
 // 64), the key blocks took 1.43× its time at S = 16 (half the key block
 // zeros, the copy, barriers and rescale) and 0.985× at S = 64, so 1.13×
 // for the window's two calls (chip_smoke.py phase 3b times both).
+// At D = 256 the 128-row Q tile alone takes 135,168 bytes, so no whole-key
+// instance fits and the key blocks take every S: key blocks of 8 keys (KC
+// = 1), one split tile and one raw buffer, 184,704 bytes, one block of 8
+// warps an SM, 128 output accumulators a thread.  (64-row tiles of 4
+// warps fit 16-key blocks in 166,656 bytes: one block, 4 warps, an SM;
+// slicing d_v across the grid keeps the 135,168-byte Q tile and computes
+// the logits once a slice.)
 //
-// float32 on the CUDA cores, for every other float32 shape (d not a
-// multiple of 8 or above 128, or a pointer not aligned to 16 bytes; the
-// wrapper picks the kernel before the launch).  Grid (example,
+// float32 on the CUDA cores, for d_k or d_v above 256 only (the wrapper
+// picks the kernel before the launch).  Grid (example,
 // head, tile of 32 queries), 8 warps a block.  The block stages K and V of
 // its (example, head) in shared memory as float32 (K's rows padded by one
 // float so the lanes of a warp, one key each, hit 32 different banks); where
@@ -307,6 +319,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// One float (4 bytes, .ca: .cg takes only 16), zero where not valid
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 4 : 0));
 }
 
 // ldmatrix at a shared-memory address
@@ -951,10 +970,49 @@ __device__ __forceinline__ void split_key_pair4(float* row, int D, float4 x0, fl
   *reinterpret_cast<uint4*>(row + 2 * D + 4) = make_uint4(l[4], l[5], l[6], l[7]);
 }
 
+// The copy width of the float32 tensor-core kernels (kNarrow below): 16
+// bytes, four floats a copy, where q, k and v are aligned to 16 bytes and
+// d_k and d_v are multiples of 4, so that every head's row starts on a
+// 16-byte boundary and no four floats from a column below d straddle d;
+// else one float a copy (any 4-byte-aligned pointer, any d).  Both fill
+// zeros past the row's ``left`` columns (d minus the first column) and
+// where the row itself is invalid.
+
+// Four floats at src (columns c..c+3 of a row) into dst in shared memory
+template <bool kNarrow>
+__device__ __forceinline__ void cp_async_f4(float* dst, const float* src, const float* any,
+                                            bool row_ok, int left) {
+  if constexpr (kNarrow) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = row_ok && e < left;
+      cp_async4(dst + e, ok ? src + e : any, ok);
+    }
+  } else {
+    const bool ok = row_ok && left > 0;
+    cp_async16(dst, ok ? src : any, ok);
+  }
+}
+
+// The same four floats into registers, through the read-only cache
+template <bool kNarrow>
+__device__ __forceinline__ float4 ldg_f4(const float* src, bool row_ok, int left) {
+  if constexpr (kNarrow) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = row_ok && e < left ? __ldg(src + e) : 0.0f;
+    return make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    return row_ok && left > 0 ? __ldg(reinterpret_cast<const float4*>(src))
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
 // A warp's 16 output rows (o_acc[dt]: columns 8dt..8dt+7 of rows g and
-// g + 8) through o_s, its own rows of the Q tile (pitch P), to ob in
-// 16-byte stores: rows below ``rows``, columns below dv
-template <int D>
+// g + 8) through o_s, its own rows of the Q tile (pitch P), to ob: rows
+// below ``rows``, columns below dv, in 16-byte stores (kNarrow: one float
+// a store)
+template <int D, bool kNarrow>
 __device__ __forceinline__ void store_rows(const float (&o_acc)[D / 8][4], float* o_s, int P,
                                            float* ob, int ldv, int rows, int dv, int lane) {
   constexpr int kChunks = D / 4;
@@ -972,9 +1030,15 @@ __device__ __forceinline__ void store_rows(const float (&o_acc)[D / 8][4], float
   for (int j = 0; j < 16 * kChunks / 32; ++j) {
     const int i = j * 32 + lane;
     const int r = i / kChunks, c = (i % kChunks) * 4;
-    if (r < rows && c < dv)
+    if (r >= rows || c >= dv) continue;
+    if constexpr (kNarrow) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < dv) ob[(size_t)r * ldv + c + e] = o_s[r * P + c + e];
+    } else {
       *reinterpret_cast<float4*>(ob + (size_t)r * ldv + c) =
           *reinterpret_cast<const float4*>(o_s + r * P + c);
+    }
   }
 }
 
@@ -1016,14 +1080,17 @@ constexpr int f32tc_min_blocks() {
 }
 
 // D: d_k and d_v rounded up to 32, 64 or 128; KC: S rounded up to 16, 32,
-// 64 or 128, over 8 (8-key chunks).  The tiles are zero past Lq, S, d_k and
-// d_v up to these sizes, so every loop runs to a compile-time count, every
-// shared-memory offset is a constant, and the zeros add nothing.  One block
-// of 8 warps per (example, head, 128-query tile), tile fastest; each warp
-// takes 16 query rows.  Where K and V are split once for the block, the 8
-// warps share that work, and every fragment of K and V is a 64-bit load of
-// an operand pair; the Q fragments are split by the warp that owns them.
-template <int D, int KC>
+// 64 or 128, over 8 (8-key chunks); kNarrow: the copy width (one float, or
+// four; see cp_async_f4).  The tiles are zero past Lq, S, d_k and d_v up
+// to these sizes, so every loop runs to a compile-time count, every
+// shared-memory offset is a constant, and the zeros add nothing: a head
+// dimension off a multiple of 8 is zero-filled to D like the rest.  One
+// block of 8 warps per (example, head, 128-query tile), tile fastest; each
+// warp takes 16 query rows.  Where K and V are split once for the block,
+// the 8 warps share that work, and every fragment of K and V is a 64-bit
+// load of an operand pair; the Q fragments are split by the warp that owns
+// them.
+template <int D, int KC, bool kNarrow>
 __global__ void __launch_bounds__(kF32Warps * 32, f32tc_min_blocks<D, KC>())
 cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
                               const float* __restrict__ k,  // (N, S, h*dk)
@@ -1059,8 +1126,7 @@ cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
   for (int j = 0; j < kF32Tile * kChunks / kThreads; ++j) {
     const int i = j * kThreads + threadIdx.x;
     const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool ok = q0 + r < Lq && c < dk;
-    cp_async16(q_s + r * P + c, ok ? qb + (size_t)r * ldk + c : q, ok);
+    cp_async_f4<kNarrow>(q_s + r * P + c, qb + (size_t)r * ldk + c, q, q0 + r < Lq, dk - c);
   }
   if constexpr (kSplit) {
     // items: 4 dims of one key (K), 4 columns of a pair of keys (V); every
@@ -1068,25 +1134,21 @@ cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
     constexpr int kKItems = kRows * kChunks, kVItems = kRows / 2 * kChunks;
     constexpr int kKPer = (kKItems + kThreads - 1) / kThreads;
     constexpr int kVPer = (kVItems + kThreads - 1) / kThreads;
-    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float4 kx[kKPer], vx[kVPer][2];
 #pragma unroll
     for (int j = 0; j < kKPer; ++j) {
       const int i = j * kThreads + threadIdx.x;
       const int r = i / kChunks, c = (i % kChunks) * 4;
-      const bool ok = i < kKItems && r < S && c < dk;
-      kx[j] = ok ? __ldg(reinterpret_cast<const float4*>(kb + (size_t)r * ldk + c)) : zero;
+      kx[j] = ldg_f4<kNarrow>(kb + (size_t)r * ldk + c, i < kKItems && r < S, dk - c);
     }
 #pragma unroll
     for (int j = 0; j < kVPer; ++j) {
       const int i = j * kThreads + threadIdx.x;
       const int r = 2 * (i / kChunks), c = (i % kChunks) * 4;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const bool ok = i < kVItems && r + h < S && c < dv;
-        vx[j][h] = ok ? __ldg(reinterpret_cast<const float4*>(vb + (size_t)(r + h) * ldv + c))
-                      : zero;
-      }
+      for (int h = 0; h < 2; ++h)
+        vx[j][h] = ldg_f4<kNarrow>(vb + (size_t)(r + h) * ldv + c, i < kVItems && r + h < S,
+                                   dv - c);
     }
 #pragma unroll
     for (int j = 0; j < kKPer; ++j) {
@@ -1110,9 +1172,8 @@ cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
     for (int j = 0; j < kRows * kChunks / kThreads; ++j) {
       const int i = j * kThreads + threadIdx.x;
       const int r = i / kChunks, c = (i % kChunks) * 4;
-      const bool kok = r < S && c < dk, vok = r < S && c < dv;
-      cp_async16(k_s + r * PK + c, kok ? kb + (size_t)r * ldk + c : k, kok);
-      cp_async16(v_s + r * PV + c, vok ? vb + (size_t)r * ldv + c : v, vok);
+      cp_async_f4<kNarrow>(k_s + r * PK + c, kb + (size_t)r * ldk + c, k, r < S, dk - c);
+      cp_async_f4<kNarrow>(v_s + r * PV + c, vb + (size_t)r * ldv + c, v, r < S, dv - c);
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -1237,11 +1298,12 @@ cross_modal_attn_f32tc_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
     }
   }
 
-  store_rows<D>(o_acc, q_s + row0 * P, P, out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv,
-                ldv, rows - row0, dv, lane);
+  store_rows<D, kNarrow>(o_acc, q_s + row0 * P, P,
+                         out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv, ldv,
+                         rows - row0, dv, lane);
 }
 
-template <int D, int KC>
+template <int D, int KC, bool kNarrow>
 int launch_f32tc_tiles(const void* q, const void* k, const void* v, void* out,
                        int N, int Lq, int S, int heads, int dk, int dv,
                        cudaStream_t stream) {
@@ -1249,12 +1311,13 @@ int launch_f32tc_tiles(const void* q, const void* k, const void* v, void* out,
   constexpr size_t smem = f32tc_smem_bytes(D, KC, f32tc_split_once(D, KC));
   static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
   const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_f32tc_kernel<D, KC>, smem);
+      opt_in.ensure((const void*)cross_modal_attn_f32tc_kernel<D, KC, kNarrow>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (Lq + kF32Tile - 1) / kF32Tile;
   const long long blocks = (long long)N * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cross_modal_attn_f32tc_kernel<D, KC><<<(unsigned)blocks, kF32Warps * 32, smem, stream>>>(
+  cross_modal_attn_f32tc_kernel<D, KC, kNarrow>
+      <<<(unsigned)blocks, kF32Warps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Lq, S, heads, dk,
       dv, tiles, 1.0f / sqrtf((float)dk));
@@ -1271,15 +1334,24 @@ __host__ __device__ constexpr size_t f32tc_blocks_smem_bytes(int D, int KC) {
                           (size_t)4 * KC * (4 * D + 8) + (size_t)16 * KC * D);
 }
 
-// S > 128: the keys streamed in key blocks of 8·KC with an online softmax.
-// D: d_k and d_v rounded up to 32, 64 or 128.  The query tiles, warps,
+// 8-key chunks of one key block: 32 keys up to D = 128 (see the note at the
+// top); 8 at D = 256, where the 128-row Q tile alone takes 135,168 bytes and
+// a key block of 16 keys with its raw buffer would need 234,240
+constexpr int kF32KeyChunks = 4;
+constexpr int kF32KeyChunksD256 = 1;
+
+// S > 128, or D = 256 at any S: the keys streamed in key blocks of 8·KC
+// with an online softmax.  D: d_k and d_v rounded up to 32, 64, 128 or
+// 256; kNarrow: the copy width, as above.  The query tiles, warps,
 // fragments and split layouts are those of cross_modal_attn_f32tc_kernel;
 // the tiles are zero past Lq, S, d_k and d_v.  Every warp copies and
 // splits, and meets the barriers, including a warp with no query rows in
 // a partial tile, which multiplies nothing.  Its register budget allows 16
 // more a thread than the kernel above (the running max and sums and the
-// copy's addresses live across the key-block loop; at 40, D = 32 spilled).
-template <int D, int KC>
+// copy's addresses live across the key-block loop; at 40, D = 32 spilled);
+// at D = 256 one block an SM (184,704 bytes), so up to 255 registers a
+// thread for its 128 output accumulators.
+template <int D, int KC, bool kNarrow>
 __global__ void __launch_bounds__(kF32Warps * 32,
                                   f32tc_blocks_an_sm(D, KC, 56, f32tc_blocks_smem_bytes(D, KC)))
 cross_modal_attn_f32tc_blocks_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
@@ -1312,8 +1384,7 @@ cross_modal_attn_f32tc_blocks_kernel(const float* __restrict__ q,  // (N, Lq, h*
   for (int j = 0; j < kF32Tile * kChunks / kThreads; ++j) {
     const int i = j * kThreads + threadIdx.x;
     const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool ok = q0 + r < Lq && c < dk;
-    cp_async16(q_s + r * P + c, ok ? qb + (size_t)r * ldk + c : q, ok);
+    cp_async_f4<kNarrow>(q_s + r * P + c, qb + (size_t)r * ldk + c, q, q0 + r < Lq, dk - c);
   }
   // keys s0 .. s0 + kRows - 1 into the raw buffers, zero past S, d_k and d_v
   auto copy_block = [&](int s0) {
@@ -1322,9 +1393,9 @@ cross_modal_attn_f32tc_blocks_kernel(const float* __restrict__ q,  // (N, Lq, h*
       const int i = j * kThreads + threadIdx.x;
       if (kKItems % kThreads == 0 || i < kKItems) {
         const int r = i / kChunks, c = (i % kChunks) * 4;
-        const bool kok = s0 + r < S && c < dk, vok = s0 + r < S && c < dv;
-        cp_async16(k_raw + r * D + c, kok ? kb + (size_t)(s0 + r) * ldk + c : k, kok);
-        cp_async16(v_raw + r * D + c, vok ? vb + (size_t)(s0 + r) * ldv + c : v, vok);
+        const bool ok = s0 + r < S;
+        cp_async_f4<kNarrow>(k_raw + r * D + c, kb + (size_t)(s0 + r) * ldk + c, k, ok, dk - c);
+        cp_async_f4<kNarrow>(v_raw + r * D + c, vb + (size_t)(s0 + r) * ldv + c, v, ok, dv - c);
       }
     }
   };
@@ -1472,24 +1543,25 @@ cross_modal_attn_f32tc_blocks_kernel(const float* __restrict__ q,  // (N, Lq, h*
       o_acc[dt][2 * h + 1] *= inv;
     }
   }
-  store_rows<D>(o_acc, q_s + row0 * P, P, out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv,
-                ldv, rows - row0, dv, lane);
+  store_rows<D, kNarrow>(o_acc, q_s + row0 * P, P,
+                         out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv, ldv,
+                         rows - row0, dv, lane);
 }
 
-template <int D>
+template <int D, bool kNarrow>
 int launch_f32tc_blocks(const void* q, const void* k, const void* v, void* out, int N,
                         int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
-  constexpr int KC = 4;  // 8-key chunks a key block: 32 keys (see the note at the top)
+  constexpr int KC = D <= 128 ? kF32KeyChunks : kF32KeyChunksD256;
   static SmemOptIn opt_in;
   constexpr size_t smem = f32tc_blocks_smem_bytes(D, KC);
   static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
   const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_f32tc_blocks_kernel<D, KC>, smem);
+      opt_in.ensure((const void*)cross_modal_attn_f32tc_blocks_kernel<D, KC, kNarrow>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (Lq + kF32Tile - 1) / kF32Tile;
   const long long blocks = (long long)N * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cross_modal_attn_f32tc_blocks_kernel<D, KC>
+  cross_modal_attn_f32tc_blocks_kernel<D, KC, kNarrow>
       <<<(unsigned)blocks, kF32Warps * 32, smem, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<float*>(out), Lq, S, heads, dk,
@@ -1497,27 +1569,48 @@ int launch_f32tc_blocks(const void* q, const void* k, const void* v, void* out, 
   return (int)cudaGetLastError();
 }
 
-// The keys whole (S <= 128) or, where key_blocks, streamed in key blocks
-// (any S).
-template <int D>
+// The keys whole (S <= 128, D <= 128) or, where key_blocks, streamed in
+// key blocks (any S); D = 256 only in key blocks.
+template <int D, bool kNarrow>
 int launch_f32tc(const void* q, const void* k, const void* v, void* out, int N,
                  int Lq, int S, int heads, int dk, int dv, bool key_blocks,
                  cudaStream_t s) {
-  if (key_blocks) return launch_f32tc_blocks<D>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (S <= 16) return launch_f32tc_tiles<D, 2>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (S <= 32) return launch_f32tc_tiles<D, 4>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (S <= 64) return launch_f32tc_tiles<D, 8>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (S <= 128) return launch_f32tc_tiles<D, 16>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (key_blocks)
+    return launch_f32tc_blocks<D, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if constexpr (D <= 128) {
+    if (S <= 16)
+      return launch_f32tc_tiles<D, 2, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+    if (S <= 32)
+      return launch_f32tc_tiles<D, 4, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+    if (S <= 64)
+      return launch_f32tc_tiles<D, 8, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+    if (S <= 128)
+      return launch_f32tc_tiles<D, 16, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool kNarrow>
+int launch_f32tc_width(const void* q, const void* k, const void* v, void* out, int N,
+                       int Lq, int S, int heads, int dk, int dv, bool key_blocks,
+                       cudaStream_t s) {
+  const int d = dk > dv ? dk : dv;
+  if (d <= 32)
+    return launch_f32tc<32, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
+  if (d <= 64)
+    return launch_f32tc<64, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
+  if (d <= 128)
+    return launch_f32tc<128, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
+  return launch_f32tc<256, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
 }
 
 int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
                      int N, int Lq, int S, int heads, int dk, int dv, bool key_blocks,
-                     cudaStream_t s) {
-  const int d = dk > dv ? dk : dv;
-  if (d <= 32) return launch_f32tc<32>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
-  if (d <= 64) return launch_f32tc<64>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
-  return launch_f32tc<128>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
+                     bool narrow, cudaStream_t s) {
+  if (narrow)
+    return launch_f32tc_width<true>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
+  if (dk % 4 || dv % 4) return (int)cudaErrorInvalidValue;  // 16-byte copies straddle d
+  return launch_f32tc_width<false>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
 }
 
 }  // namespace
@@ -1527,21 +1620,26 @@ int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
 // float32 on the tensor cores with the keys streamed in key blocks, 4 =
 // bfloat16 with the keys streamed in key blocks (q, k, v and out share the
 // dtype).  Both bfloat16 routes take dk == dv, a multiple of 16 up to 128,
-// route 1 S <= 128 and route 4 any S >= 1; both tensor-core float32 routes
-// dk and dv multiples of 8 up to 128, route 2 S <= 128 and route 3 any S >=
-// 1 (the wrapper sends S > 128 to routes 3 and 4; a smaller S only to time
-// them against routes 1 and 2); all four need q, k, v and out aligned to 16
-// bytes.  The CUDA-core float32 route takes any sizes whose q rows and
+// route 1 S <= 128 and route 4 any S >= 1, and need q, k, v and out
+// aligned to 16 bytes.  The tensor-core float32 routes take any dk and dv
+// from 1, route 2 up to 128 and S <= 128, route 3 up to 256 and any S >= 1
+// (the wrapper sends S > 128 and d above 128 to route 3, and S > 128 to
+// route 4; a smaller S only to time them against routes 1 and 2); narrow
+// (for those two routes only) copies one float at a time, for pointers
+// aligned to 4 bytes only or dk or dv off a multiple of 4, and is required
+// there.  The CUDA-core float32 route takes any sizes whose q rows and
 // probabilities fit in shared memory.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
-                                int dk, int dv, int route, void* stream) {
+                                int dk, int dv, int route, int narrow, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (narrow && route != 2 && route != 3) return (int)cudaErrorInvalidValue;
   if (route == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if ((route == 1 || route == 4) && dk == dv && S >= 1)
     return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == 4, s);
-  if ((route == 2 || route == 3) && dk % 8 == 0 && dv % 8 == 0 && dk >= 8 &&
-      dk <= 128 && dv >= 8 && dv <= 128 && S >= 1)
-    return launch_f32tc_any(q, k, v, out, N, Lq, S, heads, dk, dv, route == 3, s);
+  const int d_max = route == 3 ? 256 : 128;
+  if ((route == 2 || route == 3) && dk >= 1 && dv >= 1 && dk <= d_max && dv <= d_max &&
+      S >= 1)
+    return launch_f32tc_any(q, k, v, out, N, Lq, S, heads, dk, dv, route == 3, narrow != 0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -259,14 +259,16 @@ def _mm_3xtf32(a, b, hi_only=False):
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
-def _3xtf32_attention(q, k, v, heads, hi_only=False):
+def _3xtf32_attention(q, k, v, heads, hi_only=False, dk=None):
     """The float32 tensor-core kernel's arithmetic in plain torch: q·kᵀ in
     3xTF32, the softmax in base 2 on logits scaled by log2 e / √d_k, p
-    normalised, then p·v in 3xTF32."""
+    normalised, then p·v in 3xTF32.  ``dk``: the head size of the scale,
+    where q and k are zero-filled past it (by default their own)."""
     N, Lq, D = q.shape
-    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
-    qh = q.view(N, Lq, heads, dk).transpose(1, 2)
-    kh = k.view(N, S, heads, dk).transpose(1, 2)
+    S, dv = k.shape[1], v.shape[-1] // heads
+    dk, dq = dk or D // heads, D // heads
+    qh = q.view(N, Lq, heads, dq).transpose(1, 2)
+    kh = k.view(N, S, heads, dq).transpose(1, 2)
     vh = v.view(N, S, heads, dv).transpose(1, 2)
     logits = _mm_3xtf32(qh, kh.transpose(-1, -2), hi_only)
     logits = logits * np.float32(1.4426950408889634 / math.sqrt(dk))
@@ -301,17 +303,19 @@ def test_attention_1xtf32_is_not_float32(rng):
     assert (_3xtf32_attention(q, k, v, 4, hi_only=True) - ref).abs().max().item() > 1e-4
 
 
-def _3xtf32_attention_blocks(q, k, v, heads, block):
-    """The streamed float32 tensor-core kernel's arithmetic (S > 128) in
-    plain torch: the keys in key blocks of ``block``; each block's logits in
-    3xTF32, scaled by log2 e / √d_k; the running row max m rescales the row
-    sum and the output by exp2(m_old - m_new); the block's unnormalised p =
-    exp2(s - m) goes into p·v in 3xTF32, added to the rescaled output; the
-    output divided by the sum at the end."""
+def _3xtf32_attention_blocks(q, k, v, heads, block, dk=None):
+    """The streamed float32 tensor-core kernel's arithmetic (S > 128, or D
+    = 256) in plain torch: the keys in key blocks of ``block``; each block's
+    logits in 3xTF32, scaled by log2 e / √d_k; the running row max m
+    rescales the row sum and the output by exp2(m_old - m_new); the block's
+    unnormalised p = exp2(s - m) goes into p·v in 3xTF32, added to the
+    rescaled output; the output divided by the sum at the end.  ``dk`` as
+    in _3xtf32_attention."""
     N, Lq, D = q.shape
-    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
-    qh = q.view(N, Lq, heads, dk).transpose(1, 2)
-    kh = k.view(N, S, heads, dk).transpose(1, 2)
+    S, dv = k.shape[1], v.shape[-1] // heads
+    dk, dq = dk or D // heads, D // heads
+    qh = q.view(N, Lq, heads, dq).transpose(1, 2)
+    kh = k.view(N, S, heads, dq).transpose(1, 2)
     vh = v.view(N, S, heads, dv).transpose(1, 2)
     scale2 = np.float32(1.4426950408889634 / math.sqrt(dk))
     m = torch.full((N, heads, Lq, 1), -math.inf)
@@ -347,6 +351,90 @@ def test_attention_3xtf32_key_blocks_keep_float32(rng, S, dk, dv):
     _close(ours, _pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True))
 
 
+def _copy_tiles(flat, offset, N, L, heads, d, D, narrow):
+    """The float32 tensor-core kernels' copy of one of q, k, v, an (N, L,
+    heads·d) tensor ``offset`` floats into the flat buffer ``flat``, into
+    tiles zero-filled to D columns a head: row r, column c of a head read at
+    offset + (n·L + r)·heads·d + head·d + c.  ``narrow``: one float a copy,
+    zero from column d on; else 16-byte copies of columns 4j..4j+3, each
+    taken whole where 4j < d.  Returns (N, L, heads·D)."""
+    n, h, r, c = torch.meshgrid(torch.arange(N), torch.arange(heads), torch.arange(L),
+                                torch.arange(D), indexing="ij")
+    idx = offset + (n * L + r) * heads * d + h * d + c
+    ok = ((c if narrow else c - c % 4) < d) & (idx < flat.numel())
+    tiles = torch.where(ok, flat[torch.where(ok, idx, 0)], 0.0)
+    return tiles.permute(0, 2, 1, 3).reshape(N, L, heads * D)
+
+
+def _f32_kernel_emulation(bufs, offsets, N, Lq, S, heads, dk, dv, narrow=None):
+    """The float32 tensor-core route's kernel in plain torch, on q, k, v read
+    from flat buffers at element offsets: the copy width the wrapper picks
+    (unless ``narrow`` is given), the head dims zero-filled to the
+    instance's D, the whole-key or key-block arithmetic the route takes,
+    the scale of d_k, and the columns below d_v of each head's output."""
+    D = fused_attention.f32_instance_d(dk, dv)
+    if narrow is None:
+        narrow = fused_attention.f32_narrow_copies(dk, dv, all(o % 4 == 0 for o in offsets))
+    q, k, v = (_copy_tiles(b, o, N, L, heads, d, D, narrow)
+               for b, o, L, d in zip(bufs, offsets, (Lq, S, S), (dk, dk, dv)))
+    if fused_attention.f32_key_blocks(S, dk, dv):
+        out = _3xtf32_attention_blocks(q, k, v, heads, 8 * fused_attention.f32_key_chunks(D),
+                                       dk=dk)
+    else:
+        out = _3xtf32_attention(q, k, v, heads, dk=dk)
+    return out.view(N, Lq, heads, D)[..., :dv].reshape(N, Lq, heads * dv)
+
+
+@pytest.mark.parametrize("S", [5, 16, 129, 500])
+@pytest.mark.parametrize("dk,dv", [(d, d) for d in (1, 12, 60, 61, 100, 136, 200, 256)]
+                         + [(60, 136)])
+def test_attention_3xtf32_zero_filled_head_dims(rng, S, dk, dv):
+    """Head sizes off a multiple of 8 and up to 256 on the float32 tensor-core
+    route: the kernels' copies into tiles zero-filled to D (32, 64, 128 or
+    256), with the whole-key or key-block arithmetic the route picks (8-key
+    blocks at D = 256), from aligned buffers and from buffers one float off
+    (one float a copy), stay within 1e-5 of the float32 function: the plain
+    version, the JAX package's XLA path and its interpret-mode Pallas
+    kernel on the same numpy inputs."""
+    N, Lq, heads = 2, 24, 2
+    q, k, v = _qkv(rng, N, Lq, S, heads * dk, heads * dv)
+    refs = [fused_attention.attention_plain(*map(torch.from_numpy, (q, k, v)), heads),
+            _xla_impl(*map(jnp.asarray, (q, k, v)), heads),
+            _pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True)]
+    for offset in (0, 1):
+        bufs = [torch.cat([torch.zeros(offset), torch.from_numpy(a).flatten()])
+                for a in (q, k, v)]
+        ours = _f32_kernel_emulation(bufs, (offset,) * 3, N, Lq, S, heads, dk, dv)
+        for ref in refs:
+            _close(ours, ref)
+
+
+@pytest.mark.parametrize("dk,dv,aligned,narrow", [
+    (64, 64, True, False), (60, 60, True, False), (12, 136, True, False),
+    (61, 61, True, True), (64, 62, True, True), (1, 1, True, True),
+    (64, 64, False, True), (60, 60, False, True),
+])
+def test_f32_copy_width(rng, dk, dv, aligned, narrow):
+    """The wrapper keeps 16-byte copies where q, k and v are aligned to 16
+    bytes and d_k and d_v are multiples of 4 (every HCM call), and copies
+    one float at a time elsewhere.  Where d is off a multiple of 4, a head's
+    rows start off 16-byte boundaries, and where d_k is, 16-byte copies
+    would also take the next head's first columns into the zero-filled tail
+    of q and k, which the emulation shows against the plain version (past
+    d_v those columns only reach outputs that are not stored)."""
+    assert fused_attention.f32_narrow_copies(dk, dv, aligned) == narrow
+    assert fused_attention.pick_route(torch.float32, 16, dk, dv, aligned) == "f32_tensor_core"
+    if dk % 4 == 0:
+        return
+    N, Lq, S, heads = 2, 8, 16, 2
+    q, k, v = _qkv(rng, N, Lq, S, heads * dk, heads * dv)
+    bufs = [torch.from_numpy(a).flatten() for a in (q, k, v)]
+    ref = fused_attention.attention_plain(*map(torch.from_numpy, (q, k, v)), heads)
+    _close(_f32_kernel_emulation(bufs, (0, 0, 0), N, Lq, S, heads, dk, dv), ref)
+    wide = _f32_kernel_emulation(bufs, (0, 0, 0), N, Lq, S, heads, dk, dv, narrow=False)
+    assert (wide - ref).abs().max().item() > 1e-3
+
+
 def test_tf32_rounding_is_round_half_away():
     """_tf32 keeps 10 mantissa bits, rounds to nearest, ties away from zero."""
     one = 1.0
@@ -361,19 +449,23 @@ def test_tf32_rounding_is_round_half_away():
 @pytest.mark.parametrize("S,dk,dv,aligned,route,bf16_route", [
     (16, 64, 64, True, "f32_tensor_core", "bf16"), (64, 64, 64, True, "f32_tensor_core", "bf16"),
     (1, 8, 16, True, "f32_tensor_core", None), (128, 128, 128, True, "f32_tensor_core", "bf16"),
-    (33, 128, 8, True, "f32_tensor_core", None), (16, 12, 12, True, "f32_cuda_core", None),
-    (200, 64, 64, True, "f32_tensor_core", "bf16"), (16, 64, 136, True, "f32_cuda_core", None),
-    (16, 64, 64, False, "f32_cuda_core", None),
+    (33, 128, 8, True, "f32_tensor_core", None), (16, 12, 12, True, "f32_tensor_core", None),
+    (200, 64, 64, True, "f32_tensor_core", "bf16"), (16, 64, 136, True, "f32_tensor_core", None),
+    (16, 64, 64, False, "f32_tensor_core", None),
+    (16, 1, 1, True, "f32_tensor_core", None), (64, 61, 61, False, "f32_tensor_core", None),
+    (16, 256, 256, True, "f32_tensor_core", None), (16, 256, 1, False, "f32_tensor_core", None),
+    (16, 260, 260, True, "f32_cuda_core", None),  # above 256: PR 1's kernel
+    (16, 64, 257, True, "f32_cuda_core", None),
 ])
 def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
     """float32 calls take the tensor-core route wherever it takes the sizes
-    (d_k and d_v multiples of 8 up to 128, any S, aligned pointers: the
-    HCM's among them, and S = 200 in key blocks) and the CUDA-core kernel
-    elsewhere (d off a multiple of 8 or above 128, unaligned), decided
-    before the launch; bfloat16 calls take the bf16 kernel where it takes
-    the sizes (d_k = d_v, a multiple of 16 up to 128, K and V within shared
-    memory, aligned pointers) and raise before any launch elsewhere
-    (``None``)."""
+    (any d_k and d_v from 1 to 256, any S, either alignment: the HCM's
+    among them, S = 200 in key blocks, d off a multiple of 8 zero-filled,
+    unaligned pointers by one-float copies) and the CUDA-core kernel only
+    for d_k or d_v above 256, decided before the launch; bfloat16 calls take
+    the bf16 kernel where it takes the sizes (d_k = d_v, a multiple of 16 up
+    to 128, K and V within shared memory, aligned pointers) and raise before
+    any launch elsewhere (``None``)."""
     assert fused_attention.pick_route(torch.float32, S, dk, dv, aligned) == route
     if bf16_route is None:
         with pytest.raises(ValueError, match="bfloat16 kernel"):
@@ -394,18 +486,21 @@ def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
     (torch.float32, 7200, 64, "f32_tensor_core"), (torch.float32, 7201, 64, "f32_tensor_core"),
     (torch.bfloat16, 16, 64, "bf16"), (torch.bfloat16, 64, 64, "bf16"),  # the HCM's
     (torch.float32, 16, 64, "f32_tensor_core"), (torch.float32, 64, 64, "f32_tensor_core"),
-    (torch.float32, 420, 60, "f32_cuda_core"),  # K and V staged in shared memory
-    (torch.float32, 500, 60, "f32_cuda_core"),  # K and V read in place
-    (torch.float32, 7252, 12, "f32_cuda_core"), (torch.float32, 7253, 12, None),
+    (torch.float32, 420, 60, "f32_tensor_core"),  # d zero-filled to 64
+    (torch.float32, 500, 60, "f32_tensor_core"),
+    (torch.float32, 7252, 12, "f32_tensor_core"), (torch.float32, 7253, 12, "f32_tensor_core"),
+    (torch.float32, 200, 256, "f32_tensor_core"), (torch.float32, 100_000, 200, "f32_tensor_core"),
+    (torch.float32, 200, 260, "f32_cuda_core"),  # K and V read in place
+    (torch.float32, 6964, 300, "f32_cuda_core"), (torch.float32, 6965, 300, None),
 ])
 def test_attention_route_past_128_keys(dtype, S, d, route):
     """Past S = 128 the bf16 kernel and the float32 tensor-core route stream
-    their keys in key blocks, and both take every S.  The float32 CUDA-core
-    kernel, for d off a multiple of 8, reads K and V in place where they do
-    not fit in shared memory and takes every S up to d + S = 7264; past that
-    limit, and for bf16 with d_k != d_v (``d`` a pair), the call raises
-    (``None``) before any launch.  The HCM's shapes take the tensor-core
-    kernels."""
+    their keys in key blocks, and both take every S; the float32 route takes
+    every d up to 256.  The float32 CUDA-core kernel, for d above 256, reads
+    K and V in place where they do not fit in shared memory and takes every
+    S up to d + S = 7264; past that limit, and for bf16 with d_k != d_v
+    (``d`` a pair), the call raises (``None``) before any launch.  The HCM's
+    shapes take the tensor-core kernels."""
     dk, dv = d if isinstance(d, tuple) else (d, d)
     if route is None:
         with pytest.raises(ValueError, match="cross_modal_attn"):
@@ -434,41 +529,53 @@ def test_lstm_hidden_sizes(H, n_sm, ok):
 
 def test_f32_tensor_core_smem_fits():
     """Every shape the float32 tensor-core route takes fits one block's
-    shared memory.  Up to S = 128 (f32tc_smem_bytes in
-    csrc/cross_modal_attn.cu): max(d_k, d_v) rounded up to D = 32, 64 or
-    128 and S to 16, 32, 64 or 128 rows; the 128-row Q tile in rows of D + 8
-    floats; K and V split into tf32 hi and lo parts (rows of 2D + 8, and
-    pairs of rows of 4D + 8) at every size but D = 128 with S > 64, where
-    they stay as they are (rows of D + 8 and D + 4).  Past S = 128, at any S
-    (f32tc_blocks_smem_bytes, whose formula and key-block size are read
-    from the source): the Q tile, one key block of 32 keys split, and the
-    next key block as it is, in rows of D."""
-    admitted = [(S, dk, dv) for S in range(1, 130) for dk in range(4, 140, 4)
-                for dv in range(4, 140, 4)
+    shared memory.  With the keys whole, S and D up to 128
+    (f32tc_smem_bytes in csrc/cross_modal_attn.cu): max(d_k, d_v) rounded up
+    to D = 32, 64 or 128 and S to 16, 32, 64 or 128 rows; the 128-row Q tile
+    in rows of D + 8 floats; K and V split into tf32 hi and lo parts (rows
+    of 2D + 8, and pairs of rows of 4D + 8) at every size but D = 128 with
+    S > 64, where they stay as they are (rows of D + 8 and D + 4).  In key
+    blocks, past S = 128 and at every S where D = 256
+    (f32tc_blocks_smem_bytes, whose formula and key-block sizes are read
+    from the source): the Q tile, one key block split, and the next key
+    block as it is, in rows of D; key blocks of 32 keys up to D = 128 and of
+    8 at D = 256, where the Q tile alone takes 135,168 bytes."""
+    admitted = [(S, dk, dv) for S in range(1, 130) for dk in range(1, 260, 3)
+                for dv in range(1, 260, 7)
                 if fused_attention.tensor_core_f32_takes(S, dk, dv)]
-    assert len(admitted) == 129 * 16 * 16
+    assert len(admitted) == 129 * 86 * 37
     assert max(fused_attention.smem_bytes(*s, route="f32_tensor_core")
                for s in admitted) <= fused_attention.SMEM_LIMIT
+    assert not fused_attention.tensor_core_f32_takes(16, 257, 64)
+    assert not fused_attention.tensor_core_f32_takes(0, 64, 64)
     assert fused_attention.smem_bytes(64, 64, 64) == 4 * (128 * 72 + 64 * 136 + 32 * 264)
     assert fused_attention.smem_bytes(5, 8, 16) == 4 * (128 * 40 + 16 * 72 + 8 * 136)
     assert fused_attention.smem_bytes(128, 64, 96) == 4 * (128 * 136 + 128 * 268)
     assert fused_attention.smem_bytes(65, 128, 8) == 4 * (128 * 136 + 128 * 268)
+    assert fused_attention.smem_bytes(64, 61, 1) == fused_attention.smem_bytes(64, 64, 64)
 
     src = (_build.CSRC / "cross_modal_attn.cu").read_text()
-    chunks = re.search(r"constexpr int KC = (\d+);", src)
-    assert int(chunks.group(1)) == fused_attention.F32_KEY_CHUNKS
+    consts = dict(re.findall(r"constexpr int (kF32KeyChunks\w*) = (\d+);", src))
+    assert consts == {"kF32KeyChunks": str(fused_attention.F32_KEY_CHUNKS),
+                      "kF32KeyChunksD256": str(fused_attention.F32_KEY_CHUNKS_D256)}
+    assert "constexpr int KC = D <= 128 ? kF32KeyChunks : kF32KeyChunksD256;" in src
     body = re.search(r"size_t f32tc_blocks_smem_bytes\(int D, int KC\) \{(.*?)\n\}", src, re.S)
     assert " ".join(body.group(1).split()) == (
         "return sizeof(float) * ((size_t)kF32Tile * (D + 8) + (size_t)8 * KC * (2 * D + 8) + "
         "(size_t)4 * KC * (4 * D + 8) + (size_t)16 * KC * D);")
-    kc = fused_attention.F32_KEY_CHUNKS
-    assert kc == 4
-    for d in (32, 64, 128):
+    assert (fused_attention.F32_KEY_CHUNKS, fused_attention.F32_KEY_CHUNKS_D256) == (4, 1)
+    for d in (32, 64, 128, 256):
+        kc = fused_attention.f32_key_chunks(d)
         want = 4 * (128 * (d + 8) + 8 * kc * (2 * d + 8) + 4 * kc * (4 * d + 8) + 16 * kc * d)
-        for S, dk, dv in ((129, d, d), (144, d, d // 2), (7201, d, d), (100_000, d // 2, d)):
+        for S, dk, dv in ((129, d, d), (144, d, d // 2), (7201, d, d), (100_000, d // 2, d),
+                          (129, d - 1, d - 3)):
             assert fused_attention.smem_bytes(S, dk, dv) == want <= fused_attention.SMEM_LIMIT
     assert fused_attention.smem_bytes(144, 64, 64) == 87_552  # 2 blocks an SM
     assert fused_attention.smem_bytes(200, 128, 128) == 169_472
+    # D = 256 in key blocks at every S, one block an SM; 16-key blocks would not fit
+    for S, dk, dv in ((1, 256, 256), (16, 129, 8), (200, 256, 256), (5, 60, 136)):
+        assert fused_attention.smem_bytes(S, dk, dv) == 184_704
+    assert 4 * (128 * 264 + 16 * 520 + 8 * 1032 + 32 * 256) > fused_attention.SMEM_LIMIT
 
 
 def test_bf16_key_block_smem_fits():
@@ -499,18 +606,22 @@ def test_bf16_key_block_smem_fits():
 
 def test_attention_route_codes_match_the_c_entry():
     """The wrapper's route codes are the C entry's, F32_KEY_BLOCKS is the
-    code of the float32 key-block kernel, and the C entry's whole-key
-    float32 instances end at F32_WHOLE_S, past which the wrapper sends the
-    key blocks."""
+    code of the float32 key-block kernel, which takes d up to F32_MAX_D
+    against F32_WHOLE_MAX_D for the whole-key kernel, one-float copies are
+    for those two codes only, and the C entry's whole-key float32 instances
+    end at F32_WHOLE_S, past which the wrapper sends the key blocks."""
     src = (_build.CSRC / "cross_modal_attn.cu").read_text()
     entry = src[src.index('extern "C" int cross_modal_attn('):]
     assert fused_attention.ROUTES == {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2}
     assert "if (route == 0) return launch_f32(" in entry
     assert f"if ((route == 1 || route == {fused_attention.BF16_KEY_BLOCKS}) && dk == dv" in entry
     blocks = fused_attention.F32_KEY_BLOCKS
-    assert f"if ((route == 2 || route == {blocks}) && dk % 8 == 0" in entry
-    assert f"dk, dv, route == {blocks}, s);" in entry
-    whole = re.findall(r"if \(S <= (\d+)\) return launch_f32tc_tiles<D, (\d+)>", src)
+    assert f"const int d_max = route == {blocks} ? {fused_attention.F32_MAX_D} : " \
+           f"{fused_attention.F32_WHOLE_MAX_D};" in entry
+    assert f"if ((route == 2 || route == {blocks}) && dk >= 1 && dv >= 1" in entry
+    assert f"dk, dv, route == {blocks}, narrow != 0, s);" in entry
+    assert "if (narrow && route != 2 && route != 3) return (int)cudaErrorInvalidValue;" in entry
+    whole = re.findall(r"if \(S <= (\d+)\)\s+return launch_f32tc_tiles<D, (\d+), kNarrow>", src)
     assert [(int(S), int(kc)) for S, kc in whole] == [(16, 2), (32, 4), (64, 8), (128, 16)]
     assert int(whole[-1][0]) == fused_attention.F32_WHOLE_S
 

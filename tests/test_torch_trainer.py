@@ -24,12 +24,15 @@ its global batch is 8; the port runs on the CPU with ``DAGGER.BATCH_SIZE`` 8.
 4. Exact resume, port only, dropout on: a run split in two processes'
    worth of trainers ends bitwise where an uninterrupted run ends (weights,
    optimizer state, counters, every logged value); a third run is a no-op.
-5. Options the port does not have yet raise before any work.
+5. Options the port does not have yet raise before any work, and so do
+   keys of the JAX package the port does not read, set past their JAX
+   default.
 6. The entry point trains on the CPU when asked and raises without CUDA.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -39,10 +42,13 @@ import numpy as np
 import pytest
 import torch
 
+from robo_vln_tpu.config.default import _C as jax_defaults
 from robo_vln_tpu.config.default import get_config as jax_get_config
+from robo_vln_tpu.config.tree import ConfigTree as JaxConfigTree
 from robo_vln_tpu.models import build_hierarchical_policies as jax_build
 from robo_vln_tpu.training.hierarchical_trainer import HierarchicalTrainer as JaxTrainer
-from robo_vln_tpu_torch.config import get_config
+from robo_vln_tpu_torch.config import get_config, jax_only
+from robo_vln_tpu_torch.config.default import _C as port_defaults
 from robo_vln_tpu_torch.config.tree import ConfigTree
 from robo_vln_tpu_torch.models import build_hierarchical_policies
 from robo_vln_tpu_torch.run import run_exp
@@ -132,8 +138,9 @@ class RecordingWriter:
 # -- 1. config -------------------------------------------------------------------
 
 def _port_keys(tree, prefix=""):
+    """(dotted key, value) of every leaf of a config tree of either package."""
     for k, v in tree.items():
-        if isinstance(v, ConfigTree):
+        if isinstance(v, (ConfigTree, JaxConfigTree)):
             yield from _port_keys(v, f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", v
@@ -369,6 +376,55 @@ def test_unported_options_raise_before_any_work(tmp_path, key, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         trainer.train()
     assert not (tmp_path / "ckpts").exists() and not (tmp_path / "tb").exists()
+
+
+def test_jax_only_keys_are_listed_with_their_defaults():
+    """Every key of the JAX package's default tree that the port's tree lacks
+    is in the port's own table of keys it refuses past their default
+    (jax_only.UNPORTED, each naming its ROADMAP item) or of keys no value of
+    which matters (jax_only.INERT, each with its reason), with the JAX
+    default; no key is in both, and none of them is in the port's tree."""
+    jax_keys = {k: v for k, v in _port_keys(jax_defaults) if not k.startswith("TASK_CONFIG.")}
+    port_keys = dict(_port_keys(port_defaults))
+    listed = {**jax_only.UNPORTED, **jax_only.INERT}
+    assert not set(jax_only.UNPORTED) & set(jax_only.INERT)
+    assert set(listed) == set(jax_keys) - set(port_keys)
+    for key, (default, why) in listed.items():
+        assert default == jax_keys[key] and type(default) is type(jax_keys[key]), key
+        assert why
+    assert all(re.fullmatch(r"§[AC] (item \d+|C\d+)", item)
+               for _, item in jax_only.UNPORTED.values())
+
+
+@pytest.mark.parametrize("key,value,item", [
+    ("TPU.PALLAS_ATTENTION", True, "§C C6"),
+    ("EVAL.NUM_ENVS", 4, "§A item 3"),
+    ("PLOT_ATTENTION", True, "§A item 3"),
+    ("MODEL.RGB_ENCODER.cnn_type", "SimpleRGBCNN", "§A item 4"),
+    ("EVAL.ON_DEVICE", True, "§A item 5"),
+    ("MODEL.ablate_instruction", True, "§A item 6"),
+    ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
+])
+def test_jax_only_keys_refused_past_their_default(tmp_path, key, value, item):
+    """get_config refuses, from a CLI option and from a yaml, a key of the
+    JAX package that the port does not read, set to another value than its
+    JAX default, naming the ROADMAP item that would port it; at its default,
+    and for an inert key at any value, it loads (as do the port's yamls)."""
+    with pytest.raises(NotImplementedError, match=f"{re.escape(key)} = .*ROADMAP {item}"):
+        get_config(opts=[key, json.dumps(value) if not isinstance(value, str) else value])
+    yaml_path = tmp_path / "exp.yaml"
+    node = value
+    for part in reversed(key.split(".")):
+        node = {part: node}
+    yaml_path.write_text(json.dumps(node))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        get_config(str(yaml_path))
+    default = jax_only.UNPORTED[key][0]
+    get_config(opts=[key, json.dumps(default) if not isinstance(default, str) else default])
+    get_config(opts=["TPU.DONATE", "False", "TPU.PARAM_DTYPE", "bfloat16"])
+    for yaml_file in sorted(PORT_CONFIGS.glob("*.yaml")):
+        if yaml_file.name != "robo_vln_task.yaml":
+            get_config(str(yaml_file))
 
 
 def test_eval_raises():

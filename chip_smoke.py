@@ -11,28 +11,34 @@ exit code and no result line:
    nvcc per source, all in parallel, into build/kernels/; prints each
    kernel instance's registers and spills, and fails if an instance of
    either float32 tensor-core attention kernel (keys whole, or in key
-   blocks past S = 128) or of the bf16 key-block kernel spills.
+   blocks past S = 128), of the bf16 key-block kernel or of the LSTM's
+   partials backward spills.
 3. Kernels against their plain versions, float32 with TF32 off (in a scope
    around this phase only), at the shapes of the serving path: the LSTM
    kernel (also at every H range of its template and at batches beyond one
    launch; timed at the tick's
    shape, and as its grid running nothing but the step-to-step exchange of
-   h, the floor under a step), the LSTM's backward kernel at the same
-   shapes (held to ops/rnn.lstm_recurrence_backward and to the autograd
-   replay of lstm_recurrence, each gradient within 1e-4 of its norm, every
-   other shape with the masks' gradient, its launches one a slice of rows;
-   a forward, backward, forward, backward sequence on one workspace, the
-   second of each bitwise equal to the first; timed as a whole call and as
-   its launch alone against the plain backward, the replay and cuDNN's
-   backward), and the cross-modal attention
+   h, the floor under a step), the LSTM's two backward kernels at the same
+   shapes (``partials``, the route, which exchanges partial sums of dh~,
+   and ``dg_exchange``, which exchanges the whole dg, forced; each held to
+   ops/rnn.lstm_recurrence_backward and to the autograd replay of
+   lstm_recurrence, each gradient within 1e-4 of its norm, every other
+   shape with the masks' gradient, its launches one a slice of rows; a
+   forward, backward, forward, backward sequence on one workspace, the
+   second of each bitwise equal to the first; each timed as a whole call,
+   as its launch alone and as its grid running nothing but its exchange,
+   the floor under a reverse step, against the plain backward, the replay
+   and cuDNN's backward), and the cross-modal attention
    kernel in its three routes: float32 on the tensor cores (3xTF32, the
    route of every float32 call with d_k and d_v up to 256, zero-filled to
    the instance's D, in key blocks past S = 128 and at D = 256, copying one
    float at a time for unaligned pointers or d off a multiple of 4),
    float32 on the CUDA cores (d above 256) and bfloat16 (the serving
-   dtype), each held at the same shapes and at ragged ones, where the route
-   each shape takes (whether it took the key blocks, and the copy width)
-   is checked too;
+   dtype; in both modes of p, rounded to bf16 once, the default, and split
+   into p_hi + p_lo, TPU.PALLAS_ATTENTION on, each against the plain
+   version in that mode and timed), each held at the same shapes and at
+   ragged ones, where the route each shape takes (whether it took the key
+   blocks, the copy width, the mode) is checked too;
    at the window's S = 16 and S = 64 the float32 key-block kernel is also
    forced, held and timed beside the whole-key kernel.  Prints the
    largest error against the stated tolerance, and every rep's time of the
@@ -42,18 +48,20 @@ exit code and no result line:
    is timed with its inputs rotated over several sets, so that no call
    finds them in the L2 cache; at the tick's shape the bfloat16 wrapper is
    also timed unqueued, at the host's dispatch rate.  Phase 3c: shapes
-   past the kernels' former ranges (bfloat16 attention in key blocks at
-   S=144, the depth tokens of a 384 px frame, at S=300 and 512 with d=128
-   and at S=1000; float32 attention in key blocks at S=144 and at S=200,
+   past the kernels' former ranges (bfloat16 attention in key blocks, in
+   both modes, at S=144, the depth tokens of a 384 px frame, at S=300 and
+   512 with d=128 and at S=1000, and at S=144 and at S=200, d=128 at the
+   window's N; float32 attention in key blocks at S=144 and at S=200,
    d=128, self-attention's, both at the window's N, and at S=500; float32
    on the tensor cores at the shapes PR 1's CUDA-core kernel used to take:
    S=500 and S=64 at d=60 and d=61, pointers one float off 16 bytes, d=256
    over 2 heads; the CUDA-core kernel at d=260; the LSTM
-   and its backward at H=556, a ragged grid) must launch their kernel once
+   and both backward kernels at H=556, a ragged grid) must launch their
+   kernel once
    (by the route, key blocks and copy width the shape asks for) and match
    the plain version; S=144 and S=200, d=128 are timed at the window's size
    in both dtypes against the plain version and SDPA (float32 also against
-   the CUDA-core kernel forced), as are float32 S=500, d=60, S=64, d=60 and
+   the CUDA-core kernel forced, bf16 in both modes), as are float32 S=500, d=60, S=64, d=60 and
    S=200, d=256, h=2, and the CUDA-core kernel at d=260; shapes no kernel
    takes (an
    unaligned bfloat16 call, the LSTM and its backward at H=1028, the
@@ -106,12 +114,17 @@ exit code and no result line:
    memory.  With --profile, run 2 is traced.
    After phases 4-6: the key-block kernels of the attention (float32 on
    the tensor cores and bf16) and the float32 one-float copies must have
-   launched on none of the three paths.
-7. One JSON line {"kernels": [...]} (``launches``: the serving path's,
-   but the LSTM backward's, which the serving path never runs, is the
-   train path's; ``train_launches``: the train path's,
-   ``trainer_launches``: the trainer path's), then the card's name and
-   power limit, then the last line
+   launched on none of the three paths.  Each path's bf16 attention rounds
+   p once (the config's default), and its LSTM backward is the partials
+   kernel: split_p and the dg-exchange kernel launch on none.
+7. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+   (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
+   attention (its float32 route and every bf16 field) and its bf16 modes
+   (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
+   ``launches``: the serving path's, but the LSTM backward's, which the
+   serving path never runs, is the train path's; ``train_launches``: the
+   train path's, ``trainer_launches``: the trainer path's.  Then the card's
+   name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -303,16 +316,22 @@ def replay_backward(gates_x, masks, h0, c0, w_hh, outs, g_outs, g_hT, g_cT, mask
     return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
-def check_lstm_backward(tag, args, outs, cots, masks_grad):
-    """One call of the backward kernel held to the plain backward and to the
-    autograd replay: (largest absolute error, largest error of a gradient's
-    norm, launches, the kernel's gradients)."""
+def check_lstm_backward(tag, args, outs, cots, masks_grad, kernel=None):
+    """One call of the backward, by its route or by ``kernel`` forced, held
+    to the plain backward and to the autograd replay: (largest absolute
+    error, largest error of a gradient's norm, launches of that kernel, the
+    kernel's gradients).  Every launch must be that kernel's."""
     from robo_vln_tpu_torch.ops import fused_lstm
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence_backward
 
-    before = fused_lstm.backward_launches
-    got = fused_lstm.lstm_seq_backward_cuda(*args, outs, *cots, masks_grad=masks_grad)
-    launched = fused_lstm.backward_launches - before
+    kernel = kernel or fused_lstm.BACKWARD_KERNEL
+    before = fused_lstm.backward_launches, fused_lstm.backward_kernel_launches[kernel]
+    with backward_kernel(kernel):
+        got = fused_lstm.lstm_seq_backward_cuda(*args, outs, *cots, masks_grad=masks_grad)
+    launched = fused_lstm.backward_kernel_launches[kernel] - before[1]
+    if fused_lstm.backward_launches - before[0] != launched:
+        fail(f"lstm_seq backward at {tag} launched another kernel than {kernel}")
+    tag = f"{tag} [{kernel}]"
     worst_abs = worst_rel = 0.0
     for label, ref in (("plain", lstm_recurrence_backward(*args, outs, *cots,
                                                           masks_grad=masks_grad)),
@@ -345,9 +364,10 @@ def check_lstm(gen, device):
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence, lstm_recurrence_backward
 
     print("phase 3a: lstm_seq kernel against ops/rnn.lstm_recurrence, and its backward "
-          "against ops/rnn.lstm_recurrence_backward and the autograd replay, float32")
+          "kernels (partials, the route; dg_exchange, forced) against "
+          "ops/rnn.lstm_recurrence_backward and the autograd replay, float32")
     worst = 0.0
-    bwd_worst = [0.0, 0.0]
+    bwd_worst = {kernel: [0.0, 0.0] for kernel in fused_lstm.BACKWARD_KERNELS}
     timed = {}
     # the window's and the tick's shapes, batches over several warps' tasks,
     # small hidden sizes, every count of W_hh's 16-byte chunks a lane (KC =
@@ -376,15 +396,17 @@ def check_lstm(gen, device):
         cots = lstm_cotangents(gen, T, B, H, device)
         if (T, B) == (7, 11):
             cots = (cots[0], cots[1], torch.zeros(1, H, device=device).expand(B, H))
-        units = fused_lstm._units(device.index, H)[0]
-        for masks_grad in ((True, False) if n == 0 else (n % 2 == 0,)):
-            e_abs, e_rel, launched, _ = check_lstm_backward(
-                f"T={T} B={B} H={H}", args, got[0], cots, masks_grad)
-            bwd_worst = [max(bwd_worst[0], e_abs), max(bwd_worst[1], e_rel)]
-            want = len(fused_lstm.backward_batch_slices(B, H, units))
-            if launched != want:
-                fail(f"lstm_seq backward took {launched} launches at T={T} B={B} H={H}, "
-                     f"expected {want}")
+        for kernel in fused_lstm.BACKWARD_KERNELS:
+            units = fused_lstm._backward_units(device.index, H, kernel)[0]
+            want = len(fused_lstm.backward_batch_slices(B, H, units, kernel))
+            for masks_grad in ((True, False) if n == 0 else (n % 2 == 0,)):
+                e_abs, e_rel, launched, _ = check_lstm_backward(
+                    f"T={T} B={B} H={H}", args, got[0], cots, masks_grad, kernel)
+                w = bwd_worst[kernel]
+                bwd_worst[kernel] = [max(w[0], e_abs), max(w[1], e_rel)]
+                if launched != want:
+                    fail(f"lstm_seq backward ({kernel}) took {launched} launches at T={T} "
+                         f"B={B} H={H}, expected {want}")
         call = lambda: fused_lstm.lstm_seq_cuda(*args)
         if (T, B) == (50, 4):
             kernel = report_times("kernel", time_ms(call))
@@ -431,49 +453,73 @@ def check_lstm(gen, device):
         "library": "torch.nn.LSTM (cuDNN) over x (T, B, 896), input projection included",
     }
     # one train step's backward runs it twice (high and low level)
-    backward = {
-        "name": "lstm_seq_backward", "route": "cuda",
-        "source": "robo_vln_tpu_torch/csrc/lstm_seq.cu",
+    backward = [{
+        "name": "lstm_seq_backward" if kernel == "partials" else f"lstm_seq_backward_{kernel}",
+        "route": "cuda", "source": "robo_vln_tpu_torch/csrc/lstm_seq.cu",
         "replaces": "robo_vln_tpu/ops/pallas_lstm.py:162",
-        "max_abs_err": bwd_worst[0], "max_rel_err": bwd_worst[1],
-        "ms": 2 * timed["bwd_ms"], "plain_ms": 2 * timed["bwd_plain_ms"],
+        "kernel": ("lstm_seq_backward_partials_kernel" if kernel == "partials"
+                   else "lstm_seq_backward_kernel"),
+        "max_abs_err": bwd_worst[kernel][0], "max_rel_err": bwd_worst[kernel][1],
+        "ms": 2 * timed[f"{kernel}_ms"], "plain_ms": 2 * timed["bwd_plain_ms"],
         "replay_ms": 2 * timed["bwd_replay_ms"],
-        "kernel_only_ms": 2 * timed["bwd_kernel_ms"],
+        "kernel_only_ms": 2 * timed[f"{kernel}_kernel_ms"],
+        "exchange_floor_ms": 2 * timed[f"{kernel}_exchange_ms"],
+        "step_us": timed[f"{kernel}_kernel_ms"] / 50 * 1e3,
+        "exchange_step_us": timed[f"{kernel}_exchange_ms"] / 50 * 1e3,
+        "units": timed[f"{kernel}_units"],
         "bound_ms": 2 * max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes > b_ops else "operations",
         "kernel_only_bound_ms": 2 * max(k_bytes, k_ops),
         "library_ms": 2 * timed["bwd_library_ms"],
         "work": "2 backward calls at T=50, B=4, H=512, float32, no mask gradient (one train "
                 "step's): ms the whole call (the gates recomputed in one product, the "
-                "kernel, d_w_hh in one product), kernel_only_ms the launch alone; "
+                "kernel, d_w_hh in one product), kernel_only_ms the launch alone, "
+                "exchange_floor_ms the same grids running nothing but their exchange, "
+                "step_us and exchange_step_us one call's per reverse step; "
                 "replay_ms lstm_recurrence replayed under autograd and differentiated; "
                 "max_rel_err each gradient's largest error of its norm (tolerance "
                 f"{LSTM_BACKWARD_TOL}); replaces the custom VJP's _bwd around "
                 "pallas_lstm.py:40; launches: the train path's (the serving path runs no "
-                "backward)",
+                "backward)" + ("" if kernel == "partials" else
+                               "; off the route, launched here forced, 0 on every path"),
         "library": "torch.nn.LSTM (cuDNN) forward and backward less its forward, x (T, B, "
                    "896), input projection included",
-    }
-    return forward, backward
+    } for kernel in fused_lstm.BACKWARD_KERNELS]
+    return forward, *backward
 
 
 def time_lstm_backward(gen, args, outs, cots, lstm, x, hc):
-    """Times of one backward call at the window's shape: the kernel's whole
-    call and its launch alone, the plain backward, the autograd replay, and
-    cuDNN's backward (its forward and backward less its forward)."""
+    """Times of one backward call at the window's shape, by each backward
+    kernel: the whole call, its launch alone, and its grid running nothing
+    but its exchange (the floor under a reverse step); the plain backward,
+    the autograd replay, and cuDNN's backward (its forward and backward less
+    its forward)."""
     from robo_vln_tpu_torch.ops import fused_lstm
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence_backward
 
-    call = lambda: fused_lstm.lstm_seq_backward_cuda(*args, outs, *cots, masks_grad=False)
+    T, B, H = outs.shape
+    device = outs.device
     gates_x, masks, h0, c0, w_hh = args
-    w_rows = w_hh.contiguous()
     h_tilde = torch.cat([h0[None], outs[:-1]]) * masks[..., None]
-    gates = gates_x + h_tilde @ w_rows
-    launch = lambda: fused_lstm._backward_launch(gates, masks, c0, w_rows, *cots, False)
-    timed = {
-        "bwd_ms": report_times("backward, whole call", time_ms(call)),
-        "bwd_kernel_ms": report_times("backward, the kernel's launch alone", time_ms(launch)),
-    }
+    gates = gates_x + h_tilde @ w_hh
+    timed = {}
+    for kernel in fused_lstm.BACKWARD_KERNELS:
+        with backward_kernel(kernel):
+            call = lambda: fused_lstm.lstm_seq_backward_cuda(*args, outs, *cots,
+                                                             masks_grad=False)
+            launch = lambda: fused_lstm._backward_launch(gates, masks, c0, w_hh, *cots, False)
+            floor = lambda: fused_lstm.backward_exchange_floor_cuda(T, B, H, device)
+            timed[f"{kernel}_ms"] = report_times(f"backward ({kernel}), whole call",
+                                                 time_ms(call))
+            timed[f"{kernel}_kernel_ms"] = report_times(
+                f"backward ({kernel}), the kernel's launch alone", time_ms(launch))
+            timed[f"{kernel}_exchange_ms"] = report_times(
+                f"backward ({kernel}), the same grid running nothing but its exchange "
+                "(the exchange's floor)", time_ms(floor))
+        timed[f"{kernel}_units"] = fused_lstm._backward_units(device.index, H, kernel)[0]
+        print(f"  backward ({kernel}, {timed[f'{kernel}_units']} units a block) per reverse "
+              f"step: kernel {timed[f'{kernel}_kernel_ms'] / T * 1e3:.3f} us, exchange "
+              f"{timed[f'{kernel}_exchange_ms'] / T * 1e3:.3f} us ({T} stages a call)")
     timed["bwd_plain_ms"] = report_times("backward, plain", time_ms(
         lambda: lstm_recurrence_backward(*args, outs, *cots, masks_grad=False), inner=2))
     timed["bwd_replay_ms"] = report_times("backward, autograd replay", time_ms(
@@ -533,14 +579,17 @@ def check_lstm_sequence(gen, device):
 def check_attention(gen, device):
     from robo_vln_tpu_torch.ops import fused_attention
 
-    print("phase 3b: cross_modal_attn kernel against ops/fused_attention.attention_plain")
+    print("phase 3b: cross_modal_attn kernel against ops/fused_attention.attention_plain "
+          "(bf16 in both modes of p, each against the plain version in that mode)")
     N, Lq, heads, d = 200, 200, 4, 64
     sdpa = torch.nn.functional.scaled_dot_product_attention
     f32, bf16 = torch.float32, torch.bfloat16
     worst = dict.fromkeys(fused_attention.ROUTES, 0.0)
+    mode_worst = dict.fromkeys(fused_attention.BF16_P_MODES, 0.0)
     sums = {"ms": 0.0, "f32_key_blocks_ms": 0.0, "f32_cuda_core_ms": 0.0, "plain_ms": 0.0,
             "library_ms": 0.0,
-            "bf16_ms": 0.0, "bf16_plain_ms": 0.0, "bf16_library_ms": 0.0}
+            "bf16_ms": 0.0, "bf16_plain_ms": 0.0, "bf16_library_ms": 0.0,
+            "bf16_split_p_ms": 0.0, "bf16_split_p_plain_ms": 0.0}
     bounds = {f32: [0.0, 0.0], bf16: [0.0, 0.0]}
 
     def inputs(n, lq, S, h, dk, dv, dtype):
@@ -554,27 +603,36 @@ def check_attention(gen, device):
     def check(tag, q, k, v, h, tol, expected):
         """One launch, which must take route ``expected`` (on the tensor
         cores past S = 128, and in float32 past d = 128, that route's key
-        blocks; in float32 the copy width the sizes and pointers ask for),
-        held to the plain version."""
+        blocks; in float32 the copy width the sizes and pointers ask for;
+        in bf16 the mode of p set), held to the plain version in that
+        mode."""
         before = dict(fused_attention.route_launches)
         blocks_before = key_block_launches()
+        modes_before = dict(fused_attention.bf16_mode_launches)
         got = fused_attention.cross_modal_attn_cuda(q, k, v, h)
         ref = fused_attention.attention_plain(q, k, v, h)
         torch.cuda.synchronize()
         took = [r for r, count in fused_attention.route_launches.items() if count != before[r]]
+        modes = [m for m, count in fused_attention.bf16_mode_launches.items()
+                 if count != modes_before[m]]
         err = (got.float() - ref.float()).abs().max().item()
         blocks = [a - b for a, b in zip(key_block_launches(), blocks_before)]
-        print(f"  {tag} [{','.join(took)}{', key blocks' if any(blocks[:2]) else ''}"
+        tol = bf16_tolerance(tol, q, k, v) if expected == "bf16" else tol
+        print(f"  {tag} [{','.join(took + modes)}{', key blocks' if any(blocks[:2]) else ''}"
               f"{', narrow copies' if blocks[2] else ''}]: "
-              f"max_abs_err {err:.3e} (tolerance {tol})")
+              f"max_abs_err {err:.3e} (tolerance {tol:.3e})")
         if took != [expected]:
             fail(f"cross_modal_attn launched {took} at {tag}, expected {expected}")
+        if modes != ([fused_attention.p_mode()] if expected == "bf16" else []):
+            fail(f"cross_modal_attn launched bf16 modes {modes} at {tag}")
         if blocks != expected_key_blocks(expected, q, k, v, h):
             fail(f"cross_modal_attn launched {blocks} (float32 key-block, bf16 key-block, "
                  f"float32 narrow) kernels at {tag}")
         if not err <= tol:
             fail(f"cross_modal_attn ({expected}) disagrees with its plain version at {tag}")
         worst[expected] = max(worst[expected], err)
+        for m in modes:
+            mode_worst[m] = max(mode_worst[m], err)
 
     for n in (N, 8):
         for S in (16, 64):
@@ -588,7 +646,10 @@ def check_attention(gen, device):
                     with cuda_core_f32_attention():
                         check(f"{tag}, CUDA-core kernel", q, k, v, heads, tol, "f32_cuda_core")
                 else:
-                    check(tag, q, k, v, heads, tol, "bf16")
+                    for float32_p in (False, True):
+                        with p_setting(float32_p):
+                            check(f"{tag} {fused_attention.p_mode()}", q, k, v, heads, tol,
+                                  "bf16")
                 if n != N:
                     if dtype == bf16:  # the tick's shape
                         call = lambda: fused_attention.cross_modal_attn_cuda(q, k, v, heads)
@@ -616,6 +677,11 @@ def check_attention(gen, device):
                         sums["f32_cuda_core_ms"] += timed("CUDA-core kernel", kernel)
                 sums[prefix + "plain_ms"] += timed("plain", lambda *t: (
                     fused_attention.attention_plain(*t, heads)))
+                if dtype == bf16:  # the default above is round_p; then split_p
+                    with p_setting(True):
+                        sums["bf16_split_p_ms"] += timed("kernel, split_p", kernel)
+                        sums["bf16_split_p_plain_ms"] += timed("plain, split_p", lambda *t: (
+                            fused_attention.attention_plain(*t, heads)))
                 sums[prefix + "library_ms"] += timed("library scaled_dot_product_attention",
                                                      sdpa, [heads_view(*t) for t in sets])
                 if dtype == f32:
@@ -666,11 +732,36 @@ def check_attention(gen, device):
               ((2, 70, 161, 3, 48, 48), bf16, "bf16")]
     for (n, lq, S, h, dk, dv), dtype, route in ragged:
         tag = f"N={n} Lq={lq} S={S} h={h} d_k={dk} d_v={dv} {str(dtype)[6:]}"
-        check(tag, *inputs(n, lq, S, h, dk, dv, dtype), h,
-              ATTN_TOL if dtype == f32 else ATTN_BF16_TOL, route)
+        qkv = inputs(n, lq, S, h, dk, dv, dtype)
+        if dtype == f32:
+            check(tag, *qkv, h, ATTN_TOL, route)
+            continue
+        for float32_p in (False, True):
+            with p_setting(float32_p):
+                check(f"{tag} {fused_attention.p_mode()}", *qkv, h, ATTN_BF16_TOL, route)
     # one window forward launches it twice: S=16 (rgb) and S=64 (depth)
     (f32_bytes, f32_ops), (bf16_bytes, bf16_ops) = bounds[f32], bounds[bf16]
-    return {
+    modes = [{
+        "name": f"cross_modal_attn_bf16_{mode}", "route": "cuda",
+        "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
+        "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
+        "max_abs_err": mode_worst[mode],
+        "ms": sums["bf16_ms" if mode == "round_p" else "bf16_split_p_ms"],
+        "plain_ms": sums["bf16_plain_ms" if mode == "round_p" else "bf16_split_p_plain_ms"],
+        "bound_ms": max(bf16_bytes, bf16_ops),
+        "bound_by": "bytes" if bf16_bytes > bf16_ops else "operations",
+        "library_ms": sums["bf16_library_ms"],
+        "work": "2 bf16 calls, N=200 Lq=200 h=4 d=64 at S=16 and S=64 (one window forward), "
+                f"inputs rotated over {L2_ROTATION} sets; "
+                + ("p rounded to bf16 once before p·v (TPU.PALLAS_ATTENTION off, the "
+                   "default: the JAX package's XLA attention), one product a key"
+                   if mode == "round_p" else
+                   "p split into p_hi + p_lo (TPU.PALLAS_ATTENTION on: the Pallas kernel's "
+                   "float32 p), two products a key; launched here with the setting on")
+                + "; max_abs_err against the plain version in the same mode",
+        "library": "torch.nn.functional.scaled_dot_product_attention on head views",
+    } for mode in fused_attention.BF16_P_MODES]
+    return modes, {
         "name": "cross_modal_attn", "route": "cuda",
         "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
         "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
@@ -713,12 +804,17 @@ def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what, offset=
         return report_times(f"{tag} {label} ({note})", time_ms(rotated(fn, arg_sets)))
 
     kernel = lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads)
-    fields = {f"{prefix}_ms": timed(f"kernel ({route})", kernel)}
+    plain = lambda *t: fused_attention.attention_plain(*t, heads)
+    mode = f", {fused_attention.p_mode()}" if route == "bf16" else ""
+    fields = {f"{prefix}_ms": timed(f"kernel ({route}{mode})", kernel)}
     if route == "f32_tensor_core":
         with cuda_core_f32_attention():
             fields[f"{prefix}_cuda_core_ms"] = timed("CUDA-core kernel", kernel)
-    fields[f"{prefix}_plain_ms"] = timed("plain", lambda *t: (
-        fused_attention.attention_plain(*t, heads)))
+    fields[f"{prefix}_plain_ms"] = timed(f"plain{mode}", plain)
+    if route == "bf16":  # the default above is round_p; then split_p
+        with p_setting(True):
+            fields[f"{prefix}_split_p_ms"] = timed("kernel (bf16, split_p)", kernel)
+            fields[f"{prefix}_split_p_plain_ms"] = timed("plain, split_p", plain)
     # SDPA on views one float off 16 bytes fails with a misaligned address
     # on the card, so past an offset it takes aligned copies
     fields[f"{prefix}_library_ms"] = timed(
@@ -771,7 +867,7 @@ def check_wider_shapes(gen, device):
         pairs = zip(*(x if isinstance(x, tuple) else (x,) for x in (got, ref)))
         err = max((g.float() - r.float()).abs().max().item() for g, r in pairs)
         print(f"  {tag} [{','.join(took) or 'kernel'}]: max_abs_err {err:.3e} "
-              f"(tolerance {tol})")
+              f"(tolerance {tol:.3e})")
         if module.launches - before != 1 or (route is not None and took != [route]):
             fail(f"{tag} launched {module.launches - before} kernels by {took}, "
                  f"expected one by {route or 'the kernel'}")
@@ -795,9 +891,10 @@ def check_wider_shapes(gen, device):
         return [torch.randn(offset + n * L * h * d, generator=gen).to(device, dtype)[offset:]
                 .view(n, L, h * d) for L in (lq, S, S)]
 
-    # both dtypes past S = 128 in key blocks: bf16 at the depth attention of
-    # a 384 px frame, at S = 300 and 512 with d = 128 (past the shared
-    # memory of a kernel that holds a head's keys whole) and at S = 1000;
+    # both dtypes past S = 128 in key blocks: bf16 (in both modes of p) at
+    # the depth attention of a 384 px frame, at S = 300 and 512 with d = 128
+    # (past the shared memory of a kernel that holds a head's keys whole),
+    # at S = 1000, and at (a) and (b) below at the window's N;
     # float32 at (a) that depth attention and (b) self-attention over 200
     # tokens at d = 128, both at the window's N (their errors go into the
     # JSON line under ``key``), then a long S.  Float32 shapes that PR 1's
@@ -814,6 +911,8 @@ def check_wider_shapes(gen, device):
             (8, 300, 4, bf16, 128, 0, ATTN_BF16_TOL, "bf16", None),
             (8, 512, 4, bf16, 128, 0, ATTN_BF16_TOL, "bf16", "bf16_s512_d128"),
             (8, 1000, 4, bf16, 64, 0, ATTN_BF16_TOL, "bf16", "bf16_s1000"),
+            (200, 144, 4, bf16, 64, 0, ATTN_BF16_TOL, "bf16", "bf16_s144"),
+            (200, 200, 4, bf16, 128, 0, ATTN_BF16_TOL, "bf16", "bf16_s200_d128"),
             (200, 144, 4, f32, 64, 0, ATTN_TOL, tc, "f32_s144"),
             (200, 200, 4, f32, 128, 0, ATTN_TOL, tc, "f32_s200_d128"),
             (8, 500, 4, f32, 64, 0, ATTN_TOL, tc, None),
@@ -826,25 +925,38 @@ def check_wider_shapes(gen, device):
             (8, 16, 2, f32, 256, 1, ATTN_TOL, tc, None),
             (8, 200, 2, f32, 260, 0, ATTN_TOL, "f32_cuda_core", "f32_cuda_core_d260")):
         q, k, v = qkv(n, 200, S, h, d, dtype, offset)
-        blocks = key_block_launches()
-        tag = (f"cross_modal_attn N={n} Lq=200 S={S} h={h} d={d} {str(dtype)[6:]}"
-               f"{', pointers one float off 16 bytes' if offset else ''}")
-        err = held(tag, fused_attention, lambda: fused_attention.cross_modal_attn_cuda(q, k, v, h),
-                   lambda: fused_attention.attention_plain(q, k, v, h), tol, route)
-        if key:
-            errors[f"{key}_max_abs_err"] = err
-        blocks = [a - b for a, b in zip(key_block_launches(), blocks)]
-        if blocks != expected_key_blocks(route, q, k, v, h):
-            fail(f"{tag}: {blocks} (float32 key-block, bf16 key-block, float32 narrow) "
-                 "launches")
+        for float32_p in (False, True) if dtype == bf16 else (None,):
+            with p_setting(bool(float32_p)):
+                mode = f" {fused_attention.p_mode()}" if dtype == bf16 else ""
+                modes = dict(fused_attention.bf16_mode_launches)
+                blocks = key_block_launches()
+                tag = (f"cross_modal_attn N={n} Lq=200 S={S} h={h} d={d} {str(dtype)[6:]}{mode}"
+                       f"{', pointers one float off 16 bytes' if offset else ''}")
+                err = held(tag, fused_attention,
+                           lambda: fused_attention.cross_modal_attn_cuda(q, k, v, h),
+                           lambda: fused_attention.attention_plain(q, k, v, h),
+                           bf16_tolerance(tol, q, k, v) if dtype == bf16 else tol, route)
+                if key:
+                    errors[f"{key}{'_split_p' if float32_p else ''}_max_abs_err"] = err
+                blocks = [a - b for a, b in zip(key_block_launches(), blocks)]
+                if blocks != expected_key_blocks(route, q, k, v, h):
+                    fail(f"{tag}: {blocks} (float32 key-block, bf16 key-block, float32 "
+                         "narrow) launches")
+                took = {m: c - modes[m] for m, c in fused_attention.bf16_mode_launches.items()}
+                want = {m: int(dtype == bf16 and m == fused_attention.p_mode()) for m in took}
+                if took != want:
+                    fail(f"{tag}: bf16 modes {took}, expected {want}")
     for T, B in ((5, 4), (50, 4)):
         args = lstm_inputs(gen, T, B, 556, device)
         held(f"lstm_seq T={T} B={B} H=556", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args),
              lambda: lstm_recurrence(*args), LSTM_TOL)
-        launched = check_lstm_backward(f"T={T} B={B} H=556", args, lstm_recurrence(*args)[0],
-                                       lstm_cotangents(gen, T, B, 556, device), T == 5)[2]
-        if launched != 1:
-            fail(f"lstm_seq backward took {launched} launches at T={T} B={B} H=556")
+        cots = lstm_cotangents(gen, T, B, 556, device)
+        for kernel in fused_lstm.BACKWARD_KERNELS:
+            launched = check_lstm_backward(f"T={T} B={B} H=556", args,
+                                           lstm_recurrence(*args)[0], cots, T == 5, kernel)[2]
+            if launched != 1:
+                fail(f"lstm_seq backward ({kernel}) took {launched} launches at T={T} B={B} "
+                     "H=556")
 
     n = 8 * 200 * 256
     q, k, v = (torch.randn(n + 8, generator=gen).to(device, bf16)[1:n + 1].view(8, 200, 256)
@@ -853,7 +965,7 @@ def check_wider_shapes(gen, device):
             lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4))
     args = lstm_inputs(gen, 2, 2, 1028, device)
     refused("lstm_seq H=1028", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args))
-    units = fused_lstm._units(device.index, 1028)[0]
+    units = fused_lstm._backward_units(device.index, 1028)[0]
     refused(f"lstm_seq backward's predicate, H=1028 at {units} units a block", fused_lstm,
             lambda: fused_lstm.check_backward_shape(2, 1028, units), "backward_launches")
     outs = torch.zeros(2, 2, 1028, device=device)
@@ -886,6 +998,22 @@ def check_wider_shapes(gen, device):
                              "self-attention over 200 tokens, d_model 512 over 2 heads, D = 256"),
             **time_attention(gen, device, "f32_cuda_core_d260", 200, 200, 200, 2, 260, f32,
                              "PR 1's CUDA-core kernel at d = 260, the head sizes it keeps")}
+
+
+def path_launches():
+    """Launches since the last reset, by the kernels line's names: the
+    LSTM's forward; its backward by kernel (the route's, partials, and
+    dg_exchange, which a path never launches); attention, and its bf16
+    launches by mode of p (round_p the default; split_p only where
+    TPU.PALLAS_ATTENTION is on, which no path sets)."""
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+
+    return {"lstm_seq": fused_lstm.launches,
+            "lstm_seq_backward": fused_lstm.backward_kernel_launches["partials"],
+            "lstm_seq_backward_dg_exchange": fused_lstm.backward_kernel_launches["dg_exchange"],
+            "cross_modal_attn": fused_attention.launches,
+            **{f"cross_modal_attn_bf16_{mode}": count
+               for mode, count in fused_attention.bf16_mode_launches.items()}}
 
 
 def key_block_launches():
@@ -941,6 +1069,49 @@ def cuda_core_f32_attention():
         yield
     finally:
         fused_attention.pick_route = saved
+
+
+@contextlib.contextmanager
+def p_setting(float32_p):
+    """The process-wide mode of bf16 attention's p (ops/cm_attention's
+    float32_probabilities, TPU.PALLAS_ATTENTION) set for the block."""
+    from robo_vln_tpu_torch.ops import cm_attention
+
+    saved = cm_attention.float32_probabilities()
+    cm_attention.set_float32_probabilities(float32_p)
+    try:
+        yield
+    finally:
+        cm_attention.set_float32_probabilities(saved)
+
+
+def bf16_tolerance(tol, q, k, v):
+    """A bf16 call's tolerance against the plain version in the mode set:
+    ``tol``, and with p rounded once past S = 128, where the key-block
+    kernel rounds p before it is normalised (the plain version after),
+    2^-8 max|v| more."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    if fused_attention.p_mode() == "round_p" and k.shape[1] > fused_attention.BF16_WHOLE_S:
+        return tol + 2.0 ** -8 * v.float().abs().max().item()
+    return tol
+
+
+@contextlib.contextmanager
+def backward_kernel(kernel, units=None):
+    """Send the LSTM's backward to one of its kernels (fused_lstm.BACKWARD_KERNELS)
+    and, where ``units`` is given, that many hidden units a block, to check
+    and time a kernel off the route against the route's."""
+    from robo_vln_tpu_torch.ops import fused_lstm
+
+    saved = fused_lstm.BACKWARD_KERNEL, fused_lstm._backward_units
+    fused_lstm.BACKWARD_KERNEL = kernel
+    if units is not None:
+        fused_lstm._backward_units = lambda index, H, k=None: (units, saved[1](index, H)[1])
+    try:
+        yield
+    finally:
+        fused_lstm.BACKWARD_KERNEL, fused_lstm._backward_units = saved
 
 
 @contextlib.contextmanager
@@ -1042,7 +1213,8 @@ def main_path(device, profile=False):
           "GN-ResNet50 256 px, VisualLingAttn 256/4h, LSTM(512); bfloat16")
     t0 = time.perf_counter()
     agent = build_hcm_agent(mc, device=device, compute_dtype=cfg.TPU.PRECISION, seed=0,
-                            share_frozen_trunks=cfg.TPU.SHARE_FROZEN_TRUNKS)
+                            share_frozen_trunks=cfg.TPU.SHARE_FROZEN_TRUNKS,
+                            pallas_attention=cfg.TPU.PALLAS_ATTENTION)
     torch.cuda.synchronize()
     print(f"  build: {time.perf_counter() - t0:.2f} s, shared trunks: {agent.trunk_fn is not None}")
     if agent.trunk_fn is None:
@@ -1079,14 +1251,14 @@ def main_path(device, profile=False):
         torch.cuda.synchronize()
         print(f"  act tick {t} B=8: {(time.perf_counter() - t0) * 1e3:.3f} ms")
         check_finite("act", a, s, *state)
-    launches = {"lstm_seq": fused_lstm.launches,
-                "lstm_seq_backward": fused_lstm.backward_launches,
-                "cross_modal_attn": fused_attention.launches}
+    launches = path_launches()
     print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"  launches on the main path: {launches}")
     expected = 2 * (3 + 10)  # high + low LSTM, rgb + depth attention, per forward
+    # serving runs no backward, and its bf16 attention rounds p once (the default)
+    forward = ("lstm_seq", "cross_modal_attn", "cross_modal_attn_bf16_round_p")
     for name, count in launches.items():
-        want = 0 if name == "lstm_seq_backward" else expected  # serving runs no backward
+        want = expected if name in forward else 0
         if count != want:
             fail(f"{name} launched {count} times on the main path, expected {want}")
 
@@ -1219,11 +1391,14 @@ def train_path(device, profile=False):
         if launched != (2, 2, 2, 2):
             fail(f"train step {i} launched (lstm_seq, lstm_seq_backward, cross_modal_attn, "
                  f"of it bf16) {launched}, expected (2, 2, 2, 2)")
-    launches = {"lstm_seq": fused_lstm.launches,
-                "lstm_seq_backward": fused_lstm.backward_launches,
-                "cross_modal_attn": fused_attention.launches}
+    launches = path_launches()
     print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"  launches on the train path: {launches}")
+    want = {name: 2 * TRAIN_STEPS if name in ("lstm_seq", "lstm_seq_backward", "cross_modal_attn",
+                                              "cross_modal_attn_bf16_round_p") else 0
+            for name in launches}
+    if launches != want:
+        fail(f"the train path launched {launches}, expected {want}")
     unused = []
     for name, p, trainable in named:
         same = torch.equal(p, before[name])
@@ -1545,9 +1720,7 @@ def trainer_path(device, bare_step_ms, profile=False):
             else:
                 run_exp(None, "train", opts)
             run2_ms = (time.perf_counter() - t0) * 1e3
-        launches = {"lstm_seq": fused_lstm.launches,
-                    "lstm_seq_backward": fused_lstm.backward_launches,
-                    "cross_modal_attn": fused_attention.launches}
+        launches = path_launches()
         record["trainers"].clear()
         ckpts = ckpt_lib.list_checkpoints(cfg.CHECKPOINT_FOLDER)
         meta = ckpt_lib.load_metadata(ckpts[-1])
@@ -1567,9 +1740,12 @@ def trainer_path(device, bare_step_ms, profile=False):
         if (len(record["train_ms"]), len(record["val_ms"])) != (8, 4):
             fail(f"{len(record['train_ms'])} train steps and {len(record['val_ms'])} val "
                  "windows, expected 8 and 4")
-        if launches != {"lstm_seq": 24, "lstm_seq_backward": 16, "cross_modal_attn": 24}:
-            fail(f"the trainer path launched {launches}, expected 24 of each forward and 16 "
-                 "backward")
+        want = {"lstm_seq": 24, "lstm_seq_backward": 16, "lstm_seq_backward_dg_exchange": 0,
+                "cross_modal_attn": 24, "cross_modal_attn_bf16_round_p": 24,
+                "cross_modal_attn_bf16_split_p": 0}
+        if launches != want:
+            fail(f"the trainer path launched {launches}, expected {want}: 24 of each forward "
+                 "(bf16 attention rounding p once) and 16 of the partials backward")
         ckpt_bytes = dir_bytes(ckpt2)
         peak = torch.cuda.max_memory_allocated()
         steps = record["train_ms"]
@@ -1625,14 +1801,16 @@ def main():
     for name, log in logs.items():
         for kernel, regs, spill in ptxas_usage(log):
             print(f"  {name}: {kernel}: {regs} registers, {spill} bytes spill stores")
-            if kernel.startswith(("cross_modal_attn_f32tc", "cross_modal_attn_bf16_blocks")) \
-                    and spill:
+            if kernel.startswith(("cross_modal_attn_f32tc", "cross_modal_attn_bf16_blocks",
+                                  "lstm_seq_backward_partials")) and spill:
                 fail(f"{kernel} spills {spill} bytes")
 
     gen = torch.Generator().manual_seed(0)
     with float32_exact(torch.float32):  # the float32 plain versions without TF32
-        kernels = [*check_lstm(gen, device), check_attention(gen, device)]
-        kernels[2].update(check_wider_shapes(gen, device))
+        lstm_kernels = check_lstm(gen, device)
+        bf16_modes, attention = check_attention(gen, device)
+        attention.update(check_wider_shapes(gen, device))
+    kernels = [*lstm_kernels, attention, *bf16_modes]
     profile = "--profile" in sys.argv[1:]
     # each path zeroes the launch counts before it runs; both tensor-core
     # routes' key blocks (S > 128) are read after each
@@ -1654,15 +1832,15 @@ def main():
           f"trainer paths: {key_blocks}")
     if any(key_blocks.values()):
         fail("an HCM path launched a key-block or one-float-copy attention kernel")
-    kernels[2].update(key_blocks)
+    attention.update(key_blocks)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
         k["trainer_launches"] = trainer_launches[k["name"]]
     # the serving path runs no backward: the backward's launches are the train path's
-    backward = kernels[1]
-    backward["serving_launches"], backward["launches"] = (backward["launches"],
-                                                          backward["train_launches"])
+    for backward in kernels[1:3]:
+        backward["serving_launches"], backward["launches"] = (backward["launches"],
+                                                              backward["train_launches"])
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ ROADMAP item (§A) that will read it.  Keys that only the port reads are
 marked "port-only".  The JAX package's other keys are not in this tree:
 ``jax_only.py`` lists them with their JAX defaults, and ``get_config``
 refuses one set to another value where the port would drop it (such as
-``TPU.PALLAS_ATTENTION``), naming the ROADMAP item that would port it, and
+``EVAL.ON_DEVICE``), naming the ROADMAP item that would port it, and
 takes any value of those no value of which matters (such as ``TPU.DONATE``:
 eager PyTorch updates parameters in place, so there is no buffer to donate).
 """
@@ -61,6 +61,11 @@ _C.TPU.APPLY_INFLECTION_WEIGHTS = False
 # deviation from the reference (off): mask the velocity MSE by step validity
 # instead of zeroing predictions where the target is exactly 0
 _C.TPU.VALID_MASK_VELOCITY_MSE = False
+# bfloat16 attention's probabilities p before p·v (the JAX package's key, its
+# default): off rounds p to bfloat16 once, as XLA's attention does there; on
+# keeps p to about 16 bits (p_hi + p_lo), as its Pallas kernel keeps p in
+# float32.  The kernel runs either way (ops/cm_attention.set_float32_probabilities)
+_C.TPU.PALLAS_ATTENTION = False
 
 # the keys of the yaml's EVAL stanza; the eval slice reads them (ROADMAP §A
 # item 3)

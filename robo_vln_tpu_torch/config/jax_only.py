@@ -48,10 +48,6 @@ UNPORTED: Dict[str, Tuple[Any, str]] = {
     # the data-parallel mesh
     "TPU.MESH_AXES": (["data", "model"], "§A item 7"),
     "TPU.MESH_SHAPE": ([-1, 1], "§A item 7"),
-    # True sends the JAX attention to its Pallas kernel (float32 p); the
-    # default rounds p to bf16 before p·v in bf16; the port's kernels do
-    # neither (p_hi + p_lo, about 16 bits)
-    "TPU.PALLAS_ATTENTION": (False, "§C C6"),
 }
 
 

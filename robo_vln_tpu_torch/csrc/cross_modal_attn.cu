@@ -23,11 +23,15 @@
 // -inf of padded keys and the softmax stay in float32 in the accumulator
 // registers (S ≤ 128 fits whole, so no online rescaling; row max and sum by
 // quad shuffles; exp2 of logits scaled by log2 e).  p·v runs on the tensor
-// cores too, with the accumulator reused as the A fragment: p is split into
-// p_hi = bf16(p) and p_lo = bf16(p - p_hi), two products against the same V
-// fragment (ldmatrix.trans), which keeps about 16 bits of the float32
-// probabilities; the only rounding left is that of the bf16 output.  The
-// output goes through the warp's own rows of shared memory and leaves in
+// cores too, with the accumulator reused as the A fragment, in one of two
+// modes (a template argument; the C entry's round_p).  By default p is
+// rounded to bf16 once, one product against the V fragment (ldmatrix.trans),
+// as the JAX package's default attention (XLA, cm_attention.py:102) rounds
+// it.  Otherwise p is split into p_hi = bf16(p) and p_lo = bf16(p - p_hi),
+// two products against the same V fragment, which keeps about 16 bits of
+// the float32 probabilities, as its Pallas kernel keeps them
+// (TPU.PALLAS_ATTENTION on); the only rounding left is then that of the
+// bf16 output.  The output goes through the warp's own rows of shared memory and leaves in
 // coalesced 16-byte stores.  A block does not overlap its own copies with its
 // arithmetic; the several blocks on each SM do, so the register budget is set
 // (min_blocks) to keep 6 blocks of 4 warps on an SM at S = 64 and 8 at S = 16.
@@ -42,8 +46,8 @@
 // TFLOP/s), but on the H100 the kernel is held by its arithmetic: with its
 // global loads removed it kept 89% of its time, and mma.sync peaks at about
 // 650 TFLOP/s there (scripts/attention_probe.py measures both).  Each key
-// is three bf16 products (q·kᵀ, p_hi·v, p_lo·v) and some ten float32
-// instructions of softmax a logit.  What the design does about it: K and V
+// is three bf16 products (q·kᵀ, p_hi·v, p_lo·v; two with p rounded once)
+// and some ten float32 instructions of softmax a logit.  What the design does about it: K and V
 // stream through a ring of kBf16Stages key blocks of 16·kBf16KeyChunks
 // keys, the next ones' 16-byte cp.async copies in flight while the warps
 // multiply one, one barrier a key block; shared memory is a constant of D
@@ -58,8 +62,9 @@
 // reference moves only when a key block's max passes it by more than 2^8,
 // so p <= 2^8, and the sum and the output, taken against the same
 // reference, are rescaled only then; the common step needs no shuffle.  The
-// products, the split of p and the float32 softmax in base 2 are otherwise
-// the whole-key kernel's; the output is divided by the sum at the end.
+// products, the two modes of p and the float32 softmax in base 2 are
+// otherwise the whole-key kernel's; the output is divided by the sum at the
+// end (so p is rounded before it is normalised: see the kernel).
 //
 // float32 on the tensor cores (3xTF32), for any d_k and d_v from 1 to 256
 // (d_k != d_v allowed), any S ≥ 1 and any float32 pointer; one kernel for
@@ -365,13 +370,24 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-// p = p_hi + p_lo to about 16 bits, for two probabilities x and y
-__device__ __forceinline__ void split_pack(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
+// Two probabilities x and y as bf16 A-fragment words: rounded to bf16 once
+// (kRoundP: hi only; lo is not set), or split p = p_hi + p_lo to about 16 bits
+template <bool kRoundP>
+__device__ __forceinline__ void p_pack(float x, float y, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
   hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+  if constexpr (!kRoundP) {
+    const float2 hf = __bfloat1622float2(h);
+    lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+  }
+}
+
+// c += p·v on one m16n8k16 tile: p_bf16·v (kRoundP), else p_lo·v then p_hi·v
+template <bool kRoundP>
+__device__ __forceinline__ void p_times_v(float (&c)[4], const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (!kRoundP) mma_bf16(c, lo, b0, b1);
+  mma_bf16(c, hi, b0, b1);
 }
 
 // A warp's 16 output rows (o_acc[t]: columns 8t..8t+7 of rows lane/4 and
@@ -416,13 +432,15 @@ __host__ __device__ constexpr size_t bf16_smem_bytes(int D, int S) {
   return sizeof(__nv_bfloat16) * (D + kPad) * (kTileQ + 2 * ((S + 15) & ~15));
 }
 
-// S ≤ 128.  D: d_k = d_v; KC: S rounded up to 16, over 16 (1, 2, 4 or 8).
-// One block per (example, head, 64-query tile), tile fastest.  The Q tile
-// and the head's K and V (S rounded up to 16 with zero rows) go to shared
-// memory; each warp takes 16 query rows, normalises its probabilities
-// before p·v, and its output goes back through its own rows of the Q tile
-// to leave in 16-byte stores.
-template <int D, int KC>
+// S ≤ 128.  D: d_k = d_v; KC: S rounded up to 16, over 16 (1, 2, 4 or 8);
+// kRoundP: p rounded to bf16 once before p·v (see cross_modal_attn below),
+// else split into p_hi + p_lo.  One block per (example, head, 64-query
+// tile), tile fastest.  The Q tile and the head's K and V (S rounded up to
+// 16 with zero rows) go to shared memory; each warp takes 16 query rows,
+// normalises its probabilities before p·v (so the rounding falls where
+// XLA's does: on the normalised p), and its output goes back through its
+// own rows of the Q tile to leave in 16-byte stores.
+template <int D, int KC, bool kRoundP>
 __global__ void __launch_bounds__(kMmaWarps * 32, min_blocks<D, KC>())
 cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -529,8 +547,8 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     inv[h] = 1.0f / sum[h];
   }
 
-  // out = p_hi·v + p_lo·v, p normalised before the split; n-tile t of
-  // o_acc holds columns 8t..8t+7
+  // out = p·v, p normalised before it is rounded (p_bf16) or split (p_hi
+  // + p_lo); n-tile t of o_acc holds columns 8t..8t+7
   float o_acc[D / 8][4];
 #pragma unroll
   for (int t = 0; t < D / 8; ++t)
@@ -541,19 +559,17 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     if (c < chunks) {
       // the A fragment of keys 16c..+15 is n-tiles 2c and 2c + 1
       uint32_t hi[4], lo[4];
-      split_pack(s_acc[2 * c][0] * inv[0], s_acc[2 * c][1] * inv[0], hi[0], lo[0]);
-      split_pack(s_acc[2 * c][2] * inv[1], s_acc[2 * c][3] * inv[1], hi[1], lo[1]);
-      split_pack(s_acc[2 * c + 1][0] * inv[0], s_acc[2 * c + 1][1] * inv[0], hi[2], lo[2]);
-      split_pack(s_acc[2 * c + 1][2] * inv[1], s_acc[2 * c + 1][3] * inv[1], hi[3], lo[3]);
+      p_pack<kRoundP>(s_acc[2 * c][0] * inv[0], s_acc[2 * c][1] * inv[0], hi[0], lo[0]);
+      p_pack<kRoundP>(s_acc[2 * c][2] * inv[1], s_acc[2 * c][3] * inv[1], hi[1], lo[1]);
+      p_pack<kRoundP>(s_acc[2 * c + 1][0] * inv[0], s_acc[2 * c + 1][1] * inv[0], hi[2], lo[2]);
+      p_pack<kRoundP>(s_acc[2 * c + 1][2] * inv[1], s_acc[2 * c + 1][3] * inv[1], hi[3], lo[3]);
 #pragma unroll
       for (int dt = 0; dt < D / 16; ++dt) {
         uint32_t bv[4];  // b0, b1 of columns 16dt..+7, then of 16dt+8..+15
         ldmatrix_x4_trans(bv, v_s + (16 * c + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
                                   16 * dt + (lane >> 4) * 8);
-        mma_bf16(o_acc[2 * dt], lo, bv[0], bv[1]);
-        mma_bf16(o_acc[2 * dt], hi, bv[0], bv[1]);
-        mma_bf16(o_acc[2 * dt + 1], lo, bv[2], bv[3]);
-        mma_bf16(o_acc[2 * dt + 1], hi, bv[2], bv[3]);
+        p_times_v<kRoundP>(o_acc[2 * dt], hi, lo, bv[0], bv[1]);
+        p_times_v<kRoundP>(o_acc[2 * dt + 1], hi, lo, bv[2], bv[3]);
       }
     }
   }
@@ -561,18 +577,18 @@ cross_modal_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                      ld, rows - row0, lane);
 }
 
-template <int D, int KC>
+template <int D, int KC, bool kRoundP>
 int launch_bf16_tiles(const void* q, const void* k, const void* v, void* out,
                       int N, int Lq, int S, int heads, cudaStream_t stream) {
   static SmemOptIn opt_in;
   const size_t smem = bf16_smem_bytes(D, S);
   const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_bf16_kernel<D, KC>, smem);
+      opt_in.ensure((const void*)cross_modal_attn_bf16_kernel<D, KC, kRoundP>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (Lq + kTileQ - 1) / kTileQ;
   const long long blocks = (long long)N * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cross_modal_attn_bf16_kernel<D, KC>
+  cross_modal_attn_bf16_kernel<D, KC, kRoundP>
       <<<(unsigned)blocks, kMmaWarps * 32, smem, stream>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -641,11 +657,16 @@ __device__ __forceinline__ float ex2(float x) {
 // mask and skips the 16-key chunks wholly past S, so every other step runs
 // without a branch.  The softmax is online, in float32 and base 2, against
 // a lazy reference max per row (of logits scaled by log2 e / √d; see the
-// step): p = 2^(logit·scale - max) (one FMA) goes unnormalised into
-// p_hi·v + p_lo·v, and the output is divided by the sum at the end.  Every
+// step): p = 2^(logit·scale - max) (one FMA) goes unnormalised into p·v,
+// split into p_hi·v + p_lo·v or, with kRoundP, rounded to bf16 once, and
+// the output is divided by the sum (of the float32 p) at the end.  So with
+// kRoundP the rounding falls on p against the lazy reference, not on the
+// normalised p that XLA rounds: bf16 rounding is relative, so the two
+// roundings each move a key's term by at most 2^-9 of it, and the outputs
+// differ by at most 2^-8 max|v| before the output's own rounding.  Every
 // warp copies and meets the barriers, including a warp with no query rows
 // in a partial tile, which multiplies nothing.
-template <int D>
+template <int D, bool kRoundP>
 __global__ void __launch_bounds__(kBf16BlockWarps * 32, bf16_blocks_an_sm(D))
 cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
                                     const __nv_bfloat16* __restrict__ k,
@@ -719,7 +740,7 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
                           2 * (((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8);
   const uint32_t v_lane = (uint32_t)__cvta_generic_to_shared(ring) + 2 * kKeys * P +
                           2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8);
-  // out = p_hi·v + p_lo·v; n-tile t of o_acc holds columns 8t..8t+7
+  // out = p·v; n-tile t of o_acc holds columns 8t..8t+7
   float o_acc[D / 8][4];
 #pragma unroll
   for (int t = 0; t < D / 8; ++t)
@@ -808,18 +829,16 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
       if (!kLast || 16 * c < valid) {
         // the A fragment of keys 16c..+15 is n-tiles 2c and 2c + 1, p as it is
         uint32_t hi[4], lo[4];
-        split_pack(s_acc[2 * c][0], s_acc[2 * c][1], hi[0], lo[0]);
-        split_pack(s_acc[2 * c][2], s_acc[2 * c][3], hi[1], lo[1]);
-        split_pack(s_acc[2 * c + 1][0], s_acc[2 * c + 1][1], hi[2], lo[2]);
-        split_pack(s_acc[2 * c + 1][2], s_acc[2 * c + 1][3], hi[3], lo[3]);
+        p_pack<kRoundP>(s_acc[2 * c][0], s_acc[2 * c][1], hi[0], lo[0]);
+        p_pack<kRoundP>(s_acc[2 * c][2], s_acc[2 * c][3], hi[1], lo[1]);
+        p_pack<kRoundP>(s_acc[2 * c + 1][0], s_acc[2 * c + 1][1], hi[2], lo[2]);
+        p_pack<kRoundP>(s_acc[2 * c + 1][2], s_acc[2 * c + 1][3], hi[3], lo[3]);
 #pragma unroll
         for (int dt = 0; dt < D / 16; ++dt) {
           uint32_t bv[4];  // b0, b1 of columns 16dt..+7, then of 16dt+8..+15
           ldmatrix_x4_trans(bv, v_at + 2 * (16 * c * P + 16 * dt));
-          mma_bf16(o_acc[2 * dt], lo, bv[0], bv[1]);
-          mma_bf16(o_acc[2 * dt], hi, bv[0], bv[1]);
-          mma_bf16(o_acc[2 * dt + 1], lo, bv[2], bv[3]);
-          mma_bf16(o_acc[2 * dt + 1], hi, bv[2], bv[3]);
+          p_times_v<kRoundP>(o_acc[2 * dt], hi, lo, bv[0], bv[1]);
+          p_times_v<kRoundP>(o_acc[2 * dt + 1], hi, lo, bv[2], bv[3]);
         }
       }
     }
@@ -853,20 +872,20 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
                      ld, rows - row0, lane);
 }
 
-template <int D>
+template <int D, bool kRoundP>
 int launch_bf16_blocks(const void* q, const void* k, const void* v, void* out, int N,
                        int Lq, int S, int heads, cudaStream_t stream) {
   static SmemOptIn opt_in;
   constexpr size_t smem = bf16_blocks_smem_bytes(D);
   static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
   const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_bf16_blocks_kernel<D>, smem);
+      opt_in.ensure((const void*)cross_modal_attn_bf16_blocks_kernel<D, kRoundP>, smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int kTile = 16 * kBf16BlockWarps;
   const int tiles = (Lq + kTile - 1) / kTile;
   const long long blocks = (long long)N * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cross_modal_attn_bf16_blocks_kernel<D>
+  cross_modal_attn_bf16_blocks_kernel<D, kRoundP>
       <<<(unsigned)blocks, kBf16BlockWarps * 32, smem, stream>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -876,30 +895,38 @@ int launch_bf16_blocks(const void* q, const void* k, const void* v, void* out, i
 
 // The keys whole (S <= 128) or, where key_blocks, streamed in key blocks
 // (any S).
-template <int D>
+template <int D, bool kRoundP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int N,
                 int Lq, int S, int heads, bool key_blocks, cudaStream_t s) {
-  if (key_blocks) return launch_bf16_blocks<D>(q, k, v, out, N, Lq, S, heads, s);
-  if (S <= 16) return launch_bf16_tiles<D, 1>(q, k, v, out, N, Lq, S, heads, s);
-  if (S <= 32) return launch_bf16_tiles<D, 2>(q, k, v, out, N, Lq, S, heads, s);
-  if (S <= 64) return launch_bf16_tiles<D, 4>(q, k, v, out, N, Lq, S, heads, s);
-  if (S <= 128) return launch_bf16_tiles<D, 8>(q, k, v, out, N, Lq, S, heads, s);
+  if (key_blocks) return launch_bf16_blocks<D, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
+  if (S <= 16) return launch_bf16_tiles<D, 1, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
+  if (S <= 32) return launch_bf16_tiles<D, 2, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
+  if (S <= 64) return launch_bf16_tiles<D, 4, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
+  if (S <= 128) return launch_bf16_tiles<D, 8, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
   return (int)cudaErrorInvalidValue;
 }
 
-int launch_bf16_any(const void* q, const void* k, const void* v, void* out, int N,
-                    int Lq, int S, int heads, int d, bool key_blocks, cudaStream_t s) {
+template <bool kRoundP>
+int launch_bf16_mode(const void* q, const void* k, const void* v, void* out, int N,
+                     int Lq, int S, int heads, int d, bool key_blocks, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_bf16<16>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 32: return launch_bf16<32>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 48: return launch_bf16<48>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 64: return launch_bf16<64>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 80: return launch_bf16<80>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 96: return launch_bf16<96>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 112: return launch_bf16<112>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 128: return launch_bf16<128>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 16: return launch_bf16<16, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 32: return launch_bf16<32, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 48: return launch_bf16<48, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 64: return launch_bf16<64, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 80: return launch_bf16<80, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 96: return launch_bf16<96, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 112: return launch_bf16<112, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+    case 128: return launch_bf16<128, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int launch_bf16_any(const void* q, const void* k, const void* v, void* out, int N,
+                    int Lq, int S, int heads, int d, bool key_blocks, bool round_p,
+                    cudaStream_t s) {
+  if (round_p) return launch_bf16_mode<true>(q, k, v, out, N, Lq, S, heads, d, key_blocks, s);
+  return launch_bf16_mode<false>(q, k, v, out, N, Lq, S, heads, d, key_blocks, s);
 }
 
 // ------------------------------------------- float32 on the tensor cores
@@ -1628,15 +1655,20 @@ int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
 // (for those two routes only) copies one float at a time, for pointers
 // aligned to 4 bytes only or dk or dv off a multiple of 4, and is required
 // there.  The CUDA-core float32 route takes any sizes whose q rows and
-// probabilities fit in shared memory.
+// probabilities fit in shared memory.  round_p (for the bfloat16 routes
+// only): p rounded to bf16 once before p·v, as XLA's attention in the JAX
+// package rounds it (TPU.PALLAS_ATTENTION off, the default); without it p
+// = p_hi + p_lo keeps about 16 bits, as the Pallas kernel's float32 p.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
-                                int dk, int dv, int route, int narrow, void* stream) {
+                                int dk, int dv, int route, int narrow, int round_p,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (narrow && route != 2 && route != 3) return (int)cudaErrorInvalidValue;
+  if (round_p && route != 1 && route != 4) return (int)cudaErrorInvalidValue;
   if (route == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if ((route == 1 || route == 4) && dk == dv && S >= 1)
-    return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == 4, s);
+    return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == 4, round_p != 0, s);
   const int d_max = route == 3 ? 256 : 128;
   if ((route == 2 || route == 3) && dk >= 1 && dv >= 1 && dk <= d_max && dv <= d_max &&
       S >= 1)

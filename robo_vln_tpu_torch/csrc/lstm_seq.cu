@@ -45,8 +45,12 @@
 // of all earlier launches on it; the last block to finish advances it, so a
 // word left by an earlier launch never carries a tag this one waits for.
 //
-// The backward, lstm_seq_backward_kernel (below), is the same grid run in
-// reverse over the window; its note says what differs.
+// The backward has two kernels over the same grid, run in reverse over the
+// window: lstm_seq_backward_kernel (below), which exchanges each step's
+// whole dg, and lstm_seq_backward_partials_kernel, which exchanges partial
+// sums of dh~ and is the route; their notes say what differs.  Each kernel
+// also runs as its grid with nothing but its exchange (kExchangeOnly), to
+// measure the floor that the exchange puts under a step.
 //
 // The C entry points launch on the caller's stream and return a CUDA error
 // code (0 on success), or kNotCoResident when the grid cannot be co-resident,
@@ -66,6 +70,8 @@ constexpr int kTaskBatch = 2;      // batch rows of one warp task (with 4 gate r
 constexpr int kInFlight = 8;       // h words a thread loads before it waits
 constexpr int kBwdInFlight = 16;   // the backward's dg words a thread loads before it waits
 constexpr int kSweep = 8;          // steps of the backward's c_t sweep loaded at a time
+constexpr int kMaxUnits = 8;       // units a block of the partials kernel
+constexpr int kPartialsInFlight = 16;  // partials a lane loads before it waits
 constexpr int kNotCoResident = 1000;
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxDevices = 64;
@@ -316,7 +322,7 @@ lstm_seq_kernel(const float* __restrict__ gates_x,  // (T, B, 4H)
 // the step before, while the exchange waits.  Tags and the epoch work as in
 // the forward: this launch's tags are epoch + 1 + s, and the last block to
 // finish advances the epoch by T, so the two kernels share one workspace.
-template <int KC>
+template <int KC, bool kExchangeOnly>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_seq_backward_kernel(const float* __restrict__ gates,   // (T, B, 4H) pre-activations
                          const float* __restrict__ masks,   // (T, B)
@@ -356,7 +362,7 @@ lstm_seq_backward_kernel(const float* __restrict__ gates,   // (T, B, 4H) pre-ac
 
   // c_t of the lane's cell, t = 0 .. T-1, into cs
   float c = 0.0f;
-  if (owner) {
+  if (!kExchangeOnly && owner) {
     c = __ldg(c0 + cell);
     for (int t0 = 0; t0 < T; t0 += kSweep) {
       float gx[kSweep][3], m[kSweep];
@@ -386,20 +392,22 @@ lstm_seq_backward_kernel(const float* __restrict__ gates,   // (T, B, 4H) pre-ac
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
       const int cc = lane + 32 * j;
-      w[gate][j] = active && cc < chunks ? __ldg(row + cc) : make_float4(0.f, 0.f, 0.f, 0.f);
+      w[gate][j] = !kExchangeOnly && active && cc < chunks ? __ldg(row + cc)
+                                                            : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 
   // the owner's carries: m_{t+1} dh~_{t+1} and m_{t+1} dc~_{t+1} (g_hT and g_cT
   // at t = T-1), dc~ and the mask of the step after, c_t
   float dh_carry = 0.0f, dc_carry = 0.0f, dc_tilde = 0.0f, m_next = 0.0f, c_t = c;
-  if (owner) {
+  if (!kExchangeOnly && owner) {
     dh_carry = __ldg(g_hT + cell);
     dc_carry = __ldg(g_cT + cell);
   }
-  float pg[4], pgo = 0.0f, pm = 0.0f, pcp = 0.0f;  // step t's inputs, and c_{t-1}
+  // step t's inputs, and c_{t-1}
+  float pg[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pgo = 0.0f, pm = 0.0f, pcp = 0.0f;
   auto prefetch = [&](int t) {
-    if (owner) {
+    if (!kExchangeOnly && owner) {
       const float* p = gates + (size_t)t * BG + gcell;
 #pragma unroll
       for (int g = 0; g < 4; ++g) pg[g] = __ldg(p + g * H);
@@ -435,16 +443,18 @@ lstm_seq_backward_kernel(const float* __restrict__ gates,   // (T, B, 4H) pre-ac
           for (int j = 0; j < kBwdInFlight; ++j)
             if ((unsigned)(v[j] >> 32) != want) v[j] = load_word(src + base + j * kThreads);
         }
+        if (!kExchangeOnly) {
 #pragma unroll
-        for (int j = 0; j < kBwdInFlight; ++j) {
-          const int i = base + j * kThreads;
-          if (i < BG) dst_s[i] = __uint_as_float((unsigned)v[j]);
+          for (int j = 0; j < kBwdInFlight; ++j) {
+            const int i = base + j * kThreads;
+            if (i < BG) dst_s[i] = __uint_as_float((unsigned)v[j]);
+          }
         }
       }
     }
     __syncthreads();
 
-    if (s > 0) {
+    if (!kExchangeOnly && s > 0) {
       // dh~_{t+1} = dg_{t+1} · W_hh^T for the lane's cell
       float dht = 0.0f;
       if (active) {
@@ -491,7 +501,12 @@ lstm_seq_backward_kernel(const float* __restrict__ gates,   // (T, B, 4H) pre-ac
     if (s == T) break;
 
     // step t of the lane's cell; publish its dg for the step before
-    if (owner) {
+    if (kExchangeOnly && owner) {
+      u64* dst = xbuf + (size_t)(s & 1) * BG + gcell;
+      const u64 tag = (u64)(tag0 + (unsigned)s) << 32;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) store_word(dst + g * H, tag);
+    } else if (owner) {
       const float ig = sigmoid_fast(pg[0]), fg = sigmoid_fast(pg[1]);
       const float gg = tanh_fast(pg[2]), og = sigmoid_fast(pg[3]);
       const float tc = tanh_fast(c_t);
@@ -514,7 +529,244 @@ lstm_seq_backward_kernel(const float* __restrict__ gates,   // (T, B, 4H) pre-ac
     }
     if (t > 0) prefetch(t - 1);
   }
-  if (owner) {
+  if (!kExchangeOnly && owner) {
+    d_h0[cell] = dh_carry;
+    d_c0[cell] = dc_carry;
+  }
+
+  // the last block to finish advances the epoch past this launch's tags
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(ws + 1, 1ull) == (u64)(gridDim.x - 1)) {
+      ws[1] = 0;
+      ws[0] = (u64)(tag0 - 1u + (unsigned)T);
+      __threadfence();
+    }
+  }
+}
+
+// The backward that exchanges partial sums, the route of the backward
+// (lstm_seq_backward_kernel above stays, for a forced comparison): the same
+// VJP, outputs, c_t sweep, step inputs, tags and epoch; what crosses the
+// grid differs.  The kernel above is held by its exchange: every block
+// reads the whole dg of the step after, B·4H tagged words (32 words a
+// thread in two dependent rounds at B = 4, H = 512; 8 MiB of L2 reads a
+// step over the grid), 4x the words of the forward's h.  Here dh~ = dg ·
+// W_hh^T is cut by W_hh's columns.  Block j holds the columns gate·H + v of
+// its U units v, the rows of W_hh^T that the forward holds (thread tid their
+// entries k = tid + 256·i, i < KPT, in registers), and once its cells' dg
+// of a step are in shared memory it forms, for every batch row b and every
+// unit k, its partial sum over those 4U columns
+//   P_j[b, k] = Σ_gate Σ_u dg[b, gate·H + unit0 + u] · W_hh[k, gate·H + unit0 + u]
+// (gate by gate, unit by unit, in one float32 register) and publishes it
+// as B·H tagged words (coalesced stores; 2 MiB a step over the grid at B =
+// 4, H = 512).  The owner of cell (b, v) then needs only the partials of v,
+// one from every block: U·B words a block and step (as many as the
+// forward's h), and those of one row of one block lie side by side.  Warp w
+// reads the rows w, w + 8, ...: lane l the words of unit u = l mod U_p (U
+// rounded up to a power of 2) from blocks l / U_p + G·r, r = 0, 1, ... (G =
+// 32 / U_p lanes a unit), kPartialsInFlight at a time, reloading together
+// every word not yet tagged; it sums them in r's order, and an xor-shuffle
+// tree over the G lanes of a unit (offsets 16, 8, ..., U_p) sums the blocks.
+// Lane u + U_p·i of warp w owns the cell (row w + 8i, unit unit0 + u), so a
+// launch takes up to 8·G rows.  A step pays one exchange of the forward's
+// size plus the partials' stores, one block barrier (between the owners'
+// dg in shared memory and the partials) and B·4U multiply-adds per unit k.
+template <int KPT, bool kExchangeOnly>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_seq_backward_partials_kernel(const float* __restrict__ gates,   // (T, B, 4H) pre-activations
+                                  const float* __restrict__ masks,   // (T, B)
+                                  const float* __restrict__ c0,      // (B, H)
+                                  const float* __restrict__ w_hh_t,  // (4H, H)
+                                  const float* __restrict__ g_outs,  // (T, B, H)
+                                  const float* __restrict__ g_hT,    // (B, H)
+                                  const float* __restrict__ g_cT,    // (B, H)
+                                  float* __restrict__ d_gates,       // (T, B, 4H)
+                                  float* __restrict__ d_h0,          // (B, H)
+                                  float* __restrict__ d_c0,          // (B, H)
+                                  float* cs,                         // (T, B, H): c_t
+                                  float* __restrict__ d_h_tilde,     // (T, B, H) or null
+                                  float* __restrict__ d_c_tilde,     // (T, B, H) or null
+                                  u64* ws, int T, int B, int H, int U) {
+  extern __shared__ float4 smem4[];
+  // the block's cells' dg by stage parity: 2 x (B, 4 gates, kMaxUnits), zero
+  // past U and past H
+  float* dg_s = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int blocks = gridDim.x, unit0 = blockIdx.x * U;
+  const int BH = B * H, G = 4 * H;
+  const size_t slab = (size_t)blocks * BH;  // one buffer of partials: (blocks, B, H)
+  const unsigned tag0 = (unsigned)load_word(ws) + 1u;
+  u64* xbuf = ws + 2;
+
+  int up = 1;  // U rounded up to a power of 2
+  while (up < U) up <<= 1;
+  const int lanes = 32 / up;  // lanes of one unit
+  const int u = lane & (up - 1), sub = lane / up;
+  const bool unit_ok = u < U && unit0 + u < H;
+  const int rows = warp < B ? (B - 1 - warp) / kWarps + 1 : 0;  // the warp's rows
+  const int cell_b = warp + kWarps * sub;
+  const bool owner = unit_ok && sub < rows;
+  const size_t cell = (size_t)cell_b * H + unit0 + u;   // in a (B, H) slab
+  const size_t gcell = (size_t)cell_b * G + unit0 + u;  // its gate 0 in a (B, 4H) slab
+
+  for (int i = tid; i < 2 * B * 4 * kMaxUnits; i += kThreads) dg_s[i] = 0.0f;
+  __syncthreads();  // before any owner writes its cells' dg
+
+  // c_t of the lane's cell, t = 0 .. T-1, into cs
+  float c = 0.0f;
+  if (!kExchangeOnly && owner) {
+    c = __ldg(c0 + cell);
+    for (int t0 = 0; t0 < T; t0 += kSweep) {
+      float gx[kSweep][3], m[kSweep];
+#pragma unroll
+      for (int k = 0; k < kSweep; ++k) {
+        const int t = min(t0 + k, T - 1);
+        const float* p = gates + (size_t)t * B * G + gcell;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) gx[k][g] = __ldg(p + g * H);
+        m[k] = __ldg(masks + (size_t)t * B + cell_b);
+      }
+#pragma unroll
+      for (int k = 0; k < kSweep; ++k) {
+        if (t0 + k < T) {
+          c = sigmoid_fast(gx[k][1]) * (c * m[k]) + sigmoid_fast(gx[k][0]) * tanh_fast(gx[k][2]);
+          cs[(size_t)(t0 + k) * BH + cell] = c;
+        }
+      }
+    }
+  }
+
+  float w[KPT][4][kMaxUnits];  // W_hh^T[gate·H + unit0 + u, tid + kThreads·i]
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int k = tid + kThreads * i;
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+      for (int uu = 0; uu < kMaxUnits; ++uu)
+        w[i][gate][uu] = !kExchangeOnly && k < H && uu < U && unit0 + uu < H
+                             ? __ldg(w_hh_t + (size_t)(gate * H + unit0 + uu) * H + k)
+                             : 0.0f;
+  }
+
+  // the owner's carries, as in the kernel above
+  float dh_carry = 0.0f, dc_carry = 0.0f, dc_tilde = 0.0f, m_next = 0.0f, c_t = c;
+  if (!kExchangeOnly && owner) {
+    dh_carry = __ldg(g_hT + cell);
+    dc_carry = __ldg(g_cT + cell);
+  }
+  // step t's inputs, and c_{t-1}
+  float pg[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pgo = 0.0f, pm = 0.0f, pcp = 0.0f;
+  auto prefetch = [&](int t) {
+    if (!kExchangeOnly && owner) {
+      const float* p = gates + (size_t)t * B * G + gcell;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) pg[g] = __ldg(p + g * H);
+      pgo = __ldg(g_outs + (size_t)t * BH + cell);
+      pm = __ldg(masks + (size_t)t * B + cell_b);
+      pcp = t > 0 ? cs[(size_t)(t - 1) * BH + cell] : __ldg(c0 + cell);  // cs: this thread's stores
+    }
+  };
+  prefetch(T - 1);
+
+  for (int s = 0; s <= T; ++s) {
+    const int t = T - 1 - s;
+    if (s > 0) {
+      // dh~_{t+1} of the warp's rows, the partials of every block summed
+      const u64* src = xbuf + (size_t)((s - 1) & 1) * slab;
+      const unsigned want = tag0 + (unsigned)(s - 1);
+      float dht = 0.0f;
+      for (int i = 0; i < rows; ++i) {  // uniform across the warp
+        const u64* at = src + (size_t)(warp + kWarps * i) * H + unit0 + u;
+        float sum = 0.0f;
+        for (int r0 = 0; lanes * r0 < blocks; r0 += kPartialsInFlight) {
+          u64 v[kPartialsInFlight];
+#pragma unroll
+          for (int j = 0; j < kPartialsInFlight; ++j) {
+            const int blk = sub + lanes * (r0 + j);
+            v[j] = unit_ok && blk < blocks ? load_word(at + (size_t)blk * BH) : (u64)want << 32;
+          }
+          for (int spins = 0;; ++spins) {
+            bool ready = true;
+#pragma unroll
+            for (int j = 0; j < kPartialsInFlight; ++j) ready &= (unsigned)(v[j] >> 32) == want;
+            if (ready) break;
+            if (spins > kMaxSpins) __trap();  // a lost word: fail, never hang
+#pragma unroll
+            for (int j = 0; j < kPartialsInFlight; ++j)
+              if ((unsigned)(v[j] >> 32) != want)
+                v[j] = load_word(at + (size_t)(sub + lanes * (r0 + j)) * BH);
+          }
+#pragma unroll
+          for (int j = 0; j < kPartialsInFlight; ++j) sum += __uint_as_float((unsigned)v[j]);
+        }
+        for (int off = 16; off >= up; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (sub == i) dht = sum;
+      }
+      if (!kExchangeOnly && owner) {
+        if (d_h_tilde) d_h_tilde[(size_t)(t + 1) * BH + cell] = dht;
+        dh_carry = m_next * dht;
+        dc_carry = m_next * dc_tilde;
+      }
+    }
+    if (s == T) break;
+
+    // step t of the lane's cell, its dg into shared memory
+    const int par = s & 1;
+    if (!kExchangeOnly && owner) {
+      const float ig = sigmoid_fast(pg[0]), fg = sigmoid_fast(pg[1]);
+      const float gg = tanh_fast(pg[2]), og = sigmoid_fast(pg[3]);
+      const float tc = tanh_fast(c_t);
+      const float dh = pgo + dh_carry;
+      const float dc = dc_carry + dh * og * (1.0f - tc * tc);
+      const float dg[4] = {dc * gg * ig * (1.0f - ig), dc * (pcp * pm) * fg * (1.0f - fg),
+                           dc * ig * (1.0f - gg * gg), dh * tc * og * (1.0f - og)};
+      float* out = d_gates + (size_t)t * B * G + gcell;
+      float* mine = dg_s + (par * B + cell_b) * 4 * kMaxUnits + u;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        out[g * H] = dg[g];
+        mine[g * kMaxUnits] = dg[g];
+      }
+      dc_tilde = dc * fg;
+      if (d_c_tilde) d_c_tilde[(size_t)t * BH + cell] = dc_tilde;
+      m_next = pm;
+      c_t = pcp;
+    }
+    __syncthreads();
+
+    // the block's partials of dh~_t for every row and unit; publish them
+    u64* dst = xbuf + (size_t)par * slab + (size_t)blockIdx.x * BH;
+    const u64 tag = (u64)(tag0 + (unsigned)s) << 32;
+    for (int b = 0; b < B; ++b) {
+      float acc[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) acc[i] = 0.0f;
+      if (!kExchangeOnly) {
+        const float4* d4 = reinterpret_cast<const float4*>(dg_s + (par * B + b) * 4 * kMaxUnits);
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+          const float4 lo = d4[2 * gate], hi = d4[2 * gate + 1];
+          const float d[kMaxUnits] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int uu = 0; uu < kMaxUnits; ++uu)
+            if (uu < U) {
+#pragma unroll
+              for (int i = 0; i < KPT; ++i) acc[i] = fmaf(w[i][gate][uu], d[uu], acc[i]);
+            }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const int k = tid + kThreads * i;
+        if (k < H) store_word(dst + (size_t)b * H + k, tag | __float_as_uint(acc[i]));
+      }
+    }
+    if (t > 0) prefetch(t - 1);
+  }
+  if (!kExchangeOnly && owner) {
     d_h0[cell] = dh_carry;
     d_c0[cell] = dc_carry;
   }
@@ -591,7 +843,7 @@ int launch(const void* gates_x, const void* masks, const void* h0, const void* c
                             H, U, smem_bytes(B, H), args, stream);
 }
 
-template <int KC>
+template <int KC, bool kExchangeOnly>
 int launch_backward(const void* gates, const void* masks, const void* c0, const void* w_hh,
                     const void* g_outs, const void* g_hT, const void* g_cT, void* d_gates,
                     void* d_h0, void* d_c0, void* cs, void* d_h_tilde, void* d_c_tilde,
@@ -600,8 +852,56 @@ int launch_backward(const void* gates, const void* masks, const void* c0, const 
   void* args[] = {&gates, &masks, &c0,   &w_hh,      &g_outs,    &g_hT, &g_cT,
                   &d_gates, &d_h0, &d_c0, &cs, &d_h_tilde, &d_c_tilde, &ws,
                   &T,     &B,     &H,    &U};
-  return cooperative_launch((const void*)lstm_seq_backward_kernel<KC>, capacity, dev, H, U,
-                            backward_smem_bytes(B, H), args, stream);
+  return cooperative_launch((const void*)lstm_seq_backward_kernel<KC, kExchangeOnly>, capacity,
+                            dev, H, U, backward_smem_bytes(B, H), args, stream);
+}
+
+// the partials kernel's shared memory: its cells' dg, two buffers of
+// (B, 4 gates, kMaxUnits) floats
+size_t partials_smem_bytes(int B) { return 2 * (size_t)B * 4 * kMaxUnits * sizeof(float); }
+
+// rows one launch of the partials kernel takes: 32 / U_p owner lanes a unit
+// in each of its kWarps warps
+int partials_max_rows(int U) {
+  int up = 1;
+  while (up < U) up <<= 1;
+  return kWarps * (32 / up);
+}
+
+template <int KPT, bool kExchangeOnly>
+int launch_partials(const void* gates, const void* masks, const void* c0, const void* w_hh_t,
+                    const void* g_outs, const void* g_hT, const void* g_cT, void* d_gates,
+                    void* d_h0, void* d_c0, void* cs, void* d_h_tilde, void* d_c_tilde,
+                    void* ws, int T, int B, int H, int U, int dev, void* stream) {
+  static Capacity capacity[kMaxDevices];
+  void* args[] = {&gates, &masks, &c0,   &w_hh_t,    &g_outs,    &g_hT, &g_cT,
+                  &d_gates, &d_h0, &d_c0, &cs, &d_h_tilde, &d_c_tilde, &ws,
+                  &T,     &B,     &H,    &U};
+  return cooperative_launch((const void*)lstm_seq_backward_partials_kernel<KPT, kExchangeOnly>,
+                            capacity, dev, H, U, partials_smem_bytes(B), args, stream);
+}
+
+template <bool kExchangeOnly>
+int launch_partials_any(const void* gates, const void* masks, const void* c0,
+                        const void* w_hh_t, const void* g_outs, const void* g_hT,
+                        const void* g_cT, void* d_gates, void* d_h0, void* d_c0, void* cs,
+                        void* d_h_tilde, void* d_c_tilde, void* ws, int T, int B, int H,
+                        int U, int dev, void* stream) {
+  if (U < 1 || U > kMaxUnits || B < 1 || B > partials_max_rows(U))
+    return (int)cudaErrorInvalidValue;
+#define LSTM_SEQ_PARTIALS_KPT(kpt)                                                           \
+  case kpt:                                                                                  \
+    return launch_partials<kpt, kExchangeOnly>(gates, masks, c0, w_hh_t, g_outs, g_hT, g_cT, \
+                                               d_gates, d_h0, d_c0, cs, d_h_tilde,           \
+                                               d_c_tilde, ws, T, B, H, U, dev, stream);
+  switch ((H + kThreads - 1) / kThreads) {
+    LSTM_SEQ_PARTIALS_KPT(1)
+    LSTM_SEQ_PARTIALS_KPT(2)
+    LSTM_SEQ_PARTIALS_KPT(3)
+    LSTM_SEQ_PARTIALS_KPT(4)
+  }
+#undef LSTM_SEQ_PARTIALS_KPT
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -610,6 +910,10 @@ extern "C" size_t lstm_seq_smem_bytes(int B, int H) { return smem_bytes(B, H); }
 
 extern "C" size_t lstm_seq_backward_smem_bytes(int B, int H) {
   return backward_smem_bytes(B, H);
+}
+
+extern "C" size_t lstm_seq_backward_partials_smem_bytes(int B) {
+  return partials_smem_bytes(B);
 }
 
 // H a multiple of 4 up to 1024 (KC = 1..8), U <= 8 units a block (ceil(H / U)
@@ -654,8 +958,9 @@ extern "C" int lstm_seq_backward_f32(const void* gates, const void* masks, const
                                      int T, int B, int H, int U, int dev, void* stream) {
 #define LSTM_SEQ_BWD_KC(kc)                                                            \
   case kc:                                                                             \
-    return launch_backward<kc>(gates, masks, c0, w_hh, g_outs, g_hT, g_cT, d_gates, d_h0, \
-                               d_c0, cs, d_h_tilde, d_c_tilde, ws, T, B, H, U, dev, stream);
+    return launch_backward<kc, false>(gates, masks, c0, w_hh, g_outs, g_hT, g_cT, d_gates,  \
+                                      d_h0, d_c0, cs, d_h_tilde, d_c_tilde, ws, T, B, H, U, \
+                                      dev, stream);
   switch ((H + 127) / 128) {
     LSTM_SEQ_BWD_KC(1)
     LSTM_SEQ_BWD_KC(2)
@@ -668,4 +973,40 @@ extern "C" int lstm_seq_backward_f32(const void* gates, const void* masks, const
   }
 #undef LSTM_SEQ_BWD_KC
   return (int)cudaErrorInvalidValue;
+}
+
+// The dg-exchange backward's grid running T stages of nothing but its
+// exchange (every block publishes its cells' dg and reads the whole dg
+// back, all zeros): the floor under its step.
+extern "C" int lstm_seq_backward_exchange(void* ws, int T, int B, int H, int U, int dev,
+                                          void* stream) {
+  return launch_backward<1, true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, ws, T, B,
+                                  H, U, dev, stream);
+}
+
+// The backward that exchanges partial sums: the shapes of lstm_seq_f32 (H a
+// multiple of 4 up to 1024, U <= 8 units a block), w_hh_t = W_hh^T (4H, H),
+// at most 8 · 32 / U_p batch rows (U_p: U rounded up to a power of 2), and
+// a workspace of 2 + 2 · ceil(H / U) · B · H words.  d_h_tilde and
+// d_c_tilde may be null.
+extern "C" int lstm_seq_backward_partials_f32(const void* gates, const void* masks,
+                                              const void* c0, const void* w_hh_t,
+                                              const void* g_outs, const void* g_hT,
+                                              const void* g_cT, void* d_gates, void* d_h0,
+                                              void* d_c0, void* cs, void* d_h_tilde,
+                                              void* d_c_tilde, void* ws, int T, int B, int H,
+                                              int U, int dev, void* stream) {
+  return launch_partials_any<false>(gates, masks, c0, w_hh_t, g_outs, g_hT, g_cT, d_gates,
+                                    d_h0, d_c0, cs, d_h_tilde, d_c_tilde, ws, T, B, H, U, dev,
+                                    stream);
+}
+
+// Its grid running T stages of nothing but its exchange (the partials
+// published as zeros, and each owner's read back): the floor under its step.
+extern "C" int lstm_seq_backward_partials_exchange(void* ws, int T, int B, int H, int U,
+                                                   int dev, void* stream) {
+  return launch_partials_any<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, ws, T, B, H, U, dev, stream);
 }

@@ -24,6 +24,7 @@ from ..models import (
     make_shared_trunk_fn,
     sync_frozen_trunks,
 )
+from ..ops import cm_attention
 from ..utils.device import float32_exact, resolve_device, resolve_dtype
 
 Obs = Dict[str, torch.Tensor]
@@ -89,12 +90,18 @@ class HCMAgent:
 
 def build_hcm_agent(model_config, device="cuda", compute_dtype="bfloat16",
                     seed: int = 0, weights=None,
-                    share_frozen_trunks: bool = True) -> HCMAgent:
+                    share_frozen_trunks: bool = True,
+                    pallas_attention: bool = False) -> HCMAgent:
     """The HCM agent on ``device`` (CUDA unless the caller asks for the CPU;
     an absent CUDA device raises).  ``weights`` = (high_vars, low_vars), the
     JAX package's variables as numpy trees, carried over by
     utils/weight_port.py; without it the weights are random from ``seed``
-    and the low level's frozen trunks are synced to the high level's."""
+    and the low level's frozen trunks are synced to the high level's.
+    ``pallas_attention`` is the config's TPU.PALLAS_ATTENTION: it sets the
+    process-wide ops.cm_attention.set_float32_probabilities (bfloat16
+    attention's p kept to about 16 bits, or rounded to bf16 once, the
+    default), as the JAX trainers set theirs."""
+    cm_attention.set_float32_probabilities(pallas_attention)
     dev = resolve_device(device)
     high, low = build_hierarchical_policies(
         model_config, compute_dtype=resolve_dtype(compute_dtype),

@@ -12,6 +12,15 @@
   CUDA kernel on a CUDA tensor and runs the plain version on a CPU tensor.
   Unlike JAX (``TPU.PALLAS_ATTENTION``) there is no switch that turns the
   kernel off on the card.
+* :func:`set_float32_probabilities` — the process-wide setting that JAX's
+  ``TPU.PALLAS_ATTENTION`` becomes in the port (the trainer and
+  ``eval/agent.build_hcm_agent`` set it from the config, as the JAX trainers
+  call ``set_use_pallas``).  It chooses what an unmasked bfloat16 call keeps
+  of the probabilities p before p·v.  Off (the default, JAX's XLA
+  attention, this module's :func:`mha_attention`): p rounded to bfloat16
+  once.  On (JAX's Pallas kernel, whose p stays float32): p to about 16
+  bits, p_hi + p_lo.  float32 calls and masked calls are the same either
+  way.
 """
 
 from __future__ import annotations
@@ -24,6 +33,22 @@ import torch
 from . import fused_attention
 
 _NEG_INF = -1e30
+
+# process-global, as in JAX: set from the config by the trainer and
+# build_hcm_agent
+_FLOAT32_PROBABILITIES = False
+
+
+def set_float32_probabilities(enabled: bool) -> None:
+    """Keep an unmasked bfloat16 call's probabilities to about 16 bits
+    (JAX's TPU.PALLAS_ATTENTION on), or round them to bfloat16 once before
+    p·v (off, the default)."""
+    global _FLOAT32_PROBABILITIES
+    _FLOAT32_PROBABILITIES = bool(enabled)
+
+
+def float32_probabilities() -> bool:
+    return _FLOAT32_PROBABILITIES
 
 
 def attention_core(q, k, v, num_heads: int,

@@ -26,8 +26,14 @@ and the sizes; a call that no route takes raises there, before any launch:
   above 256 only: K and V staged in shared memory where they fit, else read
   in place (:func:`smem_bytes`).  It refuses d_k + S > 7264.
 * ``bf16``: both products on the tensor cores, the softmax in float32, the
-  probabilities kept to about 16 bits (``p_hi + p_lo``), so the only rounding
-  left against the float32 function is that of the bf16 output.  It takes
+  probabilities p in one of two modes (:data:`BF16_P_MODES`, counted apart
+  in :data:`bf16_mode_launches`), picked by
+  ``cm_attention.float32_probabilities()``: ``round_p`` (the default, the
+  JAX package's default XLA attention) rounds p to bf16 once before p·v;
+  ``split_p`` (JAX's ``TPU.PALLAS_ATTENTION`` on, its Pallas kernel's
+  float32 p) keeps p to about 16 bits (``p_hi + p_lo``), so the only
+  rounding left against the float32 function is that of the bf16 output.
+  It takes
   d_k = d_v, a multiple of 16 up to 128, any S >= 1, and pointers aligned to
   16 bytes (:func:`check_bf16_route`).  Up to S = 128 one kernel holds a
   head's keys whole; past it another streams them through a ring of
@@ -35,10 +41,13 @@ and the sizes; a call that no route takes raises there, before any launch:
   with an online softmax against a lazy row max (the C entry's code
   :data:`BF16_KEY_BLOCKS`, counted apart in :data:`bf16_key_block_launches`).
 
-On a CPU tensor the plain version (:func:`attention_plain`) runs; on a CUDA
-tensor the kernel launches, or the wrapper raises.  The backward pass replays
-the plain version, as the JAX custom VJP does (pallas_attention.py:133-136),
-in the profiler range ``cross_modal_attn.backward_replay``.
+On a CPU tensor the plain version (:func:`attention_plain`, in the mode
+set) runs; on a CUDA tensor the kernel launches, or the wrapper raises.  The
+backward pass replays the plain version in the ``round_p`` mode, which is
+``cm_attention.mha_attention`` in the inputs' dtype: the XLA function that
+the JAX package differentiates in either mode (its default's own, and the
+one its custom VJP replays, pallas_attention.py:133-136), in the profiler
+range ``cross_modal_attn.backward_replay``.
 """
 
 from __future__ import annotations
@@ -59,6 +68,8 @@ f32_narrow_launches = 0  # of f32_tensor_core's, those copying one float at a ti
 F32_KEY_BLOCKS = 3  # code of the C entry for f32_tensor_core's key blocks
 bf16_key_block_launches = 0  # of bf16's, those past BF16_WHOLE_S, in key blocks
 BF16_KEY_BLOCKS = 4  # code of the C entry for bf16's key blocks
+BF16_P_MODES = ("round_p", "split_p")  # p rounded to bf16 once, or p_hi + p_lo
+bf16_mode_launches = dict.fromkeys(BF16_P_MODES, 0)  # bf16's, by mode
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 WARPS = 8  # kWarps of csrc/cross_modal_attn.cu (f32_cuda_core route)
@@ -190,10 +201,27 @@ def reset_launches() -> None:
     global launches, f32_key_block_launches, f32_narrow_launches, bf16_key_block_launches
     launches = f32_key_block_launches = f32_narrow_launches = bf16_key_block_launches = 0
     route_launches.update(dict.fromkeys(ROUTES, 0))
+    bf16_mode_launches.update(dict.fromkeys(BF16_P_MODES, 0))
 
 
-def attention_plain(q, k, v, num_heads: int):
-    """The kernel's function in plain PyTorch, output in q's dtype."""
+def p_mode(float32_p=None) -> str:
+    """The bf16 mode of p: ``split_p`` where float32 probabilities are asked
+    for (by default, as ``cm_attention.float32_probabilities()`` says), else
+    ``round_p``."""
+    if float32_p is None:
+        float32_p = cm_attention.float32_probabilities()
+    return "split_p" if float32_p else "round_p"
+
+
+def attention_plain(q, k, v, num_heads: int, float32_p=None):
+    """The kernel's function in plain PyTorch, output in q's dtype.  In
+    float32, or with float32 probabilities (``split_p``), the function in
+    float32; a bfloat16 call in the ``round_p`` mode is
+    :func:`cm_attention.mha_attention` on its bfloat16 inputs, as the JAX
+    package's default computes it: logits of bf16 values and the softmax in
+    float32, p cast to bf16, p·v a bf16 product."""
+    if q.dtype != torch.float32 and p_mode(float32_p) == "round_p":
+        return cm_attention.mha_attention(q, k, v, num_heads)
     out = cm_attention.mha_attention(q.float(), k.float(), v.float(), num_heads)
     return out.to(q.dtype)
 
@@ -203,13 +231,14 @@ def _entry():
     """The kernel's C entry, its argument types set once."""
     fn = _build.load("cross_modal_attn").cross_modal_attn
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     return fn
 
 
 def cross_modal_attn_cuda(q, k, v, num_heads: int):
     """Launch the kernel on CUDA tensors of one dtype (float32 or bfloat16),
-    by the route :func:`pick_route` picks."""
+    by the route :func:`pick_route` picks, bfloat16 in the mode of p that
+    :func:`p_mode` reads."""
     global launches, f32_key_block_launches, f32_narrow_launches, bf16_key_block_launches
     device = q.device
     if device.type != "cuda":
@@ -237,24 +266,28 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
         raise ValueError("cross_modal_attn: q, k and v must be aligned to their element size")
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     route = pick_route(q.dtype, S, dk, dv, aligned)
-    code, narrow = ROUTES[route], False
+    code, narrow, mode = ROUTES[route], False, None
     if route == "f32_tensor_core":
         narrow = f32_narrow_copies(dk, dv, aligned)
         if f32_key_blocks(S, dk, dv):
             code = F32_KEY_BLOCKS
-    elif route == "bf16" and S > BF16_WHOLE_S:
-        code = BF16_KEY_BLOCKS
+    elif route == "bf16":
+        mode = p_mode()
+        if S > BF16_WHOLE_S:
+            code = BF16_KEY_BLOCKS
 
     fn = _entry()
     out = torch.empty((N, Lq, Dv), device=device, dtype=q.dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N,
-                 Lq, S, num_heads, dk, dv, code, int(narrow), stream)
+                 Lq, S, num_heads, dk, dv, code, int(narrow), int(mode == "round_p"), stream)
     if err != 0:
         raise RuntimeError(f"cross_modal_attn: CUDA error {err} at launch ({route})")
     launches += 1
     route_launches[route] += 1
+    if mode is not None:
+        bf16_mode_launches[mode] += 1
     f32_narrow_launches += narrow
     if code == F32_KEY_BLOCKS:
         f32_key_block_launches += 1
@@ -274,7 +307,7 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad(), record_function("cross_modal_attn.backward_replay"):
-            out = attention_plain(q, k, v, ctx.num_heads)
+            out = attention_plain(q, k, v, ctx.num_heads, float32_p=False)
             return (*torch.autograd.grad(out, (q, k, v), g), None)
 
 

@@ -20,7 +20,7 @@ multiple of 4 or above 1024, or more than 8 hidden units a block to keep the
 grid within one block an SM).  The grid has ceil(H / units) blocks, so H
 need not divide evenly.
 
-The backward pass is a kernel too, the second entry of the same source
+The backward pass is a kernel too, in the same source
 (:func:`lstm_seq_backward_cuda`, in the profiler range
 ``lstm_seq.backward``): it computes what the JAX custom VJP gets by
 differentiating its scan (pallas_lstm.py:162-165), the gradient with
@@ -28,8 +28,14 @@ respect to gates_x, masks, h0, c0 and w_hh.  Around the kernel, which runs
 the reverse recurrence, :func:`reverse_pass` recomputes the gates of all
 steps in one product before it and forms d_w_hh in one product after it;
 the masks' gradient is formed only when asked.  Its plain version is
-:func:`ops.rnn.lstm_recurrence_backward`.  It raises before any launch
-where :func:`check_backward_shape` refuses.
+:func:`ops.rnn.lstm_recurrence_backward`.  Two kernels run the reverse
+recurrence (:data:`BACKWARD_KERNELS`): ``partials``, the route
+(:data:`BACKWARD_KERNEL`), exchanges each step's partial sums of dh~ over
+each block's columns of W_hh; ``dg_exchange`` exchanges each step's whole
+dg, and launches only where the route is set to it, to compare the two.
+Both count in ``backward_launches`` and, by kernel, in
+``backward_kernel_launches``.  The wrapper raises before any launch where
+:func:`check_backward_shape` refuses.
 """
 
 from __future__ import annotations
@@ -46,12 +52,21 @@ from .rnn import lstm_recurrence
 
 launches = 0  # forward kernel launches since the last reset
 backward_launches = 0  # backward kernel launches since the last reset
+BACKWARD_KERNELS = ("partials", "dg_exchange")
+BACKWARD_KERNEL = "partials"  # the backward's route
+backward_kernel_launches = dict.fromkeys(BACKWARD_KERNELS, 0)  # the same, by kernel
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 WARPS = 8  # kWarps of csrc/lstm_seq.cu
 TASK_BATCH = 2  # kTaskBatch: batch rows of one warp task
 TASKS_PER_WARP = 16  # batch pairs a warp runs: one cell a lane, two a pair
 MAX_H = 1024  # 32 lanes x 8 chunks of 4 values of W_hh's rows in registers
+MAX_UNITS = 8  # kMaxUnits: units a block of the partials kernel
+# the grid the partials kernel aims for: fewer blocks cut the partials each
+# step stores and reads (blocks·B·H words), more cut each block's product
+# (B·H·4·units multiply-adds); at H=512 on the H100, 64 blocks of 8 units
+# took 0.1107 ms a call where 128 of 4 took 0.1287 (scripts/lstm_backward_probe.py)
+BACKWARD_BLOCKS = 64
 NOT_CO_RESIDENT = 1000  # kNotCoResident
 
 # device index -> (int64 workspace of the h exchange, the stream of its last launch)
@@ -61,6 +76,7 @@ _workspaces: dict = {}
 def reset_launches() -> None:
     global launches, backward_launches
     launches = backward_launches = 0
+    backward_kernel_launches.update(dict.fromkeys(BACKWARD_KERNELS, 0))
 
 
 def _units_per_block(H: int, n_sm: int) -> int:
@@ -70,6 +86,16 @@ def _units_per_block(H: int, n_sm: int) -> int:
     return -(-H // n_sm)
 
 
+def backward_units_per_block(H: int, n_sm: int, kernel=None) -> int:
+    """Hidden units per block of the backward: the forward's for
+    ``dg_exchange``; for ``partials`` enough for a grid of about
+    BACKWARD_BLOCKS blocks, at least the forward's and at most MAX_UNITS."""
+    units = _units_per_block(H, n_sm)
+    if _kernel(kernel) == "partials":
+        units = min(MAX_UNITS, max(units, -(-H // BACKWARD_BLOCKS)))
+    return units
+
+
 def smem_bytes(H: int, B: int) -> int:
     """Shared memory of one block (lstm_seq_smem_bytes in the source): two
     buffers of h, B rounded up to TASK_BATCH rows."""
@@ -77,11 +103,28 @@ def smem_bytes(H: int, B: int) -> int:
     return 4 * 2 * b_pad * H
 
 
-def backward_smem_bytes(H: int, B: int) -> int:
-    """Shared memory of one block of the backward
-    (lstm_seq_backward_smem_bytes in the source): two buffers of dg, rows of
-    4H, B rounded up to TASK_BATCH rows."""
+def _kernel(kernel):
+    kernel = BACKWARD_KERNEL if kernel is None else kernel
+    if kernel not in BACKWARD_KERNELS:
+        raise ValueError(f"lstm_seq backward: no kernel {kernel!r}")
+    return kernel
+
+
+def backward_smem_bytes(H: int, B: int, kernel=None) -> int:
+    """Shared memory of one block of the backward: for ``partials``
+    (lstm_seq_backward_partials_smem_bytes in the source) the block's cells'
+    dg, two buffers of (B, 4 gates, MAX_UNITS) floats; for ``dg_exchange``
+    (lstm_seq_backward_smem_bytes) two buffers of the whole dg, rows of 4H,
+    B rounded up to TASK_BATCH rows."""
+    if _kernel(kernel) == "partials":
+        return 4 * 2 * B * 4 * MAX_UNITS
     return smem_bytes(4 * H, B)
+
+
+def partials_lanes(units: int) -> int:
+    """Lanes of one unit in the partials kernel's exchange: 32 over the
+    units a block rounded up to a power of 2."""
+    return 32 // (1 << (units - 1).bit_length())
 
 
 def _most_rows(row: int, units: int) -> int:
@@ -97,8 +140,12 @@ def max_batch(H: int, units: int) -> int:
     return _most_rows(H, units)
 
 
-def max_backward_batch(H: int, units: int) -> int:
-    """The most batch rows one backward launch takes (rows of dg, 4H)."""
+def max_backward_batch(H: int, units: int, kernel=None) -> int:
+    """The most batch rows one backward launch takes: for ``partials`` an
+    owner lane a cell, partials_lanes(units) rows in each warp; for
+    ``dg_exchange`` the forward's limit with rows of dg (4H)."""
+    if _kernel(kernel) == "partials":
+        return WARPS * partials_lanes(units)
     return _most_rows(4 * H, units)
 
 
@@ -121,14 +168,15 @@ def check_shape(B: int, H: int, units: int) -> None:
                          f"batch rows at H={H} and {units} units a block, got B={B}")
 
 
-def check_backward_shape(B: int, H: int, units: int) -> None:
+def check_backward_shape(B: int, H: int, units: int, kernel=None) -> None:
     """Raise unless one launch of the backward takes batch B and hidden
-    size H at this many units a block: the forward's grid, with fewer rows."""
+    size H at this many units a block: the forward's grid, with its own
+    rows (:func:`max_backward_batch`)."""
     _check_grid("lstm_seq backward", H, units)
-    if B > max_backward_batch(H, units):
-        raise ValueError(f"lstm_seq backward: one launch takes at most "
-                         f"{max_backward_batch(H, units)} batch rows at H={H} and "
-                         f"{units} units a block, got B={B}")
+    most = max_backward_batch(H, units, kernel)
+    if B > most:
+        raise ValueError(f"lstm_seq backward: one launch takes at most {most} batch rows "
+                         f"at H={H} and {units} units a block, got B={B}")
 
 
 def _equal_slices(B: int, most: int) -> list:
@@ -143,9 +191,9 @@ def batch_slices(B: int, H: int, units: int) -> list:
     return _equal_slices(B, max_batch(H, units))
 
 
-def backward_batch_slices(B: int, H: int, units: int) -> list:
+def backward_batch_slices(B: int, H: int, units: int, kernel=None) -> list:
     """The same for the backward."""
-    return _equal_slices(B, max_backward_batch(H, units))
+    return _equal_slices(B, max_backward_batch(H, units, kernel))
 
 
 def by_rows(fn, slices, gates_x, masks, h0, c0, w_hh):
@@ -162,6 +210,12 @@ def _units(device_index: int, H: int):
     return _units_per_block(H, n_sm), n_sm
 
 
+def _backward_units(device_index: int, H: int, kernel=None):
+    """(units a block of a backward kernel, SM count) on one device."""
+    n_sm = _units(device_index, H)[1]
+    return backward_units_per_block(H, n_sm, kernel), n_sm
+
+
 @functools.cache
 def _entry():
     """The kernel's C entry, its argument types set once."""
@@ -172,16 +226,21 @@ def _entry():
 
 
 @functools.cache
-def _backward_entry():
-    fn = _build.load("lstm_seq").lstm_seq_backward_f32
+def _backward_entry(kernel: str):
+    """The C entry of one backward kernel."""
+    lib = _build.load("lstm_seq")
+    fn = lib.lstm_seq_backward_partials_f32 if kernel == "partials" else lib.lstm_seq_backward_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
 
 
 @functools.cache
-def _exchange_entry():
-    fn = _build.load("lstm_seq").lstm_seq_exchange
+def _exchange_entry(name: str = "lstm_seq_exchange"):
+    """The C entry of a grid running nothing but its exchange:
+    lstm_seq_exchange (the forward's), lstm_seq_backward_exchange or
+    lstm_seq_backward_partials_exchange."""
+    fn = getattr(_build.load("lstm_seq"), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
@@ -204,14 +263,14 @@ def _workspace(device, stream, B: int, H: int) -> torch.Tensor:
     return ws
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, contiguous=True):
     if t.device != device or t.dtype != torch.float32:
         raise ValueError(f"lstm_seq: {name} must be float32 on {device}, "
                          f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"lstm_seq: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"lstm_seq: {name} must be contiguous")
 
 
@@ -282,27 +341,55 @@ def exchange_floor_cuda(T: int, B: int, H: int, device) -> None:
     _raise_on(err, H, units, n_sm)
 
 
+def _backward_words(kernel: str, B: int, H: int, units: int) -> int:
+    """Words of one of the workspace's two buffers that a backward kernel
+    uses: the whole dg (B·4H), or every block's partials (blocks·B·H)."""
+    return -(-H // units) * B * H if kernel == "partials" else B * 4 * H
+
+
+def backward_exchange_floor_cuda(T: int, B: int, H: int, device, kernel=None) -> None:
+    """Launch a backward kernel's grid for (B, H) running T stages of
+    nothing but its exchange (:data:`BACKWARD_KERNEL` by default): the floor
+    that the exchange puts under a reverse step.  A measuring aid; it
+    computes nothing and is not counted in the launches."""
+    kernel = _kernel(kernel)
+    device = torch.device(device)
+    units, n_sm = _backward_units(device.index, H, kernel)
+    check_backward_shape(B, H, units, kernel)
+    name = ("lstm_seq_backward_partials_exchange" if kernel == "partials"
+            else "lstm_seq_backward_exchange")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        ws = _workspace(device, stream, 1, _backward_words(kernel, B, H, units))
+        err = _exchange_entry(name)(ws.data_ptr(), T, B, H, units, device.index,
+                                    stream.cuda_stream)
+    _raise_on(err, H, units, n_sm)
+
+
 def reverse_pass(launch, slices, gates_x, masks, h0, c0, w_hh, outs, g_outs, g_hT,
                  g_cT, masks_grad):
     """The backward around its kernel, (d_gates_x, d_masks, d_h0, d_c0,
     d_w_hh) as :func:`ops.rnn.lstm_recurrence_backward` gives them.  The
     gates of all T steps, gx + h~·W_hh with h~_t = m_t h_{t-1} read from
-    ``outs``, come from one product; ``launch(gates, masks, c0, w_rows,
+    ``outs``, come from one product; ``launch(gates, masks, c0, w_hh,
     g_outs, g_hT, g_cT, masks_grad)`` runs the reverse recurrence over each
     slice [b0, b1) of batch rows and returns (d_gates, d_h0, d_c0, c_t, dh~,
     dc~) of those rows (the last two None unless ``masks_grad``); the slices
     are joined, and d_w_hh = Σ h~ᵀ·d_gates comes from one product over the
     joined rows, never from per-slice sums.  The masks' gradient is
-    Σ_H (h_{t-1} dh~ + c_{t-1} dc~).  Both products in float32, TF32 off."""
+    Σ_H (h_{t-1} dh~ + c_{t-1} dc~).  Both products in float32, TF32 off.
+    ``w_hh`` (H, 4H) goes to ``launch`` as it is given (the agent's is the
+    transposed view of weight_hh_l0), and the launch makes the layout its
+    kernel reads."""
     T, B, four_h = gates_x.shape
     H = four_h // 4
     h_prev = torch.cat([h0[None], outs[:-1]])
     h_tilde = h_prev * masks[..., None]
-    w_rows = w_hh.contiguous()  # (H, 4H): W_hh's rows, which the kernel holds
-    with float32_exact(torch.float32):
-        gates = gates_x + h_tilde @ w_rows
+    with float32_exact(torch.float32):  # gx + h~·W_hh, the sum in the product's epilogue
+        gates = torch.addmm(gates_x.reshape(T * B, four_h), h_tilde.reshape(T * B, H),
+                            w_hh).view(T, B, four_h)
     parts = [launch(gates[:, b0:b1].contiguous(), masks[:, b0:b1].contiguous(), c0[b0:b1],
-                    w_rows, g_outs[:, b0:b1].contiguous(), g_hT[b0:b1], g_cT[b0:b1],
+                    w_hh, g_outs[:, b0:b1].contiguous(), g_hT[b0:b1], g_cT[b0:b1],
                     masks_grad) for b0, b1 in slices]
     d_gates, d_h0, d_c0, cs, d_h_tilde, d_c_tilde = parts[0] if len(parts) == 1 else (
         None if p[0] is None else torch.cat(p, dim=p[0].dim() - 2) for p in zip(*parts))
@@ -315,16 +402,20 @@ def reverse_pass(launch, slices, gates_x, masks, h0, c0, w_hh, outs, g_outs, g_h
     return d_gates, d_masks, d_h0, d_c0, d_w_hh
 
 
-def _backward_launch(gates, masks, c0, w_rows, g_outs, g_hT, g_cT, masks_grad):
-    """One launch of the backward kernel over these batch rows (see
-    :func:`reverse_pass`)."""
+def _backward_launch(gates, masks, c0, w_hh, g_outs, g_hT, g_cT, masks_grad):
+    """One launch of the backward kernel :data:`BACKWARD_KERNEL` over these
+    batch rows (see :func:`reverse_pass`).  ``partials`` reads W_hh^T (4H, H),
+    no copy when w_hh is the transposed view of weight_hh_l0; ``dg_exchange``
+    reads W_hh's rows (H, 4H) in 16-byte chunks."""
     global backward_launches
+    kernel = _kernel(None)
     T, B, four_h = gates.shape
     H = four_h // 4
     device = gates.device
-    units, n_sm = _units(device.index, H)
-    check_backward_shape(B, H, units)
-    if w_rows.data_ptr() % 16:  # read in 16-byte chunks
+    units, n_sm = _backward_units(device.index, H, kernel)
+    check_backward_shape(B, H, units, kernel)
+    w = w_hh.t().contiguous() if kernel == "partials" else w_hh.contiguous()
+    if kernel == "dg_exchange" and w.data_ptr() % 16:  # its rows read in 16-byte chunks
         raise ValueError("lstm_seq backward: w_hh must be aligned to 16 bytes")
 
     def empty(*shape):
@@ -333,15 +424,16 @@ def _backward_launch(gates, masks, c0, w_rows, g_outs, g_hT, g_cT, masks_grad):
     d_gates, d_h0, d_c0, cs = empty(T, B, four_h), empty(B, H), empty(B, H), empty(T, B, H)
     d_h_tilde, d_c_tilde = (empty(T, B, H), empty(T, B, H)) if masks_grad else (None, None)
     ptrs = [None if t is None else t.data_ptr() for t in (
-        gates, masks, c0, w_rows, g_outs, g_hT, g_cT, d_gates, d_h0, d_c0, cs, d_h_tilde,
+        gates, masks, c0, w, g_outs, g_hT, g_cT, d_gates, d_h0, d_c0, cs, d_h_tilde,
         d_c_tilde)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
-        ws = _workspace(device, stream, B, 4 * H)
-        err = _backward_entry()(*ptrs, ws.data_ptr(), T, B, H, units, device.index,
-                                stream.cuda_stream)
+        ws = _workspace(device, stream, 1, _backward_words(kernel, B, H, units))
+        err = _backward_entry(kernel)(*ptrs, ws.data_ptr(), T, B, H, units, device.index,
+                                      stream.cuda_stream)
     _raise_on(err, H, units, n_sm)
     backward_launches += 1
+    backward_kernel_launches[kernel] += 1
     return d_gates, d_h0, d_c0, cs, d_h_tilde, d_c_tilde
 
 
@@ -359,15 +451,17 @@ def lstm_seq_backward_cuda(gates_x, masks, h0, c0, w_hh, outs, g_outs, g_hT, g_c
         raise ValueError(f"lstm_seq backward: expected CUDA tensors, got {device}")
     if T < 1 or B < 1 or four_h != 4 * H:
         raise ValueError(f"lstm_seq backward: bad gates_x shape {tuple(gates_x.shape)}")
-    w_hh, g_outs, g_hT, g_cT = (t.contiguous() for t in (w_hh, g_outs, g_hT, g_cT))
+    g_outs, g_hT, g_cT = (t.contiguous() for t in (g_outs, g_hT, g_cT))
     for name, t, shape in (
         ("gates_x", gates_x, (T, B, 4 * H)), ("masks", masks, (T, B)),
-        ("h0", h0, (B, H)), ("c0", c0, (B, H)), ("w_hh", w_hh, (H, 4 * H)),
+        ("h0", h0, (B, H)), ("c0", c0, (B, H)),
         ("outs", outs, (T, B, H)), ("g_outs", g_outs, (T, B, H)),
         ("g_hT", g_hT, (B, H)), ("g_cT", g_cT, (B, H)),
     ):
         _check(name, t, shape, device)
-    units, _ = _units(device.index, H)
+    # any strides: each kernel's launch makes the layout it reads
+    _check("w_hh", w_hh, (H, 4 * H), device, contiguous=False)
+    units, _ = _backward_units(device.index, H)
     check_backward_shape(1, H, units)
     return reverse_pass(_backward_launch, backward_batch_slices(B, H, units), gates_x,
                         masks, h0, c0, w_hh, outs, g_outs, g_hT, g_cT, masks_grad)

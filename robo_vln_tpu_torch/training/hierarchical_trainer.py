@@ -41,6 +41,7 @@ from ..models import (
     make_shared_trunk_fn,
     sync_frozen_trunks,
 )
+from ..ops import cm_attention
 from ..utils.device import resolve_device, resolve_dtype
 from ..utils.logging import MetricsWriter, logger
 from ..utils.registry import register_trainer
@@ -124,6 +125,8 @@ class HierarchicalTrainer(BaseTrainer):
     def _setup_policy(self, load_from_ckpt: bool = False, ckpt_path: str = "") -> None:
         cfg = self.config
         self._check_pretrained_files()
+        # bfloat16 attention's probabilities, as the JAX trainers wire it
+        cm_attention.set_float32_probabilities(cfg.TPU.PALLAS_ATTENTION)
         self.high, self.low = build_hierarchical_policies(
             cfg.MODEL, compute_dtype=self.dtype,
             generator=torch.Generator().manual_seed(cfg.TASK_CONFIG.SEED),

@@ -11,8 +11,11 @@ the norm of the whole gradient, since the reverse sums over 50 steps and
 over 4H run in another order than XLA's.
 
 * :func:`ops.rnn.lstm_recurrence_backward`, the plain version;
-* an emulation of csrc/lstm_seq.cu's backward kernel in plain float32
-  torch (the c_t sweep, the dg exchange, each lane's chunks of the 4H dot
+* an emulation of each of csrc/lstm_seq.cu's backward kernels in plain
+  float32 torch (the c_t sweep, the exchange, and dh~'s sums in the
+  kernel's order: for ``partials`` each block's partial over its columns
+  of W_hh, then the partials of every block summed by the lanes of a unit
+  and an xor tree; for ``dg_exchange`` each lane's chunks of the 4H dot
   product and the xor tree over the lanes), run inside the wrapper's own
   :func:`ops.fused_lstm.reverse_pass`;
 * batch slices, joined, against the whole batch;
@@ -22,6 +25,7 @@ over 4H run in another order than XLA's.
   chip_smoke.py holds it against the plain version there.
 """
 
+import functools
 import re
 
 import jax
@@ -77,27 +81,22 @@ def _tanh(x):
     return 1.0 - 2.0 / (torch.exp(2.0 * x) + 1.0)
 
 
-def _backward_kernel_emulation(gates, masks, c0, w_rows, g_outs, g_hT, g_cT, masks_grad):
-    """csrc/lstm_seq.cu's lstm_seq_backward_kernel over one launch's rows,
-    in plain float32 torch, with the launch's outputs (d_gates, d_h0, d_c0,
-    c_t, dh~, dc~).  The owner of each cell sweeps c_t forward; then, from
-    t = T-1, the cell update gives dg_t, which crosses to every block as it
-    is (the exchange moves float bits), and dh~_t of unit v is formed as
-    the kernel forms it: lane l sums, chunk j by chunk j (k = 128·j + 4·l +
-    i) and within a chunk gate by gate, the four values of its 16-byte
-    chunk of each gate segment of dg_t times W_hh[v, :]; an xor-shuffle
-    tree (offsets 16, 8, 4, 2, 1) sums the lanes.  The activations are
-    written through exp, as the kernel writes them."""
-    T, B, four_h = gates.shape
-    H = four_h // 4
+def _dg_exchange_dot(w_hh):
+    """dh~ = dg·W_hh^T as lstm_seq_backward_kernel forms it for unit v: lane
+    l sums, chunk j by chunk j (k = 128·j + 4·l + i) and within a chunk gate
+    by gate, the four values of its 16-byte chunk of each gate segment of dg
+    times W_hh[v, :]; an xor-shuffle tree (offsets 16, 8, 4, 2, 1) sums the
+    lanes."""
+    H = w_hh.shape[0]
     k_pad = -(-H // 128) * 128  # chunks past H are a lane's zeros
     kc = k_pad // 128
     w = torch.zeros(H, 4, k_pad)
-    w[:, :, :H] = w_rows.view(H, 4, H)
+    w[:, :, :H] = w_hh.reshape(H, 4, H)
     w = w.view(H, 4, kc, 32, 4)
     lanes = torch.arange(32)
 
     def dot(dg):
+        B = dg.shape[0]
         d = torch.zeros(B, 4, k_pad)
         d[:, :, :H] = dg.view(B, 4, H)
         d = d.view(B, 4, kc, 32, 4)
@@ -109,6 +108,66 @@ def _backward_kernel_emulation(gates, masks, c0, w_rows, g_outs, g_hT, g_cT, mas
         for off in (16, 8, 4, 2, 1):
             acc = acc + acc[:, lanes ^ off]
         return acc[:, 0]
+    return dot
+
+
+def _partials_dot(w_hh, units):
+    """dh~ = dg·W_hh^T as lstm_seq_backward_partials_kernel forms it.  Block
+    j (units v = j·units + u, u < units, v < H) sums, for every row b and
+    unit k, dg[b, gate·H + v]·W_hh[k, gate·H + v] gate by gate and unit by
+    unit, from 0; for cell (b, v) the ``lanes`` lanes of unit u sum the
+    partials of blocks sub, sub + lanes, ... in turn (lane sub), and an xor
+    tree over the lanes (offsets 16, 8, ..., 32 / lanes) sums those."""
+    H = w_hh.shape[0]
+    blocks = -(-H // units)
+    lanes = fused_lstm.partials_lanes(units)
+    up = 32 // lanes
+    v = torch.arange(blocks)[None] * units + torch.arange(units)[:, None]  # (units, blocks)
+    valid = (v < H).float()
+    v = v.clamp(max=H - 1)
+    w = w_hh.reshape(H, 4, H)
+
+    def dot(dg):
+        B = dg.shape[0]
+        d = dg.view(B, 4, H)
+        part = torch.zeros(blocks, B, H)
+        for gate in range(4):
+            for u in range(units):
+                dv = d[:, gate, v[u]] * valid[u]      # (B, blocks)
+                wv = w[:, gate, v[u]] * valid[u]      # (H, blocks)
+                part = part + dv.t()[:, :, None] * wv.t()[:, None, :]
+        rounds = -(-blocks // lanes)
+        padded = torch.zeros(rounds * lanes, B, H)
+        padded[:blocks] = part
+        padded = padded.view(rounds, lanes, B, H)
+        acc = torch.zeros(lanes, B, H)
+        for r in range(rounds):
+            acc = acc + padded[r]
+        off = 16
+        while off >= up:
+            acc = acc + acc[torch.arange(lanes) ^ (off // up)]
+            off //= 2
+        return acc[0]
+    return dot
+
+
+def _backward_kernel_emulation(gates, masks, c0, w_hh, g_outs, g_hT, g_cT, masks_grad,
+                               kernel="partials", units=None):
+    """One of csrc/lstm_seq.cu's backward kernels over one launch's rows, in
+    plain float32 torch, with the launch's outputs (d_gates, d_h0, d_c0,
+    c_t, dh~, dc~): ``partials`` (lstm_seq_backward_partials_kernel, at
+    ``units`` units a block, by default the wrapper's on the H100's 132 SMs) or
+    ``dg_exchange`` (lstm_seq_backward_kernel).  The owner of each cell
+    sweeps c_t forward; then, from t = T-1, the cell update gives dg_t, and
+    dh~_t comes from the kernel's sums (:func:`_partials_dot`,
+    :func:`_dg_exchange_dot`; the exchanges move float bits).  The
+    activations are written through exp, as the kernels write them."""
+    T, B, four_h = gates.shape
+    H = four_h // 4
+    if kernel == "partials":
+        dot = _partials_dot(w_hh, units or fused_lstm.backward_units_per_block(H, 132))
+    else:
+        dot = _dg_exchange_dot(w_hh)
 
     c, cs = c0, []
     for t in range(T):
@@ -167,17 +226,22 @@ def test_lstm_recurrence_backward_masks_gradient_only_when_asked(rng):
             torch.testing.assert_close(g, r, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("kernel,units", [("partials", None), ("partials", 5),
+                                          ("dg_exchange", None)])
 @pytest.mark.parametrize("T,B,H", SHAPES[:4])
-def test_lstm_backward_kernel_summation_order_matches_jax(rng, T, B, H):
-    """The kernel's order of operations, inside the wrapper's reverse_pass
+def test_lstm_backward_kernel_summation_order_matches_jax(rng, T, B, H, kernel, units):
+    """Each kernel's order of operations, inside the wrapper's reverse_pass
     and from the forward kernel's emulated outs, against the JAX VJP (H =
-    556: a partial last chunk of lanes and a ragged grid)."""
+    556: a partial last chunk of lanes and a ragged grid); ``partials`` at
+    the wrapper's units (8 at H = 512 and 556) and at 5, the lanes of a unit
+    padded to 8's."""
     args, cots = _inputs(rng, T, B, H)
     targs = list(map(torch.from_numpy, args))
     outs = _lstm_kernel_emulation(*targs)[0]
-    got = fused_lstm.reverse_pass(_backward_kernel_emulation, [(0, B)], *targs, outs,
+    launch = functools.partial(_backward_kernel_emulation, kernel=kernel, units=units)
+    got = fused_lstm.reverse_pass(launch, [(0, B)], *targs, outs,
                                   *map(torch.from_numpy, cots), True)
-    _assert_rel(got, _jax_vjp(args, cots), f"T={T} B={B} H={H}")
+    _assert_rel(got, _jax_vjp(args, cots), f"{kernel} T={T} B={B} H={H}")
 
 
 def test_lstm_backward_batch_slices_join(rng):
@@ -211,62 +275,126 @@ def test_lstm_backward_batch_slices_join(rng):
     _assert_rel(joined, _jax_vjp(args, cots), "plain, sliced, against JAX")
 
 
-@pytest.mark.parametrize("B,H,units,ok", [
-    (4, 512, 4, True), (14, 512, 4, True), (16, 512, 4, False), (6, 1024, 8, True),
-    (8, 1024, 8, False), (1, 556, 5, True), (14, 556, 5, False), (12, 556, 5, True),
-    (56, 128, 1, True), (58, 128, 1, False), (64, 64, 1, True), (4, 1028, 8, False),
-    (4, 30, 1, False), (4, 996, 12, False), (1, 32, 1, True),
+@pytest.mark.parametrize("kernel,B,H,units,ok", [
+    ("dg_exchange", *case) for case in (
+        (4, 512, 4, True), (14, 512, 4, True), (16, 512, 4, False), (6, 1024, 8, True),
+        (8, 1024, 8, False), (1, 556, 5, True), (14, 556, 5, False), (12, 556, 5, True),
+        (56, 128, 1, True), (58, 128, 1, False), (64, 64, 1, True), (4, 1028, 8, False),
+        (4, 30, 1, False), (4, 996, 12, False), (1, 32, 1, True))
+] + [
+    ("partials", *case) for case in (
+        (4, 512, 8, True), (32, 512, 8, True), (33, 512, 8, False), (64, 512, 4, True),
+        (65, 512, 4, False), (32, 1024, 8, True), (33, 1024, 8, False), (32, 556, 5, True),
+        (33, 556, 5, False), (256, 128, 1, True), (257, 128, 1, False), (128, 256, 2, True),
+        (129, 256, 2, False), (4, 1028, 8, False), (4, 30, 1, False), (4, 996, 12, False),
+        (4, 96, 9, False), (1, 32, 1, True))
 ])
-def test_lstm_backward_shape_range(B, H, units, ok):
-    """One launch of the backward takes the forward's H and units, and as
-    many batch rows as 16 batch pairs a warp and two buffers of dg (rows of
-    4H) in a block's shared memory allow: 14 at H=512, 6 at H=1024."""
+def test_lstm_backward_shape_range(kernel, B, H, units, ok):
+    """One launch of the backward takes the forward's H and up to 8 units a
+    block, and as many batch rows as its kernel holds: ``dg_exchange`` as
+    16 batch pairs a warp and two buffers of dg (rows of 4H) in a block's
+    shared memory allow (14 at H=512, 6 at H=1024); ``partials`` one owner
+    lane a cell, 32 / U_p rows in each of 8 warps (U_p: the units rounded
+    up to a power of 2; 32 rows at 5 to 8 units, 64 at 3 or 4)."""
     if ok:
-        fused_lstm.check_backward_shape(B, H, units)
+        fused_lstm.check_backward_shape(B, H, units, kernel)
     else:
         with pytest.raises(ValueError, match="lstm_seq backward"):
-            fused_lstm.check_backward_shape(B, H, units)
+            fused_lstm.check_backward_shape(B, H, units, kernel)
 
 
-@pytest.mark.parametrize("B,H,units,slices", [
-    (4, 512, 4, [(0, 4)]), (14, 512, 4, [(0, 14)]), (15, 512, 4, [(0, 8), (8, 15)]),
-    (60, 512, 4, [(0, 12), (12, 24), (24, 36), (36, 48), (48, 60)]),
-    (28, 1024, 8, [(0, 6), (6, 12), (12, 18), (18, 24), (24, 28)]),
+@pytest.mark.parametrize("kernel,B,H,units,slices", [
+    ("dg_exchange", 4, 512, 4, [(0, 4)]), ("dg_exchange", 14, 512, 4, [(0, 14)]),
+    ("dg_exchange", 15, 512, 4, [(0, 8), (8, 15)]),
+    ("dg_exchange", 60, 512, 4, [(0, 12), (12, 24), (24, 36), (36, 48), (48, 60)]),
+    ("dg_exchange", 28, 1024, 8, [(0, 6), (6, 12), (12, 18), (18, 24), (24, 28)]),
+    ("partials", 4, 512, 8, [(0, 4)]), ("partials", 32, 512, 8, [(0, 32)]),
+    ("partials", 60, 512, 8, [(0, 30), (30, 60)]),
+    ("partials", 100, 1024, 8, [(0, 25), (25, 50), (50, 75), (75, 100)]),
 ])
-def test_lstm_backward_batch_slices(B, H, units, slices):
-    assert fused_lstm.backward_batch_slices(B, H, units) == slices
+def test_lstm_backward_batch_slices(kernel, B, H, units, slices):
+    assert fused_lstm.backward_batch_slices(B, H, units, kernel) == slices
     for b0, b1 in slices:
-        fused_lstm.check_backward_shape(b1 - b0, H, units)
+        fused_lstm.check_backward_shape(b1 - b0, H, units, kernel)
 
 
-@pytest.mark.parametrize("H,B,fits", [
-    (512, 4, True), (512, 14, True), (512, 15, False), (1024, 6, True), (1024, 7, False),
+@pytest.mark.parametrize("H,units", [(512, 8), (1024, 8), (556, 8), (256, 4), (128, 2),
+                                     (64, 1), (32, 1), (1000, 8)])
+def test_lstm_backward_units(H, units):
+    """``partials`` takes enough units a block for a grid of about
+    BACKWARD_BLOCKS (64) blocks on the H100's 132 SMs, at least the
+    forward's and at most MAX_UNITS; ``dg_exchange`` takes the forward's."""
+    assert fused_lstm.backward_units_per_block(H, 132, "partials") == units
+    assert (fused_lstm.backward_units_per_block(H, 132, "dg_exchange")
+            == fused_lstm._units_per_block(H, 132))
+    assert -(-H // units) <= 132
+
+
+@pytest.mark.parametrize("kernel,H,B,fits", [
+    ("dg_exchange", 512, 4, True), ("dg_exchange", 512, 14, True),
+    ("dg_exchange", 512, 15, False), ("dg_exchange", 1024, 6, True),
+    ("dg_exchange", 1024, 7, False),
+    ("partials", 512, 4, True), ("partials", 1024, 32, True), ("partials", 128, 256, True),
 ])
-def test_lstm_backward_smem_bound(H, B, fits):
-    """Two buffers of dg, rows of 4H with B rounded up to 2 rows, in float32,
-    as backward_smem_bytes in csrc/lstm_seq.cu computes it."""
+def test_lstm_backward_smem_bound(kernel, H, B, fits):
+    """``dg_exchange``: two buffers of dg, rows of 4H with B rounded up to 2
+    rows, in float32, as backward_smem_bytes in csrc/lstm_seq.cu computes
+    it.  ``partials``: two buffers of the block's cells' dg, (B, 4 gates,
+    kMaxUnits) floats (partials_smem_bytes), whatever H: 64 KiB at its most
+    rows (256, at one unit a block)."""
     src = (_build.CSRC / "lstm_seq.cu").read_text()
-    body = re.search(r"size_t backward_smem_bytes\(int B, int H\) \{(.*?)\n\}", src, re.S)
-    assert "return 2 * b_pad * 4 * H * sizeof(float);" in body.group(1)
-    b_pad = -(-B // 2) * 2
-    assert fused_lstm.backward_smem_bytes(H, B) == 2 * b_pad * 4 * H * 4
-    assert (fused_lstm.backward_smem_bytes(H, B) <= fused_lstm.SMEM_LIMIT) == fits
+    if kernel == "dg_exchange":
+        body = re.search(r"size_t backward_smem_bytes\(int B, int H\) \{(.*?)\n\}", src, re.S)
+        assert "return 2 * b_pad * 4 * H * sizeof(float);" in body.group(1)
+        b_pad = -(-B // 2) * 2
+        assert fused_lstm.backward_smem_bytes(H, B, kernel) == 2 * b_pad * 4 * H * 4
+    else:
+        assert ("size_t partials_smem_bytes(int B) { return 2 * (size_t)B * 4 * kMaxUnits * "
+                "sizeof(float); }") in src
+        assert f"constexpr int kMaxUnits = {fused_lstm.MAX_UNITS};" in src
+        assert fused_lstm.backward_smem_bytes(H, B, kernel) == 2 * B * 4 * fused_lstm.MAX_UNITS * 4
+    assert (fused_lstm.backward_smem_bytes(H, B, kernel) <= fused_lstm.SMEM_LIMIT) == fits
 
 
-def test_lstm_backward_entry_set_up_once(monkeypatch):
+def test_lstm_backward_partials_rows_match_the_c_entry():
+    """The C entry of the partials kernel refuses what the wrapper refuses:
+    more than kMaxUnits units, or more rows than 32 / U_p a warp."""
+    src = (_build.CSRC / "lstm_seq.cu").read_text()
+    assert "return kWarps * (32 / up);" in src
+    assert ("if (U < 1 || U > kMaxUnits || B < 1 || B > partials_max_rows(U))\n"
+            "    return (int)cudaErrorInvalidValue;") in src
+    for units, rows in ((1, 256), (2, 128), (3, 64), (4, 64), (5, 32), (8, 32)):
+        assert fused_lstm.max_backward_batch(512, units, "partials") == rows
+
+
+@pytest.mark.parametrize("kernel,entry,exchange", [
+    ("dg_exchange", "lstm_seq_backward_f32", "lstm_seq_backward_exchange"),
+    ("partials", "lstm_seq_backward_partials_f32", "lstm_seq_backward_partials_exchange"),
+])
+def test_lstm_backward_entry_set_up_once(monkeypatch, kernel, entry, exchange):
+    """Each backward kernel's C entry (20 arguments) and its exchange-only
+    entry (7), loaded and set up once."""
     loads = []
 
     class Lib:
-        lstm_seq_backward_f32 = type("Fn", (), {})()
+        pass
 
+    for name in (entry, exchange):
+        setattr(Lib, name, type("Fn", (), {})())
     monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or Lib)
     fused_lstm._backward_entry.cache_clear()
+    fused_lstm._exchange_entry.cache_clear()
     try:
-        assert all(fused_lstm._backward_entry() is Lib.lstm_seq_backward_f32 for _ in range(3))
-        assert loads == ["lstm_seq"]
-        assert len(Lib.lstm_seq_backward_f32.argtypes) == 20
+        assert all(fused_lstm._backward_entry(kernel) is getattr(Lib, entry) for _ in range(3))
+        assert fused_lstm._exchange_entry(exchange) is getattr(Lib, exchange)
+        assert loads == ["lstm_seq", "lstm_seq"]
+        assert len(getattr(Lib, entry).argtypes) == 20
+        assert len(getattr(Lib, exchange).argtypes) == 7
+        src = (_build.CSRC / "lstm_seq.cu").read_text()
+        assert f'extern "C" int {entry}(' in src and f'extern "C" int {exchange}(' in src
     finally:
         fused_lstm._backward_entry.cache_clear()
+        fused_lstm._exchange_entry.cache_clear()
 
 
 def test_cpu_training_launches_no_kernel(rng):

@@ -6,6 +6,7 @@ the arithmetic of the bf16 attention kernel emulated in plain torch.  The
 CUDA kernels have no CPU mode: chip_smoke.py holds them against these plain
 versions on the card."""
 
+import ctypes
 import math
 import re
 
@@ -113,28 +114,63 @@ def _bf16_ulp(x):
     return np.exp2(np.floor(np.log2(mag)) - 7)
 
 
+def _largest_term(q, k, v, heads):
+    """max_k p_k·|v_k| of each output, p the float32 softmax of the bf16
+    inputs: the largest term of the output's sum."""
+    N, Lq, D = q.shape
+    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
+    qh, kh, vh = (torch.as_tensor(np.asarray(t, np.float32)).view(N, -1, heads, d).transpose(1, 2)
+                  for t, d in ((q, dk), (k, dk), (v, dv)))
+    p = torch.softmax(qh @ kh.transpose(-1, -2) / math.sqrt(dk), dim=-1)
+    top = (p[..., None] * vh.abs()[:, :, None]).amax(dim=-2)
+    return top.transpose(1, 2).reshape(N, Lq, heads * dv).numpy()
+
+
+def _round_p_tolerance(got, ref, q, k, v, heads):
+    """One bf16 ulp of the output, plus one bf16 ulp (at most 2^-7) of the
+    output's largest term p_k·|v_k|: where two float32 softmaxes differ in
+    their last bits, a p near the midpoint of two bf16 values rounds to
+    either, and an output that cancels to far below its terms sees that
+    flip as many of its own ulps."""
+    return (_bf16_ulp(np.maximum(np.abs(got), np.abs(ref)))
+            + 2.0 ** -7 * _largest_term(q, k, v, heads))
+
+
+@pytest.mark.parametrize("float32_p", [True, False])
 @pytest.mark.parametrize("N,Lq,S,D,Dv,heads", ATTN_SHAPES)
-def test_attention_plain_bf16_matches_pallas(rng, N, Lq, S, D, Dv, heads):
-    """The contract the bf16 kernel is held to on the card: bf16 inputs, the
-    function in float32, one rounding of the output to bf16.  The plain
-    version and the interpret-mode Pallas kernel agree to one bf16 ulp of the
-    output (they round float32 results that differ in summation order)."""
+def test_attention_plain_bf16_matches_pallas(rng, N, Lq, S, D, Dv, heads, float32_p):
+    """The contract the bf16 kernel is held to on the card, in each mode of
+    p (TPU.PALLAS_ATTENTION).  On (``split_p``): bf16 inputs, the function in
+    float32, one rounding of the output to bf16; the plain version and the
+    interpret-mode Pallas kernel agree to one bf16 ulp of the output (they
+    round float32 results that differ in summation order).  Off
+    (``round_p``, the default): p rounded to bf16 before p·v; the plain
+    version and JAX's XLA attention (mha_attention in bf16) agree to one
+    bf16 ulp of the output plus one of p's roundings that the two float32
+    softmaxes may flip (:func:`_round_p_tolerance`)."""
     q, k, v = (a.astype(jnp.bfloat16) for a in _qkv(rng, N, Lq, S, D, Dv))
     ours = fused_attention.attention_plain(
         *(torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16) for a in (q, k, v)),
-        heads)
+        heads, float32_p=float32_p)
     assert ours.dtype == torch.bfloat16
     ours = ours.float().numpy()
-    ref = np.asarray(_pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True)
-                     .astype(jnp.float32))
-    assert np.all(np.abs(ours - ref) <= _bf16_ulp(np.maximum(np.abs(ours), np.abs(ref))))
+    if float32_p:
+        ref = _pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True)
+        tol = _bf16_ulp(np.maximum(np.abs(ours), np.abs(np.asarray(ref, np.float32))))
+    else:
+        ref = jax_cm.mha_attention(*map(jnp.asarray, (q, k, v)), heads)
+        tol = _round_p_tolerance(ours, np.asarray(ref, np.float32), q, k, v, heads)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.all(np.abs(ours - ref) <= tol)
 
 
 def _p_split_attention(q, k, v, heads, keep_lo=True):
     """The bf16 kernel's arithmetic in plain torch: q·kᵀ of bf16 values in
     float32, the softmax in float32, p = p_hi + p_lo with p_hi = bf16(p) and
     p_lo = bf16(p - p_hi), then p_hi·v + p_lo·v, each product of bf16 values
-    summed in float32.  Returns the float32 result before the output's
+    summed in float32 (the ``split_p`` mode).  With ``keep_lo`` False, the
+    ``round_p`` mode (the default): the normalised p rounded to bf16 once,
+    p_hi·v alone.  Returns the float32 result before the output's
     rounding."""
     N, Lq, D = q.shape
     S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
@@ -163,7 +199,7 @@ def test_attention_p_split_keeps_float32_probabilities(rng, S):
 
 
 def _p_split_attention_blocks(q, k, v, heads, block=16 * fused_attention.BF16_KEY_CHUNKS,
-                              slack=8.0):
+                              slack=8.0, keep_lo=True):
     """The bf16 key-block kernel's arithmetic (S > 128) in plain torch: the
     keys in key blocks of ``block`` (the ring's 32), the last one partial;
     per key block, its logits of bf16 values in float32 and their row max,
@@ -172,7 +208,9 @@ def _p_split_attention_blocks(q, k, v, heads, block=16 * fused_attention.BF16_KE
     key block), and the row sum and the output are then rescaled by
     exp2(m_old - m_new); p = exp2(logit·scale - m), at most 2^slack, split
     into p_hi + p_lo, p_lo·v then p_hi·v added to the output and p to the
-    row sum; the output divided by the sum at the end."""
+    row sum; the output divided by the sum at the end.  With ``keep_lo``
+    False, the ``round_p`` mode: the unnormalised p rounded to bf16 once,
+    p_hi·v alone, the float32 p still into the row sum."""
     N, Lq, D = q.shape
     S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
     qh = q.float().view(N, Lq, heads, dk).transpose(1, 2)
@@ -191,7 +229,7 @@ def _p_split_attention_blocks(q, k, v, heads, block=16 * fused_attention.BF16_KE
         p_hi = p.to(torch.bfloat16).float()
         p_lo = (p - p_hi).to(torch.bfloat16).float()
         vb = vh[:, :, s0:s0 + block]
-        out = out * alpha + (p_lo @ vb + p_hi @ vb)
+        out = out * alpha + ((p_lo @ vb if keep_lo else 0.0) + p_hi @ vb)
         total = total * alpha + p.sum(dim=-1, keepdim=True)
         m = m_new
     return (out / total).transpose(1, 2).reshape(N, Lq, heads * dv)
@@ -628,8 +666,9 @@ def test_attention_route_codes_match_the_c_entry():
 
 def test_bf16_route_codes_match_the_c_entry():
     """BF16_KEY_BLOCKS is the C entry's code of the bf16 key-block kernel,
-    which the entry hands to launch_bf16_any as key_blocks, and the entry's
-    whole-key bf16 instances end at BF16_WHOLE_S, past which the wrapper
+    which the entry hands to launch_bf16_any as key_blocks, with the mode of
+    p (round_p, for the bf16 codes only), and the entry's whole-key bf16
+    instances, in either mode, end at BF16_WHOLE_S, past which the wrapper
     sends the key blocks."""
     src = (_build.CSRC / "cross_modal_attn.cu").read_text()
     entry = src[src.index('extern "C" int cross_modal_attn('):]
@@ -637,10 +676,34 @@ def test_bf16_route_codes_match_the_c_entry():
     assert code not in fused_attention.ROUTES.values()
     assert code != fused_attention.F32_KEY_BLOCKS
     assert f"if ((route == 1 || route == {code}) && dk == dv && S >= 1)" in entry
-    assert f"launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == {code}, s);" in entry
-    whole = re.findall(r"if \(S <= (\d+)\) return launch_bf16_tiles<D, (\d+)>", src)
+    assert (f"launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == {code}, "
+            "round_p != 0, s);") in entry
+    assert f"if (round_p && route != 1 && route != {code}) return (int)cudaErrorInvalidValue;" \
+        in entry
+    assert "if (round_p) return launch_bf16_mode<true>(" in src
+    whole = re.findall(r"if \(S <= (\d+)\) return launch_bf16_tiles<D, (\d+), kRoundP>", src)
     assert [(int(S), int(kc)) for S, kc in whole] == [(16, 1), (32, 2), (64, 4), (128, 8)]
     assert int(whole[-1][0]) == fused_attention.BF16_WHOLE_S
+    assert fused_attention.BF16_P_MODES == ("round_p", "split_p")
+
+
+def test_attention_entry_takes_the_mode(monkeypatch):
+    """The C entry's arguments: q, k, v, out, then N, Lq, S, heads, dk, dv,
+    route, narrow and round_p, then the stream; set once."""
+    class Lib:
+        cross_modal_attn = type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib)
+    fused_attention._entry.cache_clear()
+    try:
+        assert fused_attention._entry() is Lib.cross_modal_attn
+        assert Lib.cross_modal_attn.argtypes == (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    finally:
+        fused_attention._entry.cache_clear()
+    src = (_build.CSRC / "cross_modal_attn.cu").read_text()
+    assert ("int dk, int dv, int route, int narrow, int round_p,\n"
+            "                                void* stream) {") in src
 
 
 def test_f32_attention_on_cpu_launches_nothing(rng):
@@ -767,8 +830,9 @@ def test_kernel_functions_backward_replays_plain(rng, monkeypatch):
 
 
 def test_attention_function_grads_keep_input_dtype(rng, monkeypatch):
-    """A bfloat16 forward's backward replays the plain version, which
-    computes in float32; the gradients of q, k and v come back in bfloat16,
+    """A bfloat16 forward's backward replays the plain version in the
+    round_p mode (mha_attention on the bf16 inputs, the function JAX
+    differentiates); the gradients of q, k and v come back in bfloat16,
     their inputs' dtype, and equal the plain version's own."""
     monkeypatch.setattr(fused_attention, "cross_modal_attn_cuda", fused_attention.attention_plain)
     arrays = _qkv(rng, 2, 6, 5, 32, 32)

@@ -397,7 +397,7 @@ def test_jax_only_keys_are_listed_with_their_defaults():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TPU.PALLAS_ATTENTION", True, "§C C6"),
+    ("EVAL.SHUFFLE_INSTRUCTIONS", True, "§A item 3"),
     ("EVAL.NUM_ENVS", 4, "§A item 3"),
     ("PLOT_ATTENTION", True, "§A item 3"),
     ("MODEL.RGB_ENCODER.cnn_type", "SimpleRGBCNN", "§A item 4"),
@@ -425,6 +425,32 @@ def test_jax_only_keys_refused_past_their_default(tmp_path, key, value, item):
     for yaml_file in sorted(PORT_CONFIGS.glob("*.yaml")):
         if yaml_file.name != "robo_vln_task.yaml":
             get_config(str(yaml_file))
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_pallas_attention_reaches_the_attention_setting(tmp_path, value):
+    """TPU.PALLAS_ATTENTION, read since the port computes both of its
+    functions: get_config takes either value, and the trainer's policy
+    set-up and build_hcm_agent set ops/cm_attention's process-wide
+    float32_probabilities from it, as the JAX trainers call
+    set_use_pallas (hierarchical_trainer.py:65)."""
+    from robo_vln_tpu_torch import build_hcm_agent
+    from robo_vln_tpu_torch.ops import cm_attention
+
+    assert "TPU.PALLAS_ATTENTION" not in jax_only.UNPORTED
+    assert port_defaults.TPU.PALLAS_ATTENTION is False
+    cfg = port_config(tmp_path, **{"TPU.PALLAS_ATTENTION": value})
+    assert cfg.TPU.PALLAS_ATTENTION is value
+    try:
+        cm_attention.set_float32_probabilities(not value)
+        HierarchicalTrainer(cfg)._setup_policy()
+        assert cm_attention.float32_probabilities() is value
+        cm_attention.set_float32_probabilities(not value)
+        build_hcm_agent(cfg.MODEL, device="cpu", compute_dtype="float32",
+                        pallas_attention=cfg.TPU.PALLAS_ATTENTION)
+        assert cm_attention.float32_probabilities() is value
+    finally:
+        cm_attention.set_float32_probabilities(False)
 
 
 def test_eval_raises():

@@ -38,7 +38,9 @@ exit code and no result line:
    into p_hi + p_lo, TPU.PALLAS_ATTENTION on, each against the plain
    version in that mode and timed), each held at the same shapes and at
    ragged ones, where the route each shape takes (whether it took the key
-   blocks, the copy width, the mode) is checked too;
+   blocks, the copy width, the mode) is checked too; attention at the HCM
+   shapes is held at N = 200 (the window's), 8 (the tick's), and 4 and 1
+   (phase 7's eval ticks);
    at the window's S = 16 and S = 64 the float32 key-block kernel is also
    forced, held and timed beside the whole-key kernel.  Prints the
    largest error against the stated tolerance, and every rep's time of the
@@ -112,19 +114,49 @@ exit code and no result line:
    trainer) beside phase 5's bare step, the gaps between steps, the
    epochs, the validation, checkpoint save and load times and size, peak
    memory.  With --profile, run 2 is traced.
-   After phases 4-6: the key-block kernels of the attention (float32 on
+7. Eval path: ``python -m robo_vln_tpu_torch.run --run-type eval``'s
+   ``run_exp`` at the same width in bfloat16, twice: a port checkpoint of
+   random weights from seed 0 (synced trunks; written under build/ with 8
+   synthetic robo_vln_v1 episodes, reference paths of 5-10 m, 200 token
+   ids; removed at the end) evaluated closed-loop on the kinematic backend
+   with MAX_EPISODE_STEPS cut from 1000 to 60, at EVAL.NUM_ENVS 1 and then
+   8.  Checked: the stats JSON exists with finite ndtw, spl, success,
+   actual_success, path_length and distance_to_goal over 8 episodes; every
+   tick launches the LSTM forward twice and bf16 attention (p rounded
+   once) twice, and nothing else; every parameter, the frozen ones among
+   them, equals the checkpoint's after the eval.  Printed for each
+   NUM_ENVS: env steps and episodes a second of rollout, the median tick
+   split into the policy (CUDA events around ``HCMAgent.act``; the host's
+   whole tick) and the env step with its render (host clock), BERT's
+   embeddings; then which integrator the sim used and the peak memory.
+   With --profile, torch.profiler traces the rollout at NUM_ENVS 8 (its
+   busy share; the timings of that run include the profiler's cost).
+   The checkpoint's low-level velocity head is biased so that the agent
+   drives about 5 m/s and episodes end on success at different ticks; the eval's trainers start from another seed, so an eval that
+   skipped the load fails the comparison with the checkpoint's parameters,
+   and one whose agent does not drive (under 1 m an episode) fails.
+   7b: four episodes in float32 at NUM_ENVS 4 from the same checkpoint,
+   once with the kernels and once with their plain versions: every
+   episode's success, actual_success and length must agree, every step's
+   position within 1e-3 m (EVAL.DUMP_TRAJECTORIES); the kernels' ticks
+   (their frames and resets) are replayed through the plain versions, and
+   each tick's lin_vel, omega, stop logit and both levels' LSTM states
+   must agree within 1e-4 of that one's range over the run;
+   and some episode must end on success and not all at one tick.
+   After phases 4-7: the key-block kernels of the attention (float32 on
    the tensor cores and bf16) and the float32 one-float copies must have
-   launched on none of the three paths.  Each path's bf16 attention rounds
+   launched on none of the four paths.  Each path's bf16 attention rounds
    p once (the config's default), and its LSTM backward is the partials
    kernel: split_p and the dg-exchange kernel launch on none.
-7. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+8. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
    (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
    attention (its float32 route and every bf16 field) and its bf16 modes
    (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
    ``launches``: the serving path's, but the LSTM backward's, which the
    serving path never runs, is the train path's; ``train_launches``: the
-   train path's, ``trainer_launches``: the trainer path's.  Then the card's
-   name and power limit, then the last line
+   train path's, ``trainer_launches``: the trainer path's,
+   ``eval_launches``: the eval path's (phase 7's two bf16 runs).  Then the
+   card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -165,6 +197,22 @@ TRAIN_GRAD_TOL = 1e-3  # the same, each leaf's gradient, of that leaf's norm
 TRAIN_STEPS = 5
 TRAINER_EPISODES = 8  # phase 6: 2 batches of 4, 2 windows of 50 each: 4 steps an epoch
 TRAINER_EVAL_EPISODES = 4  # one batch, 2 val windows
+EVAL_EPISODES = 8  # phase 7
+EVAL_MAX_STEPS = 60  # phase 7: TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS cut from 1000
+EVAL_NUM_ENVS = (1, 8)
+EVAL_F32_EPISODES = 4  # phase 7b, one env each
+EVAL_POSITION_TOL = 1e-3  # metres: 7b, float32 kernels against plain, closed-loop
+# 7b, the kernels' ticks replayed through the plain versions: each tick's actions,
+# stop logit and LSTM states, of each one's range over the run
+EVAL_OUTPUT_RTOL = 1e-4
+# the saved low level's velocity head: weight scaled, bias (lin_vel, omega)
+# added, so that the agent drives about 5 m/s forward, steered by the
+# network, and episodes end on success at different ticks.  A larger scale
+# feeds the closed loop's float rounding back through the frames faster:
+# at 10, 7b's positions part by 2.8e-3 m in 60 ticks on an H100 80GB HBM3
+# (scripts/eval_divergence_probe.py)
+EVAL_VELOCITY_SCALE, EVAL_VELOCITY_BIAS = 1.0, (-5.0, 0.0)
+EVAL_STATS = ("ndtw", "spl", "success", "actual_success", "path_length", "distance_to_goal")
 # a bias on the keys adds the same q·b to every logit of a query row, which
 # the softmax cancels: this leaf's exact gradient is 0
 ZERO_GRAD_LEAF = "enc_att.attention.fc_k.bias"
@@ -634,7 +682,7 @@ def check_attention(gen, device):
         for m in modes:
             mode_worst[m] = max(mode_worst[m], err)
 
-    for n in (N, 8):
+    for n in (N, 8, 4, 1):  # the window's, the tick's, the eval ticks' (phase 7)
         for S in (16, 64):
             for dtype, tol in ((f32, ATTN_TOL), (bf16, ATTN_BF16_TOL)):
                 q, k, v = inputs(n, Lq, S, heads, d, d, dtype)
@@ -651,7 +699,7 @@ def check_attention(gen, device):
                             check(f"{tag} {fused_attention.p_mode()}", q, k, v, heads, tol,
                                   "bf16")
                 if n != N:
-                    if dtype == bf16:  # the tick's shape
+                    if dtype == bf16 and n == 8:  # the tick's shape
                         call = lambda: fused_attention.cross_modal_attn_cuda(q, k, v, heads)
                         report_times(f"{tag} kernel", time_ms(call))
                         report_times(f"{tag} kernel, not queued (the host's dispatch rate)",
@@ -1158,7 +1206,8 @@ def _device_us(event):
 def profile_section(label, fn, top=12, ranges=()):
     """torch.profiler over fn: wall ms, summed kernel time, busy share and
     the kernels taking the most device time; then, for each named profiler
-    range, its host time and the device time of the kernels launched in it."""
+    range, its host time and the device time of the kernels launched in it.
+    Returns the wall ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1184,6 +1233,7 @@ def profile_section(label, fn, top=12, ranges=()):
         count = sum(e.count for e in averages if e.key == name and e.device_type.name == "CPU")
         print(f"    range {name}: {count}x, host {sum(host) / 1e3:.3f} ms, device span "
               + (f"{sum(span) / 1e3:.3f} ms" if span else "none recorded"))
+    return wall_ms
 
 
 def profile_main_path(agent, obs, masks, tick_obs, tick_masks):
@@ -1778,6 +1828,419 @@ def trainer_path(device, bare_step_ms, profile=False):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def write_eval_episodes(path, n, seed=7):
+    """``n`` synthetic episodes in the robo_vln_v1 format (gzipped JSON),
+    each in a scene of its own (so the batched eval's scene split gives
+    each env its own episodes): a reference path of 5-10 m in 3-5
+    segments that turn up to 0.6 rad each, the agent facing along its first
+    segment, 200 BERT token ids."""
+    import gzip
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    episodes = []
+    for i in range(n):
+        length, segments = rng.uniform(5.0, 10.0), int(rng.integers(3, 6))
+        heading = rng.uniform(-np.pi, np.pi)
+        points = [np.array([rng.uniform(-5, 5), 0.0, rng.uniform(-5, 5)])]
+        start_heading = heading
+        for _ in range(segments):
+            step = length / segments
+            points.append(points[-1] + step * np.array([-np.sin(heading), 0.0,
+                                                        -np.cos(heading)]))
+            heading += rng.uniform(-0.6, 0.6)
+        ref = [p.tolist() for p in points]
+        episodes.append({
+            "episode_id": str(i), "scene_id": f"scene_{i}.glb",
+            "start_position": ref[0],
+            # habitat's (x, y, z, w): a yaw about +y
+            "start_rotation": [0.0, float(np.sin(start_heading / 2)), 0.0,
+                               float(np.cos(start_heading / 2))],
+            "goals": [{"position": ref[-1], "radius": 3.0}],
+            "reference_path": ref,
+            "instruction": {"instruction_text": f"synthetic instruction {i}",
+                            "instruction_tokens": rng.integers(1000, 30522, 200).tolist()},
+            "info": {"geodesic_distance": float(length)},
+        })
+    with gzip.open(path, "wt") as f:
+        json.dump({"episodes": episodes}, f)
+
+
+@contextlib.contextmanager
+def instrumented_eval(record, device):
+    """Time and count what the closed-loop eval does, from outside it: each
+    tick's policy call (CUDA events around ``HCMAgent.act``, the host clock
+    around the whole host-side tick: copies in, act, the one copy out) and
+    its launches (and, where ``record["states"]`` is a list, both levels'
+    LSTM states after it), each env step from ``async_step`` to ``wait_step`` (host
+    clock: the envs' integration, measures and render), each rollout's wall
+    time, BERT's embeddings (the agent's count), each tick's actions and
+    stop logit, the trainer evaluated and each episode's stats."""
+    import numpy as np
+
+    from robo_vln_tpu_torch.envs.async_env import AsyncEnvPool
+    from robo_vln_tpu_torch.eval import agent as agent_mod
+    from robo_vln_tpu_torch.eval import evaluator
+
+    cuda = torch.device(device).type == "cuda"
+    originals = {}
+
+    def patch(owner, name, make):
+        originals[(owner, name)] = getattr(owner, name)
+        setattr(owner, name, make(getattr(owner, name)))
+
+    def act(fn):
+        def call(self, *args, **kwargs):
+            before = path_launches()
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            out = fn(self, *args, **kwargs)
+            if cuda:
+                end.record()
+                record["act_events"].append((start, end))
+            if record["states"] is not None:  # 7b: both levels' LSTM states, (4, N, H)
+                record["states"].append(torch.cat(out[2]).float().cpu().numpy())
+            after = path_launches()
+            record["tick_launches"].append({k: after[k] - before[k] for k in after})
+            return out
+        return call
+
+    def policy_tick(fn):
+        def call(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            record["tick_starts"].append(t0)
+            out = fn(self, *args, **kwargs)
+            record["policy_host_ms"].append((time.perf_counter() - t0) * 1e3)
+            record["outputs"].append(out[0].copy())  # actions and stop logit, (N, 3)
+            if record["states"] is not None:  # 7b: what the policy was given
+                record["ticks"].append((args[0], list(args[2])))
+            return out
+        return call
+
+    def async_step(fn):
+        def call(self, actions):
+            record["env_t0"] = time.perf_counter()
+            record["env_steps"] += len(actions)
+            return fn(self, actions)
+        return call
+
+    def wait_step(fn):
+        def call(self):
+            out = fn(self)
+            record["env_ms"].append((time.perf_counter() - record["env_t0"]) * 1e3)
+            return out
+        return call
+
+    def rollout(fn):
+        def call(*args, **kwargs):
+            if record["profile"]:  # the profiler's own summary left out
+                out = []
+                wall_ms = profile_section(record["profile"],
+                                          lambda: out.append(fn(*args, **kwargs)))
+                record["rollout_s"].append(wall_ms / 1e3)
+                return out[0]
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            record["rollout_s"].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def embed(fn):
+        def call(self, *args, **kwargs):
+            out = fn(self, *args, **kwargs)
+            record["embeds"] = self.embeds
+            return out
+        return call
+
+    def aggregate(fn):
+        def call(stats_episodes, *args, **kwargs):
+            record["episodes"] = dict(stats_episodes)
+            return fn(stats_episodes, *args, **kwargs)
+        return call
+
+    def evaluate(fn):
+        def call(trainer, *args, **kwargs):
+            record["trainers"].append(trainer)
+            return fn(trainer, *args, **kwargs)
+        return call
+
+    try:
+        patch(agent_mod.HCMAgent, "act", act)
+        patch(agent_mod.HCMAgent, "embed_instruction", embed)
+        patch(evaluator._PolicyTick, "__call__", policy_tick)
+        patch(AsyncEnvPool, "async_step", async_step)
+        patch(AsyncEnvPool, "wait_step", wait_step)
+        patch(evaluator, "_run_rollout", rollout)
+        patch(evaluator, "_aggregate_and_log", aggregate)
+        patch(evaluator, "eval_hierarchical_checkpoint", evaluate)
+        yield
+    finally:
+        for (owner, name), fn in originals.items():
+            setattr(owner, name, fn)
+
+
+def new_eval_record():
+    record = {k: [] for k in ("act_events", "tick_launches", "tick_starts", "policy_host_ms",
+                              "env_ms", "rollout_s", "trainers", "outputs", "ticks")}
+    record.update(env_steps=0, embeds=0, episodes={}, env_t0=0.0, profile=None, states=None)
+    return record
+
+
+def check_eval_stats(label, record, stats_path, episodes):
+    if not os.path.exists(stats_path):
+        fail(f"{label}: no stats file {stats_path}")
+    with open(stats_path) as f:
+        stats = json.load(f)
+    for key in EVAL_STATS:
+        if not math.isfinite(stats.get(key, float("nan"))):
+            fail(f"{label}: stats {key} = {stats.get(key)!r}, not finite")
+    if len(record["episodes"]) != episodes:
+        fail(f"{label}: {len(record['episodes'])} episodes evaluated, expected {episodes}")
+    return stats
+
+
+def trajectories(log_dir):
+    with open(os.path.join(log_dir, "trajectories.jsonl")) as f:
+        return {row["episode_id"]: row for row in map(json.loads, f)}
+
+
+def eval_path(device, model_opts=(), profile=False):
+    """Phase 7: python -m robo_vln_tpu_torch.run's eval path at full width:
+    a port checkpoint of random weights evaluated closed-loop on the
+    kinematic backend through run_exp, at EVAL.NUM_ENVS 1 and 8 in bf16
+    (7), then four episodes in float32 with the kernels and with their
+    plain versions (7b).  ``model_opts`` are extra config options (a CPU
+    rehearsal shrinks the model through them); ``profile`` traces the last
+    run's rollout.  Returns the launches of the two bf16 runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.envs import velocity_control
+    from robo_vln_tpu_torch.eval import agent as agent_mod
+    from robo_vln_tpu_torch.eval import evaluator
+    from robo_vln_tpu_torch.ops import _build, fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training import trainable_mask
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+    from robo_vln_tpu_torch.utils.logging import MetricsWriter
+
+    cuda = torch.device(device).type == "cuda"
+    print(f"phase 7 ({card_line() if cuda else 'no card'}): closed-loop eval at full width, "
+          f"bfloat16: python -m "
+          f"robo_vln_tpu_torch.run --run-type eval's run_exp over {EVAL_EPISODES} synthetic "
+          f"episodes on the kinematic backend, MAX_EPISODE_STEPS cut from 1000 to "
+          f"{EVAL_MAX_STEPS}, at EVAL.NUM_ENVS " + " and ".join(map(str, EVAL_NUM_ENVS)))
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # in the checkout, ignored by git
+    root = tempfile.mkdtemp(prefix="eval_", dir=_build.BUILD_DIR.parent)
+    try:
+        data = os.path.join(root, "episodes.json.gz")
+        write_eval_episodes(data, EVAL_EPISODES)
+
+        def opts(n_envs, tag, precision="bfloat16", episodes=EVAL_EPISODES, seed=()):
+            return ["DEVICE", str(device), "TRAINER_NAME", "hierarchical_trainer", *seed,
+                    "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"),
+                    "EVAL_CKPT_PATH_DIR", os.path.join(root, "ckpts"),
+                    "TENSORBOARD_DIR", os.path.join(root, f"tb_{tag}"),
+                    "LOG_FILE", os.path.join(root, "eval.log"),
+                    "TASK_CONFIG.SIMULATOR.TYPE", "kinematic",
+                    "TASK_CONFIG.DATASET.DATA_PATH", data,
+                    "TASK_CONFIG.TASK.NDTW.GT_PATH", os.path.join(root, "no_gt.json.gz"),
+                    "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", EVAL_MAX_STEPS,
+                    "EVAL.EPISODE_COUNT", episodes, "EVAL.NUM_ENVS", n_envs,
+                    "EVAL.VAL_LOG_DIR", os.path.join(root, f"val_{tag}"),
+                    "EVAL.DUMP_TRAJECTORIES", True,
+                    "MODEL.INSTRUCTION_ENCODER.is_bert", True,
+                    "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True, "TPU.PRECISION", precision,
+                    *model_opts]
+
+        # the checkpoint's weights are random from seed 0 and its velocity
+        # head scaled; the eval's trainers start from TASK_CONFIG.SEED's
+        # default, 100, so an eval that skipped the load (or part of it)
+        # holds other weights than the checkpoint's
+        t0 = time.perf_counter()
+        saver = HierarchicalTrainer(get_config(opts=opts(1, "save",
+                                                         seed=("TASK_CONFIG.SEED", 0))))
+        saver._setup_policy()
+        with torch.no_grad():
+            saver.low.linear.weight.mul_(EVAL_VELOCITY_SCALE)
+            saver.low.linear.bias.add_(torch.tensor(EVAL_VELOCITY_BIAS, device=device))
+        saver.save_checkpoint("ckpt.0")
+        ckpt = os.path.join(root, "ckpts", "ckpt.0")
+        print(f"  checkpoint of random weights from seed 0 (synced trunks), the low level's "
+              f"velocity head scaled by {EVAL_VELOCITY_SCALE} and biased by "
+              f"{EVAL_VELOCITY_BIAS} (lin_vel, omega), so that the agent drives; the eval "
+              f"starts from seed 100: built and saved in "
+              f"{time.perf_counter() - t0:.2f} s, {dir_bytes(ckpt) / 2**20:.1f} MiB")
+        saved = {(level, n): p for level, pol in (("high", saver.high), ("low", saver.low))
+                 for n, p in pol.named_parameters()}
+        frozen = {(level, n) for level, pol in (("high", saver.high), ("low", saver.low))
+                  for mask in (trainable_mask(pol),) for n, _ in pol.named_parameters()
+                  if not mask[n]}
+
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        fused_lstm.reset_launches()
+        fused_attention.reset_launches()
+        forward = ("lstm_seq", "cross_modal_attn", "cross_modal_attn_bf16_round_p")
+        summary = {}
+        for n_envs in EVAL_NUM_ENVS:
+            record = new_eval_record()
+            if profile and n_envs == EVAL_NUM_ENVS[-1]:
+                record["profile"] = f"the rollout at NUM_ENVS {n_envs}"
+            t0 = time.perf_counter()
+            with instrumented_eval(record, device):
+                run_exp(None, "eval", opts(n_envs, f"n{n_envs}"))
+            run_s = time.perf_counter() - t0
+            label = f"NUM_ENVS {n_envs}"
+            stats = check_eval_stats(label, record, os.path.join(
+                root, f"val_n{n_envs}", "stats_ckpt_0_val_seen.json"), EVAL_EPISODES)
+            trainer = record["trainers"][0]
+            for (level, name), p in saved.items():
+                if not torch.equal(getattr(trainer, level).get_parameter(name), p):
+                    fail(f"{label}: {level} {name} differs from the checkpoint's"
+                         + (" (frozen)" if (level, name) in frozen else ""))
+            for t, launched in enumerate(record["tick_launches"]):
+                for name, count in launched.items():
+                    if count != (2 if name in forward else 0):
+                        fail(f"{label}: tick {t} launched {name} {count} times, expected "
+                             f"{2 if name in forward else 0}")
+            ticks = len(record["tick_launches"])
+            rollout_s = record["rollout_s"][0]
+            policy_ms = ([s.elapsed_time(e) for s, e in record["act_events"]] if cuda
+                         else [float("nan")])
+            print(f"  {label}: {len(record['episodes'])} episodes, {ticks} ticks, "
+                  f"{record['env_steps']} env steps in {rollout_s:.3f} s of rollout "
+                  f"({run_s:.2f} s run_exp, trainer set-up and checkpoint load included): "
+                  f"{record['env_steps'] / rollout_s:.2f} env steps/s, "
+                  f"{len(record['episodes']) / rollout_s:.3f} episodes/s")
+            starts = record["tick_starts"]
+            tick_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+            print(f"    median tick {statistics.median(tick_ms):.3f} ms (host clock, one policy "
+                  f"tick to the next): policy {statistics.median(policy_ms):.3f} ms on the "
+                  f"device's clock (CUDA "
+                  f"events around act), {statistics.median(record['policy_host_ms']):.3f} ms "
+                  f"host (copies in, act, the one copy out); env step and render "
+                  f"{statistics.median(record['env_ms']):.3f} ms host; BERT embedded "
+                  f"{record['embeds']} times")
+            print(f"    stats: " + ", ".join(f"{k} {stats[k]:.6f}" for k in EVAL_STATS))
+            if not stats["path_length"] > 1.0:
+                fail(f"{label}: the agent drove {stats['path_length']:.3f} m an episode: "
+                     "the checkpoint's velocity head did not reach the eval")
+            summary[n_envs] = record["episodes"]
+            del trainer
+            record["trainers"].clear()
+        launches = path_launches()
+        print(f"  launches on the eval path (both runs): {launches}; kinematic integrator: "
+              f"{velocity_control.integrator()}")
+        if cuda:
+            print(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if summary[EVAL_NUM_ENVS[0]].keys() != summary[EVAL_NUM_ENVS[-1]].keys():
+            fail("the two runs evaluated other episodes")
+
+        print(f"phase 7b: float32, {EVAL_F32_EPISODES} episodes at EVAL.NUM_ENVS "
+              f"{EVAL_F32_EPISODES}, from the same checkpoint: the kernels against their "
+              "plain versions, closed-loop")
+        trainer = HierarchicalTrainer(get_config(opts=opts(
+            EVAL_F32_EPISODES, "f32", "float32", EVAL_F32_EPISODES)))
+        rows, counts, records = {}, {}, {}
+        for mode in ("kernels", "plain"):
+            record = records[mode] = new_eval_record()
+            record["states"] = []
+            before = path_launches()
+            with MetricsWriter(os.path.join(root, f"tb_f32_{mode}")) as writer, \
+                    instrumented_eval(record, device), \
+                    plain_kernels() if mode == "plain" else contextlib.nullcontext():
+                trainer._eval_checkpoint(ckpt, writer, checkpoint_index=len(rows))
+            after = path_launches()
+            counts[mode] = {k: after[k] - before[k] for k in after}
+            rows[mode] = trajectories(writer.log_dir)
+            print(f"  {mode}: {len(rows[mode])} episodes, {len(record['tick_launches'])} ticks "
+                  f"in {record['rollout_s'][0]:.3f} s, launches {counts[mode]}")
+        ticks = len(records["kernels"]["tick_launches"])
+        want = {"kernels": {"lstm_seq": 2 * ticks, "cross_modal_attn": 2 * ticks},
+                "plain": {}}
+        for mode, launched in counts.items():
+            expected = {k: want[mode].get(k, 0) for k in launched}
+            if launched != expected:
+                fail(f"7b {mode}: launched {launched}, expected {expected}")
+        kern, plain = rows["kernels"], rows["plain"]
+        if kern.keys() != plain.keys() or len(kern) != EVAL_F32_EPISODES:
+            fail(f"7b: episodes {sorted(kern)} with the kernels, {sorted(plain)} plain")
+        agree, divergence = 0, 0.0
+        for ep in sorted(kern):
+            k, p = kern[ep], plain[ep]
+            same = all(k[key] == p[key] for key in ("success", "actual_success", "steps"))
+            agree += same
+            n = min(len(k["locations"]), len(p["locations"]))
+            gap = max(math.dist(a, b) for a, b in zip(k["locations"][:n], p["locations"][:n]))
+            divergence = max(divergence, gap)
+            print(f"  episode {ep}: success {k['success']} / {p['success']}, actual_success "
+                  f"{k['actual_success']} / {p['actual_success']}, steps {k['steps']} / "
+                  f"{p['steps']} (kernels / plain); largest position gap {gap:.3e} m")
+        print(f"  success agreement {agree}/{len(kern)}; largest position divergence over all "
+              f"steps {divergence:.3e} m (tolerance {EVAL_POSITION_TOL} m)")
+        if agree != len(kern):
+            fail("7b: an episode's success, actual_success or length differs between the "
+                 "kernels and their plain versions")
+        if not divergence <= EVAL_POSITION_TOL:
+            fail(f"7b: positions diverge by {divergence:.3e} m")
+        # the kernels on the same inputs: the kernels' run's ticks (its
+        # observations and resets) replayed through the plain versions, and
+        # each tick's outputs and both levels' LSTM states held to the
+        # kernels', each one's error as a share of its range over the run.
+        # Closed-loop the two runs see other frames from the first tick at
+        # which a position differs (the render rounds to whole values), so
+        # their ticks are compared only through the positions above.
+        # Attention feeds only the high level: its state carries an error
+        # that the argmax over its logits hides from the actions
+        kernel_ticks = records["kernels"]["ticks"]
+        same = [all(np.array_equal(a[0][key], b[0][key]) for key in ("rgb", "depth"))
+                for a, b in zip(kernel_ticks, records["plain"]["ticks"])]
+        print(f"  closed-loop, the two runs' frames are equal through tick "
+              f"{same.index(False) - 1 if False in same else len(same) - 1} of {len(kernel_ticks)}")
+        agent = agent_mod.HCMAgent(trainer.high, trainer.low,
+                                   share_frozen_trunks=trainer.config.TPU.SHARE_FROZEN_TRUNKS)
+        replay = evaluator._PolicyTick(agent)
+        state, p_out, p_hc = agent.initial_state(EVAL_F32_EPISODES), [], []
+        with plain_kernels():
+            for obs, reset_rows in kernel_ticks:
+                out, state = replay(obs, state, reset_rows)
+                p_out.append(out)
+                p_hc.append(torch.cat(state).float().cpu().numpy())
+        k_out, p_out = np.stack(records["kernels"]["outputs"]), np.stack(p_out)
+        k_hc, p_hc = np.stack(records["kernels"]["states"]), np.stack(p_hc)
+        half = p_hc.shape[1] // 2  # high level's (h, c), then the low level's
+        pairs = [(k_out[..., i], p_out[..., i]) for i in range(3)] + [
+            (k_hc[:, :half], p_hc[:, :half]), (k_hc[:, half:], p_hc[:, half:])]
+        worst = 0.0
+        for name, (k, p) in zip(("lin_vel", "omega", "stop logit", "high level's LSTM "
+                                 "state", "low level's LSTM state"), pairs):
+            err, span = np.abs(k - p).max(), np.ptp(p)
+            rel = err / max(span, np.finfo(np.float32).tiny)
+            worst = max(worst, rel)
+            print(f"  the kernels' {len(kernel_ticks)} ticks replayed plain, each tick's {name}: "
+                  f"largest difference {err:.3e} over a range of {span:.3e} ({rel:.3e} of it; "
+                  f"tolerance {EVAL_OUTPUT_RTOL})")
+        if not worst <= EVAL_OUTPUT_RTOL:
+            fail(f"7b: on the same ticks the kernels' outputs or states differ from the plain "
+                 f"versions' by {worst:.3e} of their range")
+        # the rollouts put the decisions to the test: some episodes end on
+        # success, and not all at one tick
+        if not any(r["actual_success"] for r in plain.values()) \
+                or len({r["steps"] for r in plain.values()}) < 2:
+            fail("7b: no episode ended on success, or all ended at one tick: the comparison "
+                 "does not reach the success decision")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1827,9 +2290,11 @@ def main():
     read_key_blocks("_train")
     trainer_launches = trainer_path(device, bare_step_ms, profile)
     read_key_blocks("_trainer")
+    eval_launches = eval_path(device, profile=profile)
+    read_key_blocks("_eval")
     print(f"key-block launches of the attention kernel (S > 128 or d > 128 in float32, S > "
-          f"128 in bf16) and float32 one-float-copy launches on the serving, train and "
-          f"trainer paths: {key_blocks}")
+          f"128 in bf16) and float32 one-float-copy launches on the serving, train, "
+          f"trainer and eval paths: {key_blocks}")
     if any(key_blocks.values()):
         fail("an HCM path launched a key-block or one-float-copy attention kernel")
     attention.update(key_blocks)
@@ -1837,6 +2302,7 @@ def main():
         k["launches"] = launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
         k["trainer_launches"] = trainer_launches[k["name"]]
+        k["eval_launches"] = eval_launches[k["name"]]
     # the serving path runs no backward: the backward's launches are the train path's
     for backward in kernels[1:3]:
         backward["serving_launches"], backward["launches"] = (backward["launches"],

@@ -1,13 +1,14 @@
-"""Config tree of the PyTorch port: the keys its HCM agent, train step and
-hierarchical trainer read, and the keys the shipped experiment yamls set.
+"""Config tree of the PyTorch port: the keys its HCM agent, train step,
+hierarchical trainer and closed-loop eval read, and the keys the shipped
+experiment yamls set.
 
 A copy of the keys of robo_vln_tpu/config/default.py with the same names and
 defaults, so a config written for the JAX package sets the same model and
 the same training loop here: the top-level paths, ``TASK_CONFIG`` (built from
 ``BASE_TASK_CONFIG_PATH`` as the JAX package builds it), the ``TPU.*``
 switches, the ``DAGGER`` loop, the ``MODEL.*`` stanzas of the two policies,
-the pretrained-file keys and the ``EVAL.*`` keys of
-``configs/hierarchical_cma.yaml``.  A key no port code reads yet names the
+the pretrained-file keys and the ``EVAL.*`` keys of the host eval loops
+(eval/evaluator.py).  A key no port code reads yet names the
 ROADMAP item (§A) that will read it.  Keys that only the port reads are
 marked "port-only".  The JAX package's other keys are not in this tree:
 ``jax_only.py`` lists them with their JAX defaults, and ``get_config``
@@ -36,11 +37,13 @@ _C.CMD_TRAILING_OPTS = []
 _C.TRAINER_NAME = "robo_vln_trainer"
 # port-only: the device the entry point trains on; "cpu" only when asked for
 _C.DEVICE = "cuda"
-_C.NUM_PROCESSES = 1  # env processes of collection and eval (ROADMAP §A items 3, 5)
+_C.NUM_PROCESSES = 1  # env processes of collection (ROADMAP §A item 5)
 _C.TENSORBOARD_DIR = "data/tensorboard_dirs/debug"
 _C.CHECKPOINT_FOLDER = "data/checkpoints"
 _C.LOG_FILE = "train.log"
-_C.EVAL_CKPT_PATH_DIR = "data/checkpoints"  # the eval slice (ROADMAP §A item 3)
+# --run-type eval: one checkpoint, or a folder of ckpt.{N} to sweep
+_C.EVAL_CKPT_PATH_DIR = "data/checkpoints"
+_C.BERT_VOCAB_FILE = ""  # wordpiece vocab for the is_bert instruction path
 
 _C.TPU = ConfigTree()
 # compute dtype of the encoders and the attention ("bfloat16" or "float32");
@@ -67,13 +70,29 @@ _C.TPU.VALID_MASK_VELOCITY_MSE = False
 # float32.  The kernel runs either way (ops/cm_attention.set_float32_probabilities)
 _C.TPU.PALLAS_ATTENTION = False
 
-# the keys of the yaml's EVAL stanza; the eval slice reads them (ROADMAP §A
-# item 3)
+# the closed-loop eval (eval/evaluator.py, training/trainer.BaseTrainer.eval)
 _C.EVAL = ConfigTree()
 _C.EVAL.SPLIT = "val_seen"
+# folder-sweep mode: ONCE=True evaluates the checkpoints present and exits;
+# ONCE=False is the reference's eval daemon, polling EVAL_CKPT_PATH_DIR for
+# NEW checkpoints every POLL_INTERVAL_SEC; POLL_IDLE_TIMEOUT_SEC=0 waits
+# forever, >0 exits that long after the last new checkpoint
+_C.EVAL.ONCE = True
+_C.EVAL.POLL_INTERVAL_SEC = 2.0
+_C.EVAL.POLL_IDLE_TIMEOUT_SEC = 0.0
+# restore MODEL and DAGGER (and the rest of a port checkpoint's config) from
+# the checkpoint evaluated
 _C.EVAL.USE_CKPT_CONFIG = True
 _C.EVAL.EPISODE_COUNT = 2
+# N envs stepped together, one policy tick over the batch; 1 is the
+# reference's single-env loop
+_C.EVAL.NUM_ENVS = 1
+# language-grounding control: every episode carries another episode's
+# instruction (evaluator.shuffle_instructions)
+_C.EVAL.SHUFFLE_INSTRUCTIONS = False
 _C.EVAL.VAL_LOG_DIR = "validation_logging"
+# per-episode position traces -> <TENSORBOARD_DIR>/trajectories.jsonl
+_C.EVAL.DUMP_TRAJECTORIES = False
 
 _C.DAGGER = ConfigTree()
 _C.DAGGER.LR = 1e-4

@@ -14,23 +14,17 @@ package.
 
 from typing import Any, Dict, Iterator, Tuple
 
-_EVAL_SLICE = "§A item 3"  # the closed-loop eval: env layer, evaluator, --run-type eval
+_EVAL_SLICE = "§A item 3"  # the eval's extras (3c): videos, attention plots, nonlearning agents
 _READ_NOWHERE = "read nowhere in the JAX package"
 
 # key -> (JAX default, the ROADMAP item that would port it)
 UNPORTED: Dict[str, Tuple[Any, str]] = {
+    # the eval's extras
     "VIDEO_OPTION": ([], _EVAL_SLICE),
     "VIDEO_DIR": ("videos/debug", _EVAL_SLICE),
     "PLOT_ATTENTION": (False, _EVAL_SLICE),
-    "BERT_VOCAB_FILE": ("", _EVAL_SLICE),
-    "EVAL.ONCE": (True, _EVAL_SLICE),
-    "EVAL.POLL_INTERVAL_SEC": (2.0, _EVAL_SLICE),
-    "EVAL.POLL_IDLE_TIMEOUT_SEC": (0.0, _EVAL_SLICE),
-    "EVAL.NUM_ENVS": (1, _EVAL_SLICE),
-    "EVAL.SHUFFLE_INSTRUCTIONS": (False, _EVAL_SLICE),
     "EVAL.EVAL_NONLEARNING": (False, _EVAL_SLICE),
     "EVAL.NONLEARNING.AGENT": ("RandomAgent", _EVAL_SLICE),
-    "EVAL.DUMP_TRAJECTORIES": (False, _EVAL_SLICE),
     # the raw-frame fallback of training from trunk features
     "MODEL.RGB_ENCODER.cnn_type": ("TorchVisionResNet50", "§A item 4"),
     "MODEL.DEPTH_ENCODER.cnn_type": ("VlnResnetDepthEncoder", "§A item 4"),

@@ -1,10 +1,15 @@
-"""TBPTT-window prefetch for the trainer (counterpart of ``window_stream`` in
-robo_vln_tpu/envs/async_env.py; its ``AsyncEnvPool`` waits for the eval
-slice, ROADMAP §A item 3).
+"""The eval's env pool and the trainer's TBPTT-window prefetch (counterpart
+of ``AsyncEnvPool`` and ``window_stream`` in robo_vln_tpu/envs/async_env.py).
 
-A worker thread decodes and collates the next batch, splits it into windows
-and copies each window to the trainer's device one window ahead of the
-step, so the host's decode and the copy overlap the device's compute.
+:class:`AsyncEnvPool` steps N envs from a thread pool (habitat.VectorEnv's
+API: reset, async_step + wait_step), so the host's bookkeeping
+overlaps the envs' steps; threads, because the kinematic sim is C++ behind
+ctypes (which releases the GIL) and the rest is numpy.
+
+In :func:`window_stream`, a worker thread decodes and collates the next
+batch, splits it into windows and copies each window to the trainer's
+device one window ahead of the step, so the host's decode and the copy
+overlap the device's compute.
 
 On a CUDA device (:func:`device_transfer`) the worker copies each array
 into pinned host memory and from there to the device with
@@ -20,12 +25,44 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 Window = Dict[str, torch.Tensor]
+
+
+class AsyncEnvPool:
+    def __init__(self, envs: Sequence, max_workers: Optional[int] = None):
+        self.envs = list(envs)
+        self._pool = ThreadPoolExecutor(max_workers=max_workers or len(envs))
+        self._pending = None
+
+    def reset(self) -> List:
+        futures = [self._pool.submit(e.reset) for e in self.envs]
+        return [f.result() for f in futures]
+
+    def reset_at(self, idx: int):
+        return self.envs[idx].reset()
+
+    def async_step(self, actions: Sequence) -> None:
+        assert self._pending is None, "previous step not collected"
+        self._pending = [
+            self._pool.submit(e.step, a) for e, a in zip(self.envs, actions)
+        ]
+
+    def wait_step(self) -> List:
+        assert self._pending is not None, "no step in flight"
+        out = [f.result() for f in self._pending]
+        self._pending = None
+        return out
+
+    def close(self) -> None:
+        for e in self.envs:
+            e.close()
+        self._pool.shutdown(wait=False)
 
 
 def device_transfer(device) -> Tuple[Callable, Optional[Callable]]:

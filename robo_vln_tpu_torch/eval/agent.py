@@ -7,7 +7,7 @@ forward of __graft_entry__.entry() / bench.py:111-118).
 their trunk weights are identical, the production path), the high level, the
 argmax over its sub-goal logits, then the low level, at T=1, carrying both
 LSTM states.  Frozen BERT runs once per episode: :meth:`embed_instruction`
-caches the embedding of the last token ids it saw.  Everything runs under
+caches the embedding of the last token ids it saw, compared on the host.  Everything runs under
 ``torch.no_grad()`` with the policies in eval mode, so there is no dropout;
 a float32 agent runs with TF32 off for the call (utils/device.float32_exact).
 """
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models import (
@@ -36,8 +37,9 @@ class HCMAgent:
         self.trunk_fn = None
         if share_frozen_trunks and frozen_trunks_identical(high, low):
             self.trunk_fn = make_shared_trunk_fn(high)
-        self._emb_ids: Optional[torch.Tensor] = None
+        self._emb_ids: Optional[np.ndarray] = None
         self._emb: Optional[torch.Tensor] = None
+        self.embeds = 0  # BERT's runs
 
     @property
     def device(self) -> torch.device:
@@ -48,26 +50,35 @@ class HCMAgent:
                 self.low.initial_hidden(batch_size, self.device))
 
     @torch.no_grad()
-    def embed_instruction(self, ids: torch.Tensor) -> torch.Tensor:
+    def embed_instruction(self, ids: torch.Tensor,
+                          host_ids: Optional[np.ndarray] = None) -> torch.Tensor:
         """Frozen BERT over (B, L) token ids, cached while the ids stay the
-        same (one episode per env-batch composition)."""
+        same (one episode per env-batch composition).  The ids are compared
+        on the host: ``host_ids``, the same ids as the caller holds them
+        there (the eval's observations), or else a copy of ``ids``."""
+        key = ids.cpu().numpy() if host_ids is None else host_ids
         cached = self._emb_ids
-        if cached is None or cached.shape != ids.shape or not torch.equal(cached, ids):
-            self._emb_ids = ids.clone()
-            self._emb = self.high.embed_instruction(ids)
+        if cached is None or not np.array_equal(cached, key):
+            self._emb_ids = np.array(key, copy=True)
+            with float32_exact(self.high.compute_dtype):
+                self._emb = self.high.embed_instruction(ids)
+            self.embeds += 1
         return self._emb
 
     def _with_trunk_features(self, obs: Obs) -> Obs:
         return {**obs, **self.trunk_fn(obs)} if self.trunk_fn is not None else obs
 
     @torch.no_grad()
-    def act(self, obs: Obs, state, prev: Optional[torch.Tensor], mask: torch.Tensor):
+    def act(self, obs: Obs, state, prev: Optional[torch.Tensor], mask: torch.Tensor,
+            host_ids: Optional[np.ndarray] = None):
         """One closed-loop tick.  obs: rgb (B, H, W, 3) uint8, depth
         (B, H, W, 1), instruction (B, L); state (hh, lh), each (2, B, H);
-        mask (B,).  Returns (actions (B, 2), stop (B, 1), (hh, lh))."""
+        mask (B,); ``host_ids`` as for :meth:`embed_instruction`.  Returns
+        (actions (B, 2), stop (B, 1), (hh, lh))."""
         hh, lh = state
         with float32_exact(self.high.compute_dtype):
-            obs = {**obs, "instruction_embedding": self.embed_instruction(obs["instruction"])}
+            obs = {**obs, "instruction_embedding": self.embed_instruction(obs["instruction"],
+                                                                          host_ids)}
             obs = self._with_trunk_features(obs)
             logits, hh = self.high(obs, hh, prev, mask)
             pred = logits.argmax(dim=-1)

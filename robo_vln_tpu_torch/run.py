@@ -1,13 +1,16 @@
 """Experiment CLI of the port (counterpart of the repository's run.py).
 
     python -m robo_vln_tpu_torch.run --exp-config <exp>.yaml \\
-        --run-type train [OPT.KEY value ...]
+        --run-type {train,eval} [OPT.KEY value ...]
 
 Builds the config (defaults <- yaml <- trailing options), logs it as JSON,
 seeds Python's and numpy's generators from TASK_CONFIG.SEED, and runs the
-registered trainer's ``train()`` on ``DEVICE``: the CUDA device unless the
-options say ``DEVICE cpu``; an absent CUDA device raises.  ``--run-type
-eval`` raises until the eval slice is ported (ROADMAP §A item 3).
+registered trainer's ``train()`` or ``eval()`` on ``DEVICE``: the CUDA
+device unless the options say ``DEVICE cpu``; an absent CUDA device raises
+before any work.  ``eval`` evaluates EVAL_CKPT_PATH_DIR (one checkpoint, a
+folder sweep, or with EVAL.ONCE False the polling daemon) closed-loop on
+TASK_CONFIG.SIMULATOR.TYPE's env and writes
+``EVAL.VAL_LOG_DIR/stats_ckpt_{i}_{split}.json``.
 """
 
 import argparse

@@ -85,6 +85,7 @@ class HierarchicalTrainer(BaseTrainer):
         self._scheduler_step = 0
         self._train_steps = 0
         self._val_steps = 0
+        self.pretrained_backbones = {}
 
     def _check_ported(self) -> None:
         """Refuse, before any work, the options whose modules the port does
@@ -109,18 +110,23 @@ class HierarchicalTrainer(BaseTrainer):
         would be ignored silently, so it raises; absent files leave the
         backbones random, as in the JAX package."""
         mc = self.config.MODEL
-        files = (("DEPTH_ENCODER.ddppo_checkpoint", mc.DEPTH_ENCODER.ddppo_checkpoint),
-                 ("RGB_ENCODER.pretrained_weights", mc.RGB_ENCODER.pretrained_weights),
-                 ("BERT.pretrained_weights", mc.BERT.pretrained_weights))
-        present = [f"MODEL.{key} = {path!r}" for key, path in files
+        files = (("DEPTH_ENCODER.ddppo_checkpoint", mc.DEPTH_ENCODER.ddppo_checkpoint,
+                  "ddppo_depth"),
+                 ("RGB_ENCODER.pretrained_weights", mc.RGB_ENCODER.pretrained_weights,
+                  "imagenet_rgb"),
+                 ("BERT.pretrained_weights", mc.BERT.pretrained_weights, "bert"))
+        present = [f"MODEL.{key} = {path!r}" for key, path, _ in files
                    if path and os.path.exists(path)]
         if present:
             raise NotImplementedError(
                 f"pretrained backbone files exist ({'; '.join(present)}); the port "
                 "does not load them yet (utils/pretrained.py, ROADMAP §A item 8)")
-        for key, path in files:
+        for key, path, _ in files:
             logger.warning(f"pretrained weights MODEL.{key} not found at {path!r}; "
                            "that backbone stays RANDOM")
+        # the JAX trainer's provenance record, which the eval's stats carry
+        self.pretrained_backbones = {
+            name: {"status": "missing_file", "path": str(path)} for _, path, name in files}
 
     def _setup_policy(self, load_from_ckpt: bool = False, ckpt_path: str = "") -> None:
         cfg = self.config
@@ -309,3 +315,8 @@ class HierarchicalTrainer(BaseTrainer):
                     "(DAGGER.MAX_EPOCHS_PER_RUN); a DAGGER.RESUME run "
                     f"continues at epoch {done_through}"
                 )
+
+    def _eval_checkpoint(self, checkpoint_path, writer, checkpoint_index=0):
+        from ..eval.evaluator import eval_hierarchical_checkpoint
+
+        eval_hierarchical_checkpoint(self, checkpoint_path, writer, checkpoint_index)

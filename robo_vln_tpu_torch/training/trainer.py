@@ -7,16 +7,19 @@ epochs each DAgger iteration trains (:meth:`BaseTrainer._iteration_plan`,
 global epoch numbers, so checkpoint names ``ckpt.{EPOCHS+epoch}`` stay
 monotonic), and the batches of one epoch (:meth:`BaseTrainer._batches`,
 seeded by the epoch, so a resumed run reads what an uninterrupted one
-reads).  The flat family's ``RoboVLNTrainer`` is not ported yet (ROADMAP §A
-item 6).
+reads), and the eval's checkpoint sweep and daemon (:meth:`BaseTrainer.eval`,
+each checkpoint through the subclass's ``_eval_checkpoint``).  The flat
+family's ``RoboVLNTrainer`` is not ported yet (ROADMAP §A item 6).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Iterator
 
 from ..data.loader import TrajectoryDataset, batch_iterator
+from ..utils.logging import MetricsWriter, logger
 from . import checkpoint as ckpt_lib
 
 
@@ -107,6 +110,55 @@ class BaseTrainer:
         )
 
     def eval(self) -> None:
-        raise NotImplementedError(
-            "--run-type eval: the env-driven evaluation (eval/evaluator.py) is not "
-            "ported yet (ROADMAP §A item 3)")
+        """Evaluate EVAL_CKPT_PATH_DIR: a single checkpoint, or a folder
+        sweep.  With EVAL.ONCE=False the sweep becomes the reference's eval
+        daemon: it polls the folder every EVAL.POLL_INTERVAL_SEC for NEW
+        checkpoints, so eval runs beside training and picks up each epoch's
+        checkpoint as it lands, and retries a checkpoint that fails (it may
+        be listed mid-save) on the next poll; EVAL.POLL_IDLE_TIMEOUT_SEC
+        bounds how long it waits after the last new checkpoint (0 =
+        forever, the reference behavior).  EVAL.ONCE=True (default) lists
+        the folder once and exits."""
+        path = self.config.EVAL_CKPT_PATH_DIR
+        once = bool(self.config.EVAL.ONCE)
+        interval = float(self.config.EVAL.POLL_INTERVAL_SEC)
+        idle_timeout = float(self.config.EVAL.POLL_IDLE_TIMEOUT_SEC)
+        with MetricsWriter(self.config.TENSORBOARD_DIR) as writer:
+            if not (os.path.isdir(path) and not os.path.exists(
+                os.path.join(path, ckpt_lib.METADATA)
+            )):
+                self._eval_checkpoint(path, writer, checkpoint_index=0)
+                return
+            evaluated = set()
+            index = 0
+            last_new = time.time()
+            while True:
+                fresh = [c for c in ckpt_lib.list_checkpoints(path)
+                         if c not in evaluated]
+                for ck in fresh:
+                    try:
+                        self._eval_checkpoint(ck, writer, checkpoint_index=index)
+                    except Exception:
+                        if once:
+                            raise
+                        # daemon mode: a checkpoint can be listed mid-save;
+                        # leave it un-evaluated and retry on the next poll
+                        logger.exception(
+                            f"eval daemon: checkpoint {ck} failed "
+                            "(possibly mid-save); will retry"
+                        )
+                        break
+                    evaluated.add(ck)
+                    index += 1
+                    last_new = time.time()
+                if once:
+                    break
+                idle = time.time() - last_new
+                if idle_timeout > 0 and idle > idle_timeout:
+                    logger.info(
+                        f"eval daemon: no new checkpoint in {idle:.0f}s "
+                        f"(POLL_IDLE_TIMEOUT_SEC={idle_timeout:.0f}); exiting "
+                        f"after {len(evaluated)} checkpoints"
+                    )
+                    break
+                time.sleep(interval)

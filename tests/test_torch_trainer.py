@@ -397,8 +397,8 @@ def test_jax_only_keys_are_listed_with_their_defaults():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("EVAL.SHUFFLE_INSTRUCTIONS", True, "§A item 3"),
-    ("EVAL.NUM_ENVS", 4, "§A item 3"),
+    ("VIDEO_OPTION", ["disk"], "§A item 3"),
+    ("EVAL.EVAL_NONLEARNING", True, "§A item 3"),
     ("PLOT_ATTENTION", True, "§A item 3"),
     ("MODEL.RGB_ENCODER.cnn_type", "SimpleRGBCNN", "§A item 4"),
     ("EVAL.ON_DEVICE", True, "§A item 5"),
@@ -453,9 +453,33 @@ def test_pallas_attention_reaches_the_attention_setting(tmp_path, value):
         cm_attention.set_float32_probabilities(False)
 
 
-def test_eval_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 3"):
-        HierarchicalTrainer(get_config(opts=["DEVICE", "cpu"])).eval()
+def test_eval_raises(tmp_path):
+    """HierarchicalTrainer.eval() evaluates a port checkpoint on the CPU (the
+    kinematic backend, EVAL_CKPT_PATH_DIR naming the checkpoint itself) and
+    writes its stats; it raises, before any rollout, on a checkpoint it
+    cannot read (a JAX package orbax directory)."""
+    from tests.test_envs import make_episode_json
+
+    extra = {"TASK_CONFIG.SIMULATOR.TYPE": "kinematic",
+             "TASK_CONFIG.DATASET.DATA_PATH": make_episode_json(tmp_path, n_eps=1),
+             "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS": 3, "EVAL.SPLIT": "train",
+             "EVAL.EPISODE_COUNT": 1, "EVAL.VAL_LOG_DIR": str(tmp_path / "val"),
+             "MODEL.INSTRUCTION_ENCODER.is_bert": True}
+    cfg = port_config(tmp_path, batch_size=1, **extra)
+    trainer = HierarchicalTrainer(cfg)
+    trainer._setup_policy()
+    trainer.save_checkpoint("ckpt.0")
+    ckpt = str(tmp_path / "ckpts" / "ckpt.0")
+    HierarchicalTrainer(port_config(tmp_path, batch_size=1, EVAL_CKPT_PATH_DIR=ckpt,
+                                    **extra)).eval()
+    stats = json.loads((tmp_path / "val" / "stats_ckpt_0_train.json").read_text())
+    assert stats["steps_taken"] == 3 and np.isfinite(stats["ndtw"])
+    orbax = tmp_path / "orbax" / "ckpt.0"
+    (orbax / "state").mkdir(parents=True)
+    ckpt_lib.write_metadata(str(orbax), {"config": {}})
+    with pytest.raises(ValueError, match="not a checkpoint the port reads"):
+        HierarchicalTrainer(port_config(tmp_path, batch_size=1,
+                                        EVAL_CKPT_PATH_DIR=str(orbax), **extra)).eval()
 
 
 # -- 6. the entry point ------------------------------------------------------------------

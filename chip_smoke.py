@@ -143,19 +143,51 @@ exit code and no result line:
    each tick's lin_vel, omega, stop logit and both levels' LSTM states
    must agree within 1e-4 of that one's range over the run;
    and some episode must end on success and not all at one tick.
-   After phases 4-7: the key-block kernels of the attention (float32 on
+   After phases 4-8: the key-block kernels of the attention (float32 on
    the tensor cores and bf16) and the float32 one-float copies must have
-   launched on none of the four paths.  Each path's bf16 attention rounds
+   launched on none of the five paths.  Each path's bf16 attention rounds
    p once (the config's default), and its LSTM backward is the partials
    kernel: split_p and the dg-exchange kernel launch on none.
-8. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+8. Collection path: DAgger data collection through
+   ``python -m robo_vln_tpu_torch.run``'s ``run_exp`` over 8 synthetic
+   robo_vln_v1 episodes (phase 7's writer; a scene each) on the kinematic
+   backend at full width (224 px rgb, 256 px depth), in a temporary
+   directory under build/ (removed at the end).  8a: expert collection on
+   the port's robovln_data_train.yaml (robo_vln_trainer, COLLECT_ONLY,
+   UPDATE_SIZE 8, MAX_EPISODE_STEPS 1000 as shipped) at NUM_PROCESSES 1 and
+   4 (spawned workers): the 4-process buffer must hold the serial buffer's
+   8 episodes bitwise in some order (sha256 of each stored episode), the
+   port's loader must read both, and no kernel may launch; printed: episodes
+   and env steps a second, when the first and last episode reached the
+   buffer, env steps a worker, MiB an episode on disk, ticks an episode.
+   8b: the hierarchical trainer collecting and training in one run in
+   bfloat16 (PRELOAD_LMDB_FEATURES false, ITERATIONS 2, P 0.5, UPDATE_SIZE
+   4, one epoch an iteration, BATCH_SIZE 4, tbptt 50, MAX_EPISODE_STEPS
+   cut to 150, synced trunks): iteration 0 at beta 1, iteration 1 mixed at
+   beta 0.5 with the trained policy on the card.  Checked: 8 episodes and
+   ckpt.1, ckpt.2 at the end; every mixed tick launches the LSTM forward
+   twice and bf16 attention (p rounded once) twice and nothing else, the
+   expert iteration nothing, the epochs 2 of each forward and 2 of the
+   LSTM's backward a train step; some tick executed a policy command that
+   is not the expert's label.  Printed: each iteration's env steps a
+   second, the mixed tick's policy (CUDA events around ``HCMAgent.act``,
+   and the host clock around the mixer's step) and env step (host clock),
+   the share of ticks the policy's command ran, BERT's embeddings, the
+   launches during the mixed collection and during the epochs.  8c: a
+   float32 trainer's mixed collection (2 episodes of at most 60 ticks,
+   beta 0.5): its ticks (frames, masks, prev) are replayed through the
+   plain versions, and each tick's lin_vel, omega and both levels' LSTM
+   states must agree within 1e-4 of that one's range.
+9. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
    (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
    attention (its float32 route and every bf16 field) and its bf16 modes
    (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
    ``launches``: the serving path's, but the LSTM backward's, which the
    serving path never runs, is the train path's; ``train_launches``: the
    train path's, ``trainer_launches``: the trainer path's,
-   ``eval_launches``: the eval path's (phase 7's two bf16 runs).  Then the
+   ``eval_launches``: the eval path's (phase 7's two bf16 runs),
+   ``collect_launches``: the collection path's (8b's two collections,
+   their epochs left out; 8a's collections launch nothing).  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
@@ -171,7 +203,11 @@ import subprocess
 import sys
 import time
 
-import torch
+# phase 8a's spawned collection workers re-run this script as __mp_main__ to
+# find their target; they need no torch, whose import would add seconds to
+# each worker's start-up (the CLI's workers import none either)
+if __name__ != "__mp_main__":
+    import torch
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32
 # FLOP/s outside the tensor cores (the LSTM, and the float32 attention's
@@ -212,6 +248,15 @@ EVAL_OUTPUT_RTOL = 1e-4
 # at 10, 7b's positions part by 2.8e-3 m in 60 ticks on an H100 80GB HBM3
 # (scripts/eval_divergence_probe.py)
 EVAL_VELOCITY_SCALE, EVAL_VELOCITY_BIAS = 1.0, (-5.0, 0.0)
+COLLECT_EPISODES = 8  # phase 8: the synthetic episodes, and 8a's UPDATE_SIZE
+COLLECT_PROCESSES = (1, 4)  # 8a: NUM_PROCESSES
+COLLECT_UPDATE = 4  # 8b: UPDATE_SIZE, two iterations
+COLLECT_MAX_STEPS = 150  # 8b: MAX_EPISODE_STEPS cut from 1000, and the one length bucket
+COLLECT_F32_EPISODES = 2  # 8c
+COLLECT_F32_MAX_STEPS = 60  # 8c: MAX_EPISODE_STEPS cut from 1000
+# 8c, the float32 mixed ticks replayed through the plain versions: each tick's
+# actions and LSTM states, of each one's range over the run
+COLLECT_OUTPUT_RTOL = 1e-4
 EVAL_STATS = ("ndtw", "spl", "success", "actual_success", "path_length", "distance_to_goal")
 # a bias on the keys adds the same q·b to every logit of a query row, which
 # the softmax cancels: this leaf's exact gradient is 0
@@ -2241,6 +2286,415 @@ def eval_path(device, model_opts=(), profile=False):
         shutil.rmtree(root, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def instrumented_collection(record, device):
+    """Time and count what collection does, from outside it: each
+    ``collect_dataset`` call (host clock, its beta, the launches of each
+    kernel and the env steps inside it), each kinematic env step (host
+    clock: integration, measures, render), each mixer tick (the host clock
+    around ``PolicyMixer.step``: copies in, act, the one copy out; CUDA
+    events around ``HCMAgent.act``; its launches; where ``record["ticks"]``
+    is a list, the tick's inputs and outputs and both levels' LSTM states),
+    what each tick executed and what the policy answered, the mixers built
+    (for BERT's embeddings), when each episode reached the buffer, and each
+    train epoch's launches."""
+    from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
+    from robo_vln_tpu_torch.envs import collection, dagger
+    from robo_vln_tpu_torch.envs.env import KinematicEnv
+    from robo_vln_tpu_torch.eval import agent as agent_mod
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer as HT
+
+    cuda = torch.device(device).type == "cuda"
+    originals = {}
+
+    def patch(owner, name, make):
+        originals[(owner, name)] = getattr(owner, name)
+        setattr(owner, name, make(getattr(owner, name)))
+
+    def delta(before):
+        after = path_launches()
+        return {k: after[k] - before[k] for k in after}
+
+    def collect(fn):
+        def call(config, features_dir, **kwargs):
+            before, steps, t0 = path_launches(), record["env_steps"], time.perf_counter()
+            record["puts"] = []
+            out = fn(config, features_dir, **kwargs)
+            record["collections"].append({
+                "s": time.perf_counter() - t0, "beta": kwargs.get("beta", 1.0),
+                "arrivals": [t - t0 for t in record["puts"]],
+                "episodes": out, "env_steps": record["env_steps"] - steps,
+                "launches": delta(before), "processes": int(config.NUM_PROCESSES)})
+            return out
+        return call
+
+    def env_step(fn):
+        def call(self, *args):
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            record["env_ms"].append((time.perf_counter() - t0) * 1e3)
+            record["env_steps"] += 1
+            return out
+        return call
+
+    def act(fn):
+        def call(self, obs, state, prev, mask, host_ids=None):
+            before = path_launches()
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            out = fn(self, obs, state, prev, mask, host_ids=host_ids)
+            if cuda:
+                end.record()
+                record["act_events"].append((start, end))
+            record["tick_launches"].append(delta(before))
+            if record["ticks"] is not None:  # 8c: what the policy was given, and gave
+                record["ticks"].append((obs, prev, mask, host_ids, out[0].float().cpu().numpy(),
+                                        torch.cat(out[2]).float().cpu().numpy()))
+            return out
+        return call
+
+    def mixer_step(fn):
+        def call(self, observations):
+            t0 = time.perf_counter()
+            out = fn(self, observations)
+            record["policy_host_ms"].append((time.perf_counter() - t0) * 1e3)
+            record["answers"].append(out)
+            return out
+        return call
+
+    def set_prev(fn):
+        def call(self, v, w):
+            record["executed"].append((v, w))
+            return fn(self, v, w)
+        return call
+
+    def mixer_for_trainer(fn):
+        def call(trainer):
+            mixer = fn(trainer)
+            record["mixers"].append(mixer)
+            return mixer
+        return call
+
+    def put(fn):
+        def call(self, *args):
+            out = fn(self, *args)
+            record["puts"].append(time.perf_counter())
+            return out
+        return call
+
+    def train_epoch(fn):
+        def call(self, *args, **kwargs):
+            before = path_launches()
+            out = fn(self, *args, **kwargs)
+            record["epoch_launches"].append(delta(before))
+            return out
+        return call
+
+    try:
+        patch(collection, "collect_dataset", collect)
+        patch(KinematicEnv, "step", env_step)
+        patch(agent_mod.HCMAgent, "act", act)
+        patch(dagger.PolicyMixer, "step", mixer_step)
+        patch(dagger.PolicyMixer, "set_prev", set_prev)
+        patch(dagger, "mixer_for_trainer", mixer_for_trainer)
+        patch(HT, "train_epoch", train_epoch)
+        patch(TrajectoryStore, "put", put)
+        yield
+    finally:
+        for (owner, name), fn in originals.items():
+            setattr(owner, name, fn)
+
+
+def new_collection_record():
+    record = {k: [] for k in ("collections", "env_ms", "act_events", "tick_launches",
+                              "policy_host_ms", "answers", "executed", "mixers",
+                              "epoch_launches")}
+    record.update(env_steps=0, ticks=None, puts=[])
+    return record
+
+
+def read_episodes(path):
+    """(sha256 of each stored episode, each episode's length), by key; the
+    port's loader (data/loader.TrajectoryDataset) must read every episode,
+    finite and of the stored length."""
+    import hashlib
+
+    import numpy as np
+
+    from robo_vln_tpu_torch.data import serialization
+    from robo_vln_tpu_torch.data.loader import TrajectoryDataset
+    from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
+
+    with TrajectoryStore(path) as store:
+        raws = [store.get_buffer(i) for i in range(len(store))]
+    digests = [hashlib.sha256(raw).hexdigest() for raw in raws]
+    lengths = [len(serialization.unpackb_any(raw)[2]) for raw in raws]
+    del raws
+    loaded = []
+    for obs, prev, corr, _ in TrajectoryDataset(path, batch_size=1, is_bert=True):
+        if not (np.isfinite(corr).all() and np.isfinite(prev).all()) or corr.shape[1] != 2 \
+                or obs["rgb"].dtype != np.uint8 or len(obs["rgb"]) != len(corr):
+            fail(f"{path}: the loader read a malformed episode")
+        loaded.append(len(corr))
+    if sorted(loaded) != sorted(lengths):
+        fail(f"{path}: the loader read episodes of {sorted(loaded)} ticks, the store holds "
+             f"{sorted(lengths)}")
+    return digests, lengths
+
+
+def policy_decisions(executed, answers, labels):
+    """Per mixer tick: (the policy's command ran, it differs from the
+    expert's label).  The policy's command is its answer with omega
+    clipped to [-1, 1]."""
+    import numpy as np
+
+    if not len(executed) == len(answers) == len(labels):
+        fail(f"{len(executed)} executed commands, {len(answers)} policy answers, "
+             f"{len(labels)} labels")
+    out = []
+    for (ev, ew), (pv, pw), (lv, lw) in zip(executed, answers, labels):
+        ran = (ev, ew) == (pv, float(np.clip(pw, -1.0, 1.0)))
+        out.append((ran, ran and (ev, ew) != (lv, lw)))
+    return out
+
+
+def buffer_labels(path, first):
+    """The expert labels of every tick of the buffer's episodes from key
+    ``first`` on, in collection order."""
+    import numpy as np
+
+    from robo_vln_tpu_torch.data import serialization
+    from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
+
+    with TrajectoryStore(path) as store:
+        return [tuple(row) for i in range(first, len(store)) for row in np.asarray(
+            serialization.unpackb_any(store.get_buffer(i))[2], np.float64).tolist()]
+
+
+def collect_path(device, model_opts=()):
+    """Phase 8: DAgger collection through python -m robo_vln_tpu_torch.run's
+    run_exp: expert collection on robovln_data_train.yaml at 1 and 4
+    worker processes (8a), the hierarchical trainer collecting and training
+    in one run, its second iteration mixed with the policy on ``device``
+    (8b), and a float32 mixed collection's ticks replayed through the plain
+    versions (8c).  ``model_opts`` are extra config options (a CPU rehearsal
+    shrinks the model and the sensors through them).  Returns the launches
+    of the phase's collection runs (8a and 8b)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.envs import collection, dagger
+    from robo_vln_tpu_torch.ops import _build, fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+
+    cuda = torch.device(device).type == "cuda"
+    yaml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "robo_vln_tpu_torch",
+                        "config", "configs", "robovln_data_train.yaml")
+    print(f"phase 8 ({card_line() if cuda else 'no card'}): DAgger collection through python -m "
+          f"robo_vln_tpu_torch.run's run_exp, {COLLECT_EPISODES} synthetic episodes on the "
+          "kinematic backend at full width (224 px rgb, 256 px depth)")
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # in the checkout, ignored by git
+    root = tempfile.mkdtemp(prefix="collect_", dir=_build.BUILD_DIR.parent)
+    try:
+        data = os.path.join(root, "episodes.json.gz")
+        write_eval_episodes(data, COLLECT_EPISODES)
+        common = ["DEVICE", str(device), "TASK_CONFIG.SIMULATOR.TYPE", "kinematic",
+                  "TASK_CONFIG.DATASET.DATA_PATH", data,
+                  "LOG_FILE", os.path.join(root, "collect.log"),
+                  "MODEL.INSTRUCTION_ENCODER.is_bert", True]
+        fused_lstm.reset_launches()
+        fused_attention.reset_launches()
+
+        # 8a: the expert alone, the shipped collection config
+        print(f"8a: expert collection, robovln_data_train.yaml (robo_vln_trainer, COLLECT_ONLY), "
+              f"UPDATE_SIZE {COLLECT_EPISODES}, MAX_EPISODE_STEPS 1000 (not cut), NUM_PROCESSES "
+              + " and ".join(map(str, COLLECT_PROCESSES)))
+        buffers = {}
+        for n in COLLECT_PROCESSES:
+            record = new_collection_record()
+            buf = os.path.join(root, f"expert_n{n}")
+            with instrumented_collection(record, device):
+                run_exp(yaml, "train", [*common, "NUM_PROCESSES", n,
+                                        "DAGGER.UPDATE_SIZE", COLLECT_EPISODES,
+                                        "DAGGER.LMDB_FEATURES_DIR", buf,
+                                        "TENSORBOARD_DIR", os.path.join(root, "tb_expert"),
+                                        "CHECKPOINT_FOLDER", os.path.join(root, "ckpt_expert"),
+                                        *model_opts])
+            (run,) = record["collections"]
+            digests, lengths = buffers[n] = read_episodes(buf)
+            ticks = sum(lengths)
+            if run["episodes"] != COLLECT_EPISODES or len(digests) != COLLECT_EPISODES:
+                fail(f"8a NUM_PROCESSES {n}: {len(digests)} episodes in the buffer, "
+                     f"expected {COLLECT_EPISODES}")
+            if any(run["launches"].values()):
+                fail(f"8a: expert collection launched {run['launches']}")
+            print(f"  NUM_PROCESSES {n}: {COLLECT_EPISODES} episodes, {ticks} env steps in "
+                  f"{run['s']:.3f} s (worker start-up included): "
+                  f"{COLLECT_EPISODES / run['s']:.3f} episodes/s, {ticks / run['s']:.2f} env "
+                  f"steps/s; {dir_bytes(buf) / 2**20 / COLLECT_EPISODES:.2f} MiB an episode "
+                  f"on disk; ticks an episode {lengths}")
+            first, last = run["arrivals"][0], run["arrivals"][-1]
+            print(f"    the first episode reached the buffer after {first:.3f} s, the last after "
+                  f"{last:.3f} s: {(COLLECT_EPISODES - 1) / (last - first):.3f} episodes/s "
+                  "between them")
+            if n > 1:  # each episode has a scene of its own: worker w rolls out w, w+n, ...
+                serial_lengths = buffers[COLLECT_PROCESSES[0]][1]
+                print(f"    env steps a worker: {[sum(serial_lengths[w::n]) for w in range(n)]}")
+            if n == 1:
+                print(f"    env step and render, host clock: median "
+                      f"{statistics.median(record['env_ms']):.3f} ms over {record['env_steps']}")
+        serial, parallel = (buffers[n] for n in COLLECT_PROCESSES)
+        if sorted(serial[0]) != sorted(parallel[0]):
+            fail(f"8a: the {COLLECT_PROCESSES[-1]}-process buffer does not hold the serial "
+                 "buffer's episodes bitwise")
+        print(f"  the {COLLECT_PROCESSES[-1]}-process buffer holds the serial buffer's "
+              f"{COLLECT_EPISODES} episodes bitwise (order {[serial[0].index(d) for d in parallel[0]]}); "
+              "the port's loader read both")
+        for n in COLLECT_PROCESSES:
+            shutil.rmtree(os.path.join(root, f"expert_n{n}"))
+
+        # 8b: collect, train, collect mixed with the trained policy, train
+        print(f"8b: the hierarchical trainer collecting and training in one run, bfloat16: "
+              f"DAGGER.ITERATIONS 2, P 0.5, UPDATE_SIZE {COLLECT_UPDATE}, one epoch an "
+              f"iteration, BATCH_SIZE 4, tbptt 50; MAX_EPISODE_STEPS cut from 1000 to "
+              f"{COLLECT_MAX_STEPS}")
+        record = new_collection_record()
+        buf, ckpts = os.path.join(root, "dagger"), os.path.join(root, "ckpt_dagger")
+        opts = [*common, "TRAINER_NAME", "hierarchical_trainer",
+                "DAGGER.PRELOAD_LMDB_FEATURES", False, "DAGGER.ITERATIONS", 2, "DAGGER.P", 0.5,
+                "DAGGER.UPDATE_SIZE", COLLECT_UPDATE, "DAGGER.EPOCHS", 1,
+                "DAGGER.BATCH_SIZE", 4, "DAGGER.tbptt_steps", 50,
+                "DAGGER.EPISODE_LEN_BUCKETS", [COLLECT_MAX_STEPS],
+                "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", COLLECT_MAX_STEPS,
+                "DAGGER.LMDB_FEATURES_DIR", buf,
+                "DAGGER.LMDB_EVAL_DIR", os.path.join(root, "no_eval_buffer"),
+                "CHECKPOINT_FOLDER", ckpts, "TENSORBOARD_DIR", os.path.join(root, "tb_dagger"),
+                "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True, "TPU.PRECISION", "bfloat16",
+                *model_opts]
+        t0 = time.perf_counter()
+        with instrumented_collection(record, device):
+            run_exp(None, "train", opts)
+        run_s = time.perf_counter() - t0
+        launches = path_launches()  # 8a's and 8b's collections and 8b's epochs
+        expert, mixed = record["collections"]
+        if (expert["beta"], mixed["beta"]) != (1.0, 0.5):
+            fail(f"8b: the iterations collected at beta {expert['beta']}, {mixed['beta']}")
+        with_store = ckpt_lib.list_checkpoints(ckpts)
+        if [os.path.basename(c) for c in with_store] != ["ckpt.1", "ckpt.2"]:
+            fail(f"8b: checkpoints {with_store}, expected ckpt.1 and ckpt.2")
+        digests, lengths = read_episodes(buf)
+        if len(digests) != 2 * COLLECT_UPDATE:
+            fail(f"8b: {len(digests)} episodes in the buffer, expected {2 * COLLECT_UPDATE}")
+        ticks = len(record["tick_launches"])
+        if ticks != mixed["env_steps"] or ticks == 0:
+            fail(f"8b: {ticks} policy ticks over {mixed['env_steps']} mixed env steps")
+        forward = ("lstm_seq", "cross_modal_attn", "cross_modal_attn_bf16_round_p")
+        for t, launched in enumerate(record["tick_launches"]):
+            for name, count in launched.items():
+                if count != (2 if name in forward else 0):
+                    fail(f"8b: mixed tick {t} launched {name} {count} times, expected "
+                         f"{2 if name in forward else 0}")
+        if any(expert["launches"].values()):
+            fail(f"8b: the expert iteration launched {expert['launches']}")
+        train_steps = ckpt_lib.load_metadata(with_store[-1])["train_steps"]
+        epochs = {k: sum(e[k] for e in record["epoch_launches"]) for k in launches}
+        want = {k: (2 * train_steps if k in (*forward, "lstm_seq_backward") else 0)
+                for k in launches}
+        if epochs != want:
+            fail(f"8b: the epochs' {train_steps} train steps launched {epochs}, expected {want}")
+        decisions = policy_decisions(record["executed"], record["answers"],
+                                     buffer_labels(buf, COLLECT_UPDATE))
+        ran = sum(r for r, _ in decisions)
+        if not any(differs for _, differs in decisions):
+            fail("8b: no tick executed a policy command other than the expert's label: the "
+                 "mixer did not drive")
+        (mixer,) = record["mixers"]
+        if mixer.agent.trunk_fn is None:
+            fail("8b: the mixer's policies do not share their frozen trunks")
+        policy_ms = ([s.elapsed_time(e) for s, e in record["act_events"]] if cuda
+                     else [float("nan")])
+        for name, run in (("iteration 0, the expert", expert),
+                          ("iteration 1, mixed at beta 0.5", mixed)):
+            print(f"  {name}: {run['episodes']} episodes, {run['env_steps']} env steps in "
+                  f"{run['s']:.3f} s: {run['env_steps'] / run['s']:.2f} env steps/s")
+        print(f"  the mixed tick: policy {statistics.median(policy_ms):.3f} ms on the device's "
+              f"clock (CUDA events around act), {statistics.median(record['policy_host_ms']):.3f} "
+              f"ms host (copies in, act, the one copy out); env step and render "
+              f"{statistics.median(record['env_ms']):.3f} ms host (median over both "
+              f"iterations); the policy's command ran at {ran} of {ticks} ticks "
+              f"({ran / ticks:.3f}); BERT embedded {mixer.agent.embeds} times over "
+              f"{mixed['episodes']} episodes; the trunks shared")
+        print(f"  launches during the mixed collection: {mixed['launches']} ({ticks} ticks); "
+              f"during the epochs ({train_steps} train steps): {epochs}")
+        print(f"  run_exp {run_s:.2f} s; ticks an episode {lengths}; checkpoints "
+              f"{[os.path.basename(c) for c in with_store]}")
+        collect_launches = {k: sum(c["launches"][k] for c in record["collections"])
+                            for k in launches}
+        del mixer
+        record["mixers"].clear()
+
+        # 8c: a float32 mixed collection's ticks replayed through the plain versions
+        print(f"8c: float32, {COLLECT_F32_EPISODES} episodes mixed at beta 0.5, MAX_EPISODE_STEPS "
+              f"{COLLECT_F32_MAX_STEPS}: each tick's inputs replayed through the plain versions")
+        cfg = get_config(opts=[*opts, "TPU.PRECISION", "float32",
+                               "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS",
+                               COLLECT_F32_MAX_STEPS])
+        trainer = HierarchicalTrainer(cfg)
+        trainer._setup_policy()
+        record = new_collection_record()
+        record["ticks"] = []
+        mixer = dagger.mixer_for_trainer(trainer)
+        with instrumented_collection(record, device):
+            collection.collect_dataset(cfg, os.path.join(root, "f32"),
+                                       update_size=COLLECT_F32_EPISODES, mixer=mixer, beta=0.5)
+        ticks = record["ticks"]
+        (run,) = record["collections"]
+        want = {k: (2 * len(ticks) if k in ("lstm_seq", "cross_modal_attn") else 0)
+                for k in run["launches"]}
+        if run["launches"] != want or not ticks:
+            fail(f"8c: launched {run['launches']} in {len(ticks)} ticks, expected {want}")
+        agent = mixer.agent
+        state, p_out, p_hc = None, [], []
+        with plain_kernels():
+            for obs, prev, mask, host_ids, _, _ in ticks:
+                if state is None or not mask.any():  # an episode's first tick
+                    state = agent.initial_state(1)
+                actions, _, state = agent.act(obs, state, prev, mask, host_ids=host_ids)
+                p_out.append(actions.float().cpu().numpy())
+                p_hc.append(torch.cat(state).float().cpu().numpy())
+        mixer.close()
+        k_out, p_out = np.stack([t[4] for t in ticks]), np.stack(p_out)
+        k_hc, p_hc = np.stack([t[5] for t in ticks]), np.stack(p_hc)
+        half = p_hc.shape[1] // 2  # the high level's (h, c), then the low level's
+        worst = 0.0
+        for name, (k, p) in zip(("lin_vel", "omega", "high level's LSTM state",
+                                 "low level's LSTM state"),
+                                ((k_out[..., 0], p_out[..., 0]), (k_out[..., 1], p_out[..., 1]),
+                                 (k_hc[:, :half], p_hc[:, :half]),
+                                 (k_hc[:, half:], p_hc[:, half:]))):
+            err, span = np.abs(k - p).max(), np.ptp(p)
+            rel = err / max(span, np.finfo(np.float32).tiny)
+            worst = max(worst, rel)
+            print(f"  {len(ticks)} ticks, each tick's {name}: largest difference {err:.3e} over "
+                  f"a range of {span:.3e} ({rel:.3e} of it; tolerance {COLLECT_OUTPUT_RTOL})")
+        if not worst <= COLLECT_OUTPUT_RTOL:
+            fail(f"8c: on the same ticks the kernels' outputs or states differ from the plain "
+                 f"versions' by {worst:.3e} of their range")
+        ran = sum(r for r, _ in policy_decisions(
+            record["executed"], record["answers"], buffer_labels(os.path.join(root, "f32"), 0)))
+        print(f"  the policy's command ran at {ran} of {len(ticks)} ticks; launches {run['launches']}")
+        del trainer, agent, mixer
+        return collect_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2292,9 +2746,11 @@ def main():
     read_key_blocks("_trainer")
     eval_launches = eval_path(device, profile=profile)
     read_key_blocks("_eval")
+    collect_launches = collect_path(device)
+    read_key_blocks("_collect")
     print(f"key-block launches of the attention kernel (S > 128 or d > 128 in float32, S > "
           f"128 in bf16) and float32 one-float-copy launches on the serving, train, "
-          f"trainer and eval paths: {key_blocks}")
+          f"trainer, eval and collection paths: {key_blocks}")
     if any(key_blocks.values()):
         fail("an HCM path launched a key-block or one-float-copy attention kernel")
     attention.update(key_blocks)
@@ -2303,6 +2759,7 @@ def main():
         k["train_launches"] = train_launches[k["name"]]
         k["trainer_launches"] = trainer_launches[k["name"]]
         k["eval_launches"] = eval_launches[k["name"]]
+        k["collect_launches"] = collect_launches[k["name"]]
     # the serving path runs no backward: the backward's launches are the train path's
     for backward in kernels[1:3]:
         backward["serving_launches"], backward["launches"] = (backward["launches"],

@@ -37,7 +37,7 @@ _C.CMD_TRAILING_OPTS = []
 _C.TRAINER_NAME = "robo_vln_trainer"
 # port-only: the device the entry point trains on; "cpu" only when asked for
 _C.DEVICE = "cuda"
-_C.NUM_PROCESSES = 1  # env processes of collection (ROADMAP §A item 5)
+_C.NUM_PROCESSES = 1  # worker processes of expert collection (envs/collection.py)
 _C.TENSORBOARD_DIR = "data/tensorboard_dirs/debug"
 _C.CHECKPOINT_FOLDER = "data/checkpoints"
 _C.LOG_FILE = "train.log"
@@ -108,7 +108,7 @@ _C.DAGGER.EPOCHS = 10
 _C.DAGGER.BATCH_SIZE = 3
 _C.DAGGER.tbptt_steps = 100
 _C.DAGGER.USE_IW = True
-# DAgger collection (envs/, ROADMAP §A item 5)
+# DAgger collection (envs/collection.py, envs/dagger.py)
 _C.DAGGER.UPDATE_SIZE = 5000
 _C.DAGGER.P = 1.0
 _C.DAGGER.time_step = 1.0 / 30
@@ -124,8 +124,8 @@ _C.DAGGER.LMDB_STORE_FREQUENCY = 5
 # >1: the process-parallel loader (data/parallel_loader.py, ROADMAP §A
 # item 2), not ported: the trainer raises
 _C.DAGGER.LOADER_WORKERS = 0
-# False: collect inside the DAgger loop (envs/, ROADMAP §A item 5), not
-# ported: the trainer raises; likewise COLLECT_ONLY
+# False: each DAgger iteration collects into LMDB_FEATURES_DIR before its
+# epochs (envs/collection.py); COLLECT_ONLY stops after the first collection
 _C.DAGGER.PRELOAD_LMDB_FEATURES = False
 _C.DAGGER.COLLECT_ONLY = False
 _C.DAGGER.LMDB_FEATURES_DIR = "data/trajectories_dirs/debug/trajectories.lmdb"

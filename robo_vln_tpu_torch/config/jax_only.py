@@ -29,8 +29,8 @@ UNPORTED: Dict[str, Tuple[Any, str]] = {
     "MODEL.RGB_ENCODER.cnn_type": ("TorchVisionResNet50", "§A item 4"),
     "MODEL.DEPTH_ENCODER.cnn_type": ("VlnResnetDepthEncoder", "§A item 4"),
     # the on-device eval
-    "EVAL.ON_DEVICE": (False, "§A item 5"),
-    "EVAL.ON_DEVICE_BATCH": (8, "§A item 5"),
+    "EVAL.ON_DEVICE": (False, "§A item 5b"),
+    "EVAL.ON_DEVICE_BATCH": (8, "§A item 5b"),
     # the flat family's models and trainer
     "MODEL.ablate_instruction": (False, "§A item 6"),
     "MODEL.SEQ2SEQ.use_prev_action": (False, "§A item 6"),

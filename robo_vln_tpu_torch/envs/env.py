@@ -134,9 +134,14 @@ class _BaseEnv:
 
 
 class KinematicEnv(_BaseEnv):
-    def __init__(self, config):
+    """``dataset``: the episodes to serve (collection's workers hand each env
+    a slice); by default the config's dataset file."""
+
+    def __init__(self, config, dataset: Optional[VLNCEDatasetV1] = None):
         super().__init__(config)
-        self.dataset = VLNCEDatasetV1(config=config.TASK_CONFIG.DATASET)
+        if dataset is None:
+            dataset = VLNCEDatasetV1(config=config.TASK_CONFIG.DATASET)
+        self.dataset = dataset
         self._ep_iter = 0
         self._state = RigidState()
         self._geo: Optional[_PolylineGeodesics] = None

@@ -14,10 +14,12 @@ from ..data.dataset import VLNCEDatasetV1
 from .env import KinematicEnv, ReplayEnv
 
 
-def construct_env(config):
+def construct_env(config, dataset=None):
+    """``dataset``: the kinematic backend's episodes (a VLNCEDatasetV1), by
+    default those of the config's dataset file."""
     sim_type = config.TASK_CONFIG.SIMULATOR.TYPE
     if sim_type == "kinematic":
-        return KinematicEnv(config)
+        return KinematicEnv(config, dataset=dataset)
     if sim_type == "replay":
         return ReplayEnv(config, config.DAGGER.LMDB_FEATURES_DIR.format(
             split=config.TASK_CONFIG.DATASET.SPLIT

@@ -1,13 +1,14 @@
-"""Velocity-control types and kinematic integration (host-side); the port's
-own copy of the integrator of robo_vln_tpu/envs/velocity_control.py.
+"""Velocity-control types, kinematic integration and the expert's waypoint
+controller (host-side); the port's own copy of
+robo_vln_tpu/envs/velocity_control.py.
 
-Python surface over the native integrator (sim/kinematics.cc, built by
-sim/build.py into build/sim/) replicating habitat_sim.physics.VelocityControl
-semantics: local-frame linear/angular velocities, translation integrated
-with the pre-step rotation, then the rotation update.  A numpy fallback
-implements identical math; :func:`integrator` names the one in use, and the
-first step logs it.  The expert's waypoint controller comes with the expert
-(ROADMAP §A item 5).
+Python surface over the native library (sim/kinematics.cc, built by
+sim/build.py into build/sim/): the integrator replicates
+habitat_sim.physics.VelocityControl semantics (local-frame linear/angular
+velocities, translation integrated with the pre-step rotation, then the
+rotation update), and :func:`track_waypoint_native` is the expert's
+P-controller.  Numpy fallbacks implement identical math; :func:`integrator`
+names the library in use for both, and the first call logs it.
 
 Conventions (habitat): -z is forward, +y up; quaternions are (w, x, y, z).
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
+from typing import Tuple
 
 import numpy as np
 
@@ -33,17 +35,24 @@ def _native():
             lib = load("kinematics")
             dp = ctypes.POINTER(ctypes.c_double)
             lib.integrate_rigid_state.argtypes = [dp, dp, dp, dp, ctypes.c_double]
+            lib.integrate_rigid_state.restype = None
+            lib.track_waypoint.argtypes = [
+                dp, dp, dp, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                dp, dp,
+            ]
+            lib.track_waypoint.restype = None
             _lib = lib
         except Exception as e:  # noqa: BLE001 — the numpy path computes the same
             logger.warning(f"native kinematic integrator unavailable ({e})")
             _lib = False
-        logger.info(f"kinematic integrator: {integrator()}")
+        logger.info(f"kinematic integrator: {integrator()} (and the expert's "
+                    "waypoint controller)")
     return _lib or None
 
 
 def integrator() -> str:
     """"native" (sim/kinematics.cc) or "numpy": the integrator the env
-    steps with."""
+    steps with, and the expert's waypoint controller."""
     return "native" if _native() is not None else "numpy"
 
 
@@ -129,6 +138,59 @@ def integrate_rigid_state(
         lin.ctypes.data_as(dp), ang.ctypes.data_as(dp), dt,
     )
     return RigidState(q, p)
+
+
+def track_waypoint_numpy(q: np.ndarray, p: np.ndarray, wp: np.ndarray,
+                         prev_lin_z: float, progress: float,
+                         dt: float) -> Tuple[float, float]:
+    """The numpy path of :func:`track_waypoint_native`, the same math as
+    sim/kinematics.cc (track_waypoint equations,
+    continuous_path_follower.py:124-159)."""
+    glob_forward = quat_rotate(q, np.array([0.0, 0.0, -1.0]))
+    glob_forward /= np.linalg.norm(glob_forward)
+    glob_right = quat_rotate(q, np.array([-1.0, 0.0, 0.0]))
+    glob_right /= np.linalg.norm(glob_right)
+    to_wp = wp - p
+    n = np.linalg.norm(to_wp)
+    u = to_wp / n if n > 1e-12 else np.zeros(3)
+    angle_error = float(np.arccos(np.clip(np.dot(glob_forward, u), -1, 1)))
+
+    if progress > 0.985:
+        new_velocity = prev_lin_z / 1.5
+    elif angle_error < 0.5:
+        new_velocity = (prev_lin_z - 1.0) / 2.0
+    else:
+        new_velocity = prev_lin_z / 2.0
+
+    rot_dir = -1.0 if np.dot(glob_right, u) < 0 else 1.0
+    max_turn_speed = 1.0
+    if angle_error > max_turn_speed * 10.0 * dt:
+        angular_correction = max_turn_speed
+    else:
+        angular_correction = angle_error / 2.0
+    w = float(np.clip(rot_dir * angular_correction, -max_turn_speed, max_turn_speed))
+    return new_velocity, w
+
+
+def track_waypoint_native(
+    state: RigidState, waypoint: np.ndarray, prev_lin_z: float,
+    progress: float, dt: float,
+) -> Tuple[float, float]:
+    """(new lin_vel.z, ang_vel.y) from the expert P-controller."""
+    lib = _native()
+    q = np.asarray(state.rotation, np.float64)
+    p = np.asarray(state.position, np.float64)
+    wp = np.asarray(waypoint, np.float64)
+    if lib is None:
+        return track_waypoint_numpy(q, p, wp, prev_lin_z, progress, dt)
+    dp = ctypes.POINTER(ctypes.c_double)
+    out_v = ctypes.c_double()
+    out_w = ctypes.c_double()
+    lib.track_waypoint(
+        q.ctypes.data_as(dp), p.ctypes.data_as(dp), wp.ctypes.data_as(dp),
+        prev_lin_z, progress, dt, ctypes.byref(out_v), ctypes.byref(out_w),
+    )
+    return out_v.value, out_w.value
 
 
 def heading_from_quaternion(q: np.ndarray) -> float:

@@ -23,7 +23,7 @@ Preserved reference quirks:
 
 Not ported yet (ROADMAP §A item 3c): videos, PLOT_ATTENTION, the
 nonlearning agents; get_config refuses their keys.  EVAL.ON_DEVICE is §A
-item 5.
+item 5b.
 """
 
 from __future__ import annotations
@@ -36,10 +36,9 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-from ..data.tokenizer import InstructionTokenizer
 from ..envs.async_env import AsyncEnvPool
 from ..envs.env_utils import construct_envs
-from ..envs.obs_utils import batch_obs, transform_obs
+from ..envs.obs_utils import batch_obs, make_tokenizer, transform_obs
 from ..envs.velocity_control import VelocityControl
 from ..tasks.dtw import ndtw
 from ..training import checkpoint as ckpt_lib
@@ -239,13 +238,6 @@ def _maybe_shuffle_env_instructions(config, envs) -> None:
         ds = getattr(env, "dataset", None)
         if ds is not None and getattr(ds, "episodes", None):
             shuffle_instructions(ds.episodes)
-
-
-def _tokenizer_for(config):
-    if not config.MODEL.INSTRUCTION_ENCODER.is_bert:
-        return None
-    vf = config.BERT_VOCAB_FILE
-    return InstructionTokenizer(vf, max_len=config.DAGGER.MAX_INSTRUCTION_LEN) if vf else None
 
 
 def _episode_budget(config, envs) -> int:
@@ -467,7 +459,7 @@ def eval_hierarchical_checkpoint(trainer, checkpoint_path, writer,
     agent = HCMAgent(trainer.high, trainer.low,
                      share_frozen_trunks=config.TPU.SHARE_FROZEN_TRUNKS)
     tick = _PolicyTick(agent)
-    tokenizer, is_bert = _tokenizer_for(config), config.MODEL.INSTRUCTION_ENCODER.is_bert
+    tokenizer, is_bert = make_tokenizer(config), config.MODEL.INSTRUCTION_ENCODER.is_bert
     stats = _run_rollout(config, envs, writer, checkpoint_index, tick, agent.initial_state,
                          tokenizer, is_bert, extra)
     logger.info(f"BERT embedded the instructions {agent.embeds} times")

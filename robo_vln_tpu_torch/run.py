@@ -19,7 +19,6 @@ import random
 
 import numpy as np
 
-from . import training  # noqa: F401 (registers the trainers)
 from .config.default import get_config
 from .utils.logging import add_filehandler, logger
 from .utils.registry import get_trainer
@@ -45,6 +44,10 @@ def main(argv=None):
 
 def run_exp(exp_config, run_type: str, opts=None) -> None:
     """``exp_config``: a yaml path, or None for the defaults."""
+    # imported here, not with the module: collection's spawned workers
+    # re-import the parent's main module, and need no torch
+    from . import training  # noqa: F401 (registers the trainers)
+
     config = get_config(exp_config, opts)
     logger.info(f"config: {json.dumps(config.to_dict(), default=str)}")
     add_filehandler(config.LOG_FILE)

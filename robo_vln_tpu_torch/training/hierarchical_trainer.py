@@ -20,6 +20,12 @@ copies the high level's frozen trunks into the low level's, so that the
 shared-trunk pass (``TPU.SHARE_FROZEN_TRUNKS``) can run: it runs only when
 the two policies' trunks are bitwise identical.
 
+With ``DAGGER.PRELOAD_LMDB_FEATURES`` false, each DAgger iteration first
+grows the buffer by ``UPDATE_SIZE`` episodes (BaseTrainer._update_dataset):
+the expert's rollouts, and past the first iteration with ``DAGGER.P`` < 1
+rollouts mixed with the live policy on ``DEVICE`` (envs/dagger.py);
+``DAGGER.COLLECT_ONLY`` stops after the first collection.
+
 Options the port does not have yet raise before any work
 (:meth:`HierarchicalTrainer._check_ported`).
 """
@@ -99,11 +105,6 @@ class HierarchicalTrainer(BaseTrainer):
             raise NotImplementedError(
                 "DAGGER.PRELOAD_TRUNK_FEATURES: the trunk feature store "
                 "(training/featurize.py) is not ported yet (ROADMAP §A item 4)")
-        if not d.PRELOAD_LMDB_FEATURES or d.COLLECT_ONLY:
-            raise NotImplementedError(
-                "DAGGER.PRELOAD_LMDB_FEATURES false or DAGGER.COLLECT_ONLY: DAgger "
-                "collection (envs/) is not ported yet (ROADMAP §A item 5); train from "
-                "a collected buffer with DAGGER.PRELOAD_LMDB_FEATURES true")
 
     def _check_pretrained_files(self) -> None:
         """The port loads no pretrained backbone yet: a file that exists
@@ -273,6 +274,12 @@ class HierarchicalTrainer(BaseTrainer):
     def train(self) -> None:
         cfg = self.config
         self._check_ported()
+        collect = not cfg.DAGGER.PRELOAD_LMDB_FEATURES
+        if collect and cfg.DAGGER.COLLECT_ONLY:
+            # reference behavior: collect then stop (robo_vln_trainer.py:903)
+            self._update_dataset(0)
+            logger.info("Data collection complete")
+            return
         start_epoch, resume_ckpt, resume_meta = (
             self._find_resume() if cfg.DAGGER.RESUME else (0, "", {})
         )
@@ -288,7 +295,10 @@ class HierarchicalTrainer(BaseTrainer):
             val_steps = int(resume_meta.get("val_steps", 0))
             self._train_steps, self._val_steps = train_steps, val_steps
             done_through = start_epoch
-            for _, epochs in self._iteration_plan(start_epoch):
+            for dagger_it, epochs in self._iteration_plan(start_epoch):
+                if collect:
+                    self._update_dataset(dagger_it)
+                    logger.info(f"Data collection complete (iteration {dagger_it})")
                 for epoch in epochs:
                     t0 = time.time()
                     train_steps = self.train_epoch(

@@ -7,9 +7,12 @@ epochs each DAgger iteration trains (:meth:`BaseTrainer._iteration_plan`,
 global epoch numbers, so checkpoint names ``ckpt.{EPOCHS+epoch}`` stay
 monotonic), and the batches of one epoch (:meth:`BaseTrainer._batches`,
 seeded by the epoch, so a resumed run reads what an uninterrupted one
-reads), and the eval's checkpoint sweep and daemon (:meth:`BaseTrainer.eval`,
-each checkpoint through the subclass's ``_eval_checkpoint``).  The flat
-family's ``RoboVLNTrainer`` is not ported yet (ROADMAP §A item 6).
+reads), the eval's checkpoint sweep and daemon (:meth:`BaseTrainer.eval`,
+each checkpoint through the subclass's ``_eval_checkpoint``), and DAgger
+collection into the buffer (:meth:`BaseTrainer._update_dataset`, envs/).
+Of the flat family's ``RoboVLNTrainer`` the port has the collect-only run of
+the collection configs (robovln_data_{train,val}.yaml); its training and
+eval wait for ROADMAP §A item 6.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ import time
 from typing import Dict, Iterator
 
 from ..data.loader import TrajectoryDataset, batch_iterator
+from ..data.trajectory_store import TrajectoryStore
+from ..utils.device import resolve_device
 from ..utils.logging import MetricsWriter, logger
+from ..utils.registry import register_trainer
 from . import checkpoint as ckpt_lib
 
 
@@ -109,6 +115,64 @@ class BaseTrainer:
             cfg.DAGGER.MAX_INSTRUCTION_LEN,
         )
 
+    # -- collection (host-side; see envs/) -------------------------------------
+    def _update_dataset(self, data_it: int) -> None:
+        """Grow the buffer to (data_it+1)*UPDATE_SIZE episodes.  Restartable:
+        episodes already in the buffer count toward the target, so a resumed
+        run never collects an iteration twice (the reference instead WIPES
+        the lmdb buffer on every collect run, robo_vln_trainer.py:834-837)."""
+        from ..envs.collection import collect_dataset
+
+        target = (data_it + 1) * self.config.DAGGER.UPDATE_SIZE
+        have = 0
+        if os.path.isdir(self.features_dir):
+            with TrajectoryStore(self.features_dir) as store:
+                have = len(store)
+        if have >= target:
+            logger.info(
+                f"collection iteration {data_it}: buffer already holds "
+                f"{have} episodes (target {target}); skipping"
+            )
+            return
+        mixer, beta = self._collection_mixer(data_it)
+        try:
+            collect_dataset(self.config, self.features_dir, mixer=mixer,
+                            beta=beta, update_size=target - have)
+        finally:
+            if mixer is not None:
+                mixer.close()
+
+    def _collection_beta(self, data_it: int) -> float:
+        """beta = P**data_it for DAGGER.P < 1, else 1 (VLN-CE semantics; the
+        reference exposes P but never mixes, robo_vln_trainer.py:387-503).
+        data_it counts LOAD_FROM_CKPT as one prior iteration, mirroring the
+        reference's dagger_it offset (robo_vln_trainer.py:898-900)."""
+        p = float(self.config.DAGGER.P)
+        if self.config.DAGGER.LOAD_FROM_CKPT:
+            data_it += 1
+        return p ** data_it if p < 1.0 else 1.0
+
+    def _collection_mixer(self, data_it: int):
+        """(mixer, beta) for collection iteration ``data_it``: no mixer at
+        beta 1; else the policy (set up first if need be) mixed in through
+        envs/dagger.py on the trainer's device."""
+        beta = self._collection_beta(data_it)
+        if beta >= 1.0:
+            return None, 1.0
+        if getattr(self, "policy", None) is None and \
+                getattr(self, "high", None) is None:
+            self._setup_policy(
+                self.config.DAGGER.LOAD_FROM_CKPT,
+                self.config.DAGGER.CKPT_TO_LOAD,
+            )
+        from ..envs.dagger import mixer_for_trainer
+
+        logger.info(
+            f"DAgger mixed collection: beta={beta:.4f} "
+            f"(P={self.config.DAGGER.P}, data_it={data_it})"
+        )
+        return mixer_for_trainer(self), beta
+
     def eval(self) -> None:
         """Evaluate EVAL_CKPT_PATH_DIR: a single checkpoint, or a folder
         sweep.  With EVAL.ONCE=False the sweep becomes the reference's eval
@@ -162,3 +226,41 @@ class BaseTrainer:
                     )
                     break
                 time.sleep(interval)
+
+
+_FLAT_FAMILY = ("the flat family's models, RoboVLNTrainer's training and eval and its "
+                "DAgger mixer are not ported yet (ROADMAP §A item 6)")
+
+
+@register_trainer("robo_vln_trainer")
+class RoboVLNTrainer(BaseTrainer):
+    """The flat family's trainer, of which the port has the collect-only run
+    (DAGGER.COLLECT_ONLY with PRELOAD_LMDB_FEATURES false, the collection
+    configs robovln_data_{train,val}.yaml): expert rollouts into
+    DAGGER.LMDB_FEATURES_DIR before any policy is built
+    (robo_vln_tpu/training/trainer.py:436-446).  Anything else it would do
+    raises before any work (ROADMAP §A item 6)."""
+
+    def __init__(self, config):
+        self.config = config
+        self.device = resolve_device(config.DEVICE)
+        self.features_dir = config.DAGGER.LMDB_FEATURES_DIR.format(
+            split=config.TASK_CONFIG.DATASET.SPLIT
+        )
+
+    def train(self) -> None:
+        d = self.config.DAGGER
+        if d.PRELOAD_LMDB_FEATURES or not d.COLLECT_ONLY:
+            raise NotImplementedError(
+                "robo_vln_trainer without DAGGER.COLLECT_ONLY (or with "
+                f"DAGGER.PRELOAD_LMDB_FEATURES): {_FLAT_FAMILY}; the port runs the "
+                "collect-only configs, and trains the hierarchical_trainer")
+        if self._collection_beta(0) < 1.0:
+            raise NotImplementedError(
+                f"robo_vln_trainer collection with beta = {self._collection_beta(0)} < 1 "
+                f"(DAGGER.P < 1 with LOAD_FROM_CKPT): {_FLAT_FAMILY}")
+        self._update_dataset(0)
+        logger.info("Data collection complete")
+
+    def eval(self) -> None:
+        raise NotImplementedError(f"robo_vln_trainer eval: {_FLAT_FAMILY}")

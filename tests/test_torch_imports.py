@@ -72,4 +72,5 @@ def test_port_modules_are_all_checked():
         "ops/losses", "training/optimizers", "training/steps", "training/checkpoint",
         "training/trainer", "training/hierarchical_trainer", "data/serialization",
         "data/trajectory_store", "data/loader", "envs/async_env", "utils/registry",
-        "utils/logging", "config/task", "run")} <= checked
+        "utils/logging", "config/task", "envs/expert", "envs/collection", "envs/dagger",
+        "run")} <= checked

@@ -24,7 +24,8 @@ its global batch is 8; the port runs on the CPU with ``DAGGER.BATCH_SIZE`` 8.
 4. Exact resume, port only, dropout on: a run split in two processes'
    worth of trainers ends bitwise where an uninterrupted run ends (weights,
    optimizer state, counters, every logged value); a third run is a no-op.
-5. Options the port does not have yet raise before any work, and so do
+5. Options the port does not have yet raise before any work (the flat
+   family's training under ``robo_vln_trainer`` among them), and so do
    keys of the JAX package the port does not read, set past their JAX
    default.
 6. The entry point trains on the CPU when asked and raises without CUDA.
@@ -55,6 +56,7 @@ from robo_vln_tpu_torch.run import run_exp
 from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
 from robo_vln_tpu_torch.training import trainable_mask
 from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+from robo_vln_tpu_torch.utils.registry import get_trainer
 from robo_vln_tpu_torch.utils.weight_port import (
     high_level_state_dict,
     load_hierarchical_weights,
@@ -152,7 +154,8 @@ def _lookup(tree, key):
     return tree
 
 
-@pytest.mark.parametrize("yaml", [None, "hierarchical_cma.yaml"])
+@pytest.mark.parametrize("yaml", [None, "hierarchical_cma.yaml", "robovln_data_train.yaml",
+                                  "robovln_data_val.yaml"])
 def test_config_matches_jax(yaml):
     opts = ["DAGGER.EPOCHS", "3", "MODEL.BERT.num_layers", "2", "DAGGER.EPISODE_LEN_BUCKETS",
             "[50, 100]"]
@@ -171,7 +174,8 @@ def test_config_matches_jax(yaml):
 
 
 def test_config_files_are_copies():
-    for name in ("hierarchical_cma.yaml", "robo_vln_task.yaml"):
+    for name in ("hierarchical_cma.yaml", "robo_vln_task.yaml", "robovln_data_train.yaml",
+                 "robovln_data_val.yaml"):
         assert (PORT_CONFIGS / name).read_bytes() == (JAX_CONFIGS / name).read_bytes()
     assert (REPO / "robo_vln_tpu_torch/config/task.py").read_text().split('"""', 2)[2] == \
         (REPO / "robo_vln_tpu/config/task.py").read_text().split('"""', 2)[2]
@@ -364,18 +368,19 @@ def test_resume_matches_uninterrupted_run(tmp_path):
 @pytest.mark.parametrize("key,value,item", [
     ("DAGGER.LOADER_WORKERS", 2, "§A item 2"),
     ("DAGGER.PRELOAD_TRUNK_FEATURES", True, "§A item 4"),
-    ("DAGGER.PRELOAD_LMDB_FEATURES", False, "§A item 5"),
-    ("DAGGER.COLLECT_ONLY", True, "§A item 5"),
+    ("TRAINER_NAME", "robo_vln_trainer", "§A item 6"),  # the flat family's training
+    ("EVAL.ON_DEVICE", True, "§A item 5b"),
     ("MODEL.BERT.pretrained_weights", "bert.npz", "§A item 8"),
 ])
 def test_unported_options_raise_before_any_work(tmp_path, key, value, item):
     if key.endswith("pretrained_weights"):
         value = str(tmp_path / value)
         Path(value).write_bytes(b"")
-    trainer = HierarchicalTrainer(port_config(tmp_path, **{key: value}))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        trainer.train()
+        cfg = port_config(tmp_path, **{key: value})
+        get_trainer(cfg.TRAINER_NAME)(cfg).train()
     assert not (tmp_path / "ckpts").exists() and not (tmp_path / "tb").exists()
+    assert not (tmp_path / "train_buf").exists()
 
 
 def test_jax_only_keys_are_listed_with_their_defaults():
@@ -392,7 +397,7 @@ def test_jax_only_keys_are_listed_with_their_defaults():
     for key, (default, why) in listed.items():
         assert default == jax_keys[key] and type(default) is type(jax_keys[key]), key
         assert why
-    assert all(re.fullmatch(r"§[AC] (item \d+|C\d+)", item)
+    assert all(re.fullmatch(r"§[AC] (item \d+[a-z]?|C\d+)", item)
                for _, item in jax_only.UNPORTED.values())
 
 
@@ -401,7 +406,7 @@ def test_jax_only_keys_are_listed_with_their_defaults():
     ("EVAL.EVAL_NONLEARNING", True, "§A item 3"),
     ("PLOT_ATTENTION", True, "§A item 3"),
     ("MODEL.RGB_ENCODER.cnn_type", "SimpleRGBCNN", "§A item 4"),
-    ("EVAL.ON_DEVICE", True, "§A item 5"),
+    ("EVAL.ON_DEVICE", True, "§A item 5b"),
     ("MODEL.ablate_instruction", True, "§A item 6"),
     ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
 ])

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (robo_vln_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--only 9,10]
+
+``--only`` runs the build and the listed phases among 9 and 10 alone, to
+try them; such a run prints no result line.
 
 Phases, one or more lines each; any failure ends the run with a non-zero
 exit code and no result line:
@@ -178,7 +181,40 @@ exit code and no result line:
    beta 0.5): its ticks (frames, masks, prev) are replayed through the
    plain versions, and each tick's lin_vel, omega and both levels' LSTM
    states must agree within 1e-4 of that one's range.
-9. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+9. Feature path (DAGGER.PRELOAD_TRUNK_FEATURES): phase 6's synthetic
+   buffers in a temporary directory under build/.  9a: both featurized
+   through training/featurize.ensure_featurized in bf16 by a trainer with
+   synced trunks (frames a second, MiB raw and featurized, the trunk
+   outputs outside float16's range, which must be 0); a second call must
+   run no trunk, and after one more raw episode a third must featurize
+   exactly that one; the first batch's three losses (the val step, no
+   dropout) from features within rtol 2e-2, atol 2e-3 of the same batch's
+   from raw frames.  9b: run_exp's train path once from the features (one
+   epoch of 6 steps, its validation, bf16): no trunk runs, each train step
+   2 + 2 + 2 launches and each val window 2 + 2; printed: the steps' host
+   times, the median of steps 2-4 by host clock and CUDA events, the
+   epoch, the val window, peak memory, beside phase 6's raw run.  9c: a
+   float32 feature-mode step (lr 0) against the same step with the plain
+   versions, at phase 5b's tolerances.
+10. On-device path (EVAL.ON_DEVICE): run_exp's eval over phase 7's 8
+   synthetic episodes and kind of checkpoint, ON_DEVICE_BATCH 8,
+   MAX_EPISODE_STEPS 60, bf16: the whole rollout on the card, each batch a
+   CUDA graph of eval/ondevice.GRAPH_TICKS ticks replayed until every
+   episode is done.  10a: the stats JSON has the host driver's keys, every
+   episode's stats finite, the agent drove; each tick in the graph launches
+   the LSTM twice and bf16 attention (p rounded once) twice, nothing else;
+   at most ceil(60 / K) + 1 host syncs a batch; printed: env steps and
+   episodes a second (the driver, and the runs less the capture), ticks a
+   batch, the warm-up and capture times, ms a tick by CUDA events around
+   the replays, launches a tick, beside phase 7's NUM_ENVS 8 rate.  10b:
+   the batch again as a graph (its host time and rate), a replay past its
+   end must change nothing, and the same batch stepped eagerly must give
+   the same positions (within 1e-5 m) and steps; n_ticks = max(steps).
+   10c: four episodes in float32, each tick stepped from the same carry
+   with the kernels and with the plain versions, the run advanced on the
+   kernels': each tick's actions and both LSTM states within 1e-5 of their
+   range.
+11. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
    (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
    attention (its float32 route and every bf16 field) and its bf16 modes
    (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
@@ -187,7 +223,9 @@ exit code and no result line:
    train path's, ``trainer_launches``: the trainer path's,
    ``eval_launches``: the eval path's (phase 7's two bf16 runs),
    ``collect_launches``: the collection path's (8b's two collections,
-   their epochs left out; 8a's collections launch nothing).  Then the
+   their epochs left out; 8a's collections launch nothing),
+   ``feature_launches``: 9b's run, ``ondevice_launches``: 10a's replays (a
+   graph's launches, counted at its capture, times the replays).  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
@@ -231,6 +269,9 @@ WINDOW_TOL = 2e-3  # float32 agent, kernels against plain, through 50 steps
 TRAIN_LOSS_RTOL = 1e-4  # float32 train step, kernels against plain, relative
 TRAIN_GRAD_TOL = 1e-3  # the same, each leaf's gradient, of that leaf's norm
 TRAIN_STEPS = 5
+# phase 9: the val step's losses from float16 features against those from
+# raw frames, bf16 (the JAX package's feature-store test's tolerance)
+FEATURE_LOSS_RTOL, FEATURE_LOSS_ATOL = 2e-2, 2e-3
 TRAINER_EPISODES = 8  # phase 6: 2 batches of 4, 2 windows of 50 each: 4 steps an epoch
 TRAINER_EVAL_EPISODES = 4  # one batch, 2 val windows
 EVAL_EPISODES = 8  # phase 7
@@ -248,6 +289,15 @@ EVAL_OUTPUT_RTOL = 1e-4
 # at 10, 7b's positions part by 2.8e-3 m in 60 ticks on an H100 80GB HBM3
 # (scripts/eval_divergence_probe.py)
 EVAL_VELOCITY_SCALE, EVAL_VELOCITY_BIAS = 1.0, (-5.0, 0.0)
+ONDEVICE_BATCH = 8  # phase 10: EVAL.ON_DEVICE_BATCH
+ONDEVICE_F32_EPISODES = 4  # 10c, one batch
+ONDEVICE_TRACE_TOL = 1e-5  # metres: 10b, the graph's positions against the eager ticks'
+# 10c, each tick's actions and LSTM states, kernels against plain from the same
+# carry, of each one's range over the run
+ONDEVICE_OUTPUT_RTOL = 1e-5
+# the host driver's stats (eval/evaluator._run_rollout's episodes)
+ONDEVICE_STATS_KEYS = ("distance_to_goal", "success", "spl", "path_length", "navigation_error",
+                       "steps_taken", "ndtw", "actual_success")
 COLLECT_EPISODES = 8  # phase 8: the synthetic episodes, and 8a's UPDATE_SIZE
 COLLECT_PROCESSES = (1, 4)  # 8a: NUM_PROCESSES
 COLLECT_UPDATE = 4  # 8b: UPDATE_SIZE, two iterations
@@ -1554,43 +1604,49 @@ def train_path(device, profile=False):
         runs[label] = metrics, grads
     ref, ref_grads = runs["plain"]
     for label in ("kernels", "kernels, remat on"):
-        got, got_grads = runs[label]
-        print(f"  {label} against plain:")
-        for key in ("high_level_loss", "low_level_action_loss", "low_level_stop_loss"):
-            rel = abs(got[key].item() - ref[key].item()) / abs(ref[key].item())
-            print(f"  {key}: {got[key].item():.6f} against {ref[key].item():.6f}, relative "
-                  f"{rel:.3e} (tolerance {TRAIN_LOSS_RTOL})")
-            if not rel <= TRAIN_LOSS_RTOL:
-                fail(f"float32 train step ({label}) {key} disagrees with the plain-kernel step")
-        print(f"  high_level_accuracy: {got['high_level_accuracy'].item():.4f} against "
-              f"{ref['high_level_accuracy'].item():.4f}")
-        if got_grads.keys() != ref_grads.keys():
-            fail(f"the runs ({label}, plain) gave gradients to different parameters")
-        worst = {"leaf": (0.0, None), "zero": (0.0, None)}
-        for name, g in got_grads.items():
-            r = ref_grads[name]
-            check_finite(f"float32 gradient of {name}", g)
-            if name.endswith(ZERO_GRAD_LEAF):
-                # exactly 0: what both runs compute is rounding noise, held far
-                # below the gradient of the same projection's weight
-                kind = "zero"
-                err = max(g.abs().max(), r.abs().max()).item() / ref_grads[
-                    name[:-len("bias")] + "weight"].norm().item()
-            else:
-                kind = "leaf"
-                err = (g - r).abs().max().item() / max(r.norm().item(), 1e-30)
-            if err > worst[kind][0]:
-                worst[kind] = err, name
-        print(f"  gradients: largest error {worst['leaf'][0]:.3e} of its leaf's norm, at "
-              f"{worst['leaf'][1]} (tolerance {TRAIN_GRAD_TOL}), over {len(got_grads)} "
-              f"leaves; the key biases, whose exact gradient is 0: largest value "
-              f"{worst['zero'][0]:.3e} of the key weight's gradient norm, at "
-              f"{worst['zero'][1]} (tolerance {TRAIN_GRAD_TOL})")
-        for err, name in worst.values():
-            if not err <= TRAIN_GRAD_TOL:
-                fail(f"float32 train step ({label}) gradient of {name} disagrees with the "
-                     "plain-kernel step")
+        hold_step_to_plain(label, *runs[label], ref, ref_grads)
     return launches, step_ms
+
+
+def hold_step_to_plain(label, got, got_grads, ref, ref_grads):
+    """A float32 train step's losses (TRAIN_LOSS_RTOL, relative) and each
+    trainable leaf's gradient (TRAIN_GRAD_TOL of the leaf's norm) against
+    the same step with every kernel swapped for its plain version."""
+    print(f"  {label} against plain:")
+    for key in ("high_level_loss", "low_level_action_loss", "low_level_stop_loss"):
+        rel = abs(got[key].item() - ref[key].item()) / abs(ref[key].item())
+        print(f"  {key}: {got[key].item():.6f} against {ref[key].item():.6f}, relative "
+              f"{rel:.3e} (tolerance {TRAIN_LOSS_RTOL})")
+        if not rel <= TRAIN_LOSS_RTOL:
+            fail(f"float32 train step ({label}) {key} disagrees with the plain-kernel step")
+    print(f"  high_level_accuracy: {got['high_level_accuracy'].item():.4f} against "
+          f"{ref['high_level_accuracy'].item():.4f}")
+    if got_grads.keys() != ref_grads.keys():
+        fail(f"the runs ({label}, plain) gave gradients to different parameters")
+    worst = {"leaf": (0.0, None), "zero": (0.0, None)}
+    for name, g in got_grads.items():
+        r = ref_grads[name]
+        check_finite(f"float32 gradient of {name}", g)
+        if name.endswith(ZERO_GRAD_LEAF):
+            # exactly 0: what both runs compute is rounding noise, held far
+            # below the gradient of the same projection's weight
+            kind = "zero"
+            err = max(g.abs().max(), r.abs().max()).item() / ref_grads[
+                name[:-len("bias")] + "weight"].norm().item()
+        else:
+            kind = "leaf"
+            err = (g - r).abs().max().item() / max(r.norm().item(), 1e-30)
+        if err > worst[kind][0]:
+            worst[kind] = err, name
+    print(f"  gradients: largest error {worst['leaf'][0]:.3e} of its leaf's norm, at "
+          f"{worst['leaf'][1]} (tolerance {TRAIN_GRAD_TOL}), over {len(got_grads)} "
+          f"leaves; the key biases, whose exact gradient is 0: largest value "
+          f"{worst['zero'][0]:.3e} of the key weight's gradient norm, at "
+          f"{worst['zero'][1]} (tolerance {TRAIN_GRAD_TOL})")
+    for err, name in worst.values():
+        if not err <= TRAIN_GRAD_TOL:
+            fail(f"float32 train step ({label}) gradient of {name} disagrees with the "
+                 "plain-kernel step")
 
 
 def write_trainer_buffers(root):
@@ -1648,10 +1704,14 @@ def instrumented_trainer(record):
                 record["gaps_ms"].append((t0 - record["last_end"]) * 1e3)
             if kind == "train":
                 record["first_steps"].append(args[0].high.step)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
             out = fn(*args)
+            events[1].record()
             torch.cuda.synchronize()
             end = time.perf_counter()
             record[f"{kind}_ms"].append((end - t0) * 1e3)
+            record[f"{kind}_event_ms"].append(events[0].elapsed_time(events[1]))
             launched = tuple(n - c for n, c in zip(counts(), before))
             expected = (2, 2, 2) if kind == "train" else (2, 0, 2)
             if launched != expected:
@@ -1704,6 +1764,14 @@ def instrumented_trainer(record):
         HT._setup_policy = setup
         for name, (original, _) in saved.items():
             setattr(HT, name, original)
+
+
+def new_trainer_record():
+    record = {k: [] for k in ("trainers", "shared_trunks", "train_ms", "val_ms", "gaps_ms",
+                              "first_steps", "epoch_ms", "val_epoch_ms", "save_ms",
+                              "train_event_ms", "val_event_ms")}
+    record["last_end"], record["wrap"] = None, True
+    return record
 
 
 def check_round_trip(trainer, path, cfg):
@@ -1780,9 +1848,7 @@ def trainer_path(device, bare_step_ms, profile=False):
                 "MODEL.INSTRUCTION_ENCODER.is_bert", True,
                 "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True, "TPU.PRECISION", "bfloat16"]
         cfg = get_config(opts=opts)
-        record = {k: [] for k in ("trainers", "shared_trunks", "train_ms", "val_ms", "gaps_ms",
-                                  "first_steps", "epoch_ms", "val_epoch_ms", "save_ms")}
-        record["last_end"], record["wrap"] = None, True
+        record = new_trainer_record()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fused_lstm.reset_launches()
@@ -1868,7 +1934,11 @@ def trainer_path(device, bare_step_ms, profile=False):
               "val window, the backward 2 a train step)")
         print(f"  run 2 started at step {record['first_steps'][4]} and wrote ckpt.3 with "
               f"train_steps {meta['train_steps']}, scheduler_step {meta['scheduler_step']}")
-        return launches
+        events = [t for i, t in enumerate(record["train_event_ms"]) if i % 4]
+        summary = {"step_ms": statistics.median(inner), "step_event_ms": statistics.median(events),
+                   "epoch_ms": record["epoch_ms"][0], "val_ms": statistics.median(record["val_ms"]),
+                   "peak_gib": peak1 / 2**30}
+        return launches, summary
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2133,7 +2203,7 @@ def eval_path(device, model_opts=(), profile=False):
         fused_lstm.reset_launches()
         fused_attention.reset_launches()
         forward = ("lstm_seq", "cross_modal_attn", "cross_modal_attn_bf16_round_p")
-        summary = {}
+        summary, rates = {}, {}
         for n_envs in EVAL_NUM_ENVS:
             record = new_eval_record()
             if profile and n_envs == EVAL_NUM_ENVS[-1]:
@@ -2178,6 +2248,8 @@ def eval_path(device, model_opts=(), profile=False):
                 fail(f"{label}: the agent drove {stats['path_length']:.3f} m an episode: "
                      "the checkpoint's velocity head did not reach the eval")
             summary[n_envs] = record["episodes"]
+            rates[n_envs] = record["env_steps"] / rollout_s
+            stats_keys = set(stats)
             del trainer
             record["trainers"].clear()
         launches = path_launches()
@@ -2281,7 +2353,7 @@ def eval_path(device, model_opts=(), profile=False):
                 or len({r["steps"] for r in plain.values()}) < 2:
             fail("7b: no episode ended on success, or all ended at one tick: the comparison "
                  "does not reach the success decision")
-        return launches
+        return launches, {"rates": rates, "stats_keys": stats_keys}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2695,6 +2767,516 @@ def collect_path(device, model_opts=()):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def grow_buffer(path, key, seed=4):
+    """Append one more episode of phase 6's kind at ``key`` (msgpack)."""
+    import numpy as np
+
+    from robo_vln_tpu_torch.data.loader import write_episode
+    from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
+
+    rng = np.random.default_rng(seed)
+    t = int(rng.integers(60, 101))
+    obs = {"rgb": rng.integers(0, 256, (t, 224, 224, 3), dtype=np.uint8),
+           "depth": rng.random((t, 256, 256, 1), dtype=np.float32).astype(np.float16),
+           "vln_oracle_action_sensor": rng.integers(1, 5, (t, 1)).astype(np.float64),
+           "instruction": np.tile(rng.integers(1, 30522, (1, 200)), (t, 1)).astype(np.int32)}
+    with TrajectoryStore(path, writable=True) as store:
+        write_episode(store, key, obs, rng.standard_normal((t, 2)), rng.random((t, 2)),
+                      [t - 5] * t)
+
+
+@contextlib.contextmanager
+def counted_featurize(record):
+    """Count, from outside, the trunk calls and what featurize_buffer wrote."""
+    from robo_vln_tpu_torch.training import featurize
+
+    make, write = featurize.make_shared_trunk_fn, featurize.featurize_buffer
+
+    def make_counted(high):
+        fn = make(high)
+
+        def call(obs):
+            record["trunk_calls"] += 1
+            return fn(obs)
+        return call
+
+    def write_counted(*args, **kwargs):
+        out = write(*args, **kwargs)
+        record["written"].append(out)
+        return out
+
+    featurize.make_shared_trunk_fn, featurize.featurize_buffer = make_counted, write_counted
+    try:
+        yield
+    finally:
+        featurize.make_shared_trunk_fn, featurize.featurize_buffer = make, write
+
+
+def feature_path(device, raw=None, model_opts=(), episodes_writer=None, grow=None,
+                 profile=False):
+    """Phase 9: training from cached trunk features at full width.  9a
+    featurizes phase 6's synthetic buffers through ensure_featurized (a
+    reuse and a one-episode append too) and holds the first batch's losses
+    from features to those from the raw frames; 9b runs run_exp's train path
+    once from the features, beside phase 6's raw run (``raw``, its summary);
+    9c holds a float32 feature-mode step to the same step with the plain
+    versions.  ``model_opts``, ``episodes_writer`` and ``grow`` shrink it for
+    a CPU rehearsal; ``profile`` traces a bf16 feature-mode step.  Returns
+    9b's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.data.loader import split_tbptt
+    from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
+    from robo_vln_tpu_torch.ops import _build, fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training import featurize
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    print(f"phase 9 ({card_line() if cuda else 'no card'}): training from cached trunk "
+          "features (DAGGER.PRELOAD_TRUNK_FEATURES) at full width, bfloat16, B=4, tbptt 50")
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # in the checkout, ignored by git
+    root = tempfile.mkdtemp(prefix="features_", dir=_build.BUILD_DIR.parent)
+    try:
+        (episodes_writer or write_trainer_buffers)(root)
+        train_dir, eval_dir = os.path.join(root, "train"), os.path.join(root, "eval")
+        opts = ["DEVICE", str(device), "TRAINER_NAME", "hierarchical_trainer",
+                "DAGGER.BATCH_SIZE", 4, "DAGGER.tbptt_steps", 50,
+                "DAGGER.EPISODE_LEN_BUCKETS", [100], "DAGGER.EPOCHS", 1,
+                "DAGGER.PRELOAD_LMDB_FEATURES", True, "DAGGER.PRELOAD_TRUNK_FEATURES", True,
+                "DAGGER.LMDB_FEATURES_DIR", train_dir, "DAGGER.LMDB_EVAL_DIR", eval_dir,
+                "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"),
+                "TENSORBOARD_DIR", os.path.join(root, "tb"),
+                "LOG_FILE", os.path.join(root, "train.log"),
+                "MODEL.INSTRUCTION_ENCODER.is_bert", True,
+                "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True, "TPU.PRECISION", "bfloat16",
+                *model_opts]
+        cfg = get_config(opts=opts)
+        trainer = HierarchicalTrainer(cfg)
+        trainer._setup_policy()
+        feat = {"trunk_calls": 0, "written": []}
+        with counted_featurize(feat):
+            sync()
+            t0 = time.perf_counter()
+            train_feat, eval_feat = trainer._featurized_dirs()
+            sync()
+            feat_s = time.perf_counter() - t0
+            first = dict(feat, written=list(feat["written"]))
+            frames = sum(w["frames"] for w in first["written"])
+            overflow = sum(w["out_of_f16_range"] for w in first["written"])
+            raw_mib = (dir_bytes(train_dir) + dir_bytes(eval_dir)) / 2**20
+            feat_mib = (dir_bytes(train_feat) + dir_bytes(eval_feat)) / 2**20
+            print(f"  9a: featurized {sum(w['episodes'] for w in first['written'])} episodes, "
+                  f"{frames} frames ({first['trunk_calls']} trunk calls of "
+                  f"{featurize.CHUNK} frames) in {feat_s:.3f} s: {frames / feat_s:.1f} frames/s, "
+                  f"BERT rows included; on disk {raw_mib:.1f} MiB raw, {feat_mib:.1f} MiB "
+                  f"featurized; {overflow} feature values outside float16's range")
+            if overflow:
+                fail(f"9a: {overflow} trunk outputs lie outside float16's range")
+            trainer._featurized_dirs()
+            if feat["trunk_calls"] != first["trunk_calls"] or len(feat["written"]) != 2:
+                fail("9a: a second call over the same buffers ran the trunks again")
+            with TrajectoryStore(train_dir) as store:
+                n_train = len(store)
+            (grow or grow_buffer)(train_dir, n_train)
+            trainer._featurized_dirs()
+            appended = feat["written"][2:]
+            with open(os.path.join(train_feat, featurize.META)) as f:
+                meta = json.load(f)
+            print(f"  9a: a second call reused both caches (no trunk call); one more raw "
+                  f"episode: the third call featurized {[w['episodes'] for w in appended]} "
+                  f"episode(s), the cache now {meta['episodes']}")
+            if [w["episodes"] for w in appended] != [1] or meta["episodes"] != n_train + 1:
+                fail(f"9a: the grown buffer's call featurized {appended}, meta {meta}")
+            # the first batch's losses from features against those from the
+            # raw frames, in the val step (no dropout)
+            losses, first_window = {}, {}
+            for kind, path in (("raw", train_dir), ("features", train_feat)):
+                batch = next(iter(trainer._batches(path, seed=0)))
+                first_window[kind] = next(split_tbptt(batch, cfg.DAGGER.tbptt_steps))
+                window = {k: torch.from_numpy(np.asarray(v)).to(device)
+                          for k, v in first_window[kind].items()}
+                if kind == "features" and "rgb" in window:
+                    fail("9a: a feature batch carries raw rgb")
+                hh, lh = trainer._initial_hidden()
+                losses[kind] = [v.item() for k, v in trainer.val_step(hh, lh, window)[2].items()
+                                if k.endswith("_loss") and k != "low_level_total_loss"]
+            worst = max(abs(f - r) - FEATURE_LOSS_RTOL * abs(r)
+                        for f, r in zip(losses["features"], losses["raw"]))
+            print(f"  9a: first batch's (high, velocity, stop) losses from features "
+                  f"{losses['features']} against raw frames {losses['raw']} (tolerance rtol "
+                  f"{FEATURE_LOSS_RTOL}, atol {FEATURE_LOSS_ATOL}: float16 storage)")
+            if not worst <= FEATURE_LOSS_ATOL:
+                fail("9a: the losses from features disagree with the losses from raw frames")
+            del trainer
+
+            # 9b: one epoch through run_exp from the features
+            record = new_trainer_record()
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            fused_lstm.reset_launches()
+            fused_attention.reset_launches()
+            calls = feat["trunk_calls"]
+            with instrumented_trainer(record) if cuda else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                run_exp(None, "train", opts)
+                run_s = time.perf_counter() - t0
+            launches = path_launches()
+            if feat["trunk_calls"] != calls:
+                fail("9b: the feature-mode run ran the trunks")
+        if cuda:
+            steps, events = record["train_ms"], record["train_event_ms"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"  9b: run_exp from features (one epoch, its validation): {run_s:.2f} s; "
+                  f"{len(steps)} train steps, host ms: " + " ".join(f"{t:.3f}" for t in steps))
+            print(f"  9b: steps 2-4 median {statistics.median(steps[1:4]):.3f} ms host, "
+                  f"{statistics.median(events[1:4]):.3f} ms CUDA events; epoch "
+                  f"{record['epoch_ms'][0]:.1f} ms; val window median "
+                  f"{statistics.median(record['val_ms']):.3f} ms; peak device memory "
+                  f"{peak:.3f} GiB; launches {launches}")
+            if raw:
+                print(f"  9b: phase 6's raw run in this process: steps 2-4 median "
+                      f"{raw['step_ms']:.3f} ms host, {raw['step_event_ms']:.3f} ms CUDA events; "
+                      f"epoch {raw['epoch_ms']:.1f} ms; val window median {raw['val_ms']:.3f} ms; "
+                      f"peak {raw['peak_gib']:.3f} GiB")
+        with open(os.path.join(root, "tb", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        if not all(math.isfinite(m["value"]) for m in logged if "Loss" in m["tag"]):
+            fail("9b: a logged loss is not finite")
+        n_train = sum(m["tag"] == "Train High Level Action Loss" for m in logged)
+        n_val = sum(m["tag"] == "Val High Level Loss" for m in logged)
+        if cuda and (n_train, n_val) != (6, 2):
+            fail(f"9b: {n_train} train steps and {n_val} val windows, expected 6 and 2 "
+                 f"({TRAINER_EPISODES + 1} and {TRAINER_EVAL_EPISODES} episodes of 2 windows)")
+        forward = 2 * (n_train + n_val)
+        want = {"lstm_seq": forward, "lstm_seq_backward": 2 * n_train,
+                "lstm_seq_backward_dg_exchange": 0, "cross_modal_attn": forward,
+                "cross_modal_attn_bf16_round_p": forward, "cross_modal_attn_bf16_split_p": 0}
+        if launches != want:
+            fail(f"9b: the feature-mode run launched {launches}, expected {want}: 2 of each "
+                 "forward a train step and a val window, 2 of the backward a train step")
+
+        if profile:
+            high, low, step, state = make_train(cfg, torch.bfloat16, device)
+            window = {k: torch.from_numpy(np.asarray(v)).to(device)
+                      for k, v in first_window["features"].items()}
+            b = window["not_done_masks"].shape[0]
+            hh, lh = high.initial_hidden(b, device), low.initial_hidden(b, device)
+            for _ in range(2):
+                step(state, hh, lh, window, 1e-4, 1e-4)
+            profile_section(f"bf16 feature-mode train step B={b}",
+                            lambda: step(state, hh, lh, window, 1e-4, 1e-4), top=16,
+                            ranges=("hier_train_step.forward", "hier_train_step.backward",
+                                    "lstm_seq.backward", "cross_modal_attn.backward_replay",
+                                    "hier_train_step.optimizer"))
+            del high, low, step, state
+
+        # 9c: a float32 feature-mode step against the plain versions
+        print("  9c: a float32 feature-mode train step (lr 0) against the same step with "
+              "every kernel swapped for its plain version")
+        high, low, step, state = make_train(cfg, torch.float32, device)
+        window = {k: torch.from_numpy(np.asarray(v)).to(device)
+                  for k, v in first_window["features"].items()}
+        b = window["not_done_masks"].shape[0]
+        hh, lh = high.initial_hidden(b, device), low.initial_hidden(b, device)
+        params = [(f"{level}.{n}", p) for level, pol in (("high", high), ("low", low))
+                  for n, p in pol.named_parameters()]
+        runs = {}
+        for label, scope in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
+            before = path_launches()
+            with scope():
+                _, _, _, metrics = step(state, hh, lh, window, 0.0, 0.0)
+            after = path_launches()
+            took = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            want = {"lstm_seq": 2, "lstm_seq_backward": 2, "cross_modal_attn": 2} \
+                if label == "kernels" else {}
+            if took != want:
+                fail(f"9c: the float32 feature-mode step ({label}) launched {took}, "
+                     f"expected {want}")
+            runs[label] = metrics, {n: p.grad.clone() for n, p in params if p.grad is not None}
+        hold_step_to_plain("9c, kernels", *runs["kernels"], *runs["plain"])
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+@contextlib.contextmanager
+def instrumented_ondevice(record):
+    """Keep, from outside, each on-device Rollout the eval makes, the host
+    time of each batch's run, of the whole driver, and the episodes' stats;
+    the rollout's graph launches are read by the kernels line's names."""
+    from robo_vln_tpu_torch.eval import evaluator, ondevice
+
+    saved = (ondevice.Rollout.__init__, ondevice.Rollout.run, ondevice.kernel_launches,
+             evaluator._eval_on_device, evaluator._aggregate_and_log)
+
+    def init(self, *args, **kwargs):
+        saved[0](self, *args, **kwargs)
+        record["rollouts"].append(self)
+
+    def run(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = (record["run"] or saved[1])(self, *args, **kwargs)
+        record["run_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def driver(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = saved[3](*args, **kwargs)
+        record["driver_s"].append(time.perf_counter() - t0)
+        return out
+
+    def aggregate(stats_episodes, *args, **kwargs):
+        record["episodes"] = dict(stats_episodes)
+        return saved[4](stats_episodes, *args, **kwargs)
+
+    (ondevice.Rollout.__init__, ondevice.Rollout.run, ondevice.kernel_launches,
+     evaluator._eval_on_device, evaluator._aggregate_and_log) = (init, run, path_launches,
+                                                                  driver, aggregate)
+    try:
+        yield
+    finally:
+        (ondevice.Rollout.__init__, ondevice.Rollout.run, ondevice.kernel_launches,
+         evaluator._eval_on_device, evaluator._aggregate_and_log) = saved
+
+
+def stepped_against_plain(outputs):
+    """A Rollout.run for 10c: each tick stepped eagerly from the same carry
+    once with the kernels and once with the plain versions, the run advanced
+    on the kernels' carry; each tick's actions (prev) and both levels' LSTM
+    states of both are kept in ``outputs``."""
+    from robo_vln_tpu_torch.ops import fused_lstm
+
+    def run(self, graph=None):
+        self.reset()
+        with fused_lstm.private_workspace(self.workspace):
+            while bool(self.state["running"]):
+                start = self.snapshot()
+                self.tick()
+                kernels = self.snapshot()
+                self.restore(start)
+                with plain_kernels():
+                    self.tick()
+                plain = self.snapshot()
+                self.restore(kernels)
+                outputs.append([[s["prev"].cpu().numpy(), torch.cat(s["hidden"]).cpu().numpy()]
+                                for s in (kernels, plain)])
+        result = self.fetch()
+        self.batches.append({"replays": 0, "syncs": 0, "events": [], "graph": False,
+                             "ticks": result["n_ticks"]})
+        return result
+    return run
+
+
+def ondevice_path(device, host=None, model_opts=(), episodes_writer=None, profile=False):
+    """Phase 10: python -m robo_vln_tpu_torch.run --run-type eval with
+    EVAL.ON_DEVICE at full width: phase 7's episodes and kind of checkpoint,
+    the rollout on the card as a CUDA graph of GRAPH_TICKS ticks (10a); the
+    same batch through the same tick stepped eagerly (10b); float32 ticks
+    stepped with the kernels and with the plain versions from the same
+    carries (10c).  ``host``: phase 7's summary, to print its rate beside.
+    ``model_opts`` and ``episodes_writer`` shrink it for a CPU rehearsal;
+    ``profile`` traces one more run of the batch's graph.  Returns the
+    launches of 10a's replays (a graph's times its replays)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.eval import ondevice
+    from robo_vln_tpu_torch.ops import _build, fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+
+    cuda = torch.device(device).type == "cuda"
+    K = ondevice.GRAPH_TICKS
+    print(f"phase 10 ({card_line() if cuda else 'no card'}): the on-device eval "
+          f"(EVAL.ON_DEVICE) at full width, bfloat16: python -m robo_vln_tpu_torch.run "
+          f"--run-type eval's run_exp over {EVAL_EPISODES} synthetic episodes, "
+          f"ON_DEVICE_BATCH {ONDEVICE_BATCH}, MAX_EPISODE_STEPS {EVAL_MAX_STEPS}, a CUDA graph "
+          f"of K = {K} ticks")
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # in the checkout, ignored by git
+    root = tempfile.mkdtemp(prefix="ondevice_", dir=_build.BUILD_DIR.parent)
+    try:
+        data = os.path.join(root, "episodes.json.gz")
+        (episodes_writer or write_eval_episodes)(data, EVAL_EPISODES)
+
+        def opts(tag, precision="bfloat16", episodes=EVAL_EPISODES, batch=ONDEVICE_BATCH,
+                 seed=()):
+            return ["DEVICE", str(device), "TRAINER_NAME", "hierarchical_trainer", *seed,
+                    "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"),
+                    "EVAL_CKPT_PATH_DIR", os.path.join(root, "ckpts", "ckpt.0"),
+                    "TENSORBOARD_DIR", os.path.join(root, f"tb_{tag}"),
+                    "LOG_FILE", os.path.join(root, "eval.log"),
+                    "TASK_CONFIG.SIMULATOR.TYPE", "kinematic",
+                    "TASK_CONFIG.DATASET.DATA_PATH", data,
+                    "TASK_CONFIG.TASK.NDTW.GT_PATH", os.path.join(root, "no_gt.json.gz"),
+                    "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", EVAL_MAX_STEPS,
+                    "EVAL.EPISODE_COUNT", episodes, "EVAL.ON_DEVICE", True,
+                    "EVAL.ON_DEVICE_BATCH", batch,
+                    "EVAL.VAL_LOG_DIR", os.path.join(root, f"val_{tag}"),
+                    "EVAL.DUMP_TRAJECTORIES", True,
+                    "MODEL.INSTRUCTION_ENCODER.is_bert", True,
+                    "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True, "TPU.PRECISION", precision,
+                    *model_opts]
+
+        # phase 7's checkpoint: random weights from seed 0, the velocity head
+        # biased so that the agent drives
+        saver = HierarchicalTrainer(get_config(opts=opts("save", seed=("TASK_CONFIG.SEED", 0))))
+        saver._setup_policy()
+        with torch.no_grad():
+            saver.low.linear.weight.mul_(EVAL_VELOCITY_SCALE)
+            saver.low.linear.bias.add_(torch.tensor(EVAL_VELOCITY_BIAS, device=device))
+        saver.save_checkpoint("ckpt.0")
+        del saver
+
+        # 10a
+        record = {"rollouts": [], "run_ms": [], "driver_s": [], "episodes": {}, "run": None}
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        fused_lstm.reset_launches()
+        fused_attention.reset_launches()
+        t0 = time.perf_counter()
+        with instrumented_ondevice(record):
+            run_exp(None, "eval", opts("bf16"))
+        run_s = time.perf_counter() - t0
+        counted = path_launches()  # the warm-up ticks and the capture's
+        stats = check_eval_stats("10a", record, os.path.join(
+            root, "val_bf16", "stats_ckpt_0_val_seen.json"), EVAL_EPISODES)
+        if set(stats) - {"pretrained_backbones"} != set(ONDEVICE_STATS_KEYS):
+            fail(f"10a: the stats json has keys {sorted(stats)}, not the host driver's")
+        for ep, st in record["episodes"].items():
+            if not all(math.isfinite(v) for v in st.values()):
+                fail(f"10a: episode {ep} has a non-finite stat: {st}")
+        rollout = record["rollouts"][0]
+        batches = rollout.batches
+        steps = sum(st["steps_taken"] for st in record["episodes"].values())
+        ticks = [b["ticks"] for b in batches]
+        replays = sum(b["replays"] for b in batches)
+        syncs = [b["syncs"] for b in batches]
+        driver_s = record["driver_s"][0]
+        runs_s = sum(record["run_ms"]) / 1e3
+        capture_s = (rollout.capture_ms or 0.0) / 1e3
+        print(f"  10a: {len(record['episodes'])} episodes in {len(batches)} batch(es), "
+              f"{int(steps)} env steps; ticks per batch {ticks}; driver {driver_s:.3f} s "
+              f"(BERT, the runs and the host's measures; capture included): "
+              f"{steps / driver_s:.2f} env steps/s, {len(record['episodes']) / driver_s:.3f} "
+              f"episodes/s; the runs less the capture {runs_s - capture_s:.3f} s: "
+              f"{steps / (runs_s - capture_s):.2f} env steps/s ({run_s:.2f} s run_exp)")
+        if host:
+            print(f"  10a: phase 7's host driver at NUM_ENVS 8 in this process: "
+                  f"{host['rates'][8]:.2f} env steps/s")
+        limit = -(-EVAL_MAX_STEPS // K) + 1
+        print(f"  10a: host syncs per batch {syncs} (at most ceil({EVAL_MAX_STEPS}/{K}) + 1 = "
+              f"{limit}: one flag a replay, one read of the results)")
+        if any(n > limit for n in syncs):
+            fail(f"10a: a batch synced with the host {syncs} times, more than {limit}")
+        for i, (b, result_ticks) in enumerate(zip(batches, ticks)):
+            if b["replays"] != -(-result_ticks // K) and b["graph"]:
+                fail(f"10a: batch {i} replayed {b['replays']} times for {result_ticks} ticks")
+        ondevice_launches = {name: 0 for name in counted}
+        if cuda:
+            tick_ms = sum(s.elapsed_time(e) for b in batches for s, e in b["events"]) / (
+                replays * K)
+            per_tick = {k: v / K for k, v in rollout.graph_launches.items()}
+            ondevice_launches = {k: v * replays for k, v in rollout.graph_launches.items()}
+            print(f"  10a: capture {rollout.capture_ms:.1f} ms, after {ondevice.WARMUP_TICKS} "
+                  f"eager warm-up tick(s) in {rollout.warmup_ms:.1f} ms; {replays} replays of {K} ticks, {tick_ms:.3f} ms a tick "
+                  f"by CUDA events around the replays; launches a tick in the graph {per_tick}; "
+                  f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            want = {name: 2 if name in ("lstm_seq", "cross_modal_attn",
+                                        "cross_modal_attn_bf16_round_p") else 0
+                    for name in per_tick}
+            if per_tick != want:
+                fail(f"10a: the graph launches {per_tick} a tick, expected {want}")
+            if counted != {k: v * (K + ondevice.WARMUP_TICKS) // K
+                           for k, v in rollout.graph_launches.items()}:
+                fail(f"10a: the wrappers counted {counted} outside the warm-up and the capture")
+        elif counted["lstm_seq"] != 2 * sum(ticks) or counted["cross_modal_attn"] != \
+                2 * sum(ticks):
+            fail(f"10a: eager ticks launched {counted} over {sum(ticks)} ticks")
+        if not stats["path_length"] > 1.0:
+            fail(f"10a: the agent drove {stats['path_length']:.3f} m an episode")
+        print("    stats: " + ", ".join(f"{k} {stats[k]:.6f}" for k in EVAL_STATS))
+
+        # 10b: the last batch again, replayed and then stepped eagerly
+        t0 = time.perf_counter()
+        graph_result = rollout.run()
+        rerun_s = time.perf_counter() - t0
+        live = int(graph_result["steps"].sum())
+        print(f"  10b: the last batch again, its graph captured: {rerun_s * 1e3:.1f} ms host "
+              f"(load excluded): {live / rerun_s:.2f} env steps/s of the episodes' own steps, "
+              f"{ONDEVICE_BATCH * graph_result['n_ticks'] / rerun_s:.2f} counting every row of "
+              f"every tick")
+        after = rollout.snapshot()
+        if cuda:
+            rollout.graph.replay()  # ticks past the end: exact no-ops
+        else:
+            rollout._ticks()
+        extra = rollout.snapshot()
+        moved = [k for k in after if not all(map(torch.equal, *(
+            s[k] if k == "hidden" else (s[k],) for s in (after, extra))))]
+        eager_result = rollout.run(graph=False)
+        gap = float(np.abs(graph_result["positions"] - eager_result["positions"]).max())
+        same_steps = np.array_equal(graph_result["steps"], eager_result["steps"])
+        print(f"  10b: the batch replayed as a graph against stepped eagerly: positions "
+              f"{'bitwise equal' if gap == 0 else f'differ by up to {gap:.3e} m'} "
+              f"(tolerance {ONDEVICE_TRACE_TOL} m), steps {'equal' if same_steps else 'differ'};"
+              f" n_ticks {graph_result['n_ticks']} = max(steps) "
+              f"{int(graph_result['steps'].max())}; a replay past the end changed "
+              f"{moved or 'nothing'}")
+        if not (gap <= ONDEVICE_TRACE_TOL and same_steps):
+            fail("10b: the graph's rollout differs from the eager one")
+        if graph_result["n_ticks"] != int(graph_result["steps"].max()):
+            fail("10b: n_ticks is not max(steps)")
+        if moved:
+            fail(f"10b: ticks past the end changed {moved}")
+        if profile:
+            profile_section("the on-device batch, its graph replayed", rollout.run, top=12)
+        del rollout, record
+
+        # 10c: float32 ticks, the kernels against the plain versions from the
+        # same carries
+        outputs = []
+        record = {"rollouts": [], "run_ms": [], "driver_s": [], "episodes": {},
+                  "run": stepped_against_plain(outputs)}
+        before = path_launches()
+        with instrumented_ondevice(record):
+            run_exp(None, "eval", opts("f32", "float32", ONDEVICE_F32_EPISODES,
+                                       ONDEVICE_F32_EPISODES))
+        after = path_launches()
+        k_prev, p_prev = (np.stack([o[i][0] for o in outputs]) for i in range(2))
+        k_hc, p_hc = (np.stack([o[i][1] for o in outputs]) for i in range(2))
+        half = p_hc.shape[1] // 2
+        worst = 0.0
+        for name, (k, p) in (("lin_vel", (k_prev[..., 0], p_prev[..., 0])),
+                             ("omega", (k_prev[..., 1], p_prev[..., 1])),
+                             ("high level's LSTM state", (k_hc[:, :half], p_hc[:, :half])),
+                             ("low level's LSTM state", (k_hc[:, half:], p_hc[:, half:]))):
+            err, span = np.abs(k - p).max(), np.ptp(p)
+            rel = err / max(span, np.finfo(np.float32).tiny)
+            worst = max(worst, rel)
+            print(f"  10c: {len(outputs)} float32 ticks of {ONDEVICE_F32_EPISODES} episodes, "
+                  f"each from the kernels' carry, {name}: largest difference {err:.3e} over a "
+                  f"range of {span:.3e} ({rel:.3e} of it; tolerance {ONDEVICE_OUTPUT_RTOL})")
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if launched.get("lstm_seq") != 2 * len(outputs) or \
+                launched.get("cross_modal_attn") != 2 * len(outputs):
+            fail(f"10c: the kernels' ticks launched {launched} over {len(outputs)} ticks")
+        if not worst <= ONDEVICE_OUTPUT_RTOL:
+            fail(f"10c: the kernels' ticks differ from the plain versions' by {worst:.3e} of "
+                 "their range")
+        return ondevice_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2722,13 +3304,21 @@ def main():
                                   "lstm_seq_backward_partials")) and spill:
                 fail(f"{kernel} spills {spill} bytes")
 
+    profile = "--profile" in sys.argv[1:]
+    if "--only" in sys.argv[1:]:  # a partial run, to try phases on their own
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        if "9" in only:
+            feature_path(device, profile=profile)
+        if "10" in only:
+            ondevice_path(device, profile=profile)
+        print(f"chip_smoke: phases {only} passed; a partial run prints no result")
+        return 0
     gen = torch.Generator().manual_seed(0)
     with float32_exact(torch.float32):  # the float32 plain versions without TF32
         lstm_kernels = check_lstm(gen, device)
         bf16_modes, attention = check_attention(gen, device)
         attention.update(check_wider_shapes(gen, device))
     kernels = [*lstm_kernels, attention, *bf16_modes]
-    profile = "--profile" in sys.argv[1:]
     # each path zeroes the launch counts before it runs; both tensor-core
     # routes' key blocks (S > 128) are read after each
     key_blocks = {}
@@ -2742,15 +3332,20 @@ def main():
     read_key_blocks("")
     train_launches, bare_step_ms = train_path(device, profile)
     read_key_blocks("_train")
-    trainer_launches = trainer_path(device, bare_step_ms, profile)
+    trainer_launches, raw_trainer = trainer_path(device, bare_step_ms, profile)
     read_key_blocks("_trainer")
-    eval_launches = eval_path(device, profile=profile)
+    eval_launches, host_eval = eval_path(device, profile=profile)
     read_key_blocks("_eval")
     collect_launches = collect_path(device)
     read_key_blocks("_collect")
+    feature_launches = feature_path(device, raw_trainer, profile=profile)
+    read_key_blocks("_feature")
+    ondevice_launches = ondevice_path(device, host_eval, profile=profile)
+    read_key_blocks("_ondevice")
     print(f"key-block launches of the attention kernel (S > 128 or d > 128 in float32, S > "
           f"128 in bf16) and float32 one-float-copy launches on the serving, train, "
-          f"trainer, eval and collection paths: {key_blocks}")
+          f"trainer, eval, collection, feature and on-device paths (the on-device path's as "
+          f"the wrappers counted them, at the warm-up and the capture): {key_blocks}")
     if any(key_blocks.values()):
         fail("an HCM path launched a key-block or one-float-copy attention kernel")
     attention.update(key_blocks)
@@ -2760,6 +3355,8 @@ def main():
         k["trainer_launches"] = trainer_launches[k["name"]]
         k["eval_launches"] = eval_launches[k["name"]]
         k["collect_launches"] = collect_launches[k["name"]]
+        k["feature_launches"] = feature_launches[k["name"]]
+        k["ondevice_launches"] = ondevice_launches[k["name"]]
     # the serving path runs no backward: the backward's launches are the train path's
     for backward in kernels[1:3]:
         backward["serving_launches"], backward["launches"] = (backward["launches"],

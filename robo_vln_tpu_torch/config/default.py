@@ -8,12 +8,12 @@ the same training loop here: the top-level paths, ``TASK_CONFIG`` (built from
 ``BASE_TASK_CONFIG_PATH`` as the JAX package builds it), the ``TPU.*``
 switches, the ``DAGGER`` loop, the ``MODEL.*`` stanzas of the two policies,
 the pretrained-file keys and the ``EVAL.*`` keys of the host eval loops
-(eval/evaluator.py).  A key no port code reads yet names the
+and the on-device eval (eval/evaluator.py, eval/ondevice.py).  A key no port code reads yet names the
 ROADMAP item (§A) that will read it.  Keys that only the port reads are
 marked "port-only".  The JAX package's other keys are not in this tree:
 ``jax_only.py`` lists them with their JAX defaults, and ``get_config``
 refuses one set to another value where the port would drop it (such as
-``EVAL.ON_DEVICE``), naming the ROADMAP item that would port it, and
+``EVAL.NONLEARNING.AGENT``), naming the ROADMAP item that would port it, and
 takes any value of those no value of which matters (such as ``TPU.DONATE``:
 eager PyTorch updates parameters in place, so there is no buffer to donate).
 """
@@ -93,6 +93,13 @@ _C.EVAL.SHUFFLE_INSTRUCTIONS = False
 _C.EVAL.VAL_LOG_DIR = "validation_logging"
 # per-episode position traces -> <TENSORBOARD_DIR>/trajectories.jsonl
 _C.EVAL.DUMP_TRAJECTORIES = False
+# the on-device eval (kinematic backend only, eval/ondevice.py): the whole
+# rollout (integration, render, polyline geodesics, policy tick, termination)
+# stays on the device, float32, ON_DEVICE_BATCH episodes a batch; on CUDA
+# each batch replays a CUDA graph of the tick.  A fast path: its float32 sim
+# is not bitwise the host's float64 one
+_C.EVAL.ON_DEVICE = False
+_C.EVAL.ON_DEVICE_BATCH = 8
 
 _C.DAGGER = ConfigTree()
 _C.DAGGER.LR = 1e-4
@@ -138,8 +145,9 @@ _C.DAGGER.CKPT_TO_LOAD = "data/checkpoints/ckpt.0"
 _C.DAGGER.RESUME = False
 # stop after this many epochs in this process (0: run to the end)
 _C.DAGGER.MAX_EPOCHS_PER_RUN = 0
-# train from cached trunk features (training/featurize.py, ROADMAP §A item
-# 4), not ported: the trainer raises
+# train from cached trunk features: each buffer's featurized twin
+# <buffer>.features (training/featurize.py), built or refreshed after each
+# iteration's collection; needs bitwise-identical trunks in both policies
 _C.DAGGER.PRELOAD_TRUNK_FEATURES = False
 # static episode-length buckets the loader pads to
 _C.DAGGER.EPISODE_LEN_BUCKETS = [100, 200, 300, 400, 500, 700, 1000]

@@ -25,12 +25,10 @@ UNPORTED: Dict[str, Tuple[Any, str]] = {
     "PLOT_ATTENTION": (False, _EVAL_SLICE),
     "EVAL.EVAL_NONLEARNING": (False, _EVAL_SLICE),
     "EVAL.NONLEARNING.AGENT": ("RandomAgent", _EVAL_SLICE),
-    # the raw-frame fallback of training from trunk features
-    "MODEL.RGB_ENCODER.cnn_type": ("TorchVisionResNet50", "§A item 4"),
-    "MODEL.DEPTH_ENCODER.cnn_type": ("VlnResnetDepthEncoder", "§A item 4"),
-    # the on-device eval
-    "EVAL.ON_DEVICE": (False, "§A item 5b"),
-    "EVAL.ON_DEVICE_BATCH": (8, "§A item 5b"),
+    # the flat family's encoders (the JAX flat trainer and models/seq2seq.py
+    # read them; the hierarchical trainer ignores them)
+    "MODEL.RGB_ENCODER.cnn_type": ("TorchVisionResNet50", "§A item 6"),
+    "MODEL.DEPTH_ENCODER.cnn_type": ("VlnResnetDepthEncoder", "§A item 6"),
     # the flat family's models and trainer
     "MODEL.ablate_instruction": (False, "§A item 6"),
     "MODEL.SEQ2SEQ.use_prev_action": (False, "§A item 6"),

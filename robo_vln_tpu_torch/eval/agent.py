@@ -75,10 +75,16 @@ class HCMAgent:
         (B, H, W, 1), instruction (B, L); state (hh, lh), each (2, B, H);
         mask (B,); ``host_ids`` as for :meth:`embed_instruction`.  Returns
         (actions (B, 2), stop (B, 1), (hh, lh))."""
+        emb = self.embed_instruction(obs["instruction"], host_ids)
+        return self.step({**obs, "instruction_embedding": emb}, state, prev, mask)
+
+    @torch.no_grad()
+    def step(self, obs: Obs, state, prev: Optional[torch.Tensor], mask: torch.Tensor):
+        """The tick after BERT: :meth:`act` with ``obs["instruction_embedding"]``
+        given.  Everything it runs stays on the device (no host copy, no
+        host read), so the on-device eval captures it in a CUDA graph."""
         hh, lh = state
         with float32_exact(self.high.compute_dtype):
-            obs = {**obs, "instruction_embedding": self.embed_instruction(obs["instruction"],
-                                                                          host_ids)}
             obs = self._with_trunk_features(obs)
             logits, hh = self.high(obs, hh, prev, mask)
             pred = logits.argmax(dim=-1)

@@ -21,9 +21,12 @@ Preserved reference quirks:
 * hidden/prev/masks reset to zeros on episode end (:1211-1222); per env in
   the batched loop.
 
+``EVAL.ON_DEVICE`` on the kinematic backend runs :func:`_eval_on_device`
+instead: the whole rollout on the device (eval/ondevice.py), a CUDA graph of
+the tick replayed on the card, the same stats JSON and trajectory dump.
+
 Not ported yet (ROADMAP §A item 3c): videos, PLOT_ATTENTION, the
-nonlearning agents; get_config refuses their keys.  EVAL.ON_DEVICE is §A
-item 5b.
+nonlearning agents; get_config refuses their keys.
 """
 
 from __future__ import annotations
@@ -441,6 +444,81 @@ class _PolicyTick:
         return torch.cat([actions, stop], dim=1).cpu().numpy(), state
 
 
+def _eval_on_device(config, writer, checkpoint_index: int, extra, policy_step,
+                    init_hidden: Callable, embed: Callable, device) -> Dict[str, float]:
+    """EVAL.ON_DEVICE: the episodes in batches of ``EVAL.ON_DEVICE_BATCH``,
+    each rolled out whole on the device (eval/ondevice.Rollout), the last
+    batch padded with its final episode so that the graph keeps its shape.
+    ``embed(ids (B, L) numpy) -> (B, L, D)`` is BERT on the device, run once
+    a batch outside the graph.  The same stats JSON and trajectory dump as
+    the host driver."""
+    from ..data.dataset import VLNCEDatasetV1
+    from . import ondevice
+
+    dataset = VLNCEDatasetV1(config=config.TASK_CONFIG.DATASET)
+    episodes = dataset.episodes[:min(config.EVAL.EPISODE_COUNT, len(dataset.episodes))]
+    if config.EVAL.SHUFFLE_INSTRUCTIONS:
+        shuffle_instructions(episodes, label="on-device eval")
+    gt_json = _load_gt(config)
+    sd = config.TASK_CONFIG.TASK.NDTW.SUCCESS_DISTANCE
+    tokenizer, is_bert = make_tokenizer(config), config.MODEL.INSTRUCTION_ENCODER.is_bert
+    L = config.DAGGER.MAX_INSTRUCTION_LEN
+    bs = int(config.EVAL.ON_DEVICE_BATCH)
+    k_points = max(len(ep.reference_path) + 1 for ep in episodes)
+    rollout = ondevice.Rollout(policy_step, config, bs, init_hidden(bs), device)
+
+    def instruction_ids(ep):
+        obs = transform_obs(
+            {"instruction": {"text": ep.instruction.instruction_text,
+                             "tokens": ep.instruction.instruction_tokens or []}},
+            "instruction", tokenizer=tokenizer, is_bert=is_bert)
+        ids = np.zeros((L,), np.int32)
+        raw = np.asarray(obs["instruction"]).reshape(-1)[:L]
+        ids[:len(raw)] = raw
+        return ids
+
+    stats_episodes: Dict = {}
+    for s in range(0, len(episodes), bs):
+        chunk = episodes[s:s + bs]
+        padded = chunk + [chunk[-1]] * (bs - len(chunk))
+        ids = np.stack([instruction_ids(ep) for ep in padded])
+        rollout.load(ondevice.pack_episodes(padded, k_points), ids, embed(ids))
+        result = rollout.run()
+        for i, ep in enumerate(chunk):
+            stats = ondevice.episode_stats(result, ep, i, gt_json, sd)
+            stats_episodes[ep.episode_id] = stats
+            # the trace the stats were computed from: the start, then each
+            # tick's post-step position
+            n_steps = int(result["steps"][i])
+            trace = [list(map(float, np.asarray(ep.start_position)))] + [
+                list(map(float, p)) for p in result["positions"][:max(n_steps, 1), i]]
+            _dump_trajectory(config, writer, checkpoint_index, ep, trace, stats)
+        batch = rollout.batches[-1]
+        logger.info(f"on-device eval: {len(stats_episodes)}/{len(episodes)} episodes "
+                    f"({result['n_ticks']} ticks for this batch, {batch['replays']} "
+                    f"replays of {rollout.graph_ticks} ticks, {batch['syncs']} host syncs)")
+    if rollout.capture_ms is not None:
+        logger.info(f"on-device eval: captured {rollout.graph_ticks} ticks in "
+                    f"{rollout.capture_ms:.1f} ms, launches a graph {rollout.graph_launches}")
+    return _aggregate_and_log(stats_episodes, config, writer, checkpoint_index, extra)
+
+
+def _eval_hier_on_device(trainer, config, writer, checkpoint_index: int,
+                         extra) -> Dict[str, float]:
+    """The HCM agent's tick (:meth:`HCMAgent.step`: the shared trunks, both
+    levels, both kernels) and its BERT for :func:`_eval_on_device`."""
+    agent = HCMAgent(trainer.high, trainer.low,
+                     share_frozen_trunks=config.TPU.SHARE_FROZEN_TRUNKS)
+
+    def embed(ids):
+        return agent.embed_instruction(torch.from_numpy(ids).to(agent.device), ids)
+
+    stats = _eval_on_device(config, writer, checkpoint_index, extra, agent.step,
+                            agent.initial_state, embed, agent.device)
+    logger.info(f"BERT embedded the instructions {agent.embeds} times")
+    return stats
+
+
 def eval_hierarchical_checkpoint(trainer, checkpoint_path, writer,
                                  checkpoint_index: int = 0) -> Dict[str, float]:
     config = _eval_config(trainer, checkpoint_path)
@@ -451,6 +529,14 @@ def eval_hierarchical_checkpoint(trainer, checkpoint_path, writer,
     _load_eval_weights(trainer, checkpoint_path)
     provenance = _check_backbone_provenance(trainer)
     extra = {"pretrained_backbones": provenance} if provenance else None
+
+    if config.EVAL.ON_DEVICE:
+        if config.TASK_CONFIG.SIMULATOR.TYPE == "kinematic":
+            return _eval_hier_on_device(trainer, config, writer, checkpoint_index, extra)
+        logger.warning(
+            "EVAL.ON_DEVICE needs the kinematic backend "
+            f"(SIMULATOR.TYPE={config.TASK_CONFIG.SIMULATOR.TYPE!r}); "
+            "running the host driver")
 
     envs = construct_envs(config, num_envs=n_envs)
     _maybe_shuffle_env_instructions(config, envs)

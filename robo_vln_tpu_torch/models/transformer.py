@@ -39,7 +39,8 @@ def sinusoid_encoding_table(max_len: int, d_model: int, device=None) -> torch.Te
     10000^(2k/d), float32."""
     pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(d_model // 2, dtype=torch.float32, device=device)[None, :]
-    angle = pos / torch.pow(torch.tensor(10000.0, device=device), 2.0 * dim / d_model)
+    # a Python scalar base: no host-to-device copy, so a CUDA graph captures it
+    angle = pos / torch.pow(10000.0, 2.0 * dim / d_model)
     out = torch.zeros(max_len, d_model, dtype=torch.float32, device=device)
     out[:, 0::2] = torch.sin(angle)
     out[:, 1::2] = torch.cos(angle)

@@ -40,6 +40,7 @@ Both count in ``backward_launches`` and, by kernel, in
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -71,6 +72,7 @@ NOT_CO_RESIDENT = 1000  # kNotCoResident
 
 # device index -> (int64 workspace of the h exchange, the stream of its last launch)
 _workspaces: dict = {}
+_private = []  # the workspace of private_workspace's innermost block, if any
 
 
 def reset_launches() -> None:
@@ -246,13 +248,50 @@ def _exchange_entry(name: str = "lstm_seq_exchange"):
     return fn
 
 
+def workspace_words(B: int, H: int) -> int:
+    """Words of a workspace that takes a forward launch over (B, H)."""
+    return 2 + 2 * B * H
+
+
+def make_workspace(device, B: int, H: int) -> torch.Tensor:
+    """A workspace of its own for the forward launches over (B, H), zeroed,
+    for :func:`private_workspace`."""
+    return torch.zeros(workspace_words(B, H), device=device, dtype=torch.int64)
+
+
+@contextlib.contextmanager
+def private_workspace(ws: torch.Tensor):
+    """Route every launch in the block through ``ws`` (from
+    :func:`make_workspace`), not through the device's shared workspace.  A
+    CUDA graph bakes in the pointer it captured: the shared workspace is
+    reallocated when a larger launch grows it (the backward's asks for
+    B·4H words), and the graph would replay into freed memory.  A private
+    one is never grown (a launch it is too small for raises) nor handed
+    between streams, so nothing in the block waits on an event from outside
+    a capture; its epoch protocol runs alone, launch after launch, as the
+    shared one's does."""
+    _private.append(ws)
+    try:
+        yield ws
+    finally:
+        _private.pop()
+
+
 def _workspace(device, stream, B: int, H: int) -> torch.Tensor:
     """The exchange's workspace of one device: [epoch, blocks done, two
     buffers of B·H tagged words], grown to the largest B·H asked for (the
     backward asks for B·4H: it exchanges dg).  Both kernels use it and
     advance its epoch by their steps.  Zeroed when made, then kept: each
     launch leaves it ready for the next.  Launches on one stream are
-    ordered; one on another stream first waits for the stream of the last."""
+    ordered; one on another stream first waits for the stream of the last.
+    Inside :func:`private_workspace` the block's workspace is used instead."""
+    if _private:
+        ws = _private[-1]
+        if ws.device != device or ws.numel() < workspace_words(B, H):
+            raise ValueError(f"lstm_seq: the private workspace ({ws.numel()} words on "
+                             f"{ws.device}) does not take a launch over B={B}, H={H} "
+                             f"on {device}")
+        return ws
     ws, last = _workspaces.get(device.index, (None, stream))
     if last != stream:
         stream.wait_stream(last)

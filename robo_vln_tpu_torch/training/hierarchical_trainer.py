@@ -20,6 +20,10 @@ copies the high level's frozen trunks into the low level's, so that the
 shared-trunk pass (``TPU.SHARE_FROZEN_TRUNKS``) can run: it runs only when
 the two policies' trunks are bitwise identical.
 
+With ``DAGGER.PRELOAD_TRUNK_FEATURES``, each iteration trains from the
+buffers' featurized twins (training/featurize.py), refreshed after its
+collection: the step then skips the frozen trunks and BERT.
+
 With ``DAGGER.PRELOAD_LMDB_FEATURES`` false, each DAgger iteration first
 grows the buffer by ``UPDATE_SIZE`` episodes (BaseTrainer._update_dataset):
 the expert's rollouts, and past the first iteration with ``DAGGER.P`` < 1
@@ -101,10 +105,7 @@ class HierarchicalTrainer(BaseTrainer):
             raise NotImplementedError(
                 "DAGGER.LOADER_WORKERS > 1: the process-parallel loader "
                 "(data/parallel_loader.py) is not ported yet (ROADMAP §A item 2)")
-        if d.PRELOAD_TRUNK_FEATURES:
-            raise NotImplementedError(
-                "DAGGER.PRELOAD_TRUNK_FEATURES: the trunk feature store "
-                "(training/featurize.py) is not ported yet (ROADMAP §A item 4)")
+        self._unfrozen_names()  # MODEL.BERT.trainable with the feature store raises
 
     def _check_pretrained_files(self) -> None:
         """The port loads no pretrained backbone yet: a file that exists
@@ -165,6 +166,25 @@ class HierarchicalTrainer(BaseTrainer):
         self.val_step = steps_lib.make_hier_val_step(
             self.high, self.low, trunk_fn=self.trunk_fn, valid_velocity_mse=vvm,
         )
+
+    def _featurized_dirs(self):
+        """The feature-store twins of the train and eval buffers
+        (DAGGER.PRELOAD_TRUNK_FEATURES, training/featurize.py), built or
+        refreshed with the high level's frozen trunks and BERT.  The low
+        level then takes the high level's features, so both policies' trunks
+        must be bitwise identical, as for the shared trunk pass; where they
+        differ, the trainer warns and trains from the raw frames."""
+        from .featurize import ensure_featurized
+
+        if not frozen_trunks_identical(self.high, self.low):
+            logger.warning("PRELOAD_TRUNK_FEATURES: high/low trunk weights differ; "
+                           "training from raw frames")
+            return self.features_dir, self.eval_dir
+        train_dir = ensure_featurized(self.config, self.high, self.features_dir)
+        eval_dir = self.eval_dir
+        if os.path.exists(eval_dir):
+            eval_dir = ensure_featurized(self.config, self.high, eval_dir)
+        return train_dir, eval_dir
 
     def _maybe_trunk_fn(self):
         """The shared frozen-trunk forward when enabled and safe (both
@@ -299,15 +319,20 @@ class HierarchicalTrainer(BaseTrainer):
                 if collect:
                     self._update_dataset(dagger_it)
                     logger.info(f"Data collection complete (iteration {dagger_it})")
+                train_dir, eval_dir = self.features_dir, self.eval_dir
+                if cfg.DAGGER.PRELOAD_TRUNK_FEATURES:
+                    # after the collection, so that a buffer that has just
+                    # grown is featurized up to its new end
+                    train_dir, eval_dir = self._featurized_dirs()
                 for epoch in epochs:
                     t0 = time.time()
                     train_steps = self.train_epoch(
-                        self._batches(self.features_dir, seed=epoch),
+                        self._batches(train_dir, seed=epoch),
                         epoch, writer, train_steps,
                     )
-                    if os.path.exists(self.eval_dir):
+                    if os.path.exists(eval_dir):
                         val_steps = self.val_epoch(
-                            self._batches(self.eval_dir, seed=epoch),
+                            self._batches(eval_dir, seed=epoch),
                             epoch, writer, val_steps,
                         )
                         # the epoch's checkpoint was saved before its

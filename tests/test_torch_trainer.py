@@ -367,9 +367,9 @@ def test_resume_matches_uninterrupted_run(tmp_path):
 
 @pytest.mark.parametrize("key,value,item", [
     ("DAGGER.LOADER_WORKERS", 2, "§A item 2"),
-    ("DAGGER.PRELOAD_TRUNK_FEATURES", True, "§A item 4"),
+    ("PLOT_ATTENTION", True, "§A item 3"),
     ("TRAINER_NAME", "robo_vln_trainer", "§A item 6"),  # the flat family's training
-    ("EVAL.ON_DEVICE", True, "§A item 5b"),
+    ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
     ("MODEL.BERT.pretrained_weights", "bert.npz", "§A item 8"),
 ])
 def test_unported_options_raise_before_any_work(tmp_path, key, value, item):
@@ -405,8 +405,8 @@ def test_jax_only_keys_are_listed_with_their_defaults():
     ("VIDEO_OPTION", ["disk"], "§A item 3"),
     ("EVAL.EVAL_NONLEARNING", True, "§A item 3"),
     ("PLOT_ATTENTION", True, "§A item 3"),
-    ("MODEL.RGB_ENCODER.cnn_type", "SimpleRGBCNN", "§A item 4"),
-    ("EVAL.ON_DEVICE", True, "§A item 5b"),
+    ("MODEL.RGB_ENCODER.cnn_type", "SimpleRGBCNN", "§A item 6"),
+    ("TPU.MESH_AXES", ["data"], "§A item 7"),
     ("MODEL.ablate_instruction", True, "§A item 6"),
     ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
 ])

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (robo_vln_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile] [--only 9,10]
+    python3 chip_smoke.py [--profile] [--only 9,10,11]
 
-``--only`` runs the build and the listed phases among 9 and 10 alone, to
-try them; such a run prints no result line.
+``--only`` runs the build and the listed phases among 9, 10 and 11 alone,
+to try them; such a run prints no result line.
 
 Phases, one or more lines each; any failure ends the run with a non-zero
 exit code and no result line:
@@ -214,7 +214,31 @@ exit code and no result line:
    with the kernels and with the plain versions, the run advanced on the
    kernels': each tick's actions and both LSTM states within 1e-5 of their
    range.
-11. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+11. Flat path (the flat family, cma_robo.yaml and seq2seq_robo.yaml as
+   shipped: 224 px rgb, 256 px depth, 200 GloVe ids of a 2504 vocabulary,
+   LSTM(512), B=1, tbptt 100, bf16).  11a: the LSTM kernel and its backward
+   (the partials route) at T=100, B=1, H=512 against their plain versions
+   at 3a's tolerances, timed beside the plain versions, cuDNN and the
+   bound.  11b: for CMA and Seq2Seq each, three window forwards and three
+   train steps (CUDA events, host clock, peak memory): each window
+   launches the LSTM forward 2 (CMA) or 1 (Seq2Seq) times and attention
+   never, each step as many forward and backward LSTM launches; the
+   frozen trunks unchanged, every trainable leaf but the unused heads given
+   a gradient; then the instruction RNN's path on the card (cuDNN over a
+   packed sequence) against the CPU's scans within 1e-5, float32, both
+   timed; then a float32 step (lr 0) against the same step with the plain
+   versions at 5b's tolerances.  11c: run_exp --run-type train on
+   cma_robo.yaml (EPOCHS cut to 1) over 4 train and 2 eval synthetic
+   episodes of 60-100 steps under build/ (removed at the end): one
+   checkpoint, 2 + 2 LSTM launches a step and 2 a val window, every
+   logged loss finite.  11d: that checkpoint (its lin_vel bias -5 so that
+   the agent drives) evaluated through run_exp over phase 7's kind of
+   episodes with GloVe ids, at NUM_ENVS 8 on the host driver (2 LSTM
+   launches a tick, no attention; env steps a second, the policy's ms a
+   tick by CUDA events around FlatAgent.act) and with EVAL.ON_DEVICE (the
+   graph's 2 launches a tick; its stats keys the host's; the same batch
+   stepped eagerly within 1e-5 m of the graph's positions).
+12. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
    (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
    attention (its float32 route and every bf16 field) and its bf16 modes
    (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
@@ -225,7 +249,11 @@ exit code and no result line:
    ``collect_launches``: the collection path's (8b's two collections,
    their epochs left out; 8a's collections launch nothing),
    ``feature_launches``: 9b's run, ``ondevice_launches``: 10a's replays (a
-   graph's launches, counted at its capture, times the replays).  Then the
+   graph's launches, counted at its capture, times the replays);
+   ``flat_launches``: phase 11's paths (each model's windows and train
+   steps, the trainer, the host eval, the on-device eval's replays); the
+   LSTM and its backward also carry 11a's ``flat_*`` fields (one call at
+   T=100, B=1, H=512).  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
@@ -599,7 +627,7 @@ def check_lstm(gen, device):
     backward = [{
         "name": "lstm_seq_backward" if kernel == "partials" else f"lstm_seq_backward_{kernel}",
         "route": "cuda", "source": "robo_vln_tpu_torch/csrc/lstm_seq.cu",
-        "replaces": "robo_vln_tpu/ops/pallas_lstm.py:162",
+        "replaces": "robo_vln_tpu/ops/pallas_lstm.py:164",
         "kernel": ("lstm_seq_backward_partials_kernel" if kernel == "partials"
                    else "lstm_seq_backward_kernel"),
         "max_abs_err": bwd_worst[kernel][0], "max_rel_err": bwd_worst[kernel][1],
@@ -1608,26 +1636,34 @@ def train_path(device, profile=False):
     return launches, step_ms
 
 
-def hold_step_to_plain(label, got, got_grads, ref, ref_grads):
+HCM_LOSS_KEYS = ("high_level_loss", "low_level_action_loss", "low_level_stop_loss")
+
+
+def hold_step_to_plain(label, got, got_grads, ref, ref_grads, loss_keys=HCM_LOSS_KEYS,
+                       zero_leaf=ZERO_GRAD_LEAF):
     """A float32 train step's losses (TRAIN_LOSS_RTOL, relative) and each
     trainable leaf's gradient (TRAIN_GRAD_TOL of the leaf's norm) against
-    the same step with every kernel swapped for its plain version."""
+    the same step with every kernel swapped for its plain version.  The
+    leaves named ``...zero_leaf`` have an exact gradient of 0 and are held
+    against their projection's weight gradient instead."""
     print(f"  {label} against plain:")
-    for key in ("high_level_loss", "low_level_action_loss", "low_level_stop_loss"):
-        rel = abs(got[key].item() - ref[key].item()) / abs(ref[key].item())
-        print(f"  {key}: {got[key].item():.6f} against {ref[key].item():.6f}, relative "
-              f"{rel:.3e} (tolerance {TRAIN_LOSS_RTOL})")
+    for key in loss_keys:
+        a, b = got[key].item(), ref[key].item()
+        rel = abs(a - b) / abs(b) if b else abs(a)
+        print(f"  {key}: {a:.6f} against {b:.6f}, relative {rel:.3e} "
+              f"(tolerance {TRAIN_LOSS_RTOL})")
         if not rel <= TRAIN_LOSS_RTOL:
             fail(f"float32 train step ({label}) {key} disagrees with the plain-kernel step")
-    print(f"  high_level_accuracy: {got['high_level_accuracy'].item():.4f} against "
-          f"{ref['high_level_accuracy'].item():.4f}")
+    if "high_level_accuracy" in got:
+        print(f"  high_level_accuracy: {got['high_level_accuracy'].item():.4f} against "
+              f"{ref['high_level_accuracy'].item():.4f}")
     if got_grads.keys() != ref_grads.keys():
         fail(f"the runs ({label}, plain) gave gradients to different parameters")
     worst = {"leaf": (0.0, None), "zero": (0.0, None)}
     for name, g in got_grads.items():
         r = ref_grads[name]
         check_finite(f"float32 gradient of {name}", g)
-        if name.endswith(ZERO_GRAD_LEAF):
+        if name.endswith(zero_leaf):
             # exactly 0: what both runs compute is rounding noise, held far
             # below the gradient of the same projection's weight
             kind = "zero"
@@ -1636,40 +1672,44 @@ def hold_step_to_plain(label, got, got_grads, ref, ref_grads):
         else:
             kind = "leaf"
             err = (g - r).abs().max().item() / max(r.norm().item(), 1e-30)
-        if err > worst[kind][0]:
+        if err >= worst[kind][0]:
             worst[kind] = err, name
     print(f"  gradients: largest error {worst['leaf'][0]:.3e} of its leaf's norm, at "
-          f"{worst['leaf'][1]} (tolerance {TRAIN_GRAD_TOL}), over {len(got_grads)} "
-          f"leaves; the key biases, whose exact gradient is 0: largest value "
-          f"{worst['zero'][0]:.3e} of the key weight's gradient norm, at "
-          f"{worst['zero'][1]} (tolerance {TRAIN_GRAD_TOL})")
+          f"{worst['leaf'][1]} (tolerance {TRAIN_GRAD_TOL}), over {len(got_grads)} leaves")
+    if worst["zero"][1] is not None:
+        print(f"  the key biases, whose exact gradient is 0: largest value "
+              f"{worst['zero'][0]:.3e} of the key weight's gradient norm, at "
+              f"{worst['zero'][1]} (tolerance {TRAIN_GRAD_TOL})")
     for err, name in worst.values():
         if not err <= TRAIN_GRAD_TOL:
             fail(f"float32 train step ({label}) gradient of {name} disagrees with the "
                  "plain-kernel step")
 
 
-def write_trainer_buffers(root):
+def write_trainer_buffers(root, episodes=None, vocab=30522, rgb_px=224, depth_px=256):
     """The synthetic expert buffers of phase 6, written with the port's own
     writer: 8 train episodes of 60-100 steps in the msgpack format and 4
     eval episodes in the flat format; rgb 224 px uint8, depth 256 px
-    float16, 200 BERT ids, float64 actions.  Returns their bytes on disk."""
+    float16, 200 token ids below ``vocab`` (BERT's by default), float64
+    actions.  ``episodes``: (train, eval) counts in place of (8, 4).
+    Returns their bytes on disk."""
     import numpy as np
 
     from robo_vln_tpu_torch.data.loader import write_episode
     from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
 
     rng = np.random.default_rng(3)
-    for name, episodes, flat in (("train", TRAINER_EPISODES, False),
-                                 ("eval", TRAINER_EVAL_EPISODES, True)):
+    n_train, n_eval = episodes or (TRAINER_EPISODES, TRAINER_EVAL_EPISODES)
+    for name, count, flat in (("train", n_train, False), ("eval", n_eval, True)):
         with TrajectoryStore(os.path.join(root, name), writable=True) as store:
-            for key in range(episodes):
+            for key in range(count):
                 t = int(rng.integers(60, 101))
                 obs = {
-                    "rgb": rng.integers(0, 256, (t, 224, 224, 3), dtype=np.uint8),
-                    "depth": rng.random((t, 256, 256, 1), dtype=np.float32).astype(np.float16),
+                    "rgb": rng.integers(0, 256, (t, rgb_px, rgb_px, 3), dtype=np.uint8),
+                    "depth": rng.random((t, depth_px, depth_px, 1),
+                                        dtype=np.float32).astype(np.float16),
                     "vln_oracle_action_sensor": rng.integers(1, 5, (t, 1)).astype(np.float64),
-                    "instruction": np.tile(rng.integers(1, 30522, (1, 200)), (t, 1)).astype(
+                    "instruction": np.tile(rng.integers(1, vocab, (1, 200)), (t, 1)).astype(
                         np.int32),
                 }
                 stop = t - int(rng.integers(1, 10))
@@ -1943,12 +1983,13 @@ def trainer_path(device, bare_step_ms, profile=False):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def write_eval_episodes(path, n, seed=7):
+def write_eval_episodes(path, n, seed=7, vocab=30522):
     """``n`` synthetic episodes in the robo_vln_v1 format (gzipped JSON),
     each in a scene of its own (so the batched eval's scene split gives
     each env its own episodes): a reference path of 5-10 m in 3-5
     segments that turn up to 0.6 rad each, the agent facing along its first
-    segment, 200 BERT token ids."""
+    segment, 200 token ids below ``vocab`` (BERT's by default; GloVe's
+    2504 for the flat family)."""
     import gzip
 
     import numpy as np
@@ -1975,7 +2016,8 @@ def write_eval_episodes(path, n, seed=7):
             "goals": [{"position": ref[-1], "radius": 3.0}],
             "reference_path": ref,
             "instruction": {"instruction_text": f"synthetic instruction {i}",
-                            "instruction_tokens": rng.integers(1000, 30522, 200).tolist()},
+                            "instruction_tokens": rng.integers(min(1000, vocab // 2), vocab,
+                                                               200).tolist()},
             "info": {"geodesic_distance": float(length)},
         })
     with gzip.open(path, "wt") as f:
@@ -3277,6 +3319,519 @@ def ondevice_path(device, host=None, model_opts=(), episodes_writer=None, profil
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+FLAT_MODELS = (("cma_robo.yaml", 2), ("seq2seq_robo.yaml", 1))  # (yaml, LSTM calls a forward)
+FLAT_VOCAB = 2504  # the GloVe vocabulary of the flat yamls
+FLAT_TRAIN_STEPS = 3  # 11b, bf16 steps a model
+FLAT_EPISODES = (4, 2)  # 11c: train and eval episodes, one window of tbptt 100 each
+INSTRUCTION_TOL = 1e-5  # float32: the instruction RNN packed (cuDNN) against the scan
+# 11b: the float32 step's losses, and the leaf whose exact gradient is 0 (a
+# bias of the text keys adds the same q·b to every logit of a row, which the
+# softmax cancels), held against the same projection's weight gradient
+FLAT_LOSS_KEYS = ("action_loss", "stop_loss", "aux_loss", "total_loss")
+FLAT_ZERO_GRAD_LEAF = "text_k.bias"
+
+
+def flat_config(yaml, device, model_opts=(), extra=()):
+    """The port's copy of a flat yaml, as shipped but for ``DEVICE`` and the
+    options given."""
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.config.default import _CONFIGS
+
+    return get_config(os.path.join(_CONFIGS, yaml),
+                      ["DEVICE", str(device), *model_opts, *extra])
+
+
+def flat_batch(gen, cfg, device):
+    """One TBPTT window of the flat trainer at the config's shapes: B =
+    DAGGER.BATCH_SIZE, T = tbptt_steps, instructions of 60-200 GloVe ids then
+    pads, progress, corrected actions and stop targets drawn from ``gen``."""
+    sim, d = cfg.TASK_CONFIG.SIMULATOR, cfg.DAGGER
+    B, T, L = d.BATCH_SIZE, d.tbptt_steps, d.MAX_INSTRUCTION_LEN
+    vocab = cfg.MODEL.INSTRUCTION_ENCODER.vocab_size
+    ids = torch.randint(1, vocab, (B, L), generator=gen)
+    for b in range(B):
+        ids[b, int(torch.randint(min(60, L), L + 1, (1,), generator=gen)):] = 0
+    masks = torch.ones(B, T)
+    masks[:, 0] = 0.0
+    batch = {
+        "rgb": torch.randint(0, 256, (B, T, sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH, 3),
+                             generator=gen, dtype=torch.uint8),
+        "depth": torch.rand(B, T, sim.DEPTH_SENSOR.HEIGHT, sim.DEPTH_SENSOR.WIDTH, 1,
+                            generator=gen).half(),
+        "instruction": ids, "progress": torch.rand(B, T, generator=gen),
+        "prev_actions": torch.zeros(B, T, 2),
+        "corrected_actions": torch.rand(B, T, 2, generator=gen),
+        "oracle_stop": (torch.rand(B, T, 1, generator=gen) > 0.7).float(),
+        "not_done_masks": masks, "valid_mask": torch.ones(B, T),
+    }
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def check_flat_lstm(gen, device):
+    """11a: the LSTM kernel and its backward (the partials route) at the flat
+    window's shape, T=100, B=1, H=512 (one row, one launch each), held to
+    their plain versions at 3a's tolerances and timed beside the plain
+    versions, cuDNN and the bound."""
+    from robo_vln_tpu_torch.ops import fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
+    from robo_vln_tpu_torch.utils.device import float32_exact
+
+    T, B, H = 100, 1, 512
+    print(f"phase 11a: lstm_seq and its backward at the flat window's shape T={T} B={B} "
+          f"H={H}, float32, against their plain versions")
+    with float32_exact(torch.float32):
+        args = lstm_inputs(gen, T, B, H, device)
+        before = fused_lstm.launches
+        got = fused_lstm.lstm_seq_cuda(*args)
+        launched = fused_lstm.launches - before
+        ref = lstm_recurrence(*args)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        print(f"  forward: max_abs_err {err:.3e} (tolerance {LSTM_TOL}), {launched} launch(es)")
+        if launched != 1 or not err <= LSTM_TOL:
+            fail(f"lstm_seq at T={T} B={B} H={H}: {launched} launches, error {err:.3e}")
+        cots = lstm_cotangents(gen, T, B, H, device)
+        b_abs, b_rel, b_launched, _ = check_lstm_backward(f"T={T} B={B} H={H}", args, got[0],
+                                                          cots, False)
+        if b_launched != 1:
+            fail(f"lstm_seq backward at T={T} B={B} H={H} took {b_launched} launches")
+        call = lambda: fused_lstm.lstm_seq_cuda(*args)
+        fwd = report_times("forward kernel", time_ms(call))
+        plain = report_times("forward plain", time_ms(lambda: lstm_recurrence(*args), inner=2))
+        lstm = torch.nn.LSTM(384, H).to(device)  # CMA's first encoder: rgb 256 + depth 128
+        x = torch.randn(T, B, 384, generator=gen).to(device)
+        hc = (args[2][None], args[3][None])
+        library = report_times("library nn.LSTM (cuDNN, input 384, masks all 1)",
+                               time_ms(lambda: lstm(x, hc)))
+        bwd = time_lstm_backward(gen, args, got[0], cots, lstm, x, hc)
+    by_bytes, by_ops = lstm_bound_ms(T, B, H)
+    (b_bytes, b_ops), _ = lstm_backward_bound_ms(T, B, H)
+    print(f"  bound: forward bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms; backward "
+          f"bytes {b_bytes:.4f} ms, operations {b_ops:.4f} ms")
+    work = f"one call at T={T}, B={B}, H={H}, float32 (CMA makes two a window, Seq2Seq one)"
+    forward = {"flat_max_abs_err": err, "flat_ms": fwd, "flat_plain_ms": plain,
+               "flat_bound_ms": max(by_bytes, by_ops),
+               "flat_bound_by": "bytes" if by_bytes > by_ops else "operations",
+               "flat_library_ms": library, "flat_work": work}
+    backward = {"flat_max_abs_err": b_abs, "flat_max_rel_err": b_rel,
+                "flat_ms": bwd["partials_ms"], "flat_kernel_only_ms": bwd["partials_kernel_ms"],
+                "flat_plain_ms": bwd["bwd_plain_ms"], "flat_replay_ms": bwd["bwd_replay_ms"],
+                "flat_bound_ms": max(b_bytes, b_ops),
+                "flat_bound_by": "bytes" if b_bytes > b_ops else "operations",
+                "flat_library_ms": bwd["bwd_library_ms"],
+                "flat_work": work + ", no mask gradient"}
+    return forward, backward
+
+
+def _synchronize(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _events(device):
+    if torch.device(device).type != "cuda":
+        return None
+    return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+
+def _elapsed(events):
+    if events is None:
+        return float("nan")
+    events[1].synchronize()
+    return events[0].elapsed_time(events[1])
+
+
+def flat_model_path(device, yaml, calls, model_opts=()):
+    """11b: one flat model at full width: a window's forward and
+    FLAT_TRAIN_STEPS train steps in bf16 (launches, times, peak memory), then
+    a float32 step against the same step with the plain versions."""
+    from robo_vln_tpu_torch.models import build_flat_policy
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.training import TrainState, adam, make_flat_train_step
+    from robo_vln_tpu_torch.training import trainable_mask
+    from robo_vln_tpu_torch.utils.device import resolve_dtype
+
+    cfg = flat_config(yaml, device, model_opts)
+    pm = cfg.MODEL.PROGRESS_MONITOR
+    sim, lr = cfg.TASK_CONFIG.SIMULATOR, cfg.DAGGER.LR
+    cuda = torch.device(device).type == "cuda"
+
+    def build(dtype):
+        policy = build_flat_policy(cfg.MODEL, compute_dtype=dtype,
+                                   generator=torch.Generator().manual_seed(0),
+                                   rgb_hw=(sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH))
+        policy = policy.to(device)
+        state = TrainState(adam(policy), 0)
+        step = make_flat_train_step(policy, use_progress=pm.use, progress_alpha=pm.alpha)
+        return policy, state, step
+
+    policy, state, step = build(resolve_dtype(cfg.TPU.PRECISION))
+    name = type(policy).__name__
+    batch = flat_batch(torch.Generator().manual_seed(5), cfg, device)
+    B, T = batch["not_done_masks"].shape
+    print(f"phase 11b ({yaml}): {name} at full width ({sim.RGB_SENSOR.WIDTH} px rgb, "
+          f"{sim.DEPTH_SENSOR.WIDTH} px depth, {batch['instruction'].shape[1]} tokens of a "
+          f"{cfg.MODEL.INSTRUCTION_ENCODER.vocab_size} vocabulary, LSTM("
+          f"{cfg.MODEL.STATE_ENCODER.hidden_size}), B={B} T={T}), {cfg.TPU.PRECISION}")
+    obs = {k: v for k, v in batch.items() if k in ("rgb", "depth", "instruction")}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    window_ms = []
+    with torch.no_grad():
+        for rep in range(3):
+            fused_lstm.reset_launches()
+            fused_attention.reset_launches()
+            ev = _events(device)
+            if ev:
+                ev[0].record()
+            actions, stop, _, _ = policy(obs, policy.initial_hidden(B, device), None,
+                                         batch["not_done_masks"])
+            if ev:
+                ev[1].record()
+            window_ms.append(_elapsed(ev))
+            check_finite(f"{name} window", actions, stop)
+    window = path_launches()
+    print(f"  window forward: " + " ".join(f"{t:.3f}" for t in window_ms) + " ms by CUDA "
+          f"events; launches {window}")
+    if window["lstm_seq"] != calls or window["cross_modal_attn"] != 0:
+        fail(f"{name}'s window launched {window}, expected {calls} lstm_seq and no attention")
+
+    mask = trainable_mask(policy)
+    before = {n: p.detach().clone() for n, p in policy.named_parameters()}
+    hidden = policy.initial_hidden(B, device)
+    step_ms, host_ms = [], []
+    launches = dict.fromkeys(window, 0)
+    for k in range(FLAT_TRAIN_STEPS):
+        fused_lstm.reset_launches()
+        fused_attention.reset_launches()
+        ev = _events(device)
+        t0 = time.perf_counter()
+        if ev:
+            ev[0].record()
+        state, hidden, metrics = step(state, hidden, batch, lr)
+        if ev:
+            ev[1].record()
+        step_ms.append(_elapsed(ev))
+        _synchronize(device)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        got = path_launches()
+        for key, n in got.items():
+            launches[key] += n
+        check_finite(f"{name} train step {k}", *metrics.values())
+        if (got["lstm_seq"], got["lstm_seq_backward"], got["cross_modal_attn"]) != (
+                calls, calls, 0):
+            fail(f"{name}'s train step {k} launched {got}; expected {calls} forward and "
+                 f"{calls} backward LSTM launches, no attention")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    print(f"  train step (Adam, lr {lr}): CUDA events " + " ".join(f"{t:.3f}" for t in step_ms)
+          + " ms, host " + " ".join(f"{t:.3f}" for t in host_ms) + f" ms; losses "
+          f"{ {k: round(v.item(), 5) for k, v in metrics.items()} }; peak {peak:.3f} GiB")
+    moved = frozen = unused = 0
+    for n, p in policy.named_parameters():
+        if not mask[n]:
+            frozen += 1
+            if not torch.equal(p, before[n]):
+                fail(f"{name}'s frozen parameter {n} moved")
+        elif p.grad is None:
+            unused += 1
+            if not n.startswith(("progress_monitor.", "sub_goal_linear.")) or \
+                    not torch.equal(p, before[n]):
+                fail(f"{name}'s trainable parameter {n} got no gradient")
+        else:
+            moved += 1
+    print(f"  {frozen} frozen parameters unchanged, {moved} trainable ones given a gradient, "
+          f"{unused} unused heads without one")
+    del policy, state, step, before
+
+    print(f"phase 11b ({yaml}): float32 train step (lr 0) against the same step with the "
+          f"plain versions (the LSTM's backward the autograd replay)")
+    policy, state, step = build(torch.float32)
+    if cuda:
+        check_instruction_rnn(policy, batch["instruction"])
+    hidden = policy.initial_hidden(B, device)
+    params = list(policy.named_parameters())
+    runs = {}
+    for label, scope in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
+        lstm_before = fused_lstm.launches, fused_lstm.backward_launches
+        with scope():
+            _, _, metrics = step(state, hidden, batch, 0.0)
+        took = (fused_lstm.launches - lstm_before[0],
+                fused_lstm.backward_launches - lstm_before[1])
+        if took != ((calls, calls) if label == "kernels" else (0, 0)) and cuda:
+            fail(f"the float32 {name} step ({label}) launched (lstm_seq, backward) {took}")
+        runs[label] = metrics, {n: p.grad.clone() for n, p in params if p.grad is not None}
+    hold_step_to_plain(f"float32 {name} step, kernels", *runs["kernels"], *runs["plain"],
+                       loss_keys=FLAT_LOSS_KEYS, zero_leaf=FLAT_ZERO_GRAD_LEAF)
+    return {"window_launches": window, "train_launches": launches,
+            "window_ms": statistics.median(window_ms[1:]),
+            "step_ms": statistics.median(step_ms[1:]),
+            "step_host_ms": statistics.median(host_ms[1:]), "peak_gib": peak}
+
+
+def check_instruction_rnn(policy, ids):
+    """The instruction RNN's path on the card (run_rnn: cuDNN over a packed
+    sequence) against the length-masked scans, float32 with TF32 off:
+    outputs and final state within INSTRUCTION_TOL; both timed forward."""
+    from robo_vln_tpu_torch.models.encoders import instruction
+    from robo_vln_tpu_torch.utils.device import float32_exact
+
+    enc = policy.instruction_encoder
+    with float32_exact(torch.float32), torch.no_grad():
+        x = enc.embedding_layer(ids.long())
+        lengths = instruction.token_lengths(ids)
+        got = instruction.run_rnn(enc.encoder_rnn, x, lengths)
+        want = instruction.run_scan(enc.encoder_rnn, x, lengths)
+        err = max((g - w).abs().max().item() for g, w in zip(got[:2], want[:2]))
+        print(f"  the instruction RNN (bidirectional {enc.encoder_rnn.bidirectional}) on the "
+              f"card, packed (cuDNN) against the scan: max_abs_err {err:.3e} (tolerance "
+              f"{INSTRUCTION_TOL})")
+        if not err <= INSTRUCTION_TOL:
+            fail("the packed instruction RNN disagrees with the scan")
+        report_times("instruction RNN forward, packed (cuDNN)", time_ms(
+            lambda: instruction.run_rnn(enc.encoder_rnn, x, lengths), inner=2))
+        report_times("instruction RNN forward, the scan", time_ms(
+            lambda: instruction.run_scan(enc.encoder_rnn, x, lengths), reps=3, inner=1))
+
+
+def flat_path(device, model_opts=()):
+    """Phase 11: the flat family at full width on the card: 11a the LSTM at
+    its shape; 11b the CMA and Seq2Seq windows and train steps; 11c run_exp
+    train with cma_robo.yaml over synthetic buffers, one epoch and its
+    checkpoint; 11d that checkpoint's eval on the host driver at NUM_ENVS 8
+    and with EVAL.ON_DEVICE, the graph held to the same batch stepped
+    eagerly.  Returns (launches of each flat path by the kernels line's
+    names, the LSTM's 11a fields (forward, backward), timings)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from robo_vln_tpu_torch.eval import agent as agent_mod
+    from robo_vln_tpu_torch.eval import evaluator, ondevice
+    from robo_vln_tpu_torch.ops import _build, fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
+    from robo_vln_tpu_torch.training.trainer import RoboVLNTrainer
+
+    cuda = torch.device(device).type == "cuda"
+    lstm_fields = (check_flat_lstm(torch.Generator().manual_seed(11), device) if cuda
+                   else ({}, {}))
+    paths, timings = {}, {}
+    for yaml, calls in FLAT_MODELS:
+        got = flat_model_path(device, yaml, calls, model_opts)
+        tag = yaml.split("_")[0]
+        paths[f"flat_{tag}_window"] = got.pop("window_launches")
+        paths[f"flat_{tag}_train"] = got.pop("train_launches")
+        timings[tag] = got
+
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # in the checkout, ignored by git
+    root = tempfile.mkdtemp(prefix="flat_", dir=_build.BUILD_DIR.parent)
+    try:
+        n_train, n_eval = FLAT_EPISODES
+        sim = flat_config("cma_robo.yaml", device, model_opts).TASK_CONFIG.SIMULATOR
+        size = write_trainer_buffers(root, FLAT_EPISODES, vocab=FLAT_VOCAB,
+                                     rgb_px=sim.RGB_SENSOR.WIDTH, depth_px=sim.DEPTH_SENSOR.WIDTH)
+        common = ["TENSORBOARD_DIR", os.path.join(root, "tb"),
+                  "LOG_FILE", os.path.join(root, "flat.log"),
+                  "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"), *model_opts]
+        train_opts = ["DEVICE", str(device), "DAGGER.EPOCHS", 1,
+                      "DAGGER.LMDB_FEATURES_DIR", os.path.join(root, "train"),
+                      "DAGGER.LMDB_EVAL_DIR", os.path.join(root, "eval"), *common]
+        print(f"phase 11c: python -m robo_vln_tpu_torch.run --run-type train's run_exp on "
+              f"cma_robo.yaml as shipped (B=1, tbptt 100, Adam lr 1e-4), EPOCHS cut from 25 "
+              f"to 1, over {n_train} train and {n_eval} eval synthetic episodes of 60-100 "
+              f"steps ({size / 2**20:.1f} MiB)")
+        record = {"steps": [], "vals": []}
+        saved = RoboVLNTrainer._setup_policy
+
+        def setup(self, *args, **kwargs):
+            saved(self, *args, **kwargs)
+            for kind in ("train_step", "val_step"):
+                fn = getattr(self, kind)
+
+                def timed(*a, _fn=fn, _kind=kind, **kw):
+                    fused_lstm.reset_launches()
+                    fused_attention.reset_launches()
+                    t0 = time.perf_counter()
+                    out = _fn(*a, **kw)
+                    _synchronize(device)
+                    record["steps" if _kind == "train_step" else "vals"].append(
+                        ((time.perf_counter() - t0) * 1e3, path_launches()))
+                    return out
+
+                setattr(self, kind, timed)
+
+        RoboVLNTrainer._setup_policy = setup
+        try:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "train", train_opts)
+            run_s = time.perf_counter() - t0
+        finally:
+            RoboVLNTrainer._setup_policy = saved
+        (ckpt,) = ckpt_lib.list_checkpoints(os.path.join(root, "ckpts"))
+        trainer_launches = dict.fromkeys(path_launches(), 0)
+        for kind, want_bwd in (("steps", 2), ("vals", 0)):
+            for ms, got in record[kind]:
+                for key, n in got.items():
+                    trainer_launches[key] += n
+                if (got["lstm_seq"], got["lstm_seq_backward"], got["cross_modal_attn"]) != (
+                        2, want_bwd, 0):
+                    fail(f"the CMA trainer's {kind[:-1]} launched {got}")
+        if (len(record["steps"]), len(record["vals"])) != (n_train, n_eval):
+            fail(f"the CMA trainer took {len(record['steps'])} steps and "
+                 f"{len(record['vals'])} val windows, expected {n_train} and {n_eval}")
+        logged = [json.loads(line) for line in open(os.path.join(root, "tb", "metrics.jsonl"))]
+        if not all(math.isfinite(m["value"]) for m in logged):
+            fail("the CMA trainer logged a non-finite loss")
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+        steps_ms = [ms for ms, _ in record["steps"]]
+        print(f"  run {run_s:.2f} s, {os.path.basename(ckpt)}; train steps (host clock to "
+              f"the device's end) " + " ".join(f"{t:.2f}" for t in steps_ms) + " ms, val "
+              "windows " + " ".join(f"{ms:.2f}" for ms, _ in record["vals"]) + f" ms; peak "
+              f"{peak:.3f} GiB; {len(logged)} logged values, all finite")
+        paths["flat_trainer"] = trainer_launches
+        timings["trainer_step_ms"] = statistics.median(steps_ms[1:])
+
+        # the checkpoint's velocity head biased so that the agent drives
+        state_file = os.path.join(ckpt, ckpt_lib.TRAIN_STATE)
+        saved_state = torch.load(state_file, map_location="cpu", weights_only=True)
+        saved_state["state_dict"]["linear.bias"] += torch.tensor(EVAL_VELOCITY_BIAS)
+        torch.save(saved_state, state_file)
+        data = os.path.join(root, "episodes.json.gz")
+        write_eval_episodes(data, EVAL_EPISODES, vocab=FLAT_VOCAB)
+
+        def eval_opts(tag, *extra):
+            return ["DEVICE", str(device), "EVAL_CKPT_PATH_DIR", ckpt,
+                    "TASK_CONFIG.SIMULATOR.TYPE", "kinematic",
+                    "TASK_CONFIG.DATASET.DATA_PATH", data,
+                    "TASK_CONFIG.TASK.NDTW.GT_PATH", os.path.join(root, "no_gt.json.gz"),
+                    "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", EVAL_MAX_STEPS,
+                    "EVAL.SPLIT", "train", "EVAL.EPISODE_COUNT", EVAL_EPISODES,
+                    "EVAL.NUM_ENVS", 8, "EVAL.VAL_LOG_DIR", os.path.join(root, f"val_{tag}"),
+                    *common, *extra]
+
+        print(f"phase 11d: run_exp --run-type eval on cma_robo.yaml: {os.path.basename(ckpt)} "
+              f"(its lin_vel bias {EVAL_VELOCITY_BIAS[0]} so that the agent drives) over "
+              f"{EVAL_EPISODES} synthetic episodes, MAX_EPISODE_STEPS {EVAL_MAX_STEPS}, "
+              f"NUM_ENVS 8 on the host driver, then EVAL.ON_DEVICE")
+        ticks = []
+        act = agent_mod.FlatAgent.act
+
+        def timed_act(self, *args, **kwargs):
+            fused_lstm.reset_launches()
+            fused_attention.reset_launches()
+            ev = _events(device)
+            if ev:
+                ev[0].record()
+            out = act(self, *args, **kwargs)
+            if ev:
+                ev[1].record()
+            ticks.append((ev, path_launches()))
+            return out
+
+        rollout_s = []
+        run_rollout = evaluator._run_rollout
+
+        def timed_rollout(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = run_rollout(*args, **kwargs)
+            rollout_s.append(time.perf_counter() - t0)
+            return out
+
+        agent_mod.FlatAgent.act, evaluator._run_rollout = timed_act, timed_rollout
+        try:
+            run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "eval", eval_opts("host"))
+        finally:
+            agent_mod.FlatAgent.act, evaluator._run_rollout = act, run_rollout
+        host_s = rollout_s[0]
+        host_stats = json.load(open(os.path.join(root, "val_host", "stats_ckpt_0_train.json")))
+        eval_launches = dict.fromkeys(path_launches(), 0)
+        for _, got in ticks:
+            for key, n in got.items():
+                eval_launches[key] += n
+            if (got["lstm_seq"], got["cross_modal_attn"]) != (2, 0):
+                fail(f"a flat eval tick launched {got}")
+        tick_ms = [_elapsed(ev) for ev, _ in ticks]
+        for key in EVAL_STATS:
+            if not math.isfinite(host_stats.get(key, float("nan"))):
+                fail(f"flat eval: {key} is {host_stats.get(key)}")
+        env_steps = host_stats["steps_taken"] * EVAL_EPISODES
+        print(f"  host driver: {len(ticks)} ticks of 8 envs, {env_steps:.0f} env steps in "
+              f"{host_s:.2f} s of rollout ({env_steps / host_s:.2f} env steps/s); policy "
+              f"median {statistics.median(tick_ms):.3f} ms by CUDA events around "
+              f"FlatAgent.act; stats "
+              f"{ {k: round(host_stats[k], 4) for k in EVAL_STATS} }")
+        if host_stats["path_length"] < 1.0:
+            fail("the flat agent did not drive in the host eval")
+        paths["flat_eval"] = eval_launches
+        timings["eval_tick_ms"] = statistics.median(tick_ms)
+        timings["eval_env_steps_per_s"] = env_steps / host_s
+
+        od = {"rollouts": [], "run": None, "run_ms": [], "driver_s": [], "episodes": None}
+        with instrumented_ondevice(od):
+            run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "eval", eval_opts(
+                "device", "EVAL.ON_DEVICE", True, "EVAL.ON_DEVICE_BATCH", ONDEVICE_BATCH))
+        dev_stats = json.load(open(os.path.join(root, "val_device", "stats_ckpt_0_train.json")))
+        (rollout,) = od["rollouts"]
+        if set(dev_stats) != set(host_stats):
+            fail(f"on-device stats keys {sorted(dev_stats)} against the host's {sorted(host_stats)}")
+        for ep, st in od["episodes"].items():
+            if not all(math.isfinite(st[k]) for k in ONDEVICE_STATS_KEYS):
+                fail(f"on-device episode {ep}: non-finite stats {st}")
+        # the graph's launches, counted at its capture (none on the CPU, whose
+        # ticks run eagerly)
+        per_tick = {k: n / rollout.graph_ticks for k, n in rollout.graph_launches.items()}
+        if cuda and (per_tick["lstm_seq"], per_tick["cross_modal_attn"]) != (2, 0):
+            fail(f"the flat on-device graph launched {rollout.graph_launches} a graph of "
+                 f"{rollout.graph_ticks} ticks")
+        batch = rollout.batches[-1]
+        replays = sum(b["replays"] for b in rollout.batches)
+        ondevice_launches = {k: rollout.graph_launches.get(k, 0) * replays
+                             for k in path_launches()}
+        graph_tick = [e[0].elapsed_time(e[1]) / rollout.graph_ticks for e in batch["events"]] \
+            if cuda else [float("nan")]
+        dev_steps = sum(st["steps_taken"] for st in od["episodes"].values())
+        set_up_ms = (rollout.capture_ms or 0.0) + (rollout.warmup_ms or 0.0)
+        run_s = (sum(od["run_ms"]) - set_up_ms) / 1e3
+        print(f"  on-device: {batch['ticks']} ticks, {replays} replays of {rollout.graph_ticks} "
+              f"ticks, {batch['syncs']} host syncs; the graph's tick "
+              f"{statistics.median(graph_tick):.3f} ms by CUDA events; warm-up "
+              f"{rollout.warmup_ms} ms, capture {rollout.capture_ms} ms; {dev_steps:.0f} env "
+              f"steps in {run_s:.3f} s of the run less them ({dev_steps / run_s:.2f} env "
+              f"steps/s); launches a tick in the graph {per_tick}; stats "
+              f"{ {k: round(dev_stats[k], 4) for k in EVAL_STATS} }")
+        # the same batch stepped eagerly must retrace the graph's run
+        graph_result = rollout.fetch()
+        eager = rollout.run(graph=False)
+        gap = float(np.abs(eager["positions"] - graph_result["positions"]).max())
+        print(f"  the batch stepped eagerly: positions within {gap:.3e} m of the graph's "
+              f"(tolerance {ONDEVICE_TRACE_TOL}), steps equal: "
+              f"{np.array_equal(eager['steps'], graph_result['steps'])}")
+        if not (gap <= ONDEVICE_TRACE_TOL and np.array_equal(eager["steps"],
+                                                              graph_result["steps"])):
+            fail("the flat on-device graph and the same batch stepped eagerly disagree")
+        paths["flat_ondevice"] = ondevice_launches
+        timings["ondevice_tick_ms"] = statistics.median(graph_tick)
+        timings["ondevice_env_steps_per_s"] = dev_steps / run_s
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, counts in paths.items():
+        if (counts["lstm_seq"] == 0 and (cuda or name != "flat_ondevice")) or \
+                any(counts[k] for k in counts if "attn" in k):
+            fail(f"the flat path {name} launched {counts}: the LSTM never, or attention")
+    print(f"phase 11 launches by path: {paths}")
+    print(f"phase 11 timings: {json.dumps(timings)}")
+    return paths, lstm_fields, timings
+
+
+def _config_dir():
+    from robo_vln_tpu_torch.config.default import _CONFIGS
+
+    return _CONFIGS
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3311,6 +3866,8 @@ def main():
             feature_path(device, profile=profile)
         if "10" in only:
             ondevice_path(device, profile=profile)
+        if "11" in only:
+            flat_path(device)
         print(f"chip_smoke: phases {only} passed; a partial run prints no result")
         return 0
     gen = torch.Generator().manual_seed(0)
@@ -3342,10 +3899,13 @@ def main():
     read_key_blocks("_feature")
     ondevice_launches = ondevice_path(device, host_eval, profile=profile)
     read_key_blocks("_ondevice")
+    flat_launches, (flat_forward, flat_backward), _ = flat_path(device)
+    read_key_blocks("_flat")
     print(f"key-block launches of the attention kernel (S > 128 or d > 128 in float32, S > "
           f"128 in bf16) and float32 one-float-copy launches on the serving, train, "
-          f"trainer, eval, collection, feature and on-device paths (the on-device path's as "
-          f"the wrappers counted them, at the warm-up and the capture): {key_blocks}")
+          f"trainer, eval, collection, feature, on-device and flat paths (the on-device "
+          f"paths' as the wrappers counted them, at the warm-up and the capture): "
+          f"{key_blocks}")
     if any(key_blocks.values()):
         fail("an HCM path launched a key-block or one-float-copy attention kernel")
     attention.update(key_blocks)
@@ -3357,6 +3917,9 @@ def main():
         k["collect_launches"] = collect_launches[k["name"]]
         k["feature_launches"] = feature_launches[k["name"]]
         k["ondevice_launches"] = ondevice_launches[k["name"]]
+        k["flat_launches"] = {path: counts[k["name"]] for path, counts in flat_launches.items()}
+    kernels[0].update(flat_forward)  # the LSTM at the flat window's shape
+    kernels[1].update(flat_backward)
     # the serving path runs no backward: the backward's launches are the train path's
     for backward in kernels[1:3]:
         backward["serving_launches"], backward["launches"] = (backward["launches"],

@@ -1,10 +1,12 @@
-"""PyTorch + CUDA port of robo_vln_tpu's HCM agent, for one NVIDIA H100.
+"""PyTorch + CUDA port of robo_vln_tpu, for one NVIDIA H100.
 
-The serving path of the hierarchical cross-modal agent: frozen BERT, the
-two frozen ResNet50 trunks, VisualLingAttn and both policies' LSTMs.  The
-two TPU kernels of that path are hand-written CUDA C++ for sm_90a
-(``csrc/``): the fused LSTM recurrence and the cross-modal attention.  This
-package imports torch and nothing of JAX or of robo_vln_tpu.
+The hierarchical cross-modal (HCM) agent (frozen BERT, the two frozen
+ResNet50 trunks, VisualLingAttn and both policies' LSTMs) and the flat
+family (CMA and Seq2Seq, robo_vln_trainer): their serving, training,
+collection and eval.  The two TPU kernels are hand-written CUDA C++ for
+sm_90a (``csrc/``): the fused LSTM recurrence, which every state encoder
+runs, and the cross-modal attention.  This package imports torch and
+nothing of JAX or of robo_vln_tpu.
 
     from robo_vln_tpu_torch import build_hcm_agent
     from robo_vln_tpu_torch.config import get_config
@@ -16,7 +18,7 @@ host-only module such as envs/collection.py, which collection's spawned
 workers import, loads no torch.
 """
 
-__all__ = ["HCMAgent", "build_hcm_agent"]
+__all__ = ["FlatAgent", "HCMAgent", "build_hcm_agent"]
 
 
 def __getattr__(name):

@@ -1,6 +1,6 @@
-"""Config tree of the PyTorch port: the keys its HCM agent, train step,
-hierarchical trainer and closed-loop eval read, and the keys the shipped
-experiment yamls set.
+"""Config tree of the PyTorch port: the keys its HCM agent, the flat
+family's policies, both trainers and the closed-loop eval read, and the keys
+the shipped experiment yamls set.
 
 A copy of the keys of robo_vln_tpu/config/default.py with the same names and
 defaults, so a config written for the JAX package sets the same model and
@@ -148,6 +148,7 @@ _C.DAGGER.MAX_EPOCHS_PER_RUN = 0
 # train from cached trunk features: each buffer's featurized twin
 # <buffer>.features (training/featurize.py), built or refreshed after each
 # iteration's collection; needs bitwise-identical trunks in both policies
+# (the hierarchical trainer's; robo_vln_trainer refuses it, ROADMAP §A item 6c)
 _C.DAGGER.PRELOAD_TRUNK_FEATURES = False
 # static episode-length buckets the loader pads to
 _C.DAGGER.EPISODE_LEN_BUCKETS = [100, 200, 300, 400, 500, 700, 1000]
@@ -155,11 +156,14 @@ _C.DAGGER.MAX_INSTRUCTION_LEN = 200
 
 _C.MODEL = ConfigTree()
 _C.MODEL.inflection_weight_coef = 3.2
+_C.MODEL.ablate_instruction = False
 _C.MODEL.ablate_depth = False
 _C.MODEL.ablate_rgb = False
 
-# the loader reads is_bert (BERT ids or GloVe ids); the rest is the flat
-# family's GloVe instruction encoder (ROADMAP §A item 6)
+# the loader reads is_bert (BERT ids or GloVe ids); the flat family's
+# instruction encoders read the rest: is_bert selects Seq2Seq's BERT
+# LanguageEncoder, otherwise the GloVe table (read from embedding_file when
+# use_pretrained_embeddings and the file exists, else learned) and its RNN
 _C.MODEL.INSTRUCTION_ENCODER = ConfigTree()
 _C.MODEL.INSTRUCTION_ENCODER.num_layers = 1
 _C.MODEL.INSTRUCTION_ENCODER.vocab_size = 2504
@@ -192,11 +196,15 @@ _C.MODEL.VISUAL_LING_ATTN.dropout = 0.25
 # pretrained backbone files: the trainer refuses one that exists, because the
 # port loads none yet (utils/pretrained.py, ROADMAP §A item 8)
 _C.MODEL.RGB_ENCODER = ConfigTree()
+# the flat Seq2Seq's rgb encoder: "SimpleRGBCNN" or the ResNet50
+_C.MODEL.RGB_ENCODER.cnn_type = "TorchVisionResNet50"
 _C.MODEL.RGB_ENCODER.output_size = 256
 _C.MODEL.RGB_ENCODER.blocks = [3, 4, 6, 3]  # ResNet50 stage depths
 _C.MODEL.RGB_ENCODER.pretrained_weights = "data/weights/resnet50_imagenet.npz"
 
 _C.MODEL.DEPTH_ENCODER = ConfigTree()
+# the flat Seq2Seq's depth encoder: "SimpleDepthCNN" or the ResNet50
+_C.MODEL.DEPTH_ENCODER.cnn_type = "VlnResnetDepthEncoder"
 _C.MODEL.DEPTH_ENCODER.output_size = 128
 _C.MODEL.DEPTH_ENCODER.blocks = [3, 4, 6, 3]
 _C.MODEL.DEPTH_ENCODER.ddppo_checkpoint = "data/ddppo-models/gibson-2plus-resnet50.pth"
@@ -208,6 +216,19 @@ _C.MODEL.DEPTH_ENCODER.input_size = 256
 _C.MODEL.STATE_ENCODER = ConfigTree()
 _C.MODEL.STATE_ENCODER.hidden_size = 512
 _C.MODEL.STATE_ENCODER.rnn_type = "LSTM"
+
+# the flat family (robo_vln_trainer): CMA when CMA.use, else Seq2Seq; each
+# may embed the previous action; the progress monitor adds alpha times its
+# MSE to the loss (the RCM encoder, CMA.rcm_state_encoder, is not ported:
+# jax_only.py refuses it)
+_C.MODEL.SEQ2SEQ = ConfigTree()
+_C.MODEL.SEQ2SEQ.use_prev_action = False
+_C.MODEL.CMA = ConfigTree()
+_C.MODEL.CMA.use = False
+_C.MODEL.CMA.use_prev_action = False
+_C.MODEL.PROGRESS_MONITOR = ConfigTree()
+_C.MODEL.PROGRESS_MONITOR.use = False
+_C.MODEL.PROGRESS_MONITOR.alpha = 1.0
 
 _C.MODEL.BERT = ConfigTree()
 _C.MODEL.BERT.vocab_size = 30522

@@ -25,18 +25,8 @@ UNPORTED: Dict[str, Tuple[Any, str]] = {
     "PLOT_ATTENTION": (False, _EVAL_SLICE),
     "EVAL.EVAL_NONLEARNING": (False, _EVAL_SLICE),
     "EVAL.NONLEARNING.AGENT": ("RandomAgent", _EVAL_SLICE),
-    # the flat family's encoders (the JAX flat trainer and models/seq2seq.py
-    # read them; the hierarchical trainer ignores them)
-    "MODEL.RGB_ENCODER.cnn_type": ("TorchVisionResNet50", "§A item 6"),
-    "MODEL.DEPTH_ENCODER.cnn_type": ("VlnResnetDepthEncoder", "§A item 6"),
-    # the flat family's models and trainer
-    "MODEL.ablate_instruction": (False, "§A item 6"),
-    "MODEL.SEQ2SEQ.use_prev_action": (False, "§A item 6"),
-    "MODEL.CMA.use": (False, "§A item 6"),
-    "MODEL.CMA.rcm_state_encoder": (False, "§A item 6"),
-    "MODEL.CMA.use_prev_action": (False, "§A item 6"),
-    "MODEL.PROGRESS_MONITOR.use": (False, "§A item 6"),
-    "MODEL.PROGRESS_MONITOR.alpha": (1.0, "§A item 6"),
+    # the flat family's RCM state encoder (models/rcm.py)
+    "MODEL.CMA.rcm_state_encoder": (False, "§A item 6c"),
     # the data-parallel mesh
     "TPU.MESH_AXES": (["data", "model"], "§A item 7"),
     "TPU.MESH_SHAPE": ([-1, 1], "§A item 7"),

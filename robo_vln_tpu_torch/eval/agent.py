@@ -1,6 +1,8 @@
-"""The HCM agent's serving entry point (counterpart of the hierarchical eval
-tick, robo_vln_tpu/eval/evaluator.py:769-827, and of the teacher-forced
-forward of __graft_entry__.entry() / bench.py:111-118).
+"""The agents' serving entry points: the HCM agent's (counterpart of the
+hierarchical eval tick, robo_vln_tpu/eval/evaluator.py:769-827, and of the
+teacher-forced forward of __graft_entry__.entry() / bench.py:111-118) and
+the flat family's (:class:`FlatAgent`, the flat eval tick,
+evaluator.py:635-702).
 
 :class:`HCMAgent` holds both policies on one device.  Each closed-loop tick
 (:meth:`HCMAgent.act`) runs the frozen trunks once for both policies (when
@@ -131,3 +133,58 @@ def build_hcm_agent(model_config, device="cuda", compute_dtype="bfloat16",
 
         load_hierarchical_weights(high, low, *weights)
     return HCMAgent(high.to(dev), low.to(dev), share_frozen_trunks)
+
+
+class FlatAgent:
+    """A flat policy (CMA or Seq2Seq) on one device, with the tick API of
+    :class:`HCMAgent`: the eval's host driver, the DAgger mixer and the
+    on-device rollout drive either.  The JAX package re-encodes the
+    instruction every tick; the encoding (the GloVe or BERT instruction
+    encoder's output, a function of the token ids alone in eval mode) is
+    cached here on the host's view of the ids, as HCMAgent caches BERT's, so
+    every tick computes what JAX computes.  The state is a 1-tuple holding
+    the policy's packed hidden (layers, B, H)."""
+
+    def __init__(self, policy):
+        self.policy = policy.eval()
+        self._emb_ids: Optional[np.ndarray] = None
+        self._emb: Optional[torch.Tensor] = None
+        self.embeds = 0  # the instruction encoder's runs
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.policy.parameters()).device
+
+    def initial_state(self, batch_size: int) -> Tuple[torch.Tensor]:
+        return (self.policy.initial_hidden(batch_size, self.device),)
+
+    @torch.no_grad()
+    def embed_instruction(self, ids: torch.Tensor,
+                          host_ids: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The instruction encoder over (B, L) token ids, cached while the
+        ids stay the same; ``host_ids`` as for HCMAgent.embed_instruction."""
+        key = ids.cpu().numpy() if host_ids is None else host_ids
+        cached = self._emb_ids
+        if cached is None or not np.array_equal(cached, key):
+            self._emb_ids = np.array(key, copy=True)
+            with float32_exact(self.policy.compute_dtype):
+                self._emb = self.policy.encode_instruction(ids)
+            self.embeds += 1
+        return self._emb
+
+    @torch.no_grad()
+    def act(self, obs: Obs, state, prev: Optional[torch.Tensor], mask: torch.Tensor,
+            host_ids: Optional[np.ndarray] = None):
+        """One closed-loop tick: obs rgb (B, H, W, 3), depth (B, H, W, 1),
+        instruction (B, L); prev (B, 2); mask (B,).  Returns (actions (B, 2),
+        stop (B, 1), state)."""
+        emb = self.embed_instruction(obs["instruction"], host_ids)
+        return self.step({**obs, "instruction_embedding": emb}, state, prev, mask)
+
+    @torch.no_grad()
+    def step(self, obs: Obs, state, prev: Optional[torch.Tensor], mask: torch.Tensor):
+        """The tick with ``obs["instruction_embedding"]`` given: no host copy
+        and no host read, so the on-device eval captures it."""
+        with float32_exact(self.policy.compute_dtype):
+            actions, stop, hidden, _ = self.policy(obs, state[0], prev, mask)
+        return actions, stop, (hidden,)

@@ -1,17 +1,22 @@
-"""Closed-loop checkpoint evaluation of the hierarchical (HCM) agent
-(counterpart of the host rollout loops of robo_vln_tpu/eval/evaluator.py).
+"""Closed-loop checkpoint evaluation of the hierarchical (HCM) agent and of
+the flat family (counterpart of the host rollout loops of
+robo_vln_tpu/eval/evaluator.py).
 
-30 Hz alternation of the policy tick (:meth:`eval.agent.HCMAgent.act`,
-built from the trainer's loaded ``high`` and ``low``: the shared frozen
-trunks, both LSTM kernels and both attention launches) with a host-side sim
-step, per-episode nDTW against the ground-truth locations, and the
-aggregated stats JSON and scalars.  :func:`_run_rollout` drives
+30 Hz alternation of the policy tick with a host-side sim step, per-episode
+nDTW against the ground-truth locations, and the aggregated stats JSON and
+scalars.  The tick is :meth:`eval.agent.HCMAgent.act`
+(:func:`eval_hierarchical_checkpoint`: the trainer's loaded ``high`` and
+``low``, the shared frozen trunks, both LSTM kernels and both attention
+launches) or :meth:`eval.agent.FlatAgent.act`
+(:func:`eval_flat_checkpoint`: the trainer's CMA or Seq2Seq policy, its
+state encoders' LSTM kernel).  :func:`_run_rollout` drives
 ``EVAL.NUM_ENVS`` envs (one included) with one tick over the batch.
 
 Per tick the host sends the observations to the device and fetches the
 actions and the stop logit back in ONE copy; the agent caches the frozen
-BERT embedding on the host's view of the token ids (re-embedded whenever
-any env's ids change), so the device compares nothing.
+BERT embedding, or the flat policy's instruction encoding, on the host's
+view of the token ids (re-embedded whenever any env's ids change), so the
+device compares nothing.
 
 Preserved reference quirks:
 * omega clipped to +/-1.0 at actuation (robo_vln_trainer.py:1117-1119);
@@ -46,7 +51,7 @@ from ..envs.velocity_control import VelocityControl
 from ..tasks.dtw import ndtw
 from ..training import checkpoint as ckpt_lib
 from ..utils.logging import logger
-from .agent import HCMAgent
+from .agent import FlatAgent, HCMAgent
 
 
 def _load_gt(config):
@@ -161,17 +166,23 @@ def _eval_config(trainer, checkpoint_path: str = ""):
 
 
 def _load_eval_weights(trainer, checkpoint_path) -> None:
-    """Load eval weights into a set-up trainer: a reference ``.pth``
-    (``training/checkpoint.load_reference_checkpoint``) or a port checkpoint
-    directory (``train_state.pt`` + ``framework_metadata.json``).  A path
-    that does not exist leaves the weights as they are, as in the JAX
-    package; any other path raises, an orbax directory of the JAX package
-    among them (reading one needs JAX)."""
+    """Load eval weights into a set-up trainer, hierarchical or flat (it
+    holds a ``policy``): a reference ``.pth``
+    (``training/checkpoint.load_reference_checkpoint`` or
+    ``load_reference_flat_checkpoint``) or a port checkpoint directory
+    (``train_state.pt`` + ``framework_metadata.json``).  A path that does
+    not exist leaves the weights as they are, as in the JAX package; any
+    other path raises, an orbax directory of the JAX package among them
+    (reading one needs JAX)."""
     cp = str(checkpoint_path)
     if not (checkpoint_path and os.path.exists(cp)):
         return
+    flat = getattr(trainer, "policy", None) is not None
     if cp.endswith(".pth"):
-        ckpt_lib.load_reference_checkpoint(trainer, cp)
+        if flat:
+            ckpt_lib.load_reference_flat_checkpoint(trainer, cp)
+        else:
+            ckpt_lib.load_reference_checkpoint(trainer, cp)
         # trunks now come from the checkpoint, whatever the set-up found
         trainer.pretrained_backbones = {
             k: {"status": "checkpoint", "path": cp}
@@ -179,8 +190,11 @@ def _load_eval_weights(trainer, checkpoint_path) -> None:
             if v.get("status") != "not_in_model"
         }
     elif os.path.isfile(os.path.join(cp, ckpt_lib.TRAIN_STATE)):
-        trainer.state = ckpt_lib.load_checkpoint(cp, trainer.high, trainer.low,
-                                                 trainer.state)
+        if flat:
+            trainer.state = ckpt_lib.load_flat_checkpoint(cp, trainer.policy, trainer.state)
+        else:
+            trainer.state = ckpt_lib.load_checkpoint(cp, trainer.high, trainer.low,
+                                                     trainer.state)
     else:
         raise ValueError(
             f"{cp} is not a checkpoint the port reads: it reads a port checkpoint "
@@ -416,13 +430,14 @@ def _run_rollout(config, envs, writer, checkpoint_index: int, policy_step: Calla
 
 
 class _PolicyTick:
-    """The host side of :meth:`HCMAgent.act`: numpy observations to the
+    """The host side of an agent's ``act`` (:class:`HCMAgent`,
+    :class:`FlatAgent`): numpy observations to the
     agent's device, the mask and prev (zeroed in the rows of envs whose
     episode just began), the host's token ids for the agent's BERT cache
     (re-embedded whenever any env's ids change), and the actions and stop
     logit back in one device-to-host copy."""
 
-    def __init__(self, agent: HCMAgent):
+    def __init__(self, agent):
         self.agent = agent
         self.device = agent.device
         self._prev = None
@@ -449,9 +464,10 @@ def _eval_on_device(config, writer, checkpoint_index: int, extra, policy_step,
     """EVAL.ON_DEVICE: the episodes in batches of ``EVAL.ON_DEVICE_BATCH``,
     each rolled out whole on the device (eval/ondevice.Rollout), the last
     batch padded with its final episode so that the graph keeps its shape.
-    ``embed(ids (B, L) numpy) -> (B, L, D)`` is BERT on the device, run once
-    a batch outside the graph.  The same stats JSON and trajectory dump as
-    the host driver."""
+    ``embed(ids (B, L) numpy)`` is the instruction's embedding on the device
+    (BERT's (B, L, D) for the HCM agent, the flat policy's instruction
+    encoding), run once a batch outside the graph.  The same stats JSON and
+    trajectory dump as the host driver."""
     from ..data.dataset import VLNCEDatasetV1
     from . import ondevice
 
@@ -549,4 +565,51 @@ def eval_hierarchical_checkpoint(trainer, checkpoint_path, writer,
     stats = _run_rollout(config, envs, writer, checkpoint_index, tick, agent.initial_state,
                          tokenizer, is_bert, extra)
     logger.info(f"BERT embedded the instructions {agent.embeds} times")
+    return stats
+
+
+def _eval_flat_on_device(agent: FlatAgent, config, writer, checkpoint_index: int,
+                         extra) -> Dict[str, float]:
+    """The flat policy's tick (:meth:`FlatAgent.step`: its encoders and
+    state encoders, the LSTM kernel) for :func:`_eval_on_device`; the
+    instruction encoder runs once a batch outside the graph, through the
+    ``embed`` hook, and its output rides in ``instruction_embedding``."""
+
+    def embed(ids):
+        return agent.embed_instruction(torch.from_numpy(ids).to(agent.device), ids)
+
+    stats = _eval_on_device(config, writer, checkpoint_index, extra, agent.step,
+                            agent.initial_state, embed, agent.device)
+    logger.info(f"the instruction encoder ran {agent.embeds} times")
+    return stats
+
+
+def eval_flat_checkpoint(trainer, checkpoint_path, writer,
+                         checkpoint_index: int = 0) -> Dict[str, float]:
+    """Evaluate a flat checkpoint (a port ``ckpt.{N}/`` or a reference
+    ``.pth``) with RoboVLNTrainer's policy: the host driver over
+    ``EVAL.NUM_ENVS`` envs, or with ``EVAL.ON_DEVICE`` on the kinematic
+    backend the whole rollout on the device."""
+    config = _eval_config(trainer, checkpoint_path)
+    if trainer.policy is None:
+        trainer._setup_policy()
+    _load_eval_weights(trainer, checkpoint_path)
+    provenance = _check_backbone_provenance(trainer)
+    extra = {"pretrained_backbones": provenance} if provenance else None
+    agent = FlatAgent(trainer.policy)
+
+    if config.EVAL.ON_DEVICE:
+        if config.TASK_CONFIG.SIMULATOR.TYPE == "kinematic":
+            return _eval_flat_on_device(agent, config, writer, checkpoint_index, extra)
+        logger.warning(
+            "EVAL.ON_DEVICE needs the kinematic backend "
+            f"(SIMULATOR.TYPE={config.TASK_CONFIG.SIMULATOR.TYPE!r}); "
+            "running the host driver")
+
+    envs = construct_envs(config, num_envs=config.EVAL.NUM_ENVS)
+    _maybe_shuffle_env_instructions(config, envs)
+    tokenizer, is_bert = make_tokenizer(config), config.MODEL.INSTRUCTION_ENCODER.is_bert
+    stats = _run_rollout(config, envs, writer, checkpoint_index, _PolicyTick(agent),
+                         agent.initial_state, tokenizer, is_bert, extra)
+    logger.info(f"the instruction encoder ran {agent.embeds} times")
     return stats

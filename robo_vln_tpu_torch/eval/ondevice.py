@@ -150,7 +150,8 @@ class Rollout:
 
     ``policy_step(obs, hidden, prev, mask) -> (actions (B, 2), stop (B, 1),
     hidden)`` takes the single-tick observations (rgb, depth, progress,
-    instruction and its BERT ``instruction_embedding``) and must stay on the
+    instruction and its ``instruction_embedding``: BERT's for the HCM agent,
+    the instruction encoder's for a flat policy) and must stay on the
     device.  The carry is the JAX package's: t, q, p, hidden, prev, done,
     steps, succ and the trace (MAX_EPISODE_STEPS, B, 3), each a static
     buffer that :meth:`tick` updates in place.
@@ -203,7 +204,7 @@ class Rollout:
     def load(self, packed: Dict[str, np.ndarray], instruction: np.ndarray,
              embedding: torch.Tensor) -> None:
         """Copy one batch's episode arrays (:func:`pack_episodes`), token
-        ids (B, L) and BERT embedding (B, L, D) into the static inputs (made
+        ids (B, L) and instruction embedding into the static inputs (made
         on the first batch; a later batch must have the same shapes)."""
         cuda = self.device.type == "cuda"
         arrays = {**packed, "instruction": instruction}

@@ -1,5 +1,10 @@
-"""Policy factory and frozen-trunk sharing (counterpart of
-robo_vln_tpu/models/__init__.py:40-186).
+"""Policy factories and frozen-trunk sharing (counterpart of
+robo_vln_tpu/models/__init__.py).
+
+:func:`build_flat_policy` builds the flat family's policy, CMA when
+``MODEL.CMA.use`` else Seq2Seq, as the reference's RoboDaggerTrainer
+chooses (robo_vln_trainer.py:313-339); :func:`build_hierarchical_policies`
+the HCM agent's two.
 
 The reference's high and low policies each own a frozen DDPPO depth ResNet50
 and a frozen torchvision ResNet50, loaded from the same weight files.  When
@@ -17,9 +22,12 @@ import math
 import torch
 from torch import nn
 
+from .cma import CMAPolicy
 from .encoders.bert import BertEncoder
+from .encoders.instruction import InstructionEncoder, load_glove_embeddings
 from .hierarchical import HighLevelPolicy, LowLevelPolicy
-from .rnn_state_encoder import RNNStateEncoder, _LSTMWeights
+from .rnn_state_encoder import RNNStateEncoder, _RNNWeights
+from .seq2seq import Seq2SeqPolicy
 
 _TRUNK_PATHS = ("rgb_encoder.cnn", "depth_encoder.visual_encoder")
 
@@ -28,7 +36,9 @@ _TRUNK_PATHS = ("rgb_encoder.cnn", "depth_encoder.visual_encoder")
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights drawn from ``generator``, in module order: flax's
     defaults (lecun-normal linears and convs, zero biases, N(0, 1) embedding
-    tables, orthogonal LSTM weights, N(0, 0.02) BERT embeddings)."""
+    tables, orthogonal state-encoder weights, lecun-normal input and
+    orthogonal recurrent weights of the instruction RNNs, N(0, 0.02) BERT
+    embeddings)."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -37,11 +47,19 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, _LSTMWeights):
+        elif isinstance(m, _RNNWeights):
             nn.init.orthogonal_(m.weight_ih_l0, generator=generator)
             nn.init.orthogonal_(m.weight_hh_l0, generator=generator)
             m.bias_ih_l0.zero_()
             m.bias_hh_l0.zero_()
+        elif isinstance(m, nn.RNNBase):
+            for name, p in m.named_parameters():
+                if name.startswith("weight_ih"):
+                    p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+                elif name.startswith("weight_hh"):
+                    nn.init.orthogonal_(p, generator=generator)
+                else:
+                    p.zero_()
     for m in module.modules():
         if isinstance(m, BertEncoder):
             for emb in m.embeddings.children():
@@ -63,6 +81,33 @@ def build_hierarchical_policies(model_config, num_sub_tasks: int = 4,
     init_weights(high, generator)
     init_weights(low, generator)
     return high.eval(), low.eval()
+
+
+def build_flat_policy(model_config, num_actions: int = 2, num_sub_tasks: int = 4,
+                      compute_dtype=torch.float32, generator: torch.Generator = None,
+                      rgb_hw=(224, 224)):
+    """CMAPolicy when MODEL.CMA.use, else Seq2SeqPolicy, on the CPU, in
+    eval mode, with random weights from ``generator`` (a fresh one seeded 0
+    if None); the GloVe instruction table is read from
+    INSTRUCTION_ENCODER.embedding_file when use_pretrained_embeddings and
+    the file exists, as the flax initialiser reads it.  ``rgb_hw``: the rgb
+    frame's (height, width), which sizes SimpleRGBCNN's Linear."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if model_config.CMA.use:
+        policy = CMAPolicy(model_config, num_actions=num_actions, compute_dtype=compute_dtype)
+    else:
+        policy = Seq2SeqPolicy(model_config, num_actions=num_actions,
+                               num_sub_tasks=num_sub_tasks, compute_dtype=compute_dtype,
+                               rgb_hw=rgb_hw)
+    init_weights(policy, generator)
+    ic = model_config.INSTRUCTION_ENCODER
+    if isinstance(policy.instruction_encoder, InstructionEncoder) and \
+            ic.use_pretrained_embeddings:
+        table = load_glove_embeddings(ic.embedding_file)
+        if table is not None:
+            policy.instruction_encoder.load_table(table)
+    return policy.eval()
 
 
 def _trunk_state(policy: nn.Module, path: str):
@@ -116,9 +161,12 @@ def make_shared_trunk_fn(high: HighLevelPolicy):
 
 
 __all__ = [
+    "CMAPolicy",
     "HighLevelPolicy",
     "LowLevelPolicy",
     "RNNStateEncoder",
+    "Seq2SeqPolicy",
+    "build_flat_policy",
     "build_hierarchical_policies",
     "frozen_trunks_identical",
     "init_weights",

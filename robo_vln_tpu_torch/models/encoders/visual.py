@@ -1,5 +1,5 @@
 """Depth and RGB observation encoders (counterpart of
-robo_vln_tpu/models/encoders/visual.py:35-155).
+robo_vln_tpu/models/encoders/visual.py:35-185).
 
 * :class:`DepthEncoder` (the reference's VlnResnetDepthEncoder): GroupNorm
   ResNet50 over depth; vector mode Flatten -> Linear -> ReLU (flattened
@@ -9,6 +9,13 @@ robo_vln_tpu/models/encoders/visual.py:35-155).
   over rgb / 255 — no mean/std normalisation, a reference quirk kept; vector
   mode avgpool -> Linear -> ReLU, spatial mode adaptive-pools 7×7 to 4×4
   tokens and appends the embedding.
+* :class:`SimpleCNN` (the reference's SimpleDepthCNN / SimpleRGBCNN,
+  simple_cnns.py:19-148), which the flat family's ``cnn_type`` selects:
+  three VALID convs (kernels 8/4/3, strides 4/2/1, channels 32/64/32), a
+  Linear and a ReLU, all trained.  Its ``nn.Sequential`` keeps the
+  reference's keys (``cnn.0``, ``cnn.2``, ``cnn.4``, ``cnn.6``) and
+  flattens channel-major, as torch's Flatten sees NCHW; the flax module
+  flattens (h, w, C), so utils/weight_port.py reorders its Linear's rows.
 
 Observations keep the JAX package's layouts: frames (N, H, W, C); trunk
 features ``rgb_features`` / ``depth_features`` (N, h, w, C) when a shared
@@ -116,3 +123,39 @@ class RGBEncoder(nn.Module):
         if feat.dim() == 4:
             feat = feat.mean(dim=(1, 2))
         return F.relu(linear(feat, self.fc, self.compute_dtype))
+
+
+class SimpleCNN(nn.Module):
+    """rgb / 255 or raw depth, (N, H, W, C) -> (N, output_size), every
+    layer in the compute dtype."""
+
+    def __init__(self, key: str, output_size: int, hw, compute_dtype=torch.float32):
+        super().__init__()
+        self.key = key
+        self.compute_dtype = compute_dtype
+        channels = 3 if key == "rgb" else 1
+        h, w = (((n - 8) // 4 + 1 - 4) // 2 + 1 - 2 for n in hw)  # the three VALID convs
+        if min(h, w) < 1:
+            raise ValueError(f"SimpleCNN takes frames of at least 36 px, not {tuple(hw)}")
+        self.cnn = nn.Sequential(
+            nn.Conv2d(channels, 32, 8, 4), nn.ReLU(True),
+            nn.Conv2d(32, 64, 4, 2), nn.ReLU(True),
+            nn.Conv2d(64, 32, 3, 1), nn.Flatten(),
+            nn.Linear(32 * h * w, output_size), nn.ReLU(True),
+        )
+        # flax names these layers conv1..3 and fc, which no frozen name
+        # matches: they train (training/optimizers.trainable_mask)
+        self.cnn.frozen_by_name = False
+
+    def forward(self, observations):
+        dt = self.compute_dtype
+        x = observations[self.key].to(dt)
+        if self.key == "rgb":
+            x = x / 255.0
+        x = x.permute(0, 3, 1, 2)
+        for i in (0, 2, 4):
+            conv = self.cnn[i]
+            x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), conv.stride)
+            if i < 4:
+                x = F.relu(x)
+        return F.relu(linear(x.reshape(x.shape[0], -1), self.cnn[6], dt))

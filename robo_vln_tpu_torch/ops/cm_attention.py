@@ -12,6 +12,9 @@
   CUDA kernel on a CUDA tensor and runs the plain version on a CPU tensor.
   Unlike JAX (``TPU.PALLAS_ATTENTION``) there is no switch that turns the
   kernel off on the card.
+* :func:`single_query_attention` — the CMA policy's attention (plain
+  PyTorch, no kernel, as in JAX): one query an example over S slots, the
+  mask subtracted as 1e8 *before* the scale.
 * :func:`set_float32_probabilities` — the process-wide setting that JAX's
   ``TPU.PALLAS_ATTENTION`` becomes in the port (the trainer and
   ``eval/agent.build_hcm_agent`` set it from the config, as the JAX trainers
@@ -90,3 +93,20 @@ def mha_attention(
     if return_weights:
         return out, att
     return out
+
+
+def single_query_attention(
+    q: torch.Tensor,  # (N, C)
+    k: torch.Tensor,  # (N, C, S)
+    v: torch.Tensor,  # (N, Cv, S)
+    scale: float,
+    mask: Optional[torch.Tensor] = None,  # (N, S) bool, True = masked
+) -> torch.Tensor:
+    """The reference CMANet's ``_attn`` (cma.py:201-209), channel-major:
+    logits q·k in float32, minus 1e8 where masked, *then* times ``scale``,
+    softmax over the S slots.  Returns (N, Cv)."""
+    logits = torch.einsum("nc,ncs->ns", q.float(), k.float())
+    if mask is not None:
+        logits = logits - mask.float() * 1e8
+    att = torch.softmax(logits * scale, dim=1)
+    return torch.einsum("ns,ncs->nc", att.to(v.dtype), v)

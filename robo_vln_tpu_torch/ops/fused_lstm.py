@@ -23,7 +23,7 @@ need not divide evenly.
 The backward pass is a kernel too, in the same source
 (:func:`lstm_seq_backward_cuda`, in the profiler range
 ``lstm_seq.backward``): it computes what the JAX custom VJP gets by
-differentiating its scan (pallas_lstm.py:162-165), the gradient with
+differentiating its scan (pallas_lstm.py:164-167), the gradient with
 respect to gates_x, masks, h0, c0 and w_hh.  Around the kernel, which runs
 the reverse recurrence, :func:`reverse_pass` recomputes the gates of all
 steps in one product before it and forms d_w_hh in one product after it;

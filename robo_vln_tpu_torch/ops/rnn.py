@@ -1,12 +1,23 @@
-"""Plain masked LSTM (counterpart of robo_vln_tpu/ops/rnn.py::lstm_sequence
-and ops/pallas_lstm.py::_scan_impl).
+"""Plain masked recurrences (counterpart of robo_vln_tpu/ops/rnn.py and
+ops/pallas_lstm.py::_scan_impl).
 
 Time-major: x (T, B, D), masks (T, B).  The mask of step t multiplies the
-carried (h, c) *before* step t consumes its input, so a 0 resets the state at
-an episode boundary.  Gate order is torch's (i, f, g, o).  This is the
-version the CPU runs and the one ``ops/fused_lstm.py``'s kernel is held
-against on the card.  :func:`lstm_recurrence_backward` is its gradient in
-closed form, the plain version of the kernel's backward.
+carried state *before* step t consumes its input, so a 0 resets the state at
+an episode boundary.  Gate orders are torch's: LSTM (i, f, g, o), GRU (r, z,
+n).  :func:`lstm_recurrence` is the version the CPU runs and the one
+``ops/fused_lstm.py``'s kernel is held against on the card;
+:func:`lstm_recurrence_backward` is its gradient in closed form, the plain
+version of the kernel's backward.
+
+The GRU (:func:`gru_sequence`, the flat family's ``STATE_ENCODER.rnn_type
+GRU``) and the instruction encoders' length-masked recurrences
+(:func:`length_masked_lstm`, :func:`length_masked_gru`) are scans in the JAX
+package, not Pallas kernels, and plain PyTorch here.  The length-masked ones
+take batch-major x (B, L, D) and the valid token count of each row: the
+carry freezes on pad steps, outputs at pads are exactly 0 (CMA derives its
+text mask from those zeros), the reverse direction skips the trailing pads,
+and a row of length 0 gives zeros.  They need no lengths on the host, so a
+CUDA graph can hold them.
 """
 
 from __future__ import annotations
@@ -14,6 +25,14 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
+    """The LSTM's update from its pre-activations gates (B, 4H) = x·W_ih + b
+    + h·W_hh and the carried c (B, H): (h, c)."""
+    i, f, gg, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+    return torch.sigmoid(o) * torch.tanh(c), c
 
 
 def lstm_recurrence(
@@ -30,10 +49,7 @@ def lstm_recurrence(
         m = masks[t][:, None]
         h = h * m
         c = c * m
-        g = gates_x[t] + h @ w_hh
-        i, f, gg, o = g.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        h, c = lstm_cell(gates_x[t] + h @ w_hh, c)
         outs.append(h)
     return torch.stack(outs), h, c
 
@@ -94,3 +110,96 @@ def lstm_sequence(x, h0, c0, masks, w_ih, w_hh, b):
     gates_x = torch.matmul(x, w_ih) + b
     outs, hT, cT = lstm_recurrence(gates_x, masks, h0, c0, w_hh)
     return outs, (hT, cT)
+
+
+def gru_sequence(x, h0, masks, w_ih, w_hh, b_ih, b_hh):
+    """Masked GRU over a sequence, torch's semantics.  x (T, B, D), h0 (B, H),
+    masks (T, B), w_ih (D, 3H), w_hh (H, 3H); b_hh stays apart from b_ih, as
+    the n gate needs r·(h W_hn + b_hn).  Returns (outs (T, B, H), hT)."""
+    cell = _GRUCell(w_ih, w_hh, b_ih, b_hh)
+    h, outs = h0, []
+    for gx, m in zip(cell.gates(x), masks):
+        (h,) = cell(gx, (h * m[:, None],))
+        outs.append(h)
+    return torch.stack(outs), h
+
+
+def gru_step(x, h, mask, w_ih, w_hh, b_ih, b_hh):
+    """One tick of :func:`gru_sequence`: x (B, D), mask (B,)."""
+    outs, hT = gru_sequence(x[None], h, mask[None], w_ih, w_hh, b_ih, b_hh)
+    return outs[0], hT
+
+
+def _valid_steps(x, lengths, reverse: bool):
+    """Time-major x (L, B, D) and its (L, B, 1) validity, in the order the
+    direction consumes them."""
+    L = x.shape[1]
+    valid = torch.arange(L, device=x.device)[None, :] < lengths.to(x.device)[:, None]
+    xs, vs = x.transpose(0, 1), valid.transpose(0, 1)[..., None]
+    if reverse:
+        xs, vs = xs.flip(0), vs.flip(0)
+    return xs, vs
+
+
+def _length_masked(x, lengths, reverse, n_state, cell):
+    """The scan shared by both cells: ``cell(gx_t, state) -> new state``
+    (its first entry the output), the state frozen and the output 0 on pad
+    steps.  Returns (outs (B, L, H), final state)."""
+    xs, vs = _valid_steps(x, lengths, reverse)
+    B, H = x.shape[0], cell.hidden
+    state = tuple(x.new_zeros(B, H) for _ in range(n_state))
+    outs = []
+    for gx, v in zip(cell.gates(xs), vs):
+        new = cell(gx, state)
+        outs.append(torch.where(v, new[0], 0.0))
+        state = tuple(torch.where(v, a, b) for a, b in zip(new, state))
+    outs = torch.stack(outs)
+    if reverse:
+        outs = outs.flip(0)
+    return outs.transpose(0, 1), state
+
+
+class _LSTMCell:
+    def __init__(self, w_ih, w_hh, b):
+        self.w_ih, self.w_hh, self.b, self.hidden = w_ih, w_hh, b, w_hh.shape[0]
+
+    def gates(self, xs):
+        return torch.matmul(xs, self.w_ih) + self.b
+
+    def __call__(self, gx, state):
+        h, c = state
+        return lstm_cell(gx + h @ self.w_hh, c)
+
+
+class _GRUCell:
+    def __init__(self, w_ih, w_hh, b_ih, b_hh):
+        self.w_ih, self.w_hh, self.b_ih, self.b_hh = w_ih, w_hh, b_ih, b_hh
+        self.hidden = w_hh.shape[0]
+
+    def gates(self, xs):
+        return torch.matmul(xs, self.w_ih) + self.b_ih
+
+    def __call__(self, gx, state):
+        (h,) = state
+        xr, xz, xn = gx.chunk(3, dim=-1)
+        hr, hz, hn = (h @ self.w_hh + self.b_hh).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return ((1.0 - z) * n + z * h,)
+
+
+def length_masked_lstm(x, lengths, w_ih, w_hh, b, reverse: bool = False):
+    """LSTM with packed-sequence semantics (the reference's
+    pack_padded_sequence).  x (B, L, D), lengths (B,), w_ih (D, 4H), w_hh
+    (H, 4H), b (4H,).  Returns (outs (B, L, H), (hT, cT)): the state after
+    the last valid token, or with ``reverse`` after token 0."""
+    outs, (h, c) = _length_masked(x, lengths, reverse, 2, _LSTMCell(w_ih, w_hh, b))
+    return outs, (h, c)
+
+
+def length_masked_gru(x, lengths, w_ih, w_hh, b_ih, b_hh, reverse: bool = False):
+    """GRU with packed-sequence semantics (see :func:`length_masked_lstm`).
+    Returns (outs (B, L, H), hT)."""
+    outs, (h,) = _length_masked(x, lengths, reverse, 1, _GRUCell(w_ih, w_hh, b_ih, b_hh))
+    return outs, h

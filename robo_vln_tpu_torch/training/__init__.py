@@ -1,8 +1,9 @@
-"""The hierarchical train step (counterpart of robo_vln_tpu/training/steps.py
-and optimizers.py): losses in ops/losses.py, AdamW / Adam over the trainable
-parameters, dropout, the non-finite guard and optional recompute; and the
-hierarchical trainer with its checkpoints (hierarchical_trainer.py,
-checkpoint.py), registered as ``hierarchical_trainer``."""
+"""The train steps (counterpart of robo_vln_tpu/training/steps.py and
+optimizers.py), the flat family's and the hierarchical agent's: losses in
+ops/losses.py, Adam / AdamW over the trainable parameters, dropout, the
+non-finite guard and optional recompute; and the trainers with their
+checkpoints (trainer.py's ``robo_vln_trainer``, hierarchical_trainer.py's
+``hierarchical_trainer``, checkpoint.py)."""
 
 from . import hierarchical_trainer  # noqa: F401 (registers the trainer)
 
@@ -20,6 +21,8 @@ from .steps import (
     TrainState,
     dropout_generator,
     inflection_coef_from,
+    make_flat_train_step,
+    make_flat_val_step,
     make_hier_train_step,
     make_hier_val_step,
 )
@@ -33,6 +36,8 @@ __all__ = [
     "cyclic_triangular_lr",
     "dropout_generator",
     "inflection_coef_from",
+    "make_flat_train_step",
+    "make_flat_val_step",
     "make_hier_train_step",
     "make_hier_val_step",
     "set_lr",

@@ -1,8 +1,14 @@
-"""Checkpoints of the hierarchical trainer (counterpart of
+"""Checkpoints of both trainers (counterpart of
 robo_vln_tpu/training/checkpoint.py's save, load, list and metadata, and of
-its ``load_torch_into_hier_trainer``).
+its ``load_torch_into_hier_trainer`` and ``load_torch_into_flat_trainer``).
 
-A checkpoint is a directory ``ckpt.{N}/`` holding
+A flat checkpoint (RoboVLNTrainer) is a directory ``ckpt.{N}/`` holding
+``train_state.pt``: the policy's ``state_dict`` under the reference's key
+names (so the reference's flat ``.pth``, ``{state_dict, config}``, is a
+subset of it), the optimizer's ``state_dict``, its parameters' names and
+the step; and ``framework_metadata.json``.
+
+A hierarchical checkpoint is a directory ``ckpt.{N}/`` holding
 
 * ``train_state.pt`` (``torch.save``, read back with ``weights_only=True``):
   ``high_level_state_dict`` and ``low_level_state_dict`` under the
@@ -30,7 +36,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from .steps import HierTrainState
+from .steps import HierTrainState, TrainState
 
 TRAIN_STATE = "train_state.pt"
 METADATA = "framework_metadata.json"
@@ -47,8 +53,7 @@ def save_checkpoint(path: str, high: nn.Module, low: nn.Module, state: HierTrain
     """Write ``ckpt.{N}/`` at ``path``: weights, optimizer state and step
     counters, then the metadata.  The state file is written under another
     name and renamed, so a reader never sees half of it."""
-    os.makedirs(path, exist_ok=True)
-    payload = {
+    _write_state(path, {
         "high_level_state_dict": high.state_dict(),
         "low_level_state_dict": low.state_dict(),
         "high_optimizer": state.high.optimizer.state_dict(),
@@ -57,7 +62,16 @@ def save_checkpoint(path: str, high: nn.Module, low: nn.Module, state: HierTrain
         "low_step": int(state.low.step),
         "high_param_names": _param_names(high, state.high.optimizer),
         "low_param_names": _param_names(low, state.low.optimizer),
-    }
+    }, metadata)
+
+
+def write_metadata(ckpt_dir: str, metadata: Dict) -> None:
+    with open(os.path.join(ckpt_dir, METADATA), "w") as f:
+        json.dump(metadata, f, indent=2, default=str)
+
+
+def _write_state(path: str, payload: Dict, metadata: Optional[Dict]) -> None:
+    os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, TRAIN_STATE + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, TRAIN_STATE))
@@ -65,9 +79,48 @@ def save_checkpoint(path: str, high: nn.Module, low: nn.Module, state: HierTrain
         write_metadata(path, metadata)
 
 
-def write_metadata(ckpt_dir: str, metadata: Dict) -> None:
-    with open(os.path.join(ckpt_dir, METADATA), "w") as f:
-        json.dump(metadata, f, indent=2, default=str)
+def _read_state(path: str) -> Dict:
+    # read to the host: the modules and optimizers copy each tensor to its
+    # parameter's device, and Adam's step counts stay on the host, where a
+    # freshly built optimizer keeps them
+    return torch.load(os.path.join(path, TRAIN_STATE), map_location="cpu",
+                      weights_only=True)
+
+
+def _check_param_names(path: str, what: str, recorded: List[str], module: nn.Module,
+                       optimizer: torch.optim.Optimizer) -> None:
+    rebuilt = _param_names(module, optimizer)
+    if recorded != rebuilt:
+        missing = sorted(set(recorded) - set(rebuilt))
+        extra = sorted(set(rebuilt) - set(recorded))
+        raise ValueError(
+            f"{path}: {what}'s optimizer holds other parameters than the "
+            f"checkpoint's (saved only: {missing}; rebuilt only: {extra}; "
+            f"{'same names, other order' if not missing and not extra else ''})")
+
+
+def save_flat_checkpoint(path: str, policy: nn.Module, state: TrainState,
+                         metadata: Optional[Dict] = None) -> None:
+    """Write a flat ``ckpt.{N}/`` at ``path``, as :func:`save_checkpoint`."""
+    _write_state(path, {
+        "state_dict": policy.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "param_names": _param_names(policy, state.optimizer),
+    }, metadata)
+
+
+def load_flat_checkpoint(path: str, policy: nn.Module, state: TrainState) -> TrainState:
+    """Restore a flat ``ckpt.{N}/`` into the policy and the optimizer of
+    ``state`` and return the state with the saved step counter; raises as
+    :func:`load_checkpoint` does."""
+    saved = _read_state(path)
+    if "state_dict" not in saved:
+        raise ValueError(f"{path} is not a flat checkpoint (no state_dict)")
+    _check_param_names(path, "the policy", saved["param_names"], policy, state.optimizer)
+    policy.load_state_dict(saved["state_dict"])
+    state.optimizer.load_state_dict(saved["optimizer"])
+    return state._replace(step=saved["step"])
 
 
 def load_checkpoint(path: str, high: nn.Module, low: nn.Module,
@@ -76,21 +129,13 @@ def load_checkpoint(path: str, high: nn.Module, low: nn.Module,
     ``state`` (built as the saving trainer built them) and return the state
     with the saved step counters.  Raises when the optimizers' parameters
     are not the recorded ones, in the recorded order."""
-    # read to the host: the modules and optimizers copy each tensor to its
-    # parameter's device, and Adam's step counts stay on the host, where a
-    # freshly built optimizer keeps them
-    saved = torch.load(os.path.join(path, TRAIN_STATE), map_location="cpu",
-                       weights_only=True)
+    saved = _read_state(path)
+    if "high_level_state_dict" not in saved:
+        raise ValueError(f"{path} is not a hierarchical checkpoint (no high_level_state_dict)")
     for level, module, opt in (("high", high, state.high.optimizer),
                                ("low", low, state.low.optimizer)):
-        recorded, rebuilt = saved[f"{level}_param_names"], _param_names(module, opt)
-        if recorded != rebuilt:
-            missing = sorted(set(recorded) - set(rebuilt))
-            extra = sorted(set(rebuilt) - set(recorded))
-            raise ValueError(
-                f"{path}: the {level} level's optimizer holds other parameters than the "
-                f"checkpoint's (saved only: {missing}; rebuilt only: {extra}; "
-                f"{'same names, other order' if not missing and not extra else ''})")
+        _check_param_names(path, f"the {level} level", saved[f"{level}_param_names"],
+                           module, opt)
     high.load_state_dict(saved["high_level_state_dict"])
     low.load_state_dict(saved["low_level_state_dict"])
     state.high.optimizer.load_state_dict(saved["high_optimizer"])
@@ -151,7 +196,8 @@ def load_reference_checkpoint(trainer, path: str) -> Dict[str, int]:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or "high_level_state_dict" not in ckpt:
         raise ValueError(f"{path} is not a hierarchical checkpoint "
-                         "(no high_level_state_dict)")
+                         "(no high_level_state_dict); a flat one is evaluated with "
+                         "TRAINER_NAME robo_vln_trainer")
     counts = {}
     for level, module in (("high", trainer.high), ("low", trainer.low)):
         sd = {k: v for k, v in ckpt[f"{level}_level_state_dict"].items()
@@ -159,3 +205,33 @@ def load_reference_checkpoint(trainer, path: str) -> Dict[str, int]:
         module.load_state_dict(sd, strict=True)
         counts[level] = len(sd)
     return counts
+
+
+def _flat_reference_only(key: str) -> bool:
+    """Entries of a reference flat state_dict that no port module builds and
+    no forward reads: BatchNorm's batch counter and, in the is_bert
+    Seq2Seq, HuggingFace BERT's pooler and position-id buffer."""
+    bert = "instruction_encoder.embedding_layer."
+    return (key.endswith(".num_batches_tracked") or key.startswith(bert + "pooler.")
+            or key == bert + "embeddings.position_ids")
+
+
+def load_reference_flat_checkpoint(trainer, path: str) -> int:
+    """Load a reference flat ``.pth`` (Seq2SeqNet or CMANet: ``{state_dict,
+    config}``, or a bare state_dict) into a set-up RoboVLNTrainer's policy:
+    every weight, the frozen trunks included, with a strict
+    ``load_state_dict`` apart from :func:`_flat_reference_only`'s entries.
+    The optimizer and counters are left as they are.  Returns the number of
+    tensors loaded.  A hierarchical checkpoint is refused, naming the
+    trainer that reads it; the file is read with ``weights_only=True``, as
+    :func:`load_reference_checkpoint` reads it."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "high_level_state_dict" in ckpt:
+        raise ValueError(f"{path} is a hierarchical (HCM) checkpoint; evaluate it with "
+                         "TRAINER_NAME hierarchical_trainer")
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else None
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path} holds no flat policy state_dict")
+    sd = {k: v for k, v in sd.items() if not _flat_reference_only(k)}
+    trainer.policy.load_state_dict(sd, strict=True)
+    return len(sd)

@@ -58,7 +58,7 @@ from ..utils.registry import register_trainer
 from . import checkpoint as ckpt_lib
 from . import optimizers as opt_lib
 from . import steps as steps_lib
-from .trainer import BaseTrainer
+from .trainer import BaseTrainer, host_values
 
 # (metrics key, tag) of each scalar logged per train step and val window,
 # under the JAX trainer's tags
@@ -69,11 +69,6 @@ TRAIN_SCALARS = (
     ("low_level_total_loss", "Train Low_level Total Loss"),
 )
 VAL_KEYS = ("high_level_loss", "low_level_total_loss", "high_level_accuracy")
-
-
-def _host_values(metrics, keys):
-    """The metrics named by ``keys`` as floats, in one device-to-host copy."""
-    return torch.stack([metrics[k].float() for k in keys]).tolist()
 
 
 @register_trainer("hierarchical_trainer")
@@ -100,45 +95,18 @@ class HierarchicalTrainer(BaseTrainer):
     def _check_ported(self) -> None:
         """Refuse, before any work, the options whose modules the port does
         not have yet, each naming its ROADMAP item."""
-        d = self.config.DAGGER
-        if int(d.LOADER_WORKERS) > 1:
-            raise NotImplementedError(
-                "DAGGER.LOADER_WORKERS > 1: the process-parallel loader "
-                "(data/parallel_loader.py) is not ported yet (ROADMAP §A item 2)")
+        self._check_loader()
         self._unfrozen_names()  # MODEL.BERT.trainable with the feature store raises
-
-    def _check_pretrained_files(self) -> None:
-        """The port loads no pretrained backbone yet: a file that exists
-        would be ignored silently, so it raises; absent files leave the
-        backbones random, as in the JAX package."""
-        mc = self.config.MODEL
-        files = (("DEPTH_ENCODER.ddppo_checkpoint", mc.DEPTH_ENCODER.ddppo_checkpoint,
-                  "ddppo_depth"),
-                 ("RGB_ENCODER.pretrained_weights", mc.RGB_ENCODER.pretrained_weights,
-                  "imagenet_rgb"),
-                 ("BERT.pretrained_weights", mc.BERT.pretrained_weights, "bert"))
-        present = [f"MODEL.{key} = {path!r}" for key, path, _ in files
-                   if path and os.path.exists(path)]
-        if present:
-            raise NotImplementedError(
-                f"pretrained backbone files exist ({'; '.join(present)}); the port "
-                "does not load them yet (utils/pretrained.py, ROADMAP §A item 8)")
-        for key, path, _ in files:
-            logger.warning(f"pretrained weights MODEL.{key} not found at {path!r}; "
-                           "that backbone stays RANDOM")
-        # the JAX trainer's provenance record, which the eval's stats carry
-        self.pretrained_backbones = {
-            name: {"status": "missing_file", "path": str(path)} for _, path, name in files}
 
     def _setup_policy(self, load_from_ckpt: bool = False, ckpt_path: str = "") -> None:
         cfg = self.config
-        self._check_pretrained_files()
         # bfloat16 attention's probabilities, as the JAX trainers wire it
         cm_attention.set_float32_probabilities(cfg.TPU.PALLAS_ATTENTION)
         self.high, self.low = build_hierarchical_policies(
             cfg.MODEL, compute_dtype=self.dtype,
             generator=torch.Generator().manual_seed(cfg.TASK_CONFIG.SEED),
         )
+        self._check_pretrained_files((self.high, self.low))
         if cfg.TPU.SYNC_FROZEN_TRUNKS_ON_INIT:
             sync_frozen_trunks(self.high, self.low)
         self.high.to(self.device)
@@ -212,10 +180,6 @@ class HierarchicalTrainer(BaseTrainer):
             "val_steps": int(self._val_steps),
         }
 
-    def _epoch_checkpoint(self, epoch: int) -> str:
-        """The per-epoch name, ckpt.{EPOCHS+epoch} (the reference's scheme)."""
-        return f"ckpt.{self.config.DAGGER.EPOCHS + epoch}"
-
     def save_checkpoint(self, file_name: str) -> None:
         path = os.path.join(self.config.CHECKPOINT_FOLDER, file_name)
         ckpt_lib.save_checkpoint(path, self.high, self.low, self.state,
@@ -249,7 +213,7 @@ class HierarchicalTrainer(BaseTrainer):
             self.state, hh, lh, metrics = self.train_step(
                 self.state, hh, lh, window, lr_high, lr_low
             )
-            values = _host_values(metrics, [k for k, _ in TRAIN_SCALARS])
+            values = host_values(metrics, [k for k, _ in TRAIN_SCALARS])
             for (_, tag), value in zip(TRAIN_SCALARS, values):
                 writer.add_scalar(tag, value, train_steps)
             train_steps += 1
@@ -271,7 +235,7 @@ class HierarchicalTrainer(BaseTrainer):
                 if receive is not None:
                     window = receive(window)
                 hh, lh, metrics = self.val_step(hh, lh, window)
-                high, low, acc = _host_values(metrics, VAL_KEYS)
+                high, low, acc = host_values(metrics, VAL_KEYS)
                 writer.add_scalar("Val High Level Loss", high, val_steps)
                 writer.add_scalar("Val Low Level Loss", low, val_steps)
                 val_steps += 1

@@ -1,6 +1,8 @@
-"""Optimizers and the LR schedule of the hierarchical trainer (counterpart of
+"""Optimizers and the LR schedule of both trainers (counterpart of
 robo_vln_tpu/training/optimizers.py).
 
+* flat policy (RoboVLNTrainer): ``torch.optim.Adam`` at DAGGER.LR, no
+  weight decay;
 * high level: ``torch.optim.AdamW(weight_decay=wd)``, decoupled decay;
 * low level: ``torch.optim.Adam(weight_decay=wd)``, whose decay is L2 added
   to the gradient before the moments, as optax's ``add_decayed_weights``
@@ -29,10 +31,21 @@ def trainable_mask(module: nn.Module, extra_frozen: tuple = (),
     """{parameter name: trainable}: False where a component of the name's
     dotted path is a frozen module name.  ``unfrozen`` removes names from
     the frozen set, e.g. ("embedding_layer",) when MODEL.BERT.trainable
-    lifts the BERT freeze."""
+    lifts the BERT freeze.  A module that sets ``frozen_by_name = False``
+    is not frozen by its own name: the flat family's GloVe table
+    (``embedding_layer``) and SimpleCNN (``cnn``) keep the reference's key
+    names, where the JAX package's flax parameters (``embedding``,
+    ``conv1``...) match no frozen name, and its Adam trains them."""
     frozen = (set(FROZEN_MODULE_NAMES) | set(extra_frozen)) - set(unfrozen)
-    return {name: not frozen.intersection(name.split("."))
-            for name, _ in module.named_parameters()}
+    exempt = {name for name, m in module.named_modules()
+              if getattr(m, "frozen_by_name", True) is False}
+
+    def trainable(name: str) -> bool:
+        parts = name.split(".")
+        return not any(part in frozen and ".".join(parts[:i + 1]) not in exempt
+                       for i, part in enumerate(parts))
+
+    return {name: trainable(name) for name, _ in module.named_parameters()}
 
 
 def trainable_parameters(module: nn.Module, unfrozen: tuple = ()) -> List[nn.Parameter]:

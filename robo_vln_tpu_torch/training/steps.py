@@ -1,7 +1,16 @@
-"""The hierarchical imitation-learning train and val steps (counterpart of the
-hierarchical half of robo_vln_tpu/training/steps.py).
+"""The imitation-learning train and val steps (counterpart of
+robo_vln_tpu/training/steps.py): the flat family's (:func:`make_flat_train_step`,
+:func:`make_flat_val_step`) and the hierarchical agent's.
 
-One call is one TBPTT window: the shared frozen trunks once for both
+Flat: one call is one TBPTT window of the CMA or Seq2Seq policy, the
+velocity MSE (zero-target masked, or valid-masked with
+TPU.VALID_MASK_VELOCITY_MSE), the stop BCE and, with the progress monitor,
+alpha times its MSE where the target's linear velocity is not zero; one
+backward and one Adam step over the trainable parameters; the same dropout
+generator, non-finite guard, recompute and TF32 scoping as the
+hierarchical step below.
+
+Hierarchical: one call is one TBPTT window: the shared frozen trunks once for both
 policies, the high level's sub-goal CE, the low level's velocity MSE and
 stop BCE on the oracle sub-goals, then one backward over the summed loss
 and an optimizer step of each policy (AdamW high, Adam low; see
@@ -11,7 +20,8 @@ level trains on ORACLE sub-goals), so the one backward gives both policies'
 gradients, as the JAX step's one ``jax.grad`` does.
 
 Dropout draws a fresh mask each step, reproducibly: the generator is seeded
-from a fixed seed and the high level's step counter (:func:`dropout_generator`),
+from a fixed seed and the step counter (the high level's in the
+hierarchical step; :func:`dropout_generator`),
 as the JAX step folds the step into its key.  The bit stream is torch's, not
 JAX's "rbg" stream, so the masks differ from the JAX package's; parity runs
 set the dropout rate to 0.
@@ -31,7 +41,7 @@ once.
 
 Float32 compute runs with TF32 off for the call (utils/device.float32_exact).
 The step's forward, backward and optimizer update run in profiler ranges
-(``hier_train_step.*``), which cost nothing measurable when no profiler is
+(``flat_train_step.*``, ``hier_train_step.*``), which cost nothing measurable when no profiler is
 on.
 """
 
@@ -89,6 +99,87 @@ def _velocity_mse(actions, batch, valid_velocity_mse: bool) -> torch.Tensor:
     if valid_velocity_mse:
         return losses.validmask_velocity_mse(pred, corrected, batch["valid_mask"].reshape(-1))
     return losses.masked_velocity_mse(pred, corrected) * _pad_episode_correction(batch)
+
+
+_FLAT_NOT_OBS = ("prev_actions", "corrected_actions", "oracle_stop", "not_done_masks",
+                 "valid_mask")
+
+
+def _flat_losses(policy, batch, hidden, dropout_step=None, *, progress_alpha,
+                 use_progress, valid_velocity_mse=False):
+    """(velocity MSE, stop BCE, progress-monitor loss, new hidden) of one
+    window; ``dropout_step`` as for :func:`_hier_losses`."""
+    obs = {k: v for k, v in batch.items() if k not in _FLAT_NOT_OBS}
+    masks = batch["not_done_masks"]
+    gen = None if dropout_step is None else dropout_generator(dropout_step, masks.device)
+    actions, stop, new_hidden, aux = policy(obs, hidden, batch["prev_actions"], masks, gen)
+    corrected = batch["corrected_actions"].reshape(-1, 2)
+    action_loss = _velocity_mse(actions, batch, valid_velocity_mse)
+    stop_loss = losses.masked_stop_bce(stop.reshape(-1, 1), batch["oracle_stop"].reshape(-1, 1))
+    aux_loss = action_loss.new_zeros(())
+    if use_progress and "progress_hat" in aux:
+        aux_mask = corrected[:, 0] != 0  # the reference's aux_mask
+        aux_loss = progress_alpha * losses.progress_monitor_mse(
+            aux["progress_hat"].reshape(-1), batch["progress"].reshape(-1), aux_mask)
+    return action_loss, stop_loss, aux_loss, new_hidden
+
+
+def make_flat_train_step(policy, use_progress=False, progress_alpha=1.0, remat=False,
+                         valid_velocity_mse=False):
+    """Returns (state, hidden, batch, lr) -> (state, hidden, metrics), the
+    flat policy's parameters and the optimizer of ``state`` updated in
+    place, each trainable parameter's ``.grad`` left holding the step's
+    gradient (None after a skipped step or where the losses never reach
+    it); the returned state carries the advanced step counter.  Metrics:
+    action_loss, stop_loss, aux_loss, total_loss, skipped_nonfinite."""
+    losses_fn = functools.partial(_flat_losses, policy, progress_alpha=progress_alpha,
+                                  use_progress=use_progress,
+                                  valid_velocity_mse=valid_velocity_mse)
+    if remat:
+        losses_fn = functools.partial(checkpoint, losses_fn, use_reentrant=False)
+
+    def step_fn(state: TrainState, hidden, batch, lr):
+        policy.train()
+        opt = state.optimizer
+        params = [p for group in opt.param_groups for p in group["params"]]
+        opt.zero_grad(set_to_none=True)
+        with float32_exact(policy.compute_dtype):
+            with record_function("flat_train_step.forward"):
+                a, s, x, new_hidden = losses_fn(batch, hidden, state.step)
+                total = a + s + x
+            with record_function("flat_train_step.backward"):
+                grads = torch.autograd.grad(total, params, allow_unused=True)
+        with record_function("flat_train_step.optimizer"):
+            finite = torch.isfinite(total).item()  # the step's one host sync
+            if finite:
+                for p, g in zip(params, grads):
+                    p.grad = g
+                opt_lib.set_lr(opt, lr)
+                opt.step()
+        metrics = {"action_loss": a.detach(), "stop_loss": s.detach(), "aux_loss": x.detach(),
+                   "total_loss": total.detach(),
+                   "skipped_nonfinite": total.new_tensor(0.0 if finite else 1.0)}
+        return state._replace(step=state.step + 1), new_hidden, metrics
+
+    return step_fn
+
+
+def make_flat_val_step(policy, use_progress=False, progress_alpha=1.0,
+                       valid_velocity_mse=False):
+    """Returns (hidden, batch) -> (hidden, metrics), in eval mode (no
+    dropout) and without a graph."""
+
+    @torch.no_grad()
+    def step_fn(hidden, batch):
+        policy.eval()
+        with float32_exact(policy.compute_dtype):
+            a, s, x, new_hidden = _flat_losses(
+                policy, batch, hidden, progress_alpha=progress_alpha,
+                use_progress=use_progress, valid_velocity_mse=valid_velocity_mse)
+        return new_hidden, {"action_loss": a, "stop_loss": s, "aux_loss": x,
+                            "total_loss": a + s + x}
+
+    return step_fn
 
 
 def _hier_losses(high, low, batch, high_hidden, low_hidden, dropout_step=None,

@@ -1,5 +1,5 @@
-"""The trainers' shared loop logic (counterpart of ``BaseTrainer`` and the
-batch pipeline of robo_vln_tpu/training/trainer.py).
+"""The trainers' shared loop logic and the flat family's trainer
+(counterpart of robo_vln_tpu/training/trainer.py).
 
 Epoch bookkeeping is plain Python and follows the JAX package line for
 line: where a resumed run starts (:meth:`BaseTrainer._find_resume`), which
@@ -10,9 +10,16 @@ seeded by the epoch, so a resumed run reads what an uninterrupted one
 reads), the eval's checkpoint sweep and daemon (:meth:`BaseTrainer.eval`,
 each checkpoint through the subclass's ``_eval_checkpoint``), and DAgger
 collection into the buffer (:meth:`BaseTrainer._update_dataset`, envs/).
-Of the flat family's ``RoboVLNTrainer`` the port has the collect-only run of
-the collection configs (robovln_data_{train,val}.yaml); its training and
-eval wait for ROADMAP §A item 6.
+
+:class:`RoboVLNTrainer` (``robo_vln_trainer``) is the flat family's: the
+collection configs (robovln_data_{train,val}.yaml) collect the expert's
+buffer, and cma_robo.yaml, seq2seq_robo.yaml and seq2seq_robo_pm.yaml train
+CMA or Seq2Seq from it (the reference's RoboDaggerTrainer,
+robo_vln_trainer.py:294-954): Adam at DAGGER.LR, one step a TBPTT window
+(training/steps.make_flat_train_step), a checkpoint an epoch, a validation
+epoch over the eval buffer, and ``--run-type eval``
+(eval/evaluator.eval_flat_checkpoint).  One device, as the hierarchical
+trainer: the batch of a step is DAGGER.BATCH_SIZE on DEVICE.
 """
 
 from __future__ import annotations
@@ -21,12 +28,34 @@ import os
 import time
 from typing import Dict, Iterator
 
-from ..data.loader import TrajectoryDataset, batch_iterator
+import numpy as np
+import torch
+
+from ..config.default import depth_input_size
+from ..data.loader import TrajectoryDataset, batch_iterator, split_tbptt
 from ..data.trajectory_store import TrajectoryStore
-from ..utils.device import resolve_device
+from ..envs.async_env import device_transfer, window_stream
+from ..models import build_flat_policy
+from ..models.encoders.bert import BertEncoder
+from ..models.encoders.resnet import GNResNetEncoder, TVResNet50
+from ..ops import cm_attention
+from ..utils.device import resolve_device, resolve_dtype
 from ..utils.logging import MetricsWriter, logger
 from ..utils.registry import register_trainer
 from . import checkpoint as ckpt_lib
+from . import optimizers as opt_lib
+from . import steps as steps_lib
+
+# the pretrained backbones: (MODEL stanza, key, the module that holds one, its
+# name in the eval's provenance record)
+PRETRAINED = (("DEPTH_ENCODER", "ddppo_checkpoint", GNResNetEncoder, "ddppo_depth"),
+              ("RGB_ENCODER", "pretrained_weights", TVResNet50, "imagenet_rgb"),
+              ("BERT", "pretrained_weights", BertEncoder, "bert"))
+
+
+def host_values(metrics, keys):
+    """The metrics named by ``keys`` as floats, in one device-to-host copy."""
+    return torch.stack([metrics[k].float() for k in keys]).tolist()
 
 
 class BaseTrainer:
@@ -47,6 +76,43 @@ class BaseTrainer:
                 "frozen BERT instruction embeddings"
             )
         return ("embedding_layer",)
+
+    def _check_pretrained_files(self, policies) -> None:
+        """The port loads no pretrained backbone yet: a file that exists for
+        a backbone the policies hold would be ignored silently, so it
+        raises; absent files leave the backbones random, as in the JAX
+        package.  Records the JAX trainer's provenance, which the eval's
+        stats carry: ``missing_file`` for a backbone the policies hold,
+        ``not_in_model`` for one they do not."""
+        mc = self.config.MODEL
+        held = {name: any(isinstance(m, kind) for p in policies for m in p.modules())
+                for _, _, kind, name in PRETRAINED}
+        files = [(f"{stanza}.{key}", mc[stanza][key], name)
+                 for stanza, key, _, name in PRETRAINED]
+        present = [f"MODEL.{key} = {path!r}" for key, path, name in files
+                   if held[name] and path and os.path.exists(path)]
+        if present:
+            raise NotImplementedError(
+                f"pretrained backbone files exist ({'; '.join(present)}); the port "
+                "does not load them yet (utils/pretrained.py, ROADMAP §A item 8)")
+        self.pretrained_backbones = {}
+        for key, path, name in files:
+            if not held[name]:
+                self.pretrained_backbones[name] = {"status": "not_in_model"}
+                continue
+            logger.warning(f"pretrained weights MODEL.{key} not found at {path!r}; "
+                           "that backbone stays RANDOM")
+            self.pretrained_backbones[name] = {"status": "missing_file", "path": str(path)}
+
+    def _check_loader(self) -> None:
+        if int(self.config.DAGGER.LOADER_WORKERS) > 1:
+            raise NotImplementedError(
+                "DAGGER.LOADER_WORKERS > 1: the process-parallel loader "
+                "(data/parallel_loader.py) is not ported yet (ROADMAP §A item 2)")
+
+    def _epoch_checkpoint(self, epoch: int) -> str:
+        """The per-epoch name, ckpt.{EPOCHS+epoch} (the reference's scheme)."""
+        return f"ckpt.{self.config.DAGGER.EPOCHS + epoch}"
 
     def _find_resume(self):
         """DAGGER.RESUME: the newest per-epoch checkpoint in
@@ -228,39 +294,180 @@ class BaseTrainer:
                 time.sleep(interval)
 
 
-_FLAT_FAMILY = ("the flat family's models, RoboVLNTrainer's training and eval and its "
-                "DAgger mixer are not ported yet (ROADMAP §A item 6)")
+
+# (metrics key, tag) of each scalar logged per train step, under the JAX
+# flat trainer's tags
+FLAT_TRAIN_SCALARS = (("action_loss", "Action Loss"), ("stop_loss", "Stop Loss"),
+                      ("aux_loss", "Aux Loss"), ("total_loss", "Total Loss"))
+FLAT_VAL_SCALARS = (("action_loss", "Val Action Loss"), ("stop_loss", "Val Stop Loss"),
+                    ("total_loss", "Val Total Loss"))
 
 
 @register_trainer("robo_vln_trainer")
 class RoboVLNTrainer(BaseTrainer):
-    """The flat family's trainer, of which the port has the collect-only run
-    (DAGGER.COLLECT_ONLY with PRELOAD_LMDB_FEATURES false, the collection
-    configs robovln_data_{train,val}.yaml): expert rollouts into
-    DAGGER.LMDB_FEATURES_DIR before any policy is built
-    (robo_vln_tpu/training/trainer.py:436-446).  Anything else it would do
-    raises before any work (ROADMAP §A item 6)."""
+    """The flat family's trainer.  Weights are random from
+    ``TASK_CONFIG.SEED`` (the GloVe table read when its file exists).
+    ``DAGGER.PRELOAD_TRUNK_FEATURES`` (the flat feature store) and
+    ``DAGGER.LOADER_WORKERS > 1`` raise before any work, each naming its
+    ROADMAP item."""
 
     def __init__(self, config):
         self.config = config
         self.device = resolve_device(config.DEVICE)
+        self.dtype = resolve_dtype(config.TPU.PRECISION)
+        depth_input_size(config)
+        self.batch_size = config.DAGGER.BATCH_SIZE
         self.features_dir = config.DAGGER.LMDB_FEATURES_DIR.format(
             split=config.TASK_CONFIG.DATASET.SPLIT
         )
+        self.eval_dir = config.DAGGER.LMDB_EVAL_DIR
+        self.policy = None
+        self.state = None
+        self._train_steps = 0
+        self._val_steps = 0
+        self.pretrained_backbones = {}
+
+    def _check_ported(self) -> None:
+        """Refuse, before any work, the options whose modules the port does
+        not have yet, each naming its ROADMAP item."""
+        self._check_loader()
+        if self.config.DAGGER.PRELOAD_TRUNK_FEATURES:
+            raise NotImplementedError(
+                "DAGGER.PRELOAD_TRUNK_FEATURES for robo_vln_trainer: the flat family's "
+                "feature store is not ported yet (ROADMAP §A item 6c)")
+        self._unfrozen_names()
+
+    def _setup_policy(self, load_from_ckpt: bool = False, ckpt_path: str = "") -> None:
+        cfg = self.config
+        cm_attention.set_float32_probabilities(cfg.TPU.PALLAS_ATTENTION)
+        sim = cfg.TASK_CONFIG.SIMULATOR
+        self.policy = build_flat_policy(
+            cfg.MODEL, compute_dtype=self.dtype,
+            generator=torch.Generator().manual_seed(cfg.TASK_CONFIG.SEED),
+            rgb_hw=(sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH),
+        )
+        self._check_pretrained_files((self.policy,))
+        self.policy.to(self.device)
+        n_params = sum(p.numel() for p in self.policy.parameters())
+        logger.info(f"agent number of parameters: {n_params}")
+        self.state = steps_lib.TrainState(
+            opt_lib.adam(self.policy, 0.0, self._unfrozen_names()), 0)
+        if load_from_ckpt and ckpt_path:
+            self.state = ckpt_lib.load_flat_checkpoint(ckpt_path, self.policy, self.state)
+            logger.info(f"Loaded weights from checkpoint: {ckpt_path}")
+        pm = cfg.MODEL.PROGRESS_MONITOR
+        vvm = cfg.TPU.VALID_MASK_VELOCITY_MSE
+        self.train_step = steps_lib.make_flat_train_step(
+            self.policy, use_progress=pm.use, progress_alpha=pm.alpha,
+            remat=cfg.TPU.REMAT, valid_velocity_mse=vvm)
+        self.val_step = steps_lib.make_flat_val_step(
+            self.policy, use_progress=pm.use, progress_alpha=pm.alpha,
+            valid_velocity_mse=vvm)
+
+    def _metadata(self):
+        return {"config": self.config.to_dict(), "train_steps": int(self._train_steps),
+                "val_steps": int(self._val_steps)}
+
+    def save_checkpoint(self, file_name: str) -> None:
+        path = os.path.join(self.config.CHECKPOINT_FOLDER, file_name)
+        ckpt_lib.save_flat_checkpoint(path, self.policy, self.state, metadata=self._metadata())
+
+    def train_epoch(self, batches, epoch, writer, train_steps):
+        cfg = self.config
+        send, receive = device_transfer(self.device)
+        hidden = None
+        for is_first, window in window_stream(
+            batches, send, lambda b: split_tbptt(b, cfg.DAGGER.tbptt_steps), receive,
+        ):
+            if is_first:
+                hidden = self.policy.initial_hidden(self.batch_size, self.device)
+            self.state, hidden, metrics = self.train_step(self.state, hidden, window,
+                                                          cfg.DAGGER.LR)
+            values = host_values(metrics, [k for k, _ in FLAT_TRAIN_SCALARS])
+            for (_, tag), value in zip(FLAT_TRAIN_SCALARS, values):
+                writer.add_scalar(tag, value, train_steps)
+            train_steps += 1
+        self._train_steps = train_steps
+        self.save_checkpoint(self._epoch_checkpoint(epoch))
+        return train_steps
+
+    def val_epoch(self, batches, epoch, writer, val_steps):
+        cfg = self.config
+        send, receive = device_transfer(self.device)
+        totals = []
+        for batch in batches:
+            hidden = self.policy.initial_hidden(self.batch_size, self.device)
+            for window in split_tbptt(batch, cfg.DAGGER.tbptt_steps):
+                window = send(window)
+                if receive is not None:
+                    window = receive(window)
+                hidden, metrics = self.val_step(hidden, window)
+                values = host_values(metrics, [k for k, _ in FLAT_VAL_SCALARS])
+                for (_, tag), value in zip(FLAT_VAL_SCALARS, values):
+                    writer.add_scalar(tag, value, val_steps)
+                val_steps += 1
+                totals.append(values[-1])
+        if totals:
+            writer.add_scalar("Val Loss Epoch", float(np.mean(totals)), val_steps)
+        self._val_steps = val_steps
+        return val_steps
 
     def train(self) -> None:
-        d = self.config.DAGGER
-        if d.PRELOAD_LMDB_FEATURES or not d.COLLECT_ONLY:
-            raise NotImplementedError(
-                "robo_vln_trainer without DAGGER.COLLECT_ONLY (or with "
-                f"DAGGER.PRELOAD_LMDB_FEATURES): {_FLAT_FAMILY}; the port runs the "
-                "collect-only configs, and trains the hierarchical_trainer")
-        if self._collection_beta(0) < 1.0:
-            raise NotImplementedError(
-                f"robo_vln_trainer collection with beta = {self._collection_beta(0)} < 1 "
-                f"(DAGGER.P < 1 with LOAD_FROM_CKPT): {_FLAT_FAMILY}")
-        self._update_dataset(0)
-        logger.info("Data collection complete")
+        cfg = self.config
+        self._check_ported()
+        collect = not cfg.DAGGER.PRELOAD_LMDB_FEATURES
+        if collect and cfg.DAGGER.COLLECT_ONLY:
+            # reference behavior: collect then stop (robo_vln_trainer.py:903)
+            self._update_dataset(0)
+            logger.info("Data collection complete")
+            return
+        start_epoch, resume_ckpt, resume_meta = (
+            self._find_resume() if cfg.DAGGER.RESUME else (0, "", {})
+        )
+        if resume_ckpt:
+            self._setup_policy(True, resume_ckpt)
+            logger.info(f"resuming at epoch {start_epoch} from {resume_ckpt}")
+        else:
+            self._setup_policy(cfg.DAGGER.LOAD_FROM_CKPT, cfg.DAGGER.CKPT_TO_LOAD)
+        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
+        with MetricsWriter(cfg.TENSORBOARD_DIR) as writer:
+            train_steps = int(resume_meta.get("train_steps", 0))
+            val_steps = int(resume_meta.get("val_steps", 0))
+            self._train_steps, self._val_steps = train_steps, val_steps
+            done_through = start_epoch
+            for dagger_it, epochs in self._iteration_plan(start_epoch):
+                if collect:
+                    self._update_dataset(dagger_it)
+                    logger.info(f"Data collection complete (iteration {dagger_it})")
+                for epoch in epochs:
+                    t0 = time.time()
+                    train_steps = self.train_epoch(
+                        self._batches(self.features_dir, seed=epoch),
+                        epoch, writer, train_steps,
+                    )
+                    if os.path.exists(self.eval_dir):
+                        val_steps = self.val_epoch(
+                            self._batches(self.eval_dir, seed=epoch),
+                            epoch, writer, val_steps,
+                        )
+                        # the epoch's checkpoint was saved before its
+                        # validation: record the validation's counter too,
+                        # so a resumed run logs where this one would have
+                        ckpt_lib.write_metadata(
+                            os.path.join(cfg.CHECKPOINT_FOLDER,
+                                         self._epoch_checkpoint(epoch)),
+                            self._metadata())
+                    logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s "
+                                f"({train_steps} train steps)")
+                done_through = epochs.stop
+            if done_through < self._total_epochs:
+                logger.info(
+                    f"stopping after epoch {done_through - 1} "
+                    "(DAGGER.MAX_EPOCHS_PER_RUN); a DAGGER.RESUME run "
+                    f"continues at epoch {done_through}"
+                )
 
-    def eval(self) -> None:
-        raise NotImplementedError(f"robo_vln_trainer eval: {_FLAT_FAMILY}")
+    def _eval_checkpoint(self, checkpoint_path, writer, checkpoint_index=0):
+        from ..eval.evaluator import eval_flat_checkpoint
+
+        eval_flat_checkpoint(self, checkpoint_path, writer, checkpoint_index)

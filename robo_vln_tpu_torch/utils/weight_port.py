@@ -1,4 +1,5 @@
-"""Carry the JAX package's HCM weights into the port's modules.
+"""Carry the JAX package's weights into the port's modules: the HCM
+agent's two policies and the flat family's CMA and Seq2Seq.
 
 Input: the flax variables ``{"params", "batch_stats"}`` of each policy as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, variables)``).
@@ -9,8 +10,12 @@ are the inverse of robo_vln_tpu/training/checkpoint.py's converter:
 * Dense kernel (in, out) -> Linear weight (out, in); a Conv1d(k=1) gets a
   trailing axis;
 * Conv kernel HWIO -> OIHW;
-* LSTM w_ih (D, 4H) -> weight_ih_l0 (4H, D), likewise w_hh; b_ih and b_hh
-  stay separate;
+* LSTM or GRU w_ih (D, gates·H) -> weight_ih_l0 (gates·H, D), likewise
+  w_hh; b_ih and b_hh stay separate; an instruction RNN's backward
+  direction (``bwd``) -> the ``_reverse`` keys;
+* SimpleCNN's conv1..3 and fc -> ``cnn.0``, ``cnn.2``, ``cnn.4``, ``cnn.6``,
+  the fc's rows reordered from the flax flatten (h, w, C) to torch's
+  channel-major (C, h, w);
 * LayerNorm / GroupNorm / BatchNorm scale -> weight; BatchNorm mean / var ->
   running_mean / running_var;
 * the token-major (S, 64) spatial-embedding table -> the reference's (S, 64)
@@ -142,15 +147,6 @@ def visual_ling_attn_state(p: Mapping, prefix: str = "") -> StateDict:
     return sd
 
 
-def lstm_state(p: Mapping, prefix: str) -> StateDict:
-    return {
-        prefix + "weight_ih_l0": np.asarray(p["w_ih"]).T,
-        prefix + "weight_hh_l0": np.asarray(p["w_hh"]).T,
-        prefix + "bias_ih_l0": np.asarray(p["b_ih"]),
-        prefix + "bias_hh_l0": np.asarray(p["b_hh"]),
-    }
-
-
 def _heads(params: Mapping, names) -> StateDict:
     sd = {}
     for name in names:
@@ -173,7 +169,7 @@ def high_level_state_dict(variables: Mapping) -> StateDict:
     sd.update(visual_ling_attn_state(p["image_cm_encoder"], "image_cm_encoder."))
     sd.update(_dense(p["rgb_linear"], "rgb_linear.2."))
     sd.update(_dense(p["depth_linear"], "depth_linear.1."))
-    sd.update(lstm_state(p["state_encoder"], "state_encoder.rnn."))
+    sd.update(rnn_state(p["state_encoder"], "state_encoder.rnn."))
     sd.update(_heads(p, ("progress_monitor", "linear")))
     return sd
 
@@ -187,14 +183,104 @@ def low_level_state_dict(variables: Mapping) -> StateDict:
     sd.update(tv_resnet50_state(re["cnn"], stats["rgb_encoder"]["cnn"], "rgb_encoder.cnn."))
     sd.update(_dense(re["fc"], "rgb_encoder.fc."))
     sd["sub_task_embedding.weight"] = np.asarray(p["sub_task_embedding"]["embedding"])
-    sd.update(lstm_state(p["state_encoder"], "state_encoder.rnn."))
+    sd.update(rnn_state(p["state_encoder"], "state_encoder.rnn."))
     sd.update(_heads(p, ("progress_monitor", "linear", "stop_linear")))
     return sd
 
 
-# keys the reference modules carry that the flax policies never create
-# (their progress monitors are defined but never called)
-_OPTIONAL = ("progress_monitor.",)
+def rnn_state(p: Mapping, prefix: str, suffix: str = "") -> StateDict:
+    return {
+        f"{prefix}weight_ih_l0{suffix}": np.asarray(p["w_ih"]).T,
+        f"{prefix}weight_hh_l0{suffix}": np.asarray(p["w_hh"]).T,
+        f"{prefix}bias_ih_l0{suffix}": np.asarray(p["b_ih"]),
+        f"{prefix}bias_hh_l0{suffix}": np.asarray(p["b_hh"]),
+    }
+
+
+
+def simple_cnn_state(p: Mapping, prefix: str) -> StateDict:
+    """SimpleCNN params -> the reference's ``cnn`` Sequential keys."""
+    sd = {}
+    for i, name in ((0, "conv1"), (2, "conv2"), (4, "conv3")):
+        sd.update(_conv(p[name], f"{prefix}cnn.{i}.weight"))
+        sd[f"{prefix}cnn.{i}.bias"] = np.asarray(p[name]["bias"])
+    fc = _dense(p["fc"], f"{prefix}cnn.6.")
+    w = fc[f"{prefix}cnn.6.weight"]  # (out, h·w·C), flattened (h, w, C)
+    channels = np.asarray(p["conv3"]["kernel"]).shape[-1]
+    side = int(round((w.shape[1] // channels) ** 0.5))
+    if side * side * channels != w.shape[1]:
+        raise ValueError("simple_cnn_state: the fc's input is not a square map")
+    fc[f"{prefix}cnn.6.weight"] = (w.reshape(-1, side, side, channels)
+                                   .transpose(0, 3, 1, 2).reshape(w.shape[0], -1))
+    sd.update(fc)
+    return sd
+
+
+def instruction_encoder_state(p: Mapping, prefix: str = "instruction_encoder.") -> StateDict:
+    """InstructionEncoder / LanguageEncoder params -> the reference's keys:
+    the GloVe table or BERT under ``embedding_layer``, the RNN's directions
+    under ``encoder_rnn``."""
+    if "embedding" in p:
+        sd = {prefix + "embedding_layer.weight": np.asarray(p["embedding"])}
+    else:
+        sd = bert_state(p["embedding_layer"], prefix + "embedding_layer.")
+    sd.update(rnn_state(p["fwd"], prefix + "encoder_rnn."))
+    if "bwd" in p:
+        sd.update(rnn_state(p["bwd"], prefix + "encoder_rnn.", "_reverse"))
+    if "encoder2decoder" in p:
+        sd.update(_dense(p["encoder2decoder"], prefix + "encoder2decoder."))
+    return sd
+
+
+def seq2seq_state_dict(variables: Mapping) -> StateDict:
+    """Seq2SeqPolicy variables -> the port's Seq2SeqPolicy state_dict."""
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    sd = instruction_encoder_state(p["instruction_encoder"])
+    de, re = p["depth_encoder"], p["rgb_encoder"]
+    if "conv1" in de:
+        sd.update(simple_cnn_state(de, "depth_encoder."))
+    else:
+        sd.update(gn_resnet_encoder_state(de["visual_encoder"],
+                                          "depth_encoder.visual_encoder."))
+        sd.update(_dense(de["visual_fc"], "depth_encoder.visual_fc.1."))
+    if "conv1" in re:
+        sd.update(simple_cnn_state(re, "rgb_encoder."))
+    else:
+        sd.update(tv_resnet50_state(re["cnn"], stats["rgb_encoder"]["cnn"], "rgb_encoder.cnn."))
+        sd.update(_dense(re["fc"], "rgb_encoder.fc."))
+    sd.update(rnn_state(p["state_encoder"], "state_encoder.rnn."))
+    if "prev_action_embedding" in p:
+        sd["prev_action_embedding.weight"] = np.asarray(p["prev_action_embedding"]["embedding"])
+    sd.update(_heads(p, ("progress_monitor", "linear", "stop_linear", "sub_goal_linear")))
+    return sd
+
+
+def cma_state_dict(variables: Mapping) -> StateDict:
+    """CMAPolicy (non-RCM) variables -> the port's CMAPolicy state_dict."""
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    de, re = p["depth_encoder"], p["rgb_encoder"]
+    sd = instruction_encoder_state(p["instruction_encoder"])
+    sd.update(gn_resnet_encoder_state(de["visual_encoder"], "depth_encoder.visual_encoder."))
+    sd["depth_encoder.spatial_embeddings.weight"] = _spatial_embeddings(de["spatial_embeddings"])
+    sd.update(tv_resnet50_state(re["cnn"], stats["rgb_encoder"]["cnn"], "rgb_encoder.cnn."))
+    sd["rgb_encoder.spatial_embeddings.weight"] = _spatial_embeddings(re["spatial_embeddings"])
+    sd.update(_dense(p["rgb_linear"], "rgb_linear.2."))
+    sd.update(_dense(p["depth_linear"], "depth_linear.1."))
+    sd.update(rnn_state(p["state_encoder"], "state_encoder.rnn."))
+    sd.update(rnn_state(p["second_state_encoder"], "second_state_encoder.rnn."))
+    for name in ("rgb_kv", "depth_kv", "text_k"):
+        sd.update(_conv1d(p[name], name + "."))
+    sd.update(_dense(p["second_state_compress"], "second_state_compress.0."))
+    if "prev_action_embedding" in p:
+        sd["prev_action_embedding.weight"] = np.asarray(p["prev_action_embedding"]["embedding"])
+    sd.update(_heads(p, ("state_q", "text_q", "progress_monitor", "linear", "stop_linear")))
+    return sd
+
+
+# keys the reference modules carry that the flax policies create only when
+# something calls them (the progress monitors, Seq2Seq's sub-goal head,
+# the BERT encoder's full-sequence projection)
+_OPTIONAL = ("progress_monitor.", "sub_goal_linear.", "instruction_encoder.encoder2decoder.")
 
 
 def load_state(module: torch.nn.Module, sd: StateDict) -> None:
@@ -214,3 +300,16 @@ def load_hierarchical_weights(high, low, high_vars: Mapping, low_vars: Mapping) 
     """Load the JAX HCM variables of both policies into the port's modules."""
     load_state(high, high_level_state_dict(high_vars))
     load_state(low, low_level_state_dict(low_vars))
+
+
+def flat_state_dict(variables: Mapping) -> StateDict:
+    """A flat policy's variables -> its port state_dict, CMA or Seq2Seq by
+    the tree's layout."""
+    if "second_state_encoder" in variables["params"]:
+        return cma_state_dict(variables)
+    return seq2seq_state_dict(variables)
+
+
+def load_flat_weights(policy, variables: Mapping) -> None:
+    """Load the JAX variables of a flat policy into the port's module."""
+    load_state(policy, flat_state_dict(variables))

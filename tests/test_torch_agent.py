@@ -25,6 +25,7 @@ from robo_vln_tpu.models import sync_frozen_trunks as jax_sync
 from robo_vln_tpu_torch import build_hcm_agent
 from robo_vln_tpu_torch.config import get_config
 from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 B, T, L, PX = 2, 3, 16, 64

@@ -37,6 +37,7 @@ from robo_vln_tpu_torch.ops import cm_attention, fused_attention
 from tests.test_torch_agent import B, _to_torch, jax_tiny_hcm, make_inputs
 from tests.test_torch_ops import (ATTN_SHAPES, _bf16_ulp, _p_split_attention,
                                   _p_split_attention_blocks, _qkv, _round_p_tolerance)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 HCM_SHAPES = [(4, 200, 16, 256, 256, 4), (4, 200, 64, 256, 256, 4)]  # N, Lq, S, D, Dv, h
 WINDOW_TOL = 1e-2  # a bf16 window: the packages round at other places, 2^-9 each

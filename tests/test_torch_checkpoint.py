@@ -35,6 +35,7 @@ from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
 from robo_vln_tpu_torch.training.trainer import BaseTrainer
 from robo_vln_tpu_torch.utils.weight_port import high_level_state_dict, low_level_state_dict
 from tests.test_torch_trainer import buffers, port_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 BLOCKS = (1, 1, 1, 1)
 

@@ -17,7 +17,8 @@ collection yamls) against the JAX package's, on the CPU.
   bytes for bytes; workers that die before the target raise.
 * The collect-only run under both trainer names stops after collection;
   ``_update_dataset`` skips what the buffer already holds; LOAD_FROM_CKPT
-  shifts beta; the robo_vln_trainer refuses the flat family's work.
+  shifts beta; the robo_vln_trainer refuses the flat feature store and the
+  parallel loader before it collects.
 * Both yamls load, and ``python -m robo_vln_tpu_torch.run`` on
   robovln_data_train.yaml with DEVICE cpu writes the buffer the JAX
   package's collection writes, which the JAX package's loader reads;
@@ -49,6 +50,7 @@ from robo_vln_tpu_torch.envs.expert import ContinuousPathFollower
 from robo_vln_tpu_torch.training.trainer import RoboVLNTrainer
 from robo_vln_tpu_torch.utils.registry import get_trainer
 from tests.test_torch_trainer import PORT_CONFIGS, tiny_opts
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 ACTION_TOL = 1e-12
@@ -316,16 +318,18 @@ def test_collection_beta(tmp_path, p, load, want):
         assert trainer._collection_mixer(0) == (None, 1.0)
 
 
-@pytest.mark.parametrize("extra", [
-    {},  # flat training
-    {"DAGGER.COLLECT_ONLY": True, "DAGGER.P": 0.5, "DAGGER.LOAD_FROM_CKPT": True},  # flat DAgger
+@pytest.mark.parametrize("extra,item", [
+    ({"DAGGER.PRELOAD_TRUNK_FEATURES": True}, "§A item 6c"),  # the flat feature store
+    ({"DAGGER.LOADER_WORKERS": 2, "DAGGER.COLLECT_ONLY": True}, "§A item 2"),
 ])
-def test_robo_vln_trainer_refuses_the_flat_family(tmp_path, extra):
+def test_robo_vln_trainer_refuses_the_flat_family(tmp_path, extra, item):
+    """What robo_vln_trainer still refuses, before it collects anything:
+    the flat family's feature store (its training and eval, and its DAgger
+    collection, run: tests/test_torch_flat_trainer.py) and the parallel
+    loader."""
     cfg = get_config(opts=collect_opts(tmp_path, "robo_vln_trainer", **extra))
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 6"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         RoboVLNTrainer(cfg).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 6"):
-        RoboVLNTrainer(cfg).eval()
     assert not (tmp_path / "train_buf").exists()
 
 

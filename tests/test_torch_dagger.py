@@ -46,6 +46,7 @@ from tests.test_torch_collection import (
 )
 from tests.test_torch_eval import _scaled_velocity_head
 from tests.test_torch_trainer import jax_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 POSITION_TOL = 1e-4  # metres
 
@@ -223,8 +224,6 @@ def test_mixer_runs_without_dropout_and_restores_train_mode(tmp_path):
     assert mixer.agent.embeds == 1  # BERT cached on the host's ids
     mixer.close()
     assert trainer.high.training and trainer.low.training
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 6"):
-        dagger.PolicyMixer.for_flat(trainer)
 
 
 def test_collect_then_train_in_one_run(tmp_path, monkeypatch):

@@ -32,6 +32,7 @@ from robo_vln_tpu.data.trajectory_store import TrajectoryStore as JaxStore
 from robo_vln_tpu_torch.data import loader, serialization
 from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
 from robo_vln_tpu_torch.envs.async_env import device_transfer, window_stream
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 # every length at which msgpack's encoding of a str, bin, array or map
 # changes class (fix -> 8 -> 16 -> 32 bits), and one either side

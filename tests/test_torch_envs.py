@@ -27,6 +27,7 @@ from robo_vln_tpu_torch.envs import velocity_control as port_vc
 from robo_vln_tpu_torch.sim import build as sim_build
 from robo_vln_tpu_torch.tasks import dtw as port_dtw
 from tests.test_envs import make_episode_json
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 POSE_TOL = 1e-9
 MEASURES = ["DISTANCE_TO_GOAL", "SUCCESS", "SPL", "PATH_LENGTH", "NAVIGATION_ERROR",

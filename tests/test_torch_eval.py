@@ -46,6 +46,7 @@ from robo_vln_tpu_torch.utils.logging import MetricsWriter
 from robo_vln_tpu_torch.utils.weight_port import load_hierarchical_weights
 from tests.test_envs import make_episode_json
 from tests.test_torch_trainer import PORT_CONFIGS, jax_config, tiny_opts
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 STATS_RTOL = 1e-4

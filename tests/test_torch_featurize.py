@@ -43,6 +43,7 @@ from robo_vln_tpu_torch.utils.weight_port import load_hierarchical_weights
 from tests.test_featurize import _synced_hier_trainer
 from tests.test_torch_trainer import HW, port_config
 from tests.test_trainers import fill_buffer
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 FEATURE_RTOL, FEATURE_ATOL = 2e-3, 1e-4  # one float16 rounding apart
 LOSS_RTOL, LOSS_ATOL = 2e-2, 2e-3  # tests/test_featurize.py: float16 storage

@@ -13,6 +13,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "robo_vln_tpu_torch"

@@ -18,6 +18,7 @@ from robo_vln_tpu.ops import losses as jax_losses
 from robo_vln_tpu.training import optimizers as jax_opt
 from robo_vln_tpu_torch.ops import losses
 from robo_vln_tpu_torch.training import optimizers
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 

@@ -38,6 +38,7 @@ from robo_vln_tpu.ops import pallas_lstm as jax_lstm
 from robo_vln_tpu_torch.ops import _build, fused_lstm
 from robo_vln_tpu_torch.ops.rnn import lstm_recurrence, lstm_recurrence_backward
 from tests.test_torch_ops import _lstm_kernel_emulation
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REL_TOL = 1e-5
 SHAPES = [(50, 4, 512), (7, 11, 64), (3, 9, 32), (4, 3, 556), (1, 8, 512)]

@@ -23,6 +23,7 @@ from robo_vln_tpu_torch.models.encoders import bert, resnet, visual
 from robo_vln_tpu_torch.models.rnn_state_encoder import RNNStateEncoder
 from robo_vln_tpu_torch.utils import weight_port as wp
 from tests.test_torch_agent import _port_agent, jax_tiny_hcm, random_variables
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 BLOCKS = (1, 1, 1, 1)
 
@@ -68,7 +69,7 @@ def test_rnn_state_encoder_matches_jax(rng):
     ref_mod = jax_rnn.RNNStateEncoder(hidden_size=H)
     variables = _init(ref_mod, 2, jnp.asarray(x), jnp.asarray(hidden), jnp.asarray(masks))
     ours = RNNStateEncoder(D, H)
-    wp.load_state(ours, wp.lstm_state(variables["params"], "rnn."))
+    wp.load_state(ours, wp.rnn_state(variables["params"], "rnn."))
     for args in ((x, hidden, masks), (x[0], hidden, masks[0])):  # sequence, one step
         out, new_hidden = ours(*map(_t, args))
         ref_out, ref_hidden = jax.jit(ref_mod.apply)(variables, *args)

@@ -55,6 +55,7 @@ from tests.test_torch_eval import (
     port_cfg,
 )
 from tests.test_torch_trainer import jax_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 MATH_TOL = 1e-6
 DT = 1 / 30

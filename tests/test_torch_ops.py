@@ -22,6 +22,7 @@ from robo_vln_tpu.ops.pallas_attention import _pallas_attention, _xla_impl
 from robo_vln_tpu_torch.ops import _build, cm_attention, fused_attention, fused_lstm
 from robo_vln_tpu_torch.ops.rnn import (lstm_recurrence, lstm_recurrence_backward,
                                         lstm_sequence)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -64,6 +64,7 @@ from robo_vln_tpu_torch.utils.weight_port import (
     low_level_state_dict,
 )
 from tests.test_torch_agent import make_inputs, random_variables, tiny_configs
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 B, T = 3, 4
 LR = 1e-4

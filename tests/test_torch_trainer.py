@@ -25,9 +25,9 @@ its global batch is 8; the port runs on the CPU with ``DAGGER.BATCH_SIZE`` 8.
    worth of trainers ends bitwise where an uninterrupted run ends (weights,
    optimizer state, counters, every logged value); a third run is a no-op.
 5. Options the port does not have yet raise before any work (the flat
-   family's training under ``robo_vln_trainer`` among them), and so do
-   keys of the JAX package the port does not read, set past their JAX
-   default.
+   family's feature store under ``robo_vln_trainer`` among them), and so
+   do keys of the JAX package the port does not read, set past their JAX
+   default; the flat family's keys, refused until it was ported, are read.
 6. The entry point trains on the CPU when asked and raises without CUDA.
 """
 
@@ -63,6 +63,7 @@ from robo_vln_tpu_torch.utils.weight_port import (
     low_level_state_dict,
 )
 from tests.test_trainers import fill_buffer, tiny_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_CONFIGS = REPO / "robo_vln_tpu_torch" / "config" / "configs"
@@ -155,7 +156,8 @@ def _lookup(tree, key):
 
 
 @pytest.mark.parametrize("yaml", [None, "hierarchical_cma.yaml", "robovln_data_train.yaml",
-                                  "robovln_data_val.yaml"])
+                                  "robovln_data_val.yaml", "cma_robo.yaml", "seq2seq_robo.yaml",
+                                  "seq2seq_robo_pm.yaml"])
 def test_config_matches_jax(yaml):
     opts = ["DAGGER.EPOCHS", "3", "MODEL.BERT.num_layers", "2", "DAGGER.EPISODE_LEN_BUCKETS",
             "[50, 100]"]
@@ -175,7 +177,8 @@ def test_config_matches_jax(yaml):
 
 def test_config_files_are_copies():
     for name in ("hierarchical_cma.yaml", "robo_vln_task.yaml", "robovln_data_train.yaml",
-                 "robovln_data_val.yaml"):
+                 "robovln_data_val.yaml", "cma_robo.yaml", "seq2seq_robo.yaml",
+                 "seq2seq_robo_pm.yaml"):
         assert (PORT_CONFIGS / name).read_bytes() == (JAX_CONFIGS / name).read_bytes()
     assert (REPO / "robo_vln_tpu_torch/config/task.py").read_text().split('"""', 2)[2] == \
         (REPO / "robo_vln_tpu/config/task.py").read_text().split('"""', 2)[2]
@@ -368,16 +371,19 @@ def test_resume_matches_uninterrupted_run(tmp_path):
 @pytest.mark.parametrize("key,value,item", [
     ("DAGGER.LOADER_WORKERS", 2, "§A item 2"),
     ("PLOT_ATTENTION", True, "§A item 3"),
-    ("TRAINER_NAME", "robo_vln_trainer", "§A item 6"),  # the flat family's training
+    # the flat family trains; its feature store does not yet
+    (("TRAINER_NAME", "DAGGER.PRELOAD_TRUNK_FEATURES"), ("robo_vln_trainer", True),
+     "§A item 6c"),
     ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
     ("MODEL.BERT.pretrained_weights", "bert.npz", "§A item 8"),
 ])
 def test_unported_options_raise_before_any_work(tmp_path, key, value, item):
-    if key.endswith("pretrained_weights"):
+    if key == "MODEL.BERT.pretrained_weights":
         value = str(tmp_path / value)
         Path(value).write_bytes(b"")
+    options = dict(zip(key, value)) if isinstance(key, tuple) else {key: value}
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cfg = port_config(tmp_path, **{key: value})
+        cfg = port_config(tmp_path, **options)
         get_trainer(cfg.TRAINER_NAME)(cfg).train()
     assert not (tmp_path / "ckpts").exists() and not (tmp_path / "tb").exists()
     assert not (tmp_path / "train_buf").exists()
@@ -405,9 +411,8 @@ def test_jax_only_keys_are_listed_with_their_defaults():
     ("VIDEO_OPTION", ["disk"], "§A item 3"),
     ("EVAL.EVAL_NONLEARNING", True, "§A item 3"),
     ("PLOT_ATTENTION", True, "§A item 3"),
-    ("MODEL.RGB_ENCODER.cnn_type", "SimpleRGBCNN", "§A item 6"),
+    ("MODEL.CMA.rcm_state_encoder", True, "§A item 6c"),
     ("TPU.MESH_AXES", ["data"], "§A item 7"),
-    ("MODEL.ablate_instruction", True, "§A item 6"),
     ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
 ])
 def test_jax_only_keys_refused_past_their_default(tmp_path, key, value, item):
@@ -430,6 +435,26 @@ def test_jax_only_keys_refused_past_their_default(tmp_path, key, value, item):
     for yaml_file in sorted(PORT_CONFIGS.glob("*.yaml")):
         if yaml_file.name != "robo_vln_task.yaml":
             get_config(str(yaml_file))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MODEL.RGB_ENCODER.cnn_type", "SimpleRGBCNN"),
+    ("MODEL.DEPTH_ENCODER.cnn_type", "SimpleDepthCNN"),
+    ("MODEL.ablate_instruction", True),
+    ("MODEL.SEQ2SEQ.use_prev_action", True),
+    ("MODEL.CMA.use", True),
+    ("MODEL.CMA.use_prev_action", True),
+    ("MODEL.PROGRESS_MONITOR.use", True),
+    ("MODEL.PROGRESS_MONITOR.alpha", 0.5),
+])
+def test_flat_family_keys_are_read(key, value):
+    """The flat family's keys, refused before the family was ported, are
+    the port's own now, with the JAX defaults: get_config takes them past
+    their default, from a CLI option as from the JAX package's tree."""
+    cfg = get_config(opts=[key, json.dumps(value) if not isinstance(value, str) else value])
+    assert _lookup(cfg, key) == value
+    assert _lookup(port_defaults, key) == _lookup(jax_defaults, key)
+    assert key not in jax_only.UNPORTED and key not in jax_only.INERT
 
 
 @pytest.mark.parametrize("value", [True, False])

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (robo_vln_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile] [--only 9,10,11]
+    python3 chip_smoke.py [--profile] [--only 9,10,11,12]
 
-``--only`` runs the build and the listed phases among 9, 10 and 11 alone,
-to try them; such a run prints no result line.
+``--only`` runs the build and the listed phases among 9, 10, 11 and 12
+alone, to try them; such a run prints no result line.
 
 Phases, one or more lines each; any failure ends the run with a non-zero
 exit code and no result line:
@@ -238,7 +238,36 @@ exit code and no result line:
    tick by CUDA events around FlatAgent.act) and with EVAL.ON_DEVICE (the
    graph's 2 launches a tick; its stats keys the host's; the same batch
    stepped eagerly within 1e-5 m of the graph's positions).
-12. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+12. Extras path (the eval's extras and the flat family's last parts, at
+   full width).  Whether OpenCV imports: if not, get_config must refuse
+   VIDEO_OPTION before any work, and the videos and the map are left to the
+   CPU tests.  12a: the HCM eval through run_exp at EVAL.NUM_ENVS 1, bf16,
+   with PLOT_ATTENTION (and, with OpenCV, VIDEO_OPTION disk and the
+   TOP_DOWN_MAP measure) on phase 7's kind of checkpoint over the first 4
+   of its episodes at 60 ticks: one heatmap PNG an episode, (ticks x 200)
+   scaled; an mp4 an episode, read back with a frame a tick at the size
+   written (even sides); 2 LSTM and 2 attention launches a tick (the sow's
+   maps are computed beside the kernel's output, for the plot only), and
+   with the key off over the same episodes 2 and 2 as well;
+   env steps a second, the policy's ms a tick by CUDA events, a frame's
+   assembly and encode-and-write ms, a PNG's ms.  Then float32 with the key
+   on and off: positions within 1e-3 m (as 7b), and the key-on run's ticks
+   replayed with the key off, outputs and LSTM states within 1e-4 of their
+   range.  12b: nonlearning.yaml through run_exp --run-type eval, each of
+   RandomAgent, HandcraftedAgent and ExpertAgent over phase 7's 8
+   episodes: the stats JSON with the host eval's keys less actual_success,
+   env steps a second, no launch.  12c: cma_robo.yaml with
+   MODEL.CMA.rcm_state_encoder, as 11b (1 LSTM launch a window, 1 + 1 a
+   step) and as 11c-11d (1 a tick, on the host driver and in the graph).
+   12d: run_exp train on cma_robo.yaml with DAGGER.PRELOAD_TRUNK_FEATURES
+   over 11c's episodes: frames a second featurized, the feature-mode step
+   beside 11c's raw step, no trunk run in a step, 2 + 2 LSTM launches a
+   step; the first eval batch's float32 val losses from features within
+   phase 9's tolerance of those from raw frames.  12e: HighLevelSeq2SeqPolicy
+   (BERT-base, both trunks, LSTM(512)), B=4, T=50, 200 tokens: the bf16
+   window by CUDA events, 1 LSTM launch; the float32 window against its
+   plain-kernel twin within 2e-3.
+13. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
    (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
    attention (its float32 route and every bf16 field) and its bf16 modes
    (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
@@ -253,12 +282,13 @@ exit code and no result line:
    ``flat_launches``: phase 11's paths (each model's windows and train
    steps, the trainer, the host eval, the on-device eval's replays); the
    LSTM and its backward also carry 11a's ``flat_*`` fields (one call at
-   T=100, B=1, H=512).  Then the
+   T=100, B=1, H=512); ``extras_launches``: phase 12's paths.  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import glob
 import itertools
 import json
 import math
@@ -3441,8 +3471,9 @@ def _elapsed(events):
     return events[0].elapsed_time(events[1])
 
 
-def flat_model_path(device, yaml, calls, model_opts=()):
-    """11b: one flat model at full width: a window's forward and
+def flat_model_path(device, yaml, calls, model_opts=(), label="11b"):
+    """11b (12c for the RCM encoder): one flat model at full width, with
+    ``model_opts`` (``label`` names the phase): a window's forward and
     FLAT_TRAIN_STEPS train steps in bf16 (launches, times, peak memory), then
     a float32 step against the same step with the plain versions."""
     from robo_vln_tpu_torch.models import build_flat_policy
@@ -3469,7 +3500,7 @@ def flat_model_path(device, yaml, calls, model_opts=()):
     name = type(policy).__name__
     batch = flat_batch(torch.Generator().manual_seed(5), cfg, device)
     B, T = batch["not_done_masks"].shape
-    print(f"phase 11b ({yaml}): {name} at full width ({sim.RGB_SENSOR.WIDTH} px rgb, "
+    print(f"phase {label} ({yaml}): {name} at full width ({sim.RGB_SENSOR.WIDTH} px rgb, "
           f"{sim.DEPTH_SENSOR.WIDTH} px depth, {batch['instruction'].shape[1]} tokens of a "
           f"{cfg.MODEL.INSTRUCTION_ENCODER.vocab_size} vocabulary, LSTM("
           f"{cfg.MODEL.STATE_ENCODER.hidden_size}), B={B} T={T}), {cfg.TPU.PRECISION}")
@@ -3543,7 +3574,7 @@ def flat_model_path(device, yaml, calls, model_opts=()):
           f"{unused} unused heads without one")
     del policy, state, step, before
 
-    print(f"phase 11b ({yaml}): float32 train step (lr 0) against the same step with the "
+    print(f"phase {label} ({yaml}): float32 train step (lr 0) against the same step with the "
           f"plain versions (the LSTM's backward the autograd replay)")
     policy, state, step = build(torch.float32)
     if cuda:
@@ -3593,6 +3624,217 @@ def check_instruction_rnn(policy, ids):
             lambda: instruction.run_scan(enc.encoder_rnn, x, lengths), reps=3, inner=1))
 
 
+def flat_trainer_and_eval(device, root, model_opts=(), labels=("11c", "11d"), tag="flat",
+                          calls=2):
+    """11c and 11d (12c for the RCM encoder): run_exp train on cma_robo.yaml
+    with ``model_opts`` over synthetic buffers under ``root``, one epoch and
+    its checkpoint, then that checkpoint's eval on the host driver at
+    NUM_ENVS 8 and with EVAL.ON_DEVICE, the graph held to the same batch
+    stepped eagerly; ``calls`` LSTM launches a forward.  Returns (launches
+    of each path, keyed ``<tag>_trainer``, ``<tag>_eval`` and
+    ``<tag>_ondevice``, and timings)."""
+    import numpy as np
+
+    from robo_vln_tpu_torch.eval import agent as agent_mod
+    from robo_vln_tpu_torch.eval import evaluator
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
+    from robo_vln_tpu_torch.training.trainer import RoboVLNTrainer
+
+    cuda = torch.device(device).type == "cuda"
+    paths, timings = {}, {}
+    n_train, n_eval = FLAT_EPISODES
+    sim = flat_config("cma_robo.yaml", device, model_opts).TASK_CONFIG.SIMULATOR
+    size = write_trainer_buffers(root, FLAT_EPISODES, vocab=FLAT_VOCAB,
+                                 rgb_px=sim.RGB_SENSOR.WIDTH, depth_px=sim.DEPTH_SENSOR.WIDTH)
+    common = ["TENSORBOARD_DIR", os.path.join(root, "tb"),
+              "LOG_FILE", os.path.join(root, "flat.log"),
+              "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"), *model_opts]
+    train_opts = ["DEVICE", str(device), "DAGGER.EPOCHS", 1,
+                  "DAGGER.LMDB_FEATURES_DIR", os.path.join(root, "train"),
+                  "DAGGER.LMDB_EVAL_DIR", os.path.join(root, "eval"), *common]
+    print(f"phase {labels[0]}: python -m robo_vln_tpu_torch.run --run-type train's run_exp on "
+          f"cma_robo.yaml as shipped (B=1, tbptt 100, Adam lr 1e-4), EPOCHS cut from 25 "
+          f"to 1, over {n_train} train and {n_eval} eval synthetic episodes of 60-100 "
+          f"steps ({size / 2**20:.1f} MiB)")
+    record = {"steps": [], "vals": []}
+    saved = RoboVLNTrainer._setup_policy
+
+    def setup(self, *args, **kwargs):
+        saved(self, *args, **kwargs)
+        for kind in ("train_step", "val_step"):
+            fn = getattr(self, kind)
+
+            def timed(*a, _fn=fn, _kind=kind, **kw):
+                fused_lstm.reset_launches()
+                fused_attention.reset_launches()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                _synchronize(device)
+                record["steps" if _kind == "train_step" else "vals"].append(
+                    ((time.perf_counter() - t0) * 1e3, path_launches()))
+                return out
+
+            setattr(self, kind, timed)
+
+    RoboVLNTrainer._setup_policy = setup
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "train", train_opts)
+        run_s = time.perf_counter() - t0
+    finally:
+        RoboVLNTrainer._setup_policy = saved
+    (ckpt,) = ckpt_lib.list_checkpoints(os.path.join(root, "ckpts"))
+    trainer_launches = dict.fromkeys(path_launches(), 0)
+    for kind, want_bwd in (("steps", calls), ("vals", 0)):
+        for ms, got in record[kind]:
+            for key, n in got.items():
+                trainer_launches[key] += n
+            if (got["lstm_seq"], got["lstm_seq_backward"], got["cross_modal_attn"]) != (
+                    calls, want_bwd, 0):
+                fail(f"the CMA trainer's {kind[:-1]} launched {got}")
+    if (len(record["steps"]), len(record["vals"])) != (n_train, n_eval):
+        fail(f"the CMA trainer took {len(record['steps'])} steps and "
+             f"{len(record['vals'])} val windows, expected {n_train} and {n_eval}")
+    logged = [json.loads(line) for line in open(os.path.join(root, "tb", "metrics.jsonl"))]
+    if not all(math.isfinite(m["value"]) for m in logged):
+        fail("the CMA trainer logged a non-finite loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    steps_ms = [ms for ms, _ in record["steps"]]
+    print(f"  run {run_s:.2f} s, {os.path.basename(ckpt)}; train steps (host clock to "
+          f"the device's end) " + " ".join(f"{t:.2f}" for t in steps_ms) + " ms, val "
+          "windows " + " ".join(f"{ms:.2f}" for ms, _ in record["vals"]) + f" ms; peak "
+          f"{peak:.3f} GiB; {len(logged)} logged values, all finite")
+    paths[f"{tag}_trainer"] = trainer_launches
+    timings["trainer_step_ms"] = statistics.median(steps_ms[1:])
+
+    # the checkpoint's velocity head biased so that the agent drives
+    state_file = os.path.join(ckpt, ckpt_lib.TRAIN_STATE)
+    saved_state = torch.load(state_file, map_location="cpu", weights_only=True)
+    saved_state["state_dict"]["linear.bias"] += torch.tensor(EVAL_VELOCITY_BIAS)
+    torch.save(saved_state, state_file)
+    data = os.path.join(root, "episodes.json.gz")
+    write_eval_episodes(data, EVAL_EPISODES, vocab=FLAT_VOCAB)
+
+    def eval_opts(run, *extra):
+        return ["DEVICE", str(device), "EVAL_CKPT_PATH_DIR", ckpt,
+                "TASK_CONFIG.SIMULATOR.TYPE", "kinematic",
+                "TASK_CONFIG.DATASET.DATA_PATH", data,
+                "TASK_CONFIG.TASK.NDTW.GT_PATH", os.path.join(root, "no_gt.json.gz"),
+                "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", EVAL_MAX_STEPS,
+                "EVAL.SPLIT", "train", "EVAL.EPISODE_COUNT", EVAL_EPISODES,
+                "EVAL.NUM_ENVS", 8, "EVAL.VAL_LOG_DIR", os.path.join(root, f"val_{run}"),
+                *common, *extra]
+
+    print(f"phase {labels[1]}: run_exp --run-type eval on cma_robo.yaml: {os.path.basename(ckpt)} "
+          f"(its lin_vel bias {EVAL_VELOCITY_BIAS[0]} so that the agent drives) over "
+          f"{EVAL_EPISODES} synthetic episodes, MAX_EPISODE_STEPS {EVAL_MAX_STEPS}, "
+          f"NUM_ENVS 8 on the host driver, then EVAL.ON_DEVICE")
+    ticks = []
+    act = agent_mod.FlatAgent.act
+
+    def timed_act(self, *args, **kwargs):
+        fused_lstm.reset_launches()
+        fused_attention.reset_launches()
+        ev = _events(device)
+        if ev:
+            ev[0].record()
+        out = act(self, *args, **kwargs)
+        if ev:
+            ev[1].record()
+        ticks.append((ev, path_launches()))
+        return out
+
+    rollout_s = []
+    run_rollout = evaluator._run_rollout
+
+    def timed_rollout(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = run_rollout(*args, **kwargs)
+        rollout_s.append(time.perf_counter() - t0)
+        return out
+
+    agent_mod.FlatAgent.act, evaluator._run_rollout = timed_act, timed_rollout
+    try:
+        run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "eval", eval_opts("host"))
+    finally:
+        agent_mod.FlatAgent.act, evaluator._run_rollout = act, run_rollout
+    host_s = rollout_s[0]
+    host_stats = json.load(open(os.path.join(root, "val_host", "stats_ckpt_0_train.json")))
+    eval_launches = dict.fromkeys(path_launches(), 0)
+    for _, got in ticks:
+        for key, n in got.items():
+            eval_launches[key] += n
+        if (got["lstm_seq"], got["cross_modal_attn"]) != (calls, 0):
+            fail(f"a flat eval tick launched {got}")
+    tick_ms = [_elapsed(ev) for ev, _ in ticks]
+    for key in EVAL_STATS:
+        if not math.isfinite(host_stats.get(key, float("nan"))):
+            fail(f"flat eval: {key} is {host_stats.get(key)}")
+    env_steps = host_stats["steps_taken"] * EVAL_EPISODES
+    print(f"  host driver: {len(ticks)} ticks of 8 envs, {env_steps:.0f} env steps in "
+          f"{host_s:.2f} s of rollout ({env_steps / host_s:.2f} env steps/s); policy "
+          f"median {statistics.median(tick_ms):.3f} ms by CUDA events around "
+          f"FlatAgent.act; stats "
+          f"{ {k: round(host_stats[k], 4) for k in EVAL_STATS} }")
+    if host_stats["path_length"] < 1.0:
+        fail("the flat agent did not drive in the host eval")
+    paths[f"{tag}_eval"] = eval_launches
+    timings["eval_tick_ms"] = statistics.median(tick_ms)
+    timings["eval_env_steps_per_s"] = env_steps / host_s
+
+    od = {"rollouts": [], "run": None, "run_ms": [], "driver_s": [], "episodes": None}
+    with instrumented_ondevice(od):
+        run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "eval", eval_opts(
+            "device", "EVAL.ON_DEVICE", True, "EVAL.ON_DEVICE_BATCH", ONDEVICE_BATCH))
+    dev_stats = json.load(open(os.path.join(root, "val_device", "stats_ckpt_0_train.json")))
+    (rollout,) = od["rollouts"]
+    if set(dev_stats) != set(host_stats):
+        fail(f"on-device stats keys {sorted(dev_stats)} against the host's {sorted(host_stats)}")
+    for ep, st in od["episodes"].items():
+        if not all(math.isfinite(st[k]) for k in ONDEVICE_STATS_KEYS):
+            fail(f"on-device episode {ep}: non-finite stats {st}")
+    # the graph's launches, counted at its capture (none on the CPU, whose
+    # ticks run eagerly)
+    per_tick = {k: n / rollout.graph_ticks for k, n in rollout.graph_launches.items()}
+    if cuda and (per_tick["lstm_seq"], per_tick["cross_modal_attn"]) != (calls, 0):
+        fail(f"the flat on-device graph launched {rollout.graph_launches} a graph of "
+             f"{rollout.graph_ticks} ticks")
+    batch = rollout.batches[-1]
+    replays = sum(b["replays"] for b in rollout.batches)
+    ondevice_launches = {k: rollout.graph_launches.get(k, 0) * replays
+                         for k in path_launches()}
+    graph_tick = [e[0].elapsed_time(e[1]) / rollout.graph_ticks for e in batch["events"]] \
+        if cuda else [float("nan")]
+    dev_steps = sum(st["steps_taken"] for st in od["episodes"].values())
+    set_up_ms = (rollout.capture_ms or 0.0) + (rollout.warmup_ms or 0.0)
+    run_s = (sum(od["run_ms"]) - set_up_ms) / 1e3
+    print(f"  on-device: {batch['ticks']} ticks, {replays} replays of {rollout.graph_ticks} "
+          f"ticks, {batch['syncs']} host syncs; the graph's tick "
+          f"{statistics.median(graph_tick):.3f} ms by CUDA events; warm-up "
+          f"{rollout.warmup_ms} ms, capture {rollout.capture_ms} ms; {dev_steps:.0f} env "
+          f"steps in {run_s:.3f} s of the run less them ({dev_steps / run_s:.2f} env "
+          f"steps/s); launches a tick in the graph {per_tick}; stats "
+          f"{ {k: round(dev_stats[k], 4) for k in EVAL_STATS} }")
+    # the same batch stepped eagerly must retrace the graph's run
+    graph_result = rollout.fetch()
+    eager = rollout.run(graph=False)
+    gap = float(np.abs(eager["positions"] - graph_result["positions"]).max())
+    print(f"  the batch stepped eagerly: positions within {gap:.3e} m of the graph's "
+          f"(tolerance {ONDEVICE_TRACE_TOL}), steps equal: "
+          f"{np.array_equal(eager['steps'], graph_result['steps'])}")
+    if not (gap <= ONDEVICE_TRACE_TOL and np.array_equal(eager["steps"],
+                                                          graph_result["steps"])):
+        fail("the flat on-device graph and the same batch stepped eagerly disagree")
+    paths[f"{tag}_ondevice"] = ondevice_launches
+    timings["ondevice_tick_ms"] = statistics.median(graph_tick)
+    timings["ondevice_env_steps_per_s"] = dev_steps / run_s
+    return paths, timings
+
+
 def flat_path(device, model_opts=()):
     """Phase 11: the flat family at full width on the card: 11a the LSTM at
     its shape; 11b the CMA and Seq2Seq windows and train steps; 11c run_exp
@@ -3604,14 +3846,7 @@ def flat_path(device, model_opts=()):
     import shutil
     import tempfile
 
-    import numpy as np
-
-    from robo_vln_tpu_torch.eval import agent as agent_mod
-    from robo_vln_tpu_torch.eval import evaluator, ondevice
-    from robo_vln_tpu_torch.ops import _build, fused_attention, fused_lstm
-    from robo_vln_tpu_torch.run import run_exp
-    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
-    from robo_vln_tpu_torch.training.trainer import RoboVLNTrainer
+    from robo_vln_tpu_torch.ops import _build
 
     cuda = torch.device(device).type == "cuda"
     lstm_fields = (check_flat_lstm(torch.Generator().manual_seed(11), device) if cuda
@@ -3627,194 +3862,9 @@ def flat_path(device, model_opts=()):
     os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # in the checkout, ignored by git
     root = tempfile.mkdtemp(prefix="flat_", dir=_build.BUILD_DIR.parent)
     try:
-        n_train, n_eval = FLAT_EPISODES
-        sim = flat_config("cma_robo.yaml", device, model_opts).TASK_CONFIG.SIMULATOR
-        size = write_trainer_buffers(root, FLAT_EPISODES, vocab=FLAT_VOCAB,
-                                     rgb_px=sim.RGB_SENSOR.WIDTH, depth_px=sim.DEPTH_SENSOR.WIDTH)
-        common = ["TENSORBOARD_DIR", os.path.join(root, "tb"),
-                  "LOG_FILE", os.path.join(root, "flat.log"),
-                  "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"), *model_opts]
-        train_opts = ["DEVICE", str(device), "DAGGER.EPOCHS", 1,
-                      "DAGGER.LMDB_FEATURES_DIR", os.path.join(root, "train"),
-                      "DAGGER.LMDB_EVAL_DIR", os.path.join(root, "eval"), *common]
-        print(f"phase 11c: python -m robo_vln_tpu_torch.run --run-type train's run_exp on "
-              f"cma_robo.yaml as shipped (B=1, tbptt 100, Adam lr 1e-4), EPOCHS cut from 25 "
-              f"to 1, over {n_train} train and {n_eval} eval synthetic episodes of 60-100 "
-              f"steps ({size / 2**20:.1f} MiB)")
-        record = {"steps": [], "vals": []}
-        saved = RoboVLNTrainer._setup_policy
-
-        def setup(self, *args, **kwargs):
-            saved(self, *args, **kwargs)
-            for kind in ("train_step", "val_step"):
-                fn = getattr(self, kind)
-
-                def timed(*a, _fn=fn, _kind=kind, **kw):
-                    fused_lstm.reset_launches()
-                    fused_attention.reset_launches()
-                    t0 = time.perf_counter()
-                    out = _fn(*a, **kw)
-                    _synchronize(device)
-                    record["steps" if _kind == "train_step" else "vals"].append(
-                        ((time.perf_counter() - t0) * 1e3, path_launches()))
-                    return out
-
-                setattr(self, kind, timed)
-
-        RoboVLNTrainer._setup_policy = setup
-        try:
-            if cuda:
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "train", train_opts)
-            run_s = time.perf_counter() - t0
-        finally:
-            RoboVLNTrainer._setup_policy = saved
-        (ckpt,) = ckpt_lib.list_checkpoints(os.path.join(root, "ckpts"))
-        trainer_launches = dict.fromkeys(path_launches(), 0)
-        for kind, want_bwd in (("steps", 2), ("vals", 0)):
-            for ms, got in record[kind]:
-                for key, n in got.items():
-                    trainer_launches[key] += n
-                if (got["lstm_seq"], got["lstm_seq_backward"], got["cross_modal_attn"]) != (
-                        2, want_bwd, 0):
-                    fail(f"the CMA trainer's {kind[:-1]} launched {got}")
-        if (len(record["steps"]), len(record["vals"])) != (n_train, n_eval):
-            fail(f"the CMA trainer took {len(record['steps'])} steps and "
-                 f"{len(record['vals'])} val windows, expected {n_train} and {n_eval}")
-        logged = [json.loads(line) for line in open(os.path.join(root, "tb", "metrics.jsonl"))]
-        if not all(math.isfinite(m["value"]) for m in logged):
-            fail("the CMA trainer logged a non-finite loss")
-        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
-        steps_ms = [ms for ms, _ in record["steps"]]
-        print(f"  run {run_s:.2f} s, {os.path.basename(ckpt)}; train steps (host clock to "
-              f"the device's end) " + " ".join(f"{t:.2f}" for t in steps_ms) + " ms, val "
-              "windows " + " ".join(f"{ms:.2f}" for ms, _ in record["vals"]) + f" ms; peak "
-              f"{peak:.3f} GiB; {len(logged)} logged values, all finite")
-        paths["flat_trainer"] = trainer_launches
-        timings["trainer_step_ms"] = statistics.median(steps_ms[1:])
-
-        # the checkpoint's velocity head biased so that the agent drives
-        state_file = os.path.join(ckpt, ckpt_lib.TRAIN_STATE)
-        saved_state = torch.load(state_file, map_location="cpu", weights_only=True)
-        saved_state["state_dict"]["linear.bias"] += torch.tensor(EVAL_VELOCITY_BIAS)
-        torch.save(saved_state, state_file)
-        data = os.path.join(root, "episodes.json.gz")
-        write_eval_episodes(data, EVAL_EPISODES, vocab=FLAT_VOCAB)
-
-        def eval_opts(tag, *extra):
-            return ["DEVICE", str(device), "EVAL_CKPT_PATH_DIR", ckpt,
-                    "TASK_CONFIG.SIMULATOR.TYPE", "kinematic",
-                    "TASK_CONFIG.DATASET.DATA_PATH", data,
-                    "TASK_CONFIG.TASK.NDTW.GT_PATH", os.path.join(root, "no_gt.json.gz"),
-                    "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", EVAL_MAX_STEPS,
-                    "EVAL.SPLIT", "train", "EVAL.EPISODE_COUNT", EVAL_EPISODES,
-                    "EVAL.NUM_ENVS", 8, "EVAL.VAL_LOG_DIR", os.path.join(root, f"val_{tag}"),
-                    *common, *extra]
-
-        print(f"phase 11d: run_exp --run-type eval on cma_robo.yaml: {os.path.basename(ckpt)} "
-              f"(its lin_vel bias {EVAL_VELOCITY_BIAS[0]} so that the agent drives) over "
-              f"{EVAL_EPISODES} synthetic episodes, MAX_EPISODE_STEPS {EVAL_MAX_STEPS}, "
-              f"NUM_ENVS 8 on the host driver, then EVAL.ON_DEVICE")
-        ticks = []
-        act = agent_mod.FlatAgent.act
-
-        def timed_act(self, *args, **kwargs):
-            fused_lstm.reset_launches()
-            fused_attention.reset_launches()
-            ev = _events(device)
-            if ev:
-                ev[0].record()
-            out = act(self, *args, **kwargs)
-            if ev:
-                ev[1].record()
-            ticks.append((ev, path_launches()))
-            return out
-
-        rollout_s = []
-        run_rollout = evaluator._run_rollout
-
-        def timed_rollout(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = run_rollout(*args, **kwargs)
-            rollout_s.append(time.perf_counter() - t0)
-            return out
-
-        agent_mod.FlatAgent.act, evaluator._run_rollout = timed_act, timed_rollout
-        try:
-            run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "eval", eval_opts("host"))
-        finally:
-            agent_mod.FlatAgent.act, evaluator._run_rollout = act, run_rollout
-        host_s = rollout_s[0]
-        host_stats = json.load(open(os.path.join(root, "val_host", "stats_ckpt_0_train.json")))
-        eval_launches = dict.fromkeys(path_launches(), 0)
-        for _, got in ticks:
-            for key, n in got.items():
-                eval_launches[key] += n
-            if (got["lstm_seq"], got["cross_modal_attn"]) != (2, 0):
-                fail(f"a flat eval tick launched {got}")
-        tick_ms = [_elapsed(ev) for ev, _ in ticks]
-        for key in EVAL_STATS:
-            if not math.isfinite(host_stats.get(key, float("nan"))):
-                fail(f"flat eval: {key} is {host_stats.get(key)}")
-        env_steps = host_stats["steps_taken"] * EVAL_EPISODES
-        print(f"  host driver: {len(ticks)} ticks of 8 envs, {env_steps:.0f} env steps in "
-              f"{host_s:.2f} s of rollout ({env_steps / host_s:.2f} env steps/s); policy "
-              f"median {statistics.median(tick_ms):.3f} ms by CUDA events around "
-              f"FlatAgent.act; stats "
-              f"{ {k: round(host_stats[k], 4) for k in EVAL_STATS} }")
-        if host_stats["path_length"] < 1.0:
-            fail("the flat agent did not drive in the host eval")
-        paths["flat_eval"] = eval_launches
-        timings["eval_tick_ms"] = statistics.median(tick_ms)
-        timings["eval_env_steps_per_s"] = env_steps / host_s
-
-        od = {"rollouts": [], "run": None, "run_ms": [], "driver_s": [], "episodes": None}
-        with instrumented_ondevice(od):
-            run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "eval", eval_opts(
-                "device", "EVAL.ON_DEVICE", True, "EVAL.ON_DEVICE_BATCH", ONDEVICE_BATCH))
-        dev_stats = json.load(open(os.path.join(root, "val_device", "stats_ckpt_0_train.json")))
-        (rollout,) = od["rollouts"]
-        if set(dev_stats) != set(host_stats):
-            fail(f"on-device stats keys {sorted(dev_stats)} against the host's {sorted(host_stats)}")
-        for ep, st in od["episodes"].items():
-            if not all(math.isfinite(st[k]) for k in ONDEVICE_STATS_KEYS):
-                fail(f"on-device episode {ep}: non-finite stats {st}")
-        # the graph's launches, counted at its capture (none on the CPU, whose
-        # ticks run eagerly)
-        per_tick = {k: n / rollout.graph_ticks for k, n in rollout.graph_launches.items()}
-        if cuda and (per_tick["lstm_seq"], per_tick["cross_modal_attn"]) != (2, 0):
-            fail(f"the flat on-device graph launched {rollout.graph_launches} a graph of "
-                 f"{rollout.graph_ticks} ticks")
-        batch = rollout.batches[-1]
-        replays = sum(b["replays"] for b in rollout.batches)
-        ondevice_launches = {k: rollout.graph_launches.get(k, 0) * replays
-                             for k in path_launches()}
-        graph_tick = [e[0].elapsed_time(e[1]) / rollout.graph_ticks for e in batch["events"]] \
-            if cuda else [float("nan")]
-        dev_steps = sum(st["steps_taken"] for st in od["episodes"].values())
-        set_up_ms = (rollout.capture_ms or 0.0) + (rollout.warmup_ms or 0.0)
-        run_s = (sum(od["run_ms"]) - set_up_ms) / 1e3
-        print(f"  on-device: {batch['ticks']} ticks, {replays} replays of {rollout.graph_ticks} "
-              f"ticks, {batch['syncs']} host syncs; the graph's tick "
-              f"{statistics.median(graph_tick):.3f} ms by CUDA events; warm-up "
-              f"{rollout.warmup_ms} ms, capture {rollout.capture_ms} ms; {dev_steps:.0f} env "
-              f"steps in {run_s:.3f} s of the run less them ({dev_steps / run_s:.2f} env "
-              f"steps/s); launches a tick in the graph {per_tick}; stats "
-              f"{ {k: round(dev_stats[k], 4) for k in EVAL_STATS} }")
-        # the same batch stepped eagerly must retrace the graph's run
-        graph_result = rollout.fetch()
-        eager = rollout.run(graph=False)
-        gap = float(np.abs(eager["positions"] - graph_result["positions"]).max())
-        print(f"  the batch stepped eagerly: positions within {gap:.3e} m of the graph's "
-              f"(tolerance {ONDEVICE_TRACE_TOL}), steps equal: "
-              f"{np.array_equal(eager['steps'], graph_result['steps'])}")
-        if not (gap <= ONDEVICE_TRACE_TOL and np.array_equal(eager["steps"],
-                                                              graph_result["steps"])):
-            fail("the flat on-device graph and the same batch stepped eagerly disagree")
-        paths["flat_ondevice"] = ondevice_launches
-        timings["ondevice_tick_ms"] = statistics.median(graph_tick)
-        timings["ondevice_env_steps_per_s"] = dev_steps / run_s
+        run_paths, run_timings = flat_trainer_and_eval(device, root, model_opts)
+        paths.update(run_paths)
+        timings.update(run_timings)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for name, counts in paths.items():
@@ -3824,6 +3874,558 @@ def flat_path(device, model_opts=()):
     print(f"phase 11 launches by path: {paths}")
     print(f"phase 11 timings: {json.dumps(timings)}")
     return paths, lstm_fields, timings
+
+
+EXTRAS_EPISODES = 4  # 12a: the first 4 of phase 7's episodes, one env
+NONLEARNING_AGENTS = ("RandomAgent", "HandcraftedAgent", "ExpertAgent")
+HL_SEQ2SEQ_SHAPE = (4, 50)  # 12e: B, T of the window
+
+
+@contextlib.contextmanager
+def timed_viz(record):
+    """Host time of what the eval's extras draw and write, from outside:
+    each frame's assembly (observations_to_image and the instruction
+    overlay), each video's encoding and write, each heatmap's PNG; and the
+    frames each video got."""
+    from robo_vln_tpu_torch.tasks import viz
+
+    originals = {name: getattr(viz, name) for name in (
+        "observations_to_image", "append_text_to_image", "generate_video",
+        "save_attention_plot")}
+
+    def timed(name):
+        fn = originals[name]
+
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            record[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "generate_video":
+                frames = args[2]
+                record["videos"].append((str(args[3]), len(frames), frames[0].shape))
+            if name == "save_attention_plot":
+                record["pngs"].append(out)
+            return out
+        return call
+
+    for name in originals:
+        setattr(viz, name, timed(name))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(viz, name, fn)
+
+
+def read_video(path):
+    """(frame count, frame shape) of an mp4, read back through OpenCV."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n, shape = 0, None
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        n, shape = n + 1, frame.shape
+    cap.release()
+    return n, shape
+
+
+def read_png(path):
+    """An 8-bit RGB PNG as tasks/viz.write_png writes it (one IDAT, filter
+    0 rows), as (H, W, 3) RGB, without OpenCV."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    w, h = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        fail(f"{path}: a PNG row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def extras_eval(device, root, model_opts, has_cv2):
+    """12a: the HCM eval at NUM_ENVS 1 with PLOT_ATTENTION (and, with
+    OpenCV, VIDEO_OPTION disk and the TOP_DOWN_MAP measure) over the first
+    EXTRAS_EPISODES of phase 7's episodes, a checkpoint made as phase 7
+    makes its; the same episodes with the key off; then both in float32,
+    their positions held within EVAL_POSITION_TOL and the key-on run's
+    ticks replayed with the key off.  Returns (launches with the key on and
+    off, timings, the host eval's stats keys)."""
+    import numpy as np
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.eval import agent as agent_mod
+    from robo_vln_tpu_torch.eval import evaluator
+    from robo_vln_tpu_torch.ops import cm_attention, fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+
+    cuda = torch.device(device).type == "cuda"
+    data = os.path.join(root, "episodes.json.gz")
+    write_eval_episodes(data, EVAL_EPISODES)
+    ckpts = os.path.join(root, "ckpts")
+    measures = ["DISTANCE_TO_GOAL", "SUCCESS", "SPL", "PATH_LENGTH", "NAVIGATION_ERROR",
+                "STEPS_TAKEN"]
+
+    def opts(tag, precision="bfloat16", plot=False, video=False, seed=()):
+        extra = ["VIDEO_OPTION", ["disk"], "TASK_CONFIG.TASK.MEASUREMENTS",
+                 measures + ["TOP_DOWN_MAP"]] if video else []
+        return ["DEVICE", str(device), "TRAINER_NAME", "hierarchical_trainer", *seed,
+                "CHECKPOINT_FOLDER", ckpts, "EVAL_CKPT_PATH_DIR", ckpts,
+                "TENSORBOARD_DIR", os.path.join(root, f"tb_{tag}"),
+                "LOG_FILE", os.path.join(root, "eval.log"),
+                "TASK_CONFIG.SIMULATOR.TYPE", "kinematic", "TASK_CONFIG.DATASET.DATA_PATH", data,
+                "TASK_CONFIG.TASK.NDTW.GT_PATH", os.path.join(root, "no_gt.json.gz"),
+                "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", EVAL_MAX_STEPS,
+                "EVAL.EPISODE_COUNT", EXTRAS_EPISODES, "EVAL.NUM_ENVS", 1,
+                "EVAL.USE_CKPT_CONFIG", False,
+                "EVAL.VAL_LOG_DIR", os.path.join(root, f"val_{tag}"),
+                "EVAL.DUMP_TRAJECTORIES", True, "MODEL.INSTRUCTION_ENCODER.is_bert", True,
+                "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True, "TPU.PRECISION", precision,
+                "PLOT_ATTENTION", plot, "VIDEO_DIR", os.path.join(root, f"videos_{tag}"),
+                *extra, *model_opts]
+
+    saver = HierarchicalTrainer(get_config(opts=opts("save", seed=("TASK_CONFIG.SEED", 0))))
+    saver._setup_policy()
+    with torch.no_grad():
+        saver.low.linear.weight.mul_(EVAL_VELOCITY_SCALE)
+        saver.low.linear.bias.add_(torch.tensor(EVAL_VELOCITY_BIAS, device=device))
+    saver.save_checkpoint("ckpt.0")
+    del saver
+    tokens = get_config(opts=opts("save")).DAGGER.MAX_INSTRUCTION_LEN
+    what = "PLOT_ATTENTION" + (", VIDEO_OPTION disk and TOP_DOWN_MAP" if has_cv2 else "")
+    print(f"phase 12a: run_exp --run-type eval at EVAL.NUM_ENVS 1, bfloat16, {what}: phase "
+          f"7's checkpoint (random weights from seed 0, the velocity head biased "
+          f"{EVAL_VELOCITY_BIAS}) over the first {EXTRAS_EPISODES} of its episodes, "
+          f"MAX_EPISODE_STEPS {EVAL_MAX_STEPS}; then the key off; then both in float32")
+    forward = ("lstm_seq", "cross_modal_attn", "cross_modal_attn_bf16_round_p")
+    runs, launches, timings = {}, {}, {}
+    for tag, plot in (("on", True), ("off", False)):
+        record, drawn = new_eval_record(), {k: [] for k in (
+            "observations_to_image", "append_text_to_image", "generate_video",
+            "save_attention_plot", "videos", "pngs")}
+        fused_lstm.reset_launches()
+        fused_attention.reset_launches()
+        with instrumented_eval(record, device), timed_viz(drawn):
+            run_exp(None, "eval", opts(tag, plot=plot, video=plot and has_cv2))
+        launches[tag] = path_launches()
+        stats = check_eval_stats(f"12a key {tag}", record, os.path.join(
+            root, f"val_{tag}", "stats_ckpt_0_val_seen.json"), EXTRAS_EPISODES)
+        want = {"lstm_seq": 2, "cross_modal_attn": 2}
+        want["cross_modal_attn_bf16_round_p"] = want["cross_modal_attn"]
+        for t, got in enumerate(record["tick_launches"]):
+            for name, count in got.items():
+                if count != want.get(name, 0):
+                    fail(f"12a key {tag}: tick {t} launched {name} {count} times, expected "
+                         f"{want.get(name, 0)}")
+        rollout_s = record["rollout_s"][0]
+        policy_ms = ([s.elapsed_time(e) for s, e in record["act_events"]] if cuda
+                     else [float("nan")])
+        rate = record["env_steps"] / rollout_s
+        ticks = {ep: int(st["steps_taken"]) for ep, st in record["episodes"].items()}
+        print(f"  PLOT_ATTENTION {plot}: {len(record['tick_launches'])} ticks, "
+              f"{record['env_steps']} env steps in {rollout_s:.3f} s of rollout: {rate:.2f} env "
+              f"steps/s; policy {statistics.median(policy_ms):.3f} ms a tick by CUDA events "
+              f"around act; env step {statistics.median(record['env_ms']):.3f} ms host; "
+              f"launches a tick {want}; ticks by episode {ticks}")
+        timings[f"eval_{tag}_env_steps_per_s"] = rate
+        timings[f"eval_{tag}_policy_ms"] = statistics.median(policy_ms)
+        if plot:
+            pngs = sorted(drawn["pngs"])
+            want_names = sorted(os.path.join(root, f"videos_{tag}", "attention",
+                                             f"attention_ep{ep}_ckpt0.png") for ep in ticks)
+            if pngs != want_names:
+                fail(f"12a: heatmaps {pngs}, expected {want_names}")
+            for path in pngs:
+                ep = path.rsplit("attention_ep", 1)[1].split("_ckpt")[0]
+                scale = max(1, 256 // max(ticks[ep], tokens))
+                shape = read_png(path).shape
+                if shape != (ticks[ep] * scale, tokens * scale, 3):
+                    fail(f"12a: {path} is {shape}, not episode {ep}'s {ticks[ep]} ticks by "
+                         f"{tokens} tokens")
+            png_ms = drawn["save_attention_plot"]
+            print(f"  {len(pngs)} heatmaps, one an episode, each (ticks x {tokens} tokens) "
+                  f"scaled: PNG {statistics.median(png_ms):.3f} ms each (host)")
+            timings["png_ms"] = statistics.median(png_ms)
+        if plot and has_cv2:
+            frames = len(drawn["observations_to_image"])
+            if [v[1] for v in sorted(drawn["videos"])] != [ticks[ep] for ep in sorted(ticks)]:
+                fail(f"12a: videos {drawn['videos']}, expected a frame a tick {ticks}")
+            mp4s = sorted(glob.glob(os.path.join(root, f"videos_{tag}", "*.mp4")))
+            if len(mp4s) != EXTRAS_EPISODES:
+                fail(f"12a: {len(mp4s)} mp4 files, expected {EXTRAS_EPISODES}")
+            for ep, n, (h, w, _) in drawn["videos"]:
+                (path,) = [p for p in mp4s if os.path.basename(p).startswith(f"episode={ep}-")]
+                back = read_video(path)
+                if back != (n, (h - h % 2, w - w % 2, 3)):  # mp4v keeps even sides
+                    fail(f"12a: {path} reads back as {back}, written {n} frames of {h}x{w}")
+            draw_ms = [a + b for a, b in zip(drawn["observations_to_image"],
+                                             drawn["append_text_to_image"])]
+            write_ms = sum(drawn["generate_video"]) / frames
+            print(f"  {len(mp4s)} videos, {frames} frames of {drawn['videos'][0][2]} (rgb, "
+                  f"depth, the map tile; the instruction below), each read back with its "
+                  f"frame count and size: assembly {statistics.median(draw_ms):.3f} ms a frame, "
+                  f"encode and write {write_ms:.3f} ms a frame (host)")
+            timings["frame_draw_ms"] = statistics.median(draw_ms)
+            timings["frame_write_ms"] = write_ms
+        runs[tag] = stats
+        record["trainers"].clear()
+    if cm_attention.sow_attention():
+        fail("12a: the eval left the sow switch on")
+
+    print("phase 12a: float32, the key on against the key off (the sow must leave the "
+          "outputs alone), closed-loop, then the key-on run's ticks replayed with the key off")
+    rows, records = {}, {}
+    for tag, plot in (("f32_on", True), ("f32_off", False)):
+        record = records[tag] = new_eval_record()
+        record["states"] = []
+        with instrumented_eval(record, device):
+            run_exp(None, "eval", opts(tag, "float32", plot=plot))
+        rows[tag] = trajectories(os.path.join(root, f"tb_{tag}"))
+    on, off = rows["f32_on"], rows["f32_off"]
+    if on.keys() != off.keys() or len(on) != EXTRAS_EPISODES:
+        fail(f"12a float32: episodes {sorted(on)} with the key on, {sorted(off)} off")
+    divergence = 0.0
+    for ep in on:
+        n = min(len(on[ep]["locations"]), len(off[ep]["locations"]))
+        divergence = max(divergence, max(math.dist(a, b) for a, b in zip(
+            on[ep]["locations"][:n], off[ep]["locations"][:n])))
+        if any(on[ep][k] != off[ep][k] for k in ("success", "actual_success", "steps")):
+            fail(f"12a float32: episode {ep} ends otherwise with the key on")
+    print(f"  largest position gap over {len(on)} episodes {divergence:.3e} m (tolerance "
+          f"{EVAL_POSITION_TOL} m)")
+    if not divergence <= EVAL_POSITION_TOL:
+        fail(f"12a float32: positions with the key on diverge by {divergence:.3e} m")
+    trainer = records["f32_on"]["trainers"][0]
+    agent = agent_mod.HCMAgent(trainer.high, trainer.low,
+                               share_frozen_trunks=trainer.config.TPU.SHARE_FROZEN_TRUNKS)
+    replay = evaluator._PolicyTick(agent)
+    state, outs, states = agent.initial_state(1), [], []
+    for obs, reset_rows in records["f32_on"]["ticks"]:
+        out, state = replay(obs, state, reset_rows)
+        outs.append(out)
+        states.append(torch.cat(state).float().cpu().numpy())
+    k_out, p_out = np.stack(records["f32_on"]["outputs"]), np.stack(outs)
+    k_hc, p_hc = np.stack(records["f32_on"]["states"]), np.stack(states)
+    worst = 0.0
+    for name, (a, b) in zip(("lin_vel", "omega", "stop logit", "LSTM states"), [
+            (k_out[..., i], p_out[..., i]) for i in range(3)] + [(k_hc, p_hc)]):
+        rel = np.abs(a - b).max() / max(np.ptp(b), np.finfo(np.float32).tiny)
+        worst = max(worst, rel)
+        print(f"  the key-on ticks replayed with the key off, {name}: {rel:.3e} of its range "
+              f"(tolerance {EVAL_OUTPUT_RTOL})")
+    if not worst <= EVAL_OUTPUT_RTOL:
+        fail(f"12a float32: the ticks with the key on differ by {worst:.3e} of their range")
+    return launches, timings, set(runs["off"])
+
+
+def nonlearning_runs(device, root, host_keys):
+    """12b: nonlearning.yaml through run_exp --run-type eval, each agent
+    over phase 7's synthetic episodes on the kinematic backend at the
+    task's sensor sizes: the stats JSON and its keys (the host eval's, less
+    actual_success and the backbones' provenance, as in JAX), env steps a
+    second; no kernel launches."""
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+
+    data = os.path.join(root, "episodes.json.gz")
+    want = set(host_keys) - {"actual_success", "pretrained_backbones"}
+    print(f"phase 12b: nonlearning.yaml through run_exp --run-type eval: "
+          f"{', '.join(NONLEARNING_AGENTS)} over {EVAL_EPISODES} synthetic episodes, "
+          f"MAX_EPISODE_STEPS {EVAL_MAX_STEPS}, on the host")
+    rates = {}
+    fused_lstm.reset_launches()
+    fused_attention.reset_launches()
+    for agent in NONLEARNING_AGENTS:
+        out = os.path.join(root, f"nonlearning_{agent}")
+        t0 = time.perf_counter()
+        run_exp(os.path.join(_config_dir(), "nonlearning.yaml"), "eval", [
+            "EVAL.NONLEARNING.AGENT", agent, "EVAL.EPISODE_COUNT", EVAL_EPISODES,
+            "EVAL.VAL_LOG_DIR", out, "LOG_FILE", os.path.join(root, "nonlearning.log"),
+            "TASK_CONFIG.SIMULATOR.TYPE", "kinematic", "TASK_CONFIG.DATASET.DATA_PATH", data,
+            "TASK_CONFIG.TASK.NDTW.GT_PATH", os.path.join(root, "no_gt.json.gz"),
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", EVAL_MAX_STEPS])
+        run_s = time.perf_counter() - t0
+        path = os.path.join(out, f"stats_complete_{agent}_val_unseen.json")
+        if not os.path.exists(path):
+            fail(f"12b: {agent} wrote no {path}")
+        stats = json.load(open(path))
+        if set(stats) != want or not all(math.isfinite(v) for v in stats.values()):
+            fail(f"12b: {agent}'s stats {stats}, expected the keys {sorted(want)}")
+        env_steps = stats["steps_taken"] * EVAL_EPISODES
+        rates[agent] = env_steps / run_s
+        print(f"  {agent}: {env_steps:.0f} env steps in {run_s:.3f} s of run_exp: "
+              f"{rates[agent]:.2f} env steps/s; stats "
+              f"{ {k: round(stats[k], 4) for k in ('ndtw', 'success', 'spl', 'path_length')} }")
+    launches = path_launches()
+    if any(launches.values()):
+        fail(f"12b: the nonlearning agents launched {launches}")
+    return rates
+
+
+def flat_feature_run(device, root, model_opts, raw_step_ms):
+    """12d: run_exp train on cma_robo.yaml with DAGGER.PRELOAD_TRUNK_FEATURES
+    over 11c's episodes: frames a second featurized, the feature-mode step
+    beside 11c's raw one (``raw_step_ms``), no trunk run in training; then
+    the first eval batch's float32 val losses from features against those
+    from raw frames at phase 9's tolerance.  Returns (launches, timings)."""
+    import numpy as np
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.data.loader import split_tbptt
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+    from robo_vln_tpu_torch.training import featurize
+    from robo_vln_tpu_torch.training.trainer import RoboVLNTrainer
+
+    cuda = torch.device(device).type == "cuda"
+    sim = flat_config("cma_robo.yaml", device, model_opts).TASK_CONFIG.SIMULATOR
+    write_trainer_buffers(root, FLAT_EPISODES, vocab=FLAT_VOCAB,
+                          rgb_px=sim.RGB_SENSOR.WIDTH, depth_px=sim.DEPTH_SENSOR.WIDTH)
+    train_dir, eval_dir = os.path.join(root, "train"), os.path.join(root, "eval")
+    opts = ["DEVICE", str(device), "DAGGER.EPOCHS", 1, "DAGGER.PRELOAD_TRUNK_FEATURES", True,
+            "DAGGER.LMDB_FEATURES_DIR", train_dir, "DAGGER.LMDB_EVAL_DIR", eval_dir,
+            "TENSORBOARD_DIR", os.path.join(root, "tb"), "LOG_FILE", os.path.join(root, "f.log"),
+            "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"), *model_opts]
+    print(f"phase 12d: run_exp --run-type train on cma_robo.yaml with "
+          f"DAGGER.PRELOAD_TRUNK_FEATURES over 11c's {sum(FLAT_EPISODES)} synthetic episodes, "
+          f"bfloat16, one epoch")
+    record = {"steps": [], "vals": [], "featurize_s": []}
+    feat = {"trunk_calls": 0, "written": []}
+    saved_setup, saved_dirs = RoboVLNTrainer._setup_policy, RoboVLNTrainer._featurized_dirs
+
+    def setup(self, *args, **kwargs):
+        saved_setup(self, *args, **kwargs)
+        for kind in ("train_step", "val_step"):
+            fn = getattr(self, kind)
+
+            def timed(*a, _fn=fn, _kind=kind, **kw):
+                fused_lstm.reset_launches()
+                fused_attention.reset_launches()
+                calls, t0 = feat["trunk_calls"], time.perf_counter()
+                out = _fn(*a, **kw)
+                _synchronize(device)
+                if feat["trunk_calls"] != calls:
+                    fail("12d: a feature-mode step ran the trunks")
+                record["steps" if _kind == "train_step" else "vals"].append(
+                    ((time.perf_counter() - t0) * 1e3, path_launches()))
+                return out
+
+            setattr(self, kind, timed)
+
+    def featurized(self):
+        _synchronize(device)
+        t0 = time.perf_counter()
+        out = saved_dirs(self)
+        _synchronize(device)
+        record["featurize_s"].append(time.perf_counter() - t0)
+        return out
+
+    RoboVLNTrainer._setup_policy, RoboVLNTrainer._featurized_dirs = setup, featurized
+    try:
+        with counted_featurize(feat):
+            run_exp(os.path.join(_config_dir(), "cma_robo.yaml"), "train", opts)
+    finally:
+        RoboVLNTrainer._setup_policy, RoboVLNTrainer._featurized_dirs = saved_setup, saved_dirs
+    frames = sum(w["frames"] for w in feat["written"])
+    overflow = sum(w["out_of_f16_range"] for w in feat["written"])
+    (feat_s,) = record["featurize_s"]
+    launches = dict.fromkeys(path_launches(), 0)
+    for kind, want_bwd in (("steps", 2), ("vals", 0)):
+        for _, got in record[kind]:
+            for key, n in got.items():
+                launches[key] += n
+            if (got["lstm_seq"], got["lstm_seq_backward"], got["cross_modal_attn"]) != (
+                    2, want_bwd, 0):
+                fail(f"12d: a feature-mode {kind[:-1]} launched {got}")
+    if (len(record["steps"]), len(record["vals"])) != FLAT_EPISODES or overflow:
+        fail(f"12d: {len(record['steps'])} steps, {len(record['vals'])} val windows, "
+             f"{overflow} float16 overflows")
+    steps_ms = [ms for ms, _ in record["steps"]]
+    step_ms = statistics.median(steps_ms[1:])
+    print(f"  featurized {frames} frames in {feat_s:.3f} s ({frames / feat_s:.1f} frames/s; "
+          f"no BERT row: the flat policies' instruction encoders train), {overflow} values "
+          f"outside float16's range; feature-mode train steps (host clock to the device's "
+          f"end) " + " ".join(f"{t:.2f}" for t in steps_ms) + f" ms, median of the later "
+          f"{step_ms:.2f} against 11c's raw {raw_step_ms:.2f} ms")
+
+    cfg = get_config(os.path.join(_config_dir(), "cma_robo.yaml"), opts + [
+        "TPU.PRECISION", "float32"])
+    trainer = RoboVLNTrainer(cfg)
+    trainer._setup_policy()
+    f32_dir = os.path.join(root, "eval_f32.features")
+    featurize.featurize_buffer(trainer.policy, eval_dir, f32_dir,
+                               max_instruction_len=cfg.DAGGER.MAX_INSTRUCTION_LEN)
+    losses = {}
+    for kind, path in (("raw", eval_dir), ("features", f32_dir)):
+        batch = next(iter(trainer._batches(path, seed=0)))
+        window = {k: torch.from_numpy(np.asarray(v)).to(device)
+                  for k, v in next(split_tbptt(batch, cfg.DAGGER.tbptt_steps)).items()}
+        if kind == "features" and "rgb" in window:
+            fail("12d: a feature batch carries raw rgb")
+        _, metrics = trainer.val_step(trainer.policy.initial_hidden(trainer.batch_size,
+                                                                    device), window)
+        losses[kind] = [metrics[k].item() for k in ("action_loss", "stop_loss", "total_loss")]
+    worst = max(abs(f - r) - FEATURE_LOSS_RTOL * abs(r)
+                for f, r in zip(losses["features"], losses["raw"]))
+    print(f"  float32, the first eval batch's (action, stop, total) val losses from features "
+          f"{losses['features']} against raw frames {losses['raw']} (tolerance rtol "
+          f"{FEATURE_LOSS_RTOL}, atol {FEATURE_LOSS_ATOL}: float16 storage)")
+    if not worst <= FEATURE_LOSS_ATOL:
+        fail("12d: the val losses from features disagree with those from raw frames")
+    return launches, {"featurize_frames_per_s": frames / feat_s, "feature_step_ms": step_ms,
+                      "raw_step_ms": raw_step_ms}
+
+
+def hl_seq2seq_path(device, model_opts=()):
+    """12e: HighLevelSeq2SeqPolicy at full width (BERT-base through the
+    LanguageEncoder, both trunks, LSTM(512), 4 sub-goal logits), B=4, T=50,
+    200 tokens: the bf16 window by CUDA events (1 LSTM launch, no
+    attention), then the float32 window against its plain-kernel twin
+    within WINDOW_TOL.  Returns (launches, window ms)."""
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.models import init_weights
+    from robo_vln_tpu_torch.models.hierarchical_seq2seq import HighLevelSeq2SeqPolicy
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.utils.device import float32_exact
+
+    cfg = get_config(opts=["DEVICE", str(device), "MODEL.INSTRUCTION_ENCODER.is_bert", True,
+                           *model_opts])
+    mc, sim = cfg.MODEL, cfg.TASK_CONFIG.SIMULATOR
+    B, T = HL_SEQ2SEQ_SHAPE
+    L = cfg.DAGGER.MAX_INSTRUCTION_LEN
+    gen = torch.Generator().manual_seed(12)
+    obs = {"rgb": torch.randint(0, 256, (B, T, sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH, 3),
+                                generator=gen, dtype=torch.uint8),
+           "depth": torch.rand(B, T, sim.DEPTH_SENSOR.HEIGHT, sim.DEPTH_SENSOR.WIDTH, 1,
+                               generator=gen).half(),
+           "instruction": torch.randint(1, mc.BERT.vocab_size, (B, L), generator=gen)}
+    obs = {k: v.to(device) for k, v in obs.items()}
+    masks = torch.ones(B, T, device=device)
+    masks[:, 0] = 0.0
+
+    def build(dtype):
+        policy = HighLevelSeq2SeqPolicy(mc, compute_dtype=dtype)
+        init_weights(policy, torch.Generator().manual_seed(0))
+        return policy.to(device).eval()
+
+    policy = build(torch.bfloat16)
+    print(f"phase 12e: HighLevelSeq2SeqPolicy at full width (BERT {mc.BERT.num_layers} layers "
+          f"of {mc.BERT.hidden_size}, both ResNet50 trunks, LSTM("
+          f"{mc.STATE_ENCODER.hidden_size}), 4 sub-goal logits), B={B} T={T}, {L} tokens, "
+          f"bfloat16; no build function or yaml reaches it")
+    times = []
+    with torch.no_grad():
+        for _ in range(3):
+            fused_lstm.reset_launches()
+            fused_attention.reset_launches()
+            ev = _events(device)
+            if ev:
+                ev[0].record()
+            logits, hidden = policy(obs, policy.initial_hidden(B, device), None, masks)
+            if ev:
+                ev[1].record()
+            times.append(_elapsed(ev))
+            check_finite("the high-level Seq2Seq window", logits, hidden)
+    launches = path_launches()
+    print(f"  window " + " ".join(f"{t:.3f}" for t in times) + f" ms by CUDA events; logits "
+          f"{tuple(logits.shape)}; launches {launches}")
+    if launches["lstm_seq"] != 1 or launches["cross_modal_attn"] != 0 or \
+            tuple(logits.shape) != (B, T, 4):
+        fail(f"12e: the window launched {launches}, logits {tuple(logits.shape)}")
+    del policy
+    policy = build(torch.float32)
+    outs = {}
+    with torch.no_grad(), float32_exact(torch.float32):
+        for label, scope in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
+            with scope():
+                outs[label] = policy(obs, policy.initial_hidden(B, device), None, masks)
+    err = max((a - b).abs().max().item() for a, b in zip(outs["kernels"], outs["plain"]))
+    print(f"  float32 window, kernels against plain: logits and LSTM state max_abs_err "
+          f"{err:.3e} (tolerance {WINDOW_TOL})")
+    if not err <= WINDOW_TOL:
+        fail("12e: the float32 window disagrees with its plain-kernel twin")
+    return launches, statistics.median(times[1:])
+
+
+def extras_path(device, raw_step_ms=float("nan"), model_opts=()):
+    """Phase 12: the eval's extras and the flat family's last parts at full
+    width: 12a the HCM eval's attention heatmaps and, with OpenCV, its
+    videos and top-down map; 12b the nonlearning agents; 12c CMA with the
+    RCM state encoder (window, train step, float32 step, trainer and both
+    evals); 12d the flat feature store; 12e HighLevelSeq2SeqPolicy.
+    ``raw_step_ms``: 11c's raw CMA step, printed beside 12d's;
+    ``model_opts`` shrink it for a CPU rehearsal.  Returns (launches by path, timings)."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import _build
+
+    cuda = torch.device(device).type == "cuda"
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    print(f"phase 12 ({card_line() if cuda else 'no card'}): the eval's extras, the RCM "
+          f"encoder, the flat feature store and the high-level Seq2Seq")
+    if has_cv2:
+        import cv2
+
+        print(f"phase 12: OpenCV {cv2.__version__} imports: the videos and the top-down map "
+              f"run on this machine")
+    else:
+        try:
+            get_config(opts=["VIDEO_OPTION", ["disk"]])
+        except ImportError as e:
+            print(f"phase 12: no OpenCV on this machine: get_config refuses VIDEO_OPTION before "
+                  f"any work ({e}); the videos are held on the CPU only")
+        else:
+            fail("12: without OpenCV, get_config took VIDEO_OPTION")
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # in the checkout, ignored by git
+    paths, timings = {}, {}
+    rcm = [*model_opts, "MODEL.CMA.rcm_state_encoder", True]
+    root = tempfile.mkdtemp(prefix="extras_", dir=_build.BUILD_DIR.parent)
+    try:
+        launches, timings["eval"], host_keys = extras_eval(device, root, model_opts, has_cv2)
+        paths["extras_eval_plot"], paths["extras_eval_plain"] = launches["on"], launches["off"]
+        timings["nonlearning_env_steps_per_s"] = nonlearning_runs(device, root, host_keys)
+        shutil.rmtree(root, ignore_errors=True)
+
+        got = flat_model_path(device, "cma_robo.yaml", 1, rcm, label="12c")
+        paths["rcm_window"] = got.pop("window_launches")
+        paths["rcm_train"] = got.pop("train_launches")
+        timings["rcm"] = got
+        os.makedirs(root, exist_ok=True)
+        rcm_paths, timings["rcm_run"] = flat_trainer_and_eval(
+            device, root, rcm, labels=("12c", "12c"), tag="rcm", calls=1)
+        paths.update(rcm_paths)
+        shutil.rmtree(root, ignore_errors=True)
+
+        os.makedirs(root, exist_ok=True)
+        paths["flat_features_trainer"], timings["flat_features"] = flat_feature_run(
+            device, root, model_opts, raw_step_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    paths["hl_seq2seq_window"], timings["hl_seq2seq_window_ms"] = hl_seq2seq_path(
+        device, model_opts)
+    for name in ("rcm_window", "rcm_train", "rcm_trainer", "rcm_eval", "flat_features_trainer",
+                 "hl_seq2seq_window") + (("rcm_ondevice",) if cuda else ()):
+        if paths[name]["lstm_seq"] == 0 or any(
+                paths[name][k] for k in paths[name] if "attn" in k):
+            fail(f"12: the path {name} launched {paths[name]}: the LSTM never, or attention")
+    print(f"phase 12 launches by path: {paths}")
+    print(f"phase 12 timings: {json.dumps(timings)}")
+    return paths, timings
 
 
 def _config_dir():
@@ -3868,6 +4470,8 @@ def main():
             ondevice_path(device, profile=profile)
         if "11" in only:
             flat_path(device)
+        if "12" in only:
+            extras_path(device)
         print(f"chip_smoke: phases {only} passed; a partial run prints no result")
         return 0
     gen = torch.Generator().manual_seed(0)
@@ -3899,12 +4503,14 @@ def main():
     read_key_blocks("_feature")
     ondevice_launches = ondevice_path(device, host_eval, profile=profile)
     read_key_blocks("_ondevice")
-    flat_launches, (flat_forward, flat_backward), _ = flat_path(device)
+    flat_launches, (flat_forward, flat_backward), flat_timings = flat_path(device)
     read_key_blocks("_flat")
+    extras_launches, _ = extras_path(device, flat_timings["trainer_step_ms"])
+    read_key_blocks("_extras")
     print(f"key-block launches of the attention kernel (S > 128 or d > 128 in float32, S > "
           f"128 in bf16) and float32 one-float-copy launches on the serving, train, "
-          f"trainer, eval, collection, feature, on-device and flat paths (the on-device "
-          f"paths' as the wrappers counted them, at the warm-up and the capture): "
+          f"trainer, eval, collection, feature, on-device, flat and extras paths (the "
+          f"on-device paths' as the wrappers counted them, at the warm-up and the capture): "
           f"{key_blocks}")
     if any(key_blocks.values()):
         fail("an HCM path launched a key-block or one-float-copy attention kernel")
@@ -3918,6 +4524,8 @@ def main():
         k["feature_launches"] = feature_launches[k["name"]]
         k["ondevice_launches"] = ondevice_launches[k["name"]]
         k["flat_launches"] = {path: counts[k["name"]] for path, counts in flat_launches.items()}
+        k["extras_launches"] = {path: counts[k["name"]]
+                                for path, counts in extras_launches.items()}
     kernels[0].update(flat_forward)  # the LSTM at the flat window's shape
     kernels[1].update(flat_backward)
     # the serving path runs no backward: the backward's launches are the train path's

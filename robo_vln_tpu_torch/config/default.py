@@ -13,11 +13,12 @@ ROADMAP item (§A) that will read it.  Keys that only the port reads are
 marked "port-only".  The JAX package's other keys are not in this tree:
 ``jax_only.py`` lists them with their JAX defaults, and ``get_config``
 refuses one set to another value where the port would drop it (such as
-``EVAL.NONLEARNING.AGENT``), naming the ROADMAP item that would port it, and
+``TPU.MESH_SHAPE``), naming the ROADMAP item that would port it, and
 takes any value of those no value of which matters (such as ``TPU.DONATE``:
 eager PyTorch updates parameters in place, so there is no buffer to donate).
 """
 
+import importlib.util
 import os
 from typing import List, Optional, Union
 
@@ -44,6 +45,13 @@ _C.LOG_FILE = "train.log"
 # --run-type eval: one checkpoint, or a folder of ckpt.{N} to sweep
 _C.EVAL_CKPT_PATH_DIR = "data/checkpoints"
 _C.BERT_VOCAB_FILE = ""  # wordpiece vocab for the is_bert instruction path
+# the single-env eval's videos (tasks/viz.py): "disk" writes an mp4 an
+# episode under VIDEO_DIR, "tensorboard" logs the frames; needs OpenCV
+_C.VIDEO_OPTION = []
+_C.VIDEO_DIR = "videos/debug"
+# the single-env HCM eval's instruction-token salience, a heatmap PNG an
+# episode under VIDEO_DIR/attention/ (no OpenCV needed)
+_C.PLOT_ATTENTION = False
 
 _C.TPU = ConfigTree()
 # compute dtype of the encoders and the attention ("bfloat16" or "float32");
@@ -100,6 +108,11 @@ _C.EVAL.DUMP_TRAJECTORIES = False
 # is not bitwise the host's float64 one
 _C.EVAL.ON_DEVICE = False
 _C.EVAL.ON_DEVICE_BATCH = 8
+# --run-type eval runs a nonlearning agent instead of a trainer
+# (agents/nonlearning.py): RandomAgent, HandcraftedAgent or ExpertAgent
+_C.EVAL.EVAL_NONLEARNING = False
+_C.EVAL.NONLEARNING = ConfigTree()
+_C.EVAL.NONLEARNING.AGENT = "RandomAgent"
 
 _C.DAGGER = ConfigTree()
 _C.DAGGER.LR = 1e-4
@@ -147,8 +160,9 @@ _C.DAGGER.RESUME = False
 _C.DAGGER.MAX_EPOCHS_PER_RUN = 0
 # train from cached trunk features: each buffer's featurized twin
 # <buffer>.features (training/featurize.py), built or refreshed after each
-# iteration's collection; needs bitwise-identical trunks in both policies
-# (the hierarchical trainer's; robo_vln_trainer refuses it, ROADMAP §A item 6c)
+# iteration's collection; the hierarchical trainer needs bitwise-identical
+# trunks in both policies, robo_vln_trainer the ResNet encoders (with
+# SimpleCNN it warns and trains from raw frames)
 _C.DAGGER.PRELOAD_TRUNK_FEATURES = False
 # static episode-length buckets the loader pads to
 _C.DAGGER.EPISODE_LEN_BUCKETS = [100, 200, 300, 400, 500, 700, 1000]
@@ -219,13 +233,14 @@ _C.MODEL.STATE_ENCODER.rnn_type = "LSTM"
 
 # the flat family (robo_vln_trainer): CMA when CMA.use, else Seq2Seq; each
 # may embed the previous action; the progress monitor adds alpha times its
-# MSE to the loss (the RCM encoder, CMA.rcm_state_encoder, is not ported:
-# jax_only.py refuses it)
+# MSE to the loss; CMA.rcm_state_encoder swaps CMA's first state encoder for
+# the RCM recurrent cross-modal attention encoder (models/rcm.py)
 _C.MODEL.SEQ2SEQ = ConfigTree()
 _C.MODEL.SEQ2SEQ.use_prev_action = False
 _C.MODEL.CMA = ConfigTree()
 _C.MODEL.CMA.use = False
 _C.MODEL.CMA.use_prev_action = False
+_C.MODEL.CMA.rcm_state_encoder = False
 _C.MODEL.PROGRESS_MONITOR = ConfigTree()
 _C.MODEL.PROGRESS_MONITOR.use = False
 _C.MODEL.PROGRESS_MONITOR.alpha = 1.0
@@ -270,6 +285,20 @@ def depth_input_size(config: ConfigTree) -> int:
     return size
 
 
+def check_opencv(config: ConfigTree) -> None:
+    """The videos and the top-down map draw with OpenCV, as in the JAX
+    package: with cv2 missing, ``VIDEO_OPTION`` set or ``TOP_DOWN_MAP`` among
+    the measures raises ImportError here, before any work."""
+    wants = []
+    if config.VIDEO_OPTION:
+        wants.append(f"VIDEO_OPTION {list(config.VIDEO_OPTION)}")
+    if "TOP_DOWN_MAP" in config.TASK_CONFIG.TASK.MEASUREMENTS:
+        wants.append("TASK_CONFIG.TASK.MEASUREMENTS TOP_DOWN_MAP")
+    if wants and importlib.util.find_spec("cv2") is None:
+        raise ImportError(f"{' and '.join(wants)} draw with OpenCV (the cv2 module), which "
+                          "is not installed")
+
+
 def get_config(
     config_paths: Optional[Union[List[str], str]] = None,
     opts: Optional[list] = None,
@@ -279,7 +308,8 @@ def get_config(
     MODEL.DEPTH_ENCODER.input_size follows the task's depth sensor; set to
     another size, it raises.  A key of the JAX package that the port does
     not read, set to another value than its JAX default, raises
-    NotImplementedError naming its ROADMAP item (jax_only.py)."""
+    NotImplementedError naming its ROADMAP item (jax_only.py).  Videos or the
+    top-down map without OpenCV raise ImportError (:func:`check_opencv`)."""
     config = _C.clone()
     if isinstance(config_paths, str):
         config_paths = [config_paths]
@@ -296,5 +326,6 @@ def get_config(
         depth.input_size = config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH
     depth_input_size(config)
     check_jax_only_keys(config)
+    check_opencv(config)
     config.freeze()
     return config

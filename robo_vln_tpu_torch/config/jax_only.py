@@ -14,19 +14,10 @@ package.
 
 from typing import Any, Dict, Iterator, Tuple
 
-_EVAL_SLICE = "§A item 3"  # the eval's extras (3c): videos, attention plots, nonlearning agents
 _READ_NOWHERE = "read nowhere in the JAX package"
 
 # key -> (JAX default, the ROADMAP item that would port it)
 UNPORTED: Dict[str, Tuple[Any, str]] = {
-    # the eval's extras
-    "VIDEO_OPTION": ([], _EVAL_SLICE),
-    "VIDEO_DIR": ("videos/debug", _EVAL_SLICE),
-    "PLOT_ATTENTION": (False, _EVAL_SLICE),
-    "EVAL.EVAL_NONLEARNING": (False, _EVAL_SLICE),
-    "EVAL.NONLEARNING.AGENT": ("RandomAgent", _EVAL_SLICE),
-    # the flat family's RCM state encoder (models/rcm.py)
-    "MODEL.CMA.rcm_state_encoder": (False, "§A item 6c"),
     # the data-parallel mesh
     "TPU.MESH_AXES": (["data", "model"], "§A item 7"),
     "TPU.MESH_SHAPE": ([-1, 1], "§A item 7"),

@@ -12,8 +12,8 @@ both read and write:
 
 All integers are little-endian.  Values are arbitrary bytes; the episode
 layout lives in data/serialization.py and data/loader.py.  The port has this
-one backend; the native store waits for the eval slice's build of the C++
-sources (ROADMAP §A item 3).
+one backend; the native store (``sim/trajstore.cc``, built by the port's
+``sim/build.py`` as the env layer's C++ is) is ROADMAP §A item 2's remainder.
 """
 
 from __future__ import annotations

@@ -1,6 +1,5 @@
 """Environment backends behind one interface (the port's own copy of
-robo_vln_tpu/envs/env.py, without ``HabitatEnv``, which waits for ROADMAP
-§A item 3c).
+robo_vln_tpu/envs/env.py).
 
 The env surface is a small protocol --
 
@@ -8,7 +7,7 @@ The env surface is a small protocol --
     step(VelocityControl) -> (obs, reward, (episode_over, success), info)
     current_episode / get_agent_position / geodesic_distance / get_metrics
 
--- with two backends:
+-- with three backends:
 
 * :class:`KinematicEnv` — renderless continuous-control simulator: the native
   C++ velocity integrator (sim/kinematics.cc) steps the agent at 30 Hz over
@@ -21,8 +20,10 @@ The env surface is a small protocol --
 * :class:`ReplayEnv` — serves recorded observations from a trajectory buffer
   (data/trajectory_store.py, data/serialization.py); used for offline
   eval/metric parity and pipeline tests.
+* :class:`HabitatEnv` — thin adapter over habitat-sim/habitat-lab when
+  installed (imported when the env is built; the reference's simulator).
 
-Both apply the task's episode termination rules: success = geodesic
+All apply the task's episode termination rules: success = geodesic
 distance < SUCCESS_DISTANCE, episode_over after MAX_EPISODE_STEPS.
 """
 
@@ -321,3 +322,117 @@ class ReplayEnv(_BaseEnv):
 
     def close(self):
         self._store.close()
+
+
+class HabitatEnv(_BaseEnv):
+    """Adapter over the habitat velocity-control forks when installed (the
+    reference's actual simulator; environments.py:8-45, env_utils.py:25-114).
+
+    Exposes the same protocol as the other backends; actions are our
+    VelocityControl dataclasses, converted to habitat_sim VelocityControl at
+    the boundary.  Rewards are zero and done is the
+    (episode_over, geodesic < SUCCESS_DISTANCE) pair like VLNCEDaggerEnv.
+
+    Assumed fork API surface (yacs-era habitat-lab ~0.1.x as pinned by the
+    reference README.md:63-76; contract-tested against mocked modules in
+    tests/test_torch_habitat_adapter.py):
+      habitat.get_config() -> yacs node with defrost/merge_from_other_cfg/freeze
+      habitat.Config(init_dict=dict)  (yacs CN constructor)
+      habitat.Env(config=cfg): .reset(), .step(action_dict), .episode_over,
+        .current_episode, .get_metrics(), .sim, .task.actions, .close()
+      env.sim: .get_agent_state() -> state with .position and quaternion
+        .rotation (w/x/y/z attrs), .geodesic_distance(a, b),
+        .set_agent_state(position, rotation), .get_sensor_observations()
+      habitat_sim.physics.VelocityControl: controlling_lin_vel,
+        lin_vel_is_local, controlling_ang_vel, ang_vel_is_local,
+        linear_velocity, angular_velocity, .integrate_transform(dt, rigid)
+      habitat_sim.RigidState(rotation, position) -> .translation/.rotation
+    Forks exposing a registered VELOCITY_CONTROL task action get the
+    action-dict path; otherwise the adapter integrates the rigid state
+    directly (fork semantics) and re-renders.
+    """
+
+    def __init__(self, config):
+        super().__init__(config)
+        try:
+            import habitat
+            import habitat_sim
+        except ImportError as e:
+            raise ImportError(
+                "habitat-lab/habitat-sim are not installed in this image; use "
+                "SIMULATOR.TYPE 'kinematic' or 'replay', or install the "
+                "velocity-control forks (reference README.md:63-76)."
+            ) from e
+        self._habitat_sim = habitat_sim
+        # hand the raw dict config to habitat's config system
+        hab_cfg = habitat.get_config()
+        hab_cfg.defrost()
+        hab_cfg.merge_from_other_cfg(
+            habitat.Config(init_dict=config.TASK_CONFIG.to_dict())
+        )
+        hab_cfg.freeze()
+        self._env = habitat.Env(config=hab_cfg)
+        self._setup_measures()
+
+    @property
+    def current_episode(self):
+        return self._env.current_episode
+
+    @current_episode.setter
+    def current_episode(self, _):
+        pass  # habitat owns episode iteration
+
+    def get_agent_position(self):
+        return np.asarray(self._env.sim.get_agent_state().position, np.float64)
+
+    def get_agent_state(self) -> RigidState:
+        st = self._env.sim.get_agent_state()
+        q = st.rotation  # quaternion.quaternion (w, x, y, z components)
+        return RigidState(
+            rotation=np.array([q.w, q.x, q.y, q.z], np.float64),
+            position=np.asarray(st.position, np.float64),
+        )
+
+    def geodesic_distance(self, a, b) -> float:
+        return float(self._env.sim.geodesic_distance(list(a), list(b)))
+
+    def reset(self):
+        obs = self._env.reset()
+        self._steps = 0
+        self._reset_measures()
+        return obs
+
+    def step(self, vel_control: VelocityControl):
+        hs = self._habitat_sim
+        vc = hs.physics.VelocityControl()
+        vc.controlling_lin_vel = True
+        vc.lin_vel_is_local = True
+        vc.controlling_ang_vel = True
+        vc.ang_vel_is_local = True
+        vc.linear_velocity = list(np.asarray(vel_control.linear_velocity))
+        vc.angular_velocity = list(np.asarray(vel_control.angular_velocity))
+        obs = self._env.step({"action": "VELOCITY_CONTROL", "action_args": {"vc": vc}}) \
+            if "VELOCITY_CONTROL" in getattr(self._env.task, "actions", {}) \
+            else self._step_kinematic(vc)
+        self._steps += 1
+        self._update_measures()
+        done = (self._env.episode_over or self._steps >= self._max_steps,
+                self.get_done()[1])
+        return obs, 0.0, done, {**self._env.get_metrics(), **self.get_metrics()}
+
+    def _step_kinematic(self, vc):
+        """Fork-style stepping: integrate the agent state directly and
+        re-render (the reference forks step the sim with VelocityControl)."""
+        sim = self._env.sim
+        st = sim.get_agent_state()
+        rigid = self._habitat_sim.RigidState(st.rotation, st.position)
+        new_state = vc.integrate_transform(
+            self.config.DAGGER.time_step, rigid
+        )
+        sim.set_agent_state(
+            list(new_state.translation), new_state.rotation
+        )
+        return sim.get_sensor_observations()
+
+    def close(self):
+        self._env.close()

@@ -2,8 +2,8 @@
 
 `construct_env` returns ONE env; `construct_envs` the list the eval steps
 together through envs/async_env.AsyncEnvPool.  Backend selection
-comes from TASK_CONFIG.SIMULATOR.TYPE: ``kinematic`` or ``replay``; the
-``habitat`` adapter waits for ROADMAP §A item 3c.
+comes from TASK_CONFIG.SIMULATOR.TYPE: ``kinematic``, ``replay`` or
+``habitat`` (the adapter over habitat-sim, which must be installed).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import List
 
 from ..data.dataset import VLNCEDatasetV1
-from .env import KinematicEnv, ReplayEnv
+from .env import HabitatEnv, KinematicEnv, ReplayEnv
 
 
 def construct_env(config, dataset=None):
@@ -25,9 +25,7 @@ def construct_env(config, dataset=None):
             split=config.TASK_CONFIG.DATASET.SPLIT
         ))
     if sim_type == "habitat":
-        raise NotImplementedError(
-            "SIMULATOR.TYPE habitat: the habitat-sim adapter (envs/env.HabitatEnv) is "
-            "not ported yet (ROADMAP §A item 3c); use 'kinematic' or 'replay'")
+        return HabitatEnv(config)
     raise ValueError(f"unknown SIMULATOR.TYPE {sim_type!r}")
 
 

@@ -12,6 +12,14 @@ LSTM states.  Frozen BERT runs once per episode: :meth:`embed_instruction`
 caches the embedding of the last token ids it saw, compared on the host.  Everything runs under
 ``torch.no_grad()`` with the policies in eval mode, so there is no dropout;
 a float32 agent runs with TF32 off for the call (utils/device.float32_exact).
+With ``ops/cm_attention.set_sow_attention`` on (PLOT_ATTENTION), each tick
+also leaves :attr:`HCMAgent.salience` on the device: the high level's
+attention maps, each averaged over its heads and visual tokens, averaged
+over the maps, (B, L), as the JAX eval computes it.  The maps are computed
+beside the attention kernel's output, for the plot only, so the tick still
+launches the kernel twice.  Each map is a softmax over its S visual tokens,
+so the salience is the maps' mean of 1/S for every token, in the JAX eval as
+here.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ class HCMAgent:
         self._emb_ids: Optional[np.ndarray] = None
         self._emb: Optional[torch.Tensor] = None
         self.embeds = 0  # BERT's runs
+        self.salience: Optional[torch.Tensor] = None  # the last tick's, when sown
 
     @property
     def device(self) -> torch.device:
@@ -88,7 +97,13 @@ class HCMAgent:
         hh, lh = state
         with float32_exact(self.high.compute_dtype):
             obs = self._with_trunk_features(obs)
-            logits, hh = self.high(obs, hh, prev, mask)
+            if cm_attention.sow_attention():
+                with cm_attention.collect_sown() as maps:
+                    logits, hh = self.high(obs, hh, prev, mask)
+                # mean over (heads, visual tokens) of every sown map -> (B, L)
+                self.salience = sum(w.float().mean(dim=(1, 3)) for w in maps) / len(maps)
+            else:
+                logits, hh = self.high(obs, hh, prev, mask)
             pred = logits.argmax(dim=-1)
             actions, stop, lh = self.low(obs, lh, prev, mask, pred)
         return actions, stop, (hh, lh)

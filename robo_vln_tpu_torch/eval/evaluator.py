@@ -30,8 +30,20 @@ Preserved reference quirks:
 instead: the whole rollout on the device (eval/ondevice.py), a CUDA graph of
 the tick replayed on the card, the same stats JSON and trajectory dump.
 
-Not ported yet (ROADMAP §A item 3c): videos, PLOT_ATTENTION, the
-nonlearning agents; get_config refuses their keys.
+The single-env driver's extras, as in the JAX package, at ``EVAL.NUM_ENVS``
+1 only (more envs warn and make none):
+
+* ``VIDEO_OPTION``: a frame a step (rgb, depth and, with the
+  ``TOP_DOWN_MAP`` measure, the map tile; the instruction below), the
+  previous step's frame assembled while the device runs the policy, and a
+  video an episode (tasks/viz.generate_video); the map stays out of the
+  stats;
+* ``PLOT_ATTENTION`` (the HCM agent): each tick's instruction-token
+  salience, computed on the device (eval/agent.HCMAgent.salience), copied
+  to the host at the episode's end and written as a heatmap PNG under
+  ``VIDEO_DIR/attention/`` (tasks/viz.save_attention_plot).
+
+The nonlearning agents' eval is agents/nonlearning.py.
 """
 
 from __future__ import annotations
@@ -108,8 +120,8 @@ def _aggregate_and_log(stats_episodes, config, writer, checkpoint_index,
 # + the explicit SPLIT overrides, robo_vln_trainer.py:1008-1022); DEVICE is
 # the port's: a checkpoint trained on the card evaluates where it is asked to
 _EVAL_SIDE_KEYS = (
-    "EVAL", "EVAL_CKPT_PATH_DIR", "TENSORBOARD_DIR", "LOG_FILE", "NUM_PROCESSES",
-    "DEVICE",
+    "EVAL", "EVAL_CKPT_PATH_DIR", "VIDEO_OPTION", "VIDEO_DIR", "TENSORBOARD_DIR",
+    "LOG_FILE", "PLOT_ATTENTION", "NUM_PROCESSES", "DEVICE",
 )
 
 
@@ -346,11 +358,16 @@ def _stack_obs(obs_list):
 
 def _run_rollout(config, envs, writer, checkpoint_index: int, policy_step: Callable,
                  init_state: Callable, tokenizer, is_bert: bool,
-                 extra_fields: Dict = None) -> Dict[str, float]:
+                 extra_fields: Dict = None,
+                 on_episode_end: Callable = None) -> Dict[str, float]:
     """``EVAL.NUM_ENVS`` envs, one of them included: policy tick over the
     env batch / sim tick alternation, per-episode stats, aggregation.
-    ``policy_step(obs, state, reset_rows)`` returns the actions and stop
-    logit on the host, (N, 3), and the new state.  An env's episode reset
+    ``policy_step(obs, state, reset_rows, while_running=...)`` returns the
+    actions and stop logit on the host, (N, 3), and the new state, and calls
+    ``while_running()`` (when not None) between launching the policy and
+    reading its output.  At one env, ``VIDEO_OPTION`` makes a video an
+    episode, and ``on_episode_end(episode)`` runs after each episode's
+    stats are recorded.  An env's episode reset
     zeroes its row of the mask and of prev (and so of the LSTM states): a
     fresh episode's first tick runs with mask_i = 0, as in both of the JAX
     package's loops.  At one env this is the JAX single-env loop but for
@@ -381,10 +398,29 @@ def _run_rollout(config, envs, writer, checkpoint_index: int, policy_step: Calla
     locations = [[] for _ in range(n)]
     steps = [0] * n
 
+    video = bool(config.VIDEO_OPTION) and n == 1
+    if config.VIDEO_OPTION and not video:
+        logger.warning("VIDEO_OPTION is only rendered by the single-env driver; "
+                       "EVAL.NUM_ENVS>1 produces no videos")
+    frames: List[np.ndarray] = []
+    pending = None  # the last step's (observations, info, instruction) to draw
+
+    def assemble_pending():
+        nonlocal pending
+        if pending is None:
+            return
+        from ..tasks.viz import append_text_to_image, observations_to_image
+
+        f_obs, f_info, text = pending
+        frames.append(append_text_to_image(observations_to_image(f_obs, f_info), text))
+        pending = None
+
     while len(stats_episodes) < episode_budget:
         for i, env in enumerate(envs):
             locations[i].append(list(env.get_agent_position()))
-        out, state = policy_step(_stack_obs(per_obs), state, reset_rows)
+        # the device runs the tick while the host draws the last step's frame
+        out, state = policy_step(_stack_obs(per_obs), state, reset_rows,
+                                 while_running=assemble_pending if video else None)
         for i in range(n):
             vcs[i].linear_velocity = np.array([0.0, 0.0, float(out[i, 0])])
             vcs[i].angular_velocity = np.array(
@@ -399,9 +435,12 @@ def _run_rollout(config, envs, writer, checkpoint_index: int, policy_step: Calla
             lin_vel = float(out[i, 0])
             episode_success = success and (lin_vel < 0.25 or _stop_pred(float(out[i, 2])) == 1)
             steps[i] += 1
+            if video:
+                pending = (observations, info, eps[i].instruction.instruction_text)
             if episode_over or episode_success or steps[i] == max_steps:
                 ep = eps[i]
                 was_new = ep.episode_id not in stats_episodes
+                stats = stats_episodes.get(ep.episode_id)
                 if was_new:
                     stats = _episode_stats(info, locations[i], gt_json, ep, sd,
                                            episode_success)
@@ -412,6 +451,17 @@ def _run_rollout(config, envs, writer, checkpoint_index: int, policy_step: Calla
                     )
                 if breaker.record(was_new, len(stats_episodes)):
                     stop_loop = True
+                elif video:
+                    from ..tasks.viz import generate_video
+
+                    assemble_pending()
+                    generate_video(list(config.VIDEO_OPTION), config.VIDEO_DIR, frames,
+                                   ep.episode_id, checkpoint_index,
+                                   {"SPL": round(stats.get("spl") or 0.0, 6)}, writer,
+                                   fps=int(1.0 / config.DAGGER.time_step))
+                    frames = []
+                if on_episode_end is not None and not stop_loop:
+                    on_episode_end(ep)
                 observations = pool.reset_at(i)
                 eps[i] = envs[i].current_episode
                 locations[i] = []
@@ -435,14 +485,16 @@ class _PolicyTick:
     agent's device, the mask and prev (zeroed in the rows of envs whose
     episode just began), the host's token ids for the agent's BERT cache
     (re-embedded whenever any env's ids change), and the actions and stop
-    logit back in one device-to-host copy."""
+    logit back in one device-to-host copy.  ``while_running`` runs on the
+    host after the tick is queued and before that copy waits for it."""
 
     def __init__(self, agent):
         self.agent = agent
         self.device = agent.device
         self._prev = None
 
-    def __call__(self, obs: Dict[str, np.ndarray], state, reset_rows):
+    def __call__(self, obs: Dict[str, np.ndarray], state, reset_rows,
+                 while_running: Callable = None):
         dev = {k: torch.from_numpy(v).to(self.device) for k, v in obs.items()}
         b = obs["instruction"].shape[0]
         mask = torch.ones(b, device=self.device)
@@ -456,6 +508,8 @@ class _PolicyTick:
         actions, stop, state = self.agent.act(dev, state, prev, mask,
                                               host_ids=obs["instruction"])
         self._prev = actions
+        if while_running is not None:  # host work beside the queued tick
+            while_running()
         return torch.cat([actions, stop], dim=1).cpu().numpy(), state
 
 
@@ -562,8 +616,38 @@ def eval_hierarchical_checkpoint(trainer, checkpoint_path, writer,
                      share_frozen_trunks=config.TPU.SHARE_FROZEN_TRUNKS)
     tick = _PolicyTick(agent)
     tokenizer, is_bert = make_tokenizer(config), config.MODEL.INSTRUCTION_ENCODER.is_bert
-    stats = _run_rollout(config, envs, writer, checkpoint_index, tick, agent.initial_state,
-                         tokenizer, is_bert, extra)
+    # PLOT_ATTENTION (reference config/default.py:27): each tick's salience
+    # kept on the device, a heatmap PNG an episode
+    plot_attention = bool(config.PLOT_ATTENTION) and n_envs == 1
+    if config.PLOT_ATTENTION and not plot_attention:
+        logger.warning("PLOT_ATTENTION is only rendered by the single-env driver; "
+                       "EVAL.NUM_ENVS>1 produces no attention heatmaps")
+    on_episode_end = None
+    if plot_attention:
+        salience: List[torch.Tensor] = []
+        plain_tick = tick
+
+        def tick(*args, **kwargs):
+            out = plain_tick(*args, **kwargs)
+            salience.append(agent.salience)
+            return out
+
+        def on_episode_end(ep):
+            if salience:
+                from ..tasks.viz import save_attention_plot
+
+                save_attention_plot(torch.cat(salience).cpu().numpy(), ep.episode_id,
+                                    config.VIDEO_DIR, checkpoint_index)
+                salience.clear()
+
+    from ..ops import cm_attention
+
+    cm_attention.set_sow_attention(plot_attention)
+    try:
+        stats = _run_rollout(config, envs, writer, checkpoint_index, tick,
+                             agent.initial_state, tokenizer, is_bert, extra, on_episode_end)
+    finally:
+        cm_attention.set_sow_attention(False)
     logger.info(f"BERT embedded the instructions {agent.embeds} times")
     return stats
 

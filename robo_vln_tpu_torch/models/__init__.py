@@ -136,7 +136,9 @@ def sync_frozen_trunks(high: nn.Module, low: nn.Module) -> None:
 
 def make_shared_trunk_fn(high: HighLevelPolicy):
     """observations -> {"rgb_features", "depth_features"}, each trunk run
-    once with the high level's weights; both policies then take the features
+    once with the high level's weights (or a flat policy's: CMA's, the
+    ResNet Seq2Seq's, whose encoders hold the same trunks); both policies,
+    or the flat one, then take the features
     through their encoders' ``*_features`` path.  Accepts (B, T, H, W, C) or
     (B, H, W, C) frames and returns features with the same leading shape,
     laid out (…, h, w, C), computed under ``no_grad``."""

@@ -24,8 +24,13 @@ The attentions are single-query softmaxes in plain PyTorch
 The heads and 1×1 convs compute in float32, the trunks in the compute
 dtype; the depth tokens are flattened channel-major for ``depth_linear``.
 
-``MODEL.CMA.rcm_state_encoder`` (the RCM first encoder, models/rcm.py) is
-not ported: it raises before any work (ROADMAP §A item 6c).
+With ``MODEL.CMA.rcm_state_encoder`` the first state encoder is the RCM
+encoder (models/rcm.py): a GRU whose input at each step is attention from
+its last output over the raw rgb and depth tokens (and the previous-action
+input: the embedding with CMA.use_prev_action, else the raw velocities);
+``rgb_linear`` and ``depth_linear`` are not built, and the hidden packs
+[GRU h, last output, h2, c2], still (4, B, H).  Only the second state
+encoder then runs the LSTM kernel.
 """
 
 from __future__ import annotations
@@ -41,11 +46,9 @@ from ..ops.cm_attention import single_query_attention
 from .encoders.instruction import InstructionEncoder
 from .encoders.visual import DepthEncoder, RGBEncoder, visual_obs, visual_ref
 from .hierarchical import _add_time_axis, _conv1x1, _f32
+from .rcm import RCMStateEncoder
 from .rnn_state_encoder import RNNStateEncoder
 from .seq2seq import PREV_ACTION_SIZE, embed_prev_action
-
-RCM_REFUSAL = ("MODEL.CMA.rcm_state_encoder: the RCM state encoder (models/rcm.py) is not "
-               "ported yet (ROADMAP §A item 6c)")
 
 
 def attn_tokens(q, k, v, scale: float, mask=None):
@@ -58,8 +61,7 @@ class CMAPolicy(nn.Module):
     def __init__(self, model_config, num_actions: int = 2, compute_dtype=torch.float32):
         super().__init__()
         mc = self.model_config = model_config
-        if mc.CMA.get("rcm_state_encoder", False):
-            raise NotImplementedError(RCM_REFUSAL)
+        self.rcm = bool(mc.CMA.rcm_state_encoder)
         self.compute_dtype = compute_dtype
         ic = mc.INSTRUCTION_ENCODER
         self.instruction_encoder = InstructionEncoder(
@@ -85,13 +87,18 @@ class CMAPolicy(nn.Module):
         depth_s = self.depth_encoder.spatial_embeddings.num_embeddings
         ins_c = self.instruction_encoder.output_size
         pa = PREV_ACTION_SIZE if mc.CMA.use_prev_action else 0
-        # the reference's Sequentials: the Linear is index 2, 1 and 0
-        self.rgb_linear = nn.Sequential(
-            nn.AdaptiveAvgPool1d(1), nn.Flatten(), nn.Linear(rgb_c, rgb_out), nn.ReLU(True))
-        self.depth_linear = nn.Sequential(
-            nn.Flatten(), nn.Linear(depth_c * depth_s, depth_out), nn.ReLU(True))
         rnn_type = mc.STATE_ENCODER.rnn_type
-        self.state_encoder = RNNStateEncoder(rgb_out + depth_out + pa, H, rnn_type)
+        if self.rcm:
+            # the prev-action input: the embedding, else the raw velocities
+            self.state_encoder = RCMStateEncoder(rgb_c, depth_c, pa or num_actions, H)
+        else:
+            # the reference's Sequentials: the Linear is index 2, 1 and 0
+            self.rgb_linear = nn.Sequential(
+                nn.AdaptiveAvgPool1d(1), nn.Flatten(), nn.Linear(rgb_c, rgb_out),
+                nn.ReLU(True))
+            self.depth_linear = nn.Sequential(
+                nn.Flatten(), nn.Linear(depth_c * depth_s, depth_out), nn.ReLU(True))
+            self.state_encoder = RNNStateEncoder(rgb_out + depth_out + pa, H, rnn_type)
         self.second_state_encoder = RNNStateEncoder(H, H, rnn_type)
         if pa:
             self.prev_action_embedding = nn.Embedding(num_actions + 1, PREV_ACTION_SIZE)
@@ -153,12 +160,28 @@ class CMAPolicy(nn.Module):
         if mc.CMA.use_prev_action:
             extra = [embed_prev_action(self.prev_action_embedding, prev_actions,
                                        masks).reshape(n, -1)]
-        rgb_in = F.relu(_f32(rgb_tokens.mean(1), self.rgb_linear[2]))
-        depth_flat = depth_tokens.transpose(1, 2).reshape(n, -1)  # channel-major
-        depth_in = F.relu(_f32(depth_flat, self.depth_linear[1]))
-        state_in = torch.cat([rgb_in, depth_in, *extra], dim=1).reshape(b, t, -1)
         k = self._first_layers
-        state_seq, hid1 = self.state_encoder(state_in.transpose(0, 1), hidden[:k], masks_tm)
+        if self.rcm:
+            if extra:
+                pa_in = extra[0]
+            elif prev_actions is not None:
+                pa_in = prev_actions.reshape(n, -1)
+            else:  # None reads as zero velocities, as on the other paths
+                pa_in = rgb_tokens.new_zeros(n, 2, dtype=torch.float32)
+
+            def time_major(x):
+                return x.reshape(b, t, *x.shape[1:]).transpose(0, 1)
+
+            state_seq, hid1 = self.state_encoder(
+                time_major(rgb_tokens), time_major(depth_tokens), time_major(pa_in),
+                hidden[:k], masks_tm)
+        else:
+            rgb_in = F.relu(_f32(rgb_tokens.mean(1), self.rgb_linear[2]))
+            depth_flat = depth_tokens.transpose(1, 2).reshape(n, -1)  # channel-major
+            depth_in = F.relu(_f32(depth_flat, self.depth_linear[1]))
+            state_in = torch.cat([rgb_in, depth_in, *extra], dim=1).reshape(b, t, -1)
+            state_seq, hid1 = self.state_encoder(state_in.transpose(0, 1), hidden[:k],
+                                                 masks_tm)
         state = state_seq.transpose(0, 1).reshape(n, -1)
 
         half = self.hidden_size // 2

@@ -2,7 +2,9 @@
 robo_vln_tpu/models/transformer.py:35-177).
 
 * :class:`MultiHeadAttention` — Q/K/V/O linears around
-  ``ops/cm_attention.attention_core``, post-LN residual;
+  ``ops/cm_attention.attention_core``, post-LN residual; with
+  ``cm_attention.set_sow_attention`` on (PLOT_ATTENTION) it also sows its
+  softmax weights, computed beside the output for the plot only;
 * :class:`PositionWiseFeedForward` — ReLU MLP, post-LN residual;
 * :class:`InterModuleAttnLayer` — cross-attention + FFN;
 * :class:`VisualLingAttn` — instruction queries × visual keys/values, the HCM
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import cm_attention
 from ..ops.cm_attention import attention_core
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -96,6 +99,8 @@ class MultiHeadAttention(nn.Module):
         k = linear(keys, a.fc_k, dt)
         v = linear(values, a.fc_v, dt)
         out = attention_core(q, k, v, self.h, attention_mask)
+        if cm_attention.sow_attention():  # PLOT_ATTENTION: the maps, for the plot only
+            cm_attention.sow(cm_attention.attention_weights(q, k, self.h, attention_mask))
         out = dropout(linear(out, a.fc_o, dt), self.dropout, generator, self.training)
         return layer_norm(queries.float() + out.float(), self.layer_norm)
 

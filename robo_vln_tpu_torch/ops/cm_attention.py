@@ -24,12 +24,19 @@
   once.  On (JAX's Pallas kernel, whose p stays float32): p to about 16
   bits, p_hi + p_lo.  float32 calls and masked calls are the same either
   way.
+* :func:`set_sow_attention` — ``PLOT_ATTENTION``'s switch, as in JAX: with it
+  on, ``models/transformer.MultiHeadAttention`` still takes its output from
+  :func:`attention_core` (the kernel on the card) and, beside it, for the
+  plot only, computes the (B, h, Lq, Lk) softmax maps by
+  :func:`attention_weights` and hands each to :func:`sow`, which appends it
+  to the list of the innermost :func:`collect_sown` (none: dropped).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, List, Optional
 
 import torch
 
@@ -38,8 +45,10 @@ from . import fused_attention
 _NEG_INF = -1e30
 
 # process-global, as in JAX: set from the config by the trainer and
-# build_hcm_agent
+# build_hcm_agent; the sow switch by the eval (PLOT_ATTENTION)
 _FLOAT32_PROBABILITIES = False
+_SOW_ATTENTION = False
+_SOWN: Optional[List[torch.Tensor]] = None
 
 
 def set_float32_probabilities(enabled: bool) -> None:
@@ -52,6 +61,33 @@ def set_float32_probabilities(enabled: bool) -> None:
 
 def float32_probabilities() -> bool:
     return _FLOAT32_PROBABILITIES
+
+
+def set_sow_attention(enabled: bool) -> None:
+    """PLOT_ATTENTION: make MultiHeadAttention sow its softmax weights,
+    computed beside its output for the plot only."""
+    global _SOW_ATTENTION
+    _SOW_ATTENTION = bool(enabled)
+
+
+def sow_attention() -> bool:
+    return _SOW_ATTENTION
+
+
+def sow(weights: torch.Tensor) -> None:
+    if _SOWN is not None:
+        _SOWN.append(weights)
+
+
+@contextlib.contextmanager
+def collect_sown() -> Iterator[List[torch.Tensor]]:
+    """The weights sown inside the block, in call order."""
+    global _SOWN
+    outer, _SOWN = _SOWN, []
+    try:
+        yield _SOWN
+    finally:
+        _SOWN = outer
 
 
 def attention_core(q, k, v, num_heads: int,
@@ -76,23 +112,32 @@ def mha_attention(
     return_weights.  Softmax in float32; the output keeps v's dtype."""
     B, Lq, _ = q.shape
     Lk = k.shape[1]
-    dk = q.shape[-1] // num_heads
     dv = v.shape[-1] // num_heads
+    vh = v.reshape(B, Lk, num_heads, dv).transpose(1, 2)
+    att = attention_weights(q, k, num_heads, attention_mask)
+    out = torch.matmul(att.to(vh.dtype), vh)
+    out = out.transpose(1, 2).reshape(B, Lq, num_heads * dv)
+    if return_weights:
+        return out, att
+    return out
+
+
+def attention_weights(q: torch.Tensor, k: torch.Tensor, num_heads: int,
+                      attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`mha_attention`'s probabilities, (B, h, Lq, Lk) float32: the
+    softmax of q·kᵀ / √d_k, masked entries zero."""
+    B, Lq, _ = q.shape
+    Lk = k.shape[1]
+    dk = q.shape[-1] // num_heads
     qh = q.reshape(B, Lq, num_heads, dk).transpose(1, 2)
     kh = k.reshape(B, Lk, num_heads, dk).transpose(1, 2)
-    vh = v.reshape(B, Lk, num_heads, dv).transpose(1, 2)
-
     logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(dk)
     if attention_mask is not None:
         logits = logits.masked_fill(attention_mask, _NEG_INF)
     att = torch.softmax(logits, dim=-1)
     if attention_mask is not None:
         att = att.masked_fill(attention_mask, 0.0)
-    out = torch.matmul(att.to(vh.dtype), vh)
-    out = out.transpose(1, 2).reshape(B, Lq, num_heads * dv)
-    if return_weights:
-        return out, att
-    return out
+    return att
 
 
 def single_query_attention(

@@ -10,7 +10,9 @@ device unless the options say ``DEVICE cpu``; an absent CUDA device raises
 before any work.  ``eval`` evaluates EVAL_CKPT_PATH_DIR (one checkpoint, a
 folder sweep, or with EVAL.ONCE False the polling daemon) closed-loop on
 TASK_CONFIG.SIMULATOR.TYPE's env and writes
-``EVAL.VAL_LOG_DIR/stats_ckpt_{i}_{split}.json``.
+``EVAL.VAL_LOG_DIR/stats_ckpt_{i}_{split}.json``; with EVAL.EVAL_NONLEARNING
+(nonlearning.yaml) it evaluates EVAL.NONLEARNING.AGENT instead, on the
+host, and writes ``stats_complete_<agent>_<split>.json``.
 """
 
 import argparse
@@ -54,6 +56,12 @@ def run_exp(exp_config, run_type: str, opts=None) -> None:
 
     random.seed(config.TASK_CONFIG.SEED)
     np.random.seed(config.TASK_CONFIG.SEED)
+
+    if run_type == "eval" and config.EVAL.EVAL_NONLEARNING:
+        from .agents.nonlearning import evaluate_agent
+
+        evaluate_agent(config)
+        return
 
     trainer = get_trainer(config.TRAINER_NAME)(config)
     if run_type == "train":

@@ -1,7 +1,7 @@
 """Task measures (host-side metrics updated per sim step); the port's own
-copy of robo_vln_tpu/tasks/measures.py, without ``TopDownMap``, which comes
-with the eval's videos (ROADMAP §A item 3c): :func:`build_measures` refuses
-``TOP_DOWN_MAP``.
+copy of robo_vln_tpu/tasks/measures.py.  ``TOP_DOWN_MAP`` (:class:`TopDownMap`)
+draws with OpenCV, imported when the measure runs, as in the JAX package;
+``get_config`` refuses the measure where cv2 is missing.
 
 Equivalents of the reference's habitat_extensions/measures.py plus the two
 habitat built-ins the task config uses (DistanceToGoal, SPL).  Each measure
@@ -275,13 +275,96 @@ class SDTW(_DTWBase):
 def build_measures(names: List[str], sim, task_config) -> Dict[str, Measure]:
     """Instantiate the task's MEASUREMENTS list; per-measure config nodes come
     from the task tree by name (habitat convention)."""
-    if "TOP_DOWN_MAP" in names:
-        raise NotImplementedError(
-            "TASK.MEASUREMENTS TOP_DOWN_MAP: the top-down map comes with the eval's "
-            "videos (tasks/viz.py), not ported yet (ROADMAP §A item 3c)")
     out = {}
     for name in names:
         cfg = task_config.get(name, task_config)
         m = get_measure(name)(sim, cfg)
         out[m.uuid] = m
     return out
+
+
+@register_measure("TOP_DOWN_MAP")
+class TopDownMap(Measure):
+    """Top-down trajectory map (reference habitat TopDownMap, configured at
+    habitat_extensions/config/default.py:97-117; commented out of the default
+    MEASUREMENTS list at robo_vln_task.yaml:36 — same here).
+
+    The habitat original rasterizes the navmesh; the kinematic/replay backends
+    have none, so the map canvas is the episode's bounding box (reference path
+    + start + goals + MAP_PADDING meters) and the same info structure is
+    produced for the viz tile: {"map": HxWx3 uint8 RGB, "agent_map_coord":
+    (row, col), "agent_angle": heading}.  Drawn per DRAW_* flags: shortest
+    (reference) path in green, agent track in blue, source and goal dots.
+
+    ``agent_angle`` is always 0.0, as the JAX package computes it: its
+    heading lookup imports ``heading_from_quaternion`` from a module that
+    does not define it, and its fallback returns 0.0, so the tile's heading
+    tick always points up.  Kept, so that the frames match.
+    """
+
+    uuid = "top_down_map"
+
+    _BG = (255, 255, 255)
+    _BORDER = (60, 60, 60)
+    _SHORTEST = (0, 200, 0)
+    _TRACK = (30, 60, 220)
+    _SOURCE = (50, 50, 255)
+    _GOAL = (220, 40, 40)
+
+    def _world_to_px(self, p):
+        x, z = float(p[0]), float(p[2])
+        r = int(round((z - self._zmin) / self._scale))
+        c = int(round((x - self._xmin) / self._scale))
+        h, w = self._map.shape[:2]
+        return min(max(r, 0), h - 1), min(max(c, 0), w - 1)
+
+    def _info(self, coord):
+        return {"map": self._map, "agent_map_coord": coord, "agent_angle": 0.0}
+
+    def reset_metric(self, episode):
+        import cv2
+
+        pad = float(self._config.get("MAP_PADDING", 3))
+        res = int(self._config.get("MAP_RESOLUTION", 1250))
+        pts = [list(episode.start_position)]
+        pts += [list(p) for p in episode.reference_path]
+        pts += [list(g.position) for g in episode.goals]
+        xs = [p[0] for p in pts]
+        zs = [p[2] for p in pts]
+        self._xmin, self._zmin = min(xs) - pad, min(zs) - pad
+        xmax, zmax = max(xs) + pad, max(zs) + pad
+        span = max(xmax - self._xmin, zmax - self._zmin, 1e-3)
+        self._scale = span / res  # meters per pixel
+        h = max(int(round((zmax - self._zmin) / self._scale)), 2)
+        w = max(int(round((xmax - self._xmin) / self._scale)), 2)
+        self._map = np.full((h, w, 3), self._BG, np.uint8)
+
+        if self._config.get("DRAW_BORDER", True):
+            cv2.rectangle(self._map, (0, 0), (w - 1, h - 1), self._BORDER, 1)
+        if self._config.get("DRAW_SHORTEST_PATH", True):
+            path = [self._world_to_px(p) for p in episode.reference_path]
+            for a, b in zip(path, path[1:]):
+                cv2.line(self._map, (a[1], a[0]), (b[1], b[0]),
+                         self._SHORTEST, max(res // 300, 1))
+        dot = max(res // 150, 2)
+        if self._config.get("DRAW_SOURCE", True):
+            r, c = self._world_to_px(episode.start_position)
+            cv2.circle(self._map, (c, r), dot, self._SOURCE, -1)
+        if self._config.get("DRAW_GOAL_POSITIONS", True):
+            for g in episode.goals:
+                r, c = self._world_to_px(g.position)
+                cv2.circle(self._map, (c, r), dot, self._GOAL, -1)
+
+        self._prev_px = self._world_to_px(self._sim.get_agent_position())
+        self._metric = self._info(self._prev_px)
+
+    def update_metric(self, episode, **kwargs):
+        import cv2
+
+        cur = self._world_to_px(self._sim.get_agent_position())
+        cv2.line(
+            self._map, (self._prev_px[1], self._prev_px[0]), (cur[1], cur[0]),
+            self._TRACK, max(self._map.shape[0] // 300, 1),
+        )
+        self._prev_px = cur
+        self._metric = self._info(cur)

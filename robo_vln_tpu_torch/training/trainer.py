@@ -19,7 +19,11 @@ robo_vln_trainer.py:294-954): Adam at DAGGER.LR, one step a TBPTT window
 (training/steps.make_flat_train_step), a checkpoint an epoch, a validation
 epoch over the eval buffer, and ``--run-type eval``
 (eval/evaluator.eval_flat_checkpoint).  One device, as the hierarchical
-trainer: the batch of a step is DAGGER.BATCH_SIZE on DEVICE.
+trainer: the batch of a step is DAGGER.BATCH_SIZE on DEVICE.  With
+``DAGGER.PRELOAD_TRUNK_FEATURES`` it trains and validates from the
+buffers' featurized twins (training/featurize.py, the policy's frozen
+ResNet trunks run once a buffer), as the JAX flat trainer does; with a
+SimpleCNN encoder it warns and trains from raw frames.
 """
 
 from __future__ import annotations
@@ -307,8 +311,7 @@ FLAT_VAL_SCALARS = (("action_loss", "Val Action Loss"), ("stop_loss", "Val Stop 
 class RoboVLNTrainer(BaseTrainer):
     """The flat family's trainer.  Weights are random from
     ``TASK_CONFIG.SEED`` (the GloVe table read when its file exists).
-    ``DAGGER.PRELOAD_TRUNK_FEATURES`` (the flat feature store) and
-    ``DAGGER.LOADER_WORKERS > 1`` raise before any work, each naming its
+    ``DAGGER.LOADER_WORKERS > 1`` raises before any work, naming its
     ROADMAP item."""
 
     def __init__(self, config):
@@ -331,10 +334,6 @@ class RoboVLNTrainer(BaseTrainer):
         """Refuse, before any work, the options whose modules the port does
         not have yet, each naming its ROADMAP item."""
         self._check_loader()
-        if self.config.DAGGER.PRELOAD_TRUNK_FEATURES:
-            raise NotImplementedError(
-                "DAGGER.PRELOAD_TRUNK_FEATURES for robo_vln_trainer: the flat family's "
-                "feature store is not ported yet (ROADMAP §A item 6c)")
         self._unfrozen_names()
 
     def _setup_policy(self, load_from_ckpt: bool = False, ckpt_path: str = "") -> None:
@@ -363,6 +362,25 @@ class RoboVLNTrainer(BaseTrainer):
         self.val_step = steps_lib.make_flat_val_step(
             self.policy, use_progress=pm.use, progress_alpha=pm.alpha,
             valid_velocity_mse=vvm)
+
+    def _featurized_dirs(self):
+        """The feature-store twins of the train and eval buffers
+        (DAGGER.PRELOAD_TRUNK_FEATURES, training/featurize.py), built or
+        refreshed by the policy's frozen ResNet trunks; with another
+        encoder (SimpleCNN) a warning and the raw buffers, as in JAX."""
+        from .featurize import ensure_featurized
+
+        mc = self.config.MODEL
+        if (mc.RGB_ENCODER.cnn_type != "TorchVisionResNet50"
+                or mc.DEPTH_ENCODER.cnn_type != "VlnResnetDepthEncoder"):
+            logger.warning("PRELOAD_TRUNK_FEATURES requires the ResNet encoder types; "
+                           "training from raw frames")
+            return self.features_dir, self.eval_dir
+        train_dir = ensure_featurized(self.config, self.policy, self.features_dir)
+        eval_dir = self.eval_dir
+        if os.path.exists(eval_dir):
+            eval_dir = ensure_featurized(self.config, self.policy, eval_dir)
+        return train_dir, eval_dir
 
     def _metadata(self):
         return {"config": self.config.to_dict(), "train_steps": int(self._train_steps),
@@ -439,15 +457,20 @@ class RoboVLNTrainer(BaseTrainer):
                 if collect:
                     self._update_dataset(dagger_it)
                     logger.info(f"Data collection complete (iteration {dagger_it})")
+                train_dir, eval_dir = self.features_dir, self.eval_dir
+                if cfg.DAGGER.PRELOAD_TRUNK_FEATURES:
+                    # after collection, so that a buffer that grew is
+                    # featurized up to its new end
+                    train_dir, eval_dir = self._featurized_dirs()
                 for epoch in epochs:
                     t0 = time.time()
                     train_steps = self.train_epoch(
-                        self._batches(self.features_dir, seed=epoch),
+                        self._batches(train_dir, seed=epoch),
                         epoch, writer, train_steps,
                     )
-                    if os.path.exists(self.eval_dir):
+                    if os.path.exists(eval_dir):
                         val_steps = self.val_epoch(
-                            self._batches(self.eval_dir, seed=epoch),
+                            self._batches(eval_dir, seed=epoch),
                             epoch, writer, val_steps,
                         )
                         # the epoch's checkpoint was saved before its

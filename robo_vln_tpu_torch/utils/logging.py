@@ -1,9 +1,11 @@
 """The framework logger and the metrics writer (the port's own copy of
-robo_vln_tpu/utils/logging.py, without the eval slice's videos).
+robo_vln_tpu/utils/logging.py).
 
 Scalars go to ``<log_dir>/metrics.jsonl``, one JSON line each with the JAX
 package's fields and tags, and to TensorBoard when ``torch.utils.tensorboard``
 (or tensorboardX) imports; neither is imported before a writer is made.
+Videos (``VIDEO_OPTION`` "tensorboard") go to TensorBoard, their frame count
+to the JSON lines.
 """
 
 from __future__ import annotations
@@ -60,6 +62,21 @@ class MetricsWriter:
         )
         if self._tb is not None:
             self._tb.add_scalar(tag, value, step)
+
+    def add_video(self, tag: str, frames, step: int, fps: int = 10) -> None:
+        """A video from a list of (H, W, 3) uint8 frames (the reference's
+        add_video_from_np_images); the JSON line records its frame count."""
+        import numpy as np
+        import torch
+
+        self._jsonl.write(json.dumps({"tag": tag, "video_frames": len(frames),
+                                      "step": int(step), "ts": time.time()}) + "\n")
+        if self._tb is not None:
+            video = torch.from_numpy(np.stack(frames).transpose(0, 3, 1, 2)[None])
+            try:
+                self._tb.add_video(tag, video, step, fps=fps)
+            except Exception as e:  # noqa: BLE001 — moviepy missing: the video is skipped
+                logger.warning(f"tensorboard video skipped: {e}")
 
     def flush(self) -> None:
         self._jsonl.flush()

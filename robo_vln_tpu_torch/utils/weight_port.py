@@ -255,8 +255,21 @@ def seq2seq_state_dict(variables: Mapping) -> StateDict:
     return sd
 
 
+def rcm_state(p: Mapping, prefix: str) -> StateDict:
+    """RCMStateEncoder params -> the port's keys: the kv Denses as 1×1
+    Conv1d, ``q_net_kernel`` (H, H/2) and ``q_net_bias`` as the ``q_net``
+    Linear, the GRU's w_ih (H + A, 3H) and w_hh under ``rnn``."""
+    sd = _conv1d(p["rgb_kv"], prefix + "rgb_kv.")
+    sd.update(_conv1d(p["depth_kv"], prefix + "depth_kv."))
+    sd.update(_dense({"kernel": p["q_net_kernel"], "bias": p["q_net_bias"]},
+                     prefix + "q_net."))
+    sd.update(rnn_state(p, prefix + "rnn."))
+    return sd
+
+
 def cma_state_dict(variables: Mapping) -> StateDict:
-    """CMAPolicy (non-RCM) variables -> the port's CMAPolicy state_dict."""
+    """CMAPolicy variables -> the port's CMAPolicy state_dict, with the RCM
+    first state encoder when the tree has one (``q_net_kernel``)."""
     p, stats = variables["params"], variables.get("batch_stats", {})
     de, re = p["depth_encoder"], p["rgb_encoder"]
     sd = instruction_encoder_state(p["instruction_encoder"])
@@ -264,9 +277,12 @@ def cma_state_dict(variables: Mapping) -> StateDict:
     sd["depth_encoder.spatial_embeddings.weight"] = _spatial_embeddings(de["spatial_embeddings"])
     sd.update(tv_resnet50_state(re["cnn"], stats["rgb_encoder"]["cnn"], "rgb_encoder.cnn."))
     sd["rgb_encoder.spatial_embeddings.weight"] = _spatial_embeddings(re["spatial_embeddings"])
-    sd.update(_dense(p["rgb_linear"], "rgb_linear.2."))
-    sd.update(_dense(p["depth_linear"], "depth_linear.1."))
-    sd.update(rnn_state(p["state_encoder"], "state_encoder.rnn."))
+    if "q_net_kernel" in p["state_encoder"]:
+        sd.update(rcm_state(p["state_encoder"], "state_encoder."))
+    else:
+        sd.update(_dense(p["rgb_linear"], "rgb_linear.2."))
+        sd.update(_dense(p["depth_linear"], "depth_linear.1."))
+        sd.update(rnn_state(p["state_encoder"], "state_encoder.rnn."))
     sd.update(rnn_state(p["second_state_encoder"], "second_state_encoder.rnn."))
     for name in ("rgb_kv", "depth_kv", "text_k"):
         sd.update(_conv1d(p[name], name + "."))
@@ -308,6 +324,13 @@ def flat_state_dict(variables: Mapping) -> StateDict:
     if "second_state_encoder" in variables["params"]:
         return cma_state_dict(variables)
     return seq2seq_state_dict(variables)
+
+
+def load_high_level_seq2seq_weights(policy, variables: Mapping) -> None:
+    """Load the JAX HighLevelSeq2SeqPolicy's variables into the port's: its
+    tree is a ResNet Seq2Seq's with the ``linear`` head alone, so
+    :func:`seq2seq_state_dict` maps it."""
+    load_state(policy, seq2seq_state_dict(variables))
 
 
 def load_flat_weights(policy, variables: Mapping) -> None:

@@ -319,14 +319,13 @@ def test_collection_beta(tmp_path, p, load, want):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"DAGGER.PRELOAD_TRUNK_FEATURES": True}, "§A item 6c"),  # the flat feature store
     ({"DAGGER.LOADER_WORKERS": 2, "DAGGER.COLLECT_ONLY": True}, "§A item 2"),
 ])
 def test_robo_vln_trainer_refuses_the_flat_family(tmp_path, extra, item):
     """What robo_vln_trainer still refuses, before it collects anything:
-    the flat family's feature store (its training and eval, and its DAgger
-    collection, run: tests/test_torch_flat_trainer.py) and the parallel
-    loader."""
+    the parallel loader (its training, eval and DAgger collection run:
+    tests/test_torch_flat_trainer.py; its feature store too:
+    tests/test_torch_flat_features.py)."""
     cfg = get_config(opts=collect_opts(tmp_path, "robo_vln_trainer", **extra))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         RoboVLNTrainer(cfg).train()
@@ -335,7 +334,8 @@ def test_robo_vln_trainer_refuses_the_flat_family(tmp_path, extra, item):
 
 # -- the yamls and the entry point ----------------------------------------------------------
 
-def test_collection_yamls_load(tmp_path):
+def test_collection_yamls_load(tmp_path, monkeypatch):
+    monkeypatch.chdir(REPO)  # the JAX yamls name their task config from the repo root
     for name in ("robovln_data_train.yaml", "robovln_data_val.yaml"):
         port = get_config(str(PORT_CONFIGS / name))
         ref = jax_get_config(str(REPO / "robo_vln_tpu/config/configs" / name))
@@ -366,10 +366,11 @@ def test_collection_needs_cuda_unless_told(tmp_path, monkeypatch, yaml, extra):
     assert not (tmp_path / "buf").exists()
 
 
-def test_entry_point_collects_the_jax_buffer(tmp_path):
+def test_entry_point_collects_the_jax_buffer(tmp_path, monkeypatch):
     """python -m robo_vln_tpu_torch.run on robovln_data_train.yaml, DEVICE
     cpu: the buffer of the JAX package's collection on the same episodes,
     read by the JAX package's loader."""
+    monkeypatch.chdir(REPO)  # the JAX yamls name their task config from the repo root
     from robo_vln_tpu.data.loader import TrajectoryDataset as JaxDataset
 
     opts = {"DEVICE": "cpu", "LOG_FILE": str(tmp_path / "collect.log"),

@@ -265,15 +265,3 @@ def test_obs_transforms_match_jax(tmp_path):
         assert got["instruction"][0, :4].tolist() == [1, 2, 3, 4]
         assert (got["rgb"].dtype, got["depth"].dtype) == (np.uint8, np.float16)
     assert got.keys() >= {"rgb", "depth", "instruction", "progress"}
-
-
-def test_port_refuses_what_it_lacks(tmp_path):
-    from robo_vln_tpu_torch.envs.env_utils import construct_env
-    from robo_vln_tpu_torch.tasks.measures import build_measures
-
-    _, pcfg = _configs(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 3"):
-        build_measures(["SUCCESS", "TOP_DOWN_MAP"], None, pcfg.TASK_CONFIG.TASK)
-    _, pcfg = _configs(tmp_path, "habitat")
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 3"):
-        construct_env(pcfg)

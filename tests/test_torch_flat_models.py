@@ -5,9 +5,10 @@ The same numpy inputs from a seed go through both; the JAX variables (drawn
 by tests/test_torch_agent.random_variables) reach the port through
 utils/weight_port.py.  Tolerances: the ops (the GRU, the length-masked
 recurrences and the card's packed path for them, the single-query
-attention) 1e-5; the encoders and each
-policy's forward, a window and its single-step ticks, 1e-4 (the forward's
-tolerance of tests/test_torch_agent.py).
+attention, the RCM state encoder alone) 1e-5; the encoders and each
+policy's forward (CMA with the RCM encoder among them), a window and its
+single-step ticks, 1e-4 (the forward's tolerance of
+tests/test_torch_agent.py).
 
 Sizes: a state encoder of 16, an instruction RNN of 8 over a 6-wide table
 of 30 tokens, instructions of at most 10 tokens (one row of length 0 where
@@ -340,8 +341,11 @@ def test_simple_cnn_matches_jax(rng, key):
 
 # -- the policies ---------------------------------------------------------------------
 
+RCM = (("CMA.use", True), ("CMA.rcm_state_encoder", True))
 CMA_CASES = {"uni": (("CMA.use", True),),
-             "bi": (("CMA.use", True), ("INSTRUCTION_ENCODER.bidirectional", True))}
+             "bi": (("CMA.use", True), ("INSTRUCTION_ENCODER.bidirectional", True)),
+             # the RCM first encoder, fed the raw velocities or their embedding
+             "rcm": RCM, "rcm_prev": RCM + (("CMA.use_prev_action", True),)}
 SEQ2SEQ_CASES = {
     "simple_cnn_pm_prev": tuple({**SIMPLE, "PROGRESS_MONITOR.use": True,
                                  "SEQ2SEQ.use_prev_action": True}.items()),
@@ -400,15 +404,42 @@ def test_seq2seq_forward_matches_jax(case):
     _check_policy(px, SEQ2SEQ_CASES[case])
 
 
-def test_rcm_state_encoder_refused_before_any_work():
-    """MODEL.CMA.rcm_state_encoder is the one flat key left unported: the
-    config and the policy refuse it, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A item 6c"):
-        get_config(opts=["MODEL.CMA.rcm_state_encoder", "True"])
-    _, mc = flat_configs(RESNET_PX, {"CMA.use": True})
-    mc.CMA.rcm_state_encoder = True
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A item 6c"):
-        build_flat_policy(mc, rgb_hw=(RESNET_PX,) * 2)
+def test_rcm_state_encoder_matches_jax(rng):
+    """models/rcm.RCMStateEncoder alone against the JAX package's, with a
+    mask of 0 inside the window and a carried hidden: its outputs and the
+    packed (GRU h, last output) within 1e-5."""
+    from robo_vln_tpu.models.rcm import RCMStateEncoder as JaxRCM
+    from robo_vln_tpu_torch.models.rcm import RCMStateEncoder
+
+    t, b, H = 5, 2, 16
+    rgb = rng.standard_normal((t, b, 5, 12)).astype(np.float32)
+    depth = rng.standard_normal((t, b, 7, 8)).astype(np.float32)
+    pa = rng.standard_normal((t, b, 4)).astype(np.float32)
+    masks = np.ones((t, b), np.float32)
+    masks[0, 0] = masks[3, 1] = 0.0
+    hidden = rng.standard_normal((2, b, H)).astype(np.float32)
+    ref = JaxRCM(hidden_size=H)
+    variables = _init(ref, 3, rgb, depth, pa, hidden, masks)
+    want_outs, want_hidden = jax.jit(ref.apply)(variables, rgb, depth, pa, hidden, masks)
+    ours = RCMStateEncoder(12, 8, 4, H)
+    wp.load_state(ours, wp.rcm_state(variables["params"], ""))
+    got_outs, got_hidden = ours(_t(rgb), _t(depth), _t(pa), _t(hidden), _t(masks))
+    _close(got_outs.detach(), want_outs, OPS_TOL, "outs")
+    _close(got_hidden, want_hidden, OPS_TOL, "hidden")
+    assert not got_hidden.requires_grad
+
+
+def test_rcm_state_encoder_replaces_the_first_encoder():
+    """MODEL.CMA.rcm_state_encoder, which the port once refused, is read:
+    get_config takes it and CMA builds the RCM encoder where the first
+    LSTM was, without rgb_linear and depth_linear, its hidden still
+    (4, B, H); the JAX tree's params all land in the port's module."""
+    assert get_config(opts=["MODEL.CMA.rcm_state_encoder", "True"]).MODEL.CMA.rcm_state_encoder
+    policy = port_flat(RESNET_PX, CMA_CASES["rcm"])
+    keys = policy.state_dict().keys()
+    assert "state_encoder.q_net.weight" in keys and "state_encoder.rgb_kv.weight" in keys
+    assert not any(k.startswith(("rgb_linear.", "depth_linear.")) for k in keys)
+    assert policy.initial_hidden(2).shape == (4, 2, TINY_FLAT["STATE_ENCODER.hidden_size"])
 
 
 def test_flat_policies_build_the_reference_heads():

@@ -1,7 +1,8 @@
 """The flat family's train and val steps (training/steps.make_flat_train_step,
 make_flat_val_step) against robo_vln_tpu/training/steps.py's, on the CPU.
 
-Both sides get the tiny CMA and Seq2Seq of tests/test_torch_flat_models.py
+Both sides get the tiny CMA (with and without the RCM encoder) and Seq2Seq
+of tests/test_torch_flat_models.py
 with the same numpy variables and the same numpy batches: B=3, T=4, an
 episode padded out in the first window, padding at the end of an episode in
 the later ones, exact zero velocity targets (the progress monitor's mask),
@@ -52,6 +53,7 @@ ALPHA = 0.7  # the progress monitor's weight
 # token shares its trunk channels and the depth map is one token)
 CMA_PX = 64
 CASES = {"cma_bi": (CMA_PX, CMA_CASES["bi"]),
+         "cma_rcm": (CMA_PX, CMA_CASES["rcm_prev"]),
          "seq2seq_pm": (SIMPLE_PX, SEQ2SEQ_CASES["simple_cnn_pm_prev"])}
 
 
@@ -121,7 +123,7 @@ def _check_flat_train_step(case, windows):
     frozen = {n: p.detach().clone() for n, p in policy.named_parameters() if not mask[n]}
     table = "instruction_encoder.embedding_layer.weight"
     assert mask[table] and table not in frozen
-    assert any(n.startswith("rgb_encoder.cnn.") for n in frozen) == (case == "cma_bi")
+    assert any(n.startswith("rgb_encoder.cnn.") for n in frozen) == case.startswith("cma")
     before = {n: p.detach().clone() for n, p in policy.named_parameters()}
     checked, steady, zero = set(), {}, {}
     jh = jpolicy.initial_hidden(B)
@@ -176,7 +178,7 @@ def _check_flat_train_step(case, windows):
     return checked
 
 
-@pytest.mark.parametrize("case,windows", [("cma_bi", 2), ("seq2seq_pm", 1)])
+@pytest.mark.parametrize("case,windows", [("cma_bi", 2), ("cma_rcm", 2), ("seq2seq_pm", 1)])
 def test_flat_train_step_matches_jax(case, windows):
     _check_flat_train_step(case, windows)
 

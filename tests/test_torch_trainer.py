@@ -158,7 +158,8 @@ def _lookup(tree, key):
 @pytest.mark.parametrize("yaml", [None, "hierarchical_cma.yaml", "robovln_data_train.yaml",
                                   "robovln_data_val.yaml", "cma_robo.yaml", "seq2seq_robo.yaml",
                                   "seq2seq_robo_pm.yaml"])
-def test_config_matches_jax(yaml):
+def test_config_matches_jax(yaml, monkeypatch):
+    monkeypatch.chdir(REPO)  # the JAX yamls name their task config from the repo root
     opts = ["DAGGER.EPOCHS", "3", "MODEL.BERT.num_layers", "2", "DAGGER.EPISODE_LEN_BUCKETS",
             "[50, 100]"]
     port = get_config(str(PORT_CONFIGS / yaml) if yaml else None, opts)
@@ -370,10 +371,6 @@ def test_resume_matches_uninterrupted_run(tmp_path):
 
 @pytest.mark.parametrize("key,value,item", [
     ("DAGGER.LOADER_WORKERS", 2, "§A item 2"),
-    ("PLOT_ATTENTION", True, "§A item 3"),
-    # the flat family trains; its feature store does not yet
-    (("TRAINER_NAME", "DAGGER.PRELOAD_TRUNK_FEATURES"), ("robo_vln_trainer", True),
-     "§A item 6c"),
     ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
     ("MODEL.BERT.pretrained_weights", "bert.npz", "§A item 8"),
 ])
@@ -408,10 +405,6 @@ def test_jax_only_keys_are_listed_with_their_defaults():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("VIDEO_OPTION", ["disk"], "§A item 3"),
-    ("EVAL.EVAL_NONLEARNING", True, "§A item 3"),
-    ("PLOT_ATTENTION", True, "§A item 3"),
-    ("MODEL.CMA.rcm_state_encoder", True, "§A item 6c"),
     ("TPU.MESH_AXES", ["data"], "§A item 7"),
     ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
 ])
@@ -451,6 +444,25 @@ def test_flat_family_keys_are_read(key, value):
     """The flat family's keys, refused before the family was ported, are
     the port's own now, with the JAX defaults: get_config takes them past
     their default, from a CLI option as from the JAX package's tree."""
+    cfg = get_config(opts=[key, json.dumps(value) if not isinstance(value, str) else value])
+    assert _lookup(cfg, key) == value
+    assert _lookup(port_defaults, key) == _lookup(jax_defaults, key)
+    assert key not in jax_only.UNPORTED and key not in jax_only.INERT
+
+
+@pytest.mark.parametrize("key,value", [
+    ("VIDEO_OPTION", ["disk", "tensorboard"]),
+    ("VIDEO_DIR", "videos/elsewhere"),
+    ("PLOT_ATTENTION", True),
+    ("EVAL.EVAL_NONLEARNING", True),
+    ("EVAL.NONLEARNING.AGENT", "ExpertAgent"),
+    ("MODEL.CMA.rcm_state_encoder", True),
+])
+def test_eval_extras_and_rcm_keys_are_read(key, value):
+    """The eval's extras and the RCM switch, refused before their slice
+    was ported, are the port's own keys now, with the JAX defaults:
+    get_config takes them past their default (the runs:
+    tests/test_torch_{eval_extras,nonlearning,flat_models}.py)."""
     cfg = get_config(opts=[key, json.dumps(value) if not isinstance(value, str) else value])
     assert _lookup(cfg, key) == value
     assert _lookup(port_defaults, key) == _lookup(jax_defaults, key)

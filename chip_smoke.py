@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (robo_vln_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile] [--only 9,10,11,12]
+    python3 chip_smoke.py [--profile] [--only 9,10,11,12,13]
 
-``--only`` runs the build and the listed phases among 9, 10, 11 and 12
-alone, to try them; such a run prints no result line.
+``--only`` runs the build and the listed phases among 9 to 13 alone, to
+try them; such a run prints no result line.
 
 Phases, one or more lines each; any failure ends the run with a non-zero
 exit code and no result line:
@@ -267,7 +267,43 @@ exit code and no result line:
    (BERT-base, both trunks, LSTM(512)), B=4, T=50, 200 tokens: the bf16
    window by CUDA events, 1 LSTM launch; the float32 window against its
    plain-kernel twin within 2e-3.
-13. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+13. The data plane and the mesh, at phase 6's width and options (bf16
+   unless said; a temporary directory under build/, removed at the end).
+   13a: phase 6's synthetic buffers written twice, through the native
+   trajectory store (sim/trajstore.cc, built by g++ into build/sim/) and
+   through the Python backend (ROBO_VLN_STORE_BACKEND): their store.dat and
+   store.idx must be equal byte for byte, the native store must have built;
+   both backends' read rates over the train buffer, twice each, in MB a
+   second; then run_exp's train epoch with DAGGER.LOADER_WORKERS 4 (each
+   worker batches its own shard, so its 2 episodes make one batch padded
+   to 4): the epoch's episodes must be the in-process loader's as a
+   multiset (sha256 of each real row), phase 6's launches a step and a
+   val window (2 + 2 forward, attention rounding p once, and 2 of the
+   LSTM's partials backward a step; 2 + 2 a val window), every logged loss
+   finite, and
+   no shared-memory segment left in /dev/shm; printed: each step's host
+   time, the gaps between steps and the wait for the first batch, beside
+   phase 6's, and each window's copy to the card (13b prints the same for
+   the in-process loader).  13b: run_exp's
+   epoch at TPU.MESH_SHAPE [-1, 1], which resolves to one rank, with DEVICE
+   as a user leaves it ("cuda", no index), inside an NCCL group of one that
+   the phase opens (a run of one rank has no group of its own): its trainer
+   must run on the group's one rank, with phase 6's launches a step and a
+   val window; printed: the all-reduce of each step (the gradients and losses in
+   one buffer) and val window by CUDA events and host clock; then a float32
+   step (lr 0) in the group against the same step outside any group: losses
+   and gradients bitwise equal (or, where the step outside does not repeat
+   bitwise, within phase 5b's tolerances).  13c: two ranks of a gloo group
+   spawned on the one card (NCCL takes one rank a device), each on its rows
+   of a global batch of 4 (rank 0's mostly padding: one episode of 12 real
+   steps and one all padding; rank 1's full), dropout off: each rank's
+   float32 step (lr 0) against one process's step on the global batch at
+   phase 5b's tolerances (losses 1e-4 relative, each trainable leaf's
+   gradient 1e-3 of its norm), then 3 bf16 steps a rank: every loss finite
+   and both ranks' weights bitwise equal after them; each step 2 + 2
+   forward and 2 LSTM backward launches; printed: each step's host ms and
+   its gloo all-reduce (through the host, so no target is set).
+14. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
    (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
    attention (its float32 route and every bf16 field) and its bf16 modes
    (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
@@ -282,7 +318,9 @@ exit code and no result line:
    ``flat_launches``: phase 11's paths (each model's windows and train
    steps, the trainer, the host eval, the on-device eval's replays); the
    LSTM and its backward also carry 11a's ``flat_*`` fields (one call at
-   T=100, B=1, H=512); ``extras_launches``: phase 12's paths.  Then the
+   T=100, B=1, H=512); ``extras_launches``: phase 12's paths;
+   ``loader_launches``: 13a's epoch; ``mesh_launches``: 13b's epoch and
+   13c's steps of both ranks.  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
@@ -1217,6 +1255,16 @@ def path_launches():
                for mode, count in fused_attention.bf16_mode_launches.items()}}
 
 
+def trainer_launches(train_steps, val_windows):
+    """A bf16 HCM trainer's path_launches over ``train_steps`` steps and
+    ``val_windows`` val windows: 2 + 2 forward (the LSTM, attention rounding
+    p once) a step and a window, 2 of the partials backward a step."""
+    forward = 2 * (train_steps + val_windows)
+    return {"lstm_seq": forward, "lstm_seq_backward": 2 * train_steps,
+            "lstm_seq_backward_dg_exchange": 0, "cross_modal_attn": forward,
+            "cross_modal_attn_bf16_round_p": forward, "cross_modal_attn_bf16_split_p": 0}
+
+
 def key_block_launches():
     """(float32 key-block, bf16 key-block, float32 narrow-copy) launches
     of the attention kernel so far."""
@@ -1670,13 +1718,13 @@ HCM_LOSS_KEYS = ("high_level_loss", "low_level_action_loss", "low_level_stop_los
 
 
 def hold_step_to_plain(label, got, got_grads, ref, ref_grads, loss_keys=HCM_LOSS_KEYS,
-                       zero_leaf=ZERO_GRAD_LEAF):
+                       zero_leaf=ZERO_GRAD_LEAF, against="plain"):
     """A float32 train step's losses (TRAIN_LOSS_RTOL, relative) and each
     trainable leaf's gradient (TRAIN_GRAD_TOL of the leaf's norm) against
     the same step with every kernel swapped for its plain version.  The
     leaves named ``...zero_leaf`` have an exact gradient of 0 and are held
     against their projection's weight gradient instead."""
-    print(f"  {label} against plain:")
+    print(f"  {label} against {against}:")
     for key in loss_keys:
         a, b = got[key].item(), ref[key].item()
         rel = abs(a - b) / abs(b) if b else abs(a)
@@ -1772,6 +1820,9 @@ def instrumented_trainer(record):
             before, t0 = counts(), time.perf_counter()
             if kind == "train" and record["last_end"] is not None:
                 record["gaps_ms"].append((t0 - record["last_end"]) * 1e3)
+            elif kind == "train" and record["epoch_start"] is not None:  # the loader's first batch
+                record["first_wait_ms"].append((t0 - record["epoch_start"]) * 1e3)
+                record["epoch_start"] = None
             if kind == "train":
                 record["first_steps"].append(args[0].high.step)
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1797,6 +1848,8 @@ def instrumented_trainer(record):
 
         def method(self, *args, **kwargs):
             t0 = time.perf_counter()
+            if name == "train_epoch":
+                record["epoch_start"] = t0
             out = original(self, *args, **kwargs)
             torch.cuda.synchronize()
             record[key].append((time.perf_counter() - t0) * 1e3)
@@ -1813,6 +1866,9 @@ def instrumented_trainer(record):
             return
         record["trainers"].append(self)
         record["shared_trunks"].append(self.trunk_fn is not None)
+        mesh = self.mesh
+        record["meshes"].append((mesh.size, mesh.distributed,
+                                 torch.distributed.get_backend() if mesh.distributed else None))
         if len(record["trainers"]) == 1:  # the first run's frozen weights, to hold
             record["frozen"] = {
                 (level, n): p.detach().clone() for level, pol in (("high", self.high),
@@ -1839,8 +1895,8 @@ def instrumented_trainer(record):
 def new_trainer_record():
     record = {k: [] for k in ("trainers", "shared_trunks", "train_ms", "val_ms", "gaps_ms",
                               "first_steps", "epoch_ms", "val_epoch_ms", "save_ms",
-                              "train_event_ms", "val_event_ms")}
-    record["last_end"], record["wrap"] = None, True
+                              "train_event_ms", "val_event_ms", "meshes", "first_wait_ms")}
+    record["last_end"], record["epoch_start"], record["wrap"] = None, None, True
     return record
 
 
@@ -1971,9 +2027,7 @@ def trainer_path(device, bare_step_ms, profile=False):
         if (len(record["train_ms"]), len(record["val_ms"])) != (8, 4):
             fail(f"{len(record['train_ms'])} train steps and {len(record['val_ms'])} val "
                  "windows, expected 8 and 4")
-        want = {"lstm_seq": 24, "lstm_seq_backward": 16, "lstm_seq_backward_dg_exchange": 0,
-                "cross_modal_attn": 24, "cross_modal_attn_bf16_round_p": 24,
-                "cross_modal_attn_bf16_split_p": 0}
+        want = trainer_launches(8, 4)
         if launches != want:
             fail(f"the trainer path launched {launches}, expected {want}: 24 of each forward "
                  "(bf16 attention rounding p once) and 16 of the partials backward")
@@ -2007,7 +2061,8 @@ def trainer_path(device, bare_step_ms, profile=False):
         events = [t for i, t in enumerate(record["train_event_ms"]) if i % 4]
         summary = {"step_ms": statistics.median(inner), "step_event_ms": statistics.median(events),
                    "epoch_ms": record["epoch_ms"][0], "val_ms": statistics.median(record["val_ms"]),
-                   "peak_gib": peak1 / 2**30}
+                   "peak_gib": peak1 / 2**30, "steps_ms": steps, "gaps_ms": record["gaps_ms"],
+                   "first_wait_ms": record["first_wait_ms"]}
         return launches, summary
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4428,6 +4483,506 @@ def extras_path(device, raw_step_ms=float("nan"), model_opts=()):
     return paths, timings
 
 
+LOADER_WORKERS = 4  # 13a: DAGGER.LOADER_WORKERS
+MESH_RANKS = 2  # 13c: gloo ranks on the one card
+MESH_BATCH = 4  # 13c: the global batch, 2 a rank
+MESH_T = 50
+# 13c's float32 parity: every rank draws its own masks, one process others
+MESH_NO_DROPOUT = ["MODEL.VISUAL_LING_ATTN.dropout", 0.0]
+MESH_BF16_STEPS = 3  # 13c: bf16 steps a rank, the first warming the process up
+
+
+def trainer_opts(device, root, *extra):
+    """Phase 6's run_exp options over the buffers under ``root``, one
+    epoch, no resume."""
+    return ["DEVICE", str(device), "TRAINER_NAME", "hierarchical_trainer",
+            "DAGGER.BATCH_SIZE", 4, "DAGGER.tbptt_steps", 50,
+            "DAGGER.EPISODE_LEN_BUCKETS", [100], "DAGGER.EPOCHS", 1,
+            "DAGGER.PRELOAD_LMDB_FEATURES", True,
+            "DAGGER.LMDB_FEATURES_DIR", os.path.join(root, "train"),
+            "DAGGER.LMDB_EVAL_DIR", os.path.join(root, "eval"),
+            "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"),
+            "TENSORBOARD_DIR", os.path.join(root, "tb"),
+            "LOG_FILE", os.path.join(root, "train.log"),
+            "MODEL.INSTRUCTION_ENCODER.is_bert", True,
+            "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True, "TPU.PRECISION", "bfloat16", *extra]
+
+
+def episode_fingerprints(batch):
+    """A sha256 of every real episode of a collated batch: each entry's row,
+    cut to the episode's steps (the instruction whole)."""
+    import hashlib
+
+    import numpy as np
+
+    out = []
+    valid = batch["valid_mask"]
+    for i in range(valid.shape[0]):
+        n = int(valid[i].sum())
+        if not n:
+            continue
+        h = hashlib.sha256()
+        for k in sorted(batch):
+            row = batch[k][i] if k in ("instruction", "instruction_embedding") else batch[k][i, :n]
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(row).tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+@contextlib.contextmanager
+def recorded_batches(fingerprints, train_dir):
+    """The trainers' batches of ``train_dir``, fingerprinted as they pass."""
+    from robo_vln_tpu_torch.training.trainer import BaseTrainer
+
+    original = BaseTrainer._batches
+
+    def batches(self, features_dir, seed):
+        it = original(self, features_dir, seed)
+        if features_dir != train_dir:
+            return it
+
+        def tee():
+            for batch in it:
+                fingerprints.extend(episode_fingerprints(batch))
+                yield batch
+        return tee()
+
+    BaseTrainer._batches = batches
+    try:
+        yield
+    finally:
+        BaseTrainer._batches = original
+
+
+@contextlib.contextmanager
+def recorded_segments(names):
+    """The names of the shared-memory segments created in the block."""
+    from multiprocessing import shared_memory
+
+    original = shared_memory.SharedMemory
+
+    class Recording(original):
+        def __init__(self, name=None, create=False, size=0, **kwargs):
+            super().__init__(name=name, create=create, size=size, **kwargs)
+            if create:
+                names.append(self.name)
+
+    shared_memory.SharedMemory = Recording
+    try:
+        yield
+    finally:
+        shared_memory.SharedMemory = original
+
+
+@contextlib.contextmanager
+def timed_sends(times):
+    """The host ms of each window's copy to the card on the hierarchical
+    trainer's worker thread (device_transfer's send: the pinned copy and
+    its queueing) into ``times``."""
+    from robo_vln_tpu_torch.training import hierarchical_trainer as ht
+
+    original = ht.device_transfer
+
+    def device_transfer(device):
+        send, receive = original(device)
+
+        def timed(window):
+            t0 = time.perf_counter()
+            out = send(window)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed, receive
+
+    ht.device_transfer = device_transfer
+    try:
+        yield
+    finally:
+        ht.device_transfer = original
+
+
+@contextlib.contextmanager
+def timed_reduce(times):
+    """Each DataMesh.reduce_step's ms (CUDA events, host clock) into ``times``."""
+    from robo_vln_tpu_torch.parallel.mesh import DataMesh
+
+    original = DataMesh.reduce_step
+
+    def reduce_step(self, grads, scalars):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        events[0].record()
+        out = original(self, grads, scalars)
+        events[1].record()
+        events[1].synchronize()
+        times.append((events[0].elapsed_time(events[1]), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    DataMesh.reduce_step = reduce_step
+    try:
+        yield
+    finally:
+        DataMesh.reduce_step = original
+
+
+def store_and_loader(device, root, raw):
+    """13a: the native store against the Python backend, their read rates,
+    and a run_exp epoch through the process-parallel loader."""
+    import filecmp
+    import gc
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.data import trajectory_store as store_lib
+    from robo_vln_tpu_torch.data.loader import TrajectoryDataset, batch_iterator
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+
+    saved = os.environ.get(store_lib.BACKEND_VAR)
+    for backend in ("native", "python"):
+        os.environ[store_lib.BACKEND_VAR] = backend
+        t0 = time.perf_counter()
+        size = write_trainer_buffers(os.path.join(root, backend))
+        print(f"  phase 6's buffers written through the {backend} backend: {size / 2**20:.1f} "
+              f"MiB in {time.perf_counter() - t0:.2f} s")
+    if saved is None:
+        os.environ.pop(store_lib.BACKEND_VAR)
+    else:
+        os.environ[store_lib.BACKEND_VAR] = saved
+    with store_lib.TrajectoryStore(os.path.join(root, "native", "train")) as store:
+        if store.backend != "native":
+            fail("the native trajectory store did not build (g++ missing?)")
+    for split in ("train", "eval"):
+        for name in ("store.dat", "store.idx"):
+            if not filecmp.cmp(os.path.join(root, "native", split, name),
+                               os.path.join(root, "python", split, name), shallow=False):
+                fail(f"the native store's {split}/{name} differs from the Python backend's")
+    print("  the native store's files equal the Python backend's, byte for byte "
+          "(train and eval, store.dat and store.idx)")
+    for backend in ("native", "python"):
+        rates = []
+        for _ in range(2):
+            with store_lib.TrajectoryStore(os.path.join(root, "native", "train"),
+                                           backend=backend) as store:
+                t0 = time.perf_counter()
+                total = sum(store.get_buffer(k).nbytes for k in range(len(store)))
+                rates.append(total / 1e6 / (time.perf_counter() - t0))
+        print(f"  {backend} backend reads the train buffer ({total / 2**20:.1f} MiB) at "
+              + ", then ".join(f"{r:.1f}" for r in rates) + " MB/s")
+
+    train_dir = os.path.join(root, "native", "train")
+    opts = trainer_opts(device, os.path.join(root, "native"),
+                        "DAGGER.LOADER_WORKERS", LOADER_WORKERS)
+    dag = get_config(opts=opts).DAGGER
+    want = []  # the in-process loader's episodes of epoch 0
+    dataset = TrajectoryDataset(train_dir, batch_size=dag.BATCH_SIZE, is_bert=True, seed=0)
+    for batch in batch_iterator(dataset, dag.BATCH_SIZE, list(dag.EPISODE_LEN_BUCKETS),
+                                dag.MAX_INSTRUCTION_LEN):
+        want.extend(episode_fingerprints(batch))
+    record, got, segments, sends = new_trainer_record(), [], [], []
+    fused_lstm.reset_launches()
+    fused_attention.reset_launches()
+    with instrumented_trainer(record), recorded_batches(got, train_dir), \
+            recorded_segments(segments), timed_sends(sends):
+        t0 = time.perf_counter()
+        run_exp(None, "train", opts)
+        run_ms = (time.perf_counter() - t0) * 1e3
+    launches = path_launches()
+    record["trainers"].clear()
+    if sorted(got) != sorted(want):
+        fail(f"the parallel loader's episodes ({len(got)}) are not the in-process loader's "
+             f"({len(want)}) as a multiset")
+    gc.collect()  # the last batch's arrays, whose finalizers free their segment
+    left = [n for n in segments if os.path.exists(os.path.join("/dev/shm", n.lstrip("/")))]
+    if not segments or left:
+        fail(f"shared-memory segments: {len(segments)} created, left behind: {left}")
+    with open(os.path.join(root, "native", "tb", "metrics.jsonl")) as f:
+        losses = [json.loads(line)["value"] for line in f if "Loss" in line]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail("the parallel-loader epoch logged a non-finite loss")
+    steps = len(record["train_ms"])
+    want_launches = trainer_launches(steps, len(record["val_ms"]))
+    if launches != want_launches:
+        fail(f"the parallel-loader epoch launched {launches}, expected {want_launches}")
+    print(f"  run_exp epoch with DAGGER.LOADER_WORKERS {LOADER_WORKERS}: {run_ms:.1f} ms, "
+          f"{steps} train steps (each worker batches its own shard of 2 episodes, padded to "
+          f"4) and {len(record['val_ms'])} val windows; {len(got)} episodes, the in-process "
+          f"loader's as a multiset; {len(segments)} segments created, none left in /dev/shm")
+    print("  train steps, host ms: " + " ".join(f"{t:.3f}" for t in record["train_ms"]))
+    print("  gaps between steps, ms: " + " ".join(f"{t:.3f}" for t in record["gaps_ms"])
+          + "; the epoch's start to its first step (the loader's first batch): "
+          + " ".join(f"{t:.1f}" for t in record["first_wait_ms"]) + " ms")
+    if raw:
+        print("  phase 6 (in-process loader, runs 1 and 2): steps, host ms: "
+              + " ".join(f"{t:.3f}" for t in raw["steps_ms"]) + "; gaps, ms: "
+              + " ".join(f"{t:.3f}" for t in raw["gaps_ms"]) + "; the epochs' start to their "
+              "first step: " + " ".join(f"{t:.1f}" for t in raw["first_wait_ms"]) + " ms")
+    print("  each window's copy to the card (train windows on the worker thread, then val "
+          "windows on the main one), host ms: " + " ".join(f"{t:.3f}" for t in sends))
+    print(f"  launches: {launches} (2 + 2 forward and 2 LSTM backward a step, 2 + 2 a val "
+          "window)")
+    return launches
+
+
+def mesh_step(cfg, high, low, mesh):
+    from robo_vln_tpu_torch.models import make_shared_trunk_fn
+    from robo_vln_tpu_torch.training import inflection_coef_from, make_hier_train_step
+
+    return make_hier_train_step(
+        high, low, trunk_fn=make_shared_trunk_fn(high), inflection_coef=inflection_coef_from(cfg),
+        valid_velocity_mse=cfg.TPU.VALID_MASK_VELOCITY_MSE, mesh=mesh)
+
+
+def step_outputs(step, state, high, low, batch, lr=0.0):
+    """(metrics, gradients by name) of one step from the given state."""
+    b = batch["valid_mask"].shape[0]
+    device = batch["valid_mask"].device
+    _, _, _, metrics = step(state, high.initial_hidden(b, device), low.initial_hidden(b, device),
+                            batch, lr, lr)
+    grads = {f"{level}.{n}": p.grad.clone() for level, pol in (("high", high), ("low", low))
+             for n, p in pol.named_parameters() if p.grad is not None}
+    return {k: v.clone() for k, v in metrics.items()}, grads
+
+
+@contextlib.contextmanager
+def one_rank_group(device):
+    """A process group of one around the block: NCCL on the card (a run of
+    one rank has no group; this one has the many-rank path's collectives
+    run at world size 1)."""
+    import torch.distributed as dist
+
+    from robo_vln_tpu_torch.parallel.mesh import free_address, init_process_group
+
+    init_process_group(0, 1, free_address(), device)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def one_card_mesh(device, root):
+    """13b: run_exp's epoch in an NCCL group of one, and a float32 step in
+    the group against the same step outside any."""
+    import torch.distributed as dist
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.parallel.mesh import DataMesh
+    from robo_vln_tpu_torch.run import run_exp
+
+    # DEVICE as a user leaves it: "cuda", no index
+    opts = trainer_opts(device.type, os.path.join(root, "native"),
+                        "CHECKPOINT_FOLDER", os.path.join(root, "ckpts_13b"),
+                        "TENSORBOARD_DIR", os.path.join(root, "tb_13b"))
+    record, reduce_ms, sends = new_trainer_record(), [], []
+    fused_lstm.reset_launches()
+    fused_attention.reset_launches()
+    with one_rank_group(device), instrumented_trainer(record), timed_reduce(reduce_ms), \
+            timed_sends(sends):
+        run_exp(None, "train", opts)
+    launches = path_launches()
+    meshes = record["meshes"]
+    record["trainers"].clear()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if meshes != [(1, True, backend)]:
+        fail(f"run_exp's trainer at TPU.MESH_SHAPE [-1, 1] ran on the mesh {meshes}, expected "
+             f"one rank of a {backend} group")
+    if len(reduce_ms) != len(record["train_ms"]) + len(record["val_ms"]):
+        fail(f"{len(reduce_ms)} all-reduces for {len(record['train_ms'])} steps and "
+             f"{len(record['val_ms'])} val windows")
+    want = trainer_launches(len(record["train_ms"]), len(record["val_ms"]))
+    if launches != want:
+        fail(f"the epoch in the group of one launched {launches}, expected {want}")
+    print(f"  run_exp epoch at TPU.MESH_SHAPE [-1, 1]: {meshes[0][0]} rank, {meshes[0][2]}; "
+          f"{len(record['train_ms'])} train steps, host ms: "
+          + " ".join(f"{t:.3f}" for t in record["train_ms"]))
+    print("  the step's all-reduce (gradients and losses, one buffer), ms by CUDA events / host "
+          "clock: " + " ".join(f"{e:.3f}/{h:.3f}" for e, h in reduce_ms[:len(record['train_ms'])])
+          + "; a val window's (losses): " + " ".join(
+              f"{e:.3f}/{h:.3f}" for e, h in reduce_ms[len(record["train_ms"]):]))
+    print("  each window's copy to the card (the in-process loader; train windows on the "
+          "worker thread, then val windows on the main one), host ms: "
+          + " ".join(f"{t:.3f}" for t in sends))
+    print(f"  launches: {launches}")
+
+    cfg = get_config()
+    high, low, step, state = make_train(cfg, torch.float32, device)
+    batch = train_batch(torch.Generator().manual_seed(5), MESH_BATCH, MESH_T, 200, device)
+    runs = [step_outputs(step, state, high, low, batch) for _ in range(2)]
+    with one_rank_group(device):
+        mesh = DataMesh(device)
+        grouped = step_outputs(mesh_step(cfg, high, low, mesh), state, high, low, batch)
+        backend = dist.get_backend()
+        # the all-reduce's parts on the step's gradients: the copy into one
+        # buffer, the collective alone, the whole reduce_step
+        grads = list(grouped[1].values())
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        scalars = [torch.zeros((), device=device)] * 4
+        parts = {"cat": lambda: torch.cat([g.reshape(-1) for g in grads]),
+                 "all_reduce": lambda: dist.all_reduce(flat),
+                 "reduce_step": lambda: mesh.reduce_step(grads, scalars)}
+        print(f"  the all-reduce's parts over the step's {flat.numel()} gradients "
+              f"({flat.numel() * 4 / 1e6:.1f} MB), median of 10 calls by CUDA events: " + ", ".join(
+                  f"{name} {statistics.median(time_ms(fn, reps=10, inner=1)):.4f} ms"
+                  for name, fn in parts.items()))
+    del high, low, step, state
+
+    def bitwise(a, b):
+        return a[0].keys() == b[0].keys() and a[1].keys() == b[1].keys() and all(
+            torch.equal(a[i][k], b[i][k]) for i in (0, 1) for k in a[i])
+
+    repeatable = bitwise(runs[0], runs[1])
+    if bitwise(grouped, runs[0]):
+        print(f"  float32 step (lr 0) in the {backend} group of one: losses and "
+              f"{len(grouped[1])} gradients bitwise equal to the step outside any group")
+    elif repeatable:
+        fail("the float32 step in a group of one differs from the step outside any group, "
+             "which repeats bitwise")
+    else:
+        print("  the float32 step outside any group does not repeat bitwise; the grouped step "
+              "is held to it at phase 5b's tolerances")
+        hold_step_to_plain("the grouped step", *grouped, *runs[0], against="the step outside")
+    return launches
+
+
+def mesh_batch(device):
+    """13c's global batch: rank 0's rows mostly padding (12 real steps, then
+    an episode all padding), rank 1's two full episodes."""
+    batch = train_batch(torch.Generator().manual_seed(13), MESH_BATCH, MESH_T, 200, device)
+    for row, first in ((0, 12), (1, 0)):
+        batch["valid_mask"][row, first:] = 0.0
+        batch["vln_oracle_action_sensor"][row, first:] = 0.0
+        batch["corrected_actions"][row, first:] = 0.0
+        batch["oracle_stop"][row, first:] = -1.0
+    return batch
+
+
+def _mesh_rank(rank, address, out_dir, device):
+    """13c's rank, in a spawned process on ``device`` (the one card): the
+    sharded float32 step (lr 0), then MESH_BF16_STEPS bf16 steps; its
+    results into out_dir."""
+    global torch
+    import torch  # this module is __mp_main__ here, imported without torch
+    import torch.distributed as dist
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.parallel.mesh import DataMesh, init_process_group
+
+    device = torch.device(device)
+    init_process_group(rank, MESH_RANKS, address, device, backend="gloo")
+    try:
+        mesh = DataMesh(device, size=MESH_RANKS, rank=rank)
+        batch = mesh.shard(mesh_batch(device))
+        out = {}
+        for dtype, n, lr in ((torch.float32, 1, 0.0), (torch.bfloat16, MESH_BF16_STEPS, 1e-4)):
+            # each rank draws its own dropout masks: the float32 parity runs without
+            cfg = get_config(opts=MESH_NO_DROPOUT if dtype == torch.float32 else None)
+            high, low, step, state = make_train(cfg, dtype, device)
+            mesh.broadcast(high, low)
+            step = mesh_step(cfg, high, low, mesh)
+            b = MESH_BATCH // MESH_RANKS
+            hh, lh = high.initial_hidden(b, device), low.initial_hidden(b, device)
+            reduce_ms, step_ms = [], []
+            fused_lstm.reset_launches()
+            fused_attention.reset_launches()
+            with timed_reduce(reduce_ms):
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    state, hh, lh, metrics = step(state, hh, lh, batch, lr, lr)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+            result = {"metrics": {k: v.cpu() for k, v in metrics.items()}, "steps": n,
+                      "launches": path_launches(), "reduce_ms": reduce_ms, "step_ms": step_ms}
+            if dtype == torch.float32:
+                result["grads"] = {f"{level}.{k}": p.grad.cpu()
+                                   for level, pol in (("high", high), ("low", low))
+                                   for k, p in pol.named_parameters() if p.grad is not None}
+            else:
+                flat = torch.cat([p.detach().float().reshape(-1)
+                                  for m in (high, low) for p in m.parameters()])
+                ref = flat.clone()
+                dist.broadcast(ref, 0)
+                result["weights_equal"] = bool(torch.equal(flat, ref))
+            out[str(dtype).split(".")[-1]] = result
+            del high, low, state, step
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks_on_one_card(device, root):
+    """13c: two gloo ranks on the one card against the one-process step on
+    the global batch."""
+    import torch.multiprocessing as mp
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.parallel.mesh import free_address
+
+    cfg = get_config(opts=MESH_NO_DROPOUT)
+    high, low, step, state = make_train(cfg, torch.float32, device)
+    ref, ref_grads = step_outputs(step, state, high, low, mesh_batch(device))
+    ref_grads = {k: v.cpu() for k, v in ref_grads.items()}
+    del high, low, step, state
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "ranks")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(free_address(), out_dir, str(device)), nprocs=MESH_RANKS,
+                       join=True, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    results = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+               for r in range(MESH_RANKS)]
+    print(f"  {MESH_RANKS} ranks spawned, ran and joined in {spawn_s:.1f} s")
+    launches = {}
+    for rank, res in enumerate(results):
+        f32, bf16 = res["float32"], res["bfloat16"]
+        hold_step_to_plain(f"rank {rank}'s float32 step (B={MESH_BATCH // MESH_RANKS} a rank)",
+                           f32["metrics"], f32["grads"], ref, ref_grads,
+                           against=f"one process at B={MESH_BATCH}")
+        for label, r in (("float32", f32), ("bf16", bf16)):
+            got = {k: r["launches"][k] for k in ("lstm_seq", "lstm_seq_backward",
+                                                 "cross_modal_attn")}
+            if got != dict.fromkeys(got, 2 * r["steps"]):
+                fail(f"rank {rank}'s {r['steps']} {label} steps launched {r['launches']}")
+            print(f"  rank {rank}, {r['steps']} {label} step(s), host ms: "
+                  + " ".join(f"{t:.3f}" for t in r["step_ms"]) + "; their gloo all-reduce, "
+                  "ms by CUDA events / host clock: "
+                  + " ".join(f"{e:.3f}/{h:.3f}" for e, h in r["reduce_ms"])
+                  + f"; launches {got} (2 + 2 forward and 2 LSTM backward a step)")
+        if not all(math.isfinite(v.item()) for v in bf16["metrics"].values()):
+            fail(f"rank {rank}'s bf16 step gave a non-finite loss")
+        if not bf16["weights_equal"]:
+            fail(f"rank {rank}'s weights differ from rank 0's after the bf16 step")
+        for r in (f32, bf16):
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    print(f"  both ranks' bf16 losses finite and weights bitwise equal after the steps; "
+          f"launches of both ranks: {launches}")
+    return launches
+
+
+def mesh_path(device, raw=None):
+    """Phase 13: the data plane and the mesh at full width."""
+    import shutil
+    import tempfile
+
+    from robo_vln_tpu_torch.ops import _build
+
+    print("phase 13: the data plane and the mesh at full width, bfloat16 unless said")
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="mesh_", dir=_build.BUILD_DIR.parent)
+    try:
+        print("phase 13a: the native trajectory store and the process-parallel loader")
+        loader = store_and_loader(device, root, raw)
+        print("phase 13b: the mesh on the one card, an NCCL group of one")
+        one = one_card_mesh(device, root)
+        print(f"phase 13c: {MESH_RANKS} gloo ranks on the one card, B={MESH_BATCH} global")
+        two = two_ranks_on_one_card(device, root)
+        return loader, {"13b": one, "13c": two}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _config_dir():
     from robo_vln_tpu_torch.config.default import _CONFIGS
 
@@ -4472,6 +5027,8 @@ def main():
             flat_path(device)
         if "12" in only:
             extras_path(device)
+        if "13" in only:
+            mesh_path(device)
         print(f"chip_smoke: phases {only} passed; a partial run prints no result")
         return 0
     gen = torch.Generator().manual_seed(0)
@@ -4507,9 +5064,11 @@ def main():
     read_key_blocks("_flat")
     extras_launches, _ = extras_path(device, flat_timings["trainer_step_ms"])
     read_key_blocks("_extras")
+    loader_launches, mesh_launches = mesh_path(device, raw_trainer)
+    read_key_blocks("_mesh")
     print(f"key-block launches of the attention kernel (S > 128 or d > 128 in float32, S > "
           f"128 in bf16) and float32 one-float-copy launches on the serving, train, "
-          f"trainer, eval, collection, feature, on-device, flat and extras paths (the "
+          f"trainer, eval, collection, feature, on-device, flat, extras and mesh paths (the "
           f"on-device paths' as the wrappers counted them, at the warm-up and the capture): "
           f"{key_blocks}")
     if any(key_blocks.values()):
@@ -4526,6 +5085,8 @@ def main():
         k["flat_launches"] = {path: counts[k["name"]] for path, counts in flat_launches.items()}
         k["extras_launches"] = {path: counts[k["name"]]
                                 for path, counts in extras_launches.items()}
+        k["loader_launches"] = loader_launches[k["name"]]
+        k["mesh_launches"] = {path: counts[k["name"]] for path, counts in mesh_launches.items()}
     kernels[0].update(flat_forward)  # the LSTM at the flat window's shape
     kernels[1].update(flat_backward)
     # the serving path runs no backward: the backward's launches are the train path's

@@ -6,14 +6,14 @@ A copy of the keys of robo_vln_tpu/config/default.py with the same names and
 defaults, so a config written for the JAX package sets the same model and
 the same training loop here: the top-level paths, ``TASK_CONFIG`` (built from
 ``BASE_TASK_CONFIG_PATH`` as the JAX package builds it), the ``TPU.*``
-switches, the ``DAGGER`` loop, the ``MODEL.*`` stanzas of the two policies,
+switches and mesh, the ``DAGGER`` loop, the ``MODEL.*`` stanzas of the two policies,
 the pretrained-file keys and the ``EVAL.*`` keys of the host eval loops
 and the on-device eval (eval/evaluator.py, eval/ondevice.py).  A key no port code reads yet names the
 ROADMAP item (§A) that will read it.  Keys that only the port reads are
 marked "port-only".  The JAX package's other keys are not in this tree:
 ``jax_only.py`` lists them with their JAX defaults, and ``get_config``
-refuses one set to another value where the port would drop it (such as
-``TPU.MESH_SHAPE``), naming the ROADMAP item that would port it, and
+refuses one set to another value where the port would drop it, naming the
+ROADMAP item that would port it, and
 takes any value of those no value of which matters (such as ``TPU.DONATE``:
 eager PyTorch updates parameters in place, so there is no buffer to donate).
 """
@@ -54,6 +54,12 @@ _C.VIDEO_DIR = "videos/debug"
 _C.PLOT_ATTENTION = False
 
 _C.TPU = ConfigTree()
+# the data-parallel mesh (parallel/mesh.py): one process a rank of the
+# "data" axis; -1 puts every visible CUDA device on it (one process on the
+# CPU).  DAGGER.BATCH_SIZE is per rank.  A "model" axis above 1 (tensor
+# parallelism) is refused by get_config (check_mesh, ROADMAP §A item 7b)
+_C.TPU.MESH_AXES = ["data", "model"]
+_C.TPU.MESH_SHAPE = [-1, 1]
 # compute dtype of the encoders and the attention ("bfloat16" or "float32");
 # LayerNorm, GroupNorm statistics, softmax and both kernels stay float32
 _C.TPU.PRECISION = "bfloat16"
@@ -141,8 +147,8 @@ _C.DAGGER.LMDB_EVAL_SIZE = 1e11
 _C.DAGGER.split_dim = 0
 _C.DAGGER.INTER_MODULE_ATTN = False
 _C.DAGGER.LMDB_STORE_FREQUENCY = 5
-# >1: the process-parallel loader (data/parallel_loader.py, ROADMAP §A
-# item 2), not ported: the trainer raises
+# >1: that many processes decode and collate the batches into shared
+# memory (data/parallel_loader.py); the batch order then depends on it
 _C.DAGGER.LOADER_WORKERS = 0
 # False: each DAgger iteration collects into LMDB_FEATURES_DIR before its
 # epochs (envs/collection.py); COLLECT_ONLY stops after the first collection
@@ -285,6 +291,24 @@ def depth_input_size(config: ConfigTree) -> int:
     return size
 
 
+def check_mesh(config: ConfigTree) -> None:
+    """Refuse, before any work, a mesh the port does not build: axis names
+    other than ["data", "model"], a shape of another length, a "model"
+    axis other than 1 (tensor parallelism), or a data axis that is neither
+    -1 nor a count of ranks."""
+    axes, shape = list(config.TPU.MESH_AXES), list(config.TPU.MESH_SHAPE)
+    if axes != ["data", "model"]:
+        key, value, why = "TPU.MESH_AXES", axes, "the port's mesh has the axes ['data', 'model']"
+    elif len(shape) != 2 or shape[1] != 1:
+        key, value, why = "TPU.MESH_SHAPE", shape, (
+            "the port has no tensor parallelism: the \"model\" axis must be 1")
+    elif not (shape[0] == -1 or int(shape[0]) >= 1):
+        key, value, why = "TPU.MESH_SHAPE", shape, "the data axis is -1 or a count of ranks"
+    else:
+        return
+    raise NotImplementedError(f"{key} = {value!r}: {why} (ROADMAP §A item 7b)")
+
+
 def check_opencv(config: ConfigTree) -> None:
     """The videos and the top-down map draw with OpenCV, as in the JAX
     package: with cv2 missing, ``VIDEO_OPTION`` set or ``TOP_DOWN_MAP`` among
@@ -308,7 +332,8 @@ def get_config(
     MODEL.DEPTH_ENCODER.input_size follows the task's depth sensor; set to
     another size, it raises.  A key of the JAX package that the port does
     not read, set to another value than its JAX default, raises
-    NotImplementedError naming its ROADMAP item (jax_only.py).  Videos or the
+    NotImplementedError naming its ROADMAP item (jax_only.py), and so does a
+    mesh the port does not build (:func:`check_mesh`).  Videos or the
     top-down map without OpenCV raise ImportError (:func:`check_opencv`)."""
     config = _C.clone()
     if isinstance(config_paths, str):
@@ -326,6 +351,7 @@ def get_config(
         depth.input_size = config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH
     depth_input_size(config)
     check_jax_only_keys(config)
+    check_mesh(config)
     check_opencv(config)
     config.freeze()
     return config

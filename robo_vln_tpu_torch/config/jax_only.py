@@ -16,12 +16,9 @@ from typing import Any, Dict, Iterator, Tuple
 
 _READ_NOWHERE = "read nowhere in the JAX package"
 
-# key -> (JAX default, the ROADMAP item that would port it)
-UNPORTED: Dict[str, Tuple[Any, str]] = {
-    # the data-parallel mesh
-    "TPU.MESH_AXES": (["data", "model"], "§A item 7"),
-    "TPU.MESH_SHAPE": ([-1, 1], "§A item 7"),
-}
+# key -> (JAX default, the ROADMAP item that would port it); empty since the
+# mesh's keys (TPU.MESH_AXES, TPU.MESH_SHAPE) joined the port's tree
+UNPORTED: Dict[str, Tuple[Any, str]] = {}
 
 
 def _stanza(prefix: str, defaults: Dict[str, Any], why: str) -> Dict[str, Tuple[Any, str]]:
@@ -72,7 +69,7 @@ INERT: Dict[str, Tuple[Any, str]] = {
         scheduler_patience=1e-4, split_gpus=False, hidden_size=512), _REFERENCE_ONLY),
     **_stanza("DDP", dict(distributed=False, world_size=1, rank=0, gpu=0, dist_url="env://",
                           dist_backend="nccl"),
-              _READ_NOWHERE + " (the reference's DDP stanza; the mesh is §A item 7)"),
+              _READ_NOWHERE + " (the reference's DDP stanza; TPU.MESH_SHAPE sets the mesh)"),
 }
 
 

@@ -28,6 +28,15 @@ class ConfigTree:
             for k, v in data.items():
                 self._data[k] = ConfigTree(v) if isinstance(v, dict) else v
 
+    # pickling and deep copies set the slots directly, past the frozen check
+    # of __setattr__ (a policy holding its config is sent to spawned ranks)
+    def __getstate__(self):
+        return {"_data": self._data, "_frozen": self._frozen}
+
+    def __setstate__(self, state) -> None:
+        object.__setattr__(self, "_data", state["_data"])
+        object.__setattr__(self, "_frozen", state["_frozen"])
+
     # -- attribute protocol -------------------------------------------------
     def __getattr__(self, name: str) -> Any:
         if name.startswith("_"):

@@ -24,7 +24,7 @@ axis is axis 0 everywhere.
 from __future__ import annotations
 
 import random
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -198,6 +198,7 @@ def collate_batch(
     max_instruction_len: int = 200,
     pad_to_batch: Optional[int] = None,
     alloc=_empty_alloc,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, np.ndarray]:
     """Pad a list of decoded episodes into one static-shape batch-major batch.
 
@@ -211,12 +212,19 @@ def collate_batch(
     process-parallel loader passes a shared-memory allocator so workers
     collate straight into the segment the trainer reads.  Only the padding
     tail is zeroed (the real rows are fully overwritten), which saves a full
-    memset pass over the dominant arrays on the hot path."""
+    memset pass over the dominant arrays on the hot path.
+
+    `rows=(lo, hi)` collates only rows [lo, hi) of that batch, at the
+    bucket of all of `samples`: a rank of the data-parallel mesh collates
+    its own rows of the global batch (parallel/mesh.DataMesh.rows)."""
     B = max(len(samples), pad_to_batch or 0)
     T = pick_bucket(max(len(s[1]) for s in samples), buckets)
     L = max_instruction_len
 
     obs0 = samples[0][0]
+    if rows is not None:
+        lo, hi = rows
+        samples, B = samples[lo:hi], hi - lo
     batch: Dict[str, np.ndarray] = {}
     # episode-level (not per-step) keys; instruction_embedding is the
     # precomputed frozen-BERT row from the feature store (training/featurize.py)
@@ -283,19 +291,22 @@ def batch_iterator(
     buckets: Sequence[int],
     max_instruction_len: int = 200,
     drop_last: bool = False,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield static-shape batches of exactly `batch_size` episodes; the tail
     batch is padded with empty (fully masked) episodes rather than dropped, so
-    a full-mesh global batch never starves on small buffers."""
+    a full-mesh global batch never starves on small buffers.  `rows` keeps
+    rows [lo, hi) of each batch (collate_batch)."""
     buf = []
     for sample in dataset:
         buf.append(sample)
         if len(buf) == batch_size:
-            yield collate_batch(buf, buckets, max_instruction_len)
+            yield collate_batch(buf, buckets, max_instruction_len, rows=rows)
             buf = []
     if buf and not drop_last:
         yield collate_batch(
-            buf, buckets, max_instruction_len, pad_to_batch=batch_size
+            buf, buckets, max_instruction_len, pad_to_batch=batch_size,
+            rows=rows,
         )
 
 

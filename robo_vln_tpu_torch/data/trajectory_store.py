@@ -1,34 +1,108 @@
 """Trajectory buffer: a key-value store of serialized expert episodes (the
-port's own copy of the pure-Python backend of
-robo_vln_tpu/data/trajectory_store.py).
+port's own copy of robo_vln_tpu/data/trajectory_store.py).
 
 On disk, a store is a directory of two append-only files, in the format the
-JAX package's native store (``sim/trajstore.cc``) and its Python backend
-both read and write:
+JAX package's stores read and write:
 
 * ``store.dat``: records ``[u64 key][u64 length][length bytes]``;
 * ``store.idx``: entries ``[u64 key][u64 value offset][u64 length]``, the
   last entry of a key winning.
 
 All integers are little-endian.  Values are arbitrary bytes; the episode
-layout lives in data/serialization.py and data/loader.py.  The port has this
-one backend; the native store (``sim/trajstore.cc``, built by the port's
-``sim/build.py`` as the env layer's C++ is) is ROADMAP §A item 2's remainder.
+layout lives in data/serialization.py and data/loader.py.
+
+Two backends read and write these files alike: the native store
+(``sim/trajstore.cc``: appends through stdio, reads by one ``memcpy`` out
+of an mmap of ``store.dat``; built by ``sim/build.py`` into ``build/sim/``
+on first use) and a pure-Python one.  :class:`TrajectoryStore` takes the
+native one unless ``g++`` is missing (the build fails) or the environment
+variable ``ROBO_VLN_STORE_BACKEND`` names another backend than ``native``,
+as the JAX package's facade does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
+import subprocess
+from typing import Optional
 
 import numpy as np
 
 _REC = struct.Struct("<QQQ")
 _HDR = struct.Struct("<QQ")
+BACKEND_VAR = "ROBO_VLN_STORE_BACKEND"
 
 
-class TrajectoryStore:
-    def __init__(self, path: str, writable: bool = False):
+def _native_lib():
+    from ..sim.build import load
+
+    lib = load("trajstore")
+    lib.ts_open.restype = ctypes.c_void_p
+    lib.ts_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.ts_put.restype = ctypes.c_int
+    lib.ts_put.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p,
+                           ctypes.c_uint64]
+    lib.ts_get_len.restype = ctypes.c_int64
+    lib.ts_get_len.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    lib.ts_get.restype = ctypes.c_int
+    lib.ts_get.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                           ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64]
+    lib.ts_count.restype = ctypes.c_uint64
+    lib.ts_count.argtypes = [ctypes.c_void_p]
+    lib.ts_flush.restype = ctypes.c_int
+    lib.ts_flush.argtypes = [ctypes.c_void_p]
+    lib.ts_close.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+class NativeStore:
+    """The C++ store behind ctypes; raises when it cannot be built or the
+    directory cannot be opened."""
+
+    def __init__(self, path: str, writable: bool):
+        self.path = path
+        self._lib = _native_lib()
+        self._h = self._lib.ts_open(path.encode(), 1 if writable else 0)
+        if not self._h:
+            raise IOError(f"cannot open trajectory store at {path}")
+        self._writable = writable
+
+    def put(self, key: int, data: bytes) -> None:
+        if not self._writable:
+            raise IOError(f"trajectory store {self.path} was opened read-only")
+        rc = self._lib.ts_put(self._h, key, data, len(data))
+        if rc != 0:
+            raise IOError(f"ts_put failed rc={rc}")
+
+    def get_buffer(self, key: int) -> np.ndarray:
+        n = self._lib.ts_get_len(self._h, key)
+        if n < 0:
+            raise KeyError(key)
+        buf = np.empty(n, np.uint8)
+        rc = self._lib.ts_get(self._h, key,
+                              buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n)
+        if rc != 0:
+            raise IOError(f"ts_get failed rc={rc}")
+        return buf
+
+    def __len__(self) -> int:
+        return int(self._lib.ts_count(self._h))
+
+    def flush(self) -> None:
+        self._lib.ts_flush(self._h)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.ts_close(self._h)
+            self._h = None
+
+
+class PythonStore:
+    """The same files, in pure Python."""
+
+    def __init__(self, path: str, writable: bool):
         self.path = path
         os.makedirs(path, exist_ok=True)
         self._dat_path = os.path.join(path, "store.dat")
@@ -57,8 +131,6 @@ class TrajectoryStore:
         self._index[key] = (off, len(data))
 
     def get_buffer(self, key: int) -> np.ndarray:
-        """The value as a (n,) uint8 array, read with one copy; decode it
-        zero-copy with data/serialization.unpackb_any."""
         off, n = self._index[key]
         if self._dat_w:
             self._dat_w.flush()
@@ -68,9 +140,6 @@ class TrajectoryStore:
         if read != n:
             raise IOError(f"short read: {read}/{n} bytes for key {key}")
         return buf
-
-    def get(self, key: int) -> bytes:
-        return self.get_buffer(key).tobytes()
 
     def __len__(self) -> int:
         return len(self._index)
@@ -84,6 +153,49 @@ class TrajectoryStore:
         for f in (self._dat_w, self._idx_w, self._dat_r):
             if f:
                 f.close()
+
+
+class TrajectoryStore:
+    """The store at ``path`` through ``backend`` ("native" or "python"; by
+    default ``$ROBO_VLN_STORE_BACKEND``, else "native").  The native
+    backend falls back to the Python one where it cannot be built."""
+
+    def __init__(self, path: str, writable: bool = False, backend: Optional[str] = None):
+        self.path = path
+        if backend is None:
+            backend = os.environ.get(BACKEND_VAR, "native")
+        self._impl = None
+        if backend == "native":
+            try:
+                self._impl = NativeStore(path, writable)
+            except (OSError, RuntimeError, subprocess.SubprocessError):
+                pass  # not built (no g++) or not opened: the Python backend reads the same files
+        if self._impl is None:
+            self._impl = PythonStore(path, writable)
+
+    @property
+    def backend(self) -> str:
+        return "native" if isinstance(self._impl, NativeStore) else "python"
+
+    def put(self, key: int, data: bytes) -> None:
+        self._impl.put(key, data)
+
+    def get_buffer(self, key: int) -> np.ndarray:
+        """The value as a (n,) uint8 array, read with one copy; decode it
+        zero-copy with data/serialization.unpackb_any."""
+        return self._impl.get_buffer(key)
+
+    def get(self, key: int) -> bytes:
+        return self.get_buffer(key).tobytes()
+
+    def __len__(self) -> int:
+        return len(self._impl)
+
+    def flush(self) -> None:
+        self._impl.flush()
+
+    def close(self) -> None:
+        self._impl.close()
 
     def __enter__(self):
         return self

@@ -9,6 +9,12 @@ Every quirk is kept:
   over those elements, in the stable log-sigmoid form;
 * sub-goal CE: logits rows zeroed where the oracle sub-goal is 0, labels are
   (sub-goal - 1), and rows with oracle 0 are ignored.
+
+Each count-normalised loss takes its denominator as ``count`` where it is
+given: on a data-parallel mesh the count over the global batch
+(training/steps.batch_counts summed across the ranks), so that a rank's
+loss is its share of the global loss.  Without it, the count is the
+tensor's own, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,32 +34,37 @@ def masked_velocity_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tenso
 def validmask_velocity_mse(pred: torch.Tensor,  # (N, 2)
                            target: torch.Tensor,  # (N, 2)
                            valid: torch.Tensor,  # (N,) 1 on real steps, 0 on padding
+                           count: Optional[torch.Tensor] = None,  # real steps
                            ) -> torch.Tensor:
     """MSE over (v, omega) masked by step validity, the mean over real steps
     (TPU.VALID_MASK_VELOCITY_MSE, a deviation from the reference)."""
     keep = valid[:, None] > 0
     per = torch.where(keep, (pred - target) ** 2, 0.0)
-    denom = torch.clamp(keep.sum() * pred.shape[-1], min=1)
+    if count is None:
+        count = keep.sum()
+    denom = torch.clamp(count * pred.shape[-1], min=1)
     return per.sum() / denom
 
 
-def masked_stop_bce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def masked_stop_bce(logits: torch.Tensor, target: torch.Tensor,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """BCE with logits over the elements whose target is not -1."""
     valid = target != -1.0
     t = torch.where(valid, target, 0.0)
     per = torch.clamp(logits, min=0.0) - logits * t + torch.log1p(torch.exp(-logits.abs()))
     per = torch.where(valid, per, 0.0)
-    return per.sum() / torch.clamp(valid.sum(), min=1)
+    return per.sum() / torch.clamp(valid.sum() if count is None else count, min=1)
 
 
 def subgoal_cross_entropy(logits: torch.Tensor,  # (N, C)
                           oracle_actions: torch.Tensor,  # (N,) sensor values; 0 = ignore
                           weights: Optional[torch.Tensor] = None,  # (N,)
+                          count: Optional[torch.Tensor] = None,
                           ) -> torch.Tensor:
     """Cross entropy over labels (oracle - 1), the rows where the oracle is 0
     zeroed and ignored.  With ``weights`` the reduction is sum(w·nll) over
     sum(w) on the rows not ignored (floored at 1e-6); without, the mean over
-    those rows."""
+    those rows.  ``count``: that sum of weights, or that number of rows."""
     ignore = oracle_actions == 0
     labels = oracle_actions.long() - 1
     logits = torch.where(ignore[:, None], 0.0, logits)
@@ -63,9 +74,11 @@ def subgoal_cross_entropy(logits: torch.Tensor,  # (N, C)
     nll = torch.where(ignore, 0.0, nll)
     if weights is not None:
         nll = nll * weights
-        denom = torch.clamp(torch.where(ignore, 0.0, weights).sum(), min=1e-6)
+        if count is None:
+            count = torch.where(ignore, 0.0, weights).sum()
+        denom = torch.clamp(count, min=1e-6)
     else:
-        denom = torch.clamp((~ignore).sum(), min=1)
+        denom = torch.clamp((~ignore).sum() if count is None else count, min=1)
     return nll.sum() / denom
 
 
@@ -82,7 +95,8 @@ def inflection_weights(oracle_actions: torch.Tensor,  # (B, T) sensor values
 def progress_monitor_mse(progress_hat: torch.Tensor,  # (N,)
                          progress: torch.Tensor,  # (N,)
                          mask: torch.Tensor,  # (N,) bool, the valid steps
+                         count: Optional[torch.Tensor] = None,
                          ) -> torch.Tensor:
     """Elementwise MSE reduced as a mean over the masked steps."""
     per = torch.where(mask, (progress_hat - progress) ** 2, 0.0)
-    return per.sum() / torch.clamp(mask.sum(), min=1)
+    return per.sum() / torch.clamp(mask.sum() if count is None else count, min=1)

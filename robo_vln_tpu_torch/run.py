@@ -13,6 +13,16 @@ TASK_CONFIG.SIMULATOR.TYPE's env and writes
 ``EVAL.VAL_LOG_DIR/stats_ckpt_{i}_{split}.json``; with EVAL.EVAL_NONLEARNING
 (nonlearning.yaml) it evaluates EVAL.NONLEARNING.AGENT instead, on the
 host, and writes ``stats_complete_<agent>_<split>.json``.
+
+``train`` runs over the data-parallel mesh of ``TPU.MESH_SHAPE``
+(parallel/mesh.py): at the default ``[-1, 1]`` over every visible card,
+``DAGGER.BATCH_SIZE`` a card.  With more than one rank, ``run_exp`` starts
+a process a rank (spawned, joined by NCCL on ``cuda:<rank>``, or by gloo on
+the CPU where ``TPU.MESH_SHAPE`` asks for ranks explicitly) and waits for
+them; a rank that fails ends the others and fails the run.  One rank
+trains in this process, with no process group (or in the group that is
+already up).  The eval and the nonlearning agents run in this one process,
+as the JAX eval uses no mesh.
 """
 
 import argparse
@@ -63,11 +73,40 @@ def run_exp(exp_config, run_type: str, opts=None) -> None:
         evaluate_agent(config)
         return
 
-    trainer = get_trainer(config.TRAINER_NAME)(config)
     if run_type == "train":
-        trainer.train()
+        _train(config, exp_config, list(opts or []))
     else:
-        trainer.eval()
+        get_trainer(config.TRAINER_NAME)(config).eval()
+
+
+def _train(config, exp_config, opts) -> None:
+    import torch.distributed as dist
+
+    from .parallel import mesh as mesh_lib
+    from .utils.device import resolve_device
+
+    device = resolve_device(config.DEVICE)
+    ranks = mesh_lib.data_axis_size(config.TPU.MESH_SHAPE, device)
+    if ranks > 1 and not dist.is_initialized():
+        logger.info(f"starting {ranks} ranks on the data axis")
+        mesh_lib.spawn(_train_rank, ranks, device, exp_config, opts)
+        return
+    get_trainer(config.TRAINER_NAME)(config).train()
+
+
+def _train_rank(rank: int, device, exp_config, opts) -> None:
+    """One rank's trainer, in a process of its own (parallel/mesh.spawn),
+    on ``device``: ``cuda:<rank>``, or the CPU."""
+    from . import training  # noqa: F401 (registers the trainers)
+
+    config = get_config(exp_config, [*opts, "DEVICE", str(device)])
+    if rank == 0:
+        add_filehandler(config.LOG_FILE)
+    else:  # rank 0 logs the run; the others only what goes wrong
+        logger.setLevel("WARNING")
+    random.seed(config.TASK_CONFIG.SEED)
+    np.random.seed(config.TASK_CONFIG.SEED)
+    get_trainer(config.TRAINER_NAME)(config).train()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Build and load the port's host-side C++ libraries (the kinematic
-integrator and the DTW core the env layer and the measures call).
+integrator and the DTW core the env layer and the measures call, and the
+trajectory store the buffers are read and written through).
 
 Each ``sim/<name>.cc`` has a plain C interface.  It is compiled with
 ``g++ -O3 -std=c++17 -shared -fPIC`` into ``build/sim/lib<name>-<hash>.so``
@@ -23,7 +24,7 @@ from typing import Dict
 
 SRC = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sim"
-LIBS = ("kinematics", "dtw")
+LIBS = ("kinematics", "dtw", "trajstore")
 
 _LOCK = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -20,6 +20,10 @@ A hierarchical checkpoint is a directory ``ckpt.{N}/`` holding
 * ``framework_metadata.json``: the config, ``scheduler_step``,
   ``train_steps`` and ``val_steps``, as the JAX trainer writes them.
 
+On a data-parallel mesh only rank 0 writes (:func:`is_writer`); every rank
+loads.  The policies are never wrapped (the steps all-reduce the gradients
+themselves, parallel/mesh.py), so the keys carry no wrapper's prefix.
+
 Torch keys optimizer state by the position of a parameter in its groups, so
 :func:`load_checkpoint` checks the recorded names against the rebuilt
 optimizers before it loads their state.  The step counters matter beyond
@@ -34,6 +38,7 @@ import os
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .steps import HierTrainState, TrainState
@@ -65,12 +70,22 @@ def save_checkpoint(path: str, high: nn.Module, low: nn.Module, state: HierTrain
     }, metadata)
 
 
+def is_writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process outside any."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def write_metadata(ckpt_dir: str, metadata: Dict) -> None:
+    if not is_writer():
+        return
     with open(os.path.join(ckpt_dir, METADATA), "w") as f:
         json.dump(metadata, f, indent=2, default=str)
 
 
 def _write_state(path: str, payload: Dict, metadata: Optional[Dict]) -> None:
+    if not is_writer():
+        return
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, TRAIN_STATE + ".tmp")
     torch.save(payload, tmp)

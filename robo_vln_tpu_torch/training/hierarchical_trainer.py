@@ -7,12 +7,15 @@ Adam low), one optimizer step of each per TBPTT window
 batch, a checkpoint per epoch (training/checkpoint.py) and a validation
 epoch over the eval buffer with the high level's accuracy.
 
-One device: the batch of a step is ``DAGGER.BATCH_SIZE`` (the JAX trainer
-scales it by its mesh's data axis), on ``DEVICE`` (CUDA unless the config
-asks for the CPU).  A worker thread decodes, collates and copies the
-windows one ahead of the step (envs/async_env.window_stream).  Each step's
-metrics reach the host in one transfer: the step already synchronises once
-for its non-finite guard.
+The batch of a step is ``DAGGER.BATCH_SIZE`` a rank of the data-parallel
+mesh (``TPU.MESH_SHAPE``, parallel/mesh.py; one rank on one device unless
+it says more), on ``DEVICE`` (CUDA unless the config asks for the CPU);
+the loader reads global batches of ``BATCH_SIZE × n_data``, as the JAX
+trainer does (BaseTrainer.train, BaseTrainer._batches), each rank
+collating only its rows.  A worker thread decodes, collates and copies the
+windows one ahead of the step (envs/async_env.window_stream).  Each step's metrics reach the
+host in one transfer: the step already synchronises once for its
+non-finite guard.
 
 Weights are random from ``TASK_CONFIG.SEED`` (the port loads no pretrained
 backbone files yet, ROADMAP §A item 8); ``TPU.SYNC_FROZEN_TRUNKS_ON_INIT``
@@ -30,14 +33,12 @@ the expert's rollouts, and past the first iteration with ``DAGGER.P`` < 1
 rollouts mixed with the live policy on ``DEVICE`` (envs/dagger.py);
 ``DAGGER.COLLECT_ONLY`` stops after the first collection.
 
-Options the port does not have yet raise before any work
-(:meth:`HierarchicalTrainer._check_ported`).
+Options the port does not have yet raise before any work.
 """
 
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -52,8 +53,9 @@ from ..models import (
     sync_frozen_trunks,
 )
 from ..ops import cm_attention
+from ..parallel.mesh import DataMesh
 from ..utils.device import resolve_device, resolve_dtype
-from ..utils.logging import MetricsWriter, logger
+from ..utils.logging import logger
 from ..utils.registry import register_trainer
 from . import checkpoint as ckpt_lib
 from . import optimizers as opt_lib
@@ -83,6 +85,7 @@ class HierarchicalTrainer(BaseTrainer):
             split=config.TASK_CONFIG.DATASET.SPLIT
         )
         self.eval_dir = config.DAGGER.LMDB_EVAL_DIR
+        self.mesh = DataMesh(self.device)
         self.high = None
         self.low = None
         self.state = None
@@ -91,12 +94,6 @@ class HierarchicalTrainer(BaseTrainer):
         self._train_steps = 0
         self._val_steps = 0
         self.pretrained_backbones = {}
-
-    def _check_ported(self) -> None:
-        """Refuse, before any work, the options whose modules the port does
-        not have yet, each naming its ROADMAP item."""
-        self._check_loader()
-        self._unfrozen_names()  # MODEL.BERT.trainable with the feature store raises
 
     def _setup_policy(self, load_from_ckpt: bool = False, ckpt_path: str = "") -> None:
         cfg = self.config
@@ -129,11 +126,18 @@ class HierarchicalTrainer(BaseTrainer):
         self.train_step = steps_lib.make_hier_train_step(
             self.high, self.low, trunk_fn=self.trunk_fn, remat=cfg.TPU.REMAT,
             inflection_coef=steps_lib.inflection_coef_from(cfg),
-            valid_velocity_mse=vvm,
+            valid_velocity_mse=vvm, mesh=self.mesh,
         )
         self.val_step = steps_lib.make_hier_val_step(
             self.high, self.low, trunk_fn=self.trunk_fn, valid_velocity_mse=vvm,
+            mesh=self.mesh,
         )
+
+    def _policies(self):
+        return self.high, self.low
+
+    def _restore_loop_state(self, meta) -> None:
+        self._scheduler_step = int(meta.get("scheduler_step", 0))
 
     def _featurized_dirs(self):
         """The feature-store twins of the train and eval buffers
@@ -203,7 +207,8 @@ class HierarchicalTrainer(BaseTrainer):
         send, receive = device_transfer(self.device)
         hh = lh = None
         for is_first, window in window_stream(
-            batches, send, lambda b: split_tbptt(b, cfg.DAGGER.tbptt_steps), receive,
+            batches, send,
+            lambda b: split_tbptt(b, cfg.DAGGER.tbptt_steps), receive,
         ):
             if is_first:
                 if hh is not None:
@@ -254,66 +259,6 @@ class HierarchicalTrainer(BaseTrainer):
             )
         self._val_steps = val_steps
         return val_steps
-
-    def train(self) -> None:
-        cfg = self.config
-        self._check_ported()
-        collect = not cfg.DAGGER.PRELOAD_LMDB_FEATURES
-        if collect and cfg.DAGGER.COLLECT_ONLY:
-            # reference behavior: collect then stop (robo_vln_trainer.py:903)
-            self._update_dataset(0)
-            logger.info("Data collection complete")
-            return
-        start_epoch, resume_ckpt, resume_meta = (
-            self._find_resume() if cfg.DAGGER.RESUME else (0, "", {})
-        )
-        if resume_ckpt:
-            self._setup_policy(True, resume_ckpt)
-            self._scheduler_step = int(resume_meta.get("scheduler_step", 0))
-            logger.info(f"resuming at epoch {start_epoch} from {resume_ckpt}")
-        else:
-            self._setup_policy(cfg.DAGGER.LOAD_FROM_CKPT, cfg.DAGGER.CKPT_TO_LOAD)
-        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
-        with MetricsWriter(cfg.TENSORBOARD_DIR) as writer:
-            train_steps = int(resume_meta.get("train_steps", 0))
-            val_steps = int(resume_meta.get("val_steps", 0))
-            self._train_steps, self._val_steps = train_steps, val_steps
-            done_through = start_epoch
-            for dagger_it, epochs in self._iteration_plan(start_epoch):
-                if collect:
-                    self._update_dataset(dagger_it)
-                    logger.info(f"Data collection complete (iteration {dagger_it})")
-                train_dir, eval_dir = self.features_dir, self.eval_dir
-                if cfg.DAGGER.PRELOAD_TRUNK_FEATURES:
-                    # after the collection, so that a buffer that has just
-                    # grown is featurized up to its new end
-                    train_dir, eval_dir = self._featurized_dirs()
-                for epoch in epochs:
-                    t0 = time.time()
-                    train_steps = self.train_epoch(
-                        self._batches(train_dir, seed=epoch),
-                        epoch, writer, train_steps,
-                    )
-                    if os.path.exists(eval_dir):
-                        val_steps = self.val_epoch(
-                            self._batches(eval_dir, seed=epoch),
-                            epoch, writer, val_steps,
-                        )
-                        # the epoch's checkpoint was saved before its
-                        # validation: record the validation's counter too,
-                        # so a resumed run logs where this one would have
-                        ckpt_lib.write_metadata(
-                            os.path.join(cfg.CHECKPOINT_FOLDER,
-                                         self._epoch_checkpoint(epoch)),
-                            self._metadata())
-                    logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
-                done_through = epochs.stop
-            if done_through < self._total_epochs:
-                logger.info(
-                    f"stopping after epoch {done_through - 1} "
-                    "(DAGGER.MAX_EPOCHS_PER_RUN); a DAGGER.RESUME run "
-                    f"continues at epoch {done_through}"
-                )
 
     def _eval_checkpoint(self, checkpoint_path, writer, checkpoint_index=0):
         from ..eval.evaluator import eval_hierarchical_checkpoint

@@ -18,8 +18,14 @@ CMA or Seq2Seq from it (the reference's RoboDaggerTrainer,
 robo_vln_trainer.py:294-954): Adam at DAGGER.LR, one step a TBPTT window
 (training/steps.make_flat_train_step), a checkpoint an epoch, a validation
 epoch over the eval buffer, and ``--run-type eval``
-(eval/evaluator.eval_flat_checkpoint).  One device, as the hierarchical
-trainer: the batch of a step is DAGGER.BATCH_SIZE on DEVICE.  With
+(eval/evaluator.eval_flat_checkpoint).  Both trainers train over the
+data-parallel mesh of ``TPU.MESH_SHAPE`` (parallel/mesh.py, joined in
+:meth:`BaseTrainer._join_mesh`): ``DAGGER.BATCH_SIZE`` a rank, a global
+batch of ``BATCH_SIZE × n_data`` read through the in-process loader or,
+with ``DAGGER.LOADER_WORKERS > 1``, the process-parallel one
+(data/parallel_loader.py), each rank collating and stepping on its rows
+of it; rank 0 alone
+collects, featurizes, writes checkpoints and TensorBoard.  With
 ``DAGGER.PRELOAD_TRUNK_FEATURES`` it trains and validates from the
 buffers' featurized twins (training/featurize.py, the policy's frozen
 ResNet trunks run once a buffer), as the JAX flat trainer does; with a
@@ -28,6 +34,7 @@ SimpleCNN encoder it warns and trains from raw frames.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, Iterator
@@ -43,6 +50,7 @@ from ..models import build_flat_policy
 from ..models.encoders.bert import BertEncoder
 from ..models.encoders.resnet import GNResNetEncoder, TVResNet50
 from ..ops import cm_attention
+from ..parallel.mesh import DataMesh, global_batch_size
 from ..utils.device import resolve_device, resolve_dtype
 from ..utils.logging import MetricsWriter, logger
 from ..utils.registry import register_trainer
@@ -62,8 +70,33 @@ def host_values(metrics, keys):
     return torch.stack([metrics[k].float() for k in keys]).tolist()
 
 
+class _NoWriter:
+    """The metrics writer of a rank other than 0: rank 0 logs the global
+    batch's metrics, which every rank holds."""
+
+    def add_scalar(self, tag, value, step) -> None:
+        pass
+
+
 class BaseTrainer:
-    """Subclasses set ``config`` and ``batch_size``."""
+    """Subclasses set ``config``, ``device``, ``batch_size`` (a rank's) and
+    ``mesh`` (the one-rank mesh until train() joins TPU.MESH_SHAPE's)."""
+
+    @property
+    def global_batch(self) -> int:
+        return global_batch_size(self.batch_size, self.mesh.size)
+
+    def _join_mesh(self) -> None:
+        """The mesh of TPU.MESH_SHAPE over the process group that is up
+        (one rank without one)."""
+        self.mesh = DataMesh.for_config(self.config, self.device)
+        logger.info(f"training mesh: {self.mesh.size} rank(s) on the data axis, "
+                    f"DAGGER.BATCH_SIZE={self.batch_size} a rank, global batch "
+                    f"{self.global_batch}")
+
+    def _writer(self):
+        return (MetricsWriter(self.config.TENSORBOARD_DIR) if self.mesh.is_main
+                else contextlib.nullcontext(_NoWriter()))
 
     def _unfrozen_names(self) -> tuple:
         """Backbone subtrees lifted out of the frozen set by explicit
@@ -107,12 +140,6 @@ class BaseTrainer:
             logger.warning(f"pretrained weights MODEL.{key} not found at {path!r}; "
                            "that backbone stays RANDOM")
             self.pretrained_backbones[name] = {"status": "missing_file", "path": str(path)}
-
-    def _check_loader(self) -> None:
-        if int(self.config.DAGGER.LOADER_WORKERS) > 1:
-            raise NotImplementedError(
-                "DAGGER.LOADER_WORKERS > 1: the process-parallel loader "
-                "(data/parallel_loader.py) is not ported yet (ROADMAP §A item 2)")
 
     def _epoch_checkpoint(self, epoch: int) -> str:
         """The per-epoch name, ckpt.{EPOCHS+epoch} (the reference's scheme)."""
@@ -166,24 +193,27 @@ class BaseTrainer:
         return self.config.DAGGER.EPOCHS * self.config.DAGGER.ITERATIONS
 
     def _batches(self, features_dir: str, seed: int) -> Iterator[Dict]:
-        """The static-shape batches of one epoch, in the order ``seed``
-        gives (the in-process loader; DAGGER.LOADER_WORKERS > 1 is refused
-        by the trainer before any work)."""
+        """This rank's rows of the static-shape global batches of one
+        epoch, in the order ``seed`` gives: the in-process loader, or with
+        DAGGER.LOADER_WORKERS > 1 the process-parallel one (its own order
+        for a given worker count, as in JAX).  Every rank decodes every
+        episode, for the order and each batch's bucket, and collates only
+        its rows."""
         cfg = self.config
-        dataset = TrajectoryDataset(
-            features_dir,
-            batch_size=self.batch_size,
-            is_bert=cfg.MODEL.INSTRUCTION_ENCODER.is_bert,
-            use_iw=cfg.DAGGER.USE_IW,
-            inflection_weight_coef=cfg.MODEL.inflection_weight_coef,
-            seed=seed,
-        )
-        return batch_iterator(
-            dataset,
-            self.batch_size,
-            list(cfg.DAGGER.EPISODE_LEN_BUCKETS),
-            cfg.DAGGER.MAX_INSTRUCTION_LEN,
-        )
+        decode = dict(is_bert=cfg.MODEL.INSTRUCTION_ENCODER.is_bert, use_iw=cfg.DAGGER.USE_IW,
+                      inflection_weight_coef=cfg.MODEL.inflection_weight_coef)
+        buckets = list(cfg.DAGGER.EPISODE_LEN_BUCKETS)
+        rows = self.mesh.rows(self.global_batch)
+        if int(cfg.DAGGER.LOADER_WORKERS) > 1:
+            from ..data.parallel_loader import parallel_batch_iterator
+
+            return parallel_batch_iterator(
+                features_dir, self.global_batch, buckets, cfg.DAGGER.MAX_INSTRUCTION_LEN,
+                num_workers=int(cfg.DAGGER.LOADER_WORKERS), seed=seed, rows=rows, **decode)
+        dataset = TrajectoryDataset(features_dir, batch_size=self.global_batch, seed=seed,
+                                    **decode)
+        return batch_iterator(dataset, self.global_batch, buckets,
+                              cfg.DAGGER.MAX_INSTRUCTION_LEN, rows=rows)
 
     # -- collection (host-side; see envs/) -------------------------------------
     def _update_dataset(self, data_it: int) -> None:
@@ -242,6 +272,83 @@ class BaseTrainer:
             f"(P={self.config.DAGGER.P}, data_it={data_it})"
         )
         return mixer_for_trainer(self), beta
+
+    def _restore_loop_state(self, meta: Dict) -> None:
+        """Loop state a resumed run takes from its checkpoint's metadata,
+        beyond the step counters (the hierarchical trainer's CyclicLR)."""
+
+    def train(self) -> None:
+        """DAgger iterations of collection (PRELOAD_LMDB_FEATURES false)
+        and epochs, each epoch a checkpoint and, where the eval buffer
+        exists, a validation; DAGGER.RESUME continues from the newest
+        checkpoint.  Over the mesh every rank steps on its rows of each
+        global batch, from rank 0's weights; rank 0 alone collects,
+        featurizes, writes checkpoints and TensorBoard."""
+        cfg = self.config
+        self._unfrozen_names()  # MODEL.BERT.trainable with the feature store raises
+        self._join_mesh()
+        collect = not cfg.DAGGER.PRELOAD_LMDB_FEATURES
+        if collect and cfg.DAGGER.COLLECT_ONLY:
+            # reference behavior: collect then stop (robo_vln_trainer.py:903)
+            self.mesh.on_main(self._update_dataset, 0)
+            logger.info("Data collection complete")
+            return
+        start_epoch, resume_ckpt, resume_meta = (
+            self._find_resume() if cfg.DAGGER.RESUME else (0, "", {})
+        )
+        if resume_ckpt:
+            self._setup_policy(True, resume_ckpt)
+            self._restore_loop_state(resume_meta)
+            logger.info(f"resuming at epoch {start_epoch} from {resume_ckpt}")
+        else:
+            self._setup_policy(cfg.DAGGER.LOAD_FROM_CKPT, cfg.DAGGER.CKPT_TO_LOAD)
+        # every rank from rank 0's weights: the same seed built the same ones,
+        # and a resumed checkpoint is the same file on every rank
+        self.mesh.broadcast(*self._policies())
+        if self.mesh.is_main:
+            os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
+        with self._writer() as writer:
+            train_steps = int(resume_meta.get("train_steps", 0))
+            val_steps = int(resume_meta.get("val_steps", 0))
+            self._train_steps, self._val_steps = train_steps, val_steps
+            done_through = start_epoch
+            for dagger_it, epochs in self._iteration_plan(start_epoch):
+                if collect:
+                    self.mesh.on_main(self._update_dataset, dagger_it)
+                    logger.info(f"Data collection complete (iteration {dagger_it})")
+                train_dir, eval_dir = self.features_dir, self.eval_dir
+                if cfg.DAGGER.PRELOAD_TRUNK_FEATURES:
+                    # after the collection, so that a buffer that has just
+                    # grown is featurized up to its new end
+                    train_dir, eval_dir = self.mesh.on_main(self._featurized_dirs)
+                for epoch in epochs:
+                    t0 = time.time()
+                    train_steps = self.train_epoch(
+                        self._batches(train_dir, seed=epoch),
+                        epoch, writer, train_steps,
+                    )
+                    if os.path.exists(eval_dir):
+                        val_steps = self.val_epoch(
+                            self._batches(eval_dir, seed=epoch),
+                            epoch, writer, val_steps,
+                        )
+                        # the epoch's checkpoint was saved before its
+                        # validation: record the validation's counter too,
+                        # so a resumed run logs where this one would have
+                        ckpt_lib.write_metadata(
+                            os.path.join(cfg.CHECKPOINT_FOLDER,
+                                         self._epoch_checkpoint(epoch)),
+                            self._metadata())
+                    logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s "
+                                f"({train_steps} train steps)")
+                done_through = epochs.stop
+            if done_through < self._total_epochs:
+                logger.info(
+                    f"stopping after epoch {done_through - 1} "
+                    "(DAGGER.MAX_EPOCHS_PER_RUN); a DAGGER.RESUME run "
+                    f"continues at epoch {done_through}"
+                )
+        self.mesh.barrier()  # no rank leaves before rank 0's last checkpoint
 
     def eval(self) -> None:
         """Evaluate EVAL_CKPT_PATH_DIR: a single checkpoint, or a folder
@@ -310,9 +417,7 @@ FLAT_VAL_SCALARS = (("action_loss", "Val Action Loss"), ("stop_loss", "Val Stop 
 @register_trainer("robo_vln_trainer")
 class RoboVLNTrainer(BaseTrainer):
     """The flat family's trainer.  Weights are random from
-    ``TASK_CONFIG.SEED`` (the GloVe table read when its file exists).
-    ``DAGGER.LOADER_WORKERS > 1`` raises before any work, naming its
-    ROADMAP item."""
+    ``TASK_CONFIG.SEED`` (the GloVe table read when its file exists)."""
 
     def __init__(self, config):
         self.config = config
@@ -324,17 +429,12 @@ class RoboVLNTrainer(BaseTrainer):
             split=config.TASK_CONFIG.DATASET.SPLIT
         )
         self.eval_dir = config.DAGGER.LMDB_EVAL_DIR
+        self.mesh = DataMesh(self.device)
         self.policy = None
         self.state = None
         self._train_steps = 0
         self._val_steps = 0
         self.pretrained_backbones = {}
-
-    def _check_ported(self) -> None:
-        """Refuse, before any work, the options whose modules the port does
-        not have yet, each naming its ROADMAP item."""
-        self._check_loader()
-        self._unfrozen_names()
 
     def _setup_policy(self, load_from_ckpt: bool = False, ckpt_path: str = "") -> None:
         cfg = self.config
@@ -358,10 +458,13 @@ class RoboVLNTrainer(BaseTrainer):
         vvm = cfg.TPU.VALID_MASK_VELOCITY_MSE
         self.train_step = steps_lib.make_flat_train_step(
             self.policy, use_progress=pm.use, progress_alpha=pm.alpha,
-            remat=cfg.TPU.REMAT, valid_velocity_mse=vvm)
+            remat=cfg.TPU.REMAT, valid_velocity_mse=vvm, mesh=self.mesh)
         self.val_step = steps_lib.make_flat_val_step(
             self.policy, use_progress=pm.use, progress_alpha=pm.alpha,
-            valid_velocity_mse=vvm)
+            valid_velocity_mse=vvm, mesh=self.mesh)
+
+    def _policies(self):
+        return (self.policy,)
 
     def _featurized_dirs(self):
         """The feature-store twins of the train and eval buffers
@@ -395,7 +498,8 @@ class RoboVLNTrainer(BaseTrainer):
         send, receive = device_transfer(self.device)
         hidden = None
         for is_first, window in window_stream(
-            batches, send, lambda b: split_tbptt(b, cfg.DAGGER.tbptt_steps), receive,
+            batches, send,
+            lambda b: split_tbptt(b, cfg.DAGGER.tbptt_steps), receive,
         ):
             if is_first:
                 hidden = self.policy.initial_hidden(self.batch_size, self.device)
@@ -429,66 +533,6 @@ class RoboVLNTrainer(BaseTrainer):
             writer.add_scalar("Val Loss Epoch", float(np.mean(totals)), val_steps)
         self._val_steps = val_steps
         return val_steps
-
-    def train(self) -> None:
-        cfg = self.config
-        self._check_ported()
-        collect = not cfg.DAGGER.PRELOAD_LMDB_FEATURES
-        if collect and cfg.DAGGER.COLLECT_ONLY:
-            # reference behavior: collect then stop (robo_vln_trainer.py:903)
-            self._update_dataset(0)
-            logger.info("Data collection complete")
-            return
-        start_epoch, resume_ckpt, resume_meta = (
-            self._find_resume() if cfg.DAGGER.RESUME else (0, "", {})
-        )
-        if resume_ckpt:
-            self._setup_policy(True, resume_ckpt)
-            logger.info(f"resuming at epoch {start_epoch} from {resume_ckpt}")
-        else:
-            self._setup_policy(cfg.DAGGER.LOAD_FROM_CKPT, cfg.DAGGER.CKPT_TO_LOAD)
-        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
-        with MetricsWriter(cfg.TENSORBOARD_DIR) as writer:
-            train_steps = int(resume_meta.get("train_steps", 0))
-            val_steps = int(resume_meta.get("val_steps", 0))
-            self._train_steps, self._val_steps = train_steps, val_steps
-            done_through = start_epoch
-            for dagger_it, epochs in self._iteration_plan(start_epoch):
-                if collect:
-                    self._update_dataset(dagger_it)
-                    logger.info(f"Data collection complete (iteration {dagger_it})")
-                train_dir, eval_dir = self.features_dir, self.eval_dir
-                if cfg.DAGGER.PRELOAD_TRUNK_FEATURES:
-                    # after collection, so that a buffer that grew is
-                    # featurized up to its new end
-                    train_dir, eval_dir = self._featurized_dirs()
-                for epoch in epochs:
-                    t0 = time.time()
-                    train_steps = self.train_epoch(
-                        self._batches(train_dir, seed=epoch),
-                        epoch, writer, train_steps,
-                    )
-                    if os.path.exists(eval_dir):
-                        val_steps = self.val_epoch(
-                            self._batches(eval_dir, seed=epoch),
-                            epoch, writer, val_steps,
-                        )
-                        # the epoch's checkpoint was saved before its
-                        # validation: record the validation's counter too,
-                        # so a resumed run logs where this one would have
-                        ckpt_lib.write_metadata(
-                            os.path.join(cfg.CHECKPOINT_FOLDER,
-                                         self._epoch_checkpoint(epoch)),
-                            self._metadata())
-                    logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s "
-                                f"({train_steps} train steps)")
-                done_through = epochs.stop
-            if done_through < self._total_epochs:
-                logger.info(
-                    f"stopping after epoch {done_through - 1} "
-                    "(DAGGER.MAX_EPOCHS_PER_RUN); a DAGGER.RESUME run "
-                    f"continues at epoch {done_through}"
-                )
 
     def _eval_checkpoint(self, checkpoint_path, writer, checkpoint_index=0):
         from ..eval.evaluator import eval_flat_checkpoint

@@ -319,15 +319,17 @@ def test_collection_beta(tmp_path, p, load, want):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"DAGGER.LOADER_WORKERS": 2, "DAGGER.COLLECT_ONLY": True}, "§A item 2"),
+    ({"TPU.MESH_SHAPE": [1, 2], "DAGGER.COLLECT_ONLY": True}, "§A item 7b"),
 ])
 def test_robo_vln_trainer_refuses_the_flat_family(tmp_path, extra, item):
     """What robo_vln_trainer still refuses, before it collects anything:
-    the parallel loader (its training, eval and DAgger collection run:
-    tests/test_torch_flat_trainer.py; its feature store too:
-    tests/test_torch_flat_features.py)."""
-    cfg = get_config(opts=collect_opts(tmp_path, "robo_vln_trainer", **extra))
+    a "model" axis of the mesh (tensor parallelism), which get_config
+    refuses.  The parallel loader, once refused here, trains through it
+    (tests/test_torch_parallel_loader.py); its training, eval and DAgger
+    collection run: tests/test_torch_flat_trainer.py; its feature store
+    too: tests/test_torch_flat_features.py."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        cfg = get_config(opts=collect_opts(tmp_path, "robo_vln_trainer", **extra))
         RoboVLNTrainer(cfg).train()
     assert not (tmp_path / "train_buf").exists()
 

@@ -67,11 +67,25 @@ def test_no_source_imports_jax(path):
 def test_port_modules_are_all_checked():
     names = {m.name for m in pkgutil.walk_packages([str(PORT)])}
     assert {"ops", "models", "config", "utils", "eval", "training", "data", "envs",
-            "run"} <= names
+            "parallel", "run"} <= names
     checked = {p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")}
     assert {f"robo_vln_tpu_torch/{m}.py" for m in (
         "ops/losses", "training/optimizers", "training/steps", "training/checkpoint",
         "training/trainer", "training/hierarchical_trainer", "data/serialization",
         "data/trajectory_store", "data/loader", "envs/async_env", "utils/registry",
         "utils/logging", "config/task", "envs/expert", "envs/collection", "envs/dagger",
-        "training/featurize", "eval/ondevice", "run")} <= checked
+        "training/featurize", "eval/ondevice", "run", "parallel/mesh", "parallel/dryrun",
+        "data/parallel_loader")} <= checked
+
+
+def test_the_loaders_workers_load_no_torch():
+    """The process-parallel loader's spawned workers import its module and
+    the store's (the native store's ctypes wrapper among them): neither
+    loads torch, whose import would add seconds to each worker's start."""
+    code = ("import sys\n"
+            "import robo_vln_tpu_torch.data.parallel_loader, robo_vln_tpu_torch.data.trajectory_store\n"
+            "print('torch' in sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                          capture_output=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "False"

@@ -370,8 +370,8 @@ def test_resume_matches_uninterrupted_run(tmp_path):
 # -- 5. options not ported yet ----------------------------------------------------------
 
 @pytest.mark.parametrize("key,value,item", [
-    ("DAGGER.LOADER_WORKERS", 2, "§A item 2"),
-    ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
+    ("TPU.MESH_AXES", ["batch", "model"], "§A item 7b"),
+    ("TPU.MESH_SHAPE", [2, 2], "§A item 7b"),
     ("MODEL.BERT.pretrained_weights", "bert.npz", "§A item 8"),
 ])
 def test_unported_options_raise_before_any_work(tmp_path, key, value, item):
@@ -405,14 +405,16 @@ def test_jax_only_keys_are_listed_with_their_defaults():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TPU.MESH_AXES", ["data"], "§A item 7"),
-    ("TPU.MESH_SHAPE", [2, 2], "§A item 7"),
+    ("TPU.MESH_AXES", ["data"], "§A item 7b"),
+    ("TPU.MESH_SHAPE", [2, 2], "§A item 7b"),
 ])
 def test_jax_only_keys_refused_past_their_default(tmp_path, key, value, item):
-    """get_config refuses, from a CLI option and from a yaml, a key of the
-    JAX package that the port does not read, set to another value than its
-    JAX default, naming the ROADMAP item that would port it; at its default,
-    and for an inert key at any value, it loads (as do the port's yamls)."""
+    """get_config refuses, from a CLI option and from a yaml, a value of a
+    JAX package key that the port does not compute, naming the ROADMAP item
+    that would port it; at its JAX default, and for an inert key at any
+    value, it loads (as do the port's yamls).  The mesh's keys are the
+    port's own now: it refuses the mesh it does not build, other axes or a
+    "model" axis above 1 (tensor parallelism)."""
     with pytest.raises(NotImplementedError, match=f"{re.escape(key)} = .*ROADMAP {item}"):
         get_config(opts=[key, json.dumps(value) if not isinstance(value, str) else value])
     yaml_path = tmp_path / "exp.yaml"
@@ -422,8 +424,10 @@ def test_jax_only_keys_refused_past_their_default(tmp_path, key, value, item):
     yaml_path.write_text(json.dumps(node))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         get_config(str(yaml_path))
-    default = jax_only.UNPORTED[key][0]
-    get_config(opts=[key, json.dumps(default) if not isinstance(default, str) else default])
+    assert key not in jax_only.UNPORTED and key not in jax_only.INERT
+    default = _lookup(jax_defaults, key)
+    assert _lookup(get_config(opts=[key, json.dumps(default)]), key) == default
+    assert _lookup(port_defaults, key) == default
     get_config(opts=["TPU.DONATE", "False", "TPU.PARAM_DTYPE", "bfloat16"])
     for yaml_file in sorted(PORT_CONFIGS.glob("*.yaml")):
         if yaml_file.name != "robo_vln_task.yaml":

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (robo_vln_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile] [--only 9,10,11,12,13]
+    python3 chip_smoke.py [--profile] [--only 3,9,10,11,12,13,14]
 
-``--only`` runs the build and the listed phases among 9 to 13 alone, to
-try them; such a run prints no result line.
+``--only`` runs the build and the listed phases among 3 and 9 to 14 alone,
+to try them; such a run prints no result line.
 
 Phases, one or more lines each; any failure ends the run with a non-zero
 exit code and no result line:
@@ -14,8 +14,9 @@ exit code and no result line:
    nvcc per source, all in parallel, into build/kernels/; prints each
    kernel instance's registers and spills, and fails if an instance of
    either float32 tensor-core attention kernel (keys whole, or in key
-   blocks past S = 128), of the bf16 key-block kernel or of the LSTM's
-   partials backward spills.
+   blocks past S = 128), of the bf16 key-block kernel, of the wide-head
+   attention kernel, of the LSTM's wide forward or of its partials
+   backward (the wide variant included) spills.
 3. Kernels against their plain versions, float32 with TF32 off (in a scope
    around this phase only), at the shapes of the serving path: the LSTM
    kernel (also at every H range of its template and at batches beyond one
@@ -35,8 +36,9 @@ exit code and no result line:
    kernel in its three routes: float32 on the tensor cores (3xTF32, the
    route of every float32 call with d_k and d_v up to 256, zero-filled to
    the instance's D, in key blocks past S = 128 and at D = 256, copying one
-   float at a time for unaligned pointers or d off a multiple of 4),
-   float32 on the CUDA cores (d above 256) and bfloat16 (the serving
+   float at a time for unaligned pointers or d off a multiple of 4), the
+   first float32 kernel, on the CUDA cores (forced; no call is routed there),
+   the wide-head kernel (float32 d above 256) and bfloat16 (the serving
    dtype; in both modes of p, rounded to bf16 once, the default, and split
    into p_hi + p_lo, TPU.PALLAS_ATTENTION on, each against the plain
    version in that mode and timed), each held at the same shapes and at
@@ -61,16 +63,25 @@ exit code and no result line:
    on the tensor cores at the shapes PR 1's CUDA-core kernel used to take:
    S=500 and S=64 at d=60 and d=61, pointers one float off 16 bytes, d=256
    over 2 heads; the CUDA-core kernel at d=260; the LSTM
-   and both backward kernels at H=556, a ragged grid) must launch their
-   kernel once
-   (by the route, key blocks and copy width the shape asks for) and match
-   the plain version; S=144 and S=200, d=128 are timed at the window's size
-   in both dtypes against the plain version and SDPA (float32 also against
-   the CUDA-core kernel forced, bf16 in both modes), as are float32 S=500, d=60, S=64, d=60 and
-   S=200, d=256, h=2, and the CUDA-core kernel at d=260; shapes no kernel
-   takes (an
-   unaligned bfloat16 call, the LSTM and its backward at H=1028, the
-   backward's own predicate) must raise before any launch.
+   and both backward kernels at H=556, a ragged grid; the shapes the
+   wide routes opened: the wide kernel in float32 at d=260 and 512, (d_k, d_v) = (260,
+   64), S=6965 with d=300 and from pointers one float off, bf16 zero-filled
+   at d=72 and (128, 64), one value a copy at d=60 and from pointers one
+   element off 16 bytes, the wide kernel in bf16 at d=256 and 260; the LSTM
+   and its partials backward at H=30 (padded to 32), 1030 and 2048, the
+   wide variants, and 4096 at B=8, whose wide forward reads h from the
+   exchange's words) must launch their kernel once
+   (by the route, key blocks, copy width and wide variant the shape asks
+   for) and match the plain version; S=144 and S=200, d=128 are timed at
+   the window's size in both dtypes against the plain version and SDPA
+   (float32 also against the CUDA-core kernel forced, bf16 in both modes), as are
+   float32 S=500, d=60, S=64, d=60 and S=200, d=256, h=2 (with the wide
+   kernel forced there too), the wide kernel at d=260 in both dtypes (float32
+   beside the CUDA-core kernel forced, which it must beat) and at phase 14's bf16
+   shapes, bf16 at d=72 and from unaligned pointers, and the LSTM's wide
+   variants at T=50, B=4, H=2048 against the plain versions and cuDNN; the
+   forced-only dg_exchange backward, which keeps its range, must refuse
+   H=1028 before any launch.
 4. Serving path at full published width (BERT-base, TV-ResNet50 at 224 px,
    DDPPO GN-ResNet50 at 256 px, VisualLingAttn d_model 256 / 4 heads, LSTM(512)),
    random weights from seed 0, bfloat16 compute: three teacher-forced windows
@@ -303,7 +314,19 @@ exit code and no result line:
    and both ranks' weights bitwise equal after them; each step 2 + 2
    forward and 2 LSTM backward launches; printed: each step's host ms and
    its gloo all-reduce (through the host, so no target is set).
-14. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+14. The shapes past the kernels' former ranges on the path: the HCM at
+   full width (phase 4's) with MODEL.STATE_ENCODER.hidden_size 2048 (both
+   LSTMs: the wide forward and backward) and MODEL.VISUAL_LING_ATTN.h 1
+   (d = 256: the wide attention kernel in bf16, the tensor-core D = 256 key
+   blocks in float32), random weights from seed 0: in bf16 and in float32
+   one window (build_hcm_agent) and one train step (training/steps, lr 0),
+   each held to the same run under plain_kernels() (float32 at phases 4b's
+   and 5b's tolerances; bf16 the window's outputs within 2e-2 of each
+   one's largest magnitude, the low level's only where the high level's
+   argmax agrees, the losses within phase 9's bf16 tolerances), each with
+   its launches asserted (a window: 2 LSTM, both wide, and 2 attention, in
+   bf16 wide and rounding p once; a step adds 2 wide backward).
+15. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
    (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
    attention (its float32 route and every bf16 field) and its bf16 modes
    (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
@@ -320,11 +343,15 @@ exit code and no result line:
    LSTM and its backward also carry 11a's ``flat_*`` fields (one call at
    T=100, B=1, H=512); ``extras_launches``: phase 12's paths;
    ``loader_launches``: 13a's epoch; ``mesh_launches``: 13b's epoch and
-   13c's steps of both ranks.  Then the
+   13c's steps of both ranks; ``wide_launches``: phase 14's runs with the
+   kernels; then the kernels past the former ranges
+   (cross_modal_attn_wide_f32, cross_modal_attn_wide_bf16, lstm_seq_wide,
+   lstm_seq_backward_wide), their ``launches`` phase 14's.  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import glob
 import itertools
@@ -428,10 +455,14 @@ def kernel_name(mangled):
         start = m.start() + len(m.group(1))
         word = mangled[start:start + int(m.group(1))]
         if word.endswith("_kernel") and word.isidentifier():
-            args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start + len(word):])
+            args = re.match(r"I((?:L[ib]\d+E|f|\d+__nv_bfloat16)+)E",
+                            mangled[start + len(word):])
             if args is None:
                 return word
-            return word + "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+            names = {"f": "float", "__nv_bfloat16": "bf16"}
+            return word + "<" + ",".join(
+                names.get(a.lstrip("0123456789"), a.strip("LibE"))
+                for a in re.findall(r"L[ib]\d+E|f|\d+__nv_bfloat16", args.group(1))) + ">"
     return mangled
 
 
@@ -856,17 +887,17 @@ def check_attention(gen, device):
                  if count != modes_before[m]]
         err = (got.float() - ref.float()).abs().max().item()
         blocks = [a - b for a, b in zip(key_block_launches(), blocks_before)]
-        tol = bf16_tolerance(tol, q, k, v) if expected == "bf16" else tol
+        tol = bf16_tolerance(tol, q, k, v, h) if q.dtype == torch.bfloat16 else tol
         print(f"  {tag} [{','.join(took + modes)}{', key blocks' if any(blocks[:2]) else ''}"
-              f"{', narrow copies' if blocks[2] else ''}]: "
+              f"{', narrow copies' if any(blocks[2:]) else ''}]: "
               f"max_abs_err {err:.3e} (tolerance {tol:.3e})")
         if took != [expected]:
             fail(f"cross_modal_attn launched {took} at {tag}, expected {expected}")
-        if modes != ([fused_attention.p_mode()] if expected == "bf16" else []):
+        if modes != ([fused_attention.p_mode()] if q.dtype == torch.bfloat16 else []):
             fail(f"cross_modal_attn launched bf16 modes {modes} at {tag}")
         if blocks != expected_key_blocks(expected, q, k, v, h):
-            fail(f"cross_modal_attn launched {blocks} (float32 key-block, bf16 key-block, "
-                 f"float32 narrow) kernels at {tag}")
+            fail(f"cross_modal_attn launched {blocks} ({', '.join(KEY_BLOCK_COUNTS)}) kernels at "
+                 f"{tag}")
         if not err <= tol:
             fail(f"cross_modal_attn ({expected}) disagrees with its plain version at {tag}")
         worst[expected] = max(worst[expected], err)
@@ -941,7 +972,7 @@ def check_attention(gen, device):
     # zero-filled to the instance's D (12, 20 and 60 by 16-byte copies; 1,
     # 61, (61, 33) and (125, 127), K and V unsplit at D = 128, one float a
     # copy; 200, (60, 136) and (256, 1) at D = 256, in key blocks at every
-    # S), and d = 260, which only the CUDA-core kernel takes
+    # S), and d = 260 on the wide kernel
     ragged = [((3, 13, 5, 2, 8, 16), f32, "f32_tensor_core"),
               ((2, 40, 33, 3, 32, 32), f32, "f32_tensor_core"),
               ((4, 65, 1, 4, 64, 64), f32, "f32_tensor_core"),
@@ -961,7 +992,7 @@ def check_attention(gen, device):
               ((2, 30, 129, 2, 60, 136), f32, "f32_tensor_core"),
               ((2, 130, 100, 2, 125, 127), f32, "f32_tensor_core"),
               ((1, 1, 1, 2, 256, 1), f32, "f32_tensor_core"),
-              ((2, 40, 16, 1, 260, 260), f32, "f32_cuda_core"),
+              ((2, 40, 16, 1, 260, 260), f32, "wide_f32"),
               ((3, 13, 5, 2, 16, 16), bf16, "bf16"),
               ((2, 40, 33, 3, 32, 32), bf16, "bf16"),
               ((4, 65, 1, 4, 48, 48), bf16, "bf16"),
@@ -1023,38 +1054,44 @@ def check_attention(gen, device):
     }
 
 
-def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what, offset=0):
+def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what, offset=0,
+                   force_wide=False):
     """One attention call at these sizes timed with its inputs rotated out
     of L2: the kernel (by the route the sizes take; on the float32 tensor
-    cores also the CUDA-core kernel forced), the plain version and SDPA on
-    head views; and its bound.  ``offset``: q, k and v start that many
-    elements into buffers of their own (SDPA gets aligned copies).  Returns
-    the JSON fields ``{prefix}_*``."""
+    cores and the wide kernel also the CUDA-core kernel forced, and with
+    ``force_wide`` the wide kernel forced at a tensor-core shape), the plain
+    version and SDPA on head views; and its bound.  ``offset``: q, k and v
+    start that many elements into buffers of their own (SDPA gets aligned
+    copies).  Returns the JSON fields ``{prefix}_*``."""
     from robo_vln_tpu_torch.ops import fused_attention
 
     sets = [[torch.randn(offset + N * L * heads * d, generator=gen).to(device, dtype)[offset:]
              .view(N, L, heads * d) for L in (Lq, S, S)] for _ in range(L2_ROTATION)]
     note = f"inputs rotated over {L2_ROTATION} sets, not in L2"
     tag = (f"N={N} Lq={Lq} S={S} h={heads} d={d} {str(dtype)[6:]}"
-           f"{', pointers one float off 16 bytes' if offset else ''}")
+           f"{', pointers one element off 16 bytes' if offset else ''}")
     route = fused_attention.pick_route(dtype, S, d, d, offset == 0)
+    bf16 = dtype == torch.bfloat16
 
     def timed(label, fn, arg_sets=sets):
         return report_times(f"{tag} {label} ({note})", time_ms(rotated(fn, arg_sets)))
 
     kernel = lambda *t: fused_attention.cross_modal_attn_cuda(*t, heads)
     plain = lambda *t: fused_attention.attention_plain(*t, heads)
-    mode = f", {fused_attention.p_mode()}" if route == "bf16" else ""
+    mode = f", {fused_attention.p_mode()}" if bf16 else ""
     fields = {f"{prefix}_ms": timed(f"kernel ({route}{mode})", kernel)}
-    if route == "f32_tensor_core":
+    if route in ("f32_tensor_core", "wide_f32"):
         with cuda_core_f32_attention():
-            fields[f"{prefix}_cuda_core_ms"] = timed("CUDA-core kernel", kernel)
+            fields[f"{prefix}_cuda_core_ms"] = timed("the CUDA-core kernel, forced", kernel)
+    if force_wide:
+        with forced_f32_attention("wide_f32"):
+            fields[f"{prefix}_wide_ms"] = timed("the wide kernel, forced", kernel)
     fields[f"{prefix}_plain_ms"] = timed(f"plain{mode}", plain)
-    if route == "bf16":  # the default above is round_p; then split_p
+    if bf16:  # the default above is round_p; then split_p
         with p_setting(True):
-            fields[f"{prefix}_split_p_ms"] = timed("kernel (bf16, split_p)", kernel)
+            fields[f"{prefix}_split_p_ms"] = timed(f"kernel ({route}, split_p)", kernel)
             fields[f"{prefix}_split_p_plain_ms"] = timed("plain, split_p", plain)
-    # SDPA on views one float off 16 bytes fails with a misaligned address
+    # SDPA on views one element off 16 bytes fails with a misaligned address
     # on the card, so past an offset it takes aligned copies
     fields[f"{prefix}_library_ms"] = timed(
         "library scaled_dot_product_attention"
@@ -1062,20 +1099,18 @@ def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what, offset=
         torch.nn.functional.scaled_dot_product_attention,
         [[(t.clone() if offset else t).view(N, t.shape[1], heads, d).transpose(1, 2) for t in ts]
          for ts in sets])
-    if route == "bf16":
+    if bf16:
         by_bytes, by_ops = attn_bound_ms(N, Lq, S, heads, d, 2, BF16_TC_FLOP_PER_S)
-        print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms")
+        print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms (bf16 "
+              "products on the tensor cores)")
     else:
         by_bytes, by_f32 = attn_bound_ms(N, Lq, S, heads, d, 4, F32_FLOP_PER_S)
-        by_ops = by_f32
-        if route == "f32_tensor_core":
-            # the route's work is three tf32 products on the tensor cores;
-            # the same operations on the CUDA cores are printed beside them
-            by_ops = 3 * attn_bound_ms(N, Lq, S, heads, d, 4, TF32_TC_FLOP_PER_S)[1]
-            fields[f"{prefix}_f32_operations_bound_ms"] = by_f32
-        print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms "
-              f"({'three tf32 products' if route == 'f32_tensor_core' else 'on the CUDA cores'}"
-              f"); float32 operations on the CUDA cores {by_f32:.4f} ms")
+        # the route's work is three tf32 products on the tensor cores; the
+        # same operations on the CUDA cores are printed beside them
+        by_ops = 3 * attn_bound_ms(N, Lq, S, heads, d, 4, TF32_TC_FLOP_PER_S)[1]
+        fields[f"{prefix}_f32_operations_bound_ms"] = by_f32
+        print(f"  {tag} bound: bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms (three "
+              f"tf32 products); float32 operations on the CUDA cores {by_f32:.4f} ms")
     fields[f"{prefix}_bound_ms"] = max(by_bytes, by_ops)
     fields[f"{prefix}_bound_by"] = "bytes" if by_bytes > by_ops else "operations"
     fields[f"{prefix}_work"] = f"one call, {tag} ({what}), route {route}, {note}"
@@ -1084,17 +1119,17 @@ def time_attention(gen, device, prefix, N, Lq, S, heads, d, dtype, what, offset=
 
 def check_wider_shapes(gen, device):
     """Phase 3c: one call of each shape past a kernel's former range, which
-    must launch that kernel once (by the route it names, in key blocks
-    where S > 128 on the tensor cores) and match the plain version; float32
-    at the 384 px frame's S=144 and at self-attention's S=200, d=128 held
-    and timed at the window's N (against the CUDA-core kernel too), bf16
-    timed at the same two shapes, the float32 CUDA-core kernel timed at its
-    own S=500, d=60; and the calls no kernel takes, which must raise before
-    any launch.  Returns the timing fields."""
+    must launch that kernel once (by the route it names; in key blocks, one
+    value a copy and in the wide variants where the sizes ask for them) and
+    match the plain version; timings of those shapes against the plain
+    version and SDPA or cuDNN; and the calls the forced-only dg_exchange
+    backward refuses, before any launch.  Returns (the attention timing and
+    error fields, the wide attention kernel's kernels-line entries, the
+    wide LSTM kernels' entries)."""
     from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
 
-    print("phase 3c: shapes past the kernels' former ranges, and shapes no kernel takes")
+    print("phase 3c: shapes past the kernels' former ranges, and the refusals left")
     f32, bf16 = torch.float32, torch.bfloat16
 
     def held(tag, module, call, plain, tol, route=None):
@@ -1125,10 +1160,10 @@ def check_wider_shapes(gen, device):
         if getattr(module, counter) != before:
             fail(f"{tag} launched a kernel")
 
-    def qkv(n, lq, S, h, d, dtype, offset=0):
+    def qkv(n, lq, S, h, dk, dv, dtype, offset=0):
         """q, k, v, each ``offset`` elements into a buffer of its own."""
         return [torch.randn(offset + n * L * h * d, generator=gen).to(device, dtype)[offset:]
-                .view(n, L, h * d) for L in (lq, S, S)]
+                .view(n, L, h * d) for L, d in ((lq, dk), (S, dk), (S, dv))]
 
     # both dtypes past S = 128 in key blocks: bf16 (in both modes of p) at
     # the depth attention of a 384 px frame, at S = 300 and 512 with d = 128
@@ -1142,9 +1177,14 @@ def check_wider_shapes(gen, device):
     # copies, zero-filled to 64), d = 61 (one float a copy) with the keys
     # whole and in key blocks, q, k and v taken from buffers one float off
     # a 16-byte boundary, d = 256 over 2 heads (D = 256, in key blocks at
-    # every S); and d = 260, which PR 1's kernel still takes
-    tc = "f32_tensor_core"
-    errors = {}
+    # every S).  The wide kernel in float32 at d = 260 and 512, at (d_k, d_v)
+    # = (260, 64), at S = 6965, d = 300 (past the CUDA-core kernel's d_k + S = 7264) and from
+    # pointers one float off; bf16 zero-filled at d = 72 (keys whole and in
+    # key blocks) and at (d_k, d_v) = (128, 64), one value a copy at d = 60
+    # and from pointers one element off 16 bytes, and the wide kernel at d =
+    # 256 (one head of d_model 256, as phase 14) and 260 (one value a load)
+    tc, wf, wb = "f32_tensor_core", "wide_f32", "wide_bf16"
+    errors, wide_worst = {}, {wf: 0.0, wb: 0.0}
     for n, S, h, dtype, d, offset, tol, route, key in (
             (8, 144, 4, bf16, 64, 0, ATTN_BF16_TOL, "bf16", None),
             (8, 300, 4, bf16, 128, 0, ATTN_BF16_TOL, "bf16", None),
@@ -1162,81 +1202,245 @@ def check_wider_shapes(gen, device):
             (8, 300, 4, f32, 64, 1, ATTN_TOL, tc, "f32_unaligned_s300"),
             (200, 200, 2, f32, 256, 0, ATTN_TOL, tc, "f32_s200_d256_h2"),
             (8, 16, 2, f32, 256, 1, ATTN_TOL, tc, None),
-            (8, 200, 2, f32, 260, 0, ATTN_TOL, "f32_cuda_core", "f32_cuda_core_d260")):
-        q, k, v = qkv(n, 200, S, h, d, dtype, offset)
+            (8, 200, 2, f32, 260, 0, ATTN_TOL, wf, "wide_f32_d260"),
+            (8, 200, 2, f32, 512, 0, ATTN_TOL, wf, "wide_f32_d512"),
+            (8, 200, 2, f32, (260, 64), 0, ATTN_TOL, wf, "wide_f32_dk260_dv64"),
+            (8, 6965, 2, f32, 300, 0, ATTN_TOL, wf, "wide_f32_s6965_d300"),
+            (8, 100, 2, f32, 260, 1, ATTN_TOL, wf, "wide_f32_unaligned_d260"),
+            (8, 64, 4, bf16, 72, 0, ATTN_BF16_TOL, "bf16", "bf16_d72"),
+            (8, 200, 4, bf16, 72, 0, ATTN_BF16_TOL, "bf16", "bf16_s200_d72"),
+            (8, 64, 4, bf16, (128, 64), 0, ATTN_BF16_TOL, "bf16", "bf16_dk128_dv64"),
+            (8, 64, 4, bf16, 60, 0, ATTN_BF16_TOL, "bf16", "bf16_d60"),
+            (8, 64, 4, bf16, 64, 1, ATTN_BF16_TOL, "bf16", "bf16_unaligned_d64"),
+            (8, 64, 1, bf16, 256, 0, ATTN_BF16_TOL, wb, "wide_bf16_d256_h1"),
+            (8, 200, 2, bf16, 260, 0, ATTN_BF16_TOL, wb, "wide_bf16_d260")):
+        dk, dv = d if isinstance(d, tuple) else (d, d)
+        q, k, v = qkv(n, 200, S, h, dk, dv, dtype, offset)
         for float32_p in (False, True) if dtype == bf16 else (None,):
             with p_setting(bool(float32_p)):
                 mode = f" {fused_attention.p_mode()}" if dtype == bf16 else ""
                 modes = dict(fused_attention.bf16_mode_launches)
                 blocks = key_block_launches()
-                tag = (f"cross_modal_attn N={n} Lq=200 S={S} h={h} d={d} {str(dtype)[6:]}{mode}"
-                       f"{', pointers one float off 16 bytes' if offset else ''}")
+                tag = (f"cross_modal_attn N={n} Lq=200 S={S} h={h} d_k={dk} d_v={dv} "
+                       f"{str(dtype)[6:]}{mode}"
+                       f"{', pointers one element off 16 bytes' if offset else ''}")
                 err = held(tag, fused_attention,
                            lambda: fused_attention.cross_modal_attn_cuda(q, k, v, h),
                            lambda: fused_attention.attention_plain(q, k, v, h),
-                           bf16_tolerance(tol, q, k, v) if dtype == bf16 else tol, route)
+                           bf16_tolerance(tol, q, k, v, h) if dtype == bf16 else tol, route)
                 if key:
                     errors[f"{key}{'_split_p' if float32_p else ''}_max_abs_err"] = err
+                if route in wide_worst:
+                    wide_worst[route] = max(wide_worst[route], err)
                 blocks = [a - b for a, b in zip(key_block_launches(), blocks)]
                 if blocks != expected_key_blocks(route, q, k, v, h):
-                    fail(f"{tag}: {blocks} (float32 key-block, bf16 key-block, float32 "
-                         "narrow) launches")
+                    fail(f"{tag}: {blocks} ({', '.join(KEY_BLOCK_COUNTS)}) launches")
                 took = {m: c - modes[m] for m, c in fused_attention.bf16_mode_launches.items()}
                 want = {m: int(dtype == bf16 and m == fused_attention.p_mode()) for m in took}
                 if took != want:
                     fail(f"{tag}: bf16 modes {took}, expected {want}")
-    for T, B in ((5, 4), (50, 4)):
-        args = lstm_inputs(gen, T, B, 556, device)
-        held(f"lstm_seq T={T} B={B} H=556", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args),
-             lambda: lstm_recurrence(*args), LSTM_TOL)
-        cots = lstm_cotangents(gen, T, B, 556, device)
-        for kernel in fused_lstm.BACKWARD_KERNELS:
-            launched = check_lstm_backward(f"T={T} B={B} H=556", args,
-                                           lstm_recurrence(*args)[0], cots, T == 5, kernel)[2]
-            if launched != 1:
-                fail(f"lstm_seq backward ({kernel}) took {launched} launches at T={T} B={B} "
-                     "H=556")
+    # the LSTM at H = 556 (a ragged grid), 30 (padded to 32), 1030 and 2048
+    # (the wide variants) at T = 5 and 50, B = 4, and at H = 4096, B = 8,
+    # whose two buffers of h do not fit in shared memory (the wide forward
+    # reads h from the exchange's words)
+    lstm_worst = {"fwd": 0.0, "bwd": [0.0, 0.0]}
+    for H, shapes in ((556, ((5, 4), (50, 4))), (30, ((5, 4), (50, 4))),
+                      (1030, ((5, 4), (50, 4))), (2048, ((5, 4), (50, 4))), (4096, ((3, 8),))):
+        for T, B in shapes:
+            args = lstm_inputs(gen, T, B, H, device)
+            units = fused_lstm._units(device.index, fused_lstm.padded_hidden(H))[0]
+            wide = fused_lstm.wide_kernel(fused_lstm.padded_hidden(H), units)
+            before = fused_lstm.wide_launches
+            err = held(f"lstm_seq T={T} B={B} H={H}{' (wide)' if wide else ''}", fused_lstm,
+                       lambda: fused_lstm.lstm_seq_cuda(*args), lambda: lstm_recurrence(*args),
+                       LSTM_TOL)
+            if fused_lstm.wide_launches - before != wide:
+                fail(f"lstm_seq T={T} B={B} H={H}: {fused_lstm.wide_launches - before} wide "
+                     f"launches, expected {int(wide)}")
+            if H != 556:
+                lstm_worst["fwd"] = max(lstm_worst["fwd"], err)
+            cots = lstm_cotangents(gen, T, B, H, device)
+            for kernel in fused_lstm.BACKWARD_KERNELS if H == 556 else ("partials",):
+                before = fused_lstm.backward_wide_launches
+                e_abs, e_rel, launched, _ = check_lstm_backward(
+                    f"T={T} B={B} H={H}", args, lstm_recurrence(*args)[0], cots, T == 5, kernel)
+                if launched != 1:
+                    fail(f"lstm_seq backward ({kernel}) took {launched} launches at T={T} B={B} "
+                         f"H={H}")
+                b_units = fused_lstm._backward_units(device.index,
+                                                     fused_lstm.padded_hidden(H), kernel)[0]
+                b_wide = kernel == "partials" and fused_lstm.wide_kernel(
+                    fused_lstm.padded_hidden(H), b_units)
+                if fused_lstm.backward_wide_launches - before != b_wide:
+                    fail(f"lstm_seq backward T={T} B={B} H={H}: not {int(b_wide)} wide launch")
+                if H != 556:
+                    w = lstm_worst["bwd"]
+                    lstm_worst["bwd"] = [max(w[0], e_abs), max(w[1], e_rel)]
 
-    n = 8 * 200 * 256
-    q, k, v = (torch.randn(n + 8, generator=gen).to(device, bf16)[1:n + 1].view(8, 200, 256)
-               for _ in range(3))
-    refused("cross_modal_attn bfloat16 with pointers off a 16-byte boundary", fused_attention,
-            lambda: fused_attention.cross_modal_attn_cuda(q, k, v, 4))
+    # the dg_exchange backward, forced only, keeps its range
     args = lstm_inputs(gen, 2, 2, 1028, device)
-    refused("lstm_seq H=1028", fused_lstm, lambda: fused_lstm.lstm_seq_cuda(*args))
-    units = fused_lstm._backward_units(device.index, 1028)[0]
-    refused(f"lstm_seq backward's predicate, H=1028 at {units} units a block", fused_lstm,
-            lambda: fused_lstm.check_backward_shape(2, 1028, units), "backward_launches")
+    units = fused_lstm._backward_units(device.index, 1028, "dg_exchange")[0]
+    refused(f"lstm_seq backward's dg_exchange predicate, H=1028 at {units} units a block",
+            fused_lstm, lambda: fused_lstm.check_backward_shape(2, 1028, units, "dg_exchange"),
+            "backward_launches")
     outs = torch.zeros(2, 2, 1028, device=device)
-    refused("lstm_seq backward H=1028", fused_lstm, lambda: fused_lstm.lstm_seq_backward_cuda(
-        *args, outs, *lstm_cotangents(gen, 2, 2, 1028, device)), "backward_launches")
+    with backward_kernel("dg_exchange"):
+        refused("lstm_seq backward H=1028, dg_exchange forced", fused_lstm,
+                lambda: fused_lstm.lstm_seq_backward_cuda(
+                    *args, outs, *lstm_cotangents(gen, 2, 2, 1028, device)), "backward_launches")
 
     # at the window's N: the depth attention of a 384 px frame (S=144) and
     # self-attention over 200 tokens at d = 128, both in key blocks in both
     # dtypes; float32 at d = 60 (PR 1's kernel's own shape, S=500, and the
     # window's depth S=64 zero-filled to D = 64, there also from unaligned
-    # pointers) and at d = 256 over 2 heads, each against PR 1's kernel
-    # forced; PR 1's kernel at d = 260
-    return {**errors,
-            **time_attention(gen, device, "f32_s144", 200, 200, 144, 4, 64, f32,
-                             "the float32 depth attention of a 384 px frame, key blocks"),
-            **time_attention(gen, device, "f32_s200_d128", 200, 200, 200, 4, 128, f32,
-                             "float32 self-attention over 200 tokens, d_model 512, key blocks"),
-            **time_attention(gen, device, "bf16_s144", 200, 200, 144, 4, 64, bf16,
-                             "the depth attention of a 384 px frame, key blocks"),
-            **time_attention(gen, device, "bf16_s200_d128", 200, 200, 200, 4, 128, bf16,
-                             "self-attention over 200 tokens, d_model 512, key blocks"),
-            **time_attention(gen, device, "f32_s500_d60", 200, 200, 500, 4, 60, f32,
-                             "d = 60 zero-filled to 64, key blocks; PR 1's kernel took it"),
-            **time_attention(gen, device, "f32_s64_d60", 200, 200, 64, 4, 60, f32,
-                             "the window's depth S at d = 60 zero-filled to 64, keys whole"),
-            **time_attention(gen, device, "f32_unaligned_s64_d60", 200, 200, 64, 4, 60, f32,
-                             "the same, pointers one float off 16 bytes: one float a copy",
-                             offset=1),
-            **time_attention(gen, device, "f32_s200_d256_h2", 200, 200, 200, 2, 256, f32,
-                             "self-attention over 200 tokens, d_model 512 over 2 heads, D = 256"),
-            **time_attention(gen, device, "f32_cuda_core_d260", 200, 200, 200, 2, 260, f32,
-                             "PR 1's CUDA-core kernel at d = 260, the head sizes it keeps")}
+    # pointers) and at d = 256 over 2 heads (with the wide kernel forced
+    # there too), each against the CUDA-core kernel forced; the wide kernel at d =
+    # 260 in both dtypes (against the CUDA-core kernel in float32) and at phase
+    # 14's shapes (d = 256, one head, S = 16 and 64), bf16 zero-filled at d
+    # = 72 and one value a copy from pointers one element off
+    timings = {**errors,
+               **time_attention(gen, device, "f32_s144", 200, 200, 144, 4, 64, f32,
+                                "the float32 depth attention of a 384 px frame, key blocks"),
+               **time_attention(gen, device, "f32_s200_d128", 200, 200, 200, 4, 128, f32,
+                                "float32 self-attention over 200 tokens, d_model 512, key blocks"),
+               **time_attention(gen, device, "bf16_s144", 200, 200, 144, 4, 64, bf16,
+                                "the depth attention of a 384 px frame, key blocks"),
+               **time_attention(gen, device, "bf16_s200_d128", 200, 200, 200, 4, 128, bf16,
+                                "self-attention over 200 tokens, d_model 512, key blocks"),
+               **time_attention(gen, device, "f32_s500_d60", 200, 200, 500, 4, 60, f32,
+                                "d = 60 zero-filled to 64, key blocks; the CUDA-core kernel took it"),
+               **time_attention(gen, device, "f32_s64_d60", 200, 200, 64, 4, 60, f32,
+                                "the window's depth S at d = 60 zero-filled to 64, keys whole"),
+               **time_attention(gen, device, "f32_unaligned_s64_d60", 200, 200, 64, 4, 60, f32,
+                                "the same, pointers one float off 16 bytes: one float a copy",
+                                offset=1),
+               **time_attention(gen, device, "f32_s200_d256_h2", 200, 200, 200, 2, 256, f32,
+                                "self-attention over 200 tokens, d_model 512 over 2 heads, "
+                                "D = 256", force_wide=True),
+               **time_attention(gen, device, "bf16_d72", 200, 200, 64, 4, 72, bf16,
+                                "d = 72 zero-filled to 80, keys whole"),
+               **time_attention(gen, device, "bf16_unaligned_d64", 200, 200, 64, 4, 64, bf16,
+                                "the window's depth S, pointers one element off 16 bytes: one "
+                                "value a copy, key blocks", offset=1),
+               **time_attention(gen, device, "bf16_d256_h2", 200, 200, 200, 2, 256, bf16,
+                                "self-attention over 200 tokens, d_model 512 over 2 heads")}
+    wide_f32 = time_attention(gen, device, "wide_f32_d260", 200, 200, 200, 2, 260, f32,
+                              "d = 260 over 2 heads, the CUDA-core kernel's own shape")
+    if not wide_f32["wide_f32_d260_ms"] < wide_f32["wide_f32_d260_cuda_core_ms"]:
+        fail("the wide kernel at d = 260 is not faster than the CUDA-core kernel forced")
+    # one window of phase 14 launches the bf16 wide kernel twice: rgb (S=16)
+    # and depth (S=64) tokens, one head of d_model 256
+    wide_bf16 = {}
+    for S in (16, 64):
+        wide_bf16.update(time_attention(gen, device, f"s{S}", 200, 200, S, 1, 256, bf16,
+                                        "phase 14's window: VisualLingAttn h = 1"))
+    wide_bf16_d260 = time_attention(gen, device, "d260", 200, 200, 200, 2, 260, bf16,
+                                    "d = 260 over 2 heads: one value a load")
+    entries = [{
+        "name": "cross_modal_attn_wide_f32", "route": "cuda",
+        "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
+        "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
+        "max_abs_err": wide_worst[wf],
+        "ms": wide_f32["wide_f32_d260_ms"], "plain_ms": wide_f32["wide_f32_d260_plain_ms"],
+        "bound_ms": wide_f32["wide_f32_d260_bound_ms"],
+        "bound_by": wide_f32["wide_f32_d260_bound_by"],
+        "library_ms": wide_f32["wide_f32_d260_library_ms"],
+        "cuda_core_ms": wide_f32["wide_f32_d260_cuda_core_ms"],
+        "forced_at_d256_h2_ms": timings["f32_s200_d256_h2_wide_ms"],
+        "work": "one call, N=200 Lq=200 S=200 h=2 d=260, float32 (3xTF32); cuda_core_ms "
+                "the CUDA-core kernel forced on the same inputs, forced_at_d256_h2_ms the wide kernel "
+                "forced at the tensor-core route's D = 256 shape; max_abs_err over phase 3b's "
+                "and 3c's wide float32 calls; launches: phase 14 (its float32 head, d = 256, "
+                "takes the tensor-core route: 0)",
+        "library": "torch.nn.functional.scaled_dot_product_attention on head views",
+    }, {
+        "name": "cross_modal_attn_wide_bf16", "route": "cuda",
+        "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
+        "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
+        "max_abs_err": wide_worst[wb],
+        "ms": wide_bf16["s16_ms"] + wide_bf16["s64_ms"],
+        "plain_ms": wide_bf16["s16_plain_ms"] + wide_bf16["s64_plain_ms"],
+        "split_p_ms": wide_bf16["s16_split_p_ms"] + wide_bf16["s64_split_p_ms"],
+        "bound_ms": wide_bf16["s16_bound_ms"] + wide_bf16["s64_bound_ms"],
+        "bound_by": wide_bf16["s64_bound_by"],
+        "library_ms": wide_bf16["s16_library_ms"] + wide_bf16["s64_library_ms"],
+        "d260_ms": wide_bf16_d260["d260_ms"], "d260_plain_ms": wide_bf16_d260["d260_plain_ms"],
+        "d260_library_ms": wide_bf16_d260["d260_library_ms"],
+        "d260_bound_ms": wide_bf16_d260["d260_bound_ms"],
+        "work": "2 calls, N=200 Lq=200 h=1 d=256 at S=16 and S=64 (one window forward of "
+                "phase 14), round_p (split_p_ms with TPU.PALLAS_ATTENTION on); d260_*: one "
+                "call at N=200 Lq=200 S=200 h=2 d=260 (one value a load); launches: phase 14",
+        "library": "torch.nn.functional.scaled_dot_product_attention on head views",
+    }]
+    return timings, entries, time_wide_lstm(gen, device, lstm_worst)
+
+
+def time_wide_lstm(gen, device, worst):
+    """The LSTM's wide variants at phase 14's shape, T=50, B=4, H=2048: the
+    forward and the partials backward timed against the plain versions and
+    cuDNN, with their bounds; their kernels-line entries (``worst``: the
+    largest errors of phase 3c's wide shapes)."""
+    from robo_vln_tpu_torch.ops import fused_lstm
+    from robo_vln_tpu_torch.ops.rnn import lstm_recurrence, lstm_recurrence_backward
+
+    T, B, H = 50, 4, 2048
+    args = lstm_inputs(gen, T, B, H, device)
+    cots = lstm_cotangents(gen, T, B, H, device)
+    outs = fused_lstm.lstm_seq_cuda(*args)[0]
+    tag = f"T={T} B={B} H={H}"
+    kernel = report_times(f"lstm_seq {tag} (wide)", time_ms(lambda: fused_lstm.lstm_seq_cuda(*args)))
+    plain = report_times(f"lstm_seq {tag} plain", time_ms(lambda: lstm_recurrence(*args), inner=2))
+    lstm = torch.nn.LSTM(896, H).to(device)
+    x = torch.randn(T, B, 896, generator=gen).to(device)
+    hc = (args[2][None], args[3][None])
+    library = report_times(f"library nn.LSTM {tag} (cuDNN, input 896, masks all 1)",
+                           time_ms(lambda: lstm(x, hc)))
+    bwd = report_times(f"lstm_seq backward {tag} (partials, wide), whole call", time_ms(
+        lambda: fused_lstm.lstm_seq_backward_cuda(*args, outs, *cots, masks_grad=False)))
+    bwd_plain = report_times(f"lstm_seq backward {tag}, plain", time_ms(
+        lambda: lstm_recurrence_backward(*args, outs, *cots, masks_grad=False), inner=2))
+    xg = x.detach().requires_grad_()
+    params = list(lstm.parameters())
+
+    def cudnn_forward():
+        with torch.enable_grad():
+            return lstm(xg, hc)
+
+    def cudnn_both():
+        out, (h, c) = cudnn_forward()
+        torch.autograd.grad((out, h, c), [xg, *params], (cots[0], cots[1][None], cots[2][None]))
+
+    both = report_times(f"library nn.LSTM {tag} forward and backward", time_ms(cudnn_both))
+    bwd_library = both - statistics.median(time_ms(cudnn_forward))
+    by_bytes, by_ops = lstm_bound_ms(T, B, H)
+    (b_bytes, b_ops), _ = lstm_backward_bound_ms(T, B, H)
+    units = fused_lstm._units(device.index, H)[0]
+    b_units = fused_lstm._backward_units(device.index, H)[0]
+    print(f"  {tag}: forward {units} units a block, backward {b_units}; bound: forward bytes "
+          f"{by_bytes:.4f} ms, operations {by_ops:.4f} ms; backward bytes {b_bytes:.4f} ms, "
+          f"operations {b_ops:.4f} ms; W_hh {4 * 4 * H * H / 2**20:.1f} MiB")
+    common = {"route": "cuda", "source": "robo_vln_tpu_torch/csrc/lstm_seq.cu"}
+    return [{
+        "name": "lstm_seq_wide", **common, "replaces": "robo_vln_tpu/ops/pallas_lstm.py:40",
+        "kernel": "lstm_seq_wide_kernel", "max_abs_err": worst["fwd"],
+        "ms": 2 * kernel, "plain_ms": 2 * plain, "library_ms": 2 * library,
+        "bound_ms": 2 * max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes > by_ops else "operations", "units": units,
+        "work": f"2 calls at {tag}, float32 (one window forward of phase 14); max_abs_err over "
+                "phase 3c's H = 30, 1030 and 2048; launches: phase 14",
+        "library": "torch.nn.LSTM (cuDNN) over x (T, B, 896), input projection included",
+    }, {
+        "name": "lstm_seq_backward_wide", **common,
+        "replaces": "robo_vln_tpu/ops/pallas_lstm.py:164",
+        "kernel": "lstm_seq_backward_partials_wide_kernel", "max_abs_err": worst["bwd"][0],
+        "max_rel_err": worst["bwd"][1],
+        "ms": 2 * bwd, "plain_ms": 2 * bwd_plain, "library_ms": 2 * bwd_library,
+        "bound_ms": 2 * max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes > b_ops else "operations", "units": b_units,
+        "work": f"2 backward calls at {tag}, float32, no mask gradient (one train step of "
+                "phase 14): the whole call; launches: phase 14's train steps",
+        "library": "torch.nn.LSTM (cuDNN) forward and backward less its forward",
+    }]
 
 
 def path_launches():
@@ -1255,6 +1459,19 @@ def path_launches():
                for mode, count in fused_attention.bf16_mode_launches.items()}}
 
 
+def wide_launches():
+    """Launches since the last reset of the kernels past the former ranges:
+    the wide attention kernel by dtype, the LSTM's wide forward and its
+    partials backward's wide variant (each also counted by path_launches'
+    names, which those launches add to)."""
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+
+    return {"cross_modal_attn_wide_f32": fused_attention.route_launches["wide_f32"],
+            "cross_modal_attn_wide_bf16": fused_attention.route_launches["wide_bf16"],
+            "lstm_seq_wide": fused_lstm.wide_launches,
+            "lstm_seq_backward_wide": fused_lstm.backward_wide_launches}
+
+
 def trainer_launches(train_steps, val_windows):
     """A bf16 HCM trainer's path_launches over ``train_steps`` steps and
     ``val_windows`` val windows: 2 + 2 forward (the LSTM, attention rounding
@@ -1265,29 +1482,44 @@ def trainer_launches(train_steps, val_windows):
             "cross_modal_attn_bf16_round_p": forward, "cross_modal_attn_bf16_split_p": 0}
 
 
+KEY_BLOCK_COUNTS = ("f32_key_block", "bf16_key_block", "f32_narrow", "bf16_fill",
+                    "wide_narrow")
+
+
 def key_block_launches():
-    """(float32 key-block, bf16 key-block, float32 narrow-copy) launches
-    of the attention kernel so far."""
+    """(float32 key-block, bf16 key-block, float32 narrow-copy, bf16
+    one-value-copy, wide one-value-load) launches of the attention kernel
+    so far (KEY_BLOCK_COUNTS)."""
     from robo_vln_tpu_torch.ops import fused_attention
 
     return [fused_attention.f32_key_block_launches, fused_attention.bf16_key_block_launches,
-            fused_attention.f32_narrow_launches]
+            fused_attention.f32_narrow_launches, fused_attention.bf16_fill_launches,
+            fused_attention.wide_narrow_launches]
 
 
 def expected_key_blocks(route, q, k, v, heads):
-    """The (float32 key-block, bf16 key-block, float32 narrow-copy)
-    launches one call by ``route`` on q, k, v makes: its tensor-core
-    route's key blocks past that route's whole keys (in float32 also past
-    D = 128), and in float32 on the tensor cores one-float copies where the
-    pointers or head sizes ask for them."""
+    """The key_block_launches one call by ``route`` on q, k, v makes: its
+    tensor-core route's key blocks past that route's whole keys (in float32
+    also past D = 128, in bf16 also where it copies one value at a time),
+    and one-value copies where the pointers or head sizes ask for them."""
     from robo_vln_tpu_torch.ops import fused_attention
 
-    S, dk, dv = k.shape[1], q.shape[-1] // heads, v.shape[-1] // heads
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    tc = route == "f32_tensor_core"
+    return expected_key_block_counts(route, q.dtype, k.shape[1], q.shape[-1] // heads,
+                                     v.shape[-1] // heads, aligned)
+
+
+def expected_key_block_counts(route, dtype, S, dk, dv, aligned=True):
+    """expected_key_blocks by sizes."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    tc, bf = route == "f32_tensor_core", route == "bf16"
+    wide = route in ("wide_f32", "wide_bf16")
     return [int(tc and fused_attention.f32_key_blocks(S, dk, dv)),
-            int(route == "bf16" and S > fused_attention.BF16_WHOLE_S),
-            int(tc and fused_attention.f32_narrow_copies(dk, dv, aligned))]
+            int(bf and fused_attention.bf16_key_blocks(S, dk, dv, aligned)),
+            int(tc and fused_attention.f32_narrow_copies(dk, dv, aligned)),
+            int(bf and fused_attention.bf16_fill(dk, dv, aligned)),
+            int(wide and fused_attention.wide_narrow_copies(dtype, dk, dv, aligned))]
 
 
 @contextlib.contextmanager
@@ -1306,18 +1538,25 @@ def f32_key_blocks_everywhere():
 
 
 @contextlib.contextmanager
-def cuda_core_f32_attention():
-    """Route float32 attention to the CUDA-core kernel, to check and time
-    it against the tensor-core kernel at the same shapes."""
+def forced_f32_attention(route):
+    """Route float32 attention to ``route``: the CUDA-core kernel
+    (f32_cuda_core, which no call is routed to since the wide kernel took its
+    shapes) or the wide kernel (wide_f32), to check and time it against the
+    kernel that takes the shape."""
     from robo_vln_tpu_torch.ops import fused_attention
 
     saved = fused_attention.pick_route
     fused_attention.pick_route = lambda dtype, *a, **kw: (
-        "f32_cuda_core" if dtype == torch.float32 else saved(dtype, *a, **kw))
+        route if dtype == torch.float32 else saved(dtype, *a, **kw))
     try:
         yield
     finally:
         fused_attention.pick_route = saved
+
+
+def cuda_core_f32_attention():
+    """Route float32 attention to the CUDA-core kernel."""
+    return forced_f32_attention("f32_cuda_core")
 
 
 @contextlib.contextmanager
@@ -1334,14 +1573,19 @@ def p_setting(float32_p):
         cm_attention.set_float32_probabilities(saved)
 
 
-def bf16_tolerance(tol, q, k, v):
+def bf16_tolerance(tol, q, k, v, heads):
     """A bf16 call's tolerance against the plain version in the mode set:
-    ``tol``, and with p rounded once past S = 128, where the key-block
-    kernel rounds p before it is normalised (the plain version after),
-    2^-8 max|v| more."""
+    ``tol``, and with p rounded once where a key-block kernel takes the
+    call (the bf16 key blocks, past S = 128 or one value a copy, and the
+    wide kernel), which rounds p before it is normalised (the plain version
+    after), 2^-8 max|v| more."""
     from robo_vln_tpu_torch.ops import fused_attention
 
-    if fused_attention.p_mode() == "round_p" and k.shape[1] > fused_attention.BF16_WHOLE_S:
+    S, dk, dv = k.shape[1], q.shape[-1] // heads, v.shape[-1] // heads
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    blocks = (fused_attention.pick_route(torch.bfloat16, S, dk, dv, aligned) == "wide_bf16"
+              or fused_attention.bf16_key_blocks(S, dk, dv, aligned))
+    if fused_attention.p_mode() == "round_p" and blocks:
         return tol + 2.0 ** -8 * v.float().abs().max().item()
     return tol
 
@@ -4983,6 +5227,154 @@ def mesh_path(device, raw=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+WIDE_HIDDEN = 2048  # phase 14: MODEL.STATE_ENCODER.hidden_size, both LSTMs
+WIDE_HEADS = 1  # phase 14: MODEL.VISUAL_LING_ATTN.h, one head of d_model 256
+# phase 14, bf16: kernels against plain, each output's largest error of its
+# largest magnitude; bf16 rounds p before it is normalised in the kernel,
+# after it in the plain version (2^-8 of a term), then through 50 steps
+WIDE_BF16_RTOL = 2e-2
+
+
+def wide_path(device):
+    """Phase 14: the HCM at bench.py's full width with two settings a user
+    can make that reach the shapes past the kernels' former ranges,
+    MODEL.STATE_ENCODER.hidden_size 2048 (the LSTM's wide variants, both
+    levels) and MODEL.VISUAL_LING_ATTN.h 1 (d = 256: the wide attention
+    kernel in bf16, the tensor-core D = 256 key blocks in float32): in bf16
+    and in float32, one window through build_hcm_agent and one train step
+    through training/steps (lr 0), each held to itself under
+    plain_kernels() (float32 at phases 4b and 5b's tolerances; bf16 the
+    window's outputs within WIDE_BF16_RTOL of each output's largest
+    magnitude and the losses within phase 9's bf16 tolerances), with its
+    launches asserted.  Returns the launches of the kernels' runs by the
+    kernels line's names."""
+    from robo_vln_tpu_torch import build_hcm_agent
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+
+    cfg = get_config(None, ["MODEL.STATE_ENCODER.hidden_size", WIDE_HIDDEN,
+                            "MODEL.VISUAL_LING_ATTN.h", WIDE_HEADS])
+    mc = cfg.MODEL
+    B, T, L = 4, 50, 200
+    d = mc.VISUAL_LING_ATTN.d_model // WIDE_HEADS
+    print(f"phase 14: the HCM at full width with MODEL.STATE_ENCODER.hidden_size {WIDE_HIDDEN} "
+          f"and MODEL.VISUAL_LING_ATTN.h {WIDE_HEADS} (d = {d}), B={B} T={T}: a window and a "
+          "train step in bf16 and in float32, each against plain_kernels()")
+    gen = torch.Generator().manual_seed(14)
+    obs, masks = window_inputs(gen, B, T, L, device)
+    batch = train_batch(gen, B, T, L, device)
+    total = collections.Counter()
+
+    def counts():
+        return {**path_launches(), **wide_launches(), **dict(zip(
+            KEY_BLOCK_COUNTS, key_block_launches())),
+            **{f"route_{r}": n for r, n in fused_attention.route_launches.items()}}
+
+    def expect(label, before, want):
+        after = counts()
+        took = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        print(f"  {label}: launched {took}")
+        if took != want:
+            fail(f"phase 14 {label} launched {took}, expected {want}")
+        total.update({k: n for k, n in took.items() if not k.startswith("route_")})
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        bf16 = dtype == torch.bfloat16
+        # the rgb (S = 16) and depth (S = 64) attention: in bf16 the wide
+        # kernel, p rounded once; in float32 at d = 256 the tensor-core key
+        # blocks
+        attn = collections.Counter({"cross_modal_attn": 2})
+        for S in (16, 64):
+            route = fused_attention.pick_route(dtype, S, d, d)
+            attn[f"route_{route}"] += 1
+            attn.update({f"cross_modal_attn_{route}": int(route.startswith("wide"))})
+            attn.update(dict(zip(KEY_BLOCK_COUNTS,
+                                 expected_key_block_counts(route, dtype, S, d, d))))
+        if bf16:
+            attn["cross_modal_attn_bf16_round_p"] = 2
+        # both LSTMs past H = 1024: the wide variant
+        forward = {k: n for k, n in {"lstm_seq": 2, "lstm_seq_wide": 2, **attn}.items() if n}
+        agent = build_hcm_agent(mc, device=device, compute_dtype=name, seed=0,
+                                share_frozen_trunks=cfg.TPU.SHARE_FROZEN_TRUNKS,
+                                pallas_attention=cfg.TPU.PALLAS_ATTENTION)
+        for scope in (contextlib.nullcontext, plain_kernels):  # a first, uncounted call each
+            with scope():
+                agent.forward_window(obs, masks, None, *agent.initial_state(B))
+        before = counts()
+        t0 = time.perf_counter()
+        got = agent.forward_window(obs, masks, None, *agent.initial_state(B))
+        torch.cuda.synchronize()
+        print(f"  {name} window B={B} T={T}: {(time.perf_counter() - t0) * 1e3:.3f} ms "
+              "(host clock, its second call)")
+        expect(f"{name} window", before, forward)
+        before = counts()
+        with plain_kernels():
+            t0 = time.perf_counter()
+            ref = agent.forward_window(obs, masks, None, *agent.initial_state(B))
+            torch.cuda.synchronize()
+        print(f"  {name} window, plain_kernels(): {(time.perf_counter() - t0) * 1e3:.3f} ms "
+              "(its second call)")
+        expect(f"{name} window, plain_kernels()", before, {})
+        names = ("actions", "stop", "logits", "high hidden", "low hidden")
+        if got[3].shape != (2, B, WIDE_HIDDEN):
+            fail(f"phase 14 high hidden state {tuple(got[3].shape)}")
+        held = names
+        if bf16:  # the low level follows the high level's argmax
+            flips = (got[2].argmax(-1) != ref[2].argmax(-1)).sum().item()
+            print(f"  {name}: the high level's argmax differs at {flips} of {B * T} steps")
+            if flips:
+                held = ("logits", "high hidden")
+        for label, g, r in zip(names, got, ref):
+            check_finite(f"phase 14 {name} {label}", g)
+            if label not in held:
+                continue
+            err = (g.float() - r.float()).abs().max().item()
+            tol = WIDE_BF16_RTOL * r.float().abs().max().item() if bf16 else WINDOW_TOL
+            print(f"  {name} {label}: max_abs_err {err:.3e} (tolerance {tol:.3e})")
+            if not err <= tol:
+                fail(f"phase 14 {name} window {label} disagrees with the plain-kernel agent")
+        del agent, got, ref
+
+        high, low, step, state = make_train(cfg, dtype, device)
+        hh, lh = high.initial_hidden(B, device), low.initial_hidden(B, device)
+        params = [(f"{level}.{n}", p) for level, pol in (("high", high), ("low", low))
+                  for n, p in pol.named_parameters()]
+        runs = {}
+        for label, scope in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
+            with scope():  # a first, uncounted step (lr 0: the weights stay)
+                step(state, hh, lh, batch, 0.0, 0.0)
+            before = counts()
+            with scope():
+                t0 = time.perf_counter()
+                _, _, _, metrics = step(state, hh, lh, batch, 0.0, 0.0)
+                torch.cuda.synchronize()
+            print(f"  {name} train step, {label}: {(time.perf_counter() - t0) * 1e3:.3f} ms "
+                  "(host clock, its second call); " + ", ".join(
+                      f"{k} {v.item():.6f}" for k, v in metrics.items()))
+            expect(f"{name} train step, {label}", before,
+                   {**forward, "lstm_seq_backward": 2, "lstm_seq_backward_wide": 2}
+                   if label == "kernels" else {})
+            check_finite(f"phase 14 {name} train step", *metrics.values())
+            runs[label] = metrics, {n: p.grad.clone() for n, p in params if p.grad is not None}
+        if bf16:
+            (got, grads), (ref, _) = runs["kernels"], runs["plain"]
+            for key in HCM_LOSS_KEYS:
+                a, b = got[key].item(), ref[key].item()
+                print(f"  {name} {key}: {a:.6f} against {b:.6f} (rtol {FEATURE_LOSS_RTOL}, "
+                      f"atol {FEATURE_LOSS_ATOL})")
+                if not abs(a - b) <= FEATURE_LOSS_RTOL * abs(b) + FEATURE_LOSS_ATOL:
+                    fail(f"phase 14 bf16 train step {key} disagrees with the plain-kernel step")
+            check_finite("phase 14 bf16 gradients", *grads.values())
+        else:
+            hold_step_to_plain("phase 14 float32 train step, kernels", *runs["kernels"],
+                               *runs["plain"])
+        del high, low, step, state, runs, params
+        torch.cuda.empty_cache()
+    print(f"  phase 14 launches (the kernels' runs): {dict(total)}")
+    return dict(total)
+
+
 def _config_dir():
     from robo_vln_tpu_torch.config.default import _CONFIGS
 
@@ -5013,7 +5405,8 @@ def main():
         for kernel, regs, spill in ptxas_usage(log):
             print(f"  {name}: {kernel}: {regs} registers, {spill} bytes spill stores")
             if kernel.startswith(("cross_modal_attn_f32tc", "cross_modal_attn_bf16_blocks",
-                                  "lstm_seq_backward_partials")) and spill:
+                                  "cross_modal_attn_wide", "lstm_seq_backward_partials",
+                                  "lstm_seq_wide")) and spill:
                 fail(f"{kernel} spills {spill} bytes")
 
     profile = "--profile" in sys.argv[1:]
@@ -5029,21 +5422,28 @@ def main():
             extras_path(device)
         if "13" in only:
             mesh_path(device)
+        if "3" in only:
+            with float32_exact(torch.float32):
+                check_lstm(torch.Generator().manual_seed(0), device)
+                check_attention(torch.Generator().manual_seed(0), device)
+                check_wider_shapes(torch.Generator().manual_seed(0), device)
+        if "14" in only:
+            wide_path(device)
         print(f"chip_smoke: phases {only} passed; a partial run prints no result")
         return 0
     gen = torch.Generator().manual_seed(0)
     with float32_exact(torch.float32):  # the float32 plain versions without TF32
         lstm_kernels = check_lstm(gen, device)
         bf16_modes, attention = check_attention(gen, device)
-        attention.update(check_wider_shapes(gen, device))
+        wider, wide_attention, wide_lstm = check_wider_shapes(gen, device)
+        attention.update(wider)
     kernels = [*lstm_kernels, attention, *bf16_modes]
     # each path zeroes the launch counts before it runs; both tensor-core
     # routes' key blocks (S > 128) are read after each
     key_blocks = {}
 
     def read_key_blocks(suffix):
-        for name, count in zip(("f32_key_block", "bf16_key_block", "f32_narrow"),
-                               key_block_launches()):
+        for name, count in zip(KEY_BLOCK_COUNTS, key_block_launches()):
             key_blocks[f"{name}{suffix}_launches"] = count
 
     launches = main_path(device, profile)
@@ -5066,6 +5466,7 @@ def main():
     read_key_blocks("_extras")
     loader_launches, mesh_launches = mesh_path(device, raw_trainer)
     read_key_blocks("_mesh")
+    wide = wide_path(device)  # asserts its own key blocks (float32 at D = 256)
     print(f"key-block launches of the attention kernel (S > 128 or d > 128 in float32, S > "
           f"128 in bf16) and float32 one-float-copy launches on the serving, train, "
           f"trainer, eval, collection, feature, on-device, flat, extras and mesh paths (the "
@@ -5093,6 +5494,12 @@ def main():
     for backward in kernels[1:3]:
         backward["serving_launches"], backward["launches"] = (backward["launches"],
                                                               backward["train_launches"])
+    for k in kernels:
+        k["wide_launches"] = wide.get(k["name"], 0)
+    # the kernels past the former ranges: phase 14 is their path
+    for k in (*wide_attention, *wide_lstm):
+        k["launches"] = wide.get(k["name"], 0)
+    kernels += [*wide_attention, *wide_lstm]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,11 @@
 //
 // bfloat16 past S = 128: key blocks (the kernel takes any S ≥ 1), for
 // d_k = d_v a multiple of 16 up to 128 and pointers aligned to 16 bytes.
+// Every other bf16 call up to d = 128 (d_k ≠ d_v, d off a multiple of 16,
+// pointers aligned only to 2 bytes) takes its kFill instance at any S: D
+// is the larger of d_k and d_v rounded up to 16, every value is copied by
+// a plain load, zero past d_k and d_v, and stored one value at a time; the
+// instances the aligned calls take are unchanged by it.
 // Holding a head's K and V whole made shared memory grow with S (130,560
 // bytes a block at S = 200, d = 128: one block an SM; nothing past S = 384
 // at d = 128).  The bound is bytes (S = 144, d = 64 at N = 200: 70 MB,
@@ -143,8 +148,13 @@
 // slicing d_v across the grid keeps the 135,168-byte Q tile and computes
 // the logits once a slice.)
 //
-// float32 on the CUDA cores, for d_k or d_v above 256 only (the wrapper
-// picks the kernel before the launch).  Grid (example,
+// Wide heads, float32 with d_k or d_v above 256 and bfloat16 above 128, any
+// S and alignment: cross_modal_attn_wide_kernel (its note below), on the
+// tensor cores, in key blocks and slices of d_v.
+//
+// float32 on the CUDA cores: the first float32 kernel, which the wrapper sends no call
+// since the wide kernel took its shapes; reached only when forced (route
+// 0), to time it beside its successor.  Grid (example,
 // head, tile of 32 queries), 8 warps a block.  The block stages K and V of
 // its (example, head) in shared memory as float32 (K's rows padded by one
 // float so the lanes of a warp, one key each, hit 32 different banks); where
@@ -602,6 +612,7 @@ constexpr int kBf16BlockWarps = 4;  // 16 query rows each: 64-row query tiles
 constexpr int kBf16KeyChunks = 2;   // 16-key chunks of one key block: 32 keys
 constexpr int kBf16Stages = 3;      // key blocks in the ring
 constexpr int kBf16MoreRegs = 48;   // registers a thread beyond the accumulators
+constexpr int kBf16FillRegs = 32;   // the same, more, for kFill's copies
 constexpr float kBf16MaxSlack = 8.0f;  // log2 of the largest p before a rescale
 
 // Shared memory of one block of cross_modal_attn_bf16_blocks_kernel<D>: the
@@ -616,9 +627,11 @@ __host__ __device__ constexpr size_t bf16_blocks_smem_bytes(int D) {
 // Blocks a multiprocessor should hold at once: as many as the registers
 // allow once the accumulators (8·kBf16KeyChunks logits and D/2 outputs a
 // thread) and kBf16MoreRegs registers of fragments, addresses and the
-// softmax's state fit, and as many as the shared memory holds, at most 8.
-constexpr int bf16_blocks_an_sm(int D) {
-  const int regs = (8 * kBf16KeyChunks + D / 2 + kBf16MoreRegs + 7) / 8 * 8;
+// softmax's state fit (with kFill, kBf16FillRegs more for the limits and
+// strides of its copies), and as many as the shared memory holds, at most 8.
+constexpr int bf16_blocks_an_sm(int D, bool kFill = false) {
+  const int regs =
+      (8 * kBf16KeyChunks + D / 2 + kBf16MoreRegs + (kFill ? kBf16FillRegs : 0) + 7) / 8 * 8;
   const int by_regs = 65536 / (kBf16BlockWarps * 32 * regs);
   const int by_smem = 233472 / (int)(bf16_blocks_smem_bytes(D) + 1024);
   const int m = by_regs < by_smem ? by_regs : by_smem;
@@ -643,8 +656,24 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// S > 128: the keys streamed through a ring of kStages key blocks of 16·KC
-// keys (the kBf16 constants above).  D: d_k = d_v; kWarps warps a block,
+// One bf16 value where no 16-byte copy can start: a plain load (zero where
+// not valid)
+__device__ __forceinline__ __nv_bfloat16 ldg_bf16(const __nv_bfloat16* src, bool ok) {
+  return ok ? __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(src)))
+            : __ushort_as_bfloat16((unsigned short)0);
+}
+
+// S > 128, or (kFill) any other bf16 call up to d = 128: the keys streamed
+// through a ring of kStages key blocks of 16·KC keys (the kBf16 constants
+// above).  D: d_k = d_v, or with kFill max(d_k, d_v) rounded up to 16.
+// kFill takes any d_k and d_v and pointers aligned only to 2 bytes: every
+// value is copied by a plain load, zero past d_k (Q, K) and d_v (V), so the
+// columns past d_k add nothing to q·kᵀ and those past d_v give outputs that
+// are not stored, and the output leaves one value a store (the loads land
+// before the thread's own stores to shared memory, so the ring's commit
+// groups are empty and its barriers do the rest); the instances without it
+// are the aligned d_k = d_v kernel as it was, so the calls that take them
+// (every HCM call) run the same code.  kWarps warps a block,
 // 16 query rows each.  One block per (example, head, 16·kWarps-query tile),
 // tile fastest, so the tiles of one head run side by side and find its K
 // and V in L2.  The Q tile and the first kStages - 1 key blocks go out as
@@ -666,13 +695,13 @@ __device__ __forceinline__ float ex2(float x) {
 // differ by at most 2^-8 max|v| before the output's own rounding.  Every
 // warp copies and meets the barriers, including a warp with no query rows
 // in a partial tile, which multiplies nothing.
-template <int D, bool kRoundP>
-__global__ void __launch_bounds__(kBf16BlockWarps * 32, bf16_blocks_an_sm(D))
+template <int D, bool kRoundP, bool kFill>
+__global__ void __launch_bounds__(kBf16BlockWarps * 32, bf16_blocks_an_sm(D, kFill))
 cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
                                     const __nv_bfloat16* __restrict__ k,
                                     const __nv_bfloat16* __restrict__ v,
                                     __nv_bfloat16* __restrict__ out, int Lq, int S,
-                                    int heads, int tiles, float scale) {
+                                    int heads, int dk, int dv, int tiles, float scale) {
   constexpr int KC = kBf16KeyChunks, kWarps = kBf16BlockWarps, kStages = kBf16Stages;
   constexpr int P = D + kPad;         // row pitch of the shared tiles, in values
   constexpr int kChunks = D / 8;      // 16-byte chunks in one head's row
@@ -690,31 +719,49 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
   const int nh = b / tiles;  // n * heads + head
   const int q0 = (b - nh * tiles) * kTile;
   const int n = nh / heads, head = nh - n * heads;
-  const int ld = heads * D;  // row stride of q, k, v and out
-  const __nv_bfloat16* qb = q + ((size_t)n * Lq + q0) * ld + head * D;
-  const __nv_bfloat16* kb = k + (size_t)n * S * ld + head * D;
-  const __nv_bfloat16* vb = v + (size_t)n * S * ld + head * D;
+  const int ld = heads * D;  // row stride of q, k, v and out (kFill: of none)
+  const __nv_bfloat16* qb = q + ((size_t)n * Lq + q0) * (kFill ? heads * dk : ld) +
+                            head * (kFill ? dk : D);
+  const __nv_bfloat16* kb = k + (size_t)n * S * (kFill ? heads * dk : ld) + head * (kFill ? dk : D);
+  const __nv_bfloat16* vb = v + (size_t)n * S * (kFill ? heads * dv : ld) + head * (kFill ? dv : D);
+  if constexpr (kFill) {
+    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      q_s[r * P + c] = ldg_bf16(qb + (size_t)r * heads * dk + c, q0 + r < Lq && c < dk);
+    }
+  } else {
 #pragma unroll
-  for (int j = 0; j < kTile * kChunks / kThreads; ++j) {
-    const int i = j * kThreads + threadIdx.x;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = q0 + r < Lq;
-    cp_async16(q_s + r * P + c, ok ? qb + (size_t)r * ld + c : q, ok);
+    for (int j = 0; j < kTile * kChunks / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool ok = q0 + r < Lq;
+      cp_async16(q_s + r * P + c, ok ? qb + (size_t)r * ld + c : q, ok);
+    }
   }
-  // key block blk into its stage of the ring, zero past S
+  // key block blk into its stage of the ring, zero past S (kFill: and past
+  // d_k and d_v)
   auto copy_block = [&](int blk) {
     __nv_bfloat16* k_s = ring + (blk % kStages) * 2 * kKeys * P;
     __nv_bfloat16* v_s = k_s + kKeys * P;
     const int s0 = blk * kKeys;
-#pragma unroll
-    for (int j = 0; j < (kItems + kThreads - 1) / kThreads; ++j) {
-      const int i = j * kThreads + threadIdx.x;
-      if (kItems % kThreads == 0 || i < kItems) {
-        const int r = i / kChunks, c = (i % kChunks) * 8;
+    if constexpr (kFill) {
+      for (int i = threadIdx.x; i < kKeys * D; i += kThreads) {
+        const int r = i / D, c = i % D;
         const bool ok = s0 + r < S;
-        const size_t at = (size_t)(s0 + r) * ld + c;
-        cp_async16(k_s + r * P + c, ok ? kb + at : kb, ok);
-        cp_async16(v_s + r * P + c, ok ? vb + at : vb, ok);
+        k_s[r * P + c] = ldg_bf16(kb + (size_t)(s0 + r) * heads * dk + c, ok && c < dk);
+        v_s[r * P + c] = ldg_bf16(vb + (size_t)(s0 + r) * heads * dv + c, ok && c < dv);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < (kItems + kThreads - 1) / kThreads; ++j) {
+        const int i = j * kThreads + threadIdx.x;
+        if (kItems % kThreads == 0 || i < kItems) {
+          const int r = i / kChunks, c = (i % kChunks) * 8;
+          const bool ok = s0 + r < S;
+          const size_t at = (size_t)(s0 + r) * ld + c;
+          cp_async16(k_s + r * P + c, ok ? kb + at : kb, ok);
+          cp_async16(v_s + r * P + c, ok ? vb + at : vb, ok);
+        }
       }
     }
   };
@@ -868,37 +915,57 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
       o_acc[t][2 * h + 1] *= inv;
     }
   }
-  store_rows_bf16<D>(o_acc, q_s + row0 * P, out + ((size_t)n * Lq + q0 + row0) * ld + head * D,
-                     ld, rows - row0, lane);
+  if constexpr (kFill) {  // rows g, g + 8 of the warp, columns below d_v, one value a store
+    __nv_bfloat16* ob = out + ((size_t)n * Lq + q0 + row0) * heads * dv + head * dv;
+    const int g = lane >> 2, cq = 2 * (lane & 3);
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), c = 8 * t + cq + (e & 1);
+        if (r < rows - row0 && c < dv)
+          ob[(size_t)r * heads * dv + c] = __float2bfloat16_rn(o_acc[t][e]);
+      }
+  } else {
+    store_rows_bf16<D>(o_acc, q_s + row0 * P,
+                       out + ((size_t)n * Lq + q0 + row0) * ld + head * D, ld, rows - row0,
+                       lane);
+  }
 }
 
-template <int D, bool kRoundP>
+template <int D, bool kRoundP, bool kFill>
 int launch_bf16_blocks(const void* q, const void* k, const void* v, void* out, int N,
-                       int Lq, int S, int heads, cudaStream_t stream) {
+                       int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
   static SmemOptIn opt_in;
   constexpr size_t smem = bf16_blocks_smem_bytes(D);
   static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
-  const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_bf16_blocks_kernel<D, kRoundP>, smem);
+  const cudaError_t err = opt_in.ensure(
+      (const void*)cross_modal_attn_bf16_blocks_kernel<D, kRoundP, kFill>, smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int kTile = 16 * kBf16BlockWarps;
   const int tiles = (Lq + kTile - 1) / kTile;
   const long long blocks = (long long)N * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cross_modal_attn_bf16_blocks_kernel<D, kRoundP>
+  cross_modal_attn_bf16_blocks_kernel<D, kRoundP, kFill>
       <<<(unsigned)blocks, kBf16BlockWarps * 32, smem, stream>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-          Lq, S, heads, tiles, 1.0f / sqrtf((float)D));
+          Lq, S, heads, dk, dv, tiles, 1.0f / sqrtf((float)dk));
   return (int)cudaGetLastError();
 }
 
 // The keys whole (S <= 128) or, where key_blocks, streamed in key blocks
-// (any S).
+// (any S); fill (d_k != d_v, d off a multiple of 16, pointers off 16
+// bytes): the key blocks' kFill instance at D = max(d_k, d_v) rounded up
+// to 16, any S.
 template <int D, bool kRoundP>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int N,
-                int Lq, int S, int heads, bool key_blocks, cudaStream_t s) {
-  if (key_blocks) return launch_bf16_blocks<D, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int N, int Lq,
+                int S, int heads, int dk, int dv, bool key_blocks, bool fill,
+                cudaStream_t s) {
+  if (fill)
+    return launch_bf16_blocks<D, kRoundP, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (key_blocks)
+    return launch_bf16_blocks<D, kRoundP, false>(q, k, v, out, N, Lq, S, heads, D, D, s);
   if (S <= 16) return launch_bf16_tiles<D, 1, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
   if (S <= 32) return launch_bf16_tiles<D, 2, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
   if (S <= 64) return launch_bf16_tiles<D, 4, kRoundP>(q, k, v, out, N, Lq, S, heads, s);
@@ -906,27 +973,34 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int N,
   return (int)cudaErrorInvalidValue;
 }
 
+// D: max(d_k, d_v) rounded up to 16 (d_k = d_v = D unless fill)
 template <bool kRoundP>
-int launch_bf16_mode(const void* q, const void* k, const void* v, void* out, int N,
-                     int Lq, int S, int heads, int d, bool key_blocks, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_bf16<16, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 32: return launch_bf16<32, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 48: return launch_bf16<48, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 64: return launch_bf16<64, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 80: return launch_bf16<80, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 96: return launch_bf16<96, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 112: return launch_bf16<112, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
-    case 128: return launch_bf16<128, kRoundP>(q, k, v, out, N, Lq, S, heads, key_blocks, s);
+int launch_bf16_mode(const void* q, const void* k, const void* v, void* out, int N, int Lq,
+                     int S, int heads, int dk, int dv, bool key_blocks, bool fill,
+                     cudaStream_t s) {
+#define BF16_D(d)                                                                          \
+  case d:                                                                                   \
+    return launch_bf16<d, kRoundP>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, fill, s);
+  switch ((((dk > dv ? dk : dv) + 15) / 16) * 16) {
+    BF16_D(16)
+    BF16_D(32)
+    BF16_D(48)
+    BF16_D(64)
+    BF16_D(80)
+    BF16_D(96)
+    BF16_D(112)
+    BF16_D(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef BF16_D
 }
 
-int launch_bf16_any(const void* q, const void* k, const void* v, void* out, int N,
-                    int Lq, int S, int heads, int d, bool key_blocks, bool round_p,
+int launch_bf16_any(const void* q, const void* k, const void* v, void* out, int N, int Lq,
+                    int S, int heads, int dk, int dv, bool key_blocks, bool fill, bool round_p,
                     cudaStream_t s) {
-  if (round_p) return launch_bf16_mode<true>(q, k, v, out, N, Lq, S, heads, d, key_blocks, s);
-  return launch_bf16_mode<false>(q, k, v, out, N, Lq, S, heads, d, key_blocks, s);
+  if (round_p)
+    return launch_bf16_mode<true>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, fill, s);
+  return launch_bf16_mode<false>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, fill, s);
 }
 
 // ------------------------------------------- float32 on the tensor cores
@@ -1640,38 +1714,452 @@ int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
   return launch_f32tc_width<false>(q, k, v, out, N, Lq, S, heads, dk, dv, key_blocks, s);
 }
 
+// ---------------------------------------------- wide heads, either dtype
+
+constexpr int kWideWarps = 4;   // 16 query rows each: 64-row query tiles
+constexpr int kWideTile = 16 * kWideWarps;
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kWideKeys = 32;   // keys of a key block: 4 n-tiles of 8
+constexpr int kWideChunk = 32;  // d_k columns of a chunk of q·kᵀ
+constexpr int kWideSlice = 128;  // the most d_v columns of a block (its slice)
+constexpr int kWideStages = 3;  // chunks (of Q and K) in the ring
+
+// Row pitches in elements of T, as the values lie (no split): Q's and K's
+// chunks in rows of kWideChunk + 8 (40 floats ≡ 8 (mod 32) words, so each
+// 64-bit fragment load of 8 rows × 4 column pairs falls in 32 banks a half
+// warp; 40 bf16 are 20 words, and a 32-bit load of a pair of them from 8
+// rows × 4 pairs falls in 32 banks), V's slice in rows of kWideSlice + 4
+// floats (132 ≡ 4 (mod 32): the 32-bit loads of keys 2t and 2t + 1 at
+// column g fall in 32 banks) or + 8 bf16 (68 words: the pairs g, g + 1 share
+// a word); every row starts on a 16-byte boundary.
+template <typename T>
+struct WidePitch {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kQK = kWideChunk + 8;
+  static constexpr int kV = kWideSlice + (kF32 ? 4 : 8);
+  static constexpr int kStage = (kWideTile + kWideKeys) * kQK;  // Q then K, elements
+};
+
+// Shared memory of one block of cross_modal_attn_wide_kernel<T>: the ring
+// of kWideStages stages (a Q chunk and a K chunk each) and one V slice of a
+// key block, in elements of T, whatever the sizes.
+template <typename T>
+__host__ __device__ constexpr size_t wide_smem_bytes() {
+  return sizeof(T) * ((size_t)kWideStages * WidePitch<T>::kStage +
+                      (size_t)kWideKeys * WidePitch<T>::kV);
+}
+
+// Two consecutive values of a row in shared memory as tf32 operand bits:
+// float32 (64-bit load) split into hi and lo (kExact false), or bf16 (32-bit
+// load), whose values are tf32 values already (hi only)
+template <typename T>
+__device__ __forceinline__ void pair_operands(const T* p, uint32_t& h0, uint32_t& h1,
+                                              uint32_t& l0, uint32_t& l1) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    split_tf32(x.x, h0, l0);
+    split_tf32(x.y, h1, l1);
+  } else {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    h0 = w << 16;
+    h1 = w & 0xffff0000u;
+  }
+}
+
+// One value in shared memory as tf32 operand bits (hi, and lo for float32)
+template <typename T>
+__device__ __forceinline__ void one_operand(const T* p, uint32_t& h, uint32_t& l) {
+  if constexpr (std::is_same<T, float>::value) {
+    split_tf32(*p, h, l);
+  } else {
+    h = (uint32_t)*reinterpret_cast<const unsigned short*>(p) << 16;
+  }
+}
+
+// `count` values of a row at src into shared memory at dst, zero past the
+// row's ``left`` values below d or where the row is not valid: 16-byte
+// cp.async copies (4 floats, 8 bf16; the pointers and d allow them unless
+// kNarrow), or one value a copy: a 4-byte cp.async for a float, a plain
+// load and store for a bf16 value (no cp.async moves 2 bytes)
+template <typename T, bool kNarrow>
+__device__ __forceinline__ void copy_values(T* dst, const T* src, const T* any, bool row_ok,
+                                            int left) {
+  constexpr int kVec = 16 / sizeof(T);
+  if constexpr (!kNarrow) {
+    const bool ok = row_ok && left > 0;
+    cp_async16(dst, ok ? src : any, ok);
+  } else if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const bool ok = row_ok && e < left;
+      cp_async4(dst + e, ok ? src + e : any, ok);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[e] = ldg_bf16(src + e, row_ok && e < left);
+  }
+}
+
+// Blocks of the wide kernel an SM should hold: 3 (170 registers a thread),
+// but 2 for float32 one value a copy, whose 4-byte copies' addresses
+// spilled at 170
+template <typename T, bool kNarrow>
+constexpr int wide_blocks_an_sm() {
+  return kNarrow && std::is_same<T, float>::value ? 2 : 3;
+}
+
+// Heads past the tensor-core kernels' D: float32 with d_k or d_v above 256
+// and bfloat16 above 128, at any S, d_k, d_v and alignment.  Replaces, for
+// those shapes, the CUDA-core kernel (cross_modal_attn_kernel above), which
+// read K and V from L2 once for every query row (about 33 GB of cache
+// traffic a call at d = 260, h = 2, S = 200, N = 200: 8.1 ms on the H100
+// against SDPA's 0.72).  What bounds the work: three tf32 products at 495
+// TFLOP/s, 0.10 ms at that shape, about as long as its bytes at 3.35 TB/s.
+// The design: one block of 4 warps per (example, head, 64-query tile, d_v
+// slice), slice fastest, then tile, so the blocks of one head run side by
+// side and find its K and V in L2; each warp takes 16 query rows.  The keys
+// stream in key blocks of 32 with an online softmax, as in
+// cross_modal_attn_f32tc_blocks_kernel; each key block's K and V are copied
+// once into shared memory for the whole query tile.  The logits of a key
+// block accumulate over d_k in chunks of 32 columns, the Q and K chunks
+// passing through a ring of kWideStages stages, zero past d_k, so d_k is
+// padded to a multiple of 32 only (260 to 288).  p·v then runs over the
+// block's slice of d_v (at most 128 columns, 64 output accumulators a
+// thread; ceil(d_v / 128) slices of even width, a multiple of 8), and the
+// logits are recomputed once a slice.  The values are copied as they lie,
+// by cp.async, the chunks two stages ahead of the one the warps multiply
+// and the key block's V slice with its first chunk, so the copies overlap
+// the products (one stage ahead, a stage waited on its loads); one barrier
+// a chunk, one before p·v.  float32 (T =
+// float): both products in 3xTF32, as in the tensor-core kernels, each warp
+// splitting the fragments it reads.  bfloat16: a bf16 value has 8
+// significant bits and tf32 11, so it is a tf32 value (its bits shifted up
+// by 16) and one tf32 product of two of them is exact in float32, as the
+// bf16 mma's is.  p (unnormalised, against the running row max) is rounded
+// to bf16 once before p·v (kRoundP) or split into tf32 hi + lo, 21 bits,
+// finer than p_hi + p_lo's 16, two products; the output is divided by the
+// float32 sum at the end.  kNarrow: one value a copy, for pointers or d off
+// the 16-byte copies (float32: d a multiple of 4; bfloat16: of 8).  What
+// holds float32 back: each of the 4 warps splits every K and V value it
+// reads into tf32 hi and lo (scripts/wide_attention_probe.py times it).
+template <typename T, bool kRoundP, bool kNarrow>
+__global__ void __launch_bounds__(kWideThreads, wide_blocks_an_sm<T, kNarrow>())
+cross_modal_attn_wide_kernel(const T* __restrict__ q,  // (N, Lq, h*dk)
+                             const T* __restrict__ k,  // (N, S, h*dk)
+                             const T* __restrict__ v,  // (N, S, h*dv)
+                             T* __restrict__ out,      // (N, Lq, h*dv)
+                             int Lq, int S, int heads, int dk, int dv, int tiles, int slices,
+                             int width, float scale) {
+  using Pitch = WidePitch<T>;
+  constexpr bool kExact = !Pitch::kF32;  // bf16 values: no lo parts
+  constexpr int kVec = 16 / sizeof(T);   // values of a 16-byte copy
+  constexpr int kPQ = Pitch::kQK, kPV = Pitch::kV;
+  constexpr int kQItems = kWideTile * kWideChunk / kVec;  // copies of a Q chunk
+  constexpr int kKItems = kWideKeys * kWideChunk / kVec;  // of a K chunk
+  constexpr int kVItems = kWideKeys * kWideSlice / kVec;  // of a V slice
+  static_assert(kQItems % kWideThreads == 0 && kKItems % kWideThreads == 0 &&
+                    kVItems % kWideThreads == 0,
+                "whole rounds of copies");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);     // kWideStages × (Q (64, kPQ), K (32, kPQ))
+  T* v_s = ring + kWideStages * Pitch::kStage;  // (32, kPV)
+
+  int b = blockIdx.x;
+  const int slice = b % slices;
+  b /= slices;
+  const int tile = b % tiles, nh = b / tiles;  // nh = n * heads + head
+  const int n = nh / heads, head = nh - n * heads;
+  const int q0 = tile * kWideTile, c0 = slice * width;  // first query row, first d_v column
+  const int cols = min(width, dv - c0);                  // d_v columns of this slice
+  const int ldk = heads * dk, ldv = heads * dv;
+  const T* qb = q + ((size_t)n * Lq + q0) * ldk + head * dk;
+  const T* kb = k + (size_t)n * S * ldk + head * dk;
+  const T* vb = v + (size_t)n * S * ldv + head * dv + c0;
+  const int n_chunks = (dk + kWideChunk - 1) / kWideChunk;
+  const int n_blocks = (S + kWideKeys - 1) / kWideKeys;
+  const int stages = n_chunks * n_blocks;  // (key block, chunk) in order
+
+  // stage i (chunk i % n_chunks of key block i / n_chunks) into its ring slot
+  auto copy_stage = [&](int i) {
+    if (i >= stages) return;
+    const int blk = i / n_chunks, d0 = (i - blk * n_chunks) * kWideChunk;
+    T* q_s = ring + (i % kWideStages) * Pitch::kStage;
+    T* k_s = q_s + kWideTile * kPQ;
+#pragma unroll
+    for (int j = 0; j < kQItems / kWideThreads; ++j) {
+      const int it = j * kWideThreads + threadIdx.x;
+      const int r = it / (kWideChunk / kVec), c = (it % (kWideChunk / kVec)) * kVec;
+      copy_values<T, kNarrow>(q_s + r * kPQ + c, qb + (size_t)r * ldk + d0 + c, q, q0 + r < Lq,
+                              dk - d0 - c);
+    }
+#pragma unroll
+    for (int j = 0; j < kKItems / kWideThreads; ++j) {
+      const int it = j * kWideThreads + threadIdx.x;
+      const int r = it / (kWideChunk / kVec), c = (it % (kWideChunk / kVec)) * kVec;
+      const int key = blk * kWideKeys + r;
+      copy_values<T, kNarrow>(k_s + r * kPQ + c, kb + (size_t)key * ldk + d0 + c, k, key < S,
+                              dk - d0 - c);
+    }
+  };
+  // key block blk's slice of V, zero past S and past the slice's columns
+  auto copy_v = [&](int blk) {
+#pragma unroll
+    for (int j = 0; j < kVItems / kWideThreads; ++j) {
+      const int it = j * kWideThreads + threadIdx.x;
+      const int r = it / (kWideSlice / kVec), c = (it % (kWideSlice / kVec)) * kVec;
+      const int key = blk * kWideKeys + r;
+      copy_values<T, kNarrow>(v_s + r * kPV + c, vb + (size_t)key * ldv + c, v, key < S,
+                              cols - c);
+    }
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  const int rows = min(kWideTile, Lq - q0);
+  const bool has_rows = row0 < rows;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale2 = scale * 1.4426950408889634f;
+  float o_acc[kWideSlice / 8][4];  // o_acc[dt]: columns 8dt..8dt+7 of the slice
+#pragma unroll
+  for (int dt = 0; dt < kWideSlice / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[dt][e] = 0.0f;
+  float mx[2] = {-INFINITY, -INFINITY};  // running row max (base 2)
+  float sum[2] = {0.0f, 0.0f};           // the lane's share of the row sum
+
+  copy_v(0);
+  copy_stage(0);
+  cp_async_commit();
+  copy_stage(1);
+  cp_async_commit();
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    // logits of the key block: s_acc[c] holds keys 8c..8c+7 (rows g, g + 8),
+    // q·kᵀ in the contraction order of cross_modal_attn_f32tc_kernel
+    float s_acc[kWideKeys / 8][4];
+#pragma unroll
+    for (int c = 0; c < kWideKeys / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[c][e] = 0.0f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int i = blk * n_chunks + ch;
+      cp_async_wait<kWideStages - 2>();  // this thread's copies of stage i have landed
+      __syncthreads();  // every thread's have; no warp reads the slot refilled next, or V
+      if (ch == 0 && blk > 0) copy_v(blk);  // p·v of the key block before is done
+      copy_stage(i + kWideStages - 1);
+      cp_async_commit();  // empty past the last stage, to keep the count
+      if (!has_rows) continue;
+      const T* q_s = ring + (i % kWideStages) * Pitch::kStage;
+      const T* qa = q_s + (row0 + g) * kPQ + 2 * t;
+      const T* kr = q_s + kWideTile * kPQ + g * kPQ + 2 * t;
+#pragma unroll
+      for (int kt = 0; kt < kWideChunk / 8; ++kt) {
+        uint32_t a_hi[4], a_lo[4];
+        pair_operands(qa + 8 * kt, a_hi[0], a_hi[2], a_lo[0], a_lo[2]);
+        pair_operands(qa + 8 * kPQ + 8 * kt, a_hi[1], a_hi[3], a_lo[1], a_lo[3]);
+#pragma unroll
+        for (int c = 0; c < kWideKeys / 8; ++c) {
+          uint32_t b_hi[2], b_lo[2];
+          pair_operands(kr + 8 * c * kPQ + 8 * kt, b_hi[0], b_hi[1], b_lo[0], b_lo[1]);
+          if constexpr (kExact)
+            mma_tf32(s_acc[c], a_hi, b_hi[0], b_hi[1]);
+          else
+            mma_3xtf32(s_acc[c], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+    }
+    // V of this key block has landed: its group is older than the newest
+    // one unless the key block has one chunk
+    if (n_chunks == 1)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();
+    __syncthreads();
+    if (!has_rows) continue;
+
+    // online softmax in base 2; a row lives in the 4 lanes of a quad
+    const int valid = S - blk * kWideKeys;  // keys of this block below S
+#pragma unroll
+    for (int c = 0; c < kWideKeys / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s_acc[c][e] = 8 * c + 2 * t + (e & 1) < valid ? s_acc[c][e] * scale2 : -INFINITY;
+    float bm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int c = 0; c < kWideKeys / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bm[e >> 1] = fmaxf(bm[e >> 1], s_acc[c][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 1));
+      bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 2));
+      const float m = fmaxf(mx[h], bm[h]);  // finite: every key block holds a key below S
+      const float alpha = exp2f(mx[h] - m);  // 0 at the first key block
+      sum[h] *= alpha;
+#pragma unroll
+      for (int dt = 0; dt < kWideSlice / 8; ++dt) {
+        o_acc[dt][2 * h] *= alpha;
+        o_acc[dt][2 * h + 1] *= alpha;
+      }
+      mx[h] = m;
+    }
+#pragma unroll
+    for (int c = 0; c < kWideKeys / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s_acc[c][e] - mx[e >> 1]);
+        s_acc[c][e] = p;
+        sum[e >> 1] += p;
+      }
+
+    // o += p·v over the slice's columns, in the fragment order of
+    // cross_modal_attn_f32tc_kernel (the logits' C fragment is p's A
+    // fragment; B is V's rows 8c + 2t and 8c + 2t + 1 at column 8dt + g)
+    const T* vr = v_s + 2 * t * kPV + g;
+#pragma unroll
+    for (int c = 0; c < kWideKeys / 8; ++c) {
+      uint32_t a_hi[4], a_lo[4];
+      const float pa[4] = {s_acc[c][0], s_acc[c][2], s_acc[c][1], s_acc[c][3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kExact && kRoundP)
+          a_hi[e] = __float_as_uint(__bfloat162float(__float2bfloat16_rn(pa[e])));
+        else
+          split_tf32(pa[e], a_hi[e], a_lo[e]);
+      }
+#pragma unroll
+      for (int dt = 0; dt < kWideSlice / 8; ++dt) {
+        if (8 * dt < cols) {
+          uint32_t b_hi[2], b_lo[2];
+          one_operand(vr + 8 * c * kPV + 8 * dt, b_hi[0], b_lo[0]);
+          one_operand(vr + (8 * c + 1) * kPV + 8 * dt, b_hi[1], b_lo[1]);
+          if constexpr (kExact) {
+            if constexpr (!kRoundP) mma_tf32(o_acc[dt], a_lo, b_hi[0], b_hi[1]);
+            mma_tf32(o_acc[dt], a_hi, b_hi[0], b_hi[1]);
+          } else {
+            mma_3xtf32(o_acc[dt], a_hi, a_lo, b_hi, b_lo);
+          }
+        }
+      }
+    }
+  }
+  if (!has_rows) return;  // no barrier follows
+
+  // rows g and g + 8 of the warp, the slice's columns below d_v
+  T* ob = out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv + c0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    const float inv = 1.0f / sum[h];
+    const int r = g + 8 * h;
+    if (row0 + r >= rows) continue;
+#pragma unroll
+    for (int dt = 0; dt < kWideSlice / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * dt + 2 * t + e;
+        if (c < cols) {
+          const float o = o_acc[dt][2 * h + e] * inv;
+          if constexpr (kExact)
+            ob[(size_t)r * ldv + c] = __float2bfloat16_rn(o);
+          else
+            ob[(size_t)r * ldv + c] = o;
+        }
+      }
+  }
+}
+
+// Slices of d_v: ceil(d_v / 128), of even width, a multiple of 8
+__host__ __device__ constexpr int wide_slices(int dv) {
+  return (dv + kWideSlice - 1) / kWideSlice;
+}
+
+__host__ __device__ constexpr int wide_width(int dv) {
+  return ((dv + wide_slices(dv) - 1) / wide_slices(dv) + 7) / 8 * 8;
+}
+
+template <typename T, bool kRoundP, bool kNarrow>
+int launch_wide_as(const void* q, const void* k, const void* v, void* out, int N, int Lq,
+                   int S, int heads, int dk, int dv, cudaStream_t stream) {
+  static SmemOptIn opt_in;
+  constexpr size_t smem = wide_smem_bytes<T>();
+  static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
+  const cudaError_t err =
+      opt_in.ensure((const void*)cross_modal_attn_wide_kernel<T, kRoundP, kNarrow>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (Lq + kWideTile - 1) / kWideTile, slices = wide_slices(dv);
+  const long long blocks = (long long)N * heads * tiles * slices;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cross_modal_attn_wide_kernel<T, kRoundP, kNarrow>
+      <<<(unsigned)blocks, kWideThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<T*>(out), Lq, S, heads, dk, dv, tiles, slices, wide_width(dv),
+          1.0f / sqrtf((float)dk));
+  return (int)cudaGetLastError();
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* out, int N, int Lq, int S,
+                int heads, int dk, int dv, bool bf16, bool narrow, bool round_p,
+                cudaStream_t s) {
+  if (!bf16 && narrow)
+    return launch_wide_as<float, false, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (!bf16) return launch_wide_as<float, false, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (round_p && narrow)
+    return launch_wide_as<__nv_bfloat16, true, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (round_p)
+    return launch_wide_as<__nv_bfloat16, true, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (narrow)
+    return launch_wide_as<__nv_bfloat16, false, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  return launch_wide_as<__nv_bfloat16, false, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+}
+
 }  // namespace
 
-// route: 0 = float32 on the CUDA cores, 1 = bfloat16 with a head's keys
-// whole, 2 = float32 on the tensor cores with a head's keys whole, 3 =
-// float32 on the tensor cores with the keys streamed in key blocks, 4 =
-// bfloat16 with the keys streamed in key blocks (q, k, v and out share the
-// dtype).  Both bfloat16 routes take dk == dv, a multiple of 16 up to 128,
-// route 1 S <= 128 and route 4 any S >= 1, and need q, k, v and out
-// aligned to 16 bytes.  The tensor-core float32 routes take any dk and dv
-// from 1, route 2 up to 128 and S <= 128, route 3 up to 256 and any S >= 1
-// (the wrapper sends S > 128 and d above 128 to route 3, and S > 128 to
-// route 4; a smaller S only to time them against routes 1 and 2); narrow
-// (for those two routes only) copies one float at a time, for pointers
-// aligned to 4 bytes only or dk or dv off a multiple of 4, and is required
-// there.  The CUDA-core float32 route takes any sizes whose q rows and
-// probabilities fit in shared memory.  round_p (for the bfloat16 routes
-// only): p rounded to bf16 once before p·v, as XLA's attention in the JAX
-// package rounds it (TPU.PALLAS_ATTENTION off, the default); without it p
-// = p_hi + p_lo keeps about 16 bits, as the Pallas kernel's float32 p.
+// route: 0 = float32 on the CUDA cores (the first kernel; the wrapper sends
+// no call there, it is reached only when forced), 1 = bfloat16 with a
+// head's keys whole, 2 = float32 on the tensor cores with a head's keys
+// whole, 3 = float32 on the tensor cores with the keys streamed in key
+// blocks, 4 = bfloat16 with the keys streamed in key blocks, 5 and 6 =
+// the wide-head kernel in float32 and in bfloat16 (q, k, v and out share
+// the dtype).  The bfloat16 routes take dk = dv, a multiple of 16 up to
+// 128, with q, k, v and out aligned to 16 bytes, route 1 S <= 128 and route
+// 4 any S >= 1; with narrow, route 4 takes any dk and dv from 1 to 128 (the
+// instance's D their larger rounded up to 16) from any 2-byte-aligned
+// pointer, one value a copy (the kFill instance).  The
+// tensor-core float32 routes take any dk and dv from 1, route 2 up to 128
+// and S <= 128, route 3 up to 256 and any S >= 1 (the wrapper sends S >
+// 128 and d above 128 to route 3, and S > 128 to route 4; a smaller S only
+// to time them against routes 1 and 2); routes 5 and 6 take any dk, dv
+// and S from 1 (the wrapper sends float32 d above 256 and bfloat16 d above
+// 128 there).  narrow (routes 2-6) copies one value at a time, for
+// pointers aligned only to their element size or d off a multiple of 4
+// (float32), or of 8 (the wide kernel in bfloat16), and is required there;
+// for route 4 it is the zero-filled instance, for every bf16 call but the
+// aligned dk = dv, a multiple of 16.  The CUDA-core
+// float32 route takes any sizes whose q rows and probabilities fit in
+// shared memory.  round_p (for the bfloat16 routes only): p rounded to bf16
+// once before p·v, as XLA's attention in the JAX package rounds it
+// (TPU.PALLAS_ATTENTION off, the default); without it p keeps about 16
+// bits (p_hi + p_lo; the wide kernel 21), as the Pallas kernel's float32 p.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
                                 int dk, int dv, int route, int narrow, int round_p,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (narrow && route != 2 && route != 3) return (int)cudaErrorInvalidValue;
-  if (round_p && route != 1 && route != 4) return (int)cudaErrorInvalidValue;
+  if (S < 1 || dk < 1 || dv < 1) return (int)cudaErrorInvalidValue;
+  if (narrow && (route < 2 || route > 6)) return (int)cudaErrorInvalidValue;
+  if (round_p && route != 1 && route != 4 && route != 6) return (int)cudaErrorInvalidValue;
   if (route == 0) return launch_f32(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if ((route == 1 || route == 4) && dk == dv && S >= 1)
-    return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == 4, round_p != 0, s);
+  if ((route == 1 && !narrow && dk == dv && dk % 16 == 0 && dk <= 128) ||
+      (route == 4 && dk <= 128 && dv <= 128 && (narrow || (dk == dv && dk % 16 == 0))))
+    return launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, dv, route == 4, narrow != 0,
+                           round_p != 0, s);
   const int d_max = route == 3 ? 256 : 128;
-  if ((route == 2 || route == 3) && dk >= 1 && dv >= 1 && dk <= d_max && dv <= d_max &&
-      S >= 1)
+  if ((route == 2 || route == 3) && dk <= d_max && dv <= d_max)
     return launch_f32tc_any(q, k, v, out, N, Lq, S, heads, dk, dv, route == 3, narrow != 0, s);
+  if ((route == 5 || route == 6) &&
+      (narrow || (route == 5 ? dk % 4 == 0 && dv % 4 == 0 : dk % 8 == 0 && dv % 8 == 0)))
+    return launch_wide(q, k, v, out, N, Lq, S, heads, dk, dv, route == 6, narrow != 0,
+                       round_p != 0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -52,6 +52,12 @@
 // also runs as its grid with nothing but its exchange (kExchangeOnly), to
 // measure the floor that the exchange puts under a step.
 //
+// Past H = 1024 or 8 units a block, variants of the forward and of the
+// partials backward run the same grid with W_hh split between registers,
+// shared memory and L2 (lstm_seq_wide_kernel and
+// lstm_seq_backward_partials_wide_kernel; their note says how).  H off a
+// multiple of 4 is padded by the wrapper, so every H has a route.
+//
 // The C entry points launch on the caller's stream and return a CUDA error
 // code (0 on success), or kNotCoResident when the grid cannot be co-resident,
 // which a cooperative launch needs.  The shared-memory limit and the
@@ -783,6 +789,526 @@ lstm_seq_backward_partials_kernel(const float* __restrict__ gates,   // (T, B, 4
   }
 }
 
+// ------------------------------------------------------------ wide H
+//
+// The kernels above keep W_hh's rows of a block's units in registers, KC
+// <= 8 chunks of 16 bytes a lane (H <= 1024), and give each warp at most
+// one unit (U <= 8).  Past either (H above 1024, or more than 8 units a
+// block: H = 2048 on 132 SMs needs 16, and 512 on a card of 60 SMs 9),
+// these variants run the same recurrence over the same grid of ceil(H / U)
+// co-resident blocks, one an SM, with the exchanges, tags and epoch of the
+// kernels above.  W_hh of the block's units is split three ways, in a
+// fixed order of items: what fits in registers (kWideRegChunks chunks of a
+// lane's first unit in the forward, kWideRegK entries of 8 units a thread
+// in the backward), then as many items as the shared memory left over
+// holds, copied there once a launch, then the rest read each step from
+// global memory through L2.  At H = 2048 W_hh is 64 MiB, more than the
+// register files and shared memory of 132 SMs hold (about 62 MiB) and
+// than L2 (50 MB), so most of it streams each step: 20 µs at 3.35 TB/s
+// for the whole of it, the floor under a step, against 4 µs of float32
+// operations; the reads from L2 go kWideBatch chunks or units at a time,
+// so that their latencies overlap.  A launch takes at most kWideRows batch rows (a larger
+// batch runs as launches over slices of rows), so a warp keeps the sums
+// of every row for a chunk of W_hh read once.
+
+constexpr int kWideRows = 8;          // batch rows one launch of a wide variant takes
+constexpr int kWidePairs = kWideRows / kTaskBatch;
+constexpr int kWideRegChunks = 4;     // forward: chunks of the lane's first unit in registers
+constexpr int kWideRegK = 2;          // backward: entries k of 8 units a thread in registers
+constexpr int kWideRegUnits = 8;
+constexpr int kWideBatch = 4;         // chunks (forward) or units (backward) read from L2 at once
+constexpr size_t kWideItemBytes = (size_t)kWarps * 4 * 32 * sizeof(float4);  // forward item
+
+// h of step t-1 for one chunk (4 units) of one row, straight from the
+// exchange's tagged words (kDirect), reloading until all four carry tag
+// ``want``
+__device__ __forceinline__ float4 h4_direct(const u64* src, unsigned want) {
+  u64 v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = load_word(src + e);
+  for (int spins = 0;; ++spins) {
+    bool ready = true;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ready &= (unsigned)(v[e] >> 32) == want;
+    if (ready) break;
+    if (spins > kMaxSpins) __trap();  // a lost word: fail, never hang
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if ((unsigned)(v[e] >> 32) != want) v[e] = load_word(src + e);
+  }
+  return make_float4(__uint_as_float((unsigned)v[0]), __uint_as_float((unsigned)v[1]),
+                     __uint_as_float((unsigned)v[2]), __uint_as_float((unsigned)v[3]));
+}
+
+// The forward past H = 1024 or 8 units a block.  Warp w takes the units
+// w, w + 8, ... of its block (slots s = 0, 1, ...), one after another, and
+// all batch pairs of each; lane b owns the cell (row b, the slot's unit),
+// so B <= kWideRows.  For each chunk c = lane + 32j of W_hh's four gate
+// rows of the unit (read once, from registers, shared memory or L2, the
+// items in slot-major, then chunk order) the lane adds its products with
+// every pair's h rows, chunk by chunk in increasing j, the four values of
+// a chunk in turn, as the kernel above does; the same xor tree sums the
+// lanes.  The owner reads gates_x, the mask and c_{t-1} (kept in cT, which
+// only it writes) at the slot's start, so the loads are in flight during
+// the product.  h of the step before comes into shared memory, as above;
+// where two buffers of it do not fit (kDirect: H above about 14,500 at one
+// row), each lane reads the words it multiplies from the exchange itself,
+// waiting on their tags: every warp reads all of h_{t-1} before it
+// publishes h_t, so the two buffers stay safe without a block barrier.
+template <bool kDirect>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_seq_wide_kernel(const float* __restrict__ gates_x,  // (T, B, 4H)
+                     const float* __restrict__ masks,    // (T, B)
+                     const float* __restrict__ h0,       // (B, H)
+                     const float* __restrict__ c0,       // (B, H)
+                     const float* __restrict__ w_hh_t,   // (4H, H): row = gate*H + unit
+                     float* __restrict__ outs,           // (T, B, H)
+                     float* __restrict__ hT,             // (B, H)
+                     float* cT,                          // (B, H): c of the last step so far
+                     u64* ws, int T, int B, int H, int U, int smem_items) {
+  extern __shared__ float4 smem4[];
+  const int b_pad = (B + kTaskBatch - 1) / kTaskBatch * kTaskBatch;
+  float* h_s = reinterpret_cast<float*>(smem4);  // 2 x (b_pad, H) unless kDirect
+  float4* w_s = smem4 + (kDirect ? 0 : (size_t)b_pad * H / 2);  // (warps, items, 4 gates, 32 lanes)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int unit0 = blockIdx.x * U;
+  const int BH = B * H, chunks = H / 4, KC = (chunks + 31) / 32, pairs = b_pad / kTaskBatch;
+  const int slots = (U + kWarps - 1) / kWarps;
+  const int reg_chunks = KC < kWideRegChunks ? KC : kWideRegChunks;
+  const unsigned tag0 = (unsigned)load_word(ws) + 1u;
+  u64* xbuf = ws + 2;
+  auto unit_of = [&](int s) { return warp + kWarps * s; };  // the block's unit of slot s
+  auto live = [&](int s) { return unit_of(s) < U && unit0 + unit_of(s) < H; };
+  auto w_row = [&](int gate, int s) {
+    return reinterpret_cast<const float4*>(w_hh_t + (size_t)(gate * H + unit0 + unit_of(s)) * H);
+  };
+  auto w_smem = [&](int item, int gate) {
+    return w_s + (((size_t)warp * smem_items + item) * 4 + gate) * 32 + lane;
+  };
+
+  float4 wr[4][kWideRegChunks];  // slot 0's chunks lane + 32j, j < kWideRegChunks
+#pragma unroll
+  for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+    for (int j = 0; j < kWideRegChunks; ++j) {
+      const int c = lane + 32 * j;
+      wr[gate][j] = live(0) && j < KC && c < chunks ? __ldg(w_row(gate, 0) + c)
+                                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  // the next items, slot-major, into shared memory: item s·KC + j - reg_chunks
+  for (int s = 0; s < slots; ++s)
+    for (int j = s == 0 ? reg_chunks : 0; j < KC; ++j) {
+      const int item = s * KC + j - reg_chunks, c = lane + 32 * j;
+      if (item >= smem_items) break;
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate)
+        *w_smem(item, gate) = live(s) && c < chunks ? __ldg(w_row(gate, s) + c)
+                                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  if (!kDirect)
+    for (int i = tid; i < 2 * b_pad * H; i += kThreads) h_s[i] = i < BH ? __ldg(h0 + i) : 0.0f;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const float* hb_s = h_s + (t & 1) * b_pad * H;
+    const u64* src = xbuf + (size_t)((t - 1) & 1) * BH;  // h_{t-1}'s words (t > 0)
+    const unsigned want = tag0 + (unsigned)(t - 1);
+    if (!kDirect) {
+      if (t > 0) {  // h of step t-1 from every block, as in lstm_seq_kernel
+        float* dst_s = h_s + (t & 1) * b_pad * H;
+        for (int base = tid; base < BH; base += kThreads * kInFlight) {
+          u64 v[kInFlight];
+#pragma unroll
+          for (int j = 0; j < kInFlight; ++j) {
+            const int i = base + j * kThreads;
+            v[j] = i < BH ? load_word(src + i) : (u64)want << 32;
+          }
+          for (int spins = 0;; ++spins) {
+            bool ready = true;
+#pragma unroll
+            for (int j = 0; j < kInFlight; ++j) ready &= (unsigned)(v[j] >> 32) == want;
+            if (ready) break;
+            if (spins > kMaxSpins) __trap();  // a lost word: fail, never hang
+#pragma unroll
+            for (int j = 0; j < kInFlight; ++j)
+              if ((unsigned)(v[j] >> 32) != want) v[j] = load_word(src + base + j * kThreads);
+          }
+#pragma unroll
+          for (int j = 0; j < kInFlight; ++j) {
+            const int i = base + j * kThreads;
+            if (i < BH) dst_s[i] = __uint_as_float((unsigned)v[j]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // rows r of h_{t-1} at chunk c: zero past B
+    auto h4 = [&](int r, int c) {
+      if (!kDirect) return reinterpret_cast<const float4*>(hb_s + (size_t)r * H)[c];
+      if (r >= B) return make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t == 0) return __ldg(reinterpret_cast<const float4*>(h0 + (size_t)r * H) + c);
+      return h4_direct(src + (size_t)r * H + 4 * c, want);
+    };
+
+    for (int s = 0; s < slots && live(s); ++s) {  // uniform across the warp
+      const int unit = unit0 + unit_of(s);
+      const bool owner = lane < B;
+      const size_t cell = (size_t)lane * H + unit;
+      float gx[4] = {0.f, 0.f, 0.f, 0.f}, m = 0.0f, cp = 0.0f;
+      if (owner) {
+        const float* p = gates_x + ((size_t)t * B + lane) * 4 * H + unit;
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) gx[gate] = __ldg(p + gate * H);
+        m = __ldg(masks + (size_t)t * B + lane);
+        cp = t == 0 ? __ldg(c0 + cell) : cT[cell];  // cT: this thread's own store
+      }
+      float acc[kWidePairs][4 * kTaskBatch];  // acc[pair][gate * 2 + i]
+#pragma unroll
+      for (int p = 0; p < kWidePairs; ++p)
+#pragma unroll
+        for (int j = 0; j < 4 * kTaskBatch; ++j) acc[p][j] = 0.0f;
+      auto chunk = [&](int c, const float4 (&wv)[4]) {
+#pragma unroll
+        for (int p = 0; p < kWidePairs; ++p) {
+          if (p < pairs) {
+            const float4 x0 = h4(2 * p, c), x1 = h4(2 * p + 1, c);
+#pragma unroll
+            for (int gate = 0; gate < 4; ++gate) {
+              float& a0 = acc[p][2 * gate];
+              float& a1 = acc[p][2 * gate + 1];
+              a0 = fmaf(wv[gate].x, x0.x, a0);
+              a0 = fmaf(wv[gate].y, x0.y, a0);
+              a0 = fmaf(wv[gate].z, x0.z, a0);
+              a0 = fmaf(wv[gate].w, x0.w, a0);
+              a1 = fmaf(wv[gate].x, x1.x, a1);
+              a1 = fmaf(wv[gate].y, x1.y, a1);
+              a1 = fmaf(wv[gate].z, x1.z, a1);
+              a1 = fmaf(wv[gate].w, x1.w, a1);
+            }
+          }
+        }
+      };
+      if (s == 0) {
+#pragma unroll
+        for (int j = 0; j < kWideRegChunks; ++j) {
+          const int c = lane + 32 * j;
+          if (j < KC && c < chunks) {
+            const float4 wv[4] = {wr[0][j], wr[1][j], wr[2][j], wr[3][j]};
+            chunk(c, wv);
+          }
+        }
+      }
+      int j = s == 0 ? reg_chunks : 0;
+      for (; j < KC && s * KC + j - reg_chunks < smem_items; ++j) {
+        const int c = lane + 32 * j, item = s * KC + j - reg_chunks;
+        if (c >= chunks) continue;
+        const float4 wv[4] = {*w_smem(item, 0), *w_smem(item, 1), *w_smem(item, 2),
+                              *w_smem(item, 3)};
+        chunk(c, wv);
+      }
+      // the rest from L2, kBatch chunks' loads in flight at once (one with
+      // kDirect, whose spinning reads of h need the registers)
+      constexpr int kBatch = kDirect ? 1 : kWideBatch;
+      for (; j < KC; j += kBatch) {
+        float4 wv[kBatch][4];
+#pragma unroll
+        for (int jj = 0; jj < kBatch; ++jj) {
+          const int c = lane + 32 * (j + jj);
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate)
+            wv[jj][gate] = j + jj < KC && c < chunks ? __ldg(w_row(gate, s) + c)
+                                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int jj = 0; jj < kBatch; ++jj) {
+          const int c = lane + 32 * (j + jj);
+          if (j + jj < KC && c < chunks) chunk(c, wv[jj]);
+        }
+      }
+      // each pair's sums over the lanes (the xor tree of lstm_seq_kernel);
+      // lane 2p + i keeps the four gate sums of its cell in g
+      float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int p = 0; p < kWidePairs; ++p) {
+        if (p >= pairs) break;  // uniform
+        float* a = acc[p];
+#pragma unroll
+        for (int n = 4, off = 16; n > 0; n >>= 1, off >>= 1) {
+          const bool upper = lane & off;
+#pragma unroll
+          for (int j = 0; j < n; ++j) {
+            const float send = upper ? a[j] : a[j + n];
+            a[j] = (upper ? a[j + n] : a[j]) + __shfl_xor_sync(0xffffffffu, send, off);
+          }
+        }
+        a[0] += __shfl_xor_sync(0xffffffffu, a[0], 2);
+        a[0] += __shfl_xor_sync(0xffffffffu, a[0], 1);
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+          const float v = __shfl_sync(0xffffffffu, a[0], 4 * (2 * gate + (lane & 1)));
+          if ((lane >> 1) == p) g[gate] = v;
+        }
+      }
+      if (owner) {
+        const float gi = fmaf(m, g[0], gx[0]);
+        const float gf = fmaf(m, g[1], gx[1]);
+        const float gg = fmaf(m, g[2], gx[2]);
+        const float go = fmaf(m, g[3], gx[3]);
+        const float c = sigmoid_fast(gf) * (cp * m) + sigmoid_fast(gi) * tanh_fast(gg);
+        const float h = sigmoid_fast(go) * tanh_fast(c);
+        outs[(size_t)t * BH + cell] = h;
+        cT[cell] = c;
+        if (t == T - 1) hT[cell] = h;
+        if (t < T - 1)
+          store_word(xbuf + (size_t)(t & 1) * BH + cell,
+                     ((u64)(tag0 + (unsigned)t) << 32) | __float_as_uint(h));
+      }
+    }
+  }
+
+  // the last block to finish advances the epoch past this launch's tags
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(ws + 1, 1ull) == (u64)(gridDim.x - 1)) {
+      ws[1] = 0;
+      ws[0] = (u64)(tag0 - 1u + (unsigned)T);
+      __threadfence();
+    }
+  }
+}
+
+// The partials backward past H = 1024 or 8 units a block: the VJP, the
+// outputs, the c_t sweep, the tags and the epoch of
+// lstm_seq_backward_partials_kernel, over any U.  A cell (row b, unit u)
+// of the block is handled by a group of G lanes (G a power of 2, up to 32,
+// as many as 256 threads give every cell of the block at once, in rounds
+// past that): the group gathers dh~_{t+1} of the cell, the partials of
+// every block split among its lanes and summed by an xor tree, and its
+// first lane (the owner) runs the cell's step.  The owner keeps nothing in
+// registers across steps: it reads the step's inputs and the mask of the
+// step after at use, and keeps dc~ of the step after in d_c0 (its own
+// words; d_c0 gets its value at the end).  Then every thread forms, for its
+// entries k = tid + 256·i of W_hh's rows and every row b, the block's
+// partial sum over its 4U columns of W_hh, unit by unit, the four gates in
+// turn, and publishes it; the entries come from registers (i <
+// kWideRegK, the first 8 units), then shared memory, then L2, in that
+// item order (i, then u).  B <= kWideRows.
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_seq_backward_partials_wide_kernel(const float* __restrict__ gates,   // (T, B, 4H)
+                                       const float* __restrict__ masks,   // (T, B)
+                                       const float* __restrict__ c0,      // (B, H)
+                                       const float* __restrict__ w_hh_t,  // (4H, H)
+                                       const float* __restrict__ g_outs,  // (T, B, H)
+                                       const float* __restrict__ g_hT,    // (B, H)
+                                       const float* __restrict__ g_cT,    // (B, H)
+                                       float* __restrict__ d_gates,       // (T, B, 4H)
+                                       float* __restrict__ d_h0,          // (B, H)
+                                       float* d_c0,                       // (B, H): dc~ so far
+                                       float* cs,                         // (T, B, H): c_t
+                                       float* __restrict__ d_h_tilde,     // (T, B, H) or null
+                                       float* __restrict__ d_c_tilde,     // (T, B, H) or null
+                                       u64* ws, int T, int B, int H, int U, int smem_items) {
+  extern __shared__ float4 smem4[];
+  float* dg_s = reinterpret_cast<float*>(smem4);  // 2 x (B, 4 gates, U): the block's cells' dg
+  float* w_s = dg_s + 2 * (size_t)B * 4 * U;      // (items, 4 gates, kThreads)
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int blocks = gridDim.x, unit0 = blockIdx.x * U;
+  const int BH = B * H, G4 = 4 * H, KPT = (H + kThreads - 1) / kThreads;
+  const size_t slab = (size_t)blocks * BH;  // one buffer of partials: (blocks, B, H)
+  const unsigned tag0 = (unsigned)load_word(ws) + 1u;
+  u64* xbuf = ws + 2;
+  const int cells = B * U;
+  int lanes = 32;  // G: lanes a cell
+  while (lanes > 1 && cells * lanes > kThreads) lanes >>= 1;
+  const int per_round = kThreads / lanes, sub = lane & (lanes - 1);
+  const int reg_units = U < kWideRegUnits ? U : kWideRegUnits;
+  const int reg_k = KPT < kWideRegK ? KPT : kWideRegK;
+  // item (i, u) of W_hh^T's entries past the registers' (i < kWideRegK, u <
+  // kWideRegUnits), in (i, u) order: its place in shared memory if below
+  // smem_items
+  auto item_of = [&](int i, int u) {
+    return i < reg_k ? i * (U - reg_units) + (u - reg_units)
+                     : reg_k * (U - reg_units) + (i - reg_k) * U + u;
+  };
+  auto w_at = [&](int i, int gate, int u) {  // W_hh^T[gate·H + unit0 + u, tid + 256 i]
+    const int k = tid + kThreads * i;
+    return k < H && unit0 + u < H ? __ldg(w_hh_t + (size_t)(gate * H + unit0 + u) * H + k) : 0.0f;
+  };
+
+  float wr[kWideRegK][4][kWideRegUnits];
+#pragma unroll
+  for (int i = 0; i < kWideRegK; ++i)
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+      for (int u = 0; u < kWideRegUnits; ++u)
+        wr[i][gate][u] = i < reg_k && u < reg_units ? w_at(i, gate, u) : 0.0f;
+  for (int i = 0; i < KPT; ++i)
+    for (int u = i < reg_k ? reg_units : 0; u < U; ++u) {
+      const int item = item_of(i, u);
+      if (item >= smem_items) break;
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate)
+        w_s[((size_t)item * 4 + gate) * kThreads + tid] = w_at(i, gate, u);
+    }
+  for (int i = tid; i < 2 * B * 4 * U; i += kThreads) dg_s[i] = 0.0f;
+
+  // c_t of each cell the thread owns, t = 0 .. T-1, into cs
+  for (int base = 0; base < cells; base += per_round) {
+    const int ci = base + tid / lanes, b = ci / U, unit = unit0 + ci % U;
+    if (sub != 0 || ci >= cells || unit >= H) continue;
+    const size_t cell = (size_t)b * H + unit;
+    float c = __ldg(c0 + cell);
+    for (int t = 0; t < T; ++t) {
+      const float* p = gates + ((size_t)t * B + b) * G4 + unit;
+      const float m = __ldg(masks + (size_t)t * B + b);
+      c = sigmoid_fast(__ldg(p + H)) * (c * m) +
+          sigmoid_fast(__ldg(p)) * tanh_fast(__ldg(p + 2 * H));
+      cs[(size_t)t * BH + cell] = c;
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s <= T; ++s) {
+    const int t = T - 1 - s, par = s & 1;
+    const u64* src = xbuf + (size_t)((s - 1) & 1) * slab;
+    const unsigned want = tag0 + (unsigned)(s - 1);
+    for (int base = 0; base < cells; base += per_round) {  // uniform
+      const int ci = base + tid / lanes, b = ci / U, u = ci % U, unit = unit0 + u;
+      const bool valid = ci < cells && unit < H;
+      float dht = 0.0f;
+      if (s > 0) {
+        // dh~_{t+1} of the cell: the partials of every block, split among
+        // the group's lanes, kPartialsInFlight at a time
+        const u64* at = src + (size_t)b * H + unit;
+        for (int r0 = 0; lanes * r0 < blocks; r0 += kPartialsInFlight) {
+          u64 v[kPartialsInFlight];
+#pragma unroll
+          for (int j = 0; j < kPartialsInFlight; ++j) {
+            const int blk = sub + lanes * (r0 + j);
+            v[j] = valid && blk < blocks ? load_word(at + (size_t)blk * BH) : (u64)want << 32;
+          }
+          for (int spins = 0;; ++spins) {
+            bool ready = true;
+#pragma unroll
+            for (int j = 0; j < kPartialsInFlight; ++j) ready &= (unsigned)(v[j] >> 32) == want;
+            if (ready) break;
+            if (spins > kMaxSpins) __trap();  // a lost word: fail, never hang
+#pragma unroll
+            for (int j = 0; j < kPartialsInFlight; ++j)
+              if ((unsigned)(v[j] >> 32) != want)
+                v[j] = load_word(at + (size_t)(sub + lanes * (r0 + j)) * BH);
+          }
+#pragma unroll
+          for (int j = 0; j < kPartialsInFlight; ++j) dht += __uint_as_float((unsigned)v[j]);
+        }
+        for (int off = lanes >> 1; off > 0; off >>= 1)
+          dht += __shfl_xor_sync(0xffffffffu, dht, off);
+      }
+      if (sub != 0 || !valid) continue;
+      const size_t cell = (size_t)b * H + unit;
+      float dh_carry, dc_carry;
+      if (s == 0) {
+        dh_carry = __ldg(g_hT + cell);
+        dc_carry = __ldg(g_cT + cell);
+      } else {
+        const float m_next = __ldg(masks + (size_t)(t + 1) * B + b);
+        if (d_h_tilde) d_h_tilde[(size_t)(t + 1) * BH + cell] = dht;
+        dh_carry = m_next * dht;
+        dc_carry = m_next * d_c0[cell];  // dc~_{t+1}: this thread's own store
+      }
+      if (s == T) {
+        d_h0[cell] = dh_carry;
+        d_c0[cell] = dc_carry;
+        continue;
+      }
+      const float* p = gates + ((size_t)t * B + b) * G4 + unit;
+      const float pm = __ldg(masks + (size_t)t * B + b);
+      const float pcp = t > 0 ? cs[(size_t)(t - 1) * BH + cell] : __ldg(c0 + cell);
+      const float c_t = cs[(size_t)t * BH + cell];
+      const float ig = sigmoid_fast(__ldg(p)), fg = sigmoid_fast(__ldg(p + H));
+      const float gg = tanh_fast(__ldg(p + 2 * H)), og = sigmoid_fast(__ldg(p + 3 * H));
+      const float tc = tanh_fast(c_t);
+      const float dh = __ldg(g_outs + (size_t)t * BH + cell) + dh_carry;
+      const float dc = dc_carry + dh * og * (1.0f - tc * tc);
+      const float dg[4] = {dc * gg * ig * (1.0f - ig), dc * (pcp * pm) * fg * (1.0f - fg),
+                           dc * ig * (1.0f - gg * gg), dh * tc * og * (1.0f - og)};
+      float* out = d_gates + ((size_t)t * B + b) * G4 + unit;
+      float* mine = dg_s + ((size_t)par * B + b) * 4 * U + u;
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) {
+        out[gate * H] = dg[gate];
+        mine[gate * U] = dg[gate];
+      }
+      d_c0[cell] = dc * fg;
+      if (d_c_tilde) d_c_tilde[(size_t)t * BH + cell] = dc * fg;
+    }
+    if (s == T) break;
+    __syncthreads();
+
+    // the block's partials of dh~_t for every row and entry k; publish them
+    u64* dst = xbuf + (size_t)par * slab + (size_t)blockIdx.x * BH;
+    const u64 tag = (u64)(tag0 + (unsigned)s) << 32;
+    const float* dgp = dg_s + (size_t)par * B * 4 * U;
+    for (int i = 0; i < KPT; ++i) {
+      const int k = tid + kThreads * i;
+      float acc[kWideRows];
+#pragma unroll
+      for (int r = 0; r < kWideRows; ++r) acc[r] = 0.0f;
+      auto add = [&](int u, const float (&w4)[4]) {
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+          for (int r = 0; r < kWideRows; ++r)
+            if (r < B) acc[r] = fmaf(w4[gate], dgp[((size_t)r * 4 + gate) * U + u], acc[r]);
+      };
+#pragma unroll
+      for (int ri = 0; ri < kWideRegK; ++ri)
+        if (ri == i) {
+#pragma unroll
+          for (int u = 0; u < kWideRegUnits; ++u)
+            if (u < reg_units) {
+              const float w4[4] = {wr[ri][0][u], wr[ri][1][u], wr[ri][2][u], wr[ri][3][u]};
+              add(u, w4);
+            }
+        }
+      int u = i < reg_k ? reg_units : 0;
+      for (; u < U && item_of(i, u) < smem_items; ++u) {
+        const float* ws = w_s + (size_t)item_of(i, u) * 4 * kThreads + tid;
+        const float w4[4] = {ws[0], ws[kThreads], ws[2 * kThreads], ws[3 * kThreads]};
+        add(u, w4);
+      }
+      // the rest from L2, kWideBatch units' loads in flight at once
+      for (; u < U; u += kWideBatch) {
+        float w4[kWideBatch][4];
+#pragma unroll
+        for (int uu = 0; uu < kWideBatch; ++uu)
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate)
+            w4[uu][gate] = u + uu < U ? w_at(i, gate, u + uu) : 0.0f;
+#pragma unroll
+        for (int uu = 0; uu < kWideBatch; ++uu)
+          if (u + uu < U) add(u + uu, w4[uu]);
+      }
+      if (k < H)
+        for (int r = 0; r < B; ++r)
+          store_word(dst + (size_t)r * H + k, tag | __float_as_uint(acc[r]));
+    }
+  }
+
+  // the last block to finish advances the epoch past this launch's tags
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(ws + 1, 1ull) == (u64)(gridDim.x - 1)) {
+      ws[1] = 0;
+      ws[0] = (u64)(tag0 - 1u + (unsigned)T);
+      __threadfence();
+    }
+  }
+}
+
 size_t smem_bytes(int B, int H) {
   const size_t b_pad = (size_t)(B + kTaskBatch - 1) / kTaskBatch * kTaskBatch;
   return 2 * b_pad * H * sizeof(float);
@@ -904,6 +1430,66 @@ int launch_partials_any(const void* gates, const void* masks, const void* c0,
   return (int)cudaErrorInvalidValue;
 }
 
+// The wide forward's shared memory: two buffers of h unless they do not fit
+// (then kDirect), then as many items of W_hh as fit (smem_items, returned)
+size_t wide_smem_bytes(int B, int H, int U, bool* direct, int* smem_items) {
+  const size_t staged = smem_bytes(B, H);
+  *direct = staged > (size_t)kMaxSmem;
+  const size_t base = *direct ? 0 : staged;
+  const int KC = (H / 4 + 31) / 32, slots = (U + kWarps - 1) / kWarps;
+  const int items = slots * KC - (KC < kWideRegChunks ? KC : kWideRegChunks);
+  const size_t fit = ((size_t)kMaxSmem - base) / kWideItemBytes;
+  *smem_items = (size_t)items < fit ? items : (int)fit;
+  return base + (size_t)*smem_items * kWideItemBytes;
+}
+
+int launch_wide(const void* gates_x, const void* masks, const void* h0, const void* c0,
+                const void* w_hh_t, void* outs, void* hT, void* cT, void* ws, int T, int B,
+                int H, int U, int dev, void* stream) {
+  static Capacity staged_capacity[kMaxDevices], direct_capacity[kMaxDevices];
+  if (B < 1 || B > kWideRows || H % 4 || U < 1) return (int)cudaErrorInvalidValue;
+  bool direct = false;
+  int smem_items = 0;
+  const size_t smem = wide_smem_bytes(B, H, U, &direct, &smem_items);
+  void* args[] = {&gates_x, &masks, &h0, &c0, &w_hh_t, &outs, &hT, &cT, &ws,
+                  &T,       &B,     &H,  &U,  &smem_items};
+  if (direct)
+    return cooperative_launch((const void*)lstm_seq_wide_kernel<true>, direct_capacity, dev, H,
+                              U, smem, args, stream);
+  return cooperative_launch((const void*)lstm_seq_wide_kernel<false>, staged_capacity, dev, H,
+                            U, smem, args, stream);
+}
+
+// The wide partials backward's shared memory: two buffers of the block's
+// cells' dg, then as many items of W_hh^T (4 gates × kThreads entries) as
+// fit (smem_items, returned); 0 where even the dg does not fit
+size_t partials_wide_smem_bytes(int B, int H, int U, int* smem_items) {
+  const size_t dg = 2 * (size_t)B * 4 * U * sizeof(float);
+  if (dg > (size_t)kMaxSmem) return 0;
+  const int KPT = (H + kThreads - 1) / kThreads;
+  const int items = KPT * U - (KPT < kWideRegK ? KPT : kWideRegK) *
+                                  (U < kWideRegUnits ? U : kWideRegUnits);
+  const size_t fit = ((size_t)kMaxSmem - dg) / (4 * kThreads * sizeof(float));
+  *smem_items = (size_t)items < fit ? items : (int)fit;
+  return dg + (size_t)*smem_items * 4 * kThreads * sizeof(float);
+}
+
+int launch_partials_wide(const void* gates, const void* masks, const void* c0,
+                         const void* w_hh_t, const void* g_outs, const void* g_hT,
+                         const void* g_cT, void* d_gates, void* d_h0, void* d_c0, void* cs,
+                         void* d_h_tilde, void* d_c_tilde, void* ws, int T, int B, int H, int U,
+                         int dev, void* stream) {
+  static Capacity capacity[kMaxDevices];
+  if (B < 1 || B > kWideRows || H % 4 || U < 1) return (int)cudaErrorInvalidValue;
+  int smem_items = 0;
+  const size_t smem = partials_wide_smem_bytes(B, H, U, &smem_items);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  void* args[] = {&gates, &masks, &c0, &w_hh_t, &g_outs, &g_hT, &g_cT, &d_gates, &d_h0,
+                  &d_c0,  &cs,    &d_h_tilde, &d_c_tilde, &ws, &T, &B, &H, &U, &smem_items};
+  return cooperative_launch((const void*)lstm_seq_backward_partials_wide_kernel, capacity, dev,
+                            H, U, smem, args, stream);
+}
+
 }  // namespace
 
 extern "C" size_t lstm_seq_smem_bytes(int B, int H) { return smem_bytes(B, H); }
@@ -1009,4 +1595,25 @@ extern "C" int lstm_seq_backward_partials_exchange(void* ws, int T, int B, int H
   return launch_partials_any<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                    nullptr, ws, T, B, H, U, dev, stream);
+}
+
+// The forward past H = 1024 or 8 units a block (H a multiple of 4, any U,
+// at most kWideRows batch rows; the wrapper pads H and slices the batch):
+// the arguments of lstm_seq_f32
+extern "C" int lstm_seq_wide_f32(const void* gates_x, const void* masks, const void* h0,
+                                 const void* c0, const void* w_hh_t, void* outs, void* hT,
+                                 void* cT, void* ws, int T, int B, int H, int U, int dev,
+                                 void* stream) {
+  return launch_wide(gates_x, masks, h0, c0, w_hh_t, outs, hT, cT, ws, T, B, H, U, dev, stream);
+}
+
+// The partials backward past H = 1024 or 8 units a block: the arguments of
+// lstm_seq_backward_partials_f32, at most kWideRows batch rows
+extern "C" int lstm_seq_backward_partials_wide_f32(
+    const void* gates, const void* masks, const void* c0, const void* w_hh_t,
+    const void* g_outs, const void* g_hT, const void* g_cT, void* d_gates, void* d_h0,
+    void* d_c0, void* cs, void* d_h_tilde, void* d_c_tilde, void* ws, int T, int B, int H,
+    int U, int dev, void* stream) {
+  return launch_partials_wide(gates, masks, c0, w_hh_t, g_outs, g_hT, g_cT, d_gates, d_h0,
+                              d_c0, cs, d_h_tilde, d_c_tilde, ws, T, B, H, U, dev, stream);
 }

@@ -5,8 +5,10 @@ Counterpart of robo_vln_tpu/ops/pallas_attention.py: per (example, head),
 ``softmax(q·kᵀ/√d_k)·v`` with no mask, the output in q's dtype.  q (N, Lq,
 h·d_k), k (N, S, h·d_k), v (N, S, h·d_v) -> (N, Lq, h·d_v); the kernel
 addresses the heads by stride, so there are no transposes around the call.
-Three routes, picked before the launch by :func:`pick_route` from the dtype
-and the sizes; a call that no route takes raises there, before any launch:
+Four routes, picked before the launch by :func:`pick_route` from the dtype
+and the sizes; every float32 and bfloat16 call with d_k, d_v, S >= 1 has
+one (only a wrong dtype or layout, pointers off their element size or heads
+that do not divide the width raise, in the wrapper, before any launch):
 
 * ``f32_tensor_core``: float32, both products on the tensor cores in 3xTF32
   (each operand split into two tf32 parts, three products), so the result
@@ -22,9 +24,18 @@ and the sizes; a call that no route takes raises there, before any launch:
   and v are aligned to 16 bytes and d_k and d_v are multiples of 4, else
   one float at a time (:func:`f32_narrow_copies`; those launches are also
   counted in :data:`f32_narrow_launches`).
-* ``f32_cuda_core``: float32, everything on the CUDA cores, for d_k or d_v
-  above 256 only: K and V staged in shared memory where they fit, else read
-  in place (:func:`smem_bytes`).  It refuses d_k + S > 7264.
+* ``wide_f32`` and ``wide_bf16``: the wide-head kernel, for float32 with
+  d_k or d_v above 256 and bfloat16 above 128, any S and alignment: on the
+  tensor cores (3xTF32 in float32; one tf32 product of bf16 values, exact
+  in float32, in bfloat16), keys in key blocks of :data:`WIDE_KEYS`, the
+  logits over d_k in chunks of :data:`WIDE_CHUNK` columns, one block a
+  slice of d_v (:func:`wide_slices`), one value a load where the pointers
+  or d ask for it (:func:`wide_narrow_copies`; counted in
+  :data:`wide_narrow_launches`).
+* ``f32_cuda_core``: the first float32 kernel, on the CUDA cores.  No call is
+  routed there since the wide kernel took its shapes; it launches only
+  where :func:`pick_route` is replaced to force it (to time it beside its
+  successor), and refuses d_k + S > 7264.
 * ``bf16``: both products on the tensor cores, the softmax in float32, the
   probabilities p in one of two modes (:data:`BF16_P_MODES`, counted apart
   in :data:`bf16_mode_launches`), picked by
@@ -34,12 +45,17 @@ and the sizes; a call that no route takes raises there, before any launch:
   float32 p) keeps p to about 16 bits (``p_hi + p_lo``), so the only
   rounding left against the float32 function is that of the bf16 output.
   It takes
-  d_k = d_v, a multiple of 16 up to 128, any S >= 1, and pointers aligned to
-  16 bytes (:func:`check_bf16_route`).  Up to S = 128 one kernel holds a
-  head's keys whole; past it another streams them through a ring of
+  any d_k and d_v up to 128 and any S >= 1.  For d_k = d_v, a multiple of
+  16, from pointers aligned to 16 bytes (every HCM call): up to S = 128 one
+  kernel holds a head's keys whole; past it another
+  streams them through a ring of
   :data:`BF16_STAGES` key blocks of :data:`BF16_KEY_CHUNKS` 16-key chunks
   with an online softmax against a lazy row max (the C entry's code
   :data:`BF16_KEY_BLOCKS`, counted apart in :data:`bf16_key_block_launches`).
+  Every other call (:func:`bf16_fill`; counted in :data:`bf16_fill_launches`)
+  takes that key-block kernel's fill instance at any S: the tiles
+  zero-filled past d_k and d_v to the instance's D (their larger rounded up
+  to 16: :func:`bf16_instance_d`), every value copied one at a time.
 
 On a CPU tensor the plain version (:func:`attention_plain`, in the mode
 set) runs; on a CUDA tensor the kernel launches, or the wrapper raises.  The
@@ -60,13 +76,16 @@ from torch.profiler import record_function
 
 from . import _build, cm_attention
 
-ROUTES = {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2}  # codes of the C entry
+# codes of the C entry (wide_bf16's is the wide kernel's bfloat16 instance)
+ROUTES = {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2, "wide_f32": 5, "wide_bf16": 6}
 launches = 0  # kernel launches since the last reset
 route_launches = dict.fromkeys(ROUTES, 0)  # the same, by route
 f32_key_block_launches = 0  # of f32_tensor_core's, those in key blocks (f32_key_blocks)
 f32_narrow_launches = 0  # of f32_tensor_core's, those copying one float at a time
 F32_KEY_BLOCKS = 3  # code of the C entry for f32_tensor_core's key blocks
-bf16_key_block_launches = 0  # of bf16's, those past BF16_WHOLE_S, in key blocks
+bf16_key_block_launches = 0  # of bf16's, those in key blocks (bf16_key_blocks)
+bf16_fill_launches = 0  # of bf16's, those of the fill instance (bf16_fill)
+wide_narrow_launches = 0  # of the wide kernel's, those loading one value at a time
 BF16_KEY_BLOCKS = 4  # code of the C entry for bf16's key blocks
 BF16_P_MODES = ("round_p", "split_p")  # p rounded to bf16 once, or p_hi + p_lo
 bf16_mode_launches = dict.fromkeys(BF16_P_MODES, 0)  # bf16's, by mode
@@ -84,7 +103,12 @@ F32_WHOLE_MAX_D = 128  # the largest D f32_tensor_core holds whole; past it, key
 F32_MAX_D = 256  # the largest d_k and d_v of f32_tensor_core
 F32_KEY_CHUNKS = 4  # kF32KeyChunks: 8-key chunks a key block, D <= 128
 F32_KEY_CHUNKS_D256 = 1  # kF32KeyChunksD256: the same at D = 256
-MAX_D = 128  # the largest head size of the bf16 kernels
+MAX_D = 128  # the largest head size of the bf16 kernels; past it, the wide kernel
+WIDE_WARPS = 4  # kWideWarps of csrc/cross_modal_attn.cu: 16 query rows each
+WIDE_KEYS = 32  # kWideKeys: keys of a key block
+WIDE_CHUNK = 32  # kWideChunk: d_k columns of a chunk of q·kᵀ
+WIDE_SLICE = 128  # kWideSlice: the most d_v columns of a block
+WIDE_STAGES = 3  # kWideStages: chunks of Q and K in the ring
 
 
 def tensor_core_f32_takes(S: int, dk: int, dv: int) -> bool:
@@ -126,6 +150,56 @@ def _f32_key_block_smem(d: int) -> int:
                 + 16 * kc * d)
 
 
+def bf16_instance_d(dk: int, dv: int) -> int:
+    """D of the bf16 instance: max(d_k, d_v) rounded up to 16; the tiles are
+    zero-filled past d_k and d_v."""
+    return -(-max(dk, dv) // 16) * 16
+
+
+def bf16_fill(dk: int, dv: int, aligned: bool) -> bool:
+    """Whether a bf16 call takes the key-block kernel's fill instance (one
+    value a copy, zero-filled past d_k and d_v): unless d_k = d_v, a
+    multiple of 16, and q, k and v are aligned to 16 bytes, the instance's
+    tiles would take values of the next head, or a 16-byte copy would start
+    off a 16-byte boundary."""
+    return not aligned or dk != dv or dk % 16 != 0
+
+
+def bf16_key_blocks(S: int, dk: int, dv: int, aligned: bool = True) -> bool:
+    """Whether a bf16 call streams its keys in key blocks: past S = 128, and
+    at every S in the fill instance (only the key-block kernel has it)."""
+    return S > BF16_WHOLE_S or bf16_fill(dk, dv, aligned)
+
+
+def wide_slices(dv: int) -> int:
+    """Slices of d_v of the wide kernel, one block each: ceil(d_v / 128)."""
+    return -(-dv // WIDE_SLICE)
+
+
+def wide_width(dv: int) -> int:
+    """Columns of one slice: d_v over the slices, rounded up to 8."""
+    per = -(-dv // wide_slices(dv))
+    return -(-per // 8) * 8
+
+
+def wide_narrow_copies(dtype, dk: int, dv: int, aligned: bool) -> bool:
+    """Whether the wide kernel loads one value at a time: as the float32
+    tensor-core kernels in float32 (d a multiple of 4), as the bf16 kernels
+    in bfloat16 (d a multiple of 8)."""
+    if dtype == torch.bfloat16:
+        return not aligned or dk % 8 != 0 or dv % 8 != 0
+    return f32_narrow_copies(dk, dv, aligned)
+
+
+def _wide_smem(dtype) -> int:
+    """wide_smem_bytes<T>: the ring's stages of a Q chunk (64 rows) and a K
+    chunk (32 rows), in rows of 40 values, and a V slice (32 rows of 132
+    floats or 136 bf16), in the inputs' dtype, whatever the sizes."""
+    size, pad = (2, 8) if dtype == torch.bfloat16 else (4, 4)
+    return size * (WIDE_STAGES * (16 * WIDE_WARPS + WIDE_KEYS) * (WIDE_CHUNK + 8)
+                   + WIDE_KEYS * (WIDE_SLICE + pad))
+
+
 def _bf16_key_block_smem(d: int) -> int:
     """bf16_blocks_smem_bytes: the Q tile and the ring's stages of K and V,
     in rows of d + 8 values."""
@@ -134,31 +208,27 @@ def _bf16_key_block_smem(d: int) -> int:
 
 def pick_route(dtype, S: int, dk: int, dv: int, aligned: bool = True) -> str:
     """The kernel a call launches, decided before the launch, never after a
-    failure: bf16 for bfloat16 (:func:`check_bf16_route` raises where it
-    does not take the sizes or the pointers); in float32 the tensor-core
-    kernels wherever they take the sizes (d_k and d_v up to 256, either
-    alignment), else (d above 256) the CUDA-core kernel, which raises where
-    even its q rows and probabilities do not fit in shared memory."""
+    failure: for bfloat16 the bf16 kernels up to d = 128 and the wide
+    kernel past it; in float32 the tensor-core kernels up to d = 256 (either
+    alignment) and the wide kernel past it.  Raises only where no function
+    exists: S, d_k or d_v below 1."""
+    check_bf16_route(S, dk, dv, aligned)
     if dtype == torch.bfloat16:
-        check_bf16_route(S, dk, dv, aligned)
-        return "bf16"
-    if tensor_core_f32_takes(S, dk, dv):
-        return "f32_tensor_core"
-    need = smem_bytes(S, dk, dv, route="f32_cuda_core")
-    if need > SMEM_LIMIT:
-        raise ValueError(f"cross_modal_attn: S={S}, d_k={dk}, d_v={dv} need {need} "
-                         "bytes of shared memory a block")
-    return "f32_cuda_core"
+        return "bf16" if max(dk, dv) <= MAX_D else "wide_bf16"
+    return "f32_tensor_core" if tensor_core_f32_takes(S, dk, dv) else "wide_f32"
 
 
 def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int:
-    """Shared memory of one block of ``route`` (by default bf16 for
-    bfloat16, else the float32 kernel that takes the sizes).
+    """Shared memory of one block of ``route`` (by default the route
+    :func:`pick_route` picks).
+    wide_f32, wide_bf16: whatever the sizes, the ring's stages of a Q and a
+    K chunk and one V slice of a key block (wide_smem_bytes).
     f32_cuda_core: K (padded rows) and V where they fit (f32_smem_bytes in
     csrc/cross_modal_attn.cu), then a q row and S probabilities per warp.
-    bf16: up to S = 128, the 64-row Q tile, K and V (S rounded up to 16),
-    in rows padded by 8 values; past it, whatever S, the 64-row Q tile and
-    the ring's stages of K and V (bf16_blocks_smem_bytes).
+    bf16: at the instance's D (:func:`bf16_instance_d`); up to S = 128,
+    the 64-row Q tile, K and V (S rounded up to 16), in rows padded by 8
+    values; in key blocks, whatever S, the 64-row Q tile and the ring's
+    stages of K and V (bf16_blocks_smem_bytes).
     f32_tensor_core: at the kernel instance's sizes, max(d_k, d_v)
     rounded up to D = 32, 64, 128 or 256; with the keys whole (S and D up
     to 128), S rounded up to 16, 32, 64 or 128 rows, the 128-row Q tile in
@@ -169,12 +239,14 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
     block split and the next as it is (rows of D): f32tc_blocks_smem_bytes.
     The copy width changes none of these."""
     if route is None:
-        route = ("bf16" if dtype == torch.bfloat16 else "f32_tensor_core"
-                 if tensor_core_f32_takes(S, dk, dv) else "f32_cuda_core")
+        route = pick_route(dtype, S, dk, dv)
+    if route in ("wide_f32", "wide_bf16"):
+        return _wide_smem(torch.bfloat16 if route == "wide_bf16" else torch.float32)
     if route == "bf16":
-        if S > BF16_WHOLE_S:
-            return _bf16_key_block_smem(dk)
-        return 2 * (dk + 8) * (TILE_Q + 2 * (-(-S // 16) * 16))
+        d = bf16_instance_d(dk, dv)
+        if bf16_key_blocks(S, dk, dv):
+            return _bf16_key_block_smem(d)
+        return 2 * (d + 8) * (TILE_Q + 2 * (-(-S // 16) * 16))
     if route == "f32_tensor_core":
         d = f32_instance_d(dk, dv)
         if f32_key_blocks(S, dk, dv):
@@ -187,19 +259,21 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
 
 
 def check_bf16_route(S: int, dk: int, dv: int, aligned: bool = True) -> None:
-    """Raise unless the bfloat16 kernel takes these sizes and pointers."""
-    if not (dk == dv and dk % 16 == 0 and 16 <= dk <= MAX_D and S >= 1):
-        raise ValueError(
-            f"cross_modal_attn: the bfloat16 kernel takes d_k = d_v, a multiple "
-            f"of 16 up to {MAX_D}, and any S >= 1; got S={S}, d_k={dk}, d_v={dv}")
-    if not aligned:
-        raise ValueError("cross_modal_attn: q, k and v must be aligned to "
-                         "16 bytes for the bfloat16 kernel")
+    """Raise where no attention function exists: S, d_k or d_v below 1.
+    Every other bfloat16 call has a kernel (the bf16 kernels up to d = 128,
+    their fill instance where d_k != d_v, d is off a multiple of 16 or the
+    pointers off 16 bytes; the wide kernel past it), whatever the alignment
+    of its element-aligned pointers."""
+    if min(S, dk, dv) < 1:
+        raise ValueError(f"cross_modal_attn: S, d_k and d_v must be at least 1; got S={S}, "
+                         f"d_k={dk}, d_v={dv}")
 
 
 def reset_launches() -> None:
     global launches, f32_key_block_launches, f32_narrow_launches, bf16_key_block_launches
+    global bf16_fill_launches, wide_narrow_launches
     launches = f32_key_block_launches = f32_narrow_launches = bf16_key_block_launches = 0
+    bf16_fill_launches = wide_narrow_launches = 0
     route_launches.update(dict.fromkeys(ROUTES, 0))
     bf16_mode_launches.update(dict.fromkeys(BF16_P_MODES, 0))
 
@@ -240,6 +314,7 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
     by the route :func:`pick_route` picks, bfloat16 in the mode of p that
     :func:`p_mode` reads."""
     global launches, f32_key_block_launches, f32_narrow_launches, bf16_key_block_launches
+    global bf16_fill_launches, wide_narrow_launches
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"cross_modal_attn: expected CUDA tensors, got {device}")
@@ -267,14 +342,18 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     route = pick_route(q.dtype, S, dk, dv, aligned)
     code, narrow, mode = ROUTES[route], False, None
+    if q.dtype == torch.bfloat16:
+        mode = p_mode()
     if route == "f32_tensor_core":
         narrow = f32_narrow_copies(dk, dv, aligned)
         if f32_key_blocks(S, dk, dv):
             code = F32_KEY_BLOCKS
     elif route == "bf16":
-        mode = p_mode()
-        if S > BF16_WHOLE_S:
+        narrow = bf16_fill(dk, dv, aligned)
+        if bf16_key_blocks(S, dk, dv, aligned):
             code = BF16_KEY_BLOCKS
+    elif route != "f32_cuda_core":
+        narrow = wide_narrow_copies(q.dtype, dk, dv, aligned)
 
     fn = _entry()
     out = torch.empty((N, Lq, Dv), device=device, dtype=q.dtype)
@@ -288,7 +367,12 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
     route_launches[route] += 1
     if mode is not None:
         bf16_mode_launches[mode] += 1
-    f32_narrow_launches += narrow
+    if route == "f32_tensor_core":
+        f32_narrow_launches += narrow
+    elif route == "bf16":
+        bf16_fill_launches += narrow
+    elif route != "f32_cuda_core":
+        wide_narrow_launches += narrow
     if code == F32_KEY_BLOCKS:
         f32_key_block_launches += 1
     elif code == BF16_KEY_BLOCKS:

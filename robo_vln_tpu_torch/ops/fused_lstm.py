@@ -15,10 +15,15 @@ same function.
 
 Dispatch is by where the tensors lie: on the CPU the plain version
 (:func:`ops.rnn.lstm_recurrence`) runs; on a CUDA device the kernel launches,
-or the wrapper raises (:func:`check_shape`, before any launch: H off a
-multiple of 4 or above 1024, or more than 8 hidden units a block to keep the
-grid within one block an SM).  The grid has ceil(H / units) blocks, so H
-need not divide evenly.
+or the wrapper raises (only for a wrong dtype, shape or layout).  Every H >=
+1 has a route: H off a multiple of 4 is zero-padded to the next one
+(:func:`padded_hidden`; a padded unit's gates are 0, so its c and h stay 0,
+and W_hh's padded rows are 0, so the real units see nothing of it; the
+outputs are sliced back), and past H = 1024 or 8 hidden units a block (the
+units keep the grid within one block an SM) the wide variant launches
+(:func:`wide_kernel`, counted apart in :data:`wide_launches`), which reads
+what of W_hh does not fit in registers from shared memory and L2.  The
+grid has ceil(H / units) blocks, so H need not divide evenly.
 
 The backward pass is a kernel too, in the same source
 (:func:`lstm_seq_backward_cuda`, in the profiler range
@@ -34,8 +39,11 @@ recurrence (:data:`BACKWARD_KERNELS`): ``partials``, the route
 each block's columns of W_hh; ``dg_exchange`` exchanges each step's whole
 dg, and launches only where the route is set to it, to compare the two.
 Both count in ``backward_launches`` and, by kernel, in
-``backward_kernel_launches``.  The wrapper raises before any launch where
-:func:`check_backward_shape` refuses.
+``backward_kernel_launches``; ``partials`` has a wide variant too, taken at
+the forward's wide shapes (counted apart in :data:`backward_wide_launches`),
+and H is padded as in the forward.  ``dg_exchange`` keeps its range (H a
+multiple of 4 up to 1024, 8 units a block): :func:`check_backward_shape`
+raises before any launch where it is forced past it.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..utils.device import float32_exact
@@ -52,7 +61,9 @@ from . import _build
 from .rnn import lstm_recurrence
 
 launches = 0  # forward kernel launches since the last reset
+wide_launches = 0  # of them, the wide variant's (H above MAX_H, or above MAX_UNITS units)
 backward_launches = 0  # backward kernel launches since the last reset
+backward_wide_launches = 0  # of them, the partials kernel's wide variant
 BACKWARD_KERNELS = ("partials", "dg_exchange")
 BACKWARD_KERNEL = "partials"  # the backward's route
 backward_kernel_launches = dict.fromkeys(BACKWARD_KERNELS, 0)  # the same, by kernel
@@ -61,8 +72,9 @@ SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 WARPS = 8  # kWarps of csrc/lstm_seq.cu
 TASK_BATCH = 2  # kTaskBatch: batch rows of one warp task
 TASKS_PER_WARP = 16  # batch pairs a warp runs: one cell a lane, two a pair
-MAX_H = 1024  # 32 lanes x 8 chunks of 4 values of W_hh's rows in registers
-MAX_UNITS = 8  # kMaxUnits: units a block of the partials kernel
+MAX_H = 1024  # 32 lanes x 8 chunks of 4 values of W_hh's rows in registers; past it, wide
+MAX_UNITS = 8  # kMaxUnits: units a block of the partials kernel (and of the forward's warps)
+WIDE_ROWS = 8  # kWideRows: batch rows one launch of a wide variant takes
 # the grid the partials kernel aims for: fewer blocks cut the partials each
 # step stores and reads (blocks·B·H words), more cut each block's product
 # (B·H·4·units multiply-adds); at H=512 on the H100, 64 blocks of 8 units
@@ -76,25 +88,42 @@ _private = []  # the workspace of private_workspace's innermost block, if any
 
 
 def reset_launches() -> None:
-    global launches, backward_launches
-    launches = backward_launches = 0
+    global launches, backward_launches, wide_launches, backward_wide_launches
+    launches = backward_launches = wide_launches = backward_wide_launches = 0
     backward_kernel_launches.update(dict.fromkeys(BACKWARD_KERNELS, 0))
+
+
+def padded_hidden(H: int) -> int:
+    """H rounded up to a multiple of 4: the kernels read W_hh's rows and h in
+    16-byte chunks, and the wrapper zero-pads the units past H."""
+    return -(-H // 4) * 4
+
+
+def wide_kernel(H: int, units: int) -> bool:
+    """Whether a launch over (padded) H at this many units a block takes the
+    wide variant: past H = 1024 (W_hh's rows no longer fit a lane's
+    registers) or past 8 units a block (one warp a unit)."""
+    return H > MAX_H or units > MAX_UNITS
 
 
 def _units_per_block(H: int, n_sm: int) -> int:
     """Hidden units per block: the fewest that keep the grid of
     ceil(H / units) blocks within one block per SM (the cooperative launch
-    needs the whole grid co-resident)."""
-    return -(-H // n_sm)
+    needs the whole grid co-resident), on the padded H."""
+    return -(-padded_hidden(H) // n_sm)
 
 
 def backward_units_per_block(H: int, n_sm: int, kernel=None) -> int:
     """Hidden units per block of the backward: the forward's for
     ``dg_exchange``; for ``partials`` enough for a grid of about
-    BACKWARD_BLOCKS blocks, at least the forward's and at most MAX_UNITS."""
+    BACKWARD_BLOCKS blocks, at least the forward's and, but at the wide
+    shapes, at most MAX_UNITS."""
     units = _units_per_block(H, n_sm)
     if _kernel(kernel) == "partials":
-        units = min(MAX_UNITS, max(units, -(-H // BACKWARD_BLOCKS)))
+        most = -(-padded_hidden(H) // BACKWARD_BLOCKS)
+        if wide_kernel(padded_hidden(H), units):
+            return max(units, most)
+        units = min(MAX_UNITS, max(units, most))
     return units
 
 
@@ -138,20 +167,29 @@ def _most_rows(row: int, units: int) -> int:
 
 
 def max_batch(H: int, units: int) -> int:
-    """The most batch rows one forward launch takes (rows of h)."""
-    return _most_rows(H, units)
+    """The most batch rows one forward launch takes: rows of h at (padded)
+    H, or the wide variant's WIDE_ROWS."""
+    H = padded_hidden(H)
+    return WIDE_ROWS if wide_kernel(H, units) else _most_rows(H, units)
 
 
 def max_backward_batch(H: int, units: int, kernel=None) -> int:
     """The most batch rows one backward launch takes: for ``partials`` an
-    owner lane a cell, partials_lanes(units) rows in each warp; for
-    ``dg_exchange`` the forward's limit with rows of dg (4H)."""
+    owner lane a cell, partials_lanes(units) rows in each warp, or at the
+    wide shapes WIDE_ROWS within two buffers of the block's cells' dg
+    (2·B·4·units floats) in shared memory; for ``dg_exchange`` the
+    forward's limit with rows of dg (4H)."""
+    H = padded_hidden(H)
     if _kernel(kernel) == "partials":
+        if wide_kernel(H, units):
+            return min(WIDE_ROWS, SMEM_LIMIT // (4 * 2 * 4 * units))
         return WARPS * partials_lanes(units)
     return _most_rows(4 * H, units)
 
 
 def _check_grid(what: str, H: int, units: int) -> None:
+    """dg_exchange's range, which it keeps: W_hh's rows in registers, one
+    warp a unit."""
     if H % 4 or H > MAX_H:
         raise ValueError(f"{what}: the kernel holds W_hh's rows in 16-byte "
                          f"chunks, at most {MAX_H // 128} a lane, and takes H a "
@@ -163,8 +201,10 @@ def _check_grid(what: str, H: int, units: int) -> None:
 
 def check_shape(B: int, H: int, units: int) -> None:
     """Raise unless one launch takes batch B and hidden size H at this many
-    units a block."""
-    _check_grid("lstm_seq", H, units)
+    units a block: any H >= 1 (padded to a multiple of 4; the wide variant
+    past H = 1024 or 8 units) and units >= 1, up to :func:`max_batch` rows."""
+    if H < 1 or units < 1:
+        raise ValueError(f"lstm_seq: H={H} and {units} units a block")
     if B > max_batch(H, units):
         raise ValueError(f"lstm_seq: one launch takes at most {max_batch(H, units)} "
                          f"batch rows at H={H} and {units} units a block, got B={B}")
@@ -172,9 +212,14 @@ def check_shape(B: int, H: int, units: int) -> None:
 
 def check_backward_shape(B: int, H: int, units: int, kernel=None) -> None:
     """Raise unless one launch of the backward takes batch B and hidden
-    size H at this many units a block: the forward's grid, with its own
-    rows (:func:`max_backward_batch`)."""
-    _check_grid("lstm_seq backward", H, units)
+    size H at this many units a block: for ``partials`` any H and units, as
+    the forward; ``dg_exchange`` keeps its range (H a multiple of 4 up to
+    1024, at most 8 units); each with its own rows
+    (:func:`max_backward_batch`)."""
+    if _kernel(kernel) == "dg_exchange":
+        _check_grid("lstm_seq backward", H, units)
+    elif H < 1 or units < 1:
+        raise ValueError(f"lstm_seq backward: H={H} and {units} units a block")
     most = max_backward_batch(H, units, kernel)
     if B > most:
         raise ValueError(f"lstm_seq backward: one launch takes at most {most} batch rows "
@@ -219,19 +264,24 @@ def _backward_units(device_index: int, H: int, kernel=None):
 
 
 @functools.cache
-def _entry():
-    """The kernel's C entry, its argument types set once."""
-    fn = _build.load("lstm_seq").lstm_seq_f32
+def _entry(wide: bool = False):
+    """The kernel's C entry (``wide``: the wide variant's), its argument
+    types set once."""
+    lib = _build.load("lstm_seq")
+    fn = lib.lstm_seq_wide_f32 if wide else lib.lstm_seq_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
 
 
 @functools.cache
-def _backward_entry(kernel: str):
-    """The C entry of one backward kernel."""
+def _backward_entry(kernel: str, wide: bool = False):
+    """The C entry of one backward kernel (``wide``: the partials kernel's
+    wide variant)."""
     lib = _build.load("lstm_seq")
-    fn = lib.lstm_seq_backward_partials_f32 if kernel == "partials" else lib.lstm_seq_backward_f32
+    fn = (lib.lstm_seq_backward_partials_wide_f32 if wide else
+          lib.lstm_seq_backward_partials_f32 if kernel == "partials" else
+          lib.lstm_seq_backward_f32)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
@@ -313,6 +363,54 @@ def _check(name, t, shape, device, contiguous=True):
         raise ValueError(f"lstm_seq: {name} must be contiguous")
 
 
+def pad_gate_axis(x, H: int, Hp: int):
+    """(..., 4H) -> (..., 4Hp): each gate's H entries followed by zeros."""
+    return F.pad(x.unflatten(-1, (4, H)), (0, Hp - H)).flatten(-2)
+
+
+def unpad_gate_axis(x, H: int):
+    """(..., 4Hp) -> (..., 4H): each gate's first H entries."""
+    return x.unflatten(-1, (4, x.shape[-1] // 4))[..., :H].flatten(-2)
+
+
+def pad_units(x, Hp: int):
+    """(..., H) -> (..., Hp), zeros past H."""
+    return F.pad(x, (0, Hp - x.shape[-1]))
+
+
+def pad_w_hh(w_hh, H: int, Hp: int):
+    """W_hh (H, 4H) -> (Hp, 4Hp): zero rows past H, each gate's columns
+    padded as :func:`pad_gate_axis`."""
+    return pad_units(pad_gate_axis(w_hh, H, Hp).t(), Hp).t()
+
+
+def padded_forward(fn, gates_x, masks, h0, c0, w_hh):
+    """fn's (outs, hT, cT) at H padded to a multiple of 4 and sliced back.
+    The padding is exact: a padded unit's gates are 0, so its c = σ(0)·c~ +
+    σ(0)·tanh(0) and h = σ(0)·tanh(c) stay 0 from c0 = 0, and W_hh's padded
+    rows are 0, so the real units see nothing of it."""
+    H = h0.shape[-1]
+    Hp = padded_hidden(H)
+    outs, hT, cT = fn(pad_gate_axis(gates_x, H, Hp), masks, pad_units(h0, Hp), pad_units(c0, Hp),
+                      pad_w_hh(w_hh, H, Hp))
+    return outs[..., :H], hT[:, :H], cT[:, :H]
+
+
+def padded_backward(fn, gates_x, masks, h0, c0, w_hh, outs, g_outs, g_hT, g_cT, masks_grad=True):
+    """fn's (d_gates_x, d_masks, d_h0, d_c0, d_w_hh) at H padded as
+    :func:`padded_forward` pads it, sliced back: the padded units'
+    cotangents are 0, so are their dg, and their rows of dh~ see W_hh's
+    zero rows."""
+    H = h0.shape[-1]
+    Hp = padded_hidden(H)
+    d_gates, d_masks, d_h0, d_c0, d_w_hh = fn(
+        pad_gate_axis(gates_x, H, Hp), masks, pad_units(h0, Hp), pad_units(c0, Hp),
+        pad_w_hh(w_hh, H, Hp), pad_units(outs, Hp), pad_units(g_outs, Hp), pad_units(g_hT, Hp),
+        pad_units(g_cT, Hp), masks_grad=masks_grad)
+    return (unpad_gate_axis(d_gates, H), d_masks, d_h0[:, :H], d_c0[:, :H],
+            unpad_gate_axis(d_w_hh[:H], H))
+
+
 def _raise_on(err: int, H: int, units: int, n_sm: int) -> None:
     if err == NOT_CO_RESIDENT:
         raise RuntimeError(
@@ -340,6 +438,8 @@ def lstm_seq_cuda(gates_x, masks, h0, c0, w_hh):
         ("h0", h0, (B, H)), ("c0", c0, (B, H)), ("w_hh^T", w_hh_t, (4 * H, H)),
     ):
         _check(name, t, shape, device)
+    if padded_hidden(H) != H:
+        return padded_forward(lstm_seq_cuda, gates_x, masks, h0, c0, w_hh)
     units, n_sm = _units(device.index, H)
     check_shape(1, H, units)
     if w_hh_t.data_ptr() % 16:  # read in 16-byte chunks
@@ -349,7 +449,9 @@ def lstm_seq_cuda(gates_x, masks, h0, c0, w_hh):
     if len(slices) > 1:
         return by_rows(lstm_seq_cuda, slices, gates_x, masks, h0, c0, w_hh)
 
-    fn = _entry()
+    global wide_launches
+    wide = wide_kernel(H, units)
+    fn = _entry(wide)
     outs = torch.empty((T, B, H), device=device, dtype=torch.float32)
     hT = torch.empty((B, H), device=device, dtype=torch.float32)
     cT = torch.empty((B, H), device=device, dtype=torch.float32)
@@ -362,6 +464,7 @@ def lstm_seq_cuda(gates_x, masks, h0, c0, w_hh):
                  device.index, stream.cuda_stream)
     _raise_on(err, H, units, n_sm)
     launches += 1
+    wide_launches += wide
     return outs, hT, cT
 
 
@@ -372,6 +475,9 @@ def exchange_floor_cuda(T: int, B: int, H: int, device) -> None:
     device = torch.device(device)
     units, n_sm = _units(device.index, H)
     check_shape(B, H, units)
+    if H % 4 or wide_kernel(H, units):
+        raise ValueError(f"lstm_seq: the exchange floor is of the kernel up to H={MAX_H} and "
+                         f"{MAX_UNITS} units a block, H a multiple of 4; got H={H}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         ws = _workspace(device, stream, B, H)
@@ -395,6 +501,9 @@ def backward_exchange_floor_cuda(T: int, B: int, H: int, device, kernel=None) ->
     device = torch.device(device)
     units, n_sm = _backward_units(device.index, H, kernel)
     check_backward_shape(B, H, units, kernel)
+    if H % 4 or wide_kernel(H, units):
+        raise ValueError(f"lstm_seq backward: the exchange floor is of the kernels up to "
+                         f"H={MAX_H} and {MAX_UNITS} units a block, H a multiple of 4; got H={H}")
     name = ("lstm_seq_backward_partials_exchange" if kernel == "partials"
             else "lstm_seq_backward_exchange")
     with torch.cuda.device(device):
@@ -446,13 +555,14 @@ def _backward_launch(gates, masks, c0, w_hh, g_outs, g_hT, g_cT, masks_grad):
     batch rows (see :func:`reverse_pass`).  ``partials`` reads W_hh^T (4H, H),
     no copy when w_hh is the transposed view of weight_hh_l0; ``dg_exchange``
     reads W_hh's rows (H, 4H) in 16-byte chunks."""
-    global backward_launches
+    global backward_launches, backward_wide_launches
     kernel = _kernel(None)
     T, B, four_h = gates.shape
     H = four_h // 4
     device = gates.device
     units, n_sm = _backward_units(device.index, H, kernel)
     check_backward_shape(B, H, units, kernel)
+    wide = kernel == "partials" and wide_kernel(H, units)
     w = w_hh.t().contiguous() if kernel == "partials" else w_hh.contiguous()
     if kernel == "dg_exchange" and w.data_ptr() % 16:  # its rows read in 16-byte chunks
         raise ValueError("lstm_seq backward: w_hh must be aligned to 16 bytes")
@@ -468,10 +578,11 @@ def _backward_launch(gates, masks, c0, w_hh, g_outs, g_hT, g_cT, masks_grad):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         ws = _workspace(device, stream, 1, _backward_words(kernel, B, H, units))
-        err = _backward_entry(kernel)(*ptrs, ws.data_ptr(), T, B, H, units, device.index,
-                                      stream.cuda_stream)
+        err = _backward_entry(kernel, wide)(*ptrs, ws.data_ptr(), T, B, H, units, device.index,
+                                            stream.cuda_stream)
     _raise_on(err, H, units, n_sm)
     backward_launches += 1
+    backward_wide_launches += wide
     backward_kernel_launches[kernel] += 1
     return d_gates, d_h0, d_c0, cs, d_h_tilde, d_c_tilde
 
@@ -500,6 +611,9 @@ def lstm_seq_backward_cuda(gates_x, masks, h0, c0, w_hh, outs, g_outs, g_hT, g_c
         _check(name, t, shape, device)
     # any strides: each kernel's launch makes the layout it reads
     _check("w_hh", w_hh, (H, 4 * H), device, contiguous=False)
+    if padded_hidden(H) != H:
+        return padded_backward(lstm_seq_backward_cuda, gates_x, masks, h0, c0, w_hh, outs,
+                               g_outs, g_hT, g_cT, masks_grad)
     units, _ = _backward_units(device.index, H)
     check_backward_shape(1, H, units)
     return reverse_pass(_backward_launch, backward_batch_slices(B, H, units), gates_x,

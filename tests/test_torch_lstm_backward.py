@@ -287,16 +287,18 @@ def test_lstm_backward_batch_slices_join(rng):
         (4, 512, 8, True), (32, 512, 8, True), (33, 512, 8, False), (64, 512, 4, True),
         (65, 512, 4, False), (32, 1024, 8, True), (33, 1024, 8, False), (32, 556, 5, True),
         (33, 556, 5, False), (256, 128, 1, True), (257, 128, 1, False), (128, 256, 2, True),
-        (129, 256, 2, False), (4, 1028, 8, False), (4, 30, 1, False), (4, 996, 12, False),
-        (4, 96, 9, False), (1, 32, 1, True))
+        (129, 256, 2, False), (4, 1028, 8, True), (4, 30, 1, True), (4, 996, 12, True),
+        (4, 96, 9, True), (1, 32, 1, True), (8, 2048, 32, True), (9, 2048, 32, False))
 ])
 def test_lstm_backward_shape_range(kernel, B, H, units, ok):
-    """One launch of the backward takes the forward's H and up to 8 units a
-    block, and as many batch rows as its kernel holds: ``dg_exchange`` as
-    16 batch pairs a warp and two buffers of dg (rows of 4H) in a block's
-    shared memory allow (14 at H=512, 6 at H=1024); ``partials`` one owner
-    lane a cell, 32 / U_p rows in each of 8 warps (U_p: the units rounded
-    up to a power of 2; 32 rows at 5 to 8 units, 64 at 3 or 4)."""
+    """One launch of the backward takes as many batch rows as its kernel
+    holds: ``dg_exchange`` (forced only) keeps its range, H a multiple of 4
+    up to 1024 and 8 units a block, as 16 batch pairs a warp and two buffers
+    of dg (rows of 4H) in a block's shared memory allow (14 at H=512, 6 at
+    H=1024); ``partials``, the route, takes any H (padded to a multiple of
+    4) and units, one owner lane a cell, 32 / U_p rows in each of 8 warps
+    (U_p: the units rounded up to a power of 2; 32 rows at 5 to 8 units, 64
+    at 3 or 4), and 8 rows in its wide variant (past H = 1024 or 8 units)."""
     if ok:
         fused_lstm.check_backward_shape(B, H, units, kernel)
     else:
@@ -437,3 +439,47 @@ def test_fused_lstm_weight_gradient_through_transposed_view(rng, monkeypatch, dt
     assert calls == [False]
     for g, r in zip(*grads):
         torch.testing.assert_close(g.float(), r.float(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("H", [30, 1030])
+def test_lstm_padded_form_matches_jax(rng, H):
+    """H off a multiple of 4 runs padded to the next one: the wrapper's
+    padded forms (fused_lstm.padded_forward and padded_backward, which the
+    kernels' wrappers call) around the plain versions give the JAX scan's
+    outputs and final state within 1e-5, and the JAX VJP's five gradients
+    within 1e-5 of each one's norm; the padded units' h, c and gradients are
+    exactly 0 (H = 1030 pads to 1032, past the kernel's 1024: the wide
+    variant's shape)."""
+    T, B = 3, 2
+    args, cots = _inputs(rng, T, B, H)
+    Hp = fused_lstm.padded_hidden(H)
+    assert Hp % 4 == 0 and 0 < Hp - H < 4
+    targs = [torch.from_numpy(a) for a in args]
+    seen = []
+
+    def plain(*padded):
+        seen.append(padded[2].shape[-1])
+        res = lstm_recurrence(*padded)
+        for t in res:
+            assert torch.all(t[..., H:] == 0)
+        return res
+
+    got = fused_lstm.padded_forward(plain, *targs)
+    assert seen == [Hp]
+    for g, r in zip(got, jax_lstm._scan_impl(*map(jnp.asarray, args))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5)
+
+    def plain_backward(*padded, masks_grad=True):
+        seen.append(padded[2].shape[-1])
+        grads = lstm_recurrence_backward(*padded, masks_grad=masks_grad)
+        d_gates, _, d_h0, d_c0, d_w_hh = grads
+        assert torch.all(d_gates.unflatten(-1, (4, Hp))[..., H:] == 0)
+        assert torch.all(d_h0[:, H:] == 0) and torch.all(d_c0[:, H:] == 0)
+        assert torch.all(d_w_hh[H:] == 0)
+        return grads
+
+    grads = fused_lstm.padded_backward(plain_backward, *targs, got[0],
+                                       *map(torch.from_numpy, cots))
+    assert seen == [Hp, Hp]
+    assert [tuple(g.shape) for g in grads] == [a.shape for a in args]
+    _assert_rel(grads, _jax_vjp(args, cots), f"padded H={H}")

@@ -200,7 +200,7 @@ def test_attention_p_split_keeps_float32_probabilities(rng, S):
 
 
 def _p_split_attention_blocks(q, k, v, heads, block=16 * fused_attention.BF16_KEY_CHUNKS,
-                              slack=8.0, keep_lo=True):
+                              slack=8.0, keep_lo=True, dk=None):
     """The bf16 key-block kernel's arithmetic (S > 128) in plain torch: the
     keys in key blocks of ``block`` (the ring's 32), the last one partial;
     per key block, its logits of bf16 values in float32 and their row max,
@@ -211,11 +211,14 @@ def _p_split_attention_blocks(q, k, v, heads, block=16 * fused_attention.BF16_KE
     into p_hi + p_lo, p_lo·v then p_hi·v added to the output and p to the
     row sum; the output divided by the sum at the end.  With ``keep_lo``
     False, the ``round_p`` mode: the unnormalised p rounded to bf16 once,
-    p_hi·v alone, the float32 p still into the row sum."""
+    p_hi·v alone, the float32 p still into the row sum.  ``dk``: the head
+    size of the scale, where q and k are zero-filled past it (by default
+    their own)."""
     N, Lq, D = q.shape
-    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
-    qh = q.float().view(N, Lq, heads, dk).transpose(1, 2)
-    kh = k.float().view(N, S, heads, dk).transpose(1, 2)
+    S, dq, dv = k.shape[1], D // heads, v.shape[-1] // heads
+    dk = dk or dq
+    qh = q.float().view(N, Lq, heads, dq).transpose(1, 2)
+    kh = k.float().view(N, S, heads, dq).transpose(1, 2)
     vh = v.float().view(N, S, heads, dv).transpose(1, 2)
     scale2 = np.float32(1.4426950408889634 / math.sqrt(dk))
     m = torch.full((N, heads, Lq, 1), -math.inf)
@@ -255,6 +258,32 @@ def test_attention_key_blocks_keep_float32(rng, S, d):
     ours = _p_split_attention_blocks(q, k, v, 2)
     assert (ours - ref).abs().max().item() <= 1e-5
     _close(ours, jax_cm.mha_attention(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)), 2))
+
+
+@pytest.mark.parametrize("dk,dv", [(72, 72), (128, 64), (60, 60), (24, 24), (1, 8)])
+def test_bf16_fill_instance_keeps_float32(rng, dk, dv):
+    """bf16 calls off the aligned d_k = d_v, a multiple of 16, take the
+    key-block kernel's fill instance at any S: q, k and v copied into tiles
+    zero-filled past d_k and d_v to D = max(d_k, d_v) rounded up to 16
+    (_copy_tiles, one value a copy, from buffers one element off too), the
+    key blocks' arithmetic on them with the scale of d_k, and the columns
+    below d_v of each head's output stay within 1e-5 of the float32
+    function of the same bf16 values, and of JAX's XLA attention."""
+    N, Lq, S, heads = 2, 24, 70, 2
+    assert fused_attention.pick_route(torch.bfloat16, S, dk, dv) == "bf16"
+    assert fused_attention.bf16_fill(dk, dv, True)
+    D = fused_attention.bf16_instance_d(dk, dv)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
+               for a in _qkv(rng, N, Lq, S, heads * dk, heads * dv))
+    ref = fused_attention.attention_plain(q, k, v, heads)
+    for offset in (0, 1):
+        tiles = [_copy_tiles(torch.cat([torch.zeros(offset), t.flatten()]), offset, N, L, heads,
+                             d, D, narrow=True)
+                 for t, L, d in ((q, Lq, dk), (k, S, dk), (v, S, dv))]
+        ours = _p_split_attention_blocks(*tiles, heads, dk=dk)
+        ours = ours.view(N, Lq, heads, D)[..., :dv].reshape(N, Lq, heads * dv)
+        assert (ours - ref).abs().max().item() <= 1e-5
+    _close(ours, _xla_impl(*(jnp.asarray(t.numpy()) for t in (q, k, v)), heads))
 
 
 @pytest.mark.parametrize("S,jump_at", [(144, 64), (300, 200)])
@@ -474,6 +503,129 @@ def test_f32_copy_width(rng, dk, dv, aligned, narrow):
     assert (wide - ref).abs().max().item() > 1e-3
 
 
+def _wide_kernel_emulation(q, k, v, heads, mode):
+    """The wide-head kernel's arithmetic in plain torch, on float tensors
+    (for bfloat16 their bf16 values): q·kᵀ in key blocks of WIDE_KEYS keys,
+    over d_k in chunks of WIDE_CHUNK columns zero-filled past d_k, each
+    chunk's product added to the key block's logits in turn (3xTF32 in
+    ``f32``; in ``round_p`` and ``split_p``, bf16 values, one tf32 product,
+    exact); the online softmax of the float32 key-block kernel; p·v over
+    each slice of d_v (wide_slices, wide_width), the logits recomputed a
+    slice: 3xTF32 (``f32``), p rounded to bf16 once (``round_p``) or split
+    into tf32 hi + lo, two products (``split_p``); the output divided by the
+    sum.  Returns the float32 result before the output's rounding."""
+    N, Lq, D = q.shape
+    S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
+    chunk, block = fused_attention.WIDE_CHUNK, fused_attention.WIDE_KEYS
+    dp = -(-dk // chunk) * chunk
+    qh, kh = (torch.nn.functional.pad(t.view(N, -1, heads, dk), (0, dp - dk)).transpose(1, 2)
+              for t in (q, k))
+    vh = v.view(N, S, heads, dv).transpose(1, 2)
+    scale2 = np.float32(1.4426950408889634 / math.sqrt(dk))
+
+    def mm(a, b):
+        return _mm_3xtf32(a, b) if mode == "f32" else a @ b
+
+    width = fused_attention.wide_width(dv)
+    slices = []
+    for c0 in range(0, dv, width):
+        m = torch.full((N, heads, Lq, 1), -math.inf)
+        total = torch.zeros(N, heads, Lq, 1)
+        out = torch.zeros(N, heads, Lq, min(width, dv - c0))
+        for s0 in range(0, S, block):
+            logits = torch.zeros(N, heads, Lq, min(block, S - s0))
+            for d0 in range(0, dp, chunk):
+                logits = logits + mm(qh[..., d0:d0 + chunk],
+                                     kh[:, :, s0:s0 + block, d0:d0 + chunk].transpose(-1, -2))
+            logits = logits * scale2
+            m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(logits - m_new)
+            vb = vh[:, :, s0:s0 + block, c0:c0 + width]
+            if mode == "f32":
+                pv = _mm_3xtf32(p, vb)
+            elif mode == "round_p":
+                pv = p.to(torch.bfloat16).float() @ vb
+            else:
+                p_hi = _tf32(p)
+                pv = _tf32(p - p_hi) @ vb + p_hi @ vb
+            out = out * alpha + pv
+            total = total * alpha + p.sum(dim=-1, keepdim=True)
+            m = m_new
+        slices.append(out / total)
+    return torch.cat(slices, dim=-1).transpose(1, 2).reshape(N, Lq, heads * dv)
+
+
+@pytest.mark.parametrize("dk,dv", [(260, 260), (260, 72), (100, 300)])
+def test_wide_kernel_f32_keeps_float32(rng, dk, dv):
+    """Float32 heads past 256 on the wide kernel (d_k chunks of 32, d_v in
+    slices, 32-key blocks; d = 260 pads to 288 columns, not 512), d_k != d_v
+    among them: its 3xTF32 arithmetic stays within 1e-5 of the float32
+    function, the plain version and the JAX package's XLA attention on the
+    same numpy inputs."""
+    N, Lq, S, heads = 1, 20, 70, 2
+    assert fused_attention.pick_route(torch.float32, S, dk, dv) == "wide_f32"
+    q, k, v = _qkv(rng, N, Lq, S, heads * dk, heads * dv)
+    ours = _wide_kernel_emulation(*map(torch.from_numpy, (q, k, v)), heads, "f32")
+    _close(ours, fused_attention.attention_plain(*map(torch.from_numpy, (q, k, v)), heads))
+    _close(ours, _xla_impl(*map(jnp.asarray, (q, k, v)), heads))
+
+
+@pytest.mark.parametrize("dk,dv", [(260, 260), (136, 64), (72, 144)])
+def test_wide_kernel_bf16_matches_jax(rng, dk, dv):
+    """bfloat16 heads past 128 on the wide kernel, d_k != d_v among them.
+    With p split into tf32 hi + lo (``split_p``), its arithmetic on the bf16
+    values stays within 1e-5 of the float32 function of those values (the
+    plain version in float32), so the output's own rounding is the only one
+    left.  With p rounded to bf16 once (``round_p``, the default), against
+    the JAX package's attention in bf16 (XLA, mha_attention): one bf16 ulp of
+    the output plus :func:`_round_p_tolerance`'s flip, plus 2^-8 max|v| for
+    p rounded before it is normalised (both roundings relative, 2^-9 of a
+    term each), the key-block kernels' allowance on the card."""
+    N, Lq, S, heads = 1, 20, 70, 2
+    assert fused_attention.pick_route(torch.bfloat16, S, dk, dv) == "wide_bf16"
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
+               for a in _qkv(rng, N, Lq, S, heads * dk, heads * dv))
+    ref = fused_attention.attention_plain(q, k, v, heads)
+    assert (_wide_kernel_emulation(q, k, v, heads, "split_p") - ref).abs().max().item() <= 1e-5
+    ours = _wide_kernel_emulation(q, k, v, heads, "round_p").to(torch.bfloat16).float().numpy()
+    jq, jk, jv = (jnp.asarray(t.numpy()).astype(jnp.bfloat16) for t in (q, k, v))
+    want = np.asarray(jax_cm.mha_attention(jq, jk, jv, heads).astype(jnp.float32))
+    tol = (_round_p_tolerance(ours, want, q.numpy(), k.numpy(), v.numpy(), heads)
+           + 2.0 ** -8 * v.abs().max().item())
+    assert np.all(np.abs(ours - want) <= tol)
+
+
+def test_wide_kernel_slices_and_smem():
+    """The wide kernel's slices of d_v (ceil(d_v / 128), of even width
+    rounded up to 8) and its shared memory (wide_smem_bytes<T>: the ring of
+    3 stages of a Q and a K chunk, in rows of 40 values, and a V slice, in
+    rows of 132 floats or 136 bf16), its formula and constants read from the
+    source, within one block's limit whatever the sizes."""
+    src = (_build.CSRC / "cross_modal_attn.cu").read_text()
+    consts = {name: int(value) for name, value in re.findall(
+        r"constexpr int (kWideWarps|kWideKeys|kWideChunk|kWideSlice|kWideStages) = (\d+);",
+        src)}
+    assert consts == {"kWideWarps": fused_attention.WIDE_WARPS,
+                      "kWideKeys": fused_attention.WIDE_KEYS,
+                      "kWideChunk": fused_attention.WIDE_CHUNK,
+                      "kWideSlice": fused_attention.WIDE_SLICE,
+                      "kWideStages": fused_attention.WIDE_STAGES}
+    body = re.search(r"size_t wide_smem_bytes\(\) \{(.*?)\n\}", src, re.S)
+    assert " ".join(body.group(1).split()) == (
+        "return sizeof(T) * ((size_t)kWideStages * WidePitch<T>::kStage + "
+        "(size_t)kWideKeys * WidePitch<T>::kV);")
+    assert "static constexpr int kV = kWideSlice + (kF32 ? 4 : 8);" in src
+    assert "static constexpr int kStage = (kWideTile + kWideKeys) * kQK;" in src
+    assert fused_attention.smem_bytes(200, 260, 260) == 4 * (3 * 96 * 40 + 32 * 132) == 62_976
+    assert fused_attention.smem_bytes(1, 1000, 3000, torch.bfloat16) == 2 * (
+        3 * 96 * 40 + 32 * 136) == 31_744
+    for dv, slices, width in ((260, 3, 88), (257, 3, 88), (300, 3, 104), (129, 2, 72),
+                              (256, 2, 128), (136, 2, 72), (1, 1, 8), (1000, 8, 128)):
+        assert (fused_attention.wide_slices(dv), fused_attention.wide_width(dv)) == (slices, width)
+        assert (slices - 1) * width < dv <= slices * width <= slices * fused_attention.WIDE_SLICE
+
+
 def test_tf32_rounding_is_round_half_away():
     """_tf32 keeps 10 mantissa bits, rounds to nearest, ties away from zero."""
     one = 1.0
@@ -487,39 +639,45 @@ def test_tf32_rounding_is_round_half_away():
 
 @pytest.mark.parametrize("S,dk,dv,aligned,route,bf16_route", [
     (16, 64, 64, True, "f32_tensor_core", "bf16"), (64, 64, 64, True, "f32_tensor_core", "bf16"),
-    (1, 8, 16, True, "f32_tensor_core", None), (128, 128, 128, True, "f32_tensor_core", "bf16"),
-    (33, 128, 8, True, "f32_tensor_core", None), (16, 12, 12, True, "f32_tensor_core", None),
-    (200, 64, 64, True, "f32_tensor_core", "bf16"), (16, 64, 136, True, "f32_tensor_core", None),
-    (16, 64, 64, False, "f32_tensor_core", None),
-    (16, 1, 1, True, "f32_tensor_core", None), (64, 61, 61, False, "f32_tensor_core", None),
-    (16, 256, 256, True, "f32_tensor_core", None), (16, 256, 1, False, "f32_tensor_core", None),
-    (16, 260, 260, True, "f32_cuda_core", None),  # above 256: PR 1's kernel
-    (16, 64, 257, True, "f32_cuda_core", None),
+    (1, 8, 16, True, "f32_tensor_core", "bf16"), (128, 128, 128, True, "f32_tensor_core", "bf16"),
+    (33, 128, 8, True, "f32_tensor_core", "bf16"), (16, 12, 12, True, "f32_tensor_core", "bf16"),
+    (200, 64, 64, True, "f32_tensor_core", "bf16"),
+    (16, 64, 136, True, "f32_tensor_core", "wide_bf16"),
+    (16, 64, 64, False, "f32_tensor_core", "bf16"),
+    (16, 1, 1, True, "f32_tensor_core", "bf16"), (64, 61, 61, False, "f32_tensor_core", "bf16"),
+    (16, 256, 256, True, "f32_tensor_core", "wide_bf16"),
+    (16, 256, 1, False, "f32_tensor_core", "wide_bf16"),
+    (16, 260, 260, True, "wide_f32", "wide_bf16"),  # above 256: the wide kernel
+    (16, 64, 257, True, "wide_f32", "wide_bf16"),
+    (0, 64, 64, True, None, None), (16, 0, 64, True, None, None),  # no function
 ])
 def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
     """float32 calls take the tensor-core route wherever it takes the sizes
     (any d_k and d_v from 1 to 256, any S, either alignment: the HCM's
     among them, S = 200 in key blocks, d off a multiple of 8 zero-filled,
-    unaligned pointers by one-float copies) and the CUDA-core kernel only
-    for d_k or d_v above 256, decided before the launch; bfloat16 calls take
-    the bf16 kernel where it takes the sizes (d_k = d_v, a multiple of 16 up
-    to 128, K and V within shared memory, aligned pointers) and raise before
-    any launch elsewhere (``None``)."""
+    unaligned pointers by one-float copies) and the wide kernel for d_k or
+    d_v above 256, decided before the launch; bfloat16 calls take the bf16
+    kernels up to d = 128 (zero-filled past d_k and d_v, one value a copy
+    for unaligned pointers or d off a multiple of 8) and the wide kernel
+    past it.  Only sizes no function takes (S or d below 1) raise, in both
+    dtypes (``None``)."""
+    if route is None:
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="at least 1"):
+                fused_attention.pick_route(dtype, S, dk, dv, aligned)
+        return
     assert fused_attention.pick_route(torch.float32, S, dk, dv, aligned) == route
-    if bf16_route is None:
-        with pytest.raises(ValueError, match="bfloat16 kernel"):
-            fused_attention.pick_route(torch.bfloat16, S, dk, dv, aligned)
-    else:
-        assert fused_attention.pick_route(torch.bfloat16, S, dk, dv, aligned) == bf16_route
+    assert fused_attention.pick_route(torch.bfloat16, S, dk, dv, aligned) == bf16_route
     assert fused_attention.smem_bytes(S, dk, dv, route=route) <= fused_attention.SMEM_LIMIT
+    assert fused_attention.smem_bytes(S, dk, dv, route=bf16_route) <= fused_attention.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("dtype,S,d,route", [
     (torch.bfloat16, 144, 64, "bf16"),  # the depth tokens of a 384 px frame
     (torch.bfloat16, 200, 64, "bf16"), (torch.bfloat16, 384, 128, "bf16"),
-    (torch.bfloat16, 385, 128, "bf16"), (torch.bfloat16, 16, 256, None),
+    (torch.bfloat16, 385, 128, "bf16"), (torch.bfloat16, 16, 256, "wide_bf16"),
     (torch.bfloat16, 512, 128, "bf16"), (torch.bfloat16, 100_000, 128, "bf16"),
-    (torch.bfloat16, 385, (128, 64), None),  # d_k != d_v
+    (torch.bfloat16, 385, (128, 64), "bf16"),  # d_k != d_v, zero-filled
     (torch.float32, 420, 64, "f32_tensor_core"),  # key blocks
     (torch.float32, 500, 64, "f32_tensor_core"),
     (torch.float32, 7200, 64, "f32_tensor_core"), (torch.float32, 7201, 64, "f32_tensor_core"),
@@ -529,17 +687,17 @@ def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
     (torch.float32, 500, 60, "f32_tensor_core"),
     (torch.float32, 7252, 12, "f32_tensor_core"), (torch.float32, 7253, 12, "f32_tensor_core"),
     (torch.float32, 200, 256, "f32_tensor_core"), (torch.float32, 100_000, 200, "f32_tensor_core"),
-    (torch.float32, 200, 260, "f32_cuda_core"),  # K and V read in place
-    (torch.float32, 6964, 300, "f32_cuda_core"), (torch.float32, 6965, 300, None),
+    (torch.float32, 200, 260, "wide_f32"),  # the wide kernel, in key blocks
+    (torch.float32, 6964, 300, "wide_f32"), (torch.float32, 6965, 300, "wide_f32"),
 ])
 def test_attention_route_past_128_keys(dtype, S, d, route):
     """Past S = 128 the bf16 kernel and the float32 tensor-core route stream
     their keys in key blocks, and both take every S; the float32 route takes
-    every d up to 256.  The float32 CUDA-core kernel, for d above 256, reads
-    K and V in place where they do not fit in shared memory and takes every
-    S up to d + S = 7264; past that limit, and for bf16 with d_k != d_v
-    (``d`` a pair), the call raises (``None``) before any launch.  The HCM's
-    shapes take the tensor-core kernels."""
+    every d up to 256, the bf16 kernel every d_k and d_v up to 128 (``d`` a
+    pair: d_k != d_v, zero-filled to the larger).  Past those head sizes the
+    wide kernel takes every S, in key blocks too: d_k + S = 7265, past which
+    the CUDA-core kernel refused, included.  The HCM's shapes take the
+    tensor-core kernels."""
     dk, dv = d if isinstance(d, tuple) else (d, d)
     if route is None:
         with pytest.raises(ValueError, match="cross_modal_attn"):
@@ -549,21 +707,56 @@ def test_attention_route_past_128_keys(dtype, S, d, route):
     assert fused_attention.smem_bytes(S, dk, dv, route=route) <= fused_attention.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("H,n_sm,ok", [
-    (512, 132, True), (32, 132, True), (1024, 132, True),
-    (556, 132, True),  # 4 x 139: 111 blocks of 5 units and one of 1
-    (1028, 132, False), (30, 132, False),
-    (512, 60, False),  # 9 units a block on a card of 60 SMs
+@pytest.mark.parametrize("H,n_sm,wide", [
+    (512, 132, False), (32, 132, False), (1024, 132, False),
+    (556, 132, False),  # 4 x 139: 111 blocks of 5 units and one of 1
+    (1028, 132, True),  # past 1024: the wide variant
+    (30, 132, False),  # padded to 32
+    (512, 60, True),  # 9 units a block on a card of 60 SMs
 ])
-def test_lstm_hidden_sizes(H, n_sm, ok):
-    """The LSTM kernel takes every H a multiple of 4 up to 1024 that needs at
-    most 8 units a block on the card's SMs, and the wrapper raises before
-    any launch for the rest."""
-    if ok:
-        fused_lstm.check_shape(1, H, fused_lstm._units_per_block(H, n_sm))
-    else:
-        with pytest.raises(ValueError, match="lstm_seq"):
-            fused_lstm.check_shape(1, H, fused_lstm._units_per_block(H, n_sm))
+def test_lstm_hidden_sizes(H, n_sm, wide):
+    """The LSTM takes every H >= 1 on the card's SMs: the kernel every H a
+    multiple of 4 up to 1024 that needs at most 8 units a block, H off a
+    multiple of 4 padded to the next one, and the wide variant the rest; the
+    grid of the padded H stays within one block an SM."""
+    units = fused_lstm._units_per_block(H, n_sm)
+    fused_lstm.check_shape(1, H, units)
+    Hp = fused_lstm.padded_hidden(H)
+    assert fused_lstm.wide_kernel(Hp, units) == wide
+    assert Hp % 4 == 0 and Hp - H < 4 and -(-Hp // units) <= n_sm
+
+
+def test_no_call_routes_to_the_cuda_core_kernel():
+    """Every float32 and bfloat16 call with S, d_k and d_v from 1 has a
+    tensor-core route within one block's shared memory, either alignment;
+    the CUDA-core kernel is reached only when pick_route is replaced."""
+    sizes = (1, 7, 16, 60, 128, 129, 255, 256, 257, 300, 1024)
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 16, 129, 7265, 100_000):
+            for dk in sizes:
+                for dv in sizes:
+                    for aligned in (True, False):
+                        route = fused_attention.pick_route(dtype, S, dk, dv, aligned)
+                        assert route != "f32_cuda_core"
+                        assert (fused_attention.smem_bytes(S, dk, dv, dtype, route)
+                                <= fused_attention.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("n_sm", [132, 60])
+def test_every_hidden_size_has_a_grid(n_sm):
+    """Every LSTM hidden size from 1 to 8448 has a forward and a backward
+    grid on the card's SMs, within one block an SM: one launch takes at
+    least one batch row (more rows run as slices), the padded H a multiple
+    of 4, and only the forced dg_exchange backward keeps its range."""
+    for H in range(1, 8449):
+        Hp = fused_lstm.padded_hidden(H)
+        units = fused_lstm._units_per_block(H, n_sm)
+        fused_lstm.check_shape(1, H, units)
+        b_units = fused_lstm.backward_units_per_block(H, n_sm)
+        fused_lstm.check_backward_shape(1, H, b_units)
+        assert -(-Hp // units) <= n_sm and -(-Hp // b_units) <= n_sm
+        assert fused_lstm.max_batch(H, units) >= 1
+        assert fused_lstm.max_backward_batch(H, b_units) >= 1
 
 
 def test_f32_tensor_core_smem_fits():
@@ -644,22 +837,30 @@ def test_bf16_key_block_smem_fits():
 
 
 def test_attention_route_codes_match_the_c_entry():
-    """The wrapper's route codes are the C entry's, F32_KEY_BLOCKS is the
-    code of the float32 key-block kernel, which takes d up to F32_MAX_D
-    against F32_WHOLE_MAX_D for the whole-key kernel, one-float copies are
-    for those two codes only, and the C entry's whole-key float32 instances
-    end at F32_WHOLE_S, past which the wrapper sends the key blocks."""
+    """The wrapper's route codes are the C entry's (the wide kernel's two
+    dtypes 5 and 6), F32_KEY_BLOCKS is the code of the float32 key-block
+    kernel, which takes d up to F32_MAX_D against F32_WHOLE_MAX_D for the
+    whole-key kernel, one-value copies are for the tensor-core codes 2-6
+    only, the wide codes take any d, and the C entry's whole-key float32
+    instances end at F32_WHOLE_S, past which the wrapper sends the key
+    blocks."""
     src = (_build.CSRC / "cross_modal_attn.cu").read_text()
-    entry = src[src.index('extern "C" int cross_modal_attn('):]
-    assert fused_attention.ROUTES == {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2}
+    entry = " ".join(src[src.index('extern "C" int cross_modal_attn('):].split())
+    assert fused_attention.ROUTES == {"f32_cuda_core": 0, "bf16": 1, "f32_tensor_core": 2,
+                                      "wide_f32": 5, "wide_bf16": 6}
     assert "if (route == 0) return launch_f32(" in entry
-    assert f"if ((route == 1 || route == {fused_attention.BF16_KEY_BLOCKS}) && dk == dv" in entry
+    assert (f"(route == {fused_attention.BF16_KEY_BLOCKS} && dk <= {fused_attention.MAX_D} && "
+            f"dv <= {fused_attention.MAX_D} && (narrow ||") in entry
     blocks = fused_attention.F32_KEY_BLOCKS
     assert f"const int d_max = route == {blocks} ? {fused_attention.F32_MAX_D} : " \
            f"{fused_attention.F32_WHOLE_MAX_D};" in entry
-    assert f"if ((route == 2 || route == {blocks}) && dk >= 1 && dv >= 1" in entry
+    assert f"if ((route == 2 || route == {blocks}) && dk <= d_max && dv <= d_max)" in entry
     assert f"dk, dv, route == {blocks}, narrow != 0, s);" in entry
-    assert "if (narrow && route != 2 && route != 3) return (int)cudaErrorInvalidValue;" in entry
+    assert "if (narrow && (route < 2 || route > 6)) return (int)cudaErrorInvalidValue;" in entry
+    assert "if (S < 1 || dk < 1 || dv < 1) return (int)cudaErrorInvalidValue;" in entry
+    assert ("if ((route == 5 || route == 6) && (narrow || (route == 5 ? dk % 4 == 0 && "
+            "dv % 4 == 0 : dk % 8 == 0 && dv % 8 == 0))) return launch_wide(q, k, v, out, N, "
+            "Lq, S, heads, dk, dv, route == 6, narrow != 0, round_p != 0, s);") in entry
     whole = re.findall(r"if \(S <= (\d+)\)\s+return launch_f32tc_tiles<D, (\d+), kNarrow>", src)
     assert [(int(S), int(kc)) for S, kc in whole] == [(16, 2), (32, 4), (64, 8), (128, 16)]
     assert int(whole[-1][0]) == fused_attention.F32_WHOLE_S
@@ -668,20 +869,24 @@ def test_attention_route_codes_match_the_c_entry():
 def test_bf16_route_codes_match_the_c_entry():
     """BF16_KEY_BLOCKS is the C entry's code of the bf16 key-block kernel,
     which the entry hands to launch_bf16_any as key_blocks, with the mode of
-    p (round_p, for the bf16 codes only), and the entry's whole-key bf16
-    instances, in either mode, end at BF16_WHOLE_S, past which the wrapper
-    sends the key blocks."""
+    p (round_p, for the bf16 codes and the wide kernel's bf16 code only) and
+    narrow, its fill instance, for every call but the aligned d_k = d_v, a
+    multiple of 16; the entry's whole-key bf16 instances, in either mode,
+    end at BF16_WHOLE_S, past which the wrapper sends the key blocks."""
     src = (_build.CSRC / "cross_modal_attn.cu").read_text()
-    entry = src[src.index('extern "C" int cross_modal_attn('):]
+    entry = " ".join(src[src.index('extern "C" int cross_modal_attn('):].split())
     code = fused_attention.BF16_KEY_BLOCKS
     assert code not in fused_attention.ROUTES.values()
     assert code != fused_attention.F32_KEY_BLOCKS
-    assert f"if ((route == 1 || route == {code}) && dk == dv && S >= 1)" in entry
-    assert (f"launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, route == {code}, "
-            "round_p != 0, s);") in entry
-    assert f"if (round_p && route != 1 && route != {code}) return (int)cudaErrorInvalidValue;" \
-        in entry
-    assert "if (round_p) return launch_bf16_mode<true>(" in src
+    assert ("if ((route == 1 && !narrow && dk == dv && dk % 16 == 0 && dk <= 128) || "
+            f"(route == {code} && dk <= 128 && dv <= 128 && (narrow || (dk == dv && "
+            "dk % 16 == 0))))") in entry
+    assert (f"launch_bf16_any(q, k, v, out, N, Lq, S, heads, dk, dv, route == {code}, "
+            "narrow != 0, round_p != 0, s);") in entry
+    wide_bf16 = fused_attention.ROUTES["wide_bf16"]
+    assert (f"if (round_p && route != 1 && route != {code} && route != {wide_bf16}) "
+            "return (int)cudaErrorInvalidValue;") in entry
+    assert "if (round_p) return launch_bf16_mode<true>(" in " ".join(src.split())
     whole = re.findall(r"if \(S <= (\d+)\) return launch_bf16_tiles<D, (\d+), kRoundP>", src)
     assert [(int(S), int(kc)) for S, kc in whole] == [(16, 1), (32, 2), (64, 4), (128, 8)]
     assert int(whole[-1][0]) == fused_attention.BF16_WHOLE_S
@@ -762,9 +967,9 @@ def test_wrappers_refuse_non_cuda_tensors(rng):
 
 
 def test_bf16_attention_route(rng):
-    """A bf16 call the kernel would not take (d = 24) still runs the plain
+    """A bf16 call at d = 24 (zero-filled to 32 on the card) runs the plain
     version on CPU tensors; the launch function refuses CPU tensors, and the
-    bf16 route's range check refuses d = 24 before any launch."""
+    bf16 route's check refuses only sizes no function takes."""
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(rng, 2, 8, 6, 48, 48))
     fused_attention.reset_launches()
     out = fused_attention.fused_cross_modal_attention(q, k, v, 2)
@@ -773,25 +978,32 @@ def test_bf16_attention_route(rng):
     torch.testing.assert_close(out, fused_attention.attention_plain(q, k, v, 2), atol=0, rtol=0)
     with pytest.raises(ValueError, match="CUDA"):
         fused_attention.cross_modal_attn_cuda(q, k, v, 2)
-    with pytest.raises(ValueError, match="bfloat16 kernel takes"):
-        fused_attention.check_bf16_route(6, 24, 24)
+    fused_attention.check_bf16_route(6, 24, 24)
+    assert fused_attention.pick_route(torch.bfloat16, 6, 24, 24) == "bf16"
+    with pytest.raises(ValueError, match="at least 1"):
+        fused_attention.check_bf16_route(6, 0, 24)
 
 
-@pytest.mark.parametrize("S,dk,dv,ok", [
-    (16, 64, 64, True), (64, 64, 64, True), (1, 16, 16, True), (128, 128, 128, True),
-    (33, 32, 32, True), (129, 64, 64, True), (16, 64, 32, False), (16, 144, 144, False),
-    (16, 8, 8, False), (384, 128, 128, True), (385, 128, 128, True),
-    (385, 128, 64, False),  # d_k != d_v
-    (1000, 64, 64, True), (200, 128, 128, True), (200, 120, 120, False),
+@pytest.mark.parametrize("S,dk,dv,route", [
+    (16, 64, 64, "bf16"), (64, 64, 64, "bf16"), (1, 16, 16, "bf16"), (128, 128, 128, "bf16"),
+    (33, 32, 32, "bf16"), (129, 64, 64, "bf16"), (16, 64, 32, "bf16"),
+    (16, 144, 144, "wide_bf16"), (16, 8, 8, "bf16"), (384, 128, 128, "bf16"),
+    (385, 128, 128, "bf16"),
+    (385, 128, 64, "bf16"),  # d_k != d_v
+    (1000, 64, 64, "bf16"), (200, 128, 128, "bf16"), (200, 120, 120, "bf16"),
+    (0, 64, 64, None), (16, 64, 0, None),  # no function
 ])
-def test_bf16_route_range(S, dk, dv, ok):
-    if ok:
-        fused_attention.check_bf16_route(S, dk, dv)
-        assert (fused_attention.smem_bytes(S, dk, dv, torch.bfloat16)
-                <= fused_attention.SMEM_LIMIT)
-    else:
+def test_bf16_route_range(S, dk, dv, route):
+    """check_bf16_route refuses only sizes no function takes; every other
+    bfloat16 call has a kernel, within one block's shared memory."""
+    if route is None:
         with pytest.raises(ValueError):
             fused_attention.check_bf16_route(S, dk, dv)
+        return
+    fused_attention.check_bf16_route(S, dk, dv)
+    assert fused_attention.pick_route(torch.bfloat16, S, dk, dv) == route
+    assert (fused_attention.smem_bytes(S, dk, dv, torch.bfloat16)
+            <= fused_attention.SMEM_LIMIT)
 
 
 def test_kernel_library_names_follow_sources():
@@ -919,16 +1131,17 @@ def test_lstm_kernel_summation_order_matches_jax(rng, T, B, H):
 
 @pytest.mark.parametrize("B,H,units,ok", [
     (4, 512, 4, True), (8, 512, 4, True), (20, 512, 4, True), (1, 32, 1, True),
-    (11, 64, 1, True), (56, 512, 4, True), (65, 512, 4, False), (4, 30, 1, False),
-    (4, 66, 1, False), (4, 1024, 8, True), (33, 1024, 8, False), (4, 1028, 8, False),
-    (4, 996, 12, False), (256, 64, 1, True), (257, 64, 1, False), (4, 48, 3, True),
-    (65, 48, 3, False),
+    (11, 64, 1, True), (56, 512, 4, True), (65, 512, 4, False), (4, 30, 1, True),
+    (4, 66, 1, True), (4, 1024, 8, True), (33, 1024, 8, False), (4, 1028, 8, True),
+    (4, 996, 12, True), (256, 64, 1, True), (257, 64, 1, False), (4, 48, 3, True),
+    (65, 48, 3, False), (8, 2048, 16, True), (9, 2048, 16, False),
 ])
 def test_lstm_shape_range(B, H, units, ok):
-    """The wrapper refuses before any launch what one launch of the kernel
-    does not take: H off a multiple of 4 or above 1024, more than 8 units a
-    block, more than 16 batch pairs a warp, or more shared memory than a
-    block has."""
+    """One launch takes any H (off a multiple of 4 padded to the next one;
+    past 1024 or 8 units a block the wide variant), and the wrapper refuses
+    before any launch only more rows than one launch takes: 16 batch pairs a
+    warp or two buffers of h in a block's shared memory for the kernel, 8
+    rows for the wide variant; more rows run as launches over slices."""
     if ok:
         fused_lstm.check_shape(B, H, units)
     else:

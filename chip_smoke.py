@@ -14,9 +14,11 @@ exit code and no result line:
    nvcc per source, all in parallel, into build/kernels/; prints each
    kernel instance's registers and spills, and fails if an instance of
    either float32 tensor-core attention kernel (keys whole, or in key
-   blocks past S = 128), of the bf16 key-block kernel, of the wide-head
-   attention kernel, of the LSTM's wide forward or of its partials
-   backward (the wide variant included) spills.
+   blocks past S = 128), of the bf16 key-block kernel (its fill instances
+   included), of either wide-head attention kernel (the float32 one on
+   wgmma), of the LSTM's wide forward or of its partials backward (the
+   wide variant included) spills, or if ptxas notes that it serialized a
+   kernel's wgmma.
 3. Kernels against their plain versions, float32 with TF32 off (in a scope
    around this phase only), at the shapes of the serving path: the LSTM
    kernel (also at every H range of its template and at batches beyond one
@@ -66,8 +68,12 @@ exit code and no result line:
    and both backward kernels at H=556, a ragged grid; the shapes the
    wide routes opened: the wide kernel in float32 at d=260 and 512, (d_k, d_v) = (260,
    64), S=6965 with d=300 and from pointers one float off, bf16 zero-filled
-   at d=72 and (128, 64), one value a copy at d=60 and from pointers one
-   element off 16 bytes, the wide kernel in bf16 at d=256 and 260; the LSTM
+   at d=72 and (128, 64), the fill instance at d=60, 65, 66 and 68 and from
+   pointers 1, 2 and 4 elements off 16 bytes (16-, 8- and 4-byte copies and
+   shifted loads, each launch's narrowest copy checked), the wide kernel in
+   bf16 at d=256 (S=16 and 64, one head), 260 (8-byte copies), 300 (d_k in
+   chunks) and one element off, and in float32 at (100, 300) three floats
+   off; the LSTM
    and its partials backward at H=30 (padded to 32), 1030 and 2048, the
    wide variants, and 4096 at B=8, whose wide forward reads h from the
    exchange's words) must launch their kernel once
@@ -78,7 +84,8 @@ exit code and no result line:
    float32 S=500, d=60, S=64, d=60 and S=200, d=256, h=2 (with the wide
    kernel forced there too), the wide kernel at d=260 in both dtypes (float32
    beside the CUDA-core kernel forced, which it must beat) and at phase 14's bf16
-   shapes, bf16 at d=72 and from unaligned pointers, and the LSTM's wide
+   shapes, bf16 at d=72 beside the aligned d=80 and from unaligned pointers
+   beside the aligned d=64, and the LSTM's wide
    variants at T=50, B=4, H=2048 against the plain versions and cuDNN; the
    forced-only dg_exchange backward, which keeps its range, must refuse
    H=1028 before any launch.
@@ -878,6 +885,7 @@ def check_attention(gen, device):
         mode."""
         before = dict(fused_attention.route_launches)
         blocks_before = key_block_launches()
+        copies_before = bf16_copy_launches()
         modes_before = dict(fused_attention.bf16_mode_launches)
         got = fused_attention.cross_modal_attn_cuda(q, k, v, h)
         ref = fused_attention.attention_plain(q, k, v, h)
@@ -898,6 +906,10 @@ def check_attention(gen, device):
         if blocks != expected_key_blocks(expected, q, k, v, h):
             fail(f"cross_modal_attn launched {blocks} ({', '.join(KEY_BLOCK_COUNTS)}) kernels at "
                  f"{tag}")
+        copies = [a - b for a, b in zip(bf16_copy_launches(), copies_before)]
+        if copies != expected_bf16_copies(expected, q, k, v, h):
+            fail(f"cross_modal_attn launched {copies} (bf16 copies "
+                 f"{', '.join(fused_attention.BF16_COPIES)}) at {tag}")
         if not err <= tol:
             fail(f"cross_modal_attn ({expected}) disagrees with its plain version at {tag}")
         worst[expected] = max(worst[expected], err)
@@ -1180,9 +1192,11 @@ def check_wider_shapes(gen, device):
     # every S).  The wide kernel in float32 at d = 260 and 512, at (d_k, d_v)
     # = (260, 64), at S = 6965, d = 300 (past the CUDA-core kernel's d_k + S = 7264) and from
     # pointers one float off; bf16 zero-filled at d = 72 (keys whole and in
-    # key blocks) and at (d_k, d_v) = (128, 64), one value a copy at d = 60
-    # and from pointers one element off 16 bytes, and the wide kernel at d =
-    # 256 (one head of d_model 256, as phase 14) and 260 (one value a load)
+    # key blocks) and at (d_k, d_v) = (128, 64), the fill instance at d = 60,
+    # 65, 66 and 68 and from pointers 1, 2 and 4 elements off 16 bytes
+    # (shifted, 4- and 8-byte copies), and the wide kernel at d = 256 (one
+    # head of d_model 256, as phase 14, S = 16 and 64), 260 (8-byte copies),
+    # 300 (d_k in chunks) and one element off, and in float32 three off
     tc, wf, wb = "f32_tensor_core", "wide_f32", "wide_bf16"
     errors, wide_worst = {}, {wf: 0.0, wb: 0.0}
     for n, S, h, dtype, d, offset, tol, route, key in (
@@ -1212,8 +1226,17 @@ def check_wider_shapes(gen, device):
             (8, 64, 4, bf16, (128, 64), 0, ATTN_BF16_TOL, "bf16", "bf16_dk128_dv64"),
             (8, 64, 4, bf16, 60, 0, ATTN_BF16_TOL, "bf16", "bf16_d60"),
             (8, 64, 4, bf16, 64, 1, ATTN_BF16_TOL, "bf16", "bf16_unaligned_d64"),
+            (8, 64, 4, bf16, 64, 2, ATTN_BF16_TOL, "bf16", None),
+            (8, 64, 4, bf16, 64, 4, ATTN_BF16_TOL, "bf16", None),
+            (8, 70, 4, bf16, 68, 0, ATTN_BF16_TOL, "bf16", None),
+            (8, 70, 4, bf16, 66, 0, ATTN_BF16_TOL, "bf16", None),
+            (8, 70, 4, bf16, 65, 0, ATTN_BF16_TOL, "bf16", "bf16_d65"),
             (8, 64, 1, bf16, 256, 0, ATTN_BF16_TOL, wb, "wide_bf16_d256_h1"),
-            (8, 200, 2, bf16, 260, 0, ATTN_BF16_TOL, wb, "wide_bf16_d260")):
+            (8, 16, 1, bf16, 256, 0, ATTN_BF16_TOL, wb, None),
+            (8, 200, 2, bf16, 260, 0, ATTN_BF16_TOL, wb, "wide_bf16_d260"),
+            (8, 70, 2, bf16, 256, 1, ATTN_BF16_TOL, wb, "wide_bf16_unaligned_d256"),
+            (8, 40, 2, bf16, 300, 0, ATTN_BF16_TOL, wb, "wide_bf16_d300"),
+            (8, 40, 2, f32, (100, 300), 3, ATTN_TOL, wf, None)):
         dk, dv = d if isinstance(d, tuple) else (d, d)
         q, k, v = qkv(n, 200, S, h, dk, dv, dtype, offset)
         for float32_p in (False, True) if dtype == bf16 else (None,):
@@ -1221,9 +1244,10 @@ def check_wider_shapes(gen, device):
                 mode = f" {fused_attention.p_mode()}" if dtype == bf16 else ""
                 modes = dict(fused_attention.bf16_mode_launches)
                 blocks = key_block_launches()
+                copies = bf16_copy_launches()
                 tag = (f"cross_modal_attn N={n} Lq=200 S={S} h={h} d_k={dk} d_v={dv} "
                        f"{str(dtype)[6:]}{mode}"
-                       f"{', pointers one element off 16 bytes' if offset else ''}")
+                       f"{f', pointers {offset} elements off 16 bytes' if offset else ''}")
                 err = held(tag, fused_attention,
                            lambda: fused_attention.cross_modal_attn_cuda(q, k, v, h),
                            lambda: fused_attention.attention_plain(q, k, v, h),
@@ -1235,6 +1259,10 @@ def check_wider_shapes(gen, device):
                 blocks = [a - b for a, b in zip(key_block_launches(), blocks)]
                 if blocks != expected_key_blocks(route, q, k, v, h):
                     fail(f"{tag}: {blocks} ({', '.join(KEY_BLOCK_COUNTS)}) launches")
+                copies = [a - b for a, b in zip(bf16_copy_launches(), copies)]
+                if copies != expected_bf16_copies(route, q, k, v, h):
+                    fail(f"{tag}: {copies} (bf16 copies {', '.join(fused_attention.BF16_COPIES)}) "
+                         "launches")
                 took = {m: c - modes[m] for m, c in fused_attention.bf16_mode_launches.items()}
                 want = {m: int(dtype == bf16 and m == fused_attention.p_mode()) for m in took}
                 if took != want:
@@ -1297,7 +1325,8 @@ def check_wider_shapes(gen, device):
     # there too), each against the CUDA-core kernel forced; the wide kernel at d =
     # 260 in both dtypes (against the CUDA-core kernel in float32) and at phase
     # 14's shapes (d = 256, one head, S = 16 and 64), bf16 zero-filled at d
-    # = 72 and one value a copy from pointers one element off
+    # = 72 beside the aligned d = 80 and from pointers one element off beside
+    # the aligned d = 64
     timings = {**errors,
                **time_attention(gen, device, "f32_s144", 200, 200, 144, 4, 64, f32,
                                 "the float32 depth attention of a 384 px frame, key blocks"),
@@ -1318,10 +1347,14 @@ def check_wider_shapes(gen, device):
                                 "self-attention over 200 tokens, d_model 512 over 2 heads, "
                                 "D = 256", force_wide=True),
                **time_attention(gen, device, "bf16_d72", 200, 200, 64, 4, 72, bf16,
-                                "d = 72 zero-filled to 80, keys whole"),
+                                "d = 72 zero-filled to 80, the fill instance, 16-byte copies"),
+               **time_attention(gen, device, "bf16_d80", 200, 200, 64, 4, 80, bf16,
+                                "d = 80, aligned: the instance (f) fills to"),
                **time_attention(gen, device, "bf16_unaligned_d64", 200, 200, 64, 4, 64, bf16,
-                                "the window's depth S, pointers one element off 16 bytes: one "
-                                "value a copy, key blocks", offset=1),
+                                "the window's depth S, pointers one element off 16 bytes: the "
+                                "fill instance, shifted loads", offset=1),
+               **time_attention(gen, device, "bf16_aligned_d64", 200, 200, 64, 4, 64, bf16,
+                                "the window's depth S, aligned, beside (g)"),
                **time_attention(gen, device, "bf16_d256_h2", 200, 200, 200, 2, 256, bf16,
                                 "self-attention over 200 tokens, d_model 512 over 2 heads")}
     wide_f32 = time_attention(gen, device, "wide_f32_d260", 200, 200, 200, 2, 260, f32,
@@ -1335,7 +1368,7 @@ def check_wider_shapes(gen, device):
         wide_bf16.update(time_attention(gen, device, f"s{S}", 200, 200, S, 1, 256, bf16,
                                         "phase 14's window: VisualLingAttn h = 1"))
     wide_bf16_d260 = time_attention(gen, device, "d260", 200, 200, 200, 2, 260, bf16,
-                                    "d = 260 over 2 heads: one value a load")
+                                    "d = 260 over 2 heads: 8-byte copies")
     entries = [{
         "name": "cross_modal_attn_wide_f32", "route": "cuda",
         "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
@@ -1369,7 +1402,7 @@ def check_wider_shapes(gen, device):
         "d260_bound_ms": wide_bf16_d260["d260_bound_ms"],
         "work": "2 calls, N=200 Lq=200 h=1 d=256 at S=16 and S=64 (one window forward of "
                 "phase 14), round_p (split_p_ms with TPU.PALLAS_ATTENTION on); d260_*: one "
-                "call at N=200 Lq=200 S=200 h=2 d=260 (one value a load); launches: phase 14",
+                "call at N=200 Lq=200 S=200 h=2 d=260 (8-byte copies); launches: phase 14",
         "library": "torch.nn.functional.scaled_dot_product_attention on head views",
     }]
     return timings, entries, time_wide_lstm(gen, device, lstm_worst)
@@ -1522,6 +1555,28 @@ def expected_key_block_counts(route, dtype, S, dk, dv, aligned=True):
             int(wide and fused_attention.wide_narrow_copies(dtype, dk, dv, aligned))]
 
 
+def bf16_copy_launches():
+    """Launches of the bf16 fill instance and the bf16 wide kernel so far,
+    by the narrowest copy of q, k and v (fused_attention.BF16_COPIES)."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    return [fused_attention.bf16_copy_launches[w] for w in fused_attention.BF16_COPIES]
+
+
+def expected_bf16_copies(route, q, k, v, heads):
+    """The bf16_copy_launches one call by ``route`` on q, k, v makes: one,
+    by its narrowest copy, for the fill instance and the bf16 wide kernel."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    dk, dv = q.shape[-1] // heads, v.shape[-1] // heads
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    counts = [0] * len(fused_attention.BF16_COPIES)
+    if route == "wide_bf16" or (route == "bf16" and fused_attention.bf16_fill(dk, dv, aligned)):
+        counts[fused_attention.BF16_COPIES.index(
+            fused_attention.bf16_narrowest_copy(q, k, v, dk, dv))] = 1
+    return counts
+
+
 @contextlib.contextmanager
 def f32_key_blocks_everywhere():
     """Send every float32 tensor-core attention call to the key-block kernel,
@@ -1576,7 +1631,7 @@ def p_setting(float32_p):
 def bf16_tolerance(tol, q, k, v, heads):
     """A bf16 call's tolerance against the plain version in the mode set:
     ``tol``, and with p rounded once where a key-block kernel takes the
-    call (the bf16 key blocks, past S = 128 or one value a copy, and the
+    call (the bf16 key blocks, past S = 128 or in the fill instance, and the
     wide kernel), which rounds p before it is normalised (the plain version
     after), 2^-8 max|v| more."""
     from robo_vln_tpu_torch.ops import fused_attention
@@ -5408,6 +5463,11 @@ def main():
                                   "cross_modal_attn_wide", "lstm_seq_backward_partials",
                                   "lstm_seq_wide")) and spill:
                 fail(f"{kernel} spills {spill} bytes")
+        # ptxas's note that it serialized a kernel's wgmma (each waiting for
+        # the one before), which costs the float32 wide kernel most of its speed
+        serialized = [line.strip() for line in log.splitlines() if "serialized" in line]
+        if serialized:
+            fail(f"{name}: wgmma serialized: {serialized[0]}")
 
     profile = "--profile" in sys.argv[1:]
     if "--only" in sys.argv[1:]:  # a partial run, to try phases on their own

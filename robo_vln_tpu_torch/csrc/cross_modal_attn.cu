@@ -41,9 +41,11 @@
 // d_k = d_v a multiple of 16 up to 128 and pointers aligned to 16 bytes.
 // Every other bf16 call up to d = 128 (d_k ≠ d_v, d off a multiple of 16,
 // pointers aligned only to 2 bytes) takes its kFill instance at any S: D
-// is the larger of d_k and d_v rounded up to 16, every value is copied by
-// a plain load, zero past d_k and d_v, and stored one value at a time; the
-// instances the aligned calls take are unchanged by it.
+// is the larger of d_k and d_v rounded up to 16, each of q, k and v is
+// copied by the widest cp.async its pointer and d allow or by shifted
+// 16-byte loads, zero past d_k and d_v, and the output leaves in 16-byte
+// words (the kernel's note); the instances the aligned calls take are
+// unchanged by it.
 // Holding a head's K and V whole made shared memory grow with S (130,560
 // bytes a block at S = 200, d = 128: one block an SM; nothing past S = 384
 // at d = 128).  The bound is bytes (S = 144, d = 64 at N = 200: 70 MB,
@@ -149,8 +151,9 @@
 // the logits once a slice.)
 //
 // Wide heads, float32 with d_k or d_v above 256 and bfloat16 above 128, any
-// S and alignment: cross_modal_attn_wide_kernel (its note below), on the
-// tensor cores, in key blocks and slices of d_v.
+// S and alignment: cross_modal_attn_wide_f32_kernel on warpgroup MMA and
+// cross_modal_attn_wide_bf16_kernel on bf16 mma.sync (their notes below),
+// one pass over d_v up to 272 columns, the Q tile read once.
 //
 // float32 on the CUDA cores: the first float32 kernel, which the wrapper sends no call
 // since the wide kernel took its shapes; reached only when forced (route
@@ -611,17 +614,19 @@ int launch_bf16_tiles(const void* q, const void* k, const void* v, void* out,
 constexpr int kBf16BlockWarps = 4;  // 16 query rows each: 64-row query tiles
 constexpr int kBf16KeyChunks = 2;   // 16-key chunks of one key block: 32 keys
 constexpr int kBf16Stages = 3;      // key blocks in the ring
+constexpr int kBf16FillStages = 4;  // the same, of the fill instance (see the kernel)
 constexpr int kBf16MoreRegs = 48;   // registers a thread beyond the accumulators
-constexpr int kBf16FillRegs = 32;   // the same, more, for kFill's copies
+constexpr int kBf16FillRegs = 40;   // the same, more, for kFill's copies and shifts
 constexpr float kBf16MaxSlack = 8.0f;  // log2 of the largest p before a rescale
 
 // Shared memory of one block of cross_modal_attn_bf16_blocks_kernel<D>: the
-// Q tile (16 rows a warp) and the ring's stages, each the K and V of one
-// key block of 16·kBf16KeyChunks keys, all in rows of D + kPad values,
-// whatever S.
-__host__ __device__ constexpr size_t bf16_blocks_smem_bytes(int D) {
+// Q tile (16 rows a warp) and the ring's stages (kBf16Stages, or with kFill
+// kBf16FillStages), each the K and V of one key block of 16·kBf16KeyChunks
+// keys, all in rows of D + kPad values, whatever S.
+__host__ __device__ constexpr size_t bf16_blocks_smem_bytes(int D, bool kFill = false) {
   return sizeof(__nv_bfloat16) * (D + kPad) *
-         (16 * kBf16BlockWarps + 2 * kBf16Stages * 16 * kBf16KeyChunks);
+         (16 * kBf16BlockWarps +
+          2 * (kFill ? kBf16FillStages : kBf16Stages) * 16 * kBf16KeyChunks);
 }
 
 // Blocks a multiprocessor should hold at once: as many as the registers
@@ -633,7 +638,7 @@ constexpr int bf16_blocks_an_sm(int D, bool kFill = false) {
   const int regs =
       (8 * kBf16KeyChunks + D / 2 + kBf16MoreRegs + (kFill ? kBf16FillRegs : 0) + 7) / 8 * 8;
   const int by_regs = 65536 / (kBf16BlockWarps * 32 * regs);
-  const int by_smem = 233472 / (int)(bf16_blocks_smem_bytes(D) + 1024);
+  const int by_smem = 233472 / (int)(bf16_blocks_smem_bytes(D, kFill) + 1024);
   const int m = by_regs < by_smem ? by_regs : by_smem;
   return m < 1 ? 1 : (m > 8 ? 8 : m);
 }
@@ -656,24 +661,162 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// One bf16 value where no 16-byte copy can start: a plain load (zero where
-// not valid)
-__device__ __forceinline__ __nv_bfloat16 ldg_bf16(const __nv_bfloat16* src, bool ok) {
-  return ok ? __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(src)))
-            : __ushort_as_bfloat16((unsigned short)0);
+// ------------------------- bf16 rows aligned only to their 2-byte element
+//
+// Rows of a head's d values lie heads·d values apart and a head d values on,
+// so every row starts on a multiple of w bytes when the tensor's pointer and
+// the row's 2d bytes are multiples of w.  A row is copied in 16-byte chunks
+// of 8 values into shared memory: by one 16-byte cp.async, two of 8 bytes or
+// four of 4 (the widest w of kWidestCopy, 8 and kNarrowestCopy that the
+// pointer and d allow), each with its source size cut at the row's end so
+// that the rest of the chunk is zero-filled; where no w of 4 or more
+// divides both (odd d, or a pointer off 4 bytes), by a shifted load: the two
+// aligned 16-byte words that cover the chunk, loaded whole (never past the
+// 16-byte word that holds the row's last value) and shifted by the row's
+// offset in its word (which varies from row to row where d is odd), then
+// one 16-byte store.  No copy moves 2 bytes.
+constexpr int kWidestCopy = 16;    // bytes of the widest copy
+constexpr int kNarrowestCopy = 4;  // of the narrowest cp.async; below it, shifted loads
+constexpr int kShiftedLoad = 0;    // the width code of a shifted load
+
+// The copy width of rows of d bf16 values at ptr: 16, 8, 4, or kShiftedLoad
+__host__ __device__ inline int bf16_copy_width(const void* ptr, int d) {
+  const uintptr_t a = (uintptr_t)ptr;
+  for (int w = kWidestCopy; w >= kNarrowestCopy; w /= 2)
+    if (a % w == 0 && (2 * d) % w == 0) return w;
+  return kShiftedLoad;
+}
+
+// One cp.async of kBytes (4, 8 or 16), of which the first src_bytes are
+// read (none where 0) and the rest zero-filled
+template <int kBytes>
+__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem),
+                 "n"(kBytes), "r"(src_bytes));
+}
+
+// Values e..e+7 of the 16 values lo:hi (two 16-byte words), e in 0..7
+__device__ __forceinline__ uint4 shift8(uint4 lo, uint4 hi, int e) {
+  uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int words = e >> 1;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) x[i] = words & 2 ? x[i + 2] : x[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) x[i] = words & 1 ? x[i + 1] : x[i];
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = e & 1 ? __funnelshift_r(x[i], x[i + 1], 16) : x[i];
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// v with its values from `left` on set to zero
+__device__ __forceinline__ uint4 keep_first(uint4 v, int left) {
+  uint32_t x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[i] &= (2 * i < left ? 0xffffu : 0u) | (2 * i + 1 < left ? 0xffff0000u : 0u);
+  return make_uint4(x[0], x[1], x[2], x[3]);
+}
+
+// The 8 values of a row at src on, zero from the row's value `left` on
+// (left >= 1), from the aligned 16-byte words that cover them
+__device__ __forceinline__ uint4 shifted_load8(const __nv_bfloat16* src, int left) {
+  const uintptr_t a = (uintptr_t)src;
+  const uint4* w = reinterpret_cast<const uint4*>(a & ~(uintptr_t)15);
+  const int e = (int)(a & 15) >> 1;  // values of the first word before src
+  const uint4 lo = __ldg(w);
+  const uint4 hi = e > 0 && left > 8 - e ? __ldg(w + 1) : make_uint4(0u, 0u, 0u, 0u);
+  return keep_first(shift8(lo, hi, e), left);
+}
+
+// 8 values of a row into the 16 bytes at dst: those from src on, zero from
+// the row's value `left` on (all zero where left <= 0), by copies of
+// `width` bytes (kAnyWidth false: 16) or a shifted load; `any` is a
+// pointer of the tensor that a copy reading nothing may name
+template <bool kAnyWidth>
+__device__ __forceinline__ void copy8_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int left, int width, const __nv_bfloat16* any) {
+  if (!kAnyWidth || width == 16) {
+    cp_async_zfill<16>(dst, left > 0 ? src : any, left > 0 ? 16 : 0);
+  } else if (width == 8) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = min(8, max(0, 2 * (left - 4 * j)));
+      cp_async_zfill<8>(dst + 4 * j, n ? src + 4 * j : any, n);
+    }
+  } else if (width == 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = min(4, max(0, 2 * (left - 2 * j)));
+      cp_async_zfill<4>(dst + 2 * j, n ? src + 2 * j : any, n);
+    }
+  } else {
+    *reinterpret_cast<uint4*>(dst) =
+        left > 0 ? shifted_load8(src, left) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Row r (of `rows`) of a tile of output rows in shared memory (o_s, rows
+// P values apart, 16-byte aligned) to ob (rows ld values apart), its first
+// `cols` values: the 16-byte words of the destination row that lie wholly
+// in it take one 16-byte store each (of the tile's values shifted by the
+// row's offset in its word), the partial words at its ends one 2-byte store
+// a value.  The threads of `threads` (from `tid`) share the rows' words.
+__device__ __forceinline__ void store_rows_any_bf16(const __nv_bfloat16* o_s, int P,
+                                                    __nv_bfloat16* ob, size_t ld, int rows,
+                                                    int cols, int words, int tid,
+                                                    int threads) {
+  for (int i = tid; i < rows * words; i += threads) {
+    const int r = i / words, m = i - r * words;
+    __nv_bfloat16* row = ob + (size_t)r * ld;
+    const int e = (int)((uintptr_t)row & 15) >> 1;  // the row's offset in its 16-byte word
+    const int c0 = 8 * m - e;                        // the word's first column
+    if (c0 >= cols) continue;
+    const uint4* src = reinterpret_cast<const uint4*>(o_s + r * P);
+    const uint4 hi = src[m];
+    const uint4 val = e ? shift8(m > 0 ? src[m - 1] : make_uint4(0u, 0u, 0u, 0u), hi, 8 - e) : hi;
+    if (c0 >= 0 && c0 + 8 <= cols) {
+      *reinterpret_cast<uint4*>(row + c0) = val;
+    } else {
+      const uint32_t x[4] = {val.x, val.y, val.z, val.w};
+      unsigned short* out = reinterpret_cast<unsigned short*>(row);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (c0 + j >= 0 && c0 + j < cols)
+          out[c0 + j] = (unsigned short)(x[j >> 1] >> (16 * (j & 1)));
+    }
+  }
 }
 
 // S > 128, or (kFill) any other bf16 call up to d = 128: the keys streamed
 // through a ring of kStages key blocks of 16·KC keys (the kBf16 constants
 // above).  D: d_k = d_v, or with kFill max(d_k, d_v) rounded up to 16.
-// kFill takes any d_k and d_v and pointers aligned only to 2 bytes: every
-// value is copied by a plain load, zero past d_k (Q, K) and d_v (V), so the
-// columns past d_k add nothing to q·kᵀ and those past d_v give outputs that
-// are not stored, and the output leaves one value a store (the loads land
-// before the thread's own stores to shared memory, so the ring's commit
-// groups are empty and its barriers do the rest); the instances without it
-// are the aligned d_k = d_v kernel as it was, so the calls that take them
-// (every HCM call) run the same code.  kWarps warps a block,
+// kFill takes any d_k and d_v and pointers aligned only to 2 bytes, zero
+// past d_k (Q, K) and d_v (V), so the columns past d_k add nothing to q·kᵀ
+// and those past d_v give outputs that are not stored.  What bounded it
+// (its first design, one synchronous 2-byte load a value and one store
+// a value: 0.1340 ms at d = 72, S = 64, h = 4, N = 200, 3.1× SDPA's time,
+// against 0.018 ms for its bytes at 3.35 TB/s) was its copies: no copy was
+// in flight while the warps multiplied.  Now each of q, k and v goes into
+// the ring by the widest cp.async its pointer and d allow, 16, 8 or 4
+// bytes, the source size cut at d to zero-fill the rest (bf16_copy_width,
+// copy8_bf16; 16 bytes at d = 72), so the copies overlap the products as
+// in the aligned instances; for a tensor aligned only to 2 bytes (or odd
+// d) the aligned 16-byte words that cover each row are copied by cp.async
+// too, as they lie, into the row of the tile, and shifted into place there
+// a step before the key block's own (the Q tile and key block 0 before the
+// first step), the ring a stage longer so that two key blocks stay in
+// flight; and the output goes
+// through the warp's rows of the Q tile to leave in 16-byte stores
+// wherever whole 16-byte words of a row lie (store_rows_any_bf16).  The
+// products, the online softmax and both modes of p are the aligned
+// instances'; those instances (every HCM call) compile to the same code as
+// before (scripts/attention_ab.py compares their SASS).  kWarps warps a block,
 // 16 query rows each.  One block per (example, head, 16·kWarps-query tile),
 // tile fastest, so the tiles of one head run side by side and find its K
 // and V in L2.  The Q tile and the first kStages - 1 key blocks go out as
@@ -702,13 +845,15 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
                                     const __nv_bfloat16* __restrict__ v,
                                     __nv_bfloat16* __restrict__ out, int Lq, int S,
                                     int heads, int dk, int dv, int tiles, float scale) {
-  constexpr int KC = kBf16KeyChunks, kWarps = kBf16BlockWarps, kStages = kBf16Stages;
+  constexpr int KC = kBf16KeyChunks, kWarps = kBf16BlockWarps;
+  constexpr int kStages = kFill ? kBf16FillStages : kBf16Stages;
   constexpr int P = D + kPad;         // row pitch of the shared tiles, in values
   constexpr int kChunks = D / 8;      // 16-byte chunks in one head's row
   constexpr int kTile = 16 * kWarps;  // query rows of a block
   constexpr int kKeys = 16 * KC;      // keys of a key block
   constexpr int kThreads = kWarps * 32;
   constexpr int kItems = kKeys * kChunks;  // 16-byte copies of K (and of V) a key block
+  constexpr int kRounds = (kItems + kThreads - 1) / kThreads;  // of them a thread
   constexpr int kStageBytes = 2 * kKeys * P * 2;
   static_assert(kTile * kChunks % kThreads == 0, "whole rounds of 16-byte copies");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -724,11 +869,75 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
                             head * (kFill ? dk : D);
   const __nv_bfloat16* kb = k + (size_t)n * S * (kFill ? heads * dk : ld) + head * (kFill ? dk : D);
   const __nv_bfloat16* vb = v + (size_t)n * S * (kFill ? heads * dv : ld) + head * (kFill ? dv : D);
-  if constexpr (kFill) {
-    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      q_s[r * P + c] = ldg_bf16(qb + (size_t)r * heads * dk + c, q0 + r < Lq && c < dk);
+  // kFill: the copy width of each of q, k and v (bf16_copy_width)
+  const int wq = kFill ? bf16_copy_width(q, dk) : 16;
+  const int wk = kFill ? bf16_copy_width(k, dk) : 16;
+  const int wv = kFill ? bf16_copy_width(v, dv) : 16;
+  // kFill, a tensor whose rows no cp.async can take (bf16_copy_width 0):
+  // the aligned 16-byte words that cover each of its rows are copied as
+  // they lie, by cp.async, into the row of its tile (D/8 + 1 words, the
+  // tile's pitch), and once every thread's have landed shift_rows shifts
+  // each row into place there, two threads of a warp a row, each taking
+  // half its words: 4-byte reads at the row's offset and a funnel shift by
+  // its odd value, no select (the first half reads its last word before
+  // the second half overwrites it)
+  auto copy_words = [&](__nv_bfloat16* tile, const __nv_bfloat16* base, size_t ld,
+                        int valid_rows, int rows_n, int d, const __nv_bfloat16* any) {
+    const uintptr_t none = (uintptr_t)any & ~(uintptr_t)15;
+#pragma unroll 1
+    for (int j = 0; j < (kTile * (kChunks + 1) + kThreads - 1) / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x, r = i / (kChunks + 1), m = i % (kChunks + 1);
+      if (r >= rows_n) break;
+      const uintptr_t a = (uintptr_t)(base + (size_t)r * ld);
+      const uintptr_t w = (a & ~(uintptr_t)15) + 16 * m;  // never past the row's last word
+      const bool ok = r < valid_rows && w <= ((a + 2 * (d - 1)) & ~(uintptr_t)15);
+      cp_async16(tile + r * P + 8 * m, (const void*)(ok ? w : none), ok);
     }
+  };
+  auto shift_rows = [&](__nv_bfloat16* tile, const __nv_bfloat16* base, size_t ld, int rows_n,
+                        int d, int first_thread) {
+    constexpr int kHalf = kChunks / 2;  // 16-byte words a thread writes (D/8 is even)
+    const int t = (int)threadIdx.x - first_thread, r = t >> 1, h = t & 1;
+    const bool mine = t >= 0 && r < rows_n;
+    uint32_t* row = reinterpret_cast<uint32_t*>(tile + r * P) + 4 * h * kHalf;
+    int words = 0, bits = 0;  // the row's offset in its 16-byte word: 4-byte words, then odd
+    uint32_t last[5];         // the 4-byte words of this half's last output
+    if (mine) {
+      const int e = (int)((uintptr_t)(base + (size_t)r * ld) & 15) >> 1;
+      words = e >> 1;
+      bits = 16 * (e & 1);
+#pragma unroll
+      for (int j = 0; j < 5; ++j) last[j] = row[4 * (kHalf - 1) + words + j];
+    }
+    __syncwarp();
+    if (mine) {
+      uint32_t x = row[words];
+#pragma unroll 1
+      for (int m = 0; m < kHalf; ++m) {
+        uint32_t y[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t next = m + 1 < kHalf ? row[4 * m + words + j + 1] : last[j + 1];
+          y[j] = __funnelshift_r(m + 1 < kHalf ? x : last[j], next, bits);
+          x = next;
+        }
+        const int left = d - 8 * (h * kHalf + m);
+        uint4 v = make_uint4(y[0], y[1], y[2], y[3]);
+        if (left < 8) v = keep_first(v, left);
+        reinterpret_cast<uint4*>(row)[m] = v;
+      }
+    }
+  };
+  if constexpr (kFill) {
+#pragma unroll
+    for (int j = 0; j < kTile * kChunks / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      if (wq)
+        copy8_bf16<true>(q_s + r * P + c, qb + (size_t)r * heads * dk + c,
+                         q0 + r < Lq ? dk - c : 0, wq, q);
+    }
+    if (!wq) copy_words(q_s, qb, (size_t)heads * dk, Lq - q0, kTile, dk, q);
   } else {
 #pragma unroll
     for (int j = 0; j < kTile * kChunks / kThreads; ++j) {
@@ -739,17 +948,30 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   // key block blk into its stage of the ring, zero past S (kFill: and past
-  // d_k and d_v)
+  // d_k and d_v; a shifted tensor's words as they lie)
   auto copy_block = [&](int blk) {
     __nv_bfloat16* k_s = ring + (blk % kStages) * 2 * kKeys * P;
     __nv_bfloat16* v_s = k_s + kKeys * P;
     const int s0 = blk * kKeys;
     if constexpr (kFill) {
-      for (int i = threadIdx.x; i < kKeys * D; i += kThreads) {
-        const int r = i / D, c = i % D;
-        const bool ok = s0 + r < S;
-        k_s[r * P + c] = ldg_bf16(kb + (size_t)(s0 + r) * heads * dk + c, ok && c < dk);
-        v_s[r * P + c] = ldg_bf16(vb + (size_t)(s0 + r) * heads * dv + c, ok && c < dv);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {  // K, then V
+        const int w = t ? wv : wk, d = t ? dv : dk;
+        __nv_bfloat16* tile = t ? v_s : k_s;
+        const __nv_bfloat16* base = (t ? vb : kb) + (size_t)s0 * heads * d;
+        if (!w) {
+          copy_words(tile, base, (size_t)heads * d, S - s0, kKeys, d, t ? v : k);
+          continue;
+        }
+#pragma unroll
+        for (int j = 0; j < kRounds; ++j) {
+          const int i = j * kThreads + threadIdx.x;
+          if (kItems % kThreads == 0 || i < kItems) {
+            const int r = i / kChunks, c = (i % kChunks) * 8;
+            copy8_bf16<true>(tile + r * P + c, base + (size_t)r * heads * d + c,
+                             s0 + r < S ? d - c : 0, w, t ? v : k);
+          }
+        }
       }
     } else {
 #pragma unroll
@@ -766,10 +988,32 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
   const int n_blocks = (S + kKeys - 1) / kKeys;
+  // kFill with a shifted tensor: key block blk's rows of it shifted into
+  // place (K's by the first 2·kKeys threads, V's by the next), once every
+  // thread's words of it have landed.  Each key block past the first is
+  // shifted at the step before its own, so no step waits on a second
+  // barrier; the fill instance's ring has a stage more than the aligned
+  // instances', so two key blocks' copies are in flight while a shifted
+  // one is multiplied (and three while an aligned one is).
+  const bool shifted = kFill && (!wq || !wk || !wv);
+  auto shift_block = [&](int blk) {
+    __nv_bfloat16* k_s = ring + (blk % kStages) * 2 * kKeys * P;
+    if (!wk)
+      shift_rows(k_s, kb + (size_t)blk * kKeys * heads * dk, (size_t)heads * dk, kKeys, dk, 0);
+    if (!wv)
+      shift_rows(k_s + kKeys * P, vb + (size_t)blk * kKeys * heads * dv, (size_t)heads * dv,
+                 kKeys, dv, 2 * kKeys);
+  };
 #pragma unroll
   for (int blk = 0; blk < kStages - 1; ++blk) {  // the Q tile goes with key block 0
     if (blk < n_blocks) copy_block(blk);
     cp_async_commit();
+  }
+  if (shifted) {  // the Q tile and key block 0 shifted before the first step
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (!wq) shift_rows(q_s, qb, (size_t)heads * dk, kTile, dk, 0);
+    shift_block(0);
   }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -892,8 +1136,13 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   for (int blk = 0; blk < n_blocks; ++blk) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of key block blk have landed
+    // this thread's copies of key block blk (shifted: and blk + 1) have landed
+    if (shifted)
+      cp_async_wait<kStages - 3>();
+    else
+      cp_async_wait<kStages - 2>();
     __syncthreads();  // every thread's have; no warp reads the stage refilled next
+    if (shifted && blk + 1 < n_blocks) shift_block(blk + 1);
     if (blk + kStages - 1 < n_blocks) copy_block(blk + kStages - 1);
     cp_async_commit();  // empty past the last key block, to keep the count
     if (!has_rows) continue;
@@ -915,17 +1164,22 @@ cross_modal_attn_bf16_blocks_kernel(const __nv_bfloat16* __restrict__ q,
       o_acc[t][2 * h + 1] *= inv;
     }
   }
-  if constexpr (kFill) {  // rows g, g + 8 of the warp, columns below d_v, one value a store
-    __nv_bfloat16* ob = out + ((size_t)n * Lq + q0 + row0) * heads * dv + head * dv;
+  if constexpr (kFill) {
+    // the warp's rows through its own rows of the Q tile, then the columns
+    // below d_v in the widest stores the output rows' alignment allows
+    __nv_bfloat16* o_s = q_s + row0 * P;
     const int g = lane >> 2, cq = 2 * (lane & 3);
+    __syncwarp();
 #pragma unroll
-    for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e >> 1), c = 8 * t + cq + (e & 1);
-        if (r < rows - row0 && c < dv)
-          ob[(size_t)r * heads * dv + c] = __float2bfloat16_rn(o_acc[t][e]);
-      }
+    for (int t = 0; t < D / 8; ++t) {
+      *reinterpret_cast<__nv_bfloat162*>(o_s + g * P + 8 * t + cq) =
+          __floats2bfloat162_rn(o_acc[t][0], o_acc[t][1]);
+      *reinterpret_cast<__nv_bfloat162*>(o_s + (g + 8) * P + 8 * t + cq) =
+          __floats2bfloat162_rn(o_acc[t][2], o_acc[t][3]);
+    }
+    __syncwarp();
+    store_rows_any_bf16(o_s, P, out + ((size_t)n * Lq + q0 + row0) * heads * dv + head * dv,
+                        (size_t)heads * dv, min(16, rows - row0), dv, kChunks + 1, lane, 32);
   } else {
     store_rows_bf16<D>(o_acc, q_s + row0 * P,
                        out + ((size_t)n * Lq + q0 + row0) * ld + head * D, ld, rows - row0,
@@ -937,7 +1191,7 @@ template <int D, bool kRoundP, bool kFill>
 int launch_bf16_blocks(const void* q, const void* k, const void* v, void* out, int N,
                        int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
   static SmemOptIn opt_in;
-  constexpr size_t smem = bf16_blocks_smem_bytes(D);
+  constexpr size_t smem = bf16_blocks_smem_bytes(D, kFill);
   static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
   const cudaError_t err = opt_in.ensure(
       (const void*)cross_modal_attn_bf16_blocks_kernel<D, kRoundP, kFill>, smem);
@@ -1716,278 +1970,764 @@ int launch_f32tc_any(const void* q, const void* k, const void* v, void* out,
 
 // ---------------------------------------------- wide heads, either dtype
 
-constexpr int kWideWarps = 4;   // 16 query rows each: 64-row query tiles
-constexpr int kWideTile = 16 * kWideWarps;
-constexpr int kWideThreads = kWideWarps * 32;
-constexpr int kWideKeys = 32;   // keys of a key block: 4 n-tiles of 8
-constexpr int kWideChunk = 32;  // d_k columns of a chunk of q·kᵀ
-constexpr int kWideSlice = 128;  // the most d_v columns of a block (its slice)
-constexpr int kWideStages = 3;  // chunks (of Q and K) in the ring
+constexpr int kWideTile = 64;   // query rows of a float32 block: its consumer warpgroup's
+constexpr int kWideDk = 272;    // the most d_k columns a block holds; past it, chunks of 272
+constexpr int kWideHalf = 136;  // the most d_v columns of a float32 wgmma N tile; two a slice
 
-// Row pitches in elements of T, as the values lie (no split): Q's and K's
-// chunks in rows of kWideChunk + 8 (40 floats ≡ 8 (mod 32) words, so each
-// 64-bit fragment load of 8 rows × 4 column pairs falls in 32 banks a half
-// warp; 40 bf16 are 20 words, and a 32-bit load of a pair of them from 8
-// rows × 4 pairs falls in 32 banks), V's slice in rows of kWideSlice + 4
-// floats (132 ≡ 4 (mod 32): the 32-bit loads of keys 2t and 2t + 1 at
-// column g fall in 32 banks) or + 8 bf16 (68 words: the pairs g, g + 1 share
-// a word); every row starts on a 16-byte boundary.
-template <typename T>
-struct WidePitch {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kQK = kWideChunk + 8;
-  static constexpr int kV = kWideSlice + (kF32 ? 4 : 8);
-  static constexpr int kStage = (kWideTile + kWideKeys) * kQK;  // Q then K, elements
-};
-
-// Shared memory of one block of cross_modal_attn_wide_kernel<T>: the ring
-// of kWideStages stages (a Q chunk and a K chunk each) and one V slice of a
-// key block, in elements of T, whatever the sizes.
-template <typename T>
-__host__ __device__ constexpr size_t wide_smem_bytes() {
-  return sizeof(T) * ((size_t)kWideStages * WidePitch<T>::kStage +
-                      (size_t)kWideKeys * WidePitch<T>::kV);
+// Slices of d_v, one block each: ceil(d_v / 272), each of width a multiple
+// of 8 (one slice, so one pass over d_v, up to d_v = 272)
+__host__ __device__ constexpr int wide_slices(int dv) {
+  return (dv + 2 * kWideHalf - 1) / (2 * kWideHalf);
 }
 
-// Two consecutive values of a row in shared memory as tf32 operand bits:
-// float32 (64-bit load) split into hi and lo (kExact false), or bf16 (32-bit
-// load), whose values are tf32 values already (hi only)
-template <typename T>
-__device__ __forceinline__ void pair_operands(const T* p, uint32_t& h0, uint32_t& h1,
-                                              uint32_t& l0, uint32_t& l1) {
-  if constexpr (std::is_same<T, float>::value) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    split_tf32(x.x, h0, l0);
-    split_tf32(x.y, h1, l1);
-  } else {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-    h0 = w << 16;
-    h1 = w & 0xffff0000u;
-  }
+__host__ __device__ constexpr int wide_width(int dv) {
+  return ((dv + wide_slices(dv) - 1) / wide_slices(dv) + 7) / 8 * 8;
 }
 
-// One value in shared memory as tf32 operand bits (hi, and lo for float32)
-template <typename T>
-__device__ __forceinline__ void one_operand(const T* p, uint32_t& h, uint32_t& l) {
-  if constexpr (std::is_same<T, float>::value) {
-    split_tf32(*p, h, l);
-  } else {
-    h = (uint32_t)*reinterpret_cast<const unsigned short*>(p) << 16;
-  }
+// ------------------------------------------ wide heads, bfloat16
+
+constexpr int kWideBf16Warps = 8;  // 16 query rows each, every column of the slice
+constexpr int kWideBf16Threads = kWideBf16Warps * 32;
+constexpr int kWideBf16Tile = 128;  // query rows of a block
+static_assert(kWideBf16Tile == 16 * kWideBf16Warps, "16 query rows a warp");
+constexpr int kWideBf16Keys = 32;    // keys of a key block: two 16-key chunks
+constexpr int kWideBf16Stages = 4;   // key blocks (K and V) in the ring
+constexpr int kWideBf16Pitch = kWideDk + 8;  // values a row of the Q, K and V tiles
+
+// Shared memory of one block of cross_modal_attn_wide_bf16_kernel: the Q
+// tile and the ring's stages of K and V, in rows of kWideBf16Pitch values,
+// whatever the sizes.
+__host__ __device__ constexpr size_t wide_bf16_smem_bytes() {
+  return sizeof(__nv_bfloat16) * kWideBf16Pitch *
+         (kWideBf16Tile + 2 * kWideBf16Stages * kWideBf16Keys);
 }
 
-// `count` values of a row at src into shared memory at dst, zero past the
-// row's ``left`` values below d or where the row is not valid: 16-byte
-// cp.async copies (4 floats, 8 bf16; the pointers and d allow them unless
-// kNarrow), or one value a copy: a 4-byte cp.async for a float, a plain
-// load and store for a bf16 value (no cp.async moves 2 bytes)
-template <typename T, bool kNarrow>
-__device__ __forceinline__ void copy_values(T* dst, const T* src, const T* any, bool row_ok,
-                                            int left) {
-  constexpr int kVec = 16 / sizeof(T);
-  if constexpr (!kNarrow) {
-    const bool ok = row_ok && left > 0;
-    cp_async16(dst, ok ? src : any, ok);
-  } else if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      const bool ok = row_ok && e < left;
-      cp_async4(dst + e, ok ? src + e : any, ok);
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) dst[e] = ldg_bf16(src + e, row_ok && e < left);
-  }
-}
-
-// Blocks of the wide kernel an SM should hold: 3 (170 registers a thread),
-// but 2 for float32 one value a copy, whose 4-byte copies' addresses
-// spilled at 170
-template <typename T, bool kNarrow>
-constexpr int wide_blocks_an_sm() {
-  return kNarrow && std::is_same<T, float>::value ? 2 : 3;
-}
-
-// Heads past the tensor-core kernels' D: float32 with d_k or d_v above 256
-// and bfloat16 above 128, at any S, d_k, d_v and alignment.  Replaces, for
-// those shapes, the CUDA-core kernel (cross_modal_attn_kernel above), which
-// read K and V from L2 once for every query row (about 33 GB of cache
-// traffic a call at d = 260, h = 2, S = 200, N = 200: 8.1 ms on the H100
-// against SDPA's 0.72).  What bounds the work: three tf32 products at 495
-// TFLOP/s, 0.10 ms at that shape, about as long as its bytes at 3.35 TB/s.
-// The design: one block of 4 warps per (example, head, 64-query tile, d_v
-// slice), slice fastest, then tile, so the blocks of one head run side by
-// side and find its K and V in L2; each warp takes 16 query rows.  The keys
-// stream in key blocks of 32 with an online softmax, as in
-// cross_modal_attn_f32tc_blocks_kernel; each key block's K and V are copied
-// once into shared memory for the whole query tile.  The logits of a key
-// block accumulate over d_k in chunks of 32 columns, the Q and K chunks
-// passing through a ring of kWideStages stages, zero past d_k, so d_k is
-// padded to a multiple of 32 only (260 to 288).  p·v then runs over the
-// block's slice of d_v (at most 128 columns, 64 output accumulators a
-// thread; ceil(d_v / 128) slices of even width, a multiple of 8), and the
-// logits are recomputed once a slice.  The values are copied as they lie,
-// by cp.async, the chunks two stages ahead of the one the warps multiply
-// and the key block's V slice with its first chunk, so the copies overlap
-// the products (one stage ahead, a stage waited on its loads); one barrier
-// a chunk, one before p·v.  float32 (T =
-// float): both products in 3xTF32, as in the tensor-core kernels, each warp
-// splitting the fragments it reads.  bfloat16: a bf16 value has 8
-// significant bits and tf32 11, so it is a tf32 value (its bits shifted up
-// by 16) and one tf32 product of two of them is exact in float32, as the
-// bf16 mma's is.  p (unnormalised, against the running row max) is rounded
-// to bf16 once before p·v (kRoundP) or split into tf32 hi + lo, 21 bits,
-// finer than p_hi + p_lo's 16, two products; the output is divided by the
-// float32 sum at the end.  kNarrow: one value a copy, for pointers or d off
-// the 16-byte copies (float32: d a multiple of 4; bfloat16: of 8).  What
-// holds float32 back: each of the 4 warps splits every K and V value it
-// reads into tf32 hi and lo (scripts/wide_attention_probe.py times it).
-template <typename T, bool kRoundP, bool kNarrow>
-__global__ void __launch_bounds__(kWideThreads, wide_blocks_an_sm<T, kNarrow>())
-cross_modal_attn_wide_kernel(const T* __restrict__ q,  // (N, Lq, h*dk)
-                             const T* __restrict__ k,  // (N, S, h*dk)
-                             const T* __restrict__ v,  // (N, S, h*dv)
-                             T* __restrict__ out,      // (N, Lq, h*dv)
-                             int Lq, int S, int heads, int dk, int dv, int tiles, int slices,
-                             int width, float scale) {
-  using Pitch = WidePitch<T>;
-  constexpr bool kExact = !Pitch::kF32;  // bf16 values: no lo parts
-  constexpr int kVec = 16 / sizeof(T);   // values of a 16-byte copy
-  constexpr int kPQ = Pitch::kQK, kPV = Pitch::kV;
-  constexpr int kQItems = kWideTile * kWideChunk / kVec;  // copies of a Q chunk
-  constexpr int kKItems = kWideKeys * kWideChunk / kVec;  // of a K chunk
-  constexpr int kVItems = kWideKeys * kWideSlice / kVec;  // of a V slice
-  static_assert(kQItems % kWideThreads == 0 && kKItems % kWideThreads == 0 &&
-                    kVItems % kWideThreads == 0,
-                "whole rounds of copies");
+// bfloat16 heads past 128 (d_k or d_v), any S, d_k, d_v and alignment.
+// Replaces the first design of the wide kernel (tf32 mma.sync on bf16
+// bits, one block a d_v slice of up to 128 columns, d_k streamed in chunks
+// of 32 with a barrier each, one value a load where unaligned: 0.4468 ms at
+// d = 256, h = 2, S = 200, N = 200, Lq = 200, 6.2× SDPA's time, and 1.83 ms
+// at d = 260).  What bounds the work: bytes (44 MB a call at that shape,
+// 0.049 ms at 3.35 TB/s, against 0.017 ms for its bf16 products at 989
+// TFLOP/s; at phase 14's window, h = 1 and S = 16 and 64, 0.029 ms for both
+// calls).  What held the first designs back on the card was the rate at
+// which a block's copies arrive: each query tile copies its head's K and V
+// again, from L2 (at 64-row tiles four times at Lq = 200, 270 KB a block),
+// and a block with one key block in flight took about 18 KB/µs an SM
+// whatever its arithmetic (0.2008 and 0.2238 ms at d = 256, h = 2, S =
+// 200 with 64-row tiles, PERF.md).  The design: one block of 8 warps per
+// (example, head, 128-query tile, d_v slice), slice fastest, then tile, so
+// a head's blocks run side by side and find its K and V in L2, and K and V
+// are copied twice a head at Lq = 200; d_v up to 272 is one slice, so one
+// pass, and the Q tile is copied from device memory once a block, d_k
+// whole up to 272.  Each warp takes 16 query rows and every column of the
+// slice (136 accumulators a thread), so no warp computes a logit that
+// another computes too.  Both products are bf16 mma.sync m16n8k16 from
+// ldmatrix (.trans for V) fragments, exact in the float32 accumulator as in
+// the other bf16 kernels.  The keys stream in key blocks of 32 through a
+// ring of kWideBf16Stages stages of K and V (each row whole), one barrier a
+// key block, the next three key blocks' copies in flight while the warps
+// multiply one; shared memory is 215,040 bytes whatever the sizes, one
+// block an SM.  The products run over all 272 columns of the tiles, zero
+// past d_k and the slice, so their loops take no branch (with a runtime
+// bound on them, and an eager max, the call took 0.2103 ms; PERF.md).  The
+// online softmax is the bf16 key-block kernel's (a lazy
+// reference max, base 2, one FMA before ex2.approx); p against the
+// reference goes into p·v rounded to bf16 once (kRoundP) or split into
+// p_hi + p_lo, two bf16 products, 16 bits of p (the first design kept 21 in
+// tf32), as the bf16 key-block kernel; the output is divided by the float32
+// sum at the end, staged through the warp's rows of the Q tile and stored
+// in 16-byte words.  Copies are 16-byte cp.async; with kNarrow (pointers or
+// d off a multiple of 8) each of q, k and v takes the widest cp.async its
+// pointer and d allow (bf16_copy_width: 8 bytes at d = 260), or shifted
+// loads (copy8_bf16).  Past d_k = 272 the block copies d_k in chunks of 272
+// with the key block's K, both waited for before each chunk's product.
+template <bool kRoundP, bool kNarrow>
+__global__ void __launch_bounds__(kWideBf16Threads, 1)
+cross_modal_attn_wide_bf16_kernel(const __nv_bfloat16* __restrict__ q,  // (N, Lq, h*dk)
+                                  const __nv_bfloat16* __restrict__ k,  // (N, S, h*dk)
+                                  const __nv_bfloat16* __restrict__ v,  // (N, S, h*dv)
+                                  __nv_bfloat16* __restrict__ out,      // (N, Lq, h*dv)
+                                  int Lq, int S, int heads, int dk, int dv, int tiles,
+                                  int slices, int width, float scale) {
+  constexpr int P = kWideBf16Pitch, KB = kWideBf16Keys, kThreads = kWideBf16Threads;
+  constexpr int kTile = kWideBf16Tile, kStages = kWideBf16Stages;
+  constexpr int kChunks = kWideDk / 8;       // 16-byte chunks of a row of a tile
+  constexpr int kQItems = kTile * kChunks;
+  constexpr int kKItems = KB * kChunks;
+  constexpr int kNT = 2 * kWideHalf / 8;     // n-tiles of a slice
+  constexpr int kStageBytes = 2 * KB * P * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);     // kWideStages × (Q (64, kPQ), K (32, kPQ))
-  T* v_s = ring + kWideStages * Pitch::kStage;  // (32, kPV)
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (kTile, P)
+  __nv_bfloat16* ring = q_s + kTile * P;  // kStages × (K (KB, P), V (KB, P))
 
   int b = blockIdx.x;
   const int slice = b % slices;
   b /= slices;
   const int tile = b % tiles, nh = b / tiles;  // nh = n * heads + head
   const int n = nh / heads, head = nh - n * heads;
-  const int q0 = tile * kWideTile, c0 = slice * width;  // first query row, first d_v column
-  const int cols = min(width, dv - c0);                  // d_v columns of this slice
+  const int q0 = tile * kTile, c0 = slice * width;  // first query row, first d_v column
+  const int cols = min(width, dv - c0);              // d_v columns of this block
   const int ldk = heads * dk, ldv = heads * dv;
-  const T* qb = q + ((size_t)n * Lq + q0) * ldk + head * dk;
-  const T* kb = k + (size_t)n * S * ldk + head * dk;
-  const T* vb = v + (size_t)n * S * ldv + head * dv + c0;
-  const int n_chunks = (dk + kWideChunk - 1) / kWideChunk;
-  const int n_blocks = (S + kWideKeys - 1) / kWideKeys;
-  const int stages = n_chunks * n_blocks;  // (key block, chunk) in order
+  const __nv_bfloat16* qb = q + ((size_t)n * Lq + q0) * ldk + head * dk;
+  const __nv_bfloat16* kb = k + (size_t)n * S * ldk + head * dk;
+  const __nv_bfloat16* vb = v + (size_t)n * S * ldv + head * dv + c0;
+  const int wq = kNarrow ? bf16_copy_width(q, dk) : 16;
+  const int wk = kNarrow ? bf16_copy_width(k, dk) : 16;
+  const int wv = kNarrow ? bf16_copy_width(v, dv) : 16;
+  const int n_chunks = (dk + kWideDk - 1) / kWideDk;  // of d_k
+  const int n_blocks = (S + KB - 1) / KB;
 
-  // stage i (chunk i % n_chunks of key block i / n_chunks) into its ring slot
-  auto copy_stage = [&](int i) {
-    if (i >= stages) return;
-    const int blk = i / n_chunks, d0 = (i - blk * n_chunks) * kWideChunk;
-    T* q_s = ring + (i % kWideStages) * Pitch::kStage;
-    T* k_s = q_s + kWideTile * kPQ;
-#pragma unroll
-    for (int j = 0; j < kQItems / kWideThreads; ++j) {
-      const int it = j * kWideThreads + threadIdx.x;
-      const int r = it / (kWideChunk / kVec), c = (it % (kWideChunk / kVec)) * kVec;
-      copy_values<T, kNarrow>(q_s + r * kPQ + c, qb + (size_t)r * ldk + d0 + c, q, q0 + r < Lq,
-                              dk - d0 - c);
-    }
-#pragma unroll
-    for (int j = 0; j < kKItems / kWideThreads; ++j) {
-      const int it = j * kWideThreads + threadIdx.x;
-      const int r = it / (kWideChunk / kVec), c = (it % (kWideChunk / kVec)) * kVec;
-      const int key = blk * kWideKeys + r;
-      copy_values<T, kNarrow>(k_s + r * kPQ + c, kb + (size_t)key * ldk + d0 + c, k, key < S,
-                              dk - d0 - c);
+  // Q's columns d0..d0 + 271, zero past d_k and Lq
+  auto copy_q = [&](int d0) {
+#pragma unroll 1
+    for (int j = 0; j < (kQItems + kThreads - 1) / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      if (kQItems % kThreads == 0 || i < kQItems) {
+        const int r = i / kChunks, c = (i % kChunks) * 8;
+        copy8_bf16<kNarrow>(q_s + r * P + c, qb + (size_t)r * ldk + d0 + c,
+                            q0 + r < Lq ? dk - d0 - c : 0, wq, q);
+      }
     }
   };
-  // key block blk's slice of V, zero past S and past the slice's columns
-  auto copy_v = [&](int blk) {
-#pragma unroll
-    for (int j = 0; j < kVItems / kWideThreads; ++j) {
-      const int it = j * kWideThreads + threadIdx.x;
-      const int r = it / (kWideSlice / kVec), c = (it % (kWideSlice / kVec)) * kVec;
-      const int key = blk * kWideKeys + r;
-      copy_values<T, kNarrow>(v_s + r * kPV + c, vb + (size_t)key * ldv + c, v, key < S,
-                              cols - c);
+  // key block blk's K (columns d0..d0 + 271) and, with_v, its V (the
+  // slice's columns) into ring stage `stage`, zero past S, d_k and the slice
+  auto copy_kv = [&](int blk, int d0, bool with_v, int stage) {
+    __nv_bfloat16* k_s = ring + stage * 2 * KB * P;
+    __nv_bfloat16* v_s = k_s + KB * P;
+#pragma unroll 1
+    for (int j = 0; j < (kKItems + kThreads - 1) / kThreads; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      if (kKItems % kThreads == 0 || i < kKItems) {
+        const int r = i / kChunks, c = (i % kChunks) * 8;
+        const int key = blk * KB + r;
+        const bool ok = key < S;
+        copy8_bf16<kNarrow>(k_s + r * P + c, kb + (size_t)key * ldk + d0 + c,
+                            ok ? dk - d0 - c : 0, wk, k);
+        if (with_v)
+          copy8_bf16<kNarrow>(v_s + r * P + c, vb + (size_t)key * ldv + c, ok ? cols - c : 0,
+                              wv, v);
+      }
     }
   };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = warp * 16;
-  const int rows = min(kWideTile, Lq - q0);
-  const bool has_rows = row0 < rows;
-  const int g = lane >> 2, t = lane & 3;
+  const int rows = min(kTile, Lq - q0);
+  const bool busy = row0 < rows;
   const float scale2 = scale * 1.4426950408889634f;
-  float o_acc[kWideSlice / 8][4];  // o_acc[dt]: columns 8dt..8dt+7 of the slice
+  // shared-memory addresses of the lane's ldmatrix rows (as in the bf16
+  // key-block kernel): its A rows of the Q tile, its B rows of K, its B
+  // rows of V (transposed); every other offset is a constant
+  const uint32_t q_lane = (uint32_t)__cvta_generic_to_shared(q_s) +
+                          2 * ((row0 + (lane & 15)) * P + (lane >> 4) * 8);
+  const uint32_t k_lane = (uint32_t)__cvta_generic_to_shared(ring) +
+                          2 * (((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8);
+  const uint32_t v_lane = (uint32_t)__cvta_generic_to_shared(ring) + 2 * KB * P +
+                          2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8);
+  float o_acc[kNT][4];  // o_acc[t]: columns 8t..8t+7 of the slice
 #pragma unroll
-  for (int dt = 0; dt < kWideSlice / 8; ++dt)
+  for (int t = 0; t < kNT; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o_acc[dt][e] = 0.0f;
-  float mx[2] = {-INFINITY, -INFINITY};  // running row max (base 2)
+    for (int e = 0; e < 4; ++e) o_acc[t][e] = 0.0f;
+  float mx[2] = {-INFINITY, -INFINITY};  // the rows' reference max (scaled, base 2)
   float sum[2] = {0.0f, 0.0f};           // the lane's share of the row sum
 
-  copy_v(0);
-  copy_stage(0);
-  cp_async_commit();
-  copy_stage(1);
-  cp_async_commit();
-  for (int blk = 0; blk < n_blocks; ++blk) {
-    // logits of the key block: s_acc[c] holds keys 8c..8c+7 (rows g, g + 8),
-    // q·kᵀ in the contraction order of cross_modal_attn_f32tc_kernel
-    float s_acc[kWideKeys / 8][4];
+  // the key block's logits over all 272 columns of the Q and K tiles (zero
+  // past d_k, so the products take no branch): s[t] holds keys 8t..8t+7,
+  // rows lane/4 and lane/4 + 8
+  auto logits = [&](float (&s)[KB / 8][4], uint32_t k_at) {
 #pragma unroll
-    for (int c = 0; c < kWideKeys / 8; ++c)
+    for (int ks = 0; ks < kWideDk / 16; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_lane + 32 * ks);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[c][e] = 0.0f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int i = blk * n_chunks + ch;
-      cp_async_wait<kWideStages - 2>();  // this thread's copies of stage i have landed
-      __syncthreads();  // every thread's have; no warp reads the slot refilled next, or V
-      if (ch == 0 && blk > 0) copy_v(blk);  // p·v of the key block before is done
-      copy_stage(i + kWideStages - 1);
-      cp_async_commit();  // empty past the last stage, to keep the count
-      if (!has_rows) continue;
-      const T* q_s = ring + (i % kWideStages) * Pitch::kStage;
-      const T* qa = q_s + (row0 + g) * kPQ + 2 * t;
-      const T* kr = q_s + kWideTile * kPQ + g * kPQ + 2 * t;
+      for (int c = 0; c < KB / 16; ++c) {
+        uint32_t bk[4];  // b0, b1 of keys 16c..+7, then of the next 8
+        ldmatrix_x4(bk, k_at + 2 * 16 * c * P + 32 * ks);
+        mma_bf16(s[2 * c], a, bk[0], bk[1]);
+        mma_bf16(s[2 * c + 1], a, bk[2], bk[3]);
+      }
+    }
+  };
+  // the online softmax of one key block, then p·v over all 272 columns of
+  // the V tile (zero past the slice's); only the last key block (last:
+  // std::true_type) has keys past S, from `valid` on.  The softmax is the
+  // bf16 key-block kernel's: a row's reference max moves only when the key
+  // block's max passes it by more than kBf16MaxSlack, so the output and the
+  // sum are rescaled only then, and p = 2^(logit·scale - max) is one FMA
+  // before ex2.approx.
+  auto attend = [&](auto last, float (&s)[KB / 8][4], uint32_t v_at, int valid) {
+    constexpr bool kLast = decltype(last)::value;
+    if constexpr (kLast) {
 #pragma unroll
-      for (int kt = 0; kt < kWideChunk / 8; ++kt) {
-        uint32_t a_hi[4], a_lo[4];
-        pair_operands(qa + 8 * kt, a_hi[0], a_hi[2], a_lo[0], a_lo[2]);
-        pair_operands(qa + 8 * kPQ + 8 * kt, a_hi[1], a_hi[3], a_lo[1], a_lo[3]);
+      for (int t = 0; t < KB / 8; ++t)
 #pragma unroll
-        for (int c = 0; c < kWideKeys / 8; ++c) {
-          uint32_t b_hi[2], b_lo[2];
-          pair_operands(kr + 8 * c * kPQ + 8 * kt, b_hi[0], b_hi[1], b_lo[0], b_lo[1]);
-          if constexpr (kExact)
-            mma_tf32(s_acc[c], a_hi, b_hi[0], b_hi[1]);
-          else
-            mma_3xtf32(s_acc[c], a_hi, a_lo, b_hi, b_lo);
+        for (int e = 0; e < 4; ++e)
+          if (8 * t + 2 * (lane & 3) + (e & 1) >= valid) s[t][e] = -INFINITY;
+    }
+    float bm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < KB / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bm[e >> 1] = fmaxf(bm[e >> 1], s[t][e]);
+    const bool raise = bm[0] * scale2 > mx[0] + kBf16MaxSlack ||
+                       bm[1] * scale2 > mx[1] + kBf16MaxSlack;
+    if (__any_sync(0xffffffffu, raise)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 1));
+        bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 2));
+        bm[h] *= scale2;  // finite: every key block holds a key below S
+        const float m = bm[h] > mx[h] + kBf16MaxSlack ? bm[h] : mx[h];
+        const float alpha = ex2(mx[h] - m);  // 0 at the first key block, 1 for a row that stays
+        sum[h] *= alpha;
+#pragma unroll
+        for (int t = 0; t < kNT; ++t) {
+          o_acc[t][2 * h] *= alpha;
+          o_acc[t][2 * h + 1] *= alpha;
+        }
+        mx[h] = m;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < KB / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[t][e] = ex2(fmaf(s[t][e], scale2, -mx[e >> 1]));
+        sum[e >> 1] += s[t][e];
+      }
+#pragma unroll
+    for (int c = 0; c < KB / 16; ++c) {
+      if (!kLast || 16 * c < valid) {  // a chunk wholly past S adds nothing
+        uint32_t hi[4], lo[4];  // the A fragment of keys 16c..+15: n-tiles 2c, 2c + 1
+        p_pack<kRoundP>(s[2 * c][0], s[2 * c][1], hi[0], lo[0]);
+        p_pack<kRoundP>(s[2 * c][2], s[2 * c][3], hi[1], lo[1]);
+        p_pack<kRoundP>(s[2 * c + 1][0], s[2 * c + 1][1], hi[2], lo[2]);
+        p_pack<kRoundP>(s[2 * c + 1][2], s[2 * c + 1][3], hi[3], lo[3]);
+#pragma unroll
+        for (int j = 0; j < kNT / 2; ++j) {
+          uint32_t bv[4];  // b0, b1 of columns 16j..+7, then of 16j+8..+15
+          ldmatrix_x4_trans(bv, v_at + 2 * (16 * c * P + 16 * j));
+          p_times_v<kRoundP>(o_acc[2 * j], hi, lo, bv[0], bv[1]);
+          p_times_v<kRoundP>(o_acc[2 * j + 1], hi, lo, bv[2], bv[3]);
         }
       }
     }
-    // V of this key block has landed: its group is older than the newest
-    // one unless the key block has one chunk
-    if (n_chunks == 1)
-      cp_async_wait<0>();
+  };
+  // key block blk's softmax and p·v, the last one's keys past S masked
+  auto attend_block = [&](float (&s)[KB / 8][4], uint32_t v_at, int blk) {
+    if (blk + 1 < n_blocks)
+      attend(std::false_type{}, s, v_at, KB);
     else
-      cp_async_wait<1>();
-    __syncthreads();
-    if (!has_rows) continue;
+      attend(std::true_type{}, s, v_at, S - blk * KB);
+  };
+
+  if (n_chunks == 1) {
+    // d_k whole: the Q tile once, the key blocks through the ring, the
+    // first kStages - 1 with it, one commit group each
+    copy_q(0);
+#pragma unroll
+    for (int blk = 0; blk < kStages - 1; ++blk) {
+      if (blk < n_blocks) copy_kv(blk, 0, true, blk);
+      cp_async_commit();
+    }
+    for (int blk = 0; blk < n_blocks; ++blk) {
+      cp_async_wait<kStages - 2>();  // this thread's copies of key block blk have landed
+      __syncthreads();  // every thread's have; no warp reads the stage refilled next
+      if (blk + kStages - 1 < n_blocks)
+        copy_kv(blk + kStages - 1, 0, true, (blk + kStages - 1) % kStages);
+      cp_async_commit();  // empty past the last key block, to keep the count
+      if (!busy) continue;
+      const int stage = blk % kStages;
+      float s[KB / 8][4] = {};
+      logits(s, k_lane + stage * kStageBytes);
+      attend_block(s, v_lane + stage * kStageBytes, blk);
+    }
+  } else {
+    // d_k past 272: each key block's chunks of Q and K copied in turn into
+    // the first stage and waited for
+    for (int blk = 0; blk < n_blocks; ++blk) {
+      float s[KB / 8][4] = {};
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        __syncthreads();  // no warp still reads the chunk before (or the V before)
+        copy_q(ch * kWideDk);
+        copy_kv(blk, ch * kWideDk, ch == 0, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (busy) logits(s, k_lane);
+      }
+      if (busy) attend_block(s, v_lane, blk);
+    }
+  }
+
+  // the warp's rows through its own rows of the Q tile (no other warp reads
+  // them), then out in 16-byte words
+  if (!busy) return;
+  const int g = lane >> 2, cq = 2 * (lane & 3);
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    const float inv = 1.0f / sum[h];
+    __nv_bfloat16* o_s = q_s + (row0 + g + 8 * h) * P + cq;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+      if (8 * t < cols)
+        *reinterpret_cast<__nv_bfloat162*>(o_s + 8 * t) =
+            __floats2bfloat162_rn(o_acc[t][2 * h] * inv, o_acc[t][2 * h + 1] * inv);
+  }
+  __syncwarp();
+  store_rows_any_bf16(q_s + row0 * P, P,
+                      out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv + c0, ldv,
+                      min(16, rows - row0), cols, kChunks + 1, lane, 32);
+}
+
+template <bool kRoundP, bool kNarrow>
+int launch_wide_bf16_as(const void* q, const void* k, const void* v, void* out, int N, int Lq,
+                        int S, int heads, int dk, int dv, cudaStream_t stream) {
+  static SmemOptIn opt_in;
+  constexpr size_t smem = wide_bf16_smem_bytes();
+  static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
+  const cudaError_t err =
+      opt_in.ensure((const void*)cross_modal_attn_wide_bf16_kernel<kRoundP, kNarrow>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (Lq + kWideBf16Tile - 1) / kWideBf16Tile, slices = wide_slices(dv);
+  const long long blocks = (long long)N * heads * tiles * slices;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cross_modal_attn_wide_bf16_kernel<kRoundP, kNarrow>
+      <<<(unsigned)blocks, kWideBf16Threads, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Lq, S, heads,
+          dk, dv, tiles, slices, wide_width(dv), 1.0f / sqrtf((float)dk));
+  return (int)cudaGetLastError();
+}
+
+// d += a·b on a 64 × 16 × 8 tile: wgmma, tf32 A and B from shared memory
+// (descriptors), float32 accumulators d[4i + e] at row 16·warp + lane/4 +
+// 8(e / 2), column 8i + 2(lane % 4) + e % 2 of the warpgroup's 64 rows
+__device__ __forceinline__ void wgmma_n16_ss(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += a·b on a 64 × 136 × 8 tile: wgmma, tf32 A from registers (a0 row
+// lane/4, column lane % 4 of the warp's 16 rows; a1 8 rows on; a2, a3 4
+// columns on), B from shared memory, accumulators as wgmma_n16_ss's
+__device__ __forceinline__ void wgmma_n136_rs(float (&d)[68], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %73, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, "
+      "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67"
+      "}, {%68, %69, %70, %71}, %72, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+      "+f"(d[67])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------------ wide heads, float32 on wgmma
+
+constexpr int kWgKeys = 16;  // keys of a key block
+constexpr int kWgThreads = 256;  // a consumer warpgroup (64 query rows) and a producer warpgroup
+constexpr int kWgVRows = 2 * kWideHalf;  // rows of Vᵀ: the slice's d_v in two N tiles of 136
+
+// Shared memory of one block of cross_modal_attn_wide_f32_kernel: Q's hi
+// and lo parts (64 rows of kWideDk), K's (kWgKeys rows of kWideDk) and
+// Vᵀ's (kWgVRows rows of kWgKeys), in floats, and six mbarriers, whatever
+// the sizes.
+__host__ __device__ constexpr size_t wide_f32_smem_bytes() {
+  return sizeof(float) * (2 * (size_t)kWideTile * kWideDk + 2 * (size_t)kWgKeys * kWideDk +
+                          2 * (size_t)kWgVRows * kWgKeys) +
+         6 * sizeof(uint64_t);
+}
+
+// The float at row r, column c of a K-major tile of kw columns as wgmma
+// reads it without swizzle: core matrices of 8 rows × 4 floats (128
+// contiguous bytes, rows 16 bytes apart), those along K 128 bytes apart,
+// the next 8 rows 32·kw bytes on
+__device__ __forceinline__ int core_index(int r, int c, int kw) {
+  return (r >> 3) * 8 * kw + (c >> 2) * 32 + (r & 7) * 4 + (c & 3);
+}
+
+// A wgmma operand descriptor of such a tile at shared-memory byte address
+// `addr`: leading (K) offset 128 bytes, stride (8 rows) offset `sbo`, no
+// swizzle
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers that a wgmma wrote, fenced so that no read of them moves above
+// the wait
+template <int kN>
+__device__ __forceinline__ void fence_registers(float (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared.b64 state, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.  The loop
+// is inside the asm (its labels local to the braces), so the compiler sees
+// no branch on a thread's own value around a warpgroup's wgmma, which it
+// would otherwise serialize.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The producer's writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 4 floats of a row into the 16 bytes at dst, zero from the row's value
+// `left` on: one 16-byte cp.async, or (kNarrow) four of 4 bytes
+template <bool kNarrow>
+__device__ __forceinline__ void copy4_f32(float* dst, const float* src, int left,
+                                          const float* any) {
+  if constexpr (!kNarrow) {
+    cp_async16(dst, left > 0 ? src : any, left > 0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < left ? src + e : any, e < left);
+  }
+}
+
+// 4 floats of a row at src, zero from the row's value `left` on: one
+// 16-byte load, or (kNarrow) four of 4 bytes
+template <bool kNarrow>
+__device__ __forceinline__ float4 load4_f32(const float* src, int left) {
+  if constexpr (!kNarrow) {
+    return left > 0 ? __ldg(reinterpret_cast<const float4*>(src)) : make_float4(0, 0, 0, 0);
+  } else {
+    return make_float4(left > 0 ? __ldg(src) : 0.0f, left > 1 ? __ldg(src + 1) : 0.0f,
+                       left > 2 ? __ldg(src + 2) : 0.0f, left > 3 ? __ldg(src + 3) : 0.0f);
+  }
+}
+
+// x split into tf32 hi and lo, stored as 16 bytes each at hi and lo
+__device__ __forceinline__ void split4_store(float4 x, float* hi, float* lo) {
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// The 16 bytes at raw split in place into tf32 lo, their hi parts to hi
+__device__ __forceinline__ void split4_in_place(float* raw, float* hi) {
+  const float4 x = *reinterpret_cast<const float4*>(raw);
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(raw) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// float32 heads past 256 (d_k or d_v), any S, d_k, d_v and alignment.
+// Replaces the first design of the wide kernel in float32 (3xTF32 on
+// mma.sync, each of 4 warps splitting every K and V value it read, one
+// block a d_v slice of up to 128 columns, so the logits three times at d_v
+// = 260: 1.6497 ms at d = 260, h = 2, S = 200, N = 200, Lq = 200, 2.3×
+// SDPA's time).  What bounds it: operations, three tf32 products (0.10 ms
+// at 495 TFLOP/s; its bytes take about as long at 3.35 TB/s), and
+// mma.sync, measured at about 81 TFLOP/s on the H100, does not reach that
+// rate; warpgroup MMA (wgmma) does.  The design: one block per (example,
+// head, 64-query tile, d_v slice of up to 272), slice fastest, then tile,
+// of two warpgroups.  The consumer warpgroup owns the 64 query rows: q·kᵀ
+// as wgmma m64n16k8 with A (Q) and B (K) from shared memory, 3xTF32 per
+// k-step (q_lo·k_hi, q_hi·k_lo, then q_hi·k_hi, the other tf32 kernels'
+// order), over 16-key blocks; the online softmax of the float32 key
+// blocks in its accumulators; p·v as wgmma m64n136k8 with p's hi and lo
+// parts as A from registers (the logits' accumulator layout is p's A layout
+// once the keys of each 8 are taken in the order 0, 2, 4, 6, 1, 3, 5, 7,
+// which Vᵀ is written in) and Vᵀ from shared memory, two N tiles of 136
+// for the slice's d_v in one pass (136 accumulators a thread).  wgmma reads
+// tf32 operands K-major from shared memory and cannot split them as it
+// reads, so the producer warpgroup stages every tile split: Q once a block
+// (hi and lo, 139,264 bytes at 64 × 272, copied by cp.async and split in
+// place), each key block's K (hi and lo) and V transposed (Vᵀ hi and lo),
+// so each value is split once for the warpgroup's 64 rows.  One K and one
+// Vᵀ stage fit beside Q (208,944 bytes, one block an SM), so the two
+// alternate: the producer fills K while the consumer multiplies p·v, and
+// Vᵀ while it multiplies q·kᵀ, each stage handed over by a full and an
+// empty mbarrier; the next K and V are loaded into the producer's
+// registers (16-byte loads, or 4 with kNarrow) as soon as the stage before
+// is stored, so their loads are in flight while the consumer multiplies
+// and only the split and the stores wait for the stage (copying K by
+// cp.async only once its stage was free, the call took 1.2149 ms, with
+// its wgmma serialized; PERF.md).  With one consumer warpgroup, every warp can hold 255
+// registers, so no setmaxnreg is needed.  Past d_k = 272 the producer
+// stages Q in chunks of 272 beside K's, for every key block, through a Q
+// barrier pair.
+template <bool kNarrow>
+__global__ void __launch_bounds__(kWgThreads, 1)
+cross_modal_attn_wide_f32_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
+                                 const float* __restrict__ k,  // (N, S, h*dk)
+                                 const float* __restrict__ v,  // (N, S, h*dv)
+                                 float* __restrict__ out,      // (N, Lq, h*dv)
+                                 int Lq, int S, int heads, int dk, int dv, int tiles,
+                                 int slices, int width, float scale) {
+  constexpr int KB = kWgKeys, kQRow = kWideDk / 4;  // 16-byte items of a Q or K row
+  constexpr int kQItems = kWideTile * kQRow, kKItems = KB * kQRow;
+  constexpr int kVItems = 4 * (kWgVRows / 4);  // (8-key group, parity, 4 columns)
+  constexpr uint32_t kSboQK = 32 * kWideDk, kSboV = 32 * KB;  // bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_hi = reinterpret_cast<float*>(smem_raw);   // (64, kWideDk), core order
+  float* q_lo = q_hi + kWideTile * kWideDk;
+  float* k_hi = q_lo + kWideTile * kWideDk;           // (KB, kWideDk), core order
+  float* k_lo = k_hi + KB * kWideDk;
+  float* vt_hi = k_lo + KB * kWideDk;                 // (kWgVRows, KB), core order
+  float* vt_lo = vt_hi + kWgVRows * KB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vt_lo + kWgVRows * KB);
+  uint64_t *q_full = bars, *q_empty = bars + 1, *k_full = bars + 2, *k_empty = bars + 3;
+  uint64_t *v_full = bars + 4, *v_empty = bars + 5;
+
+  int b = blockIdx.x;
+  const int slice = b % slices;
+  b /= slices;
+  const int tile = b % tiles, nh = b / tiles;  // nh = n * heads + head
+  const int n = nh / heads, head = nh - n * heads;
+  const int q0 = tile * kWideTile, c0 = slice * width;
+  const int cols = min(width, dv - c0);  // d_v columns of this block
+  const int rows = min(kWideTile, Lq - q0);
+  const int ldk = heads * dk, ldv = heads * dv;
+  const int n_chunks = (dk + kWideDk - 1) / kWideDk;  // of d_k; 1: Q staged once
+  const int n_blocks = (S + KB - 1) / KB;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 6; ++i) mbar_init(bars + i, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, as the compiler can tell is the same for every thread of
+  // a warp (so that it does not serialize the consumer's wgmma)
+  if (__shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0) == 1) {
+    // ------------------------------------------------------------ producer
+    const int t = threadIdx.x - 128;
+    const float* qb = q + ((size_t)n * Lq + q0) * ldk + head * dk;
+    const float* kb = k + (size_t)n * S * ldk + head * dk;
+    const float* vb = v + (size_t)n * S * ldv + head * dv + c0;
+    // item i of a tile of kWideDk columns: row 8(i / (8·kQRow)) + i % 8,
+    // 4 columns at 4((i / 8) % kQRow), so 8 neighbouring threads write one
+    // core matrix's 128 contiguous bytes
+    auto item_row = [](int i) { return (i / (8 * kQRow)) * 8 + (i & 7); };
+    auto item_col = [](int i) { return 4 * ((i >> 3) % kQRow); };
+    auto stage_q = [&](int d0) {
+#pragma unroll 1
+      for (int j = 0; j < kQItems / 128; ++j) {
+        const int i = j * 128 + t, r = item_row(i), c = item_col(i);
+        copy4_f32<kNarrow>(q_lo + core_index(r, c, kWideDk), qb + (size_t)r * ldk + d0 + c,
+                           r < rows ? dk - d0 - c : 0, q);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+#pragma unroll 1
+      for (int j = 0; j < kQItems / 128; ++j) {
+        const int i = j * 128 + t, at = core_index(item_row(i), item_col(i), kWideDk);
+        split4_in_place(q_lo + at, q_hi + at);
+      }
+    };
+    // K item i (9 rounds of 128): as a Q item, of the key block's 16 rows;
+    // V item i (3 rounds): keys 8g + p, + 2, + 4, + 6 (g = i % 2, p = (i /
+    // 2) % 2) at the slice's columns 4(i / 4)..+3.  Both are loaded into
+    // registers a stage ahead, so their loads are in flight while the
+    // consumer multiplies, and split and stored once the stage is free.
+    constexpr int kKRounds = (kKItems + 127) / 128, kVRounds = (kVItems + 127) / 128;
+    float4 k_next[kKRounds], v_next[kVRounds][4];
+    auto load_k = [&](int blk, int d0) {
+#pragma unroll
+      for (int j = 0; j < kKRounds; ++j) {
+        const int i = j * 128 + t, r = item_row(i), c = item_col(i), key = blk * KB + r;
+        k_next[j] = load4_f32<kNarrow>(kb + (size_t)key * ldk + d0 + c,
+                                       (kKItems % 128 == 0 || i < kKItems) && key < S
+                                           ? dk - d0 - c : 0);
+      }
+    };
+    auto store_k = [&]() {
+#pragma unroll
+      for (int j = 0; j < kKRounds; ++j) {
+        const int i = j * 128 + t;
+        if (kKItems % 128 == 0 || i < kKItems) {
+          const int at = core_index(item_row(i), item_col(i), kWideDk);
+          split4_store(k_next[j], k_hi + at, k_lo + at);
+        }
+      }
+    };
+    auto load_v = [&](int blk) {
+#pragma unroll
+      for (int j = 0; j < kVRounds; ++j) {
+        const int i = j * 128 + t, c = 4 * (i >> 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = blk * KB + 8 * (i & 1) + ((i >> 1) & 1) + 2 * e;
+          v_next[j][e] = load4_f32<kNarrow>(
+              vb + (size_t)key * ldv + c,
+              (kVItems % 128 == 0 || i < kVItems) && key < S ? cols - c : 0);
+        }
+      }
+    };
+    // the V items split and transposed into Vᵀ: the four keys land at
+    // positions 4p..4p + 3 of their 8-key group, one 16-byte word a column
+    auto store_v = [&]() {
+#pragma unroll
+      for (int j = 0; j < kVRounds; ++j) {
+        const int i = j * 128 + t;
+        if (kVItems % 128 == 0 || i < kVItems) {
+          const int c = 4 * (i >> 2), g = i & 1, p = (i >> 1) & 1;
+          const float4* x = v_next[j];
+          const float cols4[4][4] = {{x[0].x, x[1].x, x[2].x, x[3].x},
+                                     {x[0].y, x[1].y, x[2].y, x[3].y},
+                                     {x[0].z, x[1].z, x[2].z, x[3].z},
+                                     {x[0].w, x[1].w, x[2].w, x[3].w}};
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int at = core_index(c + cc, 8 * g + 4 * p, KB);
+            split4_store(make_float4(cols4[cc][0], cols4[cc][1], cols4[cc][2], cols4[cc][3]),
+                         vt_hi + at, vt_lo + at);
+          }
+        }
+      }
+    };
+
+    int k_uses = 0, q_uses = 0;
+    load_k(0, 0);             // in flight while Q is staged
+    if (!kNarrow) load_v(0);  // (kNarrow: loaded at its stage, which saves the registers)
+    if (n_chunks == 1) {
+      stage_q(0);
+      fence_async_shared();
+      mbar_arrive(q_full);
+    }
+    for (int blk = 0; blk < n_blocks; ++blk) {
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        if (n_chunks > 1) {
+          if (q_uses) mbar_wait(q_empty, (q_uses - 1) & 1);
+          ++q_uses;
+          stage_q(ch * kWideDk);
+          fence_async_shared();
+          mbar_arrive(q_full);
+        }
+        if (k_uses) mbar_wait(k_empty, (k_uses - 1) & 1);
+        ++k_uses;
+        store_k();
+        fence_async_shared();
+        mbar_arrive(k_full);
+        if (ch + 1 < n_chunks)
+          load_k(blk, (ch + 1) * kWideDk);
+        else if (blk + 1 < n_blocks)
+          load_k(blk + 1, 0);
+      }
+      if (kNarrow) load_v(blk);
+      if (blk) mbar_wait(v_empty, (blk - 1) & 1);
+      store_v();
+      fence_async_shared();
+      mbar_arrive(v_full);
+      if (!kNarrow && blk + 1 < n_blocks) load_v(blk + 1);
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumer
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const float scale2 = scale * 1.4426950408889634f;
+  const uint64_t d_qh = wgmma_desc(smem_u32(q_hi), kSboQK);
+  const uint64_t d_ql = wgmma_desc(smem_u32(q_lo), kSboQK);
+  const uint64_t d_kh = wgmma_desc(smem_u32(k_hi), kSboQK);
+  const uint64_t d_kl = wgmma_desc(smem_u32(k_lo), kSboQK);
+  const uint32_t vh = smem_u32(vt_hi), vl = smem_u32(vt_lo);
+  float o[2][68];  // o[h][4i + e]: columns 136h + 8i + 2tq + e % 2, rows g + 8(e / 2)
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 68; ++i) o[h][i] = 0.0f;
+  float mx[2] = {-INFINITY, -INFINITY};  // running row max (scaled, base 2)
+  float sum[2] = {0.0f, 0.0f};           // the lane's share of the row sum
+  int q_uses = 0;
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    float s[8];  // s[4i + e]: keys 8i + 2tq + e % 2, rows g + 8(e / 2)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = 0.0f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      if (n_chunks > 1 || blk == 0) mbar_wait(q_full, q_uses++ & 1);
+      mbar_wait(k_full, (blk * n_chunks + ch) & 1);
+      const int steps = (min(kWideDk, dk - ch * kWideDk) + 7) / 8;  // k-steps of 8 columns
+      wgmma_fence();
+      // one k-step a turn (unrolled, the 4·34 descriptors would be hoisted
+      // out of the key-block loop into registers); each step moves every
+      // descriptor's start address by 256 bytes, 16 in its field
+#pragma unroll 1
+      for (int ks = 0; ks < steps; ++ks) {
+        wgmma_n16_ss(s, d_ql + 16 * ks, d_kh + 16 * ks);
+        wgmma_n16_ss(s, d_qh + 16 * ks, d_kl + 16 * ks);
+        wgmma_n16_ss(s, d_qh + 16 * ks, d_kh + 16 * ks);
+      }
+      wgmma_commit_and_wait();
+      fence_registers(s);
+      mbar_arrive(k_empty);
+      if (n_chunks > 1) mbar_arrive(q_empty);
+    }
 
     // online softmax in base 2; a row lives in the 4 lanes of a quad
-    const int valid = S - blk * kWideKeys;  // keys of this block below S
+    const int valid = S - blk * KB;  // keys of this block below S
 #pragma unroll
-    for (int c = 0; c < kWideKeys / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s_acc[c][e] = 8 * c + 2 * t + (e & 1) < valid ? s_acc[c][e] * scale2 : -INFINITY;
+    for (int i = 0; i < 8; ++i)
+      s[i] = 8 * (i >> 2) + 2 * tq + (i & 1) < valid ? s[i] * scale2 : -INFINITY;
     float bm[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int c = 0; c < kWideKeys / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) bm[e >> 1] = fmaxf(bm[e >> 1], s_acc[c][e]);
+    for (int i = 0; i < 8; ++i) bm[(i >> 1) & 1] = fmaxf(bm[(i >> 1) & 1], s[i]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 1));
@@ -1996,105 +2736,88 @@ cross_modal_attn_wide_kernel(const T* __restrict__ q,  // (N, Lq, h*dk)
       const float alpha = exp2f(mx[h] - m);  // 0 at the first key block
       sum[h] *= alpha;
 #pragma unroll
-      for (int dt = 0; dt < kWideSlice / 8; ++dt) {
-        o_acc[dt][2 * h] *= alpha;
-        o_acc[dt][2 * h + 1] *= alpha;
-      }
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 17; ++i) {
+          o[j][4 * i + 2 * h] *= alpha;
+          o[j][4 * i + 2 * h + 1] *= alpha;
+        }
       mx[h] = m;
     }
+    // p, split into tf32 hi and lo as p's A fragments: keys 8kk + 2tq and
+    // + 1 sit at positions tq and tq + 4 of Vᵀ's 8-key group kk
+    uint32_t p_hi[2][4], p_lo[2][4];
 #pragma unroll
-    for (int c = 0; c < kWideKeys / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s_acc[c][e] - mx[e >> 1]);
-        s_acc[c][e] = p;
-        sum[e >> 1] += p;
-      }
-
-    // o += p·v over the slice's columns, in the fragment order of
-    // cross_modal_attn_f32tc_kernel (the logits' C fragment is p's A
-    // fragment; B is V's rows 8c + 2t and 8c + 2t + 1 at column 8dt + g)
-    const T* vr = v_s + 2 * t * kPV + g;
-#pragma unroll
-    for (int c = 0; c < kWideKeys / 8; ++c) {
-      uint32_t a_hi[4], a_lo[4];
-      const float pa[4] = {s_acc[c][0], s_acc[c][2], s_acc[c][1], s_acc[c][3]};
+    for (int kk = 0; kk < 2; ++kk) {
+      const int from[4] = {0, 2, 1, 3};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if constexpr (kExact && kRoundP)
-          a_hi[e] = __float_as_uint(__bfloat162float(__float2bfloat16_rn(pa[e])));
-        else
-          split_tf32(pa[e], a_hi[e], a_lo[e]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < kWideSlice / 8; ++dt) {
-        if (8 * dt < cols) {
-          uint32_t b_hi[2], b_lo[2];
-          one_operand(vr + 8 * c * kPV + 8 * dt, b_hi[0], b_lo[0]);
-          one_operand(vr + (8 * c + 1) * kPV + 8 * dt, b_hi[1], b_lo[1]);
-          if constexpr (kExact) {
-            if constexpr (!kRoundP) mma_tf32(o_acc[dt], a_lo, b_hi[0], b_hi[1]);
-            mma_tf32(o_acc[dt], a_hi, b_hi[0], b_hi[1]);
-          } else {
-            mma_3xtf32(o_acc[dt], a_hi, a_lo, b_hi, b_lo);
-          }
-        }
+        const int i = 4 * kk + from[e];
+        const float p = exp2f(s[i] - mx[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += p;
+        split_tf32(p, p_hi[kk][e], p_lo[kk][e]);
       }
     }
+    mbar_wait(v_full, blk & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t at = 256 * kk + h * (kWideHalf / 8) * kSboV;
+        wgmma_n136_rs(o[h], p_lo[kk], wgmma_desc(vh + at, kSboV));
+        wgmma_n136_rs(o[h], p_hi[kk], wgmma_desc(vl + at, kSboV));
+        wgmma_n136_rs(o[h], p_hi[kk], wgmma_desc(vh + at, kSboV));
+      }
+    wgmma_commit_and_wait();
+    fence_registers(o[0]);
+    fence_registers(o[1]);
+    mbar_arrive(v_empty);
   }
-  if (!has_rows) return;  // no barrier follows
 
-  // rows g and g + 8 of the warp, the slice's columns below d_v
-  T* ob = out + ((size_t)n * Lq + q0 + row0) * ldv + head * dv + c0;
+  // rows g and g + 8 of the warp, the block's columns: a pair of floats a
+  // store where d_v is even (the row's pairs then 8-byte aligned), else one
+  float* ob = out + ((size_t)n * Lq + q0 + 16 * warp) * ldv + head * dv + c0;
+  const bool pairs = (dv & 1) == 0 && ((uintptr_t)out & 7) == 0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
     const float inv = 1.0f / sum[h];
     const int r = g + 8 * h;
-    if (row0 + r >= rows) continue;
+    if (16 * warp + r >= rows) continue;
 #pragma unroll
-    for (int dt = 0; dt < kWideSlice / 8; ++dt)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * dt + 2 * t + e;
-        if (c < cols) {
-          const float o = o_acc[dt][2 * h + e] * inv;
-          if constexpr (kExact)
-            ob[(size_t)r * ldv + c] = __float2bfloat16_rn(o);
-          else
-            ob[(size_t)r * ldv + c] = o;
+      for (int i = 0; i < 17; ++i) {
+        const int c = kWideHalf * j + 8 * i + 2 * tq;
+        const float x = o[j][4 * i + 2 * h] * inv, y = o[j][4 * i + 2 * h + 1] * inv;
+        if (pairs && c + 1 < cols) {
+          *reinterpret_cast<float2*>(ob + (size_t)r * ldv + c) = make_float2(x, y);
+        } else {
+          if (c < cols) ob[(size_t)r * ldv + c] = x;
+          if (c + 1 < cols) ob[(size_t)r * ldv + c + 1] = y;
         }
       }
   }
 }
 
-// Slices of d_v: ceil(d_v / 128), of even width, a multiple of 8
-__host__ __device__ constexpr int wide_slices(int dv) {
-  return (dv + kWideSlice - 1) / kWideSlice;
-}
-
-__host__ __device__ constexpr int wide_width(int dv) {
-  return ((dv + wide_slices(dv) - 1) / wide_slices(dv) + 7) / 8 * 8;
-}
-
-template <typename T, bool kRoundP, bool kNarrow>
-int launch_wide_as(const void* q, const void* k, const void* v, void* out, int N, int Lq,
-                   int S, int heads, int dk, int dv, cudaStream_t stream) {
+template <bool kNarrow>
+int launch_wide_f32_as(const void* q, const void* k, const void* v, void* out, int N, int Lq,
+                       int S, int heads, int dk, int dv, cudaStream_t stream) {
   static SmemOptIn opt_in;
-  constexpr size_t smem = wide_smem_bytes<T>();
+  constexpr size_t smem = wide_f32_smem_bytes();
   static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
   const cudaError_t err =
-      opt_in.ensure((const void*)cross_modal_attn_wide_kernel<T, kRoundP, kNarrow>, smem);
+      opt_in.ensure((const void*)cross_modal_attn_wide_f32_kernel<kNarrow>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (Lq + kWideTile - 1) / kWideTile, slices = wide_slices(dv);
   const long long blocks = (long long)N * heads * tiles * slices;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cross_modal_attn_wide_kernel<T, kRoundP, kNarrow>
-      <<<(unsigned)blocks, kWideThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-          static_cast<T*>(out), Lq, S, heads, dk, dv, tiles, slices, wide_width(dv),
-          1.0f / sqrtf((float)dk));
+  cross_modal_attn_wide_f32_kernel<kNarrow><<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Lq, S, heads, dk, dv, tiles, slices, wide_width(dv),
+      1.0f / sqrtf((float)dk));
   return (int)cudaGetLastError();
 }
 
@@ -2102,16 +2825,17 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, int N, i
                 int heads, int dk, int dv, bool bf16, bool narrow, bool round_p,
                 cudaStream_t s) {
   if (!bf16 && narrow)
-    return launch_wide_as<float, false, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  if (!bf16) return launch_wide_as<float, false, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+    return launch_wide_f32_as<true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (!bf16) return launch_wide_f32_as<false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if (round_p && narrow)
-    return launch_wide_as<__nv_bfloat16, true, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+    return launch_wide_bf16_as<true, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if (round_p)
-    return launch_wide_as<__nv_bfloat16, true, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+    return launch_wide_bf16_as<true, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
   if (narrow)
-    return launch_wide_as<__nv_bfloat16, false, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
-  return launch_wide_as<__nv_bfloat16, false, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+    return launch_wide_bf16_as<false, true>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  return launch_wide_bf16_as<false, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
 }
+
 
 }  // namespace
 
@@ -2125,22 +2849,26 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, int N, i
 // 128, with q, k, v and out aligned to 16 bytes, route 1 S <= 128 and route
 // 4 any S >= 1; with narrow, route 4 takes any dk and dv from 1 to 128 (the
 // instance's D their larger rounded up to 16) from any 2-byte-aligned
-// pointer, one value a copy (the kFill instance).  The
+// pointer (the kFill instance).  The
 // tensor-core float32 routes take any dk and dv from 1, route 2 up to 128
 // and S <= 128, route 3 up to 256 and any S >= 1 (the wrapper sends S >
 // 128 and d above 128 to route 3, and S > 128 to route 4; a smaller S only
 // to time them against routes 1 and 2); routes 5 and 6 take any dk, dv
 // and S from 1 (the wrapper sends float32 d above 256 and bfloat16 d above
-// 128 there).  narrow (routes 2-6) copies one value at a time, for
-// pointers aligned only to their element size or d off a multiple of 4
-// (float32), or of 8 (the wide kernel in bfloat16), and is required there;
-// for route 4 it is the zero-filled instance, for every bf16 call but the
-// aligned dk = dv, a multiple of 16.  The CUDA-core
+// 128 there).  narrow (routes 2-6) is required for pointers off 16 bytes
+// or d off a multiple of 4 (float32) or of 8 (bfloat16), and takes any:
+// in float32 it copies one float at a time (4-byte cp.async); in bfloat16
+// (route 4, then the zero-filled instance for every bf16 call but the
+// aligned dk = dv, a multiple of 16; and route 6) each of q, k and v is
+// copied by the widest cp.async its pointer and d allow, 16, 8 or 4 bytes,
+// or by shifted 16-byte loads (bf16_copy_width), and the output rows leave
+// in 16-byte stores where whole words of them lie (store_rows_any_bf16).
+// The CUDA-core
 // float32 route takes any sizes whose q rows and probabilities fit in
 // shared memory.  round_p (for the bfloat16 routes only): p rounded to bf16
 // once before p·v, as XLA's attention in the JAX package rounds it
 // (TPU.PALLAS_ATTENTION off, the default); without it p keeps about 16
-// bits (p_hi + p_lo; the wide kernel 21), as the Pallas kernel's float32 p.
+// bits (p_hi + p_lo), as the Pallas kernel's float32 p.
 extern "C" int cross_modal_attn(const void* q, const void* k, const void* v,
                                 void* out, int N, int Lq, int S, int heads,
                                 int dk, int dv, int route, int narrow, int round_p,

@@ -24,14 +24,20 @@ that do not divide the width raise, in the wrapper, before any launch):
   and v are aligned to 16 bytes and d_k and d_v are multiples of 4, else
   one float at a time (:func:`f32_narrow_copies`; those launches are also
   counted in :data:`f32_narrow_launches`).
-* ``wide_f32`` and ``wide_bf16``: the wide-head kernel, for float32 with
-  d_k or d_v above 256 and bfloat16 above 128, any S and alignment: on the
-  tensor cores (3xTF32 in float32; one tf32 product of bf16 values, exact
-  in float32, in bfloat16), keys in key blocks of :data:`WIDE_KEYS`, the
-  logits over d_k in chunks of :data:`WIDE_CHUNK` columns, one block a
-  slice of d_v (:func:`wide_slices`), one value a load where the pointers
-  or d ask for it (:func:`wide_narrow_copies`; counted in
-  :data:`wide_narrow_launches`).
+* ``wide_f32`` and ``wide_bf16``: the wide-head kernels, for float32 with
+  d_k or d_v above 256 and bfloat16 above 128, any S and alignment, one
+  block per query tile and slice of d_v (:func:`wide_slices`: one slice,
+  so one pass over d_v, up to 272 columns), the Q tile held with d_k whole
+  up to :data:`WIDE_DK`.  In float32, warpgroup MMA (wgmma) in 3xTF32, a
+  producer warpgroup staging Q, K and Vᵀ split into tf32 hi and lo parts in
+  shared memory, keys in blocks of :data:`WIDE_F32_KEYS`; in bfloat16,
+  bf16 mma.sync, 8 warps of 16 query rows over every column of the slice
+  (128-row tiles), keys in blocks of :data:`WIDE_BF16_KEYS` through a ring of
+  :data:`WIDE_BF16_STAGES`, p split into bf16 ``p_hi + p_lo`` in
+  ``split_p``.  Pointers or d off the 16-byte copies
+  (:func:`wide_narrow_copies`; counted in :data:`wide_narrow_launches`)
+  take the narrow instance: one float a copy in float32, in bfloat16 the
+  widest copy each tensor allows (:func:`bf16_copy_width`).
 * ``f32_cuda_core``: the first float32 kernel, on the CUDA cores.  No call is
   routed there since the wide kernel took its shapes; it launches only
   where :func:`pick_route` is replaced to force it (to time it beside its
@@ -55,7 +61,13 @@ that do not divide the width raise, in the wrapper, before any launch):
   Every other call (:func:`bf16_fill`; counted in :data:`bf16_fill_launches`)
   takes that key-block kernel's fill instance at any S: the tiles
   zero-filled past d_k and d_v to the instance's D (their larger rounded up
-  to 16: :func:`bf16_instance_d`), every value copied one at a time.
+  to 16: :func:`bf16_instance_d`), each of q, k and v copied by the widest
+  ``cp.async`` that its pointer and head size allow (16, 8 or 4 bytes, the
+  source size cut at d), or by 16-byte loads of the aligned words that
+  cover a row, shifted by the row's offset (:func:`bf16_copy_width`; the
+  fill instance's and ``wide_bf16``'s launches by their narrowest copy in
+  :data:`bf16_copy_launches`), the output in 16-byte stores wherever whole
+  16-byte words of its rows lie.
 
 On a CPU tensor the plain version (:func:`attention_plain`, in the mode
 set) runs; on a CUDA tensor the kernel launches, or the wrapper raises.  The
@@ -85,7 +97,9 @@ f32_narrow_launches = 0  # of f32_tensor_core's, those copying one float at a ti
 F32_KEY_BLOCKS = 3  # code of the C entry for f32_tensor_core's key blocks
 bf16_key_block_launches = 0  # of bf16's, those in key blocks (bf16_key_blocks)
 bf16_fill_launches = 0  # of bf16's, those of the fill instance (bf16_fill)
-wide_narrow_launches = 0  # of the wide kernel's, those loading one value at a time
+wide_narrow_launches = 0  # of the wide kernels', those of the narrow instance
+BF16_COPIES = ("16", "8", "4", "shifted")  # bf16_copy_width's 16, 8, 4 bytes and 0
+bf16_copy_launches = dict.fromkeys(BF16_COPIES, 0)  # fill and wide_bf16, by narrowest copy
 BF16_KEY_BLOCKS = 4  # code of the C entry for bf16's key blocks
 BF16_P_MODES = ("round_p", "split_p")  # p rounded to bf16 once, or p_hi + p_lo
 bf16_mode_launches = dict.fromkeys(BF16_P_MODES, 0)  # bf16's, by mode
@@ -97,6 +111,7 @@ BF16_WHOLE_S = 128  # the most keys bf16 holds whole; past it, key blocks
 BF16_BLOCK_WARPS = 4  # kBf16BlockWarps: 16 query rows each
 BF16_KEY_CHUNKS = 2  # kBf16KeyChunks: 16-key chunks a key block
 BF16_STAGES = 3  # kBf16Stages: key blocks in the ring
+BF16_FILL_STAGES = 4  # kBf16FillStages: the same, of the fill instance
 F32_TILE_Q = 128  # kF32Tile of csrc/cross_modal_attn.cu (f32_tensor_core route)
 F32_WHOLE_S = 128  # the most keys f32_tensor_core holds whole; past it, key blocks
 F32_WHOLE_MAX_D = 128  # the largest D f32_tensor_core holds whole; past it, key blocks
@@ -104,11 +119,18 @@ F32_MAX_D = 256  # the largest d_k and d_v of f32_tensor_core
 F32_KEY_CHUNKS = 4  # kF32KeyChunks: 8-key chunks a key block, D <= 128
 F32_KEY_CHUNKS_D256 = 1  # kF32KeyChunksD256: the same at D = 256
 MAX_D = 128  # the largest head size of the bf16 kernels; past it, the wide kernel
-WIDE_WARPS = 4  # kWideWarps of csrc/cross_modal_attn.cu: 16 query rows each
-WIDE_KEYS = 32  # kWideKeys: keys of a key block
-WIDE_CHUNK = 32  # kWideChunk: d_k columns of a chunk of q·kᵀ
-WIDE_SLICE = 128  # kWideSlice: the most d_v columns of a block
-WIDE_STAGES = 3  # kWideStages: chunks of Q and K in the ring
+WIDE_TILE = 64  # kWideTile of csrc/cross_modal_attn.cu: query rows of a float32 block
+WIDE_BF16_TILE = 128  # kWideBf16Tile: query rows of a bf16 block
+WIDE_DK = 272  # kWideDk: the most d_k columns a block holds; past it, chunks of 272
+WIDE_HALF = 136  # kWideHalf: the most d_v columns of a float32 wgmma N tile, two a slice
+WIDE_BF16_WARPS = 8  # kWideBf16Warps: 16 query rows each, every column of the slice
+WIDE_BF16_KEYS = 32  # kWideBf16Keys: keys of a bf16 key block
+WIDE_BF16_STAGES = 4  # kWideBf16Stages: key blocks in the bf16 ring
+WIDE_F32_KEYS = 16  # kWgKeys: keys of a float32 key block
+WIDE_BF16_P_BITS = 16  # significant bits of p_hi + p_lo in wide_bf16's split_p
+WIDEST_COPY = 16  # kWidestCopy: bytes of the widest bf16 copy
+NARROWEST_COPY = 4  # kNarrowestCopy: of the narrowest; below it, shifted loads
+SHIFTED_LOAD = 0  # kShiftedLoad: bf16_copy_width's code of a shifted load
 
 
 def tensor_core_f32_takes(S: int, dk: int, dv: int) -> bool:
@@ -172,8 +194,9 @@ def bf16_key_blocks(S: int, dk: int, dv: int, aligned: bool = True) -> bool:
 
 
 def wide_slices(dv: int) -> int:
-    """Slices of d_v of the wide kernel, one block each: ceil(d_v / 128)."""
-    return -(-dv // WIDE_SLICE)
+    """Slices of d_v of the wide kernels, one block each: ceil(d_v / 272),
+    so one pass over d_v up to 272 columns."""
+    return -(-dv // (2 * WIDE_HALF))
 
 
 def wide_width(dv: int) -> int:
@@ -183,27 +206,55 @@ def wide_width(dv: int) -> int:
 
 
 def wide_narrow_copies(dtype, dk: int, dv: int, aligned: bool) -> bool:
-    """Whether the wide kernel loads one value at a time: as the float32
-    tensor-core kernels in float32 (d a multiple of 4), as the bf16 kernels
-    in bfloat16 (d a multiple of 8)."""
+    """Whether a wide call takes its kernel's narrow instance: as the
+    float32 tensor-core kernels in float32 (d a multiple of 4), in bfloat16
+    wherever a copy of q, k or v would be narrower than 16 bytes (d a
+    multiple of 8 and 16-byte pointers otherwise)."""
     if dtype == torch.bfloat16:
         return not aligned or dk % 8 != 0 or dv % 8 != 0
     return f32_narrow_copies(dk, dv, aligned)
 
 
+def bf16_copy_width(offset: int, d: int) -> int:
+    """bf16_copy_width of csrc/cross_modal_attn.cu: the bytes of the copies
+    of rows of d bf16 values whose tensor starts ``offset`` bytes past a
+    16-byte boundary (rows heads·d values apart, a head d on): the widest
+    of 16, 8 and 4 that divides both the offset and the row's 2d bytes,
+    else :data:`SHIFTED_LOAD` (two aligned 16-byte words a chunk of 8
+    values, shifted by the row's offset in its word)."""
+    w = WIDEST_COPY
+    while w >= NARROWEST_COPY:
+        if offset % w == 0 and (2 * d) % w == 0:
+            return w
+        w //= 2
+    return SHIFTED_LOAD
+
+
+def bf16_narrowest_copy(q, k, v, dk: int, dv: int) -> str:
+    """The key of :data:`bf16_copy_launches` that a bf16 call on q, k, v
+    counts under: the narrowest of the three tensors' copies."""
+    widths = [bf16_copy_width(t.data_ptr() % 16, d) for t, d in ((q, dk), (k, dk), (v, dv))]
+    return "shifted" if SHIFTED_LOAD in widths else str(min(widths))
+
+
 def _wide_smem(dtype) -> int:
-    """wide_smem_bytes<T>: the ring's stages of a Q chunk (64 rows) and a K
-    chunk (32 rows), in rows of 40 values, and a V slice (32 rows of 132
-    floats or 136 bf16), in the inputs' dtype, whatever the sizes."""
-    size, pad = (2, 8) if dtype == torch.bfloat16 else (4, 4)
-    return size * (WIDE_STAGES * (16 * WIDE_WARPS + WIDE_KEYS) * (WIDE_CHUNK + 8)
-                   + WIDE_KEYS * (WIDE_SLICE + pad))
+    """Shared memory of one block of a wide kernel, whatever the sizes.
+    bfloat16 (wide_bf16_smem_bytes): the 128-row Q tile and the ring's
+    stages of K and V (32 keys each), in rows of 280 values.  float32
+    (wide_f32_smem_bytes): Q's hi and lo parts (64 rows of 272), K's (16
+    rows of 272), Vᵀ's (272 rows of 16) and six mbarriers."""
+    if dtype == torch.bfloat16:
+        return 2 * (WIDE_DK + 8) * (WIDE_BF16_TILE + 2 * WIDE_BF16_STAGES * WIDE_BF16_KEYS)
+    return (4 * (2 * WIDE_TILE * WIDE_DK + 2 * WIDE_F32_KEYS * WIDE_DK
+                 + 2 * 2 * WIDE_HALF * WIDE_F32_KEYS) + 6 * 8)
 
 
-def _bf16_key_block_smem(d: int) -> int:
-    """bf16_blocks_smem_bytes: the Q tile and the ring's stages of K and V,
-    in rows of d + 8 values."""
-    return 2 * (d + 8) * (16 * BF16_BLOCK_WARPS + 2 * BF16_STAGES * 16 * BF16_KEY_CHUNKS)
+def _bf16_key_block_smem(d: int, fill: bool = False) -> int:
+    """bf16_blocks_smem_bytes: the Q tile and the ring's stages of K and V
+    (BF16_STAGES, the fill instance BF16_FILL_STAGES), in rows of d + 8
+    values."""
+    stages = BF16_FILL_STAGES if fill else BF16_STAGES
+    return 2 * (d + 8) * (16 * BF16_BLOCK_WARPS + 2 * stages * 16 * BF16_KEY_CHUNKS)
 
 
 def pick_route(dtype, S: int, dk: int, dv: int, aligned: bool = True) -> str:
@@ -218,17 +269,19 @@ def pick_route(dtype, S: int, dk: int, dv: int, aligned: bool = True) -> str:
     return "f32_tensor_core" if tensor_core_f32_takes(S, dk, dv) else "wide_f32"
 
 
-def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int:
+def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None,
+               aligned: bool = True) -> int:
     """Shared memory of one block of ``route`` (by default the route
     :func:`pick_route` picks).
-    wide_f32, wide_bf16: whatever the sizes, the ring's stages of a Q and a
-    K chunk and one V slice of a key block (wide_smem_bytes).
+    wide_f32, wide_bf16: whatever the sizes (:func:`_wide_smem`).
     f32_cuda_core: K (padded rows) and V where they fit (f32_smem_bytes in
     csrc/cross_modal_attn.cu), then a q row and S probabilities per warp.
     bf16: at the instance's D (:func:`bf16_instance_d`); up to S = 128,
     the 64-row Q tile, K and V (S rounded up to 16), in rows padded by 8
     values; in key blocks, whatever S, the 64-row Q tile and the ring's
-    stages of K and V (bf16_blocks_smem_bytes).
+    stages of K and V (bf16_blocks_smem_bytes; the fill instance, taken
+    where :func:`bf16_fill` says so for ``aligned`` pointers, a stage
+    more).
     f32_tensor_core: at the kernel instance's sizes, max(d_k, d_v)
     rounded up to D = 32, 64, 128 or 256; with the keys whole (S and D up
     to 128), S rounded up to 16, 32, 64 or 128 rows, the 128-row Q tile in
@@ -244,8 +297,8 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None) -> int
         return _wide_smem(torch.bfloat16 if route == "wide_bf16" else torch.float32)
     if route == "bf16":
         d = bf16_instance_d(dk, dv)
-        if bf16_key_blocks(S, dk, dv):
-            return _bf16_key_block_smem(d)
+        if bf16_key_blocks(S, dk, dv, aligned):
+            return _bf16_key_block_smem(d, bf16_fill(dk, dv, aligned))
         return 2 * (d + 8) * (TILE_Q + 2 * (-(-S // 16) * 16))
     if route == "f32_tensor_core":
         d = f32_instance_d(dk, dv)
@@ -275,6 +328,7 @@ def reset_launches() -> None:
     launches = f32_key_block_launches = f32_narrow_launches = bf16_key_block_launches = 0
     bf16_fill_launches = wide_narrow_launches = 0
     route_launches.update(dict.fromkeys(ROUTES, 0))
+    bf16_copy_launches.update(dict.fromkeys(BF16_COPIES, 0))
     bf16_mode_launches.update(dict.fromkeys(BF16_P_MODES, 0))
 
 
@@ -373,6 +427,8 @@ def cross_modal_attn_cuda(q, k, v, num_heads: int):
         bf16_fill_launches += narrow
     elif route != "f32_cuda_core":
         wide_narrow_launches += narrow
+    if route == "wide_bf16" or (route == "bf16" and narrow):
+        bf16_copy_launches[bf16_narrowest_copy(q, k, v, dk, dv)] += 1
     if code == F32_KEY_BLOCKS:
         f32_key_block_launches += 1
     elif code == BF16_KEY_BLOCKS:

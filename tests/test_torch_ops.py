@@ -265,10 +265,13 @@ def test_bf16_fill_instance_keeps_float32(rng, dk, dv):
     """bf16 calls off the aligned d_k = d_v, a multiple of 16, take the
     key-block kernel's fill instance at any S: q, k and v copied into tiles
     zero-filled past d_k and d_v to D = max(d_k, d_v) rounded up to 16
-    (_copy_tiles, one value a copy, from buffers one element off too), the
-    key blocks' arithmetic on them with the scale of d_k, and the columns
-    below d_v of each head's output stay within 1e-5 of the float32
-    function of the same bf16 values, and of JAX's XLA attention."""
+    (_copy_tiles at each tensor's bf16_copy_width: cp.async copies of 16, 8
+    or 4 bytes cut at d, or shifted loads of aligned 16-byte words, from
+    buffers 0-7 elements off 16 bytes whose values before the tensor and past
+    its last word are NaN, so that a copy reading them shows), the key
+    blocks' arithmetic on them with the scale of d_k, and the columns below
+    d_v of each head's output stay within 1e-5 of the float32 function of
+    the same bf16 values, and of JAX's XLA attention."""
     N, Lq, S, heads = 2, 24, 70, 2
     assert fused_attention.pick_route(torch.bfloat16, S, dk, dv) == "bf16"
     assert fused_attention.bf16_fill(dk, dv, True)
@@ -276,14 +279,66 @@ def test_bf16_fill_instance_keeps_float32(rng, dk, dv):
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
                for a in _qkv(rng, N, Lq, S, heads * dk, heads * dv))
     ref = fused_attention.attention_plain(q, k, v, heads)
-    for offset in (0, 1):
-        tiles = [_copy_tiles(torch.cat([torch.zeros(offset), t.flatten()]), offset, N, L, heads,
-                             d, D, narrow=True)
-                 for t, L, d in ((q, Lq, dk), (k, S, dk), (v, S, dv))]
+    widths = set()
+    for offset in range(8):
+        tiles = []
+        for t, L, d in ((q, Lq, dk), (k, S, dk), (v, S, dv)):
+            width = fused_attention.bf16_copy_width(2 * offset, d)
+            widths.add(width)
+            flat = torch.cat([torch.full((offset,), math.nan), t.flatten()])
+            tiles.append(_copy_tiles(flat, offset, N, L, heads, d, D, True, width=width))
         ours = _p_split_attention_blocks(*tiles, heads, dk=dk)
         ours = ours.view(N, Lq, heads, D)[..., :dv].reshape(N, Lq, heads * dv)
         assert (ours - ref).abs().max().item() <= 1e-5
+    assert fused_attention.SHIFTED_LOAD in widths
     _close(ours, _xla_impl(*(jnp.asarray(t.numpy()) for t in (q, k, v)), heads))
+
+
+@pytest.mark.parametrize("dk,dv", [(72, 72), (64, 64), (260, 260), (68, 68), (66, 66),
+                                   (65, 65), (128, 64), (60, 136), (1, 8)])
+def test_bf16_copy_width(dk, dv):
+    """bf16_copy_width, mirrored from csrc/cross_modal_attn.cu with its
+    constants read from the source, at tensors 0-7 elements off 16 bytes:
+    the width divides the byte address of every row start of every head
+    (and the row's 2d bytes), and no wider one of 16, 8 and 4 does; where
+    none of them does (odd d, or a pointer off 4 bytes) the rows take the
+    shifted load, their offsets in their 16-byte words then varying from
+    row to row where d is odd.  The fill instance and the bf16 wide kernel
+    count each launch under the narrowest of q's, k's and v's widths, and a
+    wide call takes the narrow instance wherever one is below 16 bytes."""
+    src = (_build.CSRC / "cross_modal_attn.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kWidestCopy|kNarrowestCopy|kShiftedLoad) = (\d+);",
+                             src))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "kWidestCopy": fused_attention.WIDEST_COPY,
+        "kNarrowestCopy": fused_attention.NARROWEST_COPY,
+        "kShiftedLoad": fused_attention.SHIFTED_LOAD}
+    body = re.search(r"int bf16_copy_width\(const void\* ptr, int d\) \{(.*?)\n\}", src, re.S)
+    assert " ".join(body.group(1).split()) == (
+        "const uintptr_t a = (uintptr_t)ptr; for (int w = kWidestCopy; w >= kNarrowestCopy; "
+        "w /= 2) if (a % w == 0 && (2 * d) % w == 0) return w; return kShiftedLoad;")
+    heads, L = 3, 5
+    for offset in range(8):
+        widths = []
+        for d in (dk, dv):
+            w = fused_attention.bf16_copy_width(2 * offset, d)
+            starts = [2 * (offset + (r * heads + h) * d) for r in range(L) for h in range(heads)]
+            if w:
+                assert all(s % w == 0 for s in starts) and (2 * d) % w == 0
+                assert w == 16 or any(s % (2 * w) for s in starts) or (2 * d) % (2 * w)
+            else:
+                assert any(s % 4 for s in starts)
+                assert len({s % 16 for s in starts}) > 1 or offset % 2
+            widths.append(w)
+        buf = torch.zeros(offset + 64 * heads * max(dk, dv), dtype=torch.bfloat16)
+        assert buf.data_ptr() % 16 == 0
+        q = buf[offset:offset + heads * dk].view(1, 1, heads * dk)
+        v = buf[offset:offset + heads * dv].view(1, 1, heads * dv)
+        narrowest = fused_attention.bf16_narrowest_copy(q, q, v, dk, dv)
+        want = "shifted" if 0 in widths else str(min(widths))
+        assert narrowest == want and narrowest in fused_attention.BF16_COPIES
+        assert fused_attention.wide_narrow_copies(torch.bfloat16, dk, dv, offset == 0) == (
+            want != "16")
 
 
 @pytest.mark.parametrize("S,jump_at", [(144, 64), (300, 200)])
@@ -419,18 +474,52 @@ def test_attention_3xtf32_key_blocks_keep_float32(rng, S, dk, dv):
     _close(ours, _pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True))
 
 
-def _copy_tiles(flat, offset, N, L, heads, d, D, narrow):
+def _copy_tiles(flat, offset, N, L, heads, d, D, narrow, width=None):
     """The float32 tensor-core kernels' copy of one of q, k, v, an (N, L,
     heads·d) tensor ``offset`` floats into the flat buffer ``flat``, into
     tiles zero-filled to D columns a head: row r, column c of a head read at
     offset + (n·L + r)·heads·d + head·d + c.  ``narrow``: one float a copy,
     zero from column d on; else 16-byte copies of columns 4j..4j+3, each
-    taken whole where 4j < d.  Returns (N, L, heads·D)."""
-    n, h, r, c = torch.meshgrid(torch.arange(N), torch.arange(heads), torch.arange(L),
-                                torch.arange(D), indexing="ij")
-    idx = offset + (n * L + r) * heads * d + h * d + c
-    ok = ((c if narrow else c - c % 4) < d) & (idx < flat.numel())
-    tiles = torch.where(ok, flat[torch.where(ok, idx, 0)], 0.0)
+    taken whole where 4j < d.  With ``width`` (bytes; the buffer then holds
+    bf16 values, 2 bytes each, ``offset`` of them before the tensor), the
+    bf16 fill instance's copy of 16-byte chunks of 8 values: cp.async
+    copies of ``width`` bytes (16, 8 or 4), each from a source address that
+    must be a multiple of ``width``, its source size cut at d (the rest
+    zero), or (``width`` 0, bf16_copy_width's shifted load) the two aligned
+    16-byte words of the buffer that cover the chunk, the second only where
+    a value below d lies in it and never past the word of the row's last
+    value, shifted by the row's offset in its word, zero from column d.
+    Returns (N, L, heads·D)."""
+    if width is None:
+        n, h, r, c = torch.meshgrid(torch.arange(N), torch.arange(heads), torch.arange(L),
+                                    torch.arange(D), indexing="ij")
+        idx = offset + (n * L + r) * heads * d + h * d + c
+        ok = ((c if narrow else c - c % 4) < d) & (idx < flat.numel())
+        tiles = torch.where(ok, flat[torch.where(ok, idx, 0)], 0.0)
+        return tiles.permute(0, 2, 1, 3).reshape(N, L, heads * D)
+    vals = flat.numpy()
+    words = np.concatenate([vals, np.full(-len(vals) % 8 + 8, np.nan, np.float32)]).reshape(-1, 8)
+    n, h, r = (x.reshape(-1) for x in np.meshgrid(np.arange(N), np.arange(heads), np.arange(L),
+                                                  indexing="ij"))
+    a = offset + (n * L + r) * heads * d + h * d  # each row's first value
+    last_word = (a + d - 1) // 8
+    tiles = np.zeros((a.size, D), np.float32)
+    for c in range(0, min(D, -(-d // 8) * 8), 8):
+        left = d - c  # values of the row from column c on
+        if width:
+            for j in range(0, 8, width // 2):
+                assert np.all((2 * (a + c + j)) % width == 0)
+                take = min(width // 2, max(0, left - j))
+                tiles[:, c + j:c + j + take] = vals[(a + c + j)[:, None] + np.arange(take)]
+        else:
+            e, w0 = (a + c) % 8, (a + c) // 8
+            second = (e > 0) & (left > 8 - e)
+            assert np.all(w0 <= last_word) and np.all(w0[second] + 1 <= last_word[second])
+            both = np.concatenate([words[w0], np.where(second[:, None], words[w0 + 1], 0.0)], 1)
+            chunk = np.take_along_axis(both, e[:, None] + np.arange(8), 1)
+            chunk[:, max(left, 0):] = 0.0
+            tiles[:, c:c + 8] = chunk
+    tiles = torch.from_numpy(tiles).view(N, heads, L, D)
     return tiles.permute(0, 2, 1, 3).reshape(N, L, heads * D)
 
 
@@ -504,22 +593,25 @@ def test_f32_copy_width(rng, dk, dv, aligned, narrow):
 
 
 def _wide_kernel_emulation(q, k, v, heads, mode):
-    """The wide-head kernel's arithmetic in plain torch, on float tensors
-    (for bfloat16 their bf16 values): q·kᵀ in key blocks of WIDE_KEYS keys,
-    over d_k in chunks of WIDE_CHUNK columns zero-filled past d_k, each
-    chunk's product added to the key block's logits in turn (3xTF32 in
-    ``f32``; in ``round_p`` and ``split_p``, bf16 values, one tf32 product,
-    exact); the online softmax of the float32 key-block kernel; p·v over
-    each slice of d_v (wide_slices, wide_width), the logits recomputed a
-    slice: 3xTF32 (``f32``), p rounded to bf16 once (``round_p``) or split
-    into tf32 hi + lo, two products (``split_p``); the output divided by the
-    sum.  Returns the float32 result before the output's rounding."""
+    """The wide-head kernels' arithmetic in plain torch, on float tensors
+    (for bfloat16 their bf16 values): one pass over each slice of d_v
+    (wide_slices, wide_width: one slice up to 272 columns); the keys in key
+    blocks of WIDE_F32_KEYS (``f32``) or WIDE_BF16_KEYS (``round_p``,
+    ``split_p``); a key block's logits over d_k in chunks of WIDE_DK
+    columns (one chunk up to d_k = 272), each chunk's product added in turn
+    (3xTF32 in ``f32``; products of bf16 values, exact, otherwise); the
+    online softmax in base 2 on logits scaled by log2 e / √d_k, with an
+    eager row max in ``f32`` and in bf16 the key-block kernel's lazy one (a
+    row's reference moves only where a key block's max passes it by more
+    than 2^8); p against the reference into p·v: 3xTF32 (``f32``),
+    rounded to bf16 once (``round_p``) or split into bf16 p_hi + p_lo, 16
+    bits (``split_p``), p_lo·v then p_hi·v; the output divided by the sum.
+    Returns the float32 result before the output's rounding."""
     N, Lq, D = q.shape
     S, dk, dv = k.shape[1], D // heads, v.shape[-1] // heads
-    chunk, block = fused_attention.WIDE_CHUNK, fused_attention.WIDE_KEYS
-    dp = -(-dk // chunk) * chunk
-    qh, kh = (torch.nn.functional.pad(t.view(N, -1, heads, dk), (0, dp - dk)).transpose(1, 2)
-              for t in (q, k))
+    chunk = fused_attention.WIDE_DK
+    block = fused_attention.WIDE_F32_KEYS if mode == "f32" else fused_attention.WIDE_BF16_KEYS
+    qh, kh = (t.view(N, -1, heads, dk).transpose(1, 2) for t in (q, k))
     vh = v.view(N, S, heads, dv).transpose(1, 2)
     scale2 = np.float32(1.4426950408889634 / math.sqrt(dk))
 
@@ -534,11 +626,15 @@ def _wide_kernel_emulation(q, k, v, heads, mode):
         out = torch.zeros(N, heads, Lq, min(width, dv - c0))
         for s0 in range(0, S, block):
             logits = torch.zeros(N, heads, Lq, min(block, S - s0))
-            for d0 in range(0, dp, chunk):
+            for d0 in range(0, dk, chunk):
                 logits = logits + mm(qh[..., d0:d0 + chunk],
                                      kh[:, :, s0:s0 + block, d0:d0 + chunk].transpose(-1, -2))
             logits = logits * scale2
-            m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+            if mode == "f32":
+                m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+            else:  # the lazy reference max of the bf16 key blocks
+                block_max = logits.amax(dim=-1, keepdim=True)
+                m_new = torch.where(block_max > m + 8.0, block_max, m)
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(logits - m_new)
             vb = vh[:, :, s0:s0 + block, c0:c0 + width]
@@ -547,8 +643,8 @@ def _wide_kernel_emulation(q, k, v, heads, mode):
             elif mode == "round_p":
                 pv = p.to(torch.bfloat16).float() @ vb
             else:
-                p_hi = _tf32(p)
-                pv = _tf32(p - p_hi) @ vb + p_hi @ vb
+                p_hi = p.to(torch.bfloat16).float()
+                pv = (p - p_hi).to(torch.bfloat16).float() @ vb + p_hi @ vb
             out = out * alpha + pv
             total = total * alpha + p.sum(dim=-1, keepdim=True)
             m = m_new
@@ -556,13 +652,13 @@ def _wide_kernel_emulation(q, k, v, heads, mode):
     return torch.cat(slices, dim=-1).transpose(1, 2).reshape(N, Lq, heads * dv)
 
 
-@pytest.mark.parametrize("dk,dv", [(260, 260), (260, 72), (100, 300)])
+@pytest.mark.parametrize("dk,dv", [(260, 260), (260, 72), (100, 300), (300, 64)])
 def test_wide_kernel_f32_keeps_float32(rng, dk, dv):
-    """Float32 heads past 256 on the wide kernel (d_k chunks of 32, d_v in
-    slices, 32-key blocks; d = 260 pads to 288 columns, not 512), d_k != d_v
-    among them: its 3xTF32 arithmetic stays within 1e-5 of the float32
-    function, the plain version and the JAX package's XLA attention on the
-    same numpy inputs."""
+    """Float32 heads past 256 on the wide kernel (16-key blocks, d_k whole
+    up to 272 and in chunks of 272 past it, d_v in one pass up to 272 and in
+    slices past it), d_k != d_v among them: its 3xTF32 arithmetic stays
+    within 1e-5 of the float32 function, the plain version and the JAX
+    package's XLA attention on the same numpy inputs."""
     N, Lq, S, heads = 1, 20, 70, 2
     assert fused_attention.pick_route(torch.float32, S, dk, dv) == "wide_f32"
     q, k, v = _qkv(rng, N, Lq, S, heads * dk, heads * dv)
@@ -571,21 +667,16 @@ def test_wide_kernel_f32_keeps_float32(rng, dk, dv):
     _close(ours, _xla_impl(*map(jnp.asarray, (q, k, v)), heads))
 
 
-@pytest.mark.parametrize("dk,dv", [(260, 260), (136, 64), (72, 144)])
-def test_wide_kernel_bf16_matches_jax(rng, dk, dv):
-    """bfloat16 heads past 128 on the wide kernel, d_k != d_v among them.
-    With p split into tf32 hi + lo (``split_p``), its arithmetic on the bf16
-    values stays within 1e-5 of the float32 function of those values (the
-    plain version in float32), so the output's own rounding is the only one
-    left.  With p rounded to bf16 once (``round_p``, the default), against
-    the JAX package's attention in bf16 (XLA, mha_attention): one bf16 ulp of
-    the output plus :func:`_round_p_tolerance`'s flip, plus 2^-8 max|v| for
-    p rounded before it is normalised (both roundings relative, 2^-9 of a
-    term each), the key-block kernels' allowance on the card."""
-    N, Lq, S, heads = 1, 20, 70, 2
-    assert fused_attention.pick_route(torch.bfloat16, S, dk, dv) == "wide_bf16"
-    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
-               for a in _qkv(rng, N, Lq, S, heads * dk, heads * dv))
+def _hold_wide_bf16(q, k, v, heads):
+    """The bf16 wide kernel's two modes of p against their references: with
+    p split into bf16 p_hi + p_lo (``split_p``), within 1e-5 of the float32
+    function of the same bf16 values (the plain version in float32), so the
+    output's own rounding is the only one left; with p rounded to bf16 once
+    (``round_p``, the default), against the JAX package's attention in bf16
+    (XLA, mha_attention): one bf16 ulp of the output plus
+    :func:`_round_p_tolerance`'s flip, plus 2^-8 max|v| for p rounded before
+    it is normalised (both roundings relative, 2^-9 of a term each), the
+    key-block kernels' allowance on the card."""
     ref = fused_attention.attention_plain(q, k, v, heads)
     assert (_wide_kernel_emulation(q, k, v, heads, "split_p") - ref).abs().max().item() <= 1e-5
     ours = _wide_kernel_emulation(q, k, v, heads, "round_p").to(torch.bfloat16).float().numpy()
@@ -596,34 +687,79 @@ def test_wide_kernel_bf16_matches_jax(rng, dk, dv):
     assert np.all(np.abs(ours - want) <= tol)
 
 
+@pytest.mark.parametrize("dk,dv", [(260, 260), (136, 64), (72, 144), (300, 300)])
+def test_wide_kernel_bf16_matches_jax(rng, dk, dv):
+    """bfloat16 heads past 128 on the wide kernel, d_k != d_v and d_k past
+    272 (in chunks) among them, in both modes of p (:func:`_hold_wide_bf16`).
+    split_p keeps 16 bits of p (WIDE_BF16_P_BITS: p_hi + p_lo in bf16, as
+    the bf16 key-block kernel; the first design's tf32 split kept 21): p - p_hi - p_lo
+    is within 2^-16 of p, where a single bf16 rounding is off by up to
+    2^-9."""
+    N, Lq, S, heads = 1, 20, 70, 2
+    assert fused_attention.pick_route(torch.bfloat16, S, dk, dv) == "wide_bf16"
+    assert fused_attention.WIDE_BF16_P_BITS == 16
+    p = torch.from_numpy(rng.random(4096).astype(np.float32))
+    p_hi = p.to(torch.bfloat16).float()
+    p_lo = (p - p_hi).to(torch.bfloat16).float()
+    assert ((p - p_hi - p_lo).abs() <= 2.0 ** -fused_attention.WIDE_BF16_P_BITS * p).all()
+    assert ((p - p_hi).abs() > 2.0 ** -fused_attention.WIDE_BF16_P_BITS * p).any()
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
+               for a in _qkv(rng, N, Lq, S, heads * dk, heads * dv))
+    _hold_wide_bf16(q, k, v, heads)
+
+
+@pytest.mark.parametrize("S", [16, 64])
+def test_wide_kernel_bf16_phase14_window(rng, S):
+    """Phase 14's HCM (MODEL.VISUAL_LING_ATTN.h 1: one head of d_model 256)
+    sends its rgb (S = 16) and depth (S = 64) attention to the bf16 wide
+    kernel: at that shape, with a tiny N, both modes of p hold to their
+    references (:func:`_hold_wide_bf16`); d_v = 256 is one slice, one pass."""
+    N, Lq, heads, d = 2, 24, 1, 256
+    assert fused_attention.pick_route(torch.bfloat16, S, d, d) == "wide_bf16"
+    assert fused_attention.wide_slices(d) == 1 and fused_attention.wide_width(d) == d
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
+               for a in _qkv(rng, N, Lq, S, heads * d, heads * d))
+    _hold_wide_bf16(q, k, v, heads)
+
+
 def test_wide_kernel_slices_and_smem():
-    """The wide kernel's slices of d_v (ceil(d_v / 128), of even width
-    rounded up to 8) and its shared memory (wide_smem_bytes<T>: the ring of
-    3 stages of a Q and a K chunk, in rows of 40 values, and a V slice, in
-    rows of 132 floats or 136 bf16), its formula and constants read from the
-    source, within one block's limit whatever the sizes."""
+    """The wide kernels' slices of d_v (ceil(d_v / 272), of even width
+    rounded up to 8; one pass up to 272) and their shared memory
+    (wide_bf16_smem_bytes: the 128-row Q tile and a ring of 4 key blocks of
+    K and V, in rows of 280 values; wide_f32_smem_bytes: Q, K and Vᵀ split into hi and
+    lo, six mbarriers), formulas and constants read from the source, within
+    one block's limit whatever the sizes."""
     src = (_build.CSRC / "cross_modal_attn.cu").read_text()
+    names = {"kWideTile": "WIDE_TILE", "kWideDk": "WIDE_DK", "kWideHalf": "WIDE_HALF",
+             "kWideBf16Tile": "WIDE_BF16_TILE",
+             "kWideBf16Warps": "WIDE_BF16_WARPS", "kWideBf16Keys": "WIDE_BF16_KEYS",
+             "kWideBf16Stages": "WIDE_BF16_STAGES", "kWgKeys": "WIDE_F32_KEYS"}
     consts = {name: int(value) for name, value in re.findall(
-        r"constexpr int (kWideWarps|kWideKeys|kWideChunk|kWideSlice|kWideStages) = (\d+);",
-        src)}
-    assert consts == {"kWideWarps": fused_attention.WIDE_WARPS,
-                      "kWideKeys": fused_attention.WIDE_KEYS,
-                      "kWideChunk": fused_attention.WIDE_CHUNK,
-                      "kWideSlice": fused_attention.WIDE_SLICE,
-                      "kWideStages": fused_attention.WIDE_STAGES}
-    body = re.search(r"size_t wide_smem_bytes\(\) \{(.*?)\n\}", src, re.S)
+        r"constexpr int (" + "|".join(names) + r") = (\d+);", src)}
+    assert consts == {c: getattr(fused_attention, py) for c, py in names.items()}
+    assert "constexpr int kWideBf16Pitch = kWideDk + 8;" in src
+    assert "constexpr int kWgVRows = 2 * kWideHalf;" in src
+    body = re.search(r"size_t wide_bf16_smem_bytes\(\) \{(.*?)\n\}", src, re.S)
     assert " ".join(body.group(1).split()) == (
-        "return sizeof(T) * ((size_t)kWideStages * WidePitch<T>::kStage + "
-        "(size_t)kWideKeys * WidePitch<T>::kV);")
-    assert "static constexpr int kV = kWideSlice + (kF32 ? 4 : 8);" in src
-    assert "static constexpr int kStage = (kWideTile + kWideKeys) * kQK;" in src
-    assert fused_attention.smem_bytes(200, 260, 260) == 4 * (3 * 96 * 40 + 32 * 132) == 62_976
-    assert fused_attention.smem_bytes(1, 1000, 3000, torch.bfloat16) == 2 * (
-        3 * 96 * 40 + 32 * 136) == 31_744
-    for dv, slices, width in ((260, 3, 88), (257, 3, 88), (300, 3, 104), (129, 2, 72),
-                              (256, 2, 128), (136, 2, 72), (1, 1, 8), (1000, 8, 128)):
+        "return sizeof(__nv_bfloat16) * kWideBf16Pitch * "
+        "(kWideBf16Tile + 2 * kWideBf16Stages * kWideBf16Keys);")
+    body = re.search(r"size_t wide_f32_smem_bytes\(\) \{(.*?)\n\}", src, re.S)
+    assert " ".join(body.group(1).split()) == (
+        "return sizeof(float) * (2 * (size_t)kWideTile * kWideDk + 2 * (size_t)kWgKeys * "
+        "kWideDk + 2 * (size_t)kWgVRows * kWgKeys) + 6 * sizeof(uint64_t);")
+    body = re.search(r"constexpr int wide_slices\(int dv\) \{(.*?)\n\}", src, re.S)
+    assert " ".join(body.group(1).split()) == (
+        "return (dv + 2 * kWideHalf - 1) / (2 * kWideHalf);")
+    assert fused_attention.smem_bytes(200, 260, 260) == 4 * (
+        2 * 64 * 272 + 2 * 16 * 272 + 2 * 272 * 16) + 48 == 208_944
+    assert fused_attention.smem_bytes(1, 1000, 3000, torch.bfloat16) == 2 * 280 * (
+        128 + 2 * 4 * 32) == 215_040 <= fused_attention.SMEM_LIMIT
+    assert 208_944 <= fused_attention.SMEM_LIMIT
+    for dv, slices, width in ((260, 1, 264), (256, 1, 256), (272, 1, 272), (273, 2, 144),
+                              (300, 2, 152), (129, 1, 136), (1, 1, 8), (1000, 4, 256),
+                              (3000, 12, 256)):
         assert (fused_attention.wide_slices(dv), fused_attention.wide_width(dv)) == (slices, width)
-        assert (slices - 1) * width < dv <= slices * width <= slices * fused_attention.WIDE_SLICE
+        assert (slices - 1) * width < dv <= slices * width <= slices * 2 * fused_attention.WIDE_HALF
 
 
 def test_tf32_rounding_is_round_half_away():
@@ -657,7 +793,7 @@ def test_f32_attention_route(S, dk, dv, aligned, route, bf16_route):
     among them, S = 200 in key blocks, d off a multiple of 8 zero-filled,
     unaligned pointers by one-float copies) and the wide kernel for d_k or
     d_v above 256, decided before the launch; bfloat16 calls take the bf16
-    kernels up to d = 128 (zero-filled past d_k and d_v, one value a copy
+    kernels up to d = 128 (zero-filled past d_k and d_v, the fill instance
     for unaligned pointers or d off a multiple of 8) and the wide kernel
     past it.  Only sizes no function takes (S or d below 1) raise, in both
     dtypes (``None``)."""
@@ -814,8 +950,9 @@ def test_bf16_key_block_smem_fits():
     """Past S = 128 the bf16 key blocks need the same shared memory at every
     S (bf16_blocks_smem_bytes in csrc/cross_modal_attn.cu, its formula and
     constants read from the source): the 64-row Q tile and the ring's 3
-    stages of K and V of 32 keys, in rows of d + 8 values, within one
-    block's limit at every head size the route takes."""
+    stages of K and V of 32 keys (the fill instance's 4, at every S), in rows
+    of d + 8 values, within one block's limit at every head size the route
+    takes."""
     src = (_build.CSRC / "cross_modal_attn.cu").read_text()
     consts = {name: int(value) for name, value in re.findall(
         r"constexpr int (kBf16BlockWarps|kBf16KeyChunks|kBf16Stages) = (\d+);", src)}
@@ -823,10 +960,17 @@ def test_bf16_key_block_smem_fits():
                       "kBf16KeyChunks": fused_attention.BF16_KEY_CHUNKS,
                       "kBf16Stages": fused_attention.BF16_STAGES} == {
         "kBf16BlockWarps": 4, "kBf16KeyChunks": 2, "kBf16Stages": 3}
-    body = re.search(r"size_t bf16_blocks_smem_bytes\(int D\) \{(.*?)\n\}", src, re.S)
+    body = re.search(r"size_t bf16_blocks_smem_bytes\(int D, bool kFill = false\) \{(.*?)\n\}",
+                     src, re.S)
     assert " ".join(body.group(1).split()) == (
-        "return sizeof(__nv_bfloat16) * (D + kPad) * "
-        "(16 * kBf16BlockWarps + 2 * kBf16Stages * 16 * kBf16KeyChunks);")
+        "return sizeof(__nv_bfloat16) * (D + kPad) * (16 * kBf16BlockWarps + 2 * (kFill ? "
+        "kBf16FillStages : kBf16Stages) * 16 * kBf16KeyChunks);")
+    assert int(re.search(r"constexpr int kBf16FillStages = (\d+);", src).group(1)) == (
+        fused_attention.BF16_FILL_STAGES) == 4
+    for d in range(16, 129, 16):  # the fill instance, a stage more, at any S
+        want = 2 * (d + 8) * (16 * 4 + 2 * 4 * 16 * 2)
+        assert {fused_attention.smem_bytes(S, d, d, torch.bfloat16, aligned=False)
+                for S in (1, 64, 200)} == {want} and want <= fused_attention.SMEM_LIMIT
     for d in range(16, 129, 16):
         want = 2 * (d + 8) * (16 * 4 + 2 * 3 * 16 * 2)
         sizes = {fused_attention.smem_bytes(S, d, d, torch.bfloat16)

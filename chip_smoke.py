@@ -37,7 +37,8 @@ exit code and no result line:
    and cuDNN's backward), and the cross-modal attention
    kernel in its three routes: float32 on the tensor cores (3xTF32, the
    route of every float32 call with d_k and d_v up to 256, zero-filled to
-   the instance's D, in key blocks past S = 128 and at D = 256, copying one
+   the instance's D, in key blocks past S = 128 and at D = 256, on
+   warpgroup MMA at D = 128 and 256 and on mma.sync below, copying one
    float at a time for unaligned pointers or d off a multiple of 4), the
    first float32 kernel, on the CUDA cores (forced; no call is routed there),
    the wide-head kernel (float32 d above 256) and bfloat16 (the serving
@@ -82,7 +83,10 @@ exit code and no result line:
    the window's size in both dtypes against the plain version and SDPA
    (float32 also against the CUDA-core kernel forced, bf16 in both modes), as are
    float32 S=500, d=60, S=64, d=60 and S=200, d=256, h=2 (with the wide
-   kernel forced there too), the wide kernel at d=260 in both dtypes (float32
+   kernel forced there too) and phase 14's float32 window at d=256, h=1,
+   S=16 and 64 (the key-block kernel's D = 256 instance, a cluster of two
+   blocks; also held to the plain version with N=200, as are d_k != d_v
+   across the cluster's halves and S=1000 at d=32), the wide kernel at d=260 in both dtypes (float32
    beside the CUDA-core kernel forced, which it must beat) and at phase 14's bf16
    shapes, bf16 at d=72 beside the aligned d=80 and from unaligned pointers
    beside the aligned d=64, and the LSTM's wide
@@ -352,7 +356,10 @@ exit code and no result line:
    ``loader_launches``: 13a's epoch; ``mesh_launches``: 13b's epoch and
    13c's steps of both ranks; ``wide_launches``: phase 14's runs with the
    kernels; then the kernels past the former ranges
-   (cross_modal_attn_wide_f32, cross_modal_attn_wide_bf16, lstm_seq_wide,
+   (cross_modal_attn_f32_key_blocks: the float32 key-block kernel at phase
+   14's float32 window, with (a) S=144, h=4, d=64, (b) S=200, h=4, d=128,
+   (c) S=500, h=4, d=60 and (e) S=200, h=2, d=256 under a_*, b_*, c_* and
+   e_*; cross_modal_attn_wide_f32, cross_modal_attn_wide_bf16, lstm_seq_wide,
    lstm_seq_backward_wide), their ``launches`` phase 14's.  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
@@ -1136,8 +1143,8 @@ def check_wider_shapes(gen, device):
     match the plain version; timings of those shapes against the plain
     version and SDPA or cuDNN; and the calls the forced-only dg_exchange
     backward refuses, before any launch.  Returns (the attention timing and
-    error fields, the wide attention kernel's kernels-line entries, the
-    wide LSTM kernels' entries)."""
+    error fields, the kernels-line entries of the float32 key-block kernel
+    and the wide attention kernel, the wide LSTM kernels' entries)."""
     from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence
 
@@ -1198,7 +1205,7 @@ def check_wider_shapes(gen, device):
     # head of d_model 256, as phase 14, S = 16 and 64), 260 (8-byte copies),
     # 300 (d_k in chunks) and one element off, and in float32 three off
     tc, wf, wb = "f32_tensor_core", "wide_f32", "wide_bf16"
-    errors, wide_worst = {}, {wf: 0.0, wb: 0.0}
+    errors, wide_worst, key_block_worst = {}, {wf: 0.0, wb: 0.0}, 0.0
     for n, S, h, dtype, d, offset, tol, route, key in (
             (8, 144, 4, bf16, 64, 0, ATTN_BF16_TOL, "bf16", None),
             (8, 300, 4, bf16, 128, 0, ATTN_BF16_TOL, "bf16", None),
@@ -1216,6 +1223,11 @@ def check_wider_shapes(gen, device):
             (8, 300, 4, f32, 64, 1, ATTN_TOL, tc, "f32_unaligned_s300"),
             (200, 200, 2, f32, 256, 0, ATTN_TOL, tc, "f32_s200_d256_h2"),
             (8, 16, 2, f32, 256, 1, ATTN_TOL, tc, None),
+            (200, 16, 1, f32, 256, 0, ATTN_TOL, tc, "f32_s16_d256_h1"),
+            (200, 64, 1, f32, 256, 0, ATTN_TOL, tc, "f32_s64_d256_h1"),
+            (8, 70, 2, f32, (200, 100), 0, ATTN_TOL, tc, None),
+            (8, 70, 2, f32, (100, 200), 1, ATTN_TOL, tc, None),
+            (8, 1000, 1, f32, 32, 0, ATTN_TOL, tc, None),
             (8, 200, 2, f32, 260, 0, ATTN_TOL, wf, "wide_f32_d260"),
             (8, 200, 2, f32, 512, 0, ATTN_TOL, wf, "wide_f32_d512"),
             (8, 200, 2, f32, (260, 64), 0, ATTN_TOL, wf, "wide_f32_dk260_dv64"),
@@ -1259,6 +1271,8 @@ def check_wider_shapes(gen, device):
                 blocks = [a - b for a, b in zip(key_block_launches(), blocks)]
                 if blocks != expected_key_blocks(route, q, k, v, h):
                     fail(f"{tag}: {blocks} ({', '.join(KEY_BLOCK_COUNTS)}) launches")
+                if route == tc and blocks[0]:
+                    key_block_worst = max(key_block_worst, err)
                 copies = [a - b for a, b in zip(bf16_copy_launches(), copies)]
                 if copies != expected_bf16_copies(route, q, k, v, h):
                     fail(f"{tag}: {copies} (bf16 copies {', '.join(fused_attention.BF16_COPIES)}) "
@@ -1369,7 +1383,32 @@ def check_wider_shapes(gen, device):
                                         "phase 14's window: VisualLingAttn h = 1"))
     wide_bf16_d260 = time_attention(gen, device, "d260", 200, 200, 200, 2, 260, bf16,
                                     "d = 260 over 2 heads: 8-byte copies")
+    # one float32 window of phase 14 launches the key-block kernel's D = 256
+    # instance twice, as the bf16 window the wide kernel
+    pair = {}
+    for S in (16, 64):
+        pair.update(time_attention(gen, device, f"s{S}", 200, 200, S, 1, 256, f32,
+                                   "phase 14's float32 window: VisualLingAttn h = 1, D = 256"))
+    rows = (("a", "f32_s144"), ("b", "f32_s200_d128"), ("c", "f32_s500_d60"),
+            ("e", "f32_s200_d256_h2"))
     entries = [{
+        "name": "cross_modal_attn_f32_key_blocks", "route": "cuda",
+        "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
+        "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
+        "max_abs_err": key_block_worst,
+        **{key: pair[f"s16_{key}"] + pair[f"s64_{key}"]
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": pair["s64_bound_by"],
+        **{f"{row}_{key}": timings[f"{prefix}_{key}"] for row, prefix in rows
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "work": "2 calls, N=200 Lq=200 h=1 d=256 at S=16 and S=64 (one float32 window "
+                "forward of phase 14: the D = 256 instance, a cluster of two blocks a query "
+                "tile), 3xTF32 on warpgroup MMA; a_*, b_*, c_*, e_*: one call each at N=200 "
+                "Lq=200, (a) S=144 h=4 d=64, (b) S=200 h=4 d=128, (c) S=500 h=4 d=60, (e) "
+                "S=200 h=2 d=256; max_abs_err over phase 3c's float32 key-block calls; "
+                "launches: phase 14 (2 a float32 window, 2 a float32 train step)",
+        "library": "torch.nn.functional.scaled_dot_product_attention on head views",
+    }, {
         "name": "cross_modal_attn_wide_f32", "route": "cuda",
         "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
         "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
@@ -5459,7 +5498,8 @@ def main():
     for name, log in logs.items():
         for kernel, regs, spill in ptxas_usage(log):
             print(f"  {name}: {kernel}: {regs} registers, {spill} bytes spill stores")
-            if kernel.startswith(("cross_modal_attn_f32tc", "cross_modal_attn_bf16_blocks",
+            if kernel.startswith(("cross_modal_attn_f32tc", "cross_modal_attn_f32wg",
+                                  "cross_modal_attn_bf16_blocks",
                                   "cross_modal_attn_wide", "lstm_seq_backward_partials",
                                   "lstm_seq_wide")) and spill:
                 fail(f"{kernel} spills {spill} bytes")
@@ -5556,9 +5596,13 @@ def main():
                                                               backward["train_launches"])
     for k in kernels:
         k["wide_launches"] = wide.get(k["name"], 0)
-    # the kernels past the former ranges: phase 14 is their path
+    # the kernels past the former ranges: phase 14 is their path (the float32
+    # key blocks counted as wide_path counts them)
+    counted_as = {"cross_modal_attn_f32_key_blocks": "f32_key_block"}
     for k in (*wide_attention, *wide_lstm):
-        k["launches"] = wide.get(k["name"], 0)
+        k["launches"] = wide.get(counted_as.get(k["name"], k["name"]), 0)
+    if not wide_attention[0]["launches"]:
+        fail("phase 14 launched the float32 key-block kernel no time")
     kernels += [*wide_attention, *wide_lstm]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

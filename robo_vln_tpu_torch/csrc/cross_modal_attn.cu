@@ -109,7 +109,9 @@
 // the fragments (see the kernel).  At D = 128 with S > 64 the split tiles do
 // not fit in shared memory, and each warp splits the values it reads.
 //
-// float32 on the tensor cores past S = 128: key blocks.  Holding a head's
+// float32 on the tensor cores past S = 128 at D = 32 and 64: key blocks
+// on mma.sync (D = 128 and 256 take the warpgroup-MMA kernel, below).
+// Holding a head's
 // K and V whole, split, makes shared memory grow with S (a block needs
 // 174,080 bytes at S = 128, d = 64).  What bounds it is again bytes at d = 64 (S =
 // 144 at the window's N: 0.042 ms at 3.35 TB/s against 0.036 ms for the
@@ -141,14 +143,17 @@
 // The whole-key kernel keeps S ≤ 128: on the H100, forced onto the window's calls (d =
 // 64), the key blocks took 1.43× its time at S = 16 (half the key block
 // zeros, the copy, barriers and rescale) and 0.985× at S = 64, so 1.13×
-// for the window's two calls (chip_smoke.py phase 3b times both).
-// At D = 256 the 128-row Q tile alone takes 135,168 bytes, so no whole-key
-// instance fits and the key blocks take every S: key blocks of 8 keys (KC
-// = 1), one split tile and one raw buffer, 184,704 bytes, one block of 8
-// warps an SM, 128 output accumulators a thread.  (64-row tiles of 4
-// warps fit 16-key blocks in 166,656 bytes: one block, 4 warps, an SM;
-// slicing d_v across the grid keeps the 135,168-byte Q tile and computes
-// the logits once a slice.)
+// for the window's two calls (chip_smoke.py phase 3b times both).  At D
+// = 64 the warpgroup-MMA design below lost to this kernel at S = 144 on the
+// H100 (0.1676 against 0.147 ms at N = 200, h = 4, with two stages of K and
+// Vᵀ), so D = 32 and 64 stay here.
+//
+// float32 past S = 128 at D = 128, and at every S at D = 256 (where no
+// whole-key instance fits): key blocks on warpgroup MMA
+// (cross_modal_attn_f32wg_blocks_kernel, its note below), 3xTF32.  Its
+// mma.sync predecessor (32-key blocks at D = 128, 8-key blocks at D = 256,
+// 8 warps of 16 query rows) ran at mma.sync's ceiling of about 81 TFLOP/s
+// and lost to SDPA at D = 256.
 //
 // Wide heads, float32 with d_k or d_v above 256 and bfloat16 above 128, any
 // S and alignment: cross_modal_attn_wide_f32_kernel on warpgroup MMA and
@@ -1689,23 +1694,18 @@ __host__ __device__ constexpr size_t f32tc_blocks_smem_bytes(int D, int KC) {
                           (size_t)4 * KC * (4 * D + 8) + (size_t)16 * KC * D);
 }
 
-// 8-key chunks of one key block: 32 keys up to D = 128 (see the note at the
-// top); 8 at D = 256, where the 128-row Q tile alone takes 135,168 bytes and
-// a key block of 16 keys with its raw buffer would need 234,240
+// 8-key chunks of one key block: 32 keys (see the note at the top)
 constexpr int kF32KeyChunks = 4;
-constexpr int kF32KeyChunksD256 = 1;
 
-// S > 128, or D = 256 at any S: the keys streamed in key blocks of 8·KC
-// with an online softmax.  D: d_k and d_v rounded up to 32, 64, 128 or
-// 256; kNarrow: the copy width, as above.  The query tiles, warps,
+// S > 128 at D = 32 and 64 (D = 128 and 256 take the warpgroup-MMA kernel
+// below): the keys streamed in key blocks of 8·KC with an online softmax.
+// D: d_k and d_v rounded up to 32 or 64; kNarrow: the copy width, as above.  The query tiles, warps,
 // fragments and split layouts are those of cross_modal_attn_f32tc_kernel;
 // the tiles are zero past Lq, S, d_k and d_v.  Every warp copies and
 // splits, and meets the barriers, including a warp with no query rows in
 // a partial tile, which multiplies nothing.  Its register budget allows 16
 // more a thread than the kernel above (the running max and sums and the
-// copy's addresses live across the key-block loop; at 40, D = 32 spilled);
-// at D = 256 one block an SM (184,704 bytes), so up to 255 registers a
-// thread for its 128 output accumulators.
+// copy's addresses live across the key-block loop; at 40, D = 32 spilled).
 template <int D, int KC, bool kNarrow>
 __global__ void __launch_bounds__(kF32Warps * 32,
                                   f32tc_blocks_an_sm(D, KC, 56, f32tc_blocks_smem_bytes(D, KC)))
@@ -1906,7 +1906,7 @@ cross_modal_attn_f32tc_blocks_kernel(const float* __restrict__ q,  // (N, Lq, h*
 template <int D, bool kNarrow>
 int launch_f32tc_blocks(const void* q, const void* k, const void* v, void* out, int N,
                         int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
-  constexpr int KC = D <= 128 ? kF32KeyChunks : kF32KeyChunksD256;
+  constexpr int KC = kF32KeyChunks;
   static SmemOptIn opt_in;
   constexpr size_t smem = f32tc_blocks_smem_bytes(D, KC);
   static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
@@ -1924,14 +1924,25 @@ int launch_f32tc_blocks(const void* q, const void* k, const void* v, void* out, 
   return (int)cudaGetLastError();
 }
 
+// D = 128 and 256, past S = 128 and at every S at D = 256: the keys streamed
+// in key blocks on warpgroup MMA (cross_modal_attn_f32wg_blocks_kernel,
+// below)
+template <int D, bool kNarrow>
+int launch_f32wg_blocks(const void* q, const void* k, const void* v, void* out, int N,
+                        int Lq, int S, int heads, int dk, int dv, cudaStream_t stream);
+
 // The keys whole (S <= 128, D <= 128) or, where key_blocks, streamed in
 // key blocks (any S); D = 256 only in key blocks.
 template <int D, bool kNarrow>
 int launch_f32tc(const void* q, const void* k, const void* v, void* out, int N,
                  int Lq, int S, int heads, int dk, int dv, bool key_blocks,
                  cudaStream_t s) {
-  if (key_blocks)
-    return launch_f32tc_blocks<D, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  if (key_blocks) {
+    if constexpr (D >= 128)
+      return launch_f32wg_blocks<D, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+    else
+      return launch_f32tc_blocks<D, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
+  }
   if constexpr (D <= 128) {
     if (S <= 16)
       return launch_f32tc_tiles<D, 2, kNarrow>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
@@ -2343,6 +2354,47 @@ __device__ __forceinline__ void wgmma_n136_rs(float (&d)[68], const uint32_t (&a
       "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
       "+f"(d[67])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += a·b on a 64 × 32 × 8 tile: A and B from shared memory (descriptors),
+// accumulators as wgmma_n16_ss's
+__device__ __forceinline__ void wgmma_n32_ss(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += a·b on a 64 × 128 × 8 tile: A from registers (as wgmma_n136_rs's),
+// B from shared memory
+__device__ __forceinline__ void wgmma_n128_rs(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -2836,6 +2888,574 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, int N, i
   return launch_wide_bf16_as<false, false>(q, k, v, out, N, Lq, S, heads, dk, dv, s);
 }
 
+// ------------------------------------------ float32 key blocks on wgmma
+
+constexpr int kF32WgTile = 128;     // query rows of a block: two consumer warpgroups of 64
+constexpr int kF32WgThreads = 384;  // the two consumer warpgroups and a producer warpgroup
+// registers a thread: 168 at launch (65,536 over 384 threads), then the
+// producer gives some up to the consumers' accumulators
+constexpr int kF32WgProducerRegs = 136, kF32WgConsumerRegs = 184;
+// named barriers: 1 + w, consumer warpgroup w's Q; kF32WgTurn + w, its turn
+// on the tensor cores
+constexpr int kF32WgTurn = 3;
+static_assert(kF32WgProducerRegs + 2 * kF32WgConsumerRegs <= 3 * 168, "one register file");
+
+constexpr int kF32WgCols = 128;  // columns of d_k and d_v a block holds
+constexpr int kF32WgKeys = 32;   // keys of a key block: q·kᵀ's N
+
+// Blocks of a cluster at instance D (128 or 256), each holding 128 columns
+// of d_k and of d_v: at D = 256 one block cannot hold the split 128-row Q
+// tile (262,144 bytes)
+__host__ __device__ constexpr int f32_wg_cluster(int D) { return D / kF32WgCols; }
+
+// Shared memory of one block of cross_modal_attn_f32wg_blocks_kernel<D>:
+// Q's hi and lo parts (128 rows of 128 columns), K's (a key block's rows of
+// as many) and Vᵀ's (as many rows of a key block's keys), in floats, the
+// peer's partial logits of two key blocks where the cluster has two
+// blocks, and eight mbarriers
+__host__ __device__ constexpr size_t f32_wg_smem_bytes(int D) {
+  return sizeof(float) * (2 * (size_t)kF32WgTile * kF32WgCols +
+                          4 * (size_t)kF32WgKeys * kF32WgCols +
+                          2 * (size_t)(f32_wg_cluster(D) - 1) * kF32WgTile * kF32WgKeys) +
+         8 * sizeof(uint64_t);
+}
+
+// Component i of v (i from 0 to 3, a thread's own), by selects
+__device__ __forceinline__ float pick4(float4 v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// Named barrier `id` of `count` threads: wait for it, or arrive without waiting
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster's blocks
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of p (in this block's shared memory) in block `rank`'s
+__device__ __forceinline__ uint32_t peer_address(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// 16 bytes into the peer's shared memory at addr, asynchronously: their
+// arrival counts 16 bytes of the transactions the peer's mbarrier at bar
+// expects
+__device__ __forceinline__ void store_peer4(uint32_t addr, float a, float b, float c, float d,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// One arrival on this block's mbarrier, announcing `bytes` of transactions
+// (the peer's asynchronous stores) that complete its phase with it
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// mbar_wait at cluster scope: the peer's writes before its arrivals are seen
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// D = 128 past S = 128, and D = 256 at any S: the keys streamed in key
+// blocks, any d_k and d_v up to D (the tiles zero-filled past them), any S
+// and any float32 pointer (kNarrow: Q, K and V one float a load).
+// Replaces the mma.sync key-block kernel at these D (3xTF32 on mma.sync, 8
+// warps of 16 query rows over 128-row tiles, 32-key blocks at D = 128 and
+// 8-key blocks at D = 256, each warp splitting its Q fragments anew every
+// key block: 0.6072-0.6080 ms at N = 200, Lq = 200, S = 200, h = 2, d = 256,
+// 1.1× SDPA's time, and 0.4574-0.4583 at h = 4, d = 128).  What bounds it:
+// operations, three tf32 products (0.0993 ms at both shapes at 495
+// TFLOP/s), which mma.sync does not pass 81 TFLOP/s of; wgmma does, at a
+// wide enough N: on the H100 (scripts/wgmma_rate_probe.py) m64n16k8 from
+// shared memory reaches 30% of the tf32 peak with one warpgroup an SM,
+// m64n32k8 52% (65% with two), m64n64k8 82% (97%), and with A from
+// registers m64n128k8 91%.  The design: blocks of 128 query rows, two
+// consumer warpgroups of 64 and a producer warpgroup, persistent (as many
+// blocks, or clusters, as the card holds, each walking over (example,
+// head, 128-row tile), a head's tiles side by side); every block holds 128
+// columns of d_k and d_v, so at D = 256 a cluster of two blocks splits D.
+// Each consumer warpgroup copies its 64 rows of Q by cp.async and splits
+// them in place into tf32 hi and lo (the next tile's as soon as its last
+// q·kᵀ of this one is done); the producer stages each 32-key block's K
+// (split) and V (transposed, split), K-major in 8-row by 16-byte core
+// matrices, from values loaded into its registers a key block ahead (16
+// bytes a load, 4 with kNarrow; V's 4 columns of 4 keys written in a
+// rotated order, so no two of 8 neighbouring threads hit one bank), each
+// handed over by a full and an empty mbarrier, K a key block ahead of V.
+// A consumer warpgroup takes the online softmax of a key block in base 2
+// in its accumulators, then, on its turn on the tensor cores (two named
+// barriers hand the turn back and forth, so one warpgroup's softmax runs
+// under the other's products), issues q·kᵀ of the next key block, wgmma
+// m64n32k8 from shared memory in 3xTF32 (q_lo·k_hi, q_hi·k_lo, then
+// q_hi·k_hi each k-step), and p·v of this one, wgmma m64n128k8 with p's hi
+// and lo parts as A from registers (the logits' accumulator layout is p's
+// A layout once each 8 keys of Vᵀ are in the order 0, 2, 4, 6, 1, 3, 5, 7)
+// and Vᵀ from shared memory.  At D = 256 each block's logits cover its
+// half of d_k; it sends them to the other block's shared memory by
+// st.async, whose bytes complete that block's mbarrier (no release fence:
+// an arrival at cluster scope after remote stores cost about 1,500 clocks
+// a key block), and both add the two halves in the same order, so their
+// softmax is the same.  The split 128-row Q tile of 128 columns takes
+// 131,072 bytes, a key block of K and one of Vᵀ 32,768 each: one block an
+// SM, one stage each (a second Vᵀ stage at D = 128 bought nothing), 32-key
+// blocks (64-key blocks do not fit beside both warpgroups' Q).  Each step
+// of the two warpgroups ran at about 60% of the tf32 peak while they issue
+// q·kᵀ's 48 small wgmma, whose issue stalls as they execute, so the
+// products of one warpgroup do not overlap its own softmax
+// (scripts/f32_key_block_probe.py times the rows of PERF.md).
+template <int D, bool kNarrow>
+__global__ void __launch_bounds__(kF32WgThreads, 1)
+cross_modal_attn_f32wg_blocks_kernel(const float* __restrict__ q,  // (N, Lq, h*dk)
+                                     const float* __restrict__ k,  // (N, S, h*dk)
+                                     const float* __restrict__ v,  // (N, S, h*dv)
+                                     float* __restrict__ out,      // (N, Lq, h*dv)
+                                     int Lq, int S, int heads, int dk, int dv, int tiles,
+                                     int work, float scale) {
+  constexpr int C = f32_wg_cluster(D), DH = kF32WgCols, KB = kF32WgKeys;
+  static_assert(D == 128 || D == 256, "one block, or a cluster of two, of 128 columns");
+  constexpr int kRow = DH / 4;  // 16-byte items of a Q or K row
+  constexpr int kKRounds = KB * kRow / 128;
+  constexpr int kVRounds = kRow * (KB / 4) / 128;  // V items: 4 columns of 4 keys
+  static_assert(64 * kRow % 128 == 0 && KB * kRow % 128 == 0 && kRow * (KB / 4) % 128 == 0 &&
+                    kRow % 8 == 0,
+                "whole rounds of 128 threads");
+  constexpr uint32_t kSboQK = 32 * DH, kSboV = 32 * KB;  // bytes from 8 rows to the next
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_hi = reinterpret_cast<float*>(smem_raw);  // (128, DH), core order
+  float* q_lo = q_hi + kF32WgTile * DH;
+  float* k_hi = q_lo + kF32WgTile * DH;  // (KB, DH), core order
+  float* k_lo = k_hi + KB * DH;
+  float* vt_hi = k_lo + KB * DH;  // (DH, KB), core order
+  float* vt_lo = vt_hi + DH * KB;
+  // the peer's partial logits: (buffer, warpgroup, KB / 8, 128 threads, 4)
+  float* xs = vt_lo + DH * KB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xs + 2 * (C - 1) * kF32WgTile * KB);
+  uint64_t *k_full = bars, *k_empty = bars + 1, *v_full = bars + 2, *v_empty = bars + 3;
+  uint64_t* x_full = bars + 4;  // x_full[2 · buffer + warpgroup]
+
+  uint32_t rank = 0;  // the block's place in its cluster: which half of D it holds
+  if constexpr (C > 1) rank = cluster_rank();
+  const int c0 = rank * DH;  // the block's first column of d_k and d_v
+  const int ldk = heads * dk, ldv = heads * dv;
+  const int dk_left = dk - c0, dv_left = dv - c0;  // the block's columns below d_k, d_v
+  const int n_blocks = (S + KB - 1) / KB;
+  // the cluster's query tiles: (example, head, 128-row tile) number
+  // blockIdx.x / C, then every gridDim.x / C on, below `work`; their key
+  // blocks one sequence, key block g of the cluster's tile g / n_blocks
+  const int first = blockIdx.x / C, stride = gridDim.x / C;
+  const int n_tiles = first < work ? (work - first + stride - 1) / stride : 0;
+  const int n_steps = n_tiles * n_blocks;
+  struct Tile {
+    int n, head, q0, rows;
+  };
+  auto tile_of = [&](int i) {  // the cluster's i-th tile
+    const int w = first + i * stride, nh = w / tiles;
+    const int q0 = (w - nh * tiles) * kF32WgTile;
+    return Tile{nh / heads, nh % heads, q0, min(kF32WgTile, Lq - q0)};
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(k_full, 128);
+    mbar_init(v_full, 128);
+    mbar_init(k_empty, 256);  // both consumer warpgroups
+    mbar_init(v_empty, 256);
+    if (C > 1)  // one arrival (the receiver's) and the peer's bytes a phase
+      for (int i = 0; i < 4; ++i) mbar_init(x_full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (C > 1)
+    cluster_sync();  // the peer's barriers are initialised before any arrival
+  else
+    __syncthreads();
+
+  // item i of a Q or K tile: row 8(i / (8·kRow)) + i % 8, columns
+  // 4((i / 8) % kRow)..+3, so 8 neighbouring threads write one core
+  // matrix's 128 contiguous bytes and a warp reads 8 rows' 64 bytes
+  auto item_row = [](int i) { return (i / (8 * kRow)) * 8 + (i & 7); };
+  auto item_col = [](int i) { return 4 * ((i >> 3) % kRow); };
+  // the warpgroup, as the compiler can tell is the same for every thread of
+  // a warp (so that it does not serialize the consumers' wgmma)
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (role == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32WgProducerRegs));
+    const int t = threadIdx.x - 256;
+    // item i of V: 4 columns 4cq..+3 of the block's slice, cq = 8(i / (8·KB
+    // / 4)) + i % 8, of the 4 keys of Vᵀ's 16-byte chunk kc = (i / 8) % (KB
+    // / 4): keys 8(kc / 2) + kc % 2 + 2e, at positions 4(kc % 2) + e of
+    // their 8-key group.  A warp reads 128 bytes of each of 4 keys' rows;
+    // each thread writes its 4 columns in an order rotated by cq / 2 % 4, so
+    // the 8 threads of one chunk write 8 different rows modulo 8 at once
+    auto v_quad = [](int i) { return (i / (2 * KB)) * 8 + (i & 7); };
+    auto v_chunk = [](int i) { return (i >> 3) % (KB / 4); };
+    float4 k_next[kKRounds], v_next[kVRounds][4];
+    // the first key of step g, and its head's rows of K and V
+    auto keys_of = [&](int g, const float*& kb, const float*& vb) {
+      const Tile w = tile_of(g / n_blocks);
+      kb = k + (size_t)w.n * S * ldk + w.head * dk + c0;
+      vb = v + (size_t)w.n * S * ldv + w.head * dv + c0;
+      return (g % n_blocks) * KB;
+    };
+    auto load_k = [&](int g) {
+      const float* kb;
+      const float* vb;
+      const int s0 = keys_of(g, kb, vb);
+#pragma unroll
+      for (int j = 0; j < kKRounds; ++j) {
+        const int i = j * 128 + t, c = item_col(i), key = s0 + item_row(i);
+        k_next[j] = load4_f32<kNarrow>(kb + (size_t)key * ldk + c, key < S ? dk_left - c : 0);
+      }
+    };
+    auto store_k = [&]() {
+#pragma unroll
+      for (int j = 0; j < kKRounds; ++j) {
+        const int i = j * 128 + t, at = core_index(item_row(i), item_col(i), DH);
+        split4_store(k_next[j], k_hi + at, k_lo + at);
+      }
+    };
+    auto load_v = [&](int g) {
+      const float* kb;
+      const float* vb;
+      const int s0 = keys_of(g, kb, vb);
+#pragma unroll
+      for (int j = 0; j < kVRounds; ++j) {
+        const int i = j * 128 + t, c = 4 * v_quad(i), kc = v_chunk(i);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = s0 + 8 * (kc >> 1) + (kc & 1) + 2 * e;
+          v_next[j][e] = load4_f32<kNarrow>(vb + (size_t)key * ldv + c,
+                                            key < S ? dv_left - c : 0);
+        }
+      }
+    };
+    auto store_v = [&]() {
+#pragma unroll
+      for (int j = 0; j < kVRounds; ++j) {
+        const int i = j * 128 + t, cq = v_quad(i), kc = v_chunk(i);
+        const float4* x = v_next[j];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int rr = (r + ((i & 7) >> 1)) & 3, at = core_index(4 * cq + rr, 4 * kc, KB);
+          split4_store(make_float4(pick4(x[0], rr), pick4(x[1], rr), pick4(x[2], rr),
+                                   pick4(x[3], rr)),
+                       vt_hi + at, vt_lo + at);
+        }
+      }
+    };
+
+    // K a step ahead of V: the consumers multiply q·kᵀ of the next key
+    // block with p·v of this one
+    if (n_steps) {
+      load_k(0);
+      load_v(0);
+      store_k();
+      fence_async_shared();
+      mbar_arrive(k_full);
+      if (n_steps > 1) load_k(1);
+    }
+    for (int g = 0; g < n_steps; ++g) {
+      if (g + 1 < n_steps) {
+        mbar_wait(k_empty, g & 1);
+        store_k();
+        fence_async_shared();
+        mbar_arrive(k_full);
+        if (g + 2 < n_steps) load_k(g + 2);
+      }
+      if (g) mbar_wait(v_empty, (g - 1) & 1);
+      store_v();
+      fence_async_shared();
+      mbar_arrive(v_full);
+      if (g + 1 < n_steps) load_v(g + 1);
+    }
+  } else {
+    // ---------------------------------------------- consumer warpgroup `role`
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32WgConsumerRegs));
+    const int ct = threadIdx.x & 127, warp = ct >> 5, lane = threadIdx.x & 31;
+    const int g4 = lane >> 2, tq = lane & 3;
+    const float scale2 = scale * 1.4426950408889634f;
+    // the warpgroup's 64 rows of Q (8 groups of 8 rows, 32·DH bytes each,
+    // on), copied by its threads into the lo part by cp.async and split
+    // there in place: the next tile's as soon as the last q·kᵀ of this one
+    // is done, while the warpgroup finishes it
+    float* wq_hi = q_hi + 64 * DH * role;
+    float* wq_lo = q_lo + 64 * DH * role;
+    auto copy_q = [&](const Tile& w) {
+      const float* qb = q + ((size_t)w.n * Lq + w.q0 + 64 * role) * ldk + w.head * dk + c0;
+      const int wrows = w.rows - 64 * role;  // the warpgroup's rows below Lq
+#pragma unroll 4
+      for (int j = 0; j < kRow / 2; ++j) {
+        const int i = j * 128 + ct, r = item_row(i), c = item_col(i);
+        copy4_f32<kNarrow>(wq_lo + core_index(r, c, DH), qb + (size_t)r * ldk + c,
+                           r < wrows ? dk_left - c : 0, q);
+      }
+      cp_async_commit();
+    };
+    auto split_q = [&]() {
+      cp_async_wait<0>();
+#pragma unroll 4
+      for (int j = 0; j < kRow / 2; ++j) {
+        const int i = j * 128 + ct, at = core_index(item_row(i), item_col(i), DH);
+        split4_in_place(wq_lo + at, wq_hi + at);
+      }
+      fence_async_shared();
+      named_sync(1 + role, 128);  // the warpgroup's Q
+    };
+    const uint64_t d_qh = wgmma_desc(smem_u32(wq_hi), kSboQK);
+    const uint64_t d_ql = wgmma_desc(smem_u32(wq_lo), kSboQK);
+    const uint64_t d_kh = wgmma_desc(smem_u32(k_hi), kSboQK);
+    const uint64_t d_kl = wgmma_desc(smem_u32(k_lo), kSboQK);
+    const uint32_t vh = smem_u32(vt_hi), vl = smem_u32(vt_lo);
+    uint32_t xs_peer = 0, x_full_peer = 0;  // the peer's partial logits and their barriers
+    if constexpr (C > 1) {
+      xs_peer = peer_address(xs, rank ^ 1);
+      x_full_peer = peer_address(x_full, rank ^ 1);
+    }
+    // q·kᵀ of step g into s, issued (not waited for)
+    auto issue_qk = [&](float (&s)[KB / 2], int g) {
+#pragma unroll
+      for (int i = 0; i < KB / 2; ++i) s[i] = 0.0f;
+      mbar_wait(k_full, g & 1);
+      wgmma_fence();
+      // one k-step a turn; each moves every descriptor's start by 256 bytes
+#pragma unroll 1
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        wgmma_n32_ss(s, d_ql + 16 * ks, d_kh + 16 * ks);
+        wgmma_n32_ss(s, d_qh + 16 * ks, d_kl + 16 * ks);
+        wgmma_n32_ss(s, d_qh + 16 * ks, d_kh + 16 * ks);
+      }
+    };
+    // the partial logits over this block's half of d_k to the peer's
+    // warpgroup of the same rows, in 16-byte words a thread (buffer g % 2),
+    // by asynchronous stores that count down the peer's barrier of the slot
+    auto send = [&](const float (&s)[KB / 2], int g) {
+      if constexpr (C > 1) {
+        const int slot = 2 * (g & 1) + role;
+        const uint32_t to = xs_peer + 16u * (uint32_t)(slot * (KB / 8) * 128 + ct);
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j)
+          store_peer4(to + 16u * 128u * j, s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3],
+                      x_full_peer + 8u * slot);
+      }
+    };
+    float o[DH / 2];  // o[4i + e]: the slice's column 8i + 2tq + e % 2, row g4 + 8(e / 2)
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+    float mx[2] = {-INFINITY, -INFINITY};  // running row max (scaled, base 2)
+    float sum[2] = {0.0f, 0.0f};           // the lane's share of the row sum
+    float s[KB / 2];  // s[4i + e]: key 8i + 2tq + e % 2 of step g, row g4 + 8(e / 2)
+    Tile w = tile_of(0);
+    if (n_steps) {
+      copy_q(w);
+      split_q();
+      issue_qk(s, 0);
+      wgmma_commit_and_wait();
+      fence_registers(s);
+      mbar_arrive(k_empty);
+      if (n_blocks == 1 && n_tiles > 1) copy_q(tile_of(1));  // this tile's Q is done with
+      send(s, 0);
+      if (role == 1) named_arrive(kF32WgTurn, 256);  // the first turn is warpgroup 0's
+    }
+    for (int g = 0; g < n_steps; ++g) {
+      const int blk = g % n_blocks;
+      const bool more = g + 1 < n_steps, last = blk + 1 == n_blocks;
+      if constexpr (C > 1) {
+        // the peer's partial logits added: a + b in one block, b + a in the
+        // other, the same float
+        const int slot = 2 * (g & 1) + role;
+        if (ct == 0) mbar_arrive_expect_tx(x_full + slot, 128 * (KB / 2) * sizeof(float));
+        mbar_wait_cluster(x_full + slot, (g >> 1) & 1);
+        const float4* from = reinterpret_cast<const float4*>(xs) + slot * (KB / 8) * 128 + ct;
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j) {
+          const float4 y = from[128 * j];
+          s[4 * j] += y.x;
+          s[4 * j + 1] += y.y;
+          s[4 * j + 2] += y.z;
+          s[4 * j + 3] += y.w;
+        }
+      }
+
+      // online softmax in base 2; a row lives in the 4 lanes of a quad
+      const int valid = S - blk * KB;  // keys of this block below S
+#pragma unroll
+      for (int i = 0; i < KB / 2; ++i)
+        s[i] = 8 * (i >> 2) + 2 * tq + (i & 1) < valid ? s[i] * scale2 : -INFINITY;
+      float bm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < KB / 2; ++i) bm[(i >> 1) & 1] = fmaxf(bm[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 1));
+        bm[h] = fmaxf(bm[h], __shfl_xor_sync(0xffffffffu, bm[h], 2));
+        const float m = fmaxf(mx[h], bm[h]);  // finite: every key block holds a key below S
+        const float alpha = exp2f(mx[h] - m);  // 0 at a tile's first key block
+        sum[h] *= alpha;
+#pragma unroll
+        for (int i = 0; i < DH / 8; ++i) {
+          o[4 * i + 2 * h] *= alpha;
+          o[4 * i + 2 * h + 1] *= alpha;
+        }
+        mx[h] = m;
+      }
+      // p, split into tf32 hi and lo as p's A fragments: keys 8kk + 2tq and
+      // + 1 sit at positions tq and tq + 4 of Vᵀ's 8-key group kk
+      uint32_t p_hi[KB / 8][4], p_lo[KB / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < KB / 8; ++kk) {
+        const int from[4] = {0, 2, 1, 3};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * kk + from[e];
+          const float p = exp2f(s[i] - mx[(i >> 1) & 1]);
+          sum[(i >> 1) & 1] += p;
+          split_tf32(p, p_hi[kk][e], p_lo[kk][e]);
+        }
+      }
+      if (more && last) split_q();  // the next tile's Q, copied since its last q·kᵀ
+
+      // this warpgroup's turn on the tensor cores: q·kᵀ of the next step
+      // and p·v of this one, then the other warpgroup's turn while this one
+      // waits for them and takes the next softmax
+      named_sync(kF32WgTurn + role, 256);
+      if (more) issue_qk(s, g + 1);
+      mbar_wait(v_full, g & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KB / 8; ++kk) {
+        wgmma_n128_rs(o, p_lo[kk], wgmma_desc(vh + 256 * kk, kSboV));
+        wgmma_n128_rs(o, p_hi[kk], wgmma_desc(vl + 256 * kk, kSboV));
+        wgmma_n128_rs(o, p_hi[kk], wgmma_desc(vh + 256 * kk, kSboV));
+      }
+      if (role == 0 || more) named_arrive(kF32WgTurn + (role ^ 1), 256);
+      wgmma_commit_and_wait();
+      fence_registers(o);
+      mbar_arrive(v_empty);
+      if (more) {
+        fence_registers(s);
+        mbar_arrive(k_empty);
+        // the next step is its tile's last: this tile's Q is done with
+        const int tile_next = (g + 1) / n_blocks;
+        if ((g + 2) % n_blocks == 0 && tile_next + 1 < n_tiles) copy_q(tile_of(tile_next + 1));
+        send(s, g + 1);
+      }
+      if (last) {
+        // the tile's rows g4 and g4 + 8 of the warp, the block's columns
+        // below d_v: a pair of floats a store where d_v is even (the row's
+        // pairs then 8-byte aligned), else one
+        const int row0 = 64 * role + 16 * warp;
+        float* ob = out + ((size_t)w.n * Lq + w.q0 + row0) * ldv + w.head * dv + c0;
+        const bool pairs = (dv & 1) == 0 && ((uintptr_t)out & 7) == 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+          const float inv = 1.0f / sum[h];
+          const int r = g4 + 8 * h;
+          if (row0 + r < w.rows) {
+#pragma unroll
+            for (int i = 0; i < DH / 8; ++i) {
+              const int c = 8 * i + 2 * tq;
+              const float x = o[4 * i + 2 * h] * inv, y = o[4 * i + 2 * h + 1] * inv;
+              if (pairs && c + 1 < dv_left) {
+                *reinterpret_cast<float2*>(ob + (size_t)r * ldv + c) = make_float2(x, y);
+              } else {
+                if (c < dv_left) ob[(size_t)r * ldv + c] = x;
+                if (c + 1 < dv_left) ob[(size_t)r * ldv + c + 1] = y;
+              }
+            }
+          }
+          mx[h] = -INFINITY;
+          sum[h] = 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+        if (more) w = tile_of((g + 1) / n_blocks);
+      }
+    }
+  }
+  // neither block of a cluster leaves while the other may still write to it
+  if constexpr (C > 1) cluster_sync();
+}
+
+template <int D, bool kNarrow>
+int launch_f32wg_blocks(const void* q, const void* k, const void* v, void* out, int N,
+                        int Lq, int S, int heads, int dk, int dv, cudaStream_t stream) {
+  constexpr int C = f32_wg_cluster(D);
+  static SmemOptIn opt_in;
+  constexpr size_t smem = f32_wg_smem_bytes(D);
+  static_assert(smem <= (size_t)kMaxSmem, "tiles fit in one block's shared memory");
+  void (*kernel)(const float*, const float*, const float*, float*, int, int, int, int, int, int,
+                 int, float) = cross_modal_attn_f32wg_blocks_kernel<D, kNarrow>;
+  cudaError_t err = opt_in.ensure((const void*)kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (Lq + kF32WgTile - 1) / kF32WgTile;
+  const long long work = (long long)N * heads * tiles;  // query tiles
+  if (work * C > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t config = {};
+  config.blockDim = dim3(kF32WgThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = C;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = C > 1 ? 1 : 0;
+  // persistent: as many blocks (clusters) as the card holds at once, each
+  // walking over query tiles
+  static int resident_on[kMaxDevices] = {};  // clusters the device holds at once, once known
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int resident = resident_on[dev];
+  if (resident < 1) {
+    config.gridDim = dim3(C);
+    if (C > 1)
+      err = cudaOccupancyMaxActiveClusters(&resident, kernel, &config);
+    else
+      err = cudaDeviceGetAttribute(&resident, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+    resident_on[dev] = resident;
+  }
+  config.gridDim = dim3((unsigned)(C * (work < resident ? work : resident)));
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Lq, S, heads, dk, dv, tiles,
+      (int)work, 1.0f / sqrtf((float)dk));
+  if (launched != cudaSuccess) return (int)launched;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 

@@ -18,12 +18,15 @@ that do not divide the width raise, in the wrapper, before any launch):
   off a multiple of 8, which the kernels zero-fill in shared memory to the
   instance's D (32, 64, 128 or 256).  Up to S = 128 and d = 128 one kernel
   holds a head's keys whole; past either another streams them in key
-  blocks of 8-key chunks (:func:`f32_key_chunks`) with an online softmax
-  (the C entry's code :data:`F32_KEY_BLOCKS`, counted apart in
-  :data:`f32_key_block_launches`).  Both copy 16 bytes at a time where q, k
-  and v are aligned to 16 bytes and d_k and d_v are multiples of 4, else
-  one float at a time (:func:`f32_narrow_copies`; those launches are also
-  counted in :data:`f32_narrow_launches`).
+  blocks (:func:`f32_block_keys`) with an online softmax (the C entry's
+  code :data:`F32_KEY_BLOCKS`, counted apart in
+  :data:`f32_key_block_launches`): at D = 128 and 256 on warpgroup MMA,
+  blocks of 128 query rows and 128 columns of D, two blocks of a cluster
+  at D = 256 (:func:`f32_block_cluster`); at D = 32 and 64 on mma.sync.
+  Both copy 16 bytes at a time where q, k and v are aligned to 16 bytes and
+  d_k and d_v are multiples of 4, else one float at a time
+  (:func:`f32_narrow_copies`; those launches are also counted in
+  :data:`f32_narrow_launches`).
 * ``wide_f32`` and ``wide_bf16``: the wide-head kernels, for float32 with
   d_k or d_v above 256 and bfloat16 above 128, any S and alignment, one
   block per query tile and slice of d_v (:func:`wide_slices`: one slice,
@@ -116,8 +119,10 @@ F32_TILE_Q = 128  # kF32Tile of csrc/cross_modal_attn.cu (f32_tensor_core route)
 F32_WHOLE_S = 128  # the most keys f32_tensor_core holds whole; past it, key blocks
 F32_WHOLE_MAX_D = 128  # the largest D f32_tensor_core holds whole; past it, key blocks
 F32_MAX_D = 256  # the largest d_k and d_v of f32_tensor_core
-F32_KEY_CHUNKS = 4  # kF32KeyChunks: 8-key chunks a key block, D <= 128
-F32_KEY_CHUNKS_D256 = 1  # kF32KeyChunksD256: the same at D = 256
+F32_KEY_CHUNKS = 4  # kF32KeyChunks: 8-key chunks a key block, D = 32 and 64 (mma.sync)
+F32_BLOCK_TILE = 128  # kF32WgTile: query rows of a block at D >= 128, two warpgroups of 64
+F32_BLOCK_COLS = 128  # kF32WgCols: columns of d_k and d_v a block holds there
+F32_BLOCK_KEYS = 32  # kF32WgKeys: keys of a key block there
 MAX_D = 128  # the largest head size of the bf16 kernels; past it, the wide kernel
 WIDE_TILE = 64  # kWideTile of csrc/cross_modal_attn.cu: query rows of a float32 block
 WIDE_BF16_TILE = 128  # kWideBf16Tile: query rows of a bf16 block
@@ -145,9 +150,17 @@ def f32_instance_d(dk: int, dv: int) -> int:
     return next(b for b in (32, 64, 128, 256) if max(dk, dv) <= b)
 
 
-def f32_key_chunks(d: int) -> int:
-    """8-key chunks of one float32 key block at instance D = d."""
-    return F32_KEY_CHUNKS if d <= F32_WHOLE_MAX_D else F32_KEY_CHUNKS_D256
+def f32_block_cluster(d: int) -> int:
+    """Blocks of a cluster of the float32 key-block kernels at instance D =
+    d: from D = 128 the warpgroup-MMA kernel's (f32_wg_cluster), each block
+    holding 128 columns of d_k and of d_v, so 2 at D = 256; else 1."""
+    return max(1, d // F32_BLOCK_COLS)
+
+
+def f32_block_keys(d: int) -> int:
+    """Keys of one float32 key block at instance D = d: kF32WgKeys from D =
+    128, 8·kF32KeyChunks below."""
+    return F32_BLOCK_KEYS if d >= F32_BLOCK_COLS else 8 * F32_KEY_CHUNKS
 
 
 def f32_key_blocks(S: int, dk: int, dv: int) -> bool:
@@ -165,9 +178,15 @@ def f32_narrow_copies(dk: int, dv: int, aligned: bool) -> bool:
 
 
 def _f32_key_block_smem(d: int) -> int:
-    """f32tc_blocks_smem_bytes: the Q tile, one key block split, the next
-    one as it is."""
-    kc = f32_key_chunks(d)
+    """From D = 128 f32_wg_smem_bytes: one block's Q, K and Vᵀ tiles split
+    into tf32 hi and lo (128 query rows, a key block's keys, 128 columns),
+    the peer's partial logits of two key blocks in a cluster of two, and
+    eight mbarriers.  Below, f32tc_blocks_smem_bytes: the 128-row Q tile,
+    one key block split and the next one as it is."""
+    if d >= F32_BLOCK_COLS:
+        c, kb, w = f32_block_cluster(d), F32_BLOCK_KEYS, F32_BLOCK_COLS
+        return 4 * (2 * F32_BLOCK_TILE * w + 4 * kb * w + 2 * (c - 1) * F32_BLOCK_TILE * kb) + 64
+    kc = F32_KEY_CHUNKS
     return 4 * (F32_TILE_Q * (d + 8) + 8 * kc * (2 * d + 8) + 4 * kc * (4 * d + 8)
                 + 16 * kc * d)
 
@@ -288,9 +307,11 @@ def smem_bytes(S: int, dk: int, dv: int, dtype=torch.float32, route=None,
     rows of D + 8 floats, then K and V split into tf32 hi and lo parts (K in
     rows of 2D + 8, V in pairs of rows of 4D + 8) where those fit, else as
     they are (rows of D + 8 and D + 4): f32tc_smem_bytes in
-    csrc/cross_modal_attn.cu; in key blocks, whatever S, the Q tile, one key
-    block split and the next as it is (rows of D): f32tc_blocks_smem_bytes.
-    The copy width changes none of these."""
+    csrc/cross_modal_attn.cu; in key blocks, whatever S, from D = 128 a
+    block's split Q, K and Vᵀ tiles of 128 columns and, at D = 256, the
+    peer's partial logits (f32_wg_smem_bytes), below the Q tile, one key
+    block split and the next as it is (f32tc_blocks_smem_bytes):
+    :func:`_f32_key_block_smem`.  The copy width changes none of these."""
     if route is None:
         route = pick_route(dtype, S, dk, dv)
     if route in ("wide_f32", "wide_bf16"):

@@ -3,20 +3,23 @@
 card, in turns, one process each, and compare their aligned instances'
 machine code.
 
-    python3 scripts/attention_ab.py [--out FILE] [--sass-only] TREE [TREE ...]
+    python3 scripts/attention_ab.py [--out FILE] [--only PREFIX,...] [--sass-only] TREE [TREE ...]
 
 Each TREE is the root of a checkout: this one, or another commit unpacked
 with ``git archive`` into a directory that .gitignore lists.  A tree's
 process imports that tree's own ``robo_vln_tpu_torch`` and
 ``chip_smoke.time_attention``, builds its attention kernel into the tree's
 ``build/kernels/``, and times one call of each of SHAPES at N=200, Lq=200,
-with its inputs rotated out of L2: the bf16 key blocks (S=144, d=64 and
+with its inputs rotated out of L2: the float32 key blocks ((a) S=144, d=64;
+(b) S=200, d=128; (c) S=500, d=60, all h=4; (e) S=200, d=256, h=2; phase
+14's d=256, h=1 at S=16 and 64), the bf16 key blocks (S=144, d=64 and
 S=200, d=128), the wide kernels (float32 d=260, h=2; bf16 d=256 and 260,
 h=2, and phase 14's d=256, h=1 at S=16 and 64) and the bf16 fill instance
 (d=72 beside the aligned d=80; d=64 one element off 16 bytes beside the
 aligned d=64).  It also hashes the SASS (``cuobjdump -sass``) of every
 instance of the kernels that the HCM's calls take (the bf16 kernels'
-aligned instances and the float32 tensor-core kernels; branch labels,
+aligned instances and the float32 kernel that holds a head's keys whole,
+not its key-block kernel; branch labels,
 which cuobjdump numbers across the whole library, and offsets into its
 constant banks 2 and 4, which other kernels shift, and the padding of its
 columns are left out; ``--sass-only`` skips the timings).  Prints
@@ -24,7 +27,8 @@ one JSON line a tree, in the order given ({"tree": ..., "card": ..., the
 time_attention fields}), then one line a later tree naming the instances
 whose SASS differs from the first tree's, and exits non-zero if a tree's
 process fails or there is no CUDA card.  ``--out FILE`` also writes every
-tree's line with its SASS hashes ("sass": {instance: hash}) to FILE.
+tree's line with its SASS hashes ("sass": {instance: hash}) to FILE;
+``--only`` times only the SHAPES of the prefixes given.
 Run the trees as parent, change, change, parent to compare two commits on
 one card.
 """
@@ -37,7 +41,13 @@ import subprocess
 import sys
 
 # prefix, S, d, heads, dtype, offset (elements off 16 bytes), what
-SHAPES = (("bf16_s144", 144, 64, 4, "bf16", 0, "the depth attention of a 384 px frame"),
+SHAPES = (("f32_s144", 144, 64, 4, "f32", 0, "(a) the float32 depth attention of a 384 px frame"),
+          ("f32_s200_d128", 200, 128, 4, "f32", 0, "(b) float32 self-attention over 200 tokens"),
+          ("f32_s500_d60", 500, 60, 4, "f32", 0, "(c) float32 d = 60 zero-filled to 64"),
+          ("f32_s200_d256_h2", 200, 256, 2, "f32", 0, "(e) float32 d_model 512 over 2 heads"),
+          ("f32_s16_d256", 16, 256, 1, "f32", 0, "phase 14's float32 window, rgb"),
+          ("f32_s64_d256", 64, 256, 1, "f32", 0, "phase 14's float32 window, depth"),
+          ("bf16_s144", 144, 64, 4, "bf16", 0, "the depth attention of a 384 px frame"),
           ("bf16_s200_d128", 200, 128, 4, "bf16", 0, "self-attention over 200 tokens, d_model 512"),
           ("wide_f32_d260", 200, 260, 2, "f32", 0, "the wide kernel in float32"),
           ("wide_bf16_d256_h2", 200, 256, 2, "bf16", 0, "the wide kernel in bf16"),
@@ -51,7 +61,7 @@ SHAPES = (("bf16_s144", 144, 64, 4, "bf16", 0, "the depth attention of a 384 px 
 
 # the instances the HCM's calls take, whose SASS a change to the others must leave alone
 HCM_INSTANCES = re.compile(
-    r"^(cross_modal_attn_bf16_kernel<|cross_modal_attn_f32tc|"
+    r"^(cross_modal_attn_bf16_kernel<|cross_modal_attn_f32tc_kernel<|"
     r"cross_modal_attn_bf16_blocks_kernel<\d+,\d,0>)")
 
 
@@ -73,7 +83,7 @@ def sass_hashes(library):
     return hashes
 
 
-def child(tree, sass_only):
+def child(tree, sass_only, only=None):
     sys.path.insert(0, tree)
     os.chdir(tree)
     import torch
@@ -90,6 +100,8 @@ def child(tree, sass_only):
     fields = {"tree": tree, "card": chip_smoke.card_line()}
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     for prefix, S, d, heads, dtype, offset, what in () if sass_only else SHAPES:
+        if only and prefix not in only:
+            continue
         fields.update(chip_smoke.time_attention(gen, device, prefix, 200, 200, S, heads, d,
                                                 dtypes[dtype], what, offset=offset))
     fields["sass"] = sass_hashes(_build.library_path("cross_modal_attn"))
@@ -98,9 +110,14 @@ def child(tree, sass_only):
 
 
 def main(args):
-    out_path = None
+    out_path = only = None
     if args[:1] == ["--out"]:
         out_path, args = args[1], args[2:]
+    if args[:1] == ["--only"]:
+        only, args = args[1], args[2:]
+        if not set(only.split(",")) <= {shape[0] for shape in SHAPES}:
+            print(f"attention_ab: --only takes prefixes of SHAPES, got {only}", file=sys.stderr)
+            return 2
     sass_only = args[:1] == ["--sass-only"]
     trees = args[sass_only:]
     if not trees:
@@ -109,7 +126,8 @@ def main(args):
     lines = []
     for tree in trees:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                              os.path.abspath(tree), *(["--sass-only"] if sass_only else [])],
+                              os.path.abspath(tree), "--sass-only" if sass_only else "--times",
+                              *([only] if only else [])],
                              capture_output=True, text=True)
         sys.stderr.write(out.stdout + out.stderr if out.returncode else "")
         if out.returncode:
@@ -132,5 +150,6 @@ def main(args):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        sys.exit(child(sys.argv[2], sys.argv[3:4] == ["--sass-only"]))
+        sys.exit(child(sys.argv[2], sys.argv[3] == "--sass-only",
+                       set(sys.argv[4].split(",")) if sys.argv[4:] else None))
     sys.exit(main(sys.argv[1:]))

@@ -426,14 +426,35 @@ def test_attention_1xtf32_is_not_float32(rng):
     assert (_3xtf32_attention(q, k, v, 4, hi_only=True) - ref).abs().max().item() > 1e-4
 
 
-def _3xtf32_attention_blocks(q, k, v, heads, block, dk=None):
-    """The streamed float32 tensor-core kernel's arithmetic (S > 128, or D
-    = 256) in plain torch: the keys in key blocks of ``block``; each block's
-    logits in 3xTF32, scaled by log2 e / √d_k; the running row max m
-    rescales the row sum and the output by exp2(m_old - m_new); the block's
-    unnormalised p = exp2(s - m) goes into p·v in 3xTF32, added to the
-    rescaled output; the output divided by the sum at the end.  ``dk`` as
-    in _3xtf32_attention."""
+def _mm_3xtf32_steps(a, b, acc=None):
+    """a @ b (+ acc) as a chain of tensor-core products in 3xTF32 (wgmma or
+    mma.sync, k = 8) adds it up: each float32 operand split into hi =
+    tf32(x) and lo = tf32(x - hi), the contraction in k-steps of 8, each
+    adding a_lo·b_hi, then a_hi·b_lo, then a_hi·b_hi to the float32
+    accumulator in turn."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    if acc is None:
+        acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        acc = acc + a_lo[..., ks] @ b_hi[..., ks, :]
+        acc = acc + a_hi[..., ks] @ b_lo[..., ks, :]
+        acc = acc + a_hi[..., ks] @ b_hi[..., ks, :]
+    return acc
+
+
+def _3xtf32_attention_blocks(q, k, v, heads, block, dk=None, halves=1):
+    """The float32 key-block kernels' arithmetic (S > 128, or D = 256) in
+    plain torch, on q, k, v zero-filled to the instance's D: the keys in key
+    blocks of ``block``; each block's logits as chains of tensor-core
+    products in 3xTF32 (:func:`_mm_3xtf32_steps`) over each of ``halves`` slices of D in
+    turn (a cluster's blocks, each multiplying its half of d_k), the partial
+    logits added in that order; scaled by log2 e / √d_k; the running row
+    max m rescales the row sum and the output by exp2(m_old - m_new); the
+    block's unnormalised p = exp2(s - m) goes into p·v as a chain in 3xTF32
+    over k-steps of 8 keys, added to the rescaled output; the output
+    divided by the sum at the end.  ``dk`` as in _3xtf32_attention."""
     N, Lq, D = q.shape
     S, dv = k.shape[1], v.shape[-1] // heads
     dk, dq = dk or D // heads, D // heads
@@ -441,34 +462,43 @@ def _3xtf32_attention_blocks(q, k, v, heads, block, dk=None):
     kh = k.view(N, S, heads, dq).transpose(1, 2)
     vh = v.view(N, S, heads, dv).transpose(1, 2)
     scale2 = np.float32(1.4426950408889634 / math.sqrt(dk))
+    width = dq // halves
     m = torch.full((N, heads, Lq, 1), -math.inf)
     total = torch.zeros(N, heads, Lq, 1)
     out = torch.zeros(N, heads, Lq, dv)
     for s0 in range(0, S, block):
-        logits = _mm_3xtf32(qh, kh[:, :, s0:s0 + block].transpose(-1, -2)) * scale2
+        kt = kh[:, :, s0:s0 + block].transpose(-1, -2)
+        logits = _mm_3xtf32_steps(qh[..., :width], kt[..., :width, :])
+        for c0 in range(width, dq, width):
+            logits = logits + _mm_3xtf32_steps(qh[..., c0:c0 + width], kt[..., c0:c0 + width, :])
+        logits = logits * scale2
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(logits - m_new)
-        out = out * alpha + _mm_3xtf32(p, vh[:, :, s0:s0 + block])
+        out = _mm_3xtf32_steps(p, vh[:, :, s0:s0 + block], acc=out * alpha)
         total = total * alpha + p.sum(dim=-1, keepdim=True)
         m = m_new
     return (out / total).transpose(1, 2).reshape(N, Lq, heads * dv)
 
 
-@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (64, 32)])
-@pytest.mark.parametrize("S", [129, 144, 200, 500])
+@pytest.mark.parametrize("dk,dv", [(256, 256), (136, 200), (255, 1), (128, 128), (64, 32)])
+@pytest.mark.parametrize("S", [1, 16, 64, 200, 257])
 def test_attention_3xtf32_key_blocks_keep_float32(rng, S, dk, dv):
-    """Past S = 128 (a 384 px frame's 144 depth tokens, self-attention over
-    200 tokens, longer S), the float32 tensor-core route's key blocks of 32
-    keys, with 3xTF32 products and the online rescale, stay within 1e-5 of
-    the float32 function: the plain
-    version, the JAX package's XLA path and its interpret-mode Pallas
+    """The float32 key-block kernels' arithmetic, forced at every S (the
+    route takes them past S = 128 and at D = 256): key blocks of 32 keys,
+    3xTF32 over k-steps of 8 in q·kᵀ and p·v (chains of wgmma at D = 128
+    and 256, of mma.sync below), a cluster of two blocks splitting D = 256
+    (partial logits over each half of d_k, added), the online rescale, on
+    tiles zero-filled to D, stays within 1e-5 of the float32 function: the
+    plain version, the JAX package's XLA path and its interpret-mode Pallas
     kernel on the same numpy inputs."""
-    heads = 2
-    q, k, v = _qkv(rng, 2, 24, S, heads * dk, heads * dv)
-    block = 8 * fused_attention.F32_KEY_CHUNKS
-    assert block == 32 and S > fused_attention.F32_WHOLE_S
-    ours = _3xtf32_attention_blocks(*map(torch.from_numpy, (q, k, v)), heads, block)
+    N, Lq, heads = 2, 24, 2
+    D = fused_attention.f32_instance_d(dk, dv)
+    assert fused_attention.f32_block_keys(D) == 32
+    assert fused_attention.f32_block_cluster(D) == (2 if D == 256 else 1)
+    q, k, v = _qkv(rng, N, Lq, S, heads * dk, heads * dv)
+    bufs = [torch.from_numpy(a).flatten() for a in (q, k, v)]
+    ours = _f32_kernel_emulation(bufs, (0, 0, 0), N, Lq, S, heads, dk, dv, key_blocks=True)
     _close(ours, fused_attention.attention_plain(*map(torch.from_numpy, (q, k, v)), heads))
     _close(ours, _xla_impl(*map(jnp.asarray, (q, k, v)), heads))
     _close(ours, _pallas_attention(*map(jnp.asarray, (q, k, v)), heads, interpret=True))
@@ -523,20 +553,24 @@ def _copy_tiles(flat, offset, N, L, heads, d, D, narrow, width=None):
     return tiles.permute(0, 2, 1, 3).reshape(N, L, heads * D)
 
 
-def _f32_kernel_emulation(bufs, offsets, N, Lq, S, heads, dk, dv, narrow=None):
+def _f32_kernel_emulation(bufs, offsets, N, Lq, S, heads, dk, dv, narrow=None,
+                          key_blocks=None):
     """The float32 tensor-core route's kernel in plain torch, on q, k, v read
     from flat buffers at element offsets: the copy width the wrapper picks
     (unless ``narrow`` is given), the head dims zero-filled to the
-    instance's D, the whole-key or key-block arithmetic the route takes,
-    the scale of d_k, and the columns below d_v of each head's output."""
+    instance's D, the whole-key or key-block arithmetic the route takes
+    (unless ``key_blocks`` is given), the scale of d_k, and the columns
+    below d_v of each head's output."""
     D = fused_attention.f32_instance_d(dk, dv)
     if narrow is None:
         narrow = fused_attention.f32_narrow_copies(dk, dv, all(o % 4 == 0 for o in offsets))
+    if key_blocks is None:
+        key_blocks = fused_attention.f32_key_blocks(S, dk, dv)
     q, k, v = (_copy_tiles(b, o, N, L, heads, d, D, narrow)
                for b, o, L, d in zip(bufs, offsets, (Lq, S, S), (dk, dk, dv)))
-    if fused_attention.f32_key_blocks(S, dk, dv):
-        out = _3xtf32_attention_blocks(q, k, v, heads, 8 * fused_attention.f32_key_chunks(D),
-                                       dk=dk)
+    if key_blocks:
+        out = _3xtf32_attention_blocks(q, k, v, heads, fused_attention.f32_block_keys(D), dk=dk,
+                                       halves=fused_attention.f32_block_cluster(D))
     else:
         out = _3xtf32_attention(q, k, v, heads, dk=dk)
     return out.view(N, Lq, heads, D)[..., :dv].reshape(N, Lq, heads * dv)
@@ -903,11 +937,15 @@ def test_f32_tensor_core_smem_fits():
     in rows of D + 8 floats; K and V split into tf32 hi and lo parts (rows
     of 2D + 8, and pairs of rows of 4D + 8) at every size but D = 128 with
     S > 64, where they stay as they are (rows of D + 8 and D + 4).  In key
-    blocks, past S = 128 and at every S where D = 256
-    (f32tc_blocks_smem_bytes, whose formula and key-block sizes are read
-    from the source): the Q tile, one key block split, and the next key
-    block as it is, in rows of D; key blocks of 32 keys up to D = 128 and of
-    8 at D = 256, where the Q tile alone takes 135,168 bytes."""
+    blocks, past S = 128 and at every S where D = 256, whatever S (formulas,
+    tile, cluster and key-block sizes read from the source): at D = 32 and 64
+    (f32tc_blocks_smem_bytes, mma.sync) the Q tile, one key block of 32 keys
+    split and the next one as it is, in rows of D; at D = 128 and 256
+    (f32_wg_smem_bytes, warpgroup MMA) each block's 128-row Q, 32-key block
+    of K and Vᵀ, all split into hi and lo, of 128 columns, and at D = 256 (a
+    cluster of two blocks, each holding half of D) the peer's partial
+    logits of two key blocks.  One block could not hold D = 256 (its split
+    Q tile alone takes 262,144 bytes), nor a block 64-key blocks there."""
     admitted = [(S, dk, dv) for S in range(1, 130) for dk in range(1, 260, 3)
                 for dv in range(1, 260, 7)
                 if fused_attention.tensor_core_f32_takes(S, dk, dv)]
@@ -923,27 +961,48 @@ def test_f32_tensor_core_smem_fits():
     assert fused_attention.smem_bytes(64, 61, 1) == fused_attention.smem_bytes(64, 64, 64)
 
     src = (_build.CSRC / "cross_modal_attn.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (kF32KeyChunks\w*) = (\d+);", src))
+
+    def body(signature):
+        found = re.search(re.escape(signature) + r" \{(.*?)\}", src, re.S)
+        return " ".join(found.group(1).split())
+
+    consts = dict(re.findall(r"constexpr int (kF32KeyChunks|kF32WgTile|kF32WgCols|kF32WgKeys)"
+                             r" = (\d+);", src))
     assert consts == {"kF32KeyChunks": str(fused_attention.F32_KEY_CHUNKS),
-                      "kF32KeyChunksD256": str(fused_attention.F32_KEY_CHUNKS_D256)}
-    assert "constexpr int KC = D <= 128 ? kF32KeyChunks : kF32KeyChunksD256;" in src
-    body = re.search(r"size_t f32tc_blocks_smem_bytes\(int D, int KC\) \{(.*?)\n\}", src, re.S)
-    assert " ".join(body.group(1).split()) == (
+                      "kF32WgTile": str(fused_attention.F32_BLOCK_TILE),
+                      "kF32WgCols": str(fused_attention.F32_BLOCK_COLS),
+                      "kF32WgKeys": str(fused_attention.F32_BLOCK_KEYS)}
+    assert (fused_attention.F32_KEY_CHUNKS, fused_attention.F32_BLOCK_TILE,
+            fused_attention.F32_BLOCK_COLS, fused_attention.F32_BLOCK_KEYS) == (4, 128, 128, 32)
+    assert "constexpr int KC = kF32KeyChunks;" in src
+    assert "if constexpr (D >= 128)\n      return launch_f32wg_blocks<D, kNarrow>" in src
+    assert body("size_t f32tc_blocks_smem_bytes(int D, int KC)") == (
         "return sizeof(float) * ((size_t)kF32Tile * (D + 8) + (size_t)8 * KC * (2 * D + 8) + "
         "(size_t)4 * KC * (4 * D + 8) + (size_t)16 * KC * D);")
-    assert (fused_attention.F32_KEY_CHUNKS, fused_attention.F32_KEY_CHUNKS_D256) == (4, 1)
-    for d in (32, 64, 128, 256):
-        kc = fused_attention.f32_key_chunks(d)
-        want = 4 * (128 * (d + 8) + 8 * kc * (2 * d + 8) + 4 * kc * (4 * d + 8) + 16 * kc * d)
+    assert body("constexpr int f32_wg_cluster(int D)") == "return D / kF32WgCols;"
+    assert body("constexpr size_t f32_wg_smem_bytes(int D)") == (
+        "return sizeof(float) * (2 * (size_t)kF32WgTile * kF32WgCols + "
+        "4 * (size_t)kF32WgKeys * kF32WgCols + "
+        "2 * (size_t)(f32_wg_cluster(D) - 1) * kF32WgTile * kF32WgKeys) + "
+        "8 * sizeof(uint64_t);")
+    for d, cluster, keys in ((32, 1, 32), (64, 1, 32), (128, 1, 32), (256, 2, 32)):
+        assert fused_attention.f32_block_cluster(d) == cluster
+        assert fused_attention.f32_block_keys(d) == keys
+        if d < 128:
+            want = 4 * (128 * (d + 8) + 32 * (2 * d + 8) + 16 * (4 * d + 8) + 64 * d)
+        else:
+            want = 4 * (2 * 128 * 128 + 4 * 32 * 128 + 2 * (cluster - 1) * 128 * 32) + 64
         for S, dk, dv in ((129, d, d), (144, d, d // 2), (7201, d, d), (100_000, d // 2, d),
                           (129, d - 1, d - 3)):
             assert fused_attention.smem_bytes(S, dk, dv) == want <= fused_attention.SMEM_LIMIT
     assert fused_attention.smem_bytes(144, 64, 64) == 87_552  # 2 blocks an SM
-    assert fused_attention.smem_bytes(200, 128, 128) == 169_472
-    # D = 256 in key blocks at every S, one block an SM; 16-key blocks would not fit
+    assert fused_attention.smem_bytes(200, 128, 128) == 196_672
+    # D = 256 in key blocks at every S, in a cluster of two blocks of 229,440
+    # bytes; one block holding all of D, or 64-key blocks, would not fit
     for S, dk, dv in ((1, 256, 256), (16, 129, 8), (200, 256, 256), (5, 60, 136)):
-        assert fused_attention.smem_bytes(S, dk, dv) == 184_704
-    assert 4 * (128 * 264 + 16 * 520 + 8 * 1032 + 32 * 256) > fused_attention.SMEM_LIMIT
+        assert fused_attention.smem_bytes(S, dk, dv) == 229_440
+    assert 4 * 2 * 128 * 256 > fused_attention.SMEM_LIMIT
+    assert 4 * (2 * 128 * 128 + 4 * 64 * 128 + 2 * 128 * 64) + 64 > fused_attention.SMEM_LIMIT
 
 
 def test_bf16_key_block_smem_fits():

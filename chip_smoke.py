@@ -16,9 +16,9 @@ exit code and no result line:
    either float32 tensor-core attention kernel (keys whole, or in key
    blocks past S = 128), of the bf16 key-block kernel (its fill instances
    included), of either wide-head attention kernel (the float32 one on
-   wgmma), of the LSTM's wide forward or of its partials backward (the
-   wide variant included) spills, or if ptxas notes that it serialized a
-   kernel's wgmma.
+   wgmma), of the LSTM's wide forwards (the ring's and the direct one) or of its
+   partials backward (the wide kernel included) spills, or if ptxas notes
+   that it serialized a kernel's wgmma.
 3. Kernels against their plain versions, float32 with TF32 off (in a scope
    around this phase only), at the shapes of the serving path: the LSTM
    kernel (also at every H range of its template and at batches beyond one
@@ -76,8 +76,9 @@ exit code and no result line:
    chunks) and one element off, and in float32 at (100, 300) three floats
    off; the LSTM
    and its partials backward at H=30 (padded to 32), 1030 and 2048, the
-   wide variants, and 4096 at B=8, whose wide forward reads h from the
-   exchange's words) must launch their kernel once
+   wide kernels, 4096 at B=8, and 6400 at B=8, whose buffer of h does not
+   fit beside the wide forward's rings: the direct wide forward, which reads h
+   from the exchange's words) must launch their kernel once
    (by the route, key blocks, copy width and wide variant the shape asks
    for) and match the plain version; S=144 and S=200, d=128 are timed at
    the window's size in both dtypes against the plain version and SDPA
@@ -90,7 +91,9 @@ exit code and no result line:
    beside the CUDA-core kernel forced, which it must beat) and at phase 14's bf16
    shapes, bf16 at d=72 beside the aligned d=80 and from unaligned pointers
    beside the aligned d=64, and the LSTM's wide
-   variants at T=50, B=4, H=2048 against the plain versions and cuDNN; the
+   kernels at T=50, B=4, H=2048 against the plain versions and cuDNN, each
+   also as its launch alone and as its grid running nothing but its
+   exchange (per step), the backward's cluster printed; the
    forced-only dg_exchange backward, which keeps its range, must refuse
    H=1028 before any launch.
 4. Serving path at full published width (BERT-base, TV-ResNet50 at 224 px,
@@ -360,7 +363,8 @@ exit code and no result line:
    14's float32 window, with (a) S=144, h=4, d=64, (b) S=200, h=4, d=128,
    (c) S=500, h=4, d=60 and (e) S=200, h=2, d=256 under a_*, b_*, c_* and
    e_*; cross_modal_attn_wide_f32, cross_modal_attn_wide_bf16, lstm_seq_wide,
-   lstm_seq_backward_wide), their ``launches`` phase 14's.  Then the
+   lstm_seq_backward_wide, the last two with kernel_only_ms, exchange_floor_ms,
+   step_us, units and the backward's cluster), their ``launches`` phase 14's.  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
@@ -1282,24 +1286,33 @@ def check_wider_shapes(gen, device):
                 if took != want:
                     fail(f"{tag}: bf16 modes {took}, expected {want}")
     # the LSTM at H = 556 (a ragged grid), 30 (padded to 32), 1030 and 2048
-    # (the wide variants) at T = 5 and 50, B = 4, and at H = 4096, B = 8,
-    # whose two buffers of h do not fit in shared memory (the wide forward
+    # (the wide kernels) at T = 5 and 50, B = 4, at H = 4096, B = 8 (the
+    # accumulators' 8 rows), and at H = 6400, B = 8, whose buffer of h does
+    # not fit in shared memory beside the rings (the direct wide forward, which
     # reads h from the exchange's words)
-    lstm_worst = {"fwd": 0.0, "bwd": [0.0, 0.0]}
+    lstm_worst = {"fwd": 0.0, "direct": 0.0, "bwd": [0.0, 0.0]}
     for H, shapes in ((556, ((5, 4), (50, 4))), (30, ((5, 4), (50, 4))),
-                      (1030, ((5, 4), (50, 4))), (2048, ((5, 4), (50, 4))), (4096, ((3, 8),))):
+                      (1030, ((5, 4), (50, 4))), (2048, ((5, 4), (50, 4))), (4096, ((3, 8),)),
+                      (6400, ((2, 8),))):
         for T, B in shapes:
             args = lstm_inputs(gen, T, B, H, device)
-            units = fused_lstm._units(device.index, fused_lstm.padded_hidden(H))[0]
-            wide = fused_lstm.wide_kernel(fused_lstm.padded_hidden(H), units)
-            before = fused_lstm.wide_launches
-            err = held(f"lstm_seq T={T} B={B} H={H}{' (wide)' if wide else ''}", fused_lstm,
+            Hp = fused_lstm.padded_hidden(H)
+            units = fused_lstm._units(device.index, Hp)[0]
+            wide = fused_lstm.wide_kernel(Hp, units)
+            direct = wide and fused_lstm.wide_forward_direct(B, Hp)
+            before = fused_lstm.wide_launches, fused_lstm.wide_direct_launches
+            kind = " (the direct wide kernel)" if direct else " (wide)" if wide else ""
+            err = held(f"lstm_seq T={T} B={B} H={H}{kind}", fused_lstm,
                        lambda: fused_lstm.lstm_seq_cuda(*args), lambda: lstm_recurrence(*args),
                        LSTM_TOL)
-            if fused_lstm.wide_launches - before != wide:
-                fail(f"lstm_seq T={T} B={B} H={H}: {fused_lstm.wide_launches - before} wide "
-                     f"launches, expected {int(wide)}")
-            if H != 556:
+            took = (fused_lstm.wide_launches - before[0],
+                    fused_lstm.wide_direct_launches - before[1])
+            if took != (int(wide and not direct), int(direct)):
+                fail(f"lstm_seq T={T} B={B} H={H}: (wide, direct wide) launches {took}, "
+                     f"expected {(int(wide and not direct), int(direct))}")
+            if direct:
+                lstm_worst["direct"] = max(lstm_worst["direct"], err)
+            elif H != 556:
                 lstm_worst["fwd"] = max(lstm_worst["fwd"], err)
             cots = lstm_cotangents(gen, T, B, H, device)
             for kernel in fused_lstm.BACKWARD_KERNELS if H == 556 else ("partials",):
@@ -1447,11 +1460,37 @@ def check_wider_shapes(gen, device):
     return timings, entries, time_wide_lstm(gen, device, lstm_worst)
 
 
+def forward_launch_alone(args):
+    """The forward's launch alone: its C entry (the wide kernel's at a wide
+    shape) on outputs and a workspace made once, as lstm_seq_cuda calls it."""
+    from robo_vln_tpu_torch.ops import fused_lstm
+
+    gates_x, masks, h0, c0, w_hh = args
+    T, B, H = gates_x.shape[0], gates_x.shape[1], gates_x.shape[2] // 4
+    device = gates_x.device
+    w_hh_t = w_hh.t().contiguous()
+    units = fused_lstm._units(device.index, H)[0]
+    wide = fused_lstm.wide_kernel(H, units)
+    fn = fused_lstm._entry(wide, wide and fused_lstm.wide_forward_direct(B, H))
+    outs = torch.empty(T, B, H, device=device)
+    hT, cT = torch.empty(B, H, device=device), torch.empty(B, H, device=device)
+    stream = torch.cuda.current_stream(device)
+    ws = fused_lstm.make_workspace(device, B, H)
+    ptrs = [t.data_ptr() for t in (gates_x, masks, h0, c0, w_hh_t, outs, hT, cT, ws)]
+
+    def launch():
+        err = fn(*ptrs, T, B, H, units, device.index, stream.cuda_stream)
+        if err:
+            fail(f"the forward's C entry returned {err}")
+    return launch
+
+
 def time_wide_lstm(gen, device, worst):
-    """The LSTM's wide variants at phase 14's shape, T=50, B=4, H=2048: the
+    """The LSTM's wide kernels at phase 14's shape, T=50, B=4, H=2048: the
     forward and the partials backward timed against the plain versions and
-    cuDNN, with their bounds; their kernels-line entries (``worst``: the
-    largest errors of phase 3c's wide shapes)."""
+    cuDNN, with their bounds, each also as its launch alone and as its grid
+    running nothing but its exchange; their kernels-line entries
+    (``worst``: the largest errors of phase 3c's wide shapes)."""
     from robo_vln_tpu_torch.ops import fused_lstm
     from robo_vln_tpu_torch.ops.rnn import lstm_recurrence, lstm_recurrence_backward
 
@@ -1484,22 +1523,44 @@ def time_wide_lstm(gen, device, worst):
 
     both = report_times(f"library nn.LSTM {tag} forward and backward", time_ms(cudnn_both))
     bwd_library = both - statistics.median(time_ms(cudnn_forward))
+    fwd_launch = report_times(f"lstm_seq {tag} (wide), its launch alone",
+                              time_ms(forward_launch_alone(args)))
+    fwd_floor = report_times(f"lstm_seq {tag} (wide), the h exchange alone", time_ms(
+        lambda: fused_lstm.exchange_floor_cuda(T, B, H, device)))
+    gates_x, masks, h0, c0, w_hh = args
+    h_tilde = torch.cat([h0[None], outs[:-1]]) * masks[..., None]
+    gates = gates_x + h_tilde @ w_hh
+    bwd_launch = report_times(f"lstm_seq backward {tag} (wide), its launch alone", time_ms(
+        lambda: fused_lstm._backward_launch(gates, masks, c0, w_hh, *cots, False)))
+    bwd_floor = report_times(f"lstm_seq backward {tag} (wide), its exchange alone", time_ms(
+        lambda: fused_lstm.backward_exchange_floor_cuda(T, B, H, device)))
+    cluster = fused_lstm.backward_cluster(B, H, device)
     by_bytes, by_ops = lstm_bound_ms(T, B, H)
-    (b_bytes, b_ops), _ = lstm_backward_bound_ms(T, B, H)
+    (b_bytes, b_ops), (k_bytes, k_ops) = lstm_backward_bound_ms(T, B, H)
     units = fused_lstm._units(device.index, H)[0]
     b_units = fused_lstm._backward_units(device.index, H)[0]
-    print(f"  {tag}: forward {units} units a block, backward {b_units}; bound: forward bytes "
-          f"{by_bytes:.4f} ms, operations {by_ops:.4f} ms; backward bytes {b_bytes:.4f} ms, "
-          f"operations {b_ops:.4f} ms; W_hh {4 * 4 * H * H / 2**20:.1f} MiB")
+    print(f"  {tag}: forward {units} units a block, backward {b_units} in clusters of {cluster}; "
+          f"per step: forward {fwd_launch / T * 1e3:.3f} us (exchange "
+          f"{fwd_floor / (T - 1) * 1e3:.3f}), backward {bwd_launch / T * 1e3:.3f} us (exchange "
+          f"{bwd_floor / T * 1e3:.3f}); bound: forward bytes {by_bytes:.4f} ms, operations "
+          f"{by_ops:.4f} ms; backward bytes {b_bytes:.4f} ms, operations {b_ops:.4f} ms; "
+          f"W_hh {4 * 4 * H * H / 2**20:.1f} MiB")
     common = {"route": "cuda", "source": "robo_vln_tpu_torch/csrc/lstm_seq.cu"}
     return [{
         "name": "lstm_seq_wide", **common, "replaces": "robo_vln_tpu/ops/pallas_lstm.py:40",
         "kernel": "lstm_seq_wide_kernel", "max_abs_err": worst["fwd"],
+        "direct_max_abs_err": worst["direct"],
         "ms": 2 * kernel, "plain_ms": 2 * plain, "library_ms": 2 * library,
+        "kernel_only_ms": 2 * fwd_launch, "exchange_floor_ms": 2 * fwd_floor,
+        "step_us": fwd_launch / T * 1e3, "exchange_step_us": fwd_floor / (T - 1) * 1e3,
         "bound_ms": 2 * max(by_bytes, by_ops),
         "bound_by": "bytes" if by_bytes > by_ops else "operations", "units": units,
-        "work": f"2 calls at {tag}, float32 (one window forward of phase 14); max_abs_err over "
-                "phase 3c's H = 30, 1030 and 2048; launches: phase 14",
+        "work": f"2 calls at {tag}, float32 (one window forward of phase 14): ms the whole "
+                "call, kernel_only_ms its launch alone, exchange_floor_ms the same grid "
+                "running nothing but the h exchange, step_us and exchange_step_us one call's "
+                "per step (T steps, T - 1 exchanges); max_abs_err over phase 3c's H = 30, "
+                "1030, 2048 and 4096, direct_max_abs_err the direct wide kernel at H = 6400, "
+                "B = 8; launches: phase 14",
         "library": "torch.nn.LSTM (cuDNN) over x (T, B, 896), input projection included",
     }, {
         "name": "lstm_seq_backward_wide", **common,
@@ -1507,10 +1568,18 @@ def time_wide_lstm(gen, device, worst):
         "kernel": "lstm_seq_backward_partials_wide_kernel", "max_abs_err": worst["bwd"][0],
         "max_rel_err": worst["bwd"][1],
         "ms": 2 * bwd, "plain_ms": 2 * bwd_plain, "library_ms": 2 * bwd_library,
-        "bound_ms": 2 * max(b_bytes, b_ops),
+        "kernel_only_ms": 2 * bwd_launch, "exchange_floor_ms": 2 * bwd_floor,
+        "step_us": bwd_launch / T * 1e3, "exchange_step_us": bwd_floor / T * 1e3,
+        "bound_ms": 2 * max(b_bytes, b_ops), "kernel_only_bound_ms": 2 * max(k_bytes, k_ops),
         "bound_by": "bytes" if b_bytes > b_ops else "operations", "units": b_units,
+        "cluster": cluster,
         "work": f"2 backward calls at {tag}, float32, no mask gradient (one train step of "
-                "phase 14): the whole call; launches: phase 14's train steps",
+                "phase 14): ms the whole call (the gates recomputed in one product, the "
+                "kernel, d_w_hh in one product), kernel_only_ms the launch alone, "
+                "exchange_floor_ms the same grid running nothing but its exchange, step_us "
+                "and exchange_step_us one call's per reverse step; cluster: blocks a cluster "
+                "(their partials summed through distributed shared memory); launches: phase "
+                "14's train steps",
         "library": "torch.nn.LSTM (cuDNN) forward and backward less its forward",
     }]
 
@@ -1533,14 +1602,16 @@ def path_launches():
 
 def wide_launches():
     """Launches since the last reset of the kernels past the former ranges:
-    the wide attention kernel by dtype, the LSTM's wide forward and its
-    partials backward's wide variant (each also counted by path_launches'
-    names, which those launches add to)."""
+    the wide attention kernel by dtype, the LSTM's wide forward (the direct
+    wide forward apart, at the shapes whose h does not fit beside the rings)
+    and its partials backward's wide kernel (each also counted by
+    path_launches' names, which those launches add to)."""
     from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
 
     return {"cross_modal_attn_wide_f32": fused_attention.route_launches["wide_f32"],
             "cross_modal_attn_wide_bf16": fused_attention.route_launches["wide_bf16"],
             "lstm_seq_wide": fused_lstm.wide_launches,
+            "lstm_seq_wide_direct": fused_lstm.wide_direct_launches,
             "lstm_seq_backward_wide": fused_lstm.backward_wide_launches}
 
 

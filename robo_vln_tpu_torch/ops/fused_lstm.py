@@ -20,10 +20,14 @@ or the wrapper raises (only for a wrong dtype, shape or layout).  Every H >=
 (:func:`padded_hidden`; a padded unit's gates are 0, so its c and h stay 0,
 and W_hh's padded rows are 0, so the real units see nothing of it; the
 outputs are sliced back), and past H = 1024 or 8 hidden units a block (the
-units keep the grid within one block an SM) the wide variant launches
-(:func:`wide_kernel`, counted apart in :data:`wide_launches`), which reads
-what of W_hh does not fit in registers from shared memory and L2.  The
-grid has ceil(H / units) blocks, so H need not divide evenly.
+units keep the grid within one block an SM) the wide kernel launches
+(:func:`wide_kernel`, counted apart in :data:`wide_launches`), which keeps
+what of W_hh does not fit in registers in shared memory and streams the
+rest through a ring of bulk copies; where one buffer of h does not fit in a
+block's shared memory beside the ring (:func:`wide_forward_direct`: B·H
+above about 49,000), the direct wide kernel, whose lanes read h from the
+exchange, launches instead (:data:`wide_direct_launches`).  The grid has
+ceil(H / units) blocks, so H need not divide evenly.
 
 The backward pass is a kernel too, in the same source
 (:func:`lstm_seq_backward_cuda`, in the profiler range
@@ -40,8 +44,10 @@ each block's columns of W_hh; ``dg_exchange`` exchanges each step's whole
 dg, and launches only where the route is set to it, to compare the two.
 Both count in ``backward_launches`` and, by kernel, in
 ``backward_kernel_launches``; ``partials`` has a wide variant too, taken at
-the forward's wide shapes (counted apart in :data:`backward_wide_launches`),
-and H is padded as in the forward.  ``dg_exchange`` keeps its range (H a
+the forward's wide shapes on the forward's grid (counted apart in
+:data:`backward_wide_launches`; its blocks sum their partials in clusters
+where the card co-schedules them, :func:`backward_cluster`), and H is
+padded as in the forward.  ``dg_exchange`` keeps its range (H a
 multiple of 4 up to 1024, 8 units a block): :func:`check_backward_shape`
 raises before any launch where it is forced past it.
 """
@@ -61,7 +67,8 @@ from . import _build
 from .rnn import lstm_recurrence
 
 launches = 0  # forward kernel launches since the last reset
-wide_launches = 0  # of them, the wide variant's (H above MAX_H, or above MAX_UNITS units)
+wide_launches = 0  # of them, the wide kernel's (H above MAX_H, or above MAX_UNITS units)
+wide_direct_launches = 0  # of them, the direct wide kernel's (wide_forward_direct)
 backward_launches = 0  # backward kernel launches since the last reset
 backward_wide_launches = 0  # of them, the partials kernel's wide variant
 BACKWARD_KERNELS = ("partials", "dg_exchange")
@@ -74,7 +81,9 @@ TASK_BATCH = 2  # kTaskBatch: batch rows of one warp task
 TASKS_PER_WARP = 16  # batch pairs a warp runs: one cell a lane, two a pair
 MAX_H = 1024  # 32 lanes x 8 chunks of 4 values of W_hh's rows in registers; past it, wide
 MAX_UNITS = 8  # kMaxUnits: units a block of the partials kernel (and of the forward's warps)
-WIDE_ROWS = 8  # kWideRows: batch rows one launch of a wide variant takes
+WIDE_ROWS = 8  # kWideRows: batch rows one launch of a wide kernel takes
+WIDE_RING = 2  # kWideRing: slots of a warp's ring in the wide kernels
+ITEM_BYTES = 2048  # kItemBytes: an item of W_hh, 4 rows x 32 chunks of 16 bytes
 # the grid the partials kernel aims for: fewer blocks cut the partials each
 # step stores and reads (blocks·B·H words), more cut each block's product
 # (B·H·4·units multiply-adds); at H=512 on the H100, 64 blocks of 8 units
@@ -89,7 +98,9 @@ _private = []  # the workspace of private_workspace's innermost block, if any
 
 def reset_launches() -> None:
     global launches, backward_launches, wide_launches, backward_wide_launches
+    global wide_direct_launches
     launches = backward_launches = wide_launches = backward_wide_launches = 0
+    wide_direct_launches = 0
     backward_kernel_launches.update(dict.fromkeys(BACKWARD_KERNELS, 0))
 
 
@@ -106,6 +117,33 @@ def wide_kernel(H: int, units: int) -> bool:
     return H > MAX_H or units > MAX_UNITS
 
 
+def wide_rows(B: int) -> int:
+    """Rows of the wide kernels' accumulators (wide_rows in the source): the
+    launch's batch rounded up to 4 or WIDE_ROWS."""
+    return 4 if B <= 4 else WIDE_ROWS
+
+
+def _ring_and_barriers() -> int:
+    """Shared memory of the 8 warps' rings and their mbarriers, one a slot and
+    one for the warp's items copied at the start."""
+    return WARPS * (WIDE_RING * ITEM_BYTES + (WIDE_RING + 1) * 8)
+
+
+def wide_forward_direct(B: int, H: int) -> bool:
+    """Whether a wide forward launch over B rows at (padded) H takes the direct
+    wide kernel, whose lanes read h from the exchange's words: where one buffer
+    of h (B, H), the warps' sums (8 x 8R floats) and the rings do not fit a
+    block's shared memory (wide_forward_smem in the source returns 0)."""
+    return (4 * B * H + 4 * WARPS * 8 * wide_rows(B) + _ring_and_barriers()) > SMEM_LIMIT
+
+
+def _wide_backward_fits(B: int, units: int) -> bool:
+    """Whether the wide backward's least shared memory fits a block: its
+    cells' dg (2 x units x 4 gates x R floats) and the rings, no cluster
+    (wide_backward_smem in the source at C = 1)."""
+    return 4 * 2 * units * 4 * wide_rows(B) + _ring_and_barriers() <= SMEM_LIMIT
+
+
 def _units_per_block(H: int, n_sm: int) -> int:
     """Hidden units per block: the fewest that keep the grid of
     ceil(H / units) blocks within one block per SM (the cooperative launch
@@ -115,14 +153,12 @@ def _units_per_block(H: int, n_sm: int) -> int:
 
 def backward_units_per_block(H: int, n_sm: int, kernel=None) -> int:
     """Hidden units per block of the backward: the forward's for
-    ``dg_exchange``; for ``partials`` enough for a grid of about
-    BACKWARD_BLOCKS blocks, at least the forward's and, but at the wide
-    shapes, at most MAX_UNITS."""
+    ``dg_exchange`` and at the wide shapes (its grid, the whole card); for
+    ``partials`` below them enough for a grid of about BACKWARD_BLOCKS
+    blocks, at least the forward's and at most MAX_UNITS."""
     units = _units_per_block(H, n_sm)
-    if _kernel(kernel) == "partials":
+    if _kernel(kernel) == "partials" and not wide_kernel(padded_hidden(H), units):
         most = -(-padded_hidden(H) // BACKWARD_BLOCKS)
-        if wide_kernel(padded_hidden(H), units):
-            return max(units, most)
         units = min(MAX_UNITS, max(units, most))
     return units
 
@@ -176,13 +212,13 @@ def max_batch(H: int, units: int) -> int:
 def max_backward_batch(H: int, units: int, kernel=None) -> int:
     """The most batch rows one backward launch takes: for ``partials`` an
     owner lane a cell, partials_lanes(units) rows in each warp, or at the
-    wide shapes WIDE_ROWS within two buffers of the block's cells' dg
-    (2·B·4·units floats) in shared memory; for ``dg_exchange`` the
-    forward's limit with rows of dg (4H)."""
+    wide shapes WIDE_ROWS (4 where two buffers of the block's cells' dg at 8
+    rows and the rings do not fit a block's shared memory); for
+    ``dg_exchange`` the forward's limit with rows of dg (4H)."""
     H = padded_hidden(H)
     if _kernel(kernel) == "partials":
         if wide_kernel(H, units):
-            return min(WIDE_ROWS, SMEM_LIMIT // (4 * 2 * 4 * units))
+            return next((b for b in (WIDE_ROWS, 4) if _wide_backward_fits(b, units)), 0)
         return WARPS * partials_lanes(units)
     return _most_rows(4 * H, units)
 
@@ -264,11 +300,12 @@ def _backward_units(device_index: int, H: int, kernel=None):
 
 
 @functools.cache
-def _entry(wide: bool = False):
-    """The kernel's C entry (``wide``: the wide variant's), its argument
-    types set once."""
+def _entry(wide: bool = False, direct: bool = False):
+    """The kernel's C entry (``wide``: the wide kernel's, ``direct`` the direct
+    wide kernel's), its argument types set once."""
     lib = _build.load("lstm_seq")
-    fn = lib.lstm_seq_wide_f32 if wide else lib.lstm_seq_f32
+    fn = (lib.lstm_seq_wide_direct_f32 if direct else lib.lstm_seq_wide_f32 if wide
+          else lib.lstm_seq_f32)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
@@ -449,9 +486,10 @@ def lstm_seq_cuda(gates_x, masks, h0, c0, w_hh):
     if len(slices) > 1:
         return by_rows(lstm_seq_cuda, slices, gates_x, masks, h0, c0, w_hh)
 
-    global wide_launches
+    global wide_launches, wide_direct_launches
     wide = wide_kernel(H, units)
-    fn = _entry(wide)
+    direct = wide and wide_forward_direct(B, H)
+    fn = _entry(wide, direct)
     outs = torch.empty((T, B, H), device=device, dtype=torch.float32)
     hT = torch.empty((B, H), device=device, dtype=torch.float32)
     cT = torch.empty((B, H), device=device, dtype=torch.float32)
@@ -464,26 +502,47 @@ def lstm_seq_cuda(gates_x, masks, h0, c0, w_hh):
                  device.index, stream.cuda_stream)
     _raise_on(err, H, units, n_sm)
     launches += 1
-    wide_launches += wide
+    wide_launches += wide and not direct
+    wide_direct_launches += direct
     return outs, hT, cT
 
 
 def exchange_floor_cuda(T: int, B: int, H: int, device) -> None:
     """Launch the kernel's grid for (B, H) running T steps of nothing but the
-    h exchange: the floor that the exchange puts under a step.  A measuring
-    aid; it computes nothing and is not counted in ``launches``."""
+    h exchange, the narrow kernel's or the wide kernel's: the floor that the
+    exchange puts under a step.  A measuring aid; it computes nothing and is
+    not counted in ``launches``."""
     device = torch.device(device)
     units, n_sm = _units(device.index, H)
     check_shape(B, H, units)
-    if H % 4 or wide_kernel(H, units):
-        raise ValueError(f"lstm_seq: the exchange floor is of the kernel up to H={MAX_H} and "
-                         f"{MAX_UNITS} units a block, H a multiple of 4; got H={H}")
+    if H % 4 or (wide_kernel(H, units) and wide_forward_direct(B, H)):
+        raise ValueError(f"lstm_seq: the exchange floor takes H a multiple of 4 and, past "
+                         f"H={MAX_H}, the wide kernel's shapes; got B={B}, H={H}")
+    name = "lstm_seq_wide_exchange" if wide_kernel(H, units) else "lstm_seq_exchange"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         ws = _workspace(device, stream, B, H)
-        err = _exchange_entry()(ws.data_ptr(), T, B, H, units, device.index,
-                                stream.cuda_stream)
+        err = _exchange_entry(name)(ws.data_ptr(), T, B, H, units, device.index,
+                                    stream.cuda_stream)
     _raise_on(err, H, units, n_sm)
+
+
+def backward_cluster(B: int, H: int, device) -> int:
+    """The blocks a cluster of the wide backward's launch over B rows at
+    (padded) H on ``device`` (1: no cluster), as the C entry picks them
+    before the launch: 4, else 2, where the card keeps all of the grid's
+    clusters co-resident."""
+    device = torch.device(device)
+    H = padded_hidden(H)
+    units = _backward_units(device.index, H)[0]
+    fn = _build.load("lstm_seq").lstm_seq_backward_partials_wide_cluster
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    with torch.cuda.device(device):
+        got = fn(B, H, units, device.index)
+    if got < 1:
+        raise RuntimeError(f"lstm_seq backward: CUDA error {-got} picking the wide clusters")
+    return got
 
 
 def _backward_words(kernel: str, B: int, H: int, units: int) -> int:
@@ -501,11 +560,12 @@ def backward_exchange_floor_cuda(T: int, B: int, H: int, device, kernel=None) ->
     device = torch.device(device)
     units, n_sm = _backward_units(device.index, H, kernel)
     check_backward_shape(B, H, units, kernel)
-    if H % 4 or wide_kernel(H, units):
-        raise ValueError(f"lstm_seq backward: the exchange floor is of the kernels up to "
-                         f"H={MAX_H} and {MAX_UNITS} units a block, H a multiple of 4; got H={H}")
-    name = ("lstm_seq_backward_partials_exchange" if kernel == "partials"
-            else "lstm_seq_backward_exchange")
+    if H % 4:
+        raise ValueError(f"lstm_seq backward: the exchange floor takes H a multiple of 4; "
+                         f"got H={H}")
+    name = ("lstm_seq_backward_exchange" if kernel == "dg_exchange" else
+            "lstm_seq_backward_partials_wide_exchange" if wide_kernel(H, units) else
+            "lstm_seq_backward_partials_exchange")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         ws = _workspace(device, stream, 1, _backward_words(kernel, B, H, units))

@@ -153,19 +153,22 @@ def _partials_dot(w_hh, units):
 
 
 def _backward_kernel_emulation(gates, masks, c0, w_hh, g_outs, g_hT, g_cT, masks_grad,
-                               kernel="partials", units=None):
+                               kernel="partials", units=None, dot=None):
     """One of csrc/lstm_seq.cu's backward kernels over one launch's rows, in
     plain float32 torch, with the launch's outputs (d_gates, d_h0, d_c0,
     c_t, dh~, dc~): ``partials`` (lstm_seq_backward_partials_kernel, at
     ``units`` units a block, by default the wrapper's on the H100's 132 SMs) or
-    ``dg_exchange`` (lstm_seq_backward_kernel).  The owner of each cell
+    ``dg_exchange`` (lstm_seq_backward_kernel), or ``dot(w_hh)``'s sums for
+    another kernel's order.  The owner of each cell
     sweeps c_t forward; then, from t = T-1, the cell update gives dg_t, and
     dh~_t comes from the kernel's sums (:func:`_partials_dot`,
     :func:`_dg_exchange_dot`; the exchanges move float bits).  The
     activations are written through exp, as the kernels write them."""
     T, B, four_h = gates.shape
     H = four_h // 4
-    if kernel == "partials":
+    if dot is not None:
+        dot = dot(w_hh)
+    elif kernel == "partials":
         dot = _partials_dot(w_hh, units or fused_lstm.backward_units_per_block(H, 132))
     else:
         dot = _dg_exchange_dot(w_hh)
@@ -288,7 +291,9 @@ def test_lstm_backward_batch_slices_join(rng):
         (65, 512, 4, False), (32, 1024, 8, True), (33, 1024, 8, False), (32, 556, 5, True),
         (33, 556, 5, False), (256, 128, 1, True), (257, 128, 1, False), (128, 256, 2, True),
         (129, 256, 2, False), (4, 1028, 8, True), (4, 30, 1, True), (4, 996, 12, True),
-        (4, 96, 9, True), (1, 32, 1, True), (8, 2048, 32, True), (9, 2048, 32, False))
+        (4, 96, 9, True), (1, 32, 1, True), (8, 2048, 32, True), (9, 2048, 32, False),
+        (8, 2048, 16, True), (9, 2048, 16, False), (8, 4096, 32, True), (8, 1030, 8, True),
+        (8, 8448, 64, True))
 ])
 def test_lstm_backward_shape_range(kernel, B, H, units, ok):
     """One launch of the backward takes as many batch rows as its kernel
@@ -322,11 +327,14 @@ def test_lstm_backward_batch_slices(kernel, B, H, units, slices):
 
 
 @pytest.mark.parametrize("H,units", [(512, 8), (1024, 8), (556, 8), (256, 4), (128, 2),
-                                     (64, 1), (32, 1), (1000, 8)])
+                                     (64, 1), (32, 1), (1000, 8), (1030, 8), (2048, 16),
+                                     (4096, 32)])
 def test_lstm_backward_units(H, units):
     """``partials`` takes enough units a block for a grid of about
     BACKWARD_BLOCKS (64) blocks on the H100's 132 SMs, at least the
-    forward's and at most MAX_UNITS; ``dg_exchange`` takes the forward's."""
+    forward's and at most MAX_UNITS; at the wide shapes (H = 1030, padded to
+    1032, 2048 and 4096) the forward's grid, the whole card; ``dg_exchange``
+    takes the forward's."""
     assert fused_lstm.backward_units_per_block(H, 132, "partials") == units
     assert (fused_lstm.backward_units_per_block(H, 132, "dg_exchange")
             == fused_lstm._units_per_block(H, 132))

@@ -1337,14 +1337,17 @@ def test_lstm_kernel_summation_order_matches_jax(rng, T, B, H):
     (11, 64, 1, True), (56, 512, 4, True), (65, 512, 4, False), (4, 30, 1, True),
     (4, 66, 1, True), (4, 1024, 8, True), (33, 1024, 8, False), (4, 1028, 8, True),
     (4, 996, 12, True), (256, 64, 1, True), (257, 64, 1, False), (4, 48, 3, True),
-    (65, 48, 3, False), (8, 2048, 16, True), (9, 2048, 16, False),
+    (65, 48, 3, False), (8, 2048, 16, True), (9, 2048, 16, False), (8, 4096, 32, True),
+    (9, 4096, 32, False), (8, 6400, 49, True), (9, 6400, 49, False), (1, 49620, 376, True),
 ])
 def test_lstm_shape_range(B, H, units, ok):
     """One launch takes any H (off a multiple of 4 padded to the next one;
-    past 1024 or 8 units a block the wide variant), and the wrapper refuses
+    past 1024 or 8 units a block the wide kernels), and the wrapper refuses
     before any launch only more rows than one launch takes: 16 batch pairs a
     warp or two buffers of h in a block's shared memory for the kernel, 8
-    rows for the wide variant; more rows run as launches over slices."""
+    rows for the wide kernels (the direct wide forward where h does not fit
+    beside the rings: H = 6400 at 8 rows, 49,620 at one); more rows run as
+    launches over slices."""
     if ok:
         fused_lstm.check_shape(B, H, units)
     else:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (robo_vln_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile] [--only 3,9,10,11,12,13,14]
+    python3 chip_smoke.py [--profile] [--only 3,9,10,11,12,13,14,15]
 
-``--only`` runs the build and the listed phases among 3 and 9 to 14 alone,
+``--only`` runs the build and the listed phases among 3 and 9 to 15 alone,
 to try them; such a run prints no result line.
 
 Phases, one or more lines each; any failure ends the run with a non-zero
@@ -340,7 +340,34 @@ exit code and no result line:
    argmax agrees, the losses within phase 9's bf16 tolerances), each with
    its launches asserted (a window: 2 LSTM, both wide, and 2 attention, in
    bf16 wide and rounding p once; a step adds 2 wide backward).
-15. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
+15. ROADMAP §A item 8, after the key-block check (its S = 200 calls take
+   the key-block kernels; it counts its own launches).  15a: random-valued
+   pretrained files at full published size in the three layouts the loader
+   reads (torchvision ResNet50 .pth, HF bert-base .npz with 12 layers of
+   768 and a vocabulary of 30522, a DDPPO .pth {"state_dict"} under
+   actor_critic.net.visual_encoder.) in a temporary directory; run_exp's
+   hierarchical trainer (phase 6's set-up) from them for 2 steps: all
+   three ``loaded``, every trunk and BERT tensor of both levels equal to
+   the file's bitwise after the steps, 2 + 2 forward and 2 backward
+   launches a step.  15b: one bf16 train step of that trainer under
+   torch.profiler: each module range's calls, kernel time and device span
+   (TVResNet50, GNResNetEncoder, BertEncoder, HighLevelPolicy, which holds
+   BERT, LowLevelPolicy) beside the step's ranges.  15c: the nine blocks of
+   models/transformer.py that no policy builds, at the widths of their
+   config stanzas (the JAX defaults, config/jax_only.INERT) over N=200
+   rows of 200 instruction and 16 image tokens, bf16 and float32, each
+   held to itself under plain_kernels() (float32 within 1e-4, bf16 within
+   phase 14's 2e-2 of the largest magnitude) with its attention launches
+   and key blocks asserted (a masked call launches nothing); the
+   self-attention at S=200, d=64, h=4 and the image-to-instruction
+   cross-attention at Lq=16, S=200, d=128, h=2 held to the plain version
+   and timed against it and SDPA in both dtypes.  15d: the port's LangNav
+   study (robo_vln_tpu_torch/scripts/convergence_study.py) in this process
+   at full width: 8 train and 4 val episodes, one epoch from the feature
+   store, 150 ticks, the on-device eval, the host row, the control and the
+   nonlearning rows; both kernels launched; scripts/collect_study_results.py
+   reads the rows.
+16. One JSON line {"kernels": [...]}: the LSTM, its two backward kernels
    (lstm_seq_backward, the route; lstm_seq_backward_dg_exchange), the
    attention (its float32 route and every bf16 field) and its bf16 modes
    (cross_modal_attn_bf16_round_p, cross_modal_attn_bf16_split_p);
@@ -364,7 +391,13 @@ exit code and no result line:
    (c) S=500, h=4, d=60 and (e) S=200, h=2, d=256 under a_*, b_*, c_* and
    e_*; cross_modal_attn_wide_f32, cross_modal_attn_wide_bf16, lstm_seq_wide,
    lstm_seq_backward_wide, the last two with kernel_only_ms, exchange_floor_ms,
-   step_us, units and the backward's cluster), their ``launches`` phase 14's.  Then the
+   step_us, units and the backward's cluster), their ``launches`` phase 14's;
+   ``item8_launches``: phase 15's paths (15a's steps, 15c's blocks, 15d's
+   study), and the attention entry's ``item8_module_ms`` 15b's module
+   times; then the attention kernel at 15c's two shapes
+   (cross_modal_attn_s200_d64, cross_modal_attn_lq16_s200_d128: bf16 in
+   the entry's fields, float32 under f32_*), their ``launches`` 15c's
+   calls at that shape.  Then the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 """
@@ -5540,6 +5573,478 @@ def wide_path(device):
     return dict(total)
 
 
+# phase 15: ROADMAP §A item 8 (pretrained backbones, module ranges, the
+# transformer blocks no policy builds, the LangNav study)
+ITEM8_TRAIN_EPISODES = 4  # 15a: one batch of 4 (60-100 steps, padded to 100): 2 steps
+DDPPO_PREFIX = "actor_critic.net.visual_encoder."
+BLOCK_N, BLOCK_TOKENS, IMAGE_TOKENS = 200, 200, 16  # 15c: rows, instruction and image tokens
+BLOCK_F32_TOL = 1e-4  # 15c, float32, each block's output against plain_kernels()
+# 15c's timed attention calls: (field prefix, Lq, S, heads, d, what)
+BLOCK_SHAPES = (("s200_d64", 200, 200, 4, 64,
+                 "TRANSFORMER_INSTRUCTION_ENCODER's self-attention"),
+                ("lq16_s200_d128", 16, 200, 2, 128,
+                 "IMAGE_CROSS_MODAL_ENCODER's cross-attention, image tokens onto the instruction"))
+# 15d: the port's study at full width, cut to a smoke
+STUDY_KNOBS = {"N_TRAIN": 8, "N_VAL": 4, "EPOCHS": 1, "EPOCHS_PER_ITER": 1, "TOTAL_EPOCHS": 1,
+               "BATCH": 8, "MAX_STEPS": 150, "NUM_ENVS": 4, "HOST_EPISODES": 1,
+               "ON_DEVICE": True, "FEATURE_MODE": True}
+
+
+def write_pretrained_files(root, mc):
+    """15a: the three backbones' files at ``mc``'s sizes (at full width the
+    published ones: torchvision's ResNet50, the DDPPO GroupNorm ResNet50,
+    bert-base with 12 layers of 768 and a vocabulary of 30522), values from
+    seed 15, in the three layouts the loader reads: torchvision's .pth (its
+    fc and num_batches_tracked included), HF BertModel's .npz (its pooler
+    included) and a DDPPO .pth ({"state_dict"}, the encoder under
+    actor_critic.net.visual_encoder.).  Returns ({name: path}, {name: the
+    tensors each such module must hold})."""
+    import numpy as np
+
+    from robo_vln_tpu_torch.models.hierarchical import HighLevelPolicy
+
+    high = HighLevelPolicy(mc)
+    gen = torch.Generator().manual_seed(15)
+
+    def draw(sd):
+        out = {}
+        for k, v in sd.items():
+            if k.endswith("running_var"):
+                out[k] = torch.rand(v.shape, generator=gen) + 0.5
+            elif v.dim() > 1:
+                out[k] = torch.randn(v.shape, generator=gen) * v[0].numel() ** -0.5
+            else:
+                out[k] = torch.randn(v.shape, generator=gen) * 0.1 + float(k.endswith("weight"))
+        return out
+
+    tensors = {"ddppo_depth": draw(high.depth_encoder.visual_encoder.state_dict()),
+               "imagenet_rgb": draw(high.rgb_encoder.cnn.state_dict()),
+               "bert": draw(high.embedding_layer.state_dict())}
+    paths = {"ddppo_depth": os.path.join(root, "gibson-2plus-resnet50.pth"),
+             "imagenet_rgb": os.path.join(root, "resnet50_imagenet.pth"),
+             "bert": os.path.join(root, "bert_base_uncased.npz")}
+    torch.save({"state_dict": {DDPPO_PREFIX + k: v for k, v in tensors["ddppo_depth"].items()},
+                "config": None}, paths["ddppo_depth"])
+    tv = dict(tensors["imagenet_rgb"])
+    tv.update({k.replace("running_var", "num_batches_tracked"): torch.tensor(0)
+               for k in tensors["imagenet_rgb"] if k.endswith("running_var")})
+    tv["fc.weight"], tv["fc.bias"] = torch.randn(1000, 2048, generator=gen) * 0.02, torch.zeros(1000)
+    torch.save(tv, paths["imagenet_rgb"])
+    hidden = mc.BERT.hidden_size
+    np.savez(paths["bert"], **{k: v.numpy() for k, v in tensors["bert"].items()},
+             **{"pooler.dense.weight": np.zeros((hidden, hidden), np.float32),
+                "pooler.dense.bias": np.zeros(hidden, np.float32)})
+    return paths, tensors
+
+
+def check_backbones(trainer, tensors):
+    """Every frozen trunk and BERT of both levels equal to its file's
+    tensors, bitwise."""
+    held = {"ddppo_depth": ("depth_encoder.visual_encoder",),
+            "imagenet_rgb": ("rgb_encoder.cnn",), "bert": ("embedding_layer",)}
+    checked = 0
+    for name, paths in held.items():
+        for level, policy in (("high", trainer.high), ("low", trainer.low)):
+            for path in paths:
+                try:
+                    module = policy.get_submodule(path)
+                except AttributeError:
+                    continue  # the low level holds no BERT
+                for k, t in module.state_dict().items():
+                    if not torch.equal(t.cpu(), tensors[name][k]):
+                        fail(f"phase 15a: {level}.{path}.{k} differs from the {name} file")
+                    checked += 1
+    return checked
+
+
+def pretrained_trainer(device, root, model_opts=(), buffers=None):
+    """15a: run_exp's hierarchical trainer (phase 6's set-up) from the three
+    pretrained files for 2 steps: all three ``loaded``, the frozen trunks
+    and BERT equal to the files' tensors bitwise after the steps, and both
+    kernels launched (2 + 2 forward and 2 backward a step).  Returns the
+    trainer, its launches and the options that name the files."""
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.run import run_exp
+
+    t0 = time.perf_counter()
+    paths, tensors = write_pretrained_files(root, get_config(opts=list(model_opts)).MODEL)
+    sizes = {k: os.path.getsize(p) / 2**20 for k, p in paths.items()}
+    print(f"phase 15a: pretrained files written in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {os.path.basename(paths[k])} {sizes[k]:.1f} MiB" for k in paths))
+    (buffers or write_trainer_buffers)(root, episodes=(ITEM8_TRAIN_EPISODES, 0))
+    files = ["MODEL.DEPTH_ENCODER.ddppo_checkpoint", paths["ddppo_depth"],
+             "MODEL.RGB_ENCODER.pretrained_weights", paths["imagenet_rgb"],
+             "MODEL.BERT.pretrained_weights", paths["bert"]]
+    opts = [*model_opts, *files, "DEVICE", str(device), "TRAINER_NAME", "hierarchical_trainer",
+            "DAGGER.BATCH_SIZE", 4, "DAGGER.tbptt_steps", 50, "DAGGER.EPISODE_LEN_BUCKETS", [100],
+            "DAGGER.EPOCHS", 1, "DAGGER.PRELOAD_LMDB_FEATURES", True,
+            "DAGGER.LMDB_FEATURES_DIR", os.path.join(root, "train"),
+            "DAGGER.LMDB_EVAL_DIR", os.path.join(root, "no_eval"),
+            "CHECKPOINT_FOLDER", os.path.join(root, "ckpts"),
+            "TENSORBOARD_DIR", os.path.join(root, "tb"), "LOG_FILE", os.path.join(root, "train.log"),
+            "MODEL.INSTRUCTION_ENCODER.is_bert", True, "TPU.SYNC_FROZEN_TRUNKS_ON_INIT", True,
+            "TPU.PRECISION", "bfloat16"]
+    record = new_trainer_record()
+    fused_lstm.reset_launches()
+    fused_attention.reset_launches()
+    t0 = time.perf_counter()
+    with instrumented_trainer(record):
+        run_exp(None, "train", opts)
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = path_launches()
+    trainer = record["trainers"][0]
+    prov = trainer.pretrained_backbones
+    print(f"  run_exp train, 2 steps from the files: {run_ms:.1f} ms (the build, the loads and "
+          f"the steps); provenance {prov}")
+    if {k: v.get("status") for k, v in prov.items()} != dict.fromkeys(paths, "loaded"):
+        fail(f"phase 15a: the backbones were not all loaded: {prov}")
+    if len(record["train_ms"]) != 2:
+        fail(f"phase 15a took {len(record['train_ms'])} train steps, expected 2")
+    checked = check_backbones(trainer, tensors)
+    want = trainer_launches(2, 0)
+    if launches != want:
+        fail(f"phase 15a launched {launches}, expected {want}")
+    print(f"  {checked} trunk and BERT tensors of both levels equal to the files' after the "
+          f"steps; train steps (host ms to the end of the device's work): "
+          + " ".join(f"{t:.3f}" for t in record["train_ms"]) + f"; launches {launches}; "
+          f"shared trunks {record['shared_trunks']}")
+    return trainer, launches, files
+
+
+def range_times(prof, names):
+    """{range: (calls, kernel ms, device span ms)} of a profile: the device
+    time of the kernels launched inside each range (its children's
+    included), and its span on the device's timeline."""
+    events = prof.events()
+    out = {}
+    for name in names:
+        cpu = [e for e in events if e.name == name and e.device_type.name == "CPU"]
+        span = [e for e in events if e.name == name and e.device_type.name == "CUDA"]
+        out[name] = (len(cpu), sum(e.device_time_total for e in cpu) / 1e3,
+                     sum(e.time_range.elapsed_us() for e in span) / 1e3)
+    return out
+
+
+def module_times(device, trainer, B=4, T=50, L=200):
+    """15b: one bf16 train step (lr 0) of 15a's trainer under torch.profiler:
+    the device time of each module range (utils/profiling.MODULE_RANGES: the
+    rgb and depth trunks, BERT, the high-level policy, which holds BERT, and
+    the low-level policy) and of the step's ranges.  Returns {range: kernel
+    ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from robo_vln_tpu_torch.utils.profiling import MODULE_RANGES
+
+    gen = torch.Generator().manual_seed(16)
+    batch = train_batch(gen, B, T, L, device)
+    hh, lh = trainer.high.initial_hidden(B, device), trainer.low.initial_hidden(B, device)
+    trainer.train_step(trainer.state, hh, lh, batch, 0.0, 0.0)  # warm, lr 0: weights unchanged
+    _synchronize(device)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.device(
+        device).type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, hh, lh, batch, 0.0, 0.0)
+        _synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = ("hier_train_step.forward", "hier_train_step.backward", "hier_train_step.optimizer")
+    times = range_times(prof, MODULE_RANGES + steps)
+    print(f"phase 15b: one bf16 train step B={B} T={T} under torch.profiler: {wall_ms:.3f} ms "
+          "host; by range, its calls, the device time of its kernels, its span on the device")
+    for name, (calls, kernel_ms, span_ms) in times.items():
+        if not calls:
+            fail(f"phase 15b: no {name} range in the profile of a train step")
+        print(f"  {name}: {calls}x, kernels {kernel_ms:.3f} ms, span {span_ms:.3f} ms")
+    return {name: kernel_ms for name, (_, kernel_ms, _) in times.items()}
+
+
+def stanza_widths():
+    """The widths of the reference's transformer stanzas, which the port's
+    tree does not hold: their JAX package defaults (config/jax_only.INERT)."""
+    from robo_vln_tpu_torch.config.jax_only import INERT
+
+    out = collections.defaultdict(dict)
+    for key, (value, _) in INERT.items():
+        parts = key.split(".")
+        if parts[0] == "MODEL" and parts[1] in ("TRANSFORMER_INSTRUCTION_ENCODER",
+                                                "IMAGE_CROSS_MODAL_ENCODER", "INTER_MODULE_ATTN"):
+            out[parts[1]][parts[2]] = value
+    return dict(out)
+
+
+def block_cases(dtype, widths, n, tokens, image_tokens, gen, device):
+    """15c: the nine blocks of models/transformer.py that no policy builds, at
+    the stanzas' widths over ``n`` rows (instruction sequences of ``tokens``,
+    image maps of ``image_tokens``): [(name, module, inputs, its attention
+    calls as (Lq, S, heads, d))]."""
+    from robo_vln_tpu_torch.models import transformer as tf
+
+    ti, ic, im = (widths[k] for k in ("TRANSFORMER_INSTRUCTION_ENCODER",
+                                      "IMAGE_CROSS_MODAL_ENCODER", "INTER_MODULE_ATTN"))
+    torch.manual_seed(15)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    t_d, i_d, m_d = (w["d_model"] // w["h"] for w in (ti, ic, im))
+    lang = randn(n, tokens, ti["d_model"])
+    text = randn(n, tokens, ti["d_in"])
+    pad = torch.zeros(n, tokens, 1, dtype=torch.bool)
+    pad[::2, tokens - tokens // 10:] = True  # every other row's last tenth is padding
+    image = randn(n, image_tokens, ic["d_in"])
+    image_model = randn(n, image_tokens, ic["d_model"])
+    instruction = randn(n, tokens, ic["d_model"])
+    side = math.isqrt(image_tokens)
+    pos_mod = tf.PositionEmbedding2DLearned(ic["d_model"] // 2)
+    pos = pos_mod.to(device)((side, side), n).reshape(n, image_tokens, ic["d_model"])
+    self_t = [(tokens, tokens, ti["h"], t_d)]
+    image_calls = [(image_tokens, image_tokens, ic["h"], i_d), (image_tokens, tokens, ic["h"], i_d)]
+    cases = [
+        ("EncoderLayer", tf.EncoderLayer(ti["d_model"], ti["h"], ti["d_ff"], dtype),
+         (lang, lang, lang), self_t),
+        ("BaseEncoder", tf.BaseEncoder(ti["d_model"], ti["h"], ti["d_ff"], ti["N"], dtype),
+         (lang,), self_t * ti["N"]),
+        ("TransformerLanguageEncoder", tf.TransformerLanguageEncoder(
+            ti["d_model"], ti["h"], ti["d_ff"], ti["N"], ti["d_in"], dtype),
+         (text, pad.to(device)), self_t * ti["N"]),
+        ("DecoderLayer", tf.DecoderLayer(ic["d_model"], ic["h"], ic["d_ff"], dtype),
+         (image_model, instruction), image_calls),
+        ("InterModuleAttnDecoder", tf.InterModuleAttnDecoder(
+            im["d_model"], im["h"], im["d_ff"], im["N"], im["in_features"], dtype),
+         (randn(n, tokens, im["in_features"]), randn(n, tokens, im["in_features"])),
+         [(tokens, tokens, im["h"], m_d)] * im["N"]),
+        ("ImageCrossModalEncoder", tf.ImageCrossModalEncoder(
+            ic["d_model"], ic["h"], ic["d_ff"], ic["N"], ic["d_in"], dtype),
+         (image, instruction), image_calls * ic["N"]),
+        ("PositionEmbedding2DLearned", pos_mod, ((side, side), n), []),
+        ("ImageEncoderWithPosEncodings", tf.ImageEncoderWithPosEncodings(
+            ic["d_model"], ic["h"], ic["d_ff"], ic["N"], ic["d_model"], dtype),
+         (image_model, instruction, None, None, pos), image_calls * ic["N"]),
+        ("ImagePlainEncoder", tf.ImagePlainEncoder(
+            ic["d_model"], ic["h"], ic["d_ff"], ic["N"], ic["d_in"], dtype),
+         (image,), [(image_tokens, image_tokens, ic["h"], i_d)] * ic["N"]),
+    ]
+    return [(name, module.to(device).eval(), args, calls) for name, module, args, calls in cases]
+
+
+def attention_counts():
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    return {"cross_modal_attn": fused_attention.launches,
+            **dict(zip(KEY_BLOCK_COUNTS, key_block_launches())),
+            **{f"route_{r}": c for r, c in fused_attention.route_launches.items()},
+            **{f"bf16_{m}": c for m, c in fused_attention.bf16_mode_launches.items()}}
+
+
+def blocks_path(device, widths=None, n=BLOCK_N, tokens=BLOCK_TOKENS, image_tokens=IMAGE_TOKENS):
+    """15c: the nine blocks forward in bf16 and float32, each held to its run
+    under plain_kernels() (float32 within BLOCK_F32_TOL, bf16 within
+    WIDE_BF16_RTOL of the output's largest magnitude, phase 14's), with the
+    attention kernel's launches a block asserted (one a call, and the key
+    blocks each call's route takes); a masked call (the language encoder
+    with an attention mask) takes the plain path and launches nothing.
+    Returns (launches of the kernels' runs by the kernels line's names,
+    the calls at each timed shape)."""
+    from robo_vln_tpu_torch.ops import fused_attention
+    from robo_vln_tpu_torch.utils.device import float32_exact
+
+    widths = widths or stanza_widths()
+    print(f"phase 15c: the transformer blocks no policy builds, at the stanzas' widths {widths} "
+          f"over N={n} rows, {tokens} instruction and {image_tokens} image tokens; bf16 and "
+          "float32, each against plain_kernels()")
+    total = collections.Counter()
+    shape_calls = collections.Counter()
+    timed = {(Lq, S, h, d): prefix for prefix, Lq, S, h, d, _ in BLOCK_SHAPES}
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype)[6:]
+        bf16 = dtype == torch.bfloat16
+        gen = torch.Generator().manual_seed(15)
+        with float32_exact(dtype), torch.no_grad():
+            for name, module, args, calls in block_cases(dtype, widths, n, tokens,
+                                                          image_tokens, gen, device):
+                want = collections.Counter({"cross_modal_attn": len(calls)})
+                for Lq, S, h, d in calls:
+                    route = fused_attention.pick_route(dtype, S, d, d)
+                    want[f"route_{route}"] += 1
+                    want.update(dict(zip(KEY_BLOCK_COUNTS,
+                                         expected_key_block_counts(route, dtype, S, d, d))))
+                    if bf16:
+                        want["bf16_round_p"] += 1
+                    shape_calls[timed.get((Lq, S, h, d))] += 1
+                want = {k: v for k, v in want.items() if v}
+                before = attention_counts()
+                _synchronize(device)
+                t0 = time.perf_counter()
+                got = module(*args)
+                _synchronize(device)
+                ms = (time.perf_counter() - t0) * 1e3
+                took = {k: v - before[k] for k, v in attention_counts().items() if v != before[k]}
+                if took != want:
+                    fail(f"phase 15c {name} {name_dt} launched {took}, expected {want}")
+                before = attention_counts()
+                with plain_kernels():
+                    ref = module(*args)
+                if attention_counts() != before:
+                    fail(f"phase 15c {name} {name_dt} under plain_kernels() launched a kernel")
+                check_finite(f"phase 15c {name} {name_dt}", got)
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = WIDE_BF16_RTOL * ref.float().abs().max().item() if bf16 else BLOCK_F32_TOL
+                print(f"  {name} {name_dt} {tuple(got.shape)}: {ms:.3f} ms (host clock, first "
+                      f"call), {len(calls)} attention launches {took}; max_abs_err {err:.3e} "
+                      f"(tolerance {tol:.3e})")
+                if not err <= tol:
+                    fail(f"phase 15c {name} {name_dt} disagrees with plain_kernels()")
+                total.update({k: v for k, v in took.items() if not k.startswith("route_")})
+                if name == "TransformerLanguageEncoder":  # masked: the plain path, no launch
+                    before = attention_counts()
+                    masked = module(args[0], args[1], args[1].reshape(n, 1, 1, tokens))
+                    if attention_counts() != before:
+                        fail("phase 15c: a masked attention call launched the kernel")
+                    check_finite("phase 15c masked TransformerLanguageEncoder", masked)
+                del module, args, got, ref
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    launches = {"cross_modal_attn": total["cross_modal_attn"],
+                "cross_modal_attn_bf16_round_p": total["bf16_round_p"],
+                "cross_modal_attn_bf16_split_p": total["bf16_split_p"],
+                **{k: total[k] for k in KEY_BLOCK_COUNTS}}
+    print(f"  phase 15c launches (the kernels' runs): {launches}; calls at the timed shapes "
+          f"{ {k: v for k, v in shape_calls.items() if k} }")
+    return launches, shape_calls
+
+
+def block_shape_entries(gen, device, shape_calls):
+    """15c's timed calls: each BLOCK_SHAPES shape in bf16 (the serving
+    dtype: the entry's ms, plain_ms, library_ms, bound) and float32 (f32_*),
+    held to the plain version first (max_abs_err, bf16; f32_max_abs_err),
+    then timed against it and SDPA (time_attention).  Returns the kernels
+    line's entries."""
+    from robo_vln_tpu_torch.ops import fused_attention
+
+    entries = []
+    for prefix, Lq, S, h, d, what in BLOCK_SHAPES:
+        entry = {"name": f"cross_modal_attn_{prefix}", "route": "cuda",
+                 "source": "robo_vln_tpu_torch/csrc/cross_modal_attn.cu",
+                 "replaces": "robo_vln_tpu/ops/pallas_attention.py:48",
+                 "launches": shape_calls[prefix]}
+        for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "f32_")):
+            q, k, v = (torch.randn(BLOCK_N, L, h * d, generator=gen).to(device, dtype)
+                       for L in (Lq, S, S))
+            with torch.no_grad():
+                got = fused_attention.cross_modal_attn_cuda(q, k, v, h)
+                ref = fused_attention.attention_plain(q, k, v, h)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = bf16_tolerance(ATTN_BF16_TOL, q, k, v, h) if tag == "" else ATTN_TOL
+            route = fused_attention.pick_route(dtype, S, d, d)
+            print(f"  {prefix} {str(dtype)[6:]} ({what}): route {route}, max_abs_err {err:.3e} "
+                  f"(tolerance {tol:.3e})")
+            if not err <= tol:
+                fail(f"phase 15c: the kernel at {prefix} {dtype} disagrees with the plain version")
+            fields = time_attention(gen, device, prefix, BLOCK_N, Lq, S, h, d, dtype, what)
+            entry.update({f"{tag}max_abs_err": err, f"{tag}ms": fields[f"{prefix}_ms"],
+                          f"{tag}plain_ms": fields[f"{prefix}_plain_ms"],
+                          f"{tag}library_ms": fields[f"{prefix}_library_ms"],
+                          f"{tag}bound_ms": fields[f"{prefix}_bound_ms"],
+                          f"{tag}bound_by": fields[f"{prefix}_bound_by"],
+                          f"{tag}work": fields[f"{prefix}_work"],
+                          **{f"{tag}{k[len(prefix) + 1:]}": fields[k] for k in fields
+                             if k.endswith(("split_p_ms", "cuda_core_ms"))}})
+        entries.append(entry)
+    return entries
+
+
+def study_path(device, root, model_opts=(), knobs=None):
+    """15d: the port's convergence study (robo_vln_tpu_torch/scripts/
+    convergence_study.py) in this process, cut to a smoke at full width: 8
+    LangNav train episodes and 4 val, one epoch from the feature store, the
+    on-device eval (and the host driver's row, the grounding control, the
+    nonlearning rows), with ``model_opts`` (15a's pretrained files) on the
+    study's config; scripts/collect_study_results.py must read its rows.
+    Returns its launches."""
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.scripts import convergence_study as cs
+
+    saved = {k: getattr(cs, k) for k in (*STUDY_KNOBS, "DEVICE", "build_config")}
+    for k, v in {**STUDY_KNOBS, **(knobs or {}), "DEVICE": str(device)}.items():
+        setattr(cs, k, v)
+    if model_opts:
+        build = cs.build_config
+
+        def with_opts(data_dir):
+            cfg = build(data_dir).clone().defrost()
+            cfg.merge_from_list(list(model_opts))
+            cfg.freeze()
+            return cfg
+
+        cs.build_config = with_opts
+    fused_lstm.reset_launches()
+    fused_attention.reset_launches()
+    out = os.path.join(root, "study")
+    try:
+        t0 = time.perf_counter()
+        cs.main([out])
+        seconds = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(cs, k, v)
+    with open(os.path.join(out, "convergence.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    launches = path_launches()
+    splits = sorted({r["split"] for r in rows if r["model"] == "hcm"})
+    print(f"phase 15d: the port's LangNav study, {cs.MODELS['hcm'][0]} at full width, "
+          f"{STUDY_KNOBS}: {seconds:.1f} s; rows {splits} and the nonlearning rows; launches "
+          f"{launches}")
+    for r in rows:
+        print(f"  {json.dumps(r)}")
+    if splits != ["val_seen", "val_unseen", "val_unseen_host", "val_unseen_shuffled"]:
+        fail(f"phase 15d: the study wrote rows for {splits}")
+    if not (launches["lstm_seq"] and launches["lstm_seq_backward"]
+            and launches["cross_modal_attn"]):
+        fail(f"phase 15d: the study's path did not launch both kernels: {launches}")
+    report = subprocess.run([sys.executable, "scripts/collect_study_results.py", out],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            capture_output=True, text=True, timeout=300)
+    if report.returncode != 0 or "Full per-epoch table" not in report.stdout:
+        fail(f"phase 15d: scripts/collect_study_results.py did not read the study's rows: "
+             f"{report.stdout[-2000:]} {report.stderr[-2000:]}")
+    print("  scripts/collect_study_results.py read the rows: "
+          + report.stdout.strip().splitlines()[0])
+    return launches
+
+
+def item8_path(device, model_opts=(), widths=None, blocks=(BLOCK_N, BLOCK_TOKENS, IMAGE_TOKENS),
+               buffers=None, study_knobs=None):
+    """Phase 15 (ROADMAP §A item 8): 15a the trainer from pretrained files,
+    15b the module ranges, 15c the transformer blocks and their attention
+    shapes, 15d the LangNav study.  Run after the key-block check: its
+    S = 200 calls take the key-block kernels, and it counts its own
+    launches.  Returns (launches by path, the kernels line's entries of
+    15c's shapes, 15b's module times)."""
+    import shutil
+    import tempfile
+
+    from robo_vln_tpu_torch.ops import _build, fused_attention
+
+    cuda = torch.device(device).type == "cuda"
+    print(f"phase 15 ({card_line() if cuda else 'no card'}): ROADMAP §A item 8 — pretrained "
+          "backbones, module ranges, the remaining transformer blocks, the LangNav study")
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="item8_", dir=_build.BUILD_DIR.parent)
+    try:
+        trainer, pretrained, files = pretrained_trainer(device, root, model_opts, buffers)
+        module_ms = module_times(device, trainer)
+        del trainer
+        fused_attention.reset_launches()
+        block_launches, shape_calls = blocks_path(device, widths, *blocks)
+        entries = (block_shape_entries(torch.Generator().manual_seed(15), device, shape_calls)
+                   if cuda else [])
+        study = study_path(device, root, (*model_opts, *files), study_knobs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"pretrained": pretrained, "blocks": block_launches, "study": study}, entries, module_ms
+
+
 def _config_dir():
     from robo_vln_tpu_torch.config.default import _CONFIGS
 
@@ -5600,6 +6105,8 @@ def main():
                 check_wider_shapes(torch.Generator().manual_seed(0), device)
         if "14" in only:
             wide_path(device)
+        if "15" in only:
+            item8_path(device)
         print(f"chip_smoke: phases {only} passed; a partial run prints no result")
         return 0
     gen = torch.Generator().manual_seed(0)
@@ -5646,6 +6153,8 @@ def main():
     if any(key_blocks.values()):
         fail("an HCM path launched a key-block or one-float-copy attention kernel")
     attention.update(key_blocks)
+    # phase 15 after the check: its S = 200 calls take the key-block kernels
+    item8, block_entries, module_ms = item8_path(device)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
@@ -5667,6 +6176,7 @@ def main():
                                                               backward["train_launches"])
     for k in kernels:
         k["wide_launches"] = wide.get(k["name"], 0)
+        k["item8_launches"] = {path: counts.get(k["name"], 0) for path, counts in item8.items()}
     # the kernels past the former ranges: phase 14 is their path (the float32
     # key blocks counted as wide_path counts them)
     counted_as = {"cross_modal_attn_f32_key_blocks": "f32_key_block"}
@@ -5675,6 +6185,9 @@ def main():
     if not wide_attention[0]["launches"]:
         fail("phase 14 launched the float32 key-block kernel no time")
     kernels += [*wide_attention, *wide_lstm]
+    # the attention kernel at 15c's shapes: their launches are 15c's calls at them
+    kernels += block_entries
+    attention["item8_module_ms"] = module_ms  # 15b: device ms of each module range in a step
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

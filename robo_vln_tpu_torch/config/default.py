@@ -213,8 +213,8 @@ _C.MODEL.VISUAL_LING_ATTN.h = 4
 _C.MODEL.VISUAL_LING_ATTN.d_ff = 1024
 _C.MODEL.VISUAL_LING_ATTN.dropout = 0.25
 
-# pretrained backbone files: the trainer refuses one that exists, because the
-# port loads none yet (utils/pretrained.py, ROADMAP §A item 8)
+# pretrained backbone files (.pth or .npz), read by the trainers where they
+# exist (utils/pretrained.py); a missing file leaves its backbone random
 _C.MODEL.RGB_ENCODER = ConfigTree()
 # the flat Seq2Seq's rgb encoder: "SimpleRGBCNN" or the ResNet50
 _C.MODEL.RGB_ENCODER.cnn_type = "TorchVisionResNet50"

@@ -185,7 +185,8 @@ def _load_eval_weights(trainer, checkpoint_path) -> None:
     (``train_state.pt`` + ``framework_metadata.json``).  A path that does
     not exist leaves the weights as they are, as in the JAX package; any
     other path raises, an orbax directory of the JAX package among them
-    (reading one needs JAX)."""
+    (scripts/jax_checkpoint_to_torch.py converts one where JAX is
+    installed)."""
     cp = str(checkpoint_path)
     if not (checkpoint_path and os.path.exists(cp)):
         return
@@ -211,7 +212,8 @@ def _load_eval_weights(trainer, checkpoint_path) -> None:
         raise ValueError(
             f"{cp} is not a checkpoint the port reads: it reads a port checkpoint "
             f"directory ({ckpt_lib.TRAIN_STATE} + {ckpt_lib.METADATA}) and a reference "
-            ".pth; a JAX package (orbax) checkpoint needs JAX to read")
+            ".pth; convert a JAX package (orbax) checkpoint with "
+            "scripts/jax_checkpoint_to_torch.py on a machine with JAX")
     logger.info(f"Loaded weights from checkpoint: {checkpoint_path}")
 
 

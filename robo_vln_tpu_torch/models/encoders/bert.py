@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.cm_attention import mha_attention
+from ...utils.profiling import module_range
 from ..transformer import layer_norm, linear
 
 BERT_LN_EPS = 1e-12
@@ -100,6 +101,7 @@ class BertEncoder(nn.Module):
             for _ in range(num_layers)
         )
 
+    @module_range("BertEncoder")
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids (B, L) -> last hidden state (B, L, hidden), float32."""
         e = self.embeddings

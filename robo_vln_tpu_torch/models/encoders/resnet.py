@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.profiling import module_range
+
 GN_EPS = 1e-6  # flax nn.GroupNorm default
 
 
@@ -145,6 +147,7 @@ class GNResNetEncoder(nn.Module):
             _gn(1, self.compression_channels), nn.ReLU(True),
         )
 
+    @module_range("GNResNetEncoder")
     def forward(self, x):
         dt = self.compute_dtype
         x = self.backbone(x.to(dt))
@@ -204,6 +207,7 @@ class TVResNet50(nn.Module):
             planes *= 2
         self.num_layers = len(blocks)
 
+    @module_range("TVResNet50")
     def forward(self, x):
         dt = self.compute_dtype
         x = max_pool_3x3_s2(F.relu(self.bn1(conv(x, self.conv1, dt))))

@@ -32,6 +32,7 @@ from torch import nn
 from .encoders.bert import BertEncoder
 from .encoders.visual import DepthEncoder, RGBEncoder, visual_obs, visual_ref
 from .rnn_state_encoder import RNNStateEncoder
+from ..utils.profiling import module_range
 from .transformer import VisualLingAttn, linear
 
 _EPISODE_KEYS = ("instruction", "instruction_embedding")
@@ -116,6 +117,7 @@ class HighLevelPolicy(nn.Module):
         with torch.no_grad():
             return self.embedding_layer(instruction)
 
+    @module_range("HighLevelPolicy")
     def forward(self, observations: Dict[str, torch.Tensor], hidden: torch.Tensor,
                 prev_actions: Optional[torch.Tensor], masks: torch.Tensor,
                 dropout_generator: Optional[torch.Generator] = None):
@@ -191,6 +193,7 @@ class LowLevelPolicy(nn.Module):
     def initial_hidden(self, batch_size: int, device=None) -> torch.Tensor:
         return self.state_encoder.initial_hidden(batch_size, device)
 
+    @module_range("LowLevelPolicy")
     def forward(self, observations: Dict[str, torch.Tensor], hidden: torch.Tensor,
                 prev_actions: Optional[torch.Tensor], masks: torch.Tensor,
                 discrete_actions: torch.Tensor):

@@ -1,5 +1,5 @@
 """Cross-modal transformer blocks (counterpart of
-robo_vln_tpu/models/transformer.py:35-177).
+robo_vln_tpu/models/transformer.py).
 
 * :class:`MultiHeadAttention` — Q/K/V/O linears around
   ``ops/cm_attention.attention_core``, post-LN residual; with
@@ -9,7 +9,13 @@ robo_vln_tpu/models/transformer.py:35-177).
 * :class:`InterModuleAttnLayer` — cross-attention + FFN;
 * :class:`VisualLingAttn` — instruction queries × visual keys/values, the HCM
   agent's core block: ONE LayerNorm serves both streams, and the sinusoid
-  position table is added to the queries only.
+  position table is added to the queries only;
+* the rest of the reference's stack, which no policy builds:
+  :class:`EncoderLayer`, :class:`BaseEncoder`,
+  :class:`TransformerLanguageEncoder`, :class:`DecoderLayer`,
+  :class:`InterModuleAttnDecoder`, :class:`ImageCrossModalEncoder`,
+  :class:`PositionEmbedding2DLearned`, :class:`ImageEncoderWithPosEncodings`
+  and :class:`ImagePlainEncoder`.
 
 The linears run in the compute dtype (bfloat16 by default); LayerNorms run in
 float32 with flax's eps=1e-6 (torch's default is 1e-5).  Parameter names
@@ -26,6 +32,8 @@ exactly what they computed without it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -163,3 +171,201 @@ class VisualLingAttn(nn.Module):
         for layer in self.layers:
             out = layer(ins, out, enc_att_mask, generator)
         return out
+
+
+# -- the rest of the reference's transformer stack: no policy or yaml builds
+# these (nor in the JAX package); each keeps its JAX block's arithmetic and
+# the reference's parameter names, and sends every attention call through
+# attention_core (unmasked: the kernel on the card; masked: the plain path)
+
+
+def _input_stage(x, fc: nn.Linear, ln: nn.LayerNorm, dt, rate, generator, live):
+    """Linear -> ReLU -> dropout -> LayerNorm (float32 out)."""
+    return layer_norm(dropout(F.relu(linear(x, fc, dt)), rate, generator, live), ln)
+
+
+class EncoderLayer(nn.Module):
+    """Self-attention + FFN."""
+
+    def __init__(self, d_model: int, h: int, d_ff: int, compute_dtype=torch.float32,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.mhatt = MultiHeadAttention(d_model, h, compute_dtype, dropout)
+        self.pwff = PositionWiseFeedForward(d_model, d_ff, compute_dtype, dropout)
+
+    def forward(self, queries, keys, values, attention_mask=None, generator=None):
+        att = self.mhatt(queries, keys, values, attention_mask, generator)
+        return self.pwff(att, generator)
+
+
+class BaseEncoder(nn.Module):
+    """A stack of self-attention EncoderLayers."""
+
+    def __init__(self, d_model: int, h: int, d_ff: int, n_layers: int,
+                 compute_dtype=torch.float32, dropout: float = 0.1):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(d_model, h, d_ff, compute_dtype, dropout) for _ in range(n_layers))
+
+    def forward(self, x, attention_mask=None, generator=None):
+        out = x
+        for layer in self.layers:
+            out = layer(out, out, out, attention_mask, generator)
+        return out
+
+
+class TransformerLanguageEncoder(nn.Module):
+    """Linear -> ReLU -> LN input stage, the sinusoid table added (zero at
+    pads: ``pad_mask`` (B, L, 1) bool, True = pad), then N self-attention
+    layers."""
+
+    def __init__(self, d_model: int, h: int, d_ff: int, n_layers: int, d_in: int,
+                 compute_dtype=torch.float32, dropout: float = 0.2):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.dropout = dropout
+        self.fc = nn.Linear(d_in, d_model)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.encoder = BaseEncoder(d_model, h, d_ff, n_layers, compute_dtype, dropout)
+
+    def forward(self, x, pad_mask=None, attention_mask=None, generator=None):
+        out = _input_stage(x, self.fc, self.layer_norm, self.compute_dtype, self.dropout,
+                           generator, self.training)
+        pe = sinusoid_encoding_table(out.shape[1], out.shape[2], out.device)[None]
+        if pad_mask is not None:
+            pe = torch.where(pad_mask, 0.0, pe)
+        return self.encoder(out + pe, attention_mask, generator)
+
+
+class DecoderLayer(nn.Module):
+    """Self-attention (``pos_embed`` added to its input and output), an
+    optional adaptive average pool over the tokens to ``pool_to`` (the
+    reference's ``pooler``), cross-attention onto ``enc_output``, FFN."""
+
+    def __init__(self, d_model: int, h: int, d_ff: int, compute_dtype=torch.float32,
+                 dropout: float = 0.1, pool_to: int = 0):
+        super().__init__()
+        self.pool_to = pool_to
+        self.self_att = MultiHeadAttention(d_model, h, compute_dtype, dropout)
+        self.enc_att = MultiHeadAttention(d_model, h, compute_dtype, dropout)
+        self.pwff = PositionWiseFeedForward(d_model, d_ff, compute_dtype, dropout)
+
+    def forward(self, x, enc_output, mask_self_att=None, mask_enc_att=None, pos_embed=None,
+                generator=None):
+        if pos_embed is not None:
+            x = x + pos_embed
+        self_att = self.self_att(x, x, x, mask_self_att, generator)
+        if pos_embed is not None:
+            self_att = self_att + pos_embed
+        if self.pool_to:
+            self_att = F.adaptive_avg_pool1d(self_att.transpose(1, 2),
+                                             self.pool_to).transpose(1, 2)
+        enc_att = self.enc_att(self_att, enc_output, enc_output, mask_enc_att, generator)
+        return self.pwff(enc_att, generator)
+
+
+class InterModuleAttnDecoder(nn.Module):
+    """One Linear -> ReLU -> LN input stage shared by both streams, then N
+    cross-attention layers of ``input_1`` onto ``input_2``."""
+
+    def __init__(self, d_model: int, h: int, d_ff: int, n_layers: int, in_features: int,
+                 compute_dtype=torch.float32, dropout: float = 0.1):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.dropout = dropout
+        self.fc = nn.Linear(in_features, d_model)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layers = nn.ModuleList(
+            InterModuleAttnLayer(d_model, h, d_ff, compute_dtype, dropout)
+            for _ in range(n_layers))
+
+    def forward(self, input_1, input_2, self_att_mask=None, enc_att_mask=None, generator=None):
+        stage = functools.partial(_input_stage, fc=self.fc, ln=self.layer_norm,
+                                  dt=self.compute_dtype, rate=self.dropout,
+                                  generator=generator, live=self.training)
+        out, inp2 = stage(input_1), stage(input_2)
+        for layer in self.layers:
+            out = layer(out, inp2, enc_att_mask, generator)
+        return out
+
+
+class ImageCrossModalEncoder(nn.Module):
+    """Linear -> ReLU -> LN input stage, then N DecoderLayers onto
+    ``enc_output``."""
+
+    def __init__(self, d_model: int, h: int, d_ff: int, n_layers: int, in_features: int,
+                 compute_dtype=torch.float32, dropout: float = 0.2):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.dropout = dropout
+        self.fc = nn.Linear(in_features, d_model)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, h, d_ff, compute_dtype, dropout) for _ in range(n_layers))
+
+    def forward(self, x, enc_output, self_att_mask=None, enc_att_mask=None, generator=None):
+        out = _input_stage(x, self.fc, self.layer_norm, self.compute_dtype, self.dropout,
+                           generator, self.training)
+        for layer in self.layers:
+            out = layer(out, enc_output, self_att_mask, enc_att_mask, generator=generator)
+        return out
+
+
+class PositionEmbedding2DLearned(nn.Module):
+    """Learned absolute 2D position embedding of an h × w feature map:
+    (B, h, w, 2·num_pos_feats), the column's embedding then the row's."""
+
+    def __init__(self, num_pos_feats: int = 128, max_size: int = 50):
+        super().__init__()
+        self.row_embed = nn.Embedding(max_size, num_pos_feats)
+        self.col_embed = nn.Embedding(max_size, num_pos_feats)
+        nn.init.uniform_(self.row_embed.weight)
+        nn.init.uniform_(self.col_embed.weight)
+
+    def forward(self, feature_map_hw, batch: int):
+        h, w = feature_map_hw
+        f = self.row_embed.weight.shape[1]
+        x_emb = self.col_embed.weight[None, :w].expand(h, w, f)
+        y_emb = self.row_embed.weight[:h, None].expand(h, w, f)
+        return torch.cat([x_emb, y_emb], dim=-1)[None].expand(batch, h, w, 2 * f)
+
+
+class ImageEncoderWithPosEncodings(nn.Module):
+    """Dropout -> LN input stage, then N DecoderLayers with ``pos_embed``
+    added to their queries.  The reference also builds an ``fc`` that its
+    forward never uses; as in the JAX package, there is none."""
+
+    def __init__(self, d_model: int, h: int, d_ff: int, n_layers: int, d_in: int,
+                 compute_dtype=torch.float32, dropout: float = 0.1):
+        super().__init__()
+        self.dropout = dropout
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, h, d_ff, compute_dtype, dropout) for _ in range(n_layers))
+
+    def forward(self, x, enc_output, self_att_mask=None, enc_att_mask=None, pos_embed=None,
+                generator=None):
+        out = layer_norm(dropout(x, self.dropout, generator, self.training), self.layer_norm)
+        for layer in self.layers:
+            out = layer(out, enc_output, self_att_mask, enc_att_mask, pos_embed, generator)
+        return out
+
+
+class ImagePlainEncoder(nn.Module):
+    """Linear -> ReLU -> dropout -> LN input stage, then N self-attention
+    layers (the reference's __init__ cannot be built as shipped; this is its
+    intended block, as in the JAX package)."""
+
+    def __init__(self, d_model: int, h: int, d_ff: int, n_layers: int, d_in: int,
+                 compute_dtype=torch.float32, dropout: float = 0.1):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.dropout = dropout
+        self.fc = nn.Linear(d_in, d_model)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.encoder = BaseEncoder(d_model, h, d_ff, n_layers, compute_dtype, dropout)
+
+    def forward(self, x, attention_mask=None, generator=None):
+        out = _input_stage(x, self.fc, self.layer_norm, self.compute_dtype, self.dropout,
+                           generator, self.training)
+        return self.encoder(out, attention_mask, generator)

@@ -17,11 +17,14 @@ windows one ahead of the step (envs/async_env.window_stream).  Each step's metri
 host in one transfer: the step already synchronises once for its
 non-finite guard.
 
-Weights are random from ``TASK_CONFIG.SEED`` (the port loads no pretrained
-backbone files yet, ROADMAP §A item 8); ``TPU.SYNC_FROZEN_TRUNKS_ON_INIT``
-copies the high level's frozen trunks into the low level's, so that the
-shared-trunk pass (``TPU.SHARE_FROZEN_TRUNKS``) can run: it runs only when
-the two policies' trunks are bitwise identical.
+Weights are random from ``TASK_CONFIG.SEED``; the pretrained backbones are
+then read into both policies where their files exist (utils/pretrained.py),
+before anything (the feature cache's fingerprint, a CUDA graph) sees the
+weights, and the provenance of the two merged as the JAX trainer merges it;
+``TPU.SYNC_FROZEN_TRUNKS_ON_INIT`` then copies the high level's frozen
+trunks into the low level's, so that the shared-trunk pass
+(``TPU.SHARE_FROZEN_TRUNKS``) can run: it runs only when the two policies'
+trunks are bitwise identical.
 
 With ``DAGGER.PRELOAD_TRUNK_FEATURES``, each iteration trains from the
 buffers' featurized twins (training/featurize.py), refreshed after its
@@ -56,6 +59,7 @@ from ..ops import cm_attention
 from ..parallel.mesh import DataMesh
 from ..utils.device import resolve_device, resolve_dtype
 from ..utils.logging import logger
+from ..utils.pretrained import graft_pretrained, merge_provenance
 from ..utils.registry import register_trainer
 from . import checkpoint as ckpt_lib
 from . import optimizers as opt_lib
@@ -103,7 +107,8 @@ class HierarchicalTrainer(BaseTrainer):
             cfg.MODEL, compute_dtype=self.dtype,
             generator=torch.Generator().manual_seed(cfg.TASK_CONFIG.SEED),
         )
-        self._check_pretrained_files((self.high, self.low))
+        self.pretrained_backbones = merge_provenance(
+            graft_pretrained(self.high, cfg.MODEL), graft_pretrained(self.low, cfg.MODEL))
         if cfg.TPU.SYNC_FROZEN_TRUNKS_ON_INIT:
             sync_frozen_trunks(self.high, self.low)
         self.high.to(self.device)

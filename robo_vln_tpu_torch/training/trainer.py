@@ -47,23 +47,15 @@ from ..data.loader import TrajectoryDataset, batch_iterator, split_tbptt
 from ..data.trajectory_store import TrajectoryStore
 from ..envs.async_env import device_transfer, window_stream
 from ..models import build_flat_policy
-from ..models.encoders.bert import BertEncoder
-from ..models.encoders.resnet import GNResNetEncoder, TVResNet50
 from ..ops import cm_attention
 from ..parallel.mesh import DataMesh, global_batch_size
 from ..utils.device import resolve_device, resolve_dtype
 from ..utils.logging import MetricsWriter, logger
+from ..utils.pretrained import graft_pretrained
 from ..utils.registry import register_trainer
 from . import checkpoint as ckpt_lib
 from . import optimizers as opt_lib
 from . import steps as steps_lib
-
-# the pretrained backbones: (MODEL stanza, key, the module that holds one, its
-# name in the eval's provenance record)
-PRETRAINED = (("DEPTH_ENCODER", "ddppo_checkpoint", GNResNetEncoder, "ddppo_depth"),
-              ("RGB_ENCODER", "pretrained_weights", TVResNet50, "imagenet_rgb"),
-              ("BERT", "pretrained_weights", BertEncoder, "bert"))
-
 
 def host_values(metrics, keys):
     """The metrics named by ``keys`` as floats, in one device-to-host copy."""
@@ -113,33 +105,6 @@ class BaseTrainer:
                 "frozen BERT instruction embeddings"
             )
         return ("embedding_layer",)
-
-    def _check_pretrained_files(self, policies) -> None:
-        """The port loads no pretrained backbone yet: a file that exists for
-        a backbone the policies hold would be ignored silently, so it
-        raises; absent files leave the backbones random, as in the JAX
-        package.  Records the JAX trainer's provenance, which the eval's
-        stats carry: ``missing_file`` for a backbone the policies hold,
-        ``not_in_model`` for one they do not."""
-        mc = self.config.MODEL
-        held = {name: any(isinstance(m, kind) for p in policies for m in p.modules())
-                for _, _, kind, name in PRETRAINED}
-        files = [(f"{stanza}.{key}", mc[stanza][key], name)
-                 for stanza, key, _, name in PRETRAINED]
-        present = [f"MODEL.{key} = {path!r}" for key, path, name in files
-                   if held[name] and path and os.path.exists(path)]
-        if present:
-            raise NotImplementedError(
-                f"pretrained backbone files exist ({'; '.join(present)}); the port "
-                "does not load them yet (utils/pretrained.py, ROADMAP §A item 8)")
-        self.pretrained_backbones = {}
-        for key, path, name in files:
-            if not held[name]:
-                self.pretrained_backbones[name] = {"status": "not_in_model"}
-                continue
-            logger.warning(f"pretrained weights MODEL.{key} not found at {path!r}; "
-                           "that backbone stays RANDOM")
-            self.pretrained_backbones[name] = {"status": "missing_file", "path": str(path)}
 
     def _epoch_checkpoint(self, epoch: int) -> str:
         """The per-epoch name, ckpt.{EPOCHS+epoch} (the reference's scheme)."""
@@ -417,7 +382,8 @@ FLAT_VAL_SCALARS = (("action_loss", "Val Action Loss"), ("stop_loss", "Val Stop 
 @register_trainer("robo_vln_trainer")
 class RoboVLNTrainer(BaseTrainer):
     """The flat family's trainer.  Weights are random from
-    ``TASK_CONFIG.SEED`` (the GloVe table read when its file exists)."""
+    ``TASK_CONFIG.SEED``, then the pretrained backbones and the GloVe table
+    are read where their files exist (utils/pretrained.py)."""
 
     def __init__(self, config):
         self.config = config
@@ -445,7 +411,7 @@ class RoboVLNTrainer(BaseTrainer):
             generator=torch.Generator().manual_seed(cfg.TASK_CONFIG.SEED),
             rgb_hw=(sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH),
         )
-        self._check_pretrained_files((self.policy,))
+        self.pretrained_backbones = graft_pretrained(self.policy, cfg.MODEL)
         self.policy.to(self.device)
         n_params = sum(p.numel() for p in self.policy.parameters())
         logger.info(f"agent number of parameters: {n_params}")

@@ -129,22 +129,90 @@ def bert_state(p: Mapping, prefix: str = "") -> StateDict:
     return sd
 
 
-def visual_ling_attn_state(p: Mapping, prefix: str = "") -> StateDict:
-    sd = {**_dense(p["vis_fc"], prefix + "vis_fc."),
-          **_dense(p["ins_fc"], prefix + "ins_fc."),
-          **_norm(p["layer_norm"], prefix + "layer_norm.")}
-    i = 0
+def mha_state(p: Mapping, prefix: str = "") -> StateDict:
+    """MultiHeadAttention params -> its keys (``attention.fc_q`` ...)."""
+    sd = {}
+    for name in ("fc_q", "fc_k", "fc_v", "fc_o"):
+        sd.update(_dense(p[name], f"{prefix}attention.{name}."))
+    sd.update(_norm(p["layer_norm"], prefix + "layer_norm."))
+    return sd
+
+
+def pwff_state(p: Mapping, prefix: str = "") -> StateDict:
+    """PositionWiseFeedForward params -> its keys."""
+    sd = {**_dense(p["fc1"], prefix + "fc1."), **_dense(p["fc2"], prefix + "fc2.")}
+    sd.update(_norm(p["layer_norm"], prefix + "layer_norm."))
+    return sd
+
+
+def _stack(p: Mapping, prefix: str, layer_state) -> StateDict:
+    """Every ``layers_{i}`` subtree -> ``layers.{i}.`` keys."""
+    sd, i = {}, 0
     while f"layers_{i}" in p:
-        lp, t = p[f"layers_{i}"], f"{prefix}layers.{i}."
-        att = lp["enc_att"]
-        for name in ("fc_q", "fc_k", "fc_v", "fc_o"):
-            sd.update(_dense(att[name], f"{t}enc_att.attention.{name}."))
-        sd.update(_norm(att["layer_norm"], t + "enc_att.layer_norm."))
-        for name in ("fc1", "fc2"):
-            sd.update(_dense(lp["pwff"][name], f"{t}pwff.{name}."))
-        sd.update(_norm(lp["pwff"]["layer_norm"], t + "pwff.layer_norm."))
+        sd.update(layer_state(p[f"layers_{i}"], f"{prefix}layers.{i}."))
         i += 1
     return sd
+
+
+def inter_module_attn_layer_state(p: Mapping, prefix: str = "") -> StateDict:
+    return {**mha_state(p["enc_att"], prefix + "enc_att."),
+            **pwff_state(p["pwff"], prefix + "pwff.")}
+
+
+def visual_ling_attn_state(p: Mapping, prefix: str = "") -> StateDict:
+    return {**_dense(p["vis_fc"], prefix + "vis_fc."),
+            **_dense(p["ins_fc"], prefix + "ins_fc."),
+            **_norm(p["layer_norm"], prefix + "layer_norm."),
+            **_stack(p, prefix, inter_module_attn_layer_state)}
+
+
+# the blocks no policy builds (models/transformer.py), one function each
+
+
+def encoder_layer_state(p: Mapping, prefix: str = "") -> StateDict:
+    return {**mha_state(p["mhatt"], prefix + "mhatt."), **pwff_state(p["pwff"], prefix + "pwff.")}
+
+
+def base_encoder_state(p: Mapping, prefix: str = "") -> StateDict:
+    return _stack(p, prefix, encoder_layer_state)
+
+
+def _input_stage_state(p: Mapping, prefix: str) -> StateDict:
+    """The ``fc`` (where there is one) and ``layer_norm`` of an input stage."""
+    sd = _norm(p["layer_norm"], prefix + "layer_norm.")
+    if "fc" in p:
+        sd.update(_dense(p["fc"], prefix + "fc."))
+    return sd
+
+
+def transformer_language_encoder_state(p: Mapping, prefix: str = "") -> StateDict:
+    return {**_input_stage_state(p, prefix),
+            **base_encoder_state(p["encoder"], prefix + "encoder.")}
+
+
+def decoder_layer_state(p: Mapping, prefix: str = "") -> StateDict:
+    return {**mha_state(p["self_att"], prefix + "self_att."),
+            **mha_state(p["enc_att"], prefix + "enc_att."),
+            **pwff_state(p["pwff"], prefix + "pwff.")}
+
+
+def inter_module_attn_decoder_state(p: Mapping, prefix: str = "") -> StateDict:
+    return {**_input_stage_state(p, prefix), **_stack(p, prefix, inter_module_attn_layer_state)}
+
+
+def image_cross_modal_encoder_state(p: Mapping, prefix: str = "") -> StateDict:
+    return {**_input_stage_state(p, prefix), **_stack(p, prefix, decoder_layer_state)}
+
+
+def position_embedding_2d_state(p: Mapping, prefix: str = "") -> StateDict:
+    return {prefix + "row_embed.weight": np.asarray(p["row_embed"]),
+            prefix + "col_embed.weight": np.asarray(p["col_embed"])}
+
+
+# the same layouts: a LayerNorm input stage (no fc) and DecoderLayers; an
+# input stage and a BaseEncoder
+image_encoder_with_pos_encodings_state = image_cross_modal_encoder_state
+image_plain_encoder_state = transformer_language_encoder_state
 
 
 def _heads(params: Mapping, names) -> StateDict:

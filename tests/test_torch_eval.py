@@ -295,8 +295,8 @@ def test_use_ckpt_config_full_restore(tmp_path):
 
 def test_eval_loads_port_checkpoints_and_refuses_orbax(tmp_path):
     """A port checkpoint's weights are what the eval runs; an orbax
-    directory of the JAX package raises, naming the formats the port reads;
-    a path that does not exist leaves the weights as they are."""
+    directory of the JAX package raises, naming the formats the port reads
+    and the script that converts it; a path that does not exist leaves the weights as they are."""
     cfg = port_cfg(tmp_path, make_episode_json(tmp_path, n_eps=1),
                    **{"EVAL.EPISODE_COUNT": 1, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS": 3})
     saver, path = _saved_checkpoint(tmp_path, cfg)
@@ -311,7 +311,8 @@ def test_eval_loads_port_checkpoints_and_refuses_orbax(tmp_path):
         assert torch.equal(got, want), name
     orbax = tmp_path / "orbax_ckpt"
     (orbax / "state").mkdir(parents=True)
-    with pytest.raises(ValueError, match="train_state.pt.*reference .pth"):
+    with pytest.raises(ValueError, match="train_state.pt.*reference .pth.*"
+                       "scripts/jax_checkpoint_to_torch.py"):
         evaluator._load_eval_weights(fresh, str(orbax))
     evaluator._load_eval_weights(fresh, str(tmp_path / "absent"))
 

@@ -375,15 +375,40 @@ def test_resume_matches_uninterrupted_run(tmp_path):
     ("MODEL.BERT.pretrained_weights", "bert.npz", "§A item 8"),
 ])
 def test_unported_options_raise_before_any_work(tmp_path, key, value, item):
+    """The mesh options the port lacks raise before any work.  The
+    pretrained BERT file of the §A item 8 case is read since that item was
+    ported (utils/pretrained.py): the trainer takes 2 steps from a tiny
+    valid .npz and records it loaded."""
     if key == "MODEL.BERT.pretrained_weights":
-        value = str(tmp_path / value)
-        Path(value).write_bytes(b"")
+        _trains_from_a_pretrained_bert(tmp_path, str(tmp_path / value))
+        return
     options = dict(zip(key, value)) if isinstance(key, tuple) else {key: value}
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cfg = port_config(tmp_path, **options)
         get_trainer(cfg.TRAINER_NAME)(cfg).train()
     assert not (tmp_path / "ckpts").exists() and not (tmp_path / "tb").exists()
     assert not (tmp_path / "train_buf").exists()
+
+
+def _trains_from_a_pretrained_bert(tmp_path, path):
+    from robo_vln_tpu_torch.models.encoders.bert import BertEncoder
+
+    rng = np.random.default_rng(3)
+    shapes = BertEncoder(vocab_size=60, hidden_size=16, num_layers=1, num_heads=2,
+                         intermediate_size=32).state_dict()
+    sd = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in shapes.items()}
+    np.savez(path, **sd)
+    buffers(tmp_path, n_eps=2, n_eval=0)
+    cfg = port_config(tmp_path, batch_size=2, **{"MODEL.BERT.pretrained_weights": path})
+    trainer = HierarchicalTrainer(cfg)
+    trainer.train()
+    assert trainer.pretrained_backbones["bert"] == {"status": "loaded", "path": path}
+    assert trainer.pretrained_backbones["imagenet_rgb"]["status"] == "missing_file"
+    _, meta = _final_state(cfg.CHECKPOINT_FOLDER)
+    assert meta["train_steps"] == 2
+    bert = trainer.high.embedding_layer.state_dict()  # the low level holds none
+    for k, v in sd.items():
+        assert np.array_equal(bert[k].numpy(), v), k
 
 
 def test_jax_only_keys_are_listed_with_their_defaults():

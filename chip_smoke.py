@@ -6045,6 +6045,360 @@ def item8_path(device, model_opts=(), widths=None, blocks=(BLOCK_N, BLOCK_TOKENS
     return {"pretrained": pretrained, "blocks": block_launches, "study": study}, entries, module_ms
 
 
+TP_RANKS = 2  # phase 16: gloo ranks on the one card, a [1, 2] grid
+TP_LR = 1e-4  # 16a's float32 step, at tests/test_torch_mesh.py's lr and parameter rules
+TP_TOL = 1e-4  # 16a: losses and hidden states against one process, absolute
+TP_GRAD_FLOOR = 1e-6  # |g| above which Adam's step direction is not noise
+TP_BF16_STEPS = 3
+TP_BF16_TOL = 2.0 ** -8  # 16a's first bf16 step: losses against one process's bf16 step
+# on the same batch, absolute (bfloat16's unit roundoff); its hidden states within the
+# one-process bf16 step's own distance from the float32 step: another summation order
+# (cuBLAS's bf16 products against the split's float32 ones) may round a product's
+# element the other way, and BERT-base, the stanza and 50 recurrent steps carry it on
+# 16b: phase 6's buffers cut to 4 train and 2 eval episodes, an epoch one
+# batch of 2 windows (B=4, tbptt 50) and one val batch of 2 windows
+TP_EPISODES = (4, 2)
+TP_TRAIN_STEPS, TP_VAL_WINDOWS = 2, 2
+TP_DRYRUN_RANKS = 4  # 16c: dryrun_multichip's [2, 2] phase
+
+
+def tp_batch(device):
+    return train_batch(torch.Generator().manual_seed(16), MESH_BATCH, MESH_T, 200, device)
+
+
+def _trainable(modules, fn, gather=False):
+    """{level.name: fn(p)} over the trainable parameters, each split one
+    gathered whole where ``gather`` (every rank takes part, in order)."""
+    from robo_vln_tpu_torch.parallel import tensor
+    from robo_vln_tpu_torch.training import optimizers
+
+    out = {}
+    for level, m in modules.items():
+        mask, layout = optimizers.trainable_mask(m), tensor.split_layout(m)
+        for name, p in m.named_parameters():
+            t = fn(p)
+            if not mask[name] or t is None:
+                continue
+            if gather and name in layout:
+                dim, group = layout[name]
+                t = group.all_gather(t, dim)
+            out[f"{level}.{name}"] = t.detach().cpu()
+    return out
+
+
+def held_bytes(modules, optimizers_):
+    """Bytes of the parameters and the optimizers' state (the moments and
+    the step counts) that this process holds."""
+    params = sum(p.numel() * p.element_size() for m in modules for p in m.parameters())
+    state = sum(v.numel() * v.element_size() for opt in optimizers_
+                for entry in opt.state.values() for v in entry.values() if torch.is_tensor(v))
+    return params + state
+
+
+def tp_trainer_opts(device, root, *extra):
+    return trainer_opts(device, root, "TPU.MESH_SHAPE", [1, TP_RANKS], "DAGGER.EPOCHS", 2,
+                        "DAGGER.MAX_EPOCHS_PER_RUN", 1, "DAGGER.RESUME", True, *extra)
+
+
+def _tp_steps(rank, device, out):
+    """16a on one rank: the split float32 step (lr TP_LR, dropout off),
+    then TP_BF16_STEPS bf16 steps (dropout off, the first held to one
+    process's)."""
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.parallel import tensor
+    from robo_vln_tpu_torch.parallel.mesh import DataMesh, shard_params
+
+    mesh = DataMesh(device, model=TP_RANKS)
+    batch = tp_batch(device)
+    for dtype, n in ((torch.float32, 1), (torch.bfloat16, TP_BF16_STEPS)):
+        cfg = get_config(opts=MESH_NO_DROPOUT)
+        high, low, _, state = make_train(cfg, dtype, device)
+        mesh.broadcast(high, low)
+        split = sum(d is not None for m in (high, low)
+                    for d in shard_params(m, mesh).values())
+        step = mesh_step(cfg, high, low, mesh)
+        hh, lh = high.initial_hidden(MESH_BATCH, device), low.initial_hidden(MESH_BATCH, device)
+        fused_lstm.reset_launches()
+        fused_attention.reset_launches()
+        step_ms = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            state, hh, lh, metrics = step(state, hh, lh, batch, TP_LR, TP_LR)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first = ({k: v.cpu() for k, v in metrics.items()}, [hh.cpu(), lh.cpu()])
+        modules = {"high": high, "low": low}
+        result = {"metrics": {k: v.cpu() for k, v in metrics.items()}, "steps": n, "first": first,
+                  "launches": path_launches(), "step_ms": step_ms, "split": split,
+                  "bytes": held_bytes((high, low), (state.high.optimizer, state.low.optimizer))}
+        if dtype == torch.float32:
+            result.update(hidden=[hh.cpu(), lh.cpu()],
+                          grads=_trainable(modules, lambda p: p.grad, gather=True),
+                          params=_trainable(modules, lambda p: p, gather=True))
+        else:  # every rank holds the same whole tensors and slices of one whole
+            whole = torch.cat([p.detach().float().reshape(-1) for m in
+                               (tensor.whole_copy(high), tensor.whole_copy(low))
+                               for p in m.parameters()])
+            ref = whole.clone()
+            mesh.model_group.broadcast(ref)
+            result["weights_equal"] = bool(torch.equal(whole, ref))
+        out[str(dtype).split(".")[-1]] = result
+        del high, low, state, step, modules
+        torch.cuda.empty_cache()
+
+
+def _tp_epoch(rank, device, root, out, resume):
+    """16b on one rank: HierarchicalTrainer.train() on [1, TP_RANKS], one
+    epoch (the first, or resumed from its ckpt.2 with each restored slice
+    checked right after the split)."""
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
+    from robo_vln_tpu_torch.parallel import tensor
+    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+    from robo_vln_tpu_torch.utils.logging import logger
+
+    if rank:
+        logger.setLevel("WARNING")
+    cfg = get_config(opts=tp_trainer_opts(device, root))
+    saved_path = os.path.join(root, "ckpts", "ckpt.2")
+    restored = {}
+    trainer = HierarchicalTrainer(cfg)
+    if resume:
+        saved = torch.load(os.path.join(saved_path, ckpt_lib.TRAIN_STATE), map_location="cpu",
+                           weights_only=True)
+        split_policies = trainer._shard_policies
+
+        def check_restored():
+            split_policies()
+            for level in ("high", "low"):
+                module = getattr(trainer, level)
+                opt = getattr(trainer.state, level).optimizer
+                want = tensor.local_state_dict(module, saved[f"{level}_level_state_dict"])
+                for k, v in module.state_dict().items():
+                    if not torch.equal(v.cpu(), want[k]):
+                        raise RuntimeError(f"rank {rank}: resumed {level} {k} is not its slice")
+                names = saved[f"{level}_param_names"]
+                want = tensor.local_optimizer_state(module, saved[f"{level}_optimizer"], names)
+                for index, entry in opt.state_dict()["state"].items():
+                    for k, v in entry.items():
+                        if not torch.equal(v.cpu(), want["state"][index][k]):
+                            raise RuntimeError(f"rank {rank}: resumed {level} moment {k} of "
+                                               f"{names[index]} is not its slice")
+                restored[level] = (len(want["state"]), sum(
+                    1 for d in tensor.split_layout(module).values()))
+
+        trainer._shard_policies = check_restored
+    fused_lstm.reset_launches()
+    fused_attention.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = path_launches()
+    out["restored"] = restored
+    out["bytes"] = held_bytes((trainer.high, trainer.low),
+                              (trainer.state.high.optimizer, trainer.state.low.optimizer))
+    # the checkpoint is the gathered slices and moments, bitwise
+    path = ckpt_lib.list_checkpoints(cfg.CHECKPOINT_FOLDER)[-1]
+    file = torch.load(os.path.join(path, ckpt_lib.TRAIN_STATE), map_location="cpu",
+                      weights_only=True)
+    compared = 0
+    for level in ("high", "low"):
+        module = getattr(trainer, level)
+        opt = getattr(trainer.state, level).optimizer
+        weights = tensor.whole_state_dict(module)
+        moments = tensor.whole_optimizer_state(module, opt.state_dict(),
+                                               file[f"{level}_param_names"])
+        for k, v in weights.items():
+            if not torch.equal(v.cpu(), file[f"{level}_level_state_dict"][k]):
+                raise RuntimeError(f"{path}: {level} {k} is not the gathered slices")
+            compared += 1
+        for index, entry in moments["state"].items():
+            for k, v in entry.items():
+                if not torch.equal(v.cpu(), file[f"{level}_optimizer"]["state"][index][k]):
+                    raise RuntimeError(f"{path}: {level} moment {k} is not the gathered slices")
+                compared += 1
+    out["checkpoint"] = (os.path.basename(path), compared)
+
+
+def _tp_rank(rank, device, root):
+    """Phase 16's rank, spawned by parallel/mesh.spawn on the one card in a
+    gloo group: 16a, then 16b's first epoch and a new trainer resuming it."""
+    global torch
+    import torch  # this module is __mp_main__ here, imported without torch
+
+    out = {}
+    _tp_steps(rank, device, out)
+    for resume in (False, True):
+        out[resume] = {}
+        _tp_epoch(rank, device, root, out[resume], resume)
+    torch.save(out, os.path.join(root, f"tp_rank{rank}.pt"))
+
+
+def hold_params_to_one_process(label, got, ref_params, ref_grads, lr, steps):
+    """tests/test_torch_mesh.py's rule: every parameter within 2·lr a step
+    of the reference, and within 0.01·lr where its gradient is above
+    TP_GRAD_FLOOR (Adam's step direction is not noise there)."""
+    if got.keys() != ref_params.keys():
+        fail(f"{label}: other trainable parameters than one process's")
+    worst, steady_worst = 0.0, 0.0
+    for name, p in got.items():
+        err = (p - ref_params[name]).abs()
+        worst = max(worst, err.max().item())
+        if name not in ref_grads:  # a parameter the losses never reach (the progress monitors)
+            continue
+        steady = ref_grads[name].abs() > TP_GRAD_FLOOR
+        if steady.any():
+            steady_worst = max(steady_worst, err[steady].max().item())
+    print(f"  {label}: parameters after the step within {worst:.3e} of one process's "
+          f"(bound {2 * lr * steps:.1e}), {steady_worst:.3e} where the gradient is above "
+          f"{TP_GRAD_FLOOR} (bound {0.01 * lr:.1e})")
+    if not (worst <= 2 * lr * steps and steady_worst <= 0.01 * lr):
+        fail(f"{label}: the parameters after the step part from one process's")
+
+
+def tp_path(device):
+    """Phase 16: the "model" axis, TP_RANKS gloo ranks on the one card."""
+    import shutil
+    import tempfile
+
+    from robo_vln_tpu_torch.config import get_config
+    from robo_vln_tpu_torch.ops import _build
+    from robo_vln_tpu_torch.parallel.dryrun import dryrun_multichip
+    from robo_vln_tpu_torch.parallel.mesh import spawn
+    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
+    from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
+
+    print(f"phase 16: the \"model\" axis, a [1, {TP_RANKS}] grid of gloo ranks on the one card "
+          "(collectives through the host: not a speed result), full width")
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tp_", dir=_build.BUILD_DIR.parent)
+    try:
+        # 16a's reference: the one-process float32 step on the same batch
+        cfg = get_config(opts=MESH_NO_DROPOUT)
+        high, low, step, state = make_train(cfg, torch.float32, device)
+        b = MESH_BATCH
+        state, hh, lh, ref = step(state, high.initial_hidden(b, device),
+                                  low.initial_hidden(b, device), tp_batch(device), TP_LR, TP_LR)
+        modules = {"high": high, "low": low}
+        ref_grads = _trainable(modules, lambda p: p.grad)
+        ref_params = _trainable(modules, lambda p: p)
+        ref_hidden = [hh.cpu(), lh.cpu()]
+        one_bytes = held_bytes((high, low), (state.high.optimizer, state.low.optimizer))
+        del high, low, step, state, modules
+        # and the one-process bf16 step that the split ranks' first bf16 step is held to
+        high, low, step, state = make_train(cfg, torch.bfloat16, device)
+        _, bf16_hh, bf16_lh, bf16_ref = step(state, high.initial_hidden(b, device),
+                                             low.initial_hidden(b, device), tp_batch(device),
+                                             TP_LR, TP_LR)
+        bf16_ref = ({k: v.cpu() for k, v in bf16_ref.items()}, [bf16_hh.cpu(), bf16_lh.cpu()])
+        bf16_gap = max((h.float() - want).abs().max().item()
+                       for h, want in zip(bf16_ref[1], ref_hidden))
+        del high, low, step, state, bf16_hh, bf16_lh
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        data_bytes = write_trainer_buffers(root, TP_EPISODES)
+        print(f"  16b's buffers (phase 6's, {TP_EPISODES[0]} train and {TP_EPISODES[1]} eval "
+              f"episodes): {data_bytes / 2**20:.1f} MiB in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        spawn(_tp_rank, TP_RANKS, str(device), root, backend="gloo", timeout_s=900)
+        ranks = [torch.load(os.path.join(root, f"tp_rank{r}.pt"), weights_only=False)
+                 for r in range(TP_RANKS)]
+        print(f"phase 16a: one window's train step, B={MESH_BATCH}, T={MESH_T}; "
+              f"{TP_RANKS} ranks spawned and joined (16a and 16b) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        launches = {"16a": {}, "16b": {}}
+        for rank, res in enumerate(ranks):
+            f32, bf16 = res["float32"], res["bfloat16"]
+            print(f"  rank {rank}: {f32['split']} tensors split over the model axis")
+            hold_step_to_plain(f"rank {rank}'s split float32 step", f32["metrics"], f32["grads"],
+                               ref, ref_grads, against="one process")
+            for key in HCM_LOSS_KEYS:
+                err = abs(f32["metrics"][key].item() - ref[key].item())
+                if not err <= TP_TOL:
+                    fail(f"rank {rank}'s split step {key} is {err:.3e} off one process's")
+            for i, (h, want) in enumerate(zip(f32["hidden"], ref_hidden)):
+                err = (h - want).abs().max().item()
+                print(f"  rank {rank}: {('high', 'low')[i]} level's hidden state within "
+                      f"{err:.3e} of one process's (tolerance {TP_TOL})")
+                if not err <= TP_TOL:
+                    fail(f"rank {rank}'s split step's hidden state parts from one process's")
+            hold_params_to_one_process(f"rank {rank}", f32["params"], ref_params, ref_grads,
+                                       TP_LR, 1)
+            for label, r in (("float32", f32), ("bf16", bf16)):
+                got = {k: r["launches"][k] for k in ("lstm_seq", "lstm_seq_backward",
+                                                     "cross_modal_attn")}
+                if got != dict.fromkeys(got, 2 * r["steps"]):
+                    fail(f"rank {rank}'s {r['steps']} split {label} steps launched "
+                         f"{r['launches']}")
+                print(f"  rank {rank}, {r['steps']} split {label} step(s), host ms (gloo "
+                      "through the host): " + " ".join(f"{t:.1f}" for t in r["step_ms"])
+                      + f"; launches {got}")
+                for k, v in r["launches"].items():
+                    launches["16a"][k] = launches["16a"].get(k, 0) + v
+            if not all(math.isfinite(v.item()) for v in bf16["metrics"].values()):
+                fail(f"rank {rank}'s split bf16 step gave a non-finite loss")
+            (metrics, hidden), (ref_metrics, ref_hidden16) = bf16["first"], bf16_ref
+            loss_err = max(abs(metrics[k].item() - ref_metrics[k].item()) for k in HCM_LOSS_KEYS)
+            hidden_err = max((h.float() - want.float()).abs().max().item()
+                             for h, want in zip(hidden, ref_hidden16))
+            print(f"  rank {rank}: first split bf16 step against one process's bf16 step: "
+                  f"losses within {loss_err:.3e} (tolerance {TP_BF16_TOL:.3e}), hidden "
+                  f"states within {hidden_err:.3e} (tolerance {bf16_gap:.3e}: one process's "
+                  f"bf16 hidden states from its float32 ones; {hidden_err / bf16_gap:.3f} of it)")
+            if not (loss_err <= TP_BF16_TOL and hidden_err <= bf16_gap):
+                fail(f"rank {rank}'s split bf16 step parts from one process's bf16 step")
+            if not bf16["weights_equal"]:
+                fail(f"rank {rank}'s whole weights differ from rank 0's after the bf16 steps")
+            print(f"  rank {rank}: parameters and Adam state held, bytes: float32 "
+                  f"{f32['bytes']} ({f32['bytes'] / one_bytes:.4f} of one process's "
+                  f"{one_bytes}), bf16 steps {bf16['bytes']}")
+        print("phase 16b: HierarchicalTrainer.train() on [1, 2], bf16: an epoch, then a new "
+              "trainer in the same ranks resuming it")
+        for resume in (False, True):
+            want = trainer_launches(TP_TRAIN_STEPS, TP_VAL_WINDOWS)
+            for rank, res in enumerate(ranks):
+                epoch = res[resume]
+                if epoch["launches"] != want:
+                    fail(f"rank {rank}'s {'resumed ' * resume}epoch launched "
+                         f"{epoch['launches']}, expected {want}")
+                for k, v in epoch["launches"].items():
+                    launches["16b"][k] = launches["16b"].get(k, 0) + v
+                if resume and set(epoch["restored"]) != {"high", "low"}:
+                    fail(f"rank {rank}'s resumed run checked no restored slices")
+                name, compared = epoch["checkpoint"]
+                print(f"  rank {rank}: {'resumed ' * resume}epoch in {epoch['seconds']:.1f} s "
+                      f"(set-up included), {name}'s {compared} tensors equal to "
+                      f"the gathered slices and moments; launches {epoch['launches']}"
+                      + (f"; restored from ckpt.2 (optimizer entries, split tensors): "
+                         f"{epoch['restored']}" if resume else ""))
+        # the file loads into a one-process trainer, every tensor as written
+        single = HierarchicalTrainer(get_config(opts=trainer_opts(device, root)))
+        single._setup_policy(True, os.path.join(root, "ckpts", "ckpt.2"))
+        file = torch.load(os.path.join(root, "ckpts", "ckpt.2", ckpt_lib.TRAIN_STATE),
+                          map_location="cpu", weights_only=True)
+        loaded = 0
+        for level in ("high", "low"):
+            for k, v in getattr(single, level).state_dict().items():
+                if not torch.equal(v.cpu(), file[f"{level}_level_state_dict"][k]):
+                    fail(f"ckpt.2 loads into one process with {level} {k} changed")
+                loaded += 1
+        print(f"  ckpt.2 (written by the [1, 2] run) loads into a one-process trainer: "
+              f"{loaded} tensors equal to the gathered slices")
+        del single
+        torch.cuda.empty_cache()
+        print(f"phase 16c: dryrun_multichip({TP_DRYRUN_RANKS}), {TP_DRYRUN_RANKS} gloo ranks "
+              "on the one card (its [2, 2] phase splits over the model axis)", flush=True)
+        t0 = time.perf_counter()
+        dryrun_multichip(TP_DRYRUN_RANKS, device=str(device), backend="gloo")
+        print(f"  dryrun_multichip({TP_DRYRUN_RANKS}) in {time.perf_counter() - t0:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _config_dir():
     from robo_vln_tpu_torch.config.default import _CONFIGS
 
@@ -6107,6 +6461,8 @@ def main():
             wide_path(device)
         if "15" in only:
             item8_path(device)
+        if "16" in only:
+            tp_path(device)
         print(f"chip_smoke: phases {only} passed; a partial run prints no result")
         return 0
     gen = torch.Generator().manual_seed(0)
@@ -6155,6 +6511,7 @@ def main():
     attention.update(key_blocks)
     # phase 15 after the check: its S = 200 calls take the key-block kernels
     item8, block_entries, module_ms = item8_path(device)
+    tp_launches = tp_path(device)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
@@ -6168,6 +6525,7 @@ def main():
                                 for path, counts in extras_launches.items()}
         k["loader_launches"] = loader_launches[k["name"]]
         k["mesh_launches"] = {path: counts[k["name"]] for path, counts in mesh_launches.items()}
+        k["tp_launches"] = {path: counts[k["name"]] for path, counts in tp_launches.items()}
     kernels[0].update(flat_forward)  # the LSTM at the flat window's shape
     kernels[1].update(flat_backward)
     # the serving path runs no backward: the backward's launches are the train path's

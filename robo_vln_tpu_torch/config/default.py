@@ -54,10 +54,11 @@ _C.VIDEO_DIR = "videos/debug"
 _C.PLOT_ATTENTION = False
 
 _C.TPU = ConfigTree()
-# the data-parallel mesh (parallel/mesh.py): one process a rank of the
-# "data" axis; -1 puts every visible CUDA device on it (one process on the
-# CPU).  DAGGER.BATCH_SIZE is per rank.  A "model" axis above 1 (tensor
-# parallelism) is refused by get_config (check_mesh, ROADMAP §A item 7b)
+# the mesh (parallel/mesh.py): one process a rank of the [data, model]
+# grid; -1 puts every visible CUDA device on that axis (over the other
+# axis; one process on the CPU).  DAGGER.BATCH_SIZE is per data rank.  A
+# "model" axis above 1 splits the large 2-D kernels and their Adam moments
+# over its ranks (tensor parallelism, parallel/tensor.py)
 _C.TPU.MESH_AXES = ["data", "model"]
 _C.TPU.MESH_SHAPE = [-1, 1]
 # compute dtype of the encoders and the attention ("bfloat16" or "float32");
@@ -293,20 +294,19 @@ def depth_input_size(config: ConfigTree) -> int:
 
 def check_mesh(config: ConfigTree) -> None:
     """Refuse, before any work, a mesh the port does not build: axis names
-    other than ["data", "model"], a shape of another length, a "model"
-    axis other than 1 (tensor parallelism), or a data axis that is neither
-    -1 nor a count of ranks."""
+    other than ["data", "model"] (the JAX trainers read the mesh's "data"
+    axis by name), a shape of another length, or an axis that is neither
+    -1 nor a count of ranks, or -1 on both."""
     axes, shape = list(config.TPU.MESH_AXES), list(config.TPU.MESH_SHAPE)
     if axes != ["data", "model"]:
-        key, value, why = "TPU.MESH_AXES", axes, "the port's mesh has the axes ['data', 'model']"
-    elif len(shape) != 2 or shape[1] != 1:
-        key, value, why = "TPU.MESH_SHAPE", shape, (
-            "the port has no tensor parallelism: the \"model\" axis must be 1")
-    elif not (shape[0] == -1 or int(shape[0]) >= 1):
-        key, value, why = "TPU.MESH_SHAPE", shape, "the data axis is -1 or a count of ranks"
+        key, value, why = "TPU.MESH_AXES", axes, "the mesh has the axes ['data', 'model']"
+    elif len(shape) != 2 or not all(n == -1 or int(n) >= 1 for n in shape):
+        key, value, why = "TPU.MESH_SHAPE", shape, "each axis is -1 or a count of ranks"
+    elif shape == [-1, -1]:
+        key, value, why = "TPU.MESH_SHAPE", shape, "at most one axis is -1"
     else:
         return
-    raise NotImplementedError(f"{key} = {value!r}: {why} (ROADMAP §A item 7b)")
+    raise NotImplementedError(f"{key} = {value!r}: {why}")
 
 
 def check_opencv(config: ConfigTree) -> None:
@@ -332,8 +332,8 @@ def get_config(
     MODEL.DEPTH_ENCODER.input_size follows the task's depth sensor; set to
     another size, it raises.  A key of the JAX package that the port does
     not read, set to another value than its JAX default, raises
-    NotImplementedError naming its ROADMAP item (jax_only.py), and so does a
-    mesh the port does not build (:func:`check_mesh`).  Videos or the
+    NotImplementedError naming its ROADMAP item (jax_only.py); so does a
+    mesh the port does not build (:func:`check_mesh`), saying why.  Videos or the
     top-down map without OpenCV raise ImportError (:func:`check_opencv`)."""
     config = _C.clone()
     if isinstance(config_paths, str):

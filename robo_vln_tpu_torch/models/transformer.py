@@ -59,7 +59,12 @@ def sinusoid_encoding_table(max_len: int, d_model: int, device=None) -> torch.Te
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` computed in ``dtype``, as a flax Dense with that dtype."""
+    """``layer(x)`` computed in ``dtype``, as a flax Dense with that dtype;
+    a layer split over the model axis computes its own split product
+    (parallel/tensor.py)."""
+    split = getattr(type(layer), "split_product", None)
+    if split is not None:
+        return split(layer, x, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 

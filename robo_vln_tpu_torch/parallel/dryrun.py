@@ -1,10 +1,11 @@
-"""One window of the full HCM train step over a data-parallel mesh of n
-ranks, on tiny shapes (counterpart of ``__graft_entry__.dryrun_multichip``).
+"""One window of the full HCM train step over a mesh of n ranks, on tiny
+shapes (counterpart of ``__graft_entry__.dryrun_multichip``).
 
-    python -m robo_vln_tpu_torch.parallel.dryrun 2
+    python -m robo_vln_tpu_torch.parallel.dryrun 4
 
-n ranks, spawned (parallel/mesh.spawn): NCCL over n cards where n CUDA
-devices are visible, gloo on the CPU otherwise.  The tiny sizes are
+n ranks, spawned (parallel/mesh.spawn): NCCL over n cards, which must be
+visible where there is a card, gloo on the CPU where there is none (or as
+the caller asks: gloo ranks on one card, or the CPU).  The tiny sizes are
 ``__graft_entry__._hcm_setup(tiny=True)``'s (64 px frames, BERT 2×32, an
 LSTM of 32, a 16-token instruction, T=4), one episode a rank, random
 weights from seed 0 with synced trunks, broadcast from rank 0: the shared
@@ -12,6 +13,13 @@ trunk pass, both policies, the losses over the global batch, the
 gradients' all-reduce and both optimizers' steps.  Rank 0 prints the
 global metrics; every one must be finite, and the ranks' weights must
 agree after the step.
+
+At an even n of at least 4 a second phase runs, as the JAX dryrun's: the
+same global batch on the ``[n/2, 2]`` grid, both policies' kernels of at
+least 256 elements split over the "model" axis (mesh.shard_params); its
+metrics must be finite, the ranks of each data group (one model rank) must
+hold equal slices and the ranks of each model group equal whole tensors
+after the step, and rank 0 prints the split tensors' count.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ from __future__ import annotations
 import sys
 
 import torch
+
+from . import tensor
 
 T, L, PX = 4, 16, 64
 TINY_MODEL = {
@@ -51,13 +61,24 @@ def _global_batch(n: int):
     }
 
 
-def _dryrun_rank(rank: int, device, n: int) -> None:
-    import torch.distributed as dist
+def _flat_weights(*modules) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for m in modules for p in m.parameters()])
 
+
+def _agree(weights: torch.Tensor, group) -> bool:
+    """Whether ``weights`` equal the first rank's of ``group``."""
+    ref = weights.clone()
+    group.broadcast(ref)
+    return torch.equal(weights, ref)
+
+
+def _dryrun_phase(rank: int, device, n: int, model: int):
+    """(metrics, mesh, split tensors by level) of one window on the
+    ``[n / model, model]`` grid."""
     from ..config import get_config
     from ..models import build_hierarchical_policies, make_shared_trunk_fn, sync_frozen_trunks
     from ..training import HierTrainState, TrainState, adam, adamw, make_hier_train_step
-    from .mesh import DataMesh
+    from .mesh import DataMesh, shard_params
 
     opts = [x for k, v in TINY_MODEL.items() for x in (f"MODEL.{k}", v)]
     opts += [x for s in ("RGB", "DEPTH") for d in ("WIDTH", "HEIGHT")
@@ -67,36 +88,71 @@ def _dryrun_rank(rank: int, device, n: int) -> None:
                                             generator=torch.Generator().manual_seed(0))
     sync_frozen_trunks(high, low)
     high, low = high.to(device), low.to(device)
-    mesh = DataMesh(device, size=n, rank=rank)
+    mesh = DataMesh(device, size=n // model, model=model)
     mesh.broadcast(high, low)
+    split = {}
+    if model > 1:
+        for level, policy in (("high", high), ("low", low)):
+            plan = shard_params(policy, mesh, min_size=256)
+            split[level] = sum(dim is not None for dim in plan.values())
     state = HierTrainState(TrainState(adamw(high, 1e-3), 0), TrainState(adam(low, 1e-3), 0))
     step = make_hier_train_step(high, low, trunk_fn=make_shared_trunk_fn(high), mesh=mesh)
     batch = {k: v.to(device) for k, v in mesh.shard(_global_batch(n)).items()}
-    _, _, _, metrics = step(state, high.initial_hidden(1, device), low.initial_hidden(1, device),
+    b = n // mesh.size
+    _, _, _, metrics = step(state, high.initial_hidden(b, device), low.initial_hidden(b, device),
                             batch, 1e-4, 1e-4)
     values = {k: float(v) for k, v in metrics.items()}
     bad = [k for k, v in values.items() if not torch.isfinite(torch.tensor(v))]
     if bad:
-        raise RuntimeError(f"dryrun_multichip({n}): non-finite metrics {bad}")
-    flat = torch.cat([p.detach().reshape(-1) for m in (high, low) for p in m.parameters()])
-    ref = flat.clone()
-    dist.broadcast(ref, 0)
-    if not torch.equal(flat, ref):
-        raise RuntimeError(f"dryrun_multichip({n}): rank {rank}'s weights differ from rank 0's")
+        raise RuntimeError(f"dryrun_multichip({n}) on {mesh.size} x {model}: non-finite "
+                           f"metrics {bad}")
+    weights = _flat_weights(high, low)
+    if not _agree(weights, mesh.data_group):
+        raise RuntimeError(f"dryrun_multichip({n}): rank {rank}'s weights differ from its "
+                           "data group's first rank's")
+    if model > 1 and not _agree(_flat_weights(tensor.whole_copy(high), tensor.whole_copy(low)),
+                                mesh.model_group):
+        raise RuntimeError(f"dryrun_multichip({n}): rank {rank}'s whole weights differ from "
+                           "its model group's first rank's")
+    return values, mesh, split
+
+
+def _dryrun_rank(rank: int, device, n: int) -> None:
+    import torch.distributed as dist
+
+    values, _, _ = _dryrun_phase(rank, device, n, 1)
     if rank == 0:
         print(f"dryrun_multichip({n}) ok ({dist.get_backend()}): "
               + ", ".join(f"{k}={v:.4f}" for k, v in values.items()), flush=True)
+    if n >= 4 and n % 2 == 0:
+        values, mesh, split = _dryrun_phase(rank, device, n, 2)
+        if rank == 0:
+            print(f"dryrun_multichip({n}) dp x tp ({mesh.size} x {mesh.model_size}) ok: "
+                  f"{sum(split.values())} tensor-sharded kernels (high {split['high']}, "
+                  f"low {split['low']}), "
+                  + ", ".join(f"{k}={v:.4f}" for k, v in values.items()), flush=True)
 
 
-def dryrun_multichip(n: int, timeout_s: float = 900.0) -> None:
-    """One window of the HCM train step over n ranks (see the module's
-    docstring); raises when a rank fails or is still running after
-    ``timeout_s``."""
+def dryrun_multichip(n: int, timeout_s: float = 900.0, device=None,
+                     backend=None) -> None:
+    """One window of the HCM train step over n ranks, and at an even n of
+    at least 4 the ``[n/2, 2]`` phase (see the module's docstring); raises
+    when a rank fails or is still running after ``timeout_s``.  ``device``
+    and ``backend`` as parallel/mesh.spawn takes them (``"cuda:0"`` and
+    ``"gloo"``: every rank on one card); by default a rank a card, which
+    needs n visible cards, and the CPU only where there is no card."""
     from .mesh import spawn
 
-    on_cards = torch.cuda.is_available() and torch.cuda.device_count() >= n
-    spawn(_dryrun_rank, n, "cuda" if on_cards else "cpu", n, timeout_s=timeout_s)
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if device == "cuda" and torch.cuda.device_count() < n:
+            raise RuntimeError(
+                f"dryrun_multichip({n}) puts a rank on each card and "
+                f"{torch.cuda.device_count()} CUDA devices are visible: pass "
+                "device='cuda:0', backend='gloo' for every rank on one card, or "
+                "device='cpu'")
+    spawn(_dryrun_rank, n, device, n, timeout_s=timeout_s, backend=backend)
 
 
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2)
+    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4)

@@ -14,12 +14,13 @@ TASK_CONFIG.SIMULATOR.TYPE's env and writes
 (nonlearning.yaml) it evaluates EVAL.NONLEARNING.AGENT instead, on the
 host, and writes ``stats_complete_<agent>_<split>.json``.
 
-``train`` runs over the data-parallel mesh of ``TPU.MESH_SHAPE``
+``train`` runs over the ``[data, model]`` grid of ``TPU.MESH_SHAPE``
 (parallel/mesh.py): at the default ``[-1, 1]`` over every visible card,
-``DAGGER.BATCH_SIZE`` a card.  With more than one rank, ``run_exp`` starts
-a process a rank (spawned, joined by NCCL on ``cuda:<rank>``, or by gloo on
-the CPU where ``TPU.MESH_SHAPE`` asks for ranks explicitly) and waits for
-them; a rank that fails ends the others and fails the run.  One rank
+``DAGGER.BATCH_SIZE`` a card; ``[d, m]`` splits the large kernels over
+``m`` ranks a data rank.  With more than one rank, ``run_exp`` starts
+``d·m`` processes (spawned, joined by NCCL on ``cuda:<rank>``, or by gloo
+on the CPU where ``TPU.MESH_SHAPE`` asks for ranks explicitly) and waits
+for them; a rank that fails ends the others and fails the run.  One rank
 trains in this process, with no process group (or in the group that is
 already up).  The eval and the nonlearning agents run in this one process,
 as the JAX eval uses no mesh.
@@ -86,11 +87,12 @@ def _train(config, exp_config, opts) -> None:
     from .utils.device import resolve_device
 
     device = resolve_device(config.DEVICE)
-    ranks = mesh_lib.data_axis_size(config.TPU.MESH_SHAPE, device)
-    if ranks > 1 and not dist.is_initialized():
-        logger.info(f"starting {ranks} ranks on the data axis")
-        mesh_lib.spawn(_train_rank, ranks, device, exp_config, opts)
-        return
+    if not dist.is_initialized():
+        d, m = mesh_lib.mesh_axes(config.TPU.MESH_SHAPE, device)
+        if d * m > 1:
+            logger.info(f"starting {d} x {m} ranks (data x model)")
+            mesh_lib.spawn(_train_rank, d * m, device.type, exp_config, opts)
+            return
     get_trainer(config.TRAINER_NAME)(config).train()
 
 

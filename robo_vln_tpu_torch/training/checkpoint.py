@@ -20,9 +20,16 @@ A hierarchical checkpoint is a directory ``ckpt.{N}/`` holding
 * ``framework_metadata.json``: the config, ``scheduler_step``,
   ``train_steps`` and ``val_steps``, as the JAX trainer writes them.
 
-On a data-parallel mesh only rank 0 writes (:func:`is_writer`); every rank
-loads.  The policies are never wrapped (the steps all-reduce the gradients
-themselves, parallel/mesh.py), so the keys carry no wrapper's prefix.
+On a mesh only rank 0 writes (:func:`is_writer`); every rank loads.  The
+policies are never wrapped (the steps all-reduce the gradients themselves,
+parallel/mesh.py), so the keys carry no wrapper's prefix.  A checkpoint is
+always whole: on a "model" axis every rank takes part in the save, which
+gathers each split tensor and its Adam moments over the model group
+(parallel/tensor.whole_state_dict, whole_optimizer_state), so the file is
+the one a single process writes and any reader (the eval, the converters)
+reads it unchanged; every load reads the whole file and keeps the slices
+of the tensors the module splits (local_state_dict,
+local_optimizer_state).
 
 Torch keys optimizer state by the position of a parameter in its groups, so
 :func:`load_checkpoint` checks the recorded names against the rebuilt
@@ -41,6 +48,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..parallel import tensor as tensor_lib
 from .steps import HierTrainState, TrainState
 
 TRAIN_STATE = "train_state.pt"
@@ -53,20 +61,40 @@ def _param_names(module: nn.Module, optimizer: torch.optim.Optimizer) -> List[st
     return [names[id(p)] for group in optimizer.param_groups for p in group["params"]]
 
 
+def _whole(module: nn.Module, optimizer: torch.optim.Optimizer):
+    """(state_dict, optimizer state_dict, the optimizer's parameter names),
+    each split tensor gathered whole (every rank of its model group takes
+    part)."""
+    names = _param_names(module, optimizer)
+    return (tensor_lib.whole_state_dict(module),
+            tensor_lib.whole_optimizer_state(module, optimizer.state_dict(), names), names)
+
+
+def _load(module: nn.Module, optimizer: torch.optim.Optimizer, weights: Dict,
+          optimizer_state: Dict, names: List[str]) -> None:
+    """Whole ``weights`` and optimizer state into a module and its
+    optimizer, each keeping the slices the module splits."""
+    module.load_state_dict(tensor_lib.local_state_dict(module, weights))
+    optimizer.load_state_dict(tensor_lib.local_optimizer_state(module, optimizer_state, names))
+
+
 def save_checkpoint(path: str, high: nn.Module, low: nn.Module, state: HierTrainState,
                     metadata: Optional[Dict] = None) -> None:
     """Write ``ckpt.{N}/`` at ``path``: weights, optimizer state and step
     counters, then the metadata.  The state file is written under another
-    name and renamed, so a reader never sees half of it."""
+    name and renamed, so a reader never sees half of it.  Every rank calls
+    it; rank 0 writes."""
+    high_sd, high_opt, high_names = _whole(high, state.high.optimizer)
+    low_sd, low_opt, low_names = _whole(low, state.low.optimizer)
     _write_state(path, {
-        "high_level_state_dict": high.state_dict(),
-        "low_level_state_dict": low.state_dict(),
-        "high_optimizer": state.high.optimizer.state_dict(),
-        "low_optimizer": state.low.optimizer.state_dict(),
+        "high_level_state_dict": high_sd,
+        "low_level_state_dict": low_sd,
+        "high_optimizer": high_opt,
+        "low_optimizer": low_opt,
         "high_step": int(state.high.step),
         "low_step": int(state.low.step),
-        "high_param_names": _param_names(high, state.high.optimizer),
-        "low_param_names": _param_names(low, state.low.optimizer),
+        "high_param_names": high_names,
+        "low_param_names": low_names,
     }, metadata)
 
 
@@ -117,12 +145,9 @@ def _check_param_names(path: str, what: str, recorded: List[str], module: nn.Mod
 def save_flat_checkpoint(path: str, policy: nn.Module, state: TrainState,
                          metadata: Optional[Dict] = None) -> None:
     """Write a flat ``ckpt.{N}/`` at ``path``, as :func:`save_checkpoint`."""
-    _write_state(path, {
-        "state_dict": policy.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "step": int(state.step),
-        "param_names": _param_names(policy, state.optimizer),
-    }, metadata)
+    weights, optimizer, names = _whole(policy, state.optimizer)
+    _write_state(path, {"state_dict": weights, "optimizer": optimizer,
+                        "step": int(state.step), "param_names": names}, metadata)
 
 
 def load_flat_checkpoint(path: str, policy: nn.Module, state: TrainState) -> TrainState:
@@ -133,8 +158,7 @@ def load_flat_checkpoint(path: str, policy: nn.Module, state: TrainState) -> Tra
     if "state_dict" not in saved:
         raise ValueError(f"{path} is not a flat checkpoint (no state_dict)")
     _check_param_names(path, "the policy", saved["param_names"], policy, state.optimizer)
-    policy.load_state_dict(saved["state_dict"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    _load(policy, state.optimizer, saved["state_dict"], saved["optimizer"], saved["param_names"])
     return state._replace(step=saved["step"])
 
 
@@ -151,10 +175,10 @@ def load_checkpoint(path: str, high: nn.Module, low: nn.Module,
                                ("low", low, state.low.optimizer)):
         _check_param_names(path, f"the {level} level", saved[f"{level}_param_names"],
                            module, opt)
-    high.load_state_dict(saved["high_level_state_dict"])
-    low.load_state_dict(saved["low_level_state_dict"])
-    state.high.optimizer.load_state_dict(saved["high_optimizer"])
-    state.low.optimizer.load_state_dict(saved["low_optimizer"])
+    for level, module, opt in (("high", high, state.high.optimizer),
+                               ("low", low, state.low.optimizer)):
+        _load(module, opt, saved[f"{level}_level_state_dict"], saved[f"{level}_optimizer"],
+              saved[f"{level}_param_names"])
     return HierTrainState(state.high._replace(step=saved["high_step"]),
                           state.low._replace(step=saved["low_step"]))
 
@@ -217,7 +241,7 @@ def load_reference_checkpoint(trainer, path: str) -> Dict[str, int]:
     for level, module in (("high", trainer.high), ("low", trainer.low)):
         sd = {k: v for k, v in ckpt[f"{level}_level_state_dict"].items()
               if not _reference_only(k)}
-        module.load_state_dict(sd, strict=True)
+        module.load_state_dict(tensor_lib.local_state_dict(module, sd), strict=True)
         counts[level] = len(sd)
     return counts
 
@@ -248,5 +272,5 @@ def load_reference_flat_checkpoint(trainer, path: str) -> int:
     if not isinstance(sd, dict):
         raise ValueError(f"{path} holds no flat policy state_dict")
     sd = {k: v for k, v in sd.items() if not _flat_reference_only(k)}
-    trainer.policy.load_state_dict(sd, strict=True)
+    trainer.policy.load_state_dict(tensor_lib.local_state_dict(trainer.policy, sd), strict=True)
     return len(sd)

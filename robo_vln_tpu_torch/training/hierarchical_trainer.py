@@ -7,12 +7,14 @@ Adam low), one optimizer step of each per TBPTT window
 batch, a checkpoint per epoch (training/checkpoint.py) and a validation
 epoch over the eval buffer with the high level's accuracy.
 
-The batch of a step is ``DAGGER.BATCH_SIZE`` a rank of the data-parallel
-mesh (``TPU.MESH_SHAPE``, parallel/mesh.py; one rank on one device unless
-it says more), on ``DEVICE`` (CUDA unless the config asks for the CPU);
-the loader reads global batches of ``BATCH_SIZE × n_data``, as the JAX
-trainer does (BaseTrainer.train, BaseTrainer._batches), each rank
-collating only its rows.  A worker thread decodes, collates and copies the
+The batch of a step is ``DAGGER.BATCH_SIZE`` a data rank of the mesh
+(``TPU.MESH_SHAPE``, a ``[data, model]`` grid, parallel/mesh.py; one rank
+on one device unless it says more), on ``DEVICE`` (CUDA unless the config
+asks for the CPU); the loader reads global batches of
+``BATCH_SIZE × n_data``, as the JAX trainer does (BaseTrainer.train,
+BaseTrainer._batches), each rank collating only its data rank's rows.  On a
+"model" axis above 1 both policies' large kernels are split over it
+(BaseTrainer._shard_policies).  A worker thread decodes, collates and copies the
 windows one ahead of the step (envs/async_env.window_stream).  Each step's metrics reach the
 host in one transfer: the step already synchronises once for its
 non-finite guard.
@@ -79,6 +81,8 @@ VAL_KEYS = ("high_level_loss", "low_level_total_loss", "high_level_accuracy")
 
 @register_trainer("hierarchical_trainer")
 class HierarchicalTrainer(BaseTrainer):
+    POLICIES = ("high", "low")
+
     def __init__(self, config):
         self.config = config
         self.device = resolve_device(config.DEVICE)
@@ -138,8 +142,8 @@ class HierarchicalTrainer(BaseTrainer):
             mesh=self.mesh,
         )
 
-    def _policies(self):
-        return self.high, self.low
+    def _optimizers(self):
+        return self.state.high.optimizer, self.state.low.optimizer
 
     def _restore_loop_state(self, meta) -> None:
         self._scheduler_step = int(meta.get("scheduler_step", 0))

@@ -39,18 +39,22 @@ gradient is kept; the train state's step counters still advance.  Deciding
 this reads one scalar on the host, so the step synchronises with the device
 once.
 
-On a data-parallel mesh (``mesh``, parallel/mesh.DataMesh with a process
-group) each rank takes its rows of the global window.  Every denominator of
-the losses is then the count over the global batch: :func:`batch_counts`
-gives the rank's counts, summed across the ranks in one all-reduce before
-the forward (they depend on the batch alone), so each rank's loss is its
-share of the global loss; the velocity MSE's mean over every element
-becomes the rank's mean times its share of the elements.  One coalesced
-all-reduce then sums the gradients, which gives the gradient of the global
-loss, and the losses, from whose global sum every rank takes the same
-non-finite decision and logs the same metrics.  Each rank draws its own
-dropout masks (:func:`dropout_generator`'s ``rank``).  Without a process
-group the step is the one-process step, bit for bit.
+On a mesh (``mesh``, parallel/mesh.DataMesh with a process group) each
+rank takes the rows of the global window of its data rank.  Every
+denominator of the losses is then the count over the global batch:
+:func:`batch_counts` gives the rank's counts, summed over its data group in
+one all-reduce before the forward (they depend on the batch alone), so each
+rank's loss is its share of the global loss; the velocity MSE's mean over
+every element becomes the rank's mean times its share of the elements.
+One coalesced all-reduce over the data group then sums the gradients, which
+gives the gradient of the global loss (of a parameter split over the model
+axis, its slice's), and the losses, from whose global sum every rank takes
+the same non-finite decision and logs the same metrics.  Each data rank
+draws its own dropout masks (:func:`dropout_generator`'s ``rank``); the
+ranks of one model group draw the same ones, since they compute the same
+activations.  The split modules' collectives over the model group run
+inside the forward and the backward (parallel/tensor.py).  Without a
+process group the step is the one-process step, bit for bit.
 
 Float32 compute runs with TF32 off for the call (utils/device.float32_exact).
 The step's forward, backward, all-reduce and optimizer update run in
@@ -87,8 +91,9 @@ class HierTrainState(NamedTuple):
 
 
 def dropout_generator(step: int, device, rank: int = 0) -> torch.Generator:
-    """The dropout generator of one train step on one rank, on ``device``:
-    the same masks for the same step and rank, others for another."""
+    """The dropout generator of one train step on one data rank (the
+    mesh's ``rank``), on ``device``: the same masks for the same step and
+    data rank, others for another."""
     gen = torch.Generator(device=device)
     # the CPU generator reads the seed's low 32 bits only: the rank goes
     # above the step's bits there (steps below 2^24, ranks below 256)
@@ -122,7 +127,7 @@ def batch_counts(batch, inflection_coef=None, progress=False) -> Dict[str, torch
 
 
 def global_counts(mesh, batch, **kwargs) -> Optional[Dict[str, torch.Tensor]]:
-    """The rank's :func:`batch_counts` summed across the ranks in one
+    """The rank's :func:`batch_counts` summed over its data group in one
     all-reduce, beside the rank's own element count (``local_elements``);
     None without a process group."""
     if mesh is None or not mesh.distributed:
@@ -209,7 +214,7 @@ def _apply(opts_lrs, params, grads, total) -> bool:
 
 
 def _reduce(mesh, grads, scalars, prefix):
-    """The gradients and loss terms summed over the ranks (as given
+    """The gradients and loss terms summed over the data group (as given
     without a process group)."""
     if mesh is None or not mesh.distributed:
         return list(grads), list(scalars)

@@ -19,13 +19,16 @@ robo_vln_trainer.py:294-954): Adam at DAGGER.LR, one step a TBPTT window
 (training/steps.make_flat_train_step), a checkpoint an epoch, a validation
 epoch over the eval buffer, and ``--run-type eval``
 (eval/evaluator.eval_flat_checkpoint).  Both trainers train over the
-data-parallel mesh of ``TPU.MESH_SHAPE`` (parallel/mesh.py, joined in
-:meth:`BaseTrainer._join_mesh`): ``DAGGER.BATCH_SIZE`` a rank, a global
-batch of ``BATCH_SIZE × n_data`` read through the in-process loader or,
-with ``DAGGER.LOADER_WORKERS > 1``, the process-parallel one
-(data/parallel_loader.py), each rank collating and stepping on its rows
-of it; rank 0 alone
-collects, featurizes, writes checkpoints and TensorBoard.  With
+``[data, model]`` grid of ``TPU.MESH_SHAPE`` (parallel/mesh.py, joined in
+:meth:`BaseTrainer._join_mesh`): ``DAGGER.BATCH_SIZE`` a data rank, a
+global batch of ``BATCH_SIZE × n_data`` read through the in-process loader
+or, with ``DAGGER.LOADER_WORKERS > 1``, the process-parallel one
+(data/parallel_loader.py), each rank collating and stepping on its data
+rank's rows of it; on a "model" axis above 1 each rank holds its slices of
+the large kernels and of their Adam moments
+(:meth:`BaseTrainer._shard_policies`); rank 0 alone collects, featurizes
+(on whole copies of the policies, :meth:`BaseTrainer._whole_policies`),
+writes checkpoints (gathered whole by every rank) and TensorBoard.  With
 ``DAGGER.PRELOAD_TRUNK_FEATURES`` it trains and validates from the
 buffers' featurized twins (training/featurize.py, the policy's frozen
 ResNet trunks run once a buffer), as the JAX flat trainer does; with a
@@ -48,7 +51,8 @@ from ..data.trajectory_store import TrajectoryStore
 from ..envs.async_env import device_transfer, window_stream
 from ..models import build_flat_policy
 from ..ops import cm_attention
-from ..parallel.mesh import DataMesh, global_batch_size
+from ..parallel import tensor as tensor_lib
+from ..parallel.mesh import DataMesh, global_batch_size, shard_params
 from ..utils.device import resolve_device, resolve_dtype
 from ..utils.logging import MetricsWriter, logger
 from ..utils.pretrained import graft_pretrained
@@ -71,20 +75,62 @@ class _NoWriter:
 
 
 class BaseTrainer:
-    """Subclasses set ``config``, ``device``, ``batch_size`` (a rank's) and
-    ``mesh`` (the one-rank mesh until train() joins TPU.MESH_SHAPE's)."""
+    """Subclasses set ``config``, ``device``, ``batch_size`` (a data
+    rank's), ``mesh`` (the one-rank mesh until train() joins
+    TPU.MESH_SHAPE's) and ``POLICIES``, the names of their policy
+    attributes."""
+
+    POLICIES: tuple = ()
 
     @property
     def global_batch(self) -> int:
         return global_batch_size(self.batch_size, self.mesh.size)
 
+    def _policies(self):
+        return tuple(getattr(self, name) for name in self.POLICIES)
+
     def _join_mesh(self) -> None:
         """The mesh of TPU.MESH_SHAPE over the process group that is up
         (one rank without one)."""
         self.mesh = DataMesh.for_config(self.config, self.device)
-        logger.info(f"training mesh: {self.mesh.size} rank(s) on the data axis, "
-                    f"DAGGER.BATCH_SIZE={self.batch_size} a rank, global batch "
-                    f"{self.global_batch}")
+        logger.info(f"training mesh: {self.mesh.size} x {self.mesh.model_size} ranks "
+                    f"(data x model), DAGGER.BATCH_SIZE={self.batch_size} a data rank, "
+                    f"global batch {self.global_batch}")
+
+    def _shard_policies(self) -> None:
+        """On a "model" axis above 1: every rank keeps its slices of the
+        kernels param_shardings splits (JAX's rule at its default
+        min_size), and of the moments its optimizers already hold (a
+        resumed run's).  After the broadcast, so the slices are of rank 0's
+        weights."""
+        if self.mesh.model_size == 1:
+            return
+        split = whole = 0
+        for policy, optimizer in zip(self._policies(), self._optimizers()):
+            plan = shard_params(policy, self.mesh)
+            tensor_lib.shard_optimizer(optimizer, policy)
+            split += sum(dim is not None for dim in plan.values())
+            whole += sum(p.numel() for p in policy.parameters())
+        logger.info(f"model axis of {self.mesh.model_size}: {split} tensors split, "
+                    f"{whole} parameter elements on each rank")
+
+    @contextlib.contextmanager
+    def _whole_policies(self):
+        """Around rank 0's own work (collection, featurizing): the
+        policies as whole copies, gathered over the model axis by every rank
+        (a split policy run by rank 0 alone would wait in its first
+        collective), then the split ones back."""
+        split = self._policies()
+        if self.mesh.model_size == 1 or any(m is None for m in split):
+            yield
+            return
+        for name, m in zip(self.POLICIES, split):
+            setattr(self, name, tensor_lib.whole_copy(m))
+        try:
+            yield
+        finally:
+            for name, m in zip(self.POLICIES, split):
+                setattr(self, name, m)
 
     def _writer(self):
         return (MetricsWriter(self.config.TENSORBOARD_DIR) if self.mesh.is_main
@@ -270,6 +316,7 @@ class BaseTrainer:
         # every rank from rank 0's weights: the same seed built the same ones,
         # and a resumed checkpoint is the same file on every rank
         self.mesh.broadcast(*self._policies())
+        self._shard_policies()
         if self.mesh.is_main:
             os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
         with self._writer() as writer:
@@ -279,13 +326,15 @@ class BaseTrainer:
             done_through = start_epoch
             for dagger_it, epochs in self._iteration_plan(start_epoch):
                 if collect:
-                    self.mesh.on_main(self._update_dataset, dagger_it)
+                    with self._whole_policies():
+                        self.mesh.on_main(self._update_dataset, dagger_it)
                     logger.info(f"Data collection complete (iteration {dagger_it})")
                 train_dir, eval_dir = self.features_dir, self.eval_dir
                 if cfg.DAGGER.PRELOAD_TRUNK_FEATURES:
                     # after the collection, so that a buffer that has just
                     # grown is featurized up to its new end
-                    train_dir, eval_dir = self.mesh.on_main(self._featurized_dirs)
+                    with self._whole_policies():
+                        train_dir, eval_dir = self.mesh.on_main(self._featurized_dirs)
                 for epoch in epochs:
                     t0 = time.time()
                     train_steps = self.train_epoch(
@@ -385,6 +434,8 @@ class RoboVLNTrainer(BaseTrainer):
     ``TASK_CONFIG.SEED``, then the pretrained backbones and the GloVe table
     are read where their files exist (utils/pretrained.py)."""
 
+    POLICIES = ("policy",)
+
     def __init__(self, config):
         self.config = config
         self.device = resolve_device(config.DEVICE)
@@ -429,8 +480,8 @@ class RoboVLNTrainer(BaseTrainer):
             self.policy, use_progress=pm.use, progress_alpha=pm.alpha,
             valid_velocity_mse=vvm, mesh=self.mesh)
 
-    def _policies(self):
-        return (self.policy,)
+    def _optimizers(self):
+        return (self.state.optimizer,)
 
     def _featurized_dirs(self):
         """The feature-store twins of the train and eval buffers

@@ -47,6 +47,7 @@ from robo_vln_tpu_torch.data.trajectory_store import TrajectoryStore
 from robo_vln_tpu_torch.envs import collection
 from robo_vln_tpu_torch.envs import velocity_control as port_vc
 from robo_vln_tpu_torch.envs.expert import ContinuousPathFollower
+from robo_vln_tpu_torch.parallel import mesh as mesh_lib
 from robo_vln_tpu_torch.training.trainer import RoboVLNTrainer
 from robo_vln_tpu_torch.utils.registry import get_trainer
 from tests.test_torch_trainer import PORT_CONFIGS, tiny_opts
@@ -318,20 +319,30 @@ def test_collection_beta(tmp_path, p, load, want):
         assert trainer._collection_mixer(0) == (None, 1.0)
 
 
-@pytest.mark.parametrize("extra,item", [
-    ({"TPU.MESH_SHAPE": [1, 2], "DAGGER.COLLECT_ONLY": True}, "§A item 7b"),
+@pytest.mark.parametrize("extra,ranks", [
+    ({"TPU.MESH_SHAPE": [1, 2], "DAGGER.COLLECT_ONLY": True}, 2),
 ])
-def test_robo_vln_trainer_refuses_the_flat_family(tmp_path, extra, item):
-    """What robo_vln_trainer still refuses, before it collects anything:
-    a "model" axis of the mesh (tensor parallelism), which get_config
-    refuses.  The parallel loader, once refused here, trains through it
+def test_robo_vln_trainer_refuses_the_flat_family(tmp_path, extra, ranks):
+    """What robo_vln_trainer once refused, it runs: on a "model" axis of
+    the mesh (tensor parallelism) run_exp starts the grid's ranks and rank
+    0 collects the buffer one process collects, byte for byte, while the
+    other waits.  The parallel loader, once refused here, trains through it
     (tests/test_torch_parallel_loader.py); its training, eval and DAgger
     collection run: tests/test_torch_flat_trainer.py; its feature store
-    too: tests/test_torch_flat_features.py."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cfg = get_config(opts=collect_opts(tmp_path, "robo_vln_trainer", **extra))
-        RoboVLNTrainer(cfg).train()
-    assert not (tmp_path / "train_buf").exists()
+    too: tests/test_torch_flat_features.py; its split train step:
+    tests/test_torch_tensor_parallel.py."""
+    from robo_vln_tpu_torch.run import run_exp
+
+    one = collect_opts(tmp_path / "one", "robo_vln_trainer", **{"DAGGER.COLLECT_ONLY": True})
+    run_exp(None, "train", one)
+    split = collect_opts(tmp_path / "split", "robo_vln_trainer", **extra)
+    assert mesh_lib.mesh_axes(get_config(opts=split).TPU.MESH_SHAPE, "cpu") == (1, ranks)
+    run_exp(None, "train", split)
+    want = read_buffer(tmp_path / "one" / "train_buf")
+    assert len(want) == 2
+    assert [raw for raw, _ in read_buffer(tmp_path / "split" / "train_buf")] == [
+        raw for raw, _ in want]
+    assert not (tmp_path / "split" / "ckpts").exists()
 
 
 # -- the yamls and the entry point ----------------------------------------------------------

@@ -34,8 +34,10 @@ A non-finite loss in the last rank's rows skips the update on every rank.
 Rank 0's own work (on_main) may outlast the step group's timeout while the
 other ranks wait.
 With per-rank denominators (each rank dividing by its own counts, the mean
-of per-rank means), the same checks fail.  A "model" axis above 1 is
-refused before any work, and ``dryrun_multichip(2)`` runs.
+of per-rank means), the same checks fail.  A ``[d, m]`` grid resolves as
+make_mesh resolves it, axis names other than ["data", "model"] are refused
+before any work, and ``dryrun_multichip(4)`` runs both its phases (the
+model axis itself: tests/test_torch_tensor_parallel.py).
 """
 
 import copy
@@ -48,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 
+from robo_vln_tpu.parallel import mesh as jax_mesh
 from robo_vln_tpu.training import steps as jax_steps
 from robo_vln_tpu_torch.config import get_config
 from robo_vln_tpu_torch.parallel import mesh as mesh_lib
@@ -357,28 +360,51 @@ def test_a_nonfinite_shard_skips_the_update_on_every_rank(rank_results, kind, n)
 
 @pytest.mark.parametrize("shape,axes", [([2, 2], ["data", "model"]), ([-1, 2], ["data", "model"]),
                                         ([4, 1], ["batch", "model"])])
-def test_a_model_axis_is_refused_before_any_work(tmp_path, shape, axes):
+def test_a_model_axis_is_refused_before_any_work(tmp_path, shape, axes, monkeypatch):
+    """Axes other than ["data", "model"] are refused before any work; a
+    "model" axis is taken, and resolves as JAX's make_mesh resolves it on 4
+    cards (on the CPU, -1 is one process), without a training run."""
     from tests.test_torch_trainer import tiny_opts
     from robo_vln_tpu_torch.run import run_exp
 
     opts = tiny_opts(tmp_path, **{"TPU.MESH_SHAPE": shape, "TPU.MESH_AXES": axes})
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 7b"):
-        run_exp(None, "train", opts)
+    if axes != ["data", "model"]:
+        with pytest.raises(NotImplementedError, match="the mesh has the axes"):
+            run_exp(None, "train", opts)
+    else:
+        cfg = get_config(opts=opts)
+        jax_shape = dict(jax_mesh.make_mesh(shape, axes, jax.devices()[:4]).shape)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        assert mesh_lib.mesh_axes(cfg.TPU.MESH_SHAPE, "cuda") == (jax_shape["data"],
+                                                                   jax_shape["model"]) == (2, 2)
+        assert mesh_lib.mesh_axes(cfg.TPU.MESH_SHAPE, "cpu") == (shape[0] if shape[0] > 0 else 1,
+                                                                  2)
     assert not (tmp_path / "ckpts").exists() and not (tmp_path / "tb").exists()
 
 
 def test_the_data_axis_resolves_as_make_mesh_does(monkeypatch):
-    assert mesh_lib.data_axis_size([-1, 1], "cpu") == 1
-    assert mesh_lib.data_axis_size([3, 1], "cpu") == 3
+    assert mesh_lib.mesh_axes([-1, 1], "cpu") == (1, 1)
+    assert mesh_lib.mesh_axes([3, 1], "cpu") == (3, 1)
+    assert mesh_lib.mesh_axes([2, -1], "cpu") == (2, 1)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert mesh_lib.data_axis_size([-1, 1], "cuda") == 4
-    assert mesh_lib.data_axis_size([2, 1], "cuda") == 2
+    assert mesh_lib.mesh_axes([-1, 1], "cuda") == (4, 1)
+    assert mesh_lib.mesh_axes([2, 1], "cuda") == (2, 1)
+    assert mesh_lib.mesh_axes([1, -1], "cuda") == (1, 4)
     with pytest.raises(RuntimeError, match="4 CUDA devices are visible"):
-        mesh_lib.data_axis_size([8, 1], "cuda")
+        mesh_lib.mesh_axes([8, 1], "cuda")
+    with pytest.raises(RuntimeError, match="4 CUDA devices are visible"):
+        mesh_lib.mesh_axes([2, 4], "cuda")
+    with pytest.raises(RuntimeError, match="do not divide over 3"):
+        mesh_lib.mesh_axes([-1, 3], "cuda")
+    # a group that is up holds the grid: -1 fills it, another count raises
+    assert mesh_lib.mesh_axes([-1, 2], "cuda", ranks=2) == (1, 2)
+    with pytest.raises(RuntimeError, match="the process group holds 2"):
+        mesh_lib.mesh_axes([2, 2], "cuda", ranks=2)
     assert mesh_lib.global_batch_size(3, 4) == 12
-    cfg = get_config(opts=["TPU.MESH_SHAPE", [2, 1]])
-    with pytest.raises(RuntimeError, match="a process a rank"):
-        mesh_lib.DataMesh.for_config(cfg, "cpu")
+    for shape in ([2, 1], [1, 2]):
+        cfg = get_config(opts=["TPU.MESH_SHAPE", shape])
+        with pytest.raises(RuntimeError, match="a process a rank"):
+            mesh_lib.DataMesh.for_config(cfg, "cpu")
 
 
 def test_dropout_masks_differ_by_rank():
@@ -407,6 +433,23 @@ def test_rank_zero_work_outlasts_the_step_groups_timeout(tmp_path):
 def test_dryrun_multichip_runs(capfd):
     from robo_vln_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    dryrun_multichip(2)
+    dryrun_multichip(4)
     out = capfd.readouterr().out
-    assert "dryrun_multichip(2) ok (gloo): high_level_loss=" in out
+    assert "dryrun_multichip(4) ok (gloo): high_level_loss=" in out
+    assert "dryrun_multichip(4) dp x tp (2 x 2) ok: 34 tensor-sharded kernels (high 30, low 4), " \
+           "high_level_loss=" in out
+
+
+@pytest.mark.parametrize("cards", [1, 3])
+def test_dryrun_multichip_refuses_fewer_cards_than_ranks(monkeypatch, cards):
+    """Where a card is visible the default puts a rank on each card: fewer
+    cards than ranks raise before any rank starts, naming the one-card
+    form, instead of running on the CPU."""
+    from robo_vln_tpu_torch.parallel import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(mesh_lib, "spawn", lambda *a, **k: pytest.fail("a rank started"))
+    with pytest.raises(RuntimeError, match=f"{cards} CUDA devices are visible: pass "
+                                           "device='cuda:0', backend='gloo'"):
+        dryrun.dryrun_multichip(4)

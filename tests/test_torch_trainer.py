@@ -370,21 +370,26 @@ def test_resume_matches_uninterrupted_run(tmp_path):
 # -- 5. options not ported yet ----------------------------------------------------------
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TPU.MESH_AXES", ["batch", "model"], "§A item 7b"),
-    ("TPU.MESH_SHAPE", [2, 2], "§A item 7b"),
+    ("TPU.MESH_AXES", ["batch", "model"], "the mesh has the axes"),
+    ("TPU.MESH_SHAPE", [2, 2], "a grid of 4 ranks"),
     ("MODEL.BERT.pretrained_weights", "bert.npz", "§A item 8"),
 ])
 def test_unported_options_raise_before_any_work(tmp_path, key, value, item):
-    """The mesh options the port lacks raise before any work.  The
-    pretrained BERT file of the §A item 8 case is read since that item was
-    ported (utils/pretrained.py): the trainer takes 2 steps from a tiny
-    valid .npz and records it loaded."""
+    """Mesh axes other than ["data", "model"] raise before any work.  A
+    "model" axis is the port's since it was ported (parallel/tensor.py):
+    get_config takes [2, 2], and a trainer called outside a process group
+    (not through run_exp, which starts the ranks) refuses the grid of 4
+    ranks before any work.  The pretrained BERT file of the §A item 8 case
+    is read since that item was ported (utils/pretrained.py): the trainer
+    takes 2 steps from a tiny valid .npz and records it loaded."""
     if key == "MODEL.BERT.pretrained_weights":
         _trains_from_a_pretrained_bert(tmp_path, str(tmp_path / value))
         return
     options = dict(zip(key, value)) if isinstance(key, tuple) else {key: value}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    error = RuntimeError if key == "TPU.MESH_SHAPE" else NotImplementedError
+    with pytest.raises(error, match=item):
         cfg = port_config(tmp_path, **options)
+        assert list(cfg.TPU.MESH_SHAPE) == [2, 2]
         get_trainer(cfg.TRAINER_NAME)(cfg).train()
     assert not (tmp_path / "ckpts").exists() and not (tmp_path / "tb").exists()
     assert not (tmp_path / "train_buf").exists()
@@ -430,25 +435,31 @@ def test_jax_only_keys_are_listed_with_their_defaults():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TPU.MESH_AXES", ["data"], "§A item 7b"),
-    ("TPU.MESH_SHAPE", [2, 2], "§A item 7b"),
+    ("TPU.MESH_AXES", ["data"], "the mesh has the axes"),
+    ("TPU.MESH_SHAPE", [2, 2], None),
 ])
 def test_jax_only_keys_refused_past_their_default(tmp_path, key, value, item):
     """get_config refuses, from a CLI option and from a yaml, a value of a
     JAX package key that the port does not compute, naming the ROADMAP item
     that would port it; at its JAX default, and for an inert key at any
     value, it loads (as do the port's yamls).  The mesh's keys are the
-    port's own now: it refuses the mesh it does not build, other axes or a
-    "model" axis above 1 (tensor parallelism)."""
-    with pytest.raises(NotImplementedError, match=f"{re.escape(key)} = .*ROADMAP {item}"):
-        get_config(opts=[key, json.dumps(value) if not isinstance(value, str) else value])
+    port's own now: it refuses the mesh it does not build, other axes
+    (``item`` the reason), and takes a "model" axis above 1 (tensor
+    parallelism, ``item`` None), from a CLI option as from a yaml."""
     yaml_path = tmp_path / "exp.yaml"
     node = value
     for part in reversed(key.split(".")):
         node = {part: node}
     yaml_path.write_text(json.dumps(node))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        get_config(str(yaml_path))
+    option = [key, json.dumps(value) if not isinstance(value, str) else value]
+    if item is None:
+        for cfg in (get_config(opts=option), get_config(str(yaml_path))):
+            assert _lookup(cfg, key) == value
+    else:
+        with pytest.raises(NotImplementedError, match=f"{re.escape(key)} = .*{item}"):
+            get_config(opts=option)
+        with pytest.raises(NotImplementedError, match=item):
+            get_config(str(yaml_path))
     assert key not in jax_only.UNPORTED and key not in jax_only.INERT
     default = _lookup(jax_defaults, key)
     assert _lookup(get_config(opts=[key, json.dumps(default)]), key) == default

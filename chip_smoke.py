@@ -491,12 +491,17 @@ def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def card_line():
+def card_lines():
+    """nvidia-smi's name and power limit, a line a card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line():
+    return card_lines()[0]
 
 
 def kernel_name(mangled):
@@ -2160,23 +2165,25 @@ HCM_LOSS_KEYS = ("high_level_loss", "low_level_action_loss", "low_level_stop_los
 
 
 def hold_step_to_plain(label, got, got_grads, ref, ref_grads, loss_keys=HCM_LOSS_KEYS,
-                       zero_leaf=ZERO_GRAD_LEAF, against="plain"):
-    """A float32 train step's losses (TRAIN_LOSS_RTOL, relative) and each
-    trainable leaf's gradient (TRAIN_GRAD_TOL of the leaf's norm) against
-    the same step with every kernel swapped for its plain version.  The
-    leaves named ``...zero_leaf`` have an exact gradient of 0 and are held
-    against their projection's weight gradient instead."""
+                       zero_leaf=ZERO_GRAD_LEAF, against="plain", loss_rtol=TRAIN_LOSS_RTOL,
+                       grad_tol=TRAIN_GRAD_TOL):
+    """A float32 train step's losses (``loss_rtol``, relative) and each
+    trainable leaf's gradient (``grad_tol`` of the leaf's norm) against
+    the same step with every kernel swapped for its plain version (or
+    ``against`` another reference).  The metrics are tensors or floats.
+    The leaves named ``...zero_leaf`` have an exact gradient of 0 and are
+    held against their projection's weight gradient instead."""
     print(f"  {label} against {against}:")
     for key in loss_keys:
-        a, b = got[key].item(), ref[key].item()
+        a, b = float(got[key]), float(ref[key])
         rel = abs(a - b) / abs(b) if b else abs(a)
         print(f"  {key}: {a:.6f} against {b:.6f}, relative {rel:.3e} "
-              f"(tolerance {TRAIN_LOSS_RTOL})")
-        if not rel <= TRAIN_LOSS_RTOL:
+              f"(tolerance {loss_rtol})")
+        if not rel <= loss_rtol:
             fail(f"float32 train step ({label}) {key} disagrees with the plain-kernel step")
     if "high_level_accuracy" in got:
-        print(f"  high_level_accuracy: {got['high_level_accuracy'].item():.4f} against "
-              f"{ref['high_level_accuracy'].item():.4f}")
+        print(f"  high_level_accuracy: {float(got['high_level_accuracy']):.4f} against "
+              f"{float(ref['high_level_accuracy']):.4f}")
     if got_grads.keys() != ref_grads.keys():
         fail(f"the runs ({label}, plain) gave gradients to different parameters")
     worst = {"leaf": (0.0, None), "zero": (0.0, None)}
@@ -2195,13 +2202,13 @@ def hold_step_to_plain(label, got, got_grads, ref, ref_grads, loss_keys=HCM_LOSS
         if err >= worst[kind][0]:
             worst[kind] = err, name
     print(f"  gradients: largest error {worst['leaf'][0]:.3e} of its leaf's norm, at "
-          f"{worst['leaf'][1]} (tolerance {TRAIN_GRAD_TOL}), over {len(got_grads)} leaves")
+          f"{worst['leaf'][1]} (tolerance {grad_tol}), over {len(got_grads)} leaves")
     if worst["zero"][1] is not None:
         print(f"  the key biases, whose exact gradient is 0: largest value "
               f"{worst['zero'][0]:.3e} of the key weight's gradient norm, at "
-              f"{worst['zero'][1]} (tolerance {TRAIN_GRAD_TOL})")
+              f"{worst['zero'][1]} (tolerance {grad_tol})")
     for err, name in worst.values():
-        if not err <= TRAIN_GRAD_TOL:
+        if not err <= grad_tol:
             fail(f"float32 train step ({label}) gradient of {name} disagrees with the "
                  "plain-kernel step")
 
@@ -6149,13 +6156,67 @@ def _tp_steps(rank, device, out):
         torch.cuda.empty_cache()
 
 
+def restored_as_saved(trainer, saved):
+    """After a resumed trainer has split its policies: every tensor and
+    Adam moment it holds is its slice of ``saved`` (the checkpoint's
+    train_state), bitwise; {level: (optimizer entries, split tensors)}."""
+    from robo_vln_tpu_torch.parallel import tensor
+
+    out = {}
+    for level in ("high", "low"):
+        module = getattr(trainer, level)
+        opt = getattr(trainer.state, level).optimizer
+        want = tensor.local_state_dict(module, saved[f"{level}_level_state_dict"])
+        for k, v in module.state_dict().items():
+            if not torch.equal(v.cpu(), want[k]):
+                fail(f"the resumed {level} {k} is not its slice of the checkpoint's")
+        names = saved[f"{level}_param_names"]
+        want = tensor.local_optimizer_state(module, saved[f"{level}_optimizer"], names)
+        for index, entry in opt.state_dict()["state"].items():
+            for k, v in entry.items():
+                if not torch.equal(v.cpu(), want["state"][index][k]):
+                    fail(f"the resumed {level} moment {k} of {names[index]} is not its slice "
+                         "of the checkpoint's")
+        out[level] = (len(want["state"]), len(tensor.split_layout(module)))
+    return out
+
+
+def checkpoint_as_gathered(trainer, whole=None):
+    """(name, tensors compared): the trainer's newest checkpoint bitwise its
+    weights and Adam moments gathered whole (every rank of each model group
+    takes part); ``whole``: each level's tensor.whole_state_dict, where the
+    caller has gathered it already."""
+    from robo_vln_tpu_torch.parallel import tensor
+    from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
+
+    path = ckpt_lib.list_checkpoints(trainer.config.CHECKPOINT_FOLDER)[-1]
+    file = torch.load(os.path.join(path, ckpt_lib.TRAIN_STATE), map_location="cpu",
+                      weights_only=True)
+    compared = 0
+    for level in ("high", "low"):
+        module = getattr(trainer, level)
+        opt = getattr(trainer.state, level).optimizer
+        weights = whole[level] if whole else tensor.whole_state_dict(module)
+        moments = tensor.whole_optimizer_state(module, opt.state_dict(),
+                                               file[f"{level}_param_names"])
+        for k, v in weights.items():
+            if not torch.equal(v.cpu(), file[f"{level}_level_state_dict"][k]):
+                fail(f"{path}: {level} {k} is not the gathered slices")
+            compared += 1
+        for index, entry in moments["state"].items():
+            for k, v in entry.items():
+                if not torch.equal(v.cpu(), file[f"{level}_optimizer"]["state"][index][k]):
+                    fail(f"{path}: {level} moment {k} is not the gathered slices")
+                compared += 1
+    return os.path.basename(path), compared
+
+
 def _tp_epoch(rank, device, root, out, resume):
     """16b on one rank: HierarchicalTrainer.train() on [1, TP_RANKS], one
     epoch (the first, or resumed from its ckpt.2 with each restored slice
     checked right after the split)."""
     from robo_vln_tpu_torch.config import get_config
     from robo_vln_tpu_torch.ops import fused_attention, fused_lstm
-    from robo_vln_tpu_torch.parallel import tensor
     from robo_vln_tpu_torch.training import checkpoint as ckpt_lib
     from robo_vln_tpu_torch.training.hierarchical_trainer import HierarchicalTrainer
     from robo_vln_tpu_torch.utils.logging import logger
@@ -6173,22 +6234,7 @@ def _tp_epoch(rank, device, root, out, resume):
 
         def check_restored():
             split_policies()
-            for level in ("high", "low"):
-                module = getattr(trainer, level)
-                opt = getattr(trainer.state, level).optimizer
-                want = tensor.local_state_dict(module, saved[f"{level}_level_state_dict"])
-                for k, v in module.state_dict().items():
-                    if not torch.equal(v.cpu(), want[k]):
-                        raise RuntimeError(f"rank {rank}: resumed {level} {k} is not its slice")
-                names = saved[f"{level}_param_names"]
-                want = tensor.local_optimizer_state(module, saved[f"{level}_optimizer"], names)
-                for index, entry in opt.state_dict()["state"].items():
-                    for k, v in entry.items():
-                        if not torch.equal(v.cpu(), want["state"][index][k]):
-                            raise RuntimeError(f"rank {rank}: resumed {level} moment {k} of "
-                                               f"{names[index]} is not its slice")
-                restored[level] = (len(want["state"]), sum(
-                    1 for d in tensor.split_layout(module).values()))
+            restored.update(restored_as_saved(trainer, saved))
 
         trainer._shard_policies = check_restored
     fused_lstm.reset_launches()
@@ -6201,26 +6247,7 @@ def _tp_epoch(rank, device, root, out, resume):
     out["bytes"] = held_bytes((trainer.high, trainer.low),
                               (trainer.state.high.optimizer, trainer.state.low.optimizer))
     # the checkpoint is the gathered slices and moments, bitwise
-    path = ckpt_lib.list_checkpoints(cfg.CHECKPOINT_FOLDER)[-1]
-    file = torch.load(os.path.join(path, ckpt_lib.TRAIN_STATE), map_location="cpu",
-                      weights_only=True)
-    compared = 0
-    for level in ("high", "low"):
-        module = getattr(trainer, level)
-        opt = getattr(trainer.state, level).optimizer
-        weights = tensor.whole_state_dict(module)
-        moments = tensor.whole_optimizer_state(module, opt.state_dict(),
-                                               file[f"{level}_param_names"])
-        for k, v in weights.items():
-            if not torch.equal(v.cpu(), file[f"{level}_level_state_dict"][k]):
-                raise RuntimeError(f"{path}: {level} {k} is not the gathered slices")
-            compared += 1
-        for index, entry in moments["state"].items():
-            for k, v in entry.items():
-                if not torch.equal(v.cpu(), file[f"{level}_optimizer"]["state"][index][k]):
-                    raise RuntimeError(f"{path}: {level} moment {k} is not the gathered slices")
-                compared += 1
-    out["checkpoint"] = (os.path.basename(path), compared)
+    out["checkpoint"] = checkpoint_as_gathered(trainer)
 
 
 def _tp_rank(rank, device, root):

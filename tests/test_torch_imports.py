@@ -1,8 +1,9 @@
 """The port stands alone: importing robo_vln_tpu_torch and every submodule
 loads neither JAX, flax, optax nor anything of robo_vln_tpu, and no source
-of the port or chip_smoke.py names them in an import, not even one inside a
-function.  Nor msgpack or lmdb, which the card's machine lacks (the port has
-its own msgpack codec and store).  Importing every module loads neither
+of the port, chip_smoke.py or scripts/multicard_smoke.py (the four-card
+smoke) names them in an import, not even one inside a function.  Nor
+msgpack or lmdb, which the card's machine lacks (the port has its own
+msgpack codec and store).  Importing every module loads neither
 PyYAML nor TensorBoard either: the port reads a yaml, and makes a
 TensorBoard writer, only when asked to."""
 
@@ -56,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                  REPO / "scripts" / "multicard_smoke.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_imports_jax(path):
